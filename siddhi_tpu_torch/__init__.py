@@ -1,0 +1,20 @@
+"""siddhi_tpu_torch — the PyTorch/CUDA port of siddhi_tpu.
+
+A second package beside the JAX one, ported one slice at a time (see
+ROADMAP.md).  It imports ``torch`` and ``numpy`` and nothing of JAX or of
+the JAX package; the tests hold it bit for bit against that package.
+
+This slice runs the dense-NFA pattern path for capture-free ``every``
+chains: ``compile_pattern`` builds a ``DensePatternEngine`` whose step is
+a hand-written CUDA kernel on the card (``kernels/csrc/dense_step.cu``)
+and its plain torch version on the CPU.  Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``.
+"""
+
+from siddhi_tpu_torch.ops.dense_nfa import (
+    compile_pattern,
+    state_from_numpy,
+    state_to_numpy,
+)
+
+__all__ = ["compile_pattern", "state_from_numpy", "state_to_numpy"]

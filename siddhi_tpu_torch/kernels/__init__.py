@@ -1,0 +1,11 @@
+"""Hand-written CUDA kernels of the port and their plain torch versions.
+
+- ``dense_step``: the packed dense-NFA step (``csrc/dense_step.cu``),
+  replacing the JAX package's Pallas ``build_packed_nfa``;
+  ``plane_pack`` holds the bit layout.
+- ``probe``: the build-and-launch check (``csrc/probe.cu``).
+
+``build`` compiles ``csrc/*.cu`` with ``nvcc`` at first use.  A wrapper
+launches its kernel for a CUDA tensor and uses the plain version only
+for a CPU tensor; each counts its launches (``<wrapper>.launches``).
+"""

@@ -1,0 +1,718 @@
+"""Dense vectorized NFA on torch tensors: the port's pattern hot path.
+
+Port of the JAX package's ``ops/dense_nfa.py`` for the class its packed
+kernel covers: capture-free ``every`` chains of plain stream nodes with
+an optional ``within``.  Per-partition NFA state lives on the device as
+a dict of tensors under the JAX engine's keys:
+
+- ``active`` ``[P+1, S, I]`` bool: pending instance lanes per node;
+- ``first_ts`` ``[P+1, S, I]`` int32: within anchors, relative ms since
+  ``base_ts`` (0 = unset);
+- ``counts`` ``[P+1, S, I]`` int32 and ``regs`` ``[P+1, S, I, 1]``
+  float32: constant (zero) in this class, kept for the shared layout;
+- ``overflow`` ``[P+1]`` int32: instances dropped for want of a free lane.
+
+Row ``P`` is a scratch row that padded batch rows point at.  A batch is
+split into collision rounds (each partition at most once per round),
+staged to the device, and each round is one packed step
+(``kernels/dense_step.py``): the CUDA kernel on a card, its plain torch
+version on the CPU.  Matches come back through ``DeferredDenseEmit`` and
+``core/emit_queue.fetch_coalesced``.
+
+Timestamps ride int32 relative lanes re-anchored before they approach
+the int32 range; LONG attributes ride hi/lo int32 pairs; DOUBLE is kept
+as float32.  That is the JAX engine's lane layout, which is what makes
+the two bit-identical.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+without a card they raise rather than run on the CPU.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from siddhi_tpu_torch.core.emit_queue import fetch_coalesced
+from siddhi_tpu_torch.core.exceptions import (
+    SiddhiAppCreationError,
+    SiddhiAppRuntimeError,
+)
+from siddhi_tpu_torch.core.ingest_stage import staged_put
+from siddhi_tpu_torch.kernels import probe
+from siddhi_tpu_torch.kernels.dense_step import (
+    MAX_INSTANCES,
+    build_packed_nfa,
+)
+from siddhi_tpu_torch.kernels.plane_pack import unpack_state
+from siddhi_tpu_torch.ops.nfa import NFABuilder, Node, PatternScope
+from siddhi_tpu_torch.planner.expr import CompiledExpression, ExpressionCompiler
+from siddhi_tpu_torch.planner.kernels import check_dense_kernel_eligible
+from siddhi_tpu_torch.query_api import AttrType, StateInputStream, Variable
+from siddhi_tpu_torch.query_api.definition import StreamDefinition
+
+
+@dataclass
+class RegSlot:
+    ref: str
+    attr: str
+    last: bool  # False: first captured event; True: last captured event
+    index: int
+    integer: bool = False  # True: hi/lo int32 pair in the iregs bank
+
+
+# integer (INT/LONG) values ride hi/lo int32 pairs: hi = v >> 32 (signed),
+# lo = (v & 0xffffffff) - 2^31 (bias-signed, so SIGNED int32 comparison of
+# lo equals UNSIGNED comparison of the raw low word) — (hi, lo)
+# lexicographic signed order == int64 signed order, bit-exact at any
+# magnitude
+_INT_TYPES = (AttrType.INT, AttrType.LONG)
+
+
+def _i64_split_const(v: int) -> Tuple[np.int32, np.int32]:
+    v = int(v)
+    return (np.int32(v >> 32), np.int32((v & 0xFFFFFFFF) - 2**31))
+
+
+def _i64_join(hi: np.ndarray, lo: np.ndarray) -> np.ndarray:
+    return ((hi.astype(np.int64) << 32)
+            | (lo.astype(np.int64) + 2**31).astype(np.uint32))
+
+
+def resolve_device(device=None) -> torch.device:
+    """``cuda`` unless the caller names a device; a CUDA device with no
+    card raises instead of running on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise SiddhiAppCreationError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "port's plain versions on the CPU")
+    return dev
+
+
+class DenseScope(PatternScope):
+    """Filter/selector scope resolving captured refs to register slots."""
+
+    def __init__(self, ref_defs, stream_to_ref, cand_def, alloc: "RegAllocator",
+                 cand_ref=None):
+        super().__init__(ref_defs, stream_to_ref, cand_def, cand_ref=cand_ref)
+        self.alloc = alloc
+
+    def resolve(self, var: Variable):
+        key, t = super().resolve(var)
+        if key.startswith("__cand."):
+            return key, t
+        # captured reference -> register slot key
+        ref, idx, attr, _t = self.used_captures[key]
+        integer = t in _INT_TYPES
+        if idx in (None, 0):
+            slot = self.alloc.slot(ref, attr, last=False, integer=integer)
+        elif idx == -1:
+            slot = self.alloc.slot(ref, attr, last=True, integer=integer)
+        else:
+            raise SiddhiAppCreationError(
+                f"dense NFA supports only first/[0]/[last] capture refs, got index {idx}"
+            )
+        prefix = "__ireg" if integer else "__reg"
+        return f"{prefix}.{slot.index}", t
+
+
+class RegAllocator:
+    """Two banks: float32 value slots (``regs``) and integer hi/lo pair
+    slots (``iregs``) — indexed independently."""
+
+    def __init__(self):
+        self.slots: Dict[Tuple[str, str, bool], RegSlot] = {}
+        self._n_float = 0
+        self._n_int = 0
+
+    def slot(self, ref: str, attr: str, last: bool,
+             integer: bool = False) -> RegSlot:
+        k = (ref, attr, last)
+        if k not in self.slots:
+            idx = self._n_int if integer else self._n_float
+            self.slots[k] = RegSlot(ref, attr, last, idx, integer)
+            if integer:
+                self._n_int += 1
+            else:
+                self._n_float += 1
+        return self.slots[k]
+
+    @property
+    def n(self) -> int:
+        return self._n_float
+
+    @property
+    def n_int(self) -> int:
+        return self._n_int
+
+
+class DenseExprCompiler(ExpressionCompiler):
+    """Dense-filter compiler: integer (INT/LONG) leaves ride hi/lo int32
+    pairs (``<key>|hi`` / ``<key>|lo`` env lanes); comparisons between
+    integer leaves compile to bit-exact paired compares at any
+    magnitude.  Every other integer use (arithmetic) raises."""
+
+    PAIR_TYPES = _INT_TYPES
+
+    def _i64_parts(self, e, var_only=False):
+        """Integer leaf -> (hi_fn, lo_fn) env readers, else None.
+        ``var_only`` skips constants: an integer LITERAL against a float
+        lane (``[v > 100]``) stays on the ordinary float compare."""
+        from siddhi_tpu_torch.query_api import Constant
+
+        if (not var_only and isinstance(e, Constant)
+                and e.type in _INT_TYPES and e.value is not None):
+            hi, lo = _i64_split_const(e.value)
+            return (lambda env: hi), (lambda env: lo)
+        if isinstance(e, Variable):
+            key, t = self.scope.resolve(e)
+            if t in self.PAIR_TYPES:
+                return ((lambda env: env[key + "|hi"]),
+                        (lambda env: env[key + "|lo"]))
+        return None
+
+    def _c_CompareOp(self, e):
+        # pair compares engage only when an integer VARIABLE lane is
+        # involved; integer constants alone coerce fine on float lanes
+        if (self._i64_parts(e.left, var_only=True) is None
+                and self._i64_parts(e.right, var_only=True) is None):
+            return super()._c_CompareOp(e)
+        lp, rp = self._i64_parts(e.left), self._i64_parts(e.right)
+        if lp is None or rp is None:
+            raise SiddhiAppCreationError(
+                "dense NFA: comparison mixes a 64-bit integer lane with a "
+                "non-integer operand")
+        lhi, llo = lp
+        rhi, rlo = rp
+        op = e.op
+
+        def fn(env):
+            a_hi, a_lo = lhi(env), llo(env)
+            b_hi, b_lo = rhi(env), rlo(env)
+            if op == "==":
+                return (a_hi == b_hi) & (a_lo == b_lo)
+            if op == "!=":
+                return (a_hi != b_hi) | (a_lo != b_lo)
+            if op == ">":
+                return (a_hi > b_hi) | ((a_hi == b_hi) & (a_lo > b_lo))
+            if op == ">=":
+                return (a_hi > b_hi) | ((a_hi == b_hi) & (a_lo >= b_lo))
+            if op == "<":
+                return (a_hi < b_hi) | ((a_hi == b_hi) & (a_lo < b_lo))
+            return (a_hi < b_hi) | ((a_hi == b_hi) & (a_lo <= b_lo))
+
+        return CompiledExpression(fn, AttrType.BOOL)
+
+    def _c_Variable(self, e):
+        key, t = self.scope.resolve(e)
+        if t in self.PAIR_TYPES:
+            raise SiddhiAppCreationError(
+                "dense NFA: integer attribute used outside a plain "
+                "comparison (arithmetic on 64-bit lanes is not supported)")
+        return super()._c_Variable(e)
+
+
+class DensePatternEngine:
+    """A lowered node chain compiled into per-stream packed steps.
+
+    Usage:
+        eng = compile_pattern(app_str, "q", n_partitions=P, device="cuda")
+        state = eng.init_state()
+        state, match_ev_idx, out = eng.process(state, stream_key,
+                                               part_idx, cols, ts)
+
+    ``process`` updates the state tensors in place and returns the dict.
+    """
+
+    base_ts: Optional[int] = None
+    # re-anchor before relative ms approach int32 range (~24.8 days of
+    # stream time); headroom covers one batch + the within horizon
+    _REL_LIMIT = 2**31 - 2**24
+
+    def __init__(
+        self,
+        nodes: List[Node],
+        ref_defs: Dict[str, StreamDefinition],
+        stream_to_ref: Dict[str, Optional[str]],
+        within_ms: Optional[int],
+        n_partitions: int,
+        select_vars: List[Variable],
+        select_names: Optional[List[str]] = None,
+        is_sequence: bool = False,
+        n_instances: int = 4,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.nodes = nodes
+        self.ref_defs = ref_defs
+        self.within_ms = within_ms
+        self.n_partitions = int(n_partitions)
+        # an every-headed chain re-arms; the packed step needs one
+        self.every_start = any(n.rearm_to is not None for n in nodes)
+        self.is_sequence = is_sequence
+        self.S = len(nodes)
+        self.I = 1 if (is_sequence or not self.every_start) else max(int(n_instances), 1)
+        if self.S > 32:
+            raise SiddhiAppCreationError("dense NFA supports at most 32 chain nodes")
+        if self.I > MAX_INSTANCES:
+            raise SiddhiAppCreationError(
+                f"the port's packed step holds at most {MAX_INSTANCES} "
+                f"instance lanes per node, got {self.I}")
+        # any `every` other than the standing virgin at node 0 re-arms a
+        # group, which the packed step does not model
+        self.group_every = any(
+            n.rearm_to is not None and not (n.pos == 0 and n.rearm_to == 0)
+            for n in nodes)
+        self.has_deadlines = any(sp.is_absent and sp.waiting_ms is not None
+                                 for n in nodes for sp in n.specs)
+        self.alloc = RegAllocator()
+        self._compile_filters(stream_to_ref)
+        self._compile_outputs(select_vars, stream_to_ref, select_names)
+        check_dense_kernel_eligible(self)
+        if self.device.type == "cuda":
+            ok, reason = probe.kernels_available(self.device)
+            if not ok:
+                raise SiddhiAppCreationError(reason)
+        self._step_cache: Dict[str, Callable] = {}
+
+    # -- compilation --------------------------------------------------------
+
+    def _compile_filters(self, stream_to_ref):
+        """Per-node filters compiled against candidate columns."""
+        self.node_filters: List[List[Optional[CompiledExpression]]] = []
+        for node in self.nodes:
+            fs = []
+            for spec in node.specs:
+                if spec.filter_compiled is None:
+                    fs.append(None)
+                    continue
+                scope = DenseScope(self.ref_defs, stream_to_ref,
+                                   spec.stream_def, self.alloc,
+                                   cand_ref=spec.ref)
+                fs.append(DenseExprCompiler(scope).compile(spec.raw_filter))
+            self.node_filters.append(fs)
+
+    def _compile_outputs(self, select_vars: List[Variable], stream_to_ref,
+                         select_names=None):
+        """Selector variables -> (slot | ('cand', attr)) extractors.
+
+        Output names use the query's `as` aliases when provided."""
+        self.out_spec: List[Tuple[str, object]] = []
+        self.out_int: List[bool] = []  # integer (hi/lo pair) output lane?
+        last_node = self.nodes[-1]
+        last_refs = {s.ref for s in last_node.specs}
+        for vi, var in enumerate(select_vars):
+            ref = var.stream_id
+            if ref not in self.ref_defs and ref in stream_to_ref:
+                ref = stream_to_ref[ref]
+            if ref is None or ref not in self.ref_defs:
+                raise SiddhiAppCreationError(f"cannot resolve select ref '{var.stream_id}'")
+            idx = var.stream_index
+            name = (
+                select_names[vi]
+                if select_names and vi < len(select_names)
+                else f"{ref}.{var.attribute}"
+            )
+            d = self.ref_defs[ref]
+            if var.attribute not in d.attribute_names:
+                raise SiddhiAppCreationError(
+                    f"select ref '{ref}.{var.attribute}': no such attribute")
+            integer = d.attribute_type(var.attribute) in _INT_TYPES
+            if ref in last_refs and last_node.kind == "stream" and last_node.max_count == 1:
+                # final event: values come from the candidate columns
+                self.out_spec.append((name, ("cand", var.attribute)))
+                self.out_int.append(integer)
+                continue
+            if idx not in (None, 0, -1):
+                raise SiddhiAppCreationError(
+                    f"dense NFA supports only first/[0]/[last] select refs, got {idx}"
+                )
+            slot = self.alloc.slot(ref, var.attribute, idx == -1, integer=integer)
+            self.out_spec.append((name, slot))
+            self.out_int.append(integer)
+
+    # -- state --------------------------------------------------------------
+
+    def state_layout(self) -> Dict[str, Tuple[Tuple[int, ...], np.dtype]]:
+        """Shape and numpy dtype of each state tensor (scratch row P
+        included), as in the JAX engine's ``init_state_host``."""
+        P, S, I = self.n_partitions + 1, self.S, self.I
+        return {
+            "active": ((P, S, I), np.dtype(bool)),
+            "first_ts": ((P, S, I), np.dtype(np.int32)),
+            "counts": ((P, S, I), np.dtype(np.int32)),
+            "regs": ((P, S, I, 1), np.dtype(np.float32)),
+            "overflow": ((P,), np.dtype(np.int32)),
+        }
+
+    def init_state_host(self) -> Dict[str, np.ndarray]:
+        """Zero state as numpy arrays, in the JAX engine's layout."""
+        return {k: np.zeros(shape, dt)
+                for k, (shape, dt) in self.state_layout().items()}
+
+    def init_state(self) -> Dict[str, torch.Tensor]:
+        """Zero state on the engine's device."""
+        return {
+            k: torch.zeros(shape, dtype=_TORCH_DTYPES[dt], device=self.device)
+            for k, (shape, dt) in self.state_layout().items()
+        }
+
+    # -- step ---------------------------------------------------------------
+
+    def make_step(self, stream_key: str) -> Callable:
+        """The packed step for events of one source stream (see
+        ``kernels/dense_step.build_packed_nfa`` for its signature)."""
+        fn = self._step_cache.get(stream_key)
+        if fn is None:
+            fn = build_packed_nfa(self, stream_key)
+            self._step_cache[stream_key] = fn
+        return fn
+
+    # -- host wrapper -------------------------------------------------------
+
+    def rel_ts64(self, ts: np.ndarray) -> np.ndarray:
+        if self.base_ts is None:
+            self.base_ts = int(ts[0]) - 1 if len(ts) else 0
+        return ts - self.base_ts
+
+    def maybe_re_anchor(self, state, rel64: np.ndarray):
+        """Shift ``base_ts`` forward when relative timestamps approach the
+        int32 range.  ``first_ts`` anchors shift with it; instances whose
+        anchor falls outside the ``within`` horizon are already expired
+        and are cleared on the host (a once-per-24-days round trip)."""
+        if not len(rel64) or int(rel64.max()) < self._REL_LIMIT:
+            return state, rel64
+        horizon = self.within_ms or 0
+        delta = int(rel64.min()) - 1 - horizon
+        if delta <= 0 or int(rel64.max()) - delta >= 2**31:
+            raise SiddhiAppRuntimeError(
+                "dense NFA: timestamp span of one batch plus the within "
+                "horizon exceeds the int32 relative-time range")
+        self.base_ts += delta
+        rel64 = rel64 - delta
+        first, active, counts = fetch_coalesced(
+            [state["first_ts"], state["active"], state["counts"]])
+        first = first.astype(np.int64)  # [P, S, I]
+        shifted = np.where(first > 0, first - delta, 0)
+        if self.within_ms is not None:
+            # anchors at/below the new zero were expired before the shift
+            dead = (first > 0) & (shifted <= 0)
+            if dead.any():
+                active[dead] = False
+                counts[dead] = 0
+                shifted = np.where(dead, 0, shifted)
+        else:
+            # no within: anchors are inert, clamp to stay "set" (>0)
+            shifted = np.where(first > 0, np.maximum(shifted, 1), 0)
+        state = dict(state)
+        state["first_ts"], state["active"], state["counts"] = staged_put(
+            (shifted.astype(np.int32), active, counts), self.device)
+        return state, rel64
+
+    def process(self, state, stream_key: str, part_idx: np.ndarray,
+                cols: Dict[str, np.ndarray], ts: np.ndarray):
+        """Process a batch, split into rounds so each partition appears
+        at most once per step.
+
+        Returns ``(state, match_ev_idx, match_out)``: one row per match,
+        ``match_ev_idx[m]`` the batch-row index of the completing event
+        (ascending; same-event matches ordered by arming age) and
+        ``match_out[m, n_out]`` its output values."""
+        state, pending = self.process_deferred(state, stream_key, part_idx,
+                                               cols, ts)
+        if pending is None or pending.resolve() == 0:
+            return state, *flatten_match_parts(
+                [], [], [], max(len(self.out_spec), 1))
+        ev, out = pending.materialize(fetch_coalesced(
+            pending.device_arrays()))
+        return state, ev, out
+
+    def process_deferred(self, state, stream_key: str, part_idx: np.ndarray,
+                         cols: Dict[str, np.ndarray], ts: np.ndarray):
+        """Async-emit variant of :meth:`process`: every round's match
+        outputs stay on the device inside the returned
+        :class:`DeferredDenseEmit` (None only for empty input); even the
+        per-round match count stays a device scalar until ``resolve()``."""
+        step = self.make_step(stream_key)
+        part_idx = np.asarray(part_idx)
+        if len(part_idx) and (int(part_idx.min()) < 0
+                              or int(part_idx.max()) >= self.n_partitions):
+            raise SiddhiAppRuntimeError(
+                f"partition ids must lie in [0, {self.n_partitions})")
+        rel64 = self.rel_ts64(np.asarray(ts, dtype=np.int64))
+        state, rel64 = self.maybe_re_anchor(state, rel64)
+        rel = rel64.astype(np.int32)
+        prepared = self.prepare_cols(stream_key, cols)
+        pending = DeferredDenseEmit(self)
+        for ridx in _collision_rounds(part_idx):
+            b = len(ridx)
+            bp = max(1 << (b - 1).bit_length(), 16)  # pad to pow2, min 16
+            pi = np.full(bp, self.n_partitions, dtype=np.int64)  # scratch row
+            pi[:b] = part_idx[ridx]
+            tb = np.zeros(bp, dtype=np.int32)
+            tb[:b] = rel[ridx]
+            valid = np.zeros(bp, dtype=bool)
+            valid[:b] = True
+            cb = {}
+            for k, v in prepared.items():
+                col = np.zeros(bp, dtype=v.dtype)
+                col[:b] = v[ridx]
+                cb[k] = col
+            pi, cb, tb, valid = staged_put((pi, cb, tb, valid), self.device)
+            state, emit, outs, emit_anchor, n_emit = step(
+                state, pi, cb, tb, valid)
+            pending.chunks.append({
+                "emit": emit, "f": outs["f"], "i": outs["i"],
+                "anchor": emit_anchor, "sel": slice(0, b), "ridx": ridx,
+                "count": n_emit,
+            })
+        return state, (pending if pending.chunks else None)
+
+    def assemble_out(self, out_f: np.ndarray, out_i: np.ndarray,
+                     rows: np.ndarray, lanes: np.ndarray) -> np.ndarray:
+        """Match output rows from the output banks: float lanes stay
+        float32; integer lanes re-join their hi/lo pair into exact int64
+        (an object matrix, as in the JAX engine)."""
+        if not any(self.out_int):
+            return out_f[rows, lanes]
+        m = len(rows)
+        res = np.empty((m, len(self.out_spec)), dtype=object)
+        ii = 0
+        for oi, is_int in enumerate(self.out_int):
+            if is_int:
+                hi = out_i[rows, lanes, 2 * ii]
+                lo = out_i[rows, lanes, 2 * ii + 1]
+                res[:, oi] = _i64_join(hi, lo)
+                ii += 1
+            else:
+                res[:, oi] = out_f[rows, lanes, oi].astype(np.float64)
+        return res
+
+    @property
+    def output_names(self) -> List[str]:
+        return [name for name, _ in self.out_spec]
+
+    def _stream_def(self, stream_key: str):
+        for node in self.nodes:
+            for spec in node.specs:
+                if spec.stream_key == stream_key:
+                    return spec.stream_def
+        raise SiddhiAppCreationError(f"stream '{stream_key}' not in pattern")
+
+    def prepare_cols(self, stream_key: str,
+                     cols: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """Host numpy columns (native dtypes) -> device lane columns:
+        float attrs cast to float32, integer attrs split into the
+        bias-signed hi/lo int32 pair (bit-exact at any magnitude)."""
+        out: Dict[str, np.ndarray] = {}
+        for a in self._stream_def(stream_key).attributes:
+            v = cols.get(a.name)
+            if v is None:
+                continue
+            v = np.asarray(v)
+            if a.type in _INT_TYPES:
+                v64 = v.astype(np.int64)
+                out[f"{a.name}|hi"] = (v64 >> 32).astype(np.int32)
+                out[f"{a.name}|lo"] = (
+                    (v64 & 0xFFFFFFFF) - 2**31).astype(np.int32)
+            elif a.type.is_numeric:
+                out[a.name] = v.astype(np.float32)
+        return out
+
+
+_TORCH_DTYPES = {
+    np.dtype(bool): torch.bool,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.float32): torch.float32,
+}
+
+
+def state_from_numpy(engine: DensePatternEngine, host_state: dict,
+                     base_ts: Optional[int]) -> Dict[str, torch.Tensor]:
+    """A JAX engine's state (``{k: np.asarray(v)}``, or its packed
+    snapshot from ``plane_pack.pack_state``) and its ``base_ts`` → port
+    tensors on the engine's device.  Sets ``engine.base_ts``."""
+    if "active_planes" in host_state:
+        host_state = unpack_state(host_state)
+    layout = engine.state_layout()
+    if set(host_state) != set(layout):
+        raise SiddhiAppRuntimeError(
+            f"state keys {sorted(host_state)} do not match the engine's "
+            f"{sorted(layout)}")
+    state = {}
+    for k, (shape, dt) in layout.items():
+        v = np.asarray(host_state[k])
+        if v.shape != shape or v.dtype != dt:
+            raise SiddhiAppRuntimeError(
+                f"state '{k}' is {v.dtype}{list(v.shape)}, the engine "
+                f"expects {dt}{list(shape)}")
+        state[k] = staged_put(np.array(v), engine.device)
+    engine.base_ts = None if base_ts is None else int(base_ts)
+    return state
+
+
+def state_to_numpy(engine: DensePatternEngine, state: Dict[str, torch.Tensor]
+                   ) -> Tuple[Dict[str, np.ndarray], Optional[int]]:
+    """Inverse of :func:`state_from_numpy`: ``({k: np.ndarray}, base_ts)``
+    in the JAX engine's layout."""
+    keys = list(engine.state_layout())
+    return (dict(zip(keys, fetch_coalesced([state[k] for k in keys]))),
+            engine.base_ts)
+
+
+class DeferredDenseEmit:
+    """Device-resident match outputs of one dense batch, pending drain.
+
+    Each chunk is one collision round: ``emit``/``f``/``i``/``anchor``
+    are step outputs still on the device; ``sel`` maps padded rows back
+    to the round's events and ``ridx`` maps round rows to batch rows.
+    ``materialize`` receives the fetched host arrays in
+    ``device_arrays()`` order and returns what ``process`` returns.
+    """
+
+    __slots__ = ("engine", "chunks", "_total")
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.chunks: List[dict] = []
+        self._total: Optional[int] = None
+
+    def resolve(self) -> int:
+        """Fetch the per-round match counts (scalars only) and prune
+        rounds that matched nothing, so their output banks are never
+        transferred.  Idempotent; returns the total match count."""
+        if self._total is not None:
+            return self._total
+        counts = fetch_coalesced([ch["count"] for ch in self.chunks])
+        self.chunks = [ch for ch, c in zip(self.chunks, counts) if int(c)]
+        self._total = int(sum(int(c) for c in counts))
+        return self._total
+
+    def device_arrays(self) -> List:
+        arrs: List = []
+        for ch in self.chunks:
+            arrs.extend((ch["emit"], ch["f"], ch["i"], ch["anchor"]))
+        return arrs
+
+    def materialize(self, host_arrays) -> Tuple[np.ndarray, np.ndarray]:
+        eng = self.engine
+        ev_parts: List[np.ndarray] = []
+        out_parts: List[np.ndarray] = []
+        key_parts: List[np.ndarray] = []  # (ev, anchor, lane) sort keys
+        for ci, ch in enumerate(self.chunks):
+            emit_h, f_h, i_h, anchor_h = host_arrays[4 * ci:4 * ci + 4]
+            sel = ch["sel"]
+            emit_np = emit_h[sel]  # [b, 2I]
+            if not emit_np.any():
+                continue
+            out_f = f_h[sel]
+            out_i = i_h[sel]
+            anchor_np = anchor_h[sel]
+            rows, lanes = np.nonzero(emit_np)
+            ridx = ch["ridx"]
+            ev_parts.append(ridx[rows])
+            out_parts.append(eng.assemble_out(out_f, out_i, rows, lanes))
+            key_parts.append(np.stack(
+                [ridx[rows], anchor_np[rows, lanes], lanes], axis=1))
+        return flatten_match_parts(
+            ev_parts, out_parts, key_parts, max(len(eng.out_spec), 1))
+
+
+def flatten_match_parts(ev_parts, out_parts, key_parts, n_out: int
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """Concatenate per-round match fragments and order them by
+    (event index, arming anchor, lane): the match-ordering contract."""
+    if not ev_parts:
+        return (np.empty(0, dtype=np.int64),
+                np.empty((0, n_out), dtype=np.float32))
+    ev = np.concatenate(ev_parts)
+    out = np.concatenate(out_parts)
+    keys = np.concatenate(key_parts)
+    order = np.lexsort((keys[:, 2], keys[:, 1], keys[:, 0]))
+    return ev[order].astype(np.int64), out[order]
+
+
+def _collision_rounds(part_idx: np.ndarray) -> List[np.ndarray]:
+    """Split indices into rounds where each partition appears at most once,
+    preserving per-partition order."""
+    order = np.argsort(part_idx, kind="stable")
+    sorted_parts = part_idx[order]
+    # occurrence number of each element within its partition group
+    is_new = np.ones(len(part_idx), dtype=bool)
+    is_new[1:] = sorted_parts[1:] != sorted_parts[:-1]
+    group_start = np.maximum.accumulate(np.where(is_new, np.arange(len(part_idx)), 0))
+    occ = np.arange(len(part_idx)) - group_start
+    occ_orig = np.empty(len(part_idx), dtype=np.int64)
+    occ_orig[order] = occ
+    n_rounds = int(occ.max()) + 1 if len(occ) else 0
+    return [np.flatnonzero(occ_orig == r) for r in range(n_rounds)]
+
+
+def compile_pattern(
+    app_str: str,
+    query_name: Optional[str] = None,
+    n_partitions: int = 1024,
+    n_instances: int = 4,
+    device=None,
+) -> DensePatternEngine:
+    """Compile a SiddhiQL pattern query into a DensePatternEngine on
+    ``device`` (``cuda`` when None; raises without a card).
+
+    The partition axis is the implicit per-key replication of the query;
+    callers route events to partition ids.
+    """
+    from siddhi_tpu_torch.compiler import SiddhiCompiler
+    from siddhi_tpu_torch.query_api.annotation import find_annotation
+
+    dev = resolve_device(device)
+    app = SiddhiCompiler.parse(app_str)
+    query = None
+    for i, q in enumerate(app.queries):
+        info = find_annotation(q.annotations, "info")
+        nm = (info.element("name") if info else None) or f"query_{i}"
+        if query_name is None or nm == query_name:
+            query = q
+            break
+    if query is None:
+        raise SiddhiAppCreationError(f"query '{query_name}' not found")
+    st = query.input_stream
+    if not isinstance(st, StateInputStream):
+        raise SiddhiAppCreationError("compile_pattern needs a pattern query")
+    is_sequence = st.type == StateInputStream.SEQUENCE
+
+    def resolve(s):
+        d = app.stream_definitions.get(s.stream_id)
+        if d is None:
+            raise SiddhiAppCreationError(f"stream '{s.stream_id}' is not defined")
+        return d
+
+    builder = NFABuilder(st, resolve)
+    nodes = builder.build()
+
+    select_vars = []
+    select_names = []
+    if query.selector.selection:
+        for oa in query.selector.selection:
+            if not isinstance(oa.expression, Variable) or oa.expression.stream_id is None:
+                raise SiddhiAppCreationError(
+                    "dense NFA select items must be event references (e1.attr)"
+                )
+            select_vars.append(oa.expression)
+            select_names.append(oa.name)
+
+    return DensePatternEngine(
+        nodes=nodes,
+        ref_defs=builder.ref_defs,
+        stream_to_ref=builder.stream_to_ref,
+        within_ms=st.within_ms,
+        n_partitions=n_partitions,
+        select_vars=select_vars,
+        select_names=select_names,
+        is_sequence=is_sequence,
+        n_instances=n_instances,
+        device=dev,
+    )

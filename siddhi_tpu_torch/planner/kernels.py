@@ -1,0 +1,45 @@
+"""Eligibility gate for the packed dense-NFA kernel.
+
+Port of ``check_dense_kernel_eligible`` of the JAX package's
+``planner/kernels.py``.  In the port the packed step is the only dense
+step so far, so there is no fallback: a pattern outside its class is
+refused with ``SiddhiAppCreationError``, naming the general dense step
+that a later slice of the port adds (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
+
+_LATER = ("; the port runs only the packed capture-free every-chain step "
+          "so far — the general dense step is a later slice of the port")
+
+
+def check_dense_kernel_eligible(engine) -> None:
+    """The packed step covers the every-headed simple-chain class only
+    (one candidate plane bit per row, no counting/capture machinery).
+    Raises with a distinct reason outside it."""
+    if engine.is_sequence:
+        raise SiddhiAppCreationError(
+            "nfa kernel: sequence semantics (strict contiguity masks) are "
+            "not in the packed-plane step" + _LATER)
+    if not engine.every_start:
+        raise SiddhiAppCreationError(
+            "nfa kernel: a non-every head needs reset-on-emit plane clears"
+            + _LATER)
+    if engine.group_every:
+        raise SiddhiAppCreationError(
+            "nfa kernel: grouped-every restart masks are not in the "
+            "packed-plane step" + _LATER)
+    if engine.has_deadlines:
+        raise SiddhiAppCreationError(
+            "nfa kernel: absent/deadline nodes need per-chain timers" + _LATER)
+    for node in engine.nodes:
+        if not (node.kind == "stream"
+                and node.min_count == 1 and node.max_count == 1):
+            raise SiddhiAppCreationError(
+                "nfa kernel: counting/logical/absent nodes need the "
+                "counts/register planes" + _LATER)
+    if engine.alloc.slots:
+        raise SiddhiAppCreationError(
+            "nfa kernel: captured attributes need the register file" + _LATER)
