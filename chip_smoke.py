@@ -13,8 +13,10 @@ drives the dense-NFA pattern path through ``compile_pattern`` and
 3. packed step: the dense-step kernel against its plain torch version,
    both on the card, on seeded valid inputs at S=16, I=4, B=131072
    (anchors past ``within`` so expiry fires, busy lanes so placement
-   overflows) and at ragged B=40, 1000, 1056; all five outputs must be
-   bit-exact.  Times both at full width.
+   overflows) and at ragged B=40, 1000, 1056; then at the skew-routed
+   path's dense half, S=2, I=8 with no ``within``, at B=2048 and ragged
+   B=1900, 333, 37, 1.  All five outputs must be bit-exact.  Times both
+   at full width and at the routed shape.
 4. end to end: bench.py's ``kernel_eligible_app`` (16 states, within
    10 min) over 1,000,000 partitions, B=131072 events per batch, started
    from one seeded mid-chain state, on the card and again with
@@ -23,8 +25,29 @@ drives the dense-NFA pattern path through ``compile_pattern`` and
    A breakdown line follows: host-clock ms of each stage of ``process``
    on a few more batches, and the device's busy time and largest kernels
    under ``torch.profiler``.
-5. kernels: one line per ported kernel (launches in phase 4, largest
-   difference from its plain version, times, bound).
+5. scan kernel: the fused hot-key scan kernel against its plain torch
+   version, both on the card, on seeded inputs at the skew-routed path's
+   shape (H=8, n=2048, S=2), the widest legal shape (H=256, n=4096,
+   S=32) and a ragged one (H=3, n=16, S=5); v', c' and emit must be
+   bit-exact.  Times both, and works out the bound (bytes, and the
+   serial chain of dependent operations at the card's top SM clock).
+6. skew-routed end to end: bench.py's ``bench_hot_key`` app, annotations
+   and traffic (4096 keys, Zipf(1.2) from seed 23, B=8192, 2 warm-up
+   batches and 3 windows of 8), through the port's ``SiddhiManager`` on
+   the card, routed (``@app:hotkeys``) and dense-only (cut to one
+   window, which the line says).  At least one promotion, routed rows
+   equal to dense-only rows but for the chains the dense-only run alone
+   dropped at its instance-lane capacity (counted, at most one match
+   each in this two-node chain), launches of every kernel of the path, and
+   the routed callbacks of the warm-up and the first window, and the
+   routed query's whole state after them (dense planes, anchors,
+   overflow, scan slots, key maps), bit-exact against the same app on
+   ``device="cpu"``.  Kernel launch counts of
+   this path are read from the routed run alone.  A breakdown line
+   follows: host-clock ms of a routed batch's dense rounds, scan cycle
+   and routing, and the device's busy time under ``torch.profiler``.
+7. kernels: one line per ported kernel (launches on the main paths,
+   largest difference from its plain version, times, bound).
 
 Then the card's name and power limit (nvidia-smi), and last the device
 line.  Any failed phase raises, so the script exits non-zero and prints
@@ -52,16 +75,36 @@ BATCH = 1 << 17
 N_INSTANCES = 4
 WITHIN_MS = 600_000
 E2E_BATCHES = 10
+# the skew-routed path's dense half (bench_hot_key's two-node chain at
+# instances='8', no within): one full and four ragged collision rounds
+ROUTED_STEP = (2, 8)
+ROUTED_STEP_BATCHES = (2048, 1900, 333, 37, 1)
+
+# bench.py's hot-key run (HK_* constants, bench_hot_key)
+HK_KEYS = 4_096
+HK_BATCH = 8_192
+HK_STEPS = 8
+HK_WARMUP = 2
+HK_WINDOWS = 3
+HK_DENSE_WINDOWS = 1  # the dense-only run is cut to one window
+HK_HOT = "@app:hotkeys(k='8', promote='0.1', demote='0.04') "
+# fused-scan shapes (H, n, S): the routed path's, the widest legal one,
+# and a ragged one
+SCAN_SHAPES = ((8, 2048, 2), (256, 4096, 32), (3, 16, 5))
+# the scan kernel's per-event dependent chain on the v lane: shuffle,
+# add, select, max, max, select; none can issue before the one it
+# depends on has finished, at least 4 cycles on the SM's float pipe
+SCAN_DEP_OPS = 6
+DEP_LATENCY_CYCLES = 4
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def card_line() -> str:
+def card_line(query: str = "name,power.limit") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
 
@@ -105,8 +148,10 @@ def max_abs_err(torch, got, want) -> int:
 def packed_inputs(torch, pack_bits, batch_blocks, S, I, B, within, seed,
                   device):
     """Seeded valid packed-step inputs: anchors only where active, some
-    older than ``within``; 60% of lanes busy so placement overflows."""
+    older than ``within`` (WITHIN_MS where the step has none); 60% of
+    lanes busy so placement overflows."""
     rng = np.random.default_rng(seed)
+    within = WITHIN_MS if within is None else within
     Bp, _W, _ = batch_blocks(B)
     ts = np.zeros(Bp, dtype=np.int64)
     ts[:B] = rng.integers(2 * within, 2**30, B)
@@ -166,9 +211,6 @@ def batch_breakdown(torch, eng, state, rng, first_batch, n=4):
     synchronise), then one more pass under ``torch.profiler`` for the
     device's busy time and its largest kernels.  Timing only: launch
     counts were read before, and the results are not compared."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from siddhi_tpu_torch.core.emit_queue import fetch_coalesced
     from siddhi_tpu_torch.ops.dense_nfa import _collision_rounds
 
@@ -195,12 +237,28 @@ def batch_breakdown(torch, eng, state, rng, first_batch, n=4):
         for k, a, b in (("step_ms", t0, t1), ("count_ms", t1, t2),
                         ("fetch_ms", t2, t3), ("materialize_ms", t3, t4)):
             stages[k].append(1e3 * (b - a))
+    def run_rest():
+        nonlocal state
+        for part, cols, ts in batches[n:]:
+            state, _ev, _out = eng.process(state, "Txn", part, cols, ts)
+
+    return {"phase": "breakdown", "batches": n,
+            **{k: sorted(v)[len(v) // 2] for k, v in stages.items()},
+            **device_profile(torch, run_rest)}
+
+
+def device_profile(torch, run) -> dict:
+    """Wall ms of ``run()`` under ``torch.profiler`` (synchronised at both
+    ends), the device's busy ms and share in it, and its largest device
+    items."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for part, cols, ts in batches[n:]:
-            state, _ev, _out = eng.process(state, "Txn", part, cols, ts)
+        run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     # device-side activity only (kernels and copies); the CPU ops that
@@ -212,12 +270,227 @@ def batch_breakdown(torch, eng, state, rng, first_batch, n=4):
             by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, c + 1)
     device_ms = sum(ms for ms, _c in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    return {"phase": "breakdown", "batches": n,
-            **{k: sorted(v)[len(v) // 2] for k, v in stages.items()},
-            "profiled_wall_ms": wall_ms,
+    return {"profiled_wall_ms": wall_ms,
             "device_busy_ms": device_ms if by_name else "not measured",
             "device_busy_share": device_ms / wall_ms if by_name else None,
             "top_device_ops_ms": [[k[:90], ms, c] for k, (ms, c) in top]}
+
+
+def scan_inputs(torch, H, n, S, seed, device):
+    """Seeded fused-scan inputs: 0/1 filter rows with all-zero padding
+    rows past each slot's real events, ``v`` a mix of live starts and
+    NEG (lane 0 the constant 0), integer-valued counts."""
+    from siddhi_tpu_torch.kernels.scan_chain import NEG
+
+    rng = np.random.default_rng(seed)
+    F = (rng.random((H, n, S + 1)) < 0.55).astype(np.float32)
+    for h, k in enumerate(rng.integers(1, n + 1, H)):
+        F[h, k:] = 0.0
+    ts = np.sort(rng.integers(1, 1 << 20, (H, n)), axis=1).astype(np.float32)
+    live = rng.random((H, S)) < 0.6
+    v = np.where(live, rng.integers(-5000, 100_000, (H, S)),
+                 np.float32(NEG)).astype(np.float32)
+    c = np.where(live, rng.integers(1, 100, (H, S)), 0).astype(np.float32)
+    v[:, 0] = 0.0
+    c[:, 0] = 1.0
+    return [torch.from_numpy(a).to(device) for a in (F, ts, v, c)]
+
+
+def scan_bound(H, n, S, sm_clock_hz) -> dict:
+    """Least time for one fused scan: every input read and output written
+    once over HBM; its float32 operations at the CUDA cores' peak; and
+    the serial chain, n dependent steps of SCAN_DEP_OPS operations of
+    DEP_LATENCY_CYCLES each at the top SM clock.  The largest bounds."""
+    bytes_ = 4 * (H * n * (S + 1) + H * n + 2 * H * S + 2 * H * S + H * n)
+    # per event and lane: 3 compares, 2 adds, 5 selects, 2 max
+    ops = 12 * H * n * S
+    terms = {"bytes_ms": 1e3 * bytes_ / HBM_BYTES_PER_S,
+             "operations_at_peak_ms": 1e3 * ops / CUDA_CORE_OPS_PER_S,
+             "serial_chain_ms":
+                 1e3 * n * SCAN_DEP_OPS * DEP_LATENCY_CYCLES / sm_clock_hz}
+    return {"bound_ms": max(terms.values()), "bound_terms": terms,
+            "bound_by": ("bytes" if terms["bytes_ms"] == max(terms.values())
+                         else "operations")}
+
+
+def bits_equal(torch, got, want) -> bool:
+    return all(g.shape == w.shape and g.dtype == w.dtype == torch.float32
+               and torch.equal(g.view(torch.int32), w.view(torch.int32))
+               for g, w in zip(got, want))
+
+
+def hot_key_app(hot: bool) -> str:
+    """bench.py's bench_hot_key app, verbatim, plus @app:kernels."""
+    return ("@app:name('hkbench{tag}') @app:playback "
+            "@app:execution('tpu', instances='8') {hot}"
+            "@app:kernels('nfa,scan') "
+            "define stream S (k long, u double, v double); "
+            "partition with (k of S) begin "
+            "@info(name='q') from every a=S[v > 8.0] -> b=S[v > 12.0] "
+            "select b.v as bv insert into Alerts; end;").format(
+                tag="H" if hot else "D", hot=HK_HOT if hot else "")
+
+
+def hot_key_batches(EventBatch):
+    """bench.py's bench_hot_key traffic: seed 23, Zipf(1.2) keys."""
+    rng = np.random.default_rng(23)
+    out = []
+    for i in range(HK_WARMUP + HK_STEPS):
+        ks = (rng.zipf(1.2, HK_BATCH) - 1) % HK_KEYS
+        u = rng.uniform(0.0, 20.0, HK_BATCH)
+        v = rng.uniform(0.0, 20.0, HK_BATCH)
+        ts = np.full(HK_BATCH, 1_000 + i * 10, dtype=np.int64)
+        out.append(EventBatch("S", ["k", "u", "v"],
+                              {"k": ks.astype(np.int64), "u": u, "v": v}, ts))
+    return out
+
+
+def routed_state(rt) -> dict:
+    """Host copy of the routed query's whole state: the dense runtime's
+    own snapshot tree (instance lanes, anchors, overflow, key rows, row
+    clock, time base) and the router's scan slots ``v``/``c``, key-to-slot
+    map, scan time base and sketch.  Reads only: the router's snapshot
+    demotes every hot key first, so it is not taken mid-run."""
+    from siddhi_tpu_torch.core.emit_queue import fetch_coalesced
+
+    q = rt.pattern_runtimes()["q"]
+    tree = q._dense.snapshot()
+    v, c = fetch_coalesced([q._state["v"], q._state["c"]])
+    tree.update(scan_v=v, scan_c=c, scan_base_ts=q._scan.base_ts,
+                slots={k: dict(r) for k, r in q._slots.items()},
+                sketch_counts=dict(q.sketch.counts),
+                sketch_total=q.sketch.total)
+    return tree
+
+
+def tree_diff(a, b, path="") -> list:
+    """Paths where two state trees differ; arrays compare by dtype, shape
+    and bytes, so float lanes must be bit-exact."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        if a.keys() != b.keys():
+            return [f"{path}: keys {sorted(a.keys() ^ b.keys(), key=repr)}"]
+        return [d for k in a for d in tree_diff(a[k], b[k], f"{path}.{k}")]
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        same = (a.dtype == b.dtype and a.shape == b.shape
+                and a.tobytes() == b.tobytes())
+        return [] if same else [path]
+    return [] if a == b else [path]
+
+
+def run_hot_key(torch, SiddhiManager, EventBatch, bs, device, hot,
+                windows, keep_cycles):
+    """bench_hot_key's run(): warm-up batches, then ``windows`` windows
+    of the steady batches re-offset by (w+1)*1e6 ms, each drained (and
+    synchronised on a card).  Keeps the callbacks of the first
+    ``keep_cycles`` batches and counts rows per batch; a routed run also
+    keeps its query's whole state after the first window.  Returns the
+    still-running app and what it measured."""
+    mgr = SiddhiManager(device=device)
+    rt = mgr.create_siddhi_app_runtime(hot_key_app(hot))
+    rows, kept = [], []
+
+    def cb(evs):
+        rows[-1] += len(evs)
+        if len(rows) <= keep_cycles:
+            kept.append(evs)
+
+    rt.add_callback("Alerts", cb)
+    rt.start()
+    h = rt.get_input_handler("S")
+    for b in bs[:HK_WARMUP]:
+        rows.append(0)
+        h.send_batch(b)
+    window_s, overflow, state = [], None, None
+    for w in range(windows):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        for b in bs[HK_WARMUP:]:
+            rows.append(0)
+            h.send_batch(EventBatch(b.stream_id, b.attribute_names,
+                                    b.columns,
+                                    b.timestamps + (w + 1) * 1_000_000,
+                                    b.types))
+        rt.drain()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        window_s.append(time.perf_counter() - t)
+        if w == 0:
+            # pending instances dropped at the instance-lane capacity
+            # over the warm-up and the first window
+            overflow = rt.pattern_runtimes()["q"].overflow_total()
+            state = routed_state(rt) if hot else None
+    return mgr, rt, {"window_s": window_s, "rows": rows, "kept": kept,
+                     "overflow": overflow, "state": state}
+
+
+def routed_breakdown(torch, rt, bs, EventBatch, n=3):
+    """Where a routed batch's time goes, on batches after the checked
+    windows (re-offset past them): host-clock ms of the dense rounds
+    (the cold sub-batch), the scan cycle (pack, put, scan, count gate,
+    emit) and the rest (sketch, routing masks, interning, handoffs),
+    each ended by a synchronise, with the cold sub-batch's collision
+    rounds; then one more batch under ``torch.profiler``."""
+    from siddhi_tpu_torch.kernels import dense_step, scan_chain
+
+    router = rt.pattern_runtimes()["q"]
+    dense = router._dense
+    h = rt.get_input_handler("S")
+    rec = {"batch_ms": [], "dense_ms": [], "scan_ms": [], "rounds": []}
+    # the stages are timed by shadowing two methods on the instances; a
+    # renamed method would leave its stage reading 0 with no error
+    for obj, meth in ((dense, "process_stream_batch"),
+                      (router, "_process_hot")):
+        if not callable(type(obj).__dict__.get(meth)):
+            raise AssertionError(f"{type(obj).__name__}.{meth} is gone; "
+                                 "the routed breakdown cannot time it")
+    launched = (dense_step.packed_step.launches,
+                scan_chain.fused_scan.launches)
+
+    def timed(fn, key, rounds=False):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            rec[key][-1] += 1e3 * (time.perf_counter() - t)
+            if rounds:
+                rec["rounds"][-1] = int(
+                    np.unique(args[2], return_counts=True)[1].max())
+        return run
+
+    dense.process_stream_batch = timed(dense.process_stream_batch,
+                                       "dense_ms", rounds=True)
+    router._process_hot = timed(router._process_hot, "scan_ms")
+    try:
+        for i, b in enumerate(bs[HK_WARMUP:HK_WARMUP + n]):
+            for k in rec:
+                rec[k].append(0)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            h.send_batch(EventBatch(
+                b.stream_id, b.attribute_names, b.columns,
+                b.timestamps + (HK_WINDOWS + 1) * 1_000_000 + 10 * i,
+                b.types))
+            torch.cuda.synchronize()
+            rec["batch_ms"][-1] = 1e3 * (time.perf_counter() - t)
+    finally:
+        del dense.process_stream_batch
+        del router._process_hot
+    steps = dense_step.packed_step.launches - launched[0]
+    scans = scan_chain.fused_scan.launches - launched[1]
+    if ((steps and not sum(rec["dense_ms"]))
+            or (scans and not sum(rec["scan_ms"]))):
+        raise AssertionError(f"routed breakdown timed no dense or scan stage "
+                             f"while they launched ({steps}, {scans}): {rec}")
+    rec["route_ms"] = [b - d - s for b, d, s in
+                       zip(rec["batch_ms"], rec["dense_ms"], rec["scan_ms"])]
+    last = bs[HK_WARMUP + n]
+    prof = device_profile(torch, lambda: h.send_batch(EventBatch(
+        last.stream_id, last.attribute_names, last.columns,
+        last.timestamps + (HK_WINDOWS + 2) * 1_000_000, last.types)))
+    return {"phase": "routed_breakdown", "batches": n, **rec, **prof}
 
 
 def main() -> int:
@@ -228,8 +501,14 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 2
 
-    from siddhi_tpu_torch import compile_pattern, state_from_numpy, state_to_numpy
-    from siddhi_tpu_torch.kernels import build, dense_step, probe
+    from siddhi_tpu_torch import (
+        SiddhiManager,
+        compile_pattern,
+        state_from_numpy,
+        state_to_numpy,
+    )
+    from siddhi_tpu_torch.core.event import EventBatch
+    from siddhi_tpu_torch.kernels import build, dense_step, probe, scan_chain
     from siddhi_tpu_torch.kernels.plane_pack import pack_bits
 
     dev = torch.device("cuda")
@@ -260,35 +539,45 @@ def main() -> int:
 
     # 3. packed step vs its plain version --------------------------------------
     step_err = 0
-    for B in (BATCH, 40, 1000, 1056):
+    step_cases = ([(N_STATES, N_INSTANCES, B, WITHIN_MS)
+                   for B in (BATCH, 40, 1000, 1056)]
+                  + [(*ROUTED_STEP, B, None) for B in ROUTED_STEP_BATCHES])
+    for S, I, B, within in step_cases:
         ins = packed_inputs(torch, pack_bits, dense_step._batch_blocks,
-                            N_STATES, N_INSTANCES, B, WITHIN_MS, seed=B,
-                            device=dev)
-        got = dense_step.packed_step(*ins, n_inst=N_INSTANCES, within=WITHIN_MS)
-        want = dense_step.packed_step_plain(*ins, N_INSTANCES, WITHIN_MS)
+                            S, I, B, within, seed=B, device=dev)
+        got = dense_step.packed_step(*ins, n_inst=I, within=within)
+        want = dense_step.packed_step_plain(*ins, I, within)
         torch.cuda.synchronize()
         err = max_abs_err(torch, got, want)
         if err:
             raise AssertionError(f"dense_step kernel differs from its plain "
-                                 f"version at B={B}: max |diff| {err}")
+                                 f"version at S={S}, I={I}, B={B}, within="
+                                 f"{within}: max |diff| {err}")
         step_err = max(step_err, err)
         first, ts = ins[2], ins[3]
-        expired = int(((first > 0) & (ts - first > WITHIN_MS)).sum())
+        expired = (int(((first > 0) & (ts - first > within)).sum())
+                   if within is not None else None)
         overflow = int(want[4].sum())
-        if not (expired and overflow):
-            raise AssertionError(f"B={B}: inputs exercise no expiry "
-                                 f"({expired}) or no overflow ({overflow})")
-        line = {"phase": "packed_step", "B": B, "bit_exact": True,
-                "expired": expired, "overflow": overflow}
-        if B == BATCH:
-            full_ins, W = ins, ins[0].shape[1]
-            step_ms = time_ms(torch, lambda: dense_step.packed_step(
-                *full_ins, n_inst=N_INSTANCES, within=WITHIN_MS), 50)
-            step_plain_ms = time_ms(torch, lambda: dense_step.packed_step_plain(
-                *full_ins, N_INSTANCES, WITHIN_MS), 10)
-            step_bound_ms = packed_step_bound_ms(N_STATES, N_INSTANCES, W)
-            line.update(ms=step_ms, plain_ms=step_plain_ms,
-                        bound_ms=step_bound_ms)
+        # one event rarely meets eight busy lanes; every other case must
+        # reach the placement overflow, and expiry where there is within
+        if expired == 0 or (B > 1 and not overflow):
+            raise AssertionError(f"S={S}, I={I}, B={B}: inputs exercise no "
+                                 f"expiry ({expired}) or no overflow "
+                                 f"({overflow})")
+        line = {"phase": "packed_step", "S": S, "I": I, "B": B,
+                "within": within, "bit_exact": True, "expired": expired,
+                "overflow": overflow}
+        if B in (BATCH, ROUTED_STEP_BATCHES[0]):
+            W = ins[0].shape[1]
+            line.update(
+                ms=time_ms(torch, lambda: dense_step.packed_step(
+                    *ins, n_inst=I, within=within), 50),
+                plain_ms=time_ms(torch, lambda: dense_step.packed_step_plain(
+                    *ins, I, within), 10),
+                bound_ms=packed_step_bound_ms(S, I, W))
+            if B == BATCH:
+                step_ms, step_plain_ms, step_bound_ms = (
+                    line["ms"], line["plain_ms"], line["bound_ms"])
         emit(line)
 
     # 4. end to end at full size ---------------------------------------------
@@ -350,21 +639,149 @@ def main() -> int:
 
     emit(breakdown)
 
-    # 5. kernels -------------------------------------------------------------
+    # 5. scan kernel vs its plain version -------------------------------------
+    sm_clock_hz = 1e6 * float(card_line("clocks.max.sm").split()[0])
+    scan_err = 0.0
+    for H, n, S in SCAN_SHAPES:
+        ins = scan_inputs(torch, H, n, S, seed=H * n + S, device=dev)
+        got = scan_chain.fused_scan(*ins)
+        want = scan_chain.fused_scan_plain(*ins)
+        torch.cuda.synchronize()
+        if not bits_equal(torch, got, want):
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            raise AssertionError(f"scan_chain kernel differs from its plain "
+                                 f"version at H={H}, n={n}, S={S}: max "
+                                 f"|diff| {err}")
+        emits = int((want[2] > 0).sum())
+        if not emits:
+            raise AssertionError(f"H={H}, n={n}, S={S}: inputs emit nothing")
+        line = {"phase": "scan_kernel", "H": H, "n": n, "S": S,
+                "bit_exact": True, "emitting_events": emits,
+                "ms": time_ms(torch, lambda: scan_chain.fused_scan(*ins), 50),
+                "plain_ms": time_ms(torch, lambda: scan_chain.fused_scan_plain(
+                    *ins), 1, warmup=1),
+                "sm_clock_mhz": sm_clock_hz / 1e6,
+                **scan_bound(H, n, S, sm_clock_hz)}
+        if (H, n, S) == SCAN_SHAPES[0]:
+            scan_line = line
+        emit(line)
+
+    # 6. skew-routed end to end ------------------------------------------------
+    bs = hot_key_batches(EventBatch)
+    probe.add_one.launches = 0
+    dense_step.packed_step.launches = 0
+    scan_chain.fused_scan.launches = 0
+    keep = HK_WARMUP + HK_STEPS
+    mgr, rt, routed = run_hot_key(torch, SiddhiManager, EventBatch, bs,
+                                  "cuda", True, HK_WINDOWS, keep)
+    hk_launches = {"probe": probe.add_one.launches,
+                   "dense_step": dense_step.packed_step.launches,
+                   "scan_chain": scan_chain.fused_scan.launches}
+    router = rt.pattern_runtimes()["q"]
+    counters = router.hot_metrics()
+    hk_state_bytes = sum(t.numel() * t.element_size() for t in
+                         [*router._dense.state.values(),
+                          *router._state.values()])
+    lowering = rt.lowering()
+    hk_breakdown = routed_breakdown(torch, rt, bs, EventBatch)
+    rt.shutdown()
+    mgr.shutdown()
+    dmgr, drt, dense_only = run_hot_key(torch, SiddhiManager, EventBatch, bs,
+                                        "cuda", False, HK_DENSE_WINDOWS, 0)
+    drt.shutdown()
+    dmgr.shutdown()
+    cmgr, crt, cpu_run = run_hot_key(torch, SiddhiManager, EventBatch, bs,
+                                     "cpu", True, 1, keep)
+    crt.shutdown()
+    cmgr.shutdown()
+    as_rows = lambda kept: [[(e.timestamp, e.data) for e in evs]
+                            for evs in kept]
+    if as_rows(routed["kept"]) != as_rows(cpu_run["kept"]):
+        raise AssertionError("routed callbacks differ between the card and "
+                             "the CPU run")
+    state_diff = tree_diff(routed["state"], cpu_run["state"])
+    if state_diff:
+        raise AssertionError(f"routed state after the first window differs "
+                             f"between the card and the CPU run: {state_diff}")
+    if counters["hotkeyPromotions"] < 1 or lowering != {"q": "hotkey"}:
+        raise AssertionError(f"no promotion under Zipf(1.2) skew: "
+                             f"{counters} {lowering}")
+    # bench.py's own check, routed rows == dense-only rows, over the
+    # warm-up and the first window.  It is exact while neither run drops
+    # a pending instance at its lane capacity (instances='8').  A dense
+    # row with no free lane for an advancing chain drops it (counted in
+    # `overflow`); the scan keeps exact counts, so the routed run drops
+    # only on its cold keys, which the dense-only run drops alike.  In
+    # this two-node chain a dropped chain costs at most one match, so the
+    # routed run may emit up to (dense-only drops - routed drops) more.
+    # On numpy 2.3.5's Zipf stream from seed 23 the JAX package itself
+    # emits 43,939 routed and 43,938 dense-only rows, dropping 2 and 3
+    # (tests/test_torch_hotkey_card_stream.py replays that stream).
+    n_cmp = HK_WARMUP + HK_STEPS * HK_DENSE_WINDOWS
+    routed_rows = sum(routed["rows"][:n_cmp])
+    dense_rows = sum(dense_only["rows"])
+    extra_drops = dense_only["overflow"] - routed["overflow"]
+    if not (routed_rows > 0 and extra_drops >= 0
+            and dense_rows <= routed_rows <= dense_rows + extra_drops):
+        raise AssertionError(
+            f"routed run emitted {routed_rows} rows ({routed['overflow']} "
+            f"dropped), dense-only {dense_rows} ({dense_only['overflow']} "
+            "dropped)")
+    if min(hk_launches.values()) < 1:
+        raise AssertionError(f"kernels not launched on the skew-routed "
+                             f"path: {hk_launches}")
+    steady = HK_BATCH * HK_STEPS
+    hk_rate = steady * HK_WINDOWS / sum(routed["window_s"])
+    dense_rate = (steady * HK_DENSE_WINDOWS / sum(dense_only["window_s"]))
+    dense_rounds = [int(np.unique(b.columns["k"], return_counts=True)[1].max())
+                    for b in bs[HK_WARMUP:]]
+    emit({"phase": "skew_routed", "keys": HK_KEYS, "batch": HK_BATCH,
+          "windows": HK_WINDOWS, "dense_only_windows": HK_DENSE_WINDOWS,
+          "cut": "the dense-only run takes 1 window of 8, not 3; its rows "
+                 "are compared with the routed run's first window",
+          "bit_exact_cycles_vs_cpu": keep,
+          "bit_exact_state_vs_cpu": sorted(routed["state"]),
+          "events_per_s_windows": [steady / t for t in routed["window_s"]],
+          "events_per_s": hk_rate,
+          "dense_events_per_s": dense_rate,
+          "vs_dense": hk_rate / dense_rate,
+          "rows_compared": {"routed": routed_rows, "dense_only": dense_rows},
+          "dropped_instances": {"routed": routed["overflow"],
+                                "dense_only": dense_only["overflow"]},
+          "state_bytes": hk_state_bytes,
+          **counters,
+          "dense_only_rounds_per_batch": dense_rounds,
+          "routed_cold_rounds_per_batch": hk_breakdown["rounds"],
+          "launches": hk_launches, "card": card})
+    emit(hk_breakdown)
+
+    # 7. kernels -------------------------------------------------------------
+    by_path = lambda name: {"dense_1M": launches.get(name, 0),
+                            "skew_routed": hk_launches[name]}
     emit({"kernels": [
         {"name": "dense_step", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/dense_step.cu",
          "replaces": "siddhi_tpu/kernels/dense_step.py:154",
-         "launches": launches["dense_step"], "max_abs_err": step_err,
+         "launches": launches["dense_step"] + hk_launches["dense_step"],
+         "launches_by_path": by_path("dense_step"), "max_abs_err": step_err,
          "ms": step_ms, "plain_ms": step_plain_ms, "bound_ms": step_bound_ms,
          "bound_by": "bytes", "library_ms": None},
         {"name": "probe", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/probe.cu",
          "replaces": "siddhi_tpu/kernels/probe.py:56",
-         "launches": launches["probe"], "max_abs_err": probe_err,
+         "launches": launches["probe"] + hk_launches["probe"],
+         "launches_by_path": by_path("probe"), "max_abs_err": probe_err,
          "ms": probe_ms, "plain_ms": probe_plain_ms,
          "bound_ms": 1e3 * 2 * x.numel() * 4 / HBM_BYTES_PER_S,
          "bound_by": "bytes", "library_ms": probe_lib_ms},
+        {"name": "scan_chain", "route": "cuda",
+         "source": "siddhi_tpu_torch/kernels/csrc/scan_chain.cu",
+         "replaces": "siddhi_tpu/kernels/scan_chain.py:91",
+         "launches": hk_launches["scan_chain"],
+         "launches_by_path": by_path("scan_chain"), "max_abs_err": scan_err,
+         "ms": scan_line["ms"], "plain_ms": scan_line["plain_ms"],
+         "bound_ms": scan_line["bound_ms"],
+         "bound_by": scan_line["bound_by"], "library_ms": None},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -4,17 +4,24 @@ A second package beside the JAX one, ported one slice at a time (see
 ROADMAP.md).  It imports ``torch`` and ``numpy`` and nothing of JAX or of
 the JAX package; the tests hold it bit for bit against that package.
 
-This slice runs the dense-NFA pattern path for capture-free ``every``
-chains: ``compile_pattern`` builds a ``DensePatternEngine`` whose step is
-a hand-written CUDA kernel on the card (``kernels/csrc/dense_step.cu``)
-and its plain torch version on the CPU.  Entry points run on ``cuda``
-unless the caller passes ``device="cpu"``.
+Two slices so far, both for capture-free ``every`` chains:
+
+- ``compile_pattern`` builds a ``DensePatternEngine`` whose step is a
+  hand-written CUDA kernel on the card (``kernels/csrc/dense_step.cu``)
+  and its plain torch version on the CPU;
+- ``SiddhiManager`` runs partitioned pattern apps end to end through
+  the dense runtime and, under ``@app:hotkeys``, the skew router, whose
+  hot keys ride the fused scan kernel (``kernels/csrc/scan_chain.cu``).
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
+from siddhi_tpu_torch.core.manager import SiddhiManager
 from siddhi_tpu_torch.ops.dense_nfa import (
     compile_pattern,
     state_from_numpy,
     state_to_numpy,
 )
 
-__all__ = ["compile_pattern", "state_from_numpy", "state_to_numpy"]
+__all__ = ["SiddhiManager", "compile_pattern", "state_from_numpy",
+           "state_to_numpy"]

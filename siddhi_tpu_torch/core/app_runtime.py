@@ -1,0 +1,130 @@
+"""One running Siddhi app: junctions, planned partitions, callbacks.
+
+Port of the part of the JAX package's ``core/app_runtime.py`` (and the
+app planner's wiring) that this slice needs: stream junctions for the
+defined streams, partitions lowered to the dense path, ``insert into``
+output streams, stream callbacks, input handlers, ``start``,
+``shutdown`` and ``lowering()``.  An app outside the slice raises
+``SiddhiAppCreationError`` naming the later slice: unpartitioned or
+non-pattern queries, tables, windows, triggers, functions and
+aggregations.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List
+
+from siddhi_tpu_torch.core.exceptions import (
+    DefinitionNotExistError,
+    SiddhiAppCreationError,
+    SiddhiAppRuntimeError,
+)
+from siddhi_tpu_torch.core.partition import PartitionRuntime
+from siddhi_tpu_torch.core.stream import InputHandler, StreamJunction
+from siddhi_tpu_torch.planner.app_planner import plan_app_context
+from siddhi_tpu_torch.query_api import Query, SingleInputStream
+
+_LATER = " — a later slice of the port"
+
+
+class SiddhiAppRuntime:
+    def __init__(self, siddhi_app, device):
+        self.siddhi_app = siddhi_app
+        self.app_context = plan_app_context(siddhi_app, device)
+        self.name = self.app_context.name
+        for what, defs in (("tables", siddhi_app.table_definitions),
+                           ("windows", siddhi_app.window_definitions),
+                           ("triggers", siddhi_app.trigger_definitions),
+                           ("functions", siddhi_app.function_definitions),
+                           ("aggregations",
+                            siddhi_app.aggregation_definitions)):
+            if defs:
+                raise SiddhiAppCreationError(
+                    f"app '{self.name}': {what} ({', '.join(defs)})" + _LATER)
+        self.definitions = dict(siddhi_app.stream_definitions)
+        self.junctions: Dict[str, StreamJunction] = {
+            sid: StreamJunction(d) for sid, d in self.definitions.items()}
+        self.partitions: Dict[str, PartitionRuntime] = {}
+        self._running = False
+        for i, el in enumerate(siddhi_app.execution_elements):
+            if isinstance(el, Query):
+                raise SiddhiAppCreationError(
+                    f"app '{self.name}': unpartitioned queries (the "
+                    "device query path and single-partition patterns)"
+                    + _LATER)
+            pr = PartitionRuntime(el, self, i)
+            self.partitions[pr.name] = pr
+
+    # -- planning hooks ------------------------------------------------------
+
+    def resolve_stream_definition(self, s):
+        if not isinstance(s, SingleInputStream) or s.is_inner or s.is_fault:
+            raise SiddhiAppCreationError(
+                f"cannot resolve definition for {s!r}: inner and fault "
+                "streams" + _LATER)
+        d = self.definitions.get(s.stream_id)
+        if d is None:
+            raise DefinitionNotExistError(
+                f"stream '{s.stream_id}' is not defined in app '{self.name}'")
+        return d
+
+    def output_junction(self, out_def) -> StreamJunction:
+        """The junction of an ``insert into`` target, defined from the
+        query's output when the app does not define the stream."""
+        j = self.junctions.get(out_def.id)
+        if j is None:
+            self.definitions[out_def.id] = out_def
+            j = self.junctions[out_def.id] = StreamJunction(out_def)
+        elif j.definition.attribute_names != out_def.attribute_names:
+            raise SiddhiAppCreationError(
+                f"stream '{out_def.id}' is defined with attributes "
+                f"{j.definition.attribute_names}, the query inserts "
+                f"{out_def.attribute_names}")
+        return j
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def pattern_runtimes(self) -> Dict[str, object]:
+        """Query name -> its pattern processor (a DensePatternRuntime or
+        the HotKeyRouterRuntime around one)."""
+        return {n: qr.pattern_processor
+                for pr in self.partitions.values()
+                for n, qr in pr.dense_query_runtimes.items()}
+
+    def start(self):
+        self._running = True
+
+    def drain(self):
+        """Emit every match still pending on the device."""
+        for rt in self.pattern_runtimes().values():
+            rt.drain()
+
+    def shutdown(self):
+        for rt in self.pattern_runtimes().values():
+            rt.close()
+        self._running = False
+
+    # -- I/O -----------------------------------------------------------------
+
+    def get_input_handler(self, stream_id: str) -> InputHandler:
+        j = self.junctions.get(stream_id)
+        if j is None:
+            raise DefinitionNotExistError(
+                f"stream '{stream_id}' is not defined in app '{self.name}'")
+        return InputHandler(j, self.app_context, lambda: self._running)
+
+    def add_callback(self, target: str, fn: Callable[[List], None]):
+        """``fn(events)`` on every batch of stream ``target``."""
+        j = self.junctions.get(target)
+        if j is None:
+            raise SiddhiAppRuntimeError(
+                f"no stream named '{target}' in app '{self.name}' (query "
+                "callbacks" + _LATER + ")")
+        j.add_callback(fn)
+
+    def lowering(self) -> Dict[str, str]:
+        """Per-query engine placement: ``'dense'`` or ``'hotkey'``."""
+        out: Dict[str, str] = {}
+        for pr in self.partitions.values():
+            out.update(pr.query_lowering())
+        return out

@@ -1,0 +1,430 @@
+"""Dense pattern execution inside the product engine.
+
+Port of the JAX package's ``core/dense_pattern.py``: the glue the
+planner uses to run a ``SiddhiManager`` partitioned pattern query on the
+dense NFA (``ops/dense_nfa.py``).  ``partition with (key of S) begin
+<pattern query> end`` lowers to ONE dense engine whose partition axis is
+the interned key: per-key NFA state rows on the device, no per-key
+Python instances.
+
+This slice covers the class the port's packed step runs (capture-free
+``every`` chains, ``planner/kernels.py``) and leaves out the
+reference's mesh sharding, fault harness, span tracer, absent-node
+deadline timers and idle-key purge; the engine refuses what it does not
+run, naming the later slice.  Matches reach the query's output junction
+through the runtime's ``EmitQueue``; the reference's ``aux`` side
+channels (partition keys and event indices for aggregating selectors)
+wait for the aggregating form.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Callable, Dict, List
+
+import numpy as np
+import torch
+
+from siddhi_tpu_torch.core import event as ev
+from siddhi_tpu_torch.core.emit_queue import (
+    EmitQueue,
+    EmitStats,
+    PendingEmit,
+    fetch_coalesced,
+)
+from siddhi_tpu_torch.core.event import EventBatch
+from siddhi_tpu_torch.core.exceptions import (
+    SiddhiAppCreationError,
+    SiddhiAppRuntimeError,
+)
+from siddhi_tpu_torch.core.ingest_stage import IngestStage, IngestStats
+from siddhi_tpu_torch.kernels.dense_step import candidate_env
+from siddhi_tpu_torch.ops.dense_nfa import (
+    DensePatternEngine,
+    state_from_numpy,
+    state_to_numpy,
+)
+from siddhi_tpu_torch.ops.nfa import NFABuilder
+from siddhi_tpu_torch.query_api import AttrType, StateInputStream, Variable
+
+log = logging.getLogger("siddhi_tpu_torch")
+
+_LATER = " — a later slice of the port"
+
+
+def build_dense_engine(query, st: StateInputStream, resolve_def,
+                       n_partitions: int, n_instances: int = 4,
+                       device=None) -> DensePatternEngine:
+    """Lower one pattern query to a DensePatternEngine or raise
+    SiddhiAppCreationError with the reason it is outside the port."""
+    sel = query.selector
+    if sel.group_by or sel.having is not None:
+        raise SiddhiAppCreationError(
+            "dense path: group-by/having selectors take the host-selector "
+            "dense form" + _LATER)
+    if sel.order_by or sel.limit is not None or sel.offset is not None:
+        raise SiddhiAppCreationError(
+            "dense path: order by/limit/offset selectors" + _LATER)
+    if not sel.selection:
+        raise SiddhiAppCreationError(
+            "dense path: select * is not supported for patterns")
+    select_vars, select_names = [], []
+    for oa in sel.selection:
+        if (not isinstance(oa.expression, Variable)
+                or oa.expression.stream_id is None):
+            raise SiddhiAppCreationError(
+                "dense path: select items must be event references "
+                "(e1.attr); aggregating selectors" + _LATER)
+        select_vars.append(oa.expression)
+        select_names.append(oa.name)
+
+    builder = NFABuilder(st, resolve_def)
+    nodes = builder.build()
+    for node in nodes:
+        for spec in node.specs:
+            if spec.filter_presence_keys:
+                raise SiddhiAppCreationError(
+                    "dense path: 'is null' event-presence checks need the "
+                    "host engine" + _LATER)
+
+    eng = DensePatternEngine(
+        nodes=nodes,
+        ref_defs=builder.ref_defs,
+        stream_to_ref=builder.stream_to_ref,
+        within_ms=st.within_ms,
+        n_partitions=n_partitions,
+        select_vars=select_vars,
+        select_names=select_names,
+        is_sequence=st.type == StateInputStream.SEQUENCE,
+        n_instances=n_instances,
+        device=device,
+    )
+    # selects have device lanes only for numeric attributes
+    for (name, src), t in zip(eng.out_spec, output_attr_types(eng)):
+        if not t.is_numeric:
+            raise SiddhiAppCreationError(
+                f"dense path: select attribute '{src[1]}' has type "
+                f"{t.value}; only numeric attributes have device lanes")
+    _trace_check(eng)
+    return eng
+
+
+def output_attr_types(eng) -> List[AttrType]:
+    """Declared attribute type of each engine output lane (the engine
+    computes in float32; callbacks keep the source types)."""
+    out: List[AttrType] = []
+    for _name, src in eng.out_spec:
+        t = None
+        for node in eng.nodes:
+            for spec in node.specs:
+                if src[1] in spec.stream_def.attribute_names:
+                    t = spec.stream_def.attribute_type(src[1])
+        out.append(t or AttrType.DOUBLE)
+    return out
+
+
+def _trace_check(eng):
+    """Evaluate every node filter once on a tiny zero env of exactly the
+    lane columns the runtime provides, so a filter the device cannot run
+    (one reading a string attribute, say) fails at plan time, not on the
+    first event.  The reference traces the whole step abstractly."""
+    B = 4
+    try:
+        for node, filters in zip(eng.nodes, eng.node_filters):
+            spec = node.specs[0]
+            f = filters[0]
+            if f is None:
+                continue
+            zeros = {a: np.zeros(B, dtype=spec.stream_def.attribute_type(a)
+                                 .np_dtype)
+                     for a in eng.numeric_stream_attrs(spec.stream_key)}
+            cols = {k: torch.from_numpy(v) for k, v in
+                    eng.prepare_cols(spec.stream_key, zeros).items()}
+            f.fn(candidate_env(spec.stream_def, cols,
+                               torch.zeros(B, dtype=torch.int32)))
+    except SiddhiAppCreationError:
+        raise
+    except Exception as e:
+        raise SiddhiAppCreationError(
+            f"dense path: step not traceable ({e!r})") from e
+
+
+class DensePatternRuntime:
+    """Product-side wrapper of one DensePatternEngine: interns partition
+    keys to engine rows, advances the state with the engine's step and
+    emits match batches through ``emit(batch)``."""
+
+    _OVF_POLL = 256  # steps between device overflow polls (one D2H each)
+
+    def __init__(self, engine: DensePatternEngine, out_stream_id: str,
+                 emit: Callable[[EventBatch], None], emit_depth: int = 1,
+                 ingest_depth: int = 1):
+        self.engine = engine
+        self.out_stream_id = out_stream_id
+        self.emit_cb = emit
+        self.emit_stats = EmitStats()
+        self.emit_queue = EmitQueue(depth=emit_depth, stats=self.emit_stats)
+        # the engine carries the stats so its staged puts count there
+        self.ingest_stats = IngestStats()
+        engine.ingest_stats = self.ingest_stats
+        self.ingest_stage = IngestStage(depth=ingest_depth,
+                                        stats=self.ingest_stats)
+        self.state = engine.init_state()
+        self.step_invocations = 0
+        self._ovf_warned = 0
+        self._key_rows: Dict = {}
+        self._next_row = 0
+        self._free_rows: List[int] = []
+        # sorted-key index backing the vectorized intern: _key_arr is the
+        # sorted array of known keys in their native dtype, _key_row_arr
+        # the row of each.  _key_rows is the source of truth; the index
+        # is a rebuildable cache.
+        self._key_arr = np.empty(0, dtype=np.int64)
+        self._key_row_arr = np.empty(0, dtype=np.int32)
+        self._vector_intern = True
+        # host-side per-row activity clock (the reference's idle purge
+        # reads it; the hot-key router keeps promoted rows' clocks going)
+        self._row_last_used = np.zeros(engine.n_partitions, dtype=np.int64)
+        self._out_dtypes = [t.np_dtype for t in output_attr_types(engine)]
+
+    # -- partition interning -------------------------------------------------
+
+    def intern_keys(self, keys) -> np.ndarray:
+        """Partition-key values -> engine row ids (stable for the life of
+        the key; shared by all source streams).
+
+        Vectorized: the batch is factorized once (``np.unique``), known
+        keys resolve with one ``searchsorted`` against the sorted index,
+        and only never-seen keys take the allocation path.  The index
+        needs one sortable dtype family; keys that mix families fall back
+        for good to the exact per-event dict intern."""
+        arr = np.asarray(keys)
+        if self._vector_intern:
+            if arr.dtype.kind in ("O", "V"):
+                self._vector_intern = False
+            elif len(self._key_arr) == 0 and not self._key_rows:
+                pass  # first batch adopts its dtype below
+            elif arr.dtype != self._key_arr.dtype:
+                if np.can_cast(arr.dtype, self._key_arr.dtype, "safe"):
+                    arr = arr.astype(self._key_arr.dtype)
+                elif np.can_cast(self._key_arr.dtype, arr.dtype, "safe"):
+                    self._key_arr = self._key_arr.astype(arr.dtype)
+                else:
+                    log.warning(
+                        "dense pattern: partition keys mix dtypes (%s vs "
+                        "index %s); falling back to the exact dict intern",
+                        arr.dtype, self._key_arr.dtype)
+                    self._vector_intern = False
+        if not self._vector_intern:
+            return self._intern_keys_dict(arr)
+        uniq, inv = np.unique(arr, return_inverse=True)
+        nu = len(uniq)
+        urows = np.empty(nu, dtype=np.int32)
+        if len(self._key_arr):
+            pos = np.searchsorted(self._key_arr, uniq)
+            pos_c = np.minimum(pos, len(self._key_arr) - 1)
+            found = self._key_arr[pos_c] == uniq
+            urows[found] = self._key_row_arr[pos_c[found]]
+            new_idx = np.flatnonzero(~found)
+        else:
+            new_idx = np.arange(nu)
+        if len(new_idx):
+            cap = self.engine.n_partitions
+            n_new = len(new_idx)
+            take_free = min(len(self._free_rows), n_new)
+            fresh = n_new - take_free
+            if self._next_row + fresh > cap:
+                raise SiddhiAppRuntimeError(
+                    f"dense pattern: partition-key cardinality exceeded "
+                    f"capacity {cap} (raise it via "
+                    f"@app:execution('tpu', partitions='N'))")
+            row_ids = np.empty(n_new, dtype=np.int32)
+            if take_free:
+                row_ids[:take_free] = self._free_rows[-take_free:][::-1]
+                del self._free_rows[-take_free:]
+            if fresh:
+                row_ids[take_free:] = np.arange(
+                    self._next_row, self._next_row + fresh, dtype=np.int32)
+                self._next_row += fresh
+            urows[new_idx] = row_ids
+            self._key_rows.update(
+                zip(uniq[new_idx].tolist(), row_ids.tolist()))
+            # merge the sorted new keys into the sorted index (a two-way
+            # merge, not a re-sort of every known key)
+            new_keys = uniq[new_idx]
+            new_rows = urows[new_idx]
+            K, U = len(self._key_arr), len(new_keys)
+            if K == 0:
+                self._key_arr = new_keys.copy()
+                self._key_row_arr = new_rows.copy()
+            else:
+                ins = np.searchsorted(self._key_arr, new_keys)
+                new_pos = ins + np.arange(U)
+                old_mask = np.ones(K + U, dtype=bool)
+                old_mask[new_pos] = False
+                dt = np.promote_types(self._key_arr.dtype, new_keys.dtype)
+                merged_keys = np.empty(K + U, dtype=dt)
+                merged_keys[new_pos] = new_keys
+                merged_keys[old_mask] = self._key_arr
+                merged_rows = np.empty(K + U, dtype=np.int32)
+                merged_rows[new_pos] = new_rows
+                merged_rows[old_mask] = self._key_row_arr
+                self._key_arr = merged_keys
+                self._key_row_arr = merged_rows
+        return urows[inv].astype(np.int32, copy=False)
+
+    def _intern_keys_dict(self, keys) -> np.ndarray:
+        """Exact per-event intern (hash semantics): the fallback when
+        partition keys mix dtype families."""
+        out = np.zeros(len(keys), dtype=np.int32)
+        rows = self._key_rows
+        cap = self.engine.n_partitions
+        for i, k in enumerate(keys):
+            row = rows.get(k)
+            if row is None:
+                if self._free_rows:
+                    row = self._free_rows.pop()
+                elif self._next_row < cap:
+                    row = self._next_row
+                    self._next_row += 1
+                else:
+                    raise SiddhiAppRuntimeError(
+                        f"dense pattern: partition-key cardinality exceeded "
+                        f"capacity {cap} (raise it via "
+                        f"@app:execution('tpu', partitions='N'))")
+                rows[k] = row
+            out[i] = row
+        return out
+
+    def _rebuild_key_index(self):
+        """Rebuild the sorted intern index from _key_rows (after restore);
+        degrades to dict mode when the keys do not form one sortable
+        dtype family."""
+        self._key_arr = np.empty(0, dtype=np.int64)
+        self._key_row_arr = np.empty(0, dtype=np.int32)
+        if not self._key_rows:
+            return
+        try:
+            karr = np.array(list(self._key_rows.keys()))
+        except ValueError:  # inhomogeneous keys
+            karr = None
+        if karr is None or karr.dtype.kind in ("O", "V"):
+            self._vector_intern = False
+            return
+        rarr = np.fromiter(self._key_rows.values(), np.int32, len(karr))
+        order = np.argsort(karr, kind="stable")
+        self._key_arr = karr[order]
+        self._key_row_arr = rarr[order]
+
+    # -- event path ----------------------------------------------------------
+
+    def process_stream_batch(self, stream_key: str, batch: EventBatch,
+                             part: np.ndarray, keys=None):
+        """Advance the NFA with a junction batch whose rows the partition
+        receiver interned to ``part``; ``keys`` are the raw key values."""
+        cur = batch.only(ev.CURRENT)
+        if len(cur) == 0:
+            return
+        eng = self.engine
+        cols = {a: np.asarray(cur.columns[a])
+                for a in eng.numeric_stream_attrs(stream_key)
+                if a in cur.columns}
+        ts = np.asarray(cur.timestamps, dtype=np.int64)
+        np.maximum.at(self._row_last_used, part, ts)
+        self.state, pending = eng.process_deferred(
+            self.state, stream_key, part, cols, ts)
+        self.step_invocations += 1
+        if self.step_invocations % self._OVF_POLL == 0:
+            self._check_overflow()
+
+        def _finish(p=pending, t=ts):
+            c = 0 if p is None else p.resolve()
+            if c == 0:
+                self.emit_queue.skip()
+                return
+            self.emit_queue.push(PendingEmit(
+                p.device_arrays(),
+                lambda host: self._emit_deferred(p, t, host)))
+
+        # the match-count fetch (resolve) is the blocking device sync;
+        # with ingest.depth > 1 it runs after the next batch's dispatch
+        self.ingest_stage.submit(_finish)
+
+    def drain(self):
+        """Flush barrier: the ingest stage first (staged batches enqueue
+        or skip their emits), then the emit queue."""
+        self.ingest_stage.flush()
+        self.emit_queue.drain()
+
+    def _emit_deferred(self, pending, ts, host_arrays):
+        ev_idx, out = pending.materialize(host_arrays)
+        if len(ev_idx) == 0:
+            return
+        names = self.engine.output_names
+        out_cols = {name: out[:, oi].astype(self._out_dtypes[oi])
+                    for oi, name in enumerate(names)}
+        self.emit_cb(EventBatch(
+            self.out_stream_id, names, out_cols, ts[ev_idx],
+            np.full(len(ev_idx), ev.CURRENT, dtype=np.int8)))
+
+    # -- instance-capacity overflow ------------------------------------------
+
+    def overflow_total(self) -> int:
+        """Pending instances dropped because every successor lane was
+        occupied (0: the match set is exact).  Reduced on the device; one
+        scalar crosses to the host."""
+        return int(fetch_coalesced([self.state["overflow"].sum()])[0])
+
+    def _check_overflow(self):
+        total = self.overflow_total()
+        if total > self._ovf_warned:
+            log.warning(
+                "dense pattern '%s': %d pending instance(s) dropped — "
+                "instance lanes full; matches may be missing vs the host "
+                "engine.  Raise @app:execution('tpu', instances='N') "
+                "(current %d per partition/node).",
+                self.out_stream_id, total, self.engine.I)
+            self._ovf_warned = total
+
+    def close(self):
+        """App shutdown: drain pending emits, then the final overflow
+        check."""
+        self.drain()
+        self._check_overflow()
+
+    # -- snapshot contract ---------------------------------------------------
+
+    def snapshot(self) -> Dict:
+        """The reference's snapshot tree; device state is fetched through
+        ``fetch_coalesced`` (``np.asarray`` raises on a CUDA tensor)."""
+        self.drain()
+        self._check_overflow()
+        host, base_ts = state_to_numpy(self.engine, self.state)
+        return {
+            "dense_state": host,
+            "base_ts": base_ts,
+            "key_rows": dict(self._key_rows),
+            "next_row": self._next_row,
+            "free_rows": list(self._free_rows),
+            "row_last_used": self._row_last_used.copy(),
+        }
+
+    def restore(self, state: Dict):
+        """Restore a snapshot of this runtime or of the reference's."""
+        self.drain()
+        rows = len(next(iter(state["dense_state"].values())))
+        want = self.engine.n_partitions + 1
+        if rows != want:
+            raise SiddhiAppRuntimeError(
+                f"cannot restore: snapshot has {rows} state rows but this "
+                f"app needs {want} (snapshot taken under a different "
+                "@app:execution partitions setting)")
+        self.state = state_from_numpy(self.engine, state["dense_state"],
+                                      state["base_ts"])
+        self._key_rows = dict(state["key_rows"])
+        self._next_row = state.get("next_row", len(self._key_rows))
+        self._free_rows = list(state.get("free_rows", []))
+        rlu = state.get("row_last_used")
+        if rlu is not None:
+            self._row_last_used = np.asarray(rlu).copy()
+        self._rebuild_key_index()

@@ -179,6 +179,23 @@ def packed_step(ok_pk, a_pk, first_t, ts, *, n_inst: int,
 packed_step.launches = 0
 
 
+def candidate_env(stream_def, cols, ts):
+    """Filter env of one node: the event's lane columns (``[B, 1]``)
+    under ``__cand.<attr>`` keys, integer attrs as their hi/lo pair."""
+    env = {}
+    for attr in stream_def.attributes:
+        if attr.type in _INT_TYPES:
+            hk, lk = f"{attr.name}|hi", f"{attr.name}|lo"
+            if hk in cols:
+                env[f"__cand.{attr.name}|hi"] = cols[hk][:, None]
+                env[f"__cand.{attr.name}|lo"] = cols[lk][:, None]
+        elif attr.name in cols:
+            env["__cand." + attr.name] = cols[attr.name][:, None]
+    env[TS_KEY] = ts[:, None]
+    env[N_KEY] = ts.shape[0]
+    return env
+
+
 def build_packed_nfa(engine, stream_key: str):
     """The engine's step for events of ``stream_key``.
 
@@ -204,21 +221,6 @@ def build_packed_nfa(engine, stream_key: str):
         if _isint:
             int_out_idx[_oi] = len(int_out_idx)
 
-    def env_for(s, cols, ts):
-        env = {}
-        spec = nodes[s].specs[0]
-        for attr in spec.stream_def.attributes:
-            if attr.type in _INT_TYPES:
-                hk, lk = f"{attr.name}|hi", f"{attr.name}|lo"
-                if hk in cols:
-                    env[f"__cand.{attr.name}|hi"] = cols[hk][:, None]
-                    env[f"__cand.{attr.name}|lo"] = cols[lk][:, None]
-            elif attr.name in cols:
-                env["__cand." + attr.name] = cols[attr.name][:, None]
-        env[TS_KEY] = ts[:, None]
-        env[N_KEY] = ts.shape[0]
-        return env
-
     def step(state, part_idx, cols, ts, valid):
         B = part_idx.shape[0]
         dev = ts.device
@@ -234,7 +236,9 @@ def build_packed_nfa(engine, stream_key: str):
             if f is None:
                 ok_mat[s, :B] = valid
             else:
-                okb = torch.as_tensor(f.fn(env_for(s, cols, ts)), device=dev)
+                okb = torch.as_tensor(
+                    f.fn(candidate_env(nodes[s].specs[0].stream_def, cols, ts)),
+                    device=dev)
                 ok_mat[s, :B] = okb.to(torch.bool).broadcast_to((B, 1))[:, 0] & valid
 
         # gather the round's rows (copies) before anything is written

@@ -229,6 +229,8 @@ class DensePatternEngine:
     """
 
     base_ts: Optional[int] = None
+    # set by a DensePatternRuntime: its staged puts count there
+    ingest_stats = None
     # re-anchor before relative ms approach int32 range (~24.8 days of
     # stream time); headroom covers one batch + the within horizon
     _REL_LIMIT = 2**31 - 2**24
@@ -410,7 +412,8 @@ class DensePatternEngine:
             shifted = np.where(first > 0, np.maximum(shifted, 1), 0)
         state = dict(state)
         state["first_ts"], state["active"], state["counts"] = staged_put(
-            (shifted.astype(np.int32), active, counts), self.device)
+            (shifted.astype(np.int32), active, counts), self.device,
+            self.ingest_stats)
         return state, rel64
 
     def process(self, state, stream_key: str, part_idx: np.ndarray,
@@ -462,7 +465,8 @@ class DensePatternEngine:
                 col = np.zeros(bp, dtype=v.dtype)
                 col[:b] = v[ridx]
                 cb[k] = col
-            pi, cb, tb, valid = staged_put((pi, cb, tb, valid), self.device)
+            pi, cb, tb, valid = staged_put((pi, cb, tb, valid), self.device,
+                                           self.ingest_stats)
             state, emit, outs, emit_anchor, n_emit = step(
                 state, pi, cb, tb, valid)
             pending.chunks.append({
@@ -495,6 +499,22 @@ class DensePatternEngine:
     @property
     def output_names(self) -> List[str]:
         return [name for name, _ in self.out_spec]
+
+    @property
+    def stream_keys(self) -> List[str]:
+        """Junction keys of the pattern's source streams, in node order."""
+        keys: List[str] = []
+        for node in self.nodes:
+            for spec in node.specs:
+                if spec.stream_key not in keys:
+                    keys.append(spec.stream_key)
+        return keys
+
+    def numeric_stream_attrs(self, stream_key: str) -> List[str]:
+        """Numeric attribute names of one stream: the host columns the
+        runtime hands to ``process`` (strings stay on the host)."""
+        return [a.name for a in self._stream_def(stream_key).attributes
+                if a.type.is_numeric]
 
     def _stream_def(self, stream_key: str):
         for node in self.nodes:

@@ -74,6 +74,18 @@ class Scope:
         # stream refs known to the scope (e.g. pattern event refs)
         self.stream_refs: set = set()
 
+    def add(self, stream_ref: str, attr: str, key: str, attr_type: AttrType):
+        """Register ``stream_ref.attr`` (and bare ``attr`` unless another
+        stream's attribute of that name makes it ambiguous)."""
+        self.stream_refs.add(stream_ref)
+        self._qualified[(stream_ref, attr)] = (key, attr_type)
+        if attr in self._bare:
+            existing = self._bare[attr]
+            if existing is not None and existing[0] != key:
+                self._bare[attr] = None  # ambiguous — stays ambiguous
+        else:
+            self._bare[attr] = (key, attr_type)
+
     def resolve(self, var: Variable) -> Tuple[str, AttrType]:
         if var.stream_id is not None:
             hit = self._qualified.get((var.stream_id, var.attribute))

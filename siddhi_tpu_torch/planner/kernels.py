@@ -1,15 +1,25 @@
-"""Eligibility gate for the packed dense-NFA kernel.
+"""Gates for the port's kernels.
 
-Port of ``check_dense_kernel_eligible`` of the JAX package's
-``planner/kernels.py``.  In the port the packed step is the only dense
-step so far, so there is no fallback: a pattern outside its class is
-refused with ``SiddhiAppCreationError``, naming the general dense step
-that a later slice of the port adds (ROADMAP.md).
+Port of the JAX package's ``planner/kernels.py``:
+
+- ``check_dense_kernel_eligible``: the packed step is the port's only
+  dense step so far, so there is no fallback: a pattern outside its
+  class is refused with ``SiddhiAppCreationError``, naming the general
+  dense step that a later slice of the port adds (ROADMAP.md).
+- ``check_scan_kernel_available``: the hot-key scan's only step is the
+  fused scan kernel; on a card it needs the probe to pass and raises
+  otherwise.
+
+The reference's ``try_enable_*`` hooks swap a kernel in under
+``@app:kernels`` and count a fallback to XLA when it cannot; the port
+has no XLA path, always runs its kernels on the card and counts no
+fallback.
 """
 
 from __future__ import annotations
 
 from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
+from siddhi_tpu_torch.kernels import probe
 
 _LATER = ("; the port runs only the packed capture-free every-chain step "
           "so far — the general dense step is a later slice of the port")
@@ -43,3 +53,15 @@ def check_dense_kernel_eligible(engine) -> None:
     if engine.alloc.slots:
         raise SiddhiAppCreationError(
             "nfa kernel: captured attributes need the register file" + _LATER)
+
+
+def check_scan_kernel_available(scan) -> None:
+    """The fused scan kernel builds and launches on the scan engine's
+    card (the probe builds every kernel library, this one included);
+    raises ``SiddhiAppCreationError`` with the reason if not.  CPU
+    engines run the plain version and pass."""
+    if scan.device.type == "cpu":
+        return
+    ok, reason = probe.kernels_available(scan.device)
+    if not ok:
+        raise SiddhiAppCreationError(f"scan kernel: {reason}")

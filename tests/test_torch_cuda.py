@@ -7,14 +7,15 @@ machine with a card and no JAX they run without the repo's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Each kernel is held bit for bit against its plain torch version on the
-same inputs (the contract is pure int32 arithmetic).
+same inputs (the packed step is pure int32 arithmetic; the fused scan
+does the same float32 operations in the same order).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from siddhi_tpu_torch.kernels import dense_step, probe
+from siddhi_tpu_torch.kernels import dense_step, probe, scan_chain
 from siddhi_tpu_torch.kernels.plane_pack import pack_bits
 
 pytestmark = pytest.mark.cuda
@@ -104,3 +105,72 @@ def test_engine_on_card_matches_cpu(cuda_device):
     assert n_matches > 0
     for k in ("active", "first_ts", "overflow"):
         assert torch.equal(state["cuda"][k].cpu(), state["cpu"][k]), k
+
+
+def scan_inputs(H, n, S, seed, device):
+    """Seeded fused-scan inputs: 0/1 filter rows with all-zero padding,
+    live starts mixed with NEG, integer-valued counts."""
+    rng = np.random.default_rng(seed)
+    F = (rng.random((H, n, S + 1)) < 0.55).astype(np.float32)
+    for h, k in enumerate(rng.integers(1, n + 1, H)):
+        F[h, k:] = 0.0
+    ts = np.sort(rng.integers(1, 1 << 20, (H, n)), axis=1).astype(np.float32)
+    live = rng.random((H, S)) < 0.6
+    v = np.where(live, rng.integers(-5000, 100_000, (H, S)),
+                 np.float32(scan_chain.NEG)).astype(np.float32)
+    c = np.where(live, rng.integers(1, 100, (H, S)), 0).astype(np.float32)
+    v[:, 0] = 0.0
+    c[:, 0] = 1.0
+    return [torch.from_numpy(a).to(device) for a in (F, ts, v, c)]
+
+
+@pytest.mark.parametrize("H,n,S", [(1, 16, 2), (3, 16, 5), (8, 2048, 2),
+                                   (5, 64, 32), (256, 128, 7)])
+def test_scan_chain_kernel_matches_plain(cuda_device, H, n, S):
+    """Bit for bit on every lane, dead lanes included."""
+    ins = scan_inputs(H, n, S, seed=H * n + S, device=cuda_device)
+    before = scan_chain.fused_scan.launches
+    got = scan_chain.fused_scan(*ins)
+    torch.cuda.synchronize()
+    assert scan_chain.fused_scan.launches == before + 1
+    want = scan_chain.fused_scan_plain(*ins)
+    for name, g, w in zip(("v", "c", "emit"), got, want):
+        assert g.dtype == w.dtype == torch.float32 and g.shape == w.shape
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32)), name
+
+
+def test_hot_key_app_on_card_matches_cpu(cuda_device):
+    """A routed app through SiddhiManager: the card's callbacks equal the
+    CPU run's, and the scan and dense-step kernels both launched."""
+    from siddhi_tpu_torch import SiddhiManager
+
+    app = ("@app:playback @app:execution('tpu', instances='8') "
+           "@app:hotkeys(k='4', promote='0.3', demote='0.1') "
+           "define stream S (k long, u double, v double); "
+           "partition with (k of S) begin @info(name='q') "
+           "from every a=S[v > 8.0] -> b=S[u > 6.0] -> c=S[v > 12.0] "
+           "select c.v as cv insert into Alerts; end;")
+    rng = np.random.default_rng(9)
+    sends, t = [], 1000
+    for _ in range(300):
+        t += int(rng.integers(1, 40))
+        k = 7 if rng.random() < 0.8 else int(rng.integers(0, 30))
+        sends.append(([k, float(rng.uniform(0, 20)),
+                       float(rng.uniform(0, 20))], t))
+    before = (scan_chain.fused_scan.launches,
+              dense_step.packed_step.launches)
+    got = {}
+    for d in ("cuda", "cpu"):
+        rt = SiddhiManager(device=d).create_siddhi_app_runtime(app)
+        out = got[d] = []
+        rt.add_callback("Alerts", lambda evs, out=out: out.append(
+            [(e.timestamp, e.data) for e in evs]))
+        rt.start()
+        h = rt.get_input_handler("S")
+        for row, ts in sends:
+            h.send(row, timestamp=ts)
+        assert rt.pattern_runtimes()["q"].hot_metrics()["hotkeyPromotions"] >= 1
+        rt.shutdown()
+    assert got["cuda"] == got["cpu"] and got["cpu"]
+    assert scan_chain.fused_scan.launches > before[0]
+    assert dense_step.packed_step.launches > before[1]
