@@ -5,7 +5,9 @@
 
 Builds the port's CUDA kernels from ``siddhi_tpu_torch/kernels/csrc`` and
 drives the dense-NFA pattern path through ``compile_pattern`` and
-``process`` at full size.  Phases, each printing one JSON line:
+``process`` at full size, the skew-routed pattern path and the
+incremental-aggregation path through ``SiddhiManager``.  Phases, each
+printing one JSON line:
 
 1. build: seconds to build every kernel (one ``nvcc`` per source, all
    started together), and the card's name and power limit.
@@ -46,7 +48,32 @@ drives the dense-NFA pattern path through ``compile_pattern`` and
    this path are read from the routed run alone.  A breakdown line
    follows: host-clock ms of a routed batch's dense rounds, scan cycle
    and routing, and the device's busy time under ``torch.profiler``.
-7. kernels: one line per ported kernel (launches on the main paths,
+7. bank kernel: the aggregation bank's segmented-reduce kernel against
+   its plain torch version, both on the card, at the aggregation path's
+   shape (n_pad 32,768 events, r_pad 4,352 rows: 2,048 Zipf symbols over
+   two seconds) for every lane kind the bank uses (float32 sum, count,
+   min, max; int32 sum, min, max), at ``bench.py:1189``'s worst case (all
+   32,768 events on row 0 of 4,096) and at a ragged n_pad = 256.  Exact
+   but for float32 sums, held per row to n * 2^-24 * sum|v|; two launches
+   must give the same bits.  Times the kernel, the plain version and one
+   ``torch.scatter_reduce`` call, and works out the bound.
+8. aggregation end to end: the Siddhi query guide's TradeAggregation
+   (``avg(price)``, ``sum(price)`` by symbol, every sec ... year) under
+   ``@app:execution('tpu') @app:kernels('bank')``, with
+   ``bench_pallas_bank``'s sizes (2,048 symbols, Zipf(1.2) from seed 29,
+   B = 32,768 events, 100 trades per ms of event time; 2 warm-up batches
+   and 3 windows of 8, each window followed by ``per 'seconds'`` and
+   ``per 'minutes'`` pulls through ``rt.query``), on the card and again
+   with ``device="cpu"``.  Every pull must agree (bucket starts and
+   symbols exact, ``total``/``avgPrice`` within each bucket's float32
+   bound), bank scatters and flushes must be equal, and the kernel must
+   launch exactly twice per banked batch.  Then the wide variant (every
+   lane kind: LONG sum and extrema pairs, float extrema, count) for one
+   window, held the same way.  A breakdown line follows: host-clock ms of
+   a batch's host bucketing, bank scatter (H2D and launches) and flush
+   (D2H and merge), of the pulls, and the device busy share under
+   ``torch.profiler`` over one window.
+9. kernels: one line per ported kernel (launches on the main paths,
    largest difference from its plain version, times, bound).
 
 Then the card's name and power limit (nvidia-smi), and last the device
@@ -57,6 +84,7 @@ nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -96,6 +124,26 @@ SCAN_SHAPES = ((8, 2048, 2), (256, 4096, 32), (3, 16, 5))
 # depends on has finished, at least 4 cycles on the SM's float pipe
 SCAN_DEP_OPS = 6
 DEP_LATENCY_CYCLES = 4
+
+# the aggregation path: bench.py's bank sizes (PK_BANK_ROWS,
+# PK_BANK_EVENTS) under the docs app, Zipf(1.2) symbols as bench.py:720
+AGG_SYMBOLS = 2_048
+AGG_BATCH = 1 << 15
+AGG_WARMUP = 2
+AGG_STEPS = 8
+AGG_WINDOWS = 3
+AGG_BASE = 1_496_289_777_000  # 2017-06-01 04:02:57 UTC
+AGG_PER = ("seconds", "minutes")
+BANK_R_PAD = 4_352  # pad_rows(cap + 1) for the bank's 4,096 rows
+BANK_WORST_ROWS = 4_096  # bench_pallas_bank: every event on row 0
+TRADE_DEFINE = ("define stream TradeStream (symbol string, price double, "
+                "volume long, timestamp long); ")
+TRADE_SELECT = {
+    "docs": "symbol, avg(price) as avgPrice, sum(price) as total",
+    "wide": ("symbol, avg(price) as avgPrice, sum(price) as total, "
+             "sum(volume) as vol, min(price) as lo, max(price) as hi, "
+             "min(volume) as vlo, max(volume) as vhi, count() as n"),
+}
 
 
 def emit(obj) -> None:
@@ -493,6 +541,258 @@ def routed_breakdown(torch, rt, bs, EventBatch, n=3):
     return {"phase": "routed_breakdown", "batches": n, **rec, **prof}
 
 
+def bank_cases(torch, device):
+    """Seeded segmented-reduce inputs: (label, rows, vals, r_pad, op,
+    identity).  At the aggregation path's shape a batch that crosses a
+    second holds its 2,048 Zipf symbols twice (rows sym and 2,048 + sym;
+    the dump row 4,096 stays empty), one case per lane kind the bank
+    uses; then bench_pallas_bank's worst case and a ragged 256."""
+    from siddhi_tpu_torch.kernels.bank_scatter import pad_rows
+
+    rng = np.random.default_rng(29)
+    n = AGG_BATCH
+    sym = (rng.zipf(1.2, n) - 1) % AGG_SYMBOLS
+    rows = (sym + AGG_SYMBOLS * (np.arange(n) >= n // 2)).astype(np.int32)
+    price = rng.uniform(1.0, 500.0, n).astype(np.float32)
+    lo = (rng.integers(1, 10_000, n) & 0xFFFF).astype(np.int32)  # LONG-sum lo
+    i32 = rng.integers(-(2**31), 2**31 - 1, n).astype(np.int32)
+    i32_max, i32_min = int(np.iinfo(np.int32).max), int(np.iinfo(np.int32).min)
+    cases = [
+        ("path f32 sum", rows, price, BANK_R_PAD, "sum", 0.0),
+        ("path count", rows, np.ones(n, np.float32), BANK_R_PAD, "count", 0.0),
+        ("path f32 min", rows, price, BANK_R_PAD, "min", float("inf")),
+        ("path f32 max", rows, price, BANK_R_PAD, "max", float("-inf")),
+        ("path i32 sum", rows, lo, BANK_R_PAD, "sum", 0),
+        ("path i32 min", rows, i32, BANK_R_PAD, "min", i32_max),
+        ("path i32 max", rows, i32, BANK_R_PAD, "max", i32_min),
+    ]
+    hot = np.zeros(n, dtype=np.int32)
+    hot_v = np.random.default_rng(5).integers(0, 100, n).astype(np.int32)
+    r_hot = pad_rows(BANK_WORST_ROWS)
+    cases += [("row0 i32 sum", hot, hot_v, r_hot, "sum", 0),
+              ("row0 f32 sum", hot, hot_v.astype(np.float32), r_hot, "sum",
+               0.0)]
+    r_rag = np.full(256, AGG_SYMBOLS * 2, dtype=np.int32)  # dump-row padding
+    r_rag[:190] = rows[:190]
+    v_rag = np.zeros(256, dtype=np.float32)
+    v_rag[:190] = price[:190]
+    m_rag = np.full(256, i32_min, dtype=np.int32)
+    m_rag[:190] = i32[:190]
+    cases += [("ragged f32 sum", r_rag, v_rag, BANK_R_PAD, "sum", 0.0),
+              ("ragged i32 max", r_rag, m_rag, BANK_R_PAD, "max", i32_min)]
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return [(lbl, as_t(r), as_t(v), rp, op, ident)
+            for lbl, r, v, rp, op, ident in cases]
+
+
+def bank_bound(n_pad, r_pad) -> dict:
+    """Least time for one ``segmented_reduce``: rows and values read
+    once and the delta written once, over HBM (the bank's ``a ⊕ d`` is a
+    separate op, outside this time); one select and one combine per
+    event on the CUDA cores.  The larger bounds (the bytes)."""
+    bytes_ = 8 * n_pad + 4 * r_pad
+    terms = {"bytes_ms": 1e3 * bytes_ / HBM_BYTES_PER_S,
+             "operations_at_peak_ms": 1e3 * 2 * n_pad / CUDA_CORE_OPS_PER_S}
+    return {"bound_ms": max(terms.values()), "bound_terms": terms,
+            "bound_by": ("bytes" if terms["bytes_ms"] >= terms[
+                "operations_at_peak_ms"] else "operations")}
+
+
+def trade_app(kind: str) -> str:
+    """The Siddhi 5.1 query guide's TradeAggregation (``docs``) or its
+    every-lane variant (``wide``), under the device bank."""
+    return (f"@app:name('TradeAgg_{kind}') @app:playback "
+            "@app:execution('tpu') @app:kernels('bank') " + TRADE_DEFINE +
+            "define aggregation TradeAggregation from TradeStream select "
+            + TRADE_SELECT[kind] + " group by symbol aggregate by timestamp "
+            "every sec ... year;")
+
+
+def trade_pull(per: str, kind: str) -> str:
+    cols = ", ".join(c.split(" as ")[-1] for c in TRADE_SELECT[kind].split(", "))
+    return (f"from TradeAggregation within {AGG_BASE - 60_000}, "
+            f"{AGG_BASE + 86_400_000} per '{per}' select {cols};")
+
+
+def trade_batches(EventBatch, n_batches):
+    """The aggregation cell's traffic: symbols (zipf(1.2) - 1) % 2048
+    from default_rng(29), price ~ U(1, 500), volume ~ [1, 10000),
+    timestamp = AGG_BASE + i // 100 (100,000 trades per second).
+    Returns the batches and each batch's symbol indices."""
+    rng = np.random.default_rng(29)
+    names = np.asarray([f"S{i:04d}" for i in range(AGG_SYMBOLS)], dtype=object)
+    out, syms = [], []
+    for b in range(n_batches):
+        i = np.arange(b * AGG_BATCH, (b + 1) * AGG_BATCH, dtype=np.int64)
+        ts = AGG_BASE + i // 100
+        sym = (rng.zipf(1.2, AGG_BATCH) - 1) % AGG_SYMBOLS
+        cols = {"symbol": names[sym],
+                "price": rng.uniform(1.0, 500.0, AGG_BATCH),
+                "volume": rng.integers(1, 10_000, AGG_BATCH).astype(np.int64),
+                "timestamp": ts}
+        out.append(EventBatch("TradeStream", list(cols), cols, ts))
+        syms.append(sym)
+    return out, syms
+
+
+class GcClock:
+    """Host ms the garbage collector spent while registered in
+    ``gc.callbacks``: its pauses land inside the timed windows."""
+
+    def __init__(self):
+        self.ms = 0.0
+        self._t = None
+
+    def __call__(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            self.ms += 1e3 * (time.perf_counter() - self._t)
+            self._t = None
+
+
+def run_trade(torch, SiddhiManager, kind, device, batches, windows):
+    """Warm-up batches, then ``windows`` windows of AGG_STEPS batches, each
+    synchronised on a card and followed by the AGG_PER pulls.  Returns
+    the still-running app and what it measured, with the garbage
+    collector's ms inside each window and each pull."""
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    mgr = SiddhiManager(device=device)
+    rt = mgr.create_siddhi_app_runtime(trade_app(kind))
+    rt.start()
+    h = rt.get_input_handler("TradeStream")
+    for b in batches[:AGG_WARMUP]:
+        h.send_batch(b)
+    window_s, pull_s, pulls, gc_ms = [], [], [], []
+    clock = GcClock()
+    gc.callbacks.append(clock)
+    try:
+        for w in range(windows):
+            lo = AGG_WARMUP + w * AGG_STEPS
+            sync()
+            g = clock.ms
+            t = time.perf_counter()
+            for b in batches[lo:lo + AGG_STEPS]:
+                h.send_batch(b)
+            sync()
+            window_s.append(time.perf_counter() - t)
+            g_pull = clock.ms
+            t = time.perf_counter()
+            pulls.append([[(e.timestamp, e.data) for e in rt.query(
+                trade_pull(per, kind))] for per in AGG_PER])
+            pull_s.append(time.perf_counter() - t)
+            gc_ms.append([g_pull - g, clock.ms - g_pull])
+    finally:
+        gc.callbacks.remove(clock)
+    return mgr, rt, {"window_s": window_s, "pull_s": pull_s, "pulls": pulls,
+                     "gc_ms": gc_ms}
+
+
+def bucket_stats(batches, syms, dur_ms) -> dict:
+    """(bucket start, symbol) -> (events, sum |price|) over ``batches``:
+    the float32 bound of each pulled bucket's sums."""
+    ts = np.concatenate([b.timestamps for b in batches])
+    sym = np.concatenate(syms)
+    price = np.concatenate([b.columns["price"] for b in batches])
+    start = ts // dur_ms * dur_ms
+    codes = (start - start.min()) * AGG_SYMBOLS + sym
+    u, inv, n = np.unique(codes, return_inverse=True, return_counts=True)
+    s = np.bincount(inv, weights=np.abs(price))
+    return {(int(c // AGG_SYMBOLS + start.min()), f"S{int(c % AGG_SYMBOLS):04d}"):
+            (int(k), float(a)) for c, k, a in zip(u, n, s)}
+
+
+def compare_pulls(got, want, stats, kind) -> int:
+    """Card pull rows against the CPU run's: bucket starts, symbols and
+    int or extrema fields exact; ``avgPrice``/``total`` within each
+    bucket's float32 bound n * 2^-24 * sum|price|.  Returns rows held."""
+    if len(got) != len(want) or not want:
+        raise AssertionError(f"{kind} pull: {len(got)} rows on the card, "
+                             f"{len(want)} on the CPU")
+    for (tg, g), (tw, w) in zip(got, want):
+        if tg != tw or g[0] != w[0]:
+            raise AssertionError(f"{kind} pull row differs: {(tg, g)} vs "
+                                 f"{(tw, w)}")
+        n, abs_sum = stats[(tw, w[0])]
+        bound = n * 2.0**-24 * abs_sum
+        if abs(g[2] - w[2]) > bound or abs(g[1] - w[1]) > bound / n:
+            raise AssertionError(f"{kind} pull: total/avgPrice of {(tw, w[0])} "
+                                 f"beyond the float32 bound {bound}: {g} vs {w}")
+        if g[3:] != w[3:]:
+            raise AssertionError(f"{kind} pull: exact fields differ: {g} vs {w}")
+    return len(want)
+
+
+def hold_trade(card, cpu, batches, syms, kind) -> int:
+    """Every pull of the card run against the CPU run's."""
+    held = 0
+    for w, (gp, wp) in enumerate(zip(card["pulls"], cpu["pulls"])):
+        sent = AGG_WARMUP + (w + 1) * AGG_STEPS
+        for per, got, want in zip(AGG_PER, gp, wp):
+            dur = {"seconds": 1_000, "minutes": 60_000}[per]
+            held += compare_pulls(got, want, bucket_stats(
+                batches[:sent], syms[:sent], dur), kind)
+    return held
+
+
+def agg_breakdown(torch, rt, batches, n=AGG_STEPS):
+    """Where an aggregation batch's time goes, on batches after the
+    checked windows: host-clock ms of the bank scatter (pack, the one
+    H2D put, the kernel launches) and the bank flush (D2H and host
+    merge), each ended by a synchronise, the rest of the batch (host
+    bucketing: filters, np.unique, segment keys, row assignment), then
+    the pulls; and one more window under ``torch.profiler``."""
+    agg = rt.aggregations["TradeAggregation"]
+    bank = agg._bank
+    h = rt.get_input_handler("TradeStream")
+    rec = {"batch_ms": [], "scatter_ms": [], "flush_ms": []}
+    # the stages are timed by shadowing two methods on the instances; a
+    # renamed method would leave its stage reading 0 with no error
+    for obj, meth in ((bank, "scatter"), (agg, "_flush_bank")):
+        if not callable(type(obj).__dict__.get(meth)):
+            raise AssertionError(f"{type(obj).__name__}.{meth} is gone; the "
+                                 "aggregation breakdown cannot time it")
+
+    def timed(fn, key):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            rec[key][-1] += 1e3 * (time.perf_counter() - t)
+            return out
+        return run
+
+    bank.scatter = timed(bank.scatter, "scatter_ms")
+    agg._flush_bank = timed(agg._flush_bank, "flush_ms")
+    try:
+        for b in batches[:n]:
+            for k in rec:
+                rec[k].append(0.0)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            h.send_batch(b)
+            torch.cuda.synchronize()
+            rec["batch_ms"][-1] = 1e3 * (time.perf_counter() - t)
+    finally:
+        del bank.scatter
+        del agg._flush_bank
+    if not (all(rec["scatter_ms"]) and any(rec["flush_ms"])):
+        raise AssertionError(f"aggregation breakdown timed no scatter or no "
+                             f"flush: {rec}")
+    rec["host_bucketing_ms"] = [b - s - f for b, s, f in zip(
+        rec["batch_ms"], rec["scatter_ms"], rec["flush_ms"])]
+    pull_ms = {}
+    for per in AGG_PER:
+        t = time.perf_counter()
+        rows = len(rt.query(trade_pull(per, "docs")))
+        pull_ms[per] = [1e3 * (time.perf_counter() - t), rows]
+    prof = device_profile(torch, lambda: [h.send_batch(b)
+                                          for b in batches[n:2 * n]])
+    return {"phase": "aggregation_breakdown", "batches": n, **rec,
+            "pull_ms_rows": pull_ms, **prof}
+
+
 def main() -> int:
     import torch
 
@@ -508,7 +808,13 @@ def main() -> int:
         state_to_numpy,
     )
     from siddhi_tpu_torch.core.event import EventBatch
-    from siddhi_tpu_torch.kernels import build, dense_step, probe, scan_chain
+    from siddhi_tpu_torch.kernels import (
+        bank_scatter,
+        build,
+        dense_step,
+        probe,
+        scan_chain,
+    )
     from siddhi_tpu_torch.kernels.plane_pack import pack_bits
 
     dev = torch.device("cuda")
@@ -755,9 +1061,136 @@ def main() -> int:
           "launches": hk_launches, "card": card})
     emit(hk_breakdown)
 
-    # 7. kernels -------------------------------------------------------------
+    # 7. bank kernel vs its plain version -------------------------------------
+    bank_err = 0.0
+    for label, rows, vals, r_pad, op, ident in bank_cases(torch, dev):
+        got = bank_scatter.segmented_reduce(rows, vals, r_pad, op, ident)
+        again = bank_scatter.segmented_reduce(rows, vals, r_pad, op, ident)
+        want = bank_scatter.segmented_reduce_plain(rows, vals, r_pad, op, ident)
+        torch.cuda.synchronize()
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError(f"bank_scatter kernel is not deterministic "
+                                 f"({label})")
+        # equal values (rows left at an infinite identity) differ by 0
+        diff = torch.where(got == want, 0.0,
+                           (got.double() - want.double()).abs())
+        if op == "sum" and vals.dtype == torch.float32:
+            idx = rows.long()
+            n_r = torch.zeros(r_pad, dtype=torch.float64, device=dev)
+            n_r.index_add_(0, idx, torch.ones(idx.shape, dtype=torch.float64,
+                                              device=dev))
+            abs_r = torch.zeros(r_pad, dtype=torch.float64, device=dev)
+            abs_r.index_add_(0, idx, vals.double().abs())
+            if bool((diff > n_r * 2.0**-24 * abs_r).any()):
+                raise AssertionError(f"bank_scatter kernel beyond the float32 "
+                                     f"sum bound of its plain version "
+                                     f"({label}): max |diff| {float(diff.max())}")
+        elif not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"bank_scatter kernel differs from its plain "
+                                 f"version ({label}): max |diff| "
+                                 f"{float(diff.max())}")
+        err = float(diff.max())
+        bank_err = max(bank_err, err)
+        lib_base = torch.full((r_pad,), ident, dtype=vals.dtype, device=dev)
+        idx64 = rows.long()
+        red = {"sum": "sum", "count": "sum", "min": "amin", "max": "amax"}[op]
+        line = {"phase": "bank_kernel", "case": label, "n_pad": rows.numel(),
+                "r_pad": r_pad, "op": op, "dtype": str(vals.dtype)[6:],
+                "distinct_rows": int(torch.unique(rows).numel()),
+                "max_abs_err": err, "deterministic": True,
+                "ms": time_ms(torch, lambda: bank_scatter.segmented_reduce(
+                    rows, vals, r_pad, op, ident), 200),
+                "plain_ms": time_ms(torch, lambda: bank_scatter.
+                                    segmented_reduce_plain(rows, vals, r_pad,
+                                                           op, ident), 50),
+                "library_ms": time_ms(torch, lambda: torch.scatter_reduce(
+                    lib_base, 0, idx64, vals, red, include_self=True), 200),
+                **bank_bound(rows.numel(), r_pad)}
+        if label == "path f32 sum":
+            bank_line = line
+        emit(line)
+
+    # 8. aggregation end to end -------------------------------------------------
+    n_batches = AGG_WARMUP + AGG_STEPS * AGG_WINDOWS
+    tb, tsyms = trade_batches(EventBatch, n_batches + 2 * AGG_STEPS)
+    for k in (probe.add_one, dense_step.packed_step, scan_chain.fused_scan,
+              bank_scatter.segmented_reduce):
+        k.launches = 0
+    amgr, art, agg_card = run_trade(torch, SiddhiManager, "docs", "cuda", tb,
+                                    AGG_WINDOWS)
+    agg_launches = {"probe": probe.add_one.launches,
+                    "dense_step": dense_step.packed_step.launches,
+                    "scan_chain": scan_chain.fused_scan.launches,
+                    "bank_scatter": bank_scatter.segmented_reduce.launches}
+    card_bank = art.aggregations["TradeAggregation"]._bank
+    card_counts = (card_bank.scatters, card_bank.flushes)
+    agg_bd = agg_breakdown(torch, art, tb[n_batches:])
+    art.shutdown()
+    amgr.shutdown()
+    cmgr, crt, agg_cpu = run_trade(torch, SiddhiManager, "docs", "cpu", tb,
+                                   AGG_WINDOWS)
+    cpu_bank = crt.aggregations["TradeAggregation"]._bank
+    cpu_counts = (cpu_bank.scatters, cpu_bank.flushes)
+    crt.shutdown()
+    cmgr.shutdown()
+    held = hold_trade(agg_card, agg_cpu, tb, tsyms, "docs")
+    if card_counts != cpu_counts or card_counts[0] != n_batches:
+        raise AssertionError(f"bank scatters/flushes: card {card_counts}, CPU "
+                             f"{cpu_counts}, batches {n_batches}")
+    if (agg_launches["bank_scatter"] != 2 * card_counts[0]
+            or agg_launches["probe"] < 1):
+        raise AssertionError(f"aggregation path launches {agg_launches}, "
+                             f"banked batches {card_counts[0]}")
+    # the wide variant: one window, every lane kind of the bank
+    bank_scatter.segmented_reduce.launches = 0
+    wn = AGG_WARMUP + AGG_STEPS
+    wmgr, wrt, wide_card = run_trade(torch, SiddhiManager, "wide", "cuda",
+                                     tb[:wn], 1)
+    wide_launches = bank_scatter.segmented_reduce.launches
+    wbank = wrt.aggregations["TradeAggregation"]._bank
+    wide_counts = (wbank.scatters, wbank.flushes, len(wbank._lanes))
+    wrt.shutdown()
+    wmgr.shutdown()
+    wcmgr, wcrt, wide_cpu = run_trade(torch, SiddhiManager, "wide", "cpu",
+                                      tb[:wn], 1)
+    wcbank = wcrt.aggregations["TradeAggregation"]._bank
+    wcrt.shutdown()
+    wcmgr.shutdown()
+    wide_held = hold_trade(wide_card, wide_cpu, tb, tsyms, "wide")
+    if (wide_counts[:2] != (wcbank.scatters, wcbank.flushes)
+            or wide_launches != wide_counts[2] * wide_counts[0]
+            or not wide_counts[0]):
+        raise AssertionError(f"wide variant: card scatters/flushes/lanes "
+                             f"{wide_counts}, CPU {(wcbank.scatters, wcbank.flushes)}, "
+                             f"launches {wide_launches}")
+    steady = AGG_BATCH * AGG_STEPS
+    agg_rate = steady * AGG_WINDOWS / sum(agg_card["window_s"])
+    emit({"phase": "aggregation", "symbols": AGG_SYMBOLS, "batch": AGG_BATCH,
+          "windows": AGG_WINDOWS, "warmup_batches": AGG_WARMUP,
+          "events_per_s": agg_rate,
+          "events_per_s_windows": [steady / t for t in agg_card["window_s"]],
+          "ms_per_batch": 1e3 * sum(agg_card["window_s"])
+                          / (AGG_STEPS * AGG_WINDOWS),
+          "pull_ms_windows": [1e3 * t for t in agg_card["pull_s"]],
+          "gc_ms_windows_and_pulls": agg_card["gc_ms"],
+          "pull_rows_last": [len(p) for p in agg_card["pulls"][-1]],
+          "cpu_events_per_s": steady * AGG_WINDOWS / sum(agg_cpu["window_s"]),
+          "rows_held_vs_cpu": held, "scatters": card_counts[0],
+          "flushes": card_counts[1], "launches": agg_launches,
+          "bank_state_bytes": 4 * (card_bank.cap + 1) * len(card_bank._lanes),
+          "wide": {"batches": wn, "lanes": wide_counts[2],
+                   "scatters": wide_counts[0], "flushes": wide_counts[1],
+                   "bank_scatter_launches": wide_launches,
+                   "rows_held_vs_cpu": wide_held,
+                   "events_per_s": steady / wide_card["window_s"][0],
+                   "cut": "one window of 8, not 3"},
+          "card": card})
+    emit(agg_bd)
+
+    # 9. kernels -------------------------------------------------------------
     by_path = lambda name: {"dense_1M": launches.get(name, 0),
-                            "skew_routed": hk_launches[name]}
+                            "skew_routed": hk_launches.get(name, 0),
+                            "aggregation": agg_launches[name]}
     emit({"kernels": [
         {"name": "dense_step", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/dense_step.cu",
@@ -769,7 +1202,8 @@ def main() -> int:
         {"name": "probe", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/probe.cu",
          "replaces": "siddhi_tpu/kernels/probe.py:56",
-         "launches": launches["probe"] + hk_launches["probe"],
+         "launches": (launches["probe"] + hk_launches["probe"]
+                      + agg_launches["probe"]),
          "launches_by_path": by_path("probe"), "max_abs_err": probe_err,
          "ms": probe_ms, "plain_ms": probe_plain_ms,
          "bound_ms": 1e3 * 2 * x.numel() * 4 / HBM_BYTES_PER_S,
@@ -782,6 +1216,16 @@ def main() -> int:
          "ms": scan_line["ms"], "plain_ms": scan_line["plain_ms"],
          "bound_ms": scan_line["bound_ms"],
          "bound_by": scan_line["bound_by"], "library_ms": None},
+        {"name": "bank_scatter", "route": "cuda",
+         "source": "siddhi_tpu_torch/kernels/csrc/bank_scatter.cu",
+         "replaces": "siddhi_tpu/kernels/bank_scatter.py:76",
+         "launches": agg_launches["bank_scatter"],
+         "launches_by_path": by_path("bank_scatter"),
+         "max_abs_err": bank_err,
+         "ms": bank_line["ms"], "plain_ms": bank_line["plain_ms"],
+         "bound_ms": bank_line["bound_ms"],
+         "bound_by": bank_line["bound_by"],
+         "library_ms": bank_line["library_ms"]},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

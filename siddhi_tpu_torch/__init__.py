@@ -4,14 +4,19 @@ A second package beside the JAX one, ported one slice at a time (see
 ROADMAP.md).  It imports ``torch`` and ``numpy`` and nothing of JAX or of
 the JAX package; the tests hold it bit for bit against that package.
 
-Two slices so far, both for capture-free ``every`` chains:
+Three slices so far:
 
-- ``compile_pattern`` builds a ``DensePatternEngine`` whose step is a
-  hand-written CUDA kernel on the card (``kernels/csrc/dense_step.cu``)
-  and its plain torch version on the CPU;
+- ``compile_pattern`` builds a ``DensePatternEngine`` for capture-free
+  ``every`` chains, whose step is a hand-written CUDA kernel on the card
+  (``kernels/csrc/dense_step.cu``) and its plain torch version on the
+  CPU;
 - ``SiddhiManager`` runs partitioned pattern apps end to end through
   the dense runtime and, under ``@app:hotkeys``, the skew router, whose
-  hot keys ride the fused scan kernel (``kernels/csrc/scan_chain.cu``).
+  hot keys ride the fused scan kernel (``kernels/csrc/scan_chain.cu``);
+- ``SiddhiManager`` runs ``define aggregation`` apps, whose device
+  bucket bank adds each batch through the segmented-reduce kernel
+  (``kernels/csrc/bank_scatter.cu``); ``rt.aggregations[...].find`` and
+  ``rt.query`` pull from them.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

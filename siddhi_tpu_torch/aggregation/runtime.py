@@ -1,0 +1,1155 @@
+"""Incremental aggregation: ``define aggregation A from S select ...
+group by ... aggregate by ts every sec ... year``.
+
+Port of the JAX package's ``aggregation/runtime.py`` (its own re-design
+of the reference ``core/aggregation/``, AggregationRuntime.java:81).  A
+micro-batch is bucketed by truncated timestamp + group key with one
+``np.unique`` pass, base values (sum/count/min/max/last/set) are
+segment-reduced per bucket, and completed buckets cascade up the
+duration ladder (sec -> min -> ... -> year) by merging base values (avg
+= sum + count, stdDev = sum + sumSq + count).
+
+Host work is numpy, as in the reference: DOUBLE arithmetic in float64,
+object (string) group keys, int64 timestamps.  Under
+``@app:execution('tpu')`` the bankable base fields of running finest
+buckets ride a ``DeviceBucketBank`` (``aggregation/device_bank.py``) on
+the app's device, added into by the hand-written segmented-reduce kernel
+on a card and reaching the host store only at flush barriers; fields the
+bank refuses for a batch reduce with torch scatters on the same device
+(``_device_reduce``).
+
+Query access (``find``, on-demand queries) stitches finished buckets with
+in-memory running buckets of the chosen and all finer durations.
+
+Timezone: bucket boundaries are computed in UTC (the reference's default
+aggregation timezone is GMT).  Calendar durations (months/years) truncate
+via numpy datetime64, matching GregorianCalendar month/year roll.
+"""
+
+from __future__ import annotations
+
+import re as _re
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from siddhi_tpu_torch.core import event as ev
+from siddhi_tpu_torch.core.emit_queue import fetch_coalesced
+from siddhi_tpu_torch.core.event import EventBatch
+from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
+from siddhi_tpu_torch.core.ingest_stage import staged_put
+from siddhi_tpu_torch.core.query import build_env
+from siddhi_tpu_torch.kernels.bank_scatter import scatter_combine_
+from siddhi_tpu_torch.planner.host_expr import (
+    AGGREGATOR_NAMES,
+    N_KEY,
+    TS_KEY,
+    CompiledExpression,
+    ExpressionCompiler,
+    Scope,
+)
+from siddhi_tpu_torch.query_api import (
+    AggregationDefinition,
+    ArithmeticOp,
+    AndOp,
+    Attribute,
+    AttrType,
+    CompareOp,
+    Expression,
+    FunctionCall,
+    InOp,
+    IsNull,
+    NotOp,
+    OrOp,
+    StreamDefinition,
+    Variable,
+)
+
+DURATIONS = ["seconds", "minutes", "hours", "days", "weeks", "months", "years"]
+
+_FIXED_MS = {
+    "seconds": 1_000,
+    "minutes": 60_000,
+    "hours": 3_600_000,
+    "days": 86_400_000,
+    "weeks": 604_800_000,
+}
+
+AGG_START_TS = "AGG_TIMESTAMP"
+
+
+def bucket_starts(ts_ms: np.ndarray, duration: str) -> np.ndarray:
+    """Truncate epoch-ms timestamps to their bucket start for a duration.
+
+    Fixed durations use modulo arithmetic (weeks anchor on the epoch-Thursday
+    like java.util.Calendar's WEEK truncation anchors are locale-dependent;
+    we anchor ISO-style on Monday).  months/years truncate on the UTC
+    calendar via datetime64.
+    """
+    ts_ms = np.asarray(ts_ms, dtype=np.int64)
+    if duration in _FIXED_MS:
+        w = _FIXED_MS[duration]
+        if duration == "weeks":
+            # epoch (1970-01-01) was a Thursday; shift so weeks start Monday
+            shift = 3 * 86_400_000
+            return (ts_ms + shift) // w * w - shift
+        return ts_ms // w * w
+    dt = ts_ms.astype("datetime64[ms]")
+    unit = "M" if duration == "months" else "Y"
+    return dt.astype(f"datetime64[{unit}]").astype("datetime64[ms]").astype(np.int64)
+
+
+def bucket_end(start_ms: int, duration: str) -> int:
+    """Exclusive end of the bucket that starts at start_ms."""
+    if duration in _FIXED_MS:
+        return int(start_ms) + _FIXED_MS[duration]
+    dt = np.int64(start_ms).astype("datetime64[ms]")
+    unit = "M" if duration == "months" else "Y"
+    nxt = dt.astype(f"datetime64[{unit}]") + 1
+    return int(nxt.astype("datetime64[ms]").astype(np.int64))
+
+
+# ---------------------------------------------------------------------------
+# Base-field decomposition
+# ---------------------------------------------------------------------------
+
+
+class BaseField:
+    """One incrementally-mergeable accumulator column.
+
+    op: 'sum' | 'count' | 'min' | 'max' | 'last' | 'set'
+    The merge of two partial buckets is op-specific (add / add / min / max /
+    later-wins / union) — this is what makes the sec->year cascade exact.
+    """
+
+    __slots__ = ("name", "op", "arg", "type")
+
+    def __init__(self, name: str, op: str, arg: Optional[CompiledExpression], type_: AttrType):
+        self.name = name
+        self.op = op
+        self.arg = arg
+        self.type = type_
+
+
+_NUMERIC_WIDE = {
+    AttrType.INT: AttrType.LONG,
+    AttrType.LONG: AttrType.LONG,
+    AttrType.FLOAT: AttrType.DOUBLE,
+    AttrType.DOUBLE: AttrType.DOUBLE,
+}
+
+
+class IncrementalRewrite:
+    """Decomposes select-clause aggregator calls into base fields and
+    rewrites the expression to reference them (the analog of the reference's
+    IncrementalAttributeAggregator.getBaseAttributes /
+    getNewMeta rewrite in AggregationParser.java:420-560)."""
+
+    def __init__(self, compiler: ExpressionCompiler, final_scope: Scope):
+        self.compiler = compiler
+        self.final_scope = final_scope
+        self.fields: Dict[str, BaseField] = {}
+        # avg decomposes to sum + count, stdDev to sum + sumsq + count;
+        # the device bank uses these to decide whether the count
+        # denominator should ride the device
+        self.saw_avg = False
+        self.saw_stddev = False
+
+    def _field(self, op: str, arg_expr: Optional[Expression], type_: AttrType) -> str:
+        key = f"__{op}_{'' if arg_expr is None else repr(arg_expr)}"
+        if key in self.fields:
+            return self.fields[key].name
+        name = f"_{op.upper()}{len(self.fields)}"
+        arg = self.compiler.compile(arg_expr) if arg_expr is not None else None
+        self.fields[key] = BaseField(name, op, arg, type_)
+        self.final_scope.add_bare(name, type_)
+        return name
+
+    def _one_arg(self, call: FunctionCall) -> Expression:
+        if len(call.args) != 1:
+            raise SiddhiAppCreationError(
+                f"aggregation: '{call.name}' takes exactly one argument"
+            )
+        return call.args[0]
+
+    def rewrite(self, expr: Expression) -> Expression:
+        if isinstance(expr, FunctionCall) and expr.namespace is None and expr.name in AGGREGATOR_NAMES:
+            name = expr.name
+            if name == "count":
+                return Variable(attribute=self._field("count", None, AttrType.LONG))
+            if name in ("sum", "avg", "stdDev"):
+                a = self._one_arg(expr)
+                at = self.compiler.compile(a).type
+                if at not in _NUMERIC_WIDE:
+                    raise SiddhiAppCreationError(f"aggregation: {name}() needs a numeric argument")
+                sum_v = Variable(attribute=self._field("sum", a, _NUMERIC_WIDE[at]))
+                if name == "sum":
+                    return sum_v
+                cnt_v = Variable(attribute=self._field("count", None, AttrType.LONG))
+                if name == "avg":
+                    self.saw_avg = True
+                    return ArithmeticOp("/", sum_v, cnt_v)
+                self.saw_stddev = True
+                sq = ArithmeticOp("*", a, a)
+                sumsq_v = Variable(attribute=self._field("sum", sq, AttrType.DOUBLE))
+                mean = ArithmeticOp("/", sum_v, cnt_v)
+                var = ArithmeticOp(
+                    "-", ArithmeticOp("/", sumsq_v, cnt_v), ArithmeticOp("*", mean, mean)
+                )
+                # clamp float-rounding negatives before the root
+                from siddhi_tpu_torch.query_api import Constant
+
+                var = FunctionCall(None, "maximum", (var, Constant(0.0, AttrType.DOUBLE)))
+                return FunctionCall(None, "sqrt", (var,))
+            if name in ("min", "max", "minForever", "maxForever"):
+                # Forever variants degrade to per-bucket min/max: inside the
+                # cascade the merge (min-of-mins) already gives the running
+                # extremum over any queried range.
+                a = self._one_arg(expr)
+                at = self.compiler.compile(a).type
+                if at not in _NUMERIC_WIDE:
+                    raise SiddhiAppCreationError(f"aggregation: {name}() needs a numeric argument")
+                op = "min" if name in ("min", "minForever") else "max"
+                return Variable(attribute=self._field(op, a, at))
+            if name == "distinctCount":
+                a = self._one_arg(expr)
+                return Variable(attribute=self._field("set", a, AttrType.LONG))
+            raise SiddhiAppCreationError(
+                f"aggregation: aggregator '{name}' is not incrementally mergeable"
+            )
+        if isinstance(expr, ArithmeticOp):
+            return ArithmeticOp(expr.op, self.rewrite(expr.left), self.rewrite(expr.right))
+        if isinstance(expr, CompareOp):
+            return CompareOp(expr.op, self.rewrite(expr.left), self.rewrite(expr.right))
+        if isinstance(expr, AndOp):
+            return AndOp(self.rewrite(expr.left), self.rewrite(expr.right))
+        if isinstance(expr, OrOp):
+            return OrOp(self.rewrite(expr.left), self.rewrite(expr.right))
+        if isinstance(expr, NotOp):
+            return NotOp(self.rewrite(expr.expr))
+        if isinstance(expr, IsNull):
+            return IsNull(self.rewrite(expr.expr))
+        if isinstance(expr, InOp):
+            return InOp(self.rewrite(expr.expr), expr.source_id)
+        if isinstance(expr, FunctionCall):
+            return FunctionCall(
+                expr.namespace, expr.name, tuple(self.rewrite(a) for a in expr.args), expr.star
+            )
+        return expr
+
+
+# ---------------------------------------------------------------------------
+# Bucket store
+# ---------------------------------------------------------------------------
+
+
+class _Bucket:
+    """Per (duration, bucket_start, group_key) base accumulator row."""
+
+    __slots__ = ("values", "last_ts")
+
+    def __init__(self):
+        self.values: Dict[str, object] = {}
+        self.last_ts = -1
+
+
+def _merge_value(op: str, old, new, old_ts: int, new_ts: int):
+    if old is None:
+        return new
+    if new is None:
+        return old
+    if op in ("sum", "count"):
+        return old + new
+    if op == "min":
+        return min(old, new)
+    if op == "max":
+        return max(old, new)
+    if op == "set":
+        return old | new
+    # 'last': later timestamp wins
+    return new if new_ts >= old_ts else old
+
+
+class _DurationStore:
+    """All buckets of one duration: running (in-memory, may still receive
+    events) and finished (flushed by the cascade — the analog of the
+    reference's per-duration backing table)."""
+
+    def __init__(self, duration: str):
+        self.duration = duration
+        self.running: Dict[Tuple[int, Tuple], _Bucket] = {}
+        self.finished: Dict[Tuple[int, Tuple], _Bucket] = {}
+
+    def merge_into(self, target: Dict, key: Tuple[int, Tuple], values: Dict, last_ts: int,
+                   ops: Dict[str, str]):
+        b = target.get(key)
+        if b is None:
+            b = target[key] = _Bucket()
+        for fname, v in values.items():
+            b.values[fname] = _merge_value(ops[fname], b.values.get(fname), v, b.last_ts, last_ts)
+        if last_ts > b.last_ts:
+            b.last_ts = last_ts
+
+
+# ---------------------------------------------------------------------------
+# Runtime
+# ---------------------------------------------------------------------------
+
+
+class AggregationRuntime:
+    """Executes one ``define aggregation``.
+
+    Subscribes to the input stream junction; per batch performs the bucketed
+    reduction into the finest duration's running store; a watermark (max
+    event time seen) drives the flush cascade.  ``find`` serves joins and
+    on-demand queries.
+    """
+
+    def __init__(self, definition: AggregationDefinition, app_planner):
+        self.definition = definition
+        self.name = definition.id
+        self.app_context = app_planner.app_context
+        s = definition.input_stream
+        in_def = app_planner.resolve_stream_definition(s)
+        self.input_stream_id = s.stream_id
+        self._init_purge(definition)
+        declared = [d for d in DURATIONS if d in definition.durations]
+        if not declared:
+            raise SiddhiAppCreationError(f"aggregation '{self.name}': no durations")
+        # Fill the min..max range along the NESTING chain (sec..day, month,
+        # year).  Weeks do not nest inside months, so 'weeks' is a side
+        # branch fed from days (or finer) — never part of the month/year
+        # cascade.  (The reference keeps a linear executor chain and shares
+        # this constraint via its duration validation.)
+        chain = [d for d in DURATIONS if d != "weeks"]
+        chain_declared = [d for d in declared if d != "weeks"]
+        if chain_declared:
+            lo = chain.index(chain_declared[0])
+            hi = chain.index(chain_declared[-1])
+            self.chain = chain[lo : hi + 1]
+        else:
+            self.chain = []
+        self.has_weeks = "weeks" in declared
+        self.durations = list(self.chain)
+        if self.has_weeks:
+            self.durations = sorted(
+                self.durations + ["weeks"], key=DURATIONS.index
+            )
+
+        ref = s.alias or s.stream_id
+        scope = Scope()
+        for a in in_def.attributes:
+            scope.add(ref, a.name, a.name, a.type)
+        self.compiler = ExpressionCompiler(scope)
+
+        # tpu mode: bankable base fields live on the app's device (the
+        # bucket bank) or reduce there; the host store stays the source
+        # of truth for snapshots, rollups and on-demand queries — in tpu
+        # mode it is completed lazily, at flush barriers
+        # (rollover/find/snapshot), not per batch
+        self._device_segments = (
+            app_planner.app_context.execution_mode == "tpu")
+        self._device = app_planner.app_context.device
+        # @app:execution('tpu', agg.device.min.batch='N'): minimum batch
+        # size before the transient [U]-segment reduce rides the device
+        # (the bank path is batch-size independent)
+        self._agg_min_batch = getattr(
+            app_planner.app_context, "tpu_agg_min_batch", 512)
+
+        # input filters: `from S[cond] select ...` aggregates only
+        # passing rows (reference: AggregationParser wires the stream's
+        # filter chain ahead of the IncrementalExecutor;
+        # AggregationFilterTestCase.java:43) — the query chain's own
+        # FilterProcessor, so masking/type-check behavior stays shared
+        from siddhi_tpu_torch.core.query import FilterProcessor
+
+        self.input_filters = []
+        for h in getattr(s, "handlers", []):
+            if type(h).__name__ != "Filter":
+                raise SiddhiAppCreationError(
+                    f"aggregation '{self.name}': only filters are "
+                    "supported on the input stream")
+            self.input_filters.append(
+                FilterProcessor(self.compiler.compile(h.expression)))
+
+        # aggregate by <attr> (defaults to event arrival timestamp)
+        self.ts_compiled: Optional[CompiledExpression] = None
+        if definition.aggregate_by is not None:
+            c = self.compiler.compile(Variable(attribute=definition.aggregate_by))
+            if c.type not in (AttrType.LONG, AttrType.INT):
+                raise SiddhiAppCreationError(
+                    f"aggregation '{self.name}': 'aggregate by {definition.aggregate_by}' "
+                    "must be a long epoch-ms attribute"
+                )
+            self.ts_compiled = c
+
+        sel = definition.selector
+        self.group_by: List[CompiledExpression] = [
+            self.compiler.compile(g) for g in (sel.group_by or [])
+        ]
+        self.group_names: List[str] = [
+            g.attribute if isinstance(g, Variable) else f"_g{i}"
+            for i, g in enumerate(sel.group_by or [])
+        ]
+
+        # decompose select items
+        final_scope = Scope()
+        final_scope.add_bare(AGG_START_TS, AttrType.LONG)
+        for nm, g in zip(self.group_names, sel.group_by or []):
+            gc = self.compiler.compile(g)
+            final_scope.add_bare(nm, gc.type)
+        rw = IncrementalRewrite(self.compiler, final_scope)
+        self.out_items: List[Tuple[str, CompiledExpression]] = []
+        out_attrs: List[Attribute] = []
+        if not sel.selection:
+            raise SiddhiAppCreationError(
+                f"aggregation '{self.name}': select clause is required"
+            )
+        final_compiler = ExpressionCompiler(final_scope)
+        group_key_exprs = {repr(g) for g in (sel.group_by or [])}
+        for item in sel.selection:
+            expr = item.expression
+            nm = item.name
+            if isinstance(expr, Variable) and repr(expr) in group_key_exprs:
+                # group-by key: passes through the bucket key
+                idx = [repr(g) for g in sel.group_by].index(repr(expr))
+                gname = self.group_names[idx]
+                compiled = final_compiler.compile(Variable(attribute=gname))
+            else:
+                rewritten = rw.rewrite(expr)
+                if repr(rewritten) == repr(expr):
+                    # no aggregator inside: per-bucket last value
+                    src = self.compiler.compile(expr)
+                    fname = rw._field("last", expr, src.type)
+                    compiled = final_compiler.compile(Variable(attribute=fname))
+                else:
+                    compiled = final_compiler.compile(rewritten)
+            self.out_items.append((nm, compiled))
+            out_attrs.append(Attribute(nm, compiled.type))
+        self.base_fields: List[BaseField] = list(rw.fields.values())
+        self.field_ops: Dict[str, str] = {f.name: f.op for f in self.base_fields}
+
+        # device-resident ingest (tpu mode): float sum/min/max base
+        # fields of running finest buckets accumulate in device rows,
+        # LONG sums (``sum(intcol)`` widens INT→LONG) in exact hi/lo
+        # int32 pair rows, LONG extrema in exact lexicographic hi/lo
+        # pairs, and all materialize to the host store only at flush
+        # barriers (aggregation/device_bank.py); remaining last/set
+        # fields keep the exact host path at native width
+        self._bank = None
+        if self._device_segments:
+            bank_fields = [
+                f for f in self.base_fields
+                if (f.op in ("sum", "min", "max")
+                    and f.type in (AttrType.FLOAT, AttrType.DOUBLE))
+                or (f.op == "sum" and f.type == AttrType.LONG)
+                or (f.op in ("min", "max")
+                    and f.type in (AttrType.INT, AttrType.LONG))
+            ]
+            # avg(x) over a numeric argument rewrites to _SUM/_COUNT
+            # and stdDev(x) to _SUM/_SUMSQ/_COUNT (the sumsq row is a
+            # DOUBLE "sum"-op field and an int avg's _SUM is a LONG
+            # sum, so both numerators are already banked above);
+            # with the numerators banked, banking the shared count
+            # denominator too lets avg- and stdDev-bearing ingest skip
+            # the host reduction entirely.  Count rows are float32 on
+            # the device — exact below 2**24, enforced by the overflow
+            # barrier in _bank_ingest — and cast back to exact ints at
+            # flush merge.  Bare counts (no avg/stdDev) ride the same
+            # float32 add rows under the same barrier, so count-only
+            # selects skip the host reduction too.
+            bank_fields += [
+                f for f in self.base_fields if f.op == "count"
+            ]
+            if bank_fields:
+                from siddhi_tpu_torch.aggregation.device_bank import (
+                    DeviceBucketBank,
+                )
+                from siddhi_tpu_torch.planner.kernels import (
+                    check_bank_kernel_available,
+                )
+
+                # one formulation: the segmented-reduce kernel on a card,
+                # its plain version on the CPU (no fallback)
+                self._bank = DeviceBucketBank(bank_fields,
+                                              device=self._device)
+                check_bank_kernel_available(self._bank)
+
+        self.output_definition = StreamDefinition(
+            id=self.name, attributes=[Attribute(AGG_START_TS, AttrType.LONG)] + out_attrs
+        )
+        # flush-cascade topology: each duration feeds the next chain duration;
+        # weeks hang off the coarsest sub-week chain duration
+        self._feeds: Dict[str, List[str]] = {d: [] for d in self.durations}
+        for i, d in enumerate(self.chain[:-1]):
+            self._feeds[d].append(self.chain[i + 1])
+        if self.has_weeks and self.chain:
+            sub_week = [d for d in self.chain if DURATIONS.index(d) < DURATIONS.index("weeks")]
+            if not sub_week:
+                raise SiddhiAppCreationError(
+                    f"aggregation '{self.name}': 'week' needs a day-or-finer "
+                    "duration to aggregate from when months/years are present"
+                )
+            self._feeds[sub_week[-1]].append("weeks")
+
+        self.stores: Dict[str, _DurationStore] = {d: _DurationStore(d) for d in self.durations}
+        self.watermark: int = -(1 << 62)
+
+    # -- purging (reference: aggregation/IncrementalDataPurger.java) --------
+
+    _DEFAULT_RETENTION = {
+        "seconds": 120 * 1000,              # 120 sec
+        "minutes": 24 * 3_600_000,          # 24 hours
+        "hours": 30 * 86_400_000,           # 30 days
+        "days": 365 * 86_400_000,           # 1 year
+        "weeks": -1,                        # retain all (reference purger
+        "months": -1,                       # has no WEEKS/MONTHS defaults)
+        "years": -1,
+    }
+    _MIN_RETENTION = {
+        "seconds": 120 * 1000,
+        "minutes": 120 * 60_000,
+        "hours": 25 * 3_600_000,
+        "days": 32 * 86_400_000,
+        "weeks": 5 * 7 * 86_400_000,
+        "months": 13 * 30 * 86_400_000,
+        "years": -1,
+    }
+    _KEY_TO_DURATION = {
+        "sec": "seconds", "seconds": "seconds",
+        "min": "minutes", "minutes": "minutes",
+        "hour": "hours", "hours": "hours",
+        "day": "days", "days": "days",
+        "week": "weeks", "weeks": "weeks",
+        "month": "months", "months": "months",
+        "year": "years", "years": "years",
+    }
+
+    def _init_purge(self, definition):
+        """@purge(enable, interval, @retentionPeriod(sec=..., min=..., ...))
+        (reference: AggregationParser purge handling +
+        IncrementalDataPurger.init:95-130 defaults/minimums)."""
+        from siddhi_tpu_torch.compiler.parser import parse_time_string
+        from siddhi_tpu_torch.query_api.annotation import find_annotation
+
+        self._purge_enabled = True
+        self._purge_interval_ms = 15 * 60_000
+        self._retention = dict(self._DEFAULT_RETENTION)
+        self._last_purge = 0
+        ann = find_annotation(definition.annotations, "purge")
+        if ann is None:
+            return
+        enable = ann.element("enable")
+        if enable is not None:
+            if enable.lower() not in ("true", "false"):
+                raise SiddhiAppCreationError(
+                    f"aggregation '{definition.id}': invalid @purge enable "
+                    f"'{enable}' (true|false)")
+            self._purge_enabled = enable.lower() == "true"
+        interval = ann.element("interval")
+        if interval is not None:
+            self._purge_interval_ms = parse_time_string(interval)
+        rp = ann.nested("retentionPeriod")
+        if rp is not None:
+            for key, value in rp.elements:
+                if key is None:
+                    continue
+                d = self._KEY_TO_DURATION.get(key.lower())
+                if d is None:
+                    raise SiddhiAppCreationError(
+                        f"aggregation '{definition.id}': unknown retention "
+                        f"duration '{key}'")
+                if value.strip().lower() == "all":
+                    self._retention[d] = -1
+                    continue
+                ms = parse_time_string(value)
+                minimum = self._MIN_RETENTION[d]
+                if minimum > 0 and ms < minimum:
+                    raise SiddhiAppCreationError(
+                        f"aggregation '{definition.id}': retention for {d} "
+                        f"must be >= {minimum} ms (got {ms})")
+                self._retention[d] = ms
+
+    def _purge(self, now: int):
+        if not self._purge_enabled or now - self._last_purge < self._purge_interval_ms:
+            return
+        self._last_purge = now
+        for d in self.durations:
+            keep_ms = self._retention.get(d, -1)
+            if keep_ms < 0:
+                continue
+            st = self.stores[d]
+            cutoff = now - keep_ms
+            for k in [k for k in st.finished if bucket_end(k[0], d) < cutoff]:
+                del st.finished[k]
+
+    # -- ingest -------------------------------------------------------------
+
+    def on_event(self, batch: EventBatch, now: int):
+        batch = batch.only(ev.CURRENT)
+        for fp in self.input_filters:
+            if len(batch) == 0:
+                break
+            batch = fp.process(batch, now)
+        if len(batch) == 0:
+            self._advance(now)
+            return
+        env = build_env(batch)
+        ts = (
+            np.asarray(self.ts_compiled(env), dtype=np.int64)
+            if self.ts_compiled is not None
+            else batch.timestamps
+        )
+        n = len(batch)
+        finest = self.durations[0]
+        buckets = bucket_starts(ts, finest)
+
+        # group keys (gcols columns; tuples built only per unique
+        # segment below — not per row)
+        gcols = ([np.broadcast_to(np.asarray(g(env)), (n,))
+                  for g in self.group_by] if self.group_by else [])
+
+        def key_at(i: int) -> Tuple:
+            return tuple(c[i] for c in gcols)
+
+        # base-field per-event values
+        fvals: Dict[str, np.ndarray] = {}
+        for f in self.base_fields:
+            if f.op == "count":
+                fvals[f.name] = np.ones(n, dtype=np.int64)
+            else:
+                fvals[f.name] = np.broadcast_to(np.asarray(f.arg(env)), (n,))
+
+        # segment by (bucket, key) with one combined-code np.unique;
+        # falls back to the exact per-row probe on unorderable key values
+        # (nulls in object columns) or radix overflow.
+        try:
+            key_ids = np.zeros(n, dtype=np.int64)
+            radix = 1
+            for c in gcols:
+                u, inv = np.unique(c, return_inverse=True)
+                radix *= len(u) + 1
+                if radix > 2**31:
+                    raise OverflowError("group-key radix")
+                key_ids = key_ids * (len(u) + 1) + inv
+            _bu, binv = np.unique(buckets, return_inverse=True)
+            if (len(_bu) + 1) * radix > 2**62:
+                raise OverflowError("bucket x key radix")
+            codes = (binv.astype(np.int64) * (int(key_ids.max()) + 1)
+                     + key_ids)
+            _uc, uidx, ids = np.unique(codes, return_index=True,
+                                       return_inverse=True)
+        except (TypeError, OverflowError):
+            combo: Dict = {}
+            uidx_l: List[int] = []
+            ids = np.empty(n, dtype=np.int64)
+            for i in range(n):
+                k = (int(buckets[i]), key_at(i))
+                j = combo.get(k)
+                if j is None:
+                    j = combo[k] = len(uidx_l)
+                    uidx_l.append(i)
+                ids[i] = j
+            uidx = np.asarray(uidx_l, dtype=np.int64)
+        U = len(uidx)
+        store = self.stores[finest]
+        wm_bucket = int(bucket_starts(
+            np.asarray([self.watermark]), finest)[0])
+        seg_keys = [
+            (int(buckets[int(uidx[u])]), key_at(int(uidx[u])))
+            for u in range(U)
+        ]
+        running = np.asarray([k[0] >= wm_bucket for k in seg_keys],
+                             dtype=bool)
+        # device-resident ingest: float sum/min/max fields of running
+        # buckets scatter into the bank in place and skip the host
+        # reduction entirely — no device→host flush this batch
+        bank_names = self._bank_ingest(seg_keys, running, ids, fvals)
+        host_fields = [f for f in self.base_fields
+                       if f.name not in bank_names]
+        seg_vals, seg_last = self._reduce_segments(
+            ids, U, fvals, ts, n, fields=host_fields)
+        # out-of-order events take the host merge path even for bank
+        # fields (the bank's dump row absorbed their device lanes)
+        ooo_vals: Dict[str, List] = {}
+        if bank_names and not running.all():
+            ooo_vals = self._reduce_ooo(ids, U, fvals, bank_names, running)
+        for u in range(U):
+            k = seg_keys[u]
+            values = {f.name: seg_vals[f.name][u] for f in host_fields}
+            last_ts = int(seg_last[u])
+            # out-of-order below the watermark: merge straight into the
+            # finished store (the reference's OutOfOrderEventsDataAggregator)
+            if not running[u]:
+                for name in bank_names:
+                    values[name] = ooo_vals[name][u]
+                self._merge_out_of_order(k, values, last_ts)
+            else:
+                store.merge_into(store.running, k, values, last_ts,
+                                 self.field_ops)
+        self.watermark = max(self.watermark, int(ts.max()))
+        self._advance(now)
+        self._purge(now)
+
+    def _bank_ingest(self, seg_keys, running, ids, fvals):
+        """Scatter this batch's bank-eligible field values into the
+        device bucket bank.  Returns the set of field names the bank
+        absorbed (empty = host path for everything: no bank, or more
+        unique running buckets than the bank holds even after a
+        capacity flush)."""
+        bank = self._bank
+        if bank is None:
+            return set()
+        # float32 count rows stay exact only below 2**24 increments:
+        # force a flush before this batch could push any row past that
+        if bank.count_overflow_risk(len(ids)):
+            self._flush_bank()
+        # LONG-sum hi/lo int32 pair rows must never wrap: flush when
+        # the conservative accumulated bound nears int32 range; a batch
+        # whose values are alone too hot for int32 takes the exact host
+        # path for every bank field (host merges and later bank flushes
+        # combine associatively, so mixing the paths stays exact)
+        if bank.long_overflow_risk(fvals, len(ids)):
+            self._flush_bank()
+            if bank.long_overflow_risk(fvals, len(ids)):
+                return set()
+        run_keys = [k for k, r in zip(seg_keys, running) if r]
+        if not bank.assign(run_keys):
+            # capacity barrier: materialize every row and retry once
+            self._flush_bank()
+            if not bank.assign(run_keys):
+                return set()
+        seg_rows = np.full(len(seg_keys), bank.dump_row, dtype=np.int32)
+        for u, (k, r) in enumerate(zip(seg_keys, running)):
+            if r:
+                seg_rows[u] = bank.rows[k]
+        bank.scatter(seg_rows[ids],
+                     {name: fvals[name] for name in bank.names})
+        return set(bank.names)
+
+    def _reduce_ooo(self, ids, U, fvals, names, running):
+        """Host reduction of bank fields over the OUT-OF-ORDER events
+        only (the rare late path; in-order events rode the bank)."""
+        mask = ~running[ids]
+        out: Dict[str, List] = {}
+        for name in names:
+            op = self.field_ops[name]
+            v = fvals[name]
+            if op in ("sum", "count"):
+                # count values are per-event ones (int64): the same
+                # scatter-add yields the exact late-event count
+                acc = np.zeros(U, dtype=v.dtype)
+                np.add.at(acc, ids[mask], v[mask])
+            elif op == "min":
+                # integer dtypes cannot hold inf — use the exact dtype
+                # extrema as identities (mirrors _reduce_segments)
+                ident = (np.iinfo(v.dtype).max
+                         if np.issubdtype(v.dtype, np.integer) else np.inf)
+                acc = np.full(U, ident, dtype=v.dtype)
+                np.minimum.at(acc, ids[mask], v[mask])
+            else:
+                ident = (np.iinfo(v.dtype).min
+                         if np.issubdtype(v.dtype, np.integer)
+                         else -np.inf)
+                acc = np.full(U, ident, dtype=v.dtype)
+                np.maximum.at(acc, ids[mask], v[mask])
+            out[name] = [x.item() for x in acc]
+        return out
+
+    def _flush_bank(self):
+        """Flush barrier: materialize the device bucket rows into the
+        host running store (one coalesced fetch) — rollover, find,
+        snapshot, and capacity pressure call this; never the per-batch
+        ingest path."""
+        if self._bank is None:
+            return
+        st = self.stores[self.durations[0]]
+        for key, values in self._bank.flush().items():
+            # count rows rode the bank as float32 (exact below 2**24 by
+            # the ingest overflow barrier); the host store keeps exact
+            # int semantics, so cast the denominator back here
+            for name in values:
+                if self.field_ops[name] == "count":
+                    values[name] = int(values[name])
+            # last_ts sentinel: bank ops (sum/count/min/max) are
+            # ts-insensitive; the host bucket's last_ts was set at
+            # ingest time
+            st.merge_into(st.running, key, values, -(1 << 62),
+                          self.field_ops)
+
+    def _reduce_segments(self, ids: np.ndarray, U: int,
+                         fvals: Dict[str, np.ndarray], ts: np.ndarray,
+                         n: int, fields=None):
+        """Per-segment field reductions: {name: [U] python-typed
+        values}, seg_last_ts [U].  Numeric sum/count/min/max fields
+        reduce with np scatter ufuncs (or torch scatters on the device in
+        tpu mode); 'last'/'set'/object fields walk sorted segment
+        slices.  ``fields`` restricts the reduction (the device bucket
+        bank absorbs its fields upstream); default all base fields."""
+        if fields is None:
+            fields = self.base_fields
+        seg_vals: Dict[str, List] = {}
+        # min-init (not zero): pre-epoch/negative timestamps must win
+        seg_last = np.full(U, np.iinfo(np.int64).min, dtype=np.int64)
+        np.maximum.at(seg_last, ids, ts)
+
+        scatter_fields = []
+        slice_fields = []
+        for f in fields:
+            v = fvals[f.name]
+            if (f.op in ("sum", "count", "min", "max")
+                    and v.dtype.kind in "iuf"):
+                scatter_fields.append(f)
+            else:
+                slice_fields.append(f)
+
+        # float fields may ride the device scatter in tpu mode
+        # (float32 lanes = the device precision policy); int fields stay
+        # on exact numpy scatter ufuncs at native width
+        dev = [f for f in scatter_fields
+               if self._device_segments and n >= self._agg_min_batch
+               and fvals[f.name].dtype.kind == "f"]
+        for f, col in zip(dev, self._device_reduce(ids, U, fvals, dev)):
+            seg_vals[f.name] = [x.item() for x in col]
+        for f in scatter_fields:
+            if f.name in seg_vals:
+                continue
+            v = fvals[f.name]
+            if f.op in ("sum", "count"):
+                # integer sums widen to int64 (np.sum's promotion rule;
+                # an int32 accumulator would silently wrap)
+                acc_dt = np.int64 if v.dtype.kind in "iu" else v.dtype
+                acc = np.zeros(U, dtype=acc_dt)
+                np.add.at(acc, ids, v)
+            elif f.op == "min":
+                acc = np.full(U, np.inf if v.dtype.kind == "f"
+                              else np.iinfo(v.dtype).max, dtype=v.dtype)
+                np.minimum.at(acc, ids, v)
+            else:
+                acc = np.full(U, -np.inf if v.dtype.kind == "f"
+                              else np.iinfo(v.dtype).min, dtype=v.dtype)
+                np.maximum.at(acc, ids, v)
+            seg_vals[f.name] = [x.item() for x in acc]
+
+        if slice_fields:
+            # sorted segment slices; within a segment the stable sort
+            # keeps arrival order, so 'last' tie-breaks like the
+            # cross-batch merge (later arrival wins at equal ts)
+            order = np.argsort(ids, kind="stable")
+            bounds = np.searchsorted(ids[order], np.arange(U + 1))
+            ts_sorted = ts[order]
+            for f in slice_fields:
+                v = fvals[f.name][order]
+                vals: List = []
+                for u in range(U):
+                    seg = v[bounds[u]:bounds[u + 1]]
+                    if f.op == "set":
+                        vals.append(set(seg.tolist()))
+                    elif f.op in ("sum", "count"):
+                        vals.append(sum(seg))
+                    elif f.op == "min":
+                        vals.append(min(seg))
+                    elif f.op == "max":
+                        vals.append(max(seg))
+                    else:  # last: latest ts, later arrival wins ties
+                        sts = ts_sorted[bounds[u]:bounds[u + 1]]
+                        li = len(sts) - 1 - int(np.argmax(sts[::-1]))
+                        x = seg[li]
+                        vals.append(x.item() if hasattr(x, "item")
+                                    and not isinstance(x, (str, bytes))
+                                    else x)
+                seg_vals[f.name] = vals
+        return seg_vals, seg_last
+
+    def _device_reduce(self, ids: np.ndarray, U: int,
+                       fvals: Dict[str, np.ndarray], fields) -> List:
+        """Torch scatters over the float fields on the app's device:
+        [n] values + segment ids -> [U] per-op reductions on float32
+        lanes (int fields keep native width on the numpy path — see
+        _reduce_segments gating).  The reference's XLA scatter,
+        with its pow-2 padding; one packed put in, one fetch out."""
+        if not fields:
+            return []
+        # padded rows scatter identities into the padded dump segment
+        n = len(ids)
+        n_pad = max(1 << (n - 1).bit_length(), 512)
+        U_pad = max(1 << U.bit_length(), 16)  # U real segments + dump
+        packed = np.empty((1 + len(fields), n_pad), dtype=np.int32)
+        packed[0, :n] = ids
+        packed[0, n:] = U_pad - 1
+        idents = {"sum": 0.0, "count": 0.0, "min": np.inf, "max": -np.inf}
+        for i, f in enumerate(fields):
+            col = packed[1 + i].view(np.float32)
+            col[:n] = fvals[f.name].astype(np.float32)
+            col[n:] = idents[f.op]
+        d = staged_put(packed, self._device)
+        outs = [scatter_combine_(
+            torch.full((U_pad,), idents[f.op], dtype=torch.float32,
+                       device=self._device),
+            d[0], d[1 + i].view(torch.float32), f.op)
+            for i, f in enumerate(fields)]
+        return [h[:U] for h in fetch_coalesced(outs)]
+
+    def _merge_out_of_order(self, key: Tuple[int, Tuple], values: Dict, last_ts: int):
+        """Late event: fold into the finished bucket of every duration.
+        Buckets already past a duration's retention cutoff are dropped,
+        not resurrected as partial data."""
+        for d in self.durations:
+            keep_ms = self._retention.get(d, -1)
+            if (self._purge_enabled and keep_ms >= 0
+                    and bucket_end(int(bucket_starts(np.asarray([key[0]]), d)[0]), d)
+                    < self.watermark - keep_ms):
+                continue
+            st = self.stores[d]
+            dk = (int(bucket_starts(np.asarray([key[0]]), d)[0]), key[1])
+            target = st.finished if dk in st.finished or d == self.durations[0] else st.running
+            st.merge_into(target, dk, values, last_ts, self.field_ops)
+
+    def _advance(self, now: int):
+        """Flush every running bucket that the watermark has passed, cascading
+        base values into the parent duration."""
+        wm = self.watermark
+        if self._bank is not None and self._bank.rows:
+            # rollover barrier: a finest bucket is about to complete, so
+            # its device rows must reach the host store first; one
+            # coalesced fetch covers every pending bank row
+            finest = self.durations[0]
+            if any(bucket_end(k[0], finest) <= wm for k in self._bank.rows):
+                self._flush_bank()
+        for d in self.durations:
+            st = self.stores[d]
+            done = [k for k in st.running if bucket_end(k[0], d) <= wm]
+            for k in done:
+                b = st.running.pop(k)
+                st.merge_into(st.finished, k, b.values, b.last_ts, self.field_ops)
+                for parent in self._feeds[d]:
+                    pst = self.stores[parent]
+                    pk = (int(bucket_starts(np.asarray([k[0]]), parent)[0]), k[1])
+                    pst.merge_into(pst.running, pk, b.values, b.last_ts, self.field_ops)
+
+    # -- query --------------------------------------------------------------
+
+    def find(
+        self,
+        per: str,
+        within: Optional[Tuple[int, int]] = None,
+    ) -> EventBatch:
+        """All buckets of duration ``per`` intersecting [start, end), finished
+        and running stitched, finer running buckets rolled up — returned as a
+        batch over the aggregation's output schema."""
+        per = _canon_duration(per)
+        if per not in self.durations:
+            raise SiddhiAppCreationError(
+                f"aggregation '{self.name}': per '{per}' is not one of {self.durations}"
+            )
+        # pull-query barrier: running buckets' device rows must be
+        # host-visible before the stitch below reads them
+        self._flush_bank()
+        # union of finished + running at `per`, plus roll-up of finer running
+        merged: Dict[Tuple[int, Tuple], _Bucket] = {}
+        ops = self.field_ops
+
+        def fold(key, b: _Bucket):
+            t = merged.get(key)
+            if t is None:
+                t = merged[key] = _Bucket()
+            for fname, v in b.values.items():
+                t.values[fname] = _merge_value(ops[fname], t.values.get(fname), v, t.last_ts, b.last_ts)
+            if b.last_ts > t.last_ts:
+                t.last_ts = b.last_ts
+
+        st = self.stores[per]
+        for key, b in st.finished.items():
+            fold(key, b)
+        for key, b in st.running.items():
+            fold(key, b)
+        # weeks never roll into months/years (non-nesting); chain durations
+        # finer than `per` always do
+        for d in self.chain:
+            if DURATIONS.index(d) >= DURATIONS.index(per):
+                continue
+            for (bs, gk), b in self.stores[d].running.items():
+                pk = (int(bucket_starts(np.asarray([bs]), per)[0]), gk)
+                fold(pk, b)
+
+        items = sorted(merged.items(), key=lambda kv: (kv[0][0], repr(kv[0][1])))
+        if within is not None:
+            lo, hi = within
+            items = [(k, b) for k, b in items if lo <= k[0] < hi]
+
+        n = len(items)
+        env: Dict[str, object] = {}
+        starts = np.asarray([k[0] for k, _ in items], dtype=np.int64)
+        env[AGG_START_TS] = starts
+        for gi, gname in enumerate(self.group_names):
+            vals = [k[1][gi] for k, _ in items]
+            env[gname] = np.asarray(vals, dtype=object if any(isinstance(v, str) for v in vals) else None)
+        for f in self.base_fields:
+            col = [b.values.get(f.name) for _, b in items]
+            if f.op == "set":
+                env[f.name] = np.asarray([len(s) if s is not None else 0 for s in col], dtype=np.int64)
+            elif f.type in (AttrType.STRING, AttrType.OBJECT):
+                env[f.name] = np.asarray(col, dtype=object)
+            else:
+                env[f.name] = np.asarray(col)
+        env[N_KEY] = n
+        env[TS_KEY] = starts
+        cols: Dict[str, np.ndarray] = {AGG_START_TS: starts}
+        for nm, compiled in self.out_items:
+            cols[nm] = np.broadcast_to(np.asarray(compiled(env)), (n,)) if n else np.asarray([])
+        return EventBatch(
+            self.name,
+            [a.name for a in self.output_definition.attributes],
+            cols,
+            timestamps=starts,
+        )
+
+    def close(self):
+        """Shutdown: flush the bank into the host store and release its
+        device lanes, so ``find`` keeps answering from the host."""
+        self._flush_bank()
+        if self._bank is not None:
+            self._bank.clear()
+
+    # -- snapshot -----------------------------------------------------------
+
+    def snapshot(self) -> Dict:
+        # persistence barrier: the host store must be complete — device
+        # bucket rows would otherwise be lost with the process
+        self._flush_bank()
+
+        def dump(d: Dict[Tuple[int, Tuple], _Bucket]):
+            return [(k, b.values, b.last_ts) for k, b in d.items()]
+
+        return {
+            "watermark": self.watermark,
+            "stores": {
+                d: {"running": dump(st.running), "finished": dump(st.finished)}
+                for d, st in self.stores.items()
+            },
+        }
+
+    def restore(self, state: Dict):
+        # the restored host snapshot is the single source of truth;
+        # pre-restore device rows are stale
+        if self._bank is not None:
+            self._bank.clear()
+        self.watermark = state["watermark"]
+        for d, st_state in state["stores"].items():
+            st = self.stores[d]
+            st.running.clear()
+            st.finished.clear()
+            for k, values, last_ts in st_state["running"]:
+                b = _Bucket()
+                b.values = dict(values)
+                b.last_ts = last_ts
+                st.running[tuple(k) if not isinstance(k, tuple) else k] = b
+            for k, values, last_ts in st_state["finished"]:
+                b = _Bucket()
+                b.values = dict(values)
+                b.last_ts = last_ts
+                st.finished[tuple(k) if not isinstance(k, tuple) else k] = b
+
+
+_DT_FIELDS = 6  # year month day hour minute second
+
+
+def parse_datetime_ms(s: str) -> int:
+    """``yyyy-MM-dd HH:mm:ss`` (optional ``+HH:MM`` offset) -> epoch ms, UTC
+    default (the reference's IncrementalTimeConverterUtil)."""
+    import datetime as _dt
+
+    s = s.strip()
+    tz = _dt.timezone.utc
+    m = _re.search(r"\s([+-]\d{2}):(\d{2})$", s)
+    if m:
+        sign = 1 if m.group(1)[0] == "+" else -1
+        tz = _dt.timezone(
+            sign * _dt.timedelta(hours=abs(int(m.group(1))), minutes=int(m.group(2)))
+        )
+        s = s[: m.start()]
+    dt = _dt.datetime.strptime(s, "%Y-%m-%d %H:%M:%S").replace(tzinfo=tz)
+    return int(dt.timestamp() * 1000)
+
+
+def _wildcard_bounds(pattern: str) -> Tuple[int, int]:
+    """``"2017-06-** **:**:**"`` -> [month start, next month).  The first
+    ``**`` fixes the granularity; everything after it must be wildcarded."""
+    import datetime as _dt
+
+    parts = _re.split(r"[-\s:]+", pattern.strip())
+    if len(parts) != _DT_FIELDS:
+        raise SiddhiAppCreationError(
+            f"within pattern '{pattern}': expected yyyy-MM-dd HH:mm:ss with ** wildcards"
+        )
+    fixed: List[int] = []
+    for p in parts:
+        if p == "**":
+            break
+        fixed.append(int(p))
+    if len(fixed) == _DT_FIELDS:  # no wildcard: a single second
+        lo = parse_datetime_ms(
+            f"{fixed[0]:04d}-{fixed[1]:02d}-{fixed[2]:02d} {fixed[3]:02d}:{fixed[4]:02d}:{fixed[5]:02d}"
+        )
+        return lo, lo + 1000
+    mins = [1, 1, 1, 0, 0, 0]  # month/day floor at 1
+    vals = fixed + mins[len(fixed) :]
+    start = _dt.datetime(*vals, tzinfo=_dt.timezone.utc)
+    unit = len(fixed) - 1  # index of last fixed field
+    if unit < 0:
+        raise SiddhiAppCreationError(f"within pattern '{pattern}': fully wildcarded")
+    if unit == 0:
+        end = start.replace(year=start.year + 1)
+    elif unit == 1:
+        end = (
+            start.replace(year=start.year + 1, month=1)
+            if start.month == 12
+            else start.replace(month=start.month + 1)
+        )
+    else:
+        deltas = {2: _dt.timedelta(days=1), 3: _dt.timedelta(hours=1),
+                  4: _dt.timedelta(minutes=1), 5: _dt.timedelta(seconds=1)}
+        end = start + deltas[unit]
+    return int(start.timestamp() * 1000), int(end.timestamp() * 1000)
+
+
+def within_bounds(v1, v2=None) -> Tuple[int, int]:
+    """Resolve a ``within`` clause to an epoch-ms half-open range.
+
+    One arg: a wildcard pattern string (or a plain instant, which bounds only
+    the start).  Two args: [start, end) each a long or datetime string.
+    """
+
+    def to_ms(v) -> int:
+        if isinstance(v, (int, np.integer)):
+            return int(v)
+        if isinstance(v, (float, np.floating)):
+            return int(v)
+        if isinstance(v, str):
+            if "*" in v:
+                raise SiddhiAppCreationError("wildcard pattern is single-arg only")
+            return parse_datetime_ms(v)
+        raise SiddhiAppCreationError(f"within: cannot interpret {v!r} as a time")
+
+    if v2 is None:
+        if isinstance(v1, str) and "*" in v1:
+            return _wildcard_bounds(v1)
+        return to_ms(v1), 1 << 62
+    return to_ms(v1), to_ms(v2)
+
+
+def _canon_duration(per: str) -> str:
+    p = per.strip().lower()
+    table = {
+        "sec": "seconds", "second": "seconds", "seconds": "seconds",
+        "min": "minutes", "minute": "minutes", "minutes": "minutes",
+        "hour": "hours", "hours": "hours",
+        "day": "days", "days": "days",
+        "week": "weeks", "weeks": "weeks",
+        "month": "months", "months": "months",
+        "year": "years", "years": "years",
+    }
+    if p not in table:
+        raise SiddhiAppCreationError(f"unknown aggregation duration '{per}'")
+    return table[p]

@@ -1,19 +1,22 @@
-"""One running Siddhi app: junctions, planned partitions, callbacks.
+"""One running Siddhi app: junctions, planned partitions, aggregations,
+callbacks.
 
 Port of the part of the JAX package's ``core/app_runtime.py`` (and the
-app planner's wiring) that this slice needs: stream junctions for the
-defined streams, partitions lowered to the dense path, ``insert into``
-output streams, stream callbacks, input handlers, ``start``,
-``shutdown`` and ``lowering()``.  An app outside the slice raises
+app planner's wiring) that the ported slices need: stream junctions for
+the defined streams, partitions lowered to the dense path, ``insert
+into`` output streams, incremental aggregations subscribed to their
+input junctions (``aggregations``, ``query()`` for on-demand FINDs over
+them), stream callbacks, input handlers, ``start``, ``shutdown`` and
+``lowering()``.  An app outside the slices raises
 ``SiddhiAppCreationError`` naming the later slice: unpartitioned or
-non-pattern queries, tables, windows, triggers, functions and
-aggregations.
+non-pattern queries, tables, windows, triggers and functions.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, List
 
+from siddhi_tpu_torch.aggregation.runtime import AggregationRuntime
 from siddhi_tpu_torch.core.exceptions import (
     DefinitionNotExistError,
     SiddhiAppCreationError,
@@ -35,9 +38,7 @@ class SiddhiAppRuntime:
         for what, defs in (("tables", siddhi_app.table_definitions),
                            ("windows", siddhi_app.window_definitions),
                            ("triggers", siddhi_app.trigger_definitions),
-                           ("functions", siddhi_app.function_definitions),
-                           ("aggregations",
-                            siddhi_app.aggregation_definitions)):
+                           ("functions", siddhi_app.function_definitions)):
             if defs:
                 raise SiddhiAppCreationError(
                     f"app '{self.name}': {what} ({', '.join(defs)})" + _LATER)
@@ -46,6 +47,13 @@ class SiddhiAppRuntime:
             sid: StreamJunction(d) for sid, d in self.definitions.items()}
         self.partitions: Dict[str, PartitionRuntime] = {}
         self._running = False
+        self._on_demand_cache: Dict[str, object] = {}
+        self.aggregations: Dict[str, AggregationRuntime] = {}
+        for ad in siddhi_app.aggregation_definitions.values():
+            ar = AggregationRuntime(ad, self)
+            self.aggregations[ad.id] = ar
+            self.junctions[ad.input_stream.stream_id].subscribe(
+                _AggregationReceiver(ar, self.app_context))
         for i, el in enumerate(siddhi_app.execution_elements):
             if isinstance(el, Query):
                 raise SiddhiAppCreationError(
@@ -102,7 +110,29 @@ class SiddhiAppRuntime:
     def shutdown(self):
         for rt in self.pattern_runtimes().values():
             rt.close()
+        for ar in self.aggregations.values():
+            ar.close()
         self._running = False
+
+    # -- on-demand (pull) queries --------------------------------------------
+
+    def query(self, on_demand_query: str):
+        """Run a pull query (a FIND over an aggregation) and return its
+        events (reference: SiddhiAppRuntimeImpl.query:304, cache of 50)."""
+        from siddhi_tpu_torch.compiler import SiddhiCompiler
+        from siddhi_tpu_torch.core.on_demand import OnDemandQueryRuntime
+
+        # barrier: matches still pending on the device may feed the
+        # aggregation's input stream
+        self.drain()
+        rt = self._on_demand_cache.get(on_demand_query)
+        if rt is None:
+            odq = SiddhiCompiler.parse_on_demand_query(on_demand_query)
+            rt = OnDemandQueryRuntime(odq, self)
+            if len(self._on_demand_cache) >= 50:
+                self._on_demand_cache.pop(next(iter(self._on_demand_cache)))
+            self._on_demand_cache[on_demand_query] = rt
+        return rt.execute()
 
     # -- I/O -----------------------------------------------------------------
 
@@ -128,3 +158,15 @@ class SiddhiAppRuntime:
         for pr in self.partitions.values():
             out.update(pr.query_lowering())
         return out
+
+
+class _AggregationReceiver:
+    """Junction subscriber feeding an AggregationRuntime."""
+
+    def __init__(self, aggregation_runtime, app_context):
+        self.aggregation_runtime = aggregation_runtime
+        self.app_context = app_context
+
+    def receive(self, batch):
+        now = self.app_context.timestamp_generator.current_time()
+        self.aggregation_runtime.on_event(batch, now)

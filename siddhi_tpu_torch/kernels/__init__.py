@@ -4,6 +4,9 @@
   replacing the JAX package's Pallas ``build_packed_nfa``;
   ``plane_pack`` holds the bit layout.
 - ``probe``: the build-and-launch check (``csrc/probe.cu``).
+- ``scan_chain``: the fused hot-key scan (``csrc/scan_chain.cu``).
+- ``bank_scatter``: the aggregation bank's segmented reduce
+  (``csrc/bank_scatter.cu``).
 
 ``build`` compiles ``csrc/*.cu`` with ``nvcc`` at first use.  A wrapper
 launches its kernel for a CUDA tensor and uses the plain version only

@@ -25,7 +25,7 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("probe", "dense_step", "scan_chain")
+SOURCES = ("probe", "dense_step", "scan_chain", "bank_scatter")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

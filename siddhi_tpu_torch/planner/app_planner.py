@@ -5,7 +5,7 @@ Port of the annotation half of the JAX package's
 
 - ``@app:name`` and ``@app:playback`` (event time drives the clock);
 - ``@app:execution('tpu', partitions=, instances=, emit.depth=,
-  ingest.depth=)``;
+  ingest.depth=, agg.device.min.batch=)``;
 - ``@app:hotkeys(k=, promote=, demote=)``;
 - ``@app:kernels`` / ``@app:kernels('nfa,scan,bank')``.
 
@@ -62,6 +62,9 @@ class AppContext:
         self.tpu_instances = 4
         self.tpu_emit_depth = 1
         self.tpu_ingest_depth = 1
+        # smallest batch whose transient per-segment aggregation reduce
+        # rides the device (the bucket bank itself takes every size)
+        self.tpu_agg_min_batch = 512
         self.hotkeys = False
         self.hotkey_k = 8
         self.hotkey_promote = 0.25
@@ -127,6 +130,18 @@ def plan_app_context(siddhi_app, device) -> AppContext:
                     "controller) — a later slice of the port")
             setattr(ctx, attr, _positive_int(
                 exec_ann, key, "a positive integer or 'auto'"))
+
+        amb = exec_ann.element("agg.device.min.batch")
+        if amb:
+            try:
+                nab = int(amb)
+            except ValueError:
+                nab = -1
+            if nab < 1:
+                raise SiddhiAppCreationError(
+                    f"@app:execution: agg.device.min.batch='{amb}' must "
+                    "be a positive integer")
+            ctx.tpu_agg_min_batch = nab
 
     hk_ann = find_annotation(anns, "app:hotkeys")
     if hk_ann is not None:

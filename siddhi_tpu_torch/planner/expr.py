@@ -86,6 +86,18 @@ class Scope:
         else:
             self._bare[attr] = (key, attr_type)
 
+    def add_bare(self, name: str, attr_type: AttrType):
+        """Register an unqualified name (aggregation base fields and
+        outputs, select aliases)."""
+        self._bare[name] = (name, attr_type)
+
+    def add_alias(self, alias: str, stream_ref: str):
+        """Make ``alias.attr`` resolve like ``stream_ref.attr``."""
+        self.stream_refs.add(alias)
+        for (ref, attr), v in list(self._qualified.items()):
+            if ref == stream_ref:
+                self._qualified[(alias, attr)] = v
+
     def resolve(self, var: Variable) -> Tuple[str, AttrType]:
         if var.stream_id is not None:
             hit = self._qualified.get((var.stream_id, var.attribute))

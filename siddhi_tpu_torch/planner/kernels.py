@@ -9,6 +9,8 @@ Port of the JAX package's ``planner/kernels.py``:
 - ``check_scan_kernel_available``: the hot-key scan's only step is the
   fused scan kernel; on a card it needs the probe to pass and raises
   otherwise.
+- ``check_bank_kernel_available``: the same for the aggregation bank's
+  segmented-reduce kernel (the reference's ``try_enable_bank_kernel``).
 
 The reference's ``try_enable_*`` hooks swap a kernel in under
 ``@app:kernels`` and count a fallback to XLA when it cannot; the port
@@ -65,3 +67,15 @@ def check_scan_kernel_available(scan) -> None:
     ok, reason = probe.kernels_available(scan.device)
     if not ok:
         raise SiddhiAppCreationError(f"scan kernel: {reason}")
+
+
+def check_bank_kernel_available(bank) -> None:
+    """The segmented-reduce kernel builds and launches on the bank's card
+    (the probe builds every kernel library, this one included); raises
+    ``SiddhiAppCreationError`` with the reason if not.  CPU banks run
+    the plain version and pass."""
+    if bank.device.type == "cpu":
+        return
+    ok, reason = probe.kernels_available(bank.device)
+    if not ok:
+        raise SiddhiAppCreationError(f"bank kernel: {reason}")

@@ -8,14 +8,16 @@ machine with a card and no JAX they run without the repo's conftest:
 
 Each kernel is held bit for bit against its plain torch version on the
 same inputs (the packed step is pure int32 arithmetic; the fused scan
-does the same float32 operations in the same order).
+does the same float32 operations in the same order).  The bank's
+segmented reduce is bit-exact on int32, min/max and integer-valued
+lanes; its float32 sums are held per row to ``n * 2^-24 * sum|v|``.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from siddhi_tpu_torch.kernels import dense_step, probe, scan_chain
+from siddhi_tpu_torch.kernels import bank_scatter, dense_step, probe, scan_chain
 from siddhi_tpu_torch.kernels.plane_pack import pack_bits
 
 pytestmark = pytest.mark.cuda
@@ -174,3 +176,108 @@ def test_hot_key_app_on_card_matches_cpu(cuda_device):
     assert got["cuda"] == got["cpu"] and got["cpu"]
     assert scan_chain.fused_scan.launches > before[0]
     assert dense_step.packed_step.launches > before[1]
+
+
+BANK_IDENT = {"float32": {"sum": 0.0, "count": 0.0, "min": float("inf"),
+                          "max": float("-inf")},
+              "int32": {"sum": 0, "min": 2**31 - 1, "max": -(2**31)}}
+
+
+def bank_inputs(n, r_pad, op, dtype, seed, hot=False):
+    """Zipf-skewed rows (all on row 0 when ``hot``), values of the lane
+    kind; NaN, infinities and signed zeros mixed into float extrema."""
+    rng = np.random.default_rng(seed)
+    rows = (np.zeros(n) if hot else (rng.zipf(1.2, n) - 1) % r_pad)
+    if op == "count":
+        vals = np.ones(n)
+    elif dtype == "int32":
+        vals = rng.integers(-(2**31), 2**31 - 1, n)
+    else:
+        vals = rng.uniform(-500.0, 500.0, n)
+        if op in ("min", "max"):
+            sp = rng.random(n)
+            vals[sp < 0.002] = np.nan
+            vals[(sp >= 0.002) & (sp < 0.004)] = np.inf
+            vals[(sp >= 0.004) & (sp < 0.006)] = -np.inf
+            vals[(sp >= 0.006) & (sp < 0.01)] = -0.0
+            vals[(sp >= 0.01) & (sp < 0.014)] = 0.0
+    return (torch.from_numpy(rows.astype(np.int32)),
+            torch.from_numpy(vals.astype(dtype)))
+
+
+@pytest.mark.parametrize("n,r_pad,hot", [
+    (256, 256, False), (32768, 4352, False), (32768, 4096, True),
+    (4096, 8960, False), (1 << 17, 4352, False)])
+@pytest.mark.parametrize("op,dtype", [
+    ("sum", "float32"), ("count", "float32"), ("min", "float32"),
+    ("max", "float32"), ("sum", "int32"), ("min", "int32"), ("max", "int32")])
+def test_bank_scatter_kernel_matches_plain(cuda_device, n, r_pad, hot, op,
+                                           dtype):
+    rows, vals = bank_inputs(n, r_pad, op, dtype, seed=n + r_pad, hot=hot)
+    ident = BANK_IDENT[dtype][op]
+    r_d, v_d = rows.to(cuda_device), vals.to(cuda_device)
+    before = bank_scatter.segmented_reduce.launches
+    got = bank_scatter.segmented_reduce(r_d, v_d, r_pad, op, ident)
+    again = bank_scatter.segmented_reduce(r_d, v_d, r_pad, op, ident)
+    torch.cuda.synchronize()
+    assert bank_scatter.segmented_reduce.launches == before + 2
+    # deterministic: the same bits on every launch
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    got = got.cpu()
+    want = bank_scatter.segmented_reduce_plain(rows, vals, r_pad, op, ident)
+    if op == "sum" and dtype == "float32":
+        n_r = torch.zeros(r_pad, dtype=torch.float64).index_add_(
+            0, rows.long(), torch.ones(n, dtype=torch.float64))
+        abs_r = torch.zeros(r_pad, dtype=torch.float64).index_add_(
+            0, rows.long(), vals.double().abs())
+        err = (got.double() - want.double()).abs()
+        assert bool((err <= n_r * 2.0**-24 * abs_r).all())
+        return
+    nan = torch.isnan(want) if dtype == "float32" else torch.zeros_like(
+        want, dtype=torch.bool)
+    assert torch.equal(torch.isnan(got) if dtype == "float32" else nan, nan)
+    assert torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
+def test_aggregation_app_on_card_matches_cpu(cuda_device):
+    """The docs app through SiddhiManager on the card and on the CPU: the
+    same pulls, and two kernel launches per banked batch."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.core.event import EventBatch
+
+    base = 1_496_289_777_000
+    app = ("@app:playback @app:execution('tpu') @app:kernels('bank') "
+           "define stream T (symbol string, price double, volume long, "
+           "timestamp long); define aggregation A from T select symbol, "
+           "avg(price) as avgPrice, sum(price) as total, count() as n "
+           "group by symbol aggregate by timestamp every sec ... year;")
+    rng = np.random.default_rng(29)
+    batches = []
+    for b in range(6):
+        i = np.arange(b * 4096, (b + 1) * 4096)
+        sym = (rng.zipf(1.2, 4096) - 1) % 256
+        batches.append({"symbol": np.asarray([f"S{s}" for s in sym], object),
+                        "price": rng.uniform(1, 500, 4096),
+                        "volume": rng.integers(1, 10_000, 4096),
+                        "timestamp": base + i // 1000})
+    out = {}
+    before = bank_scatter.segmented_reduce.launches
+    for d in ("cuda", "cpu"):
+        rt = SiddhiManager(device=d).create_siddhi_app_runtime(app)
+        rt.start()
+        h = rt.get_input_handler("T")
+        for cols in batches:
+            h.send_batch(EventBatch("T", list(cols), cols, cols["timestamp"]))
+        out[d] = [[(e.timestamp, e.data) for e in rt.query(
+            f"from A within {base - 60_000}, {base + 86_400_000} per '{p}' "
+            "select symbol, avgPrice, total, n;")] for p in ("seconds", "minutes")]
+        out[d + "_scatters"] = rt.aggregations["A"]._bank.scatters
+        rt.shutdown()
+    assert bank_scatter.segmented_reduce.launches - before == 2 * out["cuda_scatters"]
+    assert out["cuda_scatters"] == out["cpu_scatters"] == 6
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert len(got) == len(want) > 0
+        for (tg, g), (tw, w) in zip(got, want):
+            assert tg == tw and g[0] == w[0] and g[3] == w[3]
+            assert g[2] == pytest.approx(w[2], rel=w[3] * 2.0**-24)
+            assert g[1] == pytest.approx(w[1], rel=w[3] * 2.0**-24)

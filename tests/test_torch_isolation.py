@@ -40,6 +40,11 @@ def test_port_imports_with_jax_blocked():
               "planner.hotkeys", "ops.nfa_scan", "ops.hotkey_scan",
               "kernels.scan_chain"}
     assert {f"siddhi_tpu_torch.{m}" for m in slice2} <= names
+    # and the aggregation slice's
+    slice3 = {"aggregation", "aggregation.runtime", "aggregation.device_bank",
+              "kernels.bank_scatter", "planner.host_expr", "core.query",
+              "core.on_demand", "planner.kernels"}
+    assert {f"siddhi_tpu_torch.{m}" for m in slice3} <= names
 
 
 def test_no_jax_import_statement_in_the_port():
