@@ -11,7 +11,11 @@ printing one JSON line:
 
 1. build: seconds to build every kernel (one ``nvcc`` per source, all
    started together), and the card's name and power limit.
-2. probe: the build-and-launch kernel held equal to ``x + 1``.
+2. probe: the build-and-launch kernel held equal to ``x + 1``, timed in
+   turns with ``torch.add(x, 1)``.  Every timed call reports ``ms`` (CUDA
+   events over 200 back-to-back calls), ``host_us`` (``perf_counter``
+   over the same calls, one synchronise at the end) and ``device_us``
+   (device time per call under ``torch.profiler``).
 3. packed step: the dense-step kernel against its plain torch version,
    both on the card, on seeded valid inputs at S=16, I=4, B=131072
    (anchors past ``within`` so expiry fires, busy lanes so placement
@@ -49,14 +53,21 @@ printing one JSON line:
    follows: host-clock ms of a routed batch's dense rounds, scan cycle
    and routing, and the device's busy time under ``torch.profiler``.
 7. bank kernel: the aggregation bank's segmented-reduce kernel against
-   its plain torch version, both on the card, at the aggregation path's
+   its plain torch versions, both on the card, at the aggregation path's
    shape (n_pad 32,768 events, r_pad 4,352 rows: 2,048 Zipf symbols over
    two seconds) for every lane kind the bank uses (float32 sum, count,
    min, max; int32 sum, min, max), at ``bench.py:1189``'s worst case (all
-   32,768 events on row 0 of 4,096) and at a ragged n_pad = 256.  Exact
-   but for float32 sums, held per row to n * 2^-24 * sum|v|; two launches
-   must give the same bits.  Times the kernel, the plain version and one
-   ``torch.scatter_reduce`` call, and works out the bound.
+   32,768 events on row 0 of 4,096) and at a ragged n_pad = 256, through
+   ``segmented_reduce`` (the delta); at the path's shape and the worst
+   case also through ``accumulate_`` (the bank's entry: in place into
+   4,097 rows from a live accumulator).  Exact but for float32 sums,
+   held per row to n * 2^-24 * sum|v| (plus one rounding of the final add
+   on each side for ``accumulate_``); two launches must give the same
+   bits.  Times the kernel, the plain version and one PyTorch call
+   (``torch.scatter_reduce``, or the in-place ``scatter_reduce_`` for
+   ``accumulate_``), and works out the bound.  A ``host_split`` line
+   follows: host µs of each piece of an ``accumulate_`` call and of a
+   probe call, and of three ways to read the current stream's handle.
 8. aggregation end to end: the Siddhi query guide's TradeAggregation
    (``avg(price)``, ``sum(price)`` by symbol, every sec ... year) under
    ``@app:execution('tpu') @app:kernels('bank')``, with
@@ -67,14 +78,17 @@ printing one JSON line:
    with ``device="cpu"``.  Every pull must agree (bucket starts and
    symbols exact, ``total``/``avgPrice`` within each bucket's float32
    bound), bank scatters and flushes must be equal, and the kernel must
-   launch exactly twice per banked batch.  Then the wide variant (every
-   lane kind: LONG sum and extrema pairs, float extrema, count) for one
-   window, held the same way.  A breakdown line follows: host-clock ms of
+   launch exactly twice per banked batch, both through ``accumulate_``.
+   Then the wide variant (every lane kind: LONG sum and extrema pairs,
+   float extrema, count) for one window, held the same way.  A breakdown line follows: host-clock ms of
    a batch's host bucketing, bank scatter (H2D and launches) and flush
    (D2H and merge), of the pulls, and the device busy share under
    ``torch.profiler`` over one window.
 9. kernels: one line per ported kernel (launches on the main paths,
-   largest difference from its plain version, times, bound).
+   largest difference from its plain version, ``ms``, ``host_us``,
+   ``device_us``, plain and library times, bound); the bank kernel's at
+   the entry the aggregation path uses, ``accumulate_``, with the delta
+   entry's beside it.
 
 Then the card's name and power limit (nvidia-smi), and last the device
 line.  Any failed phase raises, so the script exits non-zero and prints
@@ -84,6 +98,7 @@ nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import ctypes
 import gc
 import json
 import subprocess
@@ -124,6 +139,9 @@ SCAN_SHAPES = ((8, 2048, 2), (256, 4096, 32), (3, 16, 5))
 # depends on has finished, at least 4 cycles on the SM's float pipe
 SCAN_DEP_OPS = 6
 DEP_LATENCY_CYCLES = 4
+# what the kernels line gives for each kernel, from its path-shape line
+KERNEL_KEYS = ("ms", "host_us", "device_us", "plain_ms", "bound_ms",
+               "bound_by", "library_ms")
 
 # the aggregation path: bench.py's bank sizes (PK_BANK_ROWS,
 # PK_BANK_EVENTS) under the docs app, Zipf(1.2) symbols as bench.py:720
@@ -136,6 +154,7 @@ AGG_BASE = 1_496_289_777_000  # 2017-06-01 04:02:57 UTC
 AGG_PER = ("seconds", "minutes")
 BANK_R_PAD = 4_352  # pad_rows(cap + 1) for the bank's 4,096 rows
 BANK_WORST_ROWS = 4_096  # bench_pallas_bank: every event on row 0
+BANK_ROWS = 4_097  # the bank's accumulator rows: cap + 1 (the dump row)
 TRADE_DEFINE = ("define stream TradeStream (symbol string, price double, "
                 "volume long, timestamp long); ")
 TRADE_SELECT = {
@@ -180,6 +199,53 @@ def time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def call_times(torch, fn, reps: int = 200, profiled: int = 50) -> dict:
+    """One call's times: ``ms`` from CUDA events and ``host_us`` from
+    ``time.perf_counter`` over the same ``reps`` back-to-back calls with
+    one synchronise at the end; ``device_us``, the device time per call
+    of every device op the calls ran, under ``torch.profiler`` over
+    ``profiled`` more calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t
+    device = []
+    for _ in range(3):  # a profiled pass now and then records no device op
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(profiled):
+                fn()
+            torch.cuda.synchronize()
+        device = [e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if device:
+            break
+    return {"ms": start.elapsed_time(end) / reps,
+            "host_us": 1e6 * host_s / reps,
+            "device_us": sum(device) / profiled if device else "not measured"}
+
+
+def host_us(fn, reps: int = 2000) -> float:
+    """Host µs of one call of ``fn``, over ``reps`` calls (host work
+    only: no synchronise)."""
+    fn()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return 1e6 * (time.perf_counter() - t) / reps
 
 
 def max_abs_err(torch, got, want) -> int:
@@ -585,17 +651,111 @@ def bank_cases(torch, device):
             for lbl, r, v, rp, op, ident in cases]
 
 
-def bank_bound(n_pad, r_pad) -> dict:
-    """Least time for one ``segmented_reduce``: rows and values read
-    once and the delta written once, over HBM (the bank's ``a ⊕ d`` is a
-    separate op, outside this time); one select and one combine per
-    event on the CUDA cores.  The larger bounds (the bytes)."""
-    bytes_ = 8 * n_pad + 4 * r_pad
+def bank_bound(n_pad, rows, accumulate=False) -> dict:
+    """Least time for one call: rows and values read once, and the delta
+    written once (``segmented_reduce``) or the accumulator read and
+    written once (``accumulate_``), over HBM; one select and one combine
+    per event on the CUDA cores.  The larger bounds (the bytes)."""
+    bytes_ = 8 * n_pad + (8 if accumulate else 4) * rows
     terms = {"bytes_ms": 1e3 * bytes_ / HBM_BYTES_PER_S,
              "operations_at_peak_ms": 1e3 * 2 * n_pad / CUDA_CORE_OPS_PER_S}
     return {"bound_ms": max(terms.values()), "bound_terms": terms,
             "bound_by": ("bytes" if terms["bytes_ms"] >= terms[
                 "operations_at_peak_ms"] else "operations")}
+
+
+def bank_diff(torch, got, want, rows, vals, op, label, acc0) -> float:
+    """Largest |got - want| of a bank kernel call against its plain
+    version; raises unless every row is bit-exact, or, for float32 sums,
+    within n * 2^-24 * sum|v| (and, where it accumulated into ``acc0``,
+    one rounding of the final add on each side, 2^-24 of each result)."""
+    diff = torch.where(got == want, 0.0, (got.double() - want.double()).abs())
+    if op == "sum" and vals.dtype == torch.float32:
+        idx = rows.long()
+        n_r = torch.zeros(got.numel(), dtype=torch.float64, device=got.device)
+        n_r.index_add_(0, idx, torch.ones(idx.shape, dtype=torch.float64,
+                                          device=got.device))
+        abs_r = torch.zeros_like(n_r).index_add_(0, idx, vals.double().abs())
+        bound = n_r * 2.0**-24 * abs_r
+        if acc0 is not None:
+            bound += 2.0**-24 * (got.double().abs() + want.double().abs())
+        if bool((diff > bound).any()):
+            raise AssertionError(f"bank_scatter kernel beyond the float32 sum "
+                                 f"bound of its plain version ({label}): "
+                                 f"max |diff| {float(diff.max())}")
+    elif not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError(f"bank_scatter kernel differs from its plain "
+                             f"version ({label}): max |diff| "
+                             f"{float(diff.max())}")
+    return float(diff.max())
+
+
+def host_split(torch, bank_scatter, probe, build, rows, vals, acc, lines):
+    """Where the host time of one call goes: each piece of the
+    ``accumulate_`` wrapper at the path's shape, and of the probe's,
+    timed alone on the host (``host_us``), beside the whole call's
+    ``host_us`` and ``device_us``; and the ways to read the current
+    stream's handle."""
+    dev = rows.device
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    n, R = rows.numel(), acc.numel()
+    launch = build.entry("bank_scatter", "bank_scatter_launch")
+    plan_of = lambda: bank_scatter._plan(dev, stream, n, R, torch.float32,
+                                         "sum", 1, 0.0)
+    args = (rows.data_ptr(), vals.data_ptr(), acc.data_ptr(), plan_of(),
+            stream)
+    bad_plan = bank_scatter._Plan(None, None, 0, R, 0, 0, 1, 0)
+    # n = 0: refused before any CUDA call
+    noop = args[:3] + (ctypes.addressof(bad_plan),) + args[4:]
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    streams = {
+        "torch.cuda.current_stream(device).cuda_stream": host_us(
+            lambda: torch.cuda.current_stream(dev).cuda_stream),
+        "torch.cuda.current_stream(index).cuda_stream": host_us(
+            lambda: torch.cuda.current_stream(idx).cuda_stream),
+        "torch._C._cuda_getCurrentRawStream(index), private": host_us(
+            lambda: raw(idx)) if raw else "not available"}
+    acc_pieces = {
+        "checks": host_us(lambda: bank_scatter._check_events(
+            rows, vals, "sum", "accumulate_")),
+        "stream": streams["torch.cuda.current_stream(index).cuda_stream"],
+        "plan_lookup": host_us(plan_of),
+        "entry_lookup": host_us(
+            lambda: build.entry("bank_scatter", "bank_scatter_launch")),
+        "data_ptrs": host_us(
+            lambda: (rows.data_ptr(), vals.data_ptr(), acc.data_ptr())),
+        "ctypes_call_no_launch": host_us(lambda: launch(*noop)),
+        "ctypes_call_and_launch": host_us(lambda: launch(*args), 200),
+        "whole_call": host_us(lambda: bank_scatter.accumulate_(
+            acc, rows, vals, "sum"), 200),
+        "delta_entry_torch_empty": host_us(
+            lambda: torch.empty(BANK_R_PAD, dtype=torch.float32, device=dev)),
+    }
+    torch.cuda.synchronize()
+    x = torch.zeros((8, 128), dtype=torch.int32, device=dev)
+    y = torch.empty_like(x)
+    add_one = build.entry("probe", "probe_add_one")
+    probe_pieces = {
+        "checks": host_us(lambda: x.dtype != torch.int32
+                          or not x.is_contiguous() or x.device.type),
+        "empty_like": host_us(lambda: torch.empty_like(x)),
+        "stream": streams["torch.cuda.current_stream(index).cuda_stream"],
+        "ctypes_call_no_launch": host_us(lambda: add_one(
+            x.data_ptr(), y.data_ptr(), 0, stream)),
+        "ctypes_call_and_launch": host_us(lambda: add_one(
+            x.data_ptr(), y.data_ptr(), x.numel(), stream), 200),
+        "whole_call": host_us(lambda: probe.add_one(x), 200),
+        "torch_add_whole_call": host_us(lambda: torch.add(x, 1), 200),
+    }
+    torch.cuda.synchronize()
+    acc_line = lines[("accumulate_", "path f32 sum")]
+    return {"phase": "host_split", "unit": "us",
+            "stream_handle": streams,
+            "accumulate_": {"pieces": acc_pieces,
+                            "call_host_us": acc_line["host_us"],
+                            "call_device_us": acc_line["device_us"]},
+            "probe": {"pieces": probe_pieces}}
 
 
 def trade_app(kind: str) -> str:
@@ -837,11 +997,21 @@ def main() -> int:
     probe_err = max_abs_err(torch, [y], [probe.add_one_plain(x)])
     if probe_err:
         raise AssertionError(f"probe kernel differs from x + 1: {probe_err}")
-    probe_ms = time_ms(torch, lambda: probe.add_one(x), 200)
-    probe_plain_ms = time_ms(torch, lambda: probe.add_one_plain(x), 200)
-    probe_lib_ms = time_ms(torch, lambda: torch.add(x, 1), 200)
-    emit({"phase": "probe", "ok": True, "ms": probe_ms,
-          "plain_ms": probe_plain_ms})
+    # kernel, library call, kernel, library call: the host moves both
+    probe_t = [call_times(torch, lambda: probe.add_one(x)),
+               call_times(torch, lambda: torch.add(x, 1)),
+               call_times(torch, lambda: probe.add_one(x)),
+               call_times(torch, lambda: torch.add(x, 1))]
+    probe_line = {
+        "phase": "probe", "ok": True, **probe_t[2],
+        "plain_ms": time_ms(torch, lambda: probe.add_one_plain(x), 200),
+        "library_ms": probe_t[3]["ms"],
+        "library_host_us": probe_t[3]["host_us"],
+        "library_device_us": probe_t[3]["device_us"],
+        "first_round": {"kernel": probe_t[0], "library": probe_t[1]},
+        "bound_ms": 1e3 * 2 * x.numel() * 4 / HBM_BYTES_PER_S,
+        "bound_by": "bytes"}
+    emit(probe_line)
 
     # 3. packed step vs its plain version --------------------------------------
     step_err = 0
@@ -876,14 +1046,14 @@ def main() -> int:
         if B in (BATCH, ROUTED_STEP_BATCHES[0]):
             W = ins[0].shape[1]
             line.update(
-                ms=time_ms(torch, lambda: dense_step.packed_step(
-                    *ins, n_inst=I, within=within), 50),
+                **call_times(torch, lambda: dense_step.packed_step(
+                    *ins, n_inst=I, within=within), 50, 10),
                 plain_ms=time_ms(torch, lambda: dense_step.packed_step_plain(
                     *ins, I, within), 10),
-                bound_ms=packed_step_bound_ms(S, I, W))
+                bound_ms=packed_step_bound_ms(S, I, W), bound_by="bytes",
+                library_ms=None)
             if B == BATCH:
-                step_ms, step_plain_ms, step_bound_ms = (
-                    line["ms"], line["plain_ms"], line["bound_ms"])
+                step_line = line
         emit(line)
 
     # 4. end to end at full size ---------------------------------------------
@@ -963,10 +1133,11 @@ def main() -> int:
             raise AssertionError(f"H={H}, n={n}, S={S}: inputs emit nothing")
         line = {"phase": "scan_kernel", "H": H, "n": n, "S": S,
                 "bit_exact": True, "emitting_events": emits,
-                "ms": time_ms(torch, lambda: scan_chain.fused_scan(*ins), 50),
+                **call_times(torch, lambda: scan_chain.fused_scan(*ins), 50,
+                             10),
                 "plain_ms": time_ms(torch, lambda: scan_chain.fused_scan_plain(
                     *ins), 1, warmup=1),
-                "sm_clock_mhz": sm_clock_hz / 1e6,
+                "sm_clock_mhz": sm_clock_hz / 1e6, "library_ms": None,
                 **scan_bound(H, n, S, sm_clock_hz)}
         if (H, n, S) == SCAN_SHAPES[0]:
             scan_line = line
@@ -1063,6 +1234,8 @@ def main() -> int:
 
     # 7. bank kernel vs its plain version -------------------------------------
     bank_err = 0.0
+    bank_lines = {}
+    red_of = {"sum": "sum", "count": "sum", "min": "amin", "max": "amax"}
     for label, rows, vals, r_pad, op, ident in bank_cases(torch, dev):
         got = bank_scatter.segmented_reduce(rows, vals, r_pad, op, ident)
         again = bank_scatter.segmented_reduce(rows, vals, r_pad, op, ident)
@@ -1071,57 +1244,88 @@ def main() -> int:
         if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
             raise AssertionError(f"bank_scatter kernel is not deterministic "
                                  f"({label})")
-        # equal values (rows left at an infinite identity) differ by 0
-        diff = torch.where(got == want, 0.0,
-                           (got.double() - want.double()).abs())
-        if op == "sum" and vals.dtype == torch.float32:
-            idx = rows.long()
-            n_r = torch.zeros(r_pad, dtype=torch.float64, device=dev)
-            n_r.index_add_(0, idx, torch.ones(idx.shape, dtype=torch.float64,
-                                              device=dev))
-            abs_r = torch.zeros(r_pad, dtype=torch.float64, device=dev)
-            abs_r.index_add_(0, idx, vals.double().abs())
-            if bool((diff > n_r * 2.0**-24 * abs_r).any()):
-                raise AssertionError(f"bank_scatter kernel beyond the float32 "
-                                     f"sum bound of its plain version "
-                                     f"({label}): max |diff| {float(diff.max())}")
-        elif not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-            raise AssertionError(f"bank_scatter kernel differs from its plain "
-                                 f"version ({label}): max |diff| "
-                                 f"{float(diff.max())}")
-        err = float(diff.max())
+        err = bank_diff(torch, got, want, rows, vals, op, label, None)
         bank_err = max(bank_err, err)
         lib_base = torch.full((r_pad,), ident, dtype=vals.dtype, device=dev)
         idx64 = rows.long()
-        red = {"sum": "sum", "count": "sum", "min": "amin", "max": "amax"}[op]
-        line = {"phase": "bank_kernel", "case": label, "n_pad": rows.numel(),
+        line = {"phase": "bank_kernel", "entry": "segmented_reduce",
+                "case": label, "n_pad": rows.numel(),
                 "r_pad": r_pad, "op": op, "dtype": str(vals.dtype)[6:],
                 "distinct_rows": int(torch.unique(rows).numel()),
                 "max_abs_err": err, "deterministic": True,
-                "ms": time_ms(torch, lambda: bank_scatter.segmented_reduce(
-                    rows, vals, r_pad, op, ident), 200),
+                **call_times(torch, lambda: bank_scatter.segmented_reduce(
+                    rows, vals, r_pad, op, ident)),
                 "plain_ms": time_ms(torch, lambda: bank_scatter.
                                     segmented_reduce_plain(rows, vals, r_pad,
                                                            op, ident), 50),
                 "library_ms": time_ms(torch, lambda: torch.scatter_reduce(
-                    lib_base, 0, idx64, vals, red, include_self=True), 200),
+                    lib_base, 0, idx64, vals, red_of[op], include_self=True),
+                    200),
                 **bank_bound(rows.numel(), r_pad)}
-        if label == "path f32 sum":
-            bank_line = line
+        bank_lines[("segmented_reduce", label)] = line
         emit(line)
+        if not label.startswith(("path", "row0")):
+            continue
+        # the bank's own entry: the accumulator of cap + 1 rows, in place,
+        # from a live accumulator of the lane's kind
+        perm = torch.randperm(rows.numel(), device=dev,
+                              generator=torch.Generator(dev).manual_seed(3))
+        acc0 = vals[perm][:BANK_ROWS].clone()
+        acc = [acc0.clone() for _ in range(5)]
+        bank_scatter.accumulate_(acc[0], rows, vals, op)
+        bank_scatter.accumulate_(acc[1], rows, vals, op)
+        bank_scatter.accumulate_plain(acc[2], rows, vals, op)
+        torch.cuda.synchronize()
+        if not torch.equal(acc[0].view(torch.int32), acc[1].view(torch.int32)):
+            raise AssertionError(f"bank_scatter accumulate_ is not "
+                                 f"deterministic ({label})")
+        err = bank_diff(torch, acc[0], acc[2], rows, vals, op, label, acc0)
+        bank_err = max(bank_err, err)
+        line = {"phase": "bank_kernel", "entry": "accumulate_",
+                "case": label, "n_pad": rows.numel(), "rows": BANK_ROWS,
+                "op": op, "dtype": str(vals.dtype)[6:],
+                "max_abs_err": err, "deterministic": True,
+                # repeated calls keep accumulating into one clone
+                **call_times(torch, lambda: bank_scatter.accumulate_(
+                    acc[0], rows, vals, op)),
+                "plain_ms": time_ms(torch, lambda: bank_scatter.
+                                    accumulate_plain(acc[2], rows, vals, op),
+                                    50),
+                "library_ms": time_ms(torch, lambda: acc[3].scatter_reduce_(
+                    0, idx64, vals, red_of[op], include_self=True), 200),
+                **bank_bound(rows.numel(), BANK_ROWS, accumulate=True)}
+        # the delta entry and the accumulate entry in turns, after both
+        # were timed once: the host moves both
+        line["delta_then_accumulate_ms"] = [
+            time_ms(torch, lambda: bank_scatter.segmented_reduce(
+                rows, vals, r_pad, op, ident), 200),
+            time_ms(torch, lambda: bank_scatter.accumulate_(
+                acc[4], rows, vals, op), 200)]
+        bank_lines[("accumulate_", label)] = line
+        emit(line)
+        if label == "path f32 sum":
+            split_case = (rows, vals, acc[0])
+            bank_acc_line = line
+            bank_delta_line = bank_lines[("segmented_reduce", label)]
+    emit(host_split(torch, bank_scatter, probe, build, *split_case,
+                    bank_lines))
 
     # 8. aggregation end to end -------------------------------------------------
     n_batches = AGG_WARMUP + AGG_STEPS * AGG_WINDOWS
     tb, tsyms = trade_batches(EventBatch, n_batches + 2 * AGG_STEPS)
+    bank_entries = (bank_scatter.accumulate_, bank_scatter.segmented_reduce)
     for k in (probe.add_one, dense_step.packed_step, scan_chain.fused_scan,
-              bank_scatter.segmented_reduce):
+              *bank_entries):
         k.launches = 0
     amgr, art, agg_card = run_trade(torch, SiddhiManager, "docs", "cuda", tb,
                                     AGG_WINDOWS)
+    # the bank kernel's launches, by entry: the bank's single lanes take
+    # accumulate_, its LONG-extrema pairs segmented_reduce
+    bank_by_entry = {k.__name__: k.launches for k in bank_entries}
     agg_launches = {"probe": probe.add_one.launches,
                     "dense_step": dense_step.packed_step.launches,
                     "scan_chain": scan_chain.fused_scan.launches,
-                    "bank_scatter": bank_scatter.segmented_reduce.launches}
+                    "bank_scatter": sum(bank_by_entry.values())}
     card_bank = art.aggregations["TradeAggregation"]._bank
     card_counts = (card_bank.scatters, card_bank.flushes)
     agg_bd = agg_breakdown(torch, art, tb[n_batches:])
@@ -1137,16 +1341,20 @@ def main() -> int:
     if card_counts != cpu_counts or card_counts[0] != n_batches:
         raise AssertionError(f"bank scatters/flushes: card {card_counts}, CPU "
                              f"{cpu_counts}, batches {n_batches}")
-    if (agg_launches["bank_scatter"] != 2 * card_counts[0]
+    if (bank_by_entry["accumulate_"] != 2 * card_counts[0]
+            or agg_launches["bank_scatter"] != 2 * card_counts[0]
             or agg_launches["probe"] < 1):
-        raise AssertionError(f"aggregation path launches {agg_launches}, "
-                             f"banked batches {card_counts[0]}")
+        raise AssertionError(f"aggregation path launches {agg_launches} "
+                             f"{bank_by_entry}, banked batches "
+                             f"{card_counts[0]}")
     # the wide variant: one window, every lane kind of the bank
-    bank_scatter.segmented_reduce.launches = 0
+    for k in bank_entries:
+        k.launches = 0
     wn = AGG_WARMUP + AGG_STEPS
     wmgr, wrt, wide_card = run_trade(torch, SiddhiManager, "wide", "cuda",
                                      tb[:wn], 1)
-    wide_launches = bank_scatter.segmented_reduce.launches
+    wide_by_entry = {k.__name__: k.launches for k in bank_entries}
+    wide_launches = sum(wide_by_entry.values())
     wbank = wrt.aggregations["TradeAggregation"]._bank
     wide_counts = (wbank.scatters, wbank.flushes, len(wbank._lanes))
     wrt.shutdown()
@@ -1177,10 +1385,12 @@ def main() -> int:
           "cpu_events_per_s": steady * AGG_WINDOWS / sum(agg_cpu["window_s"]),
           "rows_held_vs_cpu": held, "scatters": card_counts[0],
           "flushes": card_counts[1], "launches": agg_launches,
+          "bank_launches_by_entry": bank_by_entry,
           "bank_state_bytes": 4 * (card_bank.cap + 1) * len(card_bank._lanes),
           "wide": {"batches": wn, "lanes": wide_counts[2],
                    "scatters": wide_counts[0], "flushes": wide_counts[1],
                    "bank_scatter_launches": wide_launches,
+                   "bank_launches_by_entry": wide_by_entry,
                    "rows_held_vs_cpu": wide_held,
                    "events_per_s": steady / wide_card["window_s"][0],
                    "cut": "one window of 8, not 3"},
@@ -1197,35 +1407,31 @@ def main() -> int:
          "replaces": "siddhi_tpu/kernels/dense_step.py:154",
          "launches": launches["dense_step"] + hk_launches["dense_step"],
          "launches_by_path": by_path("dense_step"), "max_abs_err": step_err,
-         "ms": step_ms, "plain_ms": step_plain_ms, "bound_ms": step_bound_ms,
-         "bound_by": "bytes", "library_ms": None},
+         **{k: step_line[k] for k in KERNEL_KEYS}},
         {"name": "probe", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/probe.cu",
          "replaces": "siddhi_tpu/kernels/probe.py:56",
          "launches": (launches["probe"] + hk_launches["probe"]
                       + agg_launches["probe"]),
          "launches_by_path": by_path("probe"), "max_abs_err": probe_err,
-         "ms": probe_ms, "plain_ms": probe_plain_ms,
-         "bound_ms": 1e3 * 2 * x.numel() * 4 / HBM_BYTES_PER_S,
-         "bound_by": "bytes", "library_ms": probe_lib_ms},
+         **{k: probe_line[k] for k in KERNEL_KEYS}},
         {"name": "scan_chain", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/scan_chain.cu",
          "replaces": "siddhi_tpu/kernels/scan_chain.py:91",
          "launches": hk_launches["scan_chain"],
          "launches_by_path": by_path("scan_chain"), "max_abs_err": scan_err,
-         "ms": scan_line["ms"], "plain_ms": scan_line["plain_ms"],
-         "bound_ms": scan_line["bound_ms"],
-         "bound_by": scan_line["bound_by"], "library_ms": None},
+         **{k: scan_line[k] for k in KERNEL_KEYS}},
         {"name": "bank_scatter", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/bank_scatter.cu",
          "replaces": "siddhi_tpu/kernels/bank_scatter.py:76",
          "launches": agg_launches["bank_scatter"],
          "launches_by_path": by_path("bank_scatter"),
+         "launches_by_entry": bank_by_entry,
          "max_abs_err": bank_err,
-         "ms": bank_line["ms"], "plain_ms": bank_line["plain_ms"],
-         "bound_ms": bank_line["bound_ms"],
-         "bound_by": bank_line["bound_by"],
-         "library_ms": bank_line["library_ms"]},
+         # the entry the aggregation path uses, at its shape and lane
+         "entry": "accumulate_", "case": "path f32 sum",
+         **{k: bank_acc_line[k] for k in KERNEL_KEYS},
+         "segmented_reduce": {k: bank_delta_line[k] for k in KERNEL_KEYS}},
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

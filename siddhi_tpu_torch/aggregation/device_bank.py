@@ -5,8 +5,9 @@ Port of the JAX package's ``aggregation/device_bank.py``.
 buckets of the finest duration as rows of torch tensors on its device
 (``cuda``, or the CPU in tests).  Ingest adds each micro-batch into the
 rows in place: one packed ``staged_put`` of the batch's row indices and
-lane values, then per lane ``a ⊕ segmented_reduce(rows, v)``
-(``kernels/bank_scatter.py``; the hand-written kernel on a card).
+lane values, then per lane ``bank_scatter.accumulate_(a, rows, v)``, the
+reference's ``a ⊕ segmented_reduce(rows, v)`` folded into one launch of
+the hand-written kernel on a card (``kernels/bank_scatter.py``).
 Nothing crosses back per batch: rows reach the host bucket store only at
 flush barriers (watermark rollover, pull queries, snapshot, capacity and
 overflow pressure), through one ``fetch_coalesced``.
@@ -30,7 +31,9 @@ Lane plan, as in the reference:
 
 The reference's bank has two formulations (XLA's ``.at[rows].add`` or,
 under ``@app:kernels('bank')``, the Pallas reduce); the port has one,
-``a ⊕ segmented_reduce(...)``, the reference's kernel branch.
+``a ⊕ segmented_reduce(...)``, the reference's kernel branch, computed in
+place by ``accumulate_`` (the LONG-extrema pairs still take the deltas of
+``segmented_reduce``: their lo lane needs the new hi first).
 
 Row layout: ``cap`` assignable rows + one dump row (index ``cap``) that
 absorbs padded lanes and out-of-order events, which take the host merge
@@ -177,10 +180,10 @@ class DeviceBucketBank:
                 for op, kind in self._lanes
             ]
 
-    def _delta(self, rows, v, op, kind):
-        """This batch's per-row reduction of one lane, ``[cap+1]``."""
-        ident = _I32_IDENTITY[op] if kind == "i32" else _IDENTITY[op]
-        d = bank_scatter.segmented_reduce(rows, v, self.r_pad, op, ident)
+    def _delta(self, rows, v, op):
+        """This batch's per-row reduction of one int32 lane, ``[cap+1]``."""
+        d = bank_scatter.segmented_reduce(rows, v, self.r_pad, op,
+                                          _I32_IDENTITY[op])
         return d[:self.cap + 1]
 
     def _pair_update(self, a_hi, a_lo, rows, rows_long, vh, vl, op):
@@ -189,10 +192,10 @@ class DeviceBucketBank:
         the OLD hi, so neither lane is written before both are known."""
         ident = _I32_IDENTITY[op]
         pick = torch.minimum if op == "min" else torch.maximum
-        new_hi = pick(a_hi, self._delta(rows, vh, op, "i32"))
+        new_hi = pick(a_hi, self._delta(rows, vh, op))
         cand = torch.where(vh == new_hi[rows_long], vl, ident)
         base = torch.where(a_hi == new_hi, a_lo, ident)
-        new_lo = pick(base, self._delta(rows, cand, op, "i32"))
+        new_lo = pick(base, self._delta(rows, cand, op))
         a_hi.copy_(new_hi)
         a_lo.copy_(new_lo)
 
@@ -260,14 +263,13 @@ class DeviceBucketBank:
         arrays = self._arrays
         li = 0
         while li < len(self._lanes):
-            op, kind = self._lanes[li]
+            op = self._lanes[li][0]
             if li in self._pair_ops:
                 self._pair_update(arrays[li], arrays[li + 1], rows, rows_long,
                                   vals[li], vals[li + 1], op)
                 li += 2
                 continue
-            bank_scatter.combine_(arrays[li], self._delta(rows, vals[li], op,
-                                                          kind), op)
+            bank_scatter.accumulate_(arrays[li], rows, vals[li], op)
             li += 1
         self.scatters += 1
         self.events_since_flush += len(ev_rows)

@@ -6,9 +6,11 @@
 - ``probe``: the build-and-launch check (``csrc/probe.cu``).
 - ``scan_chain``: the fused hot-key scan (``csrc/scan_chain.cu``).
 - ``bank_scatter``: the aggregation bank's segmented reduce
-  (``csrc/bank_scatter.cu``).
+  (``csrc/bank_scatter.cu``): the delta (``segmented_reduce``) or folded
+  into the bank's lane in place (``accumulate_``).
 
-``build`` compiles ``csrc/*.cu`` with ``nvcc`` at first use.  A wrapper
+``build`` compiles ``csrc/*.cu`` with ``nvcc`` at first use and sets
+every C entry's ctypes prototype once, when it loads the library.  A wrapper
 launches its kernel for a CUDA tensor and uses the plain version only
 for a CPU tensor; each counts its launches (``<wrapper>.launches``).
 """

@@ -3,23 +3,29 @@
 Port of the JAX package's ``kernels/bank_scatter.py``.  The bank adds a
 micro-batch into its accumulator rows as ``a ⊕ segmented_reduce(rows,
 vals)``: the per-row sum, count, min or max of ``(rows [n], vals [n])``
-against the op's identity, ``[r_pad]`` wide.
+against the op's identity.
 
-Two pieces:
+Three pieces:
 
-- ``csrc/bank_scatter.cu``: the CUDA kernel, launched by
-  ``segmented_reduce`` for CUDA tensors.  It replaces the Pallas kernel
+- ``csrc/bank_scatter.cu``: the CUDA kernel, launched for CUDA tensors
+  by two entries.  ``segmented_reduce(rows, vals, r_pad, op, identity)``
+  keeps the JAX contract (the delta, ``[r_pad]`` wide);
+  ``accumulate_(acc, rows, vals, op)`` folds the reduction into ``acc``
+  in place, ``acc[r] = acc[r] ⊕ x[r]``, the bank's ``a ⊕ d`` with no
+  delta in memory.  The kernel replaces the Pallas kernel
   ``siddhi_tpu/kernels/bank_scatter.py`` (``_build`` via
-  ``segmented_reduce``).  Warp-private accumulators in shared memory,
-  lanes of one row combined through ``__match_any_sync``, every combine
-  in an order fixed by the shapes: deterministic, and a hot key does not
-  serialise (the source says how).  One launch a call.  Bound on the
-  H100: bytes, 279,552 B at the bank's default shape, under 0.1 us;
-  launch cost dominates.  ``segmented_reduce.launches`` counts its
-  launches.
-- ``segmented_reduce_plain``: ``scatter_combine_`` into a row of
-  identities.  ``segmented_reduce`` uses it for CPU tensors only;
-  ``chip_smoke.py`` holds the kernel against it.
+  ``segmented_reduce``).  A grid of row slices × event chunks covers the
+  card; warp-private accumulators in shared memory, lanes of one row
+  combined through ``__match_any_sync``, every combine in an order fixed
+  by the shapes: deterministic, and a hot key does not serialise (the
+  source says how).  One launch a call.  Bound on the H100: bytes,
+  279,552 B for the delta and 294,920 B for the accumulate entry at the
+  bank's shape, under 0.1 us; launch cost dominates.  Each entry counts
+  its launches (``segmented_reduce.launches``, ``accumulate_.launches``).
+- ``segmented_reduce_plain`` and ``accumulate_plain``:
+  ``scatter_combine_`` into a row of identities, and ``combine_`` of
+  that delta into ``acc``.  The entries use them for CPU tensors only;
+  ``chip_smoke.py`` holds the kernel against them.
 
 Contract, the reference's: int32 lanes, min/max lanes and count lanes
 (integer-valued float32 below 2^24) are bit-exact; float32 sums may
@@ -31,6 +37,7 @@ propagates and -0.0 orders below +0.0.  int32 sums wrap.
 from __future__ import annotations
 
 import ctypes
+import math
 import struct
 
 import torch
@@ -41,6 +48,13 @@ ROW_BLOCK = 256
 
 _OPS = {"sum": 0, "count": 0, "min": 1, "max": 2}
 _DTYPES = {torch.float32: 0, torch.int32: 1}
+# the bank's identity of each op, per lane dtype (accumulate_ starts its
+# rows' reductions from it)
+_IDENTITY = {
+    torch.float32: {"sum": 0.0, "count": 0.0, "min": math.inf,
+                    "max": -math.inf},
+    torch.int32: {"sum": 0, "count": 0, "min": 2**31 - 1, "max": -(2**31)},
+}
 
 
 def pad_rows(r: int) -> int:
@@ -97,44 +111,92 @@ def segmented_reduce_plain(rows, vals, r_pad: int, op: str, identity):
     return scatter_combine_(out, rows, vals, op)
 
 
-def _check_inputs(rows, vals, r_pad, op):
+def accumulate_plain(acc, rows, vals, op: str):
+    """Plain torch version of ``accumulate_``: ``acc ⊕= `` the per-row
+    reduction of ``(rows, vals)``, as the reference's bank computes
+    ``a ⊕ segmented_reduce(...)``.  Every row lies in
+    ``[0, acc.numel())``."""
+    d = segmented_reduce_plain(rows, vals, acc.numel(), op,
+                               _IDENTITY[vals.dtype][op])
+    return combine_(acc, d, op)
+
+
+def _check_events(rows, vals, op, who):
     n = rows.numel()
     if rows.dtype != torch.int32 or vals.dtype not in _DTYPES:
-        raise ValueError(f"segmented_reduce: rows must be int32 and vals "
-                         f"float32 or int32, got {rows.dtype}, {vals.dtype}")
-    if rows.dim() != 1 or tuple(vals.shape) != (n,):
-        raise ValueError(f"segmented_reduce: rows {tuple(rows.shape)} and "
-                         f"vals {tuple(vals.shape)} must be [n]")
+        raise ValueError(f"{who}: rows must be int32 and vals float32 or "
+                         f"int32, got {rows.dtype}, {vals.dtype}")
+    if rows.dim() != 1 or vals.shape != rows.shape:
+        raise ValueError(f"{who}: rows {tuple(rows.shape)} and vals "
+                         f"{tuple(vals.shape)} must be [n]")
     if not (rows.is_contiguous() and vals.is_contiguous()):
-        raise ValueError("segmented_reduce: inputs must be contiguous")
+        raise ValueError(f"{who}: inputs must be contiguous")
     if rows.device != vals.device:
-        raise ValueError("segmented_reduce: inputs lie on different devices")
-    if n < 256 or n & (n - 1) or r_pad != pad_rows(r_pad):
-        raise ValueError(f"segmented_reduce: n={n} must be a power of two "
-                         f">= 256 and r_pad={r_pad} a multiple of "
-                         f"{ROW_BLOCK}")
+        raise ValueError(f"{who}: inputs lie on different devices")
+    if n < 256 or n & (n - 1):
+        raise ValueError(f"{who}: n={n} must be a power of two >= 256")
     if op not in _OPS:
-        raise ValueError(f"segmented_reduce: unknown op {op!r}")
+        raise ValueError(f"{who}: unknown op {op!r}")
 
 
 def _bits(identity, dtype) -> int:
-    if dtype == torch.float32:
-        return struct.unpack("<i", struct.pack("<f", float(identity)))[0]
-    return int(identity)
+    """The identity's 32-bit pattern."""
+    if dtype == torch.int32:
+        return int(identity)
+    return struct.unpack("<i", struct.pack("<f", float(identity)))[0]
 
 
-_ARRIVALS: dict = {}
+class _Plan(ctypes.Structure):
+    """``struct Plan`` of ``csrc/bank_scatter.cu``, field for field: what a
+    launch takes besides its tensors."""
+
+    _fields_ = [("partial", ctypes.c_void_p), ("arrivals", ctypes.c_void_p),
+                ("n", ctypes.c_int), ("n_rows", ctypes.c_int),
+                ("dtype", ctypes.c_int), ("op", ctypes.c_int),
+                ("accumulate", ctypes.c_int), ("ident_bits", ctypes.c_int)]
 
 
-def _arrivals(dev, stream: int, tiles: int) -> torch.Tensor:
-    """The kernel's per-tile arrival counters for launches on ``stream``:
-    zeroed once, and left zero by every launch."""
-    key = (dev.index, stream)
-    buf = _ARRIVALS.get(key)
-    if buf is None or buf.numel() < tiles:
-        buf = _ARRIVALS[key] = torch.zeros(tiles, dtype=torch.int32,
-                                           device=dev)
-    return buf
+# (device, stream, shape, dtype, op, mode, identity) -> (plan address,
+# plan, scratch, counters): made once, kept alive here
+_PLANS: dict = {}
+
+
+def _plan(dev, stream: int, n: int, n_rows: int, dtype, op: str,
+          accumulate: int, identity) -> int:
+    """The host address of the launch plan for this shape, op and mode on
+    ``stream``, with its chunk-partial scratch and arrival counters
+    (zeroed once; every launch leaves them zero; the stream orders the
+    launches that share them)."""
+    # copysign tells -0.0 from 0.0, which compare and hash equal
+    key = (dev.index, stream, n, n_rows, dtype, op, accumulate, identity,
+           math.copysign(1.0, identity))
+    hit = _PLANS.get(key)
+    if hit is None:
+        words = build.entry("bank_scatter", "bank_scatter_scratch")(n, n_rows)
+        if words < 0:
+            raise ValueError(f"bank_scatter: n={n}, rows={n_rows} too large")
+        slices = build.entry("bank_scatter", "bank_scatter_slices")(n_rows)
+        part = torch.empty(words, dtype=torch.int32, device=dev)
+        arrivals = torch.zeros(slices, dtype=torch.int32, device=dev)
+        plan = _Plan(part.data_ptr() if words else None, arrivals.data_ptr(),
+                     n, n_rows, _DTYPES[dtype], _OPS[op], accumulate,
+                     _bits(identity, dtype))
+        hit = _PLANS[key] = (ctypes.addressof(plan), plan, part, arrivals)
+    return hit[0]
+
+
+def _launch(rows, vals, out, n_rows: int, op: str, accumulate: int,
+            identity):
+    dev = rows.device
+    # by index: the cheaper of the public reads (chip_smoke.py host_split)
+    stream = torch.cuda.current_stream(dev.index).cuda_stream
+    plan = _plan(dev, stream, rows.numel(), n_rows, vals.dtype, op,
+                 accumulate, identity)
+    err = build.entry("bank_scatter", "bank_scatter_launch")(
+        rows.data_ptr(), vals.data_ptr(), out.data_ptr(), plan, stream)
+    if err != 0:
+        raise RuntimeError(f"bank_scatter kernel launch failed: CUDA error "
+                           f"{err}")
 
 
 def segmented_reduce(rows, vals, r_pad: int, op: str, identity):
@@ -142,36 +204,47 @@ def segmented_reduce(rows, vals, r_pad: int, op: str, identity):
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
     ``n`` is a power of two >= 256, padded by the caller with events on a
     dump row that carry ``identity``; every row lies in ``[0, r_pad)``."""
-    _check_inputs(rows, vals, r_pad, op)
+    _check_events(rows, vals, op, "segmented_reduce")
+    if r_pad != pad_rows(r_pad):
+        raise ValueError(f"segmented_reduce: r_pad={r_pad} must be a "
+                         f"multiple of {ROW_BLOCK}")
     dev = rows.device
     if dev.type == "cpu":
         return segmented_reduce_plain(rows, vals, r_pad, op, identity)
     if dev.type != "cuda":
         raise ValueError(f"segmented_reduce: unsupported device {dev}")
-    lib = build.load("bank_scatter")
-    for name in ("bank_scatter_chunks", "bank_scatter_tiles"):
-        getattr(lib, name).argtypes = [ctypes.c_int]
-        getattr(lib, name).restype = ctypes.c_int
-    n = rows.numel()
     out = torch.empty(r_pad, dtype=vals.dtype, device=dev)
-    n_chunks = lib.bank_scatter_chunks(n)
-    partial = (torch.empty((n_chunks, r_pad), dtype=vals.dtype, device=dev)
-               if n_chunks > 1 else None)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    arrivals = _arrivals(dev, stream, lib.bank_scatter_tiles(r_pad))
-    fn = lib.bank_scatter_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    err = fn(rows.data_ptr(), vals.data_ptr(), out.data_ptr(),
-             partial.data_ptr() if partial is not None else None,
-             arrivals.data_ptr(), n, r_pad, _DTYPES[vals.dtype], _OPS[op],
-             _bits(identity, vals.dtype), stream)
-    if err != 0:
-        raise RuntimeError(f"bank_scatter kernel launch failed: CUDA error "
-                           f"{err}")
+    _launch(rows, vals, out, r_pad, op, 0, identity)
     segmented_reduce.launches += 1
     return out
 
 
 segmented_reduce.launches = 0
+
+
+def accumulate_(acc, rows, vals, op: str):
+    """``acc[r] = acc[r] ⊕ (⊕ of vals[e] with rows[e] == r)`` in place,
+    for ``acc [R]`` of the values' dtype: the CUDA kernel for CUDA
+    tensors (one launch, no delta tensor), the plain version for CPU
+    tensors.  ``n`` is a power of two >= 256; every row lies in
+    ``[0, R)``.  Returns ``acc``."""
+    _check_events(rows, vals, op, "accumulate_")
+    if (acc.dtype != vals.dtype or acc.dim() != 1 or not acc.numel()
+            or not acc.is_contiguous()):
+        raise ValueError(f"accumulate_: acc must be a contiguous non-empty "
+                         f"[R] tensor of {vals.dtype}, got {acc.dtype} "
+                         f"{tuple(acc.shape)}")
+    dev = rows.device
+    if acc.device != dev:
+        raise ValueError("accumulate_: acc and the events lie on different "
+                         "devices")
+    if dev.type == "cpu":
+        return accumulate_plain(acc, rows, vals, op)
+    if dev.type != "cuda":
+        raise ValueError(f"accumulate_: unsupported device {dev}")
+    _launch(rows, vals, acc, acc.numel(), op, 1, _IDENTITY[vals.dtype][op])
+    accumulate_.launches += 1
+    return acc
+
+
+accumulate_.launches = 0

@@ -9,6 +9,12 @@ an install its user can write to.  The sources expose a plain C
 interface (no PyTorch headers), which keeps a build to seconds.
 ``build_all`` starts one ``nvcc`` per source at once.
 
+``PROTOTYPES`` gives the ctypes prototype of every ``extern "C"``
+function of every source; ``load`` sets them once, when it loads the
+library, and ``entry`` hands a wrapper the function object, so no call
+pays for them.  Every pointer and the stream are ``c_void_p``: a plain
+int argument would be cut to 32 bits.
+
 Nothing here runs when the module is imported: the CPU tests import
 every module of the port on machines without ``nvcc``.
 """
@@ -20,18 +26,39 @@ import hashlib
 import os
 import shutil
 import subprocess
+from ctypes import c_int, c_void_p
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Callable, Dict, Iterable, List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("probe", "dense_step", "scan_chain", "bank_scatter")
+# source -> {function: (restype, argtypes)}
+PROTOTYPES = {
+    "probe": {
+        "probe_add_one": (c_int, (c_void_p, c_void_p, c_int, c_void_p)),
+    },
+    "dense_step": {
+        "dense_step_launch": (c_int, (c_void_p,) * 9 + (c_int,) * 5
+                              + (c_void_p,)),
+    },
+    "scan_chain": {
+        "scan_chain_launch": (c_int, (c_void_p,) * 7 + (c_int,) * 3
+                              + (c_void_p,)),
+    },
+    "bank_scatter": {
+        "bank_scatter_slices": (c_int, (c_int,)),
+        "bank_scatter_scratch": (c_int, (c_int, c_int)),
+        "bank_scatter_launch": (c_int, (c_void_p,) * 5),
+    },
+}
+SOURCES = tuple(PROTOTYPES)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[Tuple[str, str], Callable] = {}
 # ptxas register / spill report of each build in this process
 BUILD_LOGS: Dict[str, str] = {}
 
@@ -80,10 +107,22 @@ def build_all(names: Iterable[str] = SOURCES) -> List[str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``lib<name>.so``, built first if needed."""
+    """The loaded library ``lib<name>.so``, built first if needed, with
+    the prototypes of ``PROTOTYPES[name]`` set on its functions."""
     lib = _LOADED.get(name)
     if lib is None:
         build_all([name])
         lib = ctypes.CDLL(str(library_path(name)))
+        for fn, (restype, argtypes) in PROTOTYPES[name].items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
         _LOADED[name] = lib
     return lib
+
+
+def entry(name: str, fn: str) -> Callable:
+    """The ctypes function ``fn`` of ``lib<name>.so``, prototype set."""
+    f = _ENTRIES.get((name, fn))
+    if f is None:
+        f = _ENTRIES[(name, fn)] = getattr(load(name), fn)
+    return f

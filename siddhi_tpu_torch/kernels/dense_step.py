@@ -25,7 +25,6 @@ Three pieces:
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -162,10 +161,8 @@ def packed_step(ok_pk, a_pk, first_t, ts, *, n_inst: int,
     emit_out = torch.empty((n_inst, W), dtype=torch.int32, device=dev)
     anch_out = torch.empty((n_inst, Bp), dtype=torch.int32, device=dev)
     ovf_out = torch.empty((1, Bp), dtype=torch.int32, device=dev)
-    fn = build.load("dense_step").dense_step_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    fn = build.entry("dense_step", "dense_step_launch")
+    stream = torch.cuda.current_stream(dev.index).cuda_stream
     err = fn(ok_pk.data_ptr(), a_pk.data_ptr(), first_t.data_ptr(),
              ts.data_ptr(), a_out.data_ptr(), first_out.data_ptr(),
              emit_out.data_ptr(), anch_out.data_ptr(), ovf_out.data_ptr(),

@@ -10,7 +10,6 @@ build on a card where it is not ok.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
@@ -31,14 +30,10 @@ def add_one(x: torch.Tensor) -> torch.Tensor:
         return add_one_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"add_one: unsupported device {x.device}")
-    lib = build.load("probe")
-    fn = lib.probe_add_one
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     y = torch.empty_like(x)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), y.data_ptr(), x.numel(), stream)
+    stream = torch.cuda.current_stream(x.device.index).cuda_stream
+    err = build.entry("probe", "probe_add_one")(x.data_ptr(), y.data_ptr(),
+                                                x.numel(), stream)
     if err != 0:
         raise RuntimeError(f"probe kernel launch failed: CUDA error {err}")
     add_one.launches += 1

@@ -32,8 +32,6 @@ included.  Counts are integer-valued f32 adds, exact below 2^24.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from siddhi_tpu_torch.kernels import build
@@ -123,10 +121,8 @@ def fused_scan(F, ts_rel, v, c):
     v_out = torch.empty_like(v)
     c_out = torch.empty_like(c)
     emit = torch.empty((H, n), dtype=torch.float32, device=dev)
-    fn = build.load("scan_chain").scan_chain_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    fn = build.entry("scan_chain", "scan_chain_launch")
+    stream = torch.cuda.current_stream(dev.index).cuda_stream
     err = fn(F.data_ptr(), ts_rel.data_ptr(), v.data_ptr(), c.data_ptr(),
              v_out.data_ptr(), c_out.data_ptr(), emit.data_ptr(), H, n, S,
              stream)

@@ -250,3 +250,145 @@ def test_cpu_calls_count_no_launch():
     rows, vals = random_case(256, 256, "sum", "float32", seed=1)
     port(rows, vals, 256, "sum", "float32")
     assert bank_scatter.segmented_reduce.launches == before
+
+
+# -- accumulate_: the bank's a ⊕ d in place --------------------------------
+
+
+def reference_upd(acc, rows, vals, op, dtype):
+    """The reference bank's ``upd`` (``siddhi_tpu/aggregation/
+    device_bank.py``, kernel branch): ``a + d``, ``jnp.minimum(a, d)`` or
+    ``jnp.maximum(a, d)`` with ``d`` from the Pallas kernel in interpret
+    mode over ``pad_rows(R)`` rows, cut to ``R``."""
+    R = len(acc)
+    d = jax_bank_scatter.segmented_reduce(
+        jnp.asarray(rows), jnp.asarray(vals), jax_bank_scatter.pad_rows(R),
+        op, IDENT[dtype][op], True)[:R]
+    a = jnp.asarray(acc)
+    out = a + d if op in ("sum", "count") else (
+        jnp.minimum(a, d) if op == "min" else jnp.maximum(a, d))
+    return np.asarray(out)
+
+
+def port_accumulate(acc, rows, vals, op):
+    got = torch.from_numpy(acc.copy())
+    out = bank_scatter.accumulate_(got, torch.from_numpy(rows),
+                                   torch.from_numpy(vals), op)
+    assert out is got  # in place
+    return got.numpy()
+
+
+def assert_accumulates(got, want, rows, vals, op, dtype):
+    """Exact (NaN as NaN), but for float32 sums of non-integers: there the
+    two deltas may differ by ``n * 2^-24 * sum|v|`` per row (the
+    reference's contract) and each side's final ``a + d`` rounds once
+    more, by at most ``2^-24`` of its result."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if exact_contract(op, dtype, vals):
+        if dtype == "float32":
+            nan = np.isnan(want)
+            assert np.array_equal(np.isnan(got), nan)
+            assert np.array_equal(got[~nan].view(np.int32),
+                                  want[~nan].view(np.int32))
+        else:
+            assert np.array_equal(got, want)
+        return
+    R = len(want)
+    n_r = np.bincount(rows, minlength=R)
+    abs_r = np.bincount(rows, weights=np.abs(vals.astype(np.float64)),
+                        minlength=R)
+    g, w = got.astype(np.float64), want.astype(np.float64)
+    bound = n_r * 2.0**-24 * abs_r + 2.0**-24 * (np.abs(g) + np.abs(w))
+    assert np.all(np.abs(g - w) <= bound), float((np.abs(g - w) - bound).max())
+
+
+def random_acc(R, op, dtype, seed):
+    """A live accumulator: earlier batches' sums, counts or extrema."""
+    rng = np.random.default_rng(seed)
+    if op == "count":
+        acc = rng.integers(0, 1000, R)
+    elif dtype == "float32":
+        acc = rng.uniform(-2000.0, 2000.0, R)
+    elif op == "sum":
+        acc = rng.integers(-(1 << 24), 1 << 24, R)
+    else:
+        acc = rng.integers(I32.min, I32.max, R, endpoint=True)
+    return acc.astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("n_pad,R,hot", [(256, 4097, False), (1024, 17, False),
+                                         (1024, 4097, True)])
+def test_accumulate_plain_matches_reference_upd(n_pad, R, hot, op, dtype):
+    """Every op and dtype, at the bank's 4,097 rows (not a multiple of
+    256) and at 17, spread or with every event on row 0."""
+    rows, vals = random_case(n_pad, R, op, dtype, seed=n_pad + R)
+    if hot:
+        rows[:] = 0
+    acc = random_acc(R, op, dtype, seed=R)
+    got = port_accumulate(acc, rows, vals, op)
+    assert_accumulates(got, reference_upd(acc, rows, vals, op, dtype), rows,
+                       vals, op, dtype)
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_accumulate_nan_inf_and_signed_zero(op):
+    """Every pair of specials (NaN, ±inf, ±0.0 and two finite values) as
+    (accumulator, event), one event a row, exact against the reference;
+    the rows past the pairs keep their specials."""
+    pairs = [(a, v) for a in SPECIALS for v in SPECIALS]
+    R = len(pairs) + len(SPECIALS) + 1  # the last row is the dump row
+    acc = np.resize(SPECIALS, R).astype(np.float32)
+    acc[:len(pairs)] = [a for a, _v in pairs]
+    rows = np.arange(len(pairs), dtype=np.int32)
+    vals = np.asarray([v for _a, v in pairs], dtype=np.float32)
+    rows, vals = padded(rows, vals, 256, R - 1, op, "float32")
+    got = port_accumulate(acc, rows, vals, op)
+    want = reference_upd(acc, rows, vals, op, "float32")
+    nan = np.isnan(want)
+    assert np.array_equal(np.isnan(got), nan)
+    assert np.array_equal(got[~nan].view(np.int32), want[~nan].view(np.int32))
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+def test_accumulate_int32_extremes(op):
+    """int32 sums wrap from a live accumulator as the reference's do."""
+    rows = np.repeat(np.arange(4, dtype=np.int32), 64)
+    vals = np.tile(np.asarray([I32.max, I32.min, I32.max, -1], np.int32), 64)
+    acc = np.asarray([I32.max, I32.min, -7, 0, 5], dtype=np.int32)
+    got = port_accumulate(acc, rows, vals, op)
+    assert np.array_equal(got, reference_upd(acc, rows, vals, op, "int32"))
+
+
+@pytest.mark.parametrize("bad", ["dtype", "acc_dtype", "device", "n",
+                                 "length", "contiguous", "empty"])
+def test_accumulate_refuses_what_the_kernel_does_not_take(bad):
+    acc = torch.zeros(4097, dtype=torch.float32)
+    rows = torch.zeros(256, dtype=torch.int32)
+    vals = torch.zeros(256, dtype=torch.float32)
+    if bad == "dtype":
+        vals, acc = vals.double(), acc.double()
+    elif bad == "acc_dtype":
+        acc = acc.to(torch.int32)
+    elif bad == "device":
+        acc = acc.to("meta")
+    elif bad == "n":
+        rows, vals = rows[:200], vals[:200]
+    elif bad == "length":
+        vals = torch.zeros(512, dtype=torch.float32)
+    elif bad == "contiguous":
+        acc = torch.zeros(8194, dtype=torch.float32)[::2]
+    else:
+        acc = acc[:0]
+    with pytest.raises(ValueError):
+        bank_scatter.accumulate_(acc, rows, vals, "sum")
+
+
+def test_cpu_accumulate_counts_no_launch():
+    before = (bank_scatter.accumulate_.launches,
+              bank_scatter.segmented_reduce.launches)
+    rows, vals = random_case(256, 256, "sum", "float32", seed=1)
+    port_accumulate(np.zeros(256, np.float32), rows, vals, "sum")
+    assert (bank_scatter.accumulate_.launches,
+            bank_scatter.segmented_reduce.launches) == before

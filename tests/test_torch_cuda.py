@@ -9,8 +9,10 @@ machine with a card and no JAX they run without the repo's conftest:
 Each kernel is held bit for bit against its plain torch version on the
 same inputs (the packed step is pure int32 arithmetic; the fused scan
 does the same float32 operations in the same order).  The bank's
-segmented reduce is bit-exact on int32, min/max and integer-valued
-lanes; its float32 sums are held per row to ``n * 2^-24 * sum|v|``.
+segmented reduce and its in-place accumulate are bit-exact on int32,
+min/max and integer-valued lanes; float32 sums are held per row to
+``n * 2^-24 * sum|v|`` (plus one rounding of the accumulate's final add
+on each side).
 """
 
 import numpy as np
@@ -239,9 +241,69 @@ def test_bank_scatter_kernel_matches_plain(cuda_device, n, r_pad, hot, op,
     assert torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))
 
 
+def bank_acc(R, op, dtype, seed):
+    """A live accumulator of the lane kind: earlier sums, counts or
+    extrema, with NaN, infinities and signed zeros in float extrema."""
+    rng = np.random.default_rng(seed)
+    if op == "count":
+        acc = rng.integers(0, 1000, R)
+    elif dtype == "int32":
+        acc = rng.integers(-(2**31), 2**31 - 1, R)
+    else:
+        acc = rng.uniform(-2000.0, 2000.0, R)
+        if op in ("min", "max"):
+            acc[rng.random(R) < 0.01] = np.nan
+            acc[rng.random(R) < 0.01] = -np.inf if op == "max" else np.inf
+            acc[rng.random(R) < 0.02] = -0.0
+    return torch.from_numpy(acc.astype(dtype))
+
+
+@pytest.mark.parametrize("n,R,hot", [
+    (32768, 4097, False), (32768, 4097, True), (256, 333, False),
+    (4096, 8960, False)])
+@pytest.mark.parametrize("op,dtype", [
+    ("sum", "float32"), ("count", "float32"), ("min", "float32"),
+    ("max", "float32"), ("sum", "int32"), ("min", "int32"), ("max", "int32")])
+def test_accumulate_kernel_matches_plain(cuda_device, n, R, hot, op, dtype):
+    """``accumulate_`` in place against ``accumulate_plain``: the bank's
+    shape (4,097 rows), every event on row 0, and ragged shapes.  Exact
+    but for float32 sums, held per row to ``n * 2^-24 * sum|v|`` plus one
+    rounding of the final add on each side; two launches on clones of
+    one accumulator give the same bits; one counted launch a call."""
+    rows, vals = bank_inputs(n, R, op, dtype, seed=n + R, hot=hot)
+    acc = bank_acc(R, op, dtype, seed=R + n)
+    r_d, v_d = rows.to(cuda_device), vals.to(cuda_device)
+    got, again = acc.to(cuda_device), acc.to(cuda_device)
+    before = (bank_scatter.accumulate_.launches,
+              bank_scatter.segmented_reduce.launches)
+    assert bank_scatter.accumulate_(got, r_d, v_d, op) is got
+    assert bank_scatter.accumulate_.launches == before[0] + 1
+    bank_scatter.accumulate_(again, r_d, v_d, op)
+    torch.cuda.synchronize()
+    assert (bank_scatter.accumulate_.launches,
+            bank_scatter.segmented_reduce.launches) == (before[0] + 2,
+                                                       before[1])
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    got = got.cpu()
+    want = bank_scatter.accumulate_plain(acc.clone(), rows, vals, op)
+    if op == "sum" and dtype == "float32":
+        n_r = torch.zeros(R, dtype=torch.float64).index_add_(
+            0, rows.long(), torch.ones(n, dtype=torch.float64))
+        abs_r = torch.zeros(R, dtype=torch.float64).index_add_(
+            0, rows.long(), vals.double().abs())
+        g, w = got.double(), want.double()
+        bound = n_r * 2.0**-24 * abs_r + 2.0**-24 * (g.abs() + w.abs())
+        assert bool(((g - w).abs() <= bound).all())
+        return
+    nan = torch.isnan(want) if dtype == "float32" else torch.zeros_like(
+        want, dtype=torch.bool)
+    assert torch.equal(torch.isnan(got) if dtype == "float32" else nan, nan)
+    assert torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
 def test_aggregation_app_on_card_matches_cpu(cuda_device):
     """The docs app through SiddhiManager on the card and on the CPU: the
-    same pulls, and two kernel launches per banked batch."""
+    same pulls, and two kernel launches per banked batch (either entry)."""
     from siddhi_tpu_torch import SiddhiManager
     from siddhi_tpu_torch.core.event import EventBatch
 
@@ -261,7 +323,9 @@ def test_aggregation_app_on_card_matches_cpu(cuda_device):
                         "volume": rng.integers(1, 10_000, 4096),
                         "timestamp": base + i // 1000})
     out = {}
-    before = bank_scatter.segmented_reduce.launches
+    launched = lambda: (bank_scatter.segmented_reduce.launches
+                        + bank_scatter.accumulate_.launches)
+    before = launched()
     for d in ("cuda", "cpu"):
         rt = SiddhiManager(device=d).create_siddhi_app_runtime(app)
         rt.start()
@@ -273,7 +337,8 @@ def test_aggregation_app_on_card_matches_cpu(cuda_device):
             "select symbol, avgPrice, total, n;")] for p in ("seconds", "minutes")]
         out[d + "_scatters"] = rt.aggregations["A"]._bank.scatters
         rt.shutdown()
-    assert bank_scatter.segmented_reduce.launches - before == 2 * out["cuda_scatters"]
+    # the app's two lanes (sum, count) go through accumulate_
+    assert launched() - before == 2 * out["cuda_scatters"]
     assert out["cuda_scatters"] == out["cpu_scatters"] == 6
     for got, want in zip(out["cuda"], out["cpu"]):
         assert len(got) == len(want) > 0
