@@ -16,8 +16,9 @@ printing one JSON line:
    events over 200 back-to-back calls), ``host_us`` (``perf_counter``
    over the same calls, one synchronise at the end) and ``device_us``
    (device time per call under ``torch.profiler``).
-3. packed step: the dense-step kernel against its plain torch version,
-   both on the card, on seeded valid inputs at S=16, I=4, B=131072
+3. packed step: the packed dense-step kernel (off the main path since
+   the batch step took its place; kept as the Pallas kernel's
+   interface-level twin) against its plain torch version, both on the card, on seeded valid inputs at S=16, I=4, B=131072
    (anchors past ``within`` so expiry fires, busy lanes so placement
    overflows) and at ragged B=40, 1000, 1056; then at the skew-routed
    path's dense half, S=2, I=8 with no ``within``, at B=2048 and ragged
@@ -27,10 +28,11 @@ printing one JSON line:
    10 min) over 1,000,000 partitions, B=131072 events per batch, started
    from one seeded mid-chain state, on the card and again with
    ``device="cpu"``; every batch's matches and the final state must be
-   bit-exact.  Kernel launch counts are read from this phase alone.
-   A breakdown line follows: host-clock ms of each stage of ``process``
-   on a few more batches, and the device's busy time and largest kernels
-   under ``torch.profiler``.
+   bit-exact.  Kernel launch counts are read from this phase alone: one
+   batch step a batch, no packed step.  A breakdown line follows:
+   host-clock ms of each stage of ``process`` on a few more batches, and
+   the device's busy time and largest kernels under ``torch.profiler``.
+   One more batch's batch-step inputs are kept for phase 7.
 5. scan kernel: the fused hot-key scan kernel against its plain torch
    version, both on the card, on seeded inputs at the skew-routed path's
    shape (H=8, n=2048, S=2), the widest legal shape (H=256, n=4096,
@@ -49,10 +51,23 @@ printing one JSON line:
    routed query's whole state after them (dense planes, anchors,
    overflow, scan slots, key maps), bit-exact against the same app on
    ``device="cpu"``.  Kernel launch counts of
-   this path are read from the routed run alone.  A breakdown line
-   follows: host-clock ms of a routed batch's dense rounds, scan cycle
-   and routing, and the device's busy time under ``torch.profiler``.
-7. bank kernel: the aggregation bank's segmented-reduce kernel against
+   this path are read from the routed run alone: one batch step and one
+   scan a batch, no packed step.  A breakdown line follows: host-clock
+   ms of a routed batch's dense step (with its longest cold segment),
+   scan cycle and routing, and the device's busy time under
+   ``torch.profiler``.  One more routed batch's cold sub-batch is kept,
+   at the batch step's boundary, for phase 7.
+7. dense batch: the batch-step kernel against its plain torch version,
+   both on the card, each on its own clone of the state: emits, anchors,
+   ``n_emit`` and the state stepped in place bit-exact, and a second
+   launch the same bits.  Cases: the 1 M cell's batch (131,072 one-event
+   segments of the mid-chain state), the routed run's real cold
+   sub-batch (N, segments and the longest segment recorded), and edge
+   cases (N = 1; S = 32, I = 16, the shared-memory ceiling; ragged
+   lanes with a 50 ms horizon).  The first two are timed beside the
+   plain version, with the bound (bytes, and the longest segment's
+   serial chain at the card's top SM clock).
+8. bank kernel: the aggregation bank's segmented-reduce kernel against
    its plain torch versions, both on the card, at the aggregation path's
    shape (n_pad 32,768 events, r_pad 4,352 rows: 2,048 Zipf symbols over
    two seconds) for every lane kind the bank uses (float32 sum, count,
@@ -68,7 +83,7 @@ printing one JSON line:
    ``accumulate_``), and works out the bound.  A ``host_split`` line
    follows: host µs of each piece of an ``accumulate_`` call and of a
    probe call, and of three ways to read the current stream's handle.
-8. aggregation end to end: the Siddhi query guide's TradeAggregation
+9. aggregation end to end: the Siddhi query guide's TradeAggregation
    (``avg(price)``, ``sum(price)`` by symbol, every sec ... year) under
    ``@app:execution('tpu') @app:kernels('bank')``, with
    ``bench_pallas_bank``'s sizes (2,048 symbols, Zipf(1.2) from seed 29,
@@ -84,11 +99,13 @@ printing one JSON line:
    a batch's host bucketing, bank scatter (H2D and launches) and flush
    (D2H and merge), of the pulls, and the device busy share under
    ``torch.profiler`` over one window.
-9. kernels: one line per ported kernel (launches on the main paths,
+10. kernels: one line per ported kernel (launches on the main paths,
    largest difference from its plain version, ``ms``, ``host_us``,
    ``device_us``, plain and library times, bound); the bank kernel's at
    the entry the aggregation path uses, ``accumulate_``, with the delta
-   entry's beside it.
+   entry's beside it; kernel 1 as ``dense_batch`` (the 1 M batch, the
+   routed cold sub-batch beside it), with the packed kernel's phase-3
+   line next to it.
 
 Then the card's name and power limit (nvidia-smi), and last the device
 line.  Any failed phase raises, so the script exits non-zero and prints
@@ -139,6 +156,14 @@ SCAN_SHAPES = ((8, 2048, 2), (256, 4096, 32), (3, 16, 5))
 # depends on has finished, at least 4 cycles on the SM's float pipe
 SCAN_DEP_OPS = 6
 DEP_LATENCY_CYCLES = 4
+# the batch step's per-event dependent chain, per node: read the node's
+# activity, fire, place into the next node, write it back (the next
+# event reads what this one wrote)
+BATCH_DEP_OPS = 4
+# batch-step edge cases (S, I, N, P, within, events on one partition):
+# one event, the shared-memory ceiling, ragged lanes with a short horizon
+BATCH_EDGE_CASES = ((2, 8, 1, 16, None, 0), (32, 16, 2048, 512, 3000, 40),
+                    (3, 7, 3000, 300, 50, 100))
 # what the kernels line gives for each kernel, from its path-shape line
 KERNEL_KEYS = ("ms", "host_us", "device_us", "plain_ms", "bound_ms",
                "bound_by", "library_ms")
@@ -296,6 +321,121 @@ def packed_step_bound_ms(S, I, W) -> float:
     return 1e3 * max(bytes_ / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S)
 
 
+def batch_step_bound(S, I, N, K, longest, sm_clock_hz) -> dict:
+    """Least time for one batch step on this run's inputs: every state
+    row of the batch read and written once, and per event its ts, order,
+    ok flags, emit row and anchor row, and the segment arrays, over HBM;
+    its int32 work at the CUDA cores' peak; and the serial chain, the
+    longest segment's events one after another, BATCH_DEP_OPS dependent
+    operations a node of DEP_LATENCY_CYCLES each at the top SM clock."""
+    row = S * I + 4 * S * I + 4  # activity, anchors, overflow
+    bytes_ = 2 * K * row + N * (4 + 4 + S + 2 * I + 8 * I) + 8 * K + 8
+    ops = 16 * N * S * I  # as packed_step_bound_ms counts them
+    terms = {"bytes_ms": 1e3 * bytes_ / HBM_BYTES_PER_S,
+             "operations_at_peak_ms": 1e3 * ops / CUDA_CORE_OPS_PER_S,
+             "serial_chain_ms": 1e3 * longest * S * BATCH_DEP_OPS
+                                * DEP_LATENCY_CYCLES / sm_clock_hz}
+    top = max(terms.values())
+    return {"bound_ms": top, "bound_terms": terms, "bytes": bytes_,
+            "bound_by": "bytes" if terms["bytes_ms"] == top else "operations"}
+
+
+def capture_batch_step(run) -> dict:
+    """Clones of the inputs of the first ``batch_step`` call that
+    ``run()`` makes through the dense engine, taken at the kernel's
+    boundary before the call (the state before it is stepped in place).
+    The call itself goes ahead unchanged."""
+    from siddhi_tpu_torch.ops import dense_nfa
+
+    real = dense_nfa.batch_step
+    got = {}
+
+    def record(state, *args, **kw):
+        if not got:
+            got["state"] = {k: state[k].clone()
+                            for k in ("active", "first_ts", "overflow")}
+            got["args"] = [a.clone() for a in args]
+            got["kw"] = dict(kw)
+        return real(state, *args, **kw)
+
+    dense_nfa.batch_step = record
+    try:
+        run()
+    finally:
+        dense_nfa.batch_step = real
+    if not got:
+        raise AssertionError("the run made no batch_step call to capture")
+    return got
+
+
+def batch_step_case(torch, S, I, N, P, within, seed, device, long_seg=0):
+    """Seeded batch-step inputs for the edge cases: a mid-chain state,
+    Zipf(1.2) partitions (``long_seg`` events on partition 0), ok flags
+    and ascending ts; in ``capture_batch_step``'s form."""
+    from siddhi_tpu_torch.ops.dense_nfa import partition_segments
+
+    rng = np.random.default_rng(seed)
+    w = within or WITHIN_MS
+    now = 5_000_000
+    active = rng.random((P + 1, S, I)) < 0.3
+    age = rng.integers(0, w + w // 4, (P + 1, S, I))
+    first = np.where(active, now - age, 0).astype(np.int32)
+    part = 1 + (rng.zipf(1.2, N) - 1) % (P - 1)
+    part[rng.choice(N, long_seg, replace=False)] = 0
+    ok = rng.random((N, S)) < 0.5
+    ts = (now + np.sort(rng.integers(0, w // 2, N))).astype(np.int32)
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return {"state": {"active": as_t(active), "first_ts": as_t(first),
+                      "overflow": as_t(rng.integers(0, 5, P + 1).astype(
+                          np.int32))},
+            "args": [as_t(a) for a in partition_segments(
+                part.astype(np.int32))] + [as_t(ok), as_t(ts)],
+            "kw": {"n_inst": I, "within": within}}
+
+
+def hold_batch_step(torch, dense_batch, case, label, sm_clock_hz,
+                    plain_reps=0):
+    """The batch-step kernel against its plain version on one case, both
+    on the card, each on its own clone of the state: emits, anchors,
+    n_emit and the in-place state bit-exact, and a second launch the same
+    bits.  With ``plain_reps``, times the kernel (on a clone that keeps
+    stepping) and the plain version, and works out the bound."""
+    st0, args, kw = case["state"], case["args"], case["kw"]
+    I, within = kw["n_inst"], kw["within"]
+    st = [{k: v.clone() for k, v in st0.items()} for _ in range(3)]
+    got = dense_batch.batch_step(st[0], *args, **kw)
+    again = dense_batch.batch_step(st[1], *args, **kw)
+    want = dense_batch.batch_step_plain(st[2], *args, I, within)
+    torch.cuda.synchronize()
+    err = max_abs_err(torch, [*got, *(st[0][k] for k in st0)],
+                      [*want, *(st[2][k] for k in st0)])
+    same = all(torch.equal(a, g) for a, g in zip(
+        [*again, *(st[1][k] for k in st0)], [*got, *(st[0][k] for k in st0)]))
+    if err or not same:
+        raise AssertionError(f"dense_batch kernel differs from its plain "
+                             f"version or from itself ({label}): max |diff| "
+                             f"{err}, deterministic {same}")
+    _order, seg_start, seg_part, ok, ts = args
+    N, K, S = ts.numel(), seg_part.numel(), ok.shape[1]
+    longest = int((seg_start[1:] - seg_start[:-1]).max())
+    line = {"phase": "dense_batch", "case": label, "S": S, "I": I,
+            "within": within, "partitions": st0["overflow"].numel() - 1,
+            "N": N, "segments": K, "longest_segment": longest,
+            "bit_exact": True, "deterministic": True, "max_abs_err": err,
+            "n_emit": int(want[2]),
+            "overflow_added": int((st[2]["overflow"]
+                                   - st0["overflow"]).sum())}
+    if plain_reps:
+        line.update(
+            **call_times(torch, lambda: dense_batch.batch_step(
+                st[0], *args, **kw), 50, 10),
+            plain_ms=time_ms(torch, lambda: dense_batch.batch_step_plain(
+                st[2], *args, I, within), plain_reps, warmup=1),
+            library_ms=None,
+            **batch_step_bound(S, I, N, K, longest, sm_clock_hz))
+    return line
+
+
 def mid_chain_state(engine, seed):
     """Seeded mid-chain state: ~30% of (partition, node, lane) active,
     anchors spread over the last ``within`` (a few expire per batch)."""
@@ -326,15 +466,16 @@ def batch_breakdown(torch, eng, state, rng, first_batch, n=4):
     device's busy time and its largest kernels.  Timing only: launch
     counts were read before, and the results are not compared."""
     from siddhi_tpu_torch.core.emit_queue import fetch_coalesced
-    from siddhi_tpu_torch.ops.dense_nfa import _collision_rounds
+    from siddhi_tpu_torch.ops.dense_nfa import partition_segments
 
     stages = {"host_prep_ms": [], "step_ms": [], "count_ms": [],
               "fetch_ms": [], "materialize_ms": []}
     batches = [e2e_batch(rng, first_batch + i) for i in range(2 * n)]
     for part, cols, ts in batches[:n]:
-        # host share of the step stage: collision rounds and lane columns
+        # host share of the step stage: the sort by partition and the
+        # lane columns
         t = time.perf_counter()
-        _collision_rounds(part)
+        partition_segments(part)
         eng.prepare_cols("Txn", cols)
         stages["host_prep_ms"].append(1e3 * (time.perf_counter() - t))
         torch.cuda.synchronize()
@@ -541,17 +682,19 @@ def run_hot_key(torch, SiddhiManager, EventBatch, bs, device, hot,
 
 def routed_breakdown(torch, rt, bs, EventBatch, n=3):
     """Where a routed batch's time goes, on batches after the checked
-    windows (re-offset past them): host-clock ms of the dense rounds
-    (the cold sub-batch), the scan cycle (pack, put, scan, count gate,
-    emit) and the rest (sketch, routing masks, interning, handoffs),
-    each ended by a synchronise, with the cold sub-batch's collision
-    rounds; then one more batch under ``torch.profiler``."""
-    from siddhi_tpu_torch.kernels import dense_step, scan_chain
+    windows (re-offset past them): host-clock ms of the dense step
+    (the cold sub-batch: sort, put, filter matrix, one batch step), the
+    scan cycle (pack, put, scan, count gate, emit) and the rest (sketch,
+    routing masks, interning, handoffs), each ended by a synchronise,
+    with the cold sub-batch's longest segment (the collision rounds the
+    reference would step); then one more batch under ``torch.profiler``."""
+    from siddhi_tpu_torch.kernels import dense_batch, scan_chain
 
     router = rt.pattern_runtimes()["q"]
     dense = router._dense
     h = rt.get_input_handler("S")
-    rec = {"batch_ms": [], "dense_ms": [], "scan_ms": [], "rounds": []}
+    rec = {"batch_ms": [], "dense_ms": [], "scan_ms": [],
+           "longest_segment": []}
     # the stages are timed by shadowing two methods on the instances; a
     # renamed method would leave its stage reading 0 with no error
     for obj, meth in ((dense, "process_stream_batch"),
@@ -559,23 +702,23 @@ def routed_breakdown(torch, rt, bs, EventBatch, n=3):
         if not callable(type(obj).__dict__.get(meth)):
             raise AssertionError(f"{type(obj).__name__}.{meth} is gone; "
                                  "the routed breakdown cannot time it")
-    launched = (dense_step.packed_step.launches,
+    launched = (dense_batch.batch_step.launches,
                 scan_chain.fused_scan.launches)
 
-    def timed(fn, key, rounds=False):
+    def timed(fn, key, segments=False):
         def run(*args):
             torch.cuda.synchronize()
             t = time.perf_counter()
             fn(*args)
             torch.cuda.synchronize()
             rec[key][-1] += 1e3 * (time.perf_counter() - t)
-            if rounds:
-                rec["rounds"][-1] = int(
+            if segments:
+                rec["longest_segment"][-1] = int(
                     np.unique(args[2], return_counts=True)[1].max())
         return run
 
     dense.process_stream_batch = timed(dense.process_stream_batch,
-                                       "dense_ms", rounds=True)
+                                       "dense_ms", segments=True)
     router._process_hot = timed(router._process_hot, "scan_ms")
     try:
         for i, b in enumerate(bs[HK_WARMUP:HK_WARMUP + n]):
@@ -592,7 +735,7 @@ def routed_breakdown(torch, rt, bs, EventBatch, n=3):
     finally:
         del dense.process_stream_batch
         del router._process_hot
-    steps = dense_step.packed_step.launches - launched[0]
+    steps = dense_batch.batch_step.launches - launched[0]
     scans = scan_chain.fused_scan.launches - launched[1]
     if ((steps and not sum(rec["dense_ms"]))
             or (scans and not sum(rec["scan_ms"]))):
@@ -971,6 +1114,7 @@ def main() -> int:
     from siddhi_tpu_torch.kernels import (
         bank_scatter,
         build,
+        dense_batch,
         dense_step,
         probe,
         scan_chain,
@@ -1058,8 +1202,8 @@ def main() -> int:
 
     # 4. end to end at full size ---------------------------------------------
     app = kernel_eligible_app()
-    probe.add_one.launches = 0
-    dense_step.packed_step.launches = 0
+    for k in (probe.add_one, dense_batch.batch_step, dense_step.packed_step):
+        k.launches = 0
     eng = compile_pattern(app, "bench", n_partitions=N_PARTITIONS, device="cuda")
     host, base_ts = mid_chain_state(eng, seed=11)
     state = state_from_numpy(eng, host, base_ts)
@@ -1075,9 +1219,13 @@ def main() -> int:
         batch_s.append(time.perf_counter() - t)
         results.append((ev, out))
     launches = {"probe": probe.add_one.launches,
+                "dense_batch": dense_batch.batch_step.launches,
                 "dense_step": dense_step.packed_step.launches}
     final, _ = state_to_numpy(eng, state)
     breakdown = batch_breakdown(torch, eng, state, rng, E2E_BATCHES)
+    # one more batch's inputs at the kernel's boundary, for phase 7
+    full_case = capture_batch_step(lambda: eng.process(
+        state, "Txn", *e2e_batch(rng, E2E_BATCHES + 8)))
     del state
 
     cpu = compile_pattern(app, "bench", n_partitions=N_PARTITIONS, device="cpu")
@@ -1099,8 +1247,10 @@ def main() -> int:
                                  "the CPU run")
     if n_matches == 0:
         raise AssertionError("the end-to-end run found no matches")
-    if launches["dense_step"] < E2E_BATCHES or launches["probe"] < 1:
-        raise AssertionError(f"kernels not launched on the main path: {launches}")
+    # one batch step a batch; the packed step is off the main path
+    if (launches["dense_batch"] != E2E_BATCHES or launches["dense_step"]
+            or launches["probe"] < 1):
+        raise AssertionError(f"kernel launches on the main path: {launches}")
     # the first batch carries one-time set-up; the rate is every steady
     # event over all the steady batches' time, so a stall moves it
     steady = batch_s[1:]
@@ -1145,13 +1295,14 @@ def main() -> int:
 
     # 6. skew-routed end to end ------------------------------------------------
     bs = hot_key_batches(EventBatch)
-    probe.add_one.launches = 0
-    dense_step.packed_step.launches = 0
-    scan_chain.fused_scan.launches = 0
+    for k in (probe.add_one, dense_batch.batch_step, dense_step.packed_step,
+              scan_chain.fused_scan):
+        k.launches = 0
     keep = HK_WARMUP + HK_STEPS
     mgr, rt, routed = run_hot_key(torch, SiddhiManager, EventBatch, bs,
                                   "cuda", True, HK_WINDOWS, keep)
     hk_launches = {"probe": probe.add_one.launches,
+                   "dense_batch": dense_batch.batch_step.launches,
                    "dense_step": dense_step.packed_step.launches,
                    "scan_chain": scan_chain.fused_scan.launches}
     router = rt.pattern_runtimes()["q"]
@@ -1161,6 +1312,12 @@ def main() -> int:
                           *router._state.values()])
     lowering = rt.lowering()
     hk_breakdown = routed_breakdown(torch, rt, bs, EventBatch)
+    # one more routed batch's cold sub-batch at the kernel's boundary
+    last = bs[HK_WARMUP + 4]
+    cold_case = capture_batch_step(lambda: rt.get_input_handler(
+        "S").send_batch(EventBatch(
+            last.stream_id, last.attribute_names, last.columns,
+            last.timestamps + (HK_WINDOWS + 3) * 1_000_000, last.types)))
     rt.shutdown()
     mgr.shutdown()
     dmgr, drt, dense_only = run_hot_key(torch, SiddhiManager, EventBatch, bs,
@@ -1204,14 +1361,19 @@ def main() -> int:
             f"routed run emitted {routed_rows} rows ({routed['overflow']} "
             f"dropped), dense-only {dense_rows} ({dense_only['overflow']} "
             "dropped)")
-    if min(hk_launches.values()) < 1:
-        raise AssertionError(f"kernels not launched on the skew-routed "
-                             f"path: {hk_launches}")
+    # one batch step per batch (every batch has cold keys), one scan per
+    # batch; the packed step is off the main path
+    n_hk = HK_WARMUP + HK_STEPS * HK_WINDOWS
+    if (hk_launches["dense_batch"] != n_hk or hk_launches["dense_step"]
+            or hk_launches["scan_chain"] < 1 or hk_launches["probe"] < 1):
+        raise AssertionError(f"kernel launches on the skew-routed path: "
+                             f"{hk_launches}")
     steady = HK_BATCH * HK_STEPS
     hk_rate = steady * HK_WINDOWS / sum(routed["window_s"])
     dense_rate = (steady * HK_DENSE_WINDOWS / sum(dense_only["window_s"]))
-    dense_rounds = [int(np.unique(b.columns["k"], return_counts=True)[1].max())
-                    for b in bs[HK_WARMUP:]]
+    dense_longest = [int(np.unique(b.columns["k"],
+                                   return_counts=True)[1].max())
+                     for b in bs[HK_WARMUP:]]
     emit({"phase": "skew_routed", "keys": HK_KEYS, "batch": HK_BATCH,
           "windows": HK_WINDOWS, "dense_only_windows": HK_DENSE_WINDOWS,
           "cut": "the dense-only run takes 1 window of 8, not 3; its rows "
@@ -1227,12 +1389,29 @@ def main() -> int:
                                 "dense_only": dense_only["overflow"]},
           "state_bytes": hk_state_bytes,
           **counters,
-          "dense_only_rounds_per_batch": dense_rounds,
-          "routed_cold_rounds_per_batch": hk_breakdown["rounds"],
+          "dense_only_longest_segment_per_batch": dense_longest,
+          "routed_cold_longest_segment_per_batch":
+              hk_breakdown["longest_segment"],
           "launches": hk_launches, "card": card})
     emit(hk_breakdown)
 
-    # 7. bank kernel vs its plain version -------------------------------------
+    # 7. batch step vs its plain version ----------------------------------------
+    batch_lines = {
+        "1M": hold_batch_step(torch, dense_batch, full_case,
+                              "1M mid-chain batch", sm_clock_hz, 3),
+        "routed": hold_batch_step(torch, dense_batch, cold_case,
+                                  "routed cold sub-batch", sm_clock_hz, 1)}
+    del full_case, cold_case
+    for S, I, N, P, within, long_seg in BATCH_EDGE_CASES:
+        batch_lines[(S, I, N)] = hold_batch_step(
+            torch, dense_batch, batch_step_case(
+                torch, S, I, N, P, within, seed=S * I + N, device=dev,
+                long_seg=long_seg), f"S={S}, I={I}, N={N}", sm_clock_hz)
+    for line in batch_lines.values():
+        emit(line)
+    batch_err = max(line["max_abs_err"] for line in batch_lines.values())
+
+    # 8. bank kernel vs its plain version -------------------------------------
     bank_err = 0.0
     bank_lines = {}
     red_of = {"sum": "sum", "count": "sum", "min": "amin", "max": "amax"}
@@ -1310,12 +1489,12 @@ def main() -> int:
     emit(host_split(torch, bank_scatter, probe, build, *split_case,
                     bank_lines))
 
-    # 8. aggregation end to end -------------------------------------------------
+    # 9. aggregation end to end -------------------------------------------------
     n_batches = AGG_WARMUP + AGG_STEPS * AGG_WINDOWS
     tb, tsyms = trade_batches(EventBatch, n_batches + 2 * AGG_STEPS)
     bank_entries = (bank_scatter.accumulate_, bank_scatter.segmented_reduce)
-    for k in (probe.add_one, dense_step.packed_step, scan_chain.fused_scan,
-              *bank_entries):
+    for k in (probe.add_one, dense_batch.batch_step, dense_step.packed_step,
+              scan_chain.fused_scan, *bank_entries):
         k.launches = 0
     amgr, art, agg_card = run_trade(torch, SiddhiManager, "docs", "cuda", tb,
                                     AGG_WINDOWS)
@@ -1323,6 +1502,7 @@ def main() -> int:
     # accumulate_, its LONG-extrema pairs segmented_reduce
     bank_by_entry = {k.__name__: k.launches for k in bank_entries}
     agg_launches = {"probe": probe.add_one.launches,
+                    "dense_batch": dense_batch.batch_step.launches,
                     "dense_step": dense_step.packed_step.launches,
                     "scan_chain": scan_chain.fused_scan.launches,
                     "bank_scatter": sum(bank_by_entry.values())}
@@ -1397,14 +1577,26 @@ def main() -> int:
           "card": card})
     emit(agg_bd)
 
-    # 9. kernels -------------------------------------------------------------
+    # 10. kernels -------------------------------------------------------------
     by_path = lambda name: {"dense_1M": launches.get(name, 0),
                             "skew_routed": hk_launches.get(name, 0),
                             "aggregation": agg_launches[name]}
     emit({"kernels": [
+        {"name": "dense_batch", "route": "cuda",
+         "source": "siddhi_tpu_torch/kernels/csrc/dense_batch.cu",
+         "replaces": "siddhi_tpu/kernels/dense_step.py:154",
+         "launches": launches["dense_batch"] + hk_launches["dense_batch"],
+         "launches_by_path": by_path("dense_batch"),
+         "max_abs_err": batch_err,
+         # the 1 M cell's batch; the routed cold sub-batch beside it
+         "case": "1M mid-chain batch",
+         **{k: batch_lines["1M"][k] for k in KERNEL_KEYS},
+         "routed": {k: batch_lines["routed"][k] for k in
+                    ("longest_segment", "segments", "N", *KERNEL_KEYS)}},
         {"name": "dense_step", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/dense_step.cu",
          "replaces": "siddhi_tpu/kernels/dense_step.py:154",
+         "off_main_path": True,
          "launches": launches["dense_step"] + hk_launches["dense_step"],
          "launches_by_path": by_path("dense_step"), "max_abs_err": step_err,
          **{k: step_line[k] for k in KERNEL_KEYS}},

@@ -7,9 +7,10 @@ the JAX package; the tests hold it bit for bit against that package.
 Three slices so far:
 
 - ``compile_pattern`` builds a ``DensePatternEngine`` for capture-free
-  ``every`` chains, whose step is a hand-written CUDA kernel on the card
-  (``kernels/csrc/dense_step.cu``) and its plain torch version on the
-  CPU;
+  ``every`` chains, which steps a whole batch in one hand-written CUDA
+  kernel on the card (``kernels/csrc/dense_batch.cu``: each partition's
+  events in order, its state row in place) and in its plain torch
+  version on the CPU;
 - ``SiddhiManager`` runs partitioned pattern apps end to end through
   the dense runtime and, under ``@app:hotkeys``, the skew router, whose
   hot keys ride the fused scan kernel (``kernels/csrc/scan_chain.cu``);

@@ -41,6 +41,11 @@ PROTOTYPES = {
         "dense_step_launch": (c_int, (c_void_p,) * 9 + (c_int,) * 5
                               + (c_void_p,)),
     },
+    "dense_batch": {
+        "dense_batch_plan": (c_int, (c_void_p,) + (c_int,) * 4),
+        "dense_batch_launch": (c_int, (c_void_p,) * 12 + (c_int,) * 2
+                               + (c_void_p,)),
+    },
     "scan_chain": {
         "scan_chain_launch": (c_int, (c_void_p,) * 7 + (c_int,) * 3
                               + (c_void_p,)),

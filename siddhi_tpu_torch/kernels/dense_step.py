@@ -9,6 +9,14 @@ batch rows per int32 word (bit ``b`` of word ``w`` is batch row
 ``w*32 + b``; collision rounds upstream make a batch row a partition).
 ``counts``/``regs`` are constant in this class and are not touched.
 
+Off the main path: the engine's ``process_deferred`` runs the batch
+step (``kernels/dense_batch.py``), which walks each partition's events
+in order and needs no rounds, packing or gathers.  This module stays as
+the interface-level twin of the Pallas kernel, pinned to it by
+``tests/test_torch_dense_step.py``, and ``chip_smoke.py`` still holds
+its kernel against its plain version.  Its retirement is an open
+question.
+
 Three pieces:
 
 - ``csrc/dense_step.cu``: the CUDA kernel for the packed step, launched
@@ -138,7 +146,8 @@ def _check_inputs(ok_pk, a_pk, first_t, ts, n_inst, within):
 def packed_step(ok_pk, a_pk, first_t, ts, *, n_inst: int,
                 within: Optional[int]):
     """One packed dense-NFA step: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors.  Shapes: ``ok_pk [S, W]``,
+    plain version for CPU tensors.  Off the main path (see the module
+    docstring).  Shapes: ``ok_pk [S, W]``,
     ``a_pk [S*I, W]``, ``first_t [S*I, 32W]``, ``ts [1, 32W]``, all
     int32 and contiguous.
 
@@ -194,7 +203,9 @@ def candidate_env(stream_def, cols, ts):
 
 
 def build_packed_nfa(engine, stream_key: str):
-    """The engine's step for events of ``stream_key``.
+    """The packed step for one collision round of ``stream_key`` (off
+    the main path: ``DensePatternEngine.make_step`` returns it; the
+    engine's ``process_deferred`` runs ``dense_batch.batch_step``).
 
     step(state, part_idx[B] i64, cols {key: [B]}, ts[B] i32 relative ms,
          valid[B] bool) -> (state, emit[B, 2I] bool,

@@ -12,11 +12,13 @@ a dict of tensors under the JAX engine's keys:
   float32: constant (zero) in this class, kept for the shared layout;
 - ``overflow`` ``[P+1]`` int32: instances dropped for want of a free lane.
 
-Row ``P`` is a scratch row that padded batch rows point at.  A batch is
-split into collision rounds (each partition at most once per round),
-staged to the device, and each round is one packed step
-(``kernels/dense_step.py``): the CUDA kernel on a card, its plain torch
-version on the CPU.  Matches come back through ``DeferredDenseEmit`` and
+Row ``P`` is the reference's scratch row; the batch step never touches
+it.  A batch is sorted stably by partition on the host
+(``partition_segments``), staged to the device in one put, and stepped
+in one batch step (``kernels/dense_batch.py``): the CUDA kernel on a
+card walks each partition's events in batch order against its state
+row, in place; its plain torch version on the CPU steps the collision
+rounds.  Matches come back through ``DeferredDenseEmit`` and
 ``core/emit_queue.fetch_coalesced``.
 
 Timestamps ride int32 relative lanes re-anchored before they approach
@@ -43,10 +45,8 @@ from siddhi_tpu_torch.core.exceptions import (
 )
 from siddhi_tpu_torch.core.ingest_stage import staged_put
 from siddhi_tpu_torch.kernels import probe
-from siddhi_tpu_torch.kernels.dense_step import (
-    MAX_INSTANCES,
-    build_packed_nfa,
-)
+from siddhi_tpu_torch.kernels.dense_batch import MAX_INSTANCES, batch_step
+from siddhi_tpu_torch.kernels.dense_step import build_packed_nfa, candidate_env
 from siddhi_tpu_torch.kernels.plane_pack import unpack_state
 from siddhi_tpu_torch.ops.nfa import NFABuilder, Node, PatternScope
 from siddhi_tpu_torch.planner.expr import CompiledExpression, ExpressionCompiler
@@ -262,7 +262,7 @@ class DensePatternEngine:
             raise SiddhiAppCreationError("dense NFA supports at most 32 chain nodes")
         if self.I > MAX_INSTANCES:
             raise SiddhiAppCreationError(
-                f"the port's packed step holds at most {MAX_INSTANCES} "
+                f"the port's batch step holds at most {MAX_INSTANCES} "
                 f"instance lanes per node, got {self.I}")
         # any `every` other than the standing virgin at node 0 re-arms a
         # group, which the packed step does not model
@@ -366,8 +366,10 @@ class DensePatternEngine:
     # -- step ---------------------------------------------------------------
 
     def make_step(self, stream_key: str) -> Callable:
-        """The packed step for events of one source stream (see
-        ``kernels/dense_step.build_packed_nfa`` for its signature)."""
+        """The packed step for one collision round of one source stream
+        (see ``kernels/dense_step.build_packed_nfa`` for its signature):
+        the interface-level twin of the JAX package's step.  Off the main
+        path: ``process_deferred`` runs ``batch_step``."""
         fn = self._step_cache.get(stream_key)
         if fn is None:
             fn = build_packed_nfa(self, stream_key)
@@ -418,8 +420,7 @@ class DensePatternEngine:
 
     def process(self, state, stream_key: str, part_idx: np.ndarray,
                 cols: Dict[str, np.ndarray], ts: np.ndarray):
-        """Process a batch, split into rounds so each partition appears
-        at most once per step.
+        """Process a batch: each partition's events in batch order.
 
         Returns ``(state, match_ev_idx, match_out)``: one row per match,
         ``match_ev_idx[m]`` the batch-row index of the completing event
@@ -436,11 +437,14 @@ class DensePatternEngine:
 
     def process_deferred(self, state, stream_key: str, part_idx: np.ndarray,
                          cols: Dict[str, np.ndarray], ts: np.ndarray):
-        """Async-emit variant of :meth:`process`: every round's match
+        """Async-emit variant of :meth:`process`: the batch's match
         outputs stay on the device inside the returned
         :class:`DeferredDenseEmit` (None only for empty input); even the
-        per-round match count stays a device scalar until ``resolve()``."""
-        step = self.make_step(stream_key)
+        match count stays a device scalar until ``resolve()``.
+
+        One host sort by partition, one ``staged_put``, the filter
+        matrix, one ``batch_step`` (the state rows change in place) and
+        the output columns."""
         part_idx = np.asarray(part_idx)
         if len(part_idx) and (int(part_idx.min()) < 0
                               or int(part_idx.max()) >= self.n_partitions):
@@ -448,33 +452,74 @@ class DensePatternEngine:
                 f"partition ids must lie in [0, {self.n_partitions})")
         rel64 = self.rel_ts64(np.asarray(ts, dtype=np.int64))
         state, rel64 = self.maybe_re_anchor(state, rel64)
-        rel = rel64.astype(np.int32)
+        n = len(part_idx)
+        if n == 0:
+            return state, None
         prepared = self.prepare_cols(stream_key, cols)
+        order, seg_start, seg_part = partition_segments(part_idx)
+        order, seg_start, seg_part, rel, cb = staged_put(
+            (order, seg_start, seg_part, rel64.astype(np.int32), prepared),
+            self.device, self.ingest_stats)
+        ok = self.filter_matrix(stream_key, cb, rel)
+        emit, anchor, n_emit = batch_step(
+            state, order, seg_start, seg_part, ok, rel, n_inst=self.I,
+            within=self.within_ms)
+        out_f, out_i = self.output_columns(cb, emit[:, :self.I])
         pending = DeferredDenseEmit(self)
-        for ridx in _collision_rounds(part_idx):
-            b = len(ridx)
-            bp = max(1 << (b - 1).bit_length(), 16)  # pad to pow2, min 16
-            pi = np.full(bp, self.n_partitions, dtype=np.int64)  # scratch row
-            pi[:b] = part_idx[ridx]
-            tb = np.zeros(bp, dtype=np.int32)
-            tb[:b] = rel[ridx]
-            valid = np.zeros(bp, dtype=bool)
-            valid[:b] = True
-            cb = {}
-            for k, v in prepared.items():
-                col = np.zeros(bp, dtype=v.dtype)
-                col[:b] = v[ridx]
-                cb[k] = col
-            pi, cb, tb, valid = staged_put((pi, cb, tb, valid), self.device,
-                                           self.ingest_stats)
-            state, emit, outs, emit_anchor, n_emit = step(
-                state, pi, cb, tb, valid)
-            pending.chunks.append({
-                "emit": emit, "f": outs["f"], "i": outs["i"],
-                "anchor": emit_anchor, "sel": slice(0, b), "ridx": ridx,
-                "count": n_emit,
-            })
-        return state, (pending if pending.chunks else None)
+        pending.chunks.append({
+            "emit": emit, "f": out_f, "i": out_i, "anchor": anchor,
+            "sel": slice(0, n), "ridx": np.arange(n), "count": n_emit,
+        })
+        return state, pending
+
+    def filter_matrix(self, stream_key: str, cols: Dict[str, torch.Tensor],
+                      ts: torch.Tensor) -> torch.Tensor:
+        """``ok [N, S]`` bool on the device: node ``s``'s candidate filter
+        for every event, False where the node reads another stream."""
+        n = ts.shape[0]
+        rows = []
+        for node, fs in zip(self.nodes, self.node_filters):
+            spec = node.specs[0]
+            if spec.stream_key != stream_key:
+                rows.append(torch.zeros(n, dtype=torch.bool,
+                                        device=ts.device))
+            elif fs[0] is None:
+                rows.append(torch.ones(n, dtype=torch.bool, device=ts.device))
+            else:
+                okb = torch.as_tensor(
+                    fs[0].fn(candidate_env(spec.stream_def, cols, ts)),
+                    device=ts.device)
+                rows.append(okb.to(torch.bool).broadcast_to((n, 1))[:, 0])
+        return torch.stack(rows, dim=1)
+
+    def output_columns(self, cols: Dict[str, torch.Tensor],
+                       emit0: torch.Tensor):
+        """Output banks ``f [N, 2I, O]`` float32 and ``i [N, 2I, 2*n_int]``
+        int32: the candidate's selects at the emitting lanes ``emit0
+        [N, I]`` of bank 0 (the eligible class has no via-path)."""
+        n, I = emit0.shape
+        dev = emit0.device
+        O = max(len(self.out_spec), 1)
+        out_f = torch.zeros((n, 2 * I, O), dtype=torch.float32, device=dev)
+        out_i = torch.zeros((n, 2 * I, 2 * sum(self.out_int)),
+                            dtype=torch.int32, device=dev)
+        ii = 0
+        for oi, ((_name, src), is_int) in enumerate(zip(self.out_spec,
+                                                        self.out_int)):
+            if is_int:
+                hk, lk = f"{src[1]}|hi", f"{src[1]}|lo"
+                if hk in cols:
+                    out_i[:, :I, 2 * ii] = torch.where(
+                        emit0, cols[hk][:, None], 0)
+                    out_i[:, :I, 2 * ii + 1] = torch.where(
+                        emit0, cols[lk][:, None], 0)
+                ii += 1
+                continue
+            val = cols.get(src[1])
+            if val is not None:
+                out_f[:, :I, oi] = torch.where(
+                    emit0, val.to(torch.float32)[:, None], 0.0)
+        return out_f, out_i
 
     def assemble_out(self, out_f: np.ndarray, out_i: np.ndarray,
                      rows: np.ndarray, lanes: np.ndarray) -> np.ndarray:
@@ -587,9 +632,10 @@ def state_to_numpy(engine: DensePatternEngine, state: Dict[str, torch.Tensor]
 class DeferredDenseEmit:
     """Device-resident match outputs of one dense batch, pending drain.
 
-    Each chunk is one collision round: ``emit``/``f``/``i``/``anchor``
-    are step outputs still on the device; ``sel`` maps padded rows back
-    to the round's events and ``ridx`` maps round rows to batch rows.
+    Each chunk is one step's outputs (one chunk a batch from
+    ``process_deferred``): ``emit``/``f``/``i``/``anchor`` are still on
+    the device; ``sel`` selects the chunk's event rows and ``ridx`` maps
+    them to batch rows.
     ``materialize`` receives the fetched host arrays in
     ``device_arrays()`` order and returns what ``process`` returns.
     """
@@ -602,8 +648,8 @@ class DeferredDenseEmit:
         self._total: Optional[int] = None
 
     def resolve(self) -> int:
-        """Fetch the per-round match counts (scalars only) and prune
-        rounds that matched nothing, so their output banks are never
+        """Fetch the per-chunk match counts (scalars only) and prune
+        chunks that matched nothing, so their output banks are never
         transferred.  Idempotent; returns the total match count."""
         if self._total is not None:
             return self._total
@@ -644,7 +690,7 @@ class DeferredDenseEmit:
 
 def flatten_match_parts(ev_parts, out_parts, key_parts, n_out: int
                         ) -> Tuple[np.ndarray, np.ndarray]:
-    """Concatenate per-round match fragments and order them by
+    """Concatenate per-chunk match fragments and order them by
     (event index, arming anchor, lane): the match-ordering contract."""
     if not ev_parts:
         return (np.empty(0, dtype=np.int64),
@@ -656,9 +702,27 @@ def flatten_match_parts(ev_parts, out_parts, key_parts, n_out: int
     return ev[order].astype(np.int64), out[order]
 
 
+def partition_segments(part_idx: np.ndarray
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A batch sorted stably by partition, as ``batch_step`` takes it:
+    ``(order [N], seg_start [K+1], seg_part [K])``, all int32.
+    ``order[seg_start[k]:seg_start[k+1]]`` are the batch rows of
+    partition ``seg_part[k]``, in batch order."""
+    order = np.argsort(part_idx, kind="stable")
+    sorted_parts = part_idx[order]
+    is_new = np.ones(len(order), dtype=bool)
+    is_new[1:] = sorted_parts[1:] != sorted_parts[:-1]
+    starts = np.flatnonzero(is_new)
+    return (order.astype(np.int32),
+            np.append(starts, len(order)).astype(np.int32),
+            sorted_parts[starts].astype(np.int32))
+
+
 def _collision_rounds(part_idx: np.ndarray) -> List[np.ndarray]:
     """Split indices into rounds where each partition appears at most once,
-    preserving per-partition order."""
+    preserving per-partition order: the reference's loop.  Off the main
+    path (the batch step walks segments); tests build the round loop of
+    the packed step from it."""
     order = np.argsort(part_idx, kind="stable")
     sorted_parts = part_idx[order]
     # occurrence number of each element within its partition group

@@ -7,7 +7,8 @@ machine with a card and no JAX they run without the repo's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Each kernel is held bit for bit against its plain torch version on the
-same inputs (the packed step is pure int32 arithmetic; the fused scan
+same inputs (the packed and batch steps are pure int32 arithmetic, the
+batch step's in-place state included; the fused scan
 does the same float32 operations in the same order).  The bank's
 segmented reduce and its in-place accumulate are bit-exact on int32,
 min/max and integer-valued lanes; float32 sums are held per row to
@@ -19,7 +20,13 @@ import numpy as np
 import pytest
 import torch
 
-from siddhi_tpu_torch.kernels import bank_scatter, dense_step, probe, scan_chain
+from siddhi_tpu_torch.kernels import (
+    bank_scatter,
+    dense_batch,
+    dense_step,
+    probe,
+    scan_chain,
+)
 from siddhi_tpu_torch.kernels.plane_pack import pack_bits
 
 pytestmark = pytest.mark.cuda
@@ -111,6 +118,70 @@ def test_engine_on_card_matches_cpu(cuda_device):
         assert torch.equal(state["cuda"][k].cpu(), state["cpu"][k]), k
 
 
+def batch_step_inputs(S, I, N, P, within, seed, long_seg=0):
+    """Seeded batch-step inputs on the CPU: a mid-chain state (anchors
+    only where active, some past ``within``), Zipf(1.2) partitions (every
+    event on its own partition when ``N == P``; ``long_seg`` events on
+    partition 0), ok flags and ascending ts."""
+    from siddhi_tpu_torch.ops.dense_nfa import partition_segments
+
+    rng = np.random.default_rng(seed)
+    w = within or 600_000
+    now = 5_000_000
+    active = rng.random((P + 1, S, I)) < 0.3
+    age = rng.integers(0, w + w // 4, (P + 1, S, I))
+    first = np.where(active, now - age, 0).astype(np.int32)
+    state = {"active": torch.from_numpy(active),
+             "first_ts": torch.from_numpy(first),
+             "overflow": torch.from_numpy(
+                 rng.integers(0, 5, P + 1).astype(np.int32))}
+    if N == P:
+        part = rng.permutation(P)
+    else:
+        part = 1 + (rng.zipf(1.2, N) - 1) % (P - 1)
+        part[rng.choice(N, long_seg, replace=False)] = 0
+    ok = rng.random((N, S)) < 0.5
+    ts = now + np.sort(rng.integers(0, w // 2, N))
+    segs = partition_segments(part.astype(np.int32))
+    return state, [torch.from_numpy(a) for a in segs] + [
+        torch.from_numpy(ok), torch.from_numpy(ts.astype(np.int32))]
+
+
+@pytest.mark.parametrize("S,I,N,P,within,long_seg", [
+    (16, 4, 65536, 65536, 600_000, 0),   # the 1 M cell's shape, cut
+    (2, 8, 8192, 4096, None, 600),       # a routed batch: one 600-event key
+    (2, 8, 1, 16, None, 0),              # N = 1
+    (32, 16, 2048, 512, 3000, 40),       # the shared-memory ceiling
+    (3, 7, 3000, 300, 50, 100),          # ragged lanes, short horizon
+])
+def test_batch_step_kernel_matches_plain(cuda_device, S, I, N, P, within,
+                                         long_seg):
+    """Bit for bit against ``batch_step_plain`` on the same card inputs,
+    the in-place state included; two launches on clones of one state
+    give the same bits; one counted launch a call."""
+    host, batch = batch_step_inputs(S, I, N, P, within, seed=S * I + N,
+                                    long_seg=long_seg)
+    batch = [t.to(cuda_device) for t in batch]
+    states = [{k: v.to(cuda_device) for k, v in host.items()}
+              for _ in range(3)]
+    before = dense_batch.batch_step.launches
+    got = dense_batch.batch_step(states[0], *batch, n_inst=I, within=within)
+    again = dense_batch.batch_step(states[1], *batch, n_inst=I,
+                                   within=within)
+    torch.cuda.synchronize()
+    assert dense_batch.batch_step.launches == before + 2
+    want = dense_batch.batch_step_plain(states[2], *batch, I, within)
+    for name, g, a, w in zip(("emit", "anchor", "n_emit"), got, again, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, w), name
+        assert torch.equal(g, a), name
+    for k in host:
+        assert torch.equal(states[0][k], states[2][k]), k
+        assert torch.equal(states[0][k], states[1][k]), k
+    if long_seg:
+        assert int((batch[1][1:] - batch[1][:-1]).max()) >= long_seg
+
+
 def scan_inputs(H, n, S, seed, device):
     """Seeded fused-scan inputs: 0/1 filter rows with all-zero padding,
     live starts mixed with NEG, integer-valued counts."""
@@ -145,7 +216,7 @@ def test_scan_chain_kernel_matches_plain(cuda_device, H, n, S):
 
 def test_hot_key_app_on_card_matches_cpu(cuda_device):
     """A routed app through SiddhiManager: the card's callbacks equal the
-    CPU run's, and the scan and dense-step kernels both launched."""
+    CPU run's, and the scan and batch-step kernels both launched."""
     from siddhi_tpu_torch import SiddhiManager
 
     app = ("@app:playback @app:execution('tpu', instances='8') "
@@ -162,7 +233,7 @@ def test_hot_key_app_on_card_matches_cpu(cuda_device):
         sends.append(([k, float(rng.uniform(0, 20)),
                        float(rng.uniform(0, 20))], t))
     before = (scan_chain.fused_scan.launches,
-              dense_step.packed_step.launches)
+              dense_batch.batch_step.launches)
     got = {}
     for d in ("cuda", "cpu"):
         rt = SiddhiManager(device=d).create_siddhi_app_runtime(app)
@@ -177,7 +248,7 @@ def test_hot_key_app_on_card_matches_cpu(cuda_device):
         rt.shutdown()
     assert got["cuda"] == got["cpu"] and got["cpu"]
     assert scan_chain.fused_scan.launches > before[0]
-    assert dense_step.packed_step.launches > before[1]
+    assert dense_batch.batch_step.launches > before[1]
 
 
 BANK_IDENT = {"float32": {"sum": 0.0, "count": 0.0, "min": float("inf"),
