@@ -36,9 +36,10 @@ printing one JSON line:
 5. scan kernel: the fused hot-key scan kernel against its plain torch
    version, both on the card, on seeded inputs at the skew-routed path's
    shape (H=8, n=2048, S=2), the widest legal shape (H=256, n=4096,
-   S=32) and a ragged one (H=3, n=16, S=5); v', c' and emit must be
-   bit-exact.  Times both, and works out the bound (bytes, and the
-   serial chain of dependent operations at the card's top SM clock).
+   S=32), a ragged one (H=3, n=16, S=5) and one of four 2,048-event
+   tiles (H=16, n=8192, S=3); v', c' and emit must be bit-exact.  Times
+   both, and works out the bound (bytes over HBM, or float operations at
+   peak).
 6. skew-routed end to end: bench.py's ``bench_hot_key`` app, annotations
    and traffic (4096 keys, Zipf(1.2) from seed 23, B=8192, 2 warm-up
    batches and 3 windows of 8), through the port's ``SiddhiManager`` on
@@ -63,8 +64,9 @@ printing one JSON line:
    launch the same bits.  Cases: the 1 M cell's batch (131,072 one-event
    segments of the mid-chain state), the routed run's real cold
    sub-batch (N, segments and the longest segment recorded), and edge
-   cases (N = 1; S = 32, I = 16, the shared-memory ceiling; ragged
-   lanes with a 50 ms horizon).  The first two are timed beside the
+   cases (N = 1; S = 32, I = 16; S = 32, I = 32, the shared-memory
+   ceiling; I = 32 with a 300-event segment; ragged lanes with a 50 ms
+   horizon).  The first two are timed beside the
    plain version, with the bound (bytes, and the longest segment's
    serial chain at the card's top SM clock).
 8. bank kernel: the aggregation bank's segmented-reduce kernel against
@@ -105,7 +107,8 @@ printing one JSON line:
    the entry the aggregation path uses, ``accumulate_``, with the delta
    entry's beside it; kernel 1 as ``dense_batch`` (the 1 M batch, the
    routed cold sub-batch beside it), with the packed kernel's phase-3
-   line next to it.
+   line next to it; the scan kernel at the routed shape, the widest
+   legal shape beside it.
 
 Then the card's name and power limit (nvidia-smi), and last the device
 line.  Any failed phase raises, so the script exits non-zero and prints
@@ -149,20 +152,21 @@ HK_WINDOWS = 3
 HK_DENSE_WINDOWS = 1  # the dense-only run is cut to one window
 HK_HOT = "@app:hotkeys(k='8', promote='0.1', demote='0.04') "
 # fused-scan shapes (H, n, S): the routed path's, the widest legal one,
-# and a ragged one
-SCAN_SHAPES = ((8, 2048, 2), (256, 4096, 32), (3, 16, 5))
-# the scan kernel's per-event dependent chain on the v lane: shuffle,
-# add, select, max, max, select; none can issue before the one it
-# depends on has finished, at least 4 cycles on the SM's float pipe
-SCAN_DEP_OPS = 6
+# a ragged one, and one of four 2,048-event tiles
+SCAN_SHAPES = ((8, 2048, 2), (256, 4096, 32), (3, 16, 5), (16, 8192, 3))
+# a dependent operation waits at least 4 cycles for the one before it
 DEP_LATENCY_CYCLES = 4
 # the batch step's per-event dependent chain, per node: read the node's
 # activity, fire, place into the next node, write it back (the next
 # event reads what this one wrote)
 BATCH_DEP_OPS = 4
 # batch-step edge cases (S, I, N, P, within, events on one partition):
-# one event, the shared-memory ceiling, ragged lanes with a short horizon
+# one event, 16 lanes at 32 nodes, the shared-memory ceiling (32 nodes
+# by 32 lanes), 32 lanes with a long segment, ragged lanes with a short
+# horizon
 BATCH_EDGE_CASES = ((2, 8, 1, 16, None, 0), (32, 16, 2048, 512, 3000, 40),
+                    (32, 32, 2048, 512, 3000, 40),
+                    (4, 32, 8192, 1024, None, 300),
                     (3, 7, 3000, 300, 50, 100))
 # what the kernels line gives for each kernel, from its path-shape line
 KERNEL_KEYS = ("ms", "host_us", "device_us", "plain_ms", "bound_ms",
@@ -551,21 +555,19 @@ def scan_inputs(torch, H, n, S, seed, device):
     return [torch.from_numpy(a).to(device) for a in (F, ts, v, c)]
 
 
-def scan_bound(H, n, S, sm_clock_hz) -> dict:
+def scan_bound(H, n, S) -> dict:
     """Least time for one fused scan: every input read and output written
-    once over HBM; its float32 operations at the CUDA cores' peak; and
-    the serial chain, n dependent steps of SCAN_DEP_OPS operations of
-    DEP_LATENCY_CYCLES each at the top SM clock.  The largest bounds."""
+    once over HBM, or its float32 operations at the CUDA cores' peak,
+    whichever is larger.  The recurrence is a scan, so no chain of n
+    dependent steps bounds it."""
     bytes_ = 4 * (H * n * (S + 1) + H * n + 2 * H * S + 2 * H * S + H * n)
     # per event and lane: 3 compares, 2 adds, 5 selects, 2 max
     ops = 12 * H * n * S
     terms = {"bytes_ms": 1e3 * bytes_ / HBM_BYTES_PER_S,
-             "operations_at_peak_ms": 1e3 * ops / CUDA_CORE_OPS_PER_S,
-             "serial_chain_ms":
-                 1e3 * n * SCAN_DEP_OPS * DEP_LATENCY_CYCLES / sm_clock_hz}
-    return {"bound_ms": max(terms.values()), "bound_terms": terms,
-            "bound_by": ("bytes" if terms["bytes_ms"] == max(terms.values())
-                         else "operations")}
+             "operations_at_peak_ms": 1e3 * ops / CUDA_CORE_OPS_PER_S}
+    top = max(terms.values())
+    return {"bound_ms": top, "bound_terms": terms, "bytes": bytes_,
+            "bound_by": "bytes" if terms["bytes_ms"] == top else "operations"}
 
 
 def bits_equal(torch, got, want) -> bool:
@@ -1266,8 +1268,8 @@ def main() -> int:
     emit(breakdown)
 
     # 5. scan kernel vs its plain version -------------------------------------
-    sm_clock_hz = 1e6 * float(card_line("clocks.max.sm").split()[0])
     scan_err = 0.0
+    scan_lines = {}
     for H, n, S in SCAN_SHAPES:
         ins = scan_inputs(torch, H, n, S, seed=H * n + S, device=dev)
         got = scan_chain.fused_scan(*ins)
@@ -1287,11 +1289,10 @@ def main() -> int:
                              10),
                 "plain_ms": time_ms(torch, lambda: scan_chain.fused_scan_plain(
                     *ins), 1, warmup=1),
-                "sm_clock_mhz": sm_clock_hz / 1e6, "library_ms": None,
-                **scan_bound(H, n, S, sm_clock_hz)}
-        if (H, n, S) == SCAN_SHAPES[0]:
-            scan_line = line
+                "library_ms": None, **scan_bound(H, n, S)}
+        scan_lines[(H, n, S)] = line
         emit(line)
+    scan_line = scan_lines[SCAN_SHAPES[0]]
 
     # 6. skew-routed end to end ------------------------------------------------
     bs = hot_key_batches(EventBatch)
@@ -1396,6 +1397,7 @@ def main() -> int:
     emit(hk_breakdown)
 
     # 7. batch step vs its plain version ----------------------------------------
+    sm_clock_hz = 1e6 * float(card_line("clocks.max.sm").split()[0])
     batch_lines = {
         "1M": hold_batch_step(torch, dense_batch, full_case,
                               "1M mid-chain batch", sm_clock_hz, 3),
@@ -1612,7 +1614,10 @@ def main() -> int:
          "replaces": "siddhi_tpu/kernels/scan_chain.py:91",
          "launches": hk_launches["scan_chain"],
          "launches_by_path": by_path("scan_chain"), "max_abs_err": scan_err,
-         **{k: scan_line[k] for k in KERNEL_KEYS}},
+         # the routed path's shape; the widest legal one beside it
+         "case": "H=8, n=2048, S=2",
+         **{k: scan_line[k] for k in KERNEL_KEYS},
+         "widest": {k: scan_lines[SCAN_SHAPES[1]][k] for k in KERNEL_KEYS}},
         {"name": "bank_scatter", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/bank_scatter.cu",
          "replaces": "siddhi_tpu/kernels/bank_scatter.py:76",

@@ -30,18 +30,19 @@
 // shared memory together: lanes run over (row, 16-byte chunk) of the
 // anchors and over (row, node) of the activity, so neighbouring lanes
 // read neighbouring bytes of one row and the random rows are read as
-// whole sectors.  Activity becomes one bitmask a node, stored [node][33]
-// so each thread's reads are conflict-free; an anchor row's stride is an
-// odd number of 16-byte units, so a quarter-warp's 16-byte reads of its
-// own rows are conflict-free too.  Each thread then walks its events
-// against its row in shared memory and the warp writes the rows back.
+// whole sectors.  Activity becomes one uint32 bitmask a node (I <= 32),
+// stored [node][33] so each thread's reads are conflict-free; an anchor
+// row's stride is an odd number of 16-byte units, so a quarter-warp's
+// 16-byte reads of its own rows are conflict-free too.  Each thread then
+// walks its events against its row in shared memory and the warp writes
+// the rows back.
 //
 // The walk works on bits: fired lanes are visited by find-first-set, and
 // the k-th fired lane of node s meets the k-th free lane of node s+1 by
 // taking the lowest remaining bit of each, so an event costs a few
 // operations a node plus a few a fired lane (the packed kernel's
 // all-lanes-by-all-lanes placement made the serial walk of a long
-// segment instruction-bound).  Where I is 4, 8 or 16 a node's anchors
+// segment instruction-bound).  Where I is 4, 8, 16 or 32 a node's anchors
 // move as whole 16-byte vectors, and expiry, the stamp and the emit row
 // are selects on them.  A thread loads its events' ts and ok flags
 // kChunk at a time, all loads of a chunk in flight together and held in
@@ -107,6 +108,17 @@ __device__ inline uint32_t bits_to_bytes(uint32_t b) {
     return (b & 1u) | ((b & 2u) << 7) | ((b & 4u) << 14) | ((b & 8u) << 21);
 }
 
+// 16 bytes -> 16 bits, and back
+__device__ inline uint32_t bytes16_to_bits(uint4 v) {
+    return bytes_to_bits(v.x) | (bytes_to_bits(v.y) << 4) |
+           (bytes_to_bits(v.z) << 8) | (bytes_to_bits(v.w) << 12);
+}
+
+__device__ inline uint4 bits_to_bytes16(uint32_t m) {
+    return make_uint4(bits_to_bytes(m), bits_to_bytes(m >> 4),
+                      bits_to_bytes(m >> 8), bits_to_bytes(m >> 12));
+}
+
 // the activity of one node of one row (I bytes) as a bitmask
 __device__ inline uint32_t load_mask(const uint8_t* src, int I, bool vec) {
     if (vec) {
@@ -115,9 +127,9 @@ __device__ inline uint32_t load_mask(const uint8_t* src, int I, bool vec) {
             const uint2 v = *(const uint2*)src;
             return bytes_to_bits(v.x) | (bytes_to_bits(v.y) << 4);
         }
-        const uint4 v = *(const uint4*)src;
-        return bytes_to_bits(v.x) | (bytes_to_bits(v.y) << 4) |
-               (bytes_to_bits(v.z) << 8) | (bytes_to_bits(v.w) << 12);
+        uint32_t m = bytes16_to_bits(*(const uint4*)src);
+        if (I == 32) m |= bytes16_to_bits(*(const uint4*)(src + 16)) << 16;
+        return m;
     }
     uint32_t m = 0;
     for (int i = 0; i < I; ++i) m |= (src[i] ? 1u : 0u) << i;
@@ -131,9 +143,8 @@ __device__ inline void store_mask(uint8_t* dst, int I, bool vec, uint32_t m) {
         } else if (I == 8) {
             *(uint2*)dst = make_uint2(bits_to_bytes(m), bits_to_bytes(m >> 4));
         } else {
-            *(uint4*)dst = make_uint4(bits_to_bytes(m), bits_to_bytes(m >> 4),
-                                      bits_to_bytes(m >> 8),
-                                      bits_to_bytes(m >> 12));
+            *(uint4*)dst = bits_to_bytes16(m);
+            if (I == 32) *(uint4*)(dst + 16) = bits_to_bytes16(m >> 16);
         }
         return;
     }
@@ -154,14 +165,8 @@ __device__ inline uint32_t load_ok(const uint8_t* ok, int e, int S,
             const uint2 v = *(const uint2*)r;
             return bytes_to_bits(v.x) | (bytes_to_bits(v.y) << 4);
         }
-        const uint4 v = *(const uint4*)r;
-        uint32_t m = bytes_to_bits(v.x) | (bytes_to_bits(v.y) << 4) |
-                     (bytes_to_bits(v.z) << 8) | (bytes_to_bits(v.w) << 12);
-        if (S == 32) {
-            const uint4 u = *(const uint4*)(r + 16);
-            m |= (bytes_to_bits(u.x) << 16) | (bytes_to_bits(u.y) << 20) |
-                 (bytes_to_bits(u.z) << 24) | (bytes_to_bits(u.w) << 28);
-        }
+        uint32_t m = bytes16_to_bits(*(const uint4*)r);
+        if (S == 32) m |= bytes16_to_bits(*(const uint4*)(r + 16)) << 16;
         return m;
     }
     uint8_t b[32];
@@ -278,7 +283,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) dense_batch_kernel(
     // walk this thread's segment, event after event
     uint32_t count = 0;
     if (has) {
-        const uint32_t lanes = (1u << I) - 1u;  // I <= 16
+        const uint32_t lanes = I == 32 ? 0xffffffffu : (1u << I) - 1u;
         int32_t* row = sF + lane * stride;
         uint32_t* am = sA + lane;  // node s's mask at am[s * kMaskStride]
         int32_t ovf = 0;
@@ -442,6 +447,7 @@ KernelFn pick(int I) {
     if (I == 4) return dense_batch_kernel<4>;
     if (I == 8) return dense_batch_kernel<8>;
     if (I == 16) return dense_batch_kernel<16>;
+    if (I == 32) return dense_batch_kernel<32>;
     return dense_batch_kernel<0>;
 }
 
@@ -450,10 +456,11 @@ KernelFn pick(int I) {
 // Fills *plan for (S, I, within) on the current device: warps per block
 // (as many as fit 48 KB of shared memory, 1 to 4) and the block's
 // dynamic shared memory, raising the kernel's limit where it passes
-// 48 KB.  Returns a cudaError_t (0 on success).
+// 48 KB (at S = I = 32 one warp takes 135,936 B of the 232,448 B a block
+// may have).  Returns a cudaError_t (0 on success).
 extern "C" int dense_batch_plan(void* plan, int S, int I, int has_within,
                                 int within) {
-    if (S < 1 || S > 32 || I < 1 || I > 16 || within < 0)
+    if (S < 1 || S > 32 || I < 1 || I > 32 || within < 0)
         return (int)cudaErrorInvalidValue;
     const int per_warp = warp_smem(S, I);
     int warps = kSmemDefault / per_warp;
@@ -483,15 +490,16 @@ extern "C" int dense_batch_launch(const void* plan, void* active, void* first,
                                   void* anchor, void* n_emit, int K, int N,
                                   void* stream) {
     const Plan* p = (const Plan*)plan;
-    if (K < 1 || N < K || p->S < 1 || p->S > 32 || p->I < 1 || p->I > 16)
+    if (K < 1 || N < K || p->S < 1 || p->S > 32 || p->I < 1 || p->I > 32)
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     cudaError_t err = cudaMemsetAsync(n_emit, 0, sizeof(int32_t), st);
     if (err != cudaSuccess) return (int)err;
     const int SI = p->S * p->I;
     const int vec_rows = SI % 4 == 0 && (uintptr_t)first % 16 == 0;
-    const int vec_act = (p->I == 4 || p->I == 8 || p->I == 16) &&
-                        (uintptr_t)active % p->I == 0;
+    const int vec_act = (p->I == 4 || p->I == 8 || p->I == 16 ||
+                         p->I == 32) &&
+                        (uintptr_t)active % (p->I < 16 ? p->I : 16) == 0;
     const int vec_ok = (p->S == 2 || p->S == 4 || p->S == 8 || p->S == 16 ||
                         p->S == 32) &&
                        (uintptr_t)ok % (p->S < 16 ? p->S : 16) == 0;

@@ -49,7 +49,8 @@ import torch
 from siddhi_tpu_torch.kernels import build
 
 MAX_NODES = 32
-MAX_INSTANCES = 16
+# a node's instance lanes are one uint32 bitmask in the kernel
+MAX_INSTANCES = 32
 
 
 def step_rows_plain(active, first, ok, ts, within: Optional[int]):

@@ -1,7 +1,7 @@
 """Fused hot-key scan: the max-plus and counting chains in one pass.
 
 Port of the JAX package's ``kernels/scan_chain.py``.  For each hot-key
-slot ``h`` the kernel walks that slot's ``n`` events in order, carrying
+slot ``h`` the scan walks that slot's ``n`` events in order, carrying
 the ``[S]`` youngest-start vector ``v`` (max-plus) and the ``[S]``
 pending-chain count vector ``c``.  Event ``e`` emits ``c[S-1]`` copies
 when its final-node filter ``F[e, S]`` holds and lane ``S-1`` is live
@@ -13,21 +13,31 @@ Two pieces:
 - ``csrc/scan_chain.cu``: the CUDA kernel, launched by ``fused_scan``
   for CUDA tensors.  It replaces the Pallas kernel
   ``siddhi_tpu/kernels/scan_chain.py`` (``_build`` via ``fused_scan``).
-  One warp per slot, lane ``i`` holding ``v[i]`` and ``c[i]`` (S <= 32).
-  Bound on the H100: the serial chain, not the bytes.  At H=8, n=2048,
-  S=2 the kernel moves 0.33 MB (0.1 us at 3.35 TB/s), but each slot's
-  2048 events are a dependent chain: per event a warp shuffle and about
-  five dependent f32 operations, each waiting at least 4 cycles for the
-  one before, so n x 24 cycles, about 25 us at 1.98 GHz.  ``chip_smoke.py``
-  works both terms out from the shapes and the card's clock.
-  ``fused_scan.launches`` counts its launches.
+  Lanes in order, events in parallel: one block a slot, each thread
+  ``kE = 16`` consecutive events of a tile of up to 2,048; lane ``i``
+  given lane ``i-1``'s pre-update values is a segmented max-scan and a
+  segmented sum-scan, done as one block-wide scan a lane, each lane's
+  value carried from tile to tile.  Bound on the H100: the bytes (F,
+  ts and emit once: 0.33 MB at H=8, n=2048, S=2; 147 MB, 44 us at
+  3.35 TB/s, at H=256, n=4096, S=32).  ``fused_scan.launches`` counts
+  its launches.
 - ``fused_scan_plain``: a torch loop over ``n``, vectorized over
   ``[H, S]``, transcribing the Pallas body.  ``fused_scan`` uses it for
   CPU tensors only; ``chip_smoke.py`` holds the kernel against it.
 
-Both compute what the Pallas body computes, in the same order of f32
-operations, so they agree bit for bit on every lane, dead lanes
-included.  Counts are integer-valued f32 adds, exact below 2^24.
+The plain version does the Pallas body's float32 operations in the same
+order, so it agrees with the Pallas kernel bit for bit on every lane,
+dead lanes included.  The kernel evaluates the same recurrence in tree
+order and agrees with both bit for bit on the engine's domain: ``F`` in
+{0, 1}; ``ts`` finite, no -0.0, below 2^24; live ``v`` finite, no
+-0.0, below 2^24 in magnitude; dead ``v`` finite and <= NEG/2; ``c``
+integer-valued in [0, 2^24), with every count the walk reaches below
+2^24.  The engine stays there: each step floors at NEG and ``rebase``
+keeps relative times small.  There max is an exact selection, ``NEG +
+x == NEG`` for every live ``x``, and counts are exact integer sums in
+any order.  NaN lies outside: the sequential body keeps a NaN on its
+lane for good (``NEG + NaN``), the kernel drops it at the lane's next
+reset (``F[e, i+1]``); ``tests/test_torch_cuda.py`` pins what it does.
 """
 
 from __future__ import annotations
@@ -118,6 +128,10 @@ def fused_scan(F, ts_rel, v, c):
         raise ValueError(f"fused_scan: unsupported device {dev}")
     H, n, Sp1 = F.shape
     S = Sp1 - 1
+    # the kernel reads F and ts as 16-byte vectors; a fresh allocation is
+    # aligned, a view into one may not be
+    F, ts_rel = (t if t.data_ptr() % 16 == 0 else t.clone()
+                 for t in (F, ts_rel))
     v_out = torch.empty_like(v)
     c_out = torch.empty_like(c)
     emit = torch.empty((H, n), dtype=torch.float32, device=dev)

@@ -46,7 +46,11 @@ from siddhi_tpu_torch.core.exceptions import (
 from siddhi_tpu_torch.core.ingest_stage import staged_put
 from siddhi_tpu_torch.kernels import probe
 from siddhi_tpu_torch.kernels.dense_batch import MAX_INSTANCES, batch_step
-from siddhi_tpu_torch.kernels.dense_step import build_packed_nfa, candidate_env
+from siddhi_tpu_torch.kernels.dense_step import (
+    MAX_INSTANCES as PACKED_MAX_INSTANCES,
+    build_packed_nfa,
+    candidate_env,
+)
 from siddhi_tpu_torch.kernels.plane_pack import unpack_state
 from siddhi_tpu_torch.ops.nfa import NFABuilder, Node, PatternScope
 from siddhi_tpu_torch.planner.expr import CompiledExpression, ExpressionCompiler
@@ -263,7 +267,7 @@ class DensePatternEngine:
         if self.I > MAX_INSTANCES:
             raise SiddhiAppCreationError(
                 f"the port's batch step holds at most {MAX_INSTANCES} "
-                f"instance lanes per node, got {self.I}")
+                f"instance lanes per node, got instances={self.I}")
         # any `every` other than the standing virgin at node 0 re-arms a
         # group, which the packed step does not model
         self.group_every = any(
@@ -369,7 +373,14 @@ class DensePatternEngine:
         """The packed step for one collision round of one source stream
         (see ``kernels/dense_step.build_packed_nfa`` for its signature):
         the interface-level twin of the JAX package's step.  Off the main
-        path: ``process_deferred`` runs ``batch_step``."""
+        path: ``process_deferred`` runs ``batch_step``.  It holds at most
+        ``dense_step.MAX_INSTANCES`` (16) instance lanes per node."""
+        if self.I > PACKED_MAX_INSTANCES:
+            raise ValueError(
+                f"make_step: the packed step holds at most "
+                f"{PACKED_MAX_INSTANCES} instance lanes per node, this engine "
+                f"has {self.I}; process() runs the batch step, which holds "
+                f"{MAX_INSTANCES}")
         fn = self._step_cache.get(stream_key)
         if fn is None:
             fn = build_packed_nfa(self, stream_key)

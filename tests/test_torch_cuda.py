@@ -8,8 +8,9 @@ machine with a card and no JAX they run without the repo's conftest:
 
 Each kernel is held bit for bit against its plain torch version on the
 same inputs (the packed and batch steps are pure int32 arithmetic, the
-batch step's in-place state included; the fused scan
-does the same float32 operations in the same order).  The bank's
+batch step's in-place state included, up to 32 instance lanes; the
+fused scan's tree-order evaluation is exact on the engine's domain, and
+a test pins what it does with NaN, which lies outside it).  The bank's
 segmented reduce and its in-place accumulate are bit-exact on int32,
 min/max and integer-valued lanes; float32 sums are held per row to
 ``n * 2^-24 * sum|v|`` (plus one rounding of the accumulate's final add
@@ -151,7 +152,9 @@ def batch_step_inputs(S, I, N, P, within, seed, long_seg=0):
     (16, 4, 65536, 65536, 600_000, 0),   # the 1 M cell's shape, cut
     (2, 8, 8192, 4096, None, 600),       # a routed batch: one 600-event key
     (2, 8, 1, 16, None, 0),              # N = 1
-    (32, 16, 2048, 512, 3000, 40),       # the shared-memory ceiling
+    (32, 16, 2048, 512, 3000, 40),       # 16 lanes at 32 nodes
+    (32, 32, 2048, 512, 3000, 40),       # the shared-memory ceiling
+    (4, 32, 8192, 1024, None, 300),      # 32 lanes, a long segment
     (3, 7, 3000, 300, 50, 100),          # ragged lanes, short horizon
 ])
 def test_batch_step_kernel_matches_plain(cuda_device, S, I, N, P, within,
@@ -200,9 +203,11 @@ def scan_inputs(H, n, S, seed, device):
 
 
 @pytest.mark.parametrize("H,n,S", [(1, 16, 2), (3, 16, 5), (8, 2048, 2),
-                                   (5, 64, 32), (256, 128, 7)])
+                                   (5, 64, 32), (256, 128, 7),
+                                   (4, 8192, 3), (256, 4096, 32)])
 def test_scan_chain_kernel_matches_plain(cuda_device, H, n, S):
-    """Bit for bit on every lane, dead lanes included."""
+    """Bit for bit on every lane, dead lanes included; n = 8,192 and
+    4,096 take more than one 2,048-event tile."""
     ins = scan_inputs(H, n, S, seed=H * n + S, device=cuda_device)
     before = scan_chain.fused_scan.launches
     got = scan_chain.fused_scan(*ins)
@@ -212,6 +217,100 @@ def test_scan_chain_kernel_matches_plain(cuda_device, H, n, S):
     for name, g, w in zip(("v", "c", "emit"), got, want):
         assert g.dtype == w.dtype == torch.float32 and g.shape == w.shape
         assert torch.equal(g.view(torch.int32), w.view(torch.int32)), name
+
+
+def test_scan_chain_kernel_floors_dead_starts(cuda_device):
+    """Every filter set moves each lane's start one lane up an event, so
+    dead starts below NEG (-3e38) would reach the output unfloored; the
+    kernel floors them at NEG as the plain version does."""
+    H, n, S = 2, 16, 32
+    ins = [torch.ones((H, n, S + 1)),
+           torch.arange(1, H * n + 1, dtype=torch.float32).reshape(H, n),
+           torch.full((H, S), -3.0e38),
+           torch.arange(H * S, dtype=torch.float32).reshape(H, S)]
+    got = scan_chain.fused_scan(*(t.to(cuda_device) for t in ins))
+    want = scan_chain.fused_scan_plain(*ins)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
+    assert (want[0][:, 18:] == np.float32(scan_chain.NEG)).all()
+
+
+def test_scan_chain_kernel_takes_unaligned_views(cuda_device):
+    """The kernel reads F and ts as 16-byte vectors: views that start
+    one float into their storage give the same bits as fresh tensors."""
+    ins = scan_inputs(3, 64, 5, seed=5, device=cuda_device)
+    views = []
+    for t in ins[:2]:
+        buf = torch.empty(t.numel() + 1, device=cuda_device)
+        views.append(buf[1:].view(t.shape).copy_(t))
+    assert all(t.data_ptr() % 16 for t in views)
+    got = scan_chain.fused_scan(*views, *ins[2:])
+    want = scan_chain.fused_scan(*ins)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def segmented_walk(F, ts, v, c):
+    """The kernel's recurrence walked event by event: lane ``i`` a
+    segmented max-scan and sum-scan of lane ``i-1``'s pre-update values
+    (``kernels/scan_chain.py``), ``v`` floored at NEG on load, max
+    propagating NaN."""
+    H, n, Sp1 = F.shape
+    S = Sp1 - 1
+    neg = torch.tensor(scan_chain.NEG, dtype=torch.float32)
+    v, c = torch.maximum(v, neg), c.clone()
+    emit = torch.empty((H, n), dtype=torch.float32)
+    for e in range(n):
+        f = F[:, e] > 0.5
+        emit[:, e] = torch.where(
+            f[:, S] & (v[:, S - 1] > scan_chain.NEG / 2), c[:, S - 1], 0.0)
+        src = torch.cat([v[:, :1], ts[:, e:e + 1], v[:, 1:S - 1]], dim=1)
+        q = torch.cat([c[:, :1], c[:, :S - 1]], dim=1)
+        fi, keep = f[:, :S], ~f[:, 1:]
+        nv = torch.maximum(torch.where(fi, src, neg),
+                           torch.where(keep, v, neg))
+        nc = torch.where(fi, q, 0.0) + torch.where(keep, c, 0.0)
+        nv[:, 0], nc[:, 0] = 0.0, 1.0
+        v, c = nv, nc
+    return v, c, emit
+
+
+def test_scan_chain_kernel_on_nan(cuda_device):
+    """NaN lies outside the kernel's domain; this pins what it does.  A
+    NaN timestamp (slot 0, lane 1) and a NaN start (slot 1, lane 2): the
+    kernel computes ``segmented_walk`` bit for bit, NaN positions
+    included, so a NaN leaves a lane at its next reset.  The plain
+    version (the Pallas body) keeps ``NEG + NaN`` on a lane for good and
+    passes it up the chain: its NaNs are a superset of the kernel's, and
+    off them the two agree; counts agree everywhere; the kernel emits
+    wherever the plain version does, and also where the plain version's
+    last lane is stuck at NaN.  Slots 2 and 3 hold no NaN and agree bit
+    for bit."""
+    H, n, S = 4, 4096, 4
+    F, ts, v, c = scan_inputs(H, n, S, seed=77, device="cpu")
+    rng = np.random.default_rng(78)
+    F[:2] = torch.from_numpy((rng.random((2, n, S + 1)) < 0.55).astype(
+        np.float32))
+    F[0, 5, 1] = 1.0
+    ts[0, 5] = float("nan")
+    v[1, 2] = float("nan")
+    got = [t.cpu() for t in scan_chain.fused_scan(
+        *(t.to(cuda_device) for t in (F, ts, v, c)))]
+    for g, w in zip(got, segmented_walk(F, ts, v, c)):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        keep = ~torch.isnan(w)
+        assert torch.equal(g[keep].view(torch.int32), w[keep].view(torch.int32))
+    (gv, gc, ge), (pv, pc, pe) = got, scan_chain.fused_scan_plain(F, ts, v, c)
+    bits = lambda t: t.view(torch.int32)
+    assert torch.equal(bits(gc), bits(pc))
+    assert torch.isnan(pv[:2]).any() and not torch.isnan(gv).any()
+    real = ~torch.isnan(pv)
+    assert torch.equal(bits(gv[real]), bits(pv[real]))
+    fired = pe > 0
+    assert torch.equal(ge[fired], pe[fired]) and bool((ge >= pe).all())
+    assert bool((ge[:2] > pe[:2]).any())
+    assert torch.equal(bits(ge[2:]), bits(pe[2:]))
+    assert torch.equal(bits(gv[2:]), bits(pv[2:]))
 
 
 def test_hot_key_app_on_card_matches_cpu(cuda_device):

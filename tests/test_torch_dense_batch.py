@@ -25,6 +25,7 @@ import torch
 
 from siddhi_tpu.ops.dense_nfa import compile_pattern as jax_compile
 from siddhi_tpu_torch import compile_pattern, state_to_numpy
+from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
 from siddhi_tpu_torch.kernels import build, dense_batch, dense_step
 from siddhi_tpu_torch.kernels.plane_pack import pack_bits, unpack_bits
 from siddhi_tpu_torch.ops import dense_nfa
@@ -131,6 +132,13 @@ CASES = {
     # the widest lane count at 16 nodes
     "sixteen_by_sixteen": (chain_app(16), 16, 16,
                            batches(5, 3, 256, P=16, hot=(7, 0.4))),
+    # 32 lanes: node 1 gathers more than 16 pending instances on the hot
+    # partitions (e2 fires on 2.5% of events) and overflows past 32
+    "thirty_two_lanes": (
+        DEFINE + "@info(name='q') from every e1=S[v > 1.0] -> "
+        "e2=S[v > 19.5] -> e3=S[u > 10.0] within 10 min "
+        "select e3.v as v, e3.k as k insert into Alerts;", 8, 32,
+        batches(8, 3, 200, P=8, hot=(6, 0.6))),
     # nodes of one stream are off-stream for the other's batches
     "two_streams": (TWO_STREAMS, 12, 4, two_stream_sends()),
     # a LONG compare on the hi/lo lanes, values far outside int32
@@ -157,6 +165,10 @@ def test_engine_matches_jax(case):
         assert host["overflow"].sum() > 0
     if case == "re_anchor":
         assert te.base_ts > 2**31
+    if case == "thirty_two_lanes":
+        assert te.I == 32
+        assert host["active"][:, 1].sum(axis=1).max() > 16
+        assert host["overflow"].sum() > 0
 
 
 def test_within_expiry_changes_the_matches():
@@ -266,7 +278,8 @@ def rounds_of_packed_step(state, part, ok, ts, I, within):
     (2, 8, 300, 40, None),       # the skew-routed shape, cut
     (16, 4, 256, 64, 600_000),   # the 1 M cell's chain, cut
     (3, 7, 200, 16, 50),         # ragged lanes, short horizon
-    (32, 16, 64, 8, 3000),       # the widest legal shape
+    (32, 16, 64, 8, 3000),       # 16 lanes at 32 nodes
+    (4, 32, 200, 16, 3000),      # 32 lanes: one uint32 mask a node
     (1, 1, 40, 4, None),         # one node, one lane
 ])
 def test_plain_equals_rounds_of_packed_step(S, I, N, P, within):
@@ -325,9 +338,34 @@ def test_batch_step_checks_its_inputs():
     s33 = small_inputs(S=33, I=1)
     with pytest.raises(ValueError, match="out of range"):
         dense_batch.batch_step(*s33, n_inst=1, within=None)
-    i17 = small_inputs(S=2, I=17)
+    i33 = small_inputs(S=2, I=33)
     with pytest.raises(ValueError, match="out of range"):
-        dense_batch.batch_step(*i17, n_inst=17, within=None)
+        dense_batch.batch_step(*i33, n_inst=33, within=None)
+
+
+def test_more_than_32_instances_refused():
+    """``instances`` above 32 is refused with the batch step's limit in the
+    message; 32 compiles."""
+    app = chain_app(3)
+    assert compile_pattern(app, "q", n_partitions=4, n_instances=32,
+                           device="cpu").I == 32
+    with pytest.raises(SiddhiAppCreationError,
+                       match="at most 32 instance lanes per node, got "
+                             "instances=33"):
+        compile_pattern(app, "q", n_partitions=4, n_instances=33,
+                        device="cpu")
+
+
+def test_packed_step_refuses_more_than_16_instances():
+    """The packed step (off the main path) keeps its 16 lanes: an engine
+    with more gets a clear error from ``make_step``, and ``process``
+    never reaches it."""
+    te = compile_pattern(chain_app(3), "q", n_partitions=4, n_instances=17,
+                         device="cpu")
+    with pytest.raises(ValueError, match="packed step holds at most 16"):
+        te.make_step("S")
+    assert compile_pattern(chain_app(3), "q", n_partitions=4, n_instances=16,
+                           device="cpu").make_step("S") is not None
 
 
 def test_plan_matches_the_c_struct():

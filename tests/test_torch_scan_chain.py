@@ -13,6 +13,14 @@ Against the reference's other step, the two-pass associative scan
 (``use_kernel = False``), the contract is the reference's own: emissions
 and live lanes exact, dead lanes at or below ``NEG/2`` in both.
 
+A numpy model of the CUDA kernel's algorithm (``csrc/scan_chain.cu``:
+lanes in order, each lane's per-thread elements combined by the
+segmented (max, sum) operator in the kernel's two-level shuffle-scan
+order, tiles carrying each lane's value) must equal ``fused_scan_plain``
+bit for bit on hypothesis-drawn inputs of the engine's domain, with
+small tiles and warps so several tiles and warps take part.  That proves
+the kernel's algebra here; the card tests hold the kernel itself.
+
 The host-side pieces (dense-row handoff converters, the space-saving
 sketch, the scan engine's eligibility reasons) are held exact against
 the reference's.
@@ -31,6 +39,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import HealthCheck, assume, given, settings
+from hypothesis import strategies as st
 from jax._src.pallas import primitives as pallas_primitives
 
 from siddhi_tpu.compiler import SiddhiCompiler as JaxCompiler
@@ -139,6 +149,197 @@ def test_fused_scan_rejects_bad_inputs(bad):
         F = F.to("meta")
     with pytest.raises(ValueError):
         scan_chain.fused_scan(F, ts, v, c)
+
+
+# -- the kernel's algorithm, modelled in numpy -------------------------------
+
+
+def seg_combine(x, y):
+    """Element ``x`` then element ``y``; an element ``(k, a, c)`` is the
+    step ``v -> max(a, k ? v : NEG)``, ``c -> c_e + (k ? c : 0)``."""
+    (xk, xa, xc), (yk, ya, yc) = x, y
+    return (xk & yk, np.where(yk, np.maximum(xa, ya), ya),
+            np.where(yk, xc + yc, yc))
+
+
+def seg_identity(shape):
+    return (np.ones(shape, dtype=bool), np.full(shape, NEG32),
+            np.zeros(shape, dtype=np.float32))
+
+
+def warp_inclusive(s, W):
+    """Hillis-Steele inclusive scan along the last axis (one warp of
+    ``W`` lanes), as the kernel's ``__shfl_up_sync`` loop."""
+    lane = np.arange(W)
+    d = 1
+    while d < W:
+        o = tuple(np.concatenate([x[..., :d], x[..., :-d]], axis=-1)
+                  for x in s)
+        c = seg_combine(o, s)
+        s = tuple(np.where(lane >= d, cx, x) for cx, x in zip(c, s))
+        d *= 2
+    return s
+
+
+def block_exclusive(agg, W):
+    """Exclusive scan over the block's threads (last axis, a multiple of
+    ``W``): within each warp, then each warp's prefix from the scan of
+    the warp totals, as the kernel does it."""
+    H, T = agg[0].shape
+    nw = T // W
+    inc = warp_inclusive(tuple(x.reshape(H, nw, W) for x in agg), W)
+    ident = seg_identity((H, nw, 1))
+    pre = tuple(np.concatenate([i, x[..., :-1]], axis=-1)
+                for i, x in zip(ident, inc))
+    tot = seg_identity((H, W))
+    for t, x in zip(tot, inc):
+        t[:, :nw] = x[..., -1]
+    tot = warp_inclusive(tot, W)
+    wpre = tuple(np.concatenate([i, t[:, :nw - 1]], axis=1)[..., None]
+                 for i, t in zip(seg_identity((H, 1)), tot))
+    pre = seg_combine(wpre, pre)
+    return tuple(x.reshape(H, T) for x in pre)
+
+
+def kernel_model(F, ts, v, c, E=16, threads=128, W=32):
+    """The algorithm of ``csrc/scan_chain.cu`` in numpy float32: tiles of
+    ``E * T`` events (``T`` threads, ``W`` a warp), lanes in order, each
+    lane one block-wide segmented scan, each lane's value carried from
+    tile to tile; ``v`` floored at NEG on load."""
+    H, n, Sp1 = F.shape
+    S = Sp1 - 1
+    f32, neg = np.float32, NEG32
+    T = min(max(n // E, W), threads)
+    tile = min(n, E * T)
+    active = tile // E
+    fb = F > 0.5
+    car_v = np.maximum(v, neg).astype(f32)
+    car_c = c.copy()
+    emit = np.zeros((H, n), dtype=f32)
+    for e0 in range(0, n, tile):
+        f = fb[:, e0:e0 + tile].reshape(H, active, E, Sp1)
+        pv = ts[:, e0:e0 + tile].reshape(H, active, E).copy()
+        pc = np.ones((H, active, E), dtype=f32)
+        if e0 == 0:
+            pc[:, 0, 0] = c[:, 0]
+        for i in range(1, S):
+            keep = ~f[..., i + 1]
+            a = np.where(f[..., i], pv, neg)
+            al = np.where(f[..., i], pc, f32(0.0))
+            agg = seg_identity((H, T))
+            part = seg_identity((H, active))
+            for k in range(E):
+                part = seg_combine(part, (keep[..., k], a[..., k], al[..., k]))
+            for x, p in zip(agg, part):
+                x[:, :active] = p
+            pk, pa, pcs = (x[:, :active] for x in block_exclusive(agg, W))
+            x = np.maximum(pa, np.where(pk, car_v[:, i:i + 1], neg))
+            y = pcs + np.where(pk, car_c[:, i:i + 1], f32(0.0))
+            for k in range(E):
+                pv[..., k], pc[..., k] = x, y
+                x = np.maximum(a[..., k], np.where(keep[..., k], x, neg))
+                y = al[..., k] + np.where(keep[..., k], y, f32(0.0))
+            car_v[:, i], car_c[:, i] = x[:, -1], y[:, -1]
+        emit[:, e0:e0 + tile] = np.where(
+            f[..., S] & (pv > NEG32 / 2), pc, f32(0.0)).reshape(H, tile)
+    car_v[:, 0], car_c[:, 0] = 0.0, 1.0
+    return [car_v, car_c, emit]
+
+
+def run_plain(F, ts, v, c):
+    t = lambda a: torch.from_numpy(np.array(a))
+    return [a.numpy() for a in scan_chain.fused_scan_plain(t(F), t(ts), t(v),
+                                                           t(c))]
+
+
+def max_count(F, c):
+    """The largest count the sequential walk reaches (float64)."""
+    S = F.shape[2] - 1
+    cc = c.astype(np.float64)
+    top = cc.max()
+    for e in range(F.shape[1]):
+        f = F[:, e] > 0.5
+        cs = np.concatenate([np.ones((len(cc), 1)), cc[:, :S - 1]], axis=1)
+        cc = np.where(f[:, :S], cs, 0.0) + np.where(f[:, 1:], 0.0, cc)
+        cc[:, 0] = 1.0
+        top = max(top, cc.max())
+    return top
+
+
+DEAD = np.array([NEG, NEG / 2, 1.5 * NEG, -3.0e38], dtype=np.float32)
+
+
+def domain_inputs(H, n, S, seed, density, v_mode):
+    """Seeded inputs of the engine's domain: 0/1 filter rows at
+    ``density`` with all-zero padding past each slot's real events, ts
+    and live starts below 2^24, dead starts at or below NEG/2 (NEG, NEG/2,
+    1.5 NEG, -3e38), integer counts."""
+    rng = np.random.default_rng(seed)
+    F = (rng.random((H, n, S + 1)) < density).astype(np.float32)
+    for h, k in enumerate(rng.integers(0, n + 1, H)):
+        F[h, k:] = 0.0
+    ts = rng.integers(-1000, 2**24, (H, n)).astype(np.float32)
+    live_v = rng.integers(-(2**24) + 1, 2**24, (H, S)).astype(np.float32)
+    dead_v = rng.choice(DEAD, (H, S))
+    live = {"mix": rng.random((H, S)) < 0.5, "all_dead": np.zeros((H, S), bool),
+            "all_live": np.ones((H, S), bool),
+            "zero": np.ones((H, S), bool)}[v_mode]
+    if v_mode == "zero":
+        live_v[:] = 0.0  # live starts at +0.0
+    v = np.where(live, live_v, dead_v).astype(np.float32)
+    c = rng.integers(0, 40, (H, S)).astype(np.float32)
+    return F, ts, v, c
+
+
+@settings(max_examples=60, deadline=None, derandomize=True, database=None,
+          suppress_health_check=[HealthCheck.too_slow])
+@given(S=st.integers(2, 32), n=st.sampled_from([16, 32, 64, 128]),
+       H=st.integers(1, 3), seed=st.integers(0, 2**32 - 1),
+       density=st.sampled_from([0.15, 0.55, 0.9]),
+       v_mode=st.sampled_from(["mix", "all_dead", "all_live", "zero"]),
+       E=st.sampled_from([1, 2, 4, 8, 16]), W=st.sampled_from([2, 4, 8]),
+       warps=st.sampled_from([1, 2, 4]))
+def test_kernel_model_bit_exact_against_plain(S, n, H, seed, density, v_mode,
+                                              E, W, warps):
+    """The kernel's algorithm, with tiles of ``E * W * warps`` events at
+    most (several tiles where that is below ``n``), bit for bit against
+    the plain version on every lane, dead lanes included."""
+    assume(warps <= W)  # the warp totals fit one warp, as in the kernel
+    F, ts, v, c = domain_inputs(H, n, S, seed, density, v_mode)
+    assume(max_count(F, c) < 2**24)
+    got = kernel_model(F, ts, v, c, E=E, threads=W * warps, W=W)
+    assert_bits(got, run_plain(F, ts, v, c))
+
+
+@pytest.mark.parametrize("H,n,S,seed", [
+    (3, 4096, 3, 1),   # two tiles at the kernel's own sizes
+    (8, 2048, 2, 2),   # the routed path's shape: one tile
+    (2, 16, 32, 3),    # the widest chain on the smallest n
+])
+def test_kernel_model_at_kernel_sizes(H, n, S, seed):
+    """The model at the kernel's constants (16 events a thread, 128
+    threads, 32-lane warps) against the plain version, on the inputs
+    the card tests use."""
+    F, ts, v, c = scan_inputs(H, n, S, seed)
+    want = run_plain(F, ts, v, c)
+    assert_bits(kernel_model(F, ts, v, c), want)
+    assert want[2].any()
+
+
+def test_kernel_model_floors_dead_starts_on_load():
+    """Every filter set: each lane takes the one below it, one lane an
+    event, so lane ``i``'s start after 16 events is lane ``i-16``'s
+    start before them.  Dead starts below NEG (-3e38) must come out at
+    NEG, as the plain version's every step floors them: the walk floors
+    them on load."""
+    H, n, S = 2, 16, 32
+    F = np.ones((H, n, S + 1), dtype=np.float32)
+    ts = np.arange(1, H * n + 1, dtype=np.float32).reshape(H, n)
+    v = np.full((H, S), -3.0e38, dtype=np.float32)
+    c = np.arange(H * S, dtype=np.float32).reshape(H, S)
+    want = run_plain(F, ts, v, c)
+    assert_bits(kernel_model(F, ts, v, c), want)
+    assert (want[0][:, 18:] == NEG32).all()
 
 
 # -- the scan engine's step against both reference steps ---------------------
