@@ -5,9 +5,9 @@
 
 Builds the port's CUDA kernels from ``siddhi_tpu_torch/kernels/csrc`` and
 drives the dense-NFA pattern path through ``compile_pattern`` and
-``process`` at full size, the skew-routed pattern path and the
-incremental-aggregation path through ``SiddhiManager``.  Phases, each
-printing one JSON line:
+``process`` at full size (the batch step and the general step), the
+skew-routed pattern path and the incremental-aggregation path through
+``SiddhiManager``.  Phases, each printing one JSON line:
 
 1. build: seconds to build every kernel (one ``nvcc`` per source, all
    started together), and the card's name and power limit.
@@ -101,7 +101,26 @@ printing one JSON line:
    a batch's host bucketing, bank scatter (H2D and launches) and flush
    (D2H and merge), of the pulls, and the device busy share under
    ``torch.profiler`` over one window.
-10. kernels: one line per ported kernel (launches on the main paths,
+10. general step: bench.py's headline ``flat_app`` (16 states whose
+   filters and select read the capture ``e1.v``) through
+   ``compile_pattern(..., n_partitions=1_000_000, n_instances=4)``,
+   which routes it to the general step (torch ops, no hand-written
+   kernel), from a seeded mid-chain state with registers, over 2
+   warm-up and 10 timed batches of 131,072 stride-walked events as in
+   ``bench.py:191-205``; every batch's matches and output bits and the
+   whole final state (``active``, ``first_ts``, ``counts``, ``regs``,
+   ``overflow``) bit-exact against the same batches with
+   ``device="cpu"``; every batch must match and registers must move.
+   It reports events/s, the per-batch split (``general_breakdown``:
+   host preparation, step, count, fetch, materialize, device busy share
+   and largest device items) and the device kernels and copies of one
+   general step under ``torch.profiler``.  Then three small
+   ``general_check`` lines, each card against CPU with its card time:
+   an unpartitioned capturing pattern through ``SiddhiManager`` (one
+   partition, a collision round an event), an integer id-join
+   (``b=S[k == a.k]``, the integer registers) and a capture-free chain
+   at ``instances='40'`` (past the batch step's 32 lanes).
+11. kernels: one line per ported kernel (launches on the main paths,
    largest difference from its plain version, ``ms``, ``host_us``,
    ``device_us``, plain and library times, bound); the bank kernel's at
    the entry the aggregation path uses, ``accumulate_``, with the delta
@@ -138,6 +157,10 @@ BATCH = 1 << 17
 N_INSTANCES = 4
 WITHIN_MS = 600_000
 E2E_BATCHES = 10
+# the general step's headline cell: bench.py's flat_app (16 states,
+# v > e1.v captures) at 1 M partitions, 2 warm-up and 10 timed batches
+GEN_WARMUP = 2
+GEN_STEPS = 10
 # the skew-routed path's dense half (bench_hot_key's two-node chain at
 # instances='8', no within): one full and four ragged collision rounds
 ROUTED_STEP = (2, 8)
@@ -213,6 +236,18 @@ def kernel_eligible_app() -> str:
     return ("define stream Txn (key long, v double); "
             f"@info(name='bench') from {' -> '.join(states)} within 10 min "
             f"select e{N_STATES}.v as v insert into Alerts;")
+
+
+def flat_app(n_states: int = N_STATES) -> str:
+    """bench.py's flat_app (``pattern_query``): the headline chain, whose
+    filters and select read the capture ``e1.v``."""
+    states = ["every e1=Txn[v > 0.0]"]
+    for i in range(2, n_states + 1):
+        states.append(f"e{i}=Txn[v > {float(i - 1)} and v > e1.v]")
+    return ("define stream Txn (key long, v double); "
+            f"@info(name='bench') from {' -> '.join(states)} within 10 min "
+            f"select e1.v as v1, e{n_states}.v as v{n_states} "
+            "insert into Alerts;")
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 3) -> float:
@@ -442,7 +477,9 @@ def hold_batch_step(torch, dense_batch, case, label, sm_clock_hz,
 
 def mid_chain_state(engine, seed):
     """Seeded mid-chain state: ~30% of (partition, node, lane) active,
-    anchors spread over the last ``within`` (a few expire per batch)."""
+    anchors spread over the last ``within`` (a few expire per batch),
+    and, where the engine has registers, captures ~ U(0, 20) in every
+    lane (free lanes keep stale values, as in the reference)."""
     rng = np.random.default_rng(seed)
     state = engine.init_state_host()
     shape = state["active"].shape
@@ -451,6 +488,9 @@ def mid_chain_state(engine, seed):
     first = np.where(active, rng.integers(1, WITHIN_MS + 1, shape), 0)
     state["active"] = active
     state["first_ts"] = first.astype(np.int32)
+    if engine.alloc.n:
+        state["regs"] = rng.uniform(0.0, 20.0, state["regs"].shape).astype(
+            np.float32)
     # base so the first batch (ts = 1000) sits WITHIN_MS after rel 0
     return state, 1000 - WITHIN_MS
 
@@ -463,23 +503,26 @@ def e2e_batch(rng, i):
     return part, {"key": part.astype(np.int64), "v": v}, ts
 
 
-def batch_breakdown(torch, eng, state, rng, first_batch, n=4):
+def batch_breakdown(torch, eng, state, rng, first_batch, n=4,
+                    phase="breakdown"):
     """Where one batch's time goes, on batches after the checked ones:
     host-clock ms of each stage of ``process`` (each ended by a
     synchronise), then one more pass under ``torch.profiler`` for the
     device's busy time and its largest kernels.  Timing only: launch
     counts were read before, and the results are not compared."""
     from siddhi_tpu_torch.core.emit_queue import fetch_coalesced
-    from siddhi_tpu_torch.ops.dense_nfa import partition_segments
+    from siddhi_tpu_torch.ops.dense_nfa import _round_order, partition_segments
 
     stages = {"host_prep_ms": [], "step_ms": [], "count_ms": [],
               "fetch_ms": [], "materialize_ms": []}
     batches = [e2e_batch(rng, first_batch + i) for i in range(2 * n)]
+    # host share of the step stage: the batch step's sort by partition,
+    # or the general step's collision rounds; and the lane columns
+    split = (partition_segments if eng.step_kind == "batch"
+             else _round_order)
     for part, cols, ts in batches[:n]:
-        # host share of the step stage: the sort by partition and the
-        # lane columns
         t = time.perf_counter()
-        partition_segments(part)
+        split(part)
         eng.prepare_cols("Txn", cols)
         stages["host_prep_ms"].append(1e3 * (time.perf_counter() - t))
         torch.cuda.synchronize()
@@ -501,9 +544,133 @@ def batch_breakdown(torch, eng, state, rng, first_batch, n=4):
         for part, cols, ts in batches[n:]:
             state, _ev, _out = eng.process(state, "Txn", part, cols, ts)
 
-    return {"phase": "breakdown", "batches": n,
+    return {"phase": phase, "batches": n,
             **{k: sorted(v)[len(v) // 2] for k, v in stages.items()},
             **device_profile(torch, run_rest)}
+
+
+def step_device_ops(torch, eng, state, batch) -> dict:
+    """Device items of one general step under ``torch.profiler``: the
+    batch's one collision round is one ``make_general_step`` call, so
+    every kernel of it counts, and the copies beside them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    part, cols, ts = batch
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        state, pending = eng.process_deferred(state, "Txn", part, cols, ts)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
+    return {"rounds": len(pending.chunks),
+            "kernels_per_step": len(dev) - len(copies),
+            "copies_per_step": len(copies),
+            "device_us_per_step": sum(e.time_range.elapsed_us() for e in dev)}
+
+
+def card_vs_cpu(torch, compile_pattern, state_to_numpy, app, P, n_inst,
+                batches, label) -> dict:
+    """``batches`` through ``compile_pattern(app)`` on the card and on the
+    CPU: matches, output bits and the whole state must be equal.  The
+    card's host-clock seconds (synchronised) and the match count."""
+    eng = {d: compile_pattern(app, "q", n_partitions=P, n_instances=n_inst,
+                              device=d) for d in ("cuda", "cpu")}
+    state = {d: e.init_state() for d, e in eng.items()}
+    res = {d: [] for d in eng}
+    secs = 0.0
+    for part, cols, ts in batches:
+        for d, e in eng.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state[d], ev, out = e.process(state[d], "S", part, cols, ts)
+            torch.cuda.synchronize()
+            if d == "cuda":
+                secs += time.perf_counter() - t
+            res[d].append((ev, out))
+    n = 0
+    for (cev, cout), (pev, pout) in zip(res["cuda"], res["cpu"]):
+        if not (np.array_equal(cev, pev) and out_bits(cout) == out_bits(pout)):
+            raise AssertionError(f"{label}: matches differ between the card "
+                                 "and the CPU run")
+        n += len(pev)
+    card, _ = state_to_numpy(eng["cuda"], state["cuda"])
+    cpu, _ = state_to_numpy(eng["cpu"], state["cpu"])
+    bad = [k for k in cpu if not np.array_equal(card[k].view(np.uint8),
+                                                cpu[k].view(np.uint8))]
+    if bad or n == 0:
+        raise AssertionError(f"{label}: state {bad} differs between the "
+                             f"card and the CPU run, or no match ({n})")
+    return {"case": label, "step_kind": eng["cuda"].step_kind,
+            "partitions": P, "instances": n_inst,
+            "events": sum(len(b[0]) for b in batches), "matches": n,
+            "bit_exact_state": sorted(cpu), "card_seconds": secs}
+
+
+def out_bits(out):
+    """A match matrix as comparable bits (float32 words, or per-value
+    bits of an object matrix with integer lanes)."""
+    if out.dtype == object:
+        return [[np.float64(x).tobytes() if isinstance(x, float) else int(x)
+                 for x in row] for row in out.tolist()]
+    return out.view(np.int32).tolist()
+
+
+def small_batches(seed, n_batches, B, P, v_high=20.0):
+    """Seeded ``S (k long, u double, v double)`` batches: colliding
+    partitions (several collision rounds), ascending times."""
+    rng = np.random.default_rng(seed)
+    out, t = [], 1000
+    for _ in range(n_batches):
+        part = rng.integers(0, P, B).astype(np.int32)
+        cols = {"k": rng.integers(0, 3, B), "u": rng.uniform(0, 20, B),
+                "v": rng.uniform(0, v_high, B)}
+        ts = t + np.sort(rng.integers(0, 900, B))
+        t = int(ts[-1])
+        out.append((part, cols, ts))
+    return out
+
+
+def unpartitioned_card_vs_cpu(torch, SiddhiManager, n_events=300) -> dict:
+    """An unpartitioned capturing pattern (one partition, a collision
+    round an event) through ``SiddhiManager`` on the card and the CPU."""
+    app = ("@app:playback @app:execution('tpu') "
+           "define stream S (k long, u double, v double); "
+           "@info(name='q') from every a=S[v > 10.0] -> b=S[v > a.v] "
+           "within 3 sec select a.v as av, b.v as bv insert into Alerts;")
+    rng = np.random.default_rng(8)
+    sends = [([int(rng.integers(0, 3)), float(rng.uniform(0, 20)),
+               float(rng.uniform(0, 20))], 1000 + 37 * i)
+             for i in range(n_events)]
+    rows, secs, kinds = {}, {}, {}
+    for d in ("cuda", "cpu"):
+        mgr = SiddhiManager(device=d)
+        rt = mgr.create_siddhi_app_runtime(app)
+        got = []
+        rt.add_callback("Alerts", lambda evs, got=got: got.extend(
+            (e.timestamp, list(e.data)) for e in evs))
+        rt.start()
+        h = rt.get_input_handler("S")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for row, ts in sends:
+            h.send(row, timestamp=ts)
+        rt.drain()
+        torch.cuda.synchronize()
+        secs[d] = time.perf_counter() - t
+        kinds[d] = rt.lowering(step_kinds=True)
+        partitions = rt.pattern_runtimes()["q"].engine.n_partitions
+        rt.shutdown()
+        mgr.shutdown()
+        rows[d] = got
+    if rows["cuda"] != rows["cpu"] or not rows["cpu"] or partitions != 1:
+        raise AssertionError("unpartitioned capture app: card rows differ "
+                             "from the CPU run's, or none")
+    return {"case": "unpartitioned capture", "lowering": kinds["cuda"],
+            "partitions": partitions, "events": n_events,
+            "matches": len(rows["cpu"]), "card_seconds": secs["cuda"],
+            "cpu_seconds": secs["cpu"]}
 
 
 def device_profile(torch, run) -> dict:
@@ -1098,6 +1265,105 @@ def agg_breakdown(torch, rt, batches, n=AGG_STEPS):
             "pull_ms_rows": pull_ms, **prof}
 
 
+def general_phase(torch, SiddhiManager, compile_pattern, state_from_numpy,
+                  state_to_numpy, kernels, card) -> dict:
+    """Phase 10: the headline capturing chain on the general step at
+    1 M partitions, held against the CPU run, then the three small
+    ``general_check`` cases.  ``kernels``: every kernel's wrappers by
+    the kernel's name, whose counts are set to 0 here; returns this
+    path's launches by kernel."""
+    for wrappers in kernels.values():
+        for k in wrappers:
+            k.launches = 0
+    gapp = flat_app()
+    geng = compile_pattern(gapp, "bench", n_partitions=N_PARTITIONS,
+                           n_instances=N_INSTANCES, device="cuda")
+    ghost, gbase = mid_chain_state(geng, seed=13)
+    gstate = state_from_numpy(geng, ghost, gbase)
+    gstate_bytes = sum(t.numel() * t.element_size() for t in gstate.values())
+    grng = np.random.default_rng(17)
+    gbatches = [e2e_batch(grng, i) for i in range(GEN_WARMUP + GEN_STEPS)]
+    gresults, gbatch_s = [], []
+    for part, cols, ts in gbatches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        gstate, ev, out = geng.process(gstate, "Txn", part, cols, ts)
+        torch.cuda.synchronize()
+        gbatch_s.append(time.perf_counter() - t)
+        gresults.append((ev, out))
+    gen_launches = {name: sum(k.launches for k in wrappers)
+                    for name, wrappers in kernels.items()}
+    gfinal, _ = state_to_numpy(geng, gstate)
+    gbreak = batch_breakdown(torch, geng, gstate, grng, len(gbatches),
+                             phase="general_breakdown")
+    gops = step_device_ops(torch, geng, gstate,
+                           e2e_batch(grng, len(gbatches) + 8))
+    del gstate
+    gcpu = compile_pattern(gapp, "bench", n_partitions=N_PARTITIONS,
+                           n_instances=N_INSTANCES, device="cpu")
+    gcstate = state_from_numpy(gcpu, ghost, gbase)
+    g_matches = []
+    t = time.perf_counter()
+    for (part, cols, ts), (ev, out) in zip(gbatches, gresults):
+        gcstate, cev, cout = gcpu.process(gcstate, "Txn", part, cols, ts)
+        if not (np.array_equal(ev, cev) and out.dtype == cout.dtype
+                and out_bits(out) == out_bits(cout)):
+            raise AssertionError("general step: matches differ between the "
+                                 "card and the CPU run")
+        g_matches.append(len(ev))
+    gcpu_s = time.perf_counter() - t
+    gcfinal, _ = state_to_numpy(gcpu, gcstate)
+    del gcstate
+    bad = [k for k in gcfinal
+           if not np.array_equal(gfinal[k].view(np.uint8),
+                                 gcfinal[k].view(np.uint8))]
+    if bad:
+        raise AssertionError(f"general step: final {bad} differ between the "
+                             "card and the CPU run")
+    moved = int((gfinal["regs"] != ghost["regs"]).sum())
+    if min(g_matches) == 0 or not moved or geng.step_kind != "general":
+        raise AssertionError(f"general step: a batch without matches "
+                             f"({g_matches}), no register moved ({moved}) "
+                             f"or step {geng.step_kind}")
+    # the general step launches no hand-written kernel; the probe runs
+    # once for the engine built on the card
+    if (gen_launches["probe"] < 1 or gen_launches["dense_batch"]
+            or gen_launches["dense_step"] or gen_launches["scan_chain"]):
+        raise AssertionError(f"general step launches: {gen_launches}")
+    gsteady = gbatch_s[GEN_WARMUP:]
+    emit({"phase": "general_step", "app": "bench.py flat_app (16 states, "
+          "v > e1.v)", "step_kind": geng.step_kind,
+          "partitions": N_PARTITIONS, "batch": BATCH, "states": N_STATES,
+          "instances": N_INSTANCES, "registers": geng.alloc.n,
+          "warmup_batches": GEN_WARMUP, "timed_batches": GEN_STEPS,
+          "bit_exact_batches": len(gbatches),
+          "bit_exact_state": sorted(gcfinal), "state_bytes": gstate_bytes,
+          "matches_per_batch": g_matches, "registers_moved": moved,
+          "batch_ms": [1e3 * x for x in gbatch_s],
+          "events_per_s": BATCH * len(gsteady) / sum(gsteady),
+          "events_per_s_median_batch":
+              BATCH / sorted(gsteady)[len(gsteady) // 2],
+          **gops, "launches": gen_launches, "cpu_seconds": gcpu_s,
+          "card": card})
+    emit(gbreak)
+    checks = [unpartitioned_card_vs_cpu(torch, SiddhiManager)]
+    checks.append(card_vs_cpu(
+        torch, compile_pattern, state_to_numpy,
+        "define stream S (k long, u double, v double); @info(name='q') "
+        "from every a=S[v > 10.0] -> b=S[k == a.k] within 3 sec "
+        "select a.k as ak, a.v as av, b.v as bv insert into Alerts;",
+        64, N_INSTANCES, small_batches(41, 4, 400, 64), "int id-join"))
+    checks.append(card_vs_cpu(
+        torch, compile_pattern, state_to_numpy,
+        "define stream S (k long, u double, v double); @info(name='q') "
+        "from every a=S[v > 1.0] -> b=S[v > 19.0] -> c=S[u > 10.0] "
+        "within 10 min select c.v as cv insert into Alerts;",
+        8, 40, small_batches(42, 3, 400, 8), "capture-free, instances=40"))
+    for line in checks:
+        emit({"phase": "general_check", **line, "card": card})
+    return gen_launches
+
+
 def main() -> int:
     import torch
 
@@ -1579,10 +1845,20 @@ def main() -> int:
           "card": card})
     emit(agg_bd)
 
-    # 10. kernels -------------------------------------------------------------
+    # 10. general step at full size ------------------------------------------
+    gen_launches = general_phase(
+        torch, SiddhiManager, compile_pattern, state_from_numpy,
+        state_to_numpy, {"probe": [probe.add_one],
+                         "dense_batch": [dense_batch.batch_step],
+                         "dense_step": [dense_step.packed_step],
+                         "scan_chain": [scan_chain.fused_scan],
+                         "bank_scatter": bank_entries}, card)
+
+    # 11. kernels -------------------------------------------------------------
     by_path = lambda name: {"dense_1M": launches.get(name, 0),
                             "skew_routed": hk_launches.get(name, 0),
-                            "aggregation": agg_launches[name]}
+                            "aggregation": agg_launches[name],
+                            "general_1M": gen_launches[name]}
     emit({"kernels": [
         {"name": "dense_batch", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/dense_batch.cu",
@@ -1606,7 +1882,7 @@ def main() -> int:
          "source": "siddhi_tpu_torch/kernels/csrc/probe.cu",
          "replaces": "siddhi_tpu/kernels/probe.py:56",
          "launches": (launches["probe"] + hk_launches["probe"]
-                      + agg_launches["probe"]),
+                      + agg_launches["probe"] + gen_launches["probe"]),
          "launches_by_path": by_path("probe"), "max_abs_err": probe_err,
          **{k: probe_line[k] for k in KERNEL_KEYS}},
         {"name": "scan_chain", "route": "cuda",

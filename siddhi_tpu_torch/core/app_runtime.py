@@ -7,9 +7,10 @@ the defined streams, partitions lowered to the dense path, ``insert
 into`` output streams, incremental aggregations subscribed to their
 input junctions (``aggregations``, ``query()`` for on-demand FINDs over
 them), stream callbacks, input handlers, ``start``, ``shutdown`` and
-``lowering()``.  An app outside the slices raises
-``SiddhiAppCreationError`` naming the later slice: unpartitioned or
-non-pattern queries, tables, windows, triggers and functions.
+``lowering()``.  Pattern queries outside a partition run on the dense
+path at one partition.  An app outside the slices raises
+``SiddhiAppCreationError`` naming the later slice: non-pattern queries,
+tables, windows, triggers and functions.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from siddhi_tpu_torch.core.exceptions import (
 from siddhi_tpu_torch.core.partition import PartitionRuntime
 from siddhi_tpu_torch.core.stream import InputHandler, StreamJunction
 from siddhi_tpu_torch.planner.app_planner import plan_app_context
+from siddhi_tpu_torch.planner.query_planner import plan_unpartitioned_query
 from siddhi_tpu_torch.query_api import Query, SingleInputStream
 
 _LATER = " — a later slice of the port"
@@ -46,6 +48,8 @@ class SiddhiAppRuntime:
         self.junctions: Dict[str, StreamJunction] = {
             sid: StreamJunction(d) for sid, d in self.definitions.items()}
         self.partitions: Dict[str, PartitionRuntime] = {}
+        # unpartitioned queries by name (patterns on the dense path)
+        self.query_runtimes: Dict[str, object] = {}
         self._running = False
         self._on_demand_cache: Dict[str, object] = {}
         self.aggregations: Dict[str, AggregationRuntime] = {}
@@ -54,13 +58,18 @@ class SiddhiAppRuntime:
             self.aggregations[ad.id] = ar
             self.junctions[ad.input_stream.stream_id].subscribe(
                 _AggregationReceiver(ar, self.app_context))
-        for i, el in enumerate(siddhi_app.execution_elements):
+        qi = pi = 0  # the reference numbers queries and partitions apart
+        for el in siddhi_app.execution_elements:
             if isinstance(el, Query):
-                raise SiddhiAppCreationError(
-                    f"app '{self.name}': unpartitioned queries (the "
-                    "device query path and single-partition patterns)"
-                    + _LATER)
-            pr = PartitionRuntime(el, self, i)
+                qr = plan_unpartitioned_query(self, el, qi)
+                qi += 1
+                if qr.name in self.query_runtimes:
+                    raise SiddhiAppCreationError(
+                        f"duplicate query name '{qr.name}'")
+                self.query_runtimes[qr.name] = qr
+                continue
+            pr = PartitionRuntime(el, self, pi)
+            pi += 1
             self.partitions[pr.name] = pr
 
     # -- planning hooks ------------------------------------------------------
@@ -92,12 +101,17 @@ class SiddhiAppRuntime:
 
     # -- lifecycle -----------------------------------------------------------
 
+    def _dense_query_runtimes(self) -> Dict[str, object]:
+        out = dict(self.query_runtimes)
+        for pr in self.partitions.values():
+            out.update(pr.dense_query_runtimes)
+        return out
+
     def pattern_runtimes(self) -> Dict[str, object]:
         """Query name -> its pattern processor (a DensePatternRuntime or
         the HotKeyRouterRuntime around one)."""
         return {n: qr.pattern_processor
-                for pr in self.partitions.values()
-                for n, qr in pr.dense_query_runtimes.items()}
+                for n, qr in self._dense_query_runtimes().items()}
 
     def start(self):
         self._running = True
@@ -152,11 +166,16 @@ class SiddhiAppRuntime:
                 "callbacks" + _LATER + ")")
         j.add_callback(fn)
 
-    def lowering(self) -> Dict[str, str]:
-        """Per-query engine placement: ``'dense'`` or ``'hotkey'``."""
+    def lowering(self, step_kinds: bool = False) -> Dict[str, str]:
+        """Per-query engine placement: ``'dense'`` or ``'hotkey'``, as the
+        reference reports it.  ``step_kinds=True`` adds the dense
+        engine's step, fixed at compile time: ``'dense/batch'``,
+        ``'dense/general'``, ``'hotkey/batch'``."""
         out: Dict[str, str] = {}
-        for pr in self.partitions.values():
-            out.update(pr.query_lowering())
+        for n, qr in self._dense_query_runtimes().items():
+            out[n] = qr.lowered_to
+            if step_kinds:
+                out[n] += "/" + qr.pattern_processor.engine.step_kind
         return out
 
 

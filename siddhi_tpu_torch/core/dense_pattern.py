@@ -7,14 +7,17 @@ dense NFA (``ops/dense_nfa.py``).  ``partition with (key of S) begin
 the interned key: per-key NFA state rows on the device, no per-key
 Python instances.
 
-This slice covers the class the port's packed step runs (capture-free
-``every`` chains, ``planner/kernels.py``) and leaves out the
-reference's mesh sharding, fault harness, span tracer, absent-node
-deadline timers and idle-key purge; the engine refuses what it does not
-run, naming the later slice.  Matches reach the query's output junction
-through the runtime's ``EmitQueue``; the reference's ``aux`` side
-channels (partition keys and event indices for aggregating selectors)
-wait for the aggregating form.
+The dense engine picks its step at compile time
+(``planner/kernels.route_dense_step``): capture-free ``every`` chains
+with at most 32 lanes run the batch-step kernel, and chains with
+captures (``v > e1.v``, ``select e1.v``), more lanes or reset on emit
+run the general step in torch ops.  The reference's mesh sharding,
+fault harness, span tracer, absent-node deadline timers and idle-key
+purge are left out; the engine refuses what it does not run, naming the
+later slice.  Matches reach the query's output junction through the
+runtime's ``EmitQueue``; the reference's ``aux`` side channels
+(partition keys and event indices for aggregating selectors) wait for
+the aggregating form.
 """
 
 from __future__ import annotations
@@ -38,9 +41,9 @@ from siddhi_tpu_torch.core.exceptions import (
     SiddhiAppRuntimeError,
 )
 from siddhi_tpu_torch.core.ingest_stage import IngestStage, IngestStats
-from siddhi_tpu_torch.kernels.dense_step import candidate_env
 from siddhi_tpu_torch.ops.dense_nfa import (
     DensePatternEngine,
+    filter_env,
     state_from_numpy,
     state_to_numpy,
 )
@@ -99,11 +102,18 @@ def build_dense_engine(query, st: StateInputStream, resolve_def,
         n_instances=n_instances,
         device=device,
     )
-    # selects have device lanes only for numeric attributes
-    for (name, src), t in zip(eng.out_spec, output_attr_types(eng)):
+    # captures and selects have device lanes only for numeric attributes
+    for (ref, attr, _last) in eng.alloc.slots:
+        t = eng.ref_defs[ref].attribute_type(attr)
         if not t.is_numeric:
             raise SiddhiAppCreationError(
-                f"dense path: select attribute '{src[1]}' has type "
+                f"dense path: capture '{ref}.{attr}' has type {t.value}; "
+                "only numeric attributes have device lanes")
+    for (name, src), t in zip(eng.out_spec, output_attr_types(eng)):
+        if not t.is_numeric:
+            attr = src[1] if isinstance(src, tuple) else src.attr
+            raise SiddhiAppCreationError(
+                f"dense path: select attribute '{attr}' has type "
                 f"{t.value}; only numeric attributes have device lanes")
     _trace_check(eng)
     return eng
@@ -115,20 +125,30 @@ def output_attr_types(eng) -> List[AttrType]:
     out: List[AttrType] = []
     for _name, src in eng.out_spec:
         t = None
-        for node in eng.nodes:
-            for spec in node.specs:
-                if src[1] in spec.stream_def.attribute_names:
-                    t = spec.stream_def.attribute_type(src[1])
+        if isinstance(src, tuple):  # ('cand', attr): from the last node
+            for node in eng.nodes:
+                for spec in node.specs:
+                    if src[1] in spec.stream_def.attribute_names:
+                        t = spec.stream_def.attribute_type(src[1])
+        else:  # a register slot keeps its captured attribute's type
+            d = eng.ref_defs.get(src.ref)
+            if d is not None and src.attr in d.attribute_names:
+                t = d.attribute_type(src.attr)
         out.append(t or AttrType.DOUBLE)
     return out
 
 
 def _trace_check(eng):
     """Evaluate every node filter once on a tiny zero env of exactly the
-    lane columns the runtime provides, so a filter the device cannot run
-    (one reading a string attribute, say) fails at plan time, not on the
-    first event.  The reference traces the whole step abstractly."""
-    B = 4
+    lanes the step provides (the candidate's numeric columns and the
+    node's float and integer registers, ``filter_env``), so a filter the
+    device cannot run (one reading a string attribute, say) fails at
+    plan time, not on the first event.  The reference traces the whole
+    step abstractly."""
+    B, I = 4, eng.I
+    slots = list(eng.alloc.slots.values())
+    regs = torch.zeros((B, I, max(eng.alloc.n, 1)), dtype=torch.float32)
+    iregs = torch.zeros((B, I, 2 * eng.alloc.n_int), dtype=torch.int32)
     try:
         for node, filters in zip(eng.nodes, eng.node_filters):
             spec = node.specs[0]
@@ -140,8 +160,10 @@ def _trace_check(eng):
                      for a in eng.numeric_stream_attrs(spec.stream_key)}
             cols = {k: torch.from_numpy(v) for k, v in
                     eng.prepare_cols(spec.stream_key, zeros).items()}
-            f.fn(candidate_env(spec.stream_def, cols,
-                               torch.zeros(B, dtype=torch.int32)))
+            ok = torch.as_tensor(f.fn(filter_env(
+                spec.stream_def, slots, cols,
+                torch.zeros(B, dtype=torch.int32), regs, iregs)))
+            ok.to(torch.bool).broadcast_to((B, I))  # the step's lane shape
     except SiddhiAppCreationError:
         raise
     except Exception as e:
@@ -428,3 +450,19 @@ class DensePatternRuntime:
         if rlu is not None:
             self._row_last_used = np.asarray(rlu).copy()
         self._rebuild_key_index()
+
+
+class DenseStreamReceiver:
+    """Junction subscriber feeding one source stream of an unpartitioned
+    dense pattern: every event goes to partition 0 (the reference's
+    ``_DenseStreamReceiver`` with no key function)."""
+
+    def __init__(self, runtime: DensePatternRuntime, stream_key: str):
+        self.runtime = runtime
+        self.stream_key = stream_key
+
+    def receive(self, batch: EventBatch):
+        cur = batch.only(ev.CURRENT)
+        if len(cur):
+            self.runtime.process_stream_batch(
+                self.stream_key, cur, np.zeros(len(cur), dtype=np.int32))

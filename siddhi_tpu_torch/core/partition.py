@@ -30,11 +30,13 @@ from siddhi_tpu_torch.planner.expr import (
     ExpressionCompiler,
     Scope,
 )
-from siddhi_tpu_torch.planner.query_planner import plan_dense_state
+from siddhi_tpu_torch.planner.query_planner import (
+    check_insert_into,
+    plan_dense_state,
+)
 from siddhi_tpu_torch.query_api import (
     CountStateElement,
     EveryStateElement,
-    InsertIntoStream,
     LogicalStateElement,
     NextStateElement,
     Partition,
@@ -156,13 +158,7 @@ class PartitionRuntime:
         for q in partition.queries:
             if not isinstance(q, Query):
                 raise SiddhiAppCreationError("nested element not a query")
-            out = q.output_stream
-            if not isinstance(out, InsertIntoStream) or out.is_inner \
-                    or out.is_fault:
-                raise SiddhiAppCreationError(
-                    f"{self.name}: only 'insert into <stream>' outputs are "
-                    "in the port; inner, fault, table and return outputs"
-                    + _LATER)
+            check_insert_into(q, self.name)
             st = q.input_stream
             if not isinstance(st, StateInputStream):
                 raise SiddhiAppCreationError(
@@ -191,7 +187,3 @@ class PartitionRuntime:
             if runtimes:
                 app.junctions[sid].subscribe(
                     DensePartitionReceiver(sid, ex, runtimes))
-
-    def query_lowering(self) -> Dict[str, str]:
-        return {n: qr.lowered_to
-                for n, qr in self.dense_query_runtimes.items()}

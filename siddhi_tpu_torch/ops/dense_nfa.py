@@ -1,24 +1,37 @@
 """Dense vectorized NFA on torch tensors: the port's pattern hot path.
 
-Port of the JAX package's ``ops/dense_nfa.py`` for the class its packed
-kernel covers: capture-free ``every`` chains of plain stream nodes with
-an optional ``within``.  Per-partition NFA state lives on the device as
-a dict of tensors under the JAX engine's keys:
+Port of the JAX package's ``ops/dense_nfa.py`` for every-headed chains
+of plain stream nodes with an optional ``within``, float and integer
+captures and first/[0]/[last] refs.  Per-partition NFA state lives on
+the device as a dict of tensors under the JAX engine's keys:
 
 - ``active`` ``[P+1, S, I]`` bool: pending instance lanes per node;
 - ``first_ts`` ``[P+1, S, I]`` int32: within anchors, relative ms since
   ``base_ts`` (0 = unset);
-- ``counts`` ``[P+1, S, I]`` int32 and ``regs`` ``[P+1, S, I, 1]``
-  float32: constant (zero) in this class, kept for the shared layout;
+- ``counts`` ``[P+1, S, I]`` int32: zero in the classes the port runs
+  (no counting nodes yet), kept for the shared layout;
+- ``regs`` ``[P+1, S, I, max(R, 1)]`` float32: the float capture
+  registers of each pending instance;
+- ``iregs`` ``[P+1, S, I, 2*RI]`` int32 (only with integer captures):
+  INT/LONG capture registers as hi/lo pairs;
 - ``overflow`` ``[P+1]`` int32: instances dropped for want of a free lane.
 
-Row ``P`` is the reference's scratch row; the batch step never touches
-it.  A batch is sorted stably by partition on the host
-(``partition_segments``), staged to the device in one put, and stepped
-in one batch step (``kernels/dense_batch.py``): the CUDA kernel on a
-card walks each partition's events in batch order against its state
-row, in place; its plain torch version on the CPU steps the collision
-rounds.  Matches come back through ``DeferredDenseEmit`` and
+Row ``P`` is the reference's scratch row; no step writes it.  Each
+engine runs one of two steps, picked at compile time by
+``planner/kernels.route_dense_step`` (``engine.step_kind``):
+
+- ``"batch"``: a capture-free every-chain with at most 32 lanes.  The
+  batch is sorted stably by partition on the host
+  (``partition_segments``), staged in one put, and stepped in one
+  ``kernels/dense_batch.batch_step``: the CUDA kernel on a card walks
+  each partition's events in batch order against its state row, in
+  place; its plain torch version on the CPU steps the collision rounds.
+- ``"general"``: everything else the port admits.  The batch is staged
+  in one put, split into collision rounds (each partition at most once
+  a round), and each round runs ``make_general_step``: the JAX
+  package's XLA step in torch ops, register file included.
+
+Matches come back through ``DeferredDenseEmit`` and
 ``core/emit_queue.fetch_coalesced``.
 
 Timestamps ride int32 relative lanes re-anchored before they approach
@@ -54,7 +67,7 @@ from siddhi_tpu_torch.kernels.dense_step import (
 from siddhi_tpu_torch.kernels.plane_pack import unpack_state
 from siddhi_tpu_torch.ops.nfa import NFABuilder, Node, PatternScope
 from siddhi_tpu_torch.planner.expr import CompiledExpression, ExpressionCompiler
-from siddhi_tpu_torch.planner.kernels import check_dense_kernel_eligible
+from siddhi_tpu_torch.planner.kernels import route_dense_step
 from siddhi_tpu_torch.query_api import AttrType, StateInputStream, Variable
 from siddhi_tpu_torch.query_api.definition import StreamDefinition
 
@@ -220,8 +233,93 @@ class DenseExprCompiler(ExpressionCompiler):
         return super()._c_Variable(e)
 
 
+def filter_env(stream_def, slots, cols, ts, regs, iregs):
+    """Filter env of one node over ``[B, I]`` lanes: the candidate's lane
+    columns broadcast down the instance axis (``candidate_env``) and the
+    node's registers per instance, under the reference's keys:
+    ``__reg.{i}`` for float slots of ``regs [B, I, R]``, and
+    ``__ireg.{i}|hi``/``|lo`` for integer slots of ``iregs [B, I, 2*RI]``
+    (the JAX step's ``env_for``)."""
+    env = candidate_env(stream_def, cols, ts)
+    for slot in slots:
+        if slot.integer:
+            env[f"__ireg.{slot.index}|hi"] = iregs[:, :, 2 * slot.index]
+            env[f"__ireg.{slot.index}|lo"] = iregs[:, :, 2 * slot.index + 1]
+        else:
+            env[f"__reg.{slot.index}"] = regs[:, :, slot.index]
+    return env
+
+
+# smallest normal float32: below it, XLA's CPU sum flushes to zero
+_F32_MIN_NORMAL = 2.0 ** -126
+
+
+def _one_hot_sum(values: torch.Tensor) -> torch.Tensor:
+    """The reference moves registers with a one-hot sum over the source
+    lanes (``jnp.sum(jnp.where(assign, src, 0.0), axis=1)``): the moved
+    value plus zeros.  With two or more lanes that sum turns -0.0 into
+    +0.0 and, on XLA's CPU (which flushes denormals), a subnormal into
+    +0.0, and keeps NaN bits; with one lane XLA makes the reduce a
+    reshape and the value passes unchanged.  The port gathers the moved
+    value (``values``, for I > 1) and applies that rule without doing
+    arithmetic on it, so the card and the CPU give the same bits."""
+    return torch.where(values.abs() < _F32_MIN_NORMAL,
+                       torch.zeros((), dtype=values.dtype,
+                                   device=values.device), values)
+
+
+def _lane_rank(x: torch.Tensor, upto: torch.Tensor) -> torch.Tensor:
+    """``x.cumsum(dim=1) - 1`` for ``x [B, I]`` bool, as a masked sum
+    over ``upto [I, I]`` (``upto[i, j] = j <= i``): CUDA's scan along a
+    short innermost axis takes most of a millisecond a call at
+    B = 131,072, the sum a few microseconds."""
+    return (x[:, None, :] & upto).sum(dim=2) - 1
+
+
+def _rank_place(t, mask, anchor, src_regs, src_iregs, a, first, counts,
+                regs, iregs, ovf, upto):
+    """Rank-matched placement of advancing instances into free lanes of
+    node ``t`` (the JAX package's ``_rank_place`` without deadlines): the
+    k-th lane of ``mask`` takes the k-th free lane of node ``t``,
+    carrying its anchor and registers; advancers beyond the free lanes
+    are dropped and counted.  ``a``, ``first``, ``counts``, ``regs`` and
+    ``iregs`` (the gathered rows) change in place; returns the new
+    overflow counts.  ``upto``: the lane-rank mask of ``_lane_rank``."""
+    B, I = mask.shape
+    free = ~a[:, t] & (counts[:, t] == 0)  # [B, I]
+    src_rank = _lane_rank(mask, upto)
+    free_rank = _lane_rank(free, upto)
+    n_free = free.sum(dim=1, keepdim=True)
+    placed = mask & (src_rank < n_free)
+    ovf = ovf + (mask & ~placed).sum(dim=1, dtype=torch.int32)
+    # [B, Isrc, Itgt] one-hot assignment
+    assign = (placed[:, :, None] & free[:, None, :]
+              & (src_rank[:, :, None] == free_rank[:, None, :]))
+    got = assign.any(dim=1)  # [B, I] target lanes filled
+    # the source lane of each filled target lane (0 where none)
+    lanes = torch.arange(I, device=mask.device)
+    src = (assign * lanes[None, :, None]).sum(dim=1)  # [B, I]
+
+    def moved(bank):
+        idx = src[:, :, None].expand(B, I, bank.shape[-1])
+        return torch.gather(bank, 1, idx)
+
+    moved_regs = moved(src_regs)
+    if I > 1:
+        moved_regs = _one_hot_sum(moved_regs)
+    a[:, t] |= got
+    g = got[:, :, None]
+    regs[:, t] = torch.where(g, moved_regs, regs[:, t])
+    if iregs is not None:
+        iregs[:, t] = torch.where(g, moved(src_iregs), iregs[:, t])
+    first[:, t] = torch.where(got, torch.gather(anchor, 1, src), first[:, t])
+    counts[:, t].masked_fill_(got, 0)
+    return ovf
+
+
 class DensePatternEngine:
-    """A lowered node chain compiled into per-stream packed steps.
+    """A lowered node chain compiled into the batch step or the general
+    step (``step_kind``, fixed at compile time).
 
     Usage:
         eng = compile_pattern(app_str, "q", n_partitions=P, device="cuda")
@@ -251,25 +349,28 @@ class DensePatternEngine:
         is_sequence: bool = False,
         n_instances: int = 4,
         device=None,
+        reset_on_emit: Optional[bool] = None,
     ):
         self.device = resolve_device(device)
         self.nodes = nodes
         self.ref_defs = ref_defs
         self.within_ms = within_ms
         self.n_partitions = int(n_partitions)
-        # an every-headed chain re-arms; the packed step needs one
+        # an every-headed chain re-arms its start on every event
         self.every_start = any(n.rearm_to is not None for n in nodes)
+        # a match clears the partition's whole automaton.  None: only for
+        # non-every heads, as the reference's product runtime sets it
+        # (`every` consumes just the matched instance); the reference's
+        # compile_pattern leaves it True, which callers pass explicitly
+        self.reset_on_emit = (not self.every_start if reset_on_emit is None
+                              else bool(reset_on_emit))
         self.is_sequence = is_sequence
         self.S = len(nodes)
         self.I = 1 if (is_sequence or not self.every_start) else max(int(n_instances), 1)
         if self.S > 32:
             raise SiddhiAppCreationError("dense NFA supports at most 32 chain nodes")
-        if self.I > MAX_INSTANCES:
-            raise SiddhiAppCreationError(
-                f"the port's batch step holds at most {MAX_INSTANCES} "
-                f"instance lanes per node, got instances={self.I}")
         # any `every` other than the standing virgin at node 0 re-arms a
-        # group, which the packed step does not model
+        # group, which neither step models yet
         self.group_every = any(
             n.rearm_to is not None and not (n.pos == 0 and n.rearm_to == 0)
             for n in nodes)
@@ -278,12 +379,19 @@ class DensePatternEngine:
         self.alloc = RegAllocator()
         self._compile_filters(stream_to_ref)
         self._compile_outputs(select_vars, stream_to_ref, select_names)
-        check_dense_kernel_eligible(self)
+        # capture slots each node writes, after both filter and output
+        # compilation so select-only slots get written too
+        self.node_writes: List[List[RegSlot]] = [
+            [slot for (ref, _a, _l), slot in self.alloc.slots.items()
+             if any(ref == spec.ref for spec in node.specs)]
+            for node in nodes]
+        self.step_kind = route_dense_step(self)
         if self.device.type == "cuda":
             ok, reason = probe.kernels_available(self.device)
             if not ok:
                 raise SiddhiAppCreationError(reason)
         self._step_cache: Dict[str, Callable] = {}
+        self._general_cache: Dict[str, Callable] = {}
 
     # -- compilation --------------------------------------------------------
 
@@ -347,13 +455,18 @@ class DensePatternEngine:
         """Shape and numpy dtype of each state tensor (scratch row P
         included), as in the JAX engine's ``init_state_host``."""
         P, S, I = self.n_partitions + 1, self.S, self.I
-        return {
+        layout = {
             "active": ((P, S, I), np.dtype(bool)),
             "first_ts": ((P, S, I), np.dtype(np.int32)),
             "counts": ((P, S, I), np.dtype(np.int32)),
-            "regs": ((P, S, I, 1), np.dtype(np.float32)),
+            "regs": ((P, S, I, max(self.alloc.n, 1)), np.dtype(np.float32)),
             "overflow": ((P,), np.dtype(np.int32)),
         }
+        if self.alloc.n_int:
+            # integer capture bank: a hi/lo int32 pair per slot
+            layout["iregs"] = ((P, S, I, 2 * self.alloc.n_int),
+                               np.dtype(np.int32))
+        return layout
 
     def init_state_host(self) -> Dict[str, np.ndarray]:
         """Zero state as numpy arrays, in the JAX engine's layout."""
@@ -381,11 +494,190 @@ class DensePatternEngine:
                 f"{PACKED_MAX_INSTANCES} instance lanes per node, this engine "
                 f"has {self.I}; process() runs the batch step, which holds "
                 f"{MAX_INSTANCES}")
+        if self.step_kind != "batch":
+            raise ValueError(
+                "make_step: the packed step covers capture-free "
+                "every-chains only; this engine runs the general step "
+                "(make_general_step)")
         fn = self._step_cache.get(stream_key)
         if fn is None:
             fn = build_packed_nfa(self, stream_key)
             self._step_cache[stream_key] = fn
         return fn
+
+    def make_general_step(self, stream_key: str) -> Callable:
+        """The general dense step for one collision round of one source
+        stream: the JAX package's ``DensePatternEngine.make_step`` with
+        ``use_kernel = False`` (``siddhi_tpu/ops/dense_nfa.py:610``, step
+        body ``:695-1238``) in torch ops, for the classes the router
+        sends here: plain stream nodes under an ``every`` head, an
+        optional ``within``, float and integer captures, first/[0]/[last]
+        refs, any lane count, reset on emit.
+
+        step(state, part_idx [B] int, cols {key: [B]}, ts [B] int32
+             relative ms, valid [B] bool)
+          -> (state, emit [B, 2I] bool,
+              {"f": [B, 2I, O] float32, "i": [B, 2I, 2*n_int_out] int32},
+              emit_anchor [B, 2I] int32, n_emit int32 0-d)
+
+        Valid rows must name distinct partitions (one collision round).
+        The step gathers their state rows, steps them and writes them
+        back in place; the gathered ``[B, S, I]`` rows are private copies,
+        so they are updated in place node slice by node slice.  The
+        second emit bank (the via-path of open counts) stays zero in
+        these classes."""
+        fn = self._general_cache.get(stream_key)
+        if fn is not None:
+            return fn
+        S, I = self.S, self.I
+        nodes, node_filters, slots = (self.nodes, self.node_filters,
+                                      list(self.alloc.slots.values()))
+        within, every_start = self.within_ms, self.every_start
+        reset_on_emit = self.reset_on_emit
+        out_spec = self.out_spec
+        O = max(len(out_spec), 1)
+        # out-spec position -> index into the integer output pairs
+        int_out = [oi for oi, is_int in enumerate(self.out_int) if is_int]
+        int_out_idx = {oi: k for k, oi in enumerate(int_out)}
+        on_stream = [node.specs[0].stream_key == stream_key for node in nodes]
+        writes = [[slot for slot in self.node_writes[s]
+                   if slot.ref == nodes[s].specs[0].ref] for s in range(S)]
+
+        def eval_ok(s, cols, ts, regs, iregs, B):
+            f = node_filters[s][0]
+            if f is None:
+                return torch.ones((B, I), dtype=torch.bool, device=ts.device)
+            env = filter_env(nodes[s].specs[0].stream_def, slots, cols, ts,
+                             regs[:, s], None if iregs is None else iregs[:, s])
+            return torch.as_tensor(f.fn(env), device=ts.device).to(
+                torch.bool).broadcast_to((B, I))
+
+        def step(state, part_idx, cols, ts, valid):
+            B = part_idx.shape[0]
+            dev = ts.device
+            pi = part_idx.long()
+            a = state["active"][pi]        # [B, S, I] bool
+            first = state["first_ts"][pi]  # [B, S, I] int32
+            counts = state["counts"][pi]   # [B, S, I] int32
+            regs = state["regs"][pi]       # [B, S, I, R] float32
+            iregs = state["iregs"][pi] if "iregs" in state else None
+            ovf = state["overflow"][pi]    # [B] int32
+            t = ts[:, None]
+            emit = torch.zeros((B, 2 * I), dtype=torch.bool, device=dev)
+            out_f = torch.zeros((B, 2 * I, O), dtype=torch.float32, device=dev)
+            out_i = torch.zeros((B, 2 * I, 2 * len(int_out)),
+                                dtype=torch.int32, device=dev)
+            emit_anchor = torch.zeros((B, 2 * I), dtype=torch.int32,
+                                      device=dev)
+
+            # within-window expiry (int32 wrap-around subtraction, as in
+            # the reference step)
+            if within is not None:
+                expired = (first > 0) & ((ts[:, None, None] - first) > within)
+                a &= ~expired
+                counts.masked_fill_(expired, 0)
+                first.masked_fill_(expired, 0)
+
+            # node filters once, against the entry-state registers (the
+            # reversed loop reads them before any write of this step)
+            vb = valid[:, None]
+            ok = [eval_ok(s, cols, ts, regs, iregs, B) & vb
+                  if on_stream[s] else None for s in range(S)]
+
+            def write_slot(s, slot, upd):
+                """Capture the event into one register slot of node
+                ``s`` for the lanes in ``upd``."""
+                if slot.integer:
+                    hk, lk = f"{slot.attr}|hi", f"{slot.attr}|lo"
+                    if hk in cols:
+                        for j, key in ((2 * slot.index, hk),
+                                       (2 * slot.index + 1, lk)):
+                            iregs[:, s, :, j] = torch.where(
+                                upd, cols[key][:, None], iregs[:, s, :, j])
+                elif slot.attr in cols:
+                    regs[:, s, :, slot.index] = torch.where(
+                        upd, cols[slot.attr].to(torch.float32)[:, None],
+                        regs[:, s, :, slot.index])
+
+            def emit_rows(mask, anchor, src_regs, src_iregs):
+                """Instances in ``mask`` complete the chain on this event
+                (emit bank 0)."""
+                emit[:, :I] |= mask
+                emit_anchor[:, :I] = torch.where(mask, anchor,
+                                                 emit_anchor[:, :I])
+                for oi, (_name, src) in enumerate(out_spec):
+                    ii = int_out_idx.get(oi)
+                    if isinstance(src, tuple):  # ('cand', attr): this event
+                        keys = ((f"{src[1]}|hi", f"{src[1]}|lo")
+                                if ii is not None else (src[1],))
+                        if keys[0] not in cols:
+                            continue
+                        vals = [cols[k][:, None] for k in keys]
+                    elif ii is not None:
+                        vals = [src_iregs[:, :, 2 * src.index + j]
+                                for j in (0, 1)]
+                    else:
+                        vals = [src_regs[:, :, src.index]]
+                    bank, at = ((out_i, (2 * ii, 2 * ii + 1))
+                                if ii is not None else (out_f, (oi,)))
+                    for c, val in zip(at, vals):
+                        bank[:, :I, c] = torch.where(mask, val,
+                                                     bank[:, :I, c])
+
+            def advance(s, mask):
+                """Lanes of node ``s`` in ``mask`` complete it: emit at
+                the last node, else move into free lanes of node s+1."""
+                nonlocal ovf
+                anchor = torch.where(first[:, s] > 0, first[:, s], t)
+                src_iregs = None if iregs is None else iregs[:, s]
+                if s == S - 1:
+                    emit_rows(mask, anchor, regs[:, s], src_iregs)
+                else:
+                    ovf = _rank_place(s + 1, mask, anchor, regs[:, s],
+                                      src_iregs, a, first, counts, regs,
+                                      iregs, ovf, upto)
+
+            lanes = torch.arange(I, device=dev)
+            lane0 = lanes == 0
+            upto = lanes[None, :] <= lanes[:, None]  # [i, j]: j <= i
+            for s in reversed(range(S)):
+                if ok[s] is None:
+                    continue
+                keep_armed = s == 0 and every_start
+                # the standing virgin fires through lane 0 on every event
+                pending = a[:, s] | lane0 if keep_armed else a[:, s]
+                fire = pending & ok[s]
+                for slot in writes[s]:
+                    write_slot(s, slot, fire)
+                if keep_armed:
+                    # fresh arming each event: the anchor is this event's
+                    first[:, s] = torch.where(fire, t, first[:, s])
+                else:
+                    first[:, s] = torch.where(fire & (first[:, s] == 0), t,
+                                              first[:, s])
+                    a[:, s] &= ~fire
+                advance(s, fire)
+
+            if reset_on_emit:
+                hit = emit.any(dim=1)[:, None, None]
+                a &= ~hit
+                counts.masked_fill_(hit, 0)
+                first.masked_fill_(hit, 0)
+
+            # scatter back (valid rows only)
+            v3 = valid[:, None, None]
+            for key, rows, vmask in (("active", a, v3), ("first_ts", first, v3),
+                                     ("counts", counts, v3),
+                                     ("regs", regs, v3[..., None]),
+                                     ("iregs", iregs, v3[..., None]),
+                                     ("overflow", ovf, valid)):
+                if rows is not None:
+                    state[key][pi] = torch.where(vmask, rows, state[key][pi])
+            n_emit = (emit & vb).sum(dtype=torch.int32)
+            return state, emit, {"f": out_f, "i": out_i}, emit_anchor, n_emit
+
+        self._general_cache[stream_key] = step
+        return step
 
     # -- host wrapper -------------------------------------------------------
 
@@ -451,11 +743,13 @@ class DensePatternEngine:
         """Async-emit variant of :meth:`process`: the batch's match
         outputs stay on the device inside the returned
         :class:`DeferredDenseEmit` (None only for empty input); even the
-        match count stays a device scalar until ``resolve()``.
+        match counts stay device scalars until ``resolve()``.
 
-        One host sort by partition, one ``staged_put``, the filter
-        matrix, one ``batch_step`` (the state rows change in place) and
-        the output columns."""
+        The batch step: one host sort by partition, one ``staged_put``,
+        the filter matrix, one ``batch_step`` (the state rows change in
+        place) and the output columns.  The general step: one
+        ``staged_put``, then one ``make_general_step`` call per
+        collision round on the device (see :meth:`_process_general`)."""
         part_idx = np.asarray(part_idx)
         if len(part_idx) and (int(part_idx.min()) < 0
                               or int(part_idx.max()) >= self.n_partitions):
@@ -467,6 +761,9 @@ class DensePatternEngine:
         if n == 0:
             return state, None
         prepared = self.prepare_cols(stream_key, cols)
+        if self.step_kind == "general":
+            return state, self._process_general(
+                state, stream_key, part_idx, prepared, rel64.astype(np.int32))
         order, seg_start, seg_part = partition_segments(part_idx)
         order, seg_start, seg_part, rel, cb = staged_put(
             (order, seg_start, seg_part, rel64.astype(np.int32), prepared),
@@ -482,6 +779,35 @@ class DensePatternEngine:
             "sel": slice(0, n), "ridx": np.arange(n), "count": n_emit,
         })
         return state, pending
+
+    def _process_general(self, state, stream_key: str, part_idx: np.ndarray,
+                         prepared: Dict[str, np.ndarray], rel: np.ndarray
+                         ) -> "DeferredDenseEmit":
+        """The general step over a batch's collision rounds (the
+        reference's loop, ``siddhi_tpu/ops/dense_nfa.py:1591-1616``): the
+        whole batch goes to the device in one put, laid out round after
+        round, and each round is a slice of it.  One chunk a round; no
+        value crosses to the host here."""
+        order, bounds = _round_order(part_idx)
+        batch = (part_idx.astype(np.int32), rel, prepared)
+        if len(bounds) > 2:  # more than one round: lay the rounds out
+            batch = (batch[0][order], rel[order],
+                     {k: v[order] for k, v in prepared.items()})
+        part_d, rel_d, cols_d = staged_put(batch, self.device,
+                                           self.ingest_stats)
+        valid = torch.ones(len(part_idx), dtype=torch.bool, device=self.device)
+        step = self.make_general_step(stream_key)
+        pending = DeferredDenseEmit(self)
+        for lo, hi in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+            state, emit, outs, anchor, n_emit = step(
+                state, part_d[lo:hi], {k: v[lo:hi] for k, v in cols_d.items()},
+                rel_d[lo:hi], valid[lo:hi])
+            pending.chunks.append({
+                "emit": emit, "f": outs["f"], "i": outs["i"],
+                "anchor": anchor, "sel": slice(0, hi - lo),
+                "ridx": order[lo:hi], "count": n_emit,
+            })
+        return pending
 
     def filter_matrix(self, stream_key: str, cols: Dict[str, torch.Tensor],
                       ts: torch.Tensor) -> torch.Tensor:
@@ -729,22 +1055,31 @@ def partition_segments(part_idx: np.ndarray
             sorted_parts[starts].astype(np.int32))
 
 
-def _collision_rounds(part_idx: np.ndarray) -> List[np.ndarray]:
-    """Split indices into rounds where each partition appears at most once,
-    preserving per-partition order: the reference's loop.  Off the main
-    path (the batch step walks segments); tests build the round loop of
-    the packed step from it."""
+def _round_order(part_idx: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Collision rounds of a batch, the reference's split: round ``r``
+    holds the ``r``-th event of every partition that has one, in batch
+    order.  Returns ``(order [N], bounds [R+1])``: the batch rows round
+    after round, and where each round starts."""
+    n = len(part_idx)
     order = np.argsort(part_idx, kind="stable")
     sorted_parts = part_idx[order]
     # occurrence number of each element within its partition group
-    is_new = np.ones(len(part_idx), dtype=bool)
+    is_new = np.ones(n, dtype=bool)
     is_new[1:] = sorted_parts[1:] != sorted_parts[:-1]
-    group_start = np.maximum.accumulate(np.where(is_new, np.arange(len(part_idx)), 0))
-    occ = np.arange(len(part_idx)) - group_start
-    occ_orig = np.empty(len(part_idx), dtype=np.int64)
-    occ_orig[order] = occ
-    n_rounds = int(occ.max()) + 1 if len(occ) else 0
-    return [np.flatnonzero(occ_orig == r) for r in range(n_rounds)]
+    group_start = np.maximum.accumulate(np.where(is_new, np.arange(n), 0))
+    occ = np.empty(n, dtype=np.int64)
+    occ[order] = np.arange(n) - group_start
+    bounds = np.zeros(1, dtype=np.int64)
+    if n:
+        bounds = np.concatenate([bounds, np.cumsum(np.bincount(occ))])
+    return np.argsort(occ, kind="stable"), bounds
+
+
+def _collision_rounds(part_idx: np.ndarray) -> List[np.ndarray]:
+    """The batch rows of each collision round (see ``_round_order``);
+    tests build the round loop of the packed step from it."""
+    order, bounds = _round_order(part_idx)
+    return [order[lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])]
 
 
 def compile_pattern(
@@ -753,12 +1088,15 @@ def compile_pattern(
     n_partitions: int = 1024,
     n_instances: int = 4,
     device=None,
+    reset_on_emit: Optional[bool] = None,
 ) -> DensePatternEngine:
     """Compile a SiddhiQL pattern query into a DensePatternEngine on
     ``device`` (``cuda`` when None; raises without a card).
 
     The partition axis is the implicit per-key replication of the query;
-    callers route events to partition ids.
+    callers route events to partition ids.  ``reset_on_emit`` as in
+    :class:`DensePatternEngine` (None: the product runtime's choice; the
+    JAX package's ``compile_pattern`` resets, so pass True to match it).
     """
     from siddhi_tpu_torch.compiler import SiddhiCompiler
     from siddhi_tpu_torch.query_api.annotation import find_annotation
@@ -810,4 +1148,5 @@ def compile_pattern(
         is_sequence=is_sequence,
         n_instances=n_instances,
         device=dev,
+        reset_on_emit=reset_on_emit,
     )

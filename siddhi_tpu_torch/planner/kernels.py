@@ -1,11 +1,18 @@
-"""Gates for the port's kernels.
+"""Step routing and gates for the port's kernels.
 
 Port of the JAX package's ``planner/kernels.py``:
 
-- ``check_dense_kernel_eligible``: the packed step is the port's only
-  dense step so far, so there is no fallback: a pattern outside its
-  class is refused with ``SiddhiAppCreationError``, naming the general
-  dense step that a later slice of the port adds (ROADMAP.md).
+- ``route_dense_step``: picks each dense engine's step at compile time,
+  by class.  A capture-free ``every`` chain of plain stream nodes with
+  at most 32 instance lanes runs the batch-step kernel
+  (``kernels/dense_batch.py``, one launch a batch); every other pattern
+  the general dense step runs (captures and the register file, more
+  lanes, reset on emit) takes the general step in torch ops
+  (``ops/dense_nfa.py`` ``make_general_step``).  That is a plan-time
+  choice, never a fallback.  Patterns neither step runs (counts,
+  logical nodes, non-every heads, group-every, sequences, absent
+  deadlines) are refused with ``SiddhiAppCreationError`` naming the
+  ``ROADMAP.md`` item that adds them.
 - ``check_scan_kernel_available``: the hot-key scan's only step is the
   fused scan kernel; on a card it needs the probe to pass and raises
   otherwise.
@@ -14,47 +21,55 @@ Port of the JAX package's ``planner/kernels.py``:
 
 The reference's ``try_enable_*`` hooks swap a kernel in under
 ``@app:kernels`` and count a fallback to XLA when it cannot; the port
-has no XLA path, always runs its kernels on the card and counts no
-fallback.
+always runs its kernels on the card and counts no fallback.
 """
 
 from __future__ import annotations
 
 from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
 from siddhi_tpu_torch.kernels import probe
+from siddhi_tpu_torch.kernels.dense_batch import MAX_INSTANCES
 
-_LATER = ("; the port runs only the packed capture-free every-chain step "
-          "so far — the general dense step is a later slice of the port")
+_PART_B = (" — ROADMAP.md §1 item 2 (general dense step, part b: counts, "
+           "logical nodes and sequences), a later slice of the port")
+_PART_C = (" — ROADMAP.md §1 item 4 (general dense step, part c: absent "
+           "deadlines), a later slice of the port")
 
 
-def check_dense_kernel_eligible(engine) -> None:
-    """The packed step covers the every-headed simple-chain class only
-    (one candidate plane bit per row, no counting/capture machinery).
-    Raises with a distinct reason outside it."""
+def route_dense_step(engine) -> str:
+    """``"batch"`` or ``"general"``: the step that runs ``engine``.
+
+    The batch step takes capture-free every-chains of plain stream nodes
+    (one filter bit per node and event, no register file) with at most
+    ``dense_batch.MAX_INSTANCES`` lanes and no reset on emit; the general
+    step takes the rest of that chain class: captures (float and integer
+    registers), first/[0]/[last] refs, any lane count and reset on emit.
+    Raises with a distinct reason outside both."""
     if engine.is_sequence:
         raise SiddhiAppCreationError(
-            "nfa kernel: sequence semantics (strict contiguity masks) are "
-            "not in the packed-plane step" + _LATER)
+            "dense step: sequence semantics (strict contiguity kills)"
+            + _PART_B)
     if not engine.every_start:
         raise SiddhiAppCreationError(
-            "nfa kernel: a non-every head needs reset-on-emit plane clears"
-            + _LATER)
+            "dense step: a non-every head (one arm, reset on emit)" + _PART_B)
     if engine.group_every:
         raise SiddhiAppCreationError(
-            "nfa kernel: grouped-every restart masks are not in the "
-            "packed-plane step" + _LATER)
-    if engine.has_deadlines:
+            "dense step: grouped-every restarts" + _PART_B)
+    if any(node.kind == "absent" or any(sp.is_absent for sp in node.specs)
+           for node in engine.nodes):
         raise SiddhiAppCreationError(
-            "nfa kernel: absent/deadline nodes need per-chain timers" + _LATER)
+            "dense step: absent/deadline nodes need per-chain timers"
+            + _PART_C)
     for node in engine.nodes:
         if not (node.kind == "stream"
                 and node.min_count == 1 and node.max_count == 1):
             raise SiddhiAppCreationError(
-                "nfa kernel: counting/logical/absent nodes need the "
-                "counts/register planes" + _LATER)
-    if engine.alloc.slots:
-        raise SiddhiAppCreationError(
-            "nfa kernel: captured attributes need the register file" + _LATER)
+                "dense step: counting/logical nodes need the counts planes"
+                + _PART_B)
+    if (not engine.alloc.slots and not engine.reset_on_emit
+            and engine.I <= MAX_INSTANCES):
+        return "batch"
+    return "general"
 
 
 def check_scan_kernel_available(scan) -> None:

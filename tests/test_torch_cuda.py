@@ -119,6 +119,99 @@ def test_engine_on_card_matches_cpu(cuda_device):
         assert torch.equal(state["cuda"][k].cpu(), state["cpu"][k]), k
 
 
+GENERAL_APPS = {
+    # bench.py's headline chain cut to 4 states
+    "headline_s4": (
+        "define stream S (k long, v double); @info(name='q') from "
+        "every e1=S[v > 0.0] -> e2=S[v > 1.0 and v > e1.v] -> "
+        "e3=S[v > 2.0 and v > e1.v] -> e4=S[v > 3.0 and v > e1.v] "
+        "within 10 min select e1.v as v1, e4.v as v4 insert into Alerts;",
+        4),
+    # an integer id-join with integer selects: the iregs bank
+    "int_id_join": (
+        "define stream S (k long, v double); @info(name='q') from "
+        "every a=S[v > 5.0] -> b=S[k == a.k and v > a.v] within 2 sec "
+        "select a.k as ak, a.v as av, b.v as bv insert into Alerts;", 4),
+    # capture-free, past the batch step's 32 lanes
+    "forty_lanes": (
+        "define stream S (k long, v double); @info(name='q') from "
+        "every a=S[v > 1.0] -> b=S[v > 7.5] -> c=S[v > 2.0] within 2 sec "
+        "select c.v as cv insert into Alerts;", 40),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GENERAL_APPS))
+def test_general_step_on_card_matches_cpu(cuda_device, case):
+    """The general step (torch ops) on the card against the same engine
+    on the CPU: matches, output bits and the whole state, registers
+    included, over batches with colliding partitions (several rounds)
+    and values that hit the register move's edge cases."""
+    from siddhi_tpu_torch import compile_pattern, state_to_numpy
+
+    app, n_inst = GENERAL_APPS[case]
+    eng = {d: compile_pattern(app, "q", n_partitions=64, device=d,
+                              n_instances=n_inst) for d in ("cuda", "cpu")}
+    assert eng["cuda"].step_kind == "general"
+    state = {d: e.init_state() for d, e in eng.items()}
+    rng = np.random.default_rng(5)
+    specials = np.array([-0.0, np.nan, 1e-40, -1e-40, 3.0])
+    t, n_matches = 1000, 0
+    for _ in range(6):
+        part = rng.integers(0, 64, 300)
+        v = rng.uniform(0, 8, 300)
+        v[rng.random(300) < 0.05] = rng.choice(specials)
+        cols = {"k": rng.integers(0, 3, 300), "v": v}
+        ts = t + np.sort(rng.integers(0, 900, 300))
+        t = int(ts[-1])
+        res = {}
+        for d, e in eng.items():
+            state[d], ev, out = e.process(state[d], "S", part, cols, ts)
+            res[d] = (ev, out)
+        assert np.array_equal(res["cuda"][0], res["cpu"][0])
+        got, want = res["cuda"][1], res["cpu"][1]
+        assert got.dtype == want.dtype and got.shape == want.shape
+        if got.dtype == object:
+            got = np.array(got.tolist(), dtype=np.float64)
+            want = np.array(want.tolist(), dtype=np.float64)
+        assert np.array_equal(got.view(np.uint8), want.view(np.uint8))
+        n_matches += len(res["cpu"][0])
+    assert n_matches > 0
+    card, _ = state_to_numpy(eng["cuda"], state["cuda"])
+    cpu, _ = state_to_numpy(eng["cpu"], state["cpu"])
+    for k in cpu:
+        assert np.array_equal(card[k].view(np.uint8), cpu[k].view(np.uint8)), k
+
+
+def test_unpartitioned_capture_app_on_card_matches_cpu(cuda_device):
+    """An unpartitioned capturing pattern (one partition, a round an
+    event) through ``SiddhiManager`` on the card and on the CPU."""
+    from siddhi_tpu_torch import SiddhiManager
+
+    app = ("@app:playback @app:execution('tpu') "
+           "define stream S (k long, u double, v double); @info(name='q') "
+           "from every a=S[v > 10.0] -> b=S[v > a.v] within 3 sec "
+           "select a.v as av, b.v as bv insert into Alerts;")
+    rng = np.random.default_rng(8)
+    sends = [([int(rng.integers(0, 3)), float(rng.uniform(0, 20)),
+               float(rng.uniform(0, 20))], 1000 + 37 * i) for i in range(300)]
+    rows = {}
+    for d in ("cuda", "cpu"):
+        mgr = SiddhiManager(device=d)
+        rt = mgr.create_siddhi_app_runtime(app)
+        got = []
+        rt.add_callback("Alerts", lambda evs, got=got: got.extend(
+            (e.timestamp, list(e.data)) for e in evs))
+        rt.start()
+        h = rt.get_input_handler("S")
+        for row, ts in sends:
+            h.send(row, timestamp=ts)
+        assert rt.lowering(step_kinds=True) == {"q": "dense/general"}
+        rt.shutdown()
+        mgr.shutdown()
+        rows[d] = got
+    assert rows["cuda"] == rows["cpu"] and rows["cpu"]
+
+
 def batch_step_inputs(S, I, N, P, within, seed, long_seg=0):
     """Seeded batch-step inputs on the CPU: a mid-chain state (anchors
     only where active, some past ``within``), Zipf(1.2) partitions (every

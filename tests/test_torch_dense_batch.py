@@ -344,16 +344,35 @@ def test_batch_step_checks_its_inputs():
 
 
 def test_more_than_32_instances_refused():
-    """``instances`` above 32 is refused with the batch step's limit in the
-    message; 32 compiles."""
-    app = chain_app(3)
+    """The batch step holds at most 32 lanes a node and refuses more, so
+    an engine with ``instances='40'`` is routed, at compile time, to the
+    general step, which carries the lanes as an array axis.  It must
+    match the JAX engine's XLA step (reset on emit off, as the product
+    runtime sets it for `every` chains), with more than 32 instances
+    pending on a node and overflow past 40."""
+    app = CASES["thirty_two_lanes"][0]
     assert compile_pattern(app, "q", n_partitions=4, n_instances=32,
-                           device="cpu").I == 32
-    with pytest.raises(SiddhiAppCreationError,
-                       match="at most 32 instance lanes per node, got "
-                             "instances=33"):
-        compile_pattern(app, "q", n_partitions=4, n_instances=33,
-                        device="cpu")
+                           device="cpu").step_kind == "batch"
+    with pytest.raises(ValueError, match="out of range"):
+        dense_batch.batch_step(*small_inputs(S=2, I=33), n_inst=33,
+                               within=None)
+    je = jax_compile(app, "q", n_partitions=8, n_instances=40)
+    je.reset_on_emit = False
+    te = compile_pattern(app, "q", n_partitions=8, n_instances=40,
+                         device="cpu")
+    assert te.step_kind == "general" and te.I == 40
+    jstate, tstate, n = je.init_state(), te.init_state(), 0
+    for stream, part, cols, ts in batches(8, 3, 200, P=8, hot=(6, 0.8)):
+        jstate, jev, jout = je.process(jstate, stream, part, cols, ts)
+        tstate, tev, tout = te.process(tstate, stream, part, cols, ts)
+        assert np.array_equal(jev, tev)
+        assert jout.dtype == tout.dtype and np.array_equal(jout, tout)
+        n += len(tev)
+    host, _ = state_to_numpy(te, tstate)
+    for k in host:
+        assert np.array_equal(np.asarray(jstate[k]), host[k]), k
+    assert n > 0 and host["active"][:, 1].sum(axis=1).max() > 32
+    assert host["overflow"].sum() > 0
 
 
 def test_packed_step_refuses_more_than_16_instances():

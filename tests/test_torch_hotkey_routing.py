@@ -326,6 +326,10 @@ INELIGIBLE_STAYS_DENSE = {
     "long_filter": (
         "@info(name='q') from every a=S[k > 3] -> b=S[v > 12.0] "
         "select b.v as bv insert into Alerts;"),
+    # a select of a non-final node: the general (register-file) step
+    "non_final_select": (
+        "@info(name='q') from every a=S[v > 8.0] -> b=S[v > 12.0] "
+        "select a.v as av, b.v as bv insert into Alerts;"),
 }
 
 
@@ -370,30 +374,47 @@ class TestHotkeyFallback:
 
     def test_non_final_select_needs_the_general_dense_step(self):
         """The reference keeps this shape dense through its general
-        (register-file) step; the port's only dense step so far is the
-        packed one, so it refuses the app and names the later slice."""
-        app = wrap("@info(name='q') from every a=S[v > 8.0] -> b=S[v > 12.0] "
-                   "select a.v as av, b.v as bv insert into Alerts;")
-        with pytest.raises(SiddhiAppCreationError, match="later slice"):
-            Run(True, app, "@app:playback " + TPU + HOTKEYS)
+        (register-file) step; so does the port, whose engine takes the
+        general step for it, fixed at compile time."""
+        app = wrap(INELIGIBLE_STAYS_DENSE["non_final_select"])
+        r = Run(True, app, "@app:playback " + TPU + HOTKEYS)
+        assert r.rt.lowering(step_kinds=True) == {"q": "dense/general"}
+        assert "captured attributes" in r.rt.app_context.hotkey_fallbacks["q"]
+        r.send(gen(9, SKEWED))
+        got, low, hot = r.finish()
+        assert low == {"q": "dense"} and hot == {} and got
 
 
 class TestOutsideTheSlice:
     @pytest.mark.parametrize("app", [
-        # a capture in a filter
-        wrap("@info(name='q') from every a=S[v > 8.0] -> b=S[v > a.v] "
-             "select b.v as bv insert into Alerts;"),
+        # a count: ROADMAP.md §1 item 2
+        wrap("@info(name='q') from every a=S[v > 8.0] -> b=S[v > 12.0]<2> "
+             "select b[last].v as bv insert into Alerts;"),
         # a non-pattern query inside the partition
         wrap("@info(name='q') from S[v > 8.0] select v insert into Alerts;"),
-        # an unpartitioned pattern query
-        SHAPES["pair"],
+        # a sequence: ROADMAP.md §1 item 2
+        wrap("@info(name='q') from every a=S[v > 8.0], b=S[v > 12.0] "
+             "select b.v as bv insert into Alerts;"),
         # an aggregating select
         wrap("@info(name='q') from every a=S[v > 8.0] -> b=S[v > 12.0] "
              "select count() as n insert into Alerts;"),
-    ], ids=["capture", "non_pattern", "unpartitioned", "aggregating"])
+    ], ids=["count", "non_pattern", "sequence", "aggregating"])
     def test_raises_creation_error(self, app):
         with pytest.raises(SiddhiAppCreationError):
             Run(True, app, "@app:playback " + TPU)
+
+    @pytest.mark.parametrize("app", [
+        # a capture in a filter: the general step
+        wrap("@info(name='q') from every a=S[v > 8.0] -> b=S[v > a.v] "
+             "select b.v as bv insert into Alerts;"),
+        # an unpartitioned pattern query: one partition
+        SHAPES["pair"],
+    ], ids=["capture", "unpartitioned"])
+    def test_runs_as_the_reference(self, app):
+        """Once refused, these now run: the same rows as the reference."""
+        jres, tres = both(app, "@app:playback " + TPU, sends=gen(5, SKEWED))
+        assert_same(jres, tres)
+        assert sum(len(b) for b in tres[0]) > 0
 
     def test_partition_needs_tpu_execution(self):
         with pytest.raises(SiddhiAppCreationError, match="execution"):
