@@ -120,7 +120,33 @@ skew-routed pattern path and the incremental-aggregation path through
    partition, a collision round an event), an integer id-join
    (``b=S[k == a.k]``, the integer registers) and a capture-free chain
    at ``instances='40'`` (past the batch step's 32 lanes).
-11. kernels: one line per ported kernel (launches on the main paths,
+11. part b: BASELINE configs 2-4 through ``compile_pattern(...,
+   device="cuda")`` on the general step at full size, each from a seeded
+   mid-chain state (counts below min at count nodes, one side matched
+   at logical nodes, registers in every lane), over 2 warm-up and 10
+   timed batches, each held against the same batches and state with
+   ``device="cpu"``: every batch's matches, output bits and emits by
+   bank, and the whole final state (``active``, ``first_ts``,
+   ``counts``, ``regs``, ``iregs``, ``overflow``) bit-exact.
+   ``count_fraud``: ``tests/test_dense_nfa.py``'s ``FRAUD_APP``
+   (``every a -> b<3:5> within 10 min``) over 100,000 cards, 131,072
+   events a batch, amounts ~ lognormal(4, 1), one event a ms;
+   ``kleene_bruteforce``: ``every f=Login[ok == 0]<3:100> -> s within 1
+   min`` over 1,000,000 users, 131,072 events a batch, 80% failures;
+   ``logical_news``: ``every (t=Tick[...] and n=News[...]) within 5
+   sec`` over 10,000 symbols, ``Tick`` batches of 16,384 and ``News``
+   batches of 2,048 in turns, 500 ms of stream time each.  Each prints
+   events/s, ms a batch, collision rounds a batch, emits in bank 0 and
+   bank 1, one batch's device kernels a step (``torch.profiler``) and a
+   ``<cell>_breakdown`` line (host preparation, step, count, fetch,
+   materialize, device busy share).  Launch counts are read over the
+   checked batches alone: the probe once an engine, no other kernel.
+12. part_b_check: small shapes card against CPU, with their card time:
+   ``sequence_pair``, ``non_every`` and ``bounded_count`` of
+   ``tests/test_dense_differential_fuzz.py``, a whole-chain
+   ``every (a -> b) within 3 sec`` and an ``or`` node, 300 events at
+   P = 8 each.
+13. kernels: one line per ported kernel (launches on the main paths,
    largest difference from its plain version, ``ms``, ``host_us``,
    ``device_us``, plain and library times, bound); the bank kernel's at
    the entry the aggregation path uses, ``accumulate_``, with the delta
@@ -177,6 +203,48 @@ HK_HOT = "@app:hotkeys(k='8', promote='0.1', demote='0.04') "
 # fused-scan shapes (H, n, S): the routed path's, the widest legal one,
 # a ragged one, and one of four 2,048-event tiles
 SCAN_SHAPES = ((8, 2048, 2), (256, 4096, 32), (3, 16, 5), (16, 8192, 3))
+# part b (the general step's counts, Kleene closures and logical nodes):
+# BASELINE configs 2-4 at full size, 2 warm-up and 10 timed batches each
+PB_WARMUP = 2
+PB_STEPS = 10
+FRAUD_CARDS = 100_000
+BRUTE_USERS = 1_000_000
+NEWS_SYMBOLS = 10_000
+TICK_BATCH = 16_384
+NEWS_BATCH = 2_048
+NEWS_SPAN_MS = 500
+# tests/test_dense_nfa.py:14-19 and :105-110
+FRAUD_APP = (
+    "define stream Txn (card long, amount double); @info(name='fraud') "
+    "from every a=Txn[amount > 100.0] -> b=Txn[amount > a.amount]<3:5> "
+    "within 10 min select a.amount as base, b[0].amount as b0, "
+    "b[last].amount as blast insert into Alerts;")
+BRUTE_APP = (
+    "define stream Login (user long, ok int); @info(name='bf') "
+    "from every f=Login[ok == 0]<3:100> -> s=Login[ok == 1] within 1 min "
+    "select f[0].ok as f0, s.ok as sk insert into Alerts;")
+NEWS_APP = (
+    "define stream Tick (sym long, price double); "
+    "define stream News (sym long, score double); @info(name='q') "
+    "from every (t=Tick[price > 10.0] and n=News[score > 0.5]) "
+    "within 5 sec select t.price as p, n.score as sc insert into Alerts;")
+# small part-b shapes held card against CPU (tests/
+# test_dense_differential_fuzz.py:100-116, a whole-chain group-every and
+# an `or` node)
+PB_CHECKS = {
+    "sequence_pair": (
+        "every a=S[v > 10.0], b=S[v > a.v] select a.v as av, b.v as bv"),
+    "non_every": "a=S[v > 10.0] -> b=S[v > a.v] select a.v as av, b.v as bv",
+    "bounded_count": (
+        "a=S[v > 8.0]<2:4> -> b=S[v < 4.0] within 5 sec "
+        "select a[0].v as a0, b.v as bv"),
+    "group_every": (
+        "every (a=S[v > 8.0] -> b=S[v > a.v]) within 3 sec "
+        "select a.v as av, b.v as bv"),
+    "or_node": (
+        "every a=S[v > 12.0] -> (b=S[v < 3.0] or c=S[u > 17.0]) "
+        "within 3 sec select a.v as av, b.v as bv, c.u as cu"),
+}
 # a dependent operation waits at least 4 cycles for the one before it
 DEP_LATENCY_CYCLES = 4
 # the batch step's per-event dependent chain, per node: read the node's
@@ -475,24 +543,40 @@ def hold_batch_step(torch, dense_batch, case, label, sm_clock_hz,
     return line
 
 
-def mid_chain_state(engine, seed):
+def mid_chain_state(engine, seed, within_ms=WITHIN_MS, reg_draw=None):
     """Seeded mid-chain state: ~30% of (partition, node, lane) active,
-    anchors spread over the last ``within`` (a few expire per batch),
-    and, where the engine has registers, captures ~ U(0, 20) in every
-    lane (free lanes keep stale values, as in the reference)."""
+    anchors spread over the last ``within_ms`` (a few expire per batch),
+    at a count node a capture count below its min (so a batch's
+    captures satisfy and emit), at a logical node one side of two
+    matched, and, where the engine has registers, captures in every
+    lane (free lanes keep stale values, as in the reference):
+    ``reg_draw(rng, shape)``, else ~ U(0, 20)."""
     rng = np.random.default_rng(seed)
     state = engine.init_state_host()
     shape = state["active"].shape
     active = rng.random(shape) < 0.3
     active[-1] = False  # scratch row
-    first = np.where(active, rng.integers(1, WITHIN_MS + 1, shape), 0)
-    state["active"] = active
+    first = np.where(active, rng.integers(1, within_ms + 1, shape), 0)
+    counts = np.zeros(shape, np.int32)
+    for s, node in enumerate(engine.nodes):
+        if node.kind == "logical":
+            counts[:, s] = 1 << rng.integers(0, len(node.specs),
+                                             (shape[0], shape[2]))
+        elif not (node.min_count == 1 and node.max_count == 1):
+            counts[:, s] = rng.integers(1, max(node.min_count, 2),
+                                        (shape[0], shape[2]))
+    state["active"] = active | state["active"]
     state["first_ts"] = first.astype(np.int32)
+    state["counts"] = np.where(active, counts, 0).astype(np.int32)
     if engine.alloc.n:
-        state["regs"] = rng.uniform(0.0, 20.0, state["regs"].shape).astype(
-            np.float32)
-    # base so the first batch (ts = 1000) sits WITHIN_MS after rel 0
-    return state, 1000 - WITHIN_MS
+        shape_r = state["regs"].shape
+        state["regs"] = (rng.uniform(0.0, 20.0, shape_r) if reg_draw is None
+                         else reg_draw(rng, shape_r)).astype(np.float32)
+    if "iregs" in state:
+        state["iregs"] = rng.integers(-2, 2, state["iregs"].shape,
+                                      dtype=np.int32)
+    # base so the first batch (ts = 1000) sits within_ms after rel 0
+    return state, 1000 - within_ms
 
 
 def e2e_batch(rng, i):
@@ -503,11 +587,11 @@ def e2e_batch(rng, i):
     return part, {"key": part.astype(np.int64), "v": v}, ts
 
 
-def batch_breakdown(torch, eng, state, rng, first_batch, n=4,
-                    phase="breakdown"):
-    """Where one batch's time goes, on batches after the checked ones:
-    host-clock ms of each stage of ``process`` (each ended by a
-    synchronise), then one more pass under ``torch.profiler`` for the
+def batch_breakdown(torch, eng, state, batches, n=4, phase="breakdown"):
+    """Where one batch's time goes, on batches after the checked ones
+    (``batches``: 2n of (stream, part, cols, ts)): host-clock ms of each
+    stage of ``process`` over the first n (each ended by a
+    synchronise), then the last n under ``torch.profiler`` for the
     device's busy time and its largest kernels.  Timing only: launch
     counts were read before, and the results are not compared."""
     from siddhi_tpu_torch.core.emit_queue import fetch_coalesced
@@ -515,19 +599,18 @@ def batch_breakdown(torch, eng, state, rng, first_batch, n=4,
 
     stages = {"host_prep_ms": [], "step_ms": [], "count_ms": [],
               "fetch_ms": [], "materialize_ms": []}
-    batches = [e2e_batch(rng, first_batch + i) for i in range(2 * n)]
     # host share of the step stage: the batch step's sort by partition,
     # or the general step's collision rounds; and the lane columns
     split = (partition_segments if eng.step_kind == "batch"
              else _round_order)
-    for part, cols, ts in batches[:n]:
+    for stream, part, cols, ts in batches[:n]:
         t = time.perf_counter()
         split(part)
-        eng.prepare_cols("Txn", cols)
+        eng.prepare_cols(stream, cols)
         stages["host_prep_ms"].append(1e3 * (time.perf_counter() - t))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, pending = eng.process_deferred(state, "Txn", part, cols, ts)
+        state, pending = eng.process_deferred(state, stream, part, cols, ts)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         pending.resolve()
@@ -539,10 +622,11 @@ def batch_breakdown(torch, eng, state, rng, first_batch, n=4,
         for k, a, b in (("step_ms", t0, t1), ("count_ms", t1, t2),
                         ("fetch_ms", t2, t3), ("materialize_ms", t3, t4)):
             stages[k].append(1e3 * (b - a))
+
     def run_rest():
         nonlocal state
-        for part, cols, ts in batches[n:]:
-            state, _ev, _out = eng.process(state, "Txn", part, cols, ts)
+        for stream, part, cols, ts in batches[n:]:
+            state, _ev, _out = eng.process(state, stream, part, cols, ts)
 
     return {"phase": phase, "batches": n,
             **{k: sorted(v)[len(v) // 2] for k, v in stages.items()},
@@ -550,24 +634,27 @@ def batch_breakdown(torch, eng, state, rng, first_batch, n=4,
 
 
 def step_device_ops(torch, eng, state, batch) -> dict:
-    """Device items of one general step under ``torch.profiler``: the
-    batch's one collision round is one ``make_general_step`` call, so
-    every kernel of it counts, and the copies beside them."""
+    """Device items of one batch's general steps under
+    ``torch.profiler`` (``batch``: stream, part, cols, ts): one
+    ``make_general_step`` call a collision round, so the kernels a step
+    are the batch's kernels over its rounds; the copies beside them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    part, cols, ts = batch
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
-        state, pending = eng.process_deferred(state, "Txn", part, cols, ts)
+        state, pending = eng.process_deferred(state, *batch)
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
-    return {"rounds": len(pending.chunks),
-            "kernels_per_step": len(dev) - len(copies),
-            "copies_per_step": len(copies),
-            "device_us_per_step": sum(e.time_range.elapsed_us() for e in dev)}
+    rounds = len(pending.chunks)
+    kernels = len(dev) - len(copies)
+    device_us = sum(e.time_range.elapsed_us() for e in dev)
+    return {"rounds": rounds, "kernels_per_step": kernels / rounds,
+            "copies_per_step": len(copies) / rounds,
+            "device_us_per_step": device_us / rounds,
+            "kernels_per_batch": kernels, "device_us_per_batch": device_us}
 
 
 def card_vs_cpu(torch, compile_pattern, state_to_numpy, app, P, n_inst,
@@ -1294,10 +1381,12 @@ def general_phase(torch, SiddhiManager, compile_pattern, state_from_numpy,
     gen_launches = {name: sum(k.launches for k in wrappers)
                     for name, wrappers in kernels.items()}
     gfinal, _ = state_to_numpy(geng, gstate)
-    gbreak = batch_breakdown(torch, geng, gstate, grng, len(gbatches),
-                             phase="general_breakdown")
+    gbreak = batch_breakdown(
+        torch, geng, gstate,
+        [("Txn", *e2e_batch(grng, len(gbatches) + i)) for i in range(8)],
+        phase="general_breakdown")
     gops = step_device_ops(torch, geng, gstate,
-                           e2e_batch(grng, len(gbatches) + 8))
+                           ("Txn", *e2e_batch(grng, len(gbatches) + 8)))
     del gstate
     gcpu = compile_pattern(gapp, "bench", n_partitions=N_PARTITIONS,
                            n_instances=N_INSTANCES, device="cpu")
@@ -1362,6 +1451,198 @@ def general_phase(torch, SiddhiManager, compile_pattern, state_from_numpy,
     for line in checks:
         emit({"phase": "general_check", **line, "card": card})
     return gen_launches
+
+
+def fraud_batches(n):
+    """BASELINE config 2's traffic: card ids uniform over 100,000 cards,
+    ``amount ~ lognormal(4, 1)`` float32, one event a ms."""
+    rng = np.random.default_rng(31)
+    out = []
+    for i in range(n):
+        card = rng.integers(0, FRAUD_CARDS, BATCH)
+        amount = rng.lognormal(4.0, 1.0, BATCH).astype(np.float32)
+        ts = 1000 + i * BATCH + np.arange(BATCH, dtype=np.int64)
+        out.append(("Txn", card.astype(np.int32),
+                    {"card": card, "amount": amount}, ts))
+    return out
+
+
+def brute_batches(n):
+    """BASELINE config 3's traffic: users uniform over 1,000,000, a
+    failed login (``ok = 0``) with p = 0.8, one event a ms."""
+    rng = np.random.default_rng(37)
+    out = []
+    for i in range(n):
+        user = rng.integers(0, BRUTE_USERS, BATCH)
+        ok = (rng.random(BATCH) >= 0.8).astype(np.int32)
+        ts = 1000 + i * BATCH + np.arange(BATCH, dtype=np.int64)
+        out.append(("Login", user.astype(np.int32),
+                    {"user": user, "ok": ok}, ts))
+    return out
+
+
+def news_batches(n):
+    """BASELINE config 4's traffic: ``Tick`` batches of 16,384 and
+    ``News`` batches of 2,048 in turns, each covering the next 500 ms of
+    stream time in order; symbols uniform over 10,000,
+    ``price ~ U(1, 500)``, ``score ~ U(0, 1)``."""
+    rng = np.random.default_rng(41)
+    out = []
+    for i in range(n):
+        tick = i % 2 == 0
+        B = TICK_BATCH if tick else NEWS_BATCH
+        sym = rng.integers(0, NEWS_SYMBOLS, B)
+        ts = (1000 + i * NEWS_SPAN_MS
+              + np.sort(rng.integers(0, NEWS_SPAN_MS, B))).astype(np.int64)
+        cols = ({"sym": sym, "price": rng.uniform(1.0, 500.0, B)} if tick
+                else {"sym": sym, "score": rng.uniform(0.0, 1.0, B)})
+        out.append(("Tick" if tick else "News", sym.astype(np.int32), cols,
+                    ts))
+    return out
+
+
+def run_cell(torch, eng, state, batches):
+    """``batches`` through ``process_deferred``, ``resolve``, one fetch
+    and ``materialize`` (what ``process`` does), each batch synchronised
+    and timed by the host clock; then each batch's emits by bank (0: at
+    the last node, 1: via-path clones)."""
+    from siddhi_tpu_torch.core.emit_queue import fetch_coalesced
+    from siddhi_tpu_torch.ops.dense_nfa import flatten_match_parts
+
+    sync = (torch.cuda.synchronize if eng.device.type == "cuda"
+            else (lambda: None))
+    results, secs, banks = [], [], []
+    for stream, part, cols, ts in batches:
+        sync()
+        t = time.perf_counter()
+        state, pending = eng.process_deferred(state, stream, part, cols, ts)
+        host = []
+        if pending is not None and pending.resolve():
+            host = fetch_coalesced(pending.device_arrays())
+            ev, out = pending.materialize(host)
+        else:
+            ev, out = flatten_match_parts([], [], [],
+                                          max(len(eng.out_spec), 1))
+        sync()
+        secs.append(time.perf_counter() - t)
+        results.append((ev, out))
+        emits = [h[ch["sel"]] for ch, h in zip(pending.chunks, host[::4])]
+        banks.append([sum(int(e[:, b * eng.I:(b + 1) * eng.I].sum())
+                          for e in emits) for b in (0, 1)])
+    return state, results, secs, banks
+
+
+def part_b_cell(torch, compile_pattern, state_from_numpy, state_to_numpy,
+                kernels, card, name, app, qname, P, batches, within_ms,
+                reg_draw=None) -> dict:
+    """One part-b cell at full size: ``compile_pattern(app, device=
+    "cuda")`` from a seeded mid-chain state, the warm-up and timed
+    batches (launch counts read over the engine's build and these
+    batches alone), a breakdown and one
+    batch's device kernels, then the same batches and state with
+    ``device="cpu"``: every batch's matches, output bits and emit banks
+    and the whole final state must be equal.  ``batches`` holds the
+    checked batches, 8 more for the breakdown and one to profile.
+    Returns this path's launches by kernel."""
+    from siddhi_tpu_torch.ops.dense_nfa import _round_order
+
+    checked = batches[:PB_WARMUP + PB_STEPS]
+    for wrappers in kernels.values():
+        for k in wrappers:
+            k.launches = 0
+    eng = compile_pattern(app, qname, n_partitions=P, device="cuda")
+    host, base = mid_chain_state(eng, seed=len(name), within_ms=within_ms,
+                                 reg_draw=reg_draw)
+    state = state_from_numpy(eng, host, base)
+    state, results, secs, banks = run_cell(torch, eng, state, checked)
+    launches = {kname: sum(k.launches for k in wrappers)
+                for kname, wrappers in kernels.items()}
+    final, _ = state_to_numpy(eng, state)
+    brk = batch_breakdown(torch, eng, state, batches[len(checked):-1],
+                          phase=f"{name}_breakdown")
+    ops = step_device_ops(torch, eng, state, batches[-1])
+    del state
+    cpu = compile_pattern(app, qname, n_partitions=P, device="cpu")
+    cstate = state_from_numpy(cpu, host, base)
+    t = time.perf_counter()
+    cstate, cres, _csecs, cbanks = run_cell(torch, cpu, cstate, checked)
+    cpu_s = time.perf_counter() - t
+    cfinal, _ = state_to_numpy(cpu, cstate)
+    del cstate
+    for i, ((ev, out), (cev, cout)) in enumerate(zip(results, cres)):
+        if not (np.array_equal(ev, cev) and out.dtype == cout.dtype
+                and out_bits(out) == out_bits(cout)):
+            raise AssertionError(f"{name}: batch {i}'s matches differ "
+                                 "between the card and the CPU run")
+    bad = [k for k in cfinal if not np.array_equal(
+        final[k].view(np.uint8), cfinal[k].view(np.uint8))]
+    n_matches = [len(ev) for ev, _out in results]
+    if bad or banks != cbanks or not sum(n_matches):
+        raise AssertionError(f"{name}: final {bad} or emit banks differ "
+                             "between the card and the CPU run, or no "
+                             f"match ({n_matches})")
+    if (eng.step_kind != "general" or launches["probe"] < 1
+            or any(v for k, v in launches.items() if k != "probe")):
+        raise AssertionError(f"{name}: step {eng.step_kind}, launches "
+                             f"{launches}")
+    steady = secs[PB_WARMUP:]
+    events = [len(b[1]) for b in checked]
+    line = {"phase": name, "app": app, "step_kind": eng.step_kind,
+            "partitions": P, "states": eng.S, "instances": eng.I,
+            "registers": eng.alloc.n, "int_registers": eng.alloc.n_int,
+            "state_bytes": sum(int(np.prod(shape)) * dt.itemsize
+                               for shape, dt in eng.state_layout().values()),
+            "events_per_batch": events, "warmup_batches": PB_WARMUP,
+            "timed_batches": PB_STEPS, "bit_exact_batches": len(checked),
+            "bit_exact_state": sorted(cfinal),
+            "matches_per_batch": n_matches,
+            "emits_bank0": [b[0] for b in banks],
+            "emits_bank1": [b[1] for b in banks],
+            "rounds_per_batch": [len(_round_order(b[1])[1]) - 1
+                                 for b in checked],
+            "batch_ms": [1e3 * x for x in secs],
+            "events_per_s": sum(events[PB_WARMUP:]) / sum(steady),
+            "events_per_s_median_batch": sorted(
+                e / x for e, x in zip(events[PB_WARMUP:], steady))[
+                    len(steady) // 2],
+            "profiled_batch": ops, "launches": launches,
+            "cpu_seconds": cpu_s, "card": card}
+    emit(line)
+    emit(brk)
+    return launches
+
+
+def part_b_phase(torch, compile_pattern, state_from_numpy, state_to_numpy,
+                 kernels, card) -> dict:
+    """Phases 11 and 12: BASELINE configs 2-4 on the general step at
+    full size, each held against its CPU run, then the small
+    ``part_b_check`` cases.  Returns the three cells' launches by
+    kernel, summed."""
+    n = PB_WARMUP + PB_STEPS + 9
+    cells = [
+        ("count_fraud", FRAUD_APP, "fraud", FRAUD_CARDS, fraud_batches(n),
+         600_000, lambda rng, shape: rng.lognormal(4.0, 1.0, shape)),
+        ("kleene_bruteforce", BRUTE_APP, "bf", BRUTE_USERS,
+         brute_batches(n), 60_000, None),
+        ("logical_news", NEWS_APP, "q", NEWS_SYMBOLS, news_batches(n),
+         5_000, lambda rng, shape: rng.uniform(0.0, 500.0, shape)),
+    ]
+    total = {kname: 0 for kname in kernels}
+    for name, app, qname, P, batches, within_ms, draw in cells:
+        got = part_b_cell(torch, compile_pattern, state_from_numpy,
+                          state_to_numpy, kernels, card, name, app, qname,
+                          P, batches, within_ms, draw)
+        for kname, v in got.items():
+            total[kname] += v
+        gc.collect()
+    for label, q in PB_CHECKS.items():
+        line = card_vs_cpu(
+            torch, compile_pattern, state_to_numpy,
+            "define stream S (k long, u double, v double); "
+            f"@info(name='q') from {q} insert into Alerts;",
+            8, N_INSTANCES, small_batches(len(label), 2, 150, 8), label)
+        emit({"phase": "part_b_check", **line, "card": card})
+    return total
 
 
 def main() -> int:
@@ -1490,7 +1771,9 @@ def main() -> int:
                 "dense_batch": dense_batch.batch_step.launches,
                 "dense_step": dense_step.packed_step.launches}
     final, _ = state_to_numpy(eng, state)
-    breakdown = batch_breakdown(torch, eng, state, rng, E2E_BATCHES)
+    breakdown = batch_breakdown(
+        torch, eng, state,
+        [("Txn", *e2e_batch(rng, E2E_BATCHES + i)) for i in range(8)])
     # one more batch's inputs at the kernel's boundary, for phase 7
     full_case = capture_batch_step(lambda: eng.process(
         state, "Txn", *e2e_batch(rng, E2E_BATCHES + 8)))
@@ -1854,11 +2137,20 @@ def main() -> int:
                          "scan_chain": [scan_chain.fused_scan],
                          "bank_scatter": bank_entries}, card)
 
-    # 11. kernels -------------------------------------------------------------
+    # 11-12. part b: BASELINE configs 2-4, then the small checks -----------
+    pb_launches = part_b_phase(
+        torch, compile_pattern, state_from_numpy, state_to_numpy,
+        {"probe": [probe.add_one], "dense_batch": [dense_batch.batch_step],
+         "dense_step": [dense_step.packed_step],
+         "scan_chain": [scan_chain.fused_scan],
+         "bank_scatter": bank_entries}, card)
+
+    # 13. kernels -------------------------------------------------------------
     by_path = lambda name: {"dense_1M": launches.get(name, 0),
                             "skew_routed": hk_launches.get(name, 0),
                             "aggregation": agg_launches[name],
-                            "general_1M": gen_launches[name]}
+                            "general_1M": gen_launches[name],
+                            "part_b": pb_launches[name]}
     emit({"kernels": [
         {"name": "dense_batch", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/dense_batch.cu",
@@ -1882,7 +2174,8 @@ def main() -> int:
          "source": "siddhi_tpu_torch/kernels/csrc/probe.cu",
          "replaces": "siddhi_tpu/kernels/probe.py:56",
          "launches": (launches["probe"] + hk_launches["probe"]
-                      + agg_launches["probe"] + gen_launches["probe"]),
+                      + agg_launches["probe"] + gen_launches["probe"]
+                      + pb_launches["probe"]),
          "launches_by_path": by_path("probe"), "max_abs_err": probe_err,
          **{k: probe_line[k] for k in KERNEL_KEYS}},
         {"name": "scan_chain", "route": "cuda",

@@ -9,12 +9,15 @@ Python instances.
 
 The dense engine picks its step at compile time
 (``planner/kernels.route_dense_step``): capture-free ``every`` chains
-with at most 32 lanes run the batch-step kernel, and chains with
-captures (``v > e1.v``, ``select e1.v``), more lanes or reset on emit
-run the general step in torch ops.  The reference's mesh sharding,
-fault harness, span tracer, absent-node deadline timers and idle-key
-purge are left out; the engine refuses what it does not run, naming the
-later slice.  Matches reach the query's output junction through the
+of plain nodes with at most 32 lanes run the batch-step kernel; chains
+with captures (``v > e1.v``, ``select e1.v``), counts and Kleene
+closures, logical ``and``/``or`` nodes (over one stream or several),
+sequences, non-every heads, whole-chain group-every, more lanes or
+reset on emit run the general step in torch ops.  A pattern over
+several streams is fed by one receiver per stream.  The reference's
+mesh sharding, fault harness, span tracer, absent-node deadline timers
+and idle-key purge are left out; the engine refuses what it does not
+run, naming the later slice.  Matches reach the query's output junction through the
 runtime's ``EmitQueue``; the reference's ``aux`` side channels
 (partition keys and event indices for aggregating selectors) wait for
 the aggregating form.
@@ -41,9 +44,11 @@ from siddhi_tpu_torch.core.exceptions import (
     SiddhiAppRuntimeError,
 )
 from siddhi_tpu_torch.core.ingest_stage import IngestStage, IngestStats
+from siddhi_tpu_torch.kernels.dense_step import candidate_env
 from siddhi_tpu_torch.ops.dense_nfa import (
     DensePatternEngine,
     filter_env,
+    is_open_count,
     state_from_numpy,
     state_to_numpy,
 )
@@ -139,20 +144,29 @@ def output_attr_types(eng) -> List[AttrType]:
 
 
 def _trace_check(eng):
-    """Evaluate every node filter once on a tiny zero env of exactly the
-    lanes the step provides (the candidate's numeric columns and the
-    node's float and integer registers, ``filter_env``), so a filter the
-    device cannot run (one reading a string attribute, say) fails at
-    plan time, not on the first event.  The reference traces the whole
-    step abstractly."""
+    """Evaluate every filter the step evaluates once, on a tiny zero env
+    of exactly the lanes the step provides (the candidate's numeric
+    columns and a node's float and integer registers, ``filter_env``):
+    each spec of each node (both sides of a logical node), and each
+    via-path filter (node ``s``'s against node ``s-1``'s registers).  A
+    filter the device cannot run (one reading a string attribute, say)
+    fails at plan time, not on the first event.  The reference traces
+    the whole step abstractly."""
     B, I = 4, eng.I
     slots = list(eng.alloc.slots.values())
-    regs = torch.zeros((B, I, max(eng.alloc.n, 1)), dtype=torch.float32)
-    iregs = torch.zeros((B, I, 2 * eng.alloc.n_int), dtype=torch.int32)
+    regs = torch.zeros((B, eng.S, I, max(eng.alloc.n, 1)),
+                       dtype=torch.float32)
+    iregs = torch.zeros((B, eng.S, I, 2 * eng.alloc.n_int),
+                        dtype=torch.int32)
+    # (node, spec, node whose registers feed the env)
+    uses = [(s, si, s) for s, node in enumerate(eng.nodes)
+            for si in range(len(node.specs))]
+    uses += [(s, 0, s - 1) for s in range(1, eng.S)
+             if is_open_count(eng.nodes[s - 1])]
     try:
-        for node, filters in zip(eng.nodes, eng.node_filters):
-            spec = node.specs[0]
-            f = filters[0]
+        for s, si, rn in uses:
+            spec = eng.nodes[s].specs[si]
+            f = eng.node_filters[s][si]
             if f is None:
                 continue
             zeros = {a: np.zeros(B, dtype=spec.stream_def.attribute_type(a)
@@ -160,9 +174,10 @@ def _trace_check(eng):
                      for a in eng.numeric_stream_attrs(spec.stream_key)}
             cols = {k: torch.from_numpy(v) for k, v in
                     eng.prepare_cols(spec.stream_key, zeros).items()}
-            ok = torch.as_tensor(f.fn(filter_env(
-                spec.stream_def, slots, cols,
-                torch.zeros(B, dtype=torch.int32), regs, iregs)))
+            cand = candidate_env(spec.stream_def, cols,
+                                 torch.zeros(B, dtype=torch.int32))
+            ok = torch.as_tensor(f.fn(filter_env(cand, slots, regs[:, rn],
+                                                 iregs[:, rn])))
             ok.to(torch.bool).broadcast_to((B, I))  # the step's lane shape
     except SiddhiAppCreationError:
         raise

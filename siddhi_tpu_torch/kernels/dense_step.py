@@ -185,9 +185,22 @@ def packed_step(ok_pk, a_pk, first_t, ts, *, n_inst: int,
 packed_step.launches = 0
 
 
+# smallest normal float32: below it, XLA on the CPU flushes to zero
+F32_MIN_NORMAL = 2.0 ** -126
+
+
+def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
+    """A float32 lane as the reference's XLA on the CPU reads it: a
+    subnormal is a zero of its sign (NaN and infinities pass)."""
+    return torch.where(x.abs() < F32_MIN_NORMAL, x * 0.0, x)
+
+
 def candidate_env(stream_def, cols, ts):
-    """Filter env of one node: the event's lane columns (``[B, 1]``)
-    under ``__cand.<attr>`` keys, integer attrs as their hi/lo pair."""
+    """Filter env of one stream's nodes: the event's lane columns
+    (``[B, 1]``) under ``__cand.<attr>`` keys, integer attrs as their
+    hi/lo pair, float attrs with subnormals flushed
+    (``flush_subnormals``: filters compare as the reference does;
+    captures read ``cols``, whose bits stay)."""
     env = {}
     for attr in stream_def.attributes:
         if attr.type in _INT_TYPES:
@@ -196,7 +209,8 @@ def candidate_env(stream_def, cols, ts):
                 env[f"__cand.{attr.name}|hi"] = cols[hk][:, None]
                 env[f"__cand.{attr.name}|lo"] = cols[lk][:, None]
         elif attr.name in cols:
-            env["__cand." + attr.name] = cols[attr.name][:, None]
+            env["__cand." + attr.name] = flush_subnormals(
+                cols[attr.name])[:, None]
     env[TS_KEY] = ts[:, None]
     env[N_KEY] = ts.shape[0]
     return env
@@ -237,6 +251,7 @@ def build_packed_nfa(engine, stream_key: str):
         # lane-uniform candidate filters: one eligibility row per node,
         # pre-ANDed with the valid mask (off-stream nodes never fire)
         ok_mat = torch.zeros((S, Bp), dtype=torch.bool, device=dev)
+        cenv = None  # one env for every node on this stream
         for s in range(S):
             if not on_stream[s]:
                 continue
@@ -244,9 +259,10 @@ def build_packed_nfa(engine, stream_key: str):
             if f is None:
                 ok_mat[s, :B] = valid
             else:
-                okb = torch.as_tensor(
-                    f.fn(candidate_env(nodes[s].specs[0].stream_def, cols, ts)),
-                    device=dev)
+                if cenv is None:
+                    cenv = candidate_env(nodes[s].specs[0].stream_def, cols,
+                                         ts)
+                okb = torch.as_tensor(f.fn(cenv), device=dev)
                 ok_mat[s, :B] = okb.to(torch.bool).broadcast_to((B, 1))[:, 0] & valid
 
         # gather the round's rows (copies) before anything is written

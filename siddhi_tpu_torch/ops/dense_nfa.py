@@ -1,15 +1,19 @@
 """Dense vectorized NFA on torch tensors: the port's pattern hot path.
 
-Port of the JAX package's ``ops/dense_nfa.py`` for every-headed chains
-of plain stream nodes with an optional ``within``, float and integer
-captures and first/[0]/[last] refs.  Per-partition NFA state lives on
-the device as a dict of tensors under the JAX engine's keys:
+Port of the JAX package's ``ops/dense_nfa.py`` for its event-time
+step: chains of plain stream, count (``<3:5>``, Kleene ``<1:>``) and
+logical (``and``/``or``, over one stream or several) nodes under an
+``every``, non-every or whole-chain group-every head, patterns and
+strict-contiguity sequences, an optional ``within``, float and integer
+captures and first/[0]/[last] refs.  Absent nodes and sides (deadline
+timers) are a later slice.  Per-partition NFA state lives on the device
+as a dict of tensors under the JAX engine's keys:
 
 - ``active`` ``[P+1, S, I]`` bool: pending instance lanes per node;
 - ``first_ts`` ``[P+1, S, I]`` int32: within anchors, relative ms since
   ``base_ts`` (0 = unset);
-- ``counts`` ``[P+1, S, I]`` int32: zero in the classes the port runs
-  (no counting nodes yet), kept for the shared layout;
+- ``counts`` ``[P+1, S, I]`` int32: captures so far at a count node, the
+  bitmask of matched sides at a logical node;
 - ``regs`` ``[P+1, S, I, max(R, 1)]`` float32: the float capture
   registers of each pending instance;
 - ``iregs`` ``[P+1, S, I, 2*RI]`` int32 (only with integer captures):
@@ -20,12 +24,13 @@ Row ``P`` is the reference's scratch row; no step writes it.  Each
 engine runs one of two steps, picked at compile time by
 ``planner/kernels.route_dense_step`` (``engine.step_kind``):
 
-- ``"batch"``: a capture-free every-chain with at most 32 lanes.  The
-  batch is sorted stably by partition on the host
-  (``partition_segments``), staged in one put, and stepped in one
-  ``kernels/dense_batch.batch_step``: the CUDA kernel on a card walks
-  each partition's events in batch order against its state row, in
-  place; its plain torch version on the CPU steps the collision rounds.
+- ``"batch"``: a capture-free every-chain of plain stream nodes with at
+  most 32 lanes and no reset on emit.  The batch is sorted stably by
+  partition on the host (``partition_segments``), staged in one put,
+  and stepped in one ``kernels/dense_batch.batch_step``: the CUDA kernel
+  on a card walks each partition's events in batch order against its
+  state row, in place; its plain torch version on the CPU steps the
+  collision rounds.
 - ``"general"``: everything else the port admits.  The batch is staged
   in one put, split into collision rounds (each partition at most once
   a round), and each round runs ``make_general_step``: the JAX
@@ -60,15 +65,22 @@ from siddhi_tpu_torch.core.ingest_stage import staged_put
 from siddhi_tpu_torch.kernels import probe
 from siddhi_tpu_torch.kernels.dense_batch import MAX_INSTANCES, batch_step
 from siddhi_tpu_torch.kernels.dense_step import (
+    F32_MIN_NORMAL,
     MAX_INSTANCES as PACKED_MAX_INSTANCES,
     build_packed_nfa,
     candidate_env,
+    flush_subnormals,
 )
 from siddhi_tpu_torch.kernels.plane_pack import unpack_state
 from siddhi_tpu_torch.ops.nfa import NFABuilder, Node, PatternScope
 from siddhi_tpu_torch.planner.expr import CompiledExpression, ExpressionCompiler
 from siddhi_tpu_torch.planner.kernels import route_dense_step
-from siddhi_tpu_torch.query_api import AttrType, StateInputStream, Variable
+from siddhi_tpu_torch.query_api import (
+    AttrType,
+    CountStateElement,
+    StateInputStream,
+    Variable,
+)
 from siddhi_tpu_torch.query_api.definition import StreamDefinition
 
 
@@ -167,13 +179,57 @@ class RegAllocator:
         return self._n_int
 
 
+_FLOAT_TYPES = (AttrType.FLOAT, AttrType.DOUBLE)
+_ANY = CountStateElement.ANY  # an unbounded count's max
+
+
+def _flush_const(c):
+    """A constant where it meets a float32 lane: the reference's weakly
+    typed scalar becomes float32 there, a zero of its sign when that is
+    subnormal.  Integers and booleans pass."""
+    if isinstance(c, (float, np.floating)):
+        f = np.float32(c)
+        if f != 0 and abs(f) < F32_MIN_NORMAL:
+            return type(c)(np.copysign(0.0, f))
+    return c
+
+
 class DenseExprCompiler(ExpressionCompiler):
     """Dense-filter compiler: integer (INT/LONG) leaves ride hi/lo int32
     pairs (``<key>|hi`` / ``<key>|lo`` env lanes); comparisons between
     integer leaves compile to bit-exact paired compares at any
-    magnitude.  Every other integer use (arithmetic) raises."""
+    magnitude.  Every other integer use (arithmetic) raises.
+
+    Float lanes follow the reference's XLA on the CPU, which flushes
+    float32 subnormals to zeros of their sign: the filter envs hold
+    flushed float columns and registers (``candidate_env``,
+    ``flush_subnormals`` over the register file once a step, so each
+    lane is flushed once, not at every leaf); the compiler flushes a
+    constant where it meets a lane and the result of float arithmetic
+    on lanes.  Arithmetic between two constants stays numpy float64, as
+    in the reference's trace."""
 
     PAIR_TYPES = _INT_TYPES
+
+    @staticmethod
+    def _meet(a, b):
+        # a constant meeting a lane becomes float32 there
+        if isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
+            return a, _flush_const(b)
+        if isinstance(b, torch.Tensor) and not isinstance(a, torch.Tensor):
+            return _flush_const(a), b
+        return a, b
+
+    def _c_ArithmeticOp(self, e):
+        c = super()._c_ArithmeticOp(e)
+        if c.type not in _FLOAT_TYPES:
+            return c
+
+        def fn(env):
+            x = c.fn(env)
+            return flush_subnormals(x) if isinstance(x, torch.Tensor) else x
+
+        return CompiledExpression(fn, c.type)
 
     def _i64_parts(self, e, var_only=False):
         """Integer leaf -> (hi_fn, lo_fn) env readers, else None.
@@ -233,14 +289,15 @@ class DenseExprCompiler(ExpressionCompiler):
         return super()._c_Variable(e)
 
 
-def filter_env(stream_def, slots, cols, ts, regs, iregs):
-    """Filter env of one node over ``[B, I]`` lanes: the candidate's lane
-    columns broadcast down the instance axis (``candidate_env``) and the
-    node's registers per instance, under the reference's keys:
-    ``__reg.{i}`` for float slots of ``regs [B, I, R]``, and
-    ``__ireg.{i}|hi``/``|lo`` for integer slots of ``iregs [B, I, 2*RI]``
-    (the JAX step's ``env_for``)."""
-    env = candidate_env(stream_def, cols, ts)
+def filter_env(cand_env, slots, regs, iregs):
+    """Filter env of one node over ``[B, I]`` lanes: the candidate's
+    columns (``cand_env``, ``candidate_env``'s, shared by the nodes of
+    one stream) and the node's registers per instance, under the
+    reference's keys: ``__reg.{i}`` for float slots of ``regs [B, I,
+    R]``, and ``__ireg.{i}|hi``/``|lo`` for integer slots of ``iregs
+    [B, I, 2*RI]`` (the JAX step's ``env_for``).  ``regs`` are as
+    filters read them (``flush_subnormals``)."""
+    env = dict(cand_env)
     for slot in slots:
         if slot.integer:
             env[f"__ireg.{slot.index}|hi"] = iregs[:, :, 2 * slot.index]
@@ -248,10 +305,6 @@ def filter_env(stream_def, slots, cols, ts, regs, iregs):
         else:
             env[f"__reg.{slot.index}"] = regs[:, :, slot.index]
     return env
-
-
-# smallest normal float32: below it, XLA's CPU sum flushes to zero
-_F32_MIN_NORMAL = 2.0 ** -126
 
 
 def _one_hot_sum(values: torch.Tensor) -> torch.Tensor:
@@ -263,7 +316,7 @@ def _one_hot_sum(values: torch.Tensor) -> torch.Tensor:
     reshape and the value passes unchanged.  The port gathers the moved
     value (``values``, for I > 1) and applies that rule without doing
     arithmetic on it, so the card and the CPU give the same bits."""
-    return torch.where(values.abs() < _F32_MIN_NORMAL,
+    return torch.where(values.abs() < F32_MIN_NORMAL,
                        torch.zeros((), dtype=values.dtype,
                                    device=values.device), values)
 
@@ -317,6 +370,24 @@ def _rank_place(t, mask, anchor, src_regs, src_iregs, a, first, counts,
     return ovf
 
 
+# the shapes the reference runs on its host pattern engine
+_HOST = (" — ROADMAP.md §1 item 7 (host patterns), a later slice of the "
+         "port")
+
+
+def _plain(node: Node) -> bool:
+    """A plain stream node: one event, no count."""
+    return (node.kind == "stream" and node.min_count == 1
+            and node.max_count == 1)
+
+
+def is_open_count(node: Node) -> bool:
+    """A count that stays dually pending once satisfied (``<1:>``,
+    ``<2:4>``): it clones through its successor by the via-path."""
+    return (node.kind == "stream" and not _plain(node)
+            and (node.max_count == _ANY or node.max_count > node.min_count))
+
+
 class DensePatternEngine:
     """A lowered node chain compiled into the batch step or the general
     step (``step_kind``, fixed at compile time).
@@ -350,14 +421,18 @@ class DensePatternEngine:
         n_instances: int = 4,
         device=None,
         reset_on_emit: Optional[bool] = None,
+        every_start: Optional[bool] = None,
     ):
         self.device = resolve_device(device)
         self.nodes = nodes
         self.ref_defs = ref_defs
         self.within_ms = within_ms
         self.n_partitions = int(n_partitions)
-        # an every-headed chain re-arms its start on every event
-        self.every_start = any(n.rearm_to is not None for n in nodes)
+        # an `every` anywhere re-arms the start on every event (None: as
+        # the pattern says; the reference's compile_pattern takes the
+        # same override)
+        self.every_start = (any(n.rearm_to is not None for n in nodes)
+                            if every_start is None else bool(every_start))
         # a match clears the partition's whole automaton.  None: only for
         # non-every heads, as the reference's product runtime sets it
         # (`every` consumes just the matched instance); the reference's
@@ -366,16 +441,37 @@ class DensePatternEngine:
                               else bool(reset_on_emit))
         self.is_sequence = is_sequence
         self.S = len(nodes)
-        self.I = 1 if (is_sequence or not self.every_start) else max(int(n_instances), 1)
+        # sequences keep one pending per state; non-every patterns arm
+        # exactly one chain
+        self.I = (1 if (is_sequence or not self.every_start)
+                  else max(int(n_instances), 1))
         if self.S > 32:
             raise SiddhiAppCreationError("dense NFA supports at most 32 chain nodes")
-        # any `every` other than the standing virgin at node 0 re-arms a
-        # group, which neither step models yet
-        self.group_every = any(
-            n.rearm_to is not None and not (n.pos == 0 and n.rearm_to == 0)
-            for n in nodes)
+        # a rearm at node 0's completion is the standing virgin; a
+        # whole-chain group-every (`every (e1 -> e2)`, the last node
+        # re-arming node 0) keeps one arm at a time: the virgin arms only
+        # while the partition has no active instance
+        self.group_every = False
+        for n in nodes:
+            if n.rearm_to is None or (n.pos == 0 and n.rearm_to == 0):
+                continue
+            if (n.pos == self.S - 1 and n.rearm_to == 0
+                    and not is_sequence
+                    and nodes[0].kind == "stream"
+                    and nodes[0].min_count == 1 and nodes[0].max_count == 1
+                    and not any(sp.is_absent for nn in nodes
+                                for sp in nn.specs)):
+                self.group_every = True
+                continue
+            raise SiddhiAppCreationError(
+                "dense NFA: this group-`every` shape (partial chain, or "
+                "absent states whose violation must kill the arm "
+                "permanently) needs the host engine" + _HOST)
+        if self.group_every:
+            self.I = 1
         self.has_deadlines = any(sp.is_absent and sp.waiting_ms is not None
                                  for n in nodes for sp in n.specs)
+        self._check_host_only_shapes()
         self.alloc = RegAllocator()
         self._compile_filters(stream_to_ref)
         self._compile_outputs(select_vars, stream_to_ref, select_names)
@@ -385,6 +481,18 @@ class DensePatternEngine:
             [slot for (ref, _a, _l), slot in self.alloc.slots.items()
              if any(ref == spec.ref for spec in node.specs)]
             for node in nodes]
+        absent_refs = {sp.ref for n in nodes for sp in n.specs if sp.is_absent}
+        if any(ref in absent_refs for (ref, _a, _l) in self.alloc.slots):
+            raise SiddhiAppCreationError(
+                "dense NFA: filters/selects cannot reference an absent "
+                "event (it never arrives)" + _HOST)
+        # the via-path models one capture and advance, so an open
+        # count's successor must be a plain stream node
+        for n, nxt in zip(nodes, nodes[1:]):
+            if is_open_count(n) and not _plain(nxt):
+                raise SiddhiAppCreationError(
+                    "dense NFA: open-ended count followed by a "
+                    "count/logical node needs the host engine" + _HOST)
         self.step_kind = route_dense_step(self)
         if self.device.type == "cuda":
             ok, reason = probe.kernels_available(self.device)
@@ -392,6 +500,60 @@ class DensePatternEngine:
                 raise SiddhiAppCreationError(reason)
         self._step_cache: Dict[str, Callable] = {}
         self._general_cache: Dict[str, Callable] = {}
+
+    def _check_host_only_shapes(self):
+        """The shapes the reference sends to its host engine (its
+        constructor's refusals, with its wording): optional counts, and
+        absent states in sequences or where the dense step cannot model
+        them.  The constructor adds absent refs in filters or selects and
+        an open count followed by a count or logical node."""
+        nodes, every_start = self.nodes, self.every_start
+        for ni, n in enumerate(nodes):
+            if n.kind == "stream" and n.min_count == 0:
+                raise SiddhiAppCreationError(
+                    "dense NFA does not support optional (min 0) states "
+                    "yet; use the host engine" + _HOST)
+            absent = [sp for sp in n.specs if sp.is_absent]
+            if n.kind != "absent" and not absent:
+                continue
+            wait = None
+            for sp in absent:
+                if sp.waiting_ms is not None:
+                    wait = int(sp.waiting_ms)
+            if self.is_sequence:
+                raise SiddhiAppCreationError(
+                    "dense NFA: absent states in sequences (strict "
+                    "continuity over a waiting state) need the host "
+                    "engine" + _HOST)
+            if n.kind == "absent" and wait is None:
+                raise SiddhiAppCreationError(
+                    "dense NFA: standalone absent node without a 'for' "
+                    "duration needs the host engine" + _HOST)
+            if ni == 0 and wait is not None:
+                raise SiddhiAppCreationError(
+                    "dense NFA: a leading absent 'for' deadline counts "
+                    "from app start — host engine used" + _HOST)
+            if wait is not None and wait > 2**23:
+                raise SiddhiAppCreationError(
+                    "dense NFA: absent 'for' durations above 2^23 ms would "
+                    "overflow the int32 relative-time deadline — host "
+                    "engine used" + _HOST)
+            if n.kind == "logical":
+                if n.logical_op == "or":
+                    raise SiddhiAppCreationError(
+                        "dense NFA: 'or' with an absent side needs the "
+                        "host engine" + _HOST)
+                if ({sp.stream_key for sp in n.specs if not sp.is_absent}
+                        & {sp.stream_key for sp in absent}):
+                    raise SiddhiAppCreationError(
+                        "dense NFA: logical and-not over the SAME stream "
+                        "(one event can both match and violate) needs the "
+                        "host engine" + _HOST)
+                if ni == 0 and every_start:
+                    raise SiddhiAppCreationError(
+                        "dense NFA: every-start logical and-not (violation "
+                        "permanently kills the start state) needs the host "
+                        "engine" + _HOST)
 
     # -- compilation --------------------------------------------------------
 
@@ -469,16 +631,24 @@ class DensePatternEngine:
         return layout
 
     def init_state_host(self) -> Dict[str, np.ndarray]:
-        """Zero state as numpy arrays, in the JAX engine's layout."""
-        return {k: np.zeros(shape, dt)
-                for k, (shape, dt) in self.state_layout().items()}
+        """Initial state as numpy arrays, in the JAX engine's layout: all
+        zero, but a non-every head arms node 0 once per partition (lane
+        0), which a match's reset clears for good."""
+        state = {k: np.zeros(shape, dt)
+                 for k, (shape, dt) in self.state_layout().items()}
+        if not self.every_start:
+            state["active"][:, 0, 0] = True
+        return state
 
     def init_state(self) -> Dict[str, torch.Tensor]:
-        """Zero state on the engine's device."""
-        return {
+        """Initial state on the engine's device (``init_state_host``)."""
+        state = {
             k: torch.zeros(shape, dtype=_TORCH_DTYPES[dt], device=self.device)
             for k, (shape, dt) in self.state_layout().items()
         }
+        if not self.every_start:
+            state["active"][:, 0, 0] = True
+        return state
 
     # -- step ---------------------------------------------------------------
 
@@ -509,10 +679,12 @@ class DensePatternEngine:
         """The general dense step for one collision round of one source
         stream: the JAX package's ``DensePatternEngine.make_step`` with
         ``use_kernel = False`` (``siddhi_tpu/ops/dense_nfa.py:610``, step
-        body ``:695-1238``) in torch ops, for the classes the router
-        sends here: plain stream nodes under an ``every`` head, an
-        optional ``within``, float and integer captures, first/[0]/[last]
-        refs, any lane count, reset on emit.
+        body ``:695-1238``) in torch ops, for every class the router
+        sends here: plain, counting and logical (``and``/``or``) nodes;
+        every, non-every and whole-chain group-every heads; patterns and
+        strict-contiguity sequences; an optional ``within``; float and
+        integer captures, first/[0]/[last] refs; any lane count; reset on
+        emit.  Absent nodes and sides are refused before it runs.
 
         step(state, part_idx [B] int, cols {key: [B]}, ts [B] int32
              relative ms, valid [B] bool)
@@ -523,9 +695,12 @@ class DensePatternEngine:
         Valid rows must name distinct partitions (one collision round).
         The step gathers their state rows, steps them and writes them
         back in place; the gathered ``[B, S, I]`` rows are private copies,
-        so they are updated in place node slice by node slice.  The
-        second emit bank (the via-path of open counts) stays zero in
-        these classes."""
+        so they are updated in place node slice by node slice.
+        ``counts`` is the capture count at a count node and the bitmask
+        of matched sides at a logical node.  Emit bank 0 (lanes
+        ``[0, I)``) takes instances completing at the last node; bank 1
+        (``[I, 2I)``) the via-path's clones, a dually pending open count
+        passing straight through the last node on the same event."""
         fn = self._general_cache.get(stream_key)
         if fn is not None:
             return fn
@@ -533,23 +708,41 @@ class DensePatternEngine:
         nodes, node_filters, slots = (self.nodes, self.node_filters,
                                       list(self.alloc.slots.values()))
         within, every_start = self.within_ms, self.every_start
+        group_every, is_sequence = self.group_every, self.is_sequence
         reset_on_emit = self.reset_on_emit
         out_spec = self.out_spec
         O = max(len(out_spec), 1)
         # out-spec position -> index into the integer output pairs
         int_out = [oi for oi, is_int in enumerate(self.out_int) if is_int]
         int_out_idx = {oi: k for k, oi in enumerate(int_out)}
-        on_stream = [node.specs[0].stream_key == stream_key for node in nodes]
-        writes = [[slot for slot in self.node_writes[s]
-                   if slot.ref == nodes[s].specs[0].ref] for s in range(S)]
+        # the specs of each node this stream feeds (absent ones are
+        # refused before a step is built)
+        sides = [[si for si, sp in enumerate(node.specs)
+                  if sp.stream_key == stream_key] for node in nodes]
+        # the slots each spec captures into
+        writes = [[[slot for slot in self.node_writes[s] if slot.ref == sp.ref]
+                   for sp in node.specs] for s, node in enumerate(nodes)]
+        # a dually pending open count at s-1 clones through node s
+        via = [s >= 1 and is_open_count(nodes[s - 1]) for s in range(S)]
+        stream_def = self._stream_def(stream_key)
+        filtered = any(node_filters[s][si] is not None
+                       for s in range(S) for si in sides[s])
+        slots_f = any(not slot.integer for slot in slots)
 
-        def eval_ok(s, cols, ts, regs, iregs, B):
-            f = node_filters[s][0]
+        def eval_ok(s, si, cand, fregs, iregs, B, rn=None):
+            """Spec ``si`` of node ``s``'s filter over ``[B, I]`` lanes
+            against node ``rn``'s registers (default ``s``; the via-path
+            reads the dually pending source's at ``s - 1``).  ``cand``:
+            this stream's candidate env; ``fregs``: the float register
+            file as filters read it."""
+            f = node_filters[s][si]
             if f is None:
-                return torch.ones((B, I), dtype=torch.bool, device=ts.device)
-            env = filter_env(nodes[s].specs[0].stream_def, slots, cols, ts,
-                             regs[:, s], None if iregs is None else iregs[:, s])
-            return torch.as_tensor(f.fn(env), device=ts.device).to(
+                return torch.ones((B, I), dtype=torch.bool,
+                                  device=fregs.device)
+            rn = s if rn is None else rn
+            env = filter_env(cand, slots, fregs[:, rn],
+                             None if iregs is None else iregs[:, rn])
+            return torch.as_tensor(f.fn(env), device=fregs.device).to(
                 torch.bool).broadcast_to((B, I))
 
         def step(state, part_idx, cols, ts, valid):
@@ -571,40 +764,74 @@ class DensePatternEngine:
                                       device=dev)
 
             # within-window expiry (int32 wrap-around subtraction, as in
-            # the reference step)
+            # the reference step): active bits, counts and side masks
             if within is not None:
                 expired = (first > 0) & ((ts[:, None, None] - first) > within)
                 a &= ~expired
                 counts.masked_fill_(expired, 0)
                 first.masked_fill_(expired, 0)
 
-            # node filters once, against the entry-state registers (the
-            # reversed loop reads them before any write of this step)
-            vb = valid[:, None]
-            ok = [eval_ok(s, cols, ts, regs, iregs, B) & vb
-                  if on_stream[s] else None for s in range(S)]
+            # group-every: the fresh arm forms only while the partition
+            # has no active instance (after expiry, before the event)
+            if group_every:
+                grp_ok = ~a.reshape(B, -1).any(dim=1, keepdim=True)
 
-            def write_slot(s, slot, upd):
-                """Capture the event into one register slot of node
-                ``s`` for the lanes in ``upd``."""
+            # node filters once, against the entry-state registers (the
+            # reversed loop reads them before any write of this step); a
+            # logical node holds one per spec; None: not this stream.
+            # Filters read subnormals as zeros: the candidate columns and
+            # the register file are flushed once here (the via-path reads
+            # node s-1's registers, which no write before it touches)
+            vb = valid[:, None]
+            cand = candidate_env(stream_def, cols, ts) if filtered else None
+            fregs = flush_subnormals(regs) if slots_f else regs
+            ok = []
+            for s, node in enumerate(nodes):
+                oks = [eval_ok(s, si, cand, fregs, iregs, B) & vb
+                       if si in sides[s] else None
+                       for si in range(len(node.specs))]
+                ok.append(oks if node.kind == "logical" else oks[0])
+
+            if is_sequence:
+                # strict continuity: a pending instance whose node cannot
+                # use this event dies before the advance pass (the start
+                # node stays armed)
+                for s in range(1, S):
+                    m = [o for o in (ok[s] if isinstance(ok[s], list)
+                                     else [ok[s]]) if o is not None]
+                    kill = a[:, s] & vb
+                    for o in m:
+                        kill &= ~o
+                    a[:, s] &= ~kill
+                    counts[:, s].masked_fill_(kill, 0)
+                    first[:, s].masked_fill_(kill, 0)
+
+            def capture(fbank, ibank, slot, upd):
+                """The event into one register slot of ``fbank [B, I, R]``
+                / ``ibank [B, I, 2*RI]`` for the lanes in ``upd``."""
                 if slot.integer:
                     hk, lk = f"{slot.attr}|hi", f"{slot.attr}|lo"
                     if hk in cols:
                         for j, key in ((2 * slot.index, hk),
                                        (2 * slot.index + 1, lk)):
-                            iregs[:, s, :, j] = torch.where(
-                                upd, cols[key][:, None], iregs[:, s, :, j])
+                            ibank[:, :, j] = torch.where(
+                                upd, cols[key][:, None], ibank[:, :, j])
                 elif slot.attr in cols:
-                    regs[:, s, :, slot.index] = torch.where(
+                    fbank[:, :, slot.index] = torch.where(
                         upd, cols[slot.attr].to(torch.float32)[:, None],
-                        regs[:, s, :, slot.index])
+                        fbank[:, :, slot.index])
 
-            def emit_rows(mask, anchor, src_regs, src_iregs):
+            def write_slot(s, slot, upd):
+                capture(regs[:, s], None if iregs is None else iregs[:, s],
+                        slot, upd)
+
+            def emit_rows(mask, anchor, src_regs, src_iregs, bank=0):
                 """Instances in ``mask`` complete the chain on this event
-                (emit bank 0)."""
-                emit[:, :I] |= mask
-                emit_anchor[:, :I] = torch.where(mask, anchor,
-                                                 emit_anchor[:, :I])
+                (bank 0: at the last node; bank 1: via-path clones)."""
+                sl = slice(bank * I, (bank + 1) * I)
+                emit[:, sl] |= mask
+                emit_anchor[:, sl] = torch.where(mask, anchor,
+                                                 emit_anchor[:, sl])
                 for oi, (_name, src) in enumerate(out_spec):
                     ii = int_out_idx.get(oi)
                     if isinstance(src, tuple):  # ('cand', attr): this event
@@ -618,45 +845,162 @@ class DensePatternEngine:
                                 for j in (0, 1)]
                     else:
                         vals = [src_regs[:, :, src.index]]
-                    bank, at = ((out_i, (2 * ii, 2 * ii + 1))
-                                if ii is not None else (out_f, (oi,)))
+                    obank, at = ((out_i, (2 * ii, 2 * ii + 1))
+                                 if ii is not None else (out_f, (oi,)))
                     for c, val in zip(at, vals):
-                        bank[:, :I, c] = torch.where(mask, val,
-                                                     bank[:, :I, c])
+                        obank[:, sl, c] = torch.where(mask, val,
+                                                      obank[:, sl, c])
+
+            def place(tgt, mask, anchor, src_regs, src_iregs):
+                """Move the instances in ``mask`` into free lanes of node
+                ``tgt`` (rank-matched, overflow counted)."""
+                nonlocal ovf
+                ovf = _rank_place(tgt, mask, anchor, src_regs, src_iregs, a,
+                                  first, counts, regs, iregs, ovf, upto)
+
+            def anchor_of(s):
+                return torch.where(first[:, s] > 0, first[:, s], t)
 
             def advance(s, mask):
                 """Lanes of node ``s`` in ``mask`` complete it: emit at
                 the last node, else move into free lanes of node s+1."""
-                nonlocal ovf
-                anchor = torch.where(first[:, s] > 0, first[:, s], t)
                 src_iregs = None if iregs is None else iregs[:, s]
                 if s == S - 1:
-                    emit_rows(mask, anchor, regs[:, s], src_iregs)
+                    emit_rows(mask, anchor_of(s), regs[:, s], src_iregs)
                 else:
-                    ovf = _rank_place(s + 1, mask, anchor, regs[:, s],
-                                      src_iregs, a, first, counts, regs,
-                                      iregs, ovf, upto)
+                    place(s + 1, mask, anchor_of(s), regs[:, s], src_iregs)
 
             lanes = torch.arange(I, device=dev)
             lane0 = lanes == 0
             upto = lanes[None, :] <= lanes[:, None]  # [i, j]: j <= i
             for s in reversed(range(S)):
-                if ok[s] is None:
+                node = nodes[s]
+                if not sides[s]:
                     continue
-                keep_armed = s == 0 and every_start
-                # the standing virgin fires through lane 0 on every event
-                pending = a[:, s] | lane0 if keep_armed else a[:, s]
+                if node.kind == "logical":
+                    # sides ride bits of counts; an already matched side
+                    # ignores further events; `or` takes only the first
+                    # matching side, `and` lets one event fill both
+                    pending = a[:, s]
+                    if s == 0 and every_start:
+                        pending = pending | lane0  # the lane-0 virgin
+                    matched_now = None
+                    for si in sides[s]:
+                        bit = 1 << si
+                        fire = pending & ok[s][si] & ((counts[:, s] & bit) == 0)
+                        if node.logical_op == "or" and matched_now is not None:
+                            fire &= ~matched_now
+                        matched_now = (fire if matched_now is None
+                                       else matched_now | fire)
+                        counts[:, s] |= fire.to(torch.int32) * bit
+                        for slot in writes[s][si]:
+                            write_slot(s, slot, fire)
+                        first[:, s] = torch.where(
+                            fire & (first[:, s] == 0), t, first[:, s])
+                    # completion needs a side matched on this event, then
+                    # every side (`and`) or any (`or`)
+                    every_side = (1 << len(node.specs)) - 1
+                    need = counts[:, s] & every_side
+                    done = (need == every_side if node.logical_op == "and"
+                            else need > 0)
+                    complete = done & matched_now
+                    advance(s, complete)
+                    # a completed logical node releases its lane
+                    a[:, s] &= ~complete
+                    counts[:, s].masked_fill_(complete, 0)
+                    first[:, s].masked_fill_(complete, 0)
+                    continue
+                is_count = not _plain(node)
+                pending = a[:, s]
+                if s == 0 and every_start:
+                    if is_count:
+                        # a fresh virgin arms only while no unsatisfied
+                        # count exists, in the first free lane; one that
+                        # should arm but finds no free lane is dropped
+                        # and counted
+                        c0 = counts[:, 0]
+                        unsat = (a[:, 0] & (c0 > 0)
+                                 & (c0 < max(node.min_count, 1)))
+                        armable = ~unsat.any(dim=1, keepdim=True)
+                        free0 = ~a[:, 0] & (c0 == 0)
+                        virgin = free0 & (_lane_rank(free0, upto) == 0) & armable
+                        pending = pending | virgin
+                        no_lane = (armable[:, 0] & ~free0.any(dim=1)
+                                   & ok[s][:, 0])
+                        ovf = ovf + no_lane.to(torch.int32)
+                    elif group_every:
+                        pending = pending | (lane0 & grp_ok)
+                    else:
+                        # the standing virgin fires through lane 0 on
+                        # every event
+                        pending = pending | lane0
                 fire = pending & ok[s]
-                for slot in writes[s]:
+                if is_count:
+                    cs = counts[:, s]
+                    cap = (fire if node.max_count == _ANY
+                           else fire & (cs < node.max_count))
+                    first_cap = cap & (cs == 0)
+                    cs += cap.to(torch.int32)
+                    # a counting lane is occupied from its first capture
+                    a[:, s] |= first_cap
+                    for slot in writes[s][0]:
+                        write_slot(s, slot, cap if slot.last else first_cap)
+                    first[:, s] = torch.where(
+                        first_cap & (first[:, s] == 0), t, first[:, s])
+                    open_count = is_open_count(node)
+                    if not open_count or s == S - 1:
+                        # an exact count moves at min == max; a count on
+                        # the last node emits once, at satisfaction
+                        advance(s, cap & (cs == max(node.min_count, 1)))
+                    if node.max_count != _ANY:
+                        # at max an exact count is spent (its advance
+                        # placed it); an open count moves its pending
+                        # instance on; every count releases its lane
+                        at_max = cap & (cs >= node.max_count)
+                        if open_count and s < S - 1:
+                            place(s + 1, at_max, anchor_of(s), regs[:, s],
+                                  None if iregs is None else iregs[:, s])
+                        a[:, s] &= ~at_max
+                        cs.masked_fill_(at_max, 0)
+                        first[:, s].masked_fill_(at_max, 0)
+                    continue
+                for slot in writes[s][0]:
                     write_slot(s, slot, fire)
-                if keep_armed:
+                if s == 0 and every_start:
                     # fresh arming each event: the anchor is this event's
                     first[:, s] = torch.where(fire, t, first[:, s])
                 else:
                     first[:, s] = torch.where(fire & (first[:, s] == 0), t,
                                               first[:, s])
+                    # only `every` keeps the start armed
                     a[:, s] &= ~fire
                 advance(s, fire)
+                if not via[s]:
+                    continue
+                # via-path: a satisfied, still pending open count at s-1
+                # clones straight through this node on the same event,
+                # capturing into a copy of its own registers, and is
+                # consumed (forward once)
+                prev = nodes[s - 1]
+                cp = counts[:, s - 1]
+                sat = a[:, s - 1] & (cp >= max(prev.min_count, 1))
+                if prev.max_count != _ANY:
+                    sat &= cp < prev.max_count
+                fire_via = sat & eval_ok(s, 0, cand, fregs, iregs, B,
+                                         rn=s - 1) & vb
+                via_regs = regs[:, s - 1].clone()
+                via_iregs = None if iregs is None else iregs[:, s - 1].clone()
+                for slot in writes[s][0]:
+                    capture(via_regs, via_iregs, slot, fire_via)
+                if s == S - 1:
+                    emit_rows(fire_via, anchor_of(s - 1), via_regs, via_iregs,
+                              bank=1)
+                else:
+                    place(s + 1, fire_via, anchor_of(s - 1), via_regs,
+                          via_iregs)
+                a[:, s - 1] &= ~fire_via
+                cp.masked_fill_(fire_via, 0)
+                first[:, s - 1].masked_fill_(fire_via, 0)
 
             if reset_on_emit:
                 hit = emit.any(dim=1)[:, None, None]
@@ -815,6 +1159,7 @@ class DensePatternEngine:
         for every event, False where the node reads another stream."""
         n = ts.shape[0]
         rows = []
+        cenv = None  # one env for every node on this stream
         for node, fs in zip(self.nodes, self.node_filters):
             spec = node.specs[0]
             if spec.stream_key != stream_key:
@@ -823,17 +1168,18 @@ class DensePatternEngine:
             elif fs[0] is None:
                 rows.append(torch.ones(n, dtype=torch.bool, device=ts.device))
             else:
-                okb = torch.as_tensor(
-                    fs[0].fn(candidate_env(spec.stream_def, cols, ts)),
-                    device=ts.device)
+                if cenv is None:
+                    cenv = candidate_env(spec.stream_def, cols, ts)
+                okb = torch.as_tensor(fs[0].fn(cenv), device=ts.device)
                 rows.append(okb.to(torch.bool).broadcast_to((n, 1))[:, 0])
         return torch.stack(rows, dim=1)
 
     def output_columns(self, cols: Dict[str, torch.Tensor],
                        emit0: torch.Tensor):
         """Output banks ``f [N, 2I, O]`` float32 and ``i [N, 2I, 2*n_int]``
-        int32: the candidate's selects at the emitting lanes ``emit0
-        [N, I]`` of bank 0 (the eligible class has no via-path)."""
+        int32 of the batch step: the candidate's selects at the emitting
+        lanes ``emit0 [N, I]`` of bank 0.  Bank 1 stays zero: its class
+        has no counts, so no via-path."""
         n, I = emit0.shape
         dev = emit0.device
         O = max(len(self.out_spec), 1)
@@ -1089,6 +1435,7 @@ def compile_pattern(
     n_instances: int = 4,
     device=None,
     reset_on_emit: Optional[bool] = None,
+    every_start: Optional[bool] = None,
 ) -> DensePatternEngine:
     """Compile a SiddhiQL pattern query into a DensePatternEngine on
     ``device`` (``cuda`` when None; raises without a card).
@@ -1097,6 +1444,9 @@ def compile_pattern(
     callers route events to partition ids.  ``reset_on_emit`` as in
     :class:`DensePatternEngine` (None: the product runtime's choice; the
     JAX package's ``compile_pattern`` resets, so pass True to match it).
+    ``every_start`` (None: any ``every`` in the pattern) re-arms the
+    start on every event, as the reference's override does: a
+    non-every app compiled with True runs as its every-headed form.
     """
     from siddhi_tpu_torch.compiler import SiddhiCompiler
     from siddhi_tpu_torch.query_api.annotation import find_annotation
@@ -1149,4 +1499,5 @@ def compile_pattern(
         n_instances=n_instances,
         device=dev,
         reset_on_emit=reset_on_emit,
+        every_start=every_start,
     )

@@ -154,6 +154,13 @@ class ExpressionCompiler:
     def __init__(self, scope: Scope):
         self.scope = scope
 
+    @staticmethod
+    def _meet(a, b):
+        """The two operands of a comparison or an arithmetic op where
+        they meet; a subclass may adjust them (the dense compiler
+        flushes float32 subnormals there)."""
+        return a, b
+
     def compile(self, expr: Expression) -> CompiledExpression:
         m = getattr(self, "_c_" + type(expr).__name__, None)
         if m is None:
@@ -194,9 +201,9 @@ class ExpressionCompiler:
 
     def _c_CompareOp(self, e: CompareOp) -> CompiledExpression:
         l, r = self.compile(e.left), self.compile(e.right)
-        cmp = _CMP[e.op]
-        return CompiledExpression(lambda env: cmp(l.fn(env), r.fn(env)),
-                                  AttrType.BOOL)
+        cmp, meet = _CMP[e.op], self._meet
+        return CompiledExpression(
+            lambda env: cmp(*meet(l.fn(env), r.fn(env))), AttrType.BOOL)
 
     # ---- arithmetic -------------------------------------------------------
 
@@ -221,7 +228,9 @@ class ExpressionCompiler:
             raw = _java_int_mod if is_int else (lambda a, b: a % b)
         else:
             raise SiddhiAppCreationError(f"unknown arithmetic op {op!r}")
-        return CompiledExpression(lambda env: raw(l.fn(env), r.fn(env)), out_t)
+        meet = self._meet
+        return CompiledExpression(
+            lambda env: raw(*meet(l.fn(env), r.fn(env))), out_t)
 
     def _c_FunctionCall(self, e: FunctionCall) -> CompiledExpression:
         name = (e.namespace + ":" if e.namespace else "") + e.name

@@ -4,15 +4,17 @@ Port of the JAX package's ``planner/kernels.py``:
 
 - ``route_dense_step``: picks each dense engine's step at compile time,
   by class.  A capture-free ``every`` chain of plain stream nodes with
-  at most 32 instance lanes runs the batch-step kernel
-  (``kernels/dense_batch.py``, one launch a batch); every other pattern
-  the general dense step runs (captures and the register file, more
-  lanes, reset on emit) takes the general step in torch ops
-  (``ops/dense_nfa.py`` ``make_general_step``).  That is a plan-time
-  choice, never a fallback.  Patterns neither step runs (counts,
-  logical nodes, non-every heads, group-every, sequences, absent
-  deadlines) are refused with ``SiddhiAppCreationError`` naming the
-  ``ROADMAP.md`` item that adds them.
+  at most 32 instance lanes and no reset on emit runs the batch-step
+  kernel (``kernels/dense_batch.py``, one launch a batch); every other
+  pattern the dense engine takes (captures and the register file,
+  counts and Kleene closures, logical ``and``/``or`` nodes, sequences,
+  non-every heads, whole-chain group-every, more lanes, reset on emit)
+  takes the general step in torch ops (``ops/dense_nfa.py``
+  ``make_general_step``).  That is a plan-time choice, never a
+  fallback.  Absent nodes and ``and not`` sides (deadline timers) are
+  refused with ``SiddhiAppCreationError`` naming the ``ROADMAP.md``
+  item that adds them; the shapes the reference itself sends to its
+  host engine are refused earlier, by the engine's constructor.
 - ``check_scan_kernel_available``: the hot-key scan's only step is the
   fused scan kernel; on a card it needs the probe to pass and raises
   otherwise.
@@ -30,8 +32,6 @@ from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
 from siddhi_tpu_torch.kernels import probe
 from siddhi_tpu_torch.kernels.dense_batch import MAX_INSTANCES
 
-_PART_B = (" — ROADMAP.md §1 item 2 (general dense step, part b: counts, "
-           "logical nodes and sequences), a later slice of the port")
 _PART_C = (" — ROADMAP.md §1 item 4 (general dense step, part c: absent "
            "deadlines), a later slice of the port")
 
@@ -40,34 +40,21 @@ def route_dense_step(engine) -> str:
     """``"batch"`` or ``"general"``: the step that runs ``engine``.
 
     The batch step takes capture-free every-chains of plain stream nodes
-    (one filter bit per node and event, no register file) with at most
-    ``dense_batch.MAX_INSTANCES`` lanes and no reset on emit; the general
-    step takes the rest of that chain class: captures (float and integer
-    registers), first/[0]/[last] refs, any lane count and reset on emit.
-    Raises with a distinct reason outside both."""
-    if engine.is_sequence:
-        raise SiddhiAppCreationError(
-            "dense step: sequence semantics (strict contiguity kills)"
-            + _PART_B)
-    if not engine.every_start:
-        raise SiddhiAppCreationError(
-            "dense step: a non-every head (one arm, reset on emit)" + _PART_B)
-    if engine.group_every:
-        raise SiddhiAppCreationError(
-            "dense step: grouped-every restarts" + _PART_B)
+    (one filter bit per node and event, no register file, no counts)
+    with at most ``dense_batch.MAX_INSTANCES`` lanes, the standing
+    virgin at node 0 and no reset on emit; the general step takes
+    everything else the engine admits.  Raises for absent nodes and
+    sides."""
     if any(node.kind == "absent" or any(sp.is_absent for sp in node.specs)
            for node in engine.nodes):
         raise SiddhiAppCreationError(
             "dense step: absent/deadline nodes need per-chain timers"
             + _PART_C)
-    for node in engine.nodes:
-        if not (node.kind == "stream"
-                and node.min_count == 1 and node.max_count == 1):
-            raise SiddhiAppCreationError(
-                "dense step: counting/logical nodes need the counts planes"
-                + _PART_B)
-    if (not engine.alloc.slots and not engine.reset_on_emit
-            and engine.I <= MAX_INSTANCES):
+    plain = all(node.kind == "stream" and node.min_count == 1
+                and node.max_count == 1 for node in engine.nodes)
+    if (plain and engine.every_start and not engine.group_every
+            and not engine.is_sequence and not engine.alloc.slots
+            and not engine.reset_on_emit and engine.I <= MAX_INSTANCES):
         return "batch"
     return "general"
 

@@ -137,6 +137,48 @@ GENERAL_APPS = {
         "define stream S (k long, v double); @info(name='q') from "
         "every a=S[v > 1.0] -> b=S[v > 7.5] -> c=S[v > 2.0] within 2 sec "
         "select c.v as cv insert into Alerts;", 40),
+    # part b: an open count on the last node (BASELINE config 2's shape)
+    "count_last": (
+        "define stream S (k long, v double); @info(name='q') from "
+        "every a=S[v > 5.0] -> b=S[v > a.v]<3:5> within 2 sec "
+        "select a.v as av, b[0].v as b0, b[last].v as bl "
+        "insert into Alerts;", 4),
+    # a Kleene head cloning through the last node (emit bank 1), with an
+    # integer capture
+    "kleene_via": (
+        "define stream S (k long, v double); @info(name='q') from "
+        "every f=S[v < 4.0]<2:> -> s=S[v > 6.0] within 2 sec "
+        "select f[0].v as f0, f[last].k as fk, s.v as sv "
+        "insert into Alerts;", 4),
+    # an open count mid-chain: the via-path places into node 2
+    "open_mid": (
+        "define stream S (k long, v double); @info(name='q') from "
+        "every a=S[v > 6.0] -> b=S[v > 2.0]<1:3> -> c=S[v > b[last].v] "
+        "within 2 sec select a.v as av, b[last].v as bl, c.v as cv "
+        "insert into Alerts;", 4),
+    # logical nodes: one event fills both sides of `and`; `or` takes the
+    # first side
+    "and_same_stream": (
+        "define stream S (k long, v double); @info(name='q') from "
+        "every a=S[v > 4.0] -> (b=S[v > a.v] and c=S[k == 1]) within 2 sec "
+        "select a.v as av, b.v as bv, c.k as ck insert into Alerts;", 4),
+    "or_head": (
+        "define stream S (k long, v double); @info(name='q') from "
+        "every (a=S[v > 7.0] or b=S[k == 2]) -> c=S[v < 1.0] within 2 sec "
+        "select a.v as av, b.k as bk, c.v as cv insert into Alerts;", 4),
+    # a strict-contiguity sequence, a non-every head, a group-every
+    "sequence": (
+        "define stream S (k long, v double); @info(name='q') from "
+        "every a=S[v > 2.0], b=S[v > a.v], c=S[v > b.v] within 2 sec "
+        "select a.v as av, c.v as cv insert into Alerts;", 4),
+    "non_every": (
+        "define stream S (k long, v double); @info(name='q') from "
+        "a=S[v > 6.0]<2:3> -> b=S[v < 1.0] within 2 sec "
+        "select a[0].v as a0, b.v as bv insert into Alerts;", 4),
+    "group_every": (
+        "define stream S (k long, v double); @info(name='q') from "
+        "every (a=S[v > 6.0] -> b=S[v > a.v]) within 2 sec "
+        "select a.v as av, b.v as bv insert into Alerts;", 4),
 }
 
 
@@ -174,6 +216,44 @@ def test_general_step_on_card_matches_cpu(cuda_device, case):
             got = np.array(got.tolist(), dtype=np.float64)
             want = np.array(want.tolist(), dtype=np.float64)
         assert np.array_equal(got.view(np.uint8), want.view(np.uint8))
+        n_matches += len(res["cpu"][0])
+    assert n_matches > 0
+    card, _ = state_to_numpy(eng["cuda"], state["cuda"])
+    cpu, _ = state_to_numpy(eng["cpu"], state["cpu"])
+    for k in cpu:
+        assert np.array_equal(card[k].view(np.uint8), cpu[k].view(np.uint8)), k
+
+
+def test_two_stream_logical_on_card_matches_cpu(cuda_device):
+    """BASELINE config 4's shape, ``every (t=Tick[...] and n=News[...])
+    within 5 sec``, on the card against the CPU over alternating
+    batches: matches, output bits and the whole state (side bitmasks in
+    ``counts``)."""
+    from siddhi_tpu_torch import compile_pattern, state_to_numpy
+
+    app = ("define stream Tick (sym long, price double); "
+           "define stream News (sym long, score double); "
+           "@info(name='q') from every (t=Tick[price > 10.0] and "
+           "n=News[score > 0.5]) within 5 sec "
+           "select t.price as p, n.score as sc insert into Alerts;")
+    eng = {d: compile_pattern(app, "q", n_partitions=64, device=d)
+           for d in ("cuda", "cpu")}
+    state = {d: e.init_state() for d, e in eng.items()}
+    rng = np.random.default_rng(6)
+    n_matches = 0
+    for i in range(8):
+        stream, B = ("Tick", 400) if i % 2 == 0 else ("News", 60)
+        part = rng.integers(0, 64, B)
+        col = "price" if stream == "Tick" else "score"
+        cols = {"sym": part, col: rng.uniform(0, 20 if i % 2 == 0 else 1, B)}
+        ts = 1000 + 500 * i + np.sort(rng.integers(0, 500, B))
+        res = {}
+        for d, e in eng.items():
+            state[d], ev, out = e.process(state[d], stream, part, cols, ts)
+            res[d] = (ev, out)
+        assert np.array_equal(res["cuda"][0], res["cpu"][0])
+        assert np.array_equal(res["cuda"][1].view(np.uint8),
+                              res["cpu"][1].view(np.uint8))
         n_matches += len(res["cpu"][0])
     assert n_matches > 0
     card, _ = state_to_numpy(eng["cuda"], state["cuda"])

@@ -17,6 +17,8 @@ heads.  The port's ``compile_pattern`` takes the runtime's choice unless
 same setting.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -48,12 +50,13 @@ def headline_app(n_states):
             "insert into Alerts;")
 
 
-def engines(app, qname, P, n_instances=4, reset_on_emit=False):
+def engines(app, qname, P, n_instances=4, reset_on_emit=False,
+            kind="general"):
     je = jax_compile(app, qname, n_partitions=P, n_instances=n_instances)
     je.reset_on_emit = reset_on_emit
     te = compile_pattern(app, qname, n_partitions=P, n_instances=n_instances,
                          device="cpu", reset_on_emit=reset_on_emit)
-    assert not je.use_kernel and te.step_kind == "general"
+    assert not je.use_kernel and te.step_kind == kind
     return je, te
 
 
@@ -386,24 +389,66 @@ def test_unpartitioned_app_runs_at_one_partition(app, kind):
     assert rt.pattern_runtimes()["q"].engine.n_partitions == 1
 
 
-@pytest.mark.parametrize("app,item", [
-    ("every a=S[v > 8.0] -> b=S[v > a.v]<2> select b[last].v as bv", "item 2"),
-    ("every a=S[v > 8.0], b=S[v > a.v] select b.v as bv", "item 2"),
-    ("a=S[v > 8.0] -> b=S[v > a.v] select b.v as bv", "item 2"),
-    ("every (a=S[v > 8.0] -> b=S[v > a.v]) within 3 sec "
-     "select b.v as bv", "item 2"),
-    ("every a=S[v > 8.0] -> b=S[v > a.v] or c=S[u > 1.0] "
-     "select a.v as av", "item 2"),
+# once refused (the part-b shapes): now the general step, as the
+# reference runs them
+ONCE_REFUSED = {
+    "count": "every a=S[v > 8.0] -> b=S[v > a.v]<2> select b[last].v as bv",
+    "sequence": "every a=S[v > 8.0], b=S[v > a.v] select b.v as bv",
+    "non_every": "a=S[v > 8.0] -> b=S[v > a.v] select b.v as bv",
+    "group_every": ("every (a=S[v > 8.0] -> b=S[v > a.v]) within 3 sec "
+                    "select b.v as bv"),
+    "logical": ("every a=S[v > 8.0] -> b=S[v > a.v] or c=S[u > 1.0] "
+                "select a.v as av"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ONCE_REFUSED))
+def test_once_refused_shapes_match_jax(name):
+    """The shapes this port once refused run on the general step: the
+    same rows as the reference through both packages' ``SiddhiManager``."""
+    app = f"@info(name='q') from {ONCE_REFUSED[name]} insert into Alerts;"
+    sends = fuzz_stream(31, n=120, dt_max=200)
+    jgot, jlow = run_app(False, app, sends)
+    tgot, tlow = run_app(True, app, sends)
+    assert jlow == {"q": "dense"} and tlow == {"q": "dense/general"}
+    assert tgot == jgot and tgot
+
+
+@pytest.mark.parametrize("app,reason,item", [
     ("every a=S[v > 8.0] -> not S[v > a.v] for 1 sec -> c=S[v > 1.0] "
-     "select c.v as cv", "item 4"),
-], ids=["count", "sequence", "non_every", "group_every", "logical",
-        "absent"])
-def test_refusals_name_their_roadmap_item(app, item):
-    with pytest.raises(SiddhiAppCreationError, match=item) as info:
-        compile_pattern(f"{DEFINE}@info(name='q') from {app} "
-                        "insert into Alerts;", "q", n_partitions=4,
-                        device="cpu")
-    assert "later slice" in str(info.value)
+     "select c.v as cv", None, "item 4"),
+    ("every a=S[v > 8.0] -> b=S[v > a.v] and not T[v > 1.0] "
+     "select b.v as bv", None, "item 4"),
+    ("every a=S[v > 8.0] -> b=S[v > a.v]<0:2> -> c=S[v > 1.0] "
+     "select c.v as cv", "optional (min 0) states", "item 7"),
+    ("every (a=S[v > 8.0] -> b=S[v > a.v]) -> c=S[v > 1.0] "
+     "select c.v as cv", "group-`every` shape (partial chain", "item 7"),
+    ("every a=S[v > 8.0]<1:> -> b=S[v < 4.0]<2> select a[0].v as av",
+     "open-ended count followed by a count/logical node", "item 7"),
+    ("every a=S[v > 8.0] -> b=S[v > a.v]<2> and c=T[v > 1.0] "
+     "select c.v as cv", "count states inside logical and/or", None),
+], ids=["absent", "and_not", "min_zero_count", "partial_group",
+        "open_count_then_count", "count_in_logical"])
+def test_refusals_name_their_roadmap_item(app, reason, item):
+    """What the port still refuses: absent nodes and sides (deadline
+    timers, ``ROADMAP.md`` §1 item 4), and the shapes the reference
+    sends to its host engine, with its reason (host patterns, item 7).
+    A count inside a logical node the reference's lowering refuses for
+    both its engines; the port's copy of it gives the same reason and
+    names no later slice."""
+    text = (f"{DEFINE}define stream T (k long, u double, v double); "
+            f"@info(name='q') from {app} insert into Alerts;")
+    with pytest.raises(SiddhiAppCreationError) as info:
+        compile_pattern(text, "q", n_partitions=4, device="cpu")
+    msg = str(info.value)
+    if reason is not None:
+        with pytest.raises(Exception, match=re.escape(reason)):
+            jax_compile(text, "q", n_partitions=4)
+        assert reason in msg
+    if item is None:
+        assert "ROADMAP" not in msg and "later slice" not in msg
+    else:
+        assert f"ROADMAP.md §1 {item}" in msg and "later slice" in msg
 
 
 def test_a_bad_capture_filter_fails_at_plan_time():
@@ -460,22 +505,71 @@ def test_bench_partitioned_app_matches_jax():
     assert tgot == jgot and sum(map(len, tgot)) > 0
 
 
-def test_subnormal_compare_differs_from_xla_on_the_cpu():
-    """A known divergence (``ROADMAP.md`` §3): XLA on the CPU treats a
-    subnormal float32 as zero in a comparison, torch compares it
-    exactly, so ``v = 1e-40`` passes ``v > 0.0`` in the port alone.
-    Register moves, where the reference's sum flushes subnormals, are
-    matched (``test_signed_zero_nan_and_subnormal_captures``)."""
-    app = DEFINE + ("@info(name='q') from every a=S[v > 0.0] -> "
-                    "b=S[u > 5.0] select a.v as av, b.v as bv "
+SUBNORMAL_FILTERS = {
+    # the batch step (capture-free) and the general step read a
+    # subnormal column as zero
+    "batch_compare": ("v > 0.0", "select b.v as bv"),
+    "general_compare": ("v > 0.0", "select a.v as av, b.v as bv"),
+    # arithmetic landing below 2^-126 flushes to a zero of its sign
+    "product": ("v * 1e-30 > 0.0", "select a.v as av, b.v as bv"),
+    "difference": ("v - 1.4e-38 > 0.0", "select a.v as av, b.v as bv"),
+    # a subnormal constant reads as zero where it meets a lane ...
+    "constant": ("v >= 1e-40", "select a.v as av, b.v as bv"),
+    # ... but constants multiply in float64 first, as in the trace
+    "constant_product": ("v > 1e-20 * 1e-20", "select a.v as av, b.v as bv"),
+}
+SUBNORMAL_V = [1e-40, -1e-40, 1e-10, 1.5e-38, 0.0, 2e-40, 1.0]
+# the partitions (one value each) whose chain completes on the
+# reference's XLA on the CPU
+SUBNORMAL_JAX = {
+    "batch_compare": [2, 3, 6], "general_compare": [2, 3, 6],
+    "product": [6], "difference": [2, 6], "constant": [0, 1, 2, 3, 4, 5, 6],
+    "constant_product": [2, 3, 6],
+}
+
+
+@pytest.mark.parametrize("n_instances", [1, 4])
+@pytest.mark.parametrize("case", sorted(SUBNORMAL_FILTERS))
+def test_subnormal_compare_differs_from_xla_on_the_cpu(case, n_instances):
+    """Once a divergence (``ROADMAP.md`` §3 item 6, now closed): XLA on
+    the CPU reads a subnormal float32 as zero in a comparison and
+    flushes subnormal results of float arithmetic, and the port's
+    filters do the same, on the batch step and the general step.  One
+    value a partition; the chains that complete are the reference's."""
+    flt, sel = SUBNORMAL_FILTERS[case]
+    app = DEFINE + (f"@info(name='q') from every a=S[{flt}] -> "
+                    f"b=S[u > 5.0] {sel} insert into Alerts;")
+    je, te = engines(app, "q", P=len(SUBNORMAL_V), n_instances=n_instances,
+                     kind="batch" if case == "batch_compare" else "general")
+    part = np.repeat(np.arange(len(SUBNORMAL_V), dtype=np.int32), 2)
+    cols = {"k": np.zeros(len(part), np.int64),
+            "u": np.tile([0.0, 9.0], len(SUBNORMAL_V)),
+            "v": np.array([x for v in SUBNORMAL_V for x in (v, 3.0)])}
+    ts = 1000 + np.arange(len(part))
+    jstate, *jres = je.process(je.init_state(), "S", part, cols, ts)
+    tstate, tev, tout = te.process(te.init_state(), "S", part, cols, ts)
+    assert part[jres[0]].tolist() == SUBNORMAL_JAX[case]
+    assert_same_matches(jres, (tev, tout))
+    assert_same_state(jstate, te, tstate)
+
+
+def test_subnormal_register_compare_matches_xla():
+    """A subnormal capture keeps its bits at one lane and is compared as
+    zero: ``b.v = 2e-40 > a.v = 1e-40`` fails on the reference and in
+    the port."""
+    app = DEFINE + ("@info(name='q') from every a=S[u < 1.0] -> "
+                    "b=S[v > a.v and u > 5.0] select a.v as av, b.v as bv "
                     "insert into Alerts;")
-    je, te = engines(app, "q", P=2)
-    part = np.zeros(2, dtype=np.int32)
-    cols = {"k": np.zeros(2, np.int64), "u": np.array([0.0, 9.0]),
-            "v": np.array([1e-40, 1.0])}
-    ts = np.array([1000, 1001])
-    _s, jev, _o = je.process(je.init_state(), "S", part, cols, ts)
-    _s, tev, tout = te.process(te.init_state(), "S", part, cols, ts)
-    assert len(jev) == 0 and len(tev) == 1
-    # the capture itself reached node 1 through the move: flushed to +0.0
-    assert tout[0, 0].view(np.int32) == 0
+    je, te = engines(app, "q", P=len(SUBNORMAL_V), n_instances=1)
+    part = np.repeat(np.arange(len(SUBNORMAL_V), dtype=np.int32), 2)
+    cols = {"k": np.zeros(len(part), np.int64),
+            "u": np.tile([0.0, 9.0], len(SUBNORMAL_V)),
+            "v": np.array([x for v in SUBNORMAL_V for x in (1e-40, v)])}
+    ts = 1000 + np.arange(len(part))
+    jstate, *jres = je.process(je.init_state(), "S", part, cols, ts)
+    tstate, tev, tout = te.process(te.init_state(), "S", part, cols, ts)
+    assert part[jres[0]].tolist() == [2, 3, 6]
+    assert_same_matches(jres, (tev, tout))
+    assert_same_state(jstate, te, tstate)
+    # the capture rode the one-lane move with its bits
+    assert tout[0, 0].view(np.int32) == np.float32(1e-40).view(np.int32)

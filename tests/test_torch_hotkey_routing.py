@@ -387,18 +387,20 @@ class TestHotkeyFallback:
 
 class TestOutsideTheSlice:
     @pytest.mark.parametrize("app", [
-        # a count: ROADMAP.md §1 item 2
-        wrap("@info(name='q') from every a=S[v > 8.0] -> b=S[v > 12.0]<2> "
-             "select b[last].v as bv insert into Alerts;"),
+        # a partial-chain group-every: the reference's host engine,
+        # ROADMAP.md §1 item 7
+        wrap("@info(name='q') from every (a=S[v > 8.0] -> b=S[v > 12.0]) "
+             "-> c=S[v > 1.0] select c.v as cv insert into Alerts;"),
         # a non-pattern query inside the partition
         wrap("@info(name='q') from S[v > 8.0] select v insert into Alerts;"),
-        # a sequence: ROADMAP.md §1 item 2
-        wrap("@info(name='q') from every a=S[v > 8.0], b=S[v > 12.0] "
-             "select b.v as bv insert into Alerts;"),
+        # an absent node: ROADMAP.md §1 item 4
+        wrap("@info(name='q') from every a=S[v > 8.0] -> "
+             "not S[v > 12.0] for 1 sec -> c=S[v > 1.0] "
+             "select c.v as cv insert into Alerts;"),
         # an aggregating select
         wrap("@info(name='q') from every a=S[v > 8.0] -> b=S[v > 12.0] "
              "select count() as n insert into Alerts;"),
-    ], ids=["count", "non_pattern", "sequence", "aggregating"])
+    ], ids=["partial_group_every", "non_pattern", "absent", "aggregating"])
     def test_raises_creation_error(self, app):
         with pytest.raises(SiddhiAppCreationError):
             Run(True, app, "@app:playback " + TPU)
@@ -409,7 +411,13 @@ class TestOutsideTheSlice:
              "select b.v as bv insert into Alerts;"),
         # an unpartitioned pattern query: one partition
         SHAPES["pair"],
-    ], ids=["capture", "unpartitioned"])
+        # a count: the general step
+        wrap("@info(name='q') from every a=S[v > 8.0] -> b=S[v > 12.0]<2> "
+             "select b[last].v as bv insert into Alerts;"),
+        # a sequence: the general step
+        wrap("@info(name='q') from every a=S[v > 8.0], b=S[v > 12.0] "
+             "select b.v as bv insert into Alerts;"),
+    ], ids=["capture", "unpartitioned", "count", "sequence"])
     def test_runs_as_the_reference(self, app):
         """Once refused, these now run: the same rows as the reference."""
         jres, tres = both(app, "@app:playback " + TPU, sends=gen(5, SKEWED))
