@@ -146,7 +146,37 @@ skew-routed pattern path and the incremental-aggregation path through
    ``tests/test_dense_differential_fuzz.py``, a whole-chain
    ``every (a -> b) within 3 sec`` and an ``or`` node, 300 events at
    P = 8 each.
-13. kernels: one line per ported kernel (launches on the main paths,
+13. absent deadlines (the app scheduler, the general step's absent
+   kills and ``and not`` sides, the timer step, ``@purge``): phase
+   ``absent_alert`` runs the Siddhi 5.1 query guide's absent example
+   (``every e1=RegulatorStateChangeStream[action == 1] -> not
+   TemperatureStream[temp <= e1.tempSet] for 30 sec``, the room as the
+   partition key, ``action`` an int code) over 1,000,000 rooms through
+   ``SiddhiManager(device="cuda")`` and ``send_batch``, so the scheduler
+   drives the timer: from a seeded start (10% of rooms armed, deadlines
+   over the first 30 s), in turns a Regulator batch of 4,096 events and
+   a Temperature batch of 131,072, each over the next 8 s of stream
+   time, 2 warm-up and 6 timed turn pairs.  The alerts (values,
+   timestamps, order), the timer fires and the whole final state
+   (``deadline`` included) must be bit-exact against the same run with
+   ``device="cpu"``, with fires and kills.  It reports events/s, ticks
+   and timer steps that fired, alerts a tick, the timer step's host ms
+   (synchronised), ``next_wakeup`` ms, the fire fetch ms (a tick less
+   its step), one timer step's device kernels and time and one
+   Temperature batch's general steps under ``torch.profiler``,
+   collision rounds a batch and the device busy share over one more
+   turn pair.  Launches are read over the held card run: the probe once
+   for its engine, no other kernel.  Then ``absent_check`` lines, card
+   against CPU through ``SiddhiManager`` (about 300 events at P = 8
+   each: a mid-chain absent, ``and not`` with and without ``for``,
+   ``every`` arms under a ``within``, an unpartitioned trailing absent,
+   the idle heartbeat of ``@app:playback(idle.time, increment)``
+   firing a deadline with no input) and ``compile_pattern`` (an engine
+   driven across a re-anchor with deadlines pending); and a
+   ``purge_check`` line: ``@purge`` on a partitioned chain whose keys go
+   idle and whose new keys take the recycled rows, callbacks, key maps
+   and state held against the CPU run.
+14. kernels: one line per ported kernel (launches on the main paths,
    largest difference from its plain version, ``ms``, ``host_us``,
    ``device_us``, plain and library times, bound); the bank kernel's at
    the entry the aggregation path uses, ``accumulate_``, with the delta
@@ -244,6 +274,47 @@ PB_CHECKS = {
     "or_node": (
         "every a=S[v > 12.0] -> (b=S[v < 3.0] or c=S[u > 17.0]) "
         "within 3 sec select a.v as av, b.v as bv, c.u as cu"),
+}
+# absent deadlines: the Siddhi 5.1 query guide's "regulator on, room not
+# cooled within the period" pattern at fleet size, in turns of a
+# Regulator batch and a Temperature batch, each covering the next 8 s of
+# stream time; 2 warm-up and 6 timed turn pairs (96 s, three deadlines)
+ABSENT_ROOMS = 1_000_000
+REG_BATCH = 4_096
+TEMP_BATCH = 1 << 17
+ABSENT_SPAN_MS = 8_000
+ABSENT_WARMUP = 2
+ABSENT_PAIRS = 6
+ABSENT_WAIT_MS = 30_000
+ABSENT_T0 = 1_000_000  # the first event's time (ms)
+ABSENT_APP = (
+    "@app:playback @app:execution('tpu', partitions='1000000', "
+    "instances='4') "
+    "define stream RegulatorStateChangeStream (deviceID long, roomNo int, "
+    "tempSet float, action int); "
+    "define stream TemperatureStream (roomNo int, temp float); "
+    "partition with (roomNo of RegulatorStateChangeStream, roomNo of "
+    "TemperatureStream) begin "
+    "@info(name='q') from every e1=RegulatorStateChangeStream[action == 1] "
+    "-> not TemperatureStream[temp <= e1.tempSet] for 30 sec "
+    "select e1.roomNo as roomNo, e1.tempSet as tempSet "
+    "insert into AlertStream; end;")
+# small absent apps held card against CPU (about 300 events at P = 8)
+ABSENT_DEFINE = ("define stream S (k long, v double); "
+                 "define stream T (k long, v double); ")
+ABSENT_CHECKS = {
+    "mid_chain": (
+        "every a=S[v > 5.0] -> not T[v > a.v] for 1 sec -> c=S[v > a.v] "
+        "select a.v as av, c.v as cv"),
+    "and_not": (
+        "every a=S[v > 5.0] -> (b=S[v > a.v] and not T[v > 7.0]) "
+        "select a.v as av, b.v as bv"),
+    "and_not_for": (
+        "every a=S[v > 5.0] -> (b=S[v > a.v] and not T[v > 7.0] for 1 sec) "
+        "select a.v as av, b.v as bv"),
+    "every_within": (
+        "every a=S[v > 4.0] -> not T[v > a.v] for 1 sec -> c=S[v > 7.0] "
+        "within 1500 millisec select a.k as ak, c.v as cv"),
 }
 # a dependent operation waits at least 4 cycles for the one before it
 DEP_LATENCY_CYCLES = 4
@@ -1645,6 +1716,496 @@ def part_b_phase(torch, compile_pattern, state_from_numpy, state_to_numpy,
     return total
 
 
+def absent_batches(EventBatch):
+    """The ``absent_alert`` traffic: in turns, a Regulator batch of 4,096
+    events over the next 8 s (rooms uniform over 1,000,000, ``action`` 1
+    with p = 2/3, ``tempSet ~ U(18, 24)``, ``deviceID = roomNo``) and a
+    Temperature batch of 131,072 events over the 8 s after it (``temp ~
+    N(21, 2)``), timestamps non-decreasing, all float32."""
+    rng = np.random.default_rng(37)
+    out, t = [], ABSENT_T0
+    for _ in range(ABSENT_WARMUP + ABSENT_PAIRS):
+        rooms = rng.integers(0, ABSENT_ROOMS, REG_BATCH).astype(np.int32)
+        out.append(EventBatch(
+            "RegulatorStateChangeStream",
+            ["deviceID", "roomNo", "tempSet", "action"],
+            {"deviceID": rooms.astype(np.int64), "roomNo": rooms,
+             "tempSet": rng.uniform(18.0, 24.0, REG_BATCH).astype(np.float32),
+             "action": (rng.random(REG_BATCH) < 2 / 3).astype(np.int32)},
+            t + np.sort(rng.integers(0, ABSENT_SPAN_MS, REG_BATCH))))
+        t += ABSENT_SPAN_MS
+        rooms = rng.integers(0, ABSENT_ROOMS, TEMP_BATCH).astype(np.int32)
+        out.append(EventBatch(
+            "TemperatureStream", ["roomNo", "temp"],
+            {"roomNo": rooms,
+             "temp": rng.normal(21.0, 2.0, TEMP_BATCH).astype(np.float32)},
+            t + np.sort(rng.integers(0, ABSENT_SPAN_MS, TEMP_BATCH))))
+        t += ABSENT_SPAN_MS
+    return out
+
+
+def absent_start(eng) -> dict:
+    """A seeded mid-chain start for the ``absent_alert`` cell, as a
+    runtime snapshot: every room interned to its own row, 10% of rooms
+    with node 1 armed in lane 0 (``e1.roomNo`` and ``e1.tempSet`` in
+    the registers, the anchor in the 30 s before the first event, the
+    deadline 30 s after it, so uniform over the first 30 s)."""
+    rng = np.random.default_rng(41)
+    host = eng.init_state_host()
+    rows = np.flatnonzero(rng.random(ABSENT_ROOMS) < 0.10)
+    base = ABSENT_T0 - ABSENT_WAIT_MS - 1
+    arm = rng.integers(1, ABSENT_WAIT_MS + 1, len(rows)).astype(np.int32)
+    host["active"][rows, 1, 0] = True
+    host["first_ts"][rows, 1, 0] = arm
+    host["deadline"][rows, 1, 0] = arm + ABSENT_WAIT_MS
+    slots = {(ref, attr): s for (ref, attr, _l), s in eng.alloc.slots.items()}
+    temp_set = slots[("e1", "tempSet")]
+    room = slots[("e1", "roomNo")]
+    host["regs"][rows, 1, 0, temp_set.index] = rng.uniform(
+        18.0, 24.0, len(rows)).astype(np.float32)
+    host["iregs"][rows, 1, 0, 2 * room.index] = 0  # hi word of roomNo
+    host["iregs"][rows, 1, 0, 2 * room.index + 1] = (
+        rows.astype(np.int64) - 2**31).astype(np.int32)
+    return {"dense_state": host, "base_ts": base,
+            "key_rows": dict(zip(range(ABSENT_ROOMS), range(ABSENT_ROOMS))),
+            "next_row": ABSENT_ROOMS, "free_rows": [],
+            "row_last_used": np.zeros(ABSENT_ROOMS, dtype=np.int64)}
+
+
+def timed_timer(torch, eng, sync):
+    """Shadow the engine's wakeup read, tick and timer step on the
+    instance with host-clock timers (the step ended by a synchronise on a
+    card); returns the record they fill."""
+    rec = {"wake_ms": [], "tick_ms": [], "step_ms": [], "fired": []}
+    wake, on_time, tstep = (eng.next_wakeup_state, eng.on_time_state,
+                            eng.make_time_step())
+
+    def timed_wake(state):
+        t = time.perf_counter()
+        out = wake(state)
+        rec["wake_ms"].append(1e3 * (time.perf_counter() - t))
+        return out
+
+    def timed_step(state, now):
+        sync()
+        t = time.perf_counter()
+        out = tstep(state, now)
+        sync()
+        rec["step_ms"].append(1e3 * (time.perf_counter() - t))
+        return out
+
+    def timed_tick(state, now):
+        sync()
+        t = time.perf_counter()
+        state, fired = on_time(state, now)
+        sync()
+        rec["tick_ms"].append(1e3 * (time.perf_counter() - t))
+        rec["fired"].append(0 if fired is None else len(fired[1]))
+        return state, fired
+
+    eng.next_wakeup_state = timed_wake
+    eng.on_time_state = timed_tick
+    eng._time_step = timed_step
+    return rec
+
+
+def run_absent(torch, SiddhiManager, batches, device, start):
+    """``ABSENT_APP`` on ``device`` from the snapshot ``start`` (or
+    ``start(engine)``, which makes it; the snapshot is returned): every
+    batch through ``send_batch``, so the scheduler drives the timer
+    before each batch, each synchronised and timed by the host clock
+    with its alerts delivered.  Returns the running app and what it
+    measured."""
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    mgr = SiddhiManager(device=device)
+    rt = mgr.create_siddhi_app_runtime(ABSENT_APP)
+    alerts = []
+    rt.add_callback("AlertStream", lambda evs: alerts.extend(
+        (e.timestamp, e.data) for e in evs))
+    rt.start()
+    proc = rt.pattern_runtimes()["q"]
+    if callable(start):
+        start = start(proc.engine)
+    proc.restore(start)
+    rec = timed_timer(torch, proc.engine, sync)
+    secs = []
+    for b in batches:
+        sync()
+        t = time.perf_counter()
+        rt.get_input_handler(b.stream_id).send_batch(b)
+        rt.drain()
+        sync()
+        secs.append(time.perf_counter() - t)
+    return mgr, rt, {"alerts": alerts, "secs": secs, "timer": rec,
+                     "start": start}
+
+
+def absent_breakdown(torch, rt, proc, pair, timer) -> dict:
+    """Where a turn pair's time goes in the ``absent_alert`` cell: each
+    batch's host-clock ms (synchronised, alerts delivered) split into
+    interning, the general steps (``process_deferred``, synchronised),
+    the scheduler's tick and wakeup reads (``timer``, the run's timer
+    record, which goes on filling) and the rest (the count gate, fetch,
+    materialize and callbacks)."""
+    eng = proc.engine
+    spent = {"intern_ms": 0.0, "step_ms": 0.0}
+    intern, step = proc.intern_keys, eng.process_deferred
+
+    def timed_intern(keys):
+        t = time.perf_counter()
+        out = intern(keys)
+        spent["intern_ms"] += 1e3 * (time.perf_counter() - t)
+        return out
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        spent["step_ms"] += 1e3 * (time.perf_counter() - t)
+        return out
+
+    proc.intern_keys, eng.process_deferred = timed_intern, timed_step
+    line = {"phase": "absent_alert_breakdown"}
+    for b in pair:
+        for v in spent:
+            spent[v] = 0.0
+        n_tick, n_wake = len(timer["tick_ms"]), len(timer["wake_ms"])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rt.get_input_handler(b.stream_id).send_batch(b)
+        rt.drain()
+        torch.cuda.synchronize()
+        total = 1e3 * (time.perf_counter() - t)
+        tick = sum(timer["tick_ms"][n_tick:])
+        wake = sum(timer["wake_ms"][n_wake:])
+        line[b.stream_id] = {
+            "events": len(b), "batch_ms": total, **dict(spent),
+            "tick_ms": tick, "next_wakeup_ms": wake,
+            "rest_ms": total - sum(spent.values()) - tick - wake}
+    del proc.intern_keys, eng.process_deferred
+    return line
+
+
+def timer_step_ops(torch, eng, state, now) -> dict:
+    """Device items of one timer step over the whole state under
+    ``torch.profiler``, on a copy of ``state`` (the step writes it in
+    place)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    copy = {k: v.clone() for k, v in state.items()}
+    rel = min(now - eng.base_ts, 2**31 - 1)
+    step = eng.make_time_step()
+    step(copy, rel)  # warm
+    copy = {k: v.clone() for k, v in state.items()}
+    # the clones finish before the profiler starts, or it counts them
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        _s, emit_d, _o, _f, n_emit = step(copy, rel)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
+    return {"timer_step_kernels": len(dev) - len(copies),
+            "timer_step_copies": len(copies),
+            "timer_step_device_us": sum(e.time_range.elapsed_us()
+                                        for e in dev),
+            "timer_step_profiled_fires": int(n_emit.item())}
+
+
+def absent_phase(torch, SiddhiManager, EventBatch, kernels, card) -> dict:
+    """Phase 13a: ``absent_alert``, the query guide's absent example over
+    1,000,000 rooms on the card from a seeded mid-chain state, held bit
+    for bit against the same run on the CPU (alerts, their timestamps
+    and order; the whole final state).  Returns the path's launches by
+    kernel (read over the card run alone)."""
+    from siddhi_tpu_torch.ops.dense_nfa import _round_order, state_to_numpy
+
+    batches = absent_batches(EventBatch)
+    for wrappers in kernels.values():
+        for k in wrappers:
+            k.launches = 0
+    mgr, rt, got = run_absent(torch, SiddhiManager, batches, "cuda",
+                              absent_start)
+    start = got["start"]
+    launches = {name: sum(k.launches for k in wrappers)
+                for name, wrappers in kernels.items()}
+    proc = rt.pattern_runtimes()["q"]
+    eng = proc.engine
+    lowering = rt.lowering(step_kinds=True)
+    final, _ = state_to_numpy(eng, proc.state)
+    time_fires = proc.time_fires
+    # the callback and the timers go on recording after the held run
+    alerts = list(got["alerts"])
+    timer = {k: list(v) for k, v in got["timer"].items()}
+    n_ticks = len(timer["tick_ms"])
+    # timing only, after the held run: one timer step and one
+    # Temperature batch's general steps alone, one more turn pair split
+    # by stage, and one more under the profiler
+    last_ts = int(batches[-1].timestamps[-1])
+    more = [EventBatch(b.stream_id, b.attribute_names, b.columns,
+                       b.timestamps + last_ts + 1 - ABSENT_T0)
+            for b in batches[:4]]
+    ops = timer_step_ops(torch, eng, proc.state, last_ts + ABSENT_WAIT_MS)
+    temp = more[1]
+    gstate = {k: v.clone() for k, v in proc.state.items()}
+    torch.cuda.synchronize()  # the profiler must not count the clones
+    gops = step_device_ops(torch, eng, gstate, (
+        "TemperatureStream", temp.columns["roomNo"], dict(temp.columns),
+        temp.timestamps))
+    del gstate
+    brk = absent_breakdown(torch, rt, proc, more[:2], got["timer"])
+
+    def run_more():
+        for b in more[2:]:
+            rt.get_input_handler(b.stream_id).send_batch(b)
+        rt.drain()
+
+    prof = device_profile(torch, run_more)
+    rt.shutdown()
+    mgr.shutdown()
+    cmgr, crt, cpu = run_absent(torch, SiddhiManager, batches, "cpu", start)
+    cproc = crt.pattern_runtimes()["q"]
+    cfinal, _ = state_to_numpy(cproc.engine, cproc.state)
+    cpu_fires = cproc.time_fires
+    crt.shutdown()
+    cmgr.shutdown()
+    if alerts != cpu["alerts"]:
+        raise AssertionError("absent_alert: alerts differ between the card "
+                             "and the CPU run")
+    bad = [k for k in cfinal if not np.array_equal(
+        final[k].view(np.uint8), cfinal[k].view(np.uint8))]
+    if bad or time_fires != cpu_fires:
+        raise AssertionError(f"absent_alert: final {bad} or timer fires "
+                             f"({time_fires}, CPU {cpu_fires}) differ "
+                             "between the card and the CPU run")
+    # every arm: the seeded ones and each action == 1 event placed (less
+    # the lane overflow); each is fired, killed or still pending
+    arms = (int(start["dense_state"]["active"][:, 1].sum())
+            + sum(int((b.columns["action"] == 1).sum()) for b in batches
+                  if "action" in b.columns)
+            - int(final["overflow"].sum()))
+    pending = int(final["active"][:, 1].sum())
+    n_alerts = len(alerts)
+    kills = arms - n_alerts - pending
+    if (lowering != {"q": "dense/general"} or not n_alerts or kills <= 0
+            or launches["probe"] != 1
+            or any(v for k, v in launches.items() if k != "probe")):
+        raise AssertionError(f"absent_alert: lowering {lowering}, alerts "
+                             f"{n_alerts}, kills {kills}, launches "
+                             f"{launches}")
+    timed = got["secs"][2 * ABSENT_WARMUP:]
+    events = [len(b) for b in batches]
+    emit({"phase": "absent_alert", "app": "Siddhi 5.1 query guide, "
+          "non-occurrence: regulator on, room not cooled within 30 sec",
+          "lowering": lowering, "rooms": ABSENT_ROOMS,
+          "states": eng.S, "instances": eng.I, "registers": eng.alloc.n,
+          "int_registers": eng.alloc.n_int,
+          "state_bytes": sum(int(np.prod(shape)) * dt.itemsize
+                             for shape, dt in eng.state_layout().values()),
+          "seeded_armed": int(start["dense_state"]["active"][:, 1].sum()),
+          "regulator_batch": REG_BATCH, "temperature_batch": TEMP_BATCH,
+          "batch_span_ms": ABSENT_SPAN_MS,
+          "warmup_pairs": ABSENT_WARMUP, "timed_pairs": ABSENT_PAIRS,
+          "bit_exact_alerts": n_alerts, "bit_exact_state": sorted(cfinal),
+          "kills": kills, "pending_at_end": pending,
+          "overflow": int(final["overflow"].sum()),
+          "events_per_s": sum(events[2 * ABSENT_WARMUP:]) / sum(timed),
+          "batch_ms": [1e3 * x for x in got["secs"]],
+          "ticks": n_ticks, "timer_steps_fired": time_fires,
+          "alerts_per_tick": timer["fired"],
+          "timer_step_host_ms": timer["step_ms"],
+          "tick_ms": timer["tick_ms"],
+          "fire_fetch_ms": [a - b for a, b in zip(timer["tick_ms"],
+                                                  timer["step_ms"])],
+          "next_wakeup_calls": len(timer["wake_ms"]),
+          "next_wakeup_ms_median": sorted(timer["wake_ms"])[
+              len(timer["wake_ms"]) // 2],
+          "next_wakeup_ms_max": max(timer["wake_ms"]),
+          **ops,
+          "rounds_per_batch": [len(_round_order(
+              b.columns["roomNo"])[1]) - 1 for b in batches],
+          "general_step": gops, **prof,
+          "profiled": "one more turn pair, after the held run",
+          "launches": launches, "cpu_seconds": sum(cpu["secs"]),
+          "card": card})
+    emit(brk)
+    return launches
+
+
+def absent_sends(seed, n=300, P=8):
+    """About ``n`` seeded events on ``S`` and ``T (k long, v double)``:
+    keys over ``P`` partitions, ``v ~ U(0, 8)``, 1-40 ms apart."""
+    rng = np.random.default_rng(seed)
+    out, t = [], 1000
+    for _ in range(n):
+        t += int(rng.integers(1, 40))
+        out.append(("S" if rng.random() < 0.6 else "T",
+                    [int(rng.integers(0, P)), float(rng.uniform(0, 8))], t))
+    return out
+
+
+def app_card_vs_cpu(torch, SiddhiManager, app, sends, label, after=None,
+                    wait=None) -> dict:
+    """``sends`` (stream, row, ts) through ``SiddhiManager`` on the card
+    and on the CPU: the callbacks (values, timestamps, order), the
+    timer fires, the key maps and the query's whole final state must be
+    equal.  ``after(rt)`` runs after the sends; ``wait(got)`` polls (at
+    most 10 s) for callbacks that arrive with no input."""
+    from siddhi_tpu_torch.ops.dense_nfa import state_to_numpy
+
+    res, secs = {}, 0.0
+    for d in ("cuda", "cpu"):
+        mgr = SiddhiManager(device=d)
+        rt = mgr.create_siddhi_app_runtime(app)
+        got = []
+        rt.add_callback("Alerts", lambda evs, got=got: got.extend(
+            (e.timestamp, list(e.data)) for e in evs))
+        rt.start()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for stream, row, ts in sends:
+            rt.get_input_handler(stream).send(list(row), timestamp=ts)
+        if after is not None:
+            after(rt)
+        if wait is not None:
+            stop = time.monotonic() + 10
+            while not wait(got) and time.monotonic() < stop:
+                time.sleep(0.005)
+        rt.drain()
+        torch.cuda.synchronize()
+        if d == "cuda":
+            secs = time.perf_counter() - t
+        proc = rt.pattern_runtimes()["q"]
+        lowering = rt.lowering(step_kinds=True)
+        rt.shutdown()
+        mgr.shutdown()
+        state, base = state_to_numpy(proc.engine, proc.state)
+        res[d] = (got, proc.time_fires, base, state, dict(proc._key_rows),
+                  list(proc._free_rows))
+    (g, f, b, st, keys, free), (cg, cf, cb, cst, ckeys, cfree) = (
+        res["cuda"], res["cpu"])
+    bad = [k for k in cst if not np.array_equal(st[k].view(np.uint8),
+                                                cst[k].view(np.uint8))]
+    if (g != cg or (f, b, keys, free) != (cf, cb, ckeys, cfree) or bad
+            or not cg or lowering != {"q": "dense/general"}):
+        raise AssertionError(f"{label}: card callbacks, fires, key maps or "
+                             f"state {bad} differ from the CPU run's, none, "
+                             f"or lowering {lowering}")
+    return {"case": label, "events": len(sends), "callbacks": len(cg),
+            "timer_fires": cf, "keys": len(ckeys), "free_rows": len(cfree),
+            "bit_exact_state": sorted(cst), "card_seconds": secs}
+
+
+def reanchor_card_vs_cpu(torch, compile_pattern, state_from_numpy,
+                         state_to_numpy) -> dict:
+    """An absent engine driven across a re-anchor with deadlines
+    pending, card against CPU: a seeded state near the int32 headroom,
+    batches that cross it (each after a tick to its last timestamp),
+    then a tick past every deadline."""
+    app = (ABSENT_DEFINE + "@info(name='q') from every a=S[v > 4.0] -> "
+           "not T[v > a.v] for 2 sec select a.k as ak, a.v as av "
+           "insert into Alerts;")
+    eng = {d: compile_pattern(app, "q", n_partitions=8, device=d)
+           for d in ("cuda", "cpu")}
+    limit = eng["cpu"]._REL_LIMIT
+    rng = np.random.default_rng(43)
+    host = eng["cpu"].init_state_host()
+    act = rng.random(host["active"].shape) < 0.5
+    act[-1] = False
+    act[:, 0] = False
+    host["active"] = act
+    host["first_ts"] = np.where(act, limit - 3_000, 0).astype(np.int32)
+    host["deadline"] = np.where(act, rng.choice(
+        [limit - 9_000, limit - 1_000, limit + 800], act.shape),
+        0).astype(np.int32)
+    host["regs"] = rng.uniform(0, 8, host["regs"].shape).astype(np.float32)
+    state = {d: state_from_numpy(e, host, 0) for d, e in eng.items()}
+    fired = {d: [] for d in eng}
+    t = limit - 2_000
+    for i in range(6):
+        stream = "S" if i % 2 == 0 else "T"
+        ts = t + np.sort(rng.integers(0, 700, 40))
+        t = int(ts[-1])
+        cols = {"k": rng.integers(0, 8, 40), "v": rng.uniform(0, 8, 40)}
+        part = rng.integers(0, 8, 40).astype(np.int32)
+        for d, e in eng.items():
+            state[d], f = e.on_time_state(state[d], t)
+            fired[d].append(None if f is None else [x.tolist() for x in f])
+            state[d], ev, out = e.process(state[d], stream, part, cols, ts)
+            fired[d].append([ev.tolist(), out.tolist()])
+    for d, e in eng.items():
+        state[d], f = e.on_time_state(state[d], t + 10_000)
+        fired[d].append(None if f is None else [x.tolist() for x in f])
+    card, _ = state_to_numpy(eng["cuda"], state["cuda"])
+    cpu, _ = state_to_numpy(eng["cpu"], state["cpu"])
+    bad = [k for k in cpu if not np.array_equal(card[k].view(np.uint8),
+                                                cpu[k].view(np.uint8))]
+    # the entries alternate tick, batch, ..., and end with a tick
+    n_fired = sum(len(f[1]) for f in fired["cpu"][0::2] if f is not None)
+    if (fired["cuda"] != fired["cpu"] or bad or not n_fired
+            or eng["cuda"].base_ts != eng["cpu"].base_ts
+            or not eng["cpu"].base_ts):
+        raise AssertionError(f"re-anchor: fires, base or state {bad} differ "
+                             "between the card and the CPU run, or no fire "
+                             "or no re-anchor")
+    return {"case": "re-anchor with deadlines pending",
+            "base_ts": eng["cpu"].base_ts, "timer_fires": n_fired,
+            "bit_exact_state": sorted(cpu)}
+
+
+def absent_check_phase(torch, SiddhiManager, compile_pattern,
+                       state_from_numpy, state_to_numpy, card) -> None:
+    """Phase 13b-c: the small ``absent_check`` cases and ``purge_check``,
+    each card against CPU."""
+    part = ("@app:playback @app:execution('tpu', partitions='8') "
+            + ABSENT_DEFINE + "partition with (k of S, k of T) begin "
+            "@info(name='q') from {q} insert into Alerts; end;")
+    lines = [app_card_vs_cpu(torch, SiddhiManager, part.format(q=q),
+                             absent_sends(len(label)), label)
+             for label, q in ABSENT_CHECKS.items()]
+    lines.append(app_card_vs_cpu(
+        torch, SiddhiManager,
+        "@app:playback @app:execution('tpu') " + ABSENT_DEFINE
+        + "@info(name='q') from every a=S[v > 6.0] -> not T[v > a.v] "
+        "for 300 millisec select a.k as ak, a.v as av insert into Alerts;",
+        absent_sends(11), "unpartitioned trailing"))
+    lines.append(reanchor_card_vs_cpu(torch, compile_pattern,
+                                      state_from_numpy, state_to_numpy))
+    # the idle heartbeat fires a deadline with no input
+    lines.append(app_card_vs_cpu(
+        torch, SiddhiManager,
+        "@app:playback(idle.time='20 millisecond', increment='400 "
+        "millisecond') @app:execution('tpu') " + ABSENT_DEFINE
+        + "@info(name='q') from every a=S[v > 6.0] -> not T[v > a.v] "
+        "for 1 sec select a.k as ak, a.v as av insert into Alerts;",
+        [("S", [3, 7.5], 1000)], "idle heartbeat",
+        wait=lambda got: len(got) >= 1))
+    for line in lines:
+        emit({"phase": "absent_check", **line, "card": card})
+    # @purge: keys going idle, new keys taking the recycled rows
+    sends, rng, t = [], np.random.default_rng(47), 1000
+    for i in range(300):
+        t += int(rng.integers(1, 30)) + (4000 if i % 100 == 0 else 0)
+        sends.append(("S", [int(rng.integers(0, 8)) + 8 * (i // 100),
+                            float(rng.uniform(0, 8))], t))
+    purge = ("@app:playback @app:execution('tpu', partitions='16') "
+             + ABSENT_DEFINE + "@purge(enable='true', interval='1 sec', "
+             "idle.period='2 sec') partition with (k of S) begin "
+             "@info(name='q') from every a=S[v > 5.0] -> b=S[v > a.v] "
+             "within 3 sec select a.v as av, b.v as bv insert into Alerts; "
+             "end;")
+    line = app_card_vs_cpu(
+        torch, SiddhiManager, purge, sends, "purge",
+        after=lambda rt: rt.get_input_handler("S").send(
+            [999, 0.0], timestamp=t + 10_000))
+    if not line["free_rows"]:
+        raise AssertionError("purge_check: no row was recycled")
+    emit({"phase": "purge_check", **line, "card": card})
+
+
 def main() -> int:
     import torch
 
@@ -2145,12 +2706,25 @@ def main() -> int:
          "scan_chain": [scan_chain.fused_scan],
          "bank_scatter": bank_entries}, card)
 
-    # 13. kernels -------------------------------------------------------------
+    # 13. absent deadlines: the 1 M-room cell, then the small checks ----------
+    all_kernels = {"probe": [probe.add_one],
+                   "dense_batch": [dense_batch.batch_step],
+                   "dense_step": [dense_step.packed_step],
+                   "scan_chain": [scan_chain.fused_scan],
+                   "bank_scatter": bank_entries}
+    absent_launches = absent_phase(torch, SiddhiManager, EventBatch,
+                                   all_kernels, card)
+    gc.collect()
+    absent_check_phase(torch, SiddhiManager, compile_pattern,
+                       state_from_numpy, state_to_numpy, card)
+
+    # 14. kernels -------------------------------------------------------------
     by_path = lambda name: {"dense_1M": launches.get(name, 0),
                             "skew_routed": hk_launches.get(name, 0),
                             "aggregation": agg_launches[name],
                             "general_1M": gen_launches[name],
-                            "part_b": pb_launches[name]}
+                            "part_b": pb_launches[name],
+                            "absent": absent_launches[name]}
     emit({"kernels": [
         {"name": "dense_batch", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/dense_batch.cu",
@@ -2175,7 +2749,7 @@ def main() -> int:
          "replaces": "siddhi_tpu/kernels/probe.py:56",
          "launches": (launches["probe"] + hk_launches["probe"]
                       + agg_launches["probe"] + gen_launches["probe"]
-                      + pb_launches["probe"]),
+                      + pb_launches["probe"] + absent_launches["probe"]),
          "launches_by_path": by_path("probe"), "max_abs_err": probe_err,
          **{k: probe_line[k] for k in KERNEL_KEYS}},
         {"name": "scan_chain", "route": "cuda",

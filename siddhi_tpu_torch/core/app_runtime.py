@@ -6,8 +6,9 @@ app planner's wiring) that the ported slices need: stream junctions for
 the defined streams, partitions lowered to the dense path, ``insert
 into`` output streams, incremental aggregations subscribed to their
 input junctions (``aggregations``, ``query()`` for on-demand FINDs over
-them), stream callbacks, input handlers, ``start``, ``shutdown`` and
-``lowering()``.  Pattern queries outside a partition run on the dense
+them), stream callbacks, input handlers, the app scheduler (absent-deadline timers
+and ``@purge``) with the ``@app:playback(idle.time, increment)`` idle
+heartbeat, ``start``, ``shutdown`` and ``lowering()``.  Pattern queries outside a partition run on the dense
 path at one partition.  An app outside the slices raises
 ``SiddhiAppCreationError`` naming the later slice: non-pattern queries,
 tables, windows, triggers and functions.
@@ -15,6 +16,8 @@ tables, windows, triggers and functions.
 
 from __future__ import annotations
 
+import threading
+import time
 from typing import Callable, Dict, List
 
 from siddhi_tpu_torch.aggregation.runtime import AggregationRuntime
@@ -51,6 +54,8 @@ class SiddhiAppRuntime:
         # unpartitioned queries by name (patterns on the dense path)
         self.query_runtimes: Dict[str, object] = {}
         self._running = False
+        self._playback_stop = None
+        self._playback_thread = None
         self._on_demand_cache: Dict[str, object] = {}
         self.aggregations: Dict[str, AggregationRuntime] = {}
         for ad in siddhi_app.aggregation_definitions.values():
@@ -113,8 +118,38 @@ class SiddhiAppRuntime:
         return {n: qr.pattern_processor
                 for n, qr in self._dense_query_runtimes().items()}
 
+    @property
+    def scheduler(self):
+        return self.app_context.scheduler
+
     def start(self):
+        if self._running:
+            return
+        self.scheduler.start()
         self._running = True
+        ctx = self.app_context
+        if ctx.playback and ctx.playback_idle_ms > 0:
+            self._start_playback_heartbeat()
+
+    def _start_playback_heartbeat(self):
+        """``@app:playback(idle.time, increment)``: when no event arrives
+        for ``idle.time``, advance event time by ``increment`` and the
+        scheduler with it, under the app lock."""
+        ctx = self.app_context
+        idle_s = ctx.playback_idle_ms / 1000.0
+        tg = ctx.timestamp_generator
+        stop = threading.Event()
+
+        def loop():
+            while not stop.wait(idle_s):
+                if time.monotonic() - tg.last_update_wall >= idle_s:
+                    with ctx.process_lock:
+                        self.scheduler.advance(tg.advance_idle())
+
+        self._playback_stop = stop
+        self._playback_thread = threading.Thread(
+            target=loop, name=f"playback-{self.name}", daemon=True)
+        self._playback_thread.start()
 
     def drain(self):
         """Emit every match still pending on the device."""
@@ -122,6 +157,11 @@ class SiddhiAppRuntime:
             rt.drain()
 
     def shutdown(self):
+        if self._playback_stop is not None:
+            self._playback_stop.set()
+            self._playback_thread.join(timeout=2)
+            self._playback_stop = self._playback_thread = None
+        self.scheduler.stop()
         for rt in self.pattern_runtimes().values():
             rt.close()
         for ar in self.aggregations.values():

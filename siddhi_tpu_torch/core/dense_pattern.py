@@ -12,15 +12,18 @@ The dense engine picks its step at compile time
 of plain nodes with at most 32 lanes run the batch-step kernel; chains
 with captures (``v > e1.v``, ``select e1.v``), counts and Kleene
 closures, logical ``and``/``or`` nodes (over one stream or several),
-sequences, non-every heads, whole-chain group-every, more lanes or
-reset on emit run the general step in torch ops.  A pattern over
-several streams is fed by one receiver per stream.  The reference's
-mesh sharding, fault harness, span tracer, absent-node deadline timers
-and idle-key purge are left out; the engine refuses what it does not
-run, naming the later slice.  Matches reach the query's output junction through the
-runtime's ``EmitQueue``; the reference's ``aux`` side channels
-(partition keys and event indices for aggregating selectors) wait for
-the aggregating form.
+sequences, non-every heads, whole-chain group-every, absent nodes and
+``and not`` sides, more lanes or reset on emit run the general step in
+torch ops.  A pattern over several streams is fed by one receiver per
+stream.  An engine with absent deadlines makes its runtime an app
+scheduler task: ``on_time`` runs the engine's timer step and emits the
+fired matches at their deadlines.  ``purge_idle`` reclaims the rows of
+idle keys for the partition's ``@purge``.  The reference's mesh
+sharding, fault harness and span tracer are left out; the engine
+refuses what it does not run, naming the later slice.  Matches reach
+the query's output junction through the runtime's ``EmitQueue``; the
+reference's ``aux`` side channels (partition keys and event indices for
+aggregating selectors) wait for the aggregating form.
 """
 
 from __future__ import annotations
@@ -43,9 +46,14 @@ from siddhi_tpu_torch.core.exceptions import (
     SiddhiAppCreationError,
     SiddhiAppRuntimeError,
 )
-from siddhi_tpu_torch.core.ingest_stage import IngestStage, IngestStats
+from siddhi_tpu_torch.core.ingest_stage import (
+    IngestStage,
+    IngestStats,
+    staged_put,
+)
 from siddhi_tpu_torch.kernels.dense_step import candidate_env
 from siddhi_tpu_torch.ops.dense_nfa import (
+    _TORCH_DTYPES,
     DensePatternEngine,
     filter_env,
     is_open_count,
@@ -147,11 +155,12 @@ def _trace_check(eng):
     """Evaluate every filter the step evaluates once, on a tiny zero env
     of exactly the lanes the step provides (the candidate's numeric
     columns and a node's float and integer registers, ``filter_env``):
-    each spec of each node (both sides of a logical node), and each
-    via-path filter (node ``s``'s against node ``s-1``'s registers).  A
-    filter the device cannot run (one reading a string attribute, say)
-    fails at plan time, not on the first event.  The reference traces
-    the whole step abstractly."""
+    each spec of each node (both sides of a logical node, absent specs
+    too), and each via-path filter (node ``s``'s against node ``s-1``'s
+    registers); then, for an engine with deadlines, the timer step on a
+    zero state of a few rows.  A filter the device cannot run (one
+    reading a string attribute, say) fails at plan time, not on the
+    first event.  The reference traces the whole step abstractly."""
     B, I = 4, eng.I
     slots = list(eng.alloc.slots.values())
     regs = torch.zeros((B, eng.S, I, max(eng.alloc.n, 1)),
@@ -179,6 +188,11 @@ def _trace_check(eng):
             ok = torch.as_tensor(f.fn(filter_env(cand, slots, regs[:, rn],
                                                  iregs[:, rn])))
             ok.to(torch.bool).broadcast_to((B, I))  # the step's lane shape
+        if eng.has_deadlines:
+            state = {k: torch.zeros((B,) + shape[1:],
+                                    dtype=_TORCH_DTYPES[dt])
+                     for k, (shape, dt) in eng.state_layout().items()}
+            eng.make_time_step()(state, 1)
     except SiddhiAppCreationError:
         raise
     except Exception as e:
@@ -208,6 +222,11 @@ class DensePatternRuntime:
                                         stats=self.ingest_stats)
         self.state = engine.init_state()
         self.step_invocations = 0
+        # timer steps that fired a match; the earliest armed deadline,
+        # re-read after every event batch, restore and purge
+        self.time_fires = 0
+        self._wake_dirty = True
+        self._wake_cache = None
         self._ovf_warned = 0
         self._key_rows: Dict = {}
         self._next_row = 0
@@ -371,6 +390,8 @@ class DensePatternRuntime:
         self.state, pending = eng.process_deferred(
             self.state, stream_key, part, cols, ts)
         self.step_invocations += 1
+        if eng.has_deadlines:
+            self._wake_dirty = True
         if self.step_invocations % self._OVF_POLL == 0:
             self._check_overflow()
 
@@ -465,6 +486,72 @@ class DensePatternRuntime:
         if rlu is not None:
             self._row_last_used = np.asarray(rlu).copy()
         self._rebuild_key_index()
+        self._wake_dirty = True
+
+    # -- idle-key purge ------------------------------------------------------
+
+    def purge_idle(self, now: int, idle_ms: int):
+        """Reclaim the rows of keys idle for at least ``idle_ms``: reset
+        their state rows to the init row and recycle the row ids (the
+        dense form of the partition's idle-instance purge)."""
+        if not self._key_rows:
+            return
+        idle = [(k, r) for k, r in self._key_rows.items()
+                if now - int(self._row_last_used[r]) >= idle_ms]
+        if not idle:
+            return
+        # barrier: the purged keys' pending matches emit first
+        self.drain()
+        # every init row is the same: one row is the template
+        rows, tmpl = staged_put(
+            (np.asarray([r for _k, r in idle], dtype=np.int64),
+             self.engine.init_state_host(n_rows=1)),
+            self.engine.device, self.ingest_stats)
+        for key, arr in self.state.items():
+            arr[rows] = tmpl[key]
+        for k, r in idle:
+            del self._key_rows[k]
+            self._free_rows.append(r)
+        self._rebuild_key_index()
+        self._wake_dirty = True
+
+    # -- scheduler task: absent deadlines ------------------------------------
+
+    def on_time(self, now: int):
+        """Fire the deadlines due at ``now``: the engine's timer step,
+        then one match batch stamped with the fire times."""
+        eng = self.engine
+        if not eng.has_deadlines:
+            return
+        # barrier: event matches queued before this tick emit first
+        self.drain()
+        self.state, fired = eng.on_time_state(self.state, now)
+        self._wake_dirty = True
+        if fired is None:
+            return
+        self.time_fires += 1
+        out, fire_ts, _rows = fired
+        names = eng.output_names
+        self.emit_cb(EventBatch(
+            self.out_stream_id, names,
+            {name: out[:, oi].astype(self._out_dtypes[oi])
+             for oi, name in enumerate(names)},
+            fire_ts, np.full(len(fire_ts), ev.CURRENT, dtype=np.int8)))
+
+    def next_wakeup(self):
+        """The earliest armed deadline (absolute ms) or None."""
+        if not self.engine.has_deadlines:
+            return None
+        if self._wake_dirty:
+            self._wake_cache = self.engine.next_wakeup_state(self.state)
+            self._wake_dirty = False
+        return self._wake_cache
+
+    def fire(self, now: int):
+        self.on_time(now)
+
+    def on_start(self, now: int):
+        pass
 
 
 class DenseStreamReceiver:

@@ -338,6 +338,16 @@ class HotKeyRouterRuntime:
     def drain(self):
         self._dense.drain()
 
+    def purge_idle(self, now: int, idle_ms: int):
+        """Hot rows' activity clocks advance every routed cycle, so a
+        promoted key looks idle only when it is: demote it first, so its
+        pending chains are back in its dense row, then purge."""
+        for key in list(self._slots):
+            row = self._slots[key]["row"]
+            if now - int(self._dense._row_last_used[row]) >= idle_ms:
+                self._demote(key)
+        self._dense.purge_idle(now, idle_ms)
+
     def snapshot(self) -> Dict:
         """Demote-all first: the persisted tree is a plain dense snapshot
         (restorable under other @app:hotkeys settings); the sketch rides

@@ -8,18 +8,23 @@ value-partition executor evaluates the key expression once per batch
 and ``DensePartitionReceiver`` advances every pattern runtime that
 reads the stream.
 
+``@purge(enable='true', interval=, idle.period=)`` makes the partition
+an app scheduler task: every ``interval`` it reclaims the rows of keys
+idle for ``idle.period`` in each dense query runtime (``purge_idle``).
+
 Where the reference falls back to per-key host instances (a body it
 cannot lower, no ``@app:execution('tpu')``), the port raises: host
-instances, range partitions, ``@purge`` and device queries are later
-slices of the port.
+instances, range partitions and device queries are later slices of the
+port.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
+from siddhi_tpu_torch.compiler.parser import parse_time_string
 from siddhi_tpu_torch.core import event as ev
 from siddhi_tpu_torch.core.event import EventBatch
 from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
@@ -125,11 +130,17 @@ class PartitionRuntime:
         self.partition = partition
         self.name = f"partition_{index}"
         ctx = app.app_context
+        # @purge(enable='true', interval='..', idle.period='..')
+        self._purge_interval_ms: Optional[int] = None
+        self._purge_idle_ms: Optional[int] = None
+        self._next_purge: Optional[int] = None
         purge = find_annotation(partition.annotations, "purge")
         if purge is not None and (purge.element("enable") or "false"
                                   ).lower() == "true":
-            raise SiddhiAppCreationError(
-                f"{self.name}: @purge (idle-key reclamation)" + _LATER)
+            self._purge_interval_ms = parse_time_string(
+                purge.element("interval") or "1 min")
+            self._purge_idle_ms = parse_time_string(
+                purge.element("idle.period") or "15 min")
         if ctx.execution_mode != "tpu":
             raise SiddhiAppCreationError(
                 f"{self.name}: the port runs partitions on the dense device "
@@ -187,3 +198,21 @@ class PartitionRuntime:
             if runtimes:
                 app.junctions[sid].subscribe(
                     DensePartitionReceiver(sid, ex, runtimes))
+        if self._purge_interval_ms is not None:
+            ctx.scheduler.register_task(self)
+
+    # -- idle-key purge (scheduler task) -------------------------------------
+
+    def next_wakeup(self) -> Optional[int]:
+        return self._next_purge
+
+    def on_start(self, now: int):
+        if self._purge_interval_ms is not None:
+            self._next_purge = now + self._purge_interval_ms
+
+    def fire(self, now: int):
+        """Reclaim the rows of idle keys in every dense query runtime."""
+        while self._next_purge is not None and self._next_purge <= now:
+            self._next_purge += self._purge_interval_ms
+        for qr in self.dense_query_runtimes.values():
+            qr.pattern_processor.purge_idle(now, self._purge_idle_ms)

@@ -4,7 +4,9 @@ Port of the synchronous part of the JAX package's ``core/stream.py``.  A
 ``StreamJunction`` hands each batch sent on a stream to its receivers
 (the planned queries), then to its user callbacks as row ``Event``s.
 An ``InputHandler`` turns user sends into batches: every ``send`` is one
-junction cycle, as in the reference.  The reference's asynchronous
+junction cycle, as in the reference, taken under the app lock after the
+app scheduler has advanced to the clock (due deadline and purge tasks
+fire before the batch's events step).  The reference's asynchronous
 junctions, fault streams, admission control and input journal are later
 slices of the port; an error in a receiver or callback propagates.
 """
@@ -82,7 +84,7 @@ class InputHandler:
             if e.timestamp < 0:
                 e.timestamp = tsgen.current_time()
             tsgen.set_event_time(e.timestamp)
-        self.junction.send(batch_from_events(self.definition, events))
+        self._dispatch(batch_from_events(self.definition, events))
 
     def send_batch(self, batch: EventBatch):
         """A whole columnar batch as one junction cycle."""
@@ -90,5 +92,13 @@ class InputHandler:
         if len(batch):
             self.app_context.timestamp_generator.set_event_time(
                 int(batch.timestamps.max()))
-        self.junction.send(batch)
+        self._dispatch(batch)
+
+    def _dispatch(self, batch: EventBatch):
+        """Advance the scheduler to the clock, then the junction cycle,
+        both under the app lock."""
+        ctx = self.app_context
+        with ctx.process_lock:
+            ctx.scheduler.advance(ctx.timestamp_generator.current_time())
+            self.junction.send(batch)
 

@@ -5,9 +5,11 @@ step: chains of plain stream, count (``<3:5>``, Kleene ``<1:>``) and
 logical (``and``/``or``, over one stream or several) nodes under an
 ``every``, non-every or whole-chain group-every head, patterns and
 strict-contiguity sequences, an optional ``within``, float and integer
-captures and first/[0]/[last] refs.  Absent nodes and sides (deadline
-timers) are a later slice.  Per-partition NFA state lives on the device
-as a dict of tensors under the JAX engine's keys:
+captures and first/[0]/[last] refs, and its timer step: absent nodes
+(``not X for t``) and ``and not`` sides, killed by a matching event in
+the event step and fired by ``make_time_step`` when their deadline
+passes.  Per-partition NFA state lives on the device as a dict of
+tensors under the JAX engine's keys:
 
 - ``active`` ``[P+1, S, I]`` bool: pending instance lanes per node;
 - ``first_ts`` ``[P+1, S, I]`` int32: within anchors, relative ms since
@@ -18,7 +20,9 @@ as a dict of tensors under the JAX engine's keys:
   registers of each pending instance;
 - ``iregs`` ``[P+1, S, I, 2*RI]`` int32 (only with integer captures):
   INT/LONG capture registers as hi/lo pairs;
-- ``overflow`` ``[P+1]`` int32: instances dropped for want of a free lane.
+- ``overflow`` ``[P+1]`` int32: instances dropped for want of a free lane;
+- ``deadline`` ``[P+1, S, I]`` int32 (only with absent ``for`` specs):
+  absent deadlines, relative ms (0 = unset).
 
 Row ``P`` is the reference's scratch row; no step writes it.  Each
 engine runs one of two steps, picked at compile time by
@@ -329,15 +333,18 @@ def _lane_rank(x: torch.Tensor, upto: torch.Tensor) -> torch.Tensor:
     return (x[:, None, :] & upto).sum(dim=2) - 1
 
 
-def _rank_place(t, mask, anchor, src_regs, src_iregs, a, first, counts,
-                regs, iregs, ovf, upto):
+def _rank_place(t, mask, anchor, src_regs, src_iregs, entry_dl, a, first,
+                counts, regs, iregs, dl, ovf, upto):
     """Rank-matched placement of advancing instances into free lanes of
-    node ``t`` (the JAX package's ``_rank_place`` without deadlines): the
-    k-th lane of ``mask`` takes the k-th free lane of node ``t``,
-    carrying its anchor and registers; advancers beyond the free lanes
-    are dropped and counted.  ``a``, ``first``, ``counts``, ``regs`` and
-    ``iregs`` (the gathered rows) change in place; returns the new
-    overflow counts.  ``upto``: the lane-rank mask of ``_lane_rank``."""
+    node ``t`` (the JAX package's ``_rank_place``, shared by the event
+    step and the timer step): the k-th lane of ``mask`` takes the k-th
+    free lane of node ``t``, carrying its anchor, registers and, where
+    node ``t`` has an absent ``for`` spec, its deadline ``entry_dl``
+    ([B, I] int32, else None); advancers beyond the free lanes are
+    dropped and counted.  ``a``, ``first``, ``counts``, ``regs``,
+    ``iregs`` and ``dl`` (the deadline rows, None without deadline
+    state) change in place; returns the new overflow counts.
+    ``upto``: the lane-rank mask of ``_lane_rank``."""
     B, I = mask.shape
     free = ~a[:, t] & (counts[:, t] == 0)  # [B, I]
     src_rank = _lane_rank(mask, upto)
@@ -367,6 +374,14 @@ def _rank_place(t, mask, anchor, src_regs, src_iregs, a, first, counts,
         iregs[:, t] = torch.where(g, moved(src_iregs), iregs[:, t])
     first[:, t] = torch.where(got, torch.gather(anchor, 1, src), first[:, t])
     counts[:, t].masked_fill_(got, 0)
+    if dl is not None:
+        if entry_dl is not None:
+            dl[:, t] = torch.where(got, torch.gather(entry_dl, 1, src),
+                                   dl[:, t])
+        else:
+            # a target without a deadline spec: clear a stale value left
+            # by the lane's previous occupant
+            dl[:, t].masked_fill_(got, 0)
     return ovf
 
 
@@ -379,6 +394,12 @@ def _plain(node: Node) -> bool:
     """A plain stream node: one event, no count."""
     return (node.kind == "stream" and node.min_count == 1
             and node.max_count == 1)
+
+
+def _present_mask(node: Node) -> int:
+    """The bits of a logical node's present sides in ``counts``: absent
+    sides count toward completion by staying silent."""
+    return sum(1 << i for i, sp in enumerate(node.specs) if not sp.is_absent)
 
 
 def is_open_count(node: Node) -> bool:
@@ -469,8 +490,18 @@ class DensePatternEngine:
                 "permanently) needs the host engine" + _HOST)
         if self.group_every:
             self.I = 1
-        self.has_deadlines = any(sp.is_absent and sp.waiting_ms is not None
-                                 for n in nodes for sp in n.specs)
+        # a node with an absent `for t` spec arms `deadline = entry ts +
+        # t` when an instance enters it; a matching absent-stream event
+        # kills the instance and the timer step fires it once the
+        # deadline passes
+        self.deadline_w: List[Optional[int]] = []
+        for n in nodes:
+            w = None
+            for sp in n.specs:
+                if sp.is_absent and sp.waiting_ms is not None:
+                    w = int(sp.waiting_ms)
+            self.deadline_w.append(w)
+        self.has_deadlines = any(w is not None for w in self.deadline_w)
         self._check_host_only_shapes()
         self.alloc = RegAllocator()
         self._compile_filters(stream_to_ref)
@@ -500,6 +531,7 @@ class DensePatternEngine:
                 raise SiddhiAppCreationError(reason)
         self._step_cache: Dict[str, Callable] = {}
         self._general_cache: Dict[str, Callable] = {}
+        self._time_step: Optional[Callable] = None
 
     def _check_host_only_shapes(self):
         """The shapes the reference sends to its host engine (its
@@ -628,13 +660,19 @@ class DensePatternEngine:
             # integer capture bank: a hi/lo int32 pair per slot
             layout["iregs"] = ((P, S, I, 2 * self.alloc.n_int),
                                np.dtype(np.int32))
+        if self.has_deadlines:
+            # absent deadlines, relative ms (0 = unset)
+            layout["deadline"] = ((P, S, I), np.dtype(np.int32))
         return layout
 
-    def init_state_host(self) -> Dict[str, np.ndarray]:
+    def init_state_host(self, n_rows: Optional[int] = None
+                        ) -> Dict[str, np.ndarray]:
         """Initial state as numpy arrays, in the JAX engine's layout: all
         zero, but a non-every head arms node 0 once per partition (lane
-        0), which a match's reset clears for good."""
-        state = {k: np.zeros(shape, dt)
+        0), which a match's reset clears for good.  ``n_rows``: that many
+        init rows instead of the whole state (a purge's template)."""
+        state = {k: np.zeros(shape if n_rows is None
+                             else (n_rows,) + shape[1:], dt)
                  for k, (shape, dt) in self.state_layout().items()}
         if not self.every_start:
             state["active"][:, 0, 0] = True
@@ -684,7 +722,10 @@ class DensePatternEngine:
         every, non-every and whole-chain group-every heads; patterns and
         strict-contiguity sequences; an optional ``within``; float and
         integer captures, first/[0]/[last] refs; any lane count; reset on
-        emit.  Absent nodes and sides are refused before it runs.
+        emit; absent nodes and ``and not`` sides: a matching event kills
+        the instances pending there (deadline completion runs in
+        ``make_time_step``), and entering a node with an absent ``for``
+        spec arms its deadline to the event's time plus the wait.
 
         step(state, part_idx [B] int, cols {key: [B]}, ts [B] int32
              relative ms, valid [B] bool)
@@ -697,7 +738,8 @@ class DensePatternEngine:
         back in place; the gathered ``[B, S, I]`` rows are private copies,
         so they are updated in place node slice by node slice.
         ``counts`` is the capture count at a count node and the bitmask
-        of matched sides at a logical node.  Emit bank 0 (lanes
+        of matched sides at a logical node; ``deadline`` rides beside
+        them when the engine has absent ``for`` specs.  Emit bank 0 (lanes
         ``[0, I)``) takes instances completing at the last node; bank 1
         (``[I, 2I)``) the via-path's clones, a dually pending open count
         passing straight through the last node on the same event."""
@@ -715,10 +757,15 @@ class DensePatternEngine:
         # out-spec position -> index into the integer output pairs
         int_out = [oi for oi, is_int in enumerate(self.out_int) if is_int]
         int_out_idx = {oi: k for k, oi in enumerate(int_out)}
-        # the specs of each node this stream feeds (absent ones are
-        # refused before a step is built)
+        # the present specs of each node this stream feeds, and its
+        # absent specs, whose matching events kill
         sides = [[si for si, sp in enumerate(node.specs)
-                  if sp.stream_key == stream_key] for node in nodes]
+                  if sp.stream_key == stream_key and not sp.is_absent]
+                 for node in nodes]
+        kills = [[si for si, sp in enumerate(node.specs)
+                  if sp.stream_key == stream_key and sp.is_absent]
+                 for node in nodes]
+        deadline_w = self.deadline_w
         # the slots each spec captures into
         writes = [[[slot for slot in self.node_writes[s] if slot.ref == sp.ref]
                    for sp in node.specs] for s, node in enumerate(nodes)]
@@ -726,7 +773,7 @@ class DensePatternEngine:
         via = [s >= 1 and is_open_count(nodes[s - 1]) for s in range(S)]
         stream_def = self._stream_def(stream_key)
         filtered = any(node_filters[s][si] is not None
-                       for s in range(S) for si in sides[s])
+                       for s in range(S) for si in sides[s] + kills[s])
         slots_f = any(not slot.integer for slot in slots)
 
         def eval_ok(s, si, cand, fregs, iregs, B, rn=None):
@@ -755,6 +802,7 @@ class DensePatternEngine:
             regs = state["regs"][pi]       # [B, S, I, R] float32
             iregs = state["iregs"][pi] if "iregs" in state else None
             ovf = state["overflow"][pi]    # [B] int32
+            dl = state["deadline"][pi] if "deadline" in state else None
             t = ts[:, None]
             emit = torch.zeros((B, 2 * I), dtype=torch.bool, device=dev)
             out_f = torch.zeros((B, 2 * I, O), dtype=torch.float32, device=dev)
@@ -770,6 +818,8 @@ class DensePatternEngine:
                 a &= ~expired
                 counts.masked_fill_(expired, 0)
                 first.masked_fill_(expired, 0)
+                if dl is not None:
+                    dl.masked_fill_(expired, 0)
 
             # group-every: the fresh arm forms only while the partition
             # has no active instance (after expiry, before the event)
@@ -788,7 +838,7 @@ class DensePatternEngine:
             ok = []
             for s, node in enumerate(nodes):
                 oks = [eval_ok(s, si, cand, fregs, iregs, B) & vb
-                       if si in sides[s] else None
+                       if si in sides[s] or si in kills[s] else None
                        for si in range(len(node.specs))]
                 ok.append(oks if node.kind == "logical" else oks[0])
 
@@ -853,10 +903,15 @@ class DensePatternEngine:
 
             def place(tgt, mask, anchor, src_regs, src_iregs):
                 """Move the instances in ``mask`` into free lanes of node
-                ``tgt`` (rank-matched, overflow counted)."""
+                ``tgt`` (rank-matched, overflow counted); a target with an
+                absent ``for`` spec arms its deadline to this event's
+                time plus the wait."""
                 nonlocal ovf
-                ovf = _rank_place(tgt, mask, anchor, src_regs, src_iregs, a,
-                                  first, counts, regs, iregs, ovf, upto)
+                w = deadline_w[tgt]
+                entry_dl = None if w is None else (t + w).expand(B, I)
+                ovf = _rank_place(tgt, mask, anchor, src_regs, src_iregs,
+                                  entry_dl, a, first, counts, regs, iregs, dl,
+                                  ovf, upto)
 
             def anchor_of(s):
                 return torch.where(first[:, s] > 0, first[:, s], t)
@@ -873,9 +928,24 @@ class DensePatternEngine:
             lanes = torch.arange(I, device=dev)
             lane0 = lanes == 0
             upto = lanes[None, :] <= lanes[:, None]  # [i, j]: j <= i
+
+            def kill(s, viol):
+                """A matching absent-stream event kills the instances in
+                ``viol`` pending at node ``s``."""
+                a[:, s] &= ~viol
+                counts[:, s].masked_fill_(viol, 0)
+                first[:, s].masked_fill_(viol, 0)
+                if dl is not None:
+                    dl[:, s].masked_fill_(viol, 0)
+
             for s in reversed(range(S)):
                 node = nodes[s]
-                if not sides[s]:
+                if node.kind == "absent":
+                    # completion at the deadline is the timer step's
+                    if kills[s]:
+                        kill(s, a[:, s] & ok[s])
+                    continue
+                if not sides[s] and not kills[s]:
                     continue
                 if node.kind == "logical":
                     # sides ride bits of counts; an already matched side
@@ -884,6 +954,13 @@ class DensePatternEngine:
                     pending = a[:, s]
                     if s == 0 and every_start:
                         pending = pending | lane0  # the lane-0 virgin
+                    for si in kills[s]:
+                        # `and not`: the absent side arriving kills the
+                        # armed lanes (an every-start `and not` is refused,
+                        # so no virgin meets a kill)
+                        viol = a[:, s] & ok[s][si]
+                        kill(s, viol)
+                        pending = pending & ~viol
                     matched_now = None
                     for si in sides[s]:
                         bit = 1 << si
@@ -897,18 +974,27 @@ class DensePatternEngine:
                             write_slot(s, slot, fire)
                         first[:, s] = torch.where(
                             fire & (first[:, s] == 0), t, first[:, s])
+                    if matched_now is None:
+                        continue  # no present side on this stream
                     # completion needs a side matched on this event, then
-                    # every side (`and`) or any (`or`)
-                    every_side = (1 << len(node.specs)) - 1
-                    need = counts[:, s] & every_side
-                    done = (need == every_side if node.logical_op == "and"
+                    # every present side (`and`) or any (`or`); `and not
+                    # B for t` also needs its deadline passed (or
+                    # consumed by the timer)
+                    pmask = _present_mask(node)
+                    need = counts[:, s] & pmask
+                    done = (need == pmask if node.logical_op == "and"
                             else need > 0)
                     complete = done & matched_now
+                    if deadline_w[s] is not None:
+                        dls = dl[:, s]
+                        complete &= (dls == 0) | (t >= dls)
                     advance(s, complete)
                     # a completed logical node releases its lane
                     a[:, s] &= ~complete
                     counts[:, s].masked_fill_(complete, 0)
                     first[:, s].masked_fill_(complete, 0)
+                    if deadline_w[s] is not None:
+                        dl[:, s].masked_fill_(complete, 0)
                     continue
                 is_count = not _plain(node)
                 pending = a[:, s]
@@ -1007,6 +1093,8 @@ class DensePatternEngine:
                 a &= ~hit
                 counts.masked_fill_(hit, 0)
                 first.masked_fill_(hit, 0)
+                if dl is not None:
+                    dl.masked_fill_(hit, 0)
 
             # scatter back (valid rows only)
             v3 = valid[:, None, None]
@@ -1014,6 +1102,7 @@ class DensePatternEngine:
                                      ("counts", counts, v3),
                                      ("regs", regs, v3[..., None]),
                                      ("iregs", iregs, v3[..., None]),
+                                     ("deadline", dl, v3),
                                      ("overflow", ovf, valid)):
                 if rows is not None:
                     state[key][pi] = torch.where(vmask, rows, state[key][pi])
@@ -1022,6 +1111,165 @@ class DensePatternEngine:
 
         self._general_cache[stream_key] = step
         return step
+
+    # -- timer step (absent deadlines) ---------------------------------------
+
+    def make_time_step(self) -> Callable:
+        """The deadline-timer step of an engine with absent states: the
+        JAX package's ``make_time_step`` (``siddhi_tpu/ops/dense_nfa.py
+        :1246-1376``) in torch ops.
+
+        time_step(state, now int relative ms)
+          -> (state, emit [P+1, I] bool, {"f": [P+1, I, O] float32,
+              "i": [P+1, I, 2*n_int_out] int32}, fire [P+1, I] int32,
+              n_emit int32 0-d)
+
+        It runs over every state row (no gather) and writes the state
+        tensors in place: ``within`` expiry first; then, node by node in
+        descending order (a fire placing into node s+1 cannot fire again
+        this tick), the lanes whose deadline has passed (``active``,
+        ``deadline > 0``, ``now >= deadline``).  At a logical node they
+        complete only if every present side has matched, and the deadline
+        is consumed either way.  At the last node they emit, their
+        outputs from the node's registers (selects never read the absent
+        event); elsewhere they move into free lanes of node s+1, arming
+        its deadline from the fire time.  ``fire[p, i]`` is the deadline
+        an instance fired at, the match's timestamp.  Then reset on
+        emit."""
+        if self._time_step is not None:
+            return self._time_step
+        S, I = self.S, self.I
+        nodes, within = self.nodes, self.within_ms
+        deadline_w, reset_on_emit = self.deadline_w, self.reset_on_emit
+        out_spec, out_int = self.out_spec, self.out_int
+        O = max(len(out_spec), 1)
+        n_iout = sum(out_int)
+
+        def time_step(state, now: int):
+            a, first, counts = state["active"], state["first_ts"], state["counts"]
+            regs, iregs = state["regs"], state.get("iregs")
+            dl = state["deadline"]
+            ovf = state["overflow"]
+            Pr, dev = a.shape[0], a.device
+            emit = torch.zeros((Pr, I), dtype=torch.bool, device=dev)
+            out_f = torch.zeros((Pr, I, O), dtype=torch.float32, device=dev)
+            out_i = torch.zeros((Pr, I, 2 * n_iout), dtype=torch.int32,
+                                device=dev)
+            fire = torch.zeros((Pr, I), dtype=torch.int32, device=dev)
+            lanes = torch.arange(I, device=dev)
+            upto = lanes[None, :] <= lanes[:, None]
+
+            # an instance that ran out of its within window never fires
+            if within is not None:
+                expired = (first > 0) & ((now - first) > within)
+                a &= ~expired
+                counts.masked_fill_(expired, 0)
+                first.masked_fill_(expired, 0)
+                dl.masked_fill_(expired, 0)
+
+            for s in reversed(range(S)):
+                if deadline_w[s] is None:
+                    continue
+                node = nodes[s]
+                dls = dl[:, s]
+                due = a[:, s] & (dls > 0) & (now >= dls)
+                ft = dls.clone()  # the fire times, read before consumed
+                if node.kind == "logical":
+                    pmask = _present_mask(node)
+                    fire_mask = due & ((counts[:, s] & pmask) == pmask)
+                else:
+                    fire_mask = due
+                dls.masked_fill_(due, 0)
+                anchor = torch.where(first[:, s] > 0, first[:, s], ft)
+                if s == S - 1:
+                    emit |= fire_mask
+                    fire = torch.where(fire_mask, ft, fire)
+                    ii = 0
+                    for oi, (_name, src) in enumerate(out_spec):
+                        if out_int[oi]:
+                            for j in (0, 1):
+                                out_i[:, :, 2 * ii + j] = torch.where(
+                                    fire_mask, iregs[:, s, :, 2 * src.index + j],
+                                    out_i[:, :, 2 * ii + j])
+                            ii += 1
+                        else:
+                            out_f[:, :, oi] = torch.where(
+                                fire_mask, regs[:, s, :, src.index],
+                                out_f[:, :, oi])
+                else:
+                    w2 = deadline_w[s + 1]
+                    ovf = _rank_place(
+                        s + 1, fire_mask, anchor, regs[:, s],
+                        None if iregs is None else iregs[:, s],
+                        None if w2 is None else ft + w2,
+                        a, first, counts, regs, iregs, dl, ovf, upto)
+                a[:, s] &= ~fire_mask
+                counts[:, s].masked_fill_(fire_mask, 0)
+                first[:, s].masked_fill_(fire_mask, 0)
+
+            if reset_on_emit:
+                hit = emit.any(dim=1)[:, None, None]
+                a &= ~hit
+                counts.masked_fill_(hit, 0)
+                first.masked_fill_(hit, 0)
+                dl.masked_fill_(hit, 0)
+            if ovf is not state["overflow"]:
+                state["overflow"].copy_(ovf)
+            n_emit = emit.sum(dtype=torch.int32)
+            return state, emit, {"f": out_f, "i": out_i}, fire, n_emit
+
+        self._time_step = time_step
+        return time_step
+
+    def next_wakeup_state(self, state) -> Optional[int]:
+        """Earliest armed absent deadline (absolute ms), or None: one
+        reduction over the state and one scalar to the host.  Engines
+        without deadlines, and any before its first event, return None
+        without touching the device."""
+        if not self.has_deadlines or self.base_ts is None:
+            return None
+        dl = state["deadline"]
+        m = torch.where(state["active"] & (dl > 0), dl,
+                        torch.iinfo(torch.int32).max).amin()
+        m = int(fetch_coalesced([m])[0])
+        if m >= 2**31 - 1:
+            return None
+        return self.base_ts + m
+
+    def on_time_state(self, state, now: int):
+        """Advance the deadline timers to absolute time ``now``.
+
+        Returns ``(state, fired)``: ``fired`` is None (no instance fired)
+        or ``(out [m, n_out], fire_ts [m] absolute ms, part_rows [m])``
+        ordered by (fire time, partition row, lane), the reference's
+        deadline-ordered flush.  The fires are compacted on the device
+        (``nonzero`` on ``emit``, whose size is the count gate, then
+        gathers) and fetched in one copy."""
+        if not self.has_deadlines or self.base_ts is None:
+            return state, None
+        rel = now - self.base_ts
+        if rel <= 0:
+            return state, None
+        rel = min(rel, 2**31 - 1)
+        state, emit, outs, fire, _n = self.make_time_step()(state, rel)
+        rows_d, lanes_d = emit.nonzero(as_tuple=True)
+        if rows_d.numel() == 0:
+            return state, None
+        # one int32 matrix, one copy: row, lane, fire time, the float
+        # outputs' bits, the integer outputs
+        O = outs["f"].shape[-1]
+        host = fetch_coalesced([torch.cat([
+            rows_d.to(torch.int32)[:, None], lanes_d.to(torch.int32)[:, None],
+            fire[rows_d, lanes_d][:, None],
+            outs["f"][rows_d, lanes_d].view(torch.int32),
+            outs["i"][rows_d, lanes_d]], dim=1)])[0]
+        rows = host[:, 0].astype(np.int64)
+        lanes = host[:, 1]
+        out = self.assemble_rows(np.ascontiguousarray(host[:, 3:3 + O])
+                                 .view(np.float32), host[:, 3 + O:])
+        fire_np = host[:, 2].astype(np.int64) + self.base_ts
+        order = np.lexsort((lanes, rows, fire_np))
+        return state, (out[order], fire_np[order], rows[order])
 
     # -- host wrapper -------------------------------------------------------
 
@@ -1032,9 +1280,10 @@ class DensePatternEngine:
 
     def maybe_re_anchor(self, state, rel64: np.ndarray):
         """Shift ``base_ts`` forward when relative timestamps approach the
-        int32 range.  ``first_ts`` anchors shift with it; instances whose
-        anchor falls outside the ``within`` horizon are already expired
-        and are cleared on the host (a once-per-24-days round trip)."""
+        int32 range.  ``first_ts`` anchors and armed deadlines shift with
+        it; instances whose anchor falls outside the ``within`` horizon
+        are already expired and are cleared on the host (a
+        once-per-24-days round trip)."""
         if not len(rel64) or int(rel64.max()) < self._REL_LIMIT:
             return state, rel64
         horizon = self.within_ms or 0
@@ -1045,8 +1294,11 @@ class DensePatternEngine:
                 "horizon exceeds the int32 relative-time range")
         self.base_ts += delta
         rel64 = rel64 - delta
-        first, active, counts = fetch_coalesced(
-            [state["first_ts"], state["active"], state["counts"]])
+        keys = ["first_ts", "active", "counts"]
+        if "deadline" in state:
+            keys.append("deadline")
+        first, active, counts, *dlv = fetch_coalesced(
+            [state[k] for k in keys])
         first = first.astype(np.int64)  # [P, S, I]
         shifted = np.where(first > 0, first - delta, 0)
         if self.within_ms is not None:
@@ -1059,10 +1311,17 @@ class DensePatternEngine:
         else:
             # no within: anchors are inert, clamp to stay "set" (>0)
             shifted = np.where(first > 0, np.maximum(shifted, 1), 0)
+        host = [shifted.astype(np.int32), active, counts]
+        if dlv:
+            # armed deadlines shift with the base; one at or below the new
+            # zero clamps to 1 (long overdue: it fires on the next tick,
+            # where the unshifted value pointed too)
+            d = dlv[0].astype(np.int64)
+            host.append(np.where(d > 0, np.maximum(d - delta, 1), 0)
+                        .astype(np.int32))
         state = dict(state)
-        state["first_ts"], state["active"], state["counts"] = staged_put(
-            (shifted.astype(np.int32), active, counts), self.device,
-            self.ingest_stats)
+        state.update(zip(keys, staged_put(tuple(host), self.device,
+                                          self.ingest_stats)))
         return state, rel64
 
     def process(self, state, stream_key: str, part_idx: np.ndarray,
@@ -1206,22 +1465,25 @@ class DensePatternEngine:
 
     def assemble_out(self, out_f: np.ndarray, out_i: np.ndarray,
                      rows: np.ndarray, lanes: np.ndarray) -> np.ndarray:
-        """Match output rows from the output banks: float lanes stay
-        float32; integer lanes re-join their hi/lo pair into exact int64
-        (an object matrix, as in the JAX engine)."""
+        """Match output rows from the output banks at ``(rows, lanes)``
+        (see :meth:`assemble_rows`)."""
+        return self.assemble_rows(out_f[rows, lanes], out_i[rows, lanes])
+
+    def assemble_rows(self, f: np.ndarray, i: np.ndarray) -> np.ndarray:
+        """Match output rows from one output row each of the float bank
+        (``f [m, O]``) and the integer bank (``i [m, 2*n_int]``): float
+        lanes stay float32; integer lanes re-join their hi/lo pair into
+        exact int64 (an object matrix, as in the JAX engine)."""
         if not any(self.out_int):
-            return out_f[rows, lanes]
-        m = len(rows)
-        res = np.empty((m, len(self.out_spec)), dtype=object)
+            return f
+        res = np.empty((len(f), len(self.out_spec)), dtype=object)
         ii = 0
         for oi, is_int in enumerate(self.out_int):
             if is_int:
-                hi = out_i[rows, lanes, 2 * ii]
-                lo = out_i[rows, lanes, 2 * ii + 1]
-                res[:, oi] = _i64_join(hi, lo)
+                res[:, oi] = _i64_join(i[:, 2 * ii], i[:, 2 * ii + 1])
                 ii += 1
             else:
-                res[:, oi] = out_f[rows, lanes, oi].astype(np.float64)
+                res[:, oi] = f[:, oi].astype(np.float64)
         return res
 
     @property

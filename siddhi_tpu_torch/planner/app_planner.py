@@ -3,7 +3,10 @@
 Port of the annotation half of the JAX package's
 ``planner/app_planner.py``, with the reference's error messages:
 
-- ``@app:name`` and ``@app:playback`` (event time drives the clock);
+- ``@app:name`` and ``@app:playback(idle.time=, increment=)`` (event
+  time drives the clock; ``increment`` is added to it, and with
+  ``idle.time`` the app runtime's heartbeat advances it by
+  ``increment`` when no event arrives for that long);
 - ``@app:execution('tpu', partitions=, instances=, emit.depth=,
   ingest.depth=, agg.device.min.batch=)``;
 - ``@app:hotkeys(k=, promote=, demote=)``;
@@ -18,12 +21,15 @@ refused.
 
 from __future__ import annotations
 
+import threading
 import time
 import uuid
 from typing import Dict
 
+from siddhi_tpu_torch.compiler.parser import parse_time_string
 from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
 from siddhi_tpu_torch.query_api.annotation import find_annotation
+from siddhi_tpu_torch.util.scheduler import Scheduler
 
 _READ = ("app:name", "app:description", "app:playback", "app:execution",
          "app:hotkeys", "app:kernels")
@@ -31,20 +37,33 @@ _READ = ("app:name", "app:description", "app:playback", "app:execution",
 
 class TimestampGenerator:
     """Event/wall time source: under ``@app:playback`` the current time
-    is the latest event time, else the wall clock (ms)."""
+    is the latest event time plus ``increment_ms`` (0 before the first
+    event), else the wall clock (ms)."""
 
-    def __init__(self, playback: bool = False):
+    def __init__(self, playback: bool = False, increment_ms: int = 0):
         self.playback = playback
+        self.increment_ms = increment_ms
         self._event_time = -1
+        self.last_update_wall = time.monotonic()
 
     def current_time(self) -> int:
         if self.playback:
-            return max(self._event_time, 0)
+            return (self._event_time + self.increment_ms
+                    if self._event_time >= 0 else 0)
         return int(time.time() * 1000)
 
     def set_event_time(self, ts: int):
+        self.last_update_wall = time.monotonic()
         if ts > self._event_time:
             self._event_time = ts
+
+    def advance_idle(self) -> int:
+        """Idle heartbeat: push event time forward by the increment when
+        no events arrive; returns the new current time."""
+        self.last_update_wall = time.monotonic()
+        if self._event_time >= 0:
+            self._event_time += self.increment_ms
+        return self.current_time()
 
 
 class AppContext:
@@ -54,7 +73,12 @@ class AppContext:
         self.name = name
         self.device = device
         self.playback = False
+        # @app:playback(idle.time=): the heartbeat period, 0 = none
+        self.playback_idle_ms = 0
         self.timestamp_generator = TimestampGenerator()
+        # input sends, scheduler ticks and the heartbeat run under it
+        self.process_lock = threading.RLock()
+        self.scheduler = Scheduler(self)
         self.execution_mode = "host"
         # dense pattern state: partition rows and instance lanes per
         # (partition, node), as in the reference
@@ -87,6 +111,18 @@ def _positive_int(ann, key: str, what: str) -> int:
     return n
 
 
+def _time_ms(v) -> int:
+    """An ``@app:playback`` time element: ms as an integer or a time
+    string (``'2 sec'``); absent is 0.  Anything else raises
+    ``SiddhiParserError``, as the reference does."""
+    if v is None:
+        return 0
+    try:
+        return int(v)
+    except ValueError:
+        return parse_time_string(v)
+
+
 def plan_app_context(siddhi_app, device) -> AppContext:
     """Read the app annotations into an ``AppContext``."""
     anns = siddhi_app.annotations
@@ -98,9 +134,13 @@ def plan_app_context(siddhi_app, device) -> AppContext:
     name_ann = find_annotation(anns, "app:name")
     ctx = AppContext((name_ann.element() if name_ann else None)
                      or f"app_{uuid.uuid4().hex[:8]}", device)
-    if find_annotation(anns, "app:playback") is not None:
+    playback = find_annotation(anns, "app:playback")
+    if playback is not None:
         ctx.playback = True
-        ctx.timestamp_generator = TimestampGenerator(playback=True)
+        ctx.timestamp_generator = TimestampGenerator(
+            playback=True,
+            increment_ms=_time_ms(playback.element("increment")))
+        ctx.playback_idle_ms = _time_ms(playback.element("idle.time"))
 
     exec_ann = find_annotation(anns, "app:execution")
     if exec_ann is not None:

@@ -8,13 +8,13 @@ Port of the JAX package's ``planner/kernels.py``:
   kernel (``kernels/dense_batch.py``, one launch a batch); every other
   pattern the dense engine takes (captures and the register file,
   counts and Kleene closures, logical ``and``/``or`` nodes, sequences,
-  non-every heads, whole-chain group-every, more lanes, reset on emit)
+  non-every heads, whole-chain group-every, absent nodes and ``and
+  not`` sides with their deadline timers, more lanes, reset on emit)
   takes the general step in torch ops (``ops/dense_nfa.py``
-  ``make_general_step``).  That is a plan-time choice, never a
-  fallback.  Absent nodes and ``and not`` sides (deadline timers) are
-  refused with ``SiddhiAppCreationError`` naming the ``ROADMAP.md``
-  item that adds them; the shapes the reference itself sends to its
-  host engine are refused earlier, by the engine's constructor.
+  ``make_general_step``, and ``make_time_step`` for the deadlines).
+  That is a plan-time choice, never a fallback.  The shapes the
+  reference itself sends to its host engine are refused earlier, by
+  the engine's constructor.
 - ``check_scan_kernel_available``: the hot-key scan's only step is the
   fused scan kernel; on a card it needs the probe to pass and raises
   otherwise.
@@ -32,9 +32,6 @@ from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
 from siddhi_tpu_torch.kernels import probe
 from siddhi_tpu_torch.kernels.dense_batch import MAX_INSTANCES
 
-_PART_C = (" — ROADMAP.md §1 item 4 (general dense step, part c: absent "
-           "deadlines), a later slice of the port")
-
 
 def route_dense_step(engine) -> str:
     """``"batch"`` or ``"general"``: the step that runs ``engine``.
@@ -43,13 +40,8 @@ def route_dense_step(engine) -> str:
     (one filter bit per node and event, no register file, no counts)
     with at most ``dense_batch.MAX_INSTANCES`` lanes, the standing
     virgin at node 0 and no reset on emit; the general step takes
-    everything else the engine admits.  Raises for absent nodes and
-    sides."""
-    if any(node.kind == "absent" or any(sp.is_absent for sp in node.specs)
-           for node in engine.nodes):
-        raise SiddhiAppCreationError(
-            "dense step: absent/deadline nodes need per-chain timers"
-            + _PART_C)
+    everything else the engine admits, absent nodes and sides
+    included."""
     plain = all(node.kind == "stream" and node.min_count == 1
                 and node.max_count == 1 for node in engine.nodes)
     if (plain and engine.every_start and not engine.group_every

@@ -10,7 +10,8 @@ partition count of ``@app:execution('tpu', partitions=...)`` and the
 partition receiver's interned keys; an unpartitioned one runs at one
 partition, fed by ``DenseStreamReceiver`` (the reference's ``:531-566``
 and ``:637``).  Matches go to the query's ``insert into`` stream
-junction.
+junction.  An engine with absent deadlines registers its runtime as an
+app scheduler task (the reference's ``:777-782``).
 """
 
 from __future__ import annotations
@@ -124,4 +125,8 @@ def plan_dense_state(app, query: Query, name: str, st,
             runtime = wrapped
             qr.lowered_to = wrapped.lowered_to
     qr.pattern_processor = runtime
+    if engine.has_deadlines:
+        # absent deadlines fire from the app scheduler (the router
+        # refuses deadline engines, so this is the dense runtime)
+        ctx.scheduler.register_task(runtime)
     return qr

@@ -292,6 +292,128 @@ def test_unpartitioned_capture_app_on_card_matches_cpu(cuda_device):
     assert rows["cuda"] == rows["cpu"] and rows["cpu"]
 
 
+ABSENT_APPS = {
+    # a mid-chain absent node under within: kills, arming, timer advance
+    "mid_within": (
+        "define stream S (k long, v double); define stream T (k long, "
+        "v double); @info(name='q') from every a=S[v > 6.0] -> "
+        "not T[v > a.v] for 400 millisec -> c=S[v > a.v] within 2 sec "
+        "select a.v as av, c.v as cv insert into Alerts;"),
+    # `and not ... for`, then a trailing absent node: timer emits with
+    # float and integer register outputs
+    "and_not_trailing": (
+        "define stream S (k long, v double); define stream T (k long, "
+        "v double); @info(name='q') from every a=S[v > 6.0] -> "
+        "(b=S[v > a.v] and not T[v > 7.0] for 300 millisec) -> "
+        "not T[v > b.v] for 500 millisec "
+        "select a.k as ak, b.v as bv insert into Alerts;"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ABSENT_APPS))
+def test_timer_step_on_card_matches_cpu(cuda_device, case):
+    """Absent deadlines on the card against the CPU: event batches on
+    both streams (kills, and-not completions, deadline arming), each
+    after a tick to its last timestamp as the scheduler runs them, then
+    ticks past every deadline: the event matches, the timer fires (in
+    (fire time, row, lane) order) and the whole state, ``deadline``
+    included, bit for bit."""
+    from siddhi_tpu_torch import compile_pattern, state_to_numpy
+
+    app = ABSENT_APPS[case]
+    eng = {d: compile_pattern(app, "q", n_partitions=64, device=d)
+           for d in ("cuda", "cpu")}
+    assert eng["cuda"].step_kind == "general" and eng["cuda"].has_deadlines
+    state = {d: e.init_state() for d, e in eng.items()}
+    rng = np.random.default_rng(9)
+    t, n_fired, n_matches = 1000, 0, 0
+
+    def tick(now):
+        fired = {}
+        for d, e in eng.items():
+            state[d], fired[d] = e.on_time_state(state[d], now)
+        assert (fired["cuda"] is None) == (fired["cpu"] is None)
+        if fired["cpu"] is None:
+            return 0
+        for g, w in zip(fired["cuda"], fired["cpu"]):
+            if g.dtype == object:
+                g = np.array(g.tolist(), dtype=np.float64)
+                w = np.array(w.tolist(), dtype=np.float64)
+            assert np.array_equal(g.view(np.uint8), w.view(np.uint8))
+        return len(fired["cpu"][1])
+
+    for i in range(10):
+        stream = "S" if i % 3 != 2 else "T"
+        part = rng.integers(0, 64, 200)
+        cols = {"k": rng.integers(0, 3, 200), "v": rng.uniform(0, 8, 200)}
+        ts = t + np.sort(rng.integers(0, 300, 200))
+        t = int(ts[-1])
+        n_fired += tick(t)
+        res = {}
+        for d, e in eng.items():
+            state[d], ev, out = e.process(state[d], stream, part, cols, ts)
+            res[d] = (ev, out)
+        assert np.array_equal(res["cuda"][0], res["cpu"][0])
+        got, want = res["cuda"][1], res["cpu"][1]
+        if got.dtype == object:
+            got = np.array(got.tolist(), dtype=np.float64)
+            want = np.array(want.tolist(), dtype=np.float64)
+        assert np.array_equal(got.view(np.uint8), want.view(np.uint8))
+        n_matches += len(res["cpu"][0])
+    for now in (t + 200, t + 400, t + 5000):
+        n_fired += tick(now)
+    # the trailing case emits from the timer, the mid-chain one from
+    # events after the timer moved its instances on
+    assert n_fired if case == "and_not_trailing" else n_matches
+    assert eng["cuda"].next_wakeup_state(state["cuda"]) == \
+        eng["cpu"].next_wakeup_state(state["cpu"])
+    card, _ = state_to_numpy(eng["cuda"], state["cuda"])
+    cpu, _ = state_to_numpy(eng["cpu"], state["cpu"])
+    for k in cpu:
+        assert np.array_equal(card[k].view(np.uint8), cpu[k].view(np.uint8)), k
+
+
+def test_absent_purge_app_on_card_matches_cpu(cuda_device):
+    """A partitioned absent app under ``@purge`` through ``SiddhiManager``
+    on the card and on the CPU: timer matches at their deadlines, idle
+    keys' rows recycled, the same callbacks and key maps."""
+    from siddhi_tpu_torch import SiddhiManager
+
+    app = ("@app:playback @app:execution('tpu', partitions='16') "
+           "define stream S (k long, v double); "
+           "define stream T (k long, v double); "
+           "@purge(enable='true', interval='1 sec', idle.period='2 sec') "
+           "partition with (k of S, k of T) begin @info(name='q') "
+           "from every a=S[v > 5.0] -> not T[v > a.v] for 1 sec "
+           "select a.k as ak, a.v as av insert into Alerts; end;")
+    rng = np.random.default_rng(10)
+    sends, t = [], 1000
+    for i in range(300):
+        # three phases of 8 keys each, 4 s apart: the keys churn
+        t += int(rng.integers(1, 30)) + (4000 if i % 100 == 0 else 0)
+        key = int(rng.integers(0, 8)) + 8 * (i // 100)
+        sends.append(("S" if rng.random() < 0.6 else "T",
+                      [key, float(rng.uniform(0, 8))], t))
+    rows = {}
+    for d in ("cuda", "cpu"):
+        mgr = SiddhiManager(device=d)
+        rt = mgr.create_siddhi_app_runtime(app)
+        got = []
+        rt.add_callback("Alerts", lambda evs, got=got: got.extend(
+            (e.timestamp, list(e.data)) for e in evs))
+        rt.start()
+        for stream, row, ts in sends:
+            rt.get_input_handler(stream).send(row, timestamp=ts)
+        rt.get_input_handler("S").send([999, 0.0], timestamp=t + 10_000)
+        proc = rt.pattern_runtimes()["q"]
+        rows[d] = (got, dict(proc._key_rows), list(proc._free_rows),
+                   proc.time_fires)
+        rt.shutdown()
+        mgr.shutdown()
+    assert rows["cuda"] == rows["cpu"]
+    assert rows["cpu"][0] and rows["cpu"][2] and rows["cpu"][3]
+
+
 def batch_step_inputs(S, I, N, P, within, seed, long_seg=0):
     """Seeded batch-step inputs on the CPU: a mid-chain state (anchors
     only where active, some past ``within``), Zipf(1.2) partitions (every

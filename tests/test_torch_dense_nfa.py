@@ -193,9 +193,9 @@ def test_state_from_numpy_refuses_a_foreign_layout():
 
 
 @pytest.mark.parametrize("app,reason", [
-    # counts, sequences, logical nodes, non-every heads and group-every
-    # run on the general step (tests/test_torch_part_b.py); absent nodes
-    # are still refused
+    # counts, sequences, logical nodes, non-every heads, group-every
+    # (tests/test_torch_part_b.py) and absent nodes
+    # (tests/test_torch_absent.py) run on the general step
     ("@info(name='q') from every a=S[v > 8.0] -> b=S[v > a.v]<2> "
      "within 3 sec select a.v as av, b[last].v as bv insert into Alerts;",
      "counting"),
@@ -215,12 +215,7 @@ def test_state_from_numpy_refuses_a_foreign_layout():
 def test_refuses_patterns_outside_the_packed_class(app, reason):
     """The packed step (and the batch step) take capture-free every
     chains of plain nodes only: these shapes run on the general step,
-    and ``make_step`` refuses them; absent nodes are refused outright."""
-    if reason == "absent":
-        with pytest.raises(SiddhiAppCreationError, match=reason) as info:
-            compile_pattern(DEFINE + app, "q", n_partitions=8, device="cpu")
-        assert "later slice" in str(info.value)
-        return
+    and ``make_step`` refuses them."""
     te = compile_pattern(DEFINE + app, "q", n_partitions=8, device="cpu")
     assert te.step_kind == "general"
     with pytest.raises(ValueError, match="general step"):

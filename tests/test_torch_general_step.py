@@ -415,10 +415,10 @@ def test_once_refused_shapes_match_jax(name):
 
 
 @pytest.mark.parametrize("app,reason,item", [
-    ("every a=S[v > 8.0] -> not S[v > a.v] for 1 sec -> c=S[v > 1.0] "
-     "select c.v as cv", None, "item 4"),
-    ("every a=S[v > 8.0] -> b=S[v > a.v] and not T[v > 1.0] "
-     "select b.v as bv", None, "item 4"),
+    ("not S[v > 8.0] for 1 sec -> c=S[v > 1.0] select c.v as cv",
+     "leading absent 'for' deadline", "item 7"),
+    ("every a=S[v > 8.0] -> b=S[v > a.v] and not S[v > 1.0] "
+     "select b.v as bv", "logical and-not over the SAME stream", "item 7"),
     ("every a=S[v > 8.0] -> b=S[v > a.v]<0:2> -> c=S[v > 1.0] "
      "select c.v as cv", "optional (min 0) states", "item 7"),
     ("every (a=S[v > 8.0] -> b=S[v > a.v]) -> c=S[v > 1.0] "
@@ -430,9 +430,10 @@ def test_once_refused_shapes_match_jax(name):
 ], ids=["absent", "and_not", "min_zero_count", "partial_group",
         "open_count_then_count", "count_in_logical"])
 def test_refusals_name_their_roadmap_item(app, reason, item):
-    """What the port still refuses: absent nodes and sides (deadline
-    timers, ``ROADMAP.md`` §1 item 4), and the shapes the reference
-    sends to its host engine, with its reason (host patterns, item 7).
+    """What the port still refuses: the shapes the reference sends to
+    its host engine, with its reason (host patterns, ``ROADMAP.md`` §1
+    item 7), absent ones among them (a leading absent deadline, an
+    ``and not`` over its present side's stream).
     A count inside a logical node the reference's lowering refuses for
     both its engines; the port's copy of it gives the same reason and
     names no later slice."""

@@ -393,10 +393,11 @@ class TestOutsideTheSlice:
              "-> c=S[v > 1.0] select c.v as cv insert into Alerts;"),
         # a non-pattern query inside the partition
         wrap("@info(name='q') from S[v > 8.0] select v insert into Alerts;"),
-        # an absent node: ROADMAP.md §1 item 4
-        wrap("@info(name='q') from every a=S[v > 8.0] -> "
-             "not S[v > 12.0] for 1 sec -> c=S[v > 1.0] "
-             "select c.v as cv insert into Alerts;"),
+        # a leading absent deadline: the reference's host engine,
+        # ROADMAP.md §1 item 7 (other absent nodes run dense,
+        # tests/test_torch_absent.py)
+        wrap("@info(name='q') from not S[v > 12.0] for 1 sec -> "
+             "c=S[v > 1.0] select c.v as cv insert into Alerts;"),
         # an aggregating select
         wrap("@info(name='q') from every a=S[v > 8.0] -> b=S[v > 12.0] "
              "select count() as n insert into Alerts;"),
