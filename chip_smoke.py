@@ -176,7 +176,34 @@ skew-routed pattern path and the incremental-aggregation path through
    ``purge_check`` line: ``@purge`` on a partitioned chain whose keys go
    idle and whose new keys take the recycled rows, callbacks, key maps
    and state held against the CPU run.
-14. kernels: one line per ported kernel (launches on the main paths,
+14. fraud_rollup: BASELINE config 2 (``FRAUD_APP``'s pattern inside
+   ``partition with (card of Txn)``, 100,000 cards) under a per-card
+   aggregating selector (``count()``, ``max(a.amount)``,
+   ``sum(b[last].amount)``, ``having alerts >= 2``) through
+   ``SiddhiManager`` and ``send_batch``: the dense engine emits the raw
+   captures and the host query runtime's selector aggregates the match
+   rows per card through the partition-key side channel.  From
+   ``count_fraud``'s seeded start over its traffic (2 warm-up and 10
+   timed batches of 131,072), the alerts of every batch (in order, bit
+   for bit), the selector's groups and the engine's whole final state
+   against the same run with ``device="cpu"``.  It reports events/s, ms
+   a batch, the selector's host ms a batch, match and output rows a
+   batch, the step kind and the launches (the probe once, no other
+   kernel: ``launches_by_path.selector`` in the kernels line).
+15. rate_limit_checks: small dense patterns card against CPU through
+   ``SiddhiManager``: at one partition under ``output last every 1
+   sec`` (the scheduler's rate task, the emit queue drained first),
+   ``output first every 3 events``, ``output snapshot every 1 sec`` and
+   a group-by selector with ``output all every 2 events``; an absent
+   pattern under a partitioned aggregating selector; ``@purge``
+   dropping the purged keys' selector state.
+16. host_queries: a host-only app through ``SiddhiManager()`` with its
+   default device: the verify skill's filter, a ``#window.time`` average
+   and a ``#window.timeBatch`` group-by sum over 1,000,000 events in
+   batches of 8,192, each lowered to ``host``, making no allocation on
+   the card and giving the ``device="cpu"`` run's output; events/s are
+   host figures on the card machine's host.
+17. kernels: one line per ported kernel (launches on the main paths,
    largest difference from its plain version, ``ms``, ``host_us``,
    ``device_us``, plain and library times, bound); the bank kernel's at
    the entry the aggregation path uses, ``accumulate_``, with the delta
@@ -315,6 +342,46 @@ ABSENT_CHECKS = {
     "every_within": (
         "every a=S[v > 4.0] -> not T[v > a.v] for 1 sec -> c=S[v > 7.0] "
         "within 1500 millisec select a.k as ak, c.v as cv"),
+}
+# BASELINE config 2 under a per-card aggregating selector (the host query
+# runtime over the dense matches): FRAUD_APP's pattern inside a partition
+FRAUD_ROLLUP_APP = (
+    "@app:playback @app:execution('tpu', partitions='100000') "
+    "define stream Txn (card long, amount double); "
+    "partition with (card of Txn) begin @info(name='fraud') "
+    "from every a=Txn[amount > 100.0] -> b=Txn[amount > a.amount]<3:5> "
+    "within 10 min select a.card as card, count() as alerts, "
+    "max(a.amount) as top, sum(b[last].amount) as spent "
+    "having alerts >= 2 insert into Alerts; end;")
+# small dense patterns under rate limits and aggregating selectors, card
+# against CPU (about 300 events each)
+RATE_PATTERN = ("every a=S[v > 4.0] -> b=S[v > a.v] within 2 sec ")
+RATE_CHECKS = {
+    "output_last_every_1_sec": (
+        "select a.v as av, b.v as bv output last every 1 sec"),
+    "output_first_every_3_events": (
+        "select a.v as av, b.v as bv output first every 3 events"),
+    "output_snapshot_every_1_sec": (
+        "select a.v as av, b.v as bv output snapshot every 1 sec"),
+    "group_by_output_all_every_2_events": (
+        "select a.k as ak, count() as n, max(b.v) as top group by a.k "
+        "output all every 2 events"),
+}
+# host queries through SiddhiManager() on the card machine: the verify
+# skill's filter, a sliding time-window average and a tumbling
+# time-window group-by sum, over 1,000,000 events in batches of 8,192
+HOST_EVENTS = 1_000_000
+HOST_BATCH = 8_192
+HOST_DEFINE = ("@app:playback define stream S (symbol string, price float, "
+               "volume long); ")
+HOST_QUERIES = {
+    "filter": ("from S[volume < 150] select symbol, price "
+               "insert into Out;"),
+    "time_avg": ("from S#window.time(1 sec) select symbol, "
+                 "avg(price) as avgPrice insert into Out;"),
+    "time_batch_sum": ("from S#window.timeBatch(1 sec) select symbol, "
+                       "sum(volume) as total group by symbol "
+                       "insert into Out;"),
 }
 # a dependent operation waits at least 4 cycles for the one before it
 DEP_LATENCY_CYCLES = 4
@@ -2206,6 +2273,305 @@ def absent_check_phase(torch, SiddhiManager, compile_pattern,
     emit({"phase": "purge_check", **line, "card": card})
 
 
+def rollup_batches(EventBatch, n):
+    """``fraud_batches`` as ``Txn`` batches for ``SiddhiManager``: card
+    long, amount double (the float32 amounts widened exactly)."""
+    return [EventBatch("Txn", ["card", "amount"],
+                       {"card": cols["card"].astype(np.int64),
+                        "amount": cols["amount"].astype(np.float64)}, ts)
+            for _stream, _part, cols, ts in fraud_batches(n)]
+
+
+def rollup_start(eng) -> dict:
+    """``count_fraud``'s seeded mid-chain start as a runtime snapshot,
+    card ``c`` interned on row ``c``: the engine meets the same state and
+    batches as in ``count_fraud``."""
+    host, base = mid_chain_state(
+        eng, seed=len("count_fraud"), within_ms=600_000,
+        reg_draw=lambda rng, shape: rng.lognormal(4.0, 1.0, shape))
+    P = eng.n_partitions
+    return {"dense_state": host, "base_ts": base,
+            "key_rows": dict(zip(range(P), range(P))), "next_row": P,
+            "free_rows": [], "row_last_used": np.zeros(P, np.int64)}
+
+
+def run_rollup(torch, SiddhiManager, batches, device, start):
+    """``FRAUD_ROLLUP_APP`` on ``device`` from ``start`` (a snapshot, or
+    ``start(engine)`` which makes it; returned): every batch through
+    ``send_batch`` and ``drain``, synchronised and timed by the host
+    clock, with the selector's own host time and input rows (the match
+    rows) per batch, and the alerts per batch."""
+    from siddhi_tpu_torch.ops.dense_nfa import state_to_numpy
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    mgr = SiddhiManager(device=device)
+    rt = mgr.create_siddhi_app_runtime(FRAUD_ROLLUP_APP)
+    alerts = [[]]
+    rt.add_callback("Alerts", lambda evs: alerts[-1].extend(
+        (e.timestamp, [v.hex() if isinstance(v, float) else v
+                       for v in e.data]) for e in evs))
+    sel = rt.partitions["partition_0"].dense_query_runtimes["fraud"].selector
+    sel_s, sel_rows = [0.0], [0]
+    inner = sel.process
+
+    def timed(batch, now):
+        t = time.perf_counter()
+        out = inner(batch, now)
+        sel_s[-1] += time.perf_counter() - t
+        sel_rows[-1] += len(batch)
+        return out
+
+    sel.process = timed
+    rt.start()
+    proc = rt.pattern_runtimes()["fraud"]
+    if callable(start):
+        start = start(proc.engine)
+    proc.restore(start)
+    h = rt.get_input_handler("Txn")
+    secs = []
+    for i, b in enumerate(batches):
+        if i:
+            alerts.append([])
+            sel_s.append(0.0)
+            sel_rows.append(0)
+        sync()
+        t = time.perf_counter()
+        h.send_batch(b)
+        rt.drain()
+        sync()
+        secs.append(time.perf_counter() - t)
+    final, _ = state_to_numpy(proc.engine, proc.state)
+    return mgr, rt, {"alerts": alerts, "secs": secs, "sel_s": sel_s,
+                     "sel_rows": sel_rows, "final": final,
+                     "groups": sorted(sel.group_states, key=repr),
+                     "start": start, "step_kind": proc.engine.step_kind,
+                     "lowering": rt.lowering(step_kinds=True)}
+
+
+def rollup_phase(torch, SiddhiManager, EventBatch, kernels, card) -> dict:
+    """Phase 14: ``fraud_rollup``, BASELINE config 2 at 100,000 cards
+    under a per-card aggregating selector through ``SiddhiManager``: the
+    dense engine emits the raw captures, the host selector counts,
+    maximises and sums per card (the partition-key side channel) and
+    filters by ``having``.  From ``count_fraud``'s seeded start, over its
+    traffic (2 warm-up and 10 timed batches of 131,072), held bit for
+    bit against the same run with ``device="cpu"``: the alerts of every
+    batch in order, the selector's groups and the engine's whole final
+    state.  Returns the path's launches by kernel (the card run's)."""
+    batches = rollup_batches(EventBatch, PB_WARMUP + PB_STEPS)
+    for wrappers in kernels.values():
+        for k in wrappers:
+            k.launches = 0
+    mgr, rt, got = run_rollup(torch, SiddhiManager, batches, "cuda",
+                              rollup_start)
+    launches = {name: sum(k.launches for k in wrappers)
+                for name, wrappers in kernels.items()}
+    rt.shutdown()
+    mgr.shutdown()
+    gc.collect()
+    t = time.perf_counter()
+    cmgr, crt, cpu = run_rollup(torch, SiddhiManager, batches, "cpu",
+                                got["start"])
+    cpu_s = time.perf_counter() - t
+    crt.shutdown()
+    cmgr.shutdown()
+    bad = [k for k in cpu["final"] if not np.array_equal(
+        got["final"][k].view(np.uint8), cpu["final"][k].view(np.uint8))]
+    n_out = [len(a) for a in got["alerts"]]
+    if (got["alerts"] != cpu["alerts"] or got["groups"] != cpu["groups"]
+            or got["sel_rows"] != cpu["sel_rows"] or bad):
+        raise AssertionError(f"fraud_rollup: alerts, selector groups, match "
+                             f"rows or final state {bad} differ between the "
+                             "card and the CPU run")
+    if (not sum(n_out) or got["lowering"] != {"fraud": "dense/general"}
+            or launches["probe"] != 1
+            or any(v for k, v in launches.items() if k != "probe")):
+        raise AssertionError(f"fraud_rollup: alerts {n_out}, lowering "
+                             f"{got['lowering']}, launches {launches}")
+    timed = got["secs"][PB_WARMUP:]
+    events = [len(b) for b in batches]
+    emit({"phase": "fraud_rollup", "app": FRAUD_ROLLUP_APP,
+          "cards": FRAUD_CARDS, "batch": BATCH,
+          "warmup_batches": PB_WARMUP, "timed_batches": PB_STEPS,
+          "step_kind": got["step_kind"], "lowering": got["lowering"],
+          "events_per_s": sum(events[PB_WARMUP:]) / sum(timed),
+          "ms_per_batch": 1e3 * sum(timed) / len(timed),
+          "batch_ms": [1e3 * x for x in got["secs"]],
+          "selector_ms_per_batch": 1e3 * sum(got["sel_s"][PB_WARMUP:])
+                                   / len(timed),
+          "selector_ms": [1e3 * x for x in got["sel_s"]],
+          "match_rows_per_batch": got["sel_rows"],
+          "output_rows_per_batch": n_out,
+          "selector_groups": len(got["groups"]),
+          "bit_exact_alerts": sum(n_out),
+          "bit_exact_state": sorted(cpu["final"]),
+          "launches": launches, "cpu_seconds": cpu_s, "card": card})
+    return launches
+
+
+def rate_limit_phase(torch, SiddhiManager, card) -> None:
+    """Phase 15: ``rate_limit_checks``, card against CPU through
+    ``SiddhiManager`` (about 300 events each): unpartitioned dense
+    patterns (one partition) under ``output last every 1 sec`` (fired by
+    the scheduler's rate task, the emit queue drained first), ``output
+    first every 3 events``, ``output snapshot every 1 sec`` and a
+    group-by selector with ``output all every 2 events``; an absent
+    pattern under a partitioned aggregating selector (its timer-fired
+    alerts reach the per-key state); and ``@purge`` dropping a purged
+    key's selector state."""
+    def tick(t):
+        return lambda rt: rt.get_input_handler("T").send([0, 0.0],
+                                                         timestamp=t)
+
+    lines = []
+    for label, sel in RATE_CHECKS.items():
+        sends = absent_sends(len(label), P=4)
+        app = ("@app:playback @app:execution('tpu') " + ABSENT_DEFINE
+               + f"@info(name='q') from {RATE_PATTERN}{sel} "
+               "insert into Alerts;")
+        lines.append(app_card_vs_cpu(torch, SiddhiManager, app, sends, label,
+                                     after=tick(sends[-1][2] + 5000)))
+    sends = absent_sends(53)
+    lines.append(app_card_vs_cpu(
+        torch, SiddhiManager,
+        "@app:playback @app:execution('tpu', partitions='8') "
+        + ABSENT_DEFINE + "partition with (k of S, k of T) begin "
+        "@info(name='q') from every a=S[v > 5.0] -> not T[v > a.v] for 1 sec "
+        "select a.k as ak, count() as n, sum(a.v) as s insert into Alerts; "
+        "end;", sends, "absent_partitioned_aggregating",
+        after=tick(sends[-1][2] + 5000)))
+    # @purge: keys 0-7, then 8-15 (0-7 go idle and are purged), then 0-7
+    # again, whose counts must start over
+    sends, rng, t = [], np.random.default_rng(59), 1000
+    for i in range(300):
+        t += int(rng.integers(1, 30)) + (4000 if i % 100 == 0 else 0)
+        sends.append(("S", [int(rng.integers(0, 8)) + 8 * ((i // 100) % 2),
+                            float(rng.uniform(0, 8))], t))
+    purge = ("@app:playback @app:execution('tpu', partitions='16') "
+             + ABSENT_DEFINE + "@purge(enable='true', interval='1 sec', "
+             "idle.period='2 sec') partition with (k of S) begin "
+             "@info(name='q') from every a=S[v > 5.0] -> b=S[v > a.v] "
+             "within 3 sec select a.k as ak, count() as n "
+             "insert into Alerts; end;")
+    seen = []
+
+    def keys(rt):
+        qr = rt.partitions["partition_0"].dense_query_runtimes["q"]
+        seen.append(({gid[0] for gid in qr.selector.group_states},
+                     set(qr.pattern_processor._key_rows)))
+
+    line = app_card_vs_cpu(torch, SiddhiManager, purge, sends, "purge",
+                           after=keys)
+    # the selector keeps groups of live keys only: keys 8-15, idle in the
+    # last hundred events, were purged from both
+    groups, live = seen[0]
+    if not groups or not groups <= live or any(8 <= k < 16 for k in live):
+        raise AssertionError(f"rate_limit_checks: selector groups "
+                             f"{sorted(groups)} outlive the live keys "
+                             f"{sorted(live)}, or keys 8-15 were not purged")
+    lines.append(line)
+    for line in lines:
+        emit({"phase": "rate_limit_checks", **line, "card": card})
+
+
+def host_batches(EventBatch):
+    """1,000,000 seeded events on ``S`` in batches of 8,192: eight
+    symbols, ``price ~ U(1, 500)`` float32, ``volume`` uniform on
+    [0, 300), eight events a ms."""
+    rng = np.random.default_rng(53)
+    syms = np.array(["IBM", "WSO2", "ORCL", "MSFT", "GOOG", "AMZN", "META",
+                     "NVDA"], dtype=object)
+    out = []
+    for lo in range(0, HOST_EVENTS, HOST_BATCH):
+        n = min(HOST_BATCH, HOST_EVENTS - lo)
+        out.append(EventBatch(
+            "S", ["symbol", "price", "volume"],
+            {"symbol": syms[rng.integers(0, len(syms), n)],
+             "price": rng.uniform(1.0, 500.0, n).astype(np.float32),
+             "volume": rng.integers(0, 300, n).astype(np.int64)},
+            1000 + (lo + np.arange(n, dtype=np.int64)) // 8))
+    return out
+
+
+def run_host(torch, SiddhiManager, StreamCallback, query, batches, device):
+    """One host query over ``batches``; returns the output batches, the
+    seconds, the lowering and the card's allocation count across it."""
+    allocs = lambda: torch.cuda.memory_stats().get(
+        "allocation.all.allocated", 0)
+    before = allocs()
+    mgr = SiddhiManager() if device is None else SiddhiManager(device=device)
+    rt = mgr.create_siddhi_app_runtime(
+        HOST_DEFINE + "@info(name='q') " + query)
+    class Rows(StreamCallback):
+        """Keeps each output batch as it is (no row events)."""
+
+        def __init__(self):
+            self.batches = []
+
+        def receive_batch(self, batch):
+            self.batches.append(batch)
+
+    rows = Rows()
+    rt.add_callback("Out", rows)
+    rt.start()
+    h = rt.get_input_handler("S")
+    t = time.perf_counter()
+    for b in batches:
+        h.send_batch(b)
+    secs = time.perf_counter() - t
+    low = rt.lowering()
+    rt.shutdown()
+    mgr.shutdown()
+    return rows.batches, secs, low, allocs() - before
+
+
+def host_phase(torch, SiddhiManager, EventBatch, StreamCallback,
+               card) -> None:
+    """Phase 16: ``host_queries``, a host-only app through
+    ``SiddhiManager()`` with its default device (the card): the verify
+    skill's filter, a ``#window.time`` average and a ``#window.timeBatch``
+    group-by sum over 1,000,000 events in batches of 8,192.  Each must
+    report ``host`` lowering, make no allocation on the card, and give
+    the same output (columns, timestamps, event types) as the same query
+    with ``device="cpu"``; the filter's rows also equal numpy's.  Host
+    figures on the card machine's host, with the card line."""
+    batches = host_batches(EventBatch)
+    for label, query in HOST_QUERIES.items():
+        out, secs, low, allocs = run_host(torch, SiddhiManager,
+                                          StreamCallback, query, batches,
+                                          None)
+        cout, csecs, _clow, _ = run_host(torch, SiddhiManager,
+                                         StreamCallback, query, batches,
+                                         "cpu")
+        got = EventBatch.concat(out)
+        want = EventBatch.concat(cout)
+        same = (np.array_equal(got.timestamps, want.timestamps)
+                and np.array_equal(got.types, want.types)
+                and all(np.array_equal(got.columns[c], want.columns[c])
+                        for c in want.attribute_names))
+        if label == "filter":
+            keep = np.concatenate([b.columns["volume"] < 150
+                                   for b in batches])
+            price = np.concatenate([b.columns["price"] for b in batches])
+            same = same and np.array_equal(got.columns["price"],
+                                           price[keep])
+        if not same or low != {"q": "host"} or allocs or not len(got):
+            raise AssertionError(f"host_queries {label}: output differs "
+                                 f"from the CPU run's, lowering {low}, "
+                                 f"{allocs} card allocations, "
+                                 f"{len(got)} rows")
+        emit({"phase": "host_queries", "query": label,
+              "app": HOST_DEFINE + query, "events": HOST_EVENTS,
+              "batch": HOST_BATCH, "output_rows": len(got),
+              "expired_rows": int((got.types == 1).sum()),
+              "events_per_s": HOST_EVENTS / secs, "seconds": secs,
+              "cpu_device_events_per_s": HOST_EVENTS / csecs,
+              "lowering": low, "card_allocations": allocs,
+              "held_vs_cpu_run": True,
+              "note": "host figures on the card machine's host",
+              "card": card})
+
+
 def main() -> int:
     import torch
 
@@ -2221,6 +2587,7 @@ def main() -> int:
         state_to_numpy,
     )
     from siddhi_tpu_torch.core.event import EventBatch
+    from siddhi_tpu_torch.core.stream import StreamCallback
     from siddhi_tpu_torch.kernels import (
         bank_scatter,
         build,
@@ -2718,13 +3085,23 @@ def main() -> int:
     absent_check_phase(torch, SiddhiManager, compile_pattern,
                        state_from_numpy, state_to_numpy, card)
 
-    # 14. kernels -------------------------------------------------------------
+    # 14-16. the host query runtime: the per-card rollup at full size, the
+    # rate limits, the host queries ------------------------------------------
+    gc.collect()
+    rollup_launches = rollup_phase(torch, SiddhiManager, EventBatch,
+                                   all_kernels, card)
+    gc.collect()
+    rate_limit_phase(torch, SiddhiManager, card)
+    host_phase(torch, SiddhiManager, EventBatch, StreamCallback, card)
+
+    # 17. kernels -------------------------------------------------------------
     by_path = lambda name: {"dense_1M": launches.get(name, 0),
                             "skew_routed": hk_launches.get(name, 0),
                             "aggregation": agg_launches[name],
                             "general_1M": gen_launches[name],
                             "part_b": pb_launches[name],
-                            "absent": absent_launches[name]}
+                            "absent": absent_launches[name],
+                            "selector": rollup_launches[name]}
     emit({"kernels": [
         {"name": "dense_batch", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/dense_batch.cu",
@@ -2749,7 +3126,8 @@ def main() -> int:
          "replaces": "siddhi_tpu/kernels/probe.py:56",
          "launches": (launches["probe"] + hk_launches["probe"]
                       + agg_launches["probe"] + gen_launches["probe"]
-                      + pb_launches["probe"] + absent_launches["probe"]),
+                      + pb_launches["probe"] + absent_launches["probe"]
+                      + rollup_launches["probe"]),
          "launches_by_path": by_path("probe"), "max_abs_err": probe_err,
          **{k: probe_line[k] for k in KERNEL_KEYS}},
         {"name": "scan_chain", "route": "cuda",

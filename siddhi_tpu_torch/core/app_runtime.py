@@ -1,38 +1,48 @@
-"""One running Siddhi app: junctions, planned partitions, aggregations,
-callbacks.
+"""One running Siddhi app: junctions, planned queries and partitions,
+aggregations, callbacks.
 
 Port of the part of the JAX package's ``core/app_runtime.py`` (and the
 app planner's wiring) that the ported slices need: stream junctions for
-the defined streams, partitions lowered to the dense path, ``insert
-into`` output streams, incremental aggregations subscribed to their
-input junctions (``aggregations``, ``query()`` for on-demand FINDs over
-them), stream callbacks, input handlers, the app scheduler (absent-deadline timers
-and ``@purge``) with the ``@app:playback(idle.time, increment)`` idle
-heartbeat, ``start``, ``shutdown`` and ``lowering()``.  Pattern queries outside a partition run on the dense
-path at one partition.  An app outside the slices raises
-``SiddhiAppCreationError`` naming the later slice: non-pattern queries,
-tables, windows, triggers and functions.
+the defined streams, ``insert into`` output streams, single-stream
+queries on the host query runtime (the reference's default mode),
+pattern queries on the dense path (outside a partition at one
+partition), partitions lowered to the dense path, incremental
+aggregations subscribed to their input junctions (``aggregations``,
+``query()`` for on-demand FINDs over them), stream and query callbacks,
+input handlers, the app scheduler (window ticks, rate limits,
+absent-deadline timers and ``@purge``) with the ``@app:playback(idle.
+time, increment)`` idle heartbeat, ``start``, ``shutdown`` and
+``lowering()``.  An app outside the slices raises
+``SiddhiAppCreationError`` naming the ``ROADMAP.md`` item that ports
+it: tables, named windows and triggers (item 9), functions (item 10).
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, Dict, List
+from typing import Callable, Dict, Union
 
 from siddhi_tpu_torch.aggregation.runtime import AggregationRuntime
 from siddhi_tpu_torch.core.exceptions import (
     DefinitionNotExistError,
     SiddhiAppCreationError,
     SiddhiAppRuntimeError,
+    later_slice,
 )
 from siddhi_tpu_torch.core.partition import PartitionRuntime
-from siddhi_tpu_torch.core.stream import InputHandler, StreamJunction
+from siddhi_tpu_torch.core.stream import (
+    FunctionQueryCallback,
+    FunctionStreamCallback,
+    InputHandler,
+    QueryCallback,
+    StreamCallback,
+    StreamJunction,
+)
+from siddhi_tpu_torch.extension.registry import default_registry
 from siddhi_tpu_torch.planner.app_planner import plan_app_context
 from siddhi_tpu_torch.planner.query_planner import plan_unpartitioned_query
 from siddhi_tpu_torch.query_api import Query, SingleInputStream
-
-_LATER = " — a later slice of the port"
 
 
 class SiddhiAppRuntime:
@@ -40,18 +50,22 @@ class SiddhiAppRuntime:
         self.siddhi_app = siddhi_app
         self.app_context = plan_app_context(siddhi_app, device)
         self.name = self.app_context.name
-        for what, defs in (("tables", siddhi_app.table_definitions),
-                           ("windows", siddhi_app.window_definitions),
-                           ("triggers", siddhi_app.trigger_definitions),
-                           ("functions", siddhi_app.function_definitions)):
+        for what, defs, item in (
+                ("tables", siddhi_app.table_definitions, 9),
+                ("named windows", siddhi_app.window_definitions, 9),
+                ("triggers", siddhi_app.trigger_definitions, 9),
+                ("functions", siddhi_app.function_definitions, 10)):
             if defs:
                 raise SiddhiAppCreationError(
-                    f"app '{self.name}': {what} ({', '.join(defs)})" + _LATER)
+                    f"app '{self.name}': {what} ({', '.join(defs)})"
+                    + later_slice(item, what))
+        # the built-in windows and stream functions
+        self.extensions = default_registry()
         self.definitions = dict(siddhi_app.stream_definitions)
         self.junctions: Dict[str, StreamJunction] = {
             sid: StreamJunction(d) for sid, d in self.definitions.items()}
         self.partitions: Dict[str, PartitionRuntime] = {}
-        # unpartitioned queries by name (patterns on the dense path)
+        # unpartitioned queries by name (host queries, dense patterns)
         self.query_runtimes: Dict[str, object] = {}
         self._running = False
         self._playback_stop = None
@@ -83,12 +97,16 @@ class SiddhiAppRuntime:
         if not isinstance(s, SingleInputStream) or s.is_inner or s.is_fault:
             raise SiddhiAppCreationError(
                 f"cannot resolve definition for {s!r}: inner and fault "
-                "streams" + _LATER)
+                "streams" + later_slice(7, "host partitions"))
         d = self.definitions.get(s.stream_id)
         if d is None:
             raise DefinitionNotExistError(
                 f"stream '{s.stream_id}' is not defined in app '{self.name}'")
         return d
+
+    def junction_for_input(self, s: SingleInputStream) -> StreamJunction:
+        self.resolve_stream_definition(s)
+        return self.junctions[s.stream_id]
 
     def output_junction(self, out_def) -> StreamJunction:
         """The junction of an ``insert into`` target, defined from the
@@ -106,7 +124,7 @@ class SiddhiAppRuntime:
 
     # -- lifecycle -----------------------------------------------------------
 
-    def _dense_query_runtimes(self) -> Dict[str, object]:
+    def _all_query_runtimes(self) -> Dict[str, object]:
         out = dict(self.query_runtimes)
         for pr in self.partitions.values():
             out.update(pr.dense_query_runtimes)
@@ -116,7 +134,8 @@ class SiddhiAppRuntime:
         """Query name -> its pattern processor (a DensePatternRuntime or
         the HotKeyRouterRuntime around one)."""
         return {n: qr.pattern_processor
-                for n, qr in self._dense_query_runtimes().items()}
+                for n, qr in self._all_query_runtimes().items()
+                if qr.pattern_processor is not None}
 
     @property
     def scheduler(self):
@@ -197,24 +216,35 @@ class SiddhiAppRuntime:
                 f"stream '{stream_id}' is not defined in app '{self.name}'")
         return InputHandler(j, self.app_context, lambda: self._running)
 
-    def add_callback(self, target: str, fn: Callable[[List], None]):
-        """``fn(events)`` on every batch of stream ``target``."""
-        j = self.junctions.get(target)
-        if j is None:
-            raise SiddhiAppRuntimeError(
-                f"no stream named '{target}' in app '{self.name}' (query "
-                "callbacks" + _LATER + ")")
-        j.add_callback(fn)
+    def add_callback(self, target: str,
+                     callback: Union[StreamCallback, QueryCallback,
+                                     Callable]):
+        """A callback on a stream (a ``StreamCallback``, or a function
+        taking the list of events) or on an unpartitioned query by name
+        (a ``QueryCallback``, or a function taking ``(timestamp,
+        in_events, out_events)``)."""
+        if target in self.junctions:
+            if not isinstance(callback, StreamCallback):
+                callback = FunctionStreamCallback(callback)
+            self.junctions[target].add_callback(callback)
+            return
+        if target in self.query_runtimes:
+            if not isinstance(callback, QueryCallback):
+                callback = FunctionQueryCallback(callback)
+            self.query_runtimes[target].add_callback(callback)
+            return
+        raise SiddhiAppRuntimeError(
+            f"no stream or query named '{target}' in app '{self.name}'")
 
     def lowering(self, step_kinds: bool = False) -> Dict[str, str]:
-        """Per-query engine placement: ``'dense'`` or ``'hotkey'``, as the
-        reference reports it.  ``step_kinds=True`` adds the dense
-        engine's step, fixed at compile time: ``'dense/batch'``,
-        ``'dense/general'``, ``'hotkey/batch'``."""
+        """Per-query engine placement: ``'host'``, ``'dense'`` or
+        ``'hotkey'``, as the reference reports it.  ``step_kinds=True``
+        adds a pattern's dense step, fixed at compile time:
+        ``'dense/batch'``, ``'dense/general'``, ``'hotkey/batch'``."""
         out: Dict[str, str] = {}
-        for n, qr in self._dense_query_runtimes().items():
+        for n, qr in self._all_query_runtimes().items():
             out[n] = qr.lowered_to
-            if step_kinds:
+            if step_kinds and qr.pattern_processor is not None:
                 out[n] += "/" + qr.pattern_processor.engine.step_kind
         return out
 

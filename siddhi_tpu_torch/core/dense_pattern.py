@@ -21,15 +21,19 @@ fired matches at their deadlines.  ``purge_idle`` reclaims the rows of
 idle keys for the partition's ``@purge``.  The reference's mesh
 sharding, fault harness and span tracer are left out; the engine
 refuses what it does not run, naming the later slice.  Matches reach
-the query's output junction through the runtime's ``EmitQueue``; the
-reference's ``aux`` side channels (partition keys and event indices for
-aggregating selectors) wait for the aggregating form.
+the query runtime's selector through the runtime's ``EmitQueue``, each
+match batch carrying the reference's ``aux`` side channels: the
+original-batch positions of its events (``event_indices``), the clock
+sampled when its batch was processed (``emit_now``, which time rate
+limiters replay) and, for a partition-axis selector, each row's
+partition key (``partition_keys``; timer-fired rows map back through
+the reverse row -> key map).
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -45,6 +49,7 @@ from siddhi_tpu_torch.core.event import EventBatch
 from siddhi_tpu_torch.core.exceptions import (
     SiddhiAppCreationError,
     SiddhiAppRuntimeError,
+    later_slice,
 )
 from siddhi_tpu_torch.core.ingest_stage import (
     IngestStage,
@@ -65,43 +70,53 @@ from siddhi_tpu_torch.query_api import AttrType, StateInputStream, Variable
 
 log = logging.getLogger("siddhi_tpu_torch")
 
-_LATER = " — a later slice of the port"
+_HOST = later_slice(7, "host patterns")
 
 
 def build_dense_engine(query, st: StateInputStream, resolve_def,
                        n_partitions: int, n_instances: int = 4,
-                       device=None) -> DensePatternEngine:
+                       device=None, select_override=None,
+                       builder=None) -> DensePatternEngine:
     """Lower one pattern query to a DensePatternEngine or raise
-    SiddhiAppCreationError with the reason it is outside the port."""
-    sel = query.selector
-    if sel.group_by or sel.having is not None:
-        raise SiddhiAppCreationError(
-            "dense path: group-by/having selectors take the host-selector "
-            "dense form" + _LATER)
-    if sel.order_by or sel.limit is not None or sel.offset is not None:
-        raise SiddhiAppCreationError(
-            "dense path: order by/limit/offset selectors" + _LATER)
-    if not sel.selection:
-        raise SiddhiAppCreationError(
-            "dense path: select * is not supported for patterns")
-    select_vars, select_names = [], []
-    for oa in sel.selection:
-        if (not isinstance(oa.expression, Variable)
-                or oa.expression.stream_id is None):
-            raise SiddhiAppCreationError(
-                "dense path: select items must be event references "
-                "(e1.attr); aggregating selectors" + _LATER)
-        select_vars.append(oa.expression)
-        select_names.append(oa.name)
+    SiddhiAppCreationError with the reason it is outside the port.
 
-    builder = NFABuilder(st, resolve_def)
-    nodes = builder.build()
+    ``select_override=(vars, names)`` bypasses the plain-select-items
+    requirement: the engine emits those raw capture columns and the
+    caller owns the selection (the aggregating-selector form runs the
+    host selector over the match rows).  ``builder`` reuses the caller's
+    NFABuilder, already built (one lowering serves the selector scope
+    and the engine)."""
+    sel = query.selector
+    if select_override is not None:
+        select_vars, select_names = select_override
+    else:
+        if sel.group_by or sel.having is not None:
+            raise SiddhiAppCreationError(
+                "dense path: group-by/having selectors take the "
+                "host-selector dense form")
+        if not sel.selection:
+            raise SiddhiAppCreationError(
+                "dense path: select * is not supported for patterns")
+        select_vars, select_names = [], []
+        for oa in sel.selection:
+            if (not isinstance(oa.expression, Variable)
+                    or oa.expression.stream_id is None):
+                raise SiddhiAppCreationError(
+                    "dense path: select items must be event references "
+                    "(e1.attr)" + _HOST)
+            select_vars.append(oa.expression)
+            select_names.append(oa.name)
+
+    if builder is None:
+        builder = NFABuilder(st, resolve_def)
+        builder.build()
+    nodes = builder.nodes
     for node in nodes:
         for spec in node.specs:
             if spec.filter_presence_keys:
                 raise SiddhiAppCreationError(
                     "dense path: 'is null' event-presence checks need the "
-                    "host engine" + _LATER)
+                    "host engine" + _HOST)
 
     eng = DensePatternEngine(
         nodes=nodes,
@@ -209,8 +224,18 @@ class DensePatternRuntime:
 
     def __init__(self, engine: DensePatternEngine, out_stream_id: str,
                  emit: Callable[[EventBatch], None], emit_depth: int = 1,
-                 ingest_depth: int = 1):
+                 ingest_depth: int = 1,
+                 clock: Optional[Callable[[], int]] = None):
         self.engine = engine
+        # the app clock, sampled when a batch is processed
+        # (aux["emit_now"] of its deferred match batch)
+        self.clock = clock
+        # aux["partition_keys"] on match batches: set for a
+        # partition-axis selector, which keeps per-key state
+        self.key_channel = False
+        # notified with purged key values: the partition-axis selector
+        # drops their state
+        self.on_purge_keys = None
         self.out_stream_id = out_stream_id
         self.emit_cb = emit
         self.emit_stats = EmitStats()
@@ -229,6 +254,7 @@ class DensePatternRuntime:
         self._wake_cache = None
         self._ovf_warned = 0
         self._key_rows: Dict = {}
+        self._row_keys: Dict = {}  # reverse map: engine row -> key value
         self._next_row = 0
         self._free_rows: List[int] = []
         # sorted-key index backing the vectorized intern: _key_arr is the
@@ -305,6 +331,8 @@ class DensePatternRuntime:
             urows[new_idx] = row_ids
             self._key_rows.update(
                 zip(uniq[new_idx].tolist(), row_ids.tolist()))
+            self._row_keys.update(
+                zip(row_ids.tolist(), uniq[new_idx].tolist()))
             # merge the sorted new keys into the sorted index (a two-way
             # merge, not a re-sort of every known key)
             new_keys = uniq[new_idx]
@@ -349,6 +377,7 @@ class DensePatternRuntime:
                         f"capacity {cap} (raise it via "
                         f"@app:execution('tpu', partitions='N'))")
                 rows[k] = row
+                self._row_keys[row] = k
             out[i] = row
         return out
 
@@ -394,6 +423,10 @@ class DensePatternRuntime:
             self._wake_dirty = True
         if self.step_invocations % self._OVF_POLL == 0:
             self._check_overflow()
+        # the clock at processing time: the emit may drain later, but
+        # replays this `now` to the query's time rate limiter
+        now = self.clock() if self.clock is not None else None
+        k = keys if self.key_channel else None
 
         def _finish(p=pending, t=ts):
             c = 0 if p is None else p.resolve()
@@ -402,7 +435,7 @@ class DensePatternRuntime:
                 return
             self.emit_queue.push(PendingEmit(
                 p.device_arrays(),
-                lambda host: self._emit_deferred(p, t, host)))
+                lambda host: self._emit_deferred(p, t, k, now, host)))
 
         # the match-count fetch (resolve) is the blocking device sync;
         # with ingest.depth > 1 it runs after the next batch's dispatch
@@ -414,16 +447,23 @@ class DensePatternRuntime:
         self.ingest_stage.flush()
         self.emit_queue.drain()
 
-    def _emit_deferred(self, pending, ts, host_arrays):
+    def _emit_deferred(self, pending, ts, keys, now, host_arrays):
         ev_idx, out = pending.materialize(host_arrays)
         if len(ev_idx) == 0:
             return
         names = self.engine.output_names
         out_cols = {name: out[:, oi].astype(self._out_dtypes[oi])
                     for oi, name in enumerate(names)}
-        self.emit_cb(EventBatch(
+        mb = EventBatch(
             self.out_stream_id, names, out_cols, ts[ev_idx],
-            np.full(len(ev_idx), ev.CURRENT, dtype=np.int8)))
+            np.full(len(ev_idx), ev.CURRENT, dtype=np.int8))
+        if keys is not None:
+            mb.aux["partition_keys"] = np.asarray(keys)[ev_idx].tolist()
+        # the completing events' positions in the original batch
+        mb.aux["event_indices"] = ev_idx
+        if now is not None:
+            mb.aux["emit_now"] = now
+        self.emit_cb(mb)
 
     # -- instance-capacity overflow ------------------------------------------
 
@@ -480,6 +520,7 @@ class DensePatternRuntime:
         self.state = state_from_numpy(self.engine, state["dense_state"],
                                       state["base_ts"])
         self._key_rows = dict(state["key_rows"])
+        self._row_keys = {r: k for k, r in self._key_rows.items()}
         self._next_row = state.get("next_row", len(self._key_rows))
         self._free_rows = list(state.get("free_rows", []))
         rlu = state.get("row_last_used")
@@ -500,7 +541,8 @@ class DensePatternRuntime:
                 if now - int(self._row_last_used[r]) >= idle_ms]
         if not idle:
             return
-        # barrier: the purged keys' pending matches emit first
+        # barrier: the purged keys' pending matches reach the per-key
+        # selector state before on_purge_keys drops it
         self.drain()
         # every init row is the same: one row is the template
         rows, tmpl = staged_put(
@@ -511,9 +553,12 @@ class DensePatternRuntime:
             arr[rows] = tmpl[key]
         for k, r in idle:
             del self._key_rows[k]
+            self._row_keys.pop(r, None)
             self._free_rows.append(r)
         self._rebuild_key_index()
         self._wake_dirty = True
+        if self.on_purge_keys is not None:
+            self.on_purge_keys([k for k, _r in idle])
 
     # -- scheduler task: absent deadlines ------------------------------------
 
@@ -530,13 +575,20 @@ class DensePatternRuntime:
         if fired is None:
             return
         self.time_fires += 1
-        out, fire_ts, _rows = fired
+        out, fire_ts, rows = fired
         names = eng.output_names
-        self.emit_cb(EventBatch(
+        mb = EventBatch(
             self.out_stream_id, names,
             {name: out[:, oi].astype(self._out_dtypes[oi])
              for oi, name in enumerate(names)},
-            fire_ts, np.full(len(fire_ts), ev.CURRENT, dtype=np.int8)))
+            fire_ts, np.full(len(fire_ts), ev.CURRENT, dtype=np.int8))
+        if self.key_channel:
+            # the key each fired row was interned under (the reverse
+            # row -> key map; a recycled row maps to its new key)
+            mb.aux["partition_keys"] = [
+                self._row_keys.get(int(r)) for r in rows]
+        mb.aux["emit_now"] = now
+        self.emit_cb(mb)
 
     def next_wakeup(self):
         """The earliest armed deadline (absolute ms) or None."""

@@ -3,7 +3,10 @@
 Port of the JAX package's ``core/event.py``.  A chunk of events is a
 columnar micro-batch: one numpy array per attribute plus timestamp and
 event-type lanes.  Batches stay on the host; the runtimes stage the
-numeric columns they need onto the device themselves.
+numeric columns they need onto the device themselves.  The row side
+channels ``aux["group_keys"]`` (the selector's group of each row) and
+``aux["partition_keys"]`` (a dense match's partition key) stay aligned
+through ``mask``, ``take`` and ``concat``.
 
 Event types mirror ComplexEvent.Type: CURRENT, EXPIRED, TIMER, RESET.
 """
@@ -107,6 +110,24 @@ class EventBatch:
             {k: v[idx] for k, v in self.columns.items()},
             self.timestamps[idx], self.types[idx])
         return self._carry_row_aux(out, idx)
+
+    def with_types(self, t: int) -> "EventBatch":
+        """The same rows, every one of event type ``t``."""
+        return EventBatch(
+            self.stream_id, self.attribute_names, dict(self.columns),
+            self.timestamps, np.full(len(self), t, dtype=np.int8))
+
+    def copy(self) -> "EventBatch":
+        """A deep copy of the columns and the row side channels."""
+        out = EventBatch(
+            self.stream_id, list(self.attribute_names),
+            {k: v.copy() for k, v in self.columns.items()},
+            self.timestamps.copy(), self.types.copy())
+        for name in self._ROW_AUX:
+            a = self.aux.get(name)
+            if a is not None:
+                out.aux[name] = list(a)
+        return out
 
     def only(self, *event_types: int) -> "EventBatch":
         m = np.isin(self.types, event_types)

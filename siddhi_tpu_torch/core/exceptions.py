@@ -131,3 +131,9 @@ StoreQueryCreationException = StoreQueryCreationError
 CannotRestoreSiddhiAppStateException = CannotRestoreSiddhiAppStateError
 ConnectionUnavailableException = ConnectionUnavailableError
 DefinitionNotExistException = DefinitionNotExistError
+
+
+def later_slice(item: int, what: str) -> str:
+    """The tail of a refusal: the ``ROADMAP.md`` §1 item that ports what
+    was refused."""
+    return f" — ROADMAP.md §1 item {item} ({what}), a later slice of the port"

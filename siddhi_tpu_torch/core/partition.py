@@ -6,16 +6,18 @@ query with the partition key interned onto the engine's partition axis:
 per-key state rows on the device, no per-key Python instances.  The
 value-partition executor evaluates the key expression once per batch
 and ``DensePartitionReceiver`` advances every pattern runtime that
-reads the stream.
+reads the stream, passing the raw key values along: a query with an
+aggregating selector keeps its per-key state through them (the match
+rows' partition-key side channel).
 
 ``@purge(enable='true', interval=, idle.period=)`` makes the partition
 an app scheduler task: every ``interval`` it reclaims the rows of keys
 idle for ``idle.period`` in each dense query runtime (``purge_idle``).
 
 Where the reference falls back to per-key host instances (a body it
-cannot lower, no ``@app:execution('tpu')``), the port raises: host
-instances, range partitions and device queries are later slices of the
-port.
+cannot lower, no ``@app:execution('tpu')``, a rate-limited query), the
+port raises: host instances and range partitions are ``ROADMAP.md`` §1
+item 7, single-stream queries in a partition item 6 or 7.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import numpy as np
 from siddhi_tpu_torch.compiler.parser import parse_time_string
 from siddhi_tpu_torch.core import event as ev
 from siddhi_tpu_torch.core.event import EventBatch
-from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
+from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError, later_slice
 from siddhi_tpu_torch.planner.expr import (
     N_KEY,
     TS_KEY,
@@ -35,24 +37,23 @@ from siddhi_tpu_torch.planner.expr import (
     ExpressionCompiler,
     Scope,
 )
-from siddhi_tpu_torch.planner.query_planner import (
-    check_insert_into,
-    plan_dense_state,
-)
+from siddhi_tpu_torch.planner.query_planner import plan_dense_state
 from siddhi_tpu_torch.query_api import (
     CountStateElement,
     EveryStateElement,
+    InsertIntoStream,
     LogicalStateElement,
     NextStateElement,
     Partition,
     Query,
+    ReturnStream,
     StateInputStream,
     StreamStateElement,
     ValuePartitionType,
 )
 from siddhi_tpu_torch.query_api.annotation import find_annotation
 
-_LATER = " — a later slice of the port"
+_INSTANCES = later_slice(7, "per-key host instances")
 
 
 class ValuePartitionExecutor:
@@ -144,8 +145,7 @@ class PartitionRuntime:
         if ctx.execution_mode != "tpu":
             raise SiddhiAppCreationError(
                 f"{self.name}: the port runs partitions on the dense device "
-                "path only (add @app:execution('tpu')); per-key host "
-                "instances" + _LATER)
+                "path only (add @app:execution('tpu'))" + _INSTANCES)
 
         self.partitioned_defs = {}
         executors: Dict[str, ValuePartitionExecutor] = {}
@@ -156,7 +156,7 @@ class PartitionRuntime:
                     f"{self.name}: partitioned stream '{sid}' is not defined")
             if not isinstance(pt, ValuePartitionType):
                 raise SiddhiAppCreationError(
-                    f"{self.name}: range partitions" + _LATER)
+                    f"{self.name}: range partitions" + _INSTANCES)
             definition = app.definitions[sid]
             self.partitioned_defs[sid] = definition
             scope = Scope()
@@ -169,12 +169,23 @@ class PartitionRuntime:
         for q in partition.queries:
             if not isinstance(q, Query):
                 raise SiddhiAppCreationError("nested element not a query")
-            check_insert_into(q, self.name)
+            out = q.output_stream
+            if isinstance(out, InsertIntoStream) and out.is_inner:
+                raise SiddhiAppCreationError(
+                    f"{self.name}: 'insert into #inner' needs per-key "
+                    "instances" + _INSTANCES)
+            if not isinstance(out, (InsertIntoStream, ReturnStream)) \
+                    and out is not None:
+                raise SiddhiAppCreationError(
+                    f"{self.name}: table outputs need per-key instances"
+                    + _INSTANCES)
             st = q.input_stream
             if not isinstance(st, StateInputStream):
                 raise SiddhiAppCreationError(
-                    f"{self.name}: non-pattern queries (the device query "
-                    "path and joins)" + _LATER)
+                    f"{self.name}: non-pattern queries run on the "
+                    "reference's device query path in partition mode "
+                    "(ROADMAP.md §1 item 6) or in per-key instances"
+                    + _INSTANCES)
             for sid in _pattern_stream_ids(st):
                 if sid not in self.partitioned_defs:
                     raise SiddhiAppCreationError(

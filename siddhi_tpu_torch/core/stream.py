@@ -1,14 +1,17 @@
-"""Stream junctions and input handlers.
+"""Stream junctions, input handlers and user callbacks.
 
 Port of the synchronous part of the JAX package's ``core/stream.py``.  A
 ``StreamJunction`` hands each batch sent on a stream to its receivers
-(the planned queries), then to its user callbacks as row ``Event``s.
-An ``InputHandler`` turns user sends into batches: every ``send`` is one
-junction cycle, as in the reference, taken under the app lock after the
-app scheduler has advanced to the clock (due deadline and purge tasks
-fire before the batch's events step).  The reference's asynchronous
-junctions, fault streams, admission control and input journal are later
-slices of the port; an error in a receiver or callback propagates.
+(the planned queries), then to its user callbacks (``StreamCallback``,
+or a function wrapped in ``FunctionStreamCallback``) as row ``Event``s.
+A ``QueryCallback`` receives a query's output as ``(timestamp,
+in_events, out_events)``.  An ``InputHandler`` turns user sends into
+batches: every ``send`` is one junction cycle, as in the reference,
+taken under the app lock after the app scheduler has advanced to the
+clock (due window, rate-limit, deadline and purge tasks fire before the
+batch's events step).  The reference's asynchronous junctions, fault
+streams, admission control and input journal are later slices of the
+port; an error in a receiver or callback propagates.
 """
 
 from __future__ import annotations
@@ -24,6 +27,46 @@ from siddhi_tpu_torch.core.event import (
 from siddhi_tpu_torch.core.exceptions import SiddhiAppRuntimeError
 
 
+class StreamCallback:
+    """User subscriber on a stream (reference:
+    stream/output/StreamCallback.java).  Subclass and override
+    ``receive``, or wrap a plain function in ``FunctionStreamCallback``."""
+
+    stream_id: Optional[str] = None
+
+    def receive(self, events: List[Event]):
+        raise NotImplementedError
+
+    def receive_batch(self, batch: EventBatch):
+        """Columnar entry; the default converts to row events."""
+        self.receive(events_from_batch(batch))
+
+
+class FunctionStreamCallback(StreamCallback):
+    def __init__(self, fn: Callable[[List[Event]], None]):
+        self.fn = fn
+
+    def receive(self, events: List[Event]):
+        self.fn(events)
+
+
+class QueryCallback:
+    """Per-query subscriber receiving ``(timestamp, current, expired)``
+    (reference: query/output/callback/QueryCallback)."""
+
+    def receive(self, timestamp: int, in_events: Optional[List[Event]],
+                out_events: Optional[List[Event]]):
+        raise NotImplementedError
+
+
+class FunctionQueryCallback(QueryCallback):
+    def __init__(self, fn):
+        self.fn = fn
+
+    def receive(self, timestamp, in_events, out_events):
+        self.fn(timestamp, in_events, out_events)
+
+
 class StreamJunction:
     """Fan-out point of one stream."""
 
@@ -31,24 +74,23 @@ class StreamJunction:
         self.definition = definition
         self.stream_id = definition.id
         self.receivers: List = []
-        self.callbacks: List[Callable[[List[Event]], None]] = []
+        self.callbacks: List[StreamCallback] = []
 
     def subscribe(self, receiver):
         """``receiver.receive(batch)`` runs on every batch sent here."""
         self.receivers.append(receiver)
 
-    def add_callback(self, fn: Callable[[List[Event]], None]):
-        self.callbacks.append(fn)
+    def add_callback(self, callback: StreamCallback):
+        callback.stream_id = self.stream_id
+        self.callbacks.append(callback)
 
     def send(self, batch: EventBatch):
         if len(batch) == 0:
             return
         for r in self.receivers:
             r.receive(batch)
-        if self.callbacks:
-            events = events_from_batch(batch)
-            for cb in self.callbacks:
-                cb(events)
+        for cb in self.callbacks:
+            cb.receive_batch(batch)
 
 
 class InputHandler:

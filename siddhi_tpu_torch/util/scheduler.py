@@ -1,22 +1,23 @@
-"""Scheduler: the app's time-driven tasks.
+"""Scheduler: the app's time-driven windows and tasks.
 
-Port of the JAX package's ``util/scheduler.py`` for what the port runs:
-tasks that expose ``fire(now)`` and ``next_wakeup() -> int | None``
-(the dense pattern runtimes of absent-deadline engines, the partition's
-``@purge``).  Every input batch advances the app watermark under the
-app lock and fires the due tasks before the batch reaches its
-junction; a wall-clock thread covers idle periods in processing-time
-mode, and under ``@app:playback`` the clock is event time alone (the
-idle heartbeat of ``@app:playback(idle.time, increment)`` is the app
-runtime's).  Window ticks wait for the host query runtime (``ROADMAP.md``
-§1 item 3).
+Port of the JAX package's ``util/scheduler.py``: the time windows of
+host queries (``register_window``: the query runtime's ``on_time``
+runs when the window's ``next_wakeup`` has elapsed) and tasks that
+expose ``fire(now)`` and ``next_wakeup() -> int | None`` (time rate
+limiters, the dense pattern runtimes of absent-deadline engines, the
+partition's ``@purge``).  Every input batch advances the app watermark
+under the app lock and fires the due windows, then the due tasks,
+before the batch reaches its junction; a wall-clock thread covers idle
+periods in processing-time mode, and under ``@app:playback`` the clock
+is event time alone (the idle heartbeat of ``@app:playback(idle.time,
+increment)`` is the app runtime's).
 """
 
 from __future__ import annotations
 
 import logging
 import threading
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 log = logging.getLogger("siddhi_tpu_torch")
 
@@ -28,10 +29,23 @@ _MAX_DRAIN_FIRES = 100_000
 class Scheduler:
     def __init__(self, app_context):
         self.app_context = app_context
+        # (query runtime, window) pairs needing time ticks
+        self._windows: List[Tuple[object, object]] = []
         self._tasks: List[object] = []
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
         self._last_advance = -1
+
+    def register_window(self, query_runtime, window):
+        """``query_runtime.on_time(now)`` runs once ``window.next_wakeup()``
+        has elapsed."""
+        self._windows.append((query_runtime, window))
+
+    def unregister_window(self, query_runtime, window):
+        try:
+            self._windows.remove((query_runtime, window))
+        except ValueError:
+            pass
 
     def register_task(self, task):
         """``task`` exposes ``fire(now)`` and ``next_wakeup() -> int |
@@ -47,11 +61,16 @@ class Scheduler:
     # -- event-driven path (called under the app lock) -----------------------
 
     def advance(self, now: int):
-        """Fire every task whose wakeups have elapsed at ``now``."""
+        """Tick every window, then fire every task, whose wakeups have
+        elapsed at ``now``."""
         if now <= self._last_advance:
             return
         self._last_advance = now
-        # a snapshot of the list: a fire may (un)register tasks
+        # snapshots of both lists: a fire may (un)register tasks
+        for qr, w in list(self._windows):
+            wake = w.next_wakeup()
+            if wake is not None and wake <= now:
+                qr.on_time(now)
         for t in list(self._tasks):
             # drain ALL elapsed wakeups, not just one: a watermark jump
             # over several timer windows must deliver each fire.  The

@@ -451,12 +451,22 @@ def test_host_only_absent_shapes_refused(app, reason):
 
 def test_aggregating_absent_select_refused():
     """``TestPartitionedAggregatingAbsent``'s ``count()`` selector runs
-    dense in the reference; aggregating selectors wait for the host
-    query runtime (``ROADMAP.md`` §1 item 3)."""
-    app = ("@app:playback @app:execution('tpu', partitions='16') " + STREAMS
+    dense in the reference, and since the host query runtime came to the
+    port (``ROADMAP.md`` §1 item 3) in the port too: the timer-fired
+    alerts reach the per-key selector through the reverse row -> key
+    map, a count per key.  (The name is the test's from when the port
+    refused this app.)"""
+    app = ("@app:execution('tpu', partitions='16') " + STREAMS
            + "partition with (symbol of Stream1, symbol of Stream2) begin "
            "@info(name='q') from every e1=Stream1[price>20] -> "
            "not Stream2[price>e1.price] for 1 sec "
            "select count() as n insert into OutputStream; end;")
-    with pytest.raises(SiddhiAppCreationError, match="aggregating"):
-        SiddhiManager(device="cpu").create_siddhi_app_runtime(app)
+    sends = [("Stream1", ["a", 30.0, 1], 1000),
+             ("Stream1", ["b", 40.0, 1], 1200),
+             ("Stream2", ["b", 50.0, 1], 1500), ("Tick", [1], 3000),
+             ("Stream1", ["a", 35.0, 1], 3500), ("Tick", [2], 5000)]
+    jgot, jlow, *_ = run(False, app, sends)
+    tgot, tlow, _state, _base, proc = run(True, app, sends)
+    assert tgot == jgot == [([1], 2000), ([2], 4500)]
+    assert jlow == "dense" and tlow == "dense/general"
+    assert proc.time_fires >= 2

@@ -811,3 +811,68 @@ def test_aggregation_app_on_card_matches_cpu(cuda_device):
             assert tg == tw and g[0] == w[0] and g[3] == w[3]
             assert g[2] == pytest.approx(w[2], rel=w[3] * 2.0**-24)
             assert g[1] == pytest.approx(w[1], rel=w[3] * 2.0**-24)
+
+
+def _sends_card_vs_cpu(app, sends, out="Alerts", tick=None):
+    """``sends`` through ``SiddhiManager`` on the card and on the CPU:
+    the callbacks (values, timestamps, order) of each."""
+    from siddhi_tpu_torch import SiddhiManager
+
+    rows = {}
+    for d in ("cuda", "cpu"):
+        mgr = SiddhiManager(device=d)
+        rt = mgr.create_siddhi_app_runtime(app)
+        got = []
+        rt.add_callback(out, lambda evs, got=got: got.extend(
+            (e.timestamp, [v.hex() if isinstance(v, float) else v
+                           for v in e.data]) for e in evs))
+        rt.start()
+        for stream, row, ts in sends:
+            rt.get_input_handler(stream).send(row, timestamp=ts)
+        if tick is not None:
+            rt.get_input_handler(tick[0]).send(tick[1], timestamp=tick[2])
+        rows[d] = got
+        rt.shutdown()
+        mgr.shutdown()
+    return rows
+
+
+def _txn(seed, n, cards):
+    rng = np.random.default_rng(seed)
+    out, t = [], 1000
+    for _ in range(n):
+        t += int(rng.integers(1, 60))
+        out.append(("Txn", [int(rng.integers(0, cards)),
+                            float(np.round(rng.lognormal(4.0, 1.0), 2))], t))
+    return out
+
+
+def test_fraud_rollup_on_card_matches_cpu(cuda_device):
+    """BASELINE config 2's pattern under a per-card aggregating selector
+    (``chip_smoke.py``'s ``fraud_rollup`` at 64 cards): the host selector
+    over the card engine's match rows gives the CPU run's alerts."""
+    app = ("@app:playback @app:execution('tpu', partitions='64') "
+           "define stream Txn (card long, amount double); "
+           "partition with (card of Txn) begin @info(name='fraud') "
+           "from every a=Txn[amount > 100.0] -> b=Txn[amount > a.amount]"
+           "<3:5> within 10 min select a.card as card, count() as alerts, "
+           "max(a.amount) as top, sum(b[last].amount) as spent "
+           "having alerts >= 2 insert into Alerts; end;")
+    rows = _sends_card_vs_cpu(app, _txn(3, 2000, 64))
+    assert rows["cuda"] == rows["cpu"] and rows["cpu"]
+
+
+def test_rate_limited_dense_query_on_card_matches_cpu(cuda_device):
+    """An unpartitioned dense pattern under ``output last every 1 sec``:
+    the scheduler's rate task drains the card's emit queue before the
+    limiter decides, as on the CPU."""
+    app = ("@app:playback @app:execution('tpu') "
+           "define stream Txn (card long, amount double); "
+           "define stream Tick (x int); @info(name='q') "
+           "from every a=Txn[amount > 80.0] -> b=Txn[amount > a.amount] "
+           "select a.amount as base, b.amount as top "
+           "output last every 1 sec insert into Alerts;")
+    sends = _txn(5, 400, 4)
+    rows = _sends_card_vs_cpu(app, sends,
+                              tick=("Tick", [0], sends[-1][2] + 3000))
+    assert rows["cuda"] == rows["cpu"] and rows["cpu"]

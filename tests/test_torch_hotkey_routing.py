@@ -398,9 +398,11 @@ class TestOutsideTheSlice:
         # tests/test_torch_absent.py)
         wrap("@info(name='q') from not S[v > 12.0] for 1 sec -> "
              "c=S[v > 1.0] select c.v as cv insert into Alerts;"),
-        # an aggregating select
+        # an aggregating select with order by: the reference keeps its
+        # per-key chunks on host instances (a plain aggregating select
+        # runs since the host query runtime came to the port)
         wrap("@info(name='q') from every a=S[v > 8.0] -> b=S[v > 12.0] "
-             "select count() as n insert into Alerts;"),
+             "select count() as n order by n insert into Alerts;"),
     ], ids=["partial_group_every", "non_pattern", "absent", "aggregating"])
     def test_raises_creation_error(self, app):
         with pytest.raises(SiddhiAppCreationError):
@@ -418,7 +420,11 @@ class TestOutsideTheSlice:
         # a sequence: the general step
         wrap("@info(name='q') from every a=S[v > 8.0], b=S[v > 12.0] "
              "select b.v as bv insert into Alerts;"),
-    ], ids=["capture", "unpartitioned", "count", "sequence"])
+        # an aggregating select: the host selector over the match rows,
+        # per key
+        wrap("@info(name='q') from every a=S[v > 8.0] -> b=S[v > 12.0] "
+             "select count() as n, max(b.v) as m insert into Alerts;"),
+    ], ids=["capture", "unpartitioned", "count", "sequence", "aggregating"])
     def test_runs_as_the_reference(self, app):
         """Once refused, these now run: the same rows as the reference."""
         jres, tres = both(app, "@app:playback " + TPU, sends=gen(5, SKEWED))
