@@ -203,7 +203,33 @@ skew-routed pattern path and the incremental-aggregation path through
    batches of 8,192, each lowered to ``host``, making no allocation on
    the card and giving the ``device="cpu"`` run's output; events/s are
    host figures on the card machine's host.
-17. kernels: one line per ported kernel (launches on the main paths,
+17. device_queries: the port's device query path through
+   ``SiddhiManager()`` on the card, every app under ``@app:playback`` at
+   eight events a ms, 1,000,000 events in batches of 8,192: the three
+   ``host_queries`` under ``@app:execution('tpu')`` (the filter and the
+   sliding average lower to ``device``, the tumbling LONG sum to
+   ``host``, as in the reference); the reference harness's
+   ``simple_filter``, ``filter_multi_4q``, ``sliding_window`` and
+   ``groupby_length_batch_agg_only`` (``samples/performance/
+   workloads.py:121-161``, 50 symbols; the last timed over its 16 held
+   batches only, about 800 pane flushes a batch, its breakdown over one
+   batch and its profile over a quarter batch), and
+   ``partitioned_filter``, ``partitioned_double_filter``,
+   ``partition_scaling`` and a keyed one-second time-window average at
+   50,000 symbols (``workloads.py:163-185``; the keyed window's
+   ``[65,536, 1,024]`` lanes hold about 0.9 GB on the card).  Each
+   app's lowering equals its pinned reference value; the output of the
+   first 16 batches equals the same batches with ``device="cpu"`` (bit
+   for bit but the float32 sums, within ``rel=1e-4, abs=1e-3``) and a
+   second card run bit for bit; the timed card run's output rows equal
+   a count made in numpy from the events.  Each line gives events/s,
+   ms a batch,
+   a stage breakdown (host preparation and interning, steps, count
+   fetch, column fetch, materialize) and a ``torch.profiler`` profile
+   (kernels a step, the device's busy share) over 4 more batches each,
+   and the state bytes on the card.  Launches are read over the timed
+   card runs: ``accumulate_`` for the state scatters, no other kernel.
+18. kernels: one line per ported kernel (launches on the main paths,
    largest difference from its plain version, ``ms``, ``host_us``,
    ``device_us``, plain and library times, bound); the bank kernel's at
    the entry the aggregation path uses, ``accumulate_``, with the delta
@@ -212,9 +238,13 @@ skew-routed pattern path and the incremental-aggregation path through
    line next to it; the scan kernel at the routed shape, the widest
    legal shape beside it.
 
-Then the card's name and power limit (nvidia-smi), and last the device
-line.  Any failed phase raises, so the script exits non-zero and prints
-no device line; so does a machine without a CUDA card.  It imports
+Then an ``isolated_errors`` line, the card's name and power limit
+(nvidia-smi), and last the device line.  Any failed phase raises, so the
+script exits non-zero and prints no device line; so does a machine
+without a CUDA card.  An error the port isolates instead of raising (a
+failing query, callback, scheduler task or emit materialize: an ERROR on
+the ``siddhi_tpu_torch`` logger, or an error an app's exception
+listeners hear) fails the phase that hit it.  It imports
 nothing of JAX or of the JAX package.
 """
 
@@ -223,6 +253,8 @@ from __future__ import annotations
 import ctypes
 import gc
 import json
+import logging
+import re
 import subprocess
 import sys
 import time
@@ -383,6 +415,82 @@ HOST_QUERIES = {
                        "sum(volume) as total group by symbol "
                        "insert into Out;"),
 }
+# device queries (the port's device query path through SiddhiManager,
+# under @app:playback, eight events a ms): the host_queries stream under
+# @app:execution('tpu'); the reference harness's single-stream and
+# partitioned workloads (samples/performance/workloads.py:121-185) over
+# 1,000,000 cse-shaped events (50 symbols, or 50,000 for partition
+# scaling and the keyed time window); each app's lowering pinned to the
+# reference's (tests/test_torch_device_query.py checks the pins against
+# the JAX package)
+DQ_EVENTS = 1_000_000
+DQ_BATCH = 8_192
+DQ_CHECK = 16  # batches held card against CPU and card against card
+DQ_PROFILED = 4  # batches under torch.profiler
+CSE_DEFINE = ("define stream cseEventStream (symbol string, price float, "
+              "volume int, timestamp long); ")
+DQ_TPU = "@app:playback @app:execution('tpu', partitions='65536') "
+DQ_PARTITION = ("partition with (symbol of cseEventStream) begin {} end;")
+
+
+def _dq_apps():
+    apps = {}
+    for label, query in HOST_QUERIES.items():
+        apps["host_" + label] = (
+            "@app:execution('tpu') " + HOST_DEFINE + "@info(name='q') "
+            + query,
+            {"q": "host" if label == "time_batch_sum" else "device"})
+    single = {
+        "simple_filter": ("@info(name='q0') from cseEventStream[volume < "
+                          "150] select symbol, price insert into "
+                          "outputStream;"),
+        "filter_multi_4q": " ".join(
+            f"@info(name='q{i}') from cseEventStream[volume > 90] select * "
+            "insert into outputStream;" for i in range(4)),
+        "sliding_window": ("@info(name='q0') from cseEventStream#window."
+                           "length(10) select symbol, sum(price) as total, "
+                           "avg(volume) as avgVolume, timestamp insert into "
+                           "outputStream;"),
+        "groupby_length_batch_agg_only": (
+            "@info(name='q0') from cseEventStream#window.lengthBatch(10) "
+            "select symbol, sum(price) as total, avg(volume) as avgVolume "
+            "group by symbol insert into outputStream;"),
+    }
+    for label, body in single.items():
+        names = re.findall(r"name='(q\d)'", body)
+        apps[label] = (DQ_TPU + CSE_DEFINE + body,
+                       {n: "device" for n in names})
+    parted = {
+        "partitioned_filter": ("@info(name='q0') from cseEventStream[700 > "
+                               "price] select * insert into outputStream;"),
+        "partitioned_double_filter": (
+            "@info(name='q0') from cseEventStream[700 > price] select * "
+            "insert into outputStream; @info(name='q1') from "
+            "cseEventStream[price >= 700] select * insert into "
+            "outputStream;"),
+        "partition_scaling_50000": (
+            "@info(name='q0') from cseEventStream[700 > price] select "
+            "symbol, count() as c insert into outputStream;"),
+        "keyed_time_avg_50000": (
+            "@info(name='q0') from cseEventStream#window.time(1 sec) select "
+            "symbol, avg(price) as ap insert into outputStream;"),
+    }
+    for label, body in parted.items():
+        names = re.findall(r"name='(q\d)'", body)
+        apps[label] = (DQ_TPU + CSE_DEFINE + DQ_PARTITION.format(body),
+                       {n: "device" for n in names})
+    return apps
+
+
+# label -> (app, the reference's lowering)
+DEVICE_QUERY_APPS = _dq_apps()
+# the columns each app computes with float32 sums (the reference's
+# rel=1e-4, abs=1e-3 between the card and the CPU); every other column
+# is held bit for bit
+DQ_SUM_COLUMNS = {"host_time_avg": ("avgPrice",),
+                  "sliding_window": ("total", "avgVolume"),
+                  "groupby_length_batch_agg_only": ("total", "avgVolume"),
+                  "keyed_time_avg_50000": ("ap",)}
 # a dependent operation waits at least 4 cycles for the one before it
 DEP_LATENCY_CYCLES = 4
 # the batch step's per-event dependent chain, per node: read the node's
@@ -423,7 +531,55 @@ TRADE_SELECT = {
 }
 
 
+class IsolatedErrors(logging.Handler):
+    """What the port isolates instead of raising.  A failing query,
+    callback, scheduler task or emit materialize logs an ERROR on the
+    ``siddhi_tpu_torch`` logger and goes on; the apps' exception
+    listeners (``new_app``) hear it.  A WARNING the port also hands to
+    the listeners (pattern instances dropped at the lane capacity, as in
+    the reference) is counted, not fatal.  ``emit`` checks before every
+    line, so a phase that hit an isolated error fails and prints no
+    result."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.errors, self.heard, self.warned = [], [], set()
+        self.warnings = 0
+
+    def emit(self, record):
+        if record.levelno >= logging.ERROR:
+            self.errors.append(record.getMessage())
+        else:
+            self.warned.add(record.getMessage())
+            self.warnings += 1
+
+    def listener(self, e: Exception):
+        self.heard.append(e)
+
+    def check(self, where) -> None:
+        errors = self.errors + [f"{type(e).__name__}: {e}"
+                                for e in self.heard
+                                if str(e) not in self.warned]
+        self.errors, self.heard = [], []
+        if errors:
+            raise AssertionError(f"{where}: {len(errors)} isolated "
+                                 f"error(s), the first {errors[:3]}")
+
+
+ISOLATED = IsolatedErrors()
+
+
+def new_app(mgr, app: str):
+    """``mgr``'s runtime of ``app``, its exception listeners feeding
+    ISOLATED."""
+    rt = mgr.create_siddhi_app_runtime(app)
+    rt.add_exception_listener(ISOLATED.listener)
+    return rt
+
+
 def emit(obj) -> None:
+    ISOLATED.check(obj.get("phase", "kernels") if isinstance(obj, dict)
+                   else "output")
     print(json.dumps(obj), flush=True)
 
 
@@ -871,7 +1027,7 @@ def unpartitioned_card_vs_cpu(torch, SiddhiManager, n_events=300) -> dict:
     rows, secs, kinds = {}, {}, {}
     for d in ("cuda", "cpu"):
         mgr = SiddhiManager(device=d)
-        rt = mgr.create_siddhi_app_runtime(app)
+        rt = new_app(mgr, app)
         got = []
         rt.add_callback("Alerts", lambda evs, got=got: got.extend(
             (e.timestamp, list(e.data)) for e in evs))
@@ -1036,7 +1192,7 @@ def run_hot_key(torch, SiddhiManager, EventBatch, bs, device, hot,
     keeps its query's whole state after the first window.  Returns the
     still-running app and what it measured."""
     mgr = SiddhiManager(device=device)
-    rt = mgr.create_siddhi_app_runtime(hot_key_app(hot))
+    rt = new_app(mgr, hot_key_app(hot))
     rows, kept = [], []
 
     def cb(evs):
@@ -1355,7 +1511,7 @@ def run_trade(torch, SiddhiManager, kind, device, batches, windows):
     collector's ms inside each window and each pull."""
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     mgr = SiddhiManager(device=device)
-    rt = mgr.create_siddhi_app_runtime(trade_app(kind))
+    rt = new_app(mgr, trade_app(kind))
     rt.start()
     h = rt.get_input_handler("TradeStream")
     for b in batches[:AGG_WARMUP]:
@@ -1885,7 +2041,7 @@ def run_absent(torch, SiddhiManager, batches, device, start):
     measured."""
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     mgr = SiddhiManager(device=device)
-    rt = mgr.create_siddhi_app_runtime(ABSENT_APP)
+    rt = new_app(mgr, ABSENT_APP)
     alerts = []
     rt.add_callback("AlertStream", lambda evs: alerts.extend(
         (e.timestamp, e.data) for e in evs))
@@ -2126,7 +2282,7 @@ def app_card_vs_cpu(torch, SiddhiManager, app, sends, label, after=None,
     res, secs = {}, 0.0
     for d in ("cuda", "cpu"):
         mgr = SiddhiManager(device=d)
-        rt = mgr.create_siddhi_app_runtime(app)
+        rt = new_app(mgr, app)
         got = []
         rt.add_callback("Alerts", lambda evs, got=got: got.extend(
             (e.timestamp, list(e.data)) for e in evs))
@@ -2305,7 +2461,7 @@ def run_rollup(torch, SiddhiManager, batches, device, start):
 
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     mgr = SiddhiManager(device=device)
-    rt = mgr.create_siddhi_app_runtime(FRAUD_ROLLUP_APP)
+    rt = new_app(mgr, FRAUD_ROLLUP_APP)
     alerts = [[]]
     rt.add_callback("Alerts", lambda evs: alerts[-1].extend(
         (e.timestamp, [v.hex() if isinstance(v, float) else v
@@ -2500,8 +2656,7 @@ def run_host(torch, SiddhiManager, StreamCallback, query, batches, device):
         "allocation.all.allocated", 0)
     before = allocs()
     mgr = SiddhiManager() if device is None else SiddhiManager(device=device)
-    rt = mgr.create_siddhi_app_runtime(
-        HOST_DEFINE + "@info(name='q') " + query)
+    rt = new_app(mgr, HOST_DEFINE + "@info(name='q') " + query)
     class Rows(StreamCallback):
         """Keeps each output batch as it is (no row events)."""
 
@@ -2534,8 +2689,10 @@ def host_phase(torch, SiddhiManager, EventBatch, StreamCallback,
     report ``host`` lowering, make no allocation on the card, and give
     the same output (columns, timestamps, event types) as the same query
     with ``device="cpu"``; the filter's rows also equal numpy's.  Host
-    figures on the card machine's host, with the card line."""
+    figures on the card machine's host, with the card line.  Returns
+    each query's events/s and output rows."""
     batches = host_batches(EventBatch)
+    rates = {}
     for label, query in HOST_QUERIES.items():
         out, secs, low, allocs = run_host(torch, SiddhiManager,
                                           StreamCallback, query, batches,
@@ -2570,6 +2727,390 @@ def host_phase(torch, SiddhiManager, EventBatch, StreamCallback,
               "held_vs_cpu_run": True,
               "note": "host figures on the card machine's host",
               "card": card})
+        rates[label] = {"events_per_s": HOST_EVENTS / secs,
+                        "rows": len(got)}
+    return rates
+
+
+def dq_batches(EventBatch, n_symbols: int, seed: int):
+    """DQ_EVENTS seeded events shaped as the reference harness's
+    ``cse_batch`` (``samples/performance/workloads.py:35``):
+    ``n_symbols`` symbols ``S<i>``, ``price ~ U(100, 1000)`` float32,
+    ``volume`` int32 on [0, 300), ``timestamp`` the event time; batches
+    of DQ_BATCH, eight events a ms."""
+    rng = np.random.default_rng(seed)
+    names = np.array([f"S{i}" for i in range(n_symbols)], dtype=object)
+    out = []
+    for lo in range(0, DQ_EVENTS, DQ_BATCH):
+        n = min(DQ_BATCH, DQ_EVENTS - lo)
+        ts = 1000 + (lo + np.arange(n, dtype=np.int64)) // 8
+        out.append(EventBatch(
+            "cseEventStream", ["symbol", "price", "volume", "timestamp"],
+            {"symbol": names[rng.integers(0, n_symbols, n)],
+             "price": rng.uniform(100.0, 1000.0, n).astype(np.float32),
+             "volume": rng.integers(0, 300, n).astype(np.int32),
+             "timestamp": ts.copy()}, ts))
+    return out
+
+
+def later_batches(EventBatch, batches, n):
+    """``n`` more batches after ``batches``: copies of its first ``n``,
+    moved past its last event in time (for the breakdown and the
+    profile, after the held run)."""
+    shift = int(batches[-1].timestamps[-1] - batches[0].timestamps[0]) + 1
+    out = []
+    for b in batches[:n]:
+        cols = dict(b.columns)
+        if "timestamp" in cols:
+            cols["timestamp"] = cols["timestamp"] + shift
+        out.append(EventBatch(b.stream_id, list(b.attribute_names), cols,
+                              b.timestamps + shift))
+    return out
+
+
+def run_dq(torch, SiddhiManager, StreamCallback, app, batches, device):
+    """``app`` over ``batches`` through ``SiddhiManager`` on ``device``:
+    the output batches of the first DQ_CHECK input batches (the rest only
+    counted: ``timed_rows``), the seconds (synchronised), the lowering,
+    and the app (still running, with its manager)."""
+    mgr = SiddhiManager(device=device)
+    rt = new_app(mgr, app)
+    out_stream = "Out" if "into Out;" in app else "outputStream"
+    got = {"outs": [], "rows": 0}
+
+    class Rows(StreamCallback):
+        """Keeps the held batches' output as it is (no row events)."""
+
+        def receive_batch(self, batch):
+            got["rows"] += len(batch)
+            if got["keep"]:
+                got["outs"].append(batch)
+
+    rt.add_callback(out_stream, Rows())
+    rt.start()
+    h = rt.get_input_handler(batches[0].stream_id)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    t = time.perf_counter()
+    for i, b in enumerate(batches):
+        got["keep"] = i < DQ_CHECK
+        h.send_batch(b)
+    rt.drain()
+    sync()
+    got["secs"] = time.perf_counter() - t
+    got["keep"] = False
+    got["timed_rows"] = got["rows"]
+    got["lowering"] = rt.lowering()
+    got["rt"], got["mgr"] = rt, mgr
+    return got
+
+
+def dq_expected_rows(label: str, batches, host_rows: int) -> int:
+    """The output rows of ``label``'s app over ``batches``, counted in
+    numpy from the events alone: a filter emits the rows it passes (each
+    of ``filter_multi_4q``'s four queries), a running aggregate or a
+    sliding window one row an event, ``lengthBatch(10)`` grouped by
+    symbol one row for each symbol of every full ten events.  The
+    host-lowered ``timeBatch`` sum emits what the ``host_queries`` run of
+    the same query emitted (``host_rows``)."""
+    def col(c):
+        return np.concatenate([b.columns[c] for b in batches])
+
+    n = sum(len(b) for b in batches)
+    if label == "host_time_batch_sum":
+        return host_rows
+    if label in ("host_filter", "simple_filter"):
+        return int((col("volume") < 150).sum())
+    if label == "filter_multi_4q":
+        return 4 * int((col("volume") > 90).sum())
+    if label in ("partitioned_filter", "partition_scaling_50000"):
+        return int((col("price") < 700).sum())
+    if label == "partitioned_double_filter":
+        p = col("price")
+        return int((p < 700).sum() + (p >= 700).sum())
+    if label == "groupby_length_batch_agg_only":
+        tens = col("symbol")[:n // 10 * 10].reshape(-1, 10)
+        return sum(len(set(r)) for r in tens)
+    # host_time_avg, sliding_window, keyed_time_avg_50000
+    return n
+
+
+def dq_held(EventBatch, got):
+    """The output of the held batches as one batch (None if empty)."""
+    return EventBatch.concat(got["outs"]) if got["outs"] else None
+
+
+def dq_compare(card, other, sum_cols, exact) -> dict:
+    """The held output of two runs: timestamps, types, names and every
+    column bit for bit, but ``sum_cols`` within the reference's float32
+    bound (``rel=1e-4, abs=1e-3``), or bit for bit too when ``exact``.
+    Returns the largest differences; raises when outside."""
+    if (card is None) != (other is None):
+        raise AssertionError("one run emitted nothing")
+    if card is None:
+        return {"rows": 0, "max_abs_err": 0.0, "max_rel_err": 0.0}
+    if (card.attribute_names != other.attribute_names
+            or not np.array_equal(card.timestamps, other.timestamps)
+            or not np.array_equal(card.types, other.types)):
+        raise AssertionError("rows, timestamps or types differ")
+    max_abs = max_rel = 0.0
+    for c in card.attribute_names:
+        a, b = card.columns[c], other.columns[c]
+        if a.dtype != b.dtype:
+            raise AssertionError(f"column {c}: {a.dtype} vs {b.dtype}")
+        if a.dtype.kind == "f":
+            d = np.abs(a.astype(np.float64) - b.astype(np.float64))
+            if len(d):
+                max_abs = max(max_abs, float(d.max()))
+                max_rel = max(max_rel, float(
+                    (d / np.maximum(np.abs(b), 1e-30)).max()))
+            if c in sum_cols and not exact:
+                if not np.allclose(a, b, rtol=1e-4, atol=1e-3):
+                    raise AssertionError(f"column {c} outside the float32 "
+                                         "sum bound")
+                continue
+            same = np.array_equal(a.view(np.uint8), b.view(np.uint8))
+        else:
+            same = bool(np.all(a == b))
+        if not same:
+            raise AssertionError(f"column {c} differs")
+    return {"rows": len(card), "max_abs_err": max_abs,
+            "max_rel_err": max_rel}
+
+
+def dq_breakdown(torch, rt, batches) -> dict:
+    """Median host-clock ms of each stage of a batch over ``batches``,
+    summed over the app's device query runtimes: host preparation and
+    interning (``_intern_*``, ``_pad``), the steps (synchronised; for a
+    tumbling window, its pane flushes' fetches too), the count fetch,
+    the column fetch and the materialize."""
+    from siddhi_tpu_torch.core.device_single import DeviceQueryRuntime
+    from siddhi_tpu_torch.core.emit_queue import fetch_coalesced
+
+    runtimes = [r for r in rt.device_runtimes().values()
+                if isinstance(r, DeviceQueryRuntime)]
+    stages = {k: [] for k in ("host_prep_ms", "step_ms", "count_ms",
+                              "fetch_ms", "materialize_ms")}
+    for b in batches:
+        acc = dict.fromkeys(stages, 0.0)
+        for r in runtimes:
+            eng = r.engine
+            prep = [0.0]
+            saved = {}
+            for name in ("_intern_groups", "_intern_wgroups", "_pad"):
+                fn = getattr(eng, name)
+                saved[name] = fn
+
+                def timed(*a, fn=fn, **kw):
+                    t = time.perf_counter()
+                    try:
+                        return fn(*a, **kw)
+                    finally:
+                        prep[0] += time.perf_counter() - t
+
+                setattr(eng, name, timed)
+            cols = {a: b.columns[a] for a in eng.all_attrs}
+            keys = (np.asarray(b.columns["symbol"].tolist())
+                    if eng.partition_mode else None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.state, pending = eng.process_batch_deferred(
+                r.state, cols, b.timestamps, part_keys=keys)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for name, fn in saved.items():
+                delattr(eng, name)
+            n = pending.resolve() if pending is not None else 0
+            t2 = time.perf_counter()
+            host = fetch_coalesced(pending.device_arrays()) if n else []
+            t3 = time.perf_counter()
+            if n:
+                pending.materialize(host)
+            t4 = time.perf_counter()
+            acc["host_prep_ms"] += 1e3 * prep[0]
+            acc["step_ms"] += 1e3 * (t1 - t0 - prep[0])
+            for k, x, y in (("count_ms", t1, t2), ("fetch_ms", t2, t3),
+                            ("materialize_ms", t3, t4)):
+                acc[k] += 1e3 * (y - x)
+        for k, v in acc.items():
+            stages[k].append(v)
+    return {k: sorted(v)[len(v) // 2] for k, v in stages.items()}
+
+
+def dq_profile(torch, rt, batches) -> dict:
+    """``batches`` through the app under ``torch.profiler``: the device
+    kernels and copies, the engines' step calls (per-event steps,
+    tumbling accumulates and flushes), kernels a step, and the device's
+    busy share of the synchronised wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from siddhi_tpu_torch.core.device_single import DeviceQueryRuntime
+
+    engines = [r.engine for r in rt.device_runtimes().values()
+               if isinstance(r, DeviceQueryRuntime)]
+    calls = [0]
+    for eng in engines:
+        for name in ("step", "acc_step", "flush_step"):
+            fn = getattr(eng, name)
+
+            def counted(*a, fn=fn, **kw):
+                calls[0] += 1
+                return fn(*a, **kw)
+
+            setattr(eng, name, counted)
+    h = rt.get_input_handler(batches[0].stream_id)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            h.send_batch(b)
+        rt.drain()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    for eng in engines:
+        for name in ("step", "acc_step", "flush_step"):
+            delattr(eng, name)
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    kernels = len(dev) - len(copies)
+    return {"profiled_batches": len(batches),
+            "profiled_events": sum(len(b) for b in batches),
+            "steps": calls[0],
+            "kernels": kernels, "copies": len(copies),
+            "kernels_per_step": kernels / calls[0] if calls[0] else None,
+            "profiled_wall_ms": wall_ms,
+            "device_busy_ms": busy if dev else "not measured",
+            "device_busy_share": busy / wall_ms if dev else None}
+
+
+def dq_state_bytes(rt) -> int:
+    from siddhi_tpu_torch.core.device_single import DeviceQueryRuntime
+
+    return sum(t.numel() * t.element_size()
+               for r in rt.device_runtimes().values()
+               if isinstance(r, DeviceQueryRuntime)
+               for t in r.state.values())
+
+
+def device_query_phase(torch, SiddhiManager, EventBatch, StreamCallback,
+                       kernels, card, host_rates) -> dict:
+    """Phase 17: ``device_queries``, the port's device query path through
+    ``SiddhiManager()`` on the card (every app under ``@app:playback``,
+    eight events a ms): the ``host_queries`` stream's three queries
+    under ``@app:execution('tpu')`` (``time_batch_sum`` lowers to the
+    host, as in the reference: a LONG sum), the reference harness's
+    four single-stream workloads over 50 symbols, and its partitioned
+    ones with a keyed one-second time window at 50,000 symbols, each
+    over 1,000,000 events in batches of 8,192.  Each app's lowering
+    must equal its pinned reference value; the output of the first 16
+    batches must match the same batches with ``device="cpu"`` (bit for
+    bit, but the float32 sum columns within the reference's bound) and a
+    second card run bit for bit.  Then a stage breakdown and a profile
+    over 4 more batches each.  The ``host_queries`` lines' events/s
+    (``host_rates``, this call's) stand beside the device ones.  Returns
+    the launches of the timed card runs by kernel."""
+    host = host_batches(EventBatch)
+    streams = {"host": host, "cse50": dq_batches(EventBatch, 50, 61),
+               "cse50000": dq_batches(EventBatch, 50_000, 67)}
+    # one short run first: the card's libraries load outside the timings
+    warm = run_dq(torch, SiddhiManager, StreamCallback,
+                  DEVICE_QUERY_APPS["sliding_window"][0],
+                  streams["cse50"][:2], "cuda")
+    warm["rt"].shutdown()
+    warm["mgr"].shutdown()
+    launches = dict.fromkeys(kernels, 0)
+    for label, (app, pinned) in DEVICE_QUERY_APPS.items():
+        t_query = time.perf_counter()
+        wall = {}
+        stream = ("host" if label.startswith("host_") else
+                  "cse50000" if label.endswith("50000") else "cse50")
+        batches = streams[stream]
+        profiled = DQ_PROFILED
+        if label == "groupby_length_batch_agg_only":
+            # a flush every 10 events is about 800 flushes a batch, each
+            # two fetches: timed over the held batches only, one batch
+            # for the breakdown and a quarter batch (about 200 flushes)
+            # for the profile (PERF.md §4)
+            batches, profiled = batches[:DQ_CHECK], 1
+        extra = later_batches(EventBatch, batches, 2 * profiled)
+        if profiled == 1:
+            extra[1] = extra[1].take(np.arange(DQ_BATCH // 4))
+        for ws in kernels.values():
+            for w in ws:
+                w.launches = 0
+        got = run_dq(torch, SiddhiManager, StreamCallback, app, batches,
+                     "cuda")
+        for k, ws in kernels.items():
+            launches[k] += sum(w.launches for w in ws)
+        rt = got["rt"]
+        state_bytes = dq_state_bytes(rt)
+        device = any(v == "device" for v in pinned.values())
+        t = time.perf_counter()
+        breakdown = (dq_breakdown(torch, rt, extra[:profiled])
+                     if device else {})
+        prof = dq_profile(torch, rt, extra[profiled:]) if device else {}
+        wall["breakdown_and_profile_s"] = time.perf_counter() - t
+        rt.shutdown()
+        got["mgr"].shutdown()
+        if got["lowering"] != pinned:
+            raise AssertionError(f"device_queries {label}: lowering "
+                                 f"{got['lowering']}, the reference's "
+                                 f"{pinned}")
+        held = dq_held(EventBatch, got)
+        n_rows, secs = got["timed_rows"], got["secs"]
+        want_rows = dq_expected_rows(
+            label, batches, host_rates["time_batch_sum"]["rows"])
+        if n_rows != want_rows:
+            raise AssertionError(f"device_queries {label}: {n_rows} output "
+                                 f"rows over the timed batches, the events "
+                                 f"give {want_rows}")
+        del got, rt
+        t = time.perf_counter()
+        again = run_dq(torch, SiddhiManager, StreamCallback, app,
+                       batches[:DQ_CHECK], "cuda")
+        again["rt"].shutdown()
+        again["mgr"].shutdown()
+        same = dq_compare(held, dq_held(EventBatch, again), (), True)
+        del again
+        torch.cuda.empty_cache()
+        wall["second_card_run_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        cpu = run_dq(torch, SiddhiManager, StreamCallback, app,
+                     batches[:DQ_CHECK], "cpu")
+        cpu["rt"].shutdown()
+        cpu["mgr"].shutdown()
+        vs_cpu = dq_compare(held, dq_held(EventBatch, cpu),
+                            DQ_SUM_COLUMNS.get(label, ()), False)
+        del cpu, held
+        wall["cpu_run_s"] = time.perf_counter() - t
+        if not same["rows"]:
+            raise AssertionError(f"device_queries {label}: no output in the "
+                                 "held batches")
+        events = sum(len(b) for b in batches)
+        wall["query_s"] = time.perf_counter() - t_query
+        emit({"phase": "device_queries", "query": label, "app": app,
+              "lowering": pinned, "events": events, "batch": DQ_BATCH,
+              "timed_batches": len(batches),
+              "cut": ("timed over the 16 held batches, not 1,000,000 "
+                      "events" if len(batches) == DQ_CHECK else None),
+              "events_per_s": events / secs, "seconds": secs,
+              "host_runtime_events_per_s": (
+                  host_rates[label[len("host_"):]]["events_per_s"]
+                  if label.startswith("host_") else None),
+              "ms_per_batch": 1e3 * secs / len(batches),
+              "output_rows": n_rows, "expected_rows": want_rows,
+              "state_bytes": state_bytes,
+              "breakdown_ms": breakdown, "profile": prof,
+              "held_batches": DQ_CHECK, "held_rows": same["rows"],
+              "bit_identical_card_runs": True,
+              "vs_cpu": {"sum_columns": list(DQ_SUM_COLUMNS.get(label, ())),
+                         "max_abs_err": vs_cpu["max_abs_err"],
+                         "max_rel_err": vs_cpu["max_rel_err"]},
+              "wall": wall, "card": card})
+    return launches
 
 
 def main() -> int:
@@ -2580,6 +3121,9 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 2
 
+    # the port's warnings still reach stderr; its errors also fail the run
+    logging.basicConfig(format="%(levelname)s %(name)s: %(message)s")
+    logging.getLogger("siddhi_tpu_torch").addHandler(ISOLATED)
     from siddhi_tpu_torch import (
         SiddhiManager,
         compile_pattern,
@@ -3092,16 +3636,31 @@ def main() -> int:
                                    all_kernels, card)
     gc.collect()
     rate_limit_phase(torch, SiddhiManager, card)
-    host_phase(torch, SiddhiManager, EventBatch, StreamCallback, card)
+    host_rates = host_phase(torch, SiddhiManager, EventBatch,
+                            StreamCallback, card)
 
-    # 17. kernels -------------------------------------------------------------
+    # 17. the device query path ----------------------------------------------
+    gc.collect()
+    dq_launches = device_query_phase(torch, SiddhiManager, EventBatch,
+                                     StreamCallback, all_kernels, card,
+                                     host_rates)
+    # the state scatters of the running and tumbling accumulators are
+    # the path's kernel: accumulate_, once a lane kind a step
+    if (dq_launches["bank_scatter"] < 1
+            or any(v for k, v in dq_launches.items() if k != "bank_scatter")):
+        raise AssertionError(f"device query path launches {dq_launches}")
+    emit({"phase": "isolated_errors", "errors": 0,
+          "warnings_to_listeners_or_log": ISOLATED.warnings})
+
+    # 18. kernels -------------------------------------------------------------
     by_path = lambda name: {"dense_1M": launches.get(name, 0),
                             "skew_routed": hk_launches.get(name, 0),
                             "aggregation": agg_launches[name],
                             "general_1M": gen_launches[name],
                             "part_b": pb_launches[name],
                             "absent": absent_launches[name],
-                            "selector": rollup_launches[name]}
+                            "selector": rollup_launches[name],
+                            "device_query": dq_launches[name]}
     emit({"kernels": [
         {"name": "dense_batch", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/dense_batch.cu",
@@ -3142,7 +3701,8 @@ def main() -> int:
         {"name": "bank_scatter", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/bank_scatter.cu",
          "replaces": "siddhi_tpu/kernels/bank_scatter.py:76",
-         "launches": agg_launches["bank_scatter"],
+         "launches": agg_launches["bank_scatter"]
+                     + dq_launches["bank_scatter"],
          "launches_by_path": by_path("bank_scatter"),
          "launches_by_entry": bank_by_entry,
          "max_abs_err": bank_err,

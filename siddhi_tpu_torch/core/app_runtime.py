@@ -4,17 +4,19 @@ aggregations, callbacks.
 Port of the part of the JAX package's ``core/app_runtime.py`` (and the
 app planner's wiring) that the ported slices need: stream junctions for
 the defined streams, ``insert into`` output streams, single-stream
-queries on the host query runtime (the reference's default mode),
-pattern queries on the dense path (outside a partition at one
-partition), partitions lowered to the dense path, incremental
+queries on the host query runtime (the reference's default mode) or,
+under ``@app:execution('tpu')``, on the device query engine, pattern
+queries on the dense path (outside a partition at one partition),
+partitions lowered to the device paths, incremental
 aggregations subscribed to their input junctions (``aggregations``,
 ``query()`` for on-demand FINDs over them), stream and query callbacks,
 input handlers, the app scheduler (window ticks, rate limits,
-absent-deadline timers and ``@purge``) with the ``@app:playback(idle.
-time, increment)`` idle heartbeat, ``start``, ``shutdown`` and
-``lowering()``.  An app outside the slices raises
-``SiddhiAppCreationError`` naming the ``ROADMAP.md`` item that ports
-it: tables, named windows and triggers (item 9), functions (item 10).
+absent-deadline timers, timeBatch panes and ``@purge``) with the
+``@app:playback(idle.time, increment)`` idle heartbeat, exception
+listeners, ``start``, ``shutdown`` and ``lowering()``.  An app outside
+the slices raises ``SiddhiAppCreationError`` naming the ``ROADMAP.md``
+item that ports it: tables, named windows and triggers (item 9),
+functions (item 10).
 """
 
 from __future__ import annotations
@@ -63,7 +65,8 @@ class SiddhiAppRuntime:
         self.extensions = default_registry()
         self.definitions = dict(siddhi_app.stream_definitions)
         self.junctions: Dict[str, StreamJunction] = {
-            sid: StreamJunction(d) for sid, d in self.definitions.items()}
+            sid: StreamJunction(d, self.app_context)
+            for sid, d in self.definitions.items()}
         self.partitions: Dict[str, PartitionRuntime] = {}
         # unpartitioned queries by name (host queries, dense patterns)
         self.query_runtimes: Dict[str, object] = {}
@@ -94,10 +97,15 @@ class SiddhiAppRuntime:
     # -- planning hooks ------------------------------------------------------
 
     def resolve_stream_definition(self, s):
-        if not isinstance(s, SingleInputStream) or s.is_inner or s.is_fault:
+        if isinstance(s, SingleInputStream) and s.is_fault:
             raise SiddhiAppCreationError(
-                f"cannot resolve definition for {s!r}: inner and fault "
-                "streams" + later_slice(7, "host partitions"))
+                f"cannot resolve definition for {s!r}: fault streams "
+                "(@OnError(action='STREAM'))"
+                + later_slice(15, "the operations layer"))
+        if not isinstance(s, SingleInputStream) or s.is_inner:
+            raise SiddhiAppCreationError(
+                f"cannot resolve definition for {s!r}: inner streams"
+                + later_slice(7, "host partitions"))
         d = self.definitions.get(s.stream_id)
         if d is None:
             raise DefinitionNotExistError(
@@ -110,16 +118,14 @@ class SiddhiAppRuntime:
 
     def output_junction(self, out_def) -> StreamJunction:
         """The junction of an ``insert into`` target, defined from the
-        query's output when the app does not define the stream."""
+        query's output when the app does not define the stream.  An
+        existing junction is shared as it is, as in the reference: each
+        batch carries its own attribute names to the callbacks."""
         j = self.junctions.get(out_def.id)
         if j is None:
             self.definitions[out_def.id] = out_def
-            j = self.junctions[out_def.id] = StreamJunction(out_def)
-        elif j.definition.attribute_names != out_def.attribute_names:
-            raise SiddhiAppCreationError(
-                f"stream '{out_def.id}' is defined with attributes "
-                f"{j.definition.attribute_names}, the query inserts "
-                f"{out_def.attribute_names}")
+            j = self.junctions[out_def.id] = StreamJunction(out_def,
+                                                             self.app_context)
         return j
 
     # -- lifecycle -----------------------------------------------------------
@@ -170,9 +176,16 @@ class SiddhiAppRuntime:
             target=loop, name=f"playback-{self.name}", daemon=True)
         self._playback_thread.start()
 
+    def device_runtimes(self) -> Dict[str, object]:
+        """Query name -> its device runtime: the pattern processor or the
+        device query runtime."""
+        return {n: qr.device_processor
+                for n, qr in self._all_query_runtimes().items()
+                if qr.device_processor is not None}
+
     def drain(self):
-        """Emit every match still pending on the device."""
-        for rt in self.pattern_runtimes().values():
+        """Emit every output still pending on the device."""
+        for rt in self.device_runtimes().values():
             rt.drain()
 
     def shutdown(self):
@@ -181,7 +194,7 @@ class SiddhiAppRuntime:
             self._playback_thread.join(timeout=2)
             self._playback_stop = self._playback_thread = None
         self.scheduler.stop()
-        for rt in self.pattern_runtimes().values():
+        for rt in self.device_runtimes().values():
             rt.close()
         for ar in self.aggregations.values():
             ar.close()
@@ -236,9 +249,19 @@ class SiddhiAppRuntime:
         raise SiddhiAppRuntimeError(
             f"no stream or query named '{target}' in app '{self.name}'")
 
+    def add_exception_listener(self, listener: Callable):
+        """Register a listener called with every error the app logs
+        instead of raising: a failing query or callback on a junction,
+        a failing scheduler task (reference:
+        SiddhiAppRuntimeImpl.handleRuntimeExceptionWith)."""
+        self.app_context.exception_listeners.append(listener)
+
+    # the reference's Java-style name
+    handleRuntimeExceptionWith = add_exception_listener
+
     def lowering(self, step_kinds: bool = False) -> Dict[str, str]:
-        """Per-query engine placement: ``'host'``, ``'dense'`` or
-        ``'hotkey'``, as the reference reports it.  ``step_kinds=True``
+        """Per-query engine placement: ``'host'``, ``'device'``,
+        ``'dense'`` or ``'hotkey'``, as the reference reports it.  ``step_kinds=True``
         adds a pattern's dense step, fixed at compile time:
         ``'dense/batch'``, ``'dense/general'``, ``'hotkey/batch'``."""
         out: Dict[str, str] = {}

@@ -56,6 +56,7 @@ from siddhi_tpu_torch.core.ingest_stage import (
     IngestStats,
     staged_put,
 )
+from siddhi_tpu_torch.core.stream import notify_listeners
 from siddhi_tpu_torch.kernels.dense_step import candidate_env
 from siddhi_tpu_torch.ops.dense_nfa import (
     _TORCH_DTYPES,
@@ -225,8 +226,11 @@ class DensePatternRuntime:
     def __init__(self, engine: DensePatternEngine, out_stream_id: str,
                  emit: Callable[[EventBatch], None], emit_depth: int = 1,
                  ingest_depth: int = 1,
-                 clock: Optional[Callable[[], int]] = None):
+                 clock: Optional[Callable[[], int]] = None,
+                 app_context=None):
         self.engine = engine
+        # its exception listeners hear of dropped instances
+        self.app_context = app_context
         # the app clock, sampled when a batch is processed
         # (aux["emit_now"] of its deferred match batch)
         self.clock = clock
@@ -403,6 +407,15 @@ class DensePatternRuntime:
 
     # -- event path ----------------------------------------------------------
 
+    def reads(self, stream_id: str) -> bool:
+        return stream_id in self.engine.stream_keys
+
+    def process_partitioned(self, stream_id: str, batch: EventBatch, keys):
+        """A partitioned stream's batch with each row's raw key: the keys
+        are interned to this runtime's rows."""
+        self.process_stream_batch(stream_id, batch, self.intern_keys(keys),
+                                  keys)
+
     def process_stream_batch(self, stream_key: str, batch: EventBatch,
                              part: np.ndarray, keys=None):
         """Advance the NFA with a junction batch whose rows the partition
@@ -476,12 +489,15 @@ class DensePatternRuntime:
     def _check_overflow(self):
         total = self.overflow_total()
         if total > self._ovf_warned:
-            log.warning(
-                "dense pattern '%s': %d pending instance(s) dropped — "
-                "instance lanes full; matches may be missing vs the host "
-                "engine.  Raise @app:execution('tpu', instances='N') "
-                "(current %d per partition/node).",
-                self.out_stream_id, total, self.engine.I)
+            msg = (f"dense pattern '{self.out_stream_id}': {total} pending "
+                   "instance(s) dropped — instance lanes full; matches may "
+                   "be missing vs the host engine.  Raise @app:execution("
+                   f"'tpu', instances='N') (current {self.engine.I} per "
+                   "partition/node).")
+            log.warning("%s", msg)
+            # the app's exception listeners see the lost-match pressure
+            # too, as in the reference
+            notify_listeners(self.app_context, SiddhiAppRuntimeError(msg))
             self._ovf_warned = total
 
     def close(self):

@@ -16,16 +16,22 @@ Port of the JAX package's ``core/emit_queue.py``:
 
 Entries drain strictly FIFO and each materializes into exactly the batch
 the synchronous path would emit, so callback content and order do not
-depend on the depth.  The port has no fault harness yet, so a failed
-fetch or materializer raises.
+depend on the depth.  A failing materializer (a selector, limiter or
+callback downstream of the emit) is isolated as in the reference: its
+one pending batch is dropped and logged, and the rest of the drain goes
+on.  A failed fetch is a device error and raises; the reference's fault
+harness, which counts and routes such failures, is a later slice.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+log = logging.getLogger("siddhi_tpu_torch")
 
 
 def fetch_coalesced(arrays: Sequence) -> List[np.ndarray]:
@@ -128,5 +134,10 @@ class EmitQueue:
             off = 0
             for e in entries:
                 n = len(e.arrays)
-                e.materialize(host[off:off + n])
+                seg = host[off:off + n]
                 off += n
+                try:
+                    e.materialize(seg)
+                except Exception as err:
+                    log.error("emit materialize failed; dropping one "
+                              "pending batch: %s", err, exc_info=err)

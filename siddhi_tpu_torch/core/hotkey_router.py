@@ -258,6 +258,10 @@ class HotKeyRouterRuntime:
 
     # -- event path ----------------------------------------------------------
 
+    def process_partitioned(self, stream_id: str, batch: EventBatch, keys):
+        self.process_stream_batch(stream_id, batch,
+                                  self._dense.intern_keys(keys), keys)
+
     def process_stream_batch(self, stream_key: str, batch: EventBatch,
                              part: np.ndarray, keys):
         cur = batch.only(ev.CURRENT)

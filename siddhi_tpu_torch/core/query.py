@@ -852,10 +852,21 @@ class QueryRuntime:
         self.app_context = app_context
         self.callback_output: Optional[QueryCallbackOutput] = None
         self.pattern_processor = None
+        # a single-stream query on the device query engine: its
+        # DeviceQueryRuntime, whose outputs enter ``process`` at the
+        # selector (the chain is empty)
+        self.device_runtime = None
         # which engine runs this query: 'host' (the columnar numpy
-        # chain), 'dense' or 'hotkey' (the device pattern paths), as
+        # chain), 'device' (the device query engine), 'dense' or
+        # 'hotkey' (the device pattern paths), as
         # SiddhiAppRuntime.lowering() reports it
         self.lowered_to = "host"
+
+    @property
+    def device_processor(self):
+        """The runtime holding this query's device state (its pattern
+        processor or its device query runtime), or None on the host."""
+        return self.pattern_processor or self.device_runtime
 
     def add_callback(self, cb: QueryCallback):
         if self.callback_output is None:
@@ -899,14 +910,17 @@ class QueryRuntime:
             state["windows"] = windows
         if self.pattern_processor is not None:
             state["pattern"] = self.pattern_processor.snapshot()
+        if self.device_runtime is not None:
+            state["device"] = self.device_runtime.snapshot()
         return state
 
     def _drain_device_emits(self):
-        """Flush barrier of the dense emit pipeline: this query's queued
-        matches go through the selector, limiter and output BEFORE the
-        surrounding snapshot or restore reads or replaces that state."""
-        if self.pattern_processor is not None:
-            self.pattern_processor.drain()
+        """Flush barrier of the device emit pipelines: this query's
+        queued outputs go through the selector, limiter and output BEFORE
+        the surrounding snapshot or restore reads or replaces that
+        state."""
+        if self.device_processor is not None:
+            self.device_processor.drain()
 
     def restore_state(self, state: Dict):
         self._drain_device_emits()
@@ -918,6 +932,8 @@ class QueryRuntime:
             self.chains[ci][pi].window.restore(ws)
         if self.pattern_processor is not None and "pattern" in state:
             self.pattern_processor.restore(state["pattern"])
+        if self.device_runtime is not None and "device" in state:
+            self.device_runtime.restore(state["device"])
 
     def on_time(self, now: int):
         """Scheduler tick: run time-window evictions through the tail of

@@ -9,13 +9,17 @@ in_events, out_events)``.  An ``InputHandler`` turns user sends into
 batches: every ``send`` is one junction cycle, as in the reference,
 taken under the app lock after the app scheduler has advanced to the
 clock (due window, rate-limit, deadline and purge tasks fire before the
-batch's events step).  The reference's asynchronous junctions, fault
-streams, admission control and input journal are later slices of the
-port; an error in a receiver or callback propagates.
+batch's events step).  An error in a receiver (a query) or a callback
+is isolated, in the reference's LOG form: it is logged and handed to the
+app's exception listeners, and the later receivers and callbacks still
+get the batch.  The reference's asynchronous junctions, fault streams
+(``@OnError(action='STREAM')``), admission control and input journal
+are later slices of the port.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Callable, List, Optional
 
 from siddhi_tpu_torch.core.event import (
@@ -25,6 +29,8 @@ from siddhi_tpu_torch.core.event import (
     events_from_batch,
 )
 from siddhi_tpu_torch.core.exceptions import SiddhiAppRuntimeError
+
+log = logging.getLogger("siddhi_tpu_torch")
 
 
 class StreamCallback:
@@ -67,12 +73,23 @@ class FunctionQueryCallback(QueryCallback):
         self.fn(timestamp, in_events, out_events)
 
 
+def notify_listeners(app_context, e: Exception):
+    """Hand a logged error to the app's exception listeners; a failing
+    listener is logged and does not stop the others."""
+    for listener in list(getattr(app_context, "exception_listeners", ())):
+        try:
+            listener(e)
+        except Exception:
+            log.exception("exception listener failed")
+
+
 class StreamJunction:
     """Fan-out point of one stream."""
 
-    def __init__(self, definition):
+    def __init__(self, definition, app_context=None):
         self.definition = definition
         self.stream_id = definition.id
+        self.app_context = app_context
         self.receivers: List = []
         self.callbacks: List[StreamCallback] = []
 
@@ -88,9 +105,23 @@ class StreamJunction:
         if len(batch) == 0:
             return
         for r in self.receivers:
-            r.receive(batch)
+            try:
+                r.receive(batch)
+            except Exception as e:
+                self._handle_error(e)
         for cb in self.callbacks:
-            cb.receive_batch(batch)
+            try:
+                cb.receive_batch(batch)
+            except Exception as e:
+                self._handle_error(e)
+
+    def _handle_error(self, e: Exception):
+        """The reference's LOG form of ``@OnError``: log the error, then
+        hand it to the app's exception listeners."""
+        name = getattr(self.app_context, "name", None)
+        log.error("error processing events on stream '%s' in app '%s': %s",
+                  self.stream_id, name, e, exc_info=e)
+        notify_listeners(self.app_context, e)
 
 
 class InputHandler:

@@ -24,7 +24,7 @@ from __future__ import annotations
 import threading
 import time
 import uuid
-from typing import Dict
+from typing import Dict, List
 
 from siddhi_tpu_torch.compiler.parser import parse_time_string
 from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
@@ -97,6 +97,9 @@ class AppContext:
         self.kernel_kinds = ("nfa", "bank", "scan")
         # query name -> why @app:hotkeys left it on the dense path
         self.hotkey_fallbacks: Dict[str, str] = {}
+        # runtime exception listeners: every error the app logs instead
+        # of raising (a failing receiver, callback, emit or timer task)
+        self.exception_listeners: List = []
 
 
 def _positive_int(ann, key: str, what: str) -> int:

@@ -48,6 +48,13 @@ from siddhi_tpu_torch.query_api.attribute import promote
 TS_KEY = "__ts"
 N_KEY = "__n"
 
+# aggregator names handled by a selector, the device query rewrite or
+# the aggregation rewrite, not scalar functions
+AGGREGATOR_NAMES = {
+    "sum", "avg", "count", "min", "max", "minForever", "maxForever",
+    "stdDev", "distinctCount", "and", "or", "unionSet",
+}
+
 
 @dataclass
 class CompiledExpression:

@@ -27,6 +27,7 @@ import numpy as np
 from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
 from siddhi_tpu_torch.planner.expr import (
     _CMP,
+    AGGREGATOR_NAMES,
     _NUMERIC_NP,
     N_KEY,
     TS_KEY,
@@ -393,11 +394,4 @@ BUILTIN_FUNCTIONS: Dict[str, Callable] = {
     "instanceOfLong": _instance_of(lambda x: isinstance(x, (int, np.int64)) and not isinstance(x, bool)),
     "instanceOfFloat": _instance_of(lambda x: isinstance(x, (float, np.float32))),
     "instanceOfDouble": _instance_of(lambda x: isinstance(x, (float, np.float64))),
-}
-
-# aggregator names handled by a selector or the aggregation rewrite, NOT
-# scalar functions
-AGGREGATOR_NAMES = {
-    "sum", "avg", "count", "min", "max", "minForever", "maxForever",
-    "stdDev", "distinctCount", "and", "or", "unionSet",
 }

@@ -5,6 +5,13 @@ runs (the analog of the reference's QueryParser.parse,
 util/parser/QueryParser.java:90, with SingleInputStreamParser,
 SelectorParser and OutputParser):
 
+- a single-stream query under ``@app:execution('tpu')`` on the device
+  query engine (``device_query_engine``, ``plan_device_single``): the
+  engine's outputs through a passthrough selector (order by, limit,
+  offset), the rate limiter and the output.  A query outside the
+  engine's subset runs on the host runtime, with a warning naming the
+  reason, as in the reference; only that eligibility error is handled
+  so;
 - a single-stream query on the host runtime (``plan_single``): filters,
   windows and stream functions (``plan_handlers``), the selector with
   its aggregators, group by, having, order by, limit and offset
@@ -20,15 +27,19 @@ SelectorParser and OutputParser):
   and an absent-deadline engine become app scheduler tasks.
 
 What the reference runs elsewhere stays refused, naming its
-``ROADMAP.md`` §1 item: single-stream queries under
-``@app:execution('tpu')`` (its device query path, item 6), host
-patterns (item 7), joins (item 8), tables and named windows (item 9).
+``ROADMAP.md`` §1 item: host patterns (item 7), joins (item 8), tables
+and named windows (item 9).
 """
 
 from __future__ import annotations
 
+import logging
 from typing import List, Optional, Tuple
 
+from siddhi_tpu_torch.core.device_single import (
+    DeviceQueryReceiver,
+    DeviceQueryRuntime,
+)
 from siddhi_tpu_torch.core.dense_pattern import (
     DensePatternRuntime,
     DenseStreamReceiver,
@@ -56,6 +67,7 @@ from siddhi_tpu_torch.core.query import (
 )
 from siddhi_tpu_torch.extension.validator import validate_extension_args
 from siddhi_tpu_torch.ops.aggregators import make_aggregator
+from siddhi_tpu_torch.ops.device_query import DeviceQueryEngine
 from siddhi_tpu_torch.ops.nfa import NFABuilder, PatternScope
 from siddhi_tpu_torch.planner.hotkeys import try_wrap_hotkey
 from siddhi_tpu_torch.planner.host_expr import (
@@ -93,6 +105,7 @@ from siddhi_tpu_torch.query_api import (
 )
 from siddhi_tpu_torch.query_api.annotation import find_annotation
 
+log = logging.getLogger("siddhi_tpu_torch")
 
 class _RateLimiterTask:
     """Scheduler task flushing a time rate limiter.
@@ -249,13 +262,18 @@ def plan_unpartitioned_query(app, query: Query, index: int) -> QueryRuntime:
     tpu = app.app_context.execution_mode == "tpu"
     if isinstance(in_stream, SingleInputStream):
         if tpu:
-            # the reference lowers it to its device query path, which
-            # stores DOUBLE as float32: a host run would differ in bits
-            # and hide the device
-            raise SiddhiAppCreationError(
-                f"query '{name}': single-stream queries under "
-                "@app:execution('tpu') run on the reference's device "
-                "query path" + later_slice(6, "the device query path"))
+            # the device query path first; the host chain, with a
+            # warning, when the query is outside its subset
+            try:
+                engine = device_query_engine(app, query, in_stream)
+            except SiddhiAppCreationError as e:
+                log.warning("query '%s': device query path unavailable "
+                            "(%s); using host engine", name, e)
+            else:
+                log.info("query '%s': lowered to the device query path",
+                         name)
+                return plan_device_single(app, query, name, in_stream,
+                                          engine)
         return plan_single(app, query, name, in_stream)
     if isinstance(in_stream, StateInputStream):
         if not tpu:
@@ -277,6 +295,71 @@ def plan_unpartitioned_query(app, query: Query, index: int) -> QueryRuntime:
 
 
 # -- single stream -----------------------------------------------------------
+
+
+def device_query_engine(app, query: Query, s: SingleInputStream,
+                        partition_mode: bool = False) -> DeviceQueryEngine:
+    """The query's device engine, or ``SiddhiAppCreationError`` when the
+    query is outside the device subset (the reference's eligibility
+    checks, in its order).  ``partition_mode``: the query sits in a
+    partition, whose key composes into the engine's group axis."""
+    ctx = app.app_context
+    out = query.output_stream
+    if out is not None and getattr(out, "event_type",
+                                   "current") != "current":
+        raise SiddhiAppCreationError("device path emits CURRENT events only")
+    if partition_mode and query.output_rate is not None:
+        # each per-key instance of the reference has its own limiter
+        raise SiddhiAppCreationError(
+            "partitioned queries with output rate limits need per-key "
+            "limiters — host instances used")
+    if partition_mode and (query.selector.order_by
+                           or query.selector.limit is not None
+                           or query.selector.offset is not None):
+        # per-key instances slice order by/limit per key
+        raise SiddhiAppCreationError(
+            "partitioned queries with order by/limit need per-key chunks "
+            "— host instances used")
+    return DeviceQueryEngine(
+        query, app.resolve_stream_definition(s),
+        n_groups=ctx.tpu_partitions, partition_mode=partition_mode,
+        n_wgroups=ctx.tpu_partitions if partition_mode else None,
+        defer_order_by=True, device=ctx.device)
+
+
+def plan_device_single(app, query: Query, name: str, s: SingleInputStream,
+                       engine: DeviceQueryEngine,
+                       subscribe: bool = True) -> QueryRuntime:
+    """Wire a device engine into a query runtime: the engine's outputs
+    go through a passthrough selector (order by, limit and offset over
+    each chunk), the rate limiter and the output.  ``subscribe=False``
+    (partition mode): the partition receiver feeds the runtime with each
+    batch's keys, and owns the purge timing."""
+    ctx = app.app_context
+    out_target = _out_target(query, name)
+    selector = passthrough_selector(query.selector, engine.output_names,
+                                    out_target)
+    out_def = StreamDefinition(id=out_target, attributes=[
+        Attribute(nm, t) for nm, t in zip(engine.output_names,
+                                          engine.out_types)])
+    output = plan_output(app, query, out_def, name)
+    rate_limiter = plan_rate_limiter(query)
+    qr = QueryRuntime(name, [[]], selector, rate_limiter, output, ctx)
+    runtime = DeviceQueryRuntime(
+        engine, f"#device_{name}", emit=lambda b: qr.process(b, 0),
+        emit_depth=ctx.tpu_emit_depth, ingest_depth=ctx.tpu_ingest_depth,
+        clock=ctx.timestamp_generator.current_time)
+    qr.device_runtime = runtime
+    qr.lowered_to = "device"
+    if subscribe:
+        app.junction_for_input(s).subscribe(DeviceQueryReceiver(runtime))
+        # timeBatch panes close on the scheduler; the rate task drains
+        # the queued emits before its time decision
+        ctx.scheduler.register_task(runtime)
+        if rate_limiter.needs_scheduler_task:
+            ctx.scheduler.register_task(
+                _RateLimiterTask(qr, rate_limiter, device_runtime=runtime))
+    return qr
 
 
 def plan_single(app, query: Query, name: str, s: SingleInputStream
@@ -518,7 +601,7 @@ def plan_dense_state(app, query: Query, name: str, st,
     runtime = DensePatternRuntime(
         engine, f"#matches_{name}", emit=lambda b: qr.process(b, 0),
         emit_depth=ctx.tpu_emit_depth, ingest_depth=ctx.tpu_ingest_depth,
-        clock=ctx.timestamp_generator.current_time)
+        clock=ctx.timestamp_generator.current_time, app_context=ctx)
     qr.lowered_to = "dense"
     if selector.partition_axis:
         # match rows carry their partition keys; @purge drops the purged

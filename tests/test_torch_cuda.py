@@ -876,3 +876,100 @@ def test_rate_limited_dense_query_on_card_matches_cpu(cuda_device):
     rows = _sends_card_vs_cpu(app, sends,
                               tick=("Tick", [0], sends[-1][2] + 3000))
     assert rows["cuda"] == rows["cpu"] and rows["cpu"]
+
+
+# -- the device query path ---------------------------------------------------
+
+DQ_DEFINE = ("@app:playback @app:execution('tpu', partitions='64') "
+             "define stream S (k long, v double, i int, ok bool); ")
+DQ_APPS = {
+    "running": ("@info(name='q') from S[v > 2.0] select k, sum(v) as s, "
+                "count() as c, min(v) as lo, max(i) as hi, stdDev(v) as sd, "
+                "maxForever(v) as xf, and(ok) as a group by k insert into "
+                "Out;", ("s", "sd")),
+    "sliding_time": ("@info(name='q') from S#window.time(300 ms) select k, "
+                     "avg(v) as av, min(v) as lo, count() as c group by k "
+                     "insert into Out;", ("av",)),
+    "tumbling": ("@info(name='q') from S#window.lengthBatch(7) select k, "
+                 "sum(v) as s, max(v) as m group by k insert into Out;",
+                 ("s",)),
+    "keyed_sliding": ("partition with (k of S) begin @info(name='q') from "
+                      "S[v > 1.0]#window.length(4) select k, sum(v) as s, "
+                      "max(v) as m, count() as c insert into Out; end;",
+                      ("s",)),
+}
+
+
+def _dq_rows(app, device, seed=11, n=600):
+    """Seeded events (three-decimal values, so sums round) through the
+    app in batches of 100 via ``send_batch``: the output rows."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.core.event import EventBatch
+
+    rng = np.random.default_rng(seed)
+    mgr = SiddhiManager(device=device)
+    try:
+        rt = mgr.create_siddhi_app_runtime(app)
+        got = []
+        rt.add_callback("Out", lambda evs: got.extend(
+            (e.timestamp, tuple(e.data)) for e in evs))
+        rt.start()
+        h = rt.get_input_handler("S")
+        t = 1000
+        for lo in range(0, n, 100):
+            ts = t + np.cumsum(rng.integers(1, 40, 100)).astype(np.int64)
+            t = int(ts[-1])
+            h.send_batch(EventBatch("S", ["k", "v", "i", "ok"], {
+                "k": rng.integers(0, 6, 100).astype(np.int64),
+                "v": np.round(rng.uniform(0, 50, 100), 3),
+                "i": rng.integers(-9, 9, 100).astype(np.int32),
+                "ok": rng.random(100) < 0.8}, ts))
+        assert set(rt.lowering().values()) == {"device"}
+        rt.shutdown()
+        return got
+    finally:
+        mgr.shutdown()
+
+
+@pytest.mark.parametrize("name", list(DQ_APPS))
+def test_device_query_on_card_matches_cpu(cuda_device, name):
+    """The device query engine on the card against ``device="cpu"``:
+    every column bit for bit but the float32 sums (within the
+    reference's ``rel=1e-4, abs=1e-3``; stdDev ``abs=5e-3``); two card
+    runs bit for bit (no float atomics: the state scatters are
+    ``accumulate_``)."""
+    query, sums = DQ_APPS[name]
+    app = DQ_DEFINE + query
+    card, again, cpu = (_dq_rows(app, "cuda"), _dq_rows(app, "cuda"),
+                        _dq_rows(app, "cpu"))
+    assert card == again and card
+    names = [n.split(" as ")[-1] for n in
+             query.split("select ")[1].split(" group by")[0]
+             .split(" insert")[0].split(", ")]
+    assert len(card) == len(cpu)
+    for (t1, r1), (t2, r2) in zip(card, cpu):
+        assert t1 == t2
+        for nm, a, b in zip(names, r1, r2):
+            if nm in sums:
+                assert abs(a - b) <= (5e-3 if nm == "sd" else
+                                      1e-3 + 1e-4 * abs(b)), (nm, a, b)
+            else:
+                assert type(a) is type(b) and a == b, (nm, a, b)
+
+
+def test_device_query_prefix_sums_ignore_tf32(cuda_device):
+    """The ``[B, B]`` prefix products run in float64, out of TF32's
+    reach, and leave the caller's matmul precision as it was: with
+    ``'high'`` (TF32 allowed) set globally, a running sum gives the same
+    bits as with ``'highest'``."""
+    app = DQ_DEFINE + DQ_APPS["running"][0]
+    prev = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("highest")
+        full = _dq_rows(app, "cuda", n=3000)
+        torch.set_float32_matmul_precision("high")
+        tf32 = _dq_rows(app, "cuda", n=3000)
+        assert torch.get_float32_matmul_precision() == "high"
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert full == tf32 and full

@@ -260,8 +260,12 @@ def test_purge_drops_the_selector_state_of_a_key():
      "select a.card as c, count() as n order by n limit 2 "
      "insert into Alerts; end;",
      "partitioned aggregating selectors with order by/limit", 7),
-    (tpu(16) + TXN + "@info(name='q') from Txn[amount > 1.0] "
-     "select card insert into Alerts;", "single-stream queries", 6),
+    # a single-stream query the reference's device query path takes,
+    # but not in a partition: a tumbling window there goes to per-key
+    # host instances
+    (tpu(16) + TXN + "partition with (card of Txn) begin @info(name='q') "
+     "from Txn#window.lengthBatch(3) select sum(amount) as s "
+     "insert into Alerts; end;", "partitioned tumbling windows", 7),
     (tpu(16) + TXN + "@info(name='q') from every a=Txn[amount > 1.0] -> "
      "b=Txn[amount > a.amount] select a.amount * 2 as x insert into Alerts;",
      "select items must be event references", 7),
@@ -269,9 +273,8 @@ def test_purge_drops_the_selector_state_of_a_key():
         "tpu_single_stream", "select_expression"])
 def test_refusals(app, reason, item):
     """What stays refused: where the reference uses per-key host
-    instances, its device query path or its host pattern engine, the
-    port raises with the reference's reason and the ``ROADMAP.md``
-    item."""
+    instances or its host pattern engine, the port raises with the
+    reference's reason and the ``ROADMAP.md`` item."""
     with pytest.raises(SiddhiAppCreationError) as info:
         SiddhiManager(device="cpu").create_siddhi_app_runtime(app)
     assert reason in str(info.value)

@@ -391,8 +391,12 @@ class TestOutsideTheSlice:
         # ROADMAP.md §1 item 7
         wrap("@info(name='q') from every (a=S[v > 8.0] -> b=S[v > 12.0]) "
              "-> c=S[v > 1.0] select c.v as cv insert into Alerts;"),
-        # a non-pattern query inside the partition
-        wrap("@info(name='q') from S[v > 8.0] select v insert into Alerts;"),
+        # a non-pattern query inside the partition that the reference
+        # runs on per-key host instances (a tumbling window), ROADMAP.md
+        # §1 item 7 (filters and sliding windows run on the device query
+        # path, tests/test_torch_device_partitioned.py)
+        wrap("@info(name='q') from S#window.lengthBatch(3) select v "
+             "insert into Alerts;"),
         # a leading absent deadline: the reference's host engine,
         # ROADMAP.md §1 item 7 (other absent nodes run dense,
         # tests/test_torch_absent.py)

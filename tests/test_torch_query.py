@@ -13,7 +13,9 @@ timestamps, expiry flags and value types, floats bit for bit:
   output.  The port's ``SiddhiManager(device="cpu")`` then replays the
   same app and sends.  An app the JAX package refuses, the port must
   refuse; one outside the port's slices (joins, tables, named windows,
-  host patterns) must raise naming its ``ROADMAP.md`` item.
+  host patterns) must raise naming its ``ROADMAP.md`` item.  Apps under
+  ``@app:execution('tpu')`` run on the device query path (or, outside
+  its subset, on the host runtime) in both packages.
 - seeded apps over every aggregator, the selector's group by, having,
   order by, limit and offset, every rate limiter and query callbacks.
 """
@@ -45,8 +47,8 @@ CORPORA = ("test_filter_queries", "test_windows", "test_conformance_filters",
 # sandbox and attribute APIs, which the port does not have
 LEFT_OUT = {("test_filter_queries", "TestManagerApis")}
 # what the port refuses in these corpora, with the ROADMAP.md item
-OUTSIDE = {6: r"@app:execution\('tpu'", 7: r"->|partition with",
-           8: r"\bjoin\b", 9: r"define (table|window|trigger)"}
+OUTSIDE = {7: r"->|partition with", 8: r"\bjoin\b",
+           9: r"define (table|window|trigger)"}
 
 
 def typed(v):
@@ -459,9 +461,21 @@ def test_chained_queries_as_the_reference():
     assert assert_same(app, sends(11), streams=("Mid", "Out"))["Out"]
 
 
+def test_tpu_single_stream_as_the_reference():
+    """A single-stream query under ``@app:execution('tpu')`` runs on the
+    device query path in both packages (float32 DOUBLE lanes): the same
+    lowering and the same rows, bit for bit (a filter and passthrough
+    columns)."""
+    app = ("@app:execution('tpu') " + DEFINE
+           + "@info(name='q') from S[p > 1.0] select sym, p, n * 2 as m "
+           "insert into Out;")
+    jgot, jlow = run(False, app, sends(6))
+    tgot, tlow = run(True, app, sends(6))
+    assert tlow == jlow == {"q": "device"}
+    assert tgot == jgot and tgot["Out"]
+
+
 @pytest.mark.parametrize("app,item", [
-    ("@app:execution('tpu') " + DEFINE
-     + "from S[p > 1.0] select sym insert into Out;", 6),
     (DEFINE + "define table T (sym string); from S join T on S.sym == T.sym "
      "select S.sym insert into Out;", 9),
     (DEFINE + "define stream U (sym string); from S#window.length(2) join "
@@ -471,13 +485,10 @@ def test_chained_queries_as_the_reference():
     (DEFINE + "define function f[python] return int { return 1 }; "
      "from S select sym insert into Out;", 10),
     (DEFINE + "from S select sym insert into #Inner;", 7),
-], ids=["tpu_single_stream", "table", "join", "host_pattern", "function",
-        "inner_output"])
+], ids=["table", "join", "host_pattern", "function", "inner_output"])
 def test_refusals_name_their_roadmap_item(app, item):
     """No hidden fallback: what the port does not run raises at creation,
-    naming the ``ROADMAP.md`` item that ports it.  A single-stream query
-    under ``@app:execution('tpu')`` is the JAX package's device query
-    path (float32 DOUBLE lanes), never the host runtime."""
+    naming the ``ROADMAP.md`` item that ports it."""
     with pytest.raises(SiddhiAppCreationError) as info:
         SiddhiManager(device="cpu").create_siddhi_app_runtime(app)
     assert f"ROADMAP.md §1 item {item}" in str(info.value)
