@@ -229,7 +229,34 @@ skew-routed pattern path and the incremental-aggregation path through
    (kernels a step, the device's busy share) over 4 more batches each,
    and the state bytes on the card.  Launches are read over the timed
    card runs: ``accumulate_`` for the state scatters, no other kernel.
-18. kernels: one line per ported kernel (launches on the main paths,
+18. host_patterns: the host pattern engine through ``SiddhiManager()``
+   on the card, three lines: (a) BASELINE config 1 (the three-state
+   ``every`` sequence, ``within 1 sec``) in the default mode over
+   1,000,000 events (``p ~ U(5, 30)`` float32, one event a ms, batches
+   of 8,192), its rows also equal to those numpy finds in the events;
+   (b) BASELINE config 2 (count_fraud) inside ``partition with (card of
+   Txn)`` in the default mode, on per-key instances over 1,000 cards and
+   262,144 events, then the same traffic on the dense path under
+   ``@app:execution('tpu')``, whose rows must equal the instances' as
+   sorted multisets (the line says whether the order agrees too); (c)
+   one ``execution('tpu')`` app with a numeric pattern the dense path
+   takes beside a ``symbol string`` select pattern the reference keeps
+   on its host engine (lowering ``{dense, host}``, one fallback
+   WARNING).  Each run's output equals the same run with
+   ``device="cpu"``; the host engine and the instances make no card
+   allocation and launch no kernel.  Events/s and ms a batch are host
+   figures on the card machine's host; (b) gives the first batch, which
+   plans every key's instance, apart.
+19. host_partitions: the reference harness's partition rows
+   (``workloads.py:164-186``) in the default mode: per-key instances
+   over 1,000,000 cse-shaped events each (``partitioned_filter`` and
+   ``partitioned_double_filter`` over 50 symbols, ``partition_scaling``
+   at 10, 1,000 and 50,000), lowered to ``host``, no card allocation,
+   no launch, output rows equal to a numpy count, the first 16 batches'
+   output equal to the ``device="cpu"`` run's; each line gives the
+   first batch (which plans the keys it meets) apart, and the
+   ``device_queries`` rate of the same query beside it.
+20. kernels: one line per ported kernel (launches on the main paths,
    largest difference from its plain version, ``ms``, ``host_us``,
    ``device_us``, plain and library times, bound); the bank kernel's at
    the entry the aggregation path uses, ``accumulate_``, with the delta
@@ -238,8 +265,8 @@ skew-routed pattern path and the incremental-aggregation path through
    line next to it; the scan kernel at the routed shape, the widest
    legal shape beside it.
 
-Then an ``isolated_errors`` line, the card's name and power limit
-(nvidia-smi), and last the device line.  Any failed phase raises, so the
+An ``isolated_errors`` line comes before the kernels line; then the
+card's name and power limit (nvidia-smi), and last the device line.  Any failed phase raises, so the
 script exits non-zero and prints no device line; so does a machine
 without a CUDA card.  An error the port isolates instead of raising (a
 failing query, callback, scheduler task or emit materialize: an ERROR on
@@ -491,6 +518,61 @@ DQ_SUM_COLUMNS = {"host_time_avg": ("avgPrice",),
                   "sliding_window": ("total", "avgVolume"),
                   "groupby_length_batch_agg_only": ("total", "avgVolume"),
                   "keyed_time_avg_50000": ("ap",)}
+# the host pattern engine through SiddhiManager() on the card machine:
+# BASELINE config 1 (samples/performance/baseline_configs.py:62-69) in
+# the default mode over 1,000,000 events, p ~ U(5, 30) float32, one
+# event a ms, batches of 8,192
+HP_EVENTS = 1_000_000
+HP_BATCH = 8_192
+HP_CHECK = 16  # batches held card against CPU where a run is long
+SEQ3_APP = (
+    "@app:playback define stream T (key long, p double); @info(name='q') "
+    "from every e1=T[p > 10.0], e2=T[p > e1.p], e3=T[p > e2.p] within "
+    "1 sec select e1.p as p1, e3.p as p3 insert into O;")
+# BASELINE config 2 (count_fraud's app and traffic) inside a partition:
+# per-key instances in the default mode, 1,000 cards (the middle size of
+# the reference's PartitionPerformance.java), 262,144 events; then the
+# same traffic on the dense path
+FRAUD_KEYS = 1_000
+FRAUD_EVENTS = 1 << 18
+FRAUD_PART_APP = (
+    "@app:playback {}define stream Txn (card long, amount double); "
+    "partition with (card of Txn) begin @info(name='fraud') "
+    "from every a=Txn[amount > 100.0] -> b=Txn[amount > a.amount]<3:5> "
+    "within 10 min select a.card as card, a.amount as base, "
+    "b[0].amount as b0, b[last].amount as blast insert into Alerts; end;")
+FRAUD_DENSE = "@app:execution('tpu', partitions='1024', instances='128') "
+# one execution('tpu') app: a numeric pattern the dense path takes beside
+# a `symbol string` select pattern of tests/test_conformance_patterns2.py
+# (ComplexPatternTestCase.testQuery6) that the reference sends to its
+# host engine: lowering {dense, host}, one fallback WARNING
+MIXED_APP = (
+    "@app:playback @app:execution('tpu') "
+    "define stream Stream1 (symbol string, price float, volume int); "
+    "define stream Stream2 (symbol string, price float, volume int); "
+    "@info(name='dense') from every e1=Stream1[price > 28.0] -> "
+    "e2=Stream2[price > e1.price] within 50 millisec select e1.price as "
+    "p1, e2.price as p2 insert into OutputStream; "
+    "@info(name='q') from every e1=Stream1 -> "
+    "e2=Stream2[e1.symbol != 'AMBA']<2:> -> e3=Stream2[volume <= 70] "
+    "select e3.symbol as symbol1, e2[0].symbol as symbol2, "
+    "e3.volume as volume3 insert into OutputStream;")
+MIXED_EVENTS = 2_048
+MIXED_BATCH = 64
+# the reference harness's host partition rows (samples/performance/
+# workloads.py:164-186) in the default mode: per-key instances over
+# 1,000,000 cse-shaped events each, batches of 8,192
+# (the device_queries apps without execution('tpu')): label -> (symbols,
+# app, the device_queries label of the same query)
+HOST_PARTITION_APPS = {
+    label: (n, DEVICE_QUERY_APPS[dq][0].replace(DQ_TPU, "@app:playback "),
+            dq)
+    for label, n, dq in (
+        ("partitioned_filter", 50, "partitioned_filter"),
+        ("partitioned_double_filter", 50, "partitioned_double_filter"),
+        ("partition_scaling_10", 10, "partition_scaling_50000"),
+        ("partition_scaling_1000", 1_000, "partition_scaling_50000"),
+        ("partition_scaling_50000", 50_000, "partition_scaling_50000"))}
 # a dependent operation waits at least 4 cycles for the one before it
 DEP_LATENCY_CYCLES = 4
 # the batch step's per-event dependent chain, per node: read the node's
@@ -545,6 +627,8 @@ class IsolatedErrors(logging.Handler):
         super().__init__(logging.WARNING)
         self.errors, self.heard, self.warned = [], [], set()
         self.warnings = 0
+        # WARNINGs of a fallback from a device path to the host
+        self.fallbacks = 0
 
     def emit(self, record):
         if record.levelno >= logging.ERROR:
@@ -552,6 +636,7 @@ class IsolatedErrors(logging.Handler):
         else:
             self.warned.add(record.getMessage())
             self.warnings += 1
+            self.fallbacks += "unavailable (" in record.getMessage()
 
     def listener(self, e: Exception):
         self.heard.append(e)
@@ -2768,41 +2853,14 @@ def later_batches(EventBatch, batches, n):
     return out
 
 
-def run_dq(torch, SiddhiManager, StreamCallback, app, batches, device):
-    """``app`` over ``batches`` through ``SiddhiManager`` on ``device``:
-    the output batches of the first DQ_CHECK input batches (the rest only
-    counted: ``timed_rows``), the seconds (synchronised), the lowering,
-    and the app (still running, with its manager)."""
-    mgr = SiddhiManager(device=device)
-    rt = new_app(mgr, app)
+def run_dq(torch, SiddhiManager, StreamCallback, app, batches, device,
+           kernels):
+    """``run_app`` for a ``device_queries`` app: its one output stream,
+    the output batches of the first DQ_CHECK input batches kept (the
+    rest only counted), the app left running with its manager."""
     out_stream = "Out" if "into Out;" in app else "outputStream"
-    got = {"outs": [], "rows": 0}
-
-    class Rows(StreamCallback):
-        """Keeps the held batches' output as it is (no row events)."""
-
-        def receive_batch(self, batch):
-            got["rows"] += len(batch)
-            if got["keep"]:
-                got["outs"].append(batch)
-
-    rt.add_callback(out_stream, Rows())
-    rt.start()
-    h = rt.get_input_handler(batches[0].stream_id)
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    sync()
-    t = time.perf_counter()
-    for i, b in enumerate(batches):
-        got["keep"] = i < DQ_CHECK
-        h.send_batch(b)
-    rt.drain()
-    sync()
-    got["secs"] = time.perf_counter() - t
-    got["keep"] = False
-    got["timed_rows"] = got["rows"]
-    got["lowering"] = rt.lowering()
-    got["rt"], got["mgr"] = rt, mgr
-    return got
+    return run_app(torch, SiddhiManager, StreamCallback, app, batches,
+                   device, kernels, (out_stream,), keep=DQ_CHECK, live=True)
 
 
 def dq_expected_rows(label: str, batches, host_rows: int) -> int:
@@ -2837,7 +2895,8 @@ def dq_expected_rows(label: str, batches, host_rows: int) -> int:
 
 def dq_held(EventBatch, got):
     """The output of the held batches as one batch (None if empty)."""
-    return EventBatch.concat(got["outs"]) if got["outs"] else None
+    outs = [b for bs in got["outs"].values() for b in bs]
+    return EventBatch.concat(outs) if outs else None
 
 
 def dq_compare(card, other, sum_cols, exact) -> dict:
@@ -3011,17 +3070,19 @@ def device_query_phase(torch, SiddhiManager, EventBatch, StreamCallback,
     second card run bit for bit.  Then a stage breakdown and a profile
     over 4 more batches each.  The ``host_queries`` lines' events/s
     (``host_rates``, this call's) stand beside the device ones.  Returns
-    the launches of the timed card runs by kernel."""
+    the launches of the timed card runs by kernel, and each app's
+    events/s by label."""
     host = host_batches(EventBatch)
     streams = {"host": host, "cse50": dq_batches(EventBatch, 50, 61),
                "cse50000": dq_batches(EventBatch, 50_000, 67)}
     # one short run first: the card's libraries load outside the timings
     warm = run_dq(torch, SiddhiManager, StreamCallback,
                   DEVICE_QUERY_APPS["sliding_window"][0],
-                  streams["cse50"][:2], "cuda")
+                  streams["cse50"][:2], "cuda", kernels)
     warm["rt"].shutdown()
     warm["mgr"].shutdown()
     launches = dict.fromkeys(kernels, 0)
+    rates = {}
     for label, (app, pinned) in DEVICE_QUERY_APPS.items():
         t_query = time.perf_counter()
         wall = {}
@@ -3038,13 +3099,10 @@ def device_query_phase(torch, SiddhiManager, EventBatch, StreamCallback,
         extra = later_batches(EventBatch, batches, 2 * profiled)
         if profiled == 1:
             extra[1] = extra[1].take(np.arange(DQ_BATCH // 4))
-        for ws in kernels.values():
-            for w in ws:
-                w.launches = 0
         got = run_dq(torch, SiddhiManager, StreamCallback, app, batches,
-                     "cuda")
-        for k, ws in kernels.items():
-            launches[k] += sum(w.launches for w in ws)
+                     "cuda", kernels)
+        for k, n in got["launches"].items():
+            launches[k] += n
         rt = got["rt"]
         state_bytes = dq_state_bytes(rt)
         device = any(v == "device" for v in pinned.values())
@@ -3060,7 +3118,7 @@ def device_query_phase(torch, SiddhiManager, EventBatch, StreamCallback,
                                  f"{got['lowering']}, the reference's "
                                  f"{pinned}")
         held = dq_held(EventBatch, got)
-        n_rows, secs = got["timed_rows"], got["secs"]
+        n_rows, secs = got["rows"], got["secs"]
         want_rows = dq_expected_rows(
             label, batches, host_rates["time_batch_sum"]["rows"])
         if n_rows != want_rows:
@@ -3070,7 +3128,7 @@ def device_query_phase(torch, SiddhiManager, EventBatch, StreamCallback,
         del got, rt
         t = time.perf_counter()
         again = run_dq(torch, SiddhiManager, StreamCallback, app,
-                       batches[:DQ_CHECK], "cuda")
+                       batches[:DQ_CHECK], "cuda", kernels)
         again["rt"].shutdown()
         again["mgr"].shutdown()
         same = dq_compare(held, dq_held(EventBatch, again), (), True)
@@ -3079,7 +3137,7 @@ def device_query_phase(torch, SiddhiManager, EventBatch, StreamCallback,
         wall["second_card_run_s"] = time.perf_counter() - t
         t = time.perf_counter()
         cpu = run_dq(torch, SiddhiManager, StreamCallback, app,
-                     batches[:DQ_CHECK], "cpu")
+                     batches[:DQ_CHECK], "cpu", kernels)
         cpu["rt"].shutdown()
         cpu["mgr"].shutdown()
         vs_cpu = dq_compare(held, dq_held(EventBatch, cpu),
@@ -3090,6 +3148,7 @@ def device_query_phase(torch, SiddhiManager, EventBatch, StreamCallback,
             raise AssertionError(f"device_queries {label}: no output in the "
                                  "held batches")
         events = sum(len(b) for b in batches)
+        rates[label] = events / secs
         wall["query_s"] = time.perf_counter() - t_query
         emit({"phase": "device_queries", "query": label, "app": app,
               "lowering": pinned, "events": events, "batch": DQ_BATCH,
@@ -3110,7 +3169,377 @@ def device_query_phase(torch, SiddhiManager, EventBatch, StreamCallback,
                          "max_abs_err": vs_cpu["max_abs_err"],
                          "max_rel_err": vs_cpu["max_rel_err"]},
               "wall": wall, "card": card})
-    return launches
+    return launches, rates
+
+
+def card_allocs(torch) -> int:
+    """The card's allocation calls so far in this process."""
+    return torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+
+
+def zero_launches(kernels) -> None:
+    for ws in kernels.values():
+        for w in ws:
+            w.launches = 0
+
+
+def read_launches(kernels) -> dict:
+    return {k: sum(w.launches for w in ws) for k, ws in kernels.items()}
+
+
+def run_app(torch, SiddhiManager, StreamCallback, app, batches, device,
+            kernels, outs, keep=None, live=False):
+    """``app`` over ``batches`` (EventBatches of any of its streams, in
+    order) through ``SiddhiManager`` on ``device``: the output batches by
+    stream (of the first ``keep`` input batches, all when None; ``rows``
+    counts every output row), the seconds (synchronised) and the first
+    batch's (host clock: per-key instances plan each key on its first
+    event), the lowering, the card's allocations and the launches by
+    kernel across it, the fallback WARNINGs of its creation, and the
+    app runtime: shut down, or with ``live`` still running beside its
+    manager (``mgr``)."""
+    before = card_allocs(torch)
+    zero_launches(kernels)
+    warned = ISOLATED.fallbacks
+    mgr = SiddhiManager(device=device)
+    rt = new_app(mgr, app)
+    fallbacks = ISOLATED.fallbacks - warned
+    got = {o: [] for o in outs}
+    state = {"keep": True, "rows": 0}
+
+    class Rows(StreamCallback):
+        """Keeps each held output batch as it is (no row events)."""
+
+        def __init__(self, kept):
+            self.kept = kept
+
+        def receive_batch(self, batch):
+            state["rows"] += len(batch)
+            if state["keep"]:
+                self.kept.append(batch)
+
+    for o in outs:
+        rt.add_callback(o, Rows(got[o]))
+    rt.start()
+    handlers = {}
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    t = time.perf_counter()
+    first = None
+    for i, b in enumerate(batches):
+        state["keep"] = keep is None or i < keep
+        h = handlers.get(b.stream_id)
+        if h is None:
+            h = handlers[b.stream_id] = rt.get_input_handler(b.stream_id)
+        h.send_batch(b)
+        if first is None:
+            first = time.perf_counter() - t
+    rt.drain()
+    sync()
+    secs = time.perf_counter() - t
+    state["keep"] = False
+    low = rt.lowering()
+    launches = read_launches(kernels)
+    run = {"outs": got, "rows": state["rows"], "secs": secs,
+           "first_s": first, "lowering": low, "launches": launches,
+           "fallbacks": fallbacks, "rt": rt}
+    if live:
+        run["mgr"] = mgr
+    else:
+        rt.shutdown()
+        mgr.shutdown()
+    run["allocs"] = card_allocs(torch) - before
+    return run
+
+
+def held_vs(a, b) -> int:
+    """Two runs' output, stream by stream and batch by batch, bit for bit
+    (timestamps, types, names, every column); returns the rows held."""
+    rows = 0
+    for o in a["outs"]:
+        x, y = a["outs"][o], b["outs"][o]
+        if len(x) != len(y):
+            raise AssertionError(f"{o}: {len(x)} output batches, the other "
+                                 f"run {len(y)}")
+        rows += sum(dq_compare(p, q, (), True)["rows"]
+                    for p, q in zip(x, y))
+    return rows
+
+
+def seq3_batches(EventBatch):
+    """BASELINE config 1's traffic: ``p ~ U(5, 30)`` float32 (carried in
+    the DOUBLE column), one event a ms, batches of HP_BATCH."""
+    rng = np.random.default_rng(71)
+    out = []
+    for lo in range(0, HP_EVENTS, HP_BATCH):
+        n = min(HP_BATCH, HP_EVENTS - lo)
+        p = rng.uniform(5.0, 30.0, n).astype(np.float32)
+        out.append(EventBatch(
+            "T", ["key", "p"],
+            {"key": np.zeros(n, dtype=np.int64), "p": p.astype(np.float64)},
+            1000 + lo + np.arange(n, dtype=np.int64)))
+    return out
+
+
+def seq3_expected(batches):
+    """The sequence's rows from the events alone: ``every e1, e2, e3``
+    with strict continuity matches each three consecutive events rising
+    from above 10 (the window of 1 s spans 1,000 events here), emitted
+    at the third: (its timestamp, p1, p3)."""
+    p = np.concatenate([b.columns["p"] for b in batches])
+    ts = np.concatenate([b.timestamps for b in batches])
+    i = np.flatnonzero((p[:-2] > 10.0) & (p[1:-1] > p[:-2])
+                       & (p[2:] > p[1:-1]))
+    return ts[i + 2], p[i], p[i + 2]
+
+
+def fraud_part_batches(EventBatch):
+    """BASELINE config 2's traffic over FRAUD_KEYS cards: card ids
+    uniform, ``amount ~ lognormal(4, 1)`` float32, one event a ms."""
+    rng = np.random.default_rng(73)
+    out = []
+    for lo in range(0, FRAUD_EVENTS, HP_BATCH):
+        n = min(HP_BATCH, FRAUD_EVENTS - lo)
+        out.append(EventBatch(
+            "Txn", ["card", "amount"],
+            {"card": rng.integers(0, FRAUD_KEYS, n).astype(np.int64),
+             "amount": rng.lognormal(4.0, 1.0, n).astype(np.float32)
+             .astype(np.float64)},
+            1000 + lo + np.arange(n, dtype=np.int64)))
+    return out
+
+
+def mixed_batches(EventBatch):
+    """MIXED_EVENTS events in batches of MIXED_BATCH, the two streams in
+    turns, one event a ms: symbols of the corpus, ``price ~ U(5, 30)``,
+    ``volume`` uniform on [0, 300)."""
+    rng = np.random.default_rng(79)
+    syms = np.array(["IBM", "WSO2", "GOOG", "AMBA", "FBX"], dtype=object)
+    out = []
+    for k, lo in enumerate(range(0, MIXED_EVENTS, MIXED_BATCH)):
+        n = MIXED_BATCH
+        out.append(EventBatch(
+            f"Stream{1 + k % 2}", ["symbol", "price", "volume"],
+            {"symbol": syms[rng.integers(0, len(syms), n)],
+             "price": rng.uniform(5.0, 30.0, n).astype(np.float32),
+             "volume": rng.integers(0, 300, n).astype(np.int32)},
+            1000 + lo + np.arange(n, dtype=np.int64)))
+    return out
+
+
+def rows_of(EventBatch, outs) -> list:
+    """The output rows of one stream as (timestamp, values) tuples."""
+    if not outs:
+        return []
+    b = EventBatch.concat(outs)
+    cols = [b.columns[c].tolist() for c in b.attribute_names]
+    return list(zip(b.timestamps.tolist(), *cols))
+
+
+def host_patterns_phase(torch, SiddhiManager, EventBatch, StreamCallback,
+                        kernels, card) -> dict:
+    """Phase 18: ``host_patterns``, the host pattern engine and per-key
+    instances through ``SiddhiManager()`` on the card, each run held
+    against the same run with ``device="cpu"``:
+
+    (a) BASELINE config 1 (a three-state ``every`` sequence, ``within 1
+        sec``) in the default mode over 1,000,000 events, also held
+        against the rows numpy counts from the events;
+    (b) BASELINE config 2 (count_fraud) inside ``partition with (card of
+        Txn)`` in the default mode, per-key instances over 1,000 cards and
+        262,144 events; then the same traffic under
+        ``@app:execution('tpu')`` on the dense path, its rows equal to
+        the instances' as sorted multisets;
+    (c) an ``execution('tpu')`` app with a dense numeric pattern beside a
+        ``symbol string`` select pattern the reference keeps on its host
+        engine: lowering {dense, host}, one fallback WARNING.
+
+    The host engine and the instances must make no allocation on the
+    card and launch no kernel.  Returns the launches of the dense card
+    runs of (b) and (c) by kernel."""
+    # (a) ---------------------------------------------------------------
+    batches = seq3_batches(EventBatch)
+    gc.collect()
+    a = run_app(torch, SiddhiManager, StreamCallback, SEQ3_APP, batches,
+                "cuda", kernels, ("O",))
+    c = run_app(torch, SiddhiManager, StreamCallback, SEQ3_APP,
+                batches[:HP_CHECK], "cpu", kernels, ("O",))
+    end = batches[HP_CHECK - 1].timestamps[-1]
+    held = held_vs({"outs": {"O": [b for b in a["outs"]["O"]
+                                   if b.timestamps[-1] <= end]}}, c)
+    ts, p1, p3 = seq3_expected(batches)
+    got = EventBatch.concat(a["outs"]["O"])
+    if (a["lowering"] != {"q": "host"} or a["allocs"] or a["fallbacks"]
+            or any(a["launches"].values()) or not len(got)
+            or not np.array_equal(got.timestamps, ts)
+            or not np.array_equal(got.columns["p1"], p1)
+            or not np.array_equal(got.columns["p3"], p3)):
+        raise AssertionError(
+            f"host_patterns sequence: lowering {a['lowering']}, "
+            f"{a['allocs']} card allocations, launches {a['launches']}, "
+            f"{len(got)} rows, numpy gives {len(ts)}")
+    n_b = len(batches)
+    emit({"phase": "host_patterns", "case": "a_baseline_config_1",
+          "app": SEQ3_APP, "events": HP_EVENTS, "batch": HP_BATCH,
+          "lowering": a["lowering"], "card_allocations": a["allocs"],
+          "launches": a["launches"], "fallback_warnings": a["fallbacks"],
+          "output_rows": len(got), "held_batches": HP_CHECK,
+          "rows_held_vs_cpu_run": held, "rows_held_vs_numpy": len(ts),
+          "events_per_s": HP_EVENTS / a["secs"], "seconds": a["secs"],
+          "ms_per_batch": 1e3 * a["secs"] / n_b,
+          "cpu_device_events_per_s": (HP_CHECK * HP_BATCH / c["secs"]),
+          "note": "host figures on the card machine's host",
+          "card": card})
+    del a, c, batches, got
+    # (b) ---------------------------------------------------------------
+    batches = fraud_part_batches(EventBatch)
+    gc.collect()
+    host_app = FRAUD_PART_APP.format("")
+    a = run_app(torch, SiddhiManager, StreamCallback, host_app, batches,
+                "cuda", kernels, ("Alerts",))
+    instances = len(a["rt"].partitions["partition_0"].instances)
+    cards = len(np.unique(np.concatenate([b.columns["card"]
+                                          for b in batches])))
+    c = run_app(torch, SiddhiManager, StreamCallback, host_app,
+                batches[:HP_CHECK], "cpu", kernels, ("Alerts",))
+    end = batches[HP_CHECK - 1].timestamps[-1]
+    held = held_vs({"outs": {"Alerts": [
+        b for b in a["outs"]["Alerts"] if b.timestamps[-1] <= end]}}, c)
+    dense_app = FRAUD_PART_APP.format(FRAUD_DENSE)
+    d = run_app(torch, SiddhiManager, StreamCallback, dense_app, batches,
+                "cuda", kernels, ("Alerts",))
+    host_rows = rows_of(EventBatch, a["outs"]["Alerts"])
+    dense_rows = rows_of(EventBatch, d["outs"]["Alerts"])
+    if (a["lowering"] != {"fraud": "host"} or a["allocs"] or a["fallbacks"]
+            or any(a["launches"].values()) or not host_rows
+            or instances != cards
+            or d["lowering"] != {"fraud": "dense"}
+            or sorted(dense_rows) != sorted(host_rows)):
+        raise AssertionError(
+            f"host_patterns count_fraud: lowering {a['lowering']} / dense "
+            f"{d['lowering']}, {a['allocs']} card allocations, launches "
+            f"{a['launches']}, {instances} instances, {len(host_rows)} "
+            f"rows, dense {len(dense_rows)}")
+    n_b = len(batches)
+    emit({"phase": "host_patterns", "case": "b_count_fraud_partitioned",
+          "app": host_app, "keys": FRAUD_KEYS, "events": FRAUD_EVENTS,
+          "batch": HP_BATCH, "lowering": a["lowering"],
+          "card_allocations": a["allocs"], "launches": a["launches"],
+          "fallback_warnings": a["fallbacks"], "instances": instances,
+          "output_rows": len(host_rows), "held_batches": HP_CHECK,
+          "rows_held_vs_cpu_run": held,
+          "events_per_s": FRAUD_EVENTS / a["secs"], "seconds": a["secs"],
+          "first_batch_ms": 1e3 * a["first_s"],
+          "ms_per_batch_after_first": (1e3 * (a["secs"] - a["first_s"])
+                                       / (n_b - 1)),
+          "cpu_device_events_per_s": HP_CHECK * HP_BATCH / c["secs"],
+          "dense": {"app": dense_app, "lowering": d["lowering"],
+                    "events_per_s": FRAUD_EVENTS / d["secs"],
+                    "ms_per_batch": 1e3 * d["secs"] / n_b,
+                    "card_allocations": d["allocs"],
+                    "launches": d["launches"],
+                    "rows_equal_as_multisets": True,
+                    "same_order": dense_rows == host_rows},
+          "note": "host figures on the card machine's host",
+          "card": card})
+    launches = dict(d["launches"])
+    del a, c, d, batches, host_rows, dense_rows
+    # (c) ---------------------------------------------------------------
+    batches = mixed_batches(EventBatch)
+    gc.collect()
+    a = run_app(torch, SiddhiManager, StreamCallback, MIXED_APP, batches,
+                "cuda", kernels, ("OutputStream",))
+    c = run_app(torch, SiddhiManager, StreamCallback, MIXED_APP, batches,
+                "cpu", kernels, ("OutputStream",))
+    held = held_vs(a, c)
+    want = {"dense": "dense", "q": "host"}
+    if (a["lowering"] != want or c["lowering"] != want
+            or a["fallbacks"] != 1 or c["fallbacks"] != 1 or not held):
+        raise AssertionError(
+            f"host_patterns mixed: lowering {a['lowering']}, fallback "
+            f"WARNINGs {a['fallbacks']} / {c['fallbacks']}, {held} rows")
+    emit({"phase": "host_patterns", "case": "c_mixed_dense_and_host",
+          "app": MIXED_APP, "events": MIXED_EVENTS, "batch": MIXED_BATCH,
+          "lowering": a["lowering"], "fallback_warnings": a["fallbacks"],
+          "card_allocations": a["allocs"], "launches": a["launches"],
+          "rows_held_vs_cpu_run": held,
+          "events_per_s": MIXED_EVENTS / a["secs"], "seconds": a["secs"],
+          "ms_per_batch": 1e3 * a["secs"] / len(batches),
+          "note": "the dense query's allocations and launches; the host "
+                  "query makes none",
+          "card": card})
+    return {k: v + a["launches"][k] for k, v in launches.items()}
+
+
+def host_partitions_phase(torch, SiddhiManager, EventBatch, StreamCallback,
+                          kernels, card, dq_rates) -> dict:
+    """Phase 19: ``host_partitions``, the reference harness's partition
+    rows (``samples/performance/workloads.py:164-186``) in the default
+    mode, per-key instances through ``SiddhiManager()`` on the card, over
+    1,000,000 cse-shaped events each (batches of 8,192, eight events a
+    ms): ``partitioned_filter`` and ``partitioned_double_filter`` over 50
+    symbols, ``partition_scaling`` at 10, 1,000 and 50,000.  Each must
+    report ``host`` lowering, no card allocation and no launch, output
+    rows equal to a numpy count of the events, and the first 16 batches'
+    output equal to the same batches with ``device="cpu"``.  The
+    ``device_queries`` rate of the same query under
+    ``@app:execution('tpu')`` (``dq_rates``) stands beside each.
+    Returns the launches of the card runs by kernel (all 0)."""
+    streams = {}
+    total = dict.fromkeys(kernels, 0)
+    for label, (n_sym, app, dq_label) in HOST_PARTITION_APPS.items():
+        if n_sym not in streams:
+            streams.clear()
+            gc.collect()
+            streams[n_sym] = dq_batches(EventBatch, n_sym, 83 + n_sym % 7)
+        batches = streams[n_sym]
+        got = run_dq(torch, SiddhiManager, StreamCallback, app, batches,
+                     "cuda", kernels)
+        instances = len(got["rt"].partitions["partition_0"].instances)
+        got["rt"].shutdown()
+        got["mgr"].shutdown()
+        for k, n in got["launches"].items():
+            total[k] += n
+        cpu = run_dq(torch, SiddhiManager, StreamCallback, app,
+                     batches[:DQ_CHECK], "cpu", kernels)
+        cpu["rt"].shutdown()
+        cpu["mgr"].shutdown()
+        vs_cpu = dq_compare(dq_held(EventBatch, got), dq_held(EventBatch, cpu),
+                            (), True)
+        price = np.concatenate([b.columns["price"] for b in batches])
+        want = (len(price) if label == "partitioned_double_filter"
+                else int((price < 700).sum()))
+        low, allocs, launches = (got["lowering"], got["allocs"],
+                                 got["launches"])
+        if (set(low.values()) != {"host"} or allocs or got["fallbacks"]
+                or any(launches.values()) or got["rows"] != want
+                or not vs_cpu["rows"]):
+            raise AssertionError(
+                f"host_partitions {label}: lowering {low}, {allocs} card "
+                f"allocations, launches {launches}, {got['rows']} "
+                f"rows, numpy gives {want}")
+        n_b = len(batches)
+        secs = got["secs"]
+        emit({"phase": "host_partitions", "query": label, "app": app,
+              "symbols": n_sym, "events": len(price),
+              "batch": DQ_BATCH, "lowering": low, "instances": instances,
+              "card_allocations": allocs, "launches": launches,
+              "fallback_warnings": got["fallbacks"],
+              "output_rows": got["rows"], "numpy_rows": want,
+              "held_batches": DQ_CHECK, "rows_held_vs_cpu_run":
+                  vs_cpu["rows"],
+              "events_per_s": len(price) / secs,
+              "seconds": secs, "first_batch_ms": 1e3 * got["first_s"],
+              "ms_per_batch_after_first": (1e3 * (secs - got["first_s"])
+                                           / (n_b - 1)),
+              "device_queries_events_per_s": (
+                  dq_rates.get(dq_label)
+                  if dq_label == label or n_sym == 50_000 else None),
+              "device_queries_label": dq_label,
+              "note": "host figures on the card machine's host",
+              "card": card})
+        del got, cpu
+    return total
 
 
 def main() -> int:
@@ -3641,18 +4070,27 @@ def main() -> int:
 
     # 17. the device query path ----------------------------------------------
     gc.collect()
-    dq_launches = device_query_phase(torch, SiddhiManager, EventBatch,
-                                     StreamCallback, all_kernels, card,
-                                     host_rates)
+    dq_launches, dq_rates = device_query_phase(
+        torch, SiddhiManager, EventBatch, StreamCallback, all_kernels, card,
+        host_rates)
     # the state scatters of the running and tumbling accumulators are
     # the path's kernel: accumulate_, once a lane kind a step
     if (dq_launches["bank_scatter"] < 1
             or any(v for k, v in dq_launches.items() if k != "bank_scatter")):
         raise AssertionError(f"device query path launches {dq_launches}")
+
+    # 18-19. the host pattern engine and per-key partition instances ------
+    gc.collect()
+    hp_launches = host_patterns_phase(torch, SiddhiManager, EventBatch,
+                                      StreamCallback, all_kernels, card)
+    gc.collect()
+    hpart_launches = host_partitions_phase(
+        torch, SiddhiManager, EventBatch, StreamCallback, all_kernels, card,
+        dq_rates)
     emit({"phase": "isolated_errors", "errors": 0,
           "warnings_to_listeners_or_log": ISOLATED.warnings})
 
-    # 18. kernels -------------------------------------------------------------
+    # 20. kernels -------------------------------------------------------------
     by_path = lambda name: {"dense_1M": launches.get(name, 0),
                             "skew_routed": hk_launches.get(name, 0),
                             "aggregation": agg_launches[name],
@@ -3660,12 +4098,17 @@ def main() -> int:
                             "part_b": pb_launches[name],
                             "absent": absent_launches[name],
                             "selector": rollup_launches[name],
-                            "device_query": dq_launches[name]}
+                            "device_query": dq_launches[name],
+                            # the dense runs beside the host engine; the
+                            # host engine and the instances launch none
+                            "host_patterns": hp_launches[name],
+                            "host_partitions": hpart_launches[name]}
     emit({"kernels": [
         {"name": "dense_batch", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/dense_batch.cu",
          "replaces": "siddhi_tpu/kernels/dense_step.py:154",
-         "launches": launches["dense_batch"] + hk_launches["dense_batch"],
+         "launches": (launches["dense_batch"] + hk_launches["dense_batch"]
+                      + hp_launches["dense_batch"]),
          "launches_by_path": by_path("dense_batch"),
          "max_abs_err": batch_err,
          # the 1 M cell's batch; the routed cold sub-batch beside it
@@ -3686,7 +4129,7 @@ def main() -> int:
          "launches": (launches["probe"] + hk_launches["probe"]
                       + agg_launches["probe"] + gen_launches["probe"]
                       + pb_launches["probe"] + absent_launches["probe"]
-                      + rollup_launches["probe"]),
+                      + rollup_launches["probe"] + hp_launches["probe"]),
          "launches_by_path": by_path("probe"), "max_abs_err": probe_err,
          **{k: probe_line[k] for k in KERNEL_KEYS}},
         {"name": "scan_chain", "route": "cuda",

@@ -3,11 +3,13 @@ aggregations, callbacks.
 
 Port of the part of the JAX package's ``core/app_runtime.py`` (and the
 app planner's wiring) that the ported slices need: stream junctions for
-the defined streams, ``insert into`` output streams, single-stream
-queries on the host query runtime (the reference's default mode) or,
-under ``@app:execution('tpu')``, on the device query engine, pattern
-queries on the dense path (outside a partition at one partition),
-partitions lowered to the device paths, incremental
+the defined streams, ``insert into`` output streams (``#inner`` ones
+too, as in the reference), single-stream queries on the host query
+runtime (the reference's default mode) or, under
+``@app:execution('tpu')``, on the device query engine, pattern queries
+on the host pattern engine or, under ``@app:execution('tpu')``, on the
+dense path (outside a partition at one partition), partitions lowered
+to the device paths or run on per-key host instances, incremental
 aggregations subscribed to their input junctions (``aggregations``,
 ``query()`` for on-demand FINDs over them), stream and query callbacks,
 input handlers, the app scheduler (window ticks, rate limits,
@@ -43,7 +45,7 @@ from siddhi_tpu_torch.core.stream import (
 )
 from siddhi_tpu_torch.extension.registry import default_registry
 from siddhi_tpu_torch.planner.app_planner import plan_app_context
-from siddhi_tpu_torch.planner.query_planner import plan_unpartitioned_query
+from siddhi_tpu_torch.planner.query_planner import plan_query
 from siddhi_tpu_torch.query_api import Query, SingleInputStream
 
 
@@ -83,7 +85,7 @@ class SiddhiAppRuntime:
         qi = pi = 0  # the reference numbers queries and partitions apart
         for el in siddhi_app.execution_elements:
             if isinstance(el, Query):
-                qr = plan_unpartitioned_query(self, el, qi)
+                qr = plan_query(self, el, qi)
                 qi += 1
                 if qr.name in self.query_runtimes:
                     raise SiddhiAppCreationError(
@@ -102,46 +104,55 @@ class SiddhiAppRuntime:
                 f"cannot resolve definition for {s!r}: fault streams "
                 "(@OnError(action='STREAM'))"
                 + later_slice(15, "the operations layer"))
-        if not isinstance(s, SingleInputStream) or s.is_inner:
+        if not isinstance(s, SingleInputStream):
             raise SiddhiAppCreationError(
-                f"cannot resolve definition for {s!r}: inner streams"
-                + later_slice(7, "host partitions"))
-        d = self.definitions.get(s.stream_id)
+                f"cannot resolve definition for {s!r}")
+        # an ``#inner`` stream outside a partition is the app's own
+        # junction ``#<id>``, once a query inserts into it (reference)
+        key = ("#" if s.is_inner else "") + s.stream_id
+        d = self.definitions.get(key)
         if d is None:
             raise DefinitionNotExistError(
-                f"stream '{s.stream_id}' is not defined in app '{self.name}'")
+                f"stream '{key}' is not defined in app '{self.name}'")
         return d
 
     def junction_for_input(self, s: SingleInputStream) -> StreamJunction:
         self.resolve_stream_definition(s)
-        return self.junctions[s.stream_id]
+        return self.junctions[("#" if s.is_inner else "") + s.stream_id]
 
-    def output_junction(self, out_def) -> StreamJunction:
+    def output_junction(self, out_def, is_inner: bool = False
+                        ) -> StreamJunction:
         """The junction of an ``insert into`` target, defined from the
-        query's output when the app does not define the stream.  An
-        existing junction is shared as it is, as in the reference: each
-        batch carries its own attribute names to the callbacks."""
-        j = self.junctions.get(out_def.id)
+        query's output when the app does not define the stream
+        (``is_inner``: keyed ``#<id>``).  An existing junction is shared
+        as it is, as in the reference: each batch carries its own
+        attribute names to the callbacks."""
+        key = ("#" if is_inner else "") + out_def.id
+        j = self.junctions.get(key)
         if j is None:
-            self.definitions[out_def.id] = out_def
-            j = self.junctions[out_def.id] = StreamJunction(out_def,
-                                                             self.app_context)
+            self.definitions[key] = out_def
+            j = self.junctions[key] = StreamJunction(out_def,
+                                                     self.app_context)
         return j
 
     # -- lifecycle -----------------------------------------------------------
 
     def _all_query_runtimes(self) -> Dict[str, object]:
+        """Query name -> its runtime, the partitions' device-lowered
+        queries included (a per-key instance body has one runtime a
+        key, in ``partition.instances``)."""
         out = dict(self.query_runtimes)
         for pr in self.partitions.values():
             out.update(pr.dense_query_runtimes)
         return out
 
     def pattern_runtimes(self) -> Dict[str, object]:
-        """Query name -> its pattern processor (a DensePatternRuntime or
-        the HotKeyRouterRuntime around one)."""
+        """Query name -> its dense pattern processor (a
+        DensePatternRuntime or the HotKeyRouterRuntime around one)."""
         return {n: qr.pattern_processor
                 for n, qr in self._all_query_runtimes().items()
-                if qr.pattern_processor is not None}
+                if qr.pattern_processor is not None
+                and qr.device_processor is not None}
 
     @property
     def scheduler(self):
@@ -261,14 +272,18 @@ class SiddhiAppRuntime:
 
     def lowering(self, step_kinds: bool = False) -> Dict[str, str]:
         """Per-query engine placement: ``'host'``, ``'device'``,
-        ``'dense'`` or ``'hotkey'``, as the reference reports it.  ``step_kinds=True``
-        adds a pattern's dense step, fixed at compile time:
-        ``'dense/batch'``, ``'dense/general'``, ``'hotkey/batch'``."""
+        ``'dense'`` or ``'hotkey'``, as the reference reports it; every
+        query of a per-key instance body is ``'host'``.
+        ``step_kinds=True`` adds a dense pattern's step, fixed at compile
+        time: ``'dense/batch'``, ``'dense/general'``, ``'hotkey/batch'``."""
         out: Dict[str, str] = {}
-        for n, qr in self._all_query_runtimes().items():
+        for n, qr in self.query_runtimes.items():
             out[n] = qr.lowered_to
-            if step_kinds and qr.pattern_processor is not None:
-                out[n] += "/" + qr.pattern_processor.engine.step_kind
+        for pr in self.partitions.values():
+            out.update(pr.query_lowering())
+        if step_kinds:
+            for n, rt in self.pattern_runtimes().items():
+                out[n] += "/" + rt.engine.step_kind
         return out
 
 

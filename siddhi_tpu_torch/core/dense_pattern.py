@@ -20,7 +20,8 @@ scheduler task: ``on_time`` runs the engine's timer step and emits the
 fired matches at their deadlines.  ``purge_idle`` reclaims the rows of
 idle keys for the partition's ``@purge``.  The reference's mesh
 sharding, fault harness and span tracer are left out; the engine
-refuses what it does not run, naming the later slice.  Matches reach
+refuses what it does not run with the reference's reason, and the
+planner then runs the query on the host pattern engine.  Matches reach
 the query runtime's selector through the runtime's ``EmitQueue``, each
 match batch carrying the reference's ``aux`` side channels: the
 original-batch positions of its events (``event_indices``), the clock
@@ -49,7 +50,6 @@ from siddhi_tpu_torch.core.event import EventBatch
 from siddhi_tpu_torch.core.exceptions import (
     SiddhiAppCreationError,
     SiddhiAppRuntimeError,
-    later_slice,
 )
 from siddhi_tpu_torch.core.ingest_stage import (
     IngestStage,
@@ -70,9 +70,6 @@ from siddhi_tpu_torch.ops.nfa import NFABuilder
 from siddhi_tpu_torch.query_api import AttrType, StateInputStream, Variable
 
 log = logging.getLogger("siddhi_tpu_torch")
-
-_HOST = later_slice(7, "host patterns")
-
 
 def build_dense_engine(query, st: StateInputStream, resolve_def,
                        n_partitions: int, n_instances: int = 4,
@@ -104,7 +101,7 @@ def build_dense_engine(query, st: StateInputStream, resolve_def,
                     or oa.expression.stream_id is None):
                 raise SiddhiAppCreationError(
                     "dense path: select items must be event references "
-                    "(e1.attr)" + _HOST)
+                    "(e1.attr)")
             select_vars.append(oa.expression)
             select_names.append(oa.name)
 
@@ -117,7 +114,7 @@ def build_dense_engine(query, st: StateInputStream, resolve_def,
             if spec.filter_presence_keys:
                 raise SiddhiAppCreationError(
                     "dense path: 'is null' event-presence checks need the "
-                    "host engine" + _HOST)
+                    "host engine")
 
     eng = DensePatternEngine(
         nodes=nodes,
@@ -137,14 +134,17 @@ def build_dense_engine(query, st: StateInputStream, resolve_def,
         if not t.is_numeric:
             raise SiddhiAppCreationError(
                 f"dense path: capture '{ref}.{attr}' has type {t.value}; "
-                "only numeric attributes have device lanes")
+                "only numeric attributes have device lanes — host engine "
+                "used")
     for (name, src), t in zip(eng.out_spec, output_attr_types(eng)):
         if not t.is_numeric:
             attr = src[1] if isinstance(src, tuple) else src.attr
             raise SiddhiAppCreationError(
                 f"dense path: select attribute '{attr}' has type "
-                f"{t.value}; only numeric attributes have device lanes")
+                f"{t.value}; only numeric attributes have device lanes — "
+                "host engine used")
     _trace_check(eng)
+    eng.check_kernels()
     return eng
 
 
@@ -213,7 +213,7 @@ def _trace_check(eng):
         raise
     except Exception as e:
         raise SiddhiAppCreationError(
-            f"dense path: step not traceable ({e!r})") from e
+            f"dense path: step not traceable ({e})") from e
 
 
 class DensePatternRuntime:

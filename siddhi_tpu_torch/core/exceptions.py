@@ -6,6 +6,19 @@ class SiddhiAppCreationError(Exception):
     (reference: SiddhiAppCreationException)."""
 
 
+class KernelUnavailableError(SiddhiAppCreationError):
+    """A CUDA kernel does not build or launch on the card.  No fallback
+    catches it: the port has no device formulation without its kernels,
+    so an app that needs one fails to create."""
+
+
+class DeviceUncompilableError(SiddhiAppCreationError):
+    """The device expression compiler refuses a node that the host
+    compiler takes (``is null``, a function call): the dense engine
+    defers it to its plan-time trace, where the reference's step fails
+    on the same filter."""
+
+
 class SiddhiAppRuntimeError(Exception):
     """Raised for failures while processing events
     (reference: SiddhiAppRuntimeException)."""

@@ -832,8 +832,9 @@ class QueryRuntime:
     """One compiled query (reference: QueryRuntimeImpl.java:43).
 
     ``pattern_processor`` is set for a pattern query: the dense runtime
-    (or the hot-key router around it) whose matches enter ``process``
-    at the selector, its chain being empty."""
+    (or the hot-key router around it), or on the host the
+    ``PatternProcessor``, whose matches enter ``process`` at the
+    selector, its chain being empty."""
 
     def __init__(
         self,
@@ -861,11 +862,17 @@ class QueryRuntime:
         # 'hotkey' (the device pattern paths), as
         # SiddhiAppRuntime.lowering() reports it
         self.lowered_to = "host"
+        # the scheduler tasks a dense query registered (its rate task,
+        # its deadline timer), for a partition that unwinds them
+        self.scheduler_tasks: List = []
 
     @property
     def device_processor(self):
-        """The runtime holding this query's device state (its pattern
-        processor or its device query runtime), or None on the host."""
+        """The runtime holding this query's device state (its dense
+        pattern runtime or its device query runtime), or None on the
+        host."""
+        if self.lowered_to == "host":
+            return None
         return self.pattern_processor or self.device_runtime
 
     def add_callback(self, cb: QueryCallback):

@@ -62,6 +62,8 @@ import torch
 
 from siddhi_tpu_torch.core.emit_queue import fetch_coalesced
 from siddhi_tpu_torch.core.exceptions import (
+    DeviceUncompilableError,
+    KernelUnavailableError,
     SiddhiAppCreationError,
     SiddhiAppRuntimeError,
 )
@@ -289,7 +291,8 @@ class DenseExprCompiler(ExpressionCompiler):
         if t in self.PAIR_TYPES:
             raise SiddhiAppCreationError(
                 "dense NFA: integer attribute used outside a plain "
-                "comparison (arithmetic on 64-bit lanes is not supported)")
+                "comparison (arithmetic/functions on 64-bit lanes need "
+                "the host engine)")
         return super()._c_Variable(e)
 
 
@@ -385,9 +388,15 @@ def _rank_place(t, mask, anchor, src_regs, src_iregs, entry_dl, a, first,
     return ovf
 
 
-# the shapes the reference runs on its host pattern engine
-_HOST = (" — ROADMAP.md §1 item 7 (host patterns), a later slice of the "
-         "port")
+def _untraceable(e: DeviceUncompilableError) -> CompiledExpression:
+    """A filter that fails where the reference's fails, when the step
+    first runs it (``core/dense_pattern._trace_check`` at plan time):
+    the engine's other checks come first, in the reference's order."""
+
+    def fn(env):
+        raise TypeError(str(e))
+
+    return CompiledExpression(fn, AttrType.BOOL)
 
 
 def _plain(node: Node) -> bool:
@@ -487,7 +496,7 @@ class DensePatternEngine:
             raise SiddhiAppCreationError(
                 "dense NFA: this group-`every` shape (partial chain, or "
                 "absent states whose violation must kill the arm "
-                "permanently) needs the host engine" + _HOST)
+                "permanently) needs the host engine")
         if self.group_every:
             self.I = 1
         # a node with an absent `for t` spec arms `deadline = entry ts +
@@ -516,22 +525,29 @@ class DensePatternEngine:
         if any(ref in absent_refs for (ref, _a, _l) in self.alloc.slots):
             raise SiddhiAppCreationError(
                 "dense NFA: filters/selects cannot reference an absent "
-                "event (it never arrives)" + _HOST)
+                "event (it never arrives) — host engine used")
         # the via-path models one capture and advance, so an open
         # count's successor must be a plain stream node
         for n, nxt in zip(nodes, nodes[1:]):
             if is_open_count(n) and not _plain(nxt):
                 raise SiddhiAppCreationError(
                     "dense NFA: open-ended count followed by a "
-                    "count/logical node needs the host engine" + _HOST)
+                    "count/logical node needs the host engine")
         self.step_kind = route_dense_step(self)
-        if self.device.type == "cuda":
-            ok, reason = probe.kernels_available(self.device)
-            if not ok:
-                raise SiddhiAppCreationError(reason)
         self._step_cache: Dict[str, Callable] = {}
         self._general_cache: Dict[str, Callable] = {}
         self._time_step: Optional[Callable] = None
+
+    def check_kernels(self):
+        """On a card, build and launch the probe kernel, raising
+        ``KernelUnavailableError`` (which no fallback catches) when it
+        fails.  Called once the engine has passed every check, so an
+        app that falls back to the host pattern engine launches
+        nothing."""
+        if self.device.type == "cuda":
+            ok, reason = probe.kernels_available(self.device)
+            if not ok:
+                raise KernelUnavailableError(reason)
 
     def _check_host_only_shapes(self):
         """The shapes the reference sends to its host engine (its
@@ -544,7 +560,7 @@ class DensePatternEngine:
             if n.kind == "stream" and n.min_count == 0:
                 raise SiddhiAppCreationError(
                     "dense NFA does not support optional (min 0) states "
-                    "yet; use the host engine" + _HOST)
+                    "yet; use the host engine")
             absent = [sp for sp in n.specs if sp.is_absent]
             if n.kind != "absent" and not absent:
                 continue
@@ -556,36 +572,36 @@ class DensePatternEngine:
                 raise SiddhiAppCreationError(
                     "dense NFA: absent states in sequences (strict "
                     "continuity over a waiting state) need the host "
-                    "engine" + _HOST)
+                    "engine")
             if n.kind == "absent" and wait is None:
                 raise SiddhiAppCreationError(
                     "dense NFA: standalone absent node without a 'for' "
-                    "duration needs the host engine" + _HOST)
+                    "duration needs the host engine")
             if ni == 0 and wait is not None:
                 raise SiddhiAppCreationError(
                     "dense NFA: a leading absent 'for' deadline counts "
-                    "from app start — host engine used" + _HOST)
+                    "from app start — host engine used")
             if wait is not None and wait > 2**23:
                 raise SiddhiAppCreationError(
                     "dense NFA: absent 'for' durations above 2^23 ms would "
                     "overflow the int32 relative-time deadline — host "
-                    "engine used" + _HOST)
+                    "engine used")
             if n.kind == "logical":
                 if n.logical_op == "or":
                     raise SiddhiAppCreationError(
                         "dense NFA: 'or' with an absent side needs the "
-                        "host engine" + _HOST)
+                        "host engine")
                 if ({sp.stream_key for sp in n.specs if not sp.is_absent}
                         & {sp.stream_key for sp in absent}):
                     raise SiddhiAppCreationError(
                         "dense NFA: logical and-not over the SAME stream "
                         "(one event can both match and violate) needs the "
-                        "host engine" + _HOST)
+                        "host engine")
                 if ni == 0 and every_start:
                     raise SiddhiAppCreationError(
                         "dense NFA: every-start logical and-not (violation "
                         "permanently kills the start state) needs the host "
-                        "engine" + _HOST)
+                        "engine")
 
     # -- compilation --------------------------------------------------------
 
@@ -601,7 +617,13 @@ class DensePatternEngine:
                 scope = DenseScope(self.ref_defs, stream_to_ref,
                                    spec.stream_def, self.alloc,
                                    cand_ref=spec.ref)
-                fs.append(DenseExprCompiler(scope).compile(spec.raw_filter))
+                try:
+                    fs.append(DenseExprCompiler(scope).compile(
+                        spec.raw_filter))
+                except DeviceUncompilableError as e:
+                    # what the reference compiles to numpy closures
+                    # (``is null``, functions) and then fails to trace
+                    fs.append(_untraceable(e))
             self.node_filters.append(fs)
 
     def _compile_outputs(self, select_vars: List[Variable], stream_to_ref,
@@ -1749,7 +1771,7 @@ def compile_pattern(
             select_vars.append(oa.expression)
             select_names.append(oa.name)
 
-    return DensePatternEngine(
+    eng = DensePatternEngine(
         nodes=nodes,
         ref_defs=builder.ref_defs,
         stream_to_ref=builder.stream_to_ref,
@@ -1763,3 +1785,5 @@ def compile_pattern(
         reset_on_emit=reset_on_emit,
         every_start=every_start,
     )
+    eng.check_kernels()
+    return eng

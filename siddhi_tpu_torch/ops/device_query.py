@@ -652,7 +652,7 @@ class DeviceQueryEngine:
         except Exception as e:
             raise SiddhiAppCreationError(
                 f"query not device-eligible (expression not evaluable on "
-                f"the device lanes): {e!r}") from e
+                f"the device lanes): {e}") from e
 
     # -- state ---------------------------------------------------------------
 

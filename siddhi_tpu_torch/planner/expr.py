@@ -28,7 +28,10 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
-from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
+from siddhi_tpu_torch.core.exceptions import (
+    DeviceUncompilableError,
+    SiddhiAppCreationError,
+)
 from siddhi_tpu_torch.query_api import (
     AndOp,
     ArithmeticOp,
@@ -37,6 +40,7 @@ from siddhi_tpu_torch.query_api import (
     Constant,
     Expression,
     FunctionCall,
+    IsNull,
     NotOp,
     OrOp,
     TimeConstant,
@@ -171,7 +175,7 @@ class ExpressionCompiler:
     def compile(self, expr: Expression) -> CompiledExpression:
         m = getattr(self, "_c_" + type(expr).__name__, None)
         if m is None:
-            raise SiddhiAppCreationError(
+            raise DeviceUncompilableError(
                 f"cannot compile expression node {type(expr).__name__} "
                 "on the device path")
         return m(expr)
@@ -240,6 +244,15 @@ class ExpressionCompiler:
             lambda env: raw(*meet(l.fn(env), r.fn(env))), out_t)
 
     def _c_FunctionCall(self, e: FunctionCall) -> CompiledExpression:
+        # the arguments first: a reference they cannot resolve is the
+        # error, in the reference's order
+        for a in e.args:
+            self.compile(a)
         name = (e.namespace + ":" if e.namespace else "") + e.name
-        raise SiddhiAppCreationError(
+        raise DeviceUncompilableError(
             f"function '{name}()' is not supported in a device filter")
+
+    def _c_IsNull(self, e: IsNull) -> CompiledExpression:
+        self.compile(e.expr)
+        raise DeviceUncompilableError(
+            "cannot compile expression node IsNull on the device path")

@@ -8,7 +8,10 @@ numpy, as the JAX package does: DOUBLE arithmetic in float64, object
 
 Compared with the device compiler it adds the reference's null
 semantics for object columns (a null compares false and propagates
-through arithmetic), ``is null`` and the builtin scalar functions.  The
+through arithmetic), ``is null``, the pattern presence test ``e1[1] is
+null`` and the builtin scalar functions.  The host pattern engine
+(``ops/nfa.py``) evaluates these closures on Python scalars, one event
+at a time.  The
 ``expr in Table`` membership test belongs to the table slice of the port
 and is refused.
 
@@ -46,6 +49,7 @@ from siddhi_tpu_torch.query_api import (
     FunctionCall,
     InOp,
     IsNull,
+    IsNullStream,
     NotOp,
     OrOp,
     TimeConstant,
@@ -189,6 +193,13 @@ class ExpressionCompiler:
             return np.zeros(v.shape, dtype=bool)
 
         return CompiledExpression(fn, AttrType.BOOL)
+
+    def _c_IsNullStream(self, e: IsNullStream) -> CompiledExpression:
+        # `e1[1] is null` in a pattern: the host pattern engine supplies
+        # the presence of each referenced capture as `__present.<ref>[i]`
+        idx = e.stream_index if e.stream_index is not None else 0
+        key = f"__present.{e.stream_id}[{idx}]"
+        return CompiledExpression(lambda env: ~env[key], AttrType.BOOL)
 
     def _c_InOp(self, e: InOp) -> CompiledExpression:
         raise SiddhiAppCreationError(

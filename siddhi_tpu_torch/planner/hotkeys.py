@@ -18,7 +18,10 @@ from __future__ import annotations
 import logging
 from typing import Optional
 
-from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
+from siddhi_tpu_torch.core.exceptions import (
+    KernelUnavailableError,
+    SiddhiAppCreationError,
+)
 from siddhi_tpu_torch.core.hotkey_router import HotKeyRouterRuntime
 from siddhi_tpu_torch.ops.hotkey_scan import HotKeyScanEngine
 from siddhi_tpu_torch.planner.kernels import check_scan_kernel_available
@@ -82,6 +85,8 @@ def try_wrap_hotkey(ctx, definitions, st, dense_runtime, query_name: str
     try:
         router = build_hotkey_router(ctx, definitions, st, dense_runtime,
                                      query_name)
+    except KernelUnavailableError:
+        raise
     except SiddhiAppCreationError as e:
         log.warning(
             "query '%s': @app:hotkeys requested but query is outside "

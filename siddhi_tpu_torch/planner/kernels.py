@@ -28,7 +28,7 @@ always runs its kernels on the card and counts no fallback.
 
 from __future__ import annotations
 
-from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
+from siddhi_tpu_torch.core.exceptions import KernelUnavailableError
 from siddhi_tpu_torch.kernels import probe
 from siddhi_tpu_torch.kernels.dense_batch import MAX_INSTANCES
 
@@ -54,22 +54,22 @@ def route_dense_step(engine) -> str:
 def check_scan_kernel_available(scan) -> None:
     """The fused scan kernel builds and launches on the scan engine's
     card (the probe builds every kernel library, this one included);
-    raises ``SiddhiAppCreationError`` with the reason if not.  CPU
+    raises ``KernelUnavailableError`` with the reason if not.  CPU
     engines run the plain version and pass."""
     if scan.device.type == "cpu":
         return
     ok, reason = probe.kernels_available(scan.device)
     if not ok:
-        raise SiddhiAppCreationError(f"scan kernel: {reason}")
+        raise KernelUnavailableError(f"scan kernel: {reason}")
 
 
 def check_bank_kernel_available(bank) -> None:
     """The segmented-reduce kernel builds and launches on the bank's card
     (the probe builds every kernel library, this one included); raises
-    ``SiddhiAppCreationError`` with the reason if not.  CPU banks run
+    ``KernelUnavailableError`` with the reason if not.  CPU banks run
     the plain version and pass."""
     if bank.device.type == "cpu":
         return
     ok, reason = probe.kernels_available(bank.device)
     if not ok:
-        raise SiddhiAppCreationError(f"bank kernel: {reason}")
+        raise KernelUnavailableError(f"bank kernel: {reason}")

@@ -18,17 +18,28 @@ SelectorParser and OutputParser):
   (``plan_selector``), the output rate limiter (``plan_rate_limiter``)
   and the output (``plan_output``: ``insert into`` a stream, or the
   query's callbacks);
-- a pattern query on the dense engine (``plan_dense_state``): a
-  passthrough selector over the engine's select lanes, or the
-  aggregating form, in which the engine emits the raw captures and the
-  host selector aggregates the match rows (per partition key when the
-  query is partitioned).  A partitioned passthrough query under
-  ``@app:hotkeys`` is wrapped in the skew router.  A time rate limiter
-  and an absent-deadline engine become app scheduler tasks.
+- a pattern query under ``@app:execution('tpu')`` on the dense engine
+  (``plan_dense_state``): a passthrough selector over the engine's
+  select lanes, or the aggregating form, in which the engine emits the
+  raw captures and the host selector aggregates the match rows (per
+  partition key when the query is partitioned).  A partitioned
+  passthrough query under ``@app:hotkeys`` is wrapped in the skew
+  router.  A time rate limiter and an absent-deadline engine become app
+  scheduler tasks.  A pattern outside the dense subset runs on the host
+  engine, with a warning naming the reason, as in the reference;
+- a pattern query on the host engine (``plan_state``, the reference's
+  default mode): the ``PatternProcessor`` of ``ops/nfa.py``, fed by one
+  ``PatternStreamReceiver`` per source stream and registered as a
+  scheduler task (absent deadlines), its matches through the selector
+  over the pattern scope.
 
-What the reference runs elsewhere stays refused, naming its
-``ROADMAP.md`` §1 item: host patterns (item 7), joins (item 8), tables
-and named windows (item 9).
+``app`` is the app runtime, or inside a partition the per-key
+instance's planner facade (``core/partition.py``), whose junctions are
+the key's local ones and whose scheduler records what the instance
+registers; there, single-stream queries and patterns plan on the host
+even under ``@app:execution('tpu')``, as in the reference.  What the
+reference runs elsewhere stays refused, naming its ``ROADMAP.md`` §1
+item: joins (item 8), tables and named windows (item 9).
 """
 
 from __future__ import annotations
@@ -46,7 +57,12 @@ from siddhi_tpu_torch.core.dense_pattern import (
     build_dense_engine,
     output_attr_types,
 )
-from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError, later_slice
+from siddhi_tpu_torch.core.exceptions import (
+    DefinitionNotExistError,
+    KernelUnavailableError,
+    SiddhiAppCreationError,
+    later_slice,
+)
 from siddhi_tpu_torch.core.query import (
     AggBinding,
     EventRateLimiter,
@@ -68,7 +84,12 @@ from siddhi_tpu_torch.core.query import (
 from siddhi_tpu_torch.extension.validator import validate_extension_args
 from siddhi_tpu_torch.ops.aggregators import make_aggregator
 from siddhi_tpu_torch.ops.device_query import DeviceQueryEngine
-from siddhi_tpu_torch.ops.nfa import NFABuilder, PatternScope
+from siddhi_tpu_torch.ops.nfa import (
+    NFABuilder,
+    PatternProcessor,
+    PatternScope,
+    _collect_presence,
+)
 from siddhi_tpu_torch.planner.hotkeys import try_wrap_hotkey
 from siddhi_tpu_torch.planner.host_expr import (
     AGGREGATOR_NAMES,
@@ -251,21 +272,38 @@ def _out_target(query: Query, name: str) -> str:
 # -- entry -------------------------------------------------------------------
 
 
-def plan_unpartitioned_query(app, query: Query, index: int) -> QueryRuntime:
-    """Plan a query outside any partition: a single-stream query on the
-    host runtime (the reference's default mode); a pattern under
-    ``@app:execution('tpu')`` on the dense engine at one partition, fed
-    by one ``DenseStreamReceiver`` per source stream.  Raises for what
-    the port does not run."""
+class PatternStreamReceiver:
+    """Junction subscriber feeding one source stream into the host NFA
+    (the reference's Pattern/SequenceSingleProcessStreamReceiver)."""
+
+    def __init__(self, processor, stream_key: str):
+        self.processor = processor
+        self.stream_key = stream_key
+
+    def receive(self, batch):
+        self.processor.process_stream_batch(self.stream_key, batch)
+
+
+def plan_query(app, query: Query, index: int) -> QueryRuntime:
+    """Plan one query: a single-stream query on the host runtime (the
+    reference's default mode) or, under ``@app:execution('tpu')``, on
+    the device query engine; a pattern on the host engine or, under
+    ``@app:execution('tpu')``, on the dense engine at one partition, fed
+    by one ``DenseStreamReceiver`` per source stream.  Inside a
+    partition instance (``app.in_partition_instance``) both take the
+    host.  Raises for what the port does not run."""
     name = query_name(query, index)
     in_stream = query.input_stream
-    tpu = app.app_context.execution_mode == "tpu"
+    tpu = (app.app_context.execution_mode == "tpu"
+           and not getattr(app, "in_partition_instance", False))
     if isinstance(in_stream, SingleInputStream):
         if tpu:
             # the device query path first; the host chain, with a
             # warning, when the query is outside its subset
             try:
                 engine = device_query_engine(app, query, in_stream)
+            except KernelUnavailableError:
+                raise
             except SiddhiAppCreationError as e:
                 log.warning("query '%s': device query path unavailable "
                             "(%s); using host engine", name, e)
@@ -276,16 +314,26 @@ def plan_unpartitioned_query(app, query: Query, index: int) -> QueryRuntime:
                                           engine)
         return plan_single(app, query, name, in_stream)
     if isinstance(in_stream, StateInputStream):
-        if not tpu:
-            raise SiddhiAppCreationError(
-                f"query '{name}': the port runs patterns on the dense "
-                "device path only (add @app:execution('tpu'))"
-                + later_slice(7, "host patterns"))
-        qr = plan_dense_state(app, query, name, in_stream, n_partitions=1)
-        runtime = qr.pattern_processor
-        for sk in runtime.engine.stream_keys:
-            app.junctions[sk].subscribe(DenseStreamReceiver(runtime, sk))
-        return qr
+        if tpu:
+            # the dense path first; the host engine, with a warning, when
+            # the pattern is outside its subset
+            try:
+                qr = plan_dense_state(app, query, name, in_stream,
+                                      n_partitions=1)
+            except KernelUnavailableError:
+                raise
+            except SiddhiAppCreationError as e:
+                log.warning("query '%s': dense TPU path unavailable (%s); "
+                            "using host pattern engine", name, e)
+            else:
+                log.info("query '%s': pattern lowered to the dense TPU "
+                         "path", name)
+                runtime = qr.pattern_processor
+                for sk in runtime.engine.stream_keys:
+                    app.junctions[sk].subscribe(
+                        DenseStreamReceiver(runtime, sk))
+                return qr
+        return plan_state(app, query, name, in_stream)
     if isinstance(in_stream, JoinInputStream):
         raise SiddhiAppCreationError(
             f"query '{name}': joins" + later_slice(8, "joins"))
@@ -355,9 +403,9 @@ def plan_device_single(app, query: Query, name: str, s: SingleInputStream,
         app.junction_for_input(s).subscribe(DeviceQueryReceiver(runtime))
         # timeBatch panes close on the scheduler; the rate task drains
         # the queued emits before its time decision
-        ctx.scheduler.register_task(runtime)
+        app.scheduler.register_task(runtime)
         if rate_limiter.needs_scheduler_task:
-            ctx.scheduler.register_task(
+            app.scheduler.register_task(
                 _RateLimiterTask(qr, rate_limiter, device_runtime=runtime))
     return qr
 
@@ -380,7 +428,7 @@ def plan_single(app, query: Query, name: str, s: SingleInputStream
     rate_limiter = plan_rate_limiter(query)
     qr = QueryRuntime(name, [chain], selector, rate_limiter, output,
                       app.app_context)
-    scheduler = app.app_context.scheduler
+    scheduler = app.scheduler
     for w in windows:
         if w.needs_scheduler:
             scheduler.register_window(qr, w)
@@ -459,7 +507,7 @@ def plan_selector(app, sel: Selector, scope: Scope,
         if not isinstance(query.input_stream, SingleInputStream):
             raise SiddhiAppCreationError(
                 f"query '{qname}': 'select *' needs an explicit select "
-                "clause for pattern inputs")
+                "clause for pattern/join inputs")
         in_def = app.resolve_stream_definition(query.input_stream)
         out_attrs = list(in_def.attributes) + list(extra_attrs or [])
         out_names = [a.name for a in out_attrs]
@@ -509,21 +557,18 @@ def plan_rate_limiter(query: Query):
 
 
 def plan_output(app, query: Query, out_def: StreamDefinition, qname: str):
-    """``insert into`` a stream, or (``return``, no output) the query's
-    callbacks; inner, fault and table outputs stay refused."""
+    """``insert into`` a stream (``#inner``: the partition instance's
+    local junction), or (``return``, no output) the query's callbacks;
+    fault and table outputs stay refused."""
     out = query.output_stream
     if isinstance(out, InsertIntoStream):
-        if out.is_inner:
-            raise SiddhiAppCreationError(
-                f"query '{qname}': 'insert into #{out.target}' (inner "
-                "streams of per-key partition instances)"
-                + later_slice(7, "host partitions"))
         if out.is_fault:
             raise SiddhiAppCreationError(
                 f"query '{qname}': 'insert into !{out.target}' (fault "
                 "streams)" + later_slice(15, "the operations layer"))
-        return InsertIntoStreamCallback(app.output_junction(out_def),
-                                        out.event_type)
+        return InsertIntoStreamCallback(
+            app.output_junction(out_def, is_inner=out.is_inner),
+            out.event_type)
     if isinstance(out, ReturnStream) or out is None:
         return QueryCallbackOutput()
     raise SiddhiAppCreationError(
@@ -549,8 +594,7 @@ def plan_dense_state(app, query: Query, name: str, st,
         # emission windows of every key
         raise SiddhiAppCreationError(
             "dense path: partitioned queries with output rate limits need "
-            "per-key limiters — host instances used"
-            + later_slice(7, "host partitions"))
+            "per-key limiters — host instances used")
     sel = query.selector
     aggregating = (bool(sel.group_by) or sel.having is not None
                    or has_aggregators(sel))
@@ -566,8 +610,7 @@ def plan_dense_state(app, query: Query, name: str, st,
             # mixes partition keys, so it would slice ACROSS keys
             raise SiddhiAppCreationError(
                 "dense path: partitioned aggregating selectors with order "
-                "by/limit need per-key chunks — host instances used"
-                + later_slice(7, "host partitions"))
+                "by/limit need per-key chunks — host instances used")
         builder = NFABuilder(st, app.resolve_stream_definition)
         builder.build()
         scope = PatternScope(builder.ref_defs, builder.stream_to_ref,
@@ -620,10 +663,65 @@ def plan_dense_state(app, query: Query, name: str, st,
     qr.pattern_processor = runtime
     # registered LAST, in the reference's order: the rate task, then
     # the deadline task (absent deadlines fire from the app scheduler;
-    # the router refuses deadline engines, so this is the dense runtime)
+    # the router refuses deadline engines, so this is the dense runtime).
+    # Kept on the runtime, so that a partition whose later query cannot
+    # lower unregisters them before it falls back to per-key instances
     if rate_limiter.needs_scheduler_task:
-        ctx.scheduler.register_task(
+        qr.scheduler_tasks.append(
             _RateLimiterTask(qr, rate_limiter, device_runtime=runtime))
     if engine.has_deadlines:
-        ctx.scheduler.register_task(runtime)
+        qr.scheduler_tasks.append(runtime)
+    for task in qr.scheduler_tasks:
+        app.scheduler.register_task(task)
+    return qr
+
+
+def plan_state(app, query: Query, name: str, st) -> QueryRuntime:
+    """A pattern on the host engine: the selector over the pattern
+    scope, the rate limiter, and the ``PatternProcessor`` as a scheduler
+    task (absent deadlines), one ``PatternStreamReceiver`` per source
+    junction."""
+    builder = NFABuilder(st, app.resolve_stream_definition)
+    nodes = builder.build()
+    # selector scope over the event refs; bare attributes resolve when
+    # unambiguous
+    scope = PatternScope(builder.ref_defs, builder.stream_to_ref,
+                         cand_def=None)
+    selector, out_def = plan_selector(
+        app, query.selector, scope, ExpressionCompiler(scope), name, query,
+        batch_mode=False)
+    output = plan_output(app, query, out_def, name)
+    rate_limiter = plan_rate_limiter(query)
+    qr = QueryRuntime(name, [[]], selector, rate_limiter, output,
+                      app.app_context)
+    if rate_limiter.needs_scheduler_task:
+        app.scheduler.register_task(_RateLimiterTask(qr, rate_limiter))
+    # presence keys (`e2[1] is null`) used in the select items and having
+    presence = {}
+    sel = query.selector
+    exprs = [oa.expression for oa in sel.selection or []]
+    if sel.having is not None:
+        exprs.append(sel.having)
+    for e in exprs:
+        presence.update(_collect_presence(e, builder.ref_defs,
+                                          builder.stream_to_ref))
+    processor = PatternProcessor(
+        nodes=nodes, mode=st.type, within_ms=st.within_ms,
+        ref_defs=builder.ref_defs, output_keys=dict(scope.used_captures),
+        presence_keys=presence, emit=lambda batch: qr.process(batch, 0),
+        out_stream_id=f"#matches_{name}")
+    qr.pattern_processor = processor
+    app.scheduler.register_task(processor)
+    seen = set()
+    for node in nodes:
+        for spec in node.specs:
+            if spec.stream_key in seen:
+                continue
+            seen.add(spec.stream_key)
+            junction = app.junctions.get(spec.stream_key)
+            if junction is None:
+                raise DefinitionNotExistError(
+                    f"stream '{spec.stream_key}' is not defined")
+            junction.subscribe(PatternStreamReceiver(processor,
+                                                     spec.stream_key))
     return qr

@@ -29,6 +29,7 @@ from siddhi_tpu_torch import (
     state_to_numpy,
 )
 from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
+from test_torch_device_query import FallbackLog
 
 STREAMS = (
     "define stream Stream1 (symbol string, price float, volume int); "
@@ -436,17 +437,49 @@ def test_host_only_absent_shapes_refused(app, reason):
     """The absent shapes the reference sends to its host engine (the
     ``execution('tpu')`` apps of ``tests/test_dense_absent.py`` and
     ``tests/test_conformance_absent_logical.py`` it keeps there): the
-    port refuses them with the reference's reason, naming ``ROADMAP.md``
-    §1 item 7."""
+    port's dense engine refuses them with the reference's reason, and
+    the app falls back to the host pattern engine with the reference's
+    WARNING, giving its rows (the name is the test's from when the port
+    refused the app)."""
     text = STREAMS + f"@info(name='q') {app} insert into OutputStream;"
-    with pytest.raises(Exception, match=reason.replace("'", ".")
-                       .replace("(", ".").replace(")", ".")
-                       .replace("^", ".")):
+    pattern = (reason.replace("'", ".").replace("(", ".").replace(")", ".")
+               .replace("^", "."))
+    with pytest.raises(Exception, match=pattern):
         jax_compile(text, "q", n_partitions=4)
-    with pytest.raises(SiddhiAppCreationError) as info:
-        SiddhiManager(device="cpu").create_siddhi_app_runtime(
-            "@app:playback " + TPU + text)
-    assert reason in str(info.value) and "§1 item 7" in str(info.value)
+    with pytest.raises(SiddhiAppCreationError, match=pattern) as info:
+        compile_pattern(text, "q", n_partitions=4, device="cpu")
+    assert "ROADMAP" not in str(info.value)
+    sends = [("Stream1", ["A", 25.0, 1], 1000), ("Stream2", ["B", 21.0, 1],
+                                                 1200),
+             ("Stream3", ["C", 35.0, 1], 1300), ("Stream1", ["D", 45.0, 1],
+                                                 2600),
+             ("Stream3", ["E", 31.0, 1], 2700), ("Tick", [1], 5000),
+             ("Stream1", ["F", 22.0, 1], 5100), ("Stream1", ["G", 33.0, 1],
+                                                 5200),
+             ("Tick", [2], 9000)]
+
+    def go(port):
+        mgr = SiddhiManager(device="cpu") if port else JaxManager()
+        try:
+            with FallbackLog("siddhi_tpu_torch" if port
+                             else "siddhi_tpu") as log:
+                rt = mgr.create_siddhi_app_runtime(
+                    "@app:playback " + TPU + text)
+            got = []
+            rt.add_callback("OutputStream", lambda evs: got.extend(
+                (e.timestamp, list(e.data)) for e in evs))
+            rt.start()
+            for stream, row, ts in sends:
+                rt.get_input_handler(stream).send(row, timestamp=ts)
+            low = rt.lowering()
+            rt.shutdown()
+            return got, low, log.messages
+        finally:
+            mgr.shutdown()
+
+    got, low, warns = go(True)
+    assert (got, low, warns) == go(False)
+    assert low == {"q": "host"} and len(warns) == 1 and reason in warns[0]
 
 
 def test_aggregating_absent_select_refused():

@@ -973,3 +973,87 @@ def test_device_query_prefix_sums_ignore_tf32(cuda_device):
     finally:
         torch.set_float32_matmul_precision(prev)
     assert full == tf32 and full
+
+
+HOST_APPS = {
+    # BASELINE config 1 in the default mode: the host pattern engine
+    "host_pattern": (
+        "@app:playback define stream T (key long, p double); "
+        "@info(name='q') from every e1=T[p > 10.0], e2=T[p > e1.p], "
+        "e3=T[p > e2.p] within 1 sec select e1.p as p1, e3.p as p3 "
+        "insert into O;"),
+    # a pattern and a window on per-key partition instances
+    "instances": (
+        "@app:playback define stream T (key long, p double); "
+        "partition with (key of T) begin @info(name='q') from every "
+        "a=T[p > 10.0] -> b=T[p > a.p]<2:3> within 1 sec select a.key as k, "
+        "a.p as ap, b[last].p as bp insert into O; @info(name='w') from "
+        "T#window.length(3) select key, sum(p) as s insert into O; end;"),
+}
+
+
+def _host_rows(app, device):
+    """``app`` over 20,000 seeded events through ``SiddhiManager()`` on
+    ``device`` (None: its default, the card): the rows, the lowering and
+    the card's allocation calls across it."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.core.event import EventBatch
+
+    rng = np.random.default_rng(5)
+    allocs = lambda: torch.cuda.memory_stats().get(
+        "allocation.all.allocated", 0)
+    before = allocs()
+    mgr = SiddhiManager() if device is None else SiddhiManager(device=device)
+    try:
+        rt = mgr.create_siddhi_app_runtime(app)
+        got = []
+        rt.add_callback("O", lambda evs: got.extend(
+            (e.timestamp, tuple(e.data)) for e in evs))
+        rt.start()
+        h = rt.get_input_handler("T")
+        for i in range(10):
+            n = 2_000
+            h.send_batch(EventBatch(
+                "T", ["key", "p"],
+                {"key": rng.integers(0, 50, n).astype(np.int64),
+                 "p": rng.uniform(5, 30, n)},
+                1000 + i * n + np.arange(n, dtype=np.int64)))
+        low = rt.lowering()
+        rt.shutdown()
+    finally:
+        mgr.shutdown()
+    return got, low, allocs() - before
+
+
+@pytest.mark.parametrize("name", list(HOST_APPS))
+def test_host_pattern_app_on_card_allocates_nothing(cuda_device, name):
+    """The host pattern engine and per-key partition instances through
+    ``SiddhiManager()`` on its default device, the card: host lowering,
+    no allocation on the card, and the rows of ``device="cpu"``."""
+    got, low, allocs = _host_rows(HOST_APPS[name], None)
+    assert set(low.values()) == {"host"} and allocs == 0 and got
+    assert got == _host_rows(HOST_APPS[name], "cpu")[0]
+
+
+@pytest.mark.parametrize("partitioned", [False, True])
+def test_kernel_failure_on_card_fails_app_creation(cuda_device, monkeypatch,
+                                                   partitioned):
+    """A dense pattern under ``execution('tpu')`` on the card whose
+    kernels do not build or launch: app creation raises, with no move to
+    the host engine or to per-key instances."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.core.exceptions import KernelUnavailableError
+
+    monkeypatch.setattr(probe, "kernels_available", lambda device: (
+        False, "kernel build or launch failed: patched"))
+    q = ("@info(name='q') from every a=T[p > 10.0] -> b=T[p > a.p] "
+         "select a.p as ap, b.p as bp insert into O;")
+    body = f"partition with (key of T) begin {q} end;" if partitioned else q
+    app = ("@app:playback @app:execution('tpu', partitions='64') "
+           "define stream T (key long, p double); " + body)
+    mgr = SiddhiManager()
+    try:
+        with pytest.raises(KernelUnavailableError, match="patched"):
+            mgr.create_siddhi_app_runtime(app)
+    finally:
+        mgr.shutdown()

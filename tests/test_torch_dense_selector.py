@@ -24,7 +24,7 @@ import pytest
 
 from siddhi_tpu import SiddhiManager as JaxManager
 from siddhi_tpu_torch import SiddhiManager
-from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
+from test_torch_device_query import FallbackLog
 
 TXN = "define stream Txn (card long, amount double); "
 TICK = "define stream Tick (x int); "
@@ -272,10 +272,33 @@ def test_purge_drops_the_selector_state_of_a_key():
 ], ids=["partitioned_rate_limit", "partitioned_order_by",
         "tpu_single_stream", "select_expression"])
 def test_refusals(app, reason, item):
-    """What stays refused: where the reference uses per-key host
-    instances or its host pattern engine, the port raises with the
-    reference's reason and the ``ROADMAP.md`` item."""
-    with pytest.raises(SiddhiAppCreationError) as info:
-        SiddhiManager(device="cpu").create_siddhi_app_runtime(app)
-    assert reason in str(info.value)
-    assert f"ROADMAP.md §1 item {item}" in str(info.value)
+    """Where the reference uses per-key host instances or its host
+    pattern engine, the port's device paths refuse with the reference's
+    reason, and the app falls back as the reference's does, with its
+    WARNING, its ``lowering()`` and its rows (per-key instances for the
+    partitions, ``ROADMAP.md`` §1 item 7).  The name is the test's from
+    when the port refused these apps."""
+    sends = txn(item + len(reason), n=120, cards=4)
+
+    def go(port):
+        mgr = SiddhiManager(device="cpu") if port else JaxManager()
+        try:
+            with FallbackLog("siddhi_tpu_torch" if port
+                             else "siddhi_tpu") as log:
+                rt = mgr.create_siddhi_app_runtime(PB + app)
+            got = []
+            rt.add_callback("Alerts", lambda evs: got.extend(
+                key(e) for e in evs))
+            rt.start()
+            for stream, row, ts in sends:
+                rt.get_input_handler(stream).send(list(row), timestamp=ts)
+            low = rt.lowering()
+            rt.shutdown()
+            return got, low, log.messages
+        finally:
+            mgr.shutdown()
+
+    got, low, warns = go(True)
+    assert (got, low, warns) == go(False)
+    assert got and low == {"q": "host"}
+    assert len(warns) == 1 and reason in warns[0]

@@ -8,8 +8,8 @@ aggregates, per-key sliding windows, group by inside a key, range
 partitions, a pattern beside a filter, ``@purge``), with its sends,
 lowering and output, goes through ``SiddhiManager(device="cpu")``.
 Where the JAX package runs the body on per-key host instances (no
-``execution('tpu')``, a tumbling window, a rate limit, order by), the
-port raises naming ``ROADMAP.md`` §1 item 7.  Output rows are compared
+``execution('tpu')``, a tumbling window, a rate limit, order by), so
+does the port, with the same WARNING.  Output rows are compared
 in order; the bounds are the ones ``test_torch_device_query.py`` states
 (float32 sums within the reference's ``rel=1e-4, abs=1e-3``, stdDev
 within its ``rel=2e-3, abs=5e-3``, everything else exact).

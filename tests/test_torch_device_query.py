@@ -13,7 +13,9 @@ Three kinds of case:
   ``SiddhiManager(device="cpu")`` and ``compile_query(..., device=
   "cpu")`` then replay them.  An app the JAX package refuses, the port
   refuses; one outside the port's slices raises naming its
-  ``ROADMAP.md`` item;
+  ``ROADMAP.md`` item.  Where the JAX package falls back from a device
+  path to its host engine with a WARNING, the port must log the same
+  WARNING text;
 - seeded engines (``compile_query`` in both packages on numpy columns)
   for the filter, running, sliding length and time, and tumbling
   lengthBatch and timeBatch kinds, outputs and whole state compared
@@ -40,7 +42,9 @@ for bit too.
 from __future__ import annotations
 
 import importlib.util
+import inspect
 import itertools
+import logging
 import re
 from pathlib import Path
 
@@ -96,7 +100,7 @@ LEFT_OUT = {
         "the dense runtime's intern",
 }
 # what the port refuses in the corpora, with the ROADMAP.md item
-OUTSIDE = {7: r"partition with|->"}
+OUTSIDE = {8: r"\bjoin\b", 9: r"define (table|window|trigger)"}
 
 SUM_KINDS = re.compile(r"\b(sum|avg)\s*\(")
 STD = re.compile(r"\bstdDev\s*\(")
@@ -156,8 +160,42 @@ class Scenario:
         self.got = {}
         self.lowering = None
         self.dense_partitions = None
+        # the WARNINGs of a fallback from a device path to the host,
+        # logged while the app was created
+        self.fallbacks = []
         self.error = None
         self.unsupported = None
+
+
+# the one phrase of a fallback reason the port words for its own
+# compiler: the reference's device query engine traces with JAX
+PORT_WORDING = {"expression not evaluable on the device lanes":
+                "expression not jax-traceable"}
+
+
+class FallbackLog(logging.Handler):
+    """Collects the device-path fallback WARNINGs of one logger while
+    it is attached (``with FallbackLog("siddhi_tpu") as log:``), the
+    port's in the reference's words (``PORT_WORDING``)."""
+
+    def __init__(self, logger: str):
+        super().__init__(logging.WARNING)
+        self.logger = logging.getLogger(logger)
+        self.messages = []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        for ours, theirs in PORT_WORDING.items():
+            msg = msg.replace(ours, theirs)
+        if "unavailable (" in msg:
+            self.messages.append(msg)
+
+    def __enter__(self):
+        self.logger.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self)
 
 
 def _ev_row(e):
@@ -307,10 +345,12 @@ def record(corpus, cname, mname, k):
             sc = Scenario(app)
             scenarios.append(sc)
             try:
-                rt = self._m.create_siddhi_app_runtime(app)
+                with FallbackLog("siddhi_tpu") as log:
+                    rt = self._m.create_siddhi_app_runtime(app)
             except Exception as e:
                 sc.error = e
                 raise
+            sc.fallbacks = log.messages
             sc.lowering = rt.lowering()
             sc.dense_partitions = [p.is_dense for p in rt.partitions.values()]
             return _Runtime(rt, sc)
@@ -338,12 +378,19 @@ def record(corpus, cname, mname, k):
     owner = getattr(mod, cname)() if cname else mod
     fn = getattr(owner, mname)
     kwargs = _param_sets(fn)[k]
+    manager = None
+    if "manager" in inspect.signature(fn).parameters:
+        # the corpus's ``manager`` fixture
+        manager = kwargs["manager"] = RecordingManager()
     try:
         fn(**kwargs)
     except Exception:
-        # the corpus asserts its own expectations against the host
-        # engine; the comparison here is with the JAX device run
+        # the corpus asserts its own expectations; the comparison here
+        # is with the JAX run either way
         pass
+    finally:
+        if manager is not None:
+            manager.shutdown()
     return scenarios, engines
 
 
@@ -366,11 +413,15 @@ def _port_batch(b):
                       np.array(b.types, copy=True))
 
 
-def replay(sc):
-    """The scenario through the port: ``(output, lowering)``."""
+def replay(sc, fallbacks=None):
+    """The scenario through the port: ``(output, lowering)``;
+    ``fallbacks``, a list, gets the fallback WARNINGs of its creation."""
     mgr = SiddhiManager(device="cpu")
     try:
-        rt = mgr.create_siddhi_app_runtime(sc.app)
+        with FallbackLog("siddhi_tpu_torch") as log:
+            rt = mgr.create_siddhi_app_runtime(sc.app)
+        if fallbacks is not None:
+            fallbacks.extend(log.messages)
         low = rt.lowering()
         got = {}
         for target, kind in sc.targets.items():
@@ -415,23 +466,24 @@ def assert_same_output(jgot, tgot, tol):
 
 def check_scenario(sc, outside=OUTSIDE):
     """Replay one recorded app through the port and compare."""
-    assert sc.unsupported is None, sc.unsupported
     if sc.error is not None:
         with pytest.raises(Exception):
             replay(sc)
         return
     items = [i for i, pat in outside.items() if re.search(pat, sc.app)]
-    if items and ("execution('tpu'" not in sc.app
-                  or not all(sc.dense_partitions)):
-        # the reference runs it on per-key host instances or host
-        # patterns: the port raises, naming the item
+    if items:
+        # outside the port's slices: it raises, naming the item (what
+        # the corpus test did with the app after does not matter)
         with pytest.raises(SiddhiAppCreationError) as info:
             replay(sc)
         assert any(f"ROADMAP.md §1 item {i}" in str(info.value)
                    for i in items), str(info.value)
         return
-    tgot, tlow = replay(sc)
+    assert sc.unsupported is None, sc.unsupported
+    fallbacks = []
+    tgot, tlow = replay(sc, fallbacks)
     assert tlow == sc.lowering
+    assert fallbacks == sc.fallbacks
     assert_same_output(sc.got, tgot, bound(sc.app))
 
 

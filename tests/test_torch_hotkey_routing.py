@@ -99,7 +99,7 @@ class Run:
     @property
     def router(self):
         if self.port:
-            return self.rt.pattern_runtimes()["q"]
+            return self.rt.pattern_runtimes().get("q")
         return jax_router(self.rt)
 
     def finish(self):
@@ -409,8 +409,14 @@ class TestOutsideTheSlice:
              "select count() as n order by n insert into Alerts;"),
     ], ids=["partial_group_every", "non_pattern", "absent", "aggregating"])
     def test_raises_creation_error(self, app):
-        with pytest.raises(SiddhiAppCreationError):
-            Run(True, app, "@app:playback " + TPU)
+        """What the device paths cannot take moves the partition to
+        per-key host instances, as in the reference: the same rows and
+        ``lowering()`` (the name is the test's from when the port
+        refused these apps)."""
+        jres, tres = both(app, "@app:playback " + TPU, sends=gen(5, SKEWED))
+        assert_same(jres, tres)
+        assert set(tres[1].values()) == {"host"} and tres[2] == {}
+        assert sum(len(b) for b in tres[0]) > 0
 
     @pytest.mark.parametrize("app", [
         # a capture in a filter: the general step
@@ -436,8 +442,12 @@ class TestOutsideTheSlice:
         assert sum(len(b) for b in tres[0]) > 0
 
     def test_partition_needs_tpu_execution(self):
-        with pytest.raises(SiddhiAppCreationError, match="execution"):
-            Run(True, wrap(SHAPES["pair"]), "@app:playback ")
+        """Without ``execution('tpu')`` the partition runs on per-key host
+        instances, as the reference's default mode does."""
+        jres, tres = both(wrap(SHAPES["pair"]), "@app:playback ",
+                          sends=gen(5, SKEWED))
+        assert_same(jres, tres)
+        assert tres[1] == {"q": "host"} and sum(len(b) for b in tres[0])
 
     @pytest.mark.parametrize("header,match", [
         ("@app:hotkeys(k='4') ", "hotkeys needs"),

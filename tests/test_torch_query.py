@@ -12,10 +12,12 @@ timestamps, expiry flags and value types, floats bit for bit:
   every callback target and every send is recorded with the callbacks'
   output.  The port's ``SiddhiManager(device="cpu")`` then replays the
   same app and sends.  An app the JAX package refuses, the port must
-  refuse; one outside the port's slices (joins, tables, named windows,
-  host patterns) must raise naming its ``ROADMAP.md`` item.  Apps under
+  refuse; one outside the port's slices (joins, tables, named windows)
+  must raise naming its ``ROADMAP.md`` item.  Apps under
   ``@app:execution('tpu')`` run on the device query path (or, outside
-  its subset, on the host runtime) in both packages.
+  its subset, on the host runtime) in both packages; patterns and
+  partitions run on the host pattern engine and per-key instances (or
+  the dense and device paths) as in the reference.
 - seeded apps over every aggregator, the selector's group by, having,
   order by, limit and offset, every rate limiter and query callbacks.
 """
@@ -47,8 +49,7 @@ CORPORA = ("test_filter_queries", "test_windows", "test_conformance_filters",
 # sandbox and attribute APIs, which the port does not have
 LEFT_OUT = {("test_filter_queries", "TestManagerApis")}
 # what the port refuses in these corpora, with the ROADMAP.md item
-OUTSIDE = {7: r"->|partition with", 8: r"\bjoin\b",
-           9: r"define (table|window|trigger)"}
+OUTSIDE = {8: r"\bjoin\b", 9: r"define (table|window|trigger)"}
 
 
 def typed(v):
@@ -480,15 +481,32 @@ def test_tpu_single_stream_as_the_reference():
      "select S.sym insert into Out;", 9),
     (DEFINE + "define stream U (sym string); from S#window.length(2) join "
      "U#window.length(2) on S.sym == U.sym select S.sym insert into Out;", 8),
-    (DEFINE + "from every a=S[p > 1.0] -> b=S[p > a.p] select a.p as ap "
-     "insert into Out;", 7),
     (DEFINE + "define function f[python] return int { return 1 }; "
      "from S select sym insert into Out;", 10),
-    (DEFINE + "from S select sym insert into #Inner;", 7),
-], ids=["table", "join", "host_pattern", "function", "inner_output"])
+    (DEFINE + "partition with (sym of S) begin from S#window.length(2) join "
+     "S#window.length(2) on S.p > 1.0 select S.sym insert into Out; end;",
+     8),
+], ids=["table", "join", "function", "join_in_partition"])
 def test_refusals_name_their_roadmap_item(app, item):
     """No hidden fallback: what the port does not run raises at creation,
     naming the ``ROADMAP.md`` item that ports it."""
     with pytest.raises(SiddhiAppCreationError) as info:
         SiddhiManager(device="cpu").create_siddhi_app_runtime(app)
     assert f"ROADMAP.md §1 item {item}" in str(info.value)
+
+
+@pytest.mark.parametrize("app", [
+    DEFINE + "@info(name='q') from every a=S[p > 1.0] -> b=S[p > a.p] "
+    "select a.p as ap, b.sym as bs insert into Out;",
+    DEFINE + "from S select sym, p insert into #Inner; @info(name='q') "
+    "from #Inner[p > 0.0] select sym, p insert into Out;",
+    DEFINE + "partition with (sym of S) begin @info(name='q') from "
+    "S#window.lengthBatch(2) select sym, sum(p) as p insert into Out; end;",
+], ids=["host_pattern", "inner_output", "partition"])
+def test_once_refused_apps_run_as_the_reference(app):
+    """A pattern in the default mode, an ``#inner`` stream outside a
+    partition (the reference keeps it as the app's own stream) and a
+    partition in the default mode, all refused until the host pattern
+    engine and per-key instances came to the port, now give the
+    reference's rows."""
+    assert assert_same(app, sends(len(app)))["Out"]
