@@ -256,7 +256,44 @@ skew-routed pattern path and the incremental-aggregation path through
    output equal to the ``device="cpu"`` run's; each line gives the
    first batch (which plans the keys it meets) apart, and the
    ``device_queries`` rate of the same query beside it.
-20. kernels: one line per ported kernel (launches on the main paths,
+20. product: ``bench.py:257-322 bench_product``'s app and traffic: the
+   capturing 16-state chain in ``partition with (key of Txn)`` at
+   1,000,000 partitions, 3 warm-up batches of 131,072 stride-walked
+   events (seed 11) and 3 windows of the same 10 timed batches, through
+   ``SiddhiManager`` from a seeded mid-chain state restored into the
+   dense runtime (so every batch matches).  (a) under ``ingest.depth=
+   '2', emit.depth='auto'``; (b) at depths 1/1 in the same call, whose
+   callback batches (bit for bit, in order) and ``pattern_state()``
+   must equal (a)'s; (c) ``device="cpu"`` at (a)'s depths over the
+   warm-up and the first 2 timed batches (the cut), held to (a)'s first
+   batches.  Each prints events/s a window, the depth controllers'
+   depths, transfers a batch, zero-match skips, pending and staging
+   depths, overlapped batches and stalls, the interning share and the
+   dense ``stats()``.  Then ``product_batch`` (d): the capture-free
+   chain (``kernel_eligible_app``, the batch-step kernel's class) in
+   the same partition on the same batches, at (a)'s depths and at
+   ``ingest.depth='2', emit.depth='4'`` (several pending batches at
+   once) against itself at 1/1, one batch step a batch.
+21. auto_depths: the ``sliding_window`` device query and
+   ``partition_scaling_50000`` (a per-key running count, whose state
+   scatters are ``accumulate_``) at ``ingest.depth='auto',
+   emit.depth='auto'`` against their depth-1 runs (every output batch
+   bit for bit), and the skew-routed run at auto depths against
+   phase 6's routed run (callbacks and whole state after the first
+   window), with ``HotKeyRouter.stats()``.
+22. scan_engine: ``compile_scan_pattern`` on the card against
+   ``device="cpu"`` for ``tests/test_nfa_scan.py``'s three-node chain
+   with ``within`` and a 16-node chain, over one key's seeded stream of
+   65,536 events a batch, 8 batches: detections and starts equal, live
+   state lanes bit-equal; events/s and one batch's kernels under
+   ``torch.profiler``.
+23. functions: a ``[python]`` script function and a ``FunctionExecutor``
+   extension in a filter and a select under ``@app:execution('tpu')``
+   over 262,144 events: the query falls back to the host with one
+   WARNING, launches nothing, and gives the ``device="cpu"`` run's rows
+   and numpy's count; then ``validate_siddhi_app`` and
+   ``get_siddhi_app_runtimes()``.
+24. kernels: one line per ported kernel (launches on the main paths,
    largest difference from its plain version, ``ms``, ``host_us``,
    ``device_us``, plain and library times, bound); the bank kernel's at
    the entry the aggregation path uses, ``accumulate_``, with the delta
@@ -1209,16 +1246,18 @@ def bits_equal(torch, got, want) -> bool:
                for g, w in zip(got, want))
 
 
-def hot_key_app(hot: bool) -> str:
-    """bench.py's bench_hot_key app, verbatim, plus @app:kernels."""
+def hot_key_app(hot: bool, depths: str = "") -> str:
+    """bench.py's bench_hot_key app, verbatim, plus @app:kernels (and
+    ``depths``, an ``@app:execution`` option tail)."""
     return ("@app:name('hkbench{tag}') @app:playback "
-            "@app:execution('tpu', instances='8') {hot}"
+            "@app:execution('tpu', instances='8'{depths}) {hot}"
             "@app:kernels('nfa,scan') "
             "define stream S (k long, u double, v double); "
             "partition with (k of S) begin "
             "@info(name='q') from every a=S[v > 8.0] -> b=S[v > 12.0] "
             "select b.v as bv insert into Alerts; end;").format(
-                tag="H" if hot else "D", hot=HK_HOT if hot else "")
+                tag="H" if hot else "D", hot=HK_HOT if hot else "",
+                depths=", " + depths if depths else "")
 
 
 def hot_key_batches(EventBatch):
@@ -1269,7 +1308,7 @@ def tree_diff(a, b, path="") -> list:
 
 
 def run_hot_key(torch, SiddhiManager, EventBatch, bs, device, hot,
-                windows, keep_cycles):
+                windows, keep_cycles, depths=""):
     """bench_hot_key's run(): warm-up batches, then ``windows`` windows
     of the steady batches re-offset by (w+1)*1e6 ms, each drained (and
     synchronised on a card).  Keeps the callbacks of the first
@@ -1277,7 +1316,7 @@ def run_hot_key(torch, SiddhiManager, EventBatch, bs, device, hot,
     keeps its query's whole state after the first window.  Returns the
     still-running app and what it measured."""
     mgr = SiddhiManager(device=device)
-    rt = new_app(mgr, hot_key_app(hot))
+    rt = new_app(mgr, hot_key_app(hot, depths))
     rows, kept = [], []
 
     def cb(evs):
@@ -3188,7 +3227,7 @@ def read_launches(kernels) -> dict:
 
 
 def run_app(torch, SiddhiManager, StreamCallback, app, batches, device,
-            kernels, outs, keep=None, live=False):
+            kernels, outs, keep=None, live=False, setup=None):
     """``app`` over ``batches`` (EventBatches of any of its streams, in
     order) through ``SiddhiManager`` on ``device``: the output batches by
     stream (of the first ``keep`` input batches, all when None; ``rows``
@@ -3197,11 +3236,14 @@ def run_app(torch, SiddhiManager, StreamCallback, app, batches, device,
     event), the lowering, the card's allocations and the launches by
     kernel across it, the fallback WARNINGs of its creation, and the
     app runtime: shut down, or with ``live`` still running beside its
-    manager (``mgr``)."""
+    manager (``mgr``).  ``setup(mgr)`` runs before the app is created
+    (user extensions)."""
     before = card_allocs(torch)
     zero_launches(kernels)
     warned = ISOLATED.fallbacks
     mgr = SiddhiManager(device=device)
+    if setup is not None:
+        setup(mgr)
     rt = new_app(mgr, app)
     fallbacks = ISOLATED.fallbacks - warned
     got = {o: [] for o in outs}
@@ -3540,6 +3582,495 @@ def host_partitions_phase(torch, SiddhiManager, EventBatch, StreamCallback,
               "card": card})
         del got, cpu
     return total
+
+
+# -- phases 20-23: the product configuration, auto depths elsewhere, the
+# single-key scan engine, user functions --------------------------------------
+
+# bench.py:257-322 bench_product: 3 warm-up batches, then 3 windows of
+# the same 10 batches (bench.py:41-57)
+PRODUCT_WARMUP = 3
+PRODUCT_STEPS = 10
+PRODUCT_WINDOWS = 3
+PRODUCT_DEPTHS = "ingest.depth='2', emit.depth='auto'"
+AUTO_DEPTHS = "ingest.depth='auto', emit.depth='auto'"
+FIXED_DEPTHS = "ingest.depth='2', emit.depth='4'"
+# the CPU run (c): the warm-up batches and the first 2 timed ones
+PRODUCT_CPU_BATCHES = PRODUCT_WARMUP + 2
+# compile_scan_pattern: one hot key's stream, 65,536 events a batch
+SCAN_EVENTS = 1 << 16
+SCAN_BATCHES = 8
+SCAN_APPS = {
+    # tests/test_nfa_scan.py's three-node chain with within
+    "three_node_within": (
+        "define stream S (v double, n int); @info(name='q') from every "
+        "a=S[v > 10.0] -> b=S[v > 20.0] -> c=S[v > 30.0] within 1 sec "
+        "select a.v as av insert into Out;", 50.0),
+    # the 16-node capture-free chain (bench.py's kernel_eligible_app)
+    "chain_16": (
+        "define stream S (v double, n int); @info(name='q') from "
+        + " -> ".join(["every e1=S[v > 1.0]"] + [
+            f"e{i}=S[v > {float(i)}]" for i in range(2, 17)])
+        + " within 10 min select e16.v as v insert into Out;", 20.0),
+}
+UDF_EVENTS = 1 << 18
+UDF_BATCH = 8_192
+UDF_APP = (
+    "@app:playback @app:execution('tpu') "
+    "define function isBig[python] return bool { data[0] > 10 }; "
+    "define stream S (k long, v double); "
+    "@info(name='q') from S[isBig(k) and custom:scale(v) > 5.0] "
+    "select k, v, custom:scale(v) as sv, isBig(k) as big insert into Out;")
+
+
+def partitioned(flat: str) -> str:
+    """A flat pattern app's query inside ``partition with (key of Txn)``
+    (``bench.py``'s ``partitioned_app``)."""
+    i = flat.index("@info")
+    return (flat[:i] + "partition with (key of Txn) begin " + flat[i:]
+            + " end;")
+
+
+def product_app(depths: str, capturing: bool = True) -> str:
+    body = flat_app() if capturing else kernel_eligible_app()
+    sep = ", " if depths else ""
+    return ("@app:playback @app:execution('tpu', "
+            f"partitions='{N_PARTITIONS}'{sep}{depths}) " + partitioned(body))
+
+
+def product_batches(EventBatch):
+    """``bench.py``'s ``_product_batches(WARMUP + PRODUCT_STEPS,
+    N_PARTITIONS, BATCH)``: seed 11, stride-walked keys, v ~ U(0, 20),
+    one timestamp a batch."""
+    rng = np.random.default_rng(11)
+    out = []
+    for i in range(PRODUCT_WARMUP + PRODUCT_STEPS):
+        keys = ((np.arange(BATCH, dtype=np.int64) * 524287 + i * BATCH)
+                % N_PARTITIONS)
+        v = rng.uniform(0.0, float(N_STATES + 4), BATCH)
+        out.append(EventBatch("Txn", ["key", "v"], {"key": keys, "v": v},
+                              np.full(BATCH, 1_000 + i * 10,
+                                      dtype=np.int64)))
+    return out
+
+
+def run_product(torch, SiddhiManager, StreamCallback, app, device, batches,
+                windows, start, kernels):
+    """bench_product's sends through ``SiddhiManager`` on ``device``: the
+    warm-up batches, then ``windows`` windows of the timed ones (each
+    drained and synchronised at its end), from ``start``, a seeded
+    mid-chain state restored into the dense runtime (key ``k`` on row
+    ``k``).  Keeps every callback batch; returns the runtime's counters,
+    ``pattern_state()`` and the launches from the app's creation (its
+    engine's probe) to the last send."""
+    zero_launches(kernels)
+    mgr = SiddhiManager(device=device)
+    rt = new_app(mgr, app)
+    pr = rt.partitions["partition_0"]
+    if not pr.is_dense:
+        raise AssertionError("product app failed to lower densely")
+    runtime = pr.dense_query_runtimes["bench"].pattern_processor
+    kept = []
+
+    class Keep(StreamCallback):
+        def receive_batch(self, batch):
+            kept.append(batch)
+
+    rt.add_callback("Alerts", Keep())
+    rt.start()
+    host, base_ts = start
+    runtime.restore({"dense_state": host, "base_ts": base_ts,
+                     "key_rows": dict(zip(range(N_PARTITIONS),
+                                          range(N_PARTITIONS))),
+                     "next_row": N_PARTITIONS, "free_rows": []})
+    h = rt.get_input_handler("Txn")
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    for b in batches[:PRODUCT_WARMUP]:
+        h.send_batch(b)
+    window_s = []
+    for _w in range(windows):
+        sync()
+        t = time.perf_counter()
+        for b in batches[PRODUCT_WARMUP:]:
+            h.send_batch(b)
+        rt.drain()
+        sync()
+        window_s.append(time.perf_counter() - t)
+    launches = read_launches(kernels)
+    # the interning share of a batch, as bench_product measures it
+    keys = np.asarray(batches[PRODUCT_WARMUP].columns["key"])
+    t = time.perf_counter()
+    for _ in range(5):
+        runtime.intern_keys(keys)
+    intern_s = (time.perf_counter() - t) / 5
+    state = rt.pattern_state()
+    es, ist = runtime.emit_stats, runtime.ingest_stats
+    steps = max(runtime.step_invocations, 1)
+    events = BATCH * PRODUCT_STEPS
+    out = {"outs": {"Alerts": kept}, "window_s": window_s,
+           "pattern_state": state, "launches": launches,
+           "step_kind": runtime.engine.step_kind,
+           "counters": {
+               "events_per_s_windows": [events / s for s in window_s],
+               "intern_share": (intern_s * len(window_s) * PRODUCT_STEPS
+                                / max(sum(window_s), 1e-9)),
+               "matches": sum(len(b) for b in kept),
+               "emit_transfers_per_batch": es.emit_transfers / steps,
+               "zero_match_skip_rate": es.zero_match_skips / steps,
+               "max_pending_emit_depth": es.max_pending_depth,
+               "auto_emit_depth": es.auto_depth,
+               "ingest_auto_depth": ist.auto_depth,
+               "ingest_overlapped_batches": ist.overlapped_batches,
+               "ingest_stalls": ist.ingest_stalls,
+               "ingest_max_staging_depth": ist.max_staging_depth,
+               "emit": es.as_dict(), "ingest": ist.as_dict()}}
+    rt.shutdown()
+    mgr.shutdown()
+    return out
+
+
+def product_phase(torch, SiddhiManager, EventBatch, StreamCallback,
+                  kernels, card) -> dict:
+    """Phase 20: ``product``, bench_product's app and traffic at full
+    size: (a) at ``ingest.depth='2', emit.depth='auto'``, (b) the same at
+    depths 1/1, whose callback batches and ``pattern_state()`` must
+    equal (a)'s bit for bit, (c) ``device="cpu"`` at (a)'s depths over
+    the first 5 batches, held to (a)'s batches over them, and (d) the
+    capture-free chain (the batch-step kernel's class) in the same
+    partition at (a)'s depths and at ``FIXED_DEPTHS`` against itself at
+    1/1.  Each run starts
+    from one seeded mid-chain state so every batch matches.  Returns
+    the launches of (a) and (d) by kernel."""
+    from siddhi_tpu_torch.ops.dense_nfa import compile_pattern
+
+    batches = product_batches(EventBatch)
+    lines = {}
+    launches = dict.fromkeys(kernels, 0)
+    for capturing, label in ((True, "product"), (False, "product_batch")):
+        eng = compile_pattern(kernel_eligible_app() if not capturing
+                              else flat_app(), "bench",
+                              n_partitions=N_PARTITIONS,
+                              n_instances=N_INSTANCES, device="cpu")
+        start = mid_chain_state(eng, seed=29 if capturing else 31)
+        del eng
+        auto = run_product(torch, SiddhiManager, StreamCallback,
+                           product_app(PRODUCT_DEPTHS, capturing), "cuda",
+                           batches, PRODUCT_WINDOWS, start, kernels)
+        for k, n in auto["launches"].items():
+            launches[k] += n
+        gc.collect()
+        one = run_product(torch, SiddhiManager, StreamCallback,
+                          product_app("", capturing), "cuda", batches,
+                          PRODUCT_WINDOWS, start, kernels)
+        held = held_vs(auto, one)
+        # (d) once more with a fixed emit window of 4: several batches'
+        # pending outputs wait while later batch steps write the state
+        # in place, then leave in one coalesced fetch
+        fixed = (None if capturing else run_product(
+            torch, SiddhiManager, StreamCallback,
+            product_app(FIXED_DEPTHS, capturing), "cuda", batches,
+            PRODUCT_WINDOWS, start, kernels))
+        if fixed is not None:
+            if (fixed["pattern_state"] != one["pattern_state"]
+                    or fixed["counters"]["max_pending_emit_depth"] < 2):
+                raise AssertionError(f"{label}: at {FIXED_DEPTHS}: "
+                                     f"{fixed['pattern_state']} "
+                                     f"{fixed['counters']}")
+            held_fixed = held_vs(fixed, one)
+        if auto["pattern_state"] != one["pattern_state"]:
+            raise AssertionError(f"{label}: pattern_state() differs between "
+                                 f"the depths: {auto['pattern_state']} "
+                                 f"{one['pattern_state']}")
+        n_batches = PRODUCT_WARMUP + PRODUCT_STEPS * PRODUCT_WINDOWS
+        want_batch = 0 if capturing else n_batches
+        if (auto["launches"]["dense_batch"] != want_batch
+                or auto["launches"]["probe"] < 1
+                or auto["launches"]["dense_step"]
+                or auto["launches"]["scan_chain"]):
+            raise AssertionError(f"{label}: launches {auto['launches']}")
+        if not auto["counters"]["matches"]:
+            raise AssertionError(f"{label}: no matches")
+        line = {"phase": label, "partitions": N_PARTITIONS, "batch": BATCH,
+                "warmup_batches": PRODUCT_WARMUP, "windows": PRODUCT_WINDOWS,
+                "timed_batches_a_window": PRODUCT_STEPS,
+                "step_kind": auto["step_kind"],
+                "start": "a seeded mid-chain state restored into the dense "
+                         "runtime (key k on row k)",
+                "rows_held_depths": held,
+                "pattern_state": auto["pattern_state"]["bench"],
+                "launches": auto["launches"],
+                "depths_a": auto["counters"],
+                "depths_1": one["counters"]}
+        if fixed is not None:
+            line.update(rows_held_depths_2_4=held_fixed,
+                        depths_2_4=fixed["counters"])
+        del one, fixed
+        gc.collect()
+        if capturing:
+            # (c): the CPU at (a)'s depths over the first batches
+            cpu_batches = batches[:PRODUCT_CPU_BATCHES]
+            t = time.perf_counter()
+            cpu = run_product(torch, SiddhiManager, StreamCallback,
+                              product_app(PRODUCT_DEPTHS), "cpu",
+                              cpu_batches, 1, start, kernels)
+            cpu_s = time.perf_counter() - t
+            n_cpu = len(cpu["outs"]["Alerts"])
+            head = {"outs": {"Alerts": auto["outs"]["Alerts"][:n_cpu]}}
+            held_cpu = held_vs(head, cpu)
+            nxt = auto["outs"]["Alerts"][n_cpu:n_cpu + 1]
+            if nxt and int(nxt[0].timestamps[0]) <= int(
+                    cpu_batches[-1].timestamps[0]):
+                raise AssertionError("product: the card run has more output "
+                                     "over the CPU run's batches")
+            line.update(rows_held_vs_cpu=held_cpu, cpu_seconds=cpu_s,
+                        cpu_cut=f"the CPU run takes the {PRODUCT_WARMUP} "
+                                "warm-up batches and the first 2 timed "
+                                f"ones ({PRODUCT_CPU_BATCHES} of "
+                                f"{n_batches})")
+            del cpu
+        line["card"] = card
+        lines[label] = line
+        del auto
+        gc.collect()
+        torch.cuda.empty_cache()
+    for line in lines.values():
+        emit(line)
+    return launches
+
+
+def other_auto_phase(torch, SiddhiManager, EventBatch, StreamCallback,
+                     kernels, card, routed) -> dict:
+    """Phase 21: ``auto_depths``: the ``sliding_window`` device query and
+    ``partition_scaling_50000`` (a per-key running count, whose state
+    scatters are ``accumulate_``) at ``ingest.depth='auto',
+    emit.depth='auto'`` against their depth-1 runs (rows of every batch
+    bit for bit), and the skew-routed run at auto
+    depths against phase 6's routed run (callbacks and state after the
+    first window), with ``HotKeyRouter.stats()``.  Returns both runs'
+    launches by kernel."""
+    dq_launches = dict.fromkeys(kernels, 0)
+    for label, n_symbols, seed in (("sliding_window", 50, 61),
+                                   ("partition_scaling_50000", 50_000, 67)):
+        app1, pinned = DEVICE_QUERY_APPS[label]
+        app = app1.replace("partitions='65536')",
+                           f"partitions='65536', {AUTO_DEPTHS})")
+        if app == app1:
+            raise AssertionError(f"{label}: no execution annotation")
+        batches = dq_batches(EventBatch, n_symbols, seed)
+        one = run_app(torch, SiddhiManager, StreamCallback, app1, batches,
+                      "cuda", kernels, ("outputStream",), live=True)
+        auto = run_app(torch, SiddhiManager, StreamCallback, app, batches,
+                       "cuda", kernels, ("outputStream",), live=True)
+        for k, n in auto["launches"].items():
+            dq_launches[k] += n
+        held = held_vs(auto, one)
+        dq_rt = auto["rt"]._all_query_runtimes()["q0"].device_runtime
+        dq_counters = {"emit": dq_rt.emit_stats.as_dict(),
+                       "ingest": dq_rt.ingest_stats.as_dict()}
+        for run in (one, auto):
+            run["rt"].shutdown()
+            run["mgr"].shutdown()
+        if (auto["lowering"] != pinned or held != auto["rows"]
+                or not held or any(v for k, v in auto["launches"].items()
+                                   if k != "bank_scatter")):
+            raise AssertionError(f"{label} at auto depths: lowering "
+                                 f"{auto['lowering']}, held {held} of "
+                                 f"{auto['rows']}, launches "
+                                 f"{auto['launches']}")
+        emit({"phase": "auto_depths", "path": "device_query", "app": label,
+              "events": DQ_EVENTS, "batch": DQ_BATCH,
+              "rows_held_vs_depth_1": held,
+              "events_per_s": DQ_EVENTS / auto["secs"],
+              "events_per_s_depth_1": DQ_EVENTS / one["secs"],
+              **dq_counters, "launches": auto["launches"], "card": card})
+    # the running count's state scatters are kernel 3's accumulate_
+    if dq_launches["bank_scatter"] < 1:
+        raise AssertionError(f"device queries at auto depths launched no "
+                             f"accumulate_: {dq_launches}")
+
+    bs = hot_key_batches(EventBatch)
+    keep = HK_WARMUP + HK_STEPS
+    zero_launches(kernels)
+    mgr, rt, got = run_hot_key(torch, SiddhiManager, EventBatch, bs, "cuda",
+                               True, HK_WINDOWS, keep, depths=AUTO_DEPTHS)
+    hk_launches = read_launches(kernels)
+    router = rt.pattern_runtimes()["q"]
+    stats = router.stats()
+    dense = router._dense
+    counters = {"emit": dense.emit_stats.as_dict(),
+                "ingest": dense.ingest_stats.as_dict()}
+    rt.shutdown()
+    mgr.shutdown()
+    as_rows = lambda kept: [[(e.timestamp, e.data) for e in evs]
+                            for evs in kept]
+    if as_rows(got["kept"]) != as_rows(routed["kept"]):
+        raise AssertionError("routed callbacks at auto depths differ from "
+                             "the depth-1 routed run")
+    state_diff = tree_diff(got["state"], routed["state"])
+    if state_diff:
+        raise AssertionError(f"routed state at auto depths differs: "
+                             f"{state_diff}")
+    n_hk = HK_WARMUP + HK_STEPS * HK_WINDOWS
+    if (hk_launches["dense_batch"] != n_hk or hk_launches["scan_chain"] < 1
+            or stats["engine"] != "hotkey"
+            or stats["hotkeyPromotions"] < 1):
+        raise AssertionError(f"routed run at auto depths: launches "
+                             f"{hk_launches}, stats {stats}")
+    steady = HK_BATCH * HK_STEPS
+    emit({"phase": "auto_depths", "path": "skew_routed",
+          "bit_exact_cycles_vs_depth_1": keep,
+          "bit_exact_state_vs_depth_1": sorted(got["state"]),
+          "events_per_s_windows": [steady / t for t in got["window_s"]],
+          "events_per_s": steady * HK_WINDOWS / sum(got["window_s"]),
+          "events_per_s_depth_1": steady * HK_WINDOWS
+                                  / sum(routed["window_s"]),
+          "router_stats": stats, **counters, "launches": hk_launches,
+          "card": card})
+    return {k: dq_launches[k] + hk_launches[k] for k in kernels}
+
+
+def scan_engine_phase(torch, card) -> None:
+    """Phase 22: ``scan_engine``, ``compile_scan_pattern`` on the card
+    against ``device="cpu"`` over one hot key's seeded stream, 65,536
+    events a batch, 8 batches: the same detections and starts, live
+    state lanes bit-equal.  Events/s on the card (synchronised a batch)
+    and on the CPU, and one batch's kernels under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from siddhi_tpu_torch.ops.nfa_scan import NEG, compile_scan_pattern
+
+    for label, (app, v_high) in SCAN_APPS.items():
+        rng = np.random.default_rng(37)
+        batches = []
+        t0 = 1000
+        for _ in range(SCAN_BATCHES + 1):
+            ts = t0 + np.cumsum(rng.integers(0, 20, SCAN_EVENTS))
+            t0 = int(ts[-1]) + 1
+            batches.append(({"v": rng.uniform(0.0, v_high, SCAN_EVENTS),
+                             "n": rng.integers(0, 5, SCAN_EVENTS)},
+                            ts.astype(np.int64)))
+        card_eng = compile_scan_pattern(app, "q", device="cuda")
+        cpu_eng = compile_scan_pattern(app, "q", device="cpu")
+        gs, cs = card_eng.init_state(), cpu_eng.init_state()
+        card_s, cpu_s, detections = [], 0.0, 0
+        for cols, ts in batches[:SCAN_BATCHES]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            gs, gi, gst = card_eng.process(gs, cols, ts)
+            torch.cuda.synchronize()
+            card_s.append(time.perf_counter() - t)
+            t = time.perf_counter()
+            cs, ci, cst = cpu_eng.process(cs, cols, ts)
+            cpu_s += time.perf_counter() - t
+            gv, cv = gs.cpu().numpy(), cs.numpy()
+            live = cv > NEG / 2
+            if not (np.array_equal(gi, ci) and np.array_equal(gst, cst)
+                    and np.array_equal(live, gv > NEG / 2)
+                    and gv[live].tobytes() == cv[live].tobytes()):
+                raise AssertionError(f"scan engine ({label}): the card "
+                                     "differs from the CPU run")
+            detections += len(gi)
+        if not detections:
+            raise AssertionError(f"scan engine ({label}): no detections")
+        cols, ts = batches[SCAN_BATCHES]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            card_eng.process(gs, cols, ts)
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
+        emit({"phase": "scan_engine", "case": label,
+              "nodes": card_eng.n_nodes, "events_a_batch": SCAN_EVENTS,
+              "batches": SCAN_BATCHES, "detections": detections,
+              "bit_exact_vs_cpu": True,
+              "chunk_events": card_eng._chunk_len(),
+              "events_per_s": SCAN_EVENTS * SCAN_BATCHES / sum(card_s),
+              "batch_ms": [1e3 * s for s in card_s],
+              "cpu_events_per_s": SCAN_EVENTS * SCAN_BATCHES / cpu_s,
+              "kernels_per_batch": len(dev) - len(copies),
+              "copies_per_batch": len(copies),
+              "device_us_per_batch": sum(e.time_range.elapsed_us()
+                                         for e in dev),
+              "card": card})
+
+
+def udf_batches(EventBatch):
+    rng = np.random.default_rng(41)
+    out = []
+    for lo in range(0, UDF_EVENTS, UDF_BATCH):
+        ts = 1000 + (lo + np.arange(UDF_BATCH, dtype=np.int64)) // 8
+        out.append(EventBatch("S", ["k", "v"], {
+            "k": rng.integers(0, 20, UDF_BATCH).astype(np.int64),
+            "v": np.round(rng.uniform(0.0, 100.0, UDF_BATCH), 3)}, ts))
+    return out
+
+
+def functions_phase(torch, SiddhiManager, EventBatch, StreamCallback,
+                    kernels, card) -> dict:
+    """Phase 23: ``functions``, a ``[python]`` script function and a
+    ``FunctionExecutor`` extension in a filter and a select under
+    ``@app:execution('tpu')``: the query falls back to the host with one
+    WARNING, launches nothing, and gives the ``device="cpu"`` run's rows
+    and numpy's count.  Then the manager's ``validate_siddhi_app`` and
+    ``get_siddhi_app_runtimes()``.  Returns the card run's launches."""
+    from siddhi_tpu_torch.extension.function import FunctionExecutor
+    from siddhi_tpu_torch.query_api import AttrType
+
+    class Scale(FunctionExecutor):
+        return_type = AttrType.DOUBLE
+
+        def execute(self, v):
+            return v * 0.5
+
+    setup = lambda mgr: mgr.set_extension("custom:scale", Scale,
+                                          kind="function")
+    batches = udf_batches(EventBatch)
+    card_run = run_app(torch, SiddhiManager, StreamCallback, UDF_APP,
+                       batches, "cuda", kernels, ("Out",), setup=setup)
+    cpu_run = run_app(torch, SiddhiManager, StreamCallback, UDF_APP,
+                      batches, "cpu", kernels, ("Out",), setup=setup)
+    held = held_vs(card_run, cpu_run)
+    want = sum(int(((b.columns["k"] > 10)
+                    & (b.columns["v"] * 0.5 > 5.0)).sum()) for b in batches)
+    if (card_run["lowering"] != {"q": "host"} or card_run["fallbacks"] != 1
+            or any(card_run["launches"].values())
+            or card_run["rows"] != want or held != want):
+        raise AssertionError(f"functions: lowering {card_run['lowering']}, "
+                             f"fallbacks {card_run['fallbacks']}, launches "
+                             f"{card_run['launches']}, rows "
+                             f"{card_run['rows']}, held {held}, numpy {want}")
+    mgr = SiddhiManager()
+    setup(mgr)
+    mgr.validate_siddhi_app(UDF_APP)
+    try:
+        mgr.validate_siddhi_app(UDF_APP.replace("isBig(k)", "nope(k)"))
+        bad = "accepted"
+    except Exception as e:  # the refusal is the result
+        bad = f"{type(e).__name__}: {e}"
+    rt = mgr.create_siddhi_app_runtime("@app:name('udfApp') " + UDF_APP)
+    runtimes = sorted(mgr.get_siddhi_app_runtimes())
+    rt.shutdown()
+    mgr.shutdown()
+    if runtimes != ["udfApp"] or bad == "accepted":
+        raise AssertionError(f"manager APIs: runtimes {runtimes}, "
+                             f"invalid app {bad}")
+    n_batches = len(batches)
+    emit({"phase": "functions", "events": UDF_EVENTS, "batch": UDF_BATCH,
+          "lowering": card_run["lowering"],
+          "fallback_warnings": card_run["fallbacks"],
+          "rows": card_run["rows"], "rows_numpy": want,
+          "rows_held_vs_cpu": held,
+          "events_per_s": UDF_EVENTS / card_run["secs"],
+          "ms_a_batch": 1e3 * card_run["secs"] / n_batches,
+          "cpu_events_per_s": UDF_EVENTS / cpu_run["secs"],
+          "card_allocations": card_run["allocs"],
+          "launches": card_run["launches"],
+          "validate_siddhi_app": "valid",
+          "validate_unknown_function": bad,
+          "get_siddhi_app_runtimes": runtimes, "card": card})
+    return card_run["launches"]
 
 
 def main() -> int:
@@ -4087,10 +4618,23 @@ def main() -> int:
     hpart_launches = host_partitions_phase(
         torch, SiddhiManager, EventBatch, StreamCallback, all_kernels, card,
         dq_rates)
+
+    # 20-23. the product configuration, auto depths on the other device
+    # paths, the single-key scan engine, user functions ----------------
+    gc.collect()
+    product_launches = product_phase(torch, SiddhiManager, EventBatch,
+                                     StreamCallback, all_kernels, card)
+    gc.collect()
+    auto_launches = other_auto_phase(torch, SiddhiManager, EventBatch,
+                                     StreamCallback, all_kernels, card,
+                                     routed)
+    scan_engine_phase(torch, card)
+    udf_launches = functions_phase(torch, SiddhiManager, EventBatch,
+                                   StreamCallback, all_kernels, card)
     emit({"phase": "isolated_errors", "errors": 0,
           "warnings_to_listeners_or_log": ISOLATED.warnings})
 
-    # 20. kernels -------------------------------------------------------------
+    # 24. kernels -------------------------------------------------------------
     by_path = lambda name: {"dense_1M": launches.get(name, 0),
                             "skew_routed": hk_launches.get(name, 0),
                             "aggregation": agg_launches[name],
@@ -4102,13 +4646,19 @@ def main() -> int:
                             # the dense runs beside the host engine; the
                             # host engine and the instances launch none
                             "host_patterns": hp_launches[name],
-                            "host_partitions": hpart_launches[name]}
+                            "host_partitions": hpart_launches[name],
+                            # (a) and (d) of the product phase
+                            "product": product_launches[name],
+                            "auto_depths": auto_launches[name],
+                            "functions": udf_launches[name]}
     emit({"kernels": [
         {"name": "dense_batch", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/dense_batch.cu",
          "replaces": "siddhi_tpu/kernels/dense_step.py:154",
          "launches": (launches["dense_batch"] + hk_launches["dense_batch"]
-                      + hp_launches["dense_batch"]),
+                      + hp_launches["dense_batch"]
+                      + product_launches["dense_batch"]
+                      + auto_launches["dense_batch"]),
          "launches_by_path": by_path("dense_batch"),
          "max_abs_err": batch_err,
          # the 1 M cell's batch; the routed cold sub-batch beside it
@@ -4129,13 +4679,15 @@ def main() -> int:
          "launches": (launches["probe"] + hk_launches["probe"]
                       + agg_launches["probe"] + gen_launches["probe"]
                       + pb_launches["probe"] + absent_launches["probe"]
-                      + rollup_launches["probe"] + hp_launches["probe"]),
+                      + rollup_launches["probe"] + hp_launches["probe"]
+                      + product_launches["probe"] + auto_launches["probe"]),
          "launches_by_path": by_path("probe"), "max_abs_err": probe_err,
          **{k: probe_line[k] for k in KERNEL_KEYS}},
         {"name": "scan_chain", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/scan_chain.cu",
          "replaces": "siddhi_tpu/kernels/scan_chain.py:91",
-         "launches": hk_launches["scan_chain"],
+         "launches": hk_launches["scan_chain"]
+                     + auto_launches["scan_chain"],
          "launches_by_path": by_path("scan_chain"), "max_abs_err": scan_err,
          # the routed path's shape; the widest legal one beside it
          "case": "H=8, n=2048, S=2",
@@ -4145,7 +4697,8 @@ def main() -> int:
          "source": "siddhi_tpu_torch/kernels/csrc/bank_scatter.cu",
          "replaces": "siddhi_tpu/kernels/bank_scatter.py:76",
          "launches": agg_launches["bank_scatter"]
-                     + dq_launches["bank_scatter"],
+                     + dq_launches["bank_scatter"]
+                     + auto_launches["bank_scatter"],
          "launches_by_path": by_path("bank_scatter"),
          "launches_by_entry": bank_by_entry,
          "max_abs_err": bank_err,

@@ -22,7 +22,13 @@ The slices so far:
   runtime and, under ``@app:execution('tpu')``, on the device query
   path (``compile_query`` builds its engine alone): filters, running
   aggregates, sliding and tumbling windows and group by as torch ops,
-  inside a partition too.
+  inside a partition too;
+- the product path's ``ingest.depth``/``emit.depth`` take ``'auto'``,
+  ``rt.pattern_state()`` reads each pattern engine's occupancy, and
+  ``compile_scan_pattern`` builds the single-key max-plus scan engine;
+- ``define function`` scripts, ``SiddhiManager.set_extension`` (custom
+  functions, windows, aggregators, stream processors) and the
+  manager's validate, sandbox, attribute and registry APIs.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
@@ -34,6 +40,7 @@ from siddhi_tpu_torch.ops.dense_nfa import (
     state_from_numpy,
     state_to_numpy,
 )
+from siddhi_tpu_torch.ops.nfa_scan import compile_scan_pattern
 
 __all__ = ["SiddhiManager", "compile_pattern", "compile_query",
-           "state_from_numpy", "state_to_numpy"]
+           "compile_scan_pattern", "state_from_numpy", "state_to_numpy"]

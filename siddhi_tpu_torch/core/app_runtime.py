@@ -15,17 +15,20 @@ aggregations subscribed to their input junctions (``aggregations``,
 input handlers, the app scheduler (window ticks, rate limits,
 absent-deadline timers, timeBatch panes and ``@purge``) with the
 ``@app:playback(idle.time, increment)`` idle heartbeat, exception
-listeners, ``start``, ``shutdown`` and ``lowering()``.  An app outside
-the slices raises ``SiddhiAppCreationError`` naming the ``ROADMAP.md``
-item that ports it: tables, named windows and triggers (item 9),
-functions (item 10).
+listeners, ``start``, ``shutdown``, ``lowering()`` and the introspection
+of ``get_stream_definitions()``, ``query_names()`` and
+``pattern_state()``.  User functions (``define function`` scripts and
+``function`` extensions) compile from the app's copy of its manager's
+extension registry.  An app outside the slices raises
+``SiddhiAppCreationError`` naming the ``ROADMAP.md`` item that ports
+it: tables, named windows and triggers (item 9).
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, Dict, Union
+from typing import Callable, Dict, List, Union
 
 from siddhi_tpu_torch.aggregation.runtime import AggregationRuntime
 from siddhi_tpu_torch.core.exceptions import (
@@ -43,28 +46,44 @@ from siddhi_tpu_torch.core.stream import (
     StreamCallback,
     StreamJunction,
 )
-from siddhi_tpu_torch.extension.registry import default_registry
+from siddhi_tpu_torch.extension.function import build_functions
 from siddhi_tpu_torch.planner.app_planner import plan_app_context
 from siddhi_tpu_torch.planner.query_planner import plan_query
 from siddhi_tpu_torch.query_api import Query, SingleInputStream
 
 
 class SiddhiAppRuntime:
-    def __init__(self, siddhi_app, device):
+    def __init__(self, siddhi_app, device, siddhi_context):
         self.siddhi_app = siddhi_app
         self.app_context = plan_app_context(siddhi_app, device)
         self.name = self.app_context.name
-        for what, defs, item in (
-                ("tables", siddhi_app.table_definitions, 9),
-                ("named windows", siddhi_app.window_definitions, 9),
-                ("triggers", siddhi_app.trigger_definitions, 9),
-                ("functions", siddhi_app.function_definitions, 10)):
+        for what, defs in (
+                ("tables", siddhi_app.table_definitions),
+                ("named windows", siddhi_app.window_definitions),
+                ("triggers", siddhi_app.trigger_definitions)):
             if defs:
                 raise SiddhiAppCreationError(
                     f"app '{self.name}': {what} ({', '.join(defs)})"
-                    + later_slice(item, what))
-        # the built-in windows and stream functions
-        self.extensions = default_registry()
+                    + later_slice(9, what))
+        # sources and sinks come with item 15; their planner (with item
+        # 9's stores) is what reads the manager's config manager, data
+        # sources and handler managers
+        transports = [f"@{a.name.lower()}(type='{a.element('type')}') on "
+                      f"'{sid}'"
+                      for sid, d in siddhi_app.stream_definitions.items()
+                      for a in d.annotations
+                      if a.name.lower() in ("source", "sink")]
+        if transports:
+            raise SiddhiAppCreationError(
+                f"app '{self.name}': {', '.join(transports)}"
+                + later_slice(15, "sources and sinks"))
+        # a copy of the manager's registry: the built-ins and the user
+        # extensions set before this app was created
+        self.extensions = siddhi_context.extensions.copy()
+        # name -> host function builder: function extensions and
+        # ``define function`` scripts
+        self.functions = build_functions(self.extensions,
+                                         siddhi_app.function_definitions)
         self.definitions = dict(siddhi_app.stream_definitions)
         self.junctions: Dict[str, StreamJunction] = {
             sid: StreamJunction(d, self.app_context)
@@ -153,6 +172,26 @@ class SiddhiAppRuntime:
                 for n, qr in self._all_query_runtimes().items()
                 if qr.pattern_processor is not None
                 and qr.device_processor is not None}
+
+    def get_stream_definitions(self):
+        return self.siddhi_app.stream_definitions
+
+    def query_names(self) -> List[str]:
+        return list(self.query_runtimes)
+
+    def pattern_state(self) -> Dict[str, Dict]:
+        """Engine state of every pattern or sequence query, under the app
+        lock: a dense runtime's or the router's ``stats()`` (partition
+        and lane occupancy, overflow; a barrier first), the host engine's
+        live instances; a partition's device-lowered queries too
+        (reference: SiddhiAppRuntime.pattern_state)."""
+        with self.app_context.process_lock:
+            out: Dict[str, Dict] = {}
+            for name, qr in self._all_query_runtimes().items():
+                pp = getattr(qr, "pattern_processor", None)
+                if pp is not None and hasattr(pp, "stats"):
+                    out[name] = pp.stats()
+            return out
 
     @property
     def scheduler(self):

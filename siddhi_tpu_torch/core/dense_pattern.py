@@ -55,6 +55,7 @@ from siddhi_tpu_torch.core.ingest_stage import (
     IngestStage,
     IngestStats,
     staged_put,
+    step_probe,
 )
 from siddhi_tpu_torch.core.stream import notify_listeners
 from siddhi_tpu_torch.kernels.dense_step import candidate_env
@@ -452,7 +453,8 @@ class DensePatternRuntime:
 
         # the match-count fetch (resolve) is the blocking device sync;
         # with ingest.depth > 1 it runs after the next batch's dispatch
-        self.ingest_stage.submit(_finish)
+        self.ingest_stage.submit(
+            None if pending is None else step_probe(eng.device), _finish)
 
     def drain(self):
         """Flush barrier: the ingest stage first (staged batches enqueue
@@ -485,6 +487,38 @@ class DensePatternRuntime:
         occupied (0: the match set is exact).  Reduced on the device; one
         scalar crosses to the host."""
         return int(fetch_coalesced([self.state["overflow"].sum()])[0])
+
+    def stats(self) -> Dict:
+        """Partition and lane occupancy (``pattern_state()``), as the
+        reference reports it: ``active_instances`` counts the pending
+        lanes of rows in use (interned keys; row 0 when unpartitioned).
+        A barrier first; the lane counts and the overflow cross to the
+        host in one ``fetch_coalesced``."""
+        self.drain()
+        eng = self.engine
+        partitioned = eng.n_partitions > 1
+        active = self.state["active"]
+        if self._key_rows:
+            rows = torch.as_tensor(
+                np.fromiter(self._key_rows.values(), dtype=np.int64,
+                            count=len(self._key_rows)), device=eng.device)
+            act = active[rows].sum()
+        elif not partitioned:
+            act = active[0].sum()
+        else:
+            act = None
+        got = fetch_coalesced([self.state["overflow"].sum()]
+                              + ([] if act is None else [act]))
+        return {
+            "engine": "dense",
+            "partitions_in_use": (
+                len(self._key_rows) if partitioned else 1),
+            "partition_capacity": eng.n_partitions,
+            "instance_lanes": eng.I,
+            "active_instances": 0 if act is None else int(got[1]),
+            "dropped_instances": int(got[0]),
+            "step_invocations": self.step_invocations,
+        }
 
     def _check_overflow(self):
         total = self.overflow_total()

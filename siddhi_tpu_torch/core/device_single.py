@@ -28,7 +28,11 @@ from siddhi_tpu_torch.core import event as ev
 from siddhi_tpu_torch.core.emit_queue import EmitQueue, EmitStats, PendingEmit
 from siddhi_tpu_torch.core.event import EventBatch
 from siddhi_tpu_torch.core.exceptions import SiddhiAppRuntimeError
-from siddhi_tpu_torch.core.ingest_stage import IngestStage, IngestStats
+from siddhi_tpu_torch.core.ingest_stage import (
+    IngestStage,
+    IngestStats,
+    step_probe,
+)
 
 
 class DeviceQueryRuntime:
@@ -90,7 +94,8 @@ class DeviceQueryRuntime:
 
         # the count fetch (resolve) is the blocking device sync; with
         # ingest.depth > 1 it runs after the next batch's dispatch
-        self.ingest_stage.submit(_finish)
+        self.ingest_stage.submit(
+            None if pending is None else step_probe(eng.device), _finish)
 
     def drain(self):
         """Flush barrier: the ingest stage first (staged batches enqueue

@@ -9,10 +9,13 @@ Port of the JAX package's ``core/emit_queue.py``:
 - ``PendingEmit``: one junction batch whose match outputs are still on
   the device, with the materializer that turns the fetched host arrays
   into the batch's emit.
-- ``EmitQueue``: a FIFO of pending emits of a fixed integer depth; when
-  it holds ``depth`` entries, all of them drain with one coalesced fetch.
-  Depth 1 (the default) drains right after each batch.  The reference's
-  ``emit.depth='auto'`` controller is a later slice of the port.
+- ``EmitDepthController``: the adaptive depth of ``emit.depth='auto'``
+  (and ``ingest.depth='auto'``), from decaying averages of the batch
+  cadence and the drain round trip.
+- ``EmitQueue``: a FIFO of pending emits; when it holds ``depth``
+  entries, all of them drain with one coalesced fetch.  Depth 1 (the
+  default) drains right after each batch; ``'auto'`` re-derives the
+  depth at every push.
 
 Entries drain strictly FIFO and each materializes into exactly the batch
 the synchronous path would emit, so callback content and order do not
@@ -26,7 +29,9 @@ harness, which counts and routes such failures, is a later slice.
 from __future__ import annotations
 
 import logging
-from typing import Callable, Dict, List, Sequence, Tuple
+import math
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -70,13 +75,25 @@ class EmitStats:
     """Transfer counters of one device runtime (host ints)."""
 
     __slots__ = ("emit_transfers", "deferred_batches", "zero_match_skips",
-                 "max_pending_depth")
+                 "max_pending_depth", "auto_depth")
 
     def __init__(self):
         self.emit_transfers = 0
         self.deferred_batches = 0
         self.zero_match_skips = 0
         self.max_pending_depth = 0
+        # the depth the 'auto' controller runs at (0: a fixed depth)
+        self.auto_depth = 0
+
+    def as_dict(self) -> dict:
+        """The counters under the reference's statistics names."""
+        return {
+            "emitTransfers": self.emit_transfers,
+            "deferredBatches": self.deferred_batches,
+            "zeroMatchSkips": self.zero_match_skips,
+            "maxPendingDepth": self.max_pending_depth,
+            "autoEffectiveDepth": self.auto_depth,
+        }
 
 
 class PendingEmit:
@@ -90,14 +107,65 @@ class PendingEmit:
         self.materialize = materialize
 
 
-class EmitQueue:
-    """Bounded FIFO of pending emits, drained with one coalesced fetch."""
+class EmitDepthController:
+    """Adaptive depth for ``'auto'``: the number of batches that arrive
+    during one drain round trip.  Decaying averages (newest sample's
+    weight ``ALPHA``) of the gap between pushes (``note_push``) and of
+    the fetch time (``note_drain``) give
 
-    def __init__(self, depth: int = 1, stats: EmitStats = None):
-        if isinstance(depth, str):
-            raise ValueError(
-                f"emit queue depth {depth!r}: the port takes a positive "
-                "integer; emit.depth='auto' is a later slice of the port")
+        effective_depth = clamp(ceil(rtt_ema / gap_ema), 1, AUTO_DEPTH_MAX)
+
+    after every sample; ``AUTO_DEPTH_MAX`` bounds the window as a
+    written depth would."""
+
+    AUTO_DEPTH_MAX = 32
+    ALPHA = 0.2
+
+    __slots__ = ("_gap_ema", "_rtt_ema", "_last_push", "effective_depth")
+
+    def __init__(self):
+        self._gap_ema: Optional[float] = None
+        self._rtt_ema: Optional[float] = None
+        self._last_push: Optional[float] = None
+        self.effective_depth = 1
+
+    def _ema(self, old: Optional[float], sample: float) -> float:
+        if old is None:
+            return sample
+        return old + self.ALPHA * (sample - old)
+
+    def note_push(self, t: Optional[float] = None):
+        """One queued batch at ``t`` (monotonic seconds; the clock when
+        None)."""
+        if t is None:
+            t = time.monotonic()
+        if self._last_push is not None:
+            self._gap_ema = self._ema(self._gap_ema, t - self._last_push)
+        self._last_push = t
+        self._recompute()
+
+    def note_drain(self, seconds: float):
+        """The fetch time of one drain."""
+        self._rtt_ema = self._ema(self._rtt_ema, seconds)
+        self._recompute()
+
+    def _recompute(self):
+        if not self._gap_ema or self._rtt_ema is None:
+            return  # no cadence yet: keep the current depth
+        depth = math.ceil(self._rtt_ema / self._gap_ema)
+        self.effective_depth = max(1, min(depth, self.AUTO_DEPTH_MAX))
+
+
+class EmitQueue:
+    """Bounded FIFO of pending emits, drained with one coalesced fetch.
+    ``depth`` is a positive integer or ``'auto'`` (an
+    ``EmitDepthController`` sets it at every push)."""
+
+    def __init__(self, depth=1, stats: EmitStats = None):
+        self.controller: Optional[EmitDepthController] = None
+        if depth == "auto":
+            self.controller = EmitDepthController()
+            depth = 1
         self.depth = max(1, int(depth))
         self.stats = stats or EmitStats()
         self._entries: List[PendingEmit] = []
@@ -106,6 +174,10 @@ class EmitQueue:
         return len(self._entries)
 
     def push(self, entry: PendingEmit):
+        if self.controller is not None:
+            self.controller.note_push()
+            self.depth = self.controller.effective_depth
+            self.stats.auto_depth = self.depth
         self._entries.append(entry)
         self.stats.max_pending_depth = max(self.stats.max_pending_depth,
                                            len(self._entries))
@@ -128,8 +200,15 @@ class EmitQueue:
             arrays: List = []
             for e in entries:
                 arrays.extend(e.arrays)
+            had_device = any(isinstance(a, torch.Tensor) for a in arrays)
+            # the controller samples the fetch only when it crossed from
+            # the device
+            t0 = (time.monotonic()
+                  if self.controller is not None and had_device else None)
             host = fetch_coalesced(arrays)
-            if any(isinstance(a, torch.Tensor) for a in arrays):
+            if t0 is not None:
+                self.controller.note_drain(time.monotonic() - t0)
+            if had_device:
                 self.stats.emit_transfers += 1
             off = 0
             for e in entries:

@@ -43,7 +43,7 @@ import torch
 from siddhi_tpu_torch.core import event as ev
 from siddhi_tpu_torch.core.emit_queue import PendingEmit, fetch_coalesced
 from siddhi_tpu_torch.core.event import EventBatch
-from siddhi_tpu_torch.core.ingest_stage import staged_put
+from siddhi_tpu_torch.core.ingest_stage import staged_put, step_probe
 
 log = logging.getLogger("siddhi_tpu_torch")
 
@@ -155,6 +155,16 @@ class HotKeyRouterRuntime:
             "hotkeyRoutedEvents": s.routed_events,
             "hotkeyActiveKeys": len(self._slots),
         }
+
+    def stats(self) -> Dict:
+        """The dense runtime's ``stats()`` with the hot slots: their
+        count, the slot of each promoted key and ``hot_metrics()``."""
+        d = self._dense.stats()
+        d["engine"] = "hotkey"
+        d["hot_slots"] = self._scan.n_slots
+        d["hot_keys"] = [rec["slot"] for rec in self._slots.values()]
+        d.update(self.hot_metrics())
+        return d
 
     # -- state handoff -------------------------------------------------------
 
@@ -312,7 +322,7 @@ class HotKeyRouterRuntime:
             dense.emit_queue.push(PendingEmit(
                 [emit], lambda host: self._emit_hot(host, m, oc, t)))
 
-        dense.ingest_stage.submit(_finish)
+        dense.ingest_stage.submit(step_probe(scan.device), _finish)
 
     def _out_pairs(self):
         """(output name, final-node attribute) pairs — eligibility

@@ -6,12 +6,15 @@ Port of the JAX package's ``core/ingest_stage.py``:
   numpy arrays (tuples, lists and dicts of them) onto a device as torch
   tensors, and counts one put into ``stats`` when given.
 - ``IngestStats``: per-runtime staging counters.
-- ``IngestStage``: a window of a fixed integer depth.  ``submit(finish)``
-  records one dispatched batch whose count gate has not been
+- ``step_probe``: the readiness probe of a dispatched step, a
+  ``torch.cuda.Event`` recorded after it on the current stream (on the
+  CPU, where every op has finished when it returns, always ready).
+- ``IngestStage``: a window of ``depth`` entries.  ``submit(probe,
+  finish)`` records one dispatched batch whose count gate has not been
   fetched yet; the oldest entry's ``finish`` (fetch the count, enqueue or
   skip the emit) runs once the window holds ``depth`` entries.  Depth 1
-  (the default) finishes inline.  The reference's ``ingest.depth='auto'``
-  controller is a later slice of the port.
+  (the default) finishes inline; ``'auto'`` re-derives the depth at
+  every submit with the emit queue's ``EmitDepthController``.
 
 State advances at receive time; only the count fetch and the emit
 enqueue defer.  Runtimes flush the stage before they drain their emit
@@ -20,23 +23,44 @@ queue, so callback content and order do not depend on the depth.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional
+import time
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from siddhi_tpu_torch.core.emit_queue import EmitDepthController
 
 
 class IngestStats:
     """Staging counters of one device runtime (host ints)."""
 
-    __slots__ = ("staged_batches", "device_puts", "flush_syncs",
-                 "max_staging_depth")
+    __slots__ = ("staged_batches", "device_puts", "ingest_stalls",
+                 "overlapped_batches", "flush_syncs", "max_staging_depth",
+                 "auto_depth")
 
     def __init__(self):
         self.staged_batches = 0
         self.device_puts = 0
+        # non-barrier finishes whose step had (not) finished by then
+        self.ingest_stalls = 0
+        self.overlapped_batches = 0
         self.flush_syncs = 0
         self.max_staging_depth = 0
+        # the window the 'auto' controller runs at (0: a fixed depth)
+        self.auto_depth = 0
+
+    def as_dict(self) -> dict:
+        """The counters under the reference's statistics names."""
+        return {
+            "stagedBatches": self.staged_batches,
+            "devicePuts": self.device_puts,
+            "ingestStalls": self.ingest_stalls,
+            "overlappedBatches": self.overlapped_batches,
+            "flushSyncs": self.flush_syncs,
+            "maxStagingDepth": self.max_staging_depth,
+            "autoIngestDepth": self.auto_depth,
+        }
 
 
 def staged_put(x, device, stats: Optional[IngestStats] = None):
@@ -57,34 +81,85 @@ def _put(x, device):
     raise TypeError(f"staged_put: unsupported leaf {type(x).__name__}")
 
 
+class _Ready:
+    """The CPU's probe: a CPU op has finished when it returns."""
+
+    @staticmethod
+    def is_ready() -> bool:
+        return True
+
+
+class _EventProbe:
+    __slots__ = ("event",)
+
+    def __init__(self, event):
+        self.event = event
+
+    def is_ready(self) -> bool:
+        return self.event.query()
+
+
+def step_probe(device):
+    """A probe of every op enqueued so far on ``device``: ``is_ready()``
+    is True once they have finished."""
+    if torch.device(device).type != "cuda":
+        return _Ready
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return _EventProbe(event)
+
+
 class IngestStage:
     """Bounded FIFO of dispatched batches whose count gate is pending."""
 
-    def __init__(self, depth: int = 1, stats: IngestStats = None):
-        if isinstance(depth, str):
-            raise ValueError(
-                f"ingest stage depth {depth!r}: the port takes a positive "
-                "integer; ingest.depth='auto' is a later slice of the port")
+    def __init__(self, depth=1, stats: IngestStats = None):
+        self.controller: Optional[EmitDepthController] = None
+        if depth == "auto":
+            self.controller = EmitDepthController()
+            depth = 1
         self.depth = max(1, int(depth))
         self.stats = stats or IngestStats()
-        self._entries: List[Callable] = []
+        self._entries: List[Tuple[object, Callable]] = []
 
     def __len__(self) -> int:
         return len(self._entries)
 
-    def submit(self, finish: Callable):
+    def submit(self, probe, finish: Callable):
         """Stage one dispatched batch; finish the oldest entries past the
-        window.  (The reference also takes a device scalar to count
-        overlapped batches; the port keeps no such counter.)"""
+        window.  ``probe`` (``step_probe``, None when the batch put no
+        work on the device) tells an overlapped finish from a stall."""
+        if self.controller is not None:
+            self.controller.note_push()
+            self.depth = self.controller.effective_depth
+            self.stats.auto_depth = self.depth
         self.stats.staged_batches += 1
-        self._entries.append(finish)
+        self._entries.append((probe, finish))
         self.stats.max_staging_depth = max(self.stats.max_staging_depth,
                                            len(self._entries))
         while len(self._entries) >= self.depth:
-            self._entries.pop(0)()
+            self._finish_oldest(barrier=False)
 
     def flush(self):
         """Barrier: finish every staged batch in submit order."""
         while self._entries:
             self.stats.flush_syncs += 1
-            self._entries.pop(0)()
+            self._finish_oldest(barrier=True)
+
+    def _finish_oldest(self, barrier: bool):
+        probe, finish = self._entries.pop(0)
+        # a step already done when its count is fetched overlapped the
+        # host's staging of the next batch; else the host stalls on it.
+        # A barrier's finish says nothing of the steady state.
+        if probe is not None and not barrier:
+            if probe.is_ready():
+                self.stats.overlapped_batches += 1
+            else:
+                self.stats.ingest_stalls += 1
+        # the controller's round-trip sample: the finish is the blocking
+        # count fetch when the batch had device work
+        t0 = (time.monotonic()
+              if self.controller is not None and probe is not None
+              else None)
+        finish()
+        if t0 is not None:
+            self.controller.note_drain(time.monotonic() - t0)

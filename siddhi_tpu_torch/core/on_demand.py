@@ -82,7 +82,7 @@ class OnDemandQueryRuntime:
             scope.add(ref, a.name, a.name, a.type)
         if odq.input_alias:
             scope.add_alias(odq.input_store, ref)
-        compiler = ExpressionCompiler(scope)
+        compiler = ExpressionCompiler(scope, self.app.functions)
 
         self.condition = None
         if odq.on_condition is not None:

@@ -238,6 +238,7 @@ class InstancePlanner:
         self._app = app
         self.app_context = app.app_context
         self.extensions = app.extensions
+        self.functions = app.functions
         self.scheduler = _ScopedScheduler(app.scheduler)
         # the input namespace is local only: a query inside a partition
         # reads the partitioned streams or '#inner' ones (a global read
@@ -371,8 +372,8 @@ class PartitionRuntime:
                     f"{self.name}: partitioned stream '{sid}' is not defined")
             definition = app.definitions[sid]
             self.partitioned_defs[sid] = definition
-            compiler = ExpressionCompiler(scope_for_definition(definition,
-                                                               sid))
+            compiler = ExpressionCompiler(
+                scope_for_definition(definition, sid), app.functions)
             if isinstance(pt, ValuePartitionType):
                 ex = ValuePartitionExecutor(compiler.compile(pt.expression))
             elif isinstance(pt, RangePartitionType):

@@ -1,6 +1,8 @@
-"""Built-in extension lookup: the windows and stream functions a query
-names (``#window.length(5)``, ``#pol2Cart(theta, rho)``) and the check
-of their argument types."""
+"""Extension lookup: the windows, stream functions, functions,
+aggregators and script engines a query names (``#window.length(5)``,
+``#pol2Cart(theta, rho)``, ``custom:f(v)``, ``define function
+f[python]``), built in or set on the manager, and the check of their
+argument types."""
 
 from siddhi_tpu_torch.extension.registry import (
     ExtensionRegistry,

@@ -1,13 +1,15 @@
 """Extension registry: ``namespace:name`` -> factory, per extension kind.
 
-Port of the JAX package's ``extension/registry.py`` for the built-in
-extensions the host query runtime runs: the windows of
-``ops/windows.py`` and the stream functions of
-``ops/stream_functions.py`` register themselves with the ``@extension``
-decorator when those modules are imported, and ``default_registry()``
-hands each app its own copy.  User extensions (``setExtension``) and
-``define function`` stay refused (``ROADMAP.md`` §1 item 10), so the
-port keeps only the two kinds its built-ins use.
+Port of the JAX package's ``extension/registry.py``.  The built-ins
+register themselves with the ``@extension`` decorator when their modules
+are imported: the windows of ``ops/windows.py``, the stream functions
+of ``ops/stream_functions.py`` and the script engines of
+``extension/function.py``.  ``default_registry()`` hands each manager
+its own copy, where ``SiddhiManager.set_extension`` adds user
+extensions; each app plans against a copy of its manager's.  The kinds
+are those the port's planners look up; the reference's source, sink,
+mapper, table and store kinds come with the slices that plan them
+(ROADMAP.md §1 items 9 and 15).
 """
 
 from __future__ import annotations
@@ -15,7 +17,14 @@ from __future__ import annotations
 from collections import defaultdict
 from typing import Callable, Dict, Optional
 
-KINDS = ("window", "stream_function")
+KINDS = (
+    "window",
+    "function",
+    "aggregator",
+    "stream_processor",
+    "stream_function",
+    "script",
+)
 
 
 class ExtensionRegistry:
@@ -31,6 +40,13 @@ class ExtensionRegistry:
         if kind not in KINDS:
             raise ValueError(f"unknown extension kind {kind!r}")
         self._kinds[kind][self.full_name(namespace, name)] = factory
+
+    def items(self, kind: str):
+        return list(self._kinds[kind].items())
+
+    def unregister(self, kind: str, name: str,
+                   namespace: Optional[str] = None):
+        self._kinds[kind].pop(self.full_name(namespace, name), None)
 
     def lookup(self, kind: str, name: str,
                namespace: Optional[str] = None) -> Optional[Callable]:
@@ -64,6 +80,7 @@ def extension(kind: str, name: str, namespace: Optional[str] = None):
 def default_registry() -> ExtensionRegistry:
     """A copy of the registry holding every built-in extension."""
     # imported for their registration side effects
+    import siddhi_tpu_torch.extension.function  # noqa: F401
     import siddhi_tpu_torch.ops.stream_functions  # noqa: F401
     import siddhi_tpu_torch.ops.windows  # noqa: F401
 

@@ -84,6 +84,7 @@ class AppContext:
         # (partition, node), as in the reference
         self.tpu_partitions = 65536
         self.tpu_instances = 4
+        # a positive int or "auto"
         self.tpu_emit_depth = 1
         self.tpu_ingest_depth = 1
         # smallest batch whose transient per-segment aggregation reduce
@@ -167,12 +168,12 @@ def plan_app_context(siddhi_app, device) -> AppContext:
             raw = exec_ann.element(key)
             if not raw:
                 continue
-            if raw.lower() == "auto":
-                raise SiddhiAppCreationError(
-                    f"@app:execution: {key}='auto' (the adaptive depth "
-                    "controller) — a later slice of the port")
-            setattr(ctx, attr, _positive_int(
-                exec_ann, key, "a positive integer or 'auto'"))
+            # 'auto': the adaptive depth (core/emit_queue.py
+            # EmitDepthController) from the drain round trip over the
+            # batch cadence
+            setattr(ctx, attr, "auto" if raw.lower() == "auto" else
+                    _positive_int(exec_ann, key,
+                                  "a positive integer or 'auto'"))
 
         amb = exec_ann.element("agg.device.min.batch")
         if amb:

@@ -14,7 +14,9 @@ the host.
 
 The JAX package's builtin functions and its null test are numpy
 closures that its dense step cannot trace, so a function call or an
-``is null`` in a device filter is refused here at compile time.
+``is null`` in a device filter is refused here at compile time; a user
+function (an extension or a ``define function`` script) is unknown
+here, as in the reference, and its query runs on the host.
 
 Java arithmetic semantics are preserved where they differ from Python's:
 integer division truncates toward zero and integer remainder takes the
@@ -244,11 +246,15 @@ class ExpressionCompiler:
             lambda env: raw(*meet(l.fn(env), r.fn(env))), out_t)
 
     def _c_FunctionCall(self, e: FunctionCall) -> CompiledExpression:
-        # the arguments first: a reference they cannot resolve is the
-        # error, in the reference's order
+        from siddhi_tpu_torch.planner.host_expr import BUILTIN_FUNCTIONS
+
+        # the reference's order: the name (a user function is unknown to
+        # the device compiler), then the arguments
+        name = (e.namespace + ":" if e.namespace else "") + e.name
+        if name not in BUILTIN_FUNCTIONS:
+            raise DeviceUncompilableError(f"unknown function '{name}()'")
         for a in e.args:
             self.compile(a)
-        name = (e.namespace + ":" if e.namespace else "") + e.name
         raise DeviceUncompilableError(
             f"function '{name}()' is not supported in a device filter")
 

@@ -102,8 +102,13 @@ def _null_safe_arith(a, b, op):
 class ExpressionCompiler:
     """Compiles expression trees against a Scope into numpy closures."""
 
-    def __init__(self, scope: Scope):
+    def __init__(self, scope: Scope, functions: Dict[str, Callable] = None):
         self.scope = scope
+        # the builtins, then the app's user functions (extensions and
+        # ``define function`` scripts), name -> builder
+        self.functions = dict(BUILTIN_FUNCTIONS)
+        if functions:
+            self.functions.update(functions)
 
     def compile(self, expr: Expression) -> CompiledExpression:
         m = getattr(self, "_c_" + type(expr).__name__, None)
@@ -209,7 +214,7 @@ class ExpressionCompiler:
 
     def _c_FunctionCall(self, e: FunctionCall) -> CompiledExpression:
         name = (e.namespace + ":" if e.namespace else "") + e.name
-        builder = BUILTIN_FUNCTIONS.get(name)
+        builder = self.functions.get(name)
         if builder is None:
             raise SiddhiAppCreationError(f"unknown function '{name}()'")
         args = [self.compile(a) for a in e.args]

@@ -44,6 +44,7 @@ item: joins (item 8), tables and named windows (item 9).
 
 from __future__ import annotations
 
+import inspect
 import logging
 from typing import List, Optional, Tuple
 
@@ -157,14 +158,23 @@ class AggregatorRewrite:
     synthetic variables bound to aggregation outputs (the reference
     builds AttributeAggregatorExecutors inline in SelectorParser)."""
 
-    def __init__(self, scope: Scope, compiler: ExpressionCompiler):
+    def __init__(self, scope: Scope, compiler: ExpressionCompiler,
+                 extensions=None):
         self.scope = scope
         self.compiler = compiler
+        # custom aggregators: the registry's ``aggregator`` kind
+        self.extensions = extensions
         self.bindings: List[AggBinding] = []
 
     def rewrite(self, expr: Expression) -> Expression:
-        if (isinstance(expr, FunctionCall) and expr.namespace is None
-                and expr.name in AGGREGATOR_NAMES):
+        builtin = (isinstance(expr, FunctionCall) and expr.namespace is None
+                   and expr.name in AGGREGATOR_NAMES)
+        ext = None
+        if (isinstance(expr, FunctionCall) and not builtin
+                and self.extensions is not None):
+            ext = self.extensions.lookup("aggregator", expr.name,
+                                         expr.namespace)
+        if builtin or ext is not None:
             key = f"__agg_{len(self.bindings)}"
             arg: Optional[CompiledExpression] = None
             if expr.args:
@@ -172,11 +182,23 @@ class AggregatorRewrite:
                     raise SiddhiAppCreationError(
                         f"aggregator '{expr.name}' takes one argument")
                 arg = self.compiler.compile(self.rewrite(expr.args[0]))
-            elif expr.name != "count" and not expr.star:
+            elif builtin and expr.name != "count" and not expr.star:
                 raise SiddhiAppCreationError(
                     f"aggregator '{expr.name}' needs an argument")
-            executor = make_aggregator(
-                expr.name, arg.type if arg is not None else None)
+            arg_type = arg.type if arg is not None else None
+            if ext is not None:
+                # a factory taking a positional parameter gets the
+                # argument's type (the reference's signature probe)
+                try:
+                    takes_arg = any(
+                        p.kind in (p.POSITIONAL_ONLY,
+                                   p.POSITIONAL_OR_KEYWORD)
+                        for p in inspect.signature(ext).parameters.values())
+                except (TypeError, ValueError):
+                    takes_arg = True
+                executor = ext(arg_type) if takes_arg else ext()
+            else:
+                executor = make_aggregator(expr.name, arg_type)
             self.bindings.append(AggBinding(key, executor, arg))
             self.scope.add_bare(key, executor.return_type)
             return Variable(attribute=key)
@@ -418,7 +440,7 @@ def plan_single(app, query: Query, name: str, s: SingleInputStream
     scope = scope_for_definition(definition, s.unique_id)
     if s.alias and s.alias != s.stream_id:
         scope.add_alias(s.stream_id, s.alias)
-    compiler = ExpressionCompiler(scope)
+    compiler = ExpressionCompiler(scope, app.functions)
     chain, batch_mode, windows, extra_attrs = plan_handlers(
         app, s, definition, compiler)
     selector, out_def = plan_selector(
@@ -454,8 +476,7 @@ def plan_handlers(app, s: SingleInputStream, definition, compiler):
             factory = app.extensions.lookup("window", h.name, h.namespace)
             if factory is None:
                 raise SiddhiAppCreationError(
-                    f"unknown window '#window.{h.name}()'"
-                    + later_slice(10, "custom extensions"))
+                    f"unknown window '#window.{h.name}()'")
             args = [compiler.compile(a) for a in h.args]
             validate_extension_args(
                 factory, h.name, [a.type for a in args],
@@ -465,12 +486,13 @@ def plan_handlers(app, s: SingleInputStream, definition, compiler):
             batch_mode = batch_mode or getattr(w, "is_batch", False)
             chain.append(WindowChainProcessor(w))
         elif isinstance(h, StreamFunction):
-            factory = app.extensions.lookup("stream_function", h.name,
-                                            h.namespace)
+            factory = (app.extensions.lookup("stream_processor", h.name,
+                                             h.namespace)
+                       or app.extensions.lookup("stream_function", h.name,
+                                                h.namespace))
             if factory is None:
                 raise SiddhiAppCreationError(
-                    f"unknown stream function '#{h.name}()'"
-                    + later_slice(10, "custom extensions"))
+                    f"unknown stream function '#{h.name}()'")
             args = [compiler.compile(a) for a in h.args]
             validate_extension_args(
                 factory, h.name, [a.type for a in args],
@@ -498,7 +520,7 @@ def plan_selector(app, sel: Selector, scope: Scope,
                   batch_mode: bool, extra_attrs=None
                   ) -> Tuple[QuerySelector, StreamDefinition]:
     out_target = _out_target(query, qname)
-    rewriter = AggregatorRewrite(scope, compiler)
+    rewriter = AggregatorRewrite(scope, compiler, app.extensions)
     items: Optional[List[SelectItem]] = None
     out_attrs: List[Attribute] = []
     if sel.is_select_all:
@@ -616,7 +638,8 @@ def plan_dense_state(app, query: Query, name: str, st,
         scope = PatternScope(builder.ref_defs, builder.stream_to_ref,
                              cand_def=None)
         selector, out_def = plan_selector(
-            app, sel, scope, ExpressionCompiler(scope), name, query,
+            app, sel, scope, ExpressionCompiler(scope, app.functions), name,
+            query,
             batch_mode=False)
         select_vars = [
             Variable(stream_id=ref, attribute=attr, stream_index=idx)
@@ -688,7 +711,8 @@ def plan_state(app, query: Query, name: str, st) -> QueryRuntime:
     scope = PatternScope(builder.ref_defs, builder.stream_to_ref,
                          cand_def=None)
     selector, out_def = plan_selector(
-        app, query.selector, scope, ExpressionCompiler(scope), name, query,
+        app, query.selector, scope, ExpressionCompiler(scope, app.functions),
+        name, query,
         batch_mode=False)
     output = plan_output(app, query, out_def, name)
     rate_limiter = plan_rate_limiter(query)

@@ -608,17 +608,20 @@ def test_scan_chain_kernel_on_nan(cuda_device):
     assert torch.equal(bits(gv[2:]), bits(pv[2:]))
 
 
+ROUTED_APP = ("@app:playback @app:execution('tpu', instances='8'{opts}) "
+              "@app:hotkeys(k='4', promote='0.3', demote='0.1') "
+              "define stream S (k long, u double, v double); "
+              "partition with (k of S) begin @info(name='q') "
+              "from every a=S[v > 8.0] -> b=S[u > 6.0] -> c=S[v > 12.0] "
+              "select c.v as cv insert into Alerts; end;")
+
+
 def test_hot_key_app_on_card_matches_cpu(cuda_device):
     """A routed app through SiddhiManager: the card's callbacks equal the
     CPU run's, and the scan and batch-step kernels both launched."""
     from siddhi_tpu_torch import SiddhiManager
 
-    app = ("@app:playback @app:execution('tpu', instances='8') "
-           "@app:hotkeys(k='4', promote='0.3', demote='0.1') "
-           "define stream S (k long, u double, v double); "
-           "partition with (k of S) begin @info(name='q') "
-           "from every a=S[v > 8.0] -> b=S[u > 6.0] -> c=S[v > 12.0] "
-           "select c.v as cv insert into Alerts; end;")
+    app = ROUTED_APP.format(opts="")
     rng = np.random.default_rng(9)
     sends, t = [], 1000
     for _ in range(300):
@@ -900,9 +903,10 @@ DQ_APPS = {
 }
 
 
-def _dq_rows(app, device, seed=11, n=600):
+def _dq_rows(app, device, seed=11, n=600, stats=None):
     """Seeded events (three-decimal values, so sums round) through the
-    app in batches of 100 via ``send_batch``: the output rows."""
+    app in batches of 100 via ``send_batch``: the output rows.  With a
+    ``stats`` list, the runtime's emit counters are appended to it."""
     from siddhi_tpu_torch import SiddhiManager
     from siddhi_tpu_torch.core.event import EventBatch
 
@@ -925,10 +929,19 @@ def _dq_rows(app, device, seed=11, n=600):
                 "i": rng.integers(-9, 9, 100).astype(np.int32),
                 "ok": rng.random(100) < 0.8}, ts))
         assert set(rt.lowering().values()) == {"device"}
+        if stats is not None:
+            stats.append(_emit_stats(rt, "q"))
         rt.shutdown()
         return got
     finally:
         mgr.shutdown()
+
+
+def _emit_stats(rt, name):
+    """The emit counters of a query's device runtime (the router's are
+    its dense runtime's)."""
+    runtime = rt.device_runtimes()[name]
+    return getattr(runtime, "_dense", runtime).emit_stats.as_dict()
 
 
 @pytest.mark.parametrize("name", list(DQ_APPS))
@@ -1057,3 +1070,219 @@ def test_kernel_failure_on_card_fails_app_creation(cuda_device, monkeypatch,
             mgr.create_siddhi_app_runtime(app)
     finally:
         mgr.shutdown()
+
+
+# -- adaptive depths and the single-key scan engine on the card ---------------
+
+PRODUCT_DEPTHS = ", ingest.depth='2', emit.depth='auto'"
+
+
+def _product_app(capturing, opts, P=4096, S=6):
+    """``bench.py``'s partitioned chain (or its capture-free form, the
+    batch step's class) cut to ``S`` nodes and ``P`` partitions."""
+    if capturing:
+        states = ["every e1=Txn[v > 0.0]"] + [
+            f"e{i}=Txn[v > {float(i - 1)} and v > e1.v]"
+            for i in range(2, S + 1)]
+        sel = f"select e1.v as v1, e{S}.v as vs"
+    else:
+        states = ["every e1=Txn[v > 1.0]"] + [
+            f"e{i}=Txn[v > {float(i)}]" for i in range(2, S + 1)]
+        sel = f"select e{S}.v as v"
+    return (f"@app:playback @app:execution('tpu', partitions='{P}'{opts}) "
+            "define stream Txn (key long, v double); "
+            "partition with (key of Txn) begin "
+            f"@info(name='bench') from {' -> '.join(states)} within 10 min "
+            f"{sel} insert into Alerts; end;")
+
+
+def _product_rows(app, device, n_batches=12, B=8192, P=4096, S=6):
+    """Stride-walked keys as ``bench.py``'s ``_product_batches``: the
+    callback batches, ``pattern_state()`` and the ingest counters."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.core.event import EventBatch
+
+    rng = np.random.default_rng(11)
+    mgr = SiddhiManager(device=device)
+    try:
+        rt = mgr.create_siddhi_app_runtime(app)
+        got = []
+        rt.add_callback("Alerts", lambda evs: got.append(
+            [(e.timestamp, tuple(e.data)) for e in evs]))
+        rt.start()
+        h = rt.get_input_handler("Txn")
+        for i in range(n_batches):
+            keys = (np.arange(B, dtype=np.int64) * 524287 + i * B) % P
+            h.send_batch(EventBatch("Txn", ["key", "v"], {
+                "key": keys, "v": rng.uniform(0.0, S + 4.0, B)},
+                np.full(B, 1000 + i * 10, dtype=np.int64)))
+        state = rt.pattern_state()
+        runtime = rt.partitions["partition_0"].dense_query_runtimes[
+            "bench"].pattern_processor
+        ist = runtime.ingest_stats.as_dict()
+        est = runtime.emit_stats.as_dict()
+        rt.shutdown()
+        return got, state, ist, est
+    finally:
+        mgr.shutdown()
+
+
+@pytest.mark.parametrize("capturing", [True, False], ids=["general", "batch"])
+def test_adaptive_depths_on_card_match_depth_one(cuda_device, capturing):
+    """At ``ingest.depth='2', emit.depth='auto'`` each staged batch's
+    pending outputs must survive the next batch's in-place step (the
+    general step, or ``batch_step`` for the capture-free chain): the
+    callbacks and ``pattern_state()`` equal the depth-1 run's and the
+    CPU run's, and the batch step launched once a batch."""
+    before = dense_batch.batch_step.launches
+    auto = _product_rows(_product_app(capturing, PRODUCT_DEPTHS), "cuda")
+    one = _product_rows(_product_app(capturing, ""), "cuda")
+    cpu = _product_rows(_product_app(capturing, PRODUCT_DEPTHS), "cpu")
+    assert sum(map(len, auto[0])) > 0
+    assert auto[0] == one[0] == cpu[0]
+    assert auto[1] == one[1] == cpu[1]
+    assert auto[2]["stagedBatches"] == 12
+    assert (auto[2]["overlappedBatches"] + auto[2]["ingestStalls"]) == 11
+    launched = dense_batch.batch_step.launches - before
+    assert launched == (0 if capturing else 24)
+
+
+def test_auto_depths_device_query_on_card(cuda_device):
+    """A running group-by device query (its state scatters are
+    ``accumulate_``) at auto depths: the same rows as at depth 1 on the
+    card, bit for bit, and as on the CPU (the float32 sum within the
+    reference's ``rel=1e-4, abs=1e-3``)."""
+    base = (DQ_DEFINE + "@info(name='q') from S select k, sum(v) as s, "
+            "count() as c group by k insert into Out;")
+    auto = base.replace("partitions='64')",
+                        "partitions='64', ingest.depth='auto', "
+                        "emit.depth='auto')")
+    assert auto != base
+    before = bank_scatter.accumulate_.launches
+    got = _dq_rows(auto, "cuda")
+    assert bank_scatter.accumulate_.launches > before
+    assert got == _dq_rows(base, "cuda") and got
+    cpu = _dq_rows(auto, "cpu")
+    assert len(got) == len(cpu)
+    for (t1, (k1, s1, c1)), (t2, (k2, s2, c2)) in zip(got, cpu):
+        assert (t1, k1, c1) == (t2, k2, c2)
+        assert abs(s1 - s2) <= 1e-3 + 1e-4 * abs(s2), (s1, s2)
+
+
+FIXED_DEPTHS = ", ingest.depth='2', emit.depth='4'"
+
+def _routed_rows(app, device):
+    """A Zipf-like stream (80% on key 7) through the routed app in
+    batches of 32: the callback batches, ``pattern_state()`` and the
+    emit counters."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.core.event import EventBatch
+
+    rng = np.random.default_rng(9)
+    mgr = SiddhiManager(device=device)
+    try:
+        rt = mgr.create_siddhi_app_runtime(app)
+        got = []
+        rt.add_callback("Alerts", lambda evs: got.append(
+            [(e.timestamp, tuple(e.data)) for e in evs]))
+        rt.start()
+        h = rt.get_input_handler("S")
+        t = 1000
+        for _ in range(24):
+            n = 32
+            ts = t + np.cumsum(rng.integers(1, 40, n)).astype(np.int64)
+            t = int(ts[-1])
+            hot = rng.random(n) < 0.8
+            h.send_batch(EventBatch("S", ["k", "u", "v"], {
+                "k": np.where(hot, 7, rng.integers(0, 30, n)).astype(
+                    np.int64),
+                "u": rng.uniform(0, 20, n), "v": rng.uniform(0, 20, n)},
+                ts))
+        assert rt.pattern_runtimes()["q"].hot_metrics()[
+            "hotkeyPromotions"] >= 1
+        state = rt.pattern_state()
+        est = _emit_stats(rt, "q")
+        rt.shutdown()
+        return got, state, est
+    finally:
+        mgr.shutdown()
+
+
+@pytest.mark.parametrize("path", ["general", "batch", "device_query",
+                                  "routed"])
+def test_fixed_depths_on_card_match_depth_one(cuda_device, path):
+    """At ``ingest.depth='2', emit.depth='4'`` the emit queue holds
+    several batches' pending outputs while later steps write state in
+    place (the general step, ``batch_step``, the device query's
+    ``accumulate_`` scatters, the router's scan and batch step), then
+    fetches them in one coalesced copy: the callbacks, batch by batch,
+    and ``pattern_state()`` equal the 1/1 run's on the card bit for
+    bit."""
+    counters = {"general": [], "batch": [dense_batch.batch_step],
+                "device_query": [bank_scatter.accumulate_],
+                "routed": [scan_chain.fused_scan, dense_batch.batch_step]}
+    before = [k.launches for k in counters[path]]
+    if path == "device_query":
+        base = (DQ_DEFINE + "@info(name='q') from S select k, sum(v) as "
+                "s, count() as c group by k insert into Out;")
+        staged = base.replace("partitions='64')",
+                              "partitions='64'" + FIXED_DEPTHS + ")")
+        assert staged != base
+        stats = []
+        got = _dq_rows(staged, "cuda", stats=stats)
+        one = _dq_rows(base, "cuda")
+        assert got == one and got
+        est = stats[0]
+    elif path == "routed":
+        got, state, est = _routed_rows(
+            ROUTED_APP.format(opts=FIXED_DEPTHS), "cuda")
+        one, one_state, _ = _routed_rows(ROUTED_APP.format(opts=""),
+                                         "cuda")
+        assert got == one and sum(map(len, got)) > 0
+        assert state == one_state
+    else:
+        capturing = path == "general"
+        got, state, _, est = _product_rows(
+            _product_app(capturing, FIXED_DEPTHS), "cuda")
+        one, one_state, _, _ = _product_rows(_product_app(capturing, ""),
+                                             "cuda")
+        assert got == one and sum(map(len, got)) > 0
+        assert state == one_state
+    # several pending batches at once, fetched together
+    assert est["maxPendingDepth"] >= 2 and est["deferredBatches"] > 0
+    for k, b in zip(counters[path], before):
+        assert k.launches > b, k
+
+
+def test_scan_engine_on_card_matches_cpu(cuda_device):
+    """``compile_scan_pattern`` on the card against ``device="cpu"``: the
+    same detections and starts, live lanes bit-equal, over batches that
+    span several scan chunks."""
+    from siddhi_tpu_torch.ops.nfa_scan import NEG, compile_scan_pattern
+
+    states = ["every e1=S[v > 1.0]"] + [f"e{i}=S[v > {float(i)}]"
+                                        for i in range(2, 9)]
+    app = ("define stream S (v double, n int); @info(name='q') from "
+           + " -> ".join(states) + " within 10 sec select e8.v as v "
+           "insert into Out;")
+    engines = [compile_scan_pattern(app, "q", device=d)
+               for d in ("cuda", "cpu")]
+    engines[0].SCAN_BYTES = {"cuda": 1 << 20}  # several chunks a batch
+    states_ = [e.init_state() for e in engines]
+    rng = np.random.default_rng(4)
+    total = 0
+    for b in range(4):
+        n = 5000
+        cols = {"v": rng.uniform(0, 12, n), "n": rng.integers(0, 5, n)}
+        ts = 1000 + b * 20000 + np.cumsum(rng.integers(0, 5, n))
+        outs = []
+        for k, e in enumerate(engines):
+            states_[k], idx, starts = e.process(states_[k], cols, ts)
+            outs.append((idx, starts, states_[k].cpu().numpy()))
+        (gi, gs, gv), (ci, cs, cv) = outs
+        assert np.array_equal(gi, ci) and np.array_equal(gs, cs)
+        live = cv > NEG / 2
+        assert np.array_equal(live, gv > NEG / 2)
+        assert gv[live].tobytes() == cv[live].tobytes()
+        total += len(gi)
+    assert total > 0

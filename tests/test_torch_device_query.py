@@ -80,16 +80,13 @@ CORPORA = ("test_device_query", "test_device_single_integration",
 # corpus tests the recorders cannot replay, keyed (corpus, class,
 # method), None for a whole class or a module function's class: those
 # built on app APIs the port does not have yet, the app's snapshot and
-# restore (item 11) and query_names (item 10), held below by
-# test_jax_snapshot_restores_into_the_port and
-# test_timer_pane_flush_as_the_reference; those that import the JAX
+# restore (item 11), held below by
+# test_jax_snapshot_restores_into_the_port; those that import the JAX
 # package inside the test, held below by the tests named beside them;
 # and one of the dense runtime's intern, no device query.
 LEFT_OUT = {
     ("test_device_single_integration", "TestSnapshotRestore", None):
         "app snapshot (item 11)",
-    ("test_device_single_integration", "TestTimerPaneFlush", None):
-        "query_names (item 10)",
     ("test_device_query", None, "test_direct_api_rejects_order_by"):
         "test_direct_api_order_by_as_the_reference",
     ("test_device_wide_aggs", "TestRateLimitersOnDevicePath",
@@ -221,7 +218,8 @@ class _Handler:
 
 class _Runtime:
     # app-runtime attributes both packages have, passed through
-    SHARED = ("query_runtimes", "junctions", "partitions", "lowering")
+    SHARED = ("query_runtimes", "junctions", "partitions", "lowering",
+              "query_names")
 
     def __init__(self, rt, sc):
         self._rt, self._sc = rt, sc

@@ -455,7 +455,8 @@ class TestOutsideTheSlice:
         (TPU + "@app:hotkeys(k='300') ", "1..256"),
         (TPU + "@app:kernels('nfa,warp') ", "unknown kernel kind"),
         ("@app:kernels ", "needs @app:execution"),
-        ("@app:execution('tpu', emit.depth='auto') ", "later slice"),
+        ("@app:execution('tpu', emit.depth='fast') ",
+         "positive integer or 'auto'"),
         ("@app:execution('tpu', partitions='0') ", "positive integer"),
         (TPU + "@app:faults(journal='8') ", "later slice"),
     ])

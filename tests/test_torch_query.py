@@ -45,9 +45,10 @@ CORPORA = ("test_filter_queries", "test_windows", "test_conformance_filters",
            "test_conformance_filters2", "test_conformance_selectors",
            "test_conformance_ratelimit", "test_conformance_orderby",
            "test_conformance_windows")
-# corpus classes outside the query runtime: the manager's validate,
-# sandbox and attribute APIs, which the port does not have
-LEFT_OUT = {("test_filter_queries", "TestManagerApis")}
+# corpus tests outside the port, keyed (corpus, class, method): the
+# sandbox case reads back a table (item 9)
+LEFT_OUT = {("test_filter_queries", "TestManagerApis",
+             "test_sandbox_strips_transports")}
 # what the port refuses in these corpora, with the ROADMAP.md item
 OUTSIDE = {8: r"\bjoin\b", 9: r"define (table|window|trigger)"}
 
@@ -129,6 +130,34 @@ class _Runtime:
         return getattr(self._rt, name)
 
 
+class ManagerCall:
+    """A call a corpus test made on the manager itself (validate,
+    attributes, the runtime registry) and what it gave."""
+
+    def __init__(self, name, args):
+        self.name = name
+        self.args = args
+        self.outcome = None
+
+
+def manager_outcome(fn, args):
+    """``("raises",)``, or ``("returns", value)`` with runtimes by type."""
+    try:
+        out = fn(*args)
+    except Exception:
+        return ("raises",)
+    return returned(out)
+
+
+def returned(out):
+    if isinstance(out, dict):
+        out = {k: (v if isinstance(v, (dict, list, str, int, float))
+                   else type(v).__name__) for k, v in out.items()}
+    elif out is not None:
+        out = type(out).__name__
+    return ("returns", out)
+
+
 def _load(corpus, tag):
     spec = importlib.util.spec_from_file_location(
         f"_{corpus}_{tag}", TESTS / f"{corpus}.py")
@@ -160,8 +189,6 @@ def corpus_cases():
         mod = _load(corpus, "names")
         for cname in sorted(vars(mod)):
             cls = getattr(mod, cname)
-            if (corpus, cname) in LEFT_OUT:
-                continue
             if cname.startswith("Test") and isinstance(cls, type):
                 fns = [(cname, m) for m in sorted(vars(cls))
                        if m.startswith("test_")]
@@ -170,6 +197,8 @@ def corpus_cases():
             else:
                 continue
             for c, m in fns:
+                if (corpus, c, m) in LEFT_OUT:
+                    continue
                 fn = getattr(getattr(mod, c), m) if c else getattr(mod, m)
                 for k in range(len(_param_sets(fn))):
                     out.append((corpus, c, m, k))
@@ -199,6 +228,22 @@ def record(corpus, cname, mname, k):
         def shutdown(self):
             self._m.shutdown()
 
+        def __getattr__(self, name):
+            fn = getattr(self._m, name)
+
+            def call(*args):
+                mc = ManagerCall(name, args)
+                scenarios.append(mc)
+                try:
+                    out = fn(*args)
+                except Exception:
+                    mc.outcome = ("raises",)
+                    raise
+                mc.outcome = returned(out)
+                return out
+
+            return call
+
     mod.SiddhiManager = RecordingManager
     owner = getattr(mod, cname)() if cname else mod
     fn = getattr(owner, mname)
@@ -225,6 +270,16 @@ def _port_data(data):
     if isinstance(data, list) and data and isinstance(data[0], JaxEvent):
         return [_port_data(e) for e in data]
     return data
+
+
+def replay_calls(calls):
+    """The manager calls, in order, on one port manager."""
+    mgr = SiddhiManager(device="cpu")
+    try:
+        return [manager_outcome(getattr(mgr, c.name), c.args)
+                for c in calls]
+    finally:
+        mgr.shutdown()
 
 
 def replay(sc):
@@ -261,7 +316,12 @@ def test_the_corpora_were_read():
 def test_corpus_app_as_the_reference(corpus, cname, mname, k):
     scenarios = record(corpus, cname, mname, k)
     assert scenarios, "the corpus test created no app"
+    calls = [sc for sc in scenarios if isinstance(sc, ManagerCall)]
+    if calls:
+        assert replay_calls(calls) == [c.outcome for c in calls]
     for sc in scenarios:
+        if isinstance(sc, ManagerCall):
+            continue
         assert sc.unsupported is None, sc.unsupported
         if sc.error is not None:
             # an app the JAX package refuses at creation
@@ -481,12 +541,15 @@ def test_tpu_single_stream_as_the_reference():
      "select S.sym insert into Out;", 9),
     (DEFINE + "define stream U (sym string); from S#window.length(2) join "
      "U#window.length(2) on S.sym == U.sym select S.sym insert into Out;", 8),
-    (DEFINE + "define function f[python] return int { return 1 }; "
-     "from S select sym insert into Out;", 10),
     (DEFINE + "partition with (sym of S) begin from S#window.length(2) join "
      "S#window.length(2) on S.p > 1.0 select S.sym insert into Out; end;",
      8),
-], ids=["table", "join", "function", "join_in_partition"])
+    ("@app:playback @source(type='http', @map(type='json')) "
+     + DEFINE[len("@app:playback "):]
+     + "from S select sym insert into Out;", 15),
+    (DEFINE + "@sink(type='inMemory', topic='t') define stream Out "
+     "(sym string); from S select sym insert into Out;", 15),
+], ids=["table", "join", "join_in_partition", "source", "sink"])
 def test_refusals_name_their_roadmap_item(app, item):
     """No hidden fallback: what the port does not run raises at creation,
     naming the ``ROADMAP.md`` item that ports it."""
@@ -502,11 +565,13 @@ def test_refusals_name_their_roadmap_item(app, item):
     "from #Inner[p > 0.0] select sym, p insert into Out;",
     DEFINE + "partition with (sym of S) begin @info(name='q') from "
     "S#window.lengthBatch(2) select sym, sum(p) as p insert into Out; end;",
-], ids=["host_pattern", "inner_output", "partition"])
+    DEFINE + "define function f[python] return int { data[0] + 1 }; "
+    "from S[f(n) > 2] select sym, f(n) as fn insert into Out;",
+], ids=["host_pattern", "inner_output", "partition", "function"])
 def test_once_refused_apps_run_as_the_reference(app):
     """A pattern in the default mode, an ``#inner`` stream outside a
-    partition (the reference keeps it as the app's own stream) and a
-    partition in the default mode, all refused until the host pattern
-    engine and per-key instances came to the port, now give the
-    reference's rows."""
+    partition (the reference keeps it as the app's own stream), a
+    partition in the default mode and a script function, all refused
+    until the host pattern engine, per-key instances and user functions
+    came to the port, now give the reference's rows."""
     assert assert_same(app, sends(len(app)))["Out"]

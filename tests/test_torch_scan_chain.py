@@ -429,6 +429,52 @@ def test_step_against_reference_two_pass_scan(H, n, seed):
     assert total > 0
 
 
+@pytest.mark.parametrize("H,n,seed", [(2, 16, 31), (4, 64, 32),
+                                      (8, 128, 33)])
+def test_two_pass_scan_against_fused_scan_plain(H, n, seed):
+    """The hot-key associative-scan route: the reference's two-pass XLA
+    scan (``make_step`` with ``use_kernel = False``) against the port's
+    ``fused_scan_plain`` on the same seeded ``[H, n, S]`` filter rows,
+    timestamps and carried state (live starts, NEG lanes, counts):
+    emissions and live lanes bit-equal, dead lanes at or below NEG/2.
+    The port sends ``@app:hotkeys`` with or without
+    ``@app:kernels('scan')`` through kernel 4, whose plain twin this is."""
+    je, te = engines(H)
+    assert je.use_kernel is False
+    S = te.n_nodes
+    _F, _ts, v, c = scan_inputs(H, n, S, seed)
+    total = 0
+    for cyc in range(3):
+        cols, ts, valid = step_inputs(H, n, seed + cyc)
+        delta = np.float32(0.0 if cyc == 0 else 41.0 * cyc)
+        (jstate, jemit, jn) = je.make_step()(
+            {"v": jnp.asarray(v), "c": jnp.asarray(c)},
+            {k: jnp.asarray(a) for k, a in cols.items()},
+            jnp.asarray(ts), jnp.asarray(valid), jnp.asarray(delta))
+        # the same filter rows and rebased starts, into the plain twin
+        env = {k: torch.from_numpy(a) for k, a in cols.items()}
+        env["__n"] = n
+        F = (te._filter_matrix(env, H, n)
+             & torch.from_numpy(valid)[:, :, None]).to(torch.float32)
+        vt = torch.from_numpy(v.copy())
+        live = vt > NEG / 2
+        live[:, 0] = False
+        vt = torch.where(live, vt - float(delta), vt)
+        nv, nc, emit = scan_chain.fused_scan_plain(
+            F, torch.from_numpy(ts), vt, torch.from_numpy(c.copy()))
+        jv, jc = np.asarray(jstate["v"]), np.asarray(jstate["c"])
+        assert emit.numpy().tobytes() == np.asarray(jemit).tobytes()
+        assert int(emit.sum()) == int(jn)
+        jlive = jv > NEG32 / 2
+        assert np.array_equal(jlive, nv.numpy() > NEG32 / 2)
+        assert nv.numpy()[jlive].tobytes() == jv[jlive].tobytes()
+        assert nc.numpy()[jlive].tobytes() == jc[jlive].tobytes()
+        assert (nv.numpy()[~jlive] <= NEG32 / 2).all()
+        total += int(jn)
+        v, c = jv.copy(), jc.copy()
+    assert total > 0
+
+
 def test_pack_cycle_and_rebase_match_reference():
     je, te = engines(4)
     rng = np.random.default_rng(5)
