@@ -293,7 +293,35 @@ skew-routed pattern path and the incremental-aggregation path through
    WARNING, launches nothing, and gives the ``device="cpu"`` run's rows
    and numpy's count; then ``validate_siddhi_app`` and
    ``get_siddhi_app_runtimes()``.
-24. kernels: one line per ported kernel (launches on the main paths,
+24. joins and tables (``ROADMAP.md`` items 8 and 9), each run through
+   ``SiddhiManager()`` on the card and held against the
+   ``device="cpu"`` run of the same sends (rows, order, timestamps,
+   value types, floats bit for bit):
+   (a) ``join_stream``: the Siddhi 5.1 query guide's TempStream /
+   RegulatorStream join (a one-minute time window against a length(1)
+   window, on ``roomNo``) under ``@app:execution('tpu')`` at 10,000
+   rooms, Temp batches of 8,192 events one a ms (temp ~ N(28, 4)) and
+   Regulator batches of 2,048 over the same 8.192 s, 8 warm-up and 16
+   timed turn pairs; lowered to ``device_probe``, probe calls above 0;
+   (b) ``join_table``: the guide's RoomTypeTable join (10,000 rows, 10%
+   server rooms, loaded by an insert query), 2 warm-up and 10 timed
+   Temp batches; (c) ``table_noindex``: ``samples/performance/
+   workloads.py:187-235`` verbatim, in the default mode and under
+   ``execution('tpu')`` (its string condition keeps the numpy probe: 0
+   probe calls); each with events/s, ms a batch, probe calls, mask
+   blocks and bytes fetched a batch, a breakdown (side filters,
+   windows, probe put, mask, fetch, materialization, selector; each
+   piece synchronised) and the device's busy share under
+   ``torch.profiler``; (d) ``join_check`` lines at about 300 events
+   each: ``tests/test_device_join.py``'s shapes, a null in a numeric
+   column (that batch on the numpy probe), an aggregation join with
+   ``within``/``per``, a named window and a trigger feeding queries;
+   and ``table_pulls``: FIND, update, delete and update or insert
+   through ``rt.query`` on a table a dense pattern under
+   ``execution('tpu', emit.depth='4')`` inserts into (the pull drains
+   the queued emits first).  No hand-written kernel is on these paths:
+   ``launches_by_path`` gives ``joins`` and ``tables`` as 0.
+25. kernels: one line per ported kernel (launches on the main paths,
    largest difference from its plain version, ``ms``, ``host_us``,
    ``device_us``, plain and library times, bound); the bank kernel's at
    the entry the aggregation path uses, ``accumulate_``, with the delta
@@ -4073,6 +4101,614 @@ def functions_phase(torch, SiddhiManager, EventBatch, StreamCallback,
     return card_run["launches"]
 
 
+# -- joins and tables (ROADMAP.md items 8 and 9) ------------------------------
+
+# (a) the Siddhi 5.1 query guide's stream join at fleet size: 10,000
+# rooms, Temp batches of 8,192 events one a ms, temp ~ N(28, 4) (about
+# 31% pass the filter), Regulator batches of 2,048 over the same 8.192 s
+# (isOn true at p = 0.5); 8 warm-up turn pairs (65.5 s of stream, which
+# fills the minute window), 16 timed, 2 for the breakdown, 2 profiled
+JOIN_ROOMS = 10_000
+JOIN_TEMP_BATCH = 8_192
+JOIN_REG_BATCH = 2_048
+JOIN_WARMUP = 8
+JOIN_PAIRS = 16
+JOIN_EXTRA = 2  # pairs for the breakdown, and again for the profile
+JOIN_T0 = 1_000_000
+JOIN_DEFINE = ("define stream TempStream (deviceID long, roomNo int, "
+               "temp double); ")
+JOIN_STREAM_APP = (
+    "@app:playback @app:execution('tpu') " + JOIN_DEFINE
+    + "define stream RegulatorStream (deviceID long, roomNo int, isOn bool); "
+    "@info(name='q') from TempStream[temp > 30.0]#window.time(1 min) as T "
+    "join RegulatorStream[isOn == false]#window.length(1) as R "
+    "on T.roomNo == R.roomNo select T.roomNo, R.deviceID, 'start' as action "
+    "insert into RegulatorActionStream;")
+# (b) the query guide's table join: 10,000 rooms' types (10% server
+# rooms) loaded by an insert query, then Temp batches of 8,192, 2 warm-up
+# and 10 timed
+TABLE_ROOMS = 10_000
+TABLE_WARMUP = 2
+TABLE_STEPS = 10
+JOIN_TABLE_APP = (
+    "@app:playback @app:execution('tpu') " + JOIN_DEFINE
+    + "define stream RoomTypeStream (roomNo int, type string); "
+    "define table RoomTypeTable (roomNo int, type string); "
+    "@info(name='load') from RoomTypeStream insert into RoomTypeTable; "
+    "@info(name='q') from TempStream join RoomTypeTable "
+    "on RoomTypeTable.roomNo == TempStream.roomNo "
+    "select deviceID, RoomTypeTable.type as roomType, temp "
+    "having roomType == 'server-room' insert into ServerRoomTempStream;")
+# (c) samples/performance/workloads.py:187-235 verbatim
+# (NoIndexingTablePerformance.java:80): 1,000 table rows, StockCheckStream
+# batches of 512 joined on the string symbol, in the default mode and
+# under execution('tpu'); 50 timed batches each
+NOINDEX_ROWS = 1_000
+NOINDEX_BATCH = 512
+NOINDEX_BATCHES = 50
+NOINDEX_APP = (
+    "define stream StockInputStream (symbol string, company string, "
+    "price float, volume long); "
+    "define stream StockCheckStream (symbol string, company string, "
+    "timestamp long); "
+    "define table StockTable (symbol string, company string, "
+    "price float, volume long); "
+    "from StockInputStream select symbol, company, price, volume "
+    "insert into StockTable; "
+    "from StockCheckStream join StockTable "
+    "on StockCheckStream.symbol == StockTable.symbol "
+    "select StockCheckStream.timestamp, StockCheckStream.symbol, "
+    "StockCheckStream.company as company, StockTable.price as price "
+    "insert into OutputStream;")
+# (d) small checks, card against CPU: tests/test_device_join.py's shapes
+JC_DEFINE = ("define stream A (sym string, x double, n int); "
+             "define stream B (sym2 string, y double, m int); ")
+JOIN_CHECKS = {
+    "length_length": "from A#window.length(3) join B#window.length(3) "
+                     "on A.x < B.y",
+    "time_time": "from A#window.time(500 ms) join B#window.time(500 ms) "
+                 "on A.x >= B.y",
+    "compound_filters": "from A[x > 1.0]#window.length(4) join "
+                        "B[y < 9.0]#window.length(4) on A.x < B.y and "
+                        "A.n != B.m",
+    "left_outer": "from A#window.length(2) left outer join "
+                  "B#window.length(2) on A.x < B.y",
+    "unidirectional": "from A#window.length(3) unidirectional join "
+                      "B#window.length(3) on A.x < B.y",
+    "expired_pairs": "from A#window.length(1) join B#window.length(2) "
+                     "on A.x <= B.y",
+}
+JC_SELECT = " select A.sym as s, A.x as x, B.y as y, A.n as n insert into O;"
+AGG_JOIN_APP = (
+    "define stream S (k int, v double); define stream Q (k int); "
+    "define aggregation Agg from S select k, sum(v) as total "
+    "group by k aggregate every sec ... min; "
+    "@info(name='q') from Q as q join Agg as a on q.k == a.k "
+    "within 0L, 9000000000000L per 'seconds' "
+    "select q.k as k, a.total as total insert into O;")
+WINDOW_TRIGGER_APP = (
+    "define stream S (sym string, v int); "
+    "define trigger T at every 200 milliseconds; "
+    "define window W (sym string, v int) length(4) output all events; "
+    "from S insert into W; "
+    "@info(name='w') from W select sym, sum(v) as total insert into O; "
+    "@info(name='t') from T join W select T.triggered_time as t, "
+    "W.sym as sym, W.v as v insert into O2;")
+PULL_APP = (
+    "@app:execution('tpu', emit.depth='4') "
+    "define stream Txn (card long, amount double); "
+    "define table Alerts (card long, amount double); "
+    "@info(name='p') from every e1=Txn[amount > 100.0] -> "
+    "e2=Txn[card == e1.card and amount > e1.amount] "
+    "select e1.card as card, e2.amount as amount insert into Alerts;")
+PULLS = (
+    ("find", "from Alerts select card, amount;"),
+    ("update", "select 1L as card, 999.0 as amount update Alerts set "
+               "Alerts.amount = amount on Alerts.card == card;"),
+    ("find", "from Alerts on card == 1L select card, amount;"),
+    ("delete", "select 2L as card delete Alerts on Alerts.card == card;"),
+    ("update_or_insert", "select 77L as card, 1.5 as amount update or "
+                         "insert into Alerts set Alerts.amount = amount on "
+                         "Alerts.card == card;"),
+    ("find", "from Alerts select card, sum(amount) as total group by card "
+             "order by card;"))
+
+
+def join_stream_batches(EventBatch, n_pairs, seed=61):
+    """Turn pairs of (a): a Temp batch and the Regulator batch over the
+    same 8.192 s of stream."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n_pairs):
+        t0 = JOIN_T0 + i * JOIN_TEMP_BATCH
+        nt, nr = JOIN_TEMP_BATCH, JOIN_REG_BATCH
+        out.append(EventBatch("TempStream", ["deviceID", "roomNo", "temp"], {
+            "deviceID": rng.integers(0, 1_000_000, nt).astype(np.int64),
+            "roomNo": rng.integers(0, JOIN_ROOMS, nt).astype(np.int32),
+            "temp": rng.normal(28.0, 4.0, nt)},
+            t0 + np.arange(nt, dtype=np.int64)))
+        out.append(EventBatch("RegulatorStream",
+                              ["deviceID", "roomNo", "isOn"], {
+            "deviceID": rng.integers(0, 1_000_000, nr).astype(np.int64),
+            "roomNo": rng.integers(0, JOIN_ROOMS, nr).astype(np.int32),
+            "isOn": rng.random(nr) < 0.5},
+            t0 + 4 * np.arange(nr, dtype=np.int64)))
+    return out
+
+
+def table_batches(EventBatch, n, seed=67):
+    """(b): the room types (one batch), then ``n`` Temp batches."""
+    rng = np.random.default_rng(seed)
+    rooms = np.arange(TABLE_ROOMS, dtype=np.int32)
+    types = np.where(rng.random(TABLE_ROOMS) < 0.1, "server-room", "office")
+    out = [EventBatch("RoomTypeStream", ["roomNo", "type"], {
+        "roomNo": rooms, "type": types.astype(object)},
+        np.full(TABLE_ROOMS, JOIN_T0 - 1, dtype=np.int64))]
+    for i in range(n):
+        t0 = JOIN_T0 + i * JOIN_TEMP_BATCH
+        out.append(EventBatch("TempStream", ["deviceID", "roomNo", "temp"], {
+            "deviceID": rng.integers(0, 1_000_000, JOIN_TEMP_BATCH).astype(
+                np.int64),
+            "roomNo": rng.integers(0, TABLE_ROOMS, JOIN_TEMP_BATCH).astype(
+                np.int32),
+            "temp": rng.normal(28.0, 4.0, JOIN_TEMP_BATCH)},
+            t0 + np.arange(JOIN_TEMP_BATCH, dtype=np.int64)))
+    return out
+
+
+def noindex_batches(EventBatch, n, seed=3):
+    """(c): ``workloads.py``'s table load, then ``n`` copies of its check
+    batch."""
+    rng = np.random.default_rng(seed)
+    syms = np.asarray([f"S{i}" for i in range(NOINDEX_ROWS)], dtype=object)
+    load = EventBatch(
+        "StockInputStream", ["symbol", "company", "price", "volume"],
+        {"symbol": syms, "company": syms,
+         "price": rng.uniform(1, 100, NOINDEX_ROWS).astype(np.float32),
+         "volume": rng.integers(1, 100, NOINDEX_ROWS).astype(np.int64)},
+        np.zeros(NOINDEX_ROWS, dtype=np.int64))
+    check = EventBatch(
+        "StockCheckStream", ["symbol", "company", "timestamp"],
+        {"symbol": np.asarray([f"S{int(i)}" for i in rng.integers(
+            0, NOINDEX_ROWS, NOINDEX_BATCH)], dtype=object),
+         "company": np.asarray(["c"] * NOINDEX_BATCH, dtype=object),
+         "timestamp": np.zeros(NOINDEX_BATCH, dtype=np.int64)},
+        np.zeros(NOINDEX_BATCH, dtype=np.int64))
+    return [load] + [check] * n
+
+
+def join_runtimes(rt):
+    return [qr.join_runtime for qr in rt.query_runtimes.values()
+            if qr.join_runtime is not None]
+
+
+def run_join_app(torch, SiddhiManager, StreamCallback, app, setup, timed,
+                 device, kernels, outs):
+    """``setup`` then ``timed`` batches (each batch timed, synchronised)
+    through ``SiddhiManager`` on ``device``; the output batches by stream,
+    the seconds, the lowering, the launches by kernel over the whole run,
+    the probe's counters over the timed batches, and the live runtime
+    and manager (``rt``, ``mgr``) for the breakdown."""
+    zero_launches(kernels)
+    warned = ISOLATED.fallbacks
+    mgr = SiddhiManager(device=device)
+    rt = new_app(mgr, app)
+    fallbacks = ISOLATED.fallbacks - warned
+    got = {o: [] for o in outs}
+
+    class Rows(StreamCallback):
+        def __init__(self, kept):
+            self.kept = kept
+
+        def receive_batch(self, batch):
+            self.kept.append(batch)
+
+    for o in outs:
+        rt.add_callback(o, Rows(got[o]))
+    rt.start()
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    send = lambda b: rt.get_input_handler(b.stream_id).send_batch(b)
+    for b in setup:
+        send(b)
+    rt.drain()
+    sync()
+    jrs = join_runtimes(rt)
+    probes = [j.device_probe for j in jrs if j.device_probe is not None]
+
+    def counters():
+        return {"calls": sum(j.probe_invocations for j in jrs),
+                "blocks": sum(p.blocks for p in probes),
+                "fetches": sum(p.fetches for p in probes),
+                "bytes": sum(p.bytes_fetched for p in probes),
+                "puts": sum(p.ingest_stats.device_puts for p in probes)}
+
+    c0 = counters()
+    batch_s = []
+    for b in timed:
+        t = time.perf_counter()
+        send(b)
+        sync()
+        batch_s.append(time.perf_counter() - t)
+    t = time.perf_counter()
+    rt.drain()
+    sync()
+    drain_s = time.perf_counter() - t
+    c1 = counters()
+    # the output up to here: what the other run is held against
+    return {"outs": {o: list(v) for o, v in got.items()},
+            "secs": sum(batch_s) + drain_s, "batch_s": batch_s,
+            "lowering": rt.lowering(), "launches": read_launches(kernels),
+            "fallbacks": fallbacks,
+            "probe": {k: c1[k] - c0[k] for k in c0}, "rt": rt, "mgr": mgr}
+
+
+def close_run(run) -> None:
+    run["rt"].shutdown()
+    run["mgr"].shutdown()
+
+
+def join_breakdown(torch, rt, batches) -> dict:
+    """Host-clock ms a batch of each stage of the join over ``batches``,
+    each timed piece synchronised: side filters, windows (their
+    expiry on the scheduler too), the other side's buffer, the probe's
+    put, mask and fetch, the pairs' materialization (the rest of the
+    probe call) and the selector with the output."""
+    jr = join_runtimes(rt)[0]
+    probe = jr.device_probe
+    ms = {k: 0.0 for k in ("filters", "windows", "buffer", "probe_put",
+                           "mask", "fetch", "probe_call", "selector")}
+    sync = torch.cuda.synchronize
+
+    def wrap(obj, name, key):
+        fn = getattr(obj, name)
+
+        def timed(*a, **kw):
+            sync()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            ms[key] += 1e3 * (time.perf_counter() - t)
+            return out
+
+        setattr(obj, name, timed)
+
+    for side in (jr.left, jr.right):
+        wrap(side, "buffered", "buffer")
+        for f in side.filters:
+            wrap(f, "process", "filters")
+        if side.window is not None:
+            wrap(side.window, "process", "windows")
+            wrap(side.window, "on_time", "windows")
+    if probe is not None:
+        wrap(probe, "_stage", "probe_put")
+        wrap(probe, "_device_mask", "mask")
+        wrap(probe, "_fetch", "fetch")
+    wrap(jr, "_join", "probe_call")
+    wrap(jr, "emit", "selector")
+    b0 = probe.bytes_fetched if probe is not None else 0
+    c0 = jr.probe_invocations
+    t = time.perf_counter()
+    for b in batches:
+        rt.get_input_handler(b.stream_id).send_batch(b)
+    rt.drain()
+    sync()
+    wall = 1e3 * (time.perf_counter() - t)
+    n = len(batches)
+    # the probe call holds the other side's buffer, the put, the mask and
+    # the fetch; the selector runs after the probe calls of a batch
+    ms["materialize"] = (ms["probe_call"] - ms["buffer"] - ms["probe_put"]
+                         - ms["mask"] - ms["fetch"])
+    # without the device probe, materialize holds the numpy probe's
+    # cross product too
+    return {"probe": "device" if probe is not None else "numpy",
+            **{f"{k}_ms_a_batch": v / n for k, v in ms.items()},
+            "wall_ms_a_batch": wall / n,
+            "probe_calls_a_batch": (jr.probe_invocations - c0) / n,
+            "bytes_fetched_a_batch": ((probe.bytes_fetched - b0) / n
+                                      if probe is not None else 0)}
+
+
+def join_profile(torch, rt, batches) -> dict:
+    def run():
+        for b in batches:
+            rt.get_input_handler(b.stream_id).send_batch(b)
+        rt.drain()
+
+    p = device_profile(torch, run)
+    return {k: p[k] for k in ("profiled_wall_ms", "device_busy_ms",
+                              "device_busy_share", "top_device_ops_ms")}
+
+
+def join_line(label, card_run, cpu_run, n_timed_events, held, extra, card):
+    pr = card_run["probe"]
+    n = len(card_run["batch_s"])
+    return {"phase": label, "lowering": card_run["lowering"],
+            "events_per_s": n_timed_events / card_run["secs"],
+            "ms_a_batch": 1e3 * card_run["secs"] / n,
+            "cpu_events_per_s": n_timed_events / cpu_run["secs"],
+            "rows_held_vs_cpu": held,
+            "probe_calls_a_batch": pr["calls"] / n,
+            "mask_blocks_a_batch": pr["blocks"] / n,
+            "fetches_a_batch": pr["fetches"] / n,
+            "bytes_fetched_a_batch": pr["bytes"] / n,
+            "launches": card_run["launches"],
+            "fallback_warnings": card_run["fallbacks"], **extra,
+            "card": card}
+
+
+def joins_phase(torch, SiddhiManager, EventBatch, StreamCallback, kernels,
+                card) -> dict:
+    """Phase 24 (a)-(b): ``join_stream`` and ``join_table`` through
+    ``SiddhiManager()`` on the card, each held bit for bit against the
+    ``device="cpu"`` run of the same sends (rows, order, timestamps,
+    types, values), each lowered to ``device_probe`` with probe calls
+    above 0; events/s, the breakdown and the device's busy share.
+    Returns the launches of both card runs (no hand-written kernel is on
+    this path)."""
+    launches = {k: 0 for k in kernels}
+    # (a) join_stream
+    total = JOIN_WARMUP + JOIN_PAIRS + 2 * JOIN_EXTRA
+    bs = join_stream_batches(EventBatch, total)
+    warm, timed = bs[:2 * JOIN_WARMUP], bs[2 * JOIN_WARMUP:
+                                          2 * (JOIN_WARMUP + JOIN_PAIRS)]
+    extra = bs[2 * (JOIN_WARMUP + JOIN_PAIRS):]
+    out = ("RegulatorActionStream",)
+    card_run = run_join_app(torch, SiddhiManager, StreamCallback,
+                            JOIN_STREAM_APP, warm, timed, "cuda", kernels,
+                            out)
+    for k, v in card_run["launches"].items():
+        launches[k] += v
+    rt = card_run["rt"]
+    window_rows = len(join_runtimes(rt)[0].left.window.buffered())
+    bd = join_breakdown(torch, rt, extra[:2 * JOIN_EXTRA])
+    prof = join_profile(torch, rt, extra[2 * JOIN_EXTRA:])
+    close_run(card_run)
+    cpu_run = run_join_app(torch, SiddhiManager, StreamCallback,
+                           JOIN_STREAM_APP, warm, timed, "cpu", kernels, out)
+    close_run(cpu_run)
+    held = held_vs(card_run, cpu_run)
+    if (card_run["lowering"] != {"q": "device_probe"}
+            or card_run["probe"]["calls"] <= 0 or not held
+            or any(card_run["launches"].values())):
+        raise AssertionError(f"join_stream: lowering {card_run['lowering']}, "
+                             f"probe {card_run['probe']}, held {held}, "
+                             f"launches {card_run['launches']}")
+    n_ev = JOIN_PAIRS * (JOIN_TEMP_BATCH + JOIN_REG_BATCH)
+    emit(join_line("join_stream", card_run, cpu_run, n_ev, held, {
+        "rooms": JOIN_ROOMS, "temp_batch": JOIN_TEMP_BATCH,
+        "regulator_batch": JOIN_REG_BATCH, "warmup_pairs": JOIN_WARMUP,
+        "timed_pairs": JOIN_PAIRS, "temp_window_rows": window_rows,
+        "ms_a_turn_pair": 1e3 * card_run["secs"] / JOIN_PAIRS,
+        "breakdown": bd, "profile": prof}, card))
+
+    # (b) join_table
+    tb = table_batches(EventBatch, TABLE_WARMUP + TABLE_STEPS + 2)
+    setup, timed = tb[:1 + TABLE_WARMUP], tb[1 + TABLE_WARMUP:
+                                            1 + TABLE_WARMUP + TABLE_STEPS]
+    extra = tb[1 + TABLE_WARMUP + TABLE_STEPS:]
+    out = ("ServerRoomTempStream",)
+    card_run = run_join_app(torch, SiddhiManager, StreamCallback,
+                            JOIN_TABLE_APP, setup, timed, "cuda", kernels,
+                            out)
+    for k, v in card_run["launches"].items():
+        launches[k] += v
+    rt = card_run["rt"]
+    table_rows = len(rt.tables["RoomTypeTable"])
+    bd = join_breakdown(torch, rt, extra[:1])
+    prof = join_profile(torch, rt, extra[1:])
+    close_run(card_run)
+    cpu_run = run_join_app(torch, SiddhiManager, StreamCallback,
+                           JOIN_TABLE_APP, setup, timed, "cpu", kernels, out)
+    close_run(cpu_run)
+    held = held_vs(card_run, cpu_run)
+    if (card_run["lowering"].get("q") != "device_probe"
+            or card_run["probe"]["calls"] <= 0 or not held
+            or table_rows != TABLE_ROOMS
+            or any(card_run["launches"].values())):
+        raise AssertionError(f"join_table: lowering {card_run['lowering']}, "
+                             f"probe {card_run['probe']}, held {held}, "
+                             f"table rows {table_rows}, launches "
+                             f"{card_run['launches']}")
+    emit(join_line("join_table", card_run, cpu_run,
+                   TABLE_STEPS * JOIN_TEMP_BATCH, held, {
+                       "table_rows": table_rows,
+                       "temp_batch": JOIN_TEMP_BATCH,
+                       "warmup_batches": TABLE_WARMUP,
+                       "timed_batches": TABLE_STEPS,
+                       "breakdown": bd, "profile": prof}, card))
+    return launches
+
+
+def typed_rows(events) -> list:
+    """Events as (timestamp, expired, typed values), floats by their
+    bits."""
+    def typed(v):
+        if isinstance(v, float):
+            return ("float", v.hex())
+        return (type(v).__name__, v)
+
+    return [(e.timestamp, e.is_expired, tuple(typed(v) for v in e.data))
+            for e in events]
+
+
+def app_steps_card_vs_cpu(SiddhiManager, app, steps, outs) -> dict:
+    """``app`` through ``SiddhiManager()`` on the card and on the CPU: the
+    callbacks' events of ``outs`` and every pull's rows, typed, in
+    order; raises unless equal.  Steps: ``("send", stream, row, ts)``,
+    ``("batch", EventBatch)`` or ``("query", label, q)``."""
+    runs = []
+    for device in ("cuda", "cpu"):
+        mgr = SiddhiManager(device=device)
+        try:
+            rt = new_app(mgr, "@app:playback " + app)
+            got = []
+            for o in outs:
+                rt.add_callback(o, lambda evs, o=o: got.append(
+                    (o, typed_rows(evs))))
+            rt.start()
+            pulls = {}
+            for step in steps:
+                if step[0] == "send":
+                    rt.get_input_handler(step[1]).send(step[2], step[3])
+                elif step[0] == "batch":
+                    rt.get_input_handler(step[1].stream_id).send_batch(
+                        step[1])
+                else:
+                    rows = typed_rows(rt.query(step[2]))
+                    got.append((step[1], rows))
+                    pulls[step[1]] = pulls.get(step[1], 0) + 1
+            calls = sum(j.probe_invocations for j in join_runtimes(rt))
+            runs.append({"got": got, "lowering": rt.lowering(),
+                         "calls": calls, "pulls": pulls})
+            rt.shutdown()
+        finally:
+            mgr.shutdown()
+    card, cpu = runs
+    if card["got"] != cpu["got"] or card["lowering"] != cpu["lowering"]:
+        raise AssertionError(f"card and CPU differ: lowering "
+                             f"{card['lowering']} vs {cpu['lowering']}")
+    return {"lowering": card["lowering"], "probe_calls": card["calls"],
+            "outputs": len(card["got"]),
+            "rows": sum(len(r) for _o, r in card["got"]),
+            "pulls": card["pulls"]}
+
+
+def jc_events(n=300, seed=0):
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        sid = "A" if rng.integers(2) else "B"
+        out.append(("send", sid, [f"s{int(rng.integers(4))}",
+                                  float(rng.integers(0, 10)),
+                                  int(rng.integers(0, 5))],
+                    1000 + i * int(rng.integers(1, 60))))
+    return out
+
+
+def join_check_phase(SiddhiManager, EventBatch, card) -> None:
+    """Phase 24 (d): about 300 events each, card against CPU:
+    ``tests/test_device_join.py``'s shapes under ``execution('tpu')`` and
+    a null in a numeric column (one numpy batch), an aggregation join
+    with ``within``/``per``, a named window and a trigger feeding
+    queries, and pulls (FIND, update, delete, update or insert) on a
+    table a dense pattern inserts into with queued emits."""
+    for k, (label, shape) in enumerate(JOIN_CHECKS.items()):
+        app = ("@app:execution('tpu') " + JC_DEFINE + "@info(name='j') "
+               + shape + JC_SELECT)
+        r = app_steps_card_vs_cpu(SiddhiManager, app, jc_events(300, k),
+                                  ("O",))
+        if r["lowering"] != {"j": "device_probe"} or r["probe_calls"] <= 0:
+            raise AssertionError(f"join check {label}: {r}")
+        emit({"phase": "join_check", "case": label, **r, "card": card})
+    # a null in a numeric column: that batch alone takes the numpy probe
+    xs = np.empty(3, dtype=object)
+    xs[:] = [1.0, None, 3.0]
+    steps = [("send", "B", ["b", 5.0, 0], 1),
+             ("batch", EventBatch("A", ["sym", "x", "n"], {
+                 "sym": np.array(["a1", "a2", "a3"], dtype=object), "x": xs,
+                 "n": np.zeros(3, dtype=np.int32)},
+                 np.array([2, 3, 4], dtype=np.int64))),
+             ("send", "A", ["a4", 2.0, 1], 5)]
+    app = ("@app:execution('tpu') " + JC_DEFINE + "@info(name='j') "
+           "from A#window.length(3) join B#window.length(3) on A.x < B.y"
+           + JC_SELECT)
+    r = app_steps_card_vs_cpu(SiddhiManager, app, steps, ("O",))
+    # B probes an empty window; A's null batch takes the numpy probe and
+    # A's last event the device probe
+    if r["probe_calls"] != 1 or r["rows"] != 3:
+        raise AssertionError(f"join check null_batch: {r}")
+    emit({"phase": "join_check", "case": "null_batch", **r,
+          "numpy_batches": 1, "card": card})
+    # an aggregation join with within/per
+    rng = np.random.default_rng(71)
+    steps = []
+    for i in range(300):
+        if rng.random() < 0.8:
+            steps.append(("send", "S", [int(rng.integers(5)),
+                                        float(rng.integers(1, 50))],
+                          1000 + 7 * i))
+        else:
+            steps.append(("send", "Q", [int(rng.integers(6))],
+                          1000 + 7 * i))
+    r = app_steps_card_vs_cpu(SiddhiManager, "@app:execution('tpu') "
+                              + AGG_JOIN_APP, steps, ("O",))
+    if r["lowering"] != {"q": "device_probe"} or not r["rows"]:
+        raise AssertionError(f"join check aggregation: {r}")
+    emit({"phase": "join_check", "case": "aggregation_within_per", **r,
+          "card": card})
+    # a named window and a trigger feeding queries
+    steps = [("send", "S", [f"k{int(rng.integers(4))}",
+                            int(rng.integers(0, 100))], 5000 + 13 * i)
+             for i in range(300)]
+    r = app_steps_card_vs_cpu(SiddhiManager, "@app:execution('tpu') "
+                              + WINDOW_TRIGGER_APP, steps, ("O", "O2"))
+    if not r["rows"]:
+        raise AssertionError(f"named window and trigger: {r}")
+    emit({"phase": "join_check", "case": "named_window_trigger", **r,
+          "card": card})
+
+
+def tables_phase(torch, SiddhiManager, EventBatch, StreamCallback, kernels,
+                 card) -> dict:
+    """Phase 24 (c) and the pull barrier: ``table_noindex``
+    (``workloads.py:187-235``) in the default mode and under
+    ``execution('tpu')``, where its string condition keeps the numpy
+    probe (0 probe calls, 0 launches), each held against the
+    ``device="cpu"`` run; then pulls on a table a dense pattern under
+    ``execution('tpu', emit.depth='4')`` inserts into.  Returns the
+    launches of the table runs."""
+    launches = {k: 0 for k in kernels}
+    bs = noindex_batches(EventBatch, NOINDEX_BATCHES)
+    rates = {}
+    for mode, prefix in (("default", ""), ("tpu", "@app:execution('tpu') ")):
+        app = "@app:playback " + prefix + NOINDEX_APP
+        card_run = run_join_app(torch, SiddhiManager, StreamCallback, app,
+                                bs[:1], bs[1:], "cuda", kernels,
+                                ("OutputStream",))
+        for k, v in card_run["launches"].items():
+            launches[k] += v
+        bd = join_breakdown(torch, card_run["rt"], bs[1:3])
+        prof = join_profile(torch, card_run["rt"], bs[1:3])
+        close_run(card_run)
+        cpu_run = run_join_app(torch, SiddhiManager, StreamCallback, app,
+                               bs[:1], bs[1:], "cpu", kernels,
+                               ("OutputStream",))
+        close_run(cpu_run)
+        held = held_vs(card_run, cpu_run)
+        want = NOINDEX_BATCH * NOINDEX_BATCHES
+        if (held != want or card_run["probe"]["calls"]
+                or any(card_run["launches"].values())
+                or card_run["lowering"].get("query_1") != "host"):
+            raise AssertionError(f"table_noindex {mode}: held {held} of "
+                                 f"{want}, probe {card_run['probe']}, "
+                                 f"launches {card_run['launches']}, "
+                                 f"lowering {card_run['lowering']}")
+        rates[mode] = want / card_run["secs"]
+        emit(join_line("table_noindex", card_run, cpu_run, want, held, {
+            "mode": mode, "table_rows": NOINDEX_ROWS,
+            "batch": NOINDEX_BATCH, "timed_batches": NOINDEX_BATCHES,
+            "breakdown": bd, "profile": prof}, card))
+    # pulls on a table a dense pattern writes through its emit queue
+    rng = np.random.default_rng(73)
+    steps, t = [], 1000
+    for i in range(300):
+        t += int(rng.integers(1, 20))
+        steps.append(("send", "Txn", [int(rng.integers(0, 6)),
+                                      float(rng.integers(50, 400))], t))
+        if i % 50 == 49:
+            label, q = PULLS[(i // 50) % len(PULLS)]
+            steps.append(("query", label, q))
+    steps.extend(("query", label, q) for label, q in PULLS)
+    zero_launches(kernels)
+    r = app_steps_card_vs_cpu(SiddhiManager, PULL_APP, steps, ())
+    pull_launches = read_launches(kernels)
+    if r["lowering"] != {"p": "dense"} or not r["rows"]:
+        raise AssertionError(f"table pulls: {r}")
+    emit({"phase": "table_pulls", **r,
+          "pattern_launches_card_and_cpu": pull_launches, "card": card})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4631,10 +5267,19 @@ def main() -> int:
     scan_engine_phase(torch, card)
     udf_launches = functions_phase(torch, SiddhiManager, EventBatch,
                                    StreamCallback, all_kernels, card)
+
+    # 24. joins with the device probe, tables, named windows, triggers
+    # and pulls --------------------------------------------------------------
+    gc.collect()
+    join_launches = joins_phase(torch, SiddhiManager, EventBatch,
+                                StreamCallback, all_kernels, card)
+    join_check_phase(SiddhiManager, EventBatch, card)
+    table_launches = tables_phase(torch, SiddhiManager, EventBatch,
+                                  StreamCallback, all_kernels, card)
     emit({"phase": "isolated_errors", "errors": 0,
           "warnings_to_listeners_or_log": ISOLATED.warnings})
 
-    # 24. kernels -------------------------------------------------------------
+    # 25. kernels -------------------------------------------------------------
     by_path = lambda name: {"dense_1M": launches.get(name, 0),
                             "skew_routed": hk_launches.get(name, 0),
                             "aggregation": agg_launches[name],
@@ -4650,7 +5295,10 @@ def main() -> int:
                             # (a) and (d) of the product phase
                             "product": product_launches[name],
                             "auto_depths": auto_launches[name],
-                            "functions": udf_launches[name]}
+                            "functions": udf_launches[name],
+                            # torch ops on the join and table paths
+                            "joins": join_launches[name],
+                            "tables": table_launches[name]}
     emit({"kernels": [
         {"name": "dense_batch", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/dense_batch.cu",

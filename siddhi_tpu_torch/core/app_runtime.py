@@ -8,10 +8,14 @@ too, as in the reference), single-stream queries on the host query
 runtime (the reference's default mode) or, under
 ``@app:execution('tpu')``, on the device query engine, pattern queries
 on the host pattern engine or, under ``@app:execution('tpu')``, on the
-dense path (outside a partition at one partition), partitions lowered
-to the device paths or run on per-key host instances, incremental
-aggregations subscribed to their input junctions (``aggregations``,
-``query()`` for on-demand FINDs over them), stream and query callbacks,
+dense path (outside a partition at one partition), joins (with the
+device probe under ``@app:execution('tpu')``), partitions lowered to
+the device paths or run on per-key host instances, tables (in-memory,
+or ``@store`` record tables over a store extension), named windows
+(each a scheduler task with its own junction), triggers, incremental
+aggregations subscribed to their input junctions, on-demand queries
+(``query()``: FIND over tables, named windows and aggregations, and
+table writes), stream and query callbacks,
 input handlers, the app scheduler (window ticks, rate limits,
 absent-deadline timers, timeBatch panes and ``@purge``) with the
 ``@app:playback(idle.time, increment)`` idle heartbeat, exception
@@ -21,7 +25,7 @@ of ``get_stream_definitions()``, ``query_names()`` and
 ``function`` extensions) compile from the app's copy of its manager's
 extension registry.  An app outside the slices raises
 ``SiddhiAppCreationError`` naming the ``ROADMAP.md`` item that ports
-it: tables, named windows and triggers (item 9).
+it: sources and sinks (item 15).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import time
 from typing import Callable, Dict, List, Union
 
 from siddhi_tpu_torch.aggregation.runtime import AggregationRuntime
+from siddhi_tpu_torch.compiler.parser import parse_time_string
 from siddhi_tpu_torch.core.exceptions import (
     DefinitionNotExistError,
     SiddhiAppCreationError,
@@ -46,10 +51,20 @@ from siddhi_tpu_torch.core.stream import (
     StreamCallback,
     StreamJunction,
 )
+from siddhi_tpu_torch.core.trigger import TriggerRuntime
+from siddhi_tpu_torch.core.window import NamedWindowRuntime
 from siddhi_tpu_torch.extension.function import build_functions
+from siddhi_tpu_torch.extension.validator import validate_extension_args
 from siddhi_tpu_torch.planner.app_planner import plan_app_context
+from siddhi_tpu_torch.planner.host_expr import ExpressionCompiler, Scope
 from siddhi_tpu_torch.planner.query_planner import plan_query
-from siddhi_tpu_torch.query_api import Query, SingleInputStream
+from siddhi_tpu_torch.query_api import (
+    Query,
+    SingleInputStream,
+    StreamDefinition,
+)
+from siddhi_tpu_torch.query_api.annotation import find_annotation
+from siddhi_tpu_torch.table import InMemoryTable, RecordTableRuntime, TableCache
 
 
 class SiddhiAppRuntime:
@@ -57,17 +72,10 @@ class SiddhiAppRuntime:
         self.siddhi_app = siddhi_app
         self.app_context = plan_app_context(siddhi_app, device)
         self.name = self.app_context.name
-        for what, defs in (
-                ("tables", siddhi_app.table_definitions),
-                ("named windows", siddhi_app.window_definitions),
-                ("triggers", siddhi_app.trigger_definitions)):
-            if defs:
-                raise SiddhiAppCreationError(
-                    f"app '{self.name}': {what} ({', '.join(defs)})"
-                    + later_slice(9, what))
-        # sources and sinks come with item 15; their planner (with item
-        # 9's stores) is what reads the manager's config manager, data
-        # sources and handler managers
+        self.siddhi_context = siddhi_context
+        # sources and sinks come with item 15; their planner reads the
+        # manager's config manager and handler managers, as the store
+        # planner here does
         transports = [f"@{a.name.lower()}(type='{a.element('type')}') on "
                       f"'{sid}'"
                       for sid, d in siddhi_app.stream_definitions.items()
@@ -95,6 +103,21 @@ class SiddhiAppRuntime:
         self._playback_stop = None
         self._playback_thread = None
         self._on_demand_cache: Dict[str, object] = {}
+        # (handler manager, element id) of each record-table handler,
+        # unregistered at shutdown
+        self._handler_registrations: List = []
+        self.tables: Dict[str, object] = {
+            td.id: self._build_table(td)
+            for td in siddhi_app.table_definitions.values()}
+        self.named_windows: Dict[str, NamedWindowRuntime] = {}
+        for wd in siddhi_app.window_definitions.values():
+            self.named_windows[wd.id] = self._build_named_window(wd)
+        self.trigger_runtimes: Dict[str, TriggerRuntime] = {}
+        for td in siddhi_app.trigger_definitions.values():
+            # the trigger defines its stream
+            tr = TriggerRuntime(td, self.junctions[td.id], self.app_context)
+            self.trigger_runtimes[td.id] = tr
+            self.scheduler.register_task(tr)
         self.aggregations: Dict[str, AggregationRuntime] = {}
         for ad in siddhi_app.aggregation_definitions.values():
             ar = AggregationRuntime(ad, self)
@@ -114,6 +137,92 @@ class SiddhiAppRuntime:
             pr = PartitionRuntime(el, self, pi)
             pi += 1
             self.partitions[pr.name] = pr
+
+    # -- tables and named windows --------------------------------------------
+
+    def _build_table(self, td):
+        """A ``@store`` table is a record table over its store extension
+        (options merged from the config manager's ``ref``, the store's
+        config reader, the record-table handler, ``@cache``); any other
+        table is a columnar in-memory table."""
+        store_ann = find_annotation(td.annotations, "store")
+        if store_ann is None:
+            return InMemoryTable(td)
+        opts = {k: v for k, v in store_ann.elements
+                if k is not None and k.lower() != "type"}
+        ref = opts.pop("ref", None)
+        cm = self.siddhi_context.config_manager
+        if ref is not None:
+            ref_configs = dict(cm.extract_system_configs(ref))
+            if not ref_configs:
+                raise SiddhiAppCreationError(f"undefined ref '{ref}'")
+            ref_configs.update(opts)
+            opts = ref_configs
+        stype = store_ann.element("type") or opts.get("type")
+        if stype is None:
+            raise SiddhiAppCreationError(
+                "@store on a definition: 'type' is required (inline or "
+                "via ref)")
+        opts.pop("type", None)
+        factory = self.extensions.lookup("store", stype)
+        if factory is None:
+            raise SiddhiAppCreationError(
+                f"table '{td.id}': unknown store type '{stype}'")
+        store = factory()
+        store.init(td, opts, cm.generate_config_reader("store", stype))
+        handler = None
+        rthm = self.siddhi_context.record_table_handler_manager
+        if rthm is not None:
+            handler = rthm.generate(self.name, td.id)
+            self._handler_registrations.append((rthm, handler.element_id))
+        cache = None
+        cache_ann = store_ann.nested("cache")
+        if cache_ann is not None:
+            size = int(cache_ann.element("size")
+                       or cache_ann.element("max.size") or "50")
+            policy = (cache_ann.element("cache.policy")
+                      or cache_ann.element("policy") or "FIFO")
+            retention = cache_ann.element("retention.period")
+            cache = TableCache(
+                size, policy,
+                retention_ms=parse_time_string(retention) if retention
+                else None)
+        return RecordTableRuntime(td, store, cache=cache, handler=handler)
+
+    def _build_named_window(self, wd) -> NamedWindowRuntime:
+        """The window function over the window's attributes, its own
+        junction (which ``from W`` queries read) and a scheduler task."""
+        fn = wd.window_function
+        if fn is None:
+            raise SiddhiAppCreationError(
+                f"window '{wd.id}': missing window function")
+        factory = self.extensions.lookup("window", fn.name, fn.namespace)
+        if factory is None:
+            raise SiddhiAppCreationError(
+                f"window '{wd.id}': unknown window '{fn.name}()'")
+        wscope = Scope()
+        for a in wd.attributes:
+            wscope.add(wd.id, a.name, a.name, a.type)
+        wcompiler = ExpressionCompiler(wscope, self.functions)
+        args = [wcompiler.compile(a) for a in fn.args]
+        validate_extension_args(factory, fn.name, [a.type for a in args],
+                                where=f"named window '{wd.id}'")
+        w = factory(args, wd.attribute_names)
+        d = StreamDefinition(id=wd.id, attributes=list(wd.attributes))
+        self.definitions[wd.id] = d
+        junction = self.junctions[wd.id] = StreamJunction(d, self.app_context)
+        nwr = NamedWindowRuntime(wd, w, junction, self.app_context)
+        self.scheduler.register_task(nwr)
+        return nwr
+
+    def table_resolver(self, table_name: str, obj: bool = False):
+        """The membership test of ``expr in Table`` (``obj=True``: the
+        table itself, for the condition form)."""
+        table = self.tables.get(table_name)
+        if table is None:
+            raise SiddhiAppCreationError(
+                f"'IN {table_name}': table is not defined")
+        return table if obj else table.contains_fn()
 
     # -- planning hooks ------------------------------------------------------
 
@@ -201,6 +310,9 @@ class SiddhiAppRuntime:
         if self._running:
             return
         self.scheduler.start()
+        for t in self.tables.values():
+            if hasattr(t, "start"):
+                t.start()  # record tables connect their stores
         self._running = True
         ctx = self.app_context
         if ctx.playback and ctx.playback_idle_ms > 0:
@@ -234,9 +346,15 @@ class SiddhiAppRuntime:
                 if qr.device_processor is not None}
 
     def drain(self):
-        """Emit every output still pending on the device."""
+        """Emit every output still pending on the device, in the order
+        the synchronous path would, before host code reads state (a pull
+        query, shutdown): the device runtimes first, then any table with
+        a barrier of its own, since a drained emit may write a table."""
         for rt in self.device_runtimes().values():
             rt.drain()
+        for t in self.tables.values():
+            if hasattr(t, "drain"):
+                t.drain()
 
     def shutdown(self):
         if self._playback_stop is not None:
@@ -248,18 +366,25 @@ class SiddhiAppRuntime:
             rt.close()
         for ar in self.aggregations.values():
             ar.close()
+        for t in self.tables.values():
+            if hasattr(t, "shutdown"):
+                t.shutdown()  # record tables disconnect their stores
+        for mgr, element_id in self._handler_registrations:
+            mgr.unregister(element_id)
+        self._handler_registrations = []
         self._running = False
 
     # -- on-demand (pull) queries --------------------------------------------
 
     def query(self, on_demand_query: str):
-        """Run a pull query (a FIND over an aggregation) and return its
-        events (reference: SiddhiAppRuntimeImpl.query:304, cache of 50)."""
+        """Run a pull query (a FIND over a table, a named window or an
+        aggregation, or a table write) and return its events (reference:
+        SiddhiAppRuntimeImpl.query:304, cache of 50)."""
         from siddhi_tpu_torch.compiler import SiddhiCompiler
         from siddhi_tpu_torch.core.on_demand import OnDemandQueryRuntime
 
-        # barrier: matches still pending on the device may feed the
-        # aggregation's input stream
+        # barrier: emits still pending on the device may feed the
+        # table, window or aggregation this reads
         self.drain()
         rt = self._on_demand_cache.get(on_demand_query)
         if rt is None:
@@ -273,7 +398,9 @@ class SiddhiAppRuntime:
     # -- I/O -----------------------------------------------------------------
 
     def get_input_handler(self, stream_id: str) -> InputHandler:
-        j = self.junctions.get(stream_id)
+        # a named window is fed by queries only, as in the reference
+        j = (self.junctions.get(stream_id)
+             if stream_id not in self.named_windows else None)
         if j is None:
             raise DefinitionNotExistError(
                 f"stream '{stream_id}' is not defined in app '{self.name}'")

@@ -5,11 +5,12 @@ context (``SiddhiContext``: extensions, attributes, config, data
 sources), parses an app and builds its ``SiddhiAppRuntime`` on one
 device, ``cuda`` unless the caller passes ``device="cpu"`` (without a
 card, the default raises rather than run on the CPU), and tracks the
-runtimes it registered.  The config manager, data sources and handler
-managers are held for the store and transport planners, their only
-readers in the reference (``ROADMAP.md`` §1 items 9 and 15); until those
-come, an app with a table, a ``@source`` or a ``@sink`` is refused.
-Persistence (``set_persistence_store``, ``persist``,
+runtimes it registered.  The config manager's refs and readers and the
+record-table handler manager are read by the store planner of the app
+runtime (``@store`` tables); the data sources and the source and sink
+handler managers are held for the transport planner (``ROADMAP.md`` §1
+item 15), until which an app with a ``@source`` or a ``@sink`` is
+refused.  Persistence (``set_persistence_store``, ``persist``,
 ``restore_last_state``) is a later slice.
 """
 

@@ -227,7 +227,9 @@ def _junction_key(s) -> str:
 class InstancePlanner:
     """The planner's ``app`` for one partition key: local junctions for
     the partitioned streams and ``#inner`` streams, the app's output
-    junctions, a scoped scheduler; everything else is the app's."""
+    junctions, a scoped scheduler; the app's tables, named windows and
+    ``in Table`` resolver.  As in the reference's facade, the app's
+    aggregations are not in an instance's namespace."""
 
     # the planner plans single-stream queries and patterns on the host
     # here: the device form of a partition is ONE engine with the keys
@@ -239,6 +241,9 @@ class InstancePlanner:
         self.app_context = app.app_context
         self.extensions = app.extensions
         self.functions = app.functions
+        self.tables = app.tables
+        self.named_windows = app.named_windows
+        self.table_resolver = app.table_resolver
         self.scheduler = _ScopedScheduler(app.scheduler)
         # the input namespace is local only: a query inside a partition
         # reads the partitioned streams or '#inner' ones (a global read

@@ -857,9 +857,12 @@ class QueryRuntime:
         # DeviceQueryRuntime, whose outputs enter ``process`` at the
         # selector (the chain is empty)
         self.device_runtime = None
+        # a join query: its JoinRuntime (core/join.py)
+        self.join_runtime = None
         # which engine runs this query: 'host' (the columnar numpy
         # chain), 'device' (the device query engine), 'dense' or
-        # 'hotkey' (the device pattern paths), as
+        # 'hotkey' (the device pattern paths), 'device_probe' (a join
+        # whose condition mask runs on the device), as
         # SiddhiAppRuntime.lowering() reports it
         self.lowered_to = "host"
         # the scheduler tasks a dense query registered (its rate task,

@@ -3,13 +3,13 @@
 Port of the JAX package's ``extension/registry.py``.  The built-ins
 register themselves with the ``@extension`` decorator when their modules
 are imported: the windows of ``ops/windows.py``, the stream functions
-of ``ops/stream_functions.py`` and the script engines of
-``extension/function.py``.  ``default_registry()`` hands each manager
+of ``ops/stream_functions.py``, the script engines of
+``extension/function.py`` and the record store of ``table/record.py``.  ``default_registry()`` hands each manager
 its own copy, where ``SiddhiManager.set_extension`` adds user
 extensions; each app plans against a copy of its manager's.  The kinds
-are those the port's planners look up; the reference's source, sink,
-mapper, table and store kinds come with the slices that plan them
-(ROADMAP.md §1 items 9 and 15).
+are those the port's planners look up; the reference's source, sink and
+mapper kinds come with the slice that plans them (ROADMAP.md §1 item
+15).
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ KINDS = (
     "stream_processor",
     "stream_function",
     "script",
+    "store",
 )
 
 
@@ -83,5 +84,6 @@ def default_registry() -> ExtensionRegistry:
     import siddhi_tpu_torch.extension.function  # noqa: F401
     import siddhi_tpu_torch.ops.stream_functions  # noqa: F401
     import siddhi_tpu_torch.ops.windows  # noqa: F401
+    import siddhi_tpu_torch.table.record  # noqa: F401
 
     return _DEFAULT.copy()

@@ -16,7 +16,7 @@ The port runs its kernels on the card whenever it runs on a card: it
 has no XLA formulation to keep, so ``@app:kernels`` is parsed and
 validated as the reference does and switches nothing.  Any other
 ``@app:`` annotation belongs to a later slice of the port and is
-refused.
+refused, naming the ``ROADMAP.md`` item that ports it (``LATER``).
 """
 
 from __future__ import annotations
@@ -27,12 +27,28 @@ import uuid
 from typing import Dict, List
 
 from siddhi_tpu_torch.compiler.parser import parse_time_string
-from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
+from siddhi_tpu_torch.core.exceptions import (
+    SiddhiAppCreationError,
+    later_slice,
+)
 from siddhi_tpu_torch.query_api.annotation import find_annotation
 from siddhi_tpu_torch.util.scheduler import Scheduler
 
 _READ = ("app:name", "app:description", "app:playback", "app:execution",
          "app:hotkeys", "app:kernels")
+# the reference's other app annotations: the ROADMAP.md §1 item that
+# ports each, and what it is
+LATER = {
+    "app:persist": (11, "persistence"),
+    "app:fuse": (12, "stream-graph fusion"),
+    "app:devtables": (13, "device tables"),
+    "app:multiplex": (14, "multiplex"),
+    "app:limits": (15, "the operations layer"),
+    "app:plan": (15, "the operations layer"),
+    "app:statistics": (15, "the operations layer"),
+    "app:trace": (15, "the operations layer"),
+    "app:faults": (15, "the operations layer"),
+}
 
 
 class TimestampGenerator:
@@ -131,7 +147,11 @@ def plan_app_context(siddhi_app, device) -> AppContext:
     """Read the app annotations into an ``AppContext``."""
     anns = siddhi_app.annotations
     for a in anns:
-        if a.name.lower().startswith("app:") and a.name.lower() not in _READ:
+        name = a.name.lower()
+        if name.startswith("app:") and name not in _READ:
+            if name in LATER:
+                raise SiddhiAppCreationError(
+                    f"@{a.name}" + later_slice(*LATER[name]))
             raise SiddhiAppCreationError(
                 f"@{a.name} is not in the port yet — a later slice of the "
                 "port")
@@ -162,7 +182,7 @@ def plan_app_context(siddhi_app, device) -> AppContext:
         if exec_ann.element("devices"):
             raise SiddhiAppCreationError(
                 "@app:execution: devices= shards the partition axis over a "
-                "mesh — a later slice of the port")
+                "mesh" + later_slice(16, "multi-device"))
         for key, attr in (("emit.depth", "tpu_emit_depth"),
                           ("ingest.depth", "tpu_ingest_depth")):
             raw = exec_ann.element(key)

@@ -16,7 +16,9 @@ The JAX package's builtin functions and its null test are numpy
 closures that its dense step cannot trace, so a function call or an
 ``is null`` in a device filter is refused here at compile time; a user
 function (an extension or a ``define function`` script) is unknown
-here, as in the reference, and its query runs on the host.
+here, as in the reference, and its query runs on the host.  ``expr in
+Table`` raises as the reference's device compilers do: they have no
+table resolver.
 
 Java arithmetic semantics are preserved where they differ from Python's:
 integer division truncates toward zero and integer remainder takes the
@@ -42,6 +44,7 @@ from siddhi_tpu_torch.query_api import (
     Constant,
     Expression,
     FunctionCall,
+    InOp,
     IsNull,
     NotOp,
     OrOp,
@@ -103,6 +106,13 @@ class Scope:
         """Register an unqualified name (aggregation base fields and
         outputs, select aliases)."""
         self._bare[name] = (name, attr_type)
+
+    def clone(self) -> "Scope":
+        s = Scope()
+        s._bare = dict(self._bare)
+        s._qualified = dict(self._qualified)
+        s.stream_refs = set(self.stream_refs)
+        return s
 
     def add_alias(self, alias: str, stream_ref: str):
         """Make ``alias.attr`` resolve like ``stream_ref.attr``."""
@@ -257,6 +267,12 @@ class ExpressionCompiler:
             self.compile(a)
         raise DeviceUncompilableError(
             f"function '{name}()' is not supported in a device filter")
+
+    def _c_InOp(self, e: InOp) -> CompiledExpression:
+        # the reference's device compilers have no table resolver: the
+        # query (or pattern) runs on the host, as there
+        raise SiddhiAppCreationError(
+            f"'IN {e.source_id}': no table resolver in this context")
 
     def _c_IsNull(self, e: IsNull) -> CompiledExpression:
         self.compile(e.expr)

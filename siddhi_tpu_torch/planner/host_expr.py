@@ -9,11 +9,12 @@ numpy, as the JAX package does: DOUBLE arithmetic in float64, object
 Compared with the device compiler it adds the reference's null
 semantics for object columns (a null compares false and propagates
 through arithmetic), ``is null``, the pattern presence test ``e1[1] is
-null`` and the builtin scalar functions.  The host pattern engine
-(``ops/nfa.py``) evaluates these closures on Python scalars, one event
-at a time.  The
-``expr in Table`` membership test belongs to the table slice of the port
-and is refused.
+null`` and the builtin scalar functions, and ``expr in Table``: a
+value's membership in a table's key column, or, when the expression
+reads the table's attributes, whether some table row satisfies it
+against the event (``table_resolver``, the app's).  The host pattern
+engine (``ops/nfa.py``) evaluates these closures on Python scalars, one
+event at a time.
 
 Java arithmetic semantics are preserved where they differ from numpy:
 integer division truncates toward zero and integer remainder takes the
@@ -27,7 +28,10 @@ from typing import Callable, Dict, List
 
 import numpy as np
 
-from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
+from siddhi_tpu_torch.core.exceptions import (
+    SiddhiAppCreationError,
+    SiddhiAppRuntimeError,
+)
 from siddhi_tpu_torch.planner.expr import (
     _CMP,
     AGGREGATOR_NAMES,
@@ -99,16 +103,38 @@ def _null_safe_arith(a, b, op):
     return out
 
 
-class ExpressionCompiler:
-    """Compiles expression trees against a Scope into numpy closures."""
+def _refs_stream(expr, sid: str) -> bool:
+    """True when the expression tree references a Variable qualified by
+    ``sid`` (the condition form of ``... in Table``)."""
+    if isinstance(expr, Variable):
+        return expr.stream_id == sid
+    if expr is None or isinstance(expr, (str, int, float, bool)):
+        return False
+    for f in getattr(expr, "__dataclass_fields__", {}):
+        v = getattr(expr, f)
+        if isinstance(v, (list, tuple)):
+            if any(_refs_stream(x, sid) for x in v):
+                return True
+        elif _refs_stream(v, sid):
+            return True
+    return False
 
-    def __init__(self, scope: Scope, functions: Dict[str, Callable] = None):
+
+class ExpressionCompiler:
+    """Compiles expression trees against a Scope into numpy closures.
+
+    ``table_resolver(name, obj=False)`` gives the membership test of
+    ``expr in Table`` (``obj=True``: the table itself)."""
+
+    def __init__(self, scope: Scope, functions: Dict[str, Callable] = None,
+                 table_resolver=None):
         self.scope = scope
         # the builtins, then the app's user functions (extensions and
         # ``define function`` scripts), name -> builder
         self.functions = dict(BUILTIN_FUNCTIONS)
         if functions:
             self.functions.update(functions)
+        self.table_resolver = table_resolver
 
     def compile(self, expr: Expression) -> CompiledExpression:
         m = getattr(self, "_c_" + type(expr).__name__, None)
@@ -207,8 +233,62 @@ class ExpressionCompiler:
         return CompiledExpression(lambda env: ~env[key], AttrType.BOOL)
 
     def _c_InOp(self, e: InOp) -> CompiledExpression:
-        raise SiddhiAppCreationError(
-            f"'in {e.source_id}': tables — a later slice of the port")
+        if self.table_resolver is None:
+            raise SiddhiAppCreationError(
+                f"'IN {e.source_id}': no table resolver in this context")
+        # `(cond) in Table` where cond reads Table.attr columns: true when
+        # SOME table row satisfies cond against the event; a scalar
+        # `value in Table` probes the table's key column
+        if _refs_stream(e.expr, e.source_id):
+            table = None
+            try:
+                table = self.table_resolver(e.source_id, obj=True)
+            except TypeError:
+                pass  # a resolver without the object channel
+            if table is not None:
+                return self._in_condition(e, table)
+        member_fn = self.table_resolver(e.source_id)
+        c = self.compile(e.expr)
+        return CompiledExpression(lambda env: member_fn(c.fn(env)),
+                                  AttrType.BOOL)
+
+    def _in_condition(self, e: InOp, table) -> CompiledExpression:
+        from siddhi_tpu_torch.table.table import CompiledTableCondition
+
+        cond = CompiledTableCondition(
+            table, e.expr, self.scope, extra_functions=self.functions,
+            table_resolver=self.table_resolver)
+
+        def member_cond(env):
+            n = env.get(N_KEY, 1)
+            if not isinstance(n, (int, np.integer)):
+                n = 1
+            n = max(int(n), 1)
+            out = np.zeros(n, dtype=bool)
+            # the env split once a batch: array columns must be
+            # row-aligned with the batch
+            arrays = {}
+            scalars = {}
+            for k, v in env.items():
+                if k == N_KEY:
+                    continue
+                if isinstance(v, np.ndarray) and v.ndim >= 1:
+                    if len(v) < n:
+                        raise SiddhiAppRuntimeError(
+                            f"'IN {e.source_id}': env column '{k}' has "
+                            f"{len(v)} rows for a {n}-row batch")
+                    arrays[k] = v
+                else:
+                    scalars[k] = v
+            scalars[N_KEY] = 1
+            for i in range(n):
+                ev = dict(scalars)
+                for k, v in arrays.items():
+                    ev[k] = v[i]
+                out[i] = len(cond.slots_matching(ev)) > 0
+            return out if n > 1 else out[0]
+
+        return CompiledExpression(member_cond, AttrType.BOOL)
 
     # ---- functions --------------------------------------------------------
 

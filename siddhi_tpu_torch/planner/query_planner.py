@@ -37,9 +37,15 @@ SelectorParser and OutputParser):
 instance's planner facade (``core/partition.py``), whose junctions are
 the key's local ones and whose scheduler records what the instance
 registers; there, single-stream queries and patterns plan on the host
-even under ``@app:execution('tpu')``, as in the reference.  What the
-reference runs elsewhere stays refused, naming its ``ROADMAP.md`` §1
-item: joins (item 8), tables and named windows (item 9).
+even under ``@app:execution('tpu')``, as in the reference.
+
+A join (``plan_join``) runs on the host ``JoinRuntime`` of
+``core/join.py``: stream sides with filters and one window, table,
+named-window and aggregation sides, ``unidirectional``, outer joins;
+under ``@app:execution('tpu')`` its condition mask runs on the device
+(``DeviceJoinProbe``) where the reference's does.  Outputs insert into
+a stream, a table or a named window, or delete, update, or update or
+insert a table (``plan_output``).
 """
 
 from __future__ import annotations
@@ -82,6 +88,13 @@ from siddhi_tpu_torch.core.query import (
     TimeRateLimiter,
     WindowChainProcessor,
 )
+from siddhi_tpu_torch.core.join import (
+    DeviceJoinProbe,
+    JoinRuntime,
+    JoinSide,
+    JoinStreamReceiver,
+)
+from siddhi_tpu_torch.core.window import InsertIntoWindowCallback
 from siddhi_tpu_torch.extension.validator import validate_extension_args
 from siddhi_tpu_torch.ops.aggregators import make_aggregator
 from siddhi_tpu_torch.ops.device_query import DeviceQueryEngine
@@ -102,7 +115,9 @@ from siddhi_tpu_torch.query_api import (
     AndOp,
     ArithmeticOp,
     Attribute,
+    AttrType,
     CompareOp,
+    DeleteStream,
     EventOutputRate,
     Expression,
     Filter,
@@ -122,10 +137,20 @@ from siddhi_tpu_torch.query_api import (
     StreamDefinition,
     StreamFunction,
     TimeOutputRate,
+    UpdateOrInsertStream,
+    UpdateStream,
     Variable,
     WindowHandler,
 )
 from siddhi_tpu_torch.query_api.annotation import find_annotation
+from siddhi_tpu_torch.table import (
+    DeleteTableCallback,
+    InsertIntoTableCallback,
+    UpdateOrInsertTableCallback,
+    UpdateTableCallback,
+    compile_set_clause,
+    compile_table_condition,
+)
 
 log = logging.getLogger("siddhi_tpu_torch")
 
@@ -357,8 +382,7 @@ def plan_query(app, query: Query, index: int) -> QueryRuntime:
                 return qr
         return plan_state(app, query, name, in_stream)
     if isinstance(in_stream, JoinInputStream):
-        raise SiddhiAppCreationError(
-            f"query '{name}': joins" + later_slice(8, "joins"))
+        return plan_join(app, query, name, in_stream)
     raise SiddhiAppCreationError(
         f"query '{name}': input type {type(in_stream).__name__} is not "
         "supported")
@@ -378,6 +402,14 @@ def device_query_engine(app, query: Query, s: SingleInputStream,
     if out is not None and getattr(out, "event_type",
                                    "current") != "current":
         raise SiddhiAppCreationError("device path emits CURRENT events only")
+    if not (s.is_inner or s.is_fault):
+        if s.stream_id in app.named_windows:
+            raise SiddhiAppCreationError(
+                "named-window inputs need CURRENT+EXPIRED semantics")
+        if s.stream_id in app.tables or s.stream_id in getattr(
+                app, "aggregations", {}):
+            raise SiddhiAppCreationError(
+                "table/aggregation inputs need the host planner")
     if partition_mode and query.output_rate is not None:
         # each per-key instance of the reference has its own limiter
         raise SiddhiAppCreationError(
@@ -440,7 +472,7 @@ def plan_single(app, query: Query, name: str, s: SingleInputStream
     scope = scope_for_definition(definition, s.unique_id)
     if s.alias and s.alias != s.stream_id:
         scope.add_alias(s.stream_id, s.alias)
-    compiler = ExpressionCompiler(scope, app.functions)
+    compiler = ExpressionCompiler(scope, app.functions, app.table_resolver)
     chain, batch_mode, windows, extra_attrs = plan_handlers(
         app, s, definition, compiler)
     selector, out_def = plan_selector(
@@ -512,18 +544,192 @@ def plan_handlers(app, s: SingleInputStream, definition, compiler):
     return chain, batch_mode, windows, extra_attrs
 
 
+# -- join --------------------------------------------------------------------
+
+
+def plan_join(app, query: Query, name: str, j: JoinInputStream
+              ) -> QueryRuntime:
+    """A join on the host ``JoinRuntime``: each side an aggregation, a
+    table, a named window or a stream with filters and at most one
+    window; under ``@app:execution('tpu')`` the condition's mask on the
+    device where the reference's probe takes it, else the numpy probe
+    with the reference's WARNING."""
+    sides = []
+    batch_mode = False
+    aggregations = getattr(app, "aggregations", {})
+    for s in (j.left, j.right):
+        if not isinstance(s, SingleInputStream):
+            raise SiddhiAppCreationError(
+                f"query '{name}': join side {type(s).__name__} not "
+                "supported")
+        table = app.tables.get(s.stream_id)
+        ref = s.alias or s.stream_id
+        aggregation = aggregations.get(s.stream_id)
+        if aggregation is not None:
+            if s.handlers:
+                raise SiddhiAppCreationError(
+                    f"query '{name}': aggregation '{s.stream_id}' cannot "
+                    "take filters/windows in a join")
+            sides.append(JoinSide(ref, aggregation.output_definition, [],
+                                  None, aggregation=aggregation,
+                                  triggers=False))
+            continue
+        if table is not None:
+            if s.handlers:
+                raise SiddhiAppCreationError(
+                    f"query '{name}': table '{s.stream_id}' cannot take "
+                    "filters/windows in a join")
+            sides.append(JoinSide(ref, table.definition, [], None,
+                                  table=table, triggers=False))
+            continue
+        definition = app.resolve_stream_definition(s)
+        # side-local scope: handler expressions see the side's bare names
+        side_compiler = ExpressionCompiler(
+            scope_for_definition(definition, ref), app.functions,
+            app.table_resolver)
+        chain, b_mode, _windows, _extra = plan_handlers(
+            app, s, definition, side_compiler)
+        batch_mode = batch_mode or b_mode
+        window = None
+        filters = []
+        for p in chain:
+            if isinstance(p, WindowChainProcessor):
+                if window is not None:
+                    raise SiddhiAppCreationError(
+                        f"query '{name}': one window per join side")
+                window = p.window
+            else:
+                filters.append(p)
+        nw = (app.named_windows.get(s.stream_id)
+              if not (s.is_inner or s.is_fault) else None)
+        if window is None and nw is not None:
+            sides.append(JoinSide(ref, definition, filters, None,
+                                  named_window=nw))
+        else:
+            sides.append(JoinSide(ref, definition, filters, window))
+    left, right = sides
+    if left.ref == right.ref:
+        raise SiddhiAppCreationError(
+            f"query '{name}': join sides need distinct names/aliases")
+    if left.table is not None and right.table is not None:
+        raise SiddhiAppCreationError(
+            f"query '{name}': cannot join two tables in a stream query")
+    # unidirectional: only the named side triggers
+    if j.trigger == "left":
+        right.triggers = False
+    elif j.trigger == "right":
+        left.triggers = False
+    # an outer join preserves only a side that triggers: otherwise that
+    # side's unmatched rows would never be emitted
+    preserve_left = j.join_type in (JoinInputStream.LEFT_OUTER,
+                                    JoinInputStream.FULL_OUTER)
+    preserve_right = j.join_type in (JoinInputStream.RIGHT_OUTER,
+                                     JoinInputStream.FULL_OUTER)
+    if ((preserve_left and not left.triggers)
+            or (preserve_right and not right.triggers)):
+        raise SiddhiAppCreationError(
+            f"query '{name}': outer join preserves a side that never "
+            "triggers (table side or disabled by 'unidirectional')")
+
+    # the join scope: qualified by ref, and by the raw stream id too
+    scope = Scope()
+    for side, src in ((left, j.left), (right, j.right)):
+        for a in side.definition.attributes:
+            scope.add(side.ref, a.name, side.qualified_key(a.name), a.type)
+        if src.stream_id != side.ref:
+            scope.add_alias(src.stream_id, side.ref)
+    compiler = ExpressionCompiler(scope, app.functions, app.table_resolver)
+    condition = (compiler.compile(j.on_condition)
+                 if j.on_condition is not None else None)
+    if condition is not None and condition.type != AttrType.BOOL:
+        raise SiddhiAppCreationError(
+            f"query '{name}': 'on' condition must be boolean")
+    # the device probe resolves the condition in the scope as it stands
+    # here, before the selector adds its output names
+    probe_scope = scope.clone()
+
+    # an aggregation join's `within`/`per`, compiled in the join scope so
+    # they may read the probing stream's attributes
+    for side in sides:
+        if side.aggregation is None:
+            continue
+        if j.per is None:
+            raise SiddhiAppCreationError(
+                f"query '{name}': join with aggregation "
+                f"'{side.aggregation.name}' requires a 'per' clause")
+        side.agg_per = compiler.compile(j.per)
+        w = j.within
+        if w is not None:
+            if isinstance(w, tuple):
+                side.agg_within = (compiler.compile(w[0]),
+                                   compiler.compile(w[1]))
+            else:
+                side.agg_within = (compiler.compile(w), None)
+
+    selector, out_def = plan_selector(
+        app, query.selector, scope, compiler, name, query, batch_mode,
+        star_sources=[left, right])
+    output = plan_output(app, query, out_def, name)
+    rate_limiter = plan_rate_limiter(query)
+    qr = QueryRuntime(name, [[]], selector, rate_limiter, output,
+                      app.app_context)
+    if rate_limiter.needs_scheduler_task:
+        app.scheduler.register_task(_RateLimiterTask(qr, rate_limiter))
+    jr = JoinRuntime(left, right, j.join_type, condition,
+                     emit=lambda batch, now: qr.process(batch, 0),
+                     out_stream_id=f"#join_{name}")
+    qr.join_runtime = jr
+    ctx = app.app_context
+    if ctx.execution_mode == "tpu" and condition is not None:
+        try:
+            jr.device_probe = DeviceJoinProbe(
+                j.on_condition, probe_scope, left, right, ctx.device)
+        except SiddhiAppCreationError as e:
+            log.warning("query '%s': join device probe unavailable (%s); "
+                        "numpy probe used", name, e)
+        else:
+            qr.lowered_to = "device_probe"
+            log.info("query '%s': join condition lowered to the jitted "
+                     "device probe", name)
+    if any(s.window is not None and s.window.needs_scheduler
+           for s in sides):
+        app.scheduler.register_task(jr)
+    for side, src, is_left in ((left, j.left, True),
+                               (right, j.right, False)):
+        if side.table is not None or side.aggregation is not None:
+            continue
+        app.junction_for_input(src).subscribe(
+            JoinStreamReceiver(jr, is_left, ctx))
+    return qr
+
+
 # -- selector, rate limiter, output ------------------------------------------
 
 
 def plan_selector(app, sel: Selector, scope: Scope,
                   compiler: ExpressionCompiler, qname: str, query: Query,
-                  batch_mode: bool, extra_attrs=None
+                  batch_mode: bool, extra_attrs=None, star_sources=None
                   ) -> Tuple[QuerySelector, StreamDefinition]:
     out_target = _out_target(query, qname)
     rewriter = AggregatorRewrite(scope, compiler, app.extensions)
     items: Optional[List[SelectItem]] = None
     out_attrs: List[Attribute] = []
-    if sel.is_select_all:
+    if sel.is_select_all and star_sources is not None:
+        # a join's select *: every attribute of both sides, plain names
+        items = []
+        for side in star_sources:
+            for a in side.definition.attributes:
+                if any(o.name == a.name for o in out_attrs):
+                    raise SiddhiAppCreationError(
+                        f"query '{qname}': 'select *' is ambiguous — "
+                        f"attribute '{a.name}' exists on both join sides")
+                items.append(SelectItem(a.name, compiler.compile(
+                    Variable(stream_id=side.ref, attribute=a.name))))
+                out_attrs.append(Attribute(a.name, a.type))
+        out_names = [i.name for i in items]
+        for a in out_attrs:
+            scope.add_bare(a.name, a.type)
+    elif sel.is_select_all:
         # select *: the input definition, then any stream function's
         # appended columns
         if not isinstance(query.input_stream, SingleInputStream):
@@ -579,23 +785,60 @@ def plan_rate_limiter(query: Query):
 
 
 def plan_output(app, query: Query, out_def: StreamDefinition, qname: str):
-    """``insert into`` a stream (``#inner``: the partition instance's
-    local junction), or (``return``, no output) the query's callbacks;
-    fault and table outputs stay refused."""
+    """``insert into`` a named window, a table or a stream (``#inner``:
+    the partition instance's local junction); ``delete``, ``update`` and
+    ``update or insert`` of a table; or (``return``, no output) the
+    query's callbacks.  Fault outputs stay refused."""
     out = query.output_stream
+    out_names = [a.name for a in out_def.attributes]
     if isinstance(out, InsertIntoStream):
         if out.is_fault:
             raise SiddhiAppCreationError(
                 f"query '{qname}': 'insert into !{out.target}' (fault "
                 "streams)" + later_slice(15, "the operations layer"))
+        if not out.is_inner:
+            nw = app.named_windows.get(out.target)
+            if nw is not None:
+                return InsertIntoWindowCallback(nw, out.event_type,
+                                                out_names)
+            table = app.tables.get(out.target)
+            if table is not None:
+                return InsertIntoTableCallback(table, out.event_type,
+                                               out_names)
         return InsertIntoStreamCallback(
             app.output_junction(out_def, is_inner=out.is_inner),
             out.event_type)
+    if isinstance(out, (DeleteStream, UpdateStream, UpdateOrInsertStream)):
+        table = app.tables.get(out.target)
+        if table is None:
+            raise SiddhiAppCreationError(
+                f"'{out.target}' is not a defined table (delete/update "
+                "targets must be tables)")
+        # the condition and set expressions see the query's output
+        # attributes, bare and qualified by the source stream's name
+        out_scope = Scope()
+        src_id = getattr(query.input_stream, "stream_id", None)
+        for a in out_def.attributes:
+            out_scope.add_bare(a.name, a.type)
+            if src_id:
+                out_scope.add(src_id, a.name, a.name, a.type)
+        condition = compile_table_condition(
+            table, out.on_condition, out_scope,
+            table_resolver=app.table_resolver)
+        if isinstance(out, DeleteStream):
+            return DeleteTableCallback(table, condition, out.event_type)
+        set_ops = compile_set_clause(table, out.set_clause, out_scope,
+                                     out_names,
+                                     table_resolver=app.table_resolver)
+        if isinstance(out, UpdateOrInsertStream):
+            return UpdateOrInsertTableCallback(
+                table, condition, set_ops, out.event_type, out_names)
+        return UpdateTableCallback(table, condition, set_ops,
+                                   out.event_type)
     if isinstance(out, ReturnStream) or out is None:
         return QueryCallbackOutput()
     raise SiddhiAppCreationError(
-        f"query '{qname}': {type(out).__name__} outputs write tables"
-        + later_slice(9, "tables"))
+        f"output type {type(out).__name__} not supported yet")
 
 
 # -- pattern -----------------------------------------------------------------
@@ -638,9 +881,9 @@ def plan_dense_state(app, query: Query, name: str, st,
         scope = PatternScope(builder.ref_defs, builder.stream_to_ref,
                              cand_def=None)
         selector, out_def = plan_selector(
-            app, sel, scope, ExpressionCompiler(scope, app.functions), name,
-            query,
-            batch_mode=False)
+            app, sel, scope,
+            ExpressionCompiler(scope, app.functions, app.table_resolver),
+            name, query, batch_mode=False)
         select_vars = [
             Variable(stream_id=ref, attribute=attr, stream_index=idx)
             for ref, idx, attr, _t in scope.used_captures.values()]
@@ -711,9 +954,9 @@ def plan_state(app, query: Query, name: str, st) -> QueryRuntime:
     scope = PatternScope(builder.ref_defs, builder.stream_to_ref,
                          cand_def=None)
     selector, out_def = plan_selector(
-        app, query.selector, scope, ExpressionCompiler(scope, app.functions),
-        name, query,
-        batch_mode=False)
+        app, query.selector, scope,
+        ExpressionCompiler(scope, app.functions, app.table_resolver), name,
+        query, batch_mode=False)
     output = plan_output(app, query, out_def, name)
     rate_limiter = plan_rate_limiter(query)
     qr = QueryRuntime(name, [[]], selector, rate_limiter, output,

@@ -1,9 +1,9 @@
 """Cron schedules: the next fire time of a cron expression.
 
 Port of ``CronSchedule`` of the JAX package's ``core/trigger.py`` for
-the ``#window.cron`` window (``define trigger`` is a later slice of the
-port, ``ROADMAP.md`` §1 item 9): Quartz 6/7-field or unix 5-field
-expressions at second granularity, without Quartz.
+the ``#window.cron`` window and cron triggers (``core/trigger.py``):
+Quartz 6/7-field or unix 5-field expressions at second granularity,
+without Quartz.
 """
 
 from __future__ import annotations

@@ -408,11 +408,32 @@ def test_reference_snapshot_restores_into_port(mode):
     "select 'x' as symbol insert into TradeAggregation;",
 ])
 def test_refused_on_demand_forms(query):
-    port = Run("port", DOCS.format(mode=TPU))
+    """The on-demand forms the port refused before its table slice:
+    aggregating selects, group by and having now give the reference's
+    rows; an unknown source and a write to an aggregation are refused
+    with the reference's ``StoreQueryCreationError`` text."""
+    ref, port = both(DOCS.format(mode=TPU))
     try:
-        with pytest.raises(StoreQueryCreationError, match="later slice|slice of the port"):
-            port.rt.query(query)
+        for stream, cols, ts in trade_batches(n_batches=3):
+            ref.batch(stream, cols, ts)
+            port.batch(stream, cols, ts)
+        # the form as written (its window holds no bucket), then over
+        # the buckets the trades filled
+        for q in (query, query.replace("within 0L, 1L", WITHIN)):
+            try:
+                want = rows_of(ref.rt.query(q))
+            except Exception as e:
+                with pytest.raises(StoreQueryCreationError) as info:
+                    port.rt.query(q)
+                assert str(info.value) == str(e)
+                continue
+            got = rows_of(port.rt.query(q))
+            if q == query:
+                assert got == want == []
+            else:
+                assert_rows_close(got, want, rel=REL)
     finally:
+        ref.close()
         port.close()
 
 

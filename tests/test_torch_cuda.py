@@ -1286,3 +1286,111 @@ def test_scan_engine_on_card_matches_cpu(cuda_device):
         assert gv[live].tobytes() == cv[live].tobytes()
         total += len(gi)
     assert total > 0
+
+
+JOIN_DEFS = ("define stream A (sym string, x double, n int, f float, b bool); "
+             "define stream B (sym2 string, y double, m int, g float, "
+             "c bool); ")
+
+
+def _join_probes(cond):
+    """The port's probe for ``cond`` on the card and on the CPU."""
+    from siddhi_tpu_torch.compiler import SiddhiCompiler
+    from siddhi_tpu_torch.core.join import DeviceJoinProbe, JoinSide
+    from siddhi_tpu_torch.planner.expr import Scope
+
+    parsed = SiddhiCompiler.parse(
+        JOIN_DEFS + f"from A join B on {cond} select A.n as n insert into O;")
+    sides = [JoinSide(r, parsed.stream_definitions[r], [], None)
+             for r in ("A", "B")]
+    scope = Scope()
+    for side in sides:
+        for a in side.definition.attributes:
+            scope.add(side.ref, a.name, side.qualified_key(a.name), a.type)
+    expr = parsed.execution_elements[0].input_stream.on_condition
+    return sides, [DeviceJoinProbe(expr, scope, *sides, d)
+                   for d in ("cuda", "cpu")]
+
+
+def _join_batch(rng, sid, names, n):
+    from siddhi_tpu_torch.core.event import EventBatch
+
+    special = np.array([0.0, -0.0, np.nan, np.inf, 1e-40, -1e-40, 1e-45,
+                        1.18e-38, 3.0, 8.0], dtype=np.float64)
+    ints = np.array([0, -1, 2**31 - 1, -2**31, 5], dtype=np.int32)
+    cols = {names[0]: np.array(["s"] * n, dtype=object),
+            names[1]: np.where(rng.random(n) < 0.4, rng.choice(special, n),
+                               np.round(rng.uniform(-10, 10, n), 2)),
+            names[2]: np.where(rng.random(n) < 0.4, rng.choice(ints, n),
+                               rng.integers(-20, 20, n)).astype(np.int32),
+            names[3]: np.where(rng.random(n) < 0.4, rng.choice(special, n),
+                               rng.uniform(-5, 5, n)).astype(np.float32),
+            names[4]: rng.random(n) < 0.5}
+    return EventBatch(sid, names, cols, np.arange(n, dtype=np.int64))
+
+
+@pytest.mark.parametrize("cond", [
+    "A.x < B.y", "A.n + B.m > 0", "A.f == B.g", "A.x > 1.0E-40",
+    "A.x * 1.0E30 > B.y or A.b", "A.n != B.m and A.x - B.y < 1.0E-39"])
+@pytest.mark.parametrize("n_a,n_b", [(37, 53), (2049, 8193)])
+def test_join_probe_on_card_matches_cpu(cuda_device, cond, n_a, n_b):
+    """The device probe's mask and pairs on the card equal the CPU's
+    (subnormals flushed, NaN, int32 wrap-around, the block edges past
+    2,048 rows and 8,192 buffered rows)."""
+    (left, right), (gpu, cpu) = _join_probes(cond)
+    rng = np.random.default_rng(n_a + n_b)
+    a = _join_batch(rng, "A", ["sym", "x", "n", "f", "b"], n_a)
+    b = _join_batch(rng, "B", ["sym2", "y", "m", "g", "c"], n_b)
+    assert np.array_equal(gpu.mask(left, a, right, b),
+                          cpu.mask(left, a, right, b))
+    got = gpu.pairs(left, a, right, b, outer=True)
+    want = cpu.pairs(left, a, right, b, outer=True)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    assert gpu.bytes_fetched == cpu.bytes_fetched
+
+
+def test_join_and_table_apps_on_card_match_cpu(cuda_device):
+    """A windowed join and a stream-table join under
+    ``execution('tpu')`` (the device probe), and pulls on the table, on
+    the card and on the CPU: the same events and rows, typed."""
+    from siddhi_tpu_torch import SiddhiManager
+
+    app = ("@app:playback @app:execution('tpu') " + JOIN_DEFS +
+           "define table T (n int, sym string); "
+           "from B select m as n, sym2 as sym insert into T; "
+           "@info(name='j') from A#window.length(20) join "
+           "B#window.time(300 ms) on A.x < B.y and A.n != B.m "
+           "select A.x as x, B.y as y, A.n as n insert into O; "
+           "@info(name='t') from A join T on T.n == A.n "
+           "select A.x as x, T.sym as sym insert into O2;")
+    rng = np.random.default_rng(9)
+    sends = []
+    for i in range(400):
+        sid = "A" if rng.random() < 0.5 else "B"
+        sends.append((sid, [f"s{int(rng.integers(3))}",
+                            float(rng.integers(0, 10)),
+                            int(rng.integers(0, 6)),
+                            float(rng.uniform(-1, 1)),
+                            bool(rng.random() < 0.5)], 1000 + 7 * i))
+    runs = []
+    for device in ("cuda", "cpu"):
+        mgr = SiddhiManager(device=device)
+        rt = mgr.create_siddhi_app_runtime(app)
+        got = []
+        for o in ("O", "O2"):
+            rt.add_callback(o, lambda evs, o=o: got.extend(
+                (o, e.timestamp, e.is_expired,
+                 tuple((type(v).__name__, v) for v in e.data))
+                for e in evs))
+        rt.start()
+        for sid, row, ts in sends:
+            rt.get_input_handler(sid).send(row, ts)
+        pulls = [[tuple(e.data) for e in rt.query(q)] for q in (
+            "from T select n, sym;", "from T on n > 2 select count() as c;")]
+        runs.append((got, pulls, rt.lowering()))
+        rt.shutdown()
+        mgr.shutdown()
+    assert runs[0] == runs[1]
+    assert runs[0][2]["j"] == runs[0][2]["t"] == "device_probe"
+    assert runs[0][0]

@@ -97,7 +97,7 @@ LEFT_OUT = {
         "the dense runtime's intern",
 }
 # what the port refuses in the corpora, with the ROADMAP.md item
-OUTSIDE = {8: r"\bjoin\b", 9: r"define (table|window|trigger)"}
+OUTSIDE = {13: r"@app:devtables"}
 
 SUM_KINDS = re.compile(r"\b(sum|avg)\s*\(")
 STD = re.compile(r"\bstdDev\s*\(")
@@ -162,6 +162,20 @@ class Scenario:
         self.fallbacks = []
         self.error = None
         self.unsupported = None
+        # the JAX runtime, and each table's rows once the test is over
+        self.runtime = None
+        self.tables = None
+
+
+def table_rows(rt):
+    """Each table's live rows, ``(timestamp, values)`` in slot order."""
+    out = {}
+    for name, t in rt.tables.items():
+        b = t.rows_batch()
+        out[name] = [(int(b.timestamps[i]),
+                      tuple(b.columns[a][i] for a in b.attribute_names))
+                     for i in range(len(b))]
+    return out
 
 
 # the one phrase of a fallback reason the port words for its own
@@ -217,18 +231,20 @@ class _Handler:
 
 
 class _Runtime:
-    # app-runtime attributes both packages have, passed through
+    # app-runtime attributes both packages have, passed through (the
+    # tables' rows are compared when the test is over)
     SHARED = ("query_runtimes", "junctions", "partitions", "lowering",
-              "query_names")
+              "query_names", "tables")
 
     def __init__(self, rt, sc):
         self._rt, self._sc = rt, sc
 
     def add_callback(self, target, cb):
         kind = "stream" if target in self._rt.junctions else "query"
+        # a target the JAX run refuses is not replayed
+        self._rt.add_callback(target, cb)
         self._sc.targets[target] = kind
         got = self._sc.got.setdefault(target, [])
-        self._rt.add_callback(target, cb)
         if kind == "stream":
             self._rt.add_callback(target, lambda evs: got.extend(
                 _ev_row(e) for e in evs))
@@ -245,6 +261,17 @@ class _Runtime:
 
     def shutdown(self):
         self._rt.shutdown()
+
+    def query(self, q):
+        """A pull query, recorded in order with the sends: its rows, or
+        that it raised."""
+        try:
+            out = self._rt.query(q)
+        except Exception:
+            self._sc.sends.append(("query", None, q, None))
+            raise
+        self._sc.sends.append(("query", None, q, [_ev_row(e) for e in out]))
+        return out
 
     def __getattr__(self, name):
         if name not in self.SHARED:
@@ -327,9 +354,10 @@ def corpus_cases(corpora, left_out):
     return out
 
 
-def record(corpus, cname, mname, k):
+def record(corpus, cname, mname, k, mode=""):
     """Run one corpus test against the recorders; returns its scenarios
-    and engine records."""
+    and engine records.  ``mode``, an ``@app:execution`` annotation,
+    goes in front of every app that has none."""
     mod = _load(corpus, "rec")
     scenarios, engines = [], []
 
@@ -338,6 +366,8 @@ def record(corpus, cname, mname, k):
             self._m = JaxManager(*a, **kw)
 
         def create_siddhi_app_runtime(self, app):
+            if mode and "@app:execution" not in app:
+                app = mode + " " + app
             if "@app:playback" not in app:
                 app = "@app:playback " + app
             sc = Scenario(app)
@@ -349,6 +379,7 @@ def record(corpus, cname, mname, k):
                 sc.error = e
                 raise
             sc.fallbacks = log.messages
+            sc.runtime = rt
             sc.lowering = rt.lowering()
             sc.dense_partitions = [p.is_dense for p in rt.partitions.values()]
             return _Runtime(rt, sc)
@@ -389,6 +420,10 @@ def record(corpus, cname, mname, k):
     finally:
         if manager is not None:
             manager.shutdown()
+    for sc in scenarios:
+        if sc.runtime is not None:
+            sc.tables = table_rows(sc.runtime)
+            sc.runtime = None
     return scenarios, engines
 
 
@@ -411,9 +446,11 @@ def _port_batch(b):
                       np.array(b.types, copy=True))
 
 
-def replay(sc, fallbacks=None):
+def replay(sc, fallbacks=None, tables=None):
     """The scenario through the port: ``(output, lowering)``;
-    ``fallbacks``, a list, gets the fallback WARNINGs of its creation."""
+    ``fallbacks``, a list, gets the fallback WARNINGs of its creation;
+    ``tables``, a dict, each table's rows before shutdown.  Each pull
+    query gives the JAX run's rows (or raises where it raised)."""
     mgr = SiddhiManager(device="cpu")
     try:
         with FallbackLog("siddhi_tpu_torch") as log:
@@ -433,15 +470,33 @@ def replay(sc, fallbacks=None):
                      [_ev_row(e) for e in o or []])))
         rt.start()
         for how, sid, data, ts in sc.sends:
+            if how == "query":
+                check_pull(rt, data, ts, bound(sc.app))
+                continue
             h = rt.get_input_handler(sid)
             if how == "batch":
                 h.send_batch(_port_batch(data))
             else:
                 h.send(_port_data(data), ts)
+        if tables is not None:
+            tables.update(table_rows(rt))
         rt.shutdown()
         return got, low
     finally:
         mgr.shutdown()
+
+
+def check_pull(rt, q, jrows, tol):
+    """The port's rows of pull query ``q`` are the JAX run's ``jrows``
+    (None: the JAX run raised, and so must the port)."""
+    if jrows is None:
+        with pytest.raises(Exception):
+            rt.query(q)
+        return
+    trows = [_ev_row(e) for e in rt.query(q)]
+    assert [r[:2] for r in trows] == [r[:2] for r in jrows], q
+    assert same_rows([r[2] for r in jrows], [r[2] for r in trows], tol), (
+        q, jrows, trows)
 
 
 def assert_same_output(jgot, tgot, tol):
@@ -479,10 +534,18 @@ def check_scenario(sc, outside=OUTSIDE):
         return
     assert sc.unsupported is None, sc.unsupported
     fallbacks = []
-    tgot, tlow = replay(sc, fallbacks)
+    tables = {}
+    tgot, tlow = replay(sc, fallbacks, tables)
     assert tlow == sc.lowering
     assert fallbacks == sc.fallbacks
     assert_same_output(sc.got, tgot, bound(sc.app))
+    if sc.tables is not None:
+        assert set(tables) == set(sc.tables)
+        for name, jrows in sc.tables.items():
+            assert [r[0] for r in tables[name]] == [r[0] for r in jrows]
+            assert same_rows([r[1] for r in jrows],
+                             [r[1] for r in tables[name]],
+                             bound(sc.app)), name
 
 
 def replay_engine(rec):

@@ -5,9 +5,9 @@ Replays ``tests/test_extensions.py`` (script functions, function
 extensions, custom windows, parameter validation, custom aggregators,
 the built-in stream functions) through both packages, each with its own
 extension classes, and compares every output value with its type.  Then
-the manager's and runtime's APIs: ``validate_siddhi_app``, the sandbox
-(streams only here: a table waits for ROADMAP item 9), attributes, the
-runtime registry, ``set_config_manager``, ``set_data_source``,
+the manager's and runtime's APIs: ``validate_siddhi_app``, the sandbox,
+attributes, the runtime registry, ``set_config_manager`` (a
+``@store(ref=...)`` table reads its options), ``set_data_source``,
 ``query_names`` and ``get_stream_definitions``.  A script function in a
 filter under ``@app:execution('tpu')`` falls back to the host with the
 reference's WARNING.
@@ -257,12 +257,15 @@ class TestParameterValidation:
             m.shutdown()
 
     def test_named_window_is_a_later_slice(self):
+        """A named window's function is validated as a query window's:
+        ``time(1 sec, 2 sec)`` is refused by both packages with the
+        validation error (the port took named windows in with tables)."""
         app = ("define stream S (v long); "
                "define window W (v long) time(1 sec, 2 sec) output all "
                "events; from S insert into W;")
         with pytest.raises(jexc.SiddhiAppValidationError):
             JaxManager().create_siddhi_app_runtime(app)
-        with pytest.raises(texc.SiddhiAppCreationError, match="item 9"):
+        with pytest.raises(texc.SiddhiAppValidationError):
             SiddhiManager(device="cpu").create_siddhi_app_runtime(app)
 
     def test_repetitive_overload_accepts_tail(self):
@@ -473,9 +476,10 @@ class TestManagerApis:
         ``InMemoryConfigManager`` over the same dicts: what the config
         readers, refs and properties answer, and what the manager's
         context holds after the data-source and handler-manager setters
-        (Java aliases included), are equal.  The port's readers of this
-        state are the store and transport planners (ROADMAP.md §1 items
-        9 and 15); until they come, an app that would read it is refused
+        (Java aliases included), are equal.  The store planner reads
+        the refs: a ``@store(ref='store1')`` table gives the same rows
+        in both packages.  The transport planner (ROADMAP.md §1 item 15)
+        is still to come: an app with ``@source(ref=...)`` is refused
         naming its item."""
         configs = {"source.http.port": "8280", "source.http.host": "h",
                    "sink.log.prefix": "p", "some.property": "v"}
@@ -516,28 +520,43 @@ class TestManagerApis:
         assert outs["torch"][1:3] == ("8280", None)
         m = TORCH.manager()
         m.set_config_manager(tconfig.InMemoryConfigManager(configs, system))
-        for app, item in (
-                ("@source(ref='src1') define stream S (v long); "
-                 "from S select v insert into O;", 15),
-                ("@store(ref='store1') define table T (v long); "
-                 "define stream S (v long); from S select v insert into T;",
-                 9)):
-            with pytest.raises(texc.SiddhiAppCreationError) as info:
-                m.create_siddhi_app_runtime(app)
-            assert f"ROADMAP.md §1 item {item}" in str(info.value)
+        with pytest.raises(texc.SiddhiAppCreationError) as info:
+            m.create_siddhi_app_runtime(
+                "@source(ref='src1') define stream S (v long); "
+                "from S select v insert into O;")
+        assert "ROADMAP.md §1 item 15" in str(info.value)
         m.shutdown()
+        rows = {}
+        for pkg, config in ((JAX, jconfig), (TORCH, tconfig)):
+            m = pkg.manager()
+            m.set_config_manager(config.InMemoryConfigManager(configs,
+                                                              system))
+            rt = m.create_siddhi_app_runtime(
+                "@app:playback @store(ref='store1') define table T "
+                "(v long); define stream S (v long); "
+                "from S select v insert into T;")
+            rt.start()
+            for i, v in enumerate((7, -3, 9)):
+                rt.get_input_handler("S").send([v], timestamp=10 + i)
+            rows[pkg.name] = [ev_key(e) for e in rt.query(
+                "from T on v > 0L select v;")]
+            m.shutdown()
+        assert rows["torch"] == rows["jax"]
+        assert [r[2] for r in rows["torch"]] == [(("int", 7),),
+                                                 (("int", 9),)]
 
     def test_set_extension_takes_the_kinds_the_port_plans(self):
-        """A kind the port's planners never look up (a sink, a store) is
-        refused rather than stored unread; a known kind registers and
-        ``remove_extension`` takes it out again."""
+        """A kind the port's planners never look up (a sink, a source)
+        is refused rather than stored unread; a known kind (a function,
+        a store) registers and ``remove_extension`` takes it out again."""
         m = SiddhiManager(device="cpu")
-        for kind in ("sink", "source", "store", "table", "nope"):
+        for kind in ("sink", "source", "table", "nope"):
             with pytest.raises(ValueError, match="unknown extension kind"):
                 m.set_extension("custom:thing", object, kind=kind)
-        m.set_extension("custom:thing", object)
         reg = m.siddhi_context.extensions
-        assert reg.lookup("function", "thing", "custom") is object
-        m.remove_extension("custom:thing")
-        assert reg.lookup("function", "thing", "custom") is None
+        for kind in ("function", "store"):
+            m.set_extension("custom:thing", object, kind=kind)
+            assert reg.lookup(kind, "thing", "custom") is object
+            m.remove_extension("custom:thing", kind=kind)
+            assert reg.lookup(kind, "thing", "custom") is None
         m.shutdown()

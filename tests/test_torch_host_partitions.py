@@ -5,8 +5,8 @@
   replayed through both packages with ``test_torch_device_query.py``'s
   recorder: same events in order (timestamps, expiry flags, values and
   their types, floats bit for bit), same ``lowering()``, same fallback
-  WARNINGs.  A body that joins or reads a table is refused, naming its
-  ``ROADMAP.md`` item;
+  WARNINGs; a body that joins or writes a table runs on per-key
+  instances as in the reference;
 - seeded bodies in the default mode: inner streams both ways (a chain of
   two, a pattern reading one), range partitions, rate limits, order by
   and limit, windows and patterns per key;

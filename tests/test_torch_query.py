@@ -12,8 +12,8 @@ timestamps, expiry flags and value types, floats bit for bit:
   every callback target and every send is recorded with the callbacks'
   output.  The port's ``SiddhiManager(device="cpu")`` then replays the
   same app and sends.  An app the JAX package refuses, the port must
-  refuse; one outside the port's slices (joins, tables, named windows)
-  must raise naming its ``ROADMAP.md`` item.  Apps under
+  refuse; one outside the port's slices (device tables) must raise
+  naming its ``ROADMAP.md`` item.  Apps under
   ``@app:execution('tpu')`` run on the device query path (or, outside
   its subset, on the host runtime) in both packages; patterns and
   partitions run on the host pattern engine and per-key instances (or
@@ -45,12 +45,12 @@ CORPORA = ("test_filter_queries", "test_windows", "test_conformance_filters",
            "test_conformance_filters2", "test_conformance_selectors",
            "test_conformance_ratelimit", "test_conformance_orderby",
            "test_conformance_windows")
-# corpus tests outside the port, keyed (corpus, class, method): the
-# sandbox case reads back a table (item 9)
-LEFT_OUT = {("test_filter_queries", "TestManagerApis",
-             "test_sandbox_strips_transports")}
+# corpus tests outside the port, keyed (corpus, class, method): none
+# since tables came (the sandbox case's reads are held below by
+# test_sandbox_table_reads_back_as_the_reference)
+LEFT_OUT = set()
 # what the port refuses in these corpora, with the ROADMAP.md item
-OUTSIDE = {8: r"\bjoin\b", 9: r"define (table|window|trigger)"}
+OUTSIDE = {13: r"@app:devtables"}
 
 
 def typed(v):
@@ -536,23 +536,47 @@ def test_tpu_single_stream_as_the_reference():
     assert tgot == jgot and tgot["Out"]
 
 
+DEVTABLES = "@app:devtables @app:execution('tpu') "
+
+
 @pytest.mark.parametrize("app,item", [
-    (DEFINE + "define table T (sym string); from S join T on S.sym == T.sym "
-     "select S.sym insert into Out;", 9),
-    (DEFINE + "define stream U (sym string); from S#window.length(2) join "
-     "U#window.length(2) on S.sym == U.sym select S.sym insert into Out;", 8),
-    (DEFINE + "partition with (sym of S) begin from S#window.length(2) join "
-     "S#window.length(2) on S.p > 1.0 select S.sym insert into Out; end;",
-     8),
+    (DEVTABLES + DEFINE + "define table T (sym string); from S join T on "
+     "S.sym == T.sym select S.sym insert into Out;", 13),
+    (DEVTABLES + DEFINE + "define stream U (sym string); from "
+     "S#window.length(2) join U#window.length(2) on S.sym == U.sym select "
+     "S.sym insert into Out;", 13),
+    (DEVTABLES + DEFINE + "partition with (sym of S) begin from "
+     "S#window.length(2) join S#window.length(2) on S.p > 1.0 select S.sym "
+     "insert into Out; end;", 13),
     ("@app:playback @source(type='http', @map(type='json')) "
      + DEFINE[len("@app:playback "):]
      + "from S select sym insert into Out;", 15),
     (DEFINE + "@sink(type='inMemory', topic='t') define stream Out "
      "(sym string); from S select sym insert into Out;", 15),
-], ids=["table", "join", "join_in_partition", "source", "sink"])
+    ("@app:persist(interval='1 sec') " + DEFINE
+     + "from S select sym insert into Out;", 11),
+    ("@app:fuse " + DEFINE + "from S select sym insert into Out;", 12),
+    ("@app:multiplex " + DEFINE + "from S select sym insert into Out;", 14),
+    ("@app:limits(breaker='3') " + DEFINE
+     + "from S select sym insert into Out;", 15),
+    ("@app:plan('auto') " + DEFINE + "from S select sym insert into Out;",
+     15),
+    ("@app:statistics('true') " + DEFINE
+     + "from S select sym insert into Out;", 15),
+    ("@app:trace(sample='1') " + DEFINE + "from S select sym insert into Out;",
+     15),
+    ("@app:faults(seed='1') " + DEFINE + "from S select sym insert into Out;",
+     15),
+    ("@app:execution('tpu', devices='2') " + DEFINE
+     + "from S select sym insert into Out;", 16),
+], ids=["table", "join", "join_in_partition", "source", "sink", "persist",
+        "fuse", "multiplex", "limits", "plan", "statistics", "trace",
+        "faults", "devices"])
 def test_refusals_name_their_roadmap_item(app, item):
     """No hidden fallback: what the port does not run raises at creation,
-    naming the ``ROADMAP.md`` item that ports it."""
+    naming the ``ROADMAP.md`` item that ports it: device tables (a table
+    or join under ``@app:devtables``), sources and sinks, and the app
+    annotations of later slices."""
     with pytest.raises(SiddhiAppCreationError) as info:
         SiddhiManager(device="cpu").create_siddhi_app_runtime(app)
     assert f"ROADMAP.md §1 item {item}" in str(info.value)
@@ -567,11 +591,46 @@ def test_refusals_name_their_roadmap_item(app, item):
     "S#window.lengthBatch(2) select sym, sum(p) as p insert into Out; end;",
     DEFINE + "define function f[python] return int { data[0] + 1 }; "
     "from S[f(n) > 2] select sym, f(n) as fn insert into Out;",
-], ids=["host_pattern", "inner_output", "partition", "function"])
+    DEFINE + "define table T (sym string); from S[p > 10.0] select sym "
+    "insert into T; from S join T on S.sym == T.sym select S.sym, S.p "
+    "insert into Out;",
+    DEFINE + "from S#window.length(2) as a join S#window.length(3) as b "
+    "on a.sym == b.sym select a.sym, b.p insert into Out;",
+    DEFINE + "partition with (sym of S) begin from S#window.length(2) as a "
+    "join S#window.length(2) as b on a.p > 1.0 select a.sym, b.p insert "
+    "into Out; end;",
+], ids=["host_pattern", "inner_output", "partition", "function", "table",
+        "join", "join_in_partition"])
 def test_once_refused_apps_run_as_the_reference(app):
     """A pattern in the default mode, an ``#inner`` stream outside a
     partition (the reference keeps it as the app's own stream), a
-    partition in the default mode and a script function, all refused
-    until the host pattern engine, per-key instances and user functions
-    came to the port, now give the reference's rows."""
+    partition in the default mode, a script function, a stream-table
+    join, a windowed join and a self join inside a partition, all
+    refused until the host pattern engine, per-key instances, user
+    functions, joins and tables came to the port, now give the
+    reference's rows."""
     assert assert_same(app, sends(len(app)))["Out"]
+
+
+def test_sandbox_table_reads_back_as_the_reference():
+    """The sandbox strips the transports and the ``@store`` (the corpus's
+    ``TestManagerApis.test_sandbox_strips_transports``): the table is an
+    in-memory one and the pull reads back what was inserted, as in the
+    reference."""
+    app = ("@source(type='doesNotExist', topic='x', @map(type='passThrough')) "
+           "define stream S (v long); "
+           "@store(type='alsoMissing') define table T (v long); "
+           "from S select v insert into T;")
+    out = []
+    for mgr in (JaxManager(), SiddhiManager(device="cpu")):
+        try:
+            rt = mgr.create_sandbox_siddhi_app_runtime(app)
+            rt.start()
+            for i, v in enumerate((7, 8)):
+                rt.get_input_handler("S").send([v], 100 + i)
+            out.append([ev_key(e) for e in rt.query("from T select v")])
+            rt.shutdown()
+        finally:
+            mgr.shutdown()
+    assert out[1] == out[0] and [e[2] for e in out[1]] == [(("int", 7),),
+                                                           (("int", 8),)]
