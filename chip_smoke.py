@@ -321,7 +321,38 @@ skew-routed pattern path and the incremental-aggregation path through
    ``execution('tpu', emit.depth='4')`` inserts into (the pull drains
    the queued emits first).  No hand-written kernel is on these paths:
    ``launches_by_path`` gives ``joins`` and ``tables`` as 0.
-25. kernels: one line per ported kernel (launches on the main paths,
+25. checkpoint: persistence through ``SiddhiManager``, each app's store
+   in a fresh ``tempfile`` directory (its free bytes printed, at most 2
+   revisions kept, deleted after the app): (a) ``product_app`` (1,000,000
+   partitions, S = 16, I = 4, 836,000,836 B of state) under
+   ``@app:faults(journal='16')`` over ``product_batches``' first 10: a
+   sync ``persist()`` into a ``FileSystemPersistenceStore`` after batch
+   4, a simulated crash on the ingest of batch 7, and a fresh runtime of
+   the same manager whose ``restore_last_revision()`` replays 5-7 before
+   8-10 are sent; then the same with ``persist(mode='async')`` into a
+   ``DurableFileSystemPersistenceStore``.  The output across the crash
+   equals the uninterrupted card run's bit for bit, the final state
+   too, and the revision's dense tree equals the CPU run's at batch 4;
+   (b) ``kernel_eligible_app`` the same way (sync), ``dense_batch``
+   launching after the restore; (c) ``device_queries``'
+   ``partition_scaling_50000`` (the running count, whose state scatters
+   are ``accumulate_``, launching after the restore) and
+   ``keyed_time_avg_50000`` (the keyed one-second window, 872,677,376
+   B), a persist after batch 40 and a crash on batch 81 of 123, held
+   against the uninterrupted card run and, over 16 batches, the CPU's;
+   (d) the kitchen-sink app of ``tests/test_conformance_persistence2.py``
+   with an aggregation, under ``execution('tpu')``, rolled back with
+   ``restore_revision`` on the card and on the CPU: the same rows and
+   pulls; (e) a flipped byte in the newest durable revision (its persist
+   crashed after the manifest), which ``restore_last_revision`` walks
+   back past with the reference's WARNINGs, replaying from the previous
+   revision to the uninterrupted run's rows.  Each line gives the state
+   bytes on the card, the snapshot bytes written, ``persist_sync_ms``
+   (in the barrier, clones synchronised, and in all) or the async
+   barrier and writer ms, ``restore_ms`` and ``replay_ms``, the
+   replayed batches and suppressed events, and the launches after the
+   restore.
+26. kernels: one line per ported kernel (launches on the main paths,
    largest difference from its plain version, ``ms``, ``host_us``,
    ``device_us``, plain and library times, bound); the bank kernel's at
    the entry the aggregation path uses, ``accumulate_``, with the delta
@@ -3112,13 +3143,14 @@ def dq_profile(torch, rt, batches) -> dict:
             "device_busy_share": busy / wall_ms if dev else None}
 
 
-def dq_state_bytes(rt) -> int:
-    from siddhi_tpu_torch.core.device_single import DeviceQueryRuntime
-
-    return sum(t.numel() * t.element_size()
-               for r in rt.device_runtimes().values()
-               if isinstance(r, DeviceQueryRuntime)
-               for t in r.state.values())
+def card_state_bytes(rt) -> int:
+    """Bytes of the device runtimes' state tensors (the hot-key router's
+    dense runtime's)."""
+    total = 0
+    for r in rt.device_runtimes().values():
+        st = r.state if hasattr(r, "state") else r._dense.state
+        total += sum(t.numel() * t.element_size() for t in st.values())
+    return total
 
 
 def device_query_phase(torch, SiddhiManager, EventBatch, StreamCallback,
@@ -3171,7 +3203,7 @@ def device_query_phase(torch, SiddhiManager, EventBatch, StreamCallback,
         for k, n in got["launches"].items():
             launches[k] += n
         rt = got["rt"]
-        state_bytes = dq_state_bytes(rt)
+        state_bytes = card_state_bytes(rt)
         device = any(v == "device" for v in pinned.values())
         t = time.perf_counter()
         breakdown = (dq_breakdown(torch, rt, extra[:profiled])
@@ -4709,6 +4741,527 @@ def tables_phase(torch, SiddhiManager, EventBatch, StreamCallback, kernels,
     return launches
 
 
+# -- 25. checkpoint and restore ------------------------------------------------
+
+CKPT_KEEP = 2  # revisions each store keeps
+# (a)/(b): product_batches' first 10 (3 warm-up + 7), a persist after
+# batch 4, a crash on the ingest of batch 7 (index 6)
+CKPT_BATCHES = 10
+CKPT_PERSIST_AT = 4
+CKPT_CRASH_AT = 6
+# (c)/(e): 1,000,000 events in 123 batches, a persist after batch 40, a
+# crash on batch 81 (index 80); the journal holds the 41 between
+CKPT_DQ_LABELS = ("partition_scaling_50000", "keyed_time_avg_50000")
+CKPT_DQ_PERSIST_AT = 40
+CKPT_DQ_CRASH_AT = 80
+# (d): the kitchen-sink app of tests/test_conformance_persistence2.py:18-29
+# (a window, a group-by, a table, a pattern) with an aggregation added,
+# under execution('tpu')
+KITCHEN_APP = (
+    "@app:name('ckpt_d') @app:playback @app:execution('tpu') "
+    "define stream S (k string, v long); "
+    "define stream P (k string, v long); "
+    "define table T (k string, v long); "
+    "@info(name='qwin') from S#window.length(3) select k, sum(v) as total "
+    "insert into WinOut; "
+    "@info(name='qgrp') from S select k, sum(v) as total group by k "
+    "insert into GrpOut; "
+    "@info(name='qtab') from S insert into T; "
+    "@info(name='qpat') from every a=P[v > 10] -> b=P[v > a.v] "
+    "select a.v as av, b.v as bv insert into PatOut; "
+    "define aggregation A from S select k, sum(v) as total group by k "
+    "aggregate every sec, min;")
+
+
+def ckpt_keep(StreamCallback, kept):
+    class Keep(StreamCallback):
+        def receive_batch(self, batch):
+            kept.append(batch)
+
+    return Keep()
+
+
+def device_states(torch, rt) -> list:
+    """Clones of every device runtime's state tensors, in order."""
+    out = []
+    for r in rt.device_runtimes().values():
+        st = r.state if hasattr(r, "state") else r._dense.state
+        out.append({k: t.clone() for k, t in st.items()})
+    return out
+
+
+def send_all(rt, batches):
+    hs = {}
+    for b in batches:
+        h = hs.get(b.stream_id)
+        if h is None:
+            h = hs[b.stream_id] = rt.get_input_handler(b.stream_id)
+        h.send_batch(b)
+
+
+def ckpt_plain_run(torch, SiddhiManager, StreamCallback, app, out, batches,
+                   device, setup=None, snapshot=False):
+    """``app`` over ``batches`` on ``device`` with no persist: the output
+    batches, clones of the final device state (on the card) and, with
+    ``snapshot``, the first device runtime's snapshot tree."""
+    mgr = SiddhiManager(device=device)
+    rt = new_app(mgr, app)
+    kept = []
+    rt.add_callback(out, ckpt_keep(StreamCallback, kept))
+    rt.start()
+    if setup is not None:
+        setup(rt)
+    send_all(rt, batches)
+    rt.drain()
+    final = device_states(torch, rt) if device == "cuda" else None
+    tree = (next(iter(rt.device_runtimes().values())).snapshot()
+            if snapshot else None)
+    rt.shutdown()
+    mgr.shutdown()
+    return kept, final, tree
+
+
+def ckpt_crash_run(torch, SiddhiManager, StreamCallback, kernels, app, out,
+                   batches, persist_at, crash_at, store, mode, setup=None,
+                   before_crash=None):
+    """``app`` on the card: ``batches[:persist_at]``, a ``persist(mode)``
+    into ``store`` (timed: the call, the in-barrier capture with its
+    clones synchronised, and for async the writer until committed), the
+    batches up to ``crash_at``, a simulated crash on the ingest of
+    ``batches[crash_at]``, then a fresh runtime of the same manager
+    restoring the last revision (the journal replays the batches after
+    it) and taking the rest.  Returns the output across the crash, the
+    timings and counters, the launches after the restore and clones of
+    the final device state."""
+    from siddhi_tpu_torch.core.exceptions import SimulatedCrashError
+
+    mgr = SiddhiManager(device="cuda")
+    mgr.set_persistence_store(store)
+    rt = new_app(mgr, app)
+    kept = []
+    rt.add_callback(out, ckpt_keep(StreamCallback, kept))
+    rt.start()
+    if setup is not None:
+        setup(rt)
+    state_bytes = card_state_bytes(rt)
+    send_all(rt, batches[:persist_at])
+    rt.drain()
+    torch.cuda.synchronize()
+    svc = rt._snapshot_service()
+    capture, barrier = svc.capture, []
+
+    def timed_capture(**kw):
+        t = time.perf_counter()
+        got = capture(**kw)
+        torch.cuda.synchronize()
+        barrier.append(1e3 * (time.perf_counter() - t))
+        return got
+
+    svc.capture = timed_capture
+    t = time.perf_counter()
+    rev = rt.persist(mode=mode)
+    call_ms = 1e3 * (time.perf_counter() - t)
+    writer_ms = None
+    if mode == "async":
+        t = time.perf_counter()
+        status = rt.wait_for_persist(rev, timeout=600)
+        writer_ms = 1e3 * (time.perf_counter() - t)
+        if status != "committed":
+            raise AssertionError(f"async persist ended '{status}'")
+    written = rt._durability_stats().bytes_written
+    # what a capture that fetches inside the barrier (the reference's
+    # fetch-in-snapshot) would hold the app lock for
+    with rt.app_context.process_lock:
+        t = time.perf_counter()
+        svc._state_tree(fetch=True)
+        torch.cuda.synchronize()
+        fetch_in_barrier_ms = 1e3 * (time.perf_counter() - t)
+    send_all(rt, batches[persist_at:crash_at])
+    if before_crash is not None:
+        before_crash(rt)
+    rt.app_context.fault_injector.configure("ingest", "crash", count=1)
+    try:
+        send_all(rt, batches[crash_at:crash_at + 1])
+    except SimulatedCrashError:
+        pass
+    else:
+        raise AssertionError("the armed ingest crash did not fire")
+    rt.shutdown()
+
+    rt = new_app(mgr, app)
+    rt.add_callback(out, ckpt_keep(StreamCallback, kept))
+    rt.start()
+    replay, replay_s = rt._replay_journal, []
+
+    def timed_replay(revision):
+        t = time.perf_counter()
+        replay(revision)
+        torch.cuda.synchronize()
+        replay_s.append(time.perf_counter() - t)
+
+    rt._replay_journal = timed_replay
+    before = read_launches(kernels)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    restored = rt.restore_last_revision()
+    torch.cuda.synchronize()
+    restore_total_ms = 1e3 * (time.perf_counter() - t)
+    send_all(rt, batches[crash_at + 1:])
+    rt.drain()
+    torch.cuda.synchronize()
+    after = read_launches(kernels)
+    jst = rt.app_context.input_journal.stats
+    run = {"kept": kept, "final": device_states(torch, rt), "rev": rev,
+           "restored": restored, "line": {
+               "state_bytes_on_card": state_bytes,
+               "snapshot_bytes_written": written,
+               "fetch_in_barrier_ms": fetch_in_barrier_ms,
+               "restore_ms": restore_total_ms - 1e3 * sum(replay_s),
+               "replay_ms": 1e3 * sum(replay_s),
+               "replayed_batches": jst.replayed_batches,
+               "suppressed_events": jst.suppressed_events,
+               "launches_after_restore": {k: after[k] - before[k]
+                                          for k in after}}}
+    if mode == "sync":
+        run["line"]["persist_sync_ms"] = {"in_barrier": barrier[0],
+                                          "total": call_ms}
+    else:
+        run["line"]["persist_async_barrier_ms"] = call_ms
+        run["line"]["persist_async_barrier_capture_ms"] = barrier[0]
+        run["line"]["persist_async_writer_ms"] = writer_ms
+    rt.shutdown()
+    mgr.shutdown()
+    return run
+
+
+def ckpt_rows_held(EventBatch, got, want, sum_cols=(), exact=True) -> int:
+    """Two output sequences as one batch each, held as ``dq_compare``
+    holds them (row order, timestamps, every column)."""
+    a = EventBatch.concat(got) if got else None
+    b = EventBatch.concat(want) if want else None
+    return dq_compare(a, b, sum_cols, exact)["rows"]
+
+
+def ckpt_prefix(EventBatch, kept, last_ts):
+    """The rows of ``kept`` up to event time ``last_ts``, as one batch
+    list."""
+    if not kept:
+        return []
+    b = EventBatch.concat(kept)
+    return [b.take(np.flatnonzero(b.timestamps <= last_ts))]
+
+
+def same_final(torch, a, b) -> bool:
+    return (len(a) == len(b) and all(
+        x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x)
+        for x, y in zip(a, b)))
+
+
+def checkpoint_phase(torch, SiddhiManager, EventBatch, StreamCallback,
+                     kernels, card) -> dict:
+    """Phase 25: ``checkpoint``, persistence through ``SiddhiManager`` on
+    the card, each app with its store in a fresh ``tempfile`` directory
+    (its free bytes printed, at most ``CKPT_KEEP`` revisions, deleted
+    after): (a) ``product_app`` at 1,000,000 partitions through a sync
+    persist after batch 4, a crash on batch 7 and a restore that replays
+    5-7, then again with an async persist into the durable store; (b)
+    ``kernel_eligible_app`` (the batch-step kernel) the same way; (c)
+    ``device_queries``' ``partition_scaling_50000`` and
+    ``keyed_time_avg_50000``; (d) the kitchen-sink app rolled back with
+    ``restore_revision``; (e) a flipped byte in the newest durable
+    revision, walked back past.  Returns the phase's launches by
+    kernel."""
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    from siddhi_tpu_torch import (
+        DurableFileSystemPersistenceStore,
+        FileSystemPersistenceStore,
+    )
+    from siddhi_tpu_torch.core.exceptions import SimulatedCrashError
+    from siddhi_tpu_torch.ops.dense_nfa import compile_pattern
+
+    zero_launches(kernels)
+    t_phase = time.perf_counter()
+
+    def tmpdir():
+        d = tempfile.mkdtemp(prefix="ckpt-")
+        return d, shutil.disk_usage(d).free
+
+    # (a) and (b): the product configuration --------------------------------
+    batches = product_batches(EventBatch)[:CKPT_BATCHES]
+    for capturing, label in ((True, "a"), (False, "b")):
+        name = f"ckpt_{label}"
+        eng = compile_pattern(flat_app() if capturing
+                              else kernel_eligible_app(), "bench",
+                              n_partitions=N_PARTITIONS,
+                              n_instances=N_INSTANCES, device="cpu")
+        host, base_ts = mid_chain_state(eng, seed=29 if capturing else 31)
+        del eng
+        start = {"dense_state": host, "base_ts": base_ts,
+                 "key_rows": dict(zip(range(N_PARTITIONS),
+                                      range(N_PARTITIONS))),
+                 "next_row": N_PARTITIONS, "free_rows": []}
+
+        def setup(rt):
+            rt.partitions["partition_0"].dense_query_runtimes[
+                "bench"].pattern_processor.restore(start)
+
+        plain = product_app(PRODUCT_DEPTHS, capturing)
+        app = f"@app:name('{name}') @app:faults(journal='16') " + plain
+        ref, ref_final, _ = ckpt_plain_run(
+            torch, SiddhiManager, StreamCallback, plain, "Alerts", batches,
+            "cuda", setup)
+        cpu, _, cpu_tree = ckpt_plain_run(
+            torch, SiddhiManager, StreamCallback, plain, "Alerts",
+            batches[:CKPT_PERSIST_AT], "cpu", setup, snapshot=True)
+        last_ts = int(batches[CKPT_PERSIST_AT - 1].timestamps[-1])
+        modes = (("sync", FileSystemPersistenceStore),
+                 ("async", DurableFileSystemPersistenceStore))
+        for mode, store_cls in modes if capturing else modes[:1]:
+            d, free = tmpdir()
+            try:
+                store = store_cls(d, revisions_to_keep=CKPT_KEEP)
+                run = ckpt_crash_run(
+                    torch, SiddhiManager, StreamCallback, kernels, app,
+                    "Alerts", batches, CKPT_PERSIST_AT, CKPT_CRASH_AT,
+                    store, mode, setup)
+                tree = pickle.loads(store.load(name, run["rev"]))
+            finally:
+                shutil.rmtree(d, ignore_errors=True)
+            dense = tree["partitions"]["partition_0"]["__dense__"]["bench"][
+                "pattern"]
+            diff = tree_diff(dense, cpu_tree)
+            if diff:
+                raise AssertionError(f"checkpoint ({label}, {mode}): the "
+                                     "revision's dense tree differs from "
+                                     f"the CPU run's at the persist point: "
+                                     f"{diff[:5]}")
+            del tree, dense
+            held = ckpt_rows_held(EventBatch, run["kept"], ref)
+            held_cpu = ckpt_rows_held(
+                EventBatch, ckpt_prefix(EventBatch, run["kept"], last_ts),
+                cpu)
+            if not same_final(torch, run["final"], ref_final):
+                raise AssertionError(f"checkpoint ({label}, {mode}): final "
+                                     "state differs from the uninterrupted "
+                                     "run's")
+            after = run["line"]["launches_after_restore"]
+            if (run["restored"] != run["rev"] or not held
+                    or run["line"]["replayed_batches"] != 3
+                    or (not capturing and after["dense_batch"] < 1)):
+                raise AssertionError(f"checkpoint ({label}, {mode}): "
+                                     f"{run['line']}, rows {held}")
+            emit({"phase": "checkpoint",
+                  "app": f"({label}) " + ("product_app" if capturing
+                                          else "kernel_eligible_app"),
+                  "partitions": N_PARTITIONS, "batch": BATCH,
+                  "mode": mode, "store": store_cls.__name__,
+                  "tmp_free_bytes_before": free,
+                  "persist_after_batch": CKPT_PERSIST_AT,
+                  "crash_on_batch": CKPT_CRASH_AT + 1,
+                  **run["line"],
+                  "rows_held_vs_uninterrupted_card": held,
+                  "final_state_equal_uninterrupted_card": True,
+                  "rows_held_vs_cpu": held_cpu,
+                  "revision_tree_equal_cpu_at_persist": True,
+                  "cpu_cut": f"the CPU run takes the first "
+                             f"{CKPT_PERSIST_AT} batches",
+                  "card": card})
+            del run
+            gc.collect()
+        del ref, ref_final, cpu, cpu_tree, start, host
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) the device query path, (e) a corrupted revision ------------------
+    dq_runs = {}
+    for label in CKPT_DQ_LABELS:
+        plain, _low = DEVICE_QUERY_APPS[label]
+        n_sym = 50_000
+        dqb = dq_batches(EventBatch, n_sym, seed=n_sym)
+        sums = DQ_SUM_COLUMNS.get(label, ())
+        ref, ref_final, _ = ckpt_plain_run(
+            torch, SiddhiManager, StreamCallback, plain, "outputStream", dqb,
+            "cuda")
+        cpu, _, _ = ckpt_plain_run(torch, SiddhiManager, StreamCallback,
+                                   plain, "outputStream", dqb[:DQ_CHECK],
+                                   "cpu")
+        app = "@app:name('ckpt_c') @app:faults(journal='64') " + plain
+        d, free = tmpdir()
+        try:
+            run = ckpt_crash_run(
+                torch, SiddhiManager, StreamCallback, kernels, app,
+                "outputStream", dqb, CKPT_DQ_PERSIST_AT, CKPT_DQ_CRASH_AT,
+                FileSystemPersistenceStore(d, revisions_to_keep=CKPT_KEEP),
+                "sync")
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        held = ckpt_rows_held(EventBatch, run["kept"], ref)
+        last_ts = int(dqb[DQ_CHECK - 1].timestamps[-1])
+        held_cpu = ckpt_rows_held(
+            EventBatch, ckpt_prefix(EventBatch, run["kept"], last_ts), cpu,
+            sums, False)
+        after = run["line"]["launches_after_restore"]
+        if (not same_final(torch, run["final"], ref_final)
+                or run["restored"] != run["rev"]
+                or run["line"]["replayed_batches"]
+                != CKPT_DQ_CRASH_AT - CKPT_DQ_PERSIST_AT + 1
+                or (label == "partition_scaling_50000"
+                    and after["bank_scatter"] < 1)):
+            raise AssertionError(f"checkpoint (c) {label}: {run['line']}")
+        emit({"phase": "checkpoint", "app": f"(c) {label}",
+              "events": DQ_EVENTS, "batch": DQ_BATCH, "symbols": n_sym,
+              "mode": "sync", "store": "FileSystemPersistenceStore",
+              "tmp_free_bytes_before": free,
+              "persist_after_batch": CKPT_DQ_PERSIST_AT,
+              "crash_on_batch": CKPT_DQ_CRASH_AT + 1, **run["line"],
+              "rows_held_vs_uninterrupted_card": held,
+              "final_state_equal_uninterrupted_card": True,
+              "rows_held_vs_cpu": held_cpu,
+              "cpu_cut": f"the CPU run takes the first {DQ_CHECK} batches",
+              "card": card})
+        dq_runs[label] = (dqb, ref)
+        del run, cpu, ref_final
+        gc.collect()
+
+    # (e): partition_scaling_50000 into the durable store: rev1 after
+    # batch 30, rev2 crashes after its manifest (journal mark not
+    # committed), a byte of rev2's largest blob is flipped, and the
+    # restore walks back to rev1 and replays from there
+    dqb, ref = dq_runs["partition_scaling_50000"]
+    plain = DEVICE_QUERY_APPS["partition_scaling_50000"][0]
+    app = "@app:name('ckpt_e') @app:faults(journal='128') " + plain
+    d, free = tmpdir()
+    warnings = []
+
+    class Warned(logging.Handler):
+        def emit(self, record):
+            if record.levelno == logging.WARNING:
+                warnings.append(record.getMessage())
+
+    wh = Warned()
+    try:
+        store = DurableFileSystemPersistenceStore(
+            d, revisions_to_keep=CKPT_KEEP)
+        mgr = SiddhiManager(device="cuda")
+        mgr.set_persistence_store(store)
+        rt = new_app(mgr, app)
+        kept = []
+        rt.add_callback("outputStream", ckpt_keep(StreamCallback, kept))
+        rt.start()
+        send_all(rt, dqb[:30])
+        rev1 = rt.persist()
+        send_all(rt, dqb[30:60])
+        rt.app_context.fault_injector.configure("persist.post_manifest",
+                                                "crash", count=1)
+        try:
+            rt.persist()
+        except SimulatedCrashError:
+            pass
+        else:
+            raise AssertionError("the armed persist crash did not fire")
+        rt.shutdown()
+        rev2 = store.get_last_revision("ckpt_e")
+        rev_dir = os.path.join(d, "ckpt_e", rev2 + ".ckpt")
+        blob = max((os.path.join(rev_dir, f) for f in os.listdir(rev_dir)
+                    if f.endswith(".blob")), key=os.path.getsize)
+        with open(blob, "r+b") as f:
+            f.seek(os.path.getsize(blob) // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0xFF]))
+        rt = new_app(mgr, app)
+        rt.add_callback("outputStream", ckpt_keep(StreamCallback, kept))
+        rt.start()
+        logging.getLogger("siddhi_tpu_torch").addHandler(wh)
+        t = time.perf_counter()
+        restored = rt.restore_last_revision()
+        restore_ms = 1e3 * (time.perf_counter() - t)
+        logging.getLogger("siddhi_tpu_torch").removeHandler(wh)
+        send_all(rt, dqb[60:])
+        rt.drain()
+        jst = rt.app_context.input_journal.stats
+        replayed, suppressed = jst.replayed_batches, jst.suppressed_events
+        rt.shutdown()
+        mgr.shutdown()
+    finally:
+        logging.getLogger("siddhi_tpu_torch").removeHandler(wh)
+        shutil.rmtree(d, ignore_errors=True)
+    walked = [w for w in warnings if rev2 in w]
+    held = ckpt_rows_held(EventBatch, kept, ref)
+    if restored != rev1 or not walked or replayed != 30:
+        raise AssertionError(f"checkpoint (e): restored {restored} (rev1 "
+                             f"{rev1}, rev2 {rev2}), warnings {warnings}, "
+                             f"replayed {replayed}")
+    emit({"phase": "checkpoint", "app": "(e) partition_scaling_50000, a "
+          "flipped byte in the newest revision",
+          "store": "DurableFileSystemPersistenceStore",
+          "tmp_free_bytes_before": free, "revisions": [rev1, rev2],
+          "restored": "previous", "warnings": walked,
+          "restore_ms": restore_ms, "replayed_batches": replayed,
+          "suppressed_events": suppressed,
+          "rows_held_vs_uninterrupted_card": held, "card": card})
+    del dq_runs, ref
+    gc.collect()
+
+    # (d) every element type, rolled back with restore_revision ------------
+    def kitchen(device):
+        d, free = tmpdir()
+        try:
+            mgr = SiddhiManager(device=device)
+            mgr.set_persistence_store(FileSystemPersistenceStore(
+                d, revisions_to_keep=CKPT_KEEP))
+            rt = new_app(mgr, KITCHEN_APP)
+            got = []
+            for o in ("WinOut", "GrpOut", "PatOut"):
+                rt.add_callback(o, lambda evs, o=o: got.extend(
+                    (o, e.timestamp, tuple(e.data)) for e in evs))
+            rt.start()
+            s = rt.get_input_handler("S")
+            p = rt.get_input_handler("P")
+            rng = np.random.default_rng(5)
+            t = 1000
+            for i in range(200):
+                t += int(rng.integers(1, 40))
+                h = s if rng.random() < 0.6 else p
+                h.send([f"k{int(rng.integers(0, 5))}",
+                        int(rng.integers(0, 30))], timestamp=t)
+                if i == 99:
+                    rev = rt.persist()
+            rt.restore_revision(rev)
+            for i in range(100):
+                t += int(rng.integers(1, 40))
+                h = s if rng.random() < 0.6 else p
+                h.send([f"k{int(rng.integers(0, 5))}",
+                        int(rng.integers(0, 30))], timestamp=t)
+            pulls = [[tuple(e.data) for e in rt.query(q)] for q in (
+                "from T select k, v;",
+                "from A within 0L, 100000L per 'seconds' select k, total;")]
+            low = rt.lowering()
+            rt.shutdown()
+            mgr.shutdown()
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+        return got, pulls, low, free
+
+    kc = kitchen("cuda")
+    kp = kitchen("cpu")
+    if kc[:3] != kp[:3] or not kc[0]:
+        raise AssertionError("checkpoint (d): the card's rows after the "
+                             "rollback differ from the CPU run's")
+    emit({"phase": "checkpoint", "app": "(d) kitchen sink "
+          "(tests/test_conformance_persistence2.py:18-29 + an aggregation)",
+          "store": "FileSystemPersistenceStore",
+          "tmp_free_bytes_before": kc[3], "lowering": kc[2],
+          "rows_held_vs_cpu": len(kc[0]),
+          "pull_rows_held_vs_cpu": [len(x) for x in kc[1]],
+          "seconds": time.perf_counter() - t_phase, "card": card})
+    return read_launches(kernels)
+
+
 def main() -> int:
     import torch
 
@@ -5276,10 +5829,16 @@ def main() -> int:
     join_check_phase(SiddhiManager, EventBatch, card)
     table_launches = tables_phase(torch, SiddhiManager, EventBatch,
                                   StreamCallback, all_kernels, card)
+
+    # 25. checkpoint and restore ---------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt_launches = checkpoint_phase(torch, SiddhiManager, EventBatch,
+                                     StreamCallback, all_kernels, card)
     emit({"phase": "isolated_errors", "errors": 0,
           "warnings_to_listeners_or_log": ISOLATED.warnings})
 
-    # 25. kernels -------------------------------------------------------------
+    # 26. kernels -------------------------------------------------------------
     by_path = lambda name: {"dense_1M": launches.get(name, 0),
                             "skew_routed": hk_launches.get(name, 0),
                             "aggregation": agg_launches[name],
@@ -5298,7 +5857,9 @@ def main() -> int:
                             "functions": udf_launches[name],
                             # torch ops on the join and table paths
                             "joins": join_launches[name],
-                            "tables": table_launches[name]}
+                            "tables": table_launches[name],
+                            # (a)-(e) of the checkpoint phase
+                            "checkpoint": ckpt_launches[name]}
     emit({"kernels": [
         {"name": "dense_batch", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/dense_batch.cu",
@@ -5306,7 +5867,8 @@ def main() -> int:
          "launches": (launches["dense_batch"] + hk_launches["dense_batch"]
                       + hp_launches["dense_batch"]
                       + product_launches["dense_batch"]
-                      + auto_launches["dense_batch"]),
+                      + auto_launches["dense_batch"]
+                      + ckpt_launches["dense_batch"]),
          "launches_by_path": by_path("dense_batch"),
          "max_abs_err": batch_err,
          # the 1 M cell's batch; the routed cold sub-batch beside it
@@ -5328,7 +5890,8 @@ def main() -> int:
                       + agg_launches["probe"] + gen_launches["probe"]
                       + pb_launches["probe"] + absent_launches["probe"]
                       + rollup_launches["probe"] + hp_launches["probe"]
-                      + product_launches["probe"] + auto_launches["probe"]),
+                      + product_launches["probe"] + auto_launches["probe"]
+                      + ckpt_launches["probe"]),
          "launches_by_path": by_path("probe"), "max_abs_err": probe_err,
          **{k: probe_line[k] for k in KERNEL_KEYS}},
         {"name": "scan_chain", "route": "cuda",
@@ -5346,7 +5909,8 @@ def main() -> int:
          "replaces": "siddhi_tpu/kernels/bank_scatter.py:76",
          "launches": agg_launches["bank_scatter"]
                      + dq_launches["bank_scatter"]
-                     + auto_launches["bank_scatter"],
+                     + auto_launches["bank_scatter"]
+                     + ckpt_launches["bank_scatter"],
          "launches_by_path": by_path("bank_scatter"),
          "launches_by_entry": bank_by_entry,
          "max_abs_err": bank_err,

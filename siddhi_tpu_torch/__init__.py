@@ -28,12 +28,18 @@ The slices so far:
   ``compile_scan_pattern`` builds the single-key max-plus scan engine;
 - ``define function`` scripts, ``SiddhiManager.set_extension`` (custom
   functions, windows, aggregators, stream processors) and the
-  manager's validate, sandbox, attribute and registry APIs.
+  manager's validate, sandbox, attribute and registry APIs;
+- joins, tables, named windows, triggers and on-demand queries;
+- persistence: ``SiddhiManager.set_persistence_store`` with one of the
+  stores below, ``rt.persist()`` (sync, or async through the checkpoint
+  writer), ``rt.restore_last_revision()`` and, under
+  ``@app:faults(journal=...)``, restore-and-replay of the input journal.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from siddhi_tpu_torch.core.manager import SiddhiManager
+from siddhi_tpu_torch.durability import DurableFileSystemPersistenceStore
 from siddhi_tpu_torch.ops.device_query import compile_query
 from siddhi_tpu_torch.ops.dense_nfa import (
     compile_pattern,
@@ -41,6 +47,15 @@ from siddhi_tpu_torch.ops.dense_nfa import (
     state_to_numpy,
 )
 from siddhi_tpu_torch.ops.nfa_scan import compile_scan_pattern
+from siddhi_tpu_torch.util.persistence import (
+    FileSystemPersistenceStore,
+    IncrementalFileSystemPersistenceStore,
+    InMemoryPersistenceStore,
+    PersistenceStore,
+)
 
-__all__ = ["SiddhiManager", "compile_pattern", "compile_query",
-           "compile_scan_pattern", "state_from_numpy", "state_to_numpy"]
+__all__ = ["DurableFileSystemPersistenceStore", "FileSystemPersistenceStore",
+           "InMemoryPersistenceStore", "IncrementalFileSystemPersistenceStore",
+           "PersistenceStore", "SiddhiManager", "compile_pattern",
+           "compile_query", "compile_scan_pattern", "state_from_numpy",
+           "state_to_numpy"]

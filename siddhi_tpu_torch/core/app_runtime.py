@@ -23,21 +23,29 @@ listeners, ``start``, ``shutdown``, ``lowering()`` and the introspection
 of ``get_stream_definitions()``, ``query_names()`` and
 ``pattern_state()``.  User functions (``define function`` scripts and
 ``function`` extensions) compile from the app's copy of its manager's
-extension registry.  An app outside the slices raises
+extension registry.  Persistence: ``persist(mode)`` (sync, or async
+through the checkpoint writer thread), ``snapshot``/``restore`` of raw
+bytes, ``restore_revision``/``restore_last_revision`` (walking back
+past a revision that does not restore) with the input journal's replay,
+``clear_all_revisions`` and the ``@app:persist(interval)`` daemon.  An
+app outside the slices raises
 ``SiddhiAppCreationError`` naming the ``ROADMAP.md`` item that ports
 it: sources and sinks (item 15).
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
-from typing import Callable, Dict, List, Union
+from typing import Callable, Dict, List, Optional, Union
 
 from siddhi_tpu_torch.aggregation.runtime import AggregationRuntime
 from siddhi_tpu_torch.compiler.parser import parse_time_string
 from siddhi_tpu_torch.core.exceptions import (
+    CannotRestoreSiddhiAppStateError,
     DefinitionNotExistError,
+    NoPersistenceStoreError,
     SiddhiAppCreationError,
     SiddhiAppRuntimeError,
     later_slice,
@@ -50,9 +58,14 @@ from siddhi_tpu_torch.core.stream import (
     QueryCallback,
     StreamCallback,
     StreamJunction,
+    notify_listeners,
 )
 from siddhi_tpu_torch.core.trigger import TriggerRuntime
 from siddhi_tpu_torch.core.window import NamedWindowRuntime
+from siddhi_tpu_torch.durability.writer import (
+    AsyncCheckpointWriter,
+    DurabilityStats,
+)
 from siddhi_tpu_torch.extension.function import build_functions
 from siddhi_tpu_torch.extension.validator import validate_extension_args
 from siddhi_tpu_torch.planner.app_planner import plan_app_context
@@ -65,12 +78,17 @@ from siddhi_tpu_torch.query_api import (
 )
 from siddhi_tpu_torch.query_api.annotation import find_annotation
 from siddhi_tpu_torch.table import InMemoryTable, RecordTableRuntime, TableCache
+from siddhi_tpu_torch.util.persistence import IncrementalPersistenceStore
+from siddhi_tpu_torch.util.snapshot import SnapshotService
+
+log = logging.getLogger("siddhi_tpu_torch")
 
 
 class SiddhiAppRuntime:
     def __init__(self, siddhi_app, device, siddhi_context):
         self.siddhi_app = siddhi_app
-        self.app_context = plan_app_context(siddhi_app, device)
+        self.app_context = plan_app_context(siddhi_app, device,
+                                            siddhi_context)
         self.name = self.app_context.name
         self.siddhi_context = siddhi_context
         # sources and sinks come with item 15; their planner reads the
@@ -102,6 +120,11 @@ class SiddhiAppRuntime:
         self._running = False
         self._playback_stop = None
         self._playback_thread = None
+        self._persist_stop = None
+        self._persist_thread = None
+        self._snapshot_svc = None
+        self._durab_stats = None
+        self._ckpt_writer = None
         self._on_demand_cache: Dict[str, object] = {}
         # (handler manager, element id) of each record-table handler,
         # unregistered at shutdown
@@ -317,6 +340,8 @@ class SiddhiAppRuntime:
         ctx = self.app_context
         if ctx.playback and ctx.playback_idle_ms > 0:
             self._start_playback_heartbeat()
+        if ctx.persist_interval_ms > 0:
+            self._start_persist_daemon()
 
     def _start_playback_heartbeat(self):
         """``@app:playback(idle.time, increment)``: when no event arrives
@@ -337,6 +362,32 @@ class SiddhiAppRuntime:
         self._playback_thread = threading.Thread(
             target=loop, name=f"playback-{self.name}", daemon=True)
         self._playback_thread.start()
+
+    def _start_persist_daemon(self):
+        """``@app:persist(interval, mode)``: a ``persist()`` every
+        interval, in the annotation's mode (async by default, so the
+        batch loop only stalls for the in-barrier capture)."""
+        interval_s = self.app_context.persist_interval_ms / 1000.0
+        stop = threading.Event()
+
+        def loop():
+            while not stop.wait(interval_s):
+                try:
+                    self.persist()
+                except Exception as e:
+                    log.error("app '%s': periodic persist failed: %s",
+                              self.name, e)
+                    notify_listeners(self.app_context, e)
+                except BaseException as e:
+                    # a simulated crash on the daemon thread: stop ticking
+                    log.error("app '%s': persist daemon stopped: %s",
+                              self.name, e)
+                    break
+
+        self._persist_stop = stop
+        self._persist_thread = threading.Thread(
+            target=loop, name=f"persist-{self.name}", daemon=True)
+        self._persist_thread.start()
 
     def device_runtimes(self) -> Dict[str, object]:
         """Query name -> its device runtime: the pattern processor or the
@@ -361,6 +412,12 @@ class SiddhiAppRuntime:
             self._playback_stop.set()
             self._playback_thread.join(timeout=2)
             self._playback_stop = self._playback_thread = None
+        if self._persist_stop is not None:
+            self._persist_stop.set()
+            self._persist_thread.join(timeout=10)
+            self._persist_stop = self._persist_thread = None
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.shutdown()
         self.scheduler.stop()
         for rt in self.device_runtimes().values():
             rt.close()
@@ -394,6 +451,289 @@ class SiddhiAppRuntime:
                 self._on_demand_cache.pop(next(iter(self._on_demand_cache)))
             self._on_demand_cache[on_demand_query] = rt
         return rt.execute()
+
+    # -- persistence ---------------------------------------------------------
+
+    def _snapshot_service(self) -> SnapshotService:
+        # cached: incremental mode tracks per-element digests across
+        # persists
+        if self._snapshot_svc is None:
+            self._snapshot_svc = SnapshotService(self)
+        return self._snapshot_svc
+
+    def _persistence_store(self):
+        store = self.siddhi_context.persistence_store
+        if store is None:
+            raise NoPersistenceStoreError(
+                f"app '{self.name}': no persistence store configured "
+                "(SiddhiManager.set_persistence_store)")
+        return store
+
+    def _durability_stats(self) -> DurabilityStats:
+        if self._durab_stats is None:
+            self._durab_stats = DurabilityStats()
+        return self._durab_stats
+
+    def _durability_writer(self, create: bool = True
+                           ) -> Optional[AsyncCheckpointWriter]:
+        if self._ckpt_writer is None and create:
+            self._ckpt_writer = AsyncCheckpointWriter(
+                self.name, stats=self._durability_stats(),
+                fault_injector=self.app_context.fault_injector,
+                listeners=self.app_context.exception_listeners)
+        return self._ckpt_writer
+
+    def _flush_persists(self, timeout: float = 30.0):
+        """Barrier: an in-flight async checkpoint reaches a terminal
+        state before host code reads or replaces persisted state."""
+        w = self._durability_writer(create=False)
+        if w is not None:
+            w.wait(timeout=timeout)
+
+    def wait_for_persist(self, revision: Optional[str] = None,
+                         timeout: Optional[float] = None) -> Optional[str]:
+        """Block until an async persist finishes.  Returns the terminal
+        status ('committed' / 'failed' / 'superseded' / 'crashed' /
+        'idle') or None on timeout; 'idle' when nothing was submitted."""
+        w = self._durability_writer(create=False)
+        if w is None:
+            return "idle"
+        return w.wait(revision=revision, timeout=timeout)
+
+    def _persist_write(self, store, revision: str, capture):
+        """Serialize, store and commit one captured checkpoint: on the
+        checkpoint writer thread (async) or inline (sync)."""
+        fi = self.app_context.fault_injector
+        st = self._durability_stats()
+        if hasattr(store, "save_tree"):
+            blobs = capture.materialize_blobs()
+            store.save_tree(self.name, revision, blobs,
+                            checker=fi.check if fi is not None else None,
+                            version=capture.version)
+            st.blobs_written += len(blobs)
+            st.bytes_written += sum(len(b) for _, _, b in blobs)
+        else:
+            data = capture.tree_bytes()
+            store.save(self.name, revision, data)
+            st.bytes_written += len(data)
+        if fi is not None:
+            # crash point: revision durable, journal mark not committed
+            fi.check("persist.post_manifest")
+        jr = self.app_context.input_journal
+        if jr is not None:
+            jr.commit_revision(revision)
+
+    def persist(self, mode: Optional[str] = None) -> str:
+        """Snapshot all state and save it under a new revision
+        (reference: SiddhiAppRuntimeImpl.persist:677); returns the
+        revision id.
+
+        ``mode='sync'`` (the default) writes inside the call;
+        ``mode='async'`` (or ``@app:persist(mode='async')``) stalls the
+        batch loop only for the in-barrier capture (device clones of the
+        state tensors, host copies) and hands the device-to-host fetch,
+        serialization and store write to the checkpoint writer thread,
+        single in flight with coalescing.  An incremental store forces
+        the sync path (its digest chain cannot interleave with
+        background writes)."""
+        store = self._persistence_store()
+        svc = self._snapshot_service()
+        if mode is None:
+            mode = self.app_context.persist_mode
+        if mode not in ("sync", "async"):
+            raise SiddhiAppRuntimeError(
+                f"app '{self.name}': persist mode {mode!r} must be "
+                "'sync' or 'async'")
+        st = self._durability_stats()
+        incremental = isinstance(store, IncrementalPersistenceStore)
+        if incremental:
+            mode = "sync"
+        revision = SnapshotService.new_revision(self.name)
+        jr = self.app_context.input_journal
+        if incremental:
+            with self.app_context.process_lock:
+                self.drain()
+                kind, data = svc.incremental_snapshot()
+            store.save(self.name, revision, kind, data)
+            st.persists_sync += 1
+            if jr is not None:
+                jr.mark_revision(revision)
+            return revision
+
+        def on_fallback(_element, _reason):
+            st.capture_fallback_elements += 1
+
+        # the barrier: the app lock, and every emit still pending on the
+        # device lands in downstream state (selectors, windows, tables)
+        # before that state is captured
+        with self.app_context.process_lock:
+            self.drain()
+            capture = svc.capture(on_fallback=on_fallback)
+            if jr is not None:
+                # the watermark and ledger counts at the capture point;
+                # the prune happens at commit, after the store write
+                jr.note_capture(revision)
+        if mode == "async":
+            self._durability_writer().submit(
+                revision,
+                lambda: self._persist_write(store, revision, capture),
+                on_abandon=jr.drop_mark if jr is not None else None)
+            return revision
+        fi = self.app_context.fault_injector
+        try:
+            if fi is not None:
+                fi.check("persist.write")
+            self._persist_write(store, revision, capture)
+        except Exception:
+            # a failed sync persist abandons its journal mark, so a later
+            # commit cannot prune uncovered entries.  A simulated crash
+            # (BaseException) keeps it: the journal models a log that
+            # survives the process, marks included.
+            if jr is not None:
+                jr.drop_mark(revision)
+            raise
+        st.persists_sync += 1
+        return revision
+
+    def snapshot(self) -> bytes:
+        """Raw snapshot bytes without a store (reference:
+        SiddhiAppRuntimeImpl.snapshot)."""
+        with self.app_context.process_lock:
+            self.drain()
+            return self._snapshot_service().full_snapshot()
+
+    def restore(self, snapshot: bytes):
+        """Restore raw snapshot bytes; the input journal forgets its
+        marks and ledger, which no longer match the restored state."""
+        self._flush_persists()
+        with self.app_context.process_lock:
+            # pending emits flush into the PRE-restore state (the
+            # synchronous path delivered them before restore was called)
+            self.drain()
+            self._snapshot_service().restore(snapshot)
+        jr = self.app_context.input_journal
+        if jr is not None:
+            jr.reset()
+
+    def _replay_journal(self, revision: str):
+        """Restore-and-replay, second half: re-send every input batch the
+        journal recorded after ``revision`` was captured, with the output
+        ledger suppressing the events each callback already received —
+        the observable sequence equals an uninterrupted run's
+        (util/faults.py InputJournal).  Single-threaded, under the app
+        lock, and not journaled again."""
+        jr = self.app_context.input_journal
+        if jr is None:
+            return
+        entries = jr.entries_after(revision)
+        if entries is None:
+            log.warning(
+                "app '%s': input journal cannot replay after revision "
+                "'%s' (unmarked revision or journal overflow); restored "
+                "state only — post-checkpoint input is lost", self.name,
+                revision)
+            jr.reset()
+            return
+        if not self._running:
+            if entries:
+                log.warning(
+                    "app '%s': %d journaled batch(es) pending but the "
+                    "app is not running; start() it before restoring to "
+                    "replay", self.name, len(entries))
+            return
+        with self.app_context.process_lock:
+            jr.begin_replay(revision)
+            try:
+                for stream_id, batch in entries:
+                    self.get_input_handler(stream_id).send_batch(batch)
+                    jr.stats.replayed_batches += 1
+                # barrier INSIDE the replay window: emits the replayed
+                # batches left pending on the device go through the
+                # suppressing ledger, not after it as duplicates
+                self.drain()
+            finally:
+                jr.end_replay()
+        if entries:
+            log.info("app '%s': replayed %d journaled batch(es) after "
+                     "revision '%s'", self.name, len(entries), revision)
+
+    def restore_revision(self, revision: str):
+        """Restore ``revision`` of the store, then replay the input
+        journal after it."""
+        self._flush_persists()
+        store = self._persistence_store()
+        if isinstance(store, IncrementalPersistenceStore):
+            chain = store.load_chain(self.name, until_revision=revision)
+            if chain is None:
+                raise SiddhiAppRuntimeError(
+                    f"app '{self.name}': no base snapshot at or before "
+                    f"revision '{revision}'")
+            _, base_bytes, incs = chain
+            with self.app_context.process_lock:
+                self.drain()
+                self._snapshot_service().restore_incremental(
+                    base_bytes, [b for _, b in incs])
+            self._replay_journal(revision)
+            return
+        data = store.load(self.name, revision)
+        if data is None:
+            raise SiddhiAppRuntimeError(
+                f"app '{self.name}': revision '{revision}' not found")
+        # inline (not self.restore): the journal must survive the state
+        # restore so the post-checkpoint batches can replay after it
+        with self.app_context.process_lock:
+            self.drain()
+            self._snapshot_service().restore(data)
+        self._replay_journal(revision)
+
+    def restore_last_revision(self) -> Optional[str]:
+        """Restore the newest saved revision and return its id (None when
+        there is none; reference: SiddhiAppRuntimeImpl.restoreLastRevision).
+        An incremental store restores its newest base and the increments
+        after it.  A revision that does not restore (missing, truncated,
+        failing its checksum) is skipped with a WARNING and the walk
+        falls back to the one before; when none restores,
+        ``CannotRestoreSiddhiAppStateError``."""
+        self._flush_persists()
+        store = self._persistence_store()
+        if isinstance(store, IncrementalPersistenceStore):
+            chain = store.load_chain(self.name)
+            if chain is None:
+                return None
+            base_rev, base_bytes, incs = chain
+            with self.app_context.process_lock:
+                self.drain()
+                self._snapshot_service().restore_incremental(
+                    base_bytes, [b for _, b in incs])
+            rev = incs[-1][0] if incs else base_rev
+            self._replay_journal(rev)
+            return rev
+        revs = store.revisions(self.name)
+        if not revs:
+            return None
+        last_error = None
+        for rev in reversed(revs):
+            try:
+                self.restore_revision(rev)
+                return rev
+            except Exception as e:
+                last_error = e
+                log.warning(
+                    "app '%s': revision '%s' failed to restore (%s); "
+                    "falling back to the previous revision", self.name,
+                    rev, e)
+        raise CannotRestoreSiddhiAppStateError(
+            f"app '{self.name}': all {len(revs)} persisted revisions "
+            f"failed to restore (last error: {last_error})")
+
+    def clear_all_revisions(self):
+        self._flush_persists()
+        self._persistence_store().clear_all_revisions(self.name)
+
+    # Java-style aliases
+    restoreRevision = restore_revision
+    restoreLastRevision = restore_last_revision
+    clearAllRevisions = clear_all_revisions
 
     # -- I/O -----------------------------------------------------------------
 

@@ -542,14 +542,20 @@ class DensePatternRuntime:
 
     # -- snapshot contract ---------------------------------------------------
 
-    def snapshot(self) -> Dict:
+    def snapshot(self, fetch: bool = True) -> Dict:
         """The reference's snapshot tree; device state is fetched through
-        ``fetch_coalesced`` (``np.asarray`` raises on a CUDA tensor)."""
+        ``fetch_coalesced`` (``np.asarray`` raises on a CUDA tensor), or
+        with ``fetch=False`` left as the live state tensors, in the
+        layout's order (the persist path's capture clones them)."""
         self.drain()
         self._check_overflow()
-        host, base_ts = state_to_numpy(self.engine, self.state)
+        if fetch:
+            dense, base_ts = state_to_numpy(self.engine, self.state)
+        else:
+            dense = {k: self.state[k] for k in self.engine.state_layout()}
+            base_ts = self.engine.base_ts
         return {
-            "dense_state": host,
+            "dense_state": dense,
             "base_ts": base_ts,
             "key_rows": dict(self._key_rows),
             "next_row": self._next_row,

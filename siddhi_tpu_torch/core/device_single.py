@@ -148,11 +148,14 @@ class DeviceQueryRuntime:
 
     # -- snapshot contract ---------------------------------------------------
 
-    def snapshot(self) -> Dict:
+    def snapshot(self, fetch: bool = True) -> Dict:
         """The reference's snapshot tree: the device state as numpy
-        copies, and the engine's host bookkeeping."""
+        copies (``fetch=False``: the live state tensors, which the
+        persist path's capture clones), and the engine's host
+        bookkeeping."""
         self.drain()
-        return {"device_state": self.engine.state_to_host(self.state),
+        return {"device_state": (self.engine.state_to_host(self.state)
+                                 if fetch else dict(self.state)),
                 "host": self.engine.host_snapshot()}
 
     def restore(self, state: Dict):

@@ -362,12 +362,12 @@ class HotKeyRouterRuntime:
                 self._demote(key)
         self._dense.purge_idle(now, idle_ms)
 
-    def snapshot(self) -> Dict:
+    def snapshot(self, fetch: bool = True) -> Dict:
         """Demote-all first: the persisted tree is a plain dense snapshot
         (restorable under other @app:hotkeys settings); the sketch rides
         along so routing warmth survives restore."""
         self.demote_all()
-        tree = self._dense.snapshot()
+        tree = self._dense.snapshot(fetch)
         tree["hotkey_sketch"] = {
             "counts": dict(self.sketch.counts),
             "total": self.sketch.total,

@@ -10,8 +10,11 @@ record-table handler manager are read by the store planner of the app
 runtime (``@store`` tables); the data sources and the source and sink
 handler managers are held for the transport planner (``ROADMAP.md`` §1
 item 15), until which an app with a ``@source`` or a ``@sink`` is
-refused.  Persistence (``set_persistence_store``, ``persist``,
-``restore_last_state``) is a later slice.
+refused.  The persistence store (``set_persistence_store``) and the
+apps' input journals (``@app:faults(journal=)``, keyed by app name, so a
+runtime built after a crash replays its predecessor's input) live on
+the context; ``persist()`` and ``restore_last_state()`` run over every
+registered runtime.
 """
 
 from __future__ import annotations
@@ -21,7 +24,6 @@ from typing import Dict, Optional, Union
 
 from siddhi_tpu_torch.compiler import SiddhiCompiler
 from siddhi_tpu_torch.core.app_runtime import SiddhiAppRuntime
-from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
 from siddhi_tpu_torch.ops.dense_nfa import resolve_device
 from siddhi_tpu_torch.query_api import SiddhiApp
 from siddhi_tpu_torch.util.config import ConfigManager, InMemoryConfigManager
@@ -30,8 +32,8 @@ from siddhi_tpu_torch.util.config import ConfigManager, InMemoryConfigManager
 class SiddhiContext:
     """Per-manager shared state: the extension registry each app plans
     against a copy of, attributes, the config manager, named data
-    sources and the handler managers (reference:
-    ``core/context.py`` ``SiddhiContext``)."""
+    sources, the handler managers, the persistence store and the input
+    journals (reference: ``core/context.py`` ``SiddhiContext``)."""
 
     def __init__(self):
         from siddhi_tpu_torch.extension.registry import default_registry
@@ -43,6 +45,11 @@ class SiddhiContext:
         self.source_handler_manager = None
         self.sink_handler_manager = None
         self.record_table_handler_manager = None
+        self.persistence_store = None
+        # crash-recovery journals keyed by app name: on the MANAGER
+        # context so a journal outlives a crashed runtime, and a fresh
+        # runtime of the same app replays it (util/faults.py)
+        self.input_journals: Dict[str, object] = {}
 
 
 class SiddhiManager:
@@ -136,9 +143,21 @@ class SiddhiManager:
         self.siddhi_context.record_table_handler_manager = m
 
     def set_persistence_store(self, store):
-        raise SiddhiAppCreationError(
-            "persistence stores — a later slice of the port; snapshot and "
-            "restore a pattern runtime directly")
+        """The store every app of this manager persists to (reference:
+        SiddhiManager.setPersistenceStore)."""
+        self.siddhi_context.persistence_store = store
+
+    def persist(self):
+        """Persist every registered app (reference:
+        SiddhiManager.persist)."""
+        for rt in list(self.runtimes.values()):
+            rt.persist()
+
+    def restore_last_state(self):
+        """Restore every registered app to its newest saved revision
+        (reference: SiddhiManager.restoreLastState)."""
+        for rt in list(self.runtimes.values()):
+            rt.restore_last_revision()
 
     def shutdown(self):
         for rt in self.runtimes.values():
@@ -154,3 +173,5 @@ class SiddhiManager:
     setSourceHandlerManager = set_source_handler_manager
     setSinkHandlerManager = set_sink_handler_manager
     setRecordTableHandlerManager = set_record_table_handler_manager
+    setPersistenceStore = set_persistence_store
+    restoreLastState = restore_last_state

@@ -551,11 +551,12 @@ class PartitionRuntime:
 
     # -- snapshot contract -----------------------------------------------------
 
-    def snapshot(self) -> Dict:
+    def snapshot(self, fetch: bool = True) -> Dict:
         """Each key's query states (or the device form's, under
-        ``__dense__``), in the JAX package's layout."""
+        ``__dense__``), in the JAX package's layout; ``fetch=False``
+        leaves device state tensors on the device."""
         if self.is_dense:
-            return {"__dense__": {n: qr.snapshot_state() for n, qr in
+            return {"__dense__": {n: qr.snapshot_state(fetch) for n, qr in
                                   self.dense_query_runtimes.items()}}
         return {k: {n: qr.snapshot_state()
                     for n, qr in inst.query_runtimes.items()}

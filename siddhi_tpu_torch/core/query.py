@@ -783,14 +783,26 @@ class InsertIntoStreamCallback(OutputCallback):
 
 
 class QueryCallbackOutput(OutputCallback):
-    """Feeds user QueryCallbacks with (ts, inEvents, removeEvents)."""
+    """Feeds user QueryCallbacks with (ts, inEvents, removeEvents).
 
-    def __init__(self):
+    ``app_context``/``ledger_key`` (set by QueryRuntime.add_callback)
+    plug this endpoint into the crash-recovery output ledger: during
+    restore-and-replay the journal suppresses the prefix of events these
+    callbacks already received before the crash."""
+
+    def __init__(self, app_context=None, ledger_key=None):
         self.callbacks: List[QueryCallback] = []
+        self.app_context = app_context
+        self.ledger_key = ledger_key
 
     def send(self, batch: EventBatch, now: int):
         if not self.callbacks or len(batch) == 0:
             return
+        jr = getattr(self.app_context, "input_journal", None)
+        if jr is not None and self.ledger_key is not None:
+            batch = jr.deliver(self.ledger_key, batch)
+            if batch is None:
+                return
         cur = batch.only(ev.CURRENT)
         exp = batch.only(ev.EXPIRED)
         in_events = events_from_batch(cur) if len(cur) else None
@@ -880,7 +892,8 @@ class QueryRuntime:
 
     def add_callback(self, cb: QueryCallback):
         if self.callback_output is None:
-            self.callback_output = QueryCallbackOutput()
+            self.callback_output = QueryCallbackOutput(
+                self.app_context, ("query", self.name))
             self.output = FanOutOutput([self.output, self.callback_output])
         self.callback_output.callbacks.append(cb)
 
@@ -903,11 +916,13 @@ class QueryRuntime:
 
     # -- state plumbing (snapshot contract) ---------------------------------
 
-    def snapshot_state(self) -> Dict:
+    def snapshot_state(self, fetch: bool = True) -> Dict:
         """Every stateful element of this query: windows in the chain,
-        the selector's group states, the rate limiter and the pattern
-        runtime (the reference's per-query StateHolder walk,
-        util/snapshot/SnapshotService.java:101-169)."""
+        the selector's group states, the rate limiter, a join's side
+        windows and the pattern runtime (the reference's per-query
+        StateHolder walk, util/snapshot/SnapshotService.java:101-169).
+        ``fetch=False`` leaves the device runtime's state tensors on the
+        device (the persist path's capture clones them)."""
         self._drain_device_emits()
         state: Dict = {"selector": self.selector.snapshot(),
                        "rate_limiter": self.rate_limiter.snapshot()}
@@ -918,10 +933,19 @@ class QueryRuntime:
                     windows[f"{ci}.{pi}"] = p.window.snapshot()
         if windows:
             state["windows"] = windows
+        if self.join_runtime is not None:
+            jw = {label: side.window.snapshot() for label, side in
+                  (("left", self.join_runtime.left),
+                   ("right", self.join_runtime.right))
+                  if side.window is not None}
+            if jw:
+                state["join_windows"] = jw
+        dp = self.device_processor
         if self.pattern_processor is not None:
-            state["pattern"] = self.pattern_processor.snapshot()
+            state["pattern"] = (self.pattern_processor.snapshot()
+                                if dp is None else dp.snapshot(fetch))
         if self.device_runtime is not None:
-            state["device"] = self.device_runtime.snapshot()
+            state["device"] = self.device_runtime.snapshot(fetch)
         return state
 
     def _drain_device_emits(self):
@@ -940,6 +964,12 @@ class QueryRuntime:
         for key, ws in state.get("windows", {}).items():
             ci, pi = (int(x) for x in key.split("."))
             self.chains[ci][pi].window.restore(ws)
+        if self.join_runtime is not None:
+            jw = state.get("join_windows", {})
+            for label, side in (("left", self.join_runtime.left),
+                                ("right", self.join_runtime.right)):
+                if label in jw and side.window is not None:
+                    side.window.restore(jw[label])
         if self.pattern_processor is not None and "pattern" in state:
             self.pattern_processor.restore(state["pattern"])
         if self.device_runtime is not None and "device" in state:

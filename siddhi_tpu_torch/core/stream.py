@@ -12,9 +12,14 @@ clock (due window, rate-limit, deadline and purge tasks fire before the
 batch's events step).  An error in a receiver (a query) or a callback
 is isolated, in the reference's LOG form: it is logged and handed to the
 app's exception listeners, and the later receivers and callbacks still
-get the batch.  The reference's asynchronous junctions, fault streams
-(``@OnError(action='STREAM')``), admission control and input journal
-are later slices of the port.
+get the batch.  Under ``@app:faults(journal=)`` the input handler
+records every batch in the app's input journal under the app lock, then
+gives the ``ingest`` fault site its check, and each junction hands its
+callbacks the batch through the journal's output ledger, which during a
+restore-and-replay suppresses the events they already received.  The
+reference's asynchronous junctions, fault streams
+(``@OnError(action='STREAM')``) and admission control are later slices
+of the port.
 """
 
 from __future__ import annotations
@@ -109,6 +114,16 @@ class StreamJunction:
                 r.receive(batch)
             except Exception as e:
                 self._handle_error(e)
+        if not self.callbacks:
+            return
+        # crash-recovery output ledger: the receivers always reprocess
+        # during a replay (they rebuild state), but the callbacks get
+        # the prefix they already received suppressed
+        jr = getattr(self.app_context, "input_journal", None)
+        if jr is not None:
+            batch = jr.deliver(("stream", self.stream_id), batch)
+            if batch is None:
+                return
         for cb in self.callbacks:
             try:
                 cb.receive_batch(batch)
@@ -168,10 +183,17 @@ class InputHandler:
         self._dispatch(batch)
 
     def _dispatch(self, batch: EventBatch):
-        """Advance the scheduler to the clock, then the junction cycle,
-        both under the app lock."""
+        """Journal the batch and give the ``ingest`` fault site its check,
+        then advance the scheduler to the clock and run the junction
+        cycle, all under the app lock.  A crash injected at ``ingest``
+        fires after the record: the batch is in the journal but never
+        delivered, the state replay exists to repair."""
         ctx = self.app_context
         with ctx.process_lock:
+            if ctx.input_journal is not None:
+                ctx.input_journal.record(self.junction.stream_id, batch)
+            if ctx.fault_injector is not None:
+                ctx.fault_injector.check("ingest")
             ctx.scheduler.advance(ctx.timestamp_generator.current_time())
             self.junction.send(batch)
 

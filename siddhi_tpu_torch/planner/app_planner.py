@@ -10,7 +10,14 @@ Port of the annotation half of the JAX package's
 - ``@app:execution('tpu', partitions=, instances=, emit.depth=,
   ingest.depth=, agg.device.min.batch=)``;
 - ``@app:hotkeys(k=, promote=, demote=)``;
-- ``@app:kernels`` / ``@app:kernels('nfa,scan,bank')``.
+- ``@app:kernels`` / ``@app:kernels('nfa,scan,bank')``;
+- ``@app:persist(interval=, mode=)`` (the default ``persist()`` mode and
+  the periodic-checkpoint daemon's interval);
+- ``@app:faults(seed=, journal=, transfer.retry.*=, <site>=...)``: the
+  fault injector and the input journal, which lives on the manager
+  context, keyed by app name, so a runtime built after a crash replays
+  it.  Only the sites the port wires (``util/faults.WIRED_SITES``) may
+  be armed; any other site is refused, naming ``ROADMAP.md`` item 15.
 
 The port runs its kernels on the card whenever it runs on a card: it
 has no XLA formulation to keep, so ``@app:kernels`` is parsed and
@@ -31,15 +38,21 @@ from siddhi_tpu_torch.core.exceptions import (
     SiddhiAppCreationError,
     later_slice,
 )
+from siddhi_tpu_torch.durability.spill import JournalSpillSink
 from siddhi_tpu_torch.query_api.annotation import find_annotation
+from siddhi_tpu_torch.util.faults import (
+    RESERVED_OPTIONS,
+    WIRED_SITES,
+    FaultInjector,
+    InputJournal,
+)
 from siddhi_tpu_torch.util.scheduler import Scheduler
 
 _READ = ("app:name", "app:description", "app:playback", "app:execution",
-         "app:hotkeys", "app:kernels")
+         "app:hotkeys", "app:kernels", "app:persist", "app:faults")
 # the reference's other app annotations: the ROADMAP.md §1 item that
 # ports each, and what it is
 LATER = {
-    "app:persist": (11, "persistence"),
     "app:fuse": (12, "stream-graph fusion"),
     "app:devtables": (13, "device tables"),
     "app:multiplex": (14, "multiplex"),
@@ -47,7 +60,6 @@ LATER = {
     "app:plan": (15, "the operations layer"),
     "app:statistics": (15, "the operations layer"),
     "app:trace": (15, "the operations layer"),
-    "app:faults": (15, "the operations layer"),
 }
 
 
@@ -117,6 +129,14 @@ class AppContext:
         # runtime exception listeners: every error the app logs instead
         # of raising (a failing receiver, callback, emit or timer task)
         self.exception_listeners: List = []
+        # @app:persist: persist()'s default mode ('sync' or 'async') and
+        # the periodic-checkpoint daemon's interval (0 = no daemon)
+        self.persist_mode = "sync"
+        self.persist_interval_ms = 0
+        # @app:faults: the fault injector (None = every hook site a
+        # no-op) and the input journal (None = no journaling)
+        self.fault_injector = None
+        self.input_journal = None
 
 
 def _positive_int(ann, key: str, what: str) -> int:
@@ -143,8 +163,9 @@ def _time_ms(v) -> int:
         return parse_time_string(v)
 
 
-def plan_app_context(siddhi_app, device) -> AppContext:
-    """Read the app annotations into an ``AppContext``."""
+def plan_app_context(siddhi_app, device, siddhi_context) -> AppContext:
+    """Read the app annotations into an ``AppContext``; the input
+    journal is the manager context's (``siddhi_context``)."""
     anns = siddhi_app.annotations
     for a in anns:
         name = a.name.lower()
@@ -260,4 +281,65 @@ def plan_app_context(siddhi_app, device) -> AppContext:
                     "'scan'")
             ctx.kernels = True
             ctx.kernel_kinds = kinds
+    _plan_faults(ctx, find_annotation(anns, "app:faults"), siddhi_context)
+    _plan_persist(ctx, find_annotation(anns, "app:persist"))
     return ctx
+
+
+def _plan_faults(ctx: AppContext, ann, siddhi_context):
+    """``@app:faults(...)``: the fault injector and the input journal.
+    The journal is keyed by app name on the manager context, so a
+    replacement runtime built after a simulated crash inherits the
+    pre-crash input history."""
+    if ann is None:
+        return
+    opts = {k: v for k, v in ann.elements
+            if k is not None and k.lower() != "type"}
+    unwired = sorted(k for k in opts
+                     if k.strip().lower() not in RESERVED_OPTIONS
+                     and k.strip().lower() not in WIRED_SITES)
+    if unwired:
+        raise SiddhiAppCreationError(
+            f"@app:faults: fault site(s) {unwired} are not wired in the port"
+            + later_slice(15, "the operations layer"))
+    fi = FaultInjector()
+    journal_depth = fi.configure_from_options(opts)
+    fi.listeners = ctx.exception_listeners
+    ctx.fault_injector = fi
+    if not journal_depth:
+        return
+    jr = siddhi_context.input_journals.get(ctx.name)
+    if jr is None or jr.depth != journal_depth:
+        jr = InputJournal(depth=journal_depth)
+        siddhi_context.input_journals[ctx.name] = jr
+    else:
+        # a reused (post-crash) journal carries its counter history
+        for k, v in jr.stats.as_dict().items():
+            setattr(fi.stats, k, getattr(fi.stats, k) + v)
+    jr.stats = fi.stats
+    ctx.input_journal = jr
+    # journal overflow spills cold segments to the app's persistence
+    # store instead of dropping them (durability/spill.py)
+    jr.spill_sink = JournalSpillSink(siddhi_context, ctx.name, ctx)
+
+
+def _plan_persist(ctx: AppContext, ann):
+    """``@app:persist(interval='30 sec', mode='async')``: the default
+    persist mode and the optional periodic-checkpoint daemon."""
+    if ann is None:
+        return
+    mode = (ann.element("mode") or ann.element() or "async").lower()
+    if mode not in ("sync", "async"):
+        raise SiddhiAppCreationError(
+            f"@app:persist: mode {mode!r} must be 'sync' or 'async'")
+    ctx.persist_mode = mode
+    iv = ann.element("interval")
+    if iv:
+        try:
+            interval_ms = int(iv)
+        except ValueError:
+            interval_ms = parse_time_string(iv)
+        if interval_ms <= 0:
+            raise SiddhiAppCreationError(
+                f"@app:persist: interval {iv!r} must be > 0")
+        ctx.persist_interval_ms = interval_ms

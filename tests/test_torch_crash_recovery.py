@@ -1,0 +1,38 @@
+"""The port's restore-and-replay held against the JAX package's.
+
+``tests/test_crash_recovery.py`` replayed through both packages by
+``test_torch_persistence.py``'s twin runs: a simulated crash on the
+``ingest`` fault site, a fresh runtime of the same manager restoring the
+last revision and replaying the input journal, and the callback sequence
+across the crash equal to an uninterrupted run's, in each package and
+between them — on the device query path (``device_single``) and the
+dense general step (``dense_nfa``); async recovery; journal overflow,
+spilled to the store and replayed, or refused with a WARNING on a store
+without segments; and a raw-bytes restore forgetting the ledger.
+"""
+
+from __future__ import annotations
+
+import pytest
+
+from test_torch_device_query import one_torch_thread  # noqa: F401
+from test_torch_persistence import cases, check_twin
+
+pytestmark = pytest.mark.faults
+
+# what waits for a later slice, with its ROADMAP.md item
+LEFT_OUT = {("TestSinkExactlyOnce", None):
+            "sinks and their exactly-once ledger (item 15)"}
+LEFT_OUT_PARAMS = {"sharded": "the sharded engine (item 16)"}
+CASES = cases("test_crash_recovery", LEFT_OUT, LEFT_OUT_PARAMS)
+
+
+def test_the_corpus_was_read():
+    assert len(CASES) == 8
+
+
+@pytest.mark.parametrize("corpus,cname,mname,k", CASES)
+def test_crash_recovery_corpus_as_the_reference(corpus, cname, mname, k,
+                                                tmp_path, request):
+    jax, port = check_twin(corpus, cname, mname, k, tmp_path, request)
+    assert any(port.got.values())

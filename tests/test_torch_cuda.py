@@ -1394,3 +1394,157 @@ def test_join_and_table_apps_on_card_match_cpu(cuda_device):
     assert runs[0] == runs[1]
     assert runs[0][2]["j"] == runs[0][2]["t"] == "device_probe"
     assert runs[0][0]
+
+
+# -- persistence (checkpoint capture and restore on the card) ---------------
+
+CKPT_APPS = {
+    # the capture-free chain: batch_step writes the state rows in place
+    "dense_batch": (
+        "@app:name('ckpt') @app:playback "
+        "@app:execution('tpu', partitions='4096', instances='4') "
+        "define stream S (k long, v double); "
+        "partition with (k of S) begin @info(name='q') from every "
+        "e1=S[v > 1.0] -> e2=S[v > 2.0] -> e3=S[v > 3.0] within 10 min "
+        "select e3.v as v insert into Out; end;"),
+    # a keyed running sum: accumulate_ adds into the state in place
+    "device_query": (
+        "@app:name('ckpt') @app:playback "
+        "@app:execution('tpu', partitions='4096') "
+        "define stream S (k long, v double); "
+        "partition with (k of S) begin @info(name='q') from S select k, "
+        "sum(v) as s, count() as c insert into Out; end;"),
+}
+
+
+def _ckpt_batches(n, seed=4, size=8192):
+    from siddhi_tpu_torch.core.event import EventBatch
+
+    rng = np.random.default_rng(seed)
+    return [EventBatch("S", ["k", "v"],
+                       {"k": rng.integers(0, 4096, size).astype(np.int64),
+                        "v": rng.uniform(0.0, 5.0, size)},
+                       np.full(size, 1_000 + 10 * i, dtype=np.int64))
+            for i in range(n)]
+
+
+def _same_tree(a, b):
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and list(a) == list(b)
+                and all(_same_tree(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_same_tree(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype
+                and a.tobytes() == b.tobytes())
+    return type(a) is type(b) and a == b
+
+
+@pytest.mark.parametrize("kind", sorted(CKPT_APPS))
+def test_async_capture_on_card_matches_sync_snapshot(cuda_device, kind):
+    """An async persist on the card queued behind a blocked writer, then
+    a batch that steps the state tensors in place (``batch_step`` or
+    ``accumulate_``): the committed tree is the sync ``snapshot()`` taken
+    at the persist point, so the capture's device clones (waited on by
+    the writer through their CUDA event) were not overwritten."""
+    import pickle
+    import threading
+
+    from siddhi_tpu_torch import InMemoryPersistenceStore, SiddhiManager
+
+    kernel = (dense_batch.batch_step if kind == "dense_batch"
+              else bank_scatter.accumulate_)
+    mgr = SiddhiManager(device="cuda")
+    store = InMemoryPersistenceStore()
+    mgr.set_persistence_store(store)
+    try:
+        rt = mgr.create_siddhi_app_runtime(CKPT_APPS[kind])
+        rt.start()
+        h = rt.get_input_handler("S")
+        batches = _ckpt_batches(5)
+        for b in batches[:4]:
+            h.send_batch(b)
+        gate = threading.Event()
+        writer = rt._durability_writer()
+        writer.submit("blocker", lambda: gate.wait(60))
+        rev = rt.persist(mode="async")
+        at_persist = pickle.loads(rt.snapshot())
+        before = kernel.launches
+        h.send_batch(batches[4])
+        rt.drain()
+        assert kernel.launches > before
+        after = pickle.loads(rt.snapshot())
+        assert not _same_tree(at_persist["partitions"], after["partitions"])
+        gate.set()
+        assert rt.wait_for_persist(rev, timeout=60) == "committed"
+        committed = pickle.loads(store.load("ckpt", rev))
+        assert _same_tree(committed["partitions"], at_persist["partitions"])
+        rt.shutdown()
+    finally:
+        mgr.shutdown()
+
+
+def test_restore_into_batch_step_kernel_on_card(cuda_device):
+    """The capture-free chain on the card: a sync persist after batch 4,
+    a simulated crash on ``ingest`` at batch 7, and a fresh runtime's
+    ``restore_last_revision()`` replaying batches 5-7 through
+    ``batch_step``: the callbacks across the crash equal the
+    uninterrupted card run's and the CPU run's, and the kernel launched
+    after the restore."""
+    from siddhi_tpu_torch import InMemoryPersistenceStore, SiddhiManager
+    from siddhi_tpu_torch.core.exceptions import SimulatedCrashError
+
+    app = CKPT_APPS["dense_batch"].replace(
+        "@app:playback ", "@app:playback @app:faults(journal='16') ")
+    batches = _ckpt_batches(10, seed=7)
+
+    def collect(rt, got):
+        rt.add_callback("Out", lambda evs: got.extend(
+            (e.timestamp, tuple(e.data)) for e in evs))
+
+    refs = {}
+    for device in ("cuda", "cpu"):
+        m = SiddhiManager(device=device)
+        try:
+            rt = m.create_siddhi_app_runtime(CKPT_APPS["dense_batch"])
+            got = []
+            collect(rt, got)
+            rt.start()
+            for b in batches:
+                rt.get_input_handler("S").send_batch(b)
+            rt.shutdown()
+            refs[device] = got
+        finally:
+            m.shutdown()
+    m = SiddhiManager(device="cuda")
+    m.set_persistence_store(InMemoryPersistenceStore())
+    got = []
+    try:
+        rt = m.create_siddhi_app_runtime(app)
+        collect(rt, got)
+        rt.start()
+        h = rt.get_input_handler("S")
+        for b in batches[:4]:
+            h.send_batch(b)
+        rt.persist()
+        for b in batches[4:6]:
+            h.send_batch(b)
+        rt.app_context.fault_injector.configure("ingest", "crash", count=1)
+        with pytest.raises(SimulatedCrashError):
+            h.send_batch(batches[6])
+        rt.shutdown()
+        rt = m.create_siddhi_app_runtime(app)
+        collect(rt, got)
+        rt.start()
+        before = dense_batch.batch_step.launches
+        assert rt.restore_last_revision() is not None
+        assert rt.app_context.input_journal.stats.replayed_batches == 3
+        h = rt.get_input_handler("S")
+        for b in batches[7:]:
+            h.send_batch(b)
+        rt.shutdown()
+        assert dense_batch.batch_step.launches - before == 6
+    finally:
+        m.shutdown()
+    assert got == refs["cuda"] == refs["cpu"] and got

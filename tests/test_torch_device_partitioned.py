@@ -30,11 +30,11 @@ from test_torch_device_query import (  # noqa: F401 (a fixture)
     same_rows,
 )
 
-# the app's persist and restore_revision (item 11); the device runtime's
-# snapshot contract is held in test_torch_device_query.py
-LEFT_OUT = {("test_device_partitioned", "TestPartitionedDevicePersistence",
-             None): "app persistence (item 11)"}
-CASES = corpus_cases(("test_device_partitioned",), LEFT_OUT)
+# the corpus class built on the app's persist and restore_revision,
+# whose state crosses runtimes: replayed as a whole test through both
+# packages (test_torch_persistence.py's twin runs), not app by app
+TWINS = {"TestPartitionedDevicePersistence"}
+CASES = corpus_cases(("test_device_partitioned",), {})
 
 
 def test_the_corpus_was_read():
@@ -45,7 +45,13 @@ def test_the_corpus_was_read():
     "corpus,cname,mname,k", CASES,
     ids=[f"{c[1] or ''}.{c[2]}" + (f"-{c[3]}" if c[3] else "")
          for c in CASES])
-def test_partitioned_corpus_as_the_reference(corpus, cname, mname, k):
+def test_partitioned_corpus_as_the_reference(corpus, cname, mname, k,
+                                             tmp_path, request):
+    if cname in TWINS:
+        from test_torch_persistence import check_twin
+
+        check_twin(corpus, cname, mname, k, tmp_path, request)
+        return
     scenarios, _engines = record(corpus, cname, mname, k)
     assert scenarios, "the corpus test created no app"
     for sc in scenarios:

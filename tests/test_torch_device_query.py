@@ -79,14 +79,10 @@ CORPORA = ("test_device_query", "test_device_single_integration",
            "test_device_wide_aggs")
 # corpus tests the recorders cannot replay, keyed (corpus, class,
 # method), None for a whole class or a module function's class: those
-# built on app APIs the port does not have yet, the app's snapshot and
-# restore (item 11), held below by
-# test_jax_snapshot_restores_into_the_port; those that import the JAX
-# package inside the test, held below by the tests named beside them;
-# and one of the dense runtime's intern, no device query.
+# that import the JAX package inside the test, held below by the tests
+# named beside them; and one of the dense runtime's intern, no device
+# query.
 LEFT_OUT = {
-    ("test_device_single_integration", "TestSnapshotRestore", None):
-        "app snapshot (item 11)",
     ("test_device_query", None, "test_direct_api_rejects_order_by"):
         "test_direct_api_order_by_as_the_reference",
     ("test_device_wide_aggs", "TestRateLimitersOnDevicePath",
@@ -98,6 +94,10 @@ LEFT_OUT = {
 }
 # what the port refuses in the corpora, with the ROADMAP.md item
 OUTSIDE = {13: r"@app:devtables"}
+# corpus classes built on the app's snapshot and restore, whose state
+# crosses runtimes: replayed as whole tests through both packages
+# (test_torch_persistence.py's twin runs), not app by app
+TWINS = {("test_device_single_integration", "TestSnapshotRestore")}
 
 SUM_KINDS = re.compile(r"\b(sum|avg)\s*\(")
 STD = re.compile(r"\bstdDev\s*\(")
@@ -592,7 +592,13 @@ def test_the_corpora_were_read():
     "corpus,cname,mname,k", CASES,
     ids=[f"{c[0][5:]}:{c[1] or ''}.{c[2]}" + (f"-{c[3]}" if c[3] else "")
          for c in CASES])
-def test_corpus_as_the_reference(corpus, cname, mname, k):
+def test_corpus_as_the_reference(corpus, cname, mname, k, tmp_path,
+                                 request):
+    if (corpus, cname) in TWINS:
+        from test_torch_persistence import check_twin
+
+        check_twin(corpus, cname, mname, k, tmp_path, request)
+        return
     scenarios, engines = record(corpus, cname, mname, k)
     assert scenarios or engines, "the corpus test created nothing"
     for sc in scenarios:

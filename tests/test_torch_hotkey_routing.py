@@ -458,7 +458,8 @@ class TestOutsideTheSlice:
         ("@app:execution('tpu', emit.depth='fast') ",
          "positive integer or 'auto'"),
         ("@app:execution('tpu', partitions='0') ", "positive integer"),
-        (TPU + "@app:faults(journal='8') ", "later slice"),
+        (TPU + "@app:faults(journal='8', step.dense='crash') ",
+         "later slice"),
     ])
     def test_annotations_validated_as_reference(self, header, match):
         with pytest.raises(SiddhiAppCreationError, match=match):
@@ -466,8 +467,54 @@ class TestOutsideTheSlice:
                 header + DEFINE + wrap(SHAPES["pair"]))
 
     def test_persistence_store_refused(self):
-        with pytest.raises(SiddhiAppCreationError, match="later slice"):
-            SiddhiManager(device="cpu").set_persistence_store(object())
+        """Once refused, the store now takes a round trip through the
+        router: persist mid-stream with hot keys promoted, send on,
+        restore the revision in a fresh runtime of the same manager and
+        send the rest; both packages deliver the uninterrupted run's
+        alerts, and the same alerts as each other."""
+        from siddhi_tpu.util.persistence import (
+            InMemoryPersistenceStore as JaxStore,
+        )
+        from siddhi_tpu_torch import InMemoryPersistenceStore
+
+        app = ("@app:name('hkstore') @app:playback " + TPU + HOTKEYS
+               + DEFINE + wrap(SHAPES["pair"]))
+        sends = gen(9, SKEWED)[:240]
+        rows = {}
+        for port in (False, True):
+            ref = Run(port, wrap(SHAPES["pair"]), "@app:name('hkstore') "
+                      "@app:playback " + TPU + HOTKEYS).send(sends).finish()[0]
+            mgr = SiddhiManager(device="cpu") if port else JaxManager()
+            mgr.set_persistence_store(
+                InMemoryPersistenceStore() if port else JaxStore())
+            got = []
+            try:
+                rt = mgr.create_siddhi_app_runtime(app)
+                rt.add_callback("Alerts", lambda evs: got.append(
+                    [(e.timestamp, list(e.data)) for e in evs]))
+                rt.start()
+                h = rt.get_input_handler("S")
+                for row, ts in sends[:120]:
+                    h.send(list(row), timestamp=ts)
+                if port:
+                    assert rt.pattern_runtimes()["q"].hot_metrics()[
+                        "hotkeyPromotions"] > 0
+                rev = rt.persist()
+                rt.shutdown()
+                rt = mgr.create_siddhi_app_runtime(app)
+                rt.add_callback("Alerts", lambda evs: got.append(
+                    [(e.timestamp, list(e.data)) for e in evs]))
+                rt.start()
+                rt.restore_revision(rev)
+                h = rt.get_input_handler("S")
+                for row, ts in sends[120:]:
+                    h.send(list(row), timestamp=ts)
+                rt.shutdown()
+            finally:
+                mgr.shutdown()
+            assert got == ref and got
+            rows[port] = got
+        assert rows[True] == rows[False]
 
     def test_manager_defaults_to_the_card(self):
         if torch.cuda.is_available():

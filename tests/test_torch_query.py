@@ -28,6 +28,7 @@ import importlib.util
 import inspect
 import itertools
 import re
+import time
 from pathlib import Path
 
 import numpy as np
@@ -553,8 +554,6 @@ DEVTABLES = "@app:devtables @app:execution('tpu') "
      + "from S select sym insert into Out;", 15),
     (DEFINE + "@sink(type='inMemory', topic='t') define stream Out "
      "(sym string); from S select sym insert into Out;", 15),
-    ("@app:persist(interval='1 sec') " + DEFINE
-     + "from S select sym insert into Out;", 11),
     ("@app:fuse " + DEFINE + "from S select sym insert into Out;", 12),
     ("@app:multiplex " + DEFINE + "from S select sym insert into Out;", 14),
     ("@app:limits(breaker='3') " + DEFINE
@@ -565,21 +564,68 @@ DEVTABLES = "@app:devtables @app:execution('tpu') "
      + "from S select sym insert into Out;", 15),
     ("@app:trace(sample='1') " + DEFINE + "from S select sym insert into Out;",
      15),
-    ("@app:faults(seed='1') " + DEFINE + "from S select sym insert into Out;",
-     15),
+    ("@app:faults(seed='1', emit.drain='transient') " + DEFINE
+     + "from S select sym insert into Out;", 15),
     ("@app:execution('tpu', devices='2') " + DEFINE
      + "from S select sym insert into Out;", 16),
-], ids=["table", "join", "join_in_partition", "source", "sink", "persist",
+], ids=["table", "join", "join_in_partition", "source", "sink",
         "fuse", "multiplex", "limits", "plan", "statistics", "trace",
         "faults", "devices"])
 def test_refusals_name_their_roadmap_item(app, item):
     """No hidden fallback: what the port does not run raises at creation,
     naming the ``ROADMAP.md`` item that ports it: device tables (a table
-    or join under ``@app:devtables``), sources and sinks, and the app
-    annotations of later slices."""
+    or join under ``@app:devtables``), sources and sinks, the app
+    annotations of later slices, and a fault site the port does not
+    wire (it would arm silently)."""
     with pytest.raises(SiddhiAppCreationError) as info:
         SiddhiManager(device="cpu").create_siddhi_app_runtime(app)
     assert f"ROADMAP.md §1 item {item}" in str(info.value)
+
+
+def test_persist_annotation_plans_and_checkpoints():
+    """``@app:persist(interval='1 sec')`` plans as the reference's (mode
+    'async', the interval in ms) and its daemon checkpoints a running
+    app within a few seconds; the revision restores to the same rows in
+    both packages."""
+    from siddhi_tpu.util.persistence import (
+        InMemoryPersistenceStore as JaxStore,
+    )
+    from siddhi_tpu_torch import InMemoryPersistenceStore
+
+    app = ("@app:name('periodic') @app:persist(interval='1 sec') " + DEFINE
+           + "@info(name='q') from S#window.length(3) select sym, "
+           "sum(p) as t insert into Out;")
+    rows = {}
+    for port in (False, True):
+        mgr = SiddhiManager(device="cpu") if port else JaxManager()
+        store = InMemoryPersistenceStore() if port else JaxStore()
+        mgr.set_persistence_store(store)
+        try:
+            rt = mgr.create_siddhi_app_runtime(app)
+            ctx = rt.app_context
+            assert (ctx.persist_mode, ctx.persist_interval_ms) == (
+                "async", 1000)
+            got = []
+            rt.add_callback("Out", stream_recorder(got))
+            rt.start()
+            h = rt.get_input_handler("S")
+            for _sid, row, ts in sends(3, n=6):
+                h.send(list(row), timestamp=ts)
+            deadline = time.monotonic() + 10
+            while not store.revisions("periodic"):
+                assert time.monotonic() < deadline, "no periodic persist"
+                time.sleep(0.05)
+            assert rt.wait_for_persist(timeout=10) == "idle"
+            for _sid, row, ts in sends(4, n=4):
+                h.send(list(row), timestamp=ts)
+            assert rt.restore_last_revision() is not None
+            for _sid, row, ts in sends(5, n=4):
+                h.send(list(row), timestamp=ts)
+            rt.shutdown()
+            rows[port] = got
+        finally:
+            mgr.shutdown()
+    assert rows[True] == rows[False] and rows[True]
 
 
 @pytest.mark.parametrize("app", [
