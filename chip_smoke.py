@@ -352,7 +352,36 @@ skew-routed pattern path and the incremental-aggregation path through
    barrier and writer ms, ``restore_ms`` and ``replay_ms``, the
    replayed batches and suppressed events, and the launches after the
    restore.
-26. kernels: one line per ported kernel (launches on the main paths,
+26. fusion: stream-graph fusion (``@app:fuse``).  (a) ``bench.py``'s
+   ``FUSE_APP`` chain (``SIn[price > 4.0]``, ``Mid#window.length(64)``
+   ``sum(price)``, a capturing two-node pattern tail over ``Win``) at
+   B = 8,192, eight symbols, price ~ U(0, 40) so the window sums reach
+   the tail's ``total > 1540.0`` (32 instance lanes a node, so none
+   is dropped), a warm-up batch of 1,024 rows and 2
+   timed batches (the tail's one general step a row takes about 19 s a
+   batch), fused on the card, unfused on the card and fused at
+   ``device="cpu"`` over the same batches: rows, which must not be
+   none, equal
+   (the float32 sums within the reference's bound), ``lowering()``
+   ``fused`` for q1-q3, ``Mid`` and ``Win`` at zero dispatches, events/s
+   and ms a batch of both card runs; (b) the chain with a device tail
+   (``Win[total > 1540.0]``) at B = 131,072 against the unfused run,
+   with the device ops and busy share of one more batch under
+   ``torch.profiler``; (c) an ``@async`` intermediate falls back with
+   its WARNING, its rows those of the fused run.
+27. devtables: device tables (``@app:devtables``).  (a) ``bench.py``'s
+   stream-table join (``@PrimaryKey('k') T (k int, v float)``, ``update
+   or insert``) at 1,000,000 seeded rows, ``capacity='1048576'``,
+   131,072 probes (about half hit) and 16,384 upserts a batch pair, 1
+   warm-up and 4 timed, held against a numpy model of the join (the
+   host join is a cross product, 1.3e11 pairs a batch at this width):
+   state bytes on the card, events/s, probe and scatter ms a batch;
+   (b) the reference bench's shape (8,192 rows, capacity 16,384, B =
+   8,192, 1,024 upserts): card against ``device="cpu"`` bit for bit,
+   and the host table on the card beside it; (c) a capacity overflow
+   that compacts and then demotes with its WARNING, its rows the host
+   table's.
+28. kernels: one line per ported kernel (launches on the main paths,
    largest difference from its plain version, ``ms``, ``host_us``,
    ``device_us``, plain and library times, bound); the bank kernel's at
    the entry the aggregation path uses, ``accumulate_``, with the delta
@@ -1259,6 +1288,7 @@ def device_profile(torch, run) -> dict:
     device_ms = sum(ms for ms, _c in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     return {"profiled_wall_ms": wall_ms,
+            "device_ops": sum(c for _ms, c in by_name.values()),
             "device_busy_ms": device_ms if by_name else "not measured",
             "device_busy_share": device_ms / wall_ms if by_name else None,
             "top_device_ops_ms": [[k[:90], ms, c] for k, (ms, c) in top]}
@@ -5262,6 +5292,496 @@ def checkpoint_phase(torch, SiddhiManager, EventBatch, StreamCallback,
     return read_launches(kernels)
 
 
+# -- 26. stream-graph fusion ---------------------------------------------------
+
+# bench.py:494-507 FUSE_APP verbatim (its {trace} slot left empty)
+FUSE_APP = ("@app:name('fusebench{tag}') @app:playback "
+            "@app:execution('tpu') {fuse}{trace}"
+            "define stream SIn (sym int, price float, vol int); "
+            "define stream Mid (sym int, price float, vol int); "
+            "define stream Win (sym int, total double); "
+            "@info(name='q1') from SIn[price > 4.0] "
+            "select sym, price, vol insert into Mid; "
+            "@info(name='q2') from Mid#window.length(64) "
+            "select sym, sum(price) as total insert into Win; "
+            "@info(name='q3') from every e1=Win[total > 1540.0] "
+            "-> e2=Win[total > e1.total] "
+            "select e1.sym as s1, e1.total as t1, e2.total as t2 "
+            "insert into Out;")
+FUSE_BATCH = 8_192
+# cut from 2 warm-up and 4 timed batches of 8,192: the fused dense tail
+# takes one general step a row, about 2.2 ms a row on the H100, so a
+# batch of 8,192 takes about 19 s on the card (8 s on its host's CPU);
+# the warm-up batch is shorter
+FUSE_WARMUP_ROWS = 1_024
+FUSE_STEPS = 2
+# bench.py's U(0, 30) prices keep every length(64) sum of the rows
+# above 4.0 near 1,088, 7.5 sigma below the tail's 1540.0, so its run
+# matches nothing; at U(0, 40) about 6% of the sums pass
+FUSE_HIGH = 40.0
+# at U(0, 40) up to 20 e1 instances wait at once (a numpy model of the
+# pattern over this run's traffic), past the engine's default 4 lanes a
+# node: the run takes 32, so no instance is dropped
+FUSE_EXECUTION = "@app:execution('tpu', instances='32')"
+# (b): the same chain with a device tail, at the main path's width
+TAIL_APP = ("@app:name('fusetail{tag}') @app:playback "
+            "@app:execution('tpu') {fuse}"
+            "define stream SIn (sym int, price float, vol int); "
+            "{mid}define stream Mid (sym int, price float, vol int); "
+            "define stream Win (sym int, total double); "
+            "@info(name='q1') from SIn[price > 4.0] "
+            "select sym, price, vol insert into Mid; "
+            "@info(name='q2') from Mid#window.length(64) "
+            "select sym, sum(price) as total insert into Win; "
+            "@info(name='q3') from Win[total > 1540.0] "
+            "select sym, total insert into Out;")
+TAIL_BATCH = 1 << 17
+TAIL_WARMUP = 1
+TAIL_STEPS = 4
+ASYNC_MID = "@async(buffer.size='16') "
+ASYNC_BATCH = 8_192
+ASYNC_BATCHES = 8
+
+
+def fuse_batches(EventBatch, sizes, high=30.0, seed=31):
+    """bench.py's ``_run_fused_pipeline`` traffic, a batch of each of
+    ``sizes`` rows: eight symbols strided over the stream, price ~ U(0,
+    ``high``) float32, vol ~ [1, 100), one timestamp a batch, 10 ms
+    apart."""
+    rng = np.random.default_rng(seed)
+    out = []
+    start = 0
+    for i, batch in enumerate(sizes):
+        sym = (np.arange(batch, dtype=np.int64) * 524287 + start) % 8
+        start += batch
+        price = rng.uniform(0.0, high, batch).astype(np.float32)
+        vol = rng.integers(1, 100, batch)
+        ts = np.full(batch, 1_000 + i * 10, dtype=np.int64)
+        out.append(EventBatch("SIn", ["sym", "price", "vol"],
+                              {"sym": sym, "price": price, "vol": vol}, ts))
+    return out
+
+
+def held_concat(EventBatch, a, b, sum_cols) -> dict:
+    """Two runs' outputs concatenated, every column bit for bit but
+    ``sum_cols`` within the reference's float32 bound."""
+    ca = [x for v in a["outs"].values() for x in v]
+    cb = [x for v in b["outs"].values() for x in v]
+    return dq_compare(EventBatch.concat(ca) if ca else None,
+                      EventBatch.concat(cb) if cb else None, sum_cols, False)
+
+
+def hop_dispatches(rt) -> dict:
+    return {s: rt.junctions[s].dispatches for s in ("SIn", "Mid", "Win")}
+
+
+def fusion_phase(torch, SiddhiManager, EventBatch, StreamCallback, kernels,
+                 card) -> dict:
+    """Phase 26: stream-graph fusion (``@app:fuse``).  (a) bench.py's
+    own chain (filter, ``length(64)`` sum, a capturing two-node pattern
+    tail; B = 8,192, eight symbols, price ~ U(0, 40)) fused on the card,
+    unfused on the card and fused at ``device="cpu"``, its rows not
+    none; (b) the chain with a device tail
+    at B = 131,072 against the unfused run, with launches a batch and
+    the busy share; (c) an ``@async`` intermediate falls back with its
+    WARNING, its rows those of the fused run.  Returns the launches of
+    the card runs."""
+    launches = {k: 0 for k in kernels}
+    fused = {"q1": "fused", "q2": "fused", "q3": "fused"}
+    # (a)
+    bs = fuse_batches(EventBatch, (FUSE_WARMUP_ROWS,)
+                      + (FUSE_BATCH,) * FUSE_STEPS, high=FUSE_HIGH)
+    warned = set(ISOLATED.warned)
+    runs = {}
+    for label, fuse, device in (("fused", True, "cuda"),
+                                ("unfused", False, "cuda"),
+                                ("cpu", True, "cpu")):
+        app = FUSE_APP.format(
+            tag=label, fuse="@app:fuse " if fuse else "", trace="").replace(
+                "@app:execution('tpu')", FUSE_EXECUTION)
+        r = run_join_app(torch, SiddhiManager, StreamCallback, app,
+                         bs[:1], bs[1:], device, kernels, ("Out",))
+        r["hops"] = hop_dispatches(r["rt"])
+        if fuse:
+            dr = r["rt"].query_runtimes["q3"].device_runtime
+            r["dense_steps"] = dr.graph.dense_steps
+            r["stats"] = dr.stats()
+        if device == "cuda":
+            for k, v in r["launches"].items():
+                launches[k] += v
+        close_run(r)
+        runs[label] = r
+    f, u, c = runs["fused"], runs["unfused"], runs["cpu"]
+    if (f["lowering"] != fused or c["lowering"] != fused
+            or u["lowering"] != {"q1": "device", "q2": "device",
+                                 "q3": "dense"}
+            or f["hops"]["Mid"] or f["hops"]["Win"]):
+        raise AssertionError(f"fusion (a): lowering {f['lowering']}, "
+                             f"unfused {u['lowering']}, hops {f['hops']}")
+    vs_unfused = held_concat(EventBatch, f, u, ("t1", "t2"))
+    vs_cpu = held_concat(EventBatch, f, c, ("t1", "t2"))
+    if not vs_unfused["rows"] or not vs_cpu["rows"]:
+        raise AssertionError("fusion (a): no rows to hold")
+    dropped = [w for w in ISOLATED.warned - warned if "dropped" in w]
+    if dropped:
+        raise AssertionError(f"fusion (a): {dropped}")
+    n_timed = FUSE_STEPS * FUSE_BATCH
+    emit({"phase": "fusion", "case": "a", "app": "bench.py FUSE_APP",
+          "batch": FUSE_BATCH, "warmup_rows": FUSE_WARMUP_ROWS,
+          "timed": FUSE_STEPS, "price_high": FUSE_HIGH,
+          "lowering": f["lowering"],
+          "fused_events_per_s": n_timed / f["secs"],
+          "unfused_events_per_s": n_timed / u["secs"],
+          "fused_ms_each_batch": [1e3 * x for x in f["batch_s"]],
+          "unfused_ms_each_batch": [1e3 * x for x in u["batch_s"]],
+          "cpu_events_per_s": n_timed / c["secs"],
+          "rows_vs_unfused": vs_unfused, "rows_vs_cpu": vs_cpu,
+          "hop_dispatches_fused": f["hops"],
+          "hop_dispatches_unfused": u["hops"],
+          "dense_tail_steps": f["dense_steps"],
+          "rows_sent": sum(len(b) for b in bs),
+          "chain_stats": f["stats"], "launches": f["launches"],
+          "card": card})
+    # (b)
+    bs = fuse_batches(EventBatch, [TAIL_BATCH] * (TAIL_WARMUP + TAIL_STEPS),
+                      high=50.0, seed=37)
+    runs = {}
+    for label, fuse in (("fused", True), ("unfused", False)):
+        app = TAIL_APP.format(tag=label, fuse="@app:fuse " if fuse else "",
+                              mid="")
+        r = run_join_app(torch, SiddhiManager, StreamCallback, app,
+                         bs[:TAIL_WARMUP], bs[TAIL_WARMUP:], "cuda", kernels,
+                         ("Out",))
+        for k, v in r["launches"].items():
+            launches[k] += v
+        r["hops"] = hop_dispatches(r["rt"])
+        extra = fuse_batches(EventBatch, [TAIL_BATCH], high=50.0, seed=41)
+        extra[0].timestamps += 10 * (TAIL_WARMUP + TAIL_STEPS)
+        rt = r["rt"]
+        r["profile"] = device_profile(
+            torch, lambda: (rt.get_input_handler("SIn").send_batch(extra[0]),
+                            rt.drain()))
+        close_run(r)
+        runs[label] = r
+    f, u = runs["fused"], runs["unfused"]
+    if f["lowering"] != fused or f["hops"]["Mid"] or f["hops"]["Win"]:
+        raise AssertionError(f"fusion (b): {f['lowering']}, {f['hops']}")
+    held = held_concat(EventBatch, f, u, ("total",))
+    if not held["rows"]:
+        raise AssertionError("fusion (b): no rows to hold")
+    n_timed = TAIL_STEPS * TAIL_BATCH
+    emit({"phase": "fusion", "case": "b", "batch": TAIL_BATCH,
+          "warmup": TAIL_WARMUP, "timed": TAIL_STEPS,
+          "lowering": f["lowering"],
+          "fused_events_per_s": n_timed / f["secs"],
+          "unfused_events_per_s": n_timed / u["secs"],
+          "fused_ms_a_batch": 1e3 * f["secs"] / TAIL_STEPS,
+          "unfused_ms_a_batch": 1e3 * u["secs"] / TAIL_STEPS,
+          "rows_vs_unfused": held,
+          "fused_profile": f["profile"], "unfused_profile": u["profile"],
+          "hop_dispatches_fused": f["hops"],
+          "hop_dispatches_unfused": u["hops"], "card": card})
+    # (c)
+    bs = fuse_batches(EventBatch, [ASYNC_BATCH] * ASYNC_BATCHES, high=50.0,
+                      seed=43)
+    outs = {}
+    for label, mid in (("fused", ""), ("async", ASYNC_MID)):
+        warned = set(ISOLATED.warned)
+        mgr = SiddhiManager(device="cuda")
+        rt = new_app(mgr, TAIL_APP.format(tag=label, fuse="@app:fuse ",
+                                          mid=mid))
+        got = []
+
+        class Rows(StreamCallback):
+            def receive_batch(self, batch):
+                got.append(batch)
+
+        rt.add_callback("Out", Rows())
+        rt.start()
+        low = rt.lowering()
+        for b in bs:
+            rt.get_input_handler("SIn").send_batch(b)
+        rt.shutdown()  # the async worker dispatches what it holds
+        mgr.shutdown()
+        outs[label] = {"outs": {"Out": got}, "lowering": low,
+                       "warnings": sorted(ISOLATED.warned - warned)}
+    a, fz = outs["async"], outs["fused"]
+    reason = [w for w in a["warnings"] if "fused chain unavailable" in w]
+    # q1 keeps the junction path; Mid -> Win -> Out still fuses
+    if (fz["lowering"] != fused or a["lowering"]["q1"] != "device"
+            or not any("@async" in w for w in reason)):
+        raise AssertionError(f"fusion (c): {a['lowering']}, {reason}")
+    held = held_concat(EventBatch, a, fz, ("total",))
+    emit({"phase": "fusion", "case": "c", "lowering": a["lowering"],
+          "fallback_warnings": reason, "rows_vs_fused": held,
+          "card": card})
+    return launches
+
+
+# -- 27. device tables ---------------------------------------------------------
+
+# bench.py:1005-1014 (bench_devtable_join's app) at the port's default
+# depths, so the numpy model's order (upsert batch i, then probe batch i)
+# is the run's
+DT_APP = ("@app:name('dtbench{tag}') @app:playback "
+          "@app:execution('tpu') {dev}"
+          "define stream S (k int, x float); "
+          "define stream Ups (k int, v float); "
+          "@PrimaryKey('k') define table T (k int, v float); "
+          "from Ups update or insert into T set T.v = v on T.k == k; "
+          "@info(name='j') from S join T as t on S.k == t.k "
+          "select S.k as k, S.x as x, t.v as v insert into Out;")
+DT_ROWS = 1_000_000
+DT_CAPACITY = 1 << 20
+DT_BATCH = 1 << 17
+DT_UPSERTS = 16_384
+DT_WARMUP = 1
+DT_STEPS = 4
+# (b): the reference bench's own shape
+DTB_ROWS = 8_192
+DTB_CAPACITY = 16_384
+DTB_BATCH = 8_192
+DTB_UPSERTS = 1_024
+DTB_WARMUP = 2
+DTB_STEPS = 4
+# (c): an overflow that compacts, then demotes: the same app with a
+# delete stream
+DTC_CAPACITY = 4_096
+DTC_APP = DT_APP.replace(
+    "from Ups update", "define stream Del (k int); "
+    "from Del delete T on T.k == k; from Ups update").replace(
+    "dtbench{tag}", "dtover{tag}")
+
+
+def dt_batches(EventBatch, rows, batch, n_ups, n, seed=41):
+    """bench_devtable_join's traffic: the seed upsert of every key in
+    ``[0, rows)`` (v = k % 97), then per step an upsert batch of
+    ``n_ups`` random keys and a probe batch of ``batch`` keys strided
+    over ``[0, 2 rows)`` (about half hit)."""
+    rng = np.random.default_rng(seed)
+    seed_k = np.arange(rows, dtype=np.int32)
+    seed_b = EventBatch("Ups", ["k", "v"],
+                        {"k": seed_k, "v": (seed_k % 97).astype(np.float32)},
+                        np.full(rows, 500, dtype=np.int64))
+    steps = []
+    for i in range(n):
+        k = ((np.arange(batch, dtype=np.int64) * 524287 + i * batch)
+             % (rows * 2)).astype(np.int32)
+        x = rng.uniform(0.0, 1.0, batch).astype(np.float32)
+        probe = EventBatch("S", ["k", "x"], {"k": k, "x": x},
+                           np.full(batch, 1_000 + i * 20, dtype=np.int64))
+        uk = rng.integers(0, rows, n_ups).astype(np.int32)
+        uv = rng.uniform(0.0, 100.0, n_ups).astype(np.float32)
+        ups = EventBatch("Ups", ["k", "v"], {"k": uk, "v": uv},
+                         np.full(n_ups, 1_010 + i * 20, dtype=np.int64))
+        steps.extend((ups, probe))
+    return seed_b, steps
+
+
+def dt_model(rows, steps) -> tuple:
+    """The plain reference of the join: a ``[rows]`` value array, each
+    upsert batch applied in order (the last writer of a key wins), each
+    probe's hits in arrival order."""
+    v = (np.arange(rows) % 97).astype(np.float32)
+    ks, xs, vs = [], [], []
+    for b in steps:
+        k = b.columns["k"]
+        if b.stream_id == "Ups":
+            rk, rv = k[::-1], b.columns["v"][::-1]
+            _u, first = np.unique(rk, return_index=True)
+            v[rk[first]] = rv[first]
+            continue
+        hit = k < rows
+        ks.append(k[hit])
+        xs.append(b.columns["x"][hit])
+        vs.append(v[k[hit]])
+    return np.concatenate(ks), np.concatenate(xs), np.concatenate(vs)
+
+
+def dt_split(torch, rt, steps) -> dict:
+    """Median synchronised ms of the probe (every chunk's dispatch) and of
+    the scatter steps a batch pair, over ``steps``."""
+    from siddhi_tpu_torch.devtable import DevTableJoinRuntime, DeviceTable
+
+    table = rt.tables["T"]
+    jr = rt.query_runtimes["j"].device_runtime
+    spent = {"probe": 0.0, "scatter": 0.0}
+
+    def timed(obj, name, key):
+        fn = getattr(obj, name)
+
+        def wrap(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                spent[key] += time.perf_counter() - t
+
+        setattr(obj, name, wrap)
+
+    assert isinstance(table, DeviceTable)
+    assert isinstance(jr, DevTableJoinRuntime)
+    timed(jr, "_dispatch_chunk", "probe")
+    timed(table, "_apply_scatter", "scatter")
+    per = {"probe_ms": [], "scatter_ms": []}
+    for i in range(0, len(steps), 2):
+        spent.update(probe=0.0, scatter=0.0)
+        for b in steps[i:i + 2]:
+            rt.get_input_handler(b.stream_id).send_batch(b)
+        rt.drain()
+        per["probe_ms"].append(1e3 * spent["probe"])
+        per["scatter_ms"].append(1e3 * spent["scatter"])
+    del jr._dispatch_chunk, table._apply_scatter
+    return {k: sorted(v)[len(v) // 2] for k, v in per.items()}
+
+
+def dt_run(torch, SiddhiManager, StreamCallback, app, seed_b, steps, warm,
+           device, kernels):
+    """The seed, ``warm`` batch pairs, then the rest timed (each pair
+    synchronised)."""
+    r = run_join_app(torch, SiddhiManager, StreamCallback, app,
+                     [seed_b] + steps[:2 * warm], steps[2 * warm:], device,
+                     kernels, ("Out",))
+    r["batch_s"] = [a + b for a, b in zip(r["batch_s"][0::2],
+                                          r["batch_s"][1::2])]
+    return r
+
+
+def devtables_phase(torch, SiddhiManager, EventBatch, StreamCallback,
+                    kernels, card) -> dict:
+    """Phase 27: device tables (``@app:devtables``).  (a) bench.py's
+    stream-table join at 1,000,000 seeded rows, capacity 1,048,576,
+    probes of 131,072 (about half hit) and 16,384 upserts a batch pair,
+    held against the numpy model of the join; (b) the reference bench's
+    shape, card against ``device="cpu"`` bit for bit and beside the host
+    table on the card; (c) an overflow that compacts and then demotes
+    with its WARNING, its rows the host table's.  Returns the launches
+    of the card runs."""
+    launches = {k: 0 for k in kernels}
+    dev_ann = "@app:devtables(capacity='{}') "
+    # (a)
+    seed_b, steps = dt_batches(EventBatch, DT_ROWS, DT_BATCH, DT_UPSERTS,
+                               DT_WARMUP + DT_STEPS + 2)
+    timed = steps[:2 * (DT_WARMUP + DT_STEPS)]
+    app = DT_APP.format(tag="D", dev=dev_ann.format(DT_CAPACITY))
+    t0 = time.perf_counter()
+    r = dt_run(torch, SiddhiManager, StreamCallback, app, seed_b, timed,
+               DT_WARMUP, "cuda", kernels)
+    for k, v in r["launches"].items():
+        launches[k] += v
+    table = r["rt"].tables["T"]
+    state_bytes = table.state_bytes()
+    metrics = table.devtable_metrics()
+    split = dt_split(torch, r["rt"], steps[len(timed):])
+    close_run(r)
+    got = EventBatch.concat(r["outs"]["Out"])
+    k, x, v = dt_model(DT_ROWS, timed)
+    if (r["lowering"].get("j") != "devtable" or metrics["devtableDemoted"]
+            or not np.array_equal(got.columns["k"], k)
+            or not np.array_equal(got.columns["x"].view(np.uint32),
+                                  x.view(np.uint32))
+            or not np.array_equal(got.columns["v"].view(np.uint32),
+                                  v.view(np.uint32))):
+        raise AssertionError(f"devtables (a): lowering {r['lowering']}, "
+                             f"{metrics}, rows {len(got)} vs {len(k)}")
+    n_timed = DT_STEPS * (DT_BATCH + DT_UPSERTS)
+    emit({"phase": "devtables", "case": "a", "lowering": r["lowering"],
+          "rows": DT_ROWS, "capacity": DT_CAPACITY, "probes": DT_BATCH,
+          "upserts": DT_UPSERTS, "warmup": DT_WARMUP, "timed": DT_STEPS,
+          "state_bytes_on_card": state_bytes,
+          "events_per_s": n_timed / r["secs"],
+          "ms_a_batch_pair": 1e3 * r["secs"] / DT_STEPS,
+          "probe_ms_a_batch": split["probe_ms"],
+          "scatter_ms_a_batch": split["scatter_ms"],
+          "rows_held_vs_numpy": len(k),
+          "host_table": "not run at this width: the host join is a cross "
+                        "product (1.3e11 pairs a batch); (b) runs it",
+          "seconds_with_seed": time.perf_counter() - t0,
+          "metrics": metrics, "launches": r["launches"], "card": card})
+    # (b)
+    seed_b, steps = dt_batches(EventBatch, DTB_ROWS, DTB_BATCH, DTB_UPSERTS,
+                               DTB_WARMUP + DTB_STEPS)
+    runs = {}
+    for label, dev, device in (("devtable", True, "cuda"),
+                               ("cpu", True, "cpu"),
+                               ("host_table", False, "cuda")):
+        app = DT_APP.format(tag=label,
+                            dev=dev_ann.format(DTB_CAPACITY) if dev else "")
+        r = dt_run(torch, SiddhiManager, StreamCallback, app, seed_b, steps,
+                   DTB_WARMUP, device, kernels)
+        if device == "cuda":
+            for kk, vv in r["launches"].items():
+                launches[kk] += vv
+        close_run(r)
+        runs[label] = r
+    d, c, h = runs["devtable"], runs["cpu"], runs["host_table"]
+    vs_cpu = held_vs(d, c)
+    vs_host = held_concat(EventBatch, d, h, ())
+    k, _x, _v = dt_model(DTB_ROWS, steps)
+    if (d["lowering"].get("j") != "devtable"
+            or c["lowering"] != d["lowering"]
+            or h["lowering"].get("j") == "devtable"
+            or vs_host["rows"] != len(k)):
+        raise AssertionError(f"devtables (b): {d['lowering']}, "
+                             f"{h['lowering']}, {vs_host}")
+    n_timed = DTB_STEPS * (DTB_BATCH + DTB_UPSERTS)
+    emit({"phase": "devtables", "case": "b", "rows": DTB_ROWS,
+          "capacity": DTB_CAPACITY, "probes": DTB_BATCH,
+          "upserts": DTB_UPSERTS, "lowering": d["lowering"],
+          "host_lowering": h["lowering"],
+          "events_per_s": n_timed / d["secs"],
+          "host_table_events_per_s": n_timed / h["secs"],
+          "cpu_events_per_s": n_timed / c["secs"],
+          "rows_held_vs_cpu": vs_cpu, "rows_vs_host_table": vs_host,
+          "card": card})
+    # (c)
+    half = DTC_CAPACITY // 2
+    seed_b, steps = dt_batches(EventBatch, half, 2_048, 512, 2, seed=47)
+
+    def keys_batch(stream, lo, hi, ts):
+        k = np.arange(lo, hi, dtype=np.int32)
+        cols = {"k": k} if stream == "Del" else {
+            "k": k, "v": (k % 89).astype(np.float32)}
+        return EventBatch(stream, list(cols), cols,
+                          np.full(len(k), ts, dtype=np.int64))
+
+    # tombstones, then new keys that fit only after a compaction, then
+    # more than the table holds, each followed by probes
+    churn = [keys_batch("Del", 0, half // 2, 1_100), steps[1],
+             keys_batch("Ups", half, DTC_CAPACITY + half // 2, 1_200),
+             steps[3],
+             keys_batch("Ups", DTC_CAPACITY + half // 2, 2 * DTC_CAPACITY,
+                        1_300),
+             keys_batch("Del", half, half + 64, 1_400), steps[3]]
+    churn[-1] = EventBatch("S", ["k", "x"], dict(steps[3].columns),
+                           steps[3].timestamps + 1_000)
+    runs = {}
+    for label, dev in (("devtable", True), ("host_table", False)):
+        warned = set(ISOLATED.warned)
+        app = DTC_APP.format(tag=label,
+                             dev=dev_ann.format(DTC_CAPACITY) if dev else "")
+        r = run_join_app(torch, SiddhiManager, StreamCallback, app,
+                         [seed_b] + steps[:2], churn, "cuda", kernels,
+                         ("Out",))
+        r["metrics"] = (r["rt"].tables["T"].devtable_metrics() if dev
+                        else None)
+        r["warnings"] = sorted(ISOLATED.warned - warned)
+        close_run(r)
+        runs[label] = r
+    d, h = runs["devtable"], runs["host_table"]
+    held = held_concat(EventBatch, d, h, ())
+    demoted = [w for w in d["warnings"] if "demoting" in w]
+    if (not d["metrics"]["devtableDemoted"] or not demoted
+            or d["metrics"]["devtableCompactions"] < 1 or not held["rows"]):
+        raise AssertionError(f"devtables (c): {d['metrics']}, {demoted}")
+    emit({"phase": "devtables", "case": "c", "capacity": DTC_CAPACITY,
+          "metrics": d["metrics"], "demotion_warnings": demoted,
+          "rows_vs_host_table": held, "card": card})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5835,10 +6355,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     ckpt_launches = checkpoint_phase(torch, SiddhiManager, EventBatch,
                                      StreamCallback, all_kernels, card)
+
+    # 26-27. stream-graph fusion and device tables ----------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    fuse_launches = fusion_phase(torch, SiddhiManager, EventBatch,
+                                 StreamCallback, all_kernels, card)
+    emit({"phase": "fusion_seconds", "seconds": time.perf_counter() - t_phase})
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    dt_launches = devtables_phase(torch, SiddhiManager, EventBatch,
+                                  StreamCallback, all_kernels, card)
+    emit({"phase": "devtables_seconds",
+          "seconds": time.perf_counter() - t_phase})
     emit({"phase": "isolated_errors", "errors": 0,
           "warnings_to_listeners_or_log": ISOLATED.warnings})
 
-    # 26. kernels -------------------------------------------------------------
+    # 28. kernels -------------------------------------------------------------
     by_path = lambda name: {"dense_1M": launches.get(name, 0),
                             "skew_routed": hk_launches.get(name, 0),
                             "aggregation": agg_launches[name],
@@ -5859,7 +6394,11 @@ def main() -> int:
                             "joins": join_launches[name],
                             "tables": table_launches[name],
                             # (a)-(e) of the checkpoint phase
-                            "checkpoint": ckpt_launches[name]}
+                            "checkpoint": ckpt_launches[name],
+                            # the card runs of the fusion and device
+                            # table phases
+                            "fusion": fuse_launches[name],
+                            "devtables": dt_launches[name]}
     emit({"kernels": [
         {"name": "dense_batch", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/dense_batch.cu",
@@ -5891,7 +6430,7 @@ def main() -> int:
                       + pb_launches["probe"] + absent_launches["probe"]
                       + rollup_launches["probe"] + hp_launches["probe"]
                       + product_launches["probe"] + auto_launches["probe"]
-                      + ckpt_launches["probe"]),
+                      + ckpt_launches["probe"] + fuse_launches["probe"]),
          "launches_by_path": by_path("probe"), "max_abs_err": probe_err,
          **{k: probe_line[k] for k in KERNEL_KEYS}},
         {"name": "scan_chain", "route": "cuda",
@@ -5910,7 +6449,9 @@ def main() -> int:
          "launches": agg_launches["bank_scatter"]
                      + dq_launches["bank_scatter"]
                      + auto_launches["bank_scatter"]
-                     + ckpt_launches["bank_scatter"],
+                     + ckpt_launches["bank_scatter"]
+                     + fuse_launches["bank_scatter"]
+                     + dt_launches["bank_scatter"],
          "launches_by_path": by_path("bank_scatter"),
          "launches_by_entry": bank_by_entry,
          "max_abs_err": bank_err,

@@ -62,6 +62,7 @@ from siddhi_tpu_torch.core.stream import (
 )
 from siddhi_tpu_torch.core.trigger import TriggerRuntime
 from siddhi_tpu_torch.core.window import NamedWindowRuntime
+from siddhi_tpu_torch.devtable import DeviceTable
 from siddhi_tpu_torch.durability.writer import (
     AsyncCheckpointWriter,
     DurabilityStats,
@@ -69,6 +70,7 @@ from siddhi_tpu_torch.durability.writer import (
 from siddhi_tpu_torch.extension.function import build_functions
 from siddhi_tpu_torch.extension.validator import validate_extension_args
 from siddhi_tpu_torch.planner.app_planner import plan_app_context
+from siddhi_tpu_torch.planner.fusion import plan_fused_chains
 from siddhi_tpu_torch.planner.host_expr import ExpressionCompiler, Scope
 from siddhi_tpu_torch.planner.query_planner import plan_query
 from siddhi_tpu_torch.query_api import (
@@ -112,7 +114,7 @@ class SiddhiAppRuntime:
                                          siddhi_app.function_definitions)
         self.definitions = dict(siddhi_app.stream_definitions)
         self.junctions: Dict[str, StreamJunction] = {
-            sid: StreamJunction(d, self.app_context)
+            sid: self._define_junction(d)
             for sid, d in self.definitions.items()}
         self.partitions: Dict[str, PartitionRuntime] = {}
         # unpartitioned queries by name (host queries, dense patterns)
@@ -147,10 +149,14 @@ class SiddhiAppRuntime:
             self.aggregations[ad.id] = ar
             self.junctions[ad.input_stream.stream_id].subscribe(
                 _AggregationReceiver(ar, self.app_context))
+        # @app:fuse pre-pass: chains of device queries linked by
+        # exclusive `insert into` streams come back planned, keyed by the
+        # query's identity; the others plan one by one below
+        fused = plan_fused_chains(self) if self.app_context.fuse else {}
         qi = pi = 0  # the reference numbers queries and partitions apart
         for el in siddhi_app.execution_elements:
             if isinstance(el, Query):
-                qr = plan_query(self, el, qi)
+                qr = fused.pop(id(el), None) or plan_query(self, el, qi)
                 qi += 1
                 if qr.name in self.query_runtimes:
                     raise SiddhiAppCreationError(
@@ -161,15 +167,48 @@ class SiddhiAppRuntime:
             pi += 1
             self.partitions[pr.name] = pr
 
+    def _define_junction(self, d) -> StreamJunction:
+        """A defined stream's junction: ``@async(buffer.size,
+        batch.size.max)`` makes it asynchronous (reference:
+        ``siddhi_tpu/planner/app_planner.py`` ``define_stream``).
+        ``@OnError(action='STREAM')`` routes failures to a fault stream,
+        which comes with item 15."""
+        onerror = find_annotation(d.annotations, "OnError")
+        if (onerror is not None
+                and (onerror.element("action") or "log").lower() == "stream"):
+            raise SiddhiAppCreationError(
+                f"stream '{d.id}': @OnError(action='STREAM') routes failing "
+                "batches to a fault stream"
+                + later_slice(15, "the operations layer"))
+        async_ann = find_annotation(d.annotations, "async")
+        if async_ann is None:
+            return StreamJunction(d, self.app_context)
+        bs = async_ann.element("buffer.size")
+        bm = async_ann.element("batch.size.max")
+        return StreamJunction(d, self.app_context, is_async=True,
+                              buffer_size=int(bs) if bs else 1024,
+                              batch_size_max=int(bm) if bm else None)
+
     # -- tables and named windows --------------------------------------------
 
     def _build_table(self, td):
         """A ``@store`` table is a record table over its store extension
         (options merged from the config manager's ``ref``, the store's
-        config reader, the record-table handler, ``@cache``); any other
+        config reader, the record-table handler, ``@cache``); under
+        ``@app:devtables`` an eligible table is a device table; any other
         table is a columnar in-memory table."""
         store_ann = find_annotation(td.annotations, "store")
         if store_ann is None:
+            ctx = self.app_context
+            if ctx.devtables:
+                try:
+                    return DeviceTable(td, capacity=ctx.devtable_capacity,
+                                       device=ctx.device)
+                except SiddhiAppCreationError as e:
+                    log.warning(
+                        "table '%s': @app:devtables requested but the "
+                        "table stays host-resident (%s)", td.id, e)
+                    ctx.devtable_fallbacks[f"table:{td.id}"] = str(e)
             return InMemoryTable(td)
         opts = {k: v for k, v in store_ann.elements
                 if k is not None and k.lower() != "type"}
@@ -332,6 +371,8 @@ class SiddhiAppRuntime:
     def start(self):
         if self._running:
             return
+        for j in self.junctions.values():
+            j.start()
         self.scheduler.start()
         for t in self.tables.values():
             if hasattr(t, "start"):
@@ -407,6 +448,9 @@ class SiddhiAppRuntime:
             if hasattr(t, "drain"):
                 t.drain()
 
+    # the reference's name
+    drain_device_emits = drain
+
     def shutdown(self):
         if self._playback_stop is not None:
             self._playback_stop.set()
@@ -418,6 +462,10 @@ class SiddhiAppRuntime:
             self._persist_stop = self._persist_thread = None
         if self._ckpt_writer is not None:
             self._ckpt_writer.shutdown()
+        # the async workers stop (dispatching what they hold) before the
+        # device runtimes drain, so every accepted batch reaches them
+        for j in list(self.junctions.values()):
+            j.stop()
         self.scheduler.stop()
         for rt in self.device_runtimes().values():
             rt.close()
@@ -778,7 +826,8 @@ class SiddhiAppRuntime:
 
     def lowering(self, step_kinds: bool = False) -> Dict[str, str]:
         """Per-query engine placement: ``'host'``, ``'device'``,
-        ``'dense'`` or ``'hotkey'``, as the reference reports it; every
+        ``'dense'``, ``'hotkey'``, ``'fused'`` or ``'devtable'``, as the
+        reference reports it; every
         query of a per-key instance body is ``'host'``.
         ``step_kinds=True`` adds a dense pattern's step, fixed at compile
         time: ``'dense/batch'``, ``'dense/general'``, ``'hotkey/batch'``."""

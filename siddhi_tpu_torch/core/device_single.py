@@ -50,6 +50,9 @@ class DeviceQueryRuntime:
         self.ingest_stats = IngestStats()
         engine.ingest_stats = self.ingest_stats
         self.state = engine.init_state()
+        # junction batches stepped on the device (reference: the proof
+        # that the device path ran)
+        self.step_invocations = 0
         self.emit_stats = EmitStats()
         self.emit_queue = EmitQueue(depth=emit_depth, stats=self.emit_stats)
         self.ingest_stage = IngestStage(depth=ingest_depth,
@@ -81,6 +84,7 @@ class DeviceQueryRuntime:
         ts = np.asarray(cur.timestamps, dtype=np.int64)
         self.state, pending = eng.process_batch_deferred(
             self.state, cols, ts, part_keys=keys)
+        self.step_invocations += 1
         now = self.clock() if self.clock is not None else None
 
         def _finish(p=pending, t=now):

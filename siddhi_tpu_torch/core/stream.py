@@ -1,6 +1,6 @@
 """Stream junctions, input handlers and user callbacks.
 
-Port of the synchronous part of the JAX package's ``core/stream.py``.  A
+Port of the JAX package's ``core/stream.py``.  A
 ``StreamJunction`` hands each batch sent on a stream to its receivers
 (the planned queries), then to its user callbacks (``StreamCallback``,
 or a function wrapped in ``FunctionStreamCallback``) as row ``Event``s.
@@ -16,15 +16,24 @@ get the batch.  Under ``@app:faults(journal=)`` the input handler
 records every batch in the app's input journal under the app lock, then
 gives the ``ingest`` fault site its check, and each junction hands its
 callbacks the batch through the journal's output ledger, which during a
-restore-and-replay suppresses the events they already received.  The
-reference's asynchronous junctions, fault streams
+restore-and-replay suppresses the events they already received.
+
+An ``@async(buffer.size, batch.size.max)`` junction queues each send in
+a ring of ``buffer.size`` batches (a producer waits for room) and a
+worker thread dispatches the oldest queued batches, coalesced up to
+``batch.size.max`` events, as one cycle under the app lock; during a
+journal replay a send dispatches inline.  ``stop`` never waits for room
+and dispatches what is still queued (the reference drops it), oldest
+first, ahead of any send made after it.  Fault streams
 (``@OnError(action='STREAM')``) and admission control are later slices
 of the port.
 """
 
 from __future__ import annotations
 
+import collections
 import logging
+import threading
 from typing import Callable, List, Optional
 
 from siddhi_tpu_torch.core.event import (
@@ -89,14 +98,28 @@ def notify_listeners(app_context, e: Exception):
 
 
 class StreamJunction:
-    """Fan-out point of one stream."""
+    """Fan-out point of one stream; ``is_async``: the reference's
+    ``@async`` queue and coalescing worker."""
 
-    def __init__(self, definition, app_context=None):
+    def __init__(self, definition, app_context=None, is_async: bool = False,
+                 buffer_size: int = 1024,
+                 batch_size_max: Optional[int] = None):
         self.definition = definition
         self.stream_id = definition.id
         self.app_context = app_context
         self.receivers: List = []
         self.callbacks: List[StreamCallback] = []
+        self.is_async = is_async
+        self.buffer_size = buffer_size
+        self.batch_size_max = batch_size_max or buffer_size
+        self._ring: collections.deque = collections.deque()
+        self._cond = (threading.Condition(app_context.process_lock)
+                      if is_async else None)
+        self._worker: Optional[threading.Thread] = None
+        self._running = False
+        # dispatch cycles through this junction: a fused chain keeps its
+        # intermediate streams at 0
+        self.dispatches = 0
 
     def subscribe(self, receiver):
         """``receiver.receive(batch)`` runs on every batch sent here."""
@@ -106,9 +129,88 @@ class StreamJunction:
         callback.stream_id = self.stream_id
         self.callbacks.append(callback)
 
+    # -- lifecycle (async junctions) -----------------------------------------
+
+    def start(self):
+        if not self.is_async or self._worker is not None:
+            return
+        self._running = True
+        self._worker = threading.Thread(
+            target=self._drain, name=f"junction-{self.stream_id}",
+            daemon=True)
+        self._worker.start()
+
+    def stop(self):
+        """Stop the worker after its current dispatch, then dispatch what
+        is still queued; never waits for room in the ring, and must not
+        be called under the app lock (the worker needs it to finish)."""
+        if self._worker is None:
+            return
+        with self._cond:
+            self._running = False
+            self._cond.notify_all()
+        self._worker.join(timeout=5)
+        self._worker = None
+        with self._cond:
+            self._flush_ring()
+
+    # -- send paths ------------------------------------------------------------
+
     def send(self, batch: EventBatch):
         if len(batch) == 0:
             return
+        if self.is_async and self._running:
+            jr = getattr(self.app_context, "input_journal", None)
+            if jr is None or not jr.replaying:
+                with self._cond:
+                    while (self._running
+                           and len(self._ring) >= self.buffer_size):
+                        self._cond.wait()
+                    if self._running:
+                        self._ring.append(batch)
+                        self._cond.notify_all()
+                        return
+                    # stopped while this send waited: what the ring
+                    # still holds is older, so it goes first
+                    self._flush_ring()
+                    self._dispatch(batch)
+                    return
+            # a journal replay runs single-threaded under the app lock:
+            # inline, so every re-delivery crosses the suppressing ledger
+            # inside the replay window
+        elif self._ring:
+            # after stop's flag, before its flush: keep the send order
+            with self._cond:
+                self._flush_ring()
+        self._dispatch(batch)
+
+    def _flush_ring(self):
+        """Dispatch every queued batch, oldest first, under the app lock
+        (the worker is stopped or parked waiting for the lock)."""
+        while self._ring:
+            self._dispatch(self._ring.popleft())
+            self._cond.notify_all()
+
+    def _drain(self):
+        """Worker: take the oldest queued batch and those behind it up to
+        ``batch_size_max`` events, dispatch them as one cycle, all under
+        the app lock."""
+        while True:
+            with self._cond:
+                while self._running and not self._ring:
+                    self._cond.wait()
+                if not self._running:
+                    return
+                batches = [self._ring.popleft()]
+                total = len(batches[0])
+                while self._ring and total < self.batch_size_max:
+                    batches.append(self._ring.popleft())
+                    total += len(batches[-1])
+                self._cond.notify_all()
+                self._dispatch(EventBatch.concat(batches))
+
+    def _dispatch(self, batch: EventBatch):
+        self.dispatches += 1
         for r in self.receivers:
             try:
                 r.receive(batch)

@@ -17,13 +17,20 @@ Port of the annotation half of the JAX package's
   fault injector and the input journal, which lives on the manager
   context, keyed by app name, so a runtime built after a crash replays
   it.  Only the sites the port wires (``util/faults.WIRED_SITES``) may
-  be armed; any other site is refused, naming ``ROADMAP.md`` item 15.
+  be armed; any other site is refused, naming ``ROADMAP.md`` item 15;
+- ``@app:fuse`` / ``@app:fuse('false')``: stream-graph fusion of
+  ``insert into`` chains of device queries (``planner/fusion.py``);
+- ``@app:devtables(capacity=)``: device-resident tables
+  (``devtable/``);
+- ``@app:enforceOrder``: a flag, as in the reference (the synchronous
+  dispatch is ordered by construction).
 
 The port runs its kernels on the card whenever it runs on a card: it
 has no XLA formulation to keep, so ``@app:kernels`` is parsed and
-validated as the reference does and switches nothing.  Any other
-``@app:`` annotation belongs to a later slice of the port and is
-refused, naming the ``ROADMAP.md`` item that ports it (``LATER``).
+validated as the reference does and switches nothing.  The reference's
+other ``@app:`` annotations belong to a later slice of the port and are
+refused, naming the ``ROADMAP.md`` item that ports them (``LATER``); an
+``@app:`` name the reference does not know is ignored, as there.
 """
 
 from __future__ import annotations
@@ -48,13 +55,9 @@ from siddhi_tpu_torch.util.faults import (
 )
 from siddhi_tpu_torch.util.scheduler import Scheduler
 
-_READ = ("app:name", "app:description", "app:playback", "app:execution",
-         "app:hotkeys", "app:kernels", "app:persist", "app:faults")
-# the reference's other app annotations: the ROADMAP.md §1 item that
-# ports each, and what it is
+# the reference's app annotations the port does not read yet: the
+# ROADMAP.md §1 item that ports each, and what it is
 LATER = {
-    "app:fuse": (12, "stream-graph fusion"),
-    "app:devtables": (13, "device tables"),
     "app:multiplex": (14, "multiplex"),
     "app:limits": (15, "the operations layer"),
     "app:plan": (15, "the operations layer"),
@@ -126,6 +129,18 @@ class AppContext:
         self.kernel_kinds = ("nfa", "bank", "scan")
         # query name -> why @app:hotkeys left it on the dense path
         self.hotkey_fallbacks: Dict[str, str] = {}
+        # @app:fuse: chains of device queries lowered to one engine
+        self.fuse = False
+        # query name -> why its chain fell back to junction dispatch
+        self.fused_fallbacks: Dict[str, str] = {}
+        # @app:devtables: device-resident tables of at most this many
+        # slots each
+        self.devtables = False
+        self.devtable_capacity = 1024
+        # table or query -> why it stayed on the host
+        self.devtable_fallbacks: Dict[str, str] = {}
+        # @app:enforceOrder: kept for parity; the dispatch is ordered
+        self.enforce_order = False
         # runtime exception listeners: every error the app logs instead
         # of raising (a failing receiver, callback, emit or timer task)
         self.exception_listeners: List = []
@@ -169,13 +184,9 @@ def plan_app_context(siddhi_app, device, siddhi_context) -> AppContext:
     anns = siddhi_app.annotations
     for a in anns:
         name = a.name.lower()
-        if name.startswith("app:") and name not in _READ:
-            if name in LATER:
-                raise SiddhiAppCreationError(
-                    f"@{a.name}" + later_slice(*LATER[name]))
+        if name in LATER:
             raise SiddhiAppCreationError(
-                f"@{a.name} is not in the port yet — a later slice of the "
-                "port")
+                f"@{a.name}" + later_slice(*LATER[name]))
     name_ann = find_annotation(anns, "app:name")
     ctx = AppContext((name_ann.element() if name_ann else None)
                      or f"app_{uuid.uuid4().hex[:8]}", device)
@@ -281,9 +292,51 @@ def plan_app_context(siddhi_app, device, siddhi_context) -> AppContext:
                     "'scan'")
             ctx.kernels = True
             ctx.kernel_kinds = kinds
+    if find_annotation(anns, "app:enforceOrder") is not None:
+        ctx.enforce_order = True
+    _plan_fuse(ctx, find_annotation(anns, "app:fuse"))
+    _plan_devtables(ctx, find_annotation(anns, "app:devtables"))
     _plan_faults(ctx, find_annotation(anns, "app:faults"), siddhi_context)
     _plan_persist(ctx, find_annotation(anns, "app:persist"))
     return ctx
+
+
+def _plan_fuse(ctx: AppContext, ann):
+    """``@app:fuse`` / ``@app:fuse('false')``, with the reference's
+    texts."""
+    if ann is None:
+        return
+    if ctx.execution_mode != "tpu":
+        raise SiddhiAppCreationError("@app:fuse needs @app:execution('tpu')")
+    v = (ann.element() or "true").lower()
+    if v not in ("true", "false"):
+        raise SiddhiAppCreationError(
+            f"@app:fuse('{v}'): expected 'true' or 'false'")
+    ctx.fuse = v == "true"
+
+
+def _plan_devtables(ctx: AppContext, ann):
+    """``@app:devtables`` / ``@app:devtables(capacity='N')``, with the
+    reference's texts."""
+    if ann is None:
+        return
+    if ctx.execution_mode != "tpu":
+        raise SiddhiAppCreationError(
+            "@app:devtables needs @app:execution('tpu')")
+    v = (ann.element() or "true").strip().lower()
+    if v != "false":
+        ctx.devtables = True
+    cap = ann.element("capacity")
+    if cap:
+        try:
+            ncap = int(cap)
+        except ValueError:
+            ncap = -1
+        if ncap < 1 or ncap > 1 << 24:
+            raise SiddhiAppCreationError(
+                f"@app:devtables: capacity='{cap}' must be an integer in "
+                "1..16777216 (device slots per table)")
+        ctx.devtable_capacity = ncap
 
 
 def _plan_faults(ctx: AppContext, ann, siddhi_context):

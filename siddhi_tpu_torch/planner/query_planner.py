@@ -43,9 +43,12 @@ A join (``plan_join``) runs on the host ``JoinRuntime`` of
 ``core/join.py``: stream sides with filters and one window, table,
 named-window and aggregation sides, ``unidirectional``, outer joins;
 under ``@app:execution('tpu')`` its condition mask runs on the device
-(``DeviceJoinProbe``) where the reference's does.  Outputs insert into
-a stream, a table or a named window, or delete, update, or update or
-insert a table (``plan_output``).
+(``DeviceJoinProbe``) where the reference's does, and under
+``@app:devtables`` an inner join against a device table runs on the
+table's probe (``devtable/``).  Outputs insert into a stream, a table or
+a named window, or delete, update, or update or insert a table
+(``plan_output``; a device table's delete, update and update or insert
+lower to one scatter step a batch where the gates pass).
 """
 
 from __future__ import annotations
@@ -95,6 +98,12 @@ from siddhi_tpu_torch.core.join import (
     JoinStreamReceiver,
 )
 from siddhi_tpu_torch.core.window import InsertIntoWindowCallback
+from siddhi_tpu_torch.devtable import (
+    DeviceTable,
+    DevTableJoinReceiver,
+    plan_devtable_mutation,
+    try_plan_devtable_join,
+)
 from siddhi_tpu_torch.extension.validator import validate_extension_args
 from siddhi_tpu_torch.ops.aggregators import make_aggregator
 from siddhi_tpu_torch.ops.device_query import DeviceQueryEngine
@@ -680,6 +689,30 @@ def plan_join(app, query: Query, name: str, j: JoinInputStream
                      out_stream_id=f"#join_{name}")
     qr.join_runtime = jr
     ctx = app.app_context
+    # @app:devtables: an inner join against a DeviceTable side runs on
+    # the device table's probe (devtable/join.py); the stream side
+    # subscribes its receiver instead of the host JoinStreamReceiver
+    if ctx.devtables and (isinstance(left.table, DeviceTable)
+                          or isinstance(right.table, DeviceTable)):
+        try:
+            dt_runtime = try_plan_devtable_join(
+                name, j, left, right, condition, compiler,
+                emit=lambda batch: qr.process(batch, 0),
+                app_context=ctx, probe_scope=probe_scope)
+        except SiddhiAppCreationError as e:
+            log.warning("query '%s': devtable join unavailable (%s); "
+                        "host join path used", name, e)
+            ctx.devtable_fallbacks[name] = str(e)
+        else:
+            qr.device_runtime = dt_runtime
+            qr.lowered_to = "devtable"
+            log.info("query '%s': stream-table join lowered to the "
+                     "device-resident table probe", name)
+            for side, src in ((left, j.left), (right, j.right)):
+                if side.table is None and side.aggregation is None:
+                    app.junction_for_input(src).subscribe(
+                        DevTableJoinReceiver(dt_runtime))
+            return qr
     if ctx.execution_mode == "tpu" and condition is not None:
         try:
             jr.device_probe = DeviceJoinProbe(
@@ -826,15 +859,33 @@ def plan_output(app, query: Query, out_def: StreamDefinition, qname: str):
             table, out.on_condition, out_scope,
             table_resolver=app.table_resolver)
         if isinstance(out, DeleteStream):
-            return DeleteTableCallback(table, condition, out.event_type)
-        set_ops = compile_set_clause(table, out.set_clause, out_scope,
-                                     out_names,
-                                     table_resolver=app.table_resolver)
-        if isinstance(out, UpdateOrInsertStream):
-            return UpdateOrInsertTableCallback(
-                table, condition, set_ops, out.event_type, out_names)
-        return UpdateTableCallback(table, condition, set_ops,
-                                   out.event_type)
+            cb = DeleteTableCallback(table, condition, out.event_type)
+        else:
+            set_ops = compile_set_clause(table, out.set_clause, out_scope,
+                                         out_names,
+                                         table_resolver=app.table_resolver)
+            if isinstance(out, UpdateOrInsertStream):
+                cb = UpdateOrInsertTableCallback(
+                    table, condition, set_ops, out.event_type, out_names)
+            else:
+                cb = UpdateTableCallback(table, condition, set_ops,
+                                         out.event_type)
+        # @app:devtables: one scatter step a batch when the gates pass;
+        # the generic callback stays as the per-batch delegate for the
+        # shapes the scatter cannot express
+        if isinstance(table, DeviceTable):
+            who = qname or f"table:{out.target}"
+            try:
+                return plan_devtable_mutation(
+                    who, out, out_def, out_scope, table, cb,
+                    functions=app.functions,
+                    table_resolver=app.table_resolver)
+            except SiddhiAppCreationError as e:
+                log.warning("query '%s': devtable mutation lowering "
+                            "unavailable (%s); per-row host callback "
+                            "used", who, e)
+                app.app_context.devtable_fallbacks[who] = str(e)
+        return cb
     if isinstance(out, ReturnStream) or out is None:
         return QueryCallbackOutput()
     raise SiddhiAppCreationError(

@@ -1,6 +1,7 @@
 """Table output callbacks: insert / delete / update / update-or-insert.
 
-Port of the JAX package's ``table/callbacks.py`` (the reference's
+Port of the JAX package's ``table/callbacks.py``, the DevTable callbacks
+of device tables (``devtable/``) included (the reference's
 ``query/output/callback/``: InsertIntoTableCallback, DeleteTableCallback,
 UpdateTableCallback, UpdateOrInsertTableCallback): the selector's output batch is the
 matching-side event set; each row probes the table through the compiled
@@ -201,3 +202,115 @@ class UpdateOrInsertTableCallback(UpdateTableCallback):
                 }
                 with self.table._lock:
                     self.table._insert_row(row, int(out.timestamps[i]))
+
+
+# -- lowered devtable callbacks (one scatter step per batch) ----------------
+#
+# These replace the per-row probe loops above when the planner's devtable
+# mutation gate passes (single primary-key equality condition, event-only
+# set expressions — see devtable/planner.py).  Each evaluates the key and
+# set expressions VECTORIZED over the output batch and hands the whole
+# batch to one DeviceTable entry point (one scatter step).  Runtime
+# shapes the kernel cannot express — a primary-key rewrite, an insert
+# landing after an update of the same slot — delegate that batch to the
+# kept generic callback: counted and logged once, results never change.
+
+
+def _batch_env(out: EventBatch) -> Dict:
+    from siddhi_tpu_torch.planner.host_expr import N_KEY, TS_KEY
+
+    env = {nm: out.columns[nm] for nm in out.attribute_names}
+    env[TS_KEY] = out.timestamps
+    env[N_KEY] = len(out)
+    return env
+
+
+class _DevTableCallback(OutputCallback):
+    def __init__(self, table, key_expr, event_type: str, generic=None):
+        self.table = table
+        self.key = key_expr
+        self.event_type = event_type
+        self.generic = generic
+        self._warned = False
+
+    def _keys(self, out: EventBatch, env: Dict) -> np.ndarray:
+        return np.broadcast_to(self.key.fn(env), (len(out),))
+
+    def _delegate(self, batch: EventBatch, now: int, reason: str):
+        if not self._warned:
+            self._warned = True
+            import logging
+
+            logging.getLogger("siddhi_tpu_torch").warning(
+                "devtable '%s': batch delegated to the host-path callback "
+                "(%s); results are unchanged, this batch runs per-row",
+                self.table.table_id, reason)
+        self.generic.send(batch, now)
+
+
+class DevTableDeleteCallback(_DevTableCallback):
+    """<query> delete <devtable> on T.pk == <event expr> — one kill
+    scatter for the batch."""
+
+    def send(self, batch: EventBatch, now: int):
+        out = _select_types(batch, self.event_type)
+        if len(out) == 0:
+            return
+        env = _batch_env(out)
+        self.table.delete_keys(self._keys(out, env))
+
+
+class DevTableUpdateCallback(_DevTableCallback):
+    """<query> update <devtable> set ... on T.pk == <event expr> — one
+    write scatter for the batch."""
+
+    def __init__(self, table, key_expr, set_ops, event_type: str, generic):
+        super().__init__(table, key_expr, event_type, generic)
+        self.set_ops = set_ops
+
+    def _values(self, out: EventBatch, env: Dict) -> Dict[str, np.ndarray]:
+        n = len(out)
+        return {attr: np.broadcast_to(c.fn(env), (n,))
+                for attr, c in self.set_ops}
+
+    def send(self, batch: EventBatch, now: int):
+        out = _select_types(batch, self.event_type)
+        if len(out) == 0:
+            return
+        env = _batch_env(out)
+        keys = self._keys(out, env)
+        values = self._values(out, env)
+        pk = self.table.pk
+        if pk in values:
+            if np.array_equal(values[pk], keys):
+                values.pop(pk)  # identity rewrite: a no-op on the map
+            else:
+                self._delegate(batch, now, "primary-key rewrite in set clause")
+                return
+        if values:
+            self.table.update_keys(keys, values)
+
+
+class DevTableUpsertCallback(DevTableUpdateCallback):
+    """<query> update or insert into <devtable> set ... on T.pk == <event
+    expr> — misses insert the projected row, hits apply the set clause;
+    at most two scatters for the batch."""
+
+    def send(self, batch: EventBatch, now: int):
+        out = _select_types(batch, self.event_type)
+        if len(out) == 0:
+            return
+        env = _batch_env(out)
+        keys = self._keys(out, env)
+        values = self._values(out, env)
+        pk = self.table.pk
+        if pk in values and not np.array_equal(values[pk], keys):
+            # host semantics: a hit rewrites the row's key via update_slots
+            self._delegate(batch, now, "primary-key rewrite in set clause")
+            return
+        values.pop(pk, None)
+        ins = {nm: out.columns[nm]
+               for nm in self.table.definition.attribute_names}
+        if not self.table.upsert(keys, ins, values, out.timestamps):
+            self._delegate(batch, now,
+                           "insert after update of the same slot in one batch")

@@ -26,6 +26,7 @@ import time
 from typing import Dict, List, Tuple
 
 from siddhi_tpu_torch.core.exceptions import CannotRestoreSiddhiAppStateError
+from siddhi_tpu_torch.devtable import DeviceTable
 
 
 SNAPSHOT_FORMAT_VERSION = 1
@@ -58,7 +59,11 @@ class SnapshotService:
             if hasattr(qr, "snapshot_state"):
                 tree["queries"][qname] = qr.snapshot_state(fetch=fetch)
         for tname, t in self.app.tables.items():
-            tree["tables"][tname] = t.snapshot()
+            # a device table's pinned revision stays on the device when
+            # the capture clones it
+            tree["tables"][tname] = (t.snapshot(fetch=fetch)
+                                     if isinstance(t, DeviceTable)
+                                     else t.snapshot())
         for wname, w in self.app.named_windows.items():
             tree["named_windows"][wname] = w.snapshot()
         for pname, p in self.app.partitions.items():

@@ -1548,3 +1548,134 @@ def test_restore_into_batch_step_kernel_on_card(cuda_device):
     finally:
         m.shutdown()
     assert got == refs["cuda"] == refs["cpu"] and got
+
+
+# -- stream-graph fusion and device tables ----------------------------------
+
+FUSED_CARD_APP = (
+    "@app:name('fz') @app:playback @app:execution('tpu') {fuse}"
+    "define stream SIn (sym int, price float, vol int); "
+    "define stream Mid (sym int, price float, vol int); "
+    "define stream Win (sym int, total double); "
+    "@info(name='q1') from SIn[price > 5.0] "
+    "select sym, price, vol insert into Mid; "
+    "@info(name='q2') from Mid#window.length(4) "
+    "select sym, sum(price) as total insert into Win; "
+    "@info(name='q3') from {tail} insert into Out;")
+FUSED_TAILS = {
+    "dense": "every e1=Win[total > 30.0] -> e2=Win[total > e1.total] "
+             "select e1.sym as s1, e1.total as t1, e2.total as t2",
+    "device": "Win[total > 60.0] select sym, total",
+}
+
+
+def _fused_rows(app, device, batches):
+    from siddhi_tpu_torch import SiddhiManager
+
+    m = SiddhiManager(device=device)
+    try:
+        rt = m.create_siddhi_app_runtime(app)
+        got = []
+        rt.add_callback("Out", lambda evs: got.extend(
+            (e.timestamp, tuple(e.data)) for e in evs))
+        rt.start()
+        h = rt.get_input_handler("SIn")
+        for b in batches:
+            h.send_batch(b)
+        low = rt.lowering()
+        hops = (rt.junctions["Mid"].dispatches,
+                rt.junctions["Win"].dispatches)
+        rt.shutdown()
+        return got, low, hops
+    finally:
+        m.shutdown()
+
+
+@pytest.mark.parametrize("tail", sorted(FUSED_TAILS))
+def test_fused_chain_on_card_matches_cpu(cuda_device, tail):
+    """A fused chain (filter, ``length(4)`` sum, a dense or device tail)
+    on the card: the rows of the ``device="cpu"`` run and of the unfused
+    card run (float32 sums within the reference's bound), and no
+    dispatch on the intermediate streams."""
+    from siddhi_tpu_torch.core.event import EventBatch
+
+    rng = np.random.default_rng(3)
+    batches = []
+    for i in range(6):
+        n = 300 + 37 * i
+        batches.append(EventBatch("SIn", ["sym", "price", "vol"], {
+            "sym": rng.integers(0, 5, n).astype(np.int32),
+            "price": rng.uniform(0, 30, n).astype(np.float32),
+            "vol": rng.integers(1, 100, n).astype(np.int32)},
+            1000 + 10 * i + np.arange(n, dtype=np.int64)))
+    fused = FUSED_CARD_APP.format(fuse="@app:fuse ", tail=FUSED_TAILS[tail])
+    plain = FUSED_CARD_APP.format(fuse="", tail=FUSED_TAILS[tail])
+    card, low, hops = _fused_rows(fused, "cuda", batches)
+    cpu, _low, _hops = _fused_rows(fused, "cpu", batches)
+    unfused, ulow, _ = _fused_rows(plain, "cuda", batches)
+    assert set(low.values()) == {"fused"} and hops == (0, 0)
+    assert "fused" not in ulow.values()
+    assert card
+    for other in (cpu, unfused):
+        assert len(other) == len(card)
+        for (ta, ra), (tb, rb) in zip(card, other):
+            assert ta == tb and ra[0] == rb[0]
+            assert np.allclose(ra[1:], rb[1:], rtol=1e-4, atol=1e-3)
+
+
+def test_devtable_scatter_and_probe_on_card_match_cpu(cuda_device):
+    """A device table on the card: the last-writer-wins scatter (duplicate
+    keys in one batch), deletes, the probe's slot and the join's rows
+    equal the ``device="cpu"`` run's bit for bit, table contents too."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.core.event import EventBatch
+
+    app = ("@app:name('dtc') @app:playback @app:execution('tpu') "
+           "@app:devtables(capacity='4096') "
+           "define stream S (k int, x float); "
+           "define stream Ups (k int, v float); "
+           "define stream Del (k int); "
+           "@PrimaryKey('k') define table T (k int, v float); "
+           "from Del delete T on T.k == k; "
+           "from Ups update or insert into T set T.v = v on T.k == k; "
+           "@info(name='j') from S join T as t on S.k == t.k "
+           "select S.k as k, S.x as x, t.v as v insert into Out;")
+    rng = np.random.default_rng(9)
+    sends = []
+    for i in range(8):
+        uk = rng.integers(0, 3000, 900).astype(np.int32)  # duplicates
+        sends.append(EventBatch("Ups", ["k", "v"], {
+            "k": uk, "v": rng.normal(size=900).astype(np.float32)},
+            np.full(900, 1000 + 30 * i, dtype=np.int64)))
+        dk = rng.integers(0, 3000, 100).astype(np.int32)
+        sends.append(EventBatch("Del", ["k"], {"k": dk},
+                                np.full(100, 1010 + 30 * i, dtype=np.int64)))
+        pk = rng.integers(0, 6000, 5000).astype(np.int32)
+        sends.append(EventBatch("S", ["k", "x"], {
+            "k": pk, "x": rng.normal(size=5000).astype(np.float32)},
+            np.full(5000, 1020 + 30 * i, dtype=np.int64)))
+    out = {}
+    for device in ("cuda", "cpu"):
+        m = SiddhiManager(device=device)
+        try:
+            rt = m.create_siddhi_app_runtime(app)
+            got = []
+            rt.add_callback("Out", lambda evs, g=got: g.extend(
+                (e.timestamp, tuple(e.data)) for e in evs))
+            rt.start()
+            for b in sends:
+                rt.get_input_handler(b.stream_id).send_batch(b)
+            rt.drain()
+            t = rt.tables["T"]
+            b = t.rows_batch()
+            rows = sorted(zip(b.columns["k"].tolist(),
+                              b.columns["v"].view(np.uint32).tolist()))
+            out[device] = (got, rows, rt.lowering()["j"], t.demoted,
+                           t.scatter_steps)
+            rt.shutdown()
+        finally:
+            m.shutdown()
+    card, cpu = out["cuda"], out["cpu"]
+    assert card[2] == "devtable" and not card[3] and card[4] > 0
+    assert card[0] and card[0] == cpu[0]
+    assert card[1] == cpu[1]

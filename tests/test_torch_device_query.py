@@ -92,8 +92,9 @@ LEFT_OUT = {
      "test_mixed_dtype_partition_keys_fall_back_to_dict_intern"):
         "the dense runtime's intern",
 }
-# what the port refuses in the corpora, with the ROADMAP.md item
-OUTSIDE = {13: r"@app:devtables"}
+# what the port refuses in the corpora, with the ROADMAP.md item: none
+# since device tables came
+OUTSIDE = {}
 # corpus classes built on the app's snapshot and restore, whose state
 # crosses runtimes: replayed as whole tests through both packages
 # (test_torch_persistence.py's twin runs), not app by app

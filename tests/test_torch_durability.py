@@ -75,13 +75,12 @@ LEFT_OUT = {
         "the service's endpoints (item 15)",
 }
 LEFT_OUT_PARAMS = {"sharded": "the sharded engine (item 16)",
-                   "fused": "stream-graph fusion (item 12)",
                    "multiplex": "multiplex (item 14)"}
 CASES = cases("test_durability", LEFT_OUT, LEFT_OUT_PARAMS)
 
 
 def test_the_corpus_was_read():
-    assert len(CASES) == 27
+    assert len(CASES) == 31
 
 
 @pytest.mark.parametrize("corpus,cname,mname,k", CASES)

@@ -112,8 +112,12 @@ def recording_manager(make, rec):
             self._m = make()
 
         def create_siddhi_app_runtime(self, app):
-            rec.apps.append(app)
-            return _Runtime(self._m.create_siddhi_app_runtime(app), rec)
+            # an app built with the fluent builder is each package's own
+            # object: its class name is what compares
+            rec.apps.append(app if isinstance(app, str)
+                            else type(app).__name__)
+            return getattr(rec, "runtime_class", _Runtime)(
+                self._m.create_siddhi_app_runtime(app), rec)
 
         def __getattr__(self, name):
             return getattr(self._m, name)
@@ -132,12 +136,15 @@ def _port_twin(obj):
 
 
 @contextlib.contextmanager
-def port_modules():
-    """The port's modules stand for the JAX ones in ``INNER_IMPORTS``."""
-    saved = {name: sys.modules.get(name) for name in INNER_IMPORTS}
-    for name in INNER_IMPORTS:
-        sys.modules[name] = importlib.import_module(
+def port_modules(inner=INNER_IMPORTS, stand_ins=None):
+    """The port's modules stand for the JAX ones in ``inner``, and the
+    objects of ``stand_ins`` (JAX module name -> object) for theirs."""
+    stand_ins = dict(stand_ins or {})
+    for name in inner:
+        stand_ins[name] = importlib.import_module(
             "siddhi_tpu_torch." + name[len("siddhi_tpu."):])
+    saved = {name: sys.modules.get(name) for name in stand_ins}
+    sys.modules.update(stand_ins)
     try:
         yield
     finally:
@@ -198,9 +205,15 @@ def cases(corpus, left_out, left_out_params=()):
     return out
 
 
-def run(corpus, cname, mname, k, port, tmp_path, request):
-    """One run of a corpus test; returns its record."""
-    rec = Record()
+def run(corpus, cname, mname, k, port, tmp_path, request,
+        inner=INNER_IMPORTS, stand_ins=None, record=Record):
+    """One run of a corpus test; returns its record.  ``inner``,
+    ``stand_ins``: what stands for the JAX modules the test imports
+    inside its body during the port's run (``port_modules``;
+    ``stand_ins(rec, port)`` gives the objects, in both runs);
+    ``record``: the record class (its manager factory may wrap the
+    runtimes further)."""
+    rec = record()
     mod = load(corpus, port, rec)
     owner = getattr(mod, cname)() if cname else mod
     fn = getattr(owner, mname)
@@ -213,14 +226,19 @@ def run(corpus, cname, mname, k, port, tmp_path, request):
             d = tmp_path / ("port" if port else "jax")
             d.mkdir()
             kwargs[name] = d
-        elif name == "caplog":
-            kwargs[name] = request.getfixturevalue("caplog")
+        elif name in ("caplog", "monkeypatch"):
+            kwargs[name] = request.getfixturevalue(name)
         else:
             # a fixture of the corpus module (its ``manager``)
             gen = getattr(mod, name).__wrapped__()
             kwargs[name] = next(gen)
             finalizers.append(gen)
-    ctx = port_modules() if port else contextlib.nullcontext()
+    if port:
+        ctx = port_modules(inner, stand_ins(rec, True) if stand_ins else None)
+    elif stand_ins:
+        ctx = port_modules((), stand_ins(rec, False))
+    else:
+        ctx = contextlib.nullcontext()
     try:
         with ctx:
             fn(**kwargs)
@@ -238,11 +256,13 @@ def _rows(rows, wall):
     return [(None,) + r[1:] if wall else r for r in rows]
 
 
-def check_twin(corpus, cname, mname, k, tmp_path, request):
+def check_twin(corpus, cname, mname, k, tmp_path, request, **kw):
     """The corpus test passes in both packages, and both delivered the
-    same events."""
-    jax = run(corpus, cname, mname, k, False, tmp_path, request)
-    port = run(corpus, cname, mname, k, True, tmp_path, request)
+    same events (``kw``: ``run``'s ``inner``, ``stand_ins``,
+    ``record``)."""
+    jax = run(corpus, cname, mname, k, False, tmp_path, request,
+              stand_ins=kw.get("stand_ins"), record=kw.get("record", Record))
+    port = run(corpus, cname, mname, k, True, tmp_path, request, **kw)
     assert port.apps == jax.apps
     tol = jax.tolerance()
     wall = any("@app:playback" not in a for a in jax.apps)

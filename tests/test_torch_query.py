@@ -50,8 +50,9 @@ CORPORA = ("test_filter_queries", "test_windows", "test_conformance_filters",
 # since tables came (the sandbox case's reads are held below by
 # test_sandbox_table_reads_back_as_the_reference)
 LEFT_OUT = set()
-# what the port refuses in these corpora, with the ROADMAP.md item
-OUTSIDE = {13: r"@app:devtables"}
+# what the port refuses in these corpora, with the ROADMAP.md item: none
+# since device tables came
+OUTSIDE = {}
 
 
 def typed(v):
@@ -541,20 +542,11 @@ DEVTABLES = "@app:devtables @app:execution('tpu') "
 
 
 @pytest.mark.parametrize("app,item", [
-    (DEVTABLES + DEFINE + "define table T (sym string); from S join T on "
-     "S.sym == T.sym select S.sym insert into Out;", 13),
-    (DEVTABLES + DEFINE + "define stream U (sym string); from "
-     "S#window.length(2) join U#window.length(2) on S.sym == U.sym select "
-     "S.sym insert into Out;", 13),
-    (DEVTABLES + DEFINE + "partition with (sym of S) begin from "
-     "S#window.length(2) join S#window.length(2) on S.p > 1.0 select S.sym "
-     "insert into Out; end;", 13),
     ("@app:playback @source(type='http', @map(type='json')) "
      + DEFINE[len("@app:playback "):]
      + "from S select sym insert into Out;", 15),
     (DEFINE + "@sink(type='inMemory', topic='t') define stream Out "
      "(sym string); from S select sym insert into Out;", 15),
-    ("@app:fuse " + DEFINE + "from S select sym insert into Out;", 12),
     ("@app:multiplex " + DEFINE + "from S select sym insert into Out;", 14),
     ("@app:limits(breaker='3') " + DEFINE
      + "from S select sym insert into Out;", 15),
@@ -568,14 +560,12 @@ DEVTABLES = "@app:devtables @app:execution('tpu') "
      + "from S select sym insert into Out;", 15),
     ("@app:execution('tpu', devices='2') " + DEFINE
      + "from S select sym insert into Out;", 16),
-], ids=["table", "join", "join_in_partition", "source", "sink",
-        "fuse", "multiplex", "limits", "plan", "statistics", "trace",
-        "faults", "devices"])
+], ids=["source", "sink", "multiplex", "limits", "plan", "statistics",
+        "trace", "faults", "devices"])
 def test_refusals_name_their_roadmap_item(app, item):
     """No hidden fallback: what the port does not run raises at creation,
-    naming the ``ROADMAP.md`` item that ports it: device tables (a table
-    or join under ``@app:devtables``), sources and sinks, the app
-    annotations of later slices, and a fault site the port does not
+    naming the ``ROADMAP.md`` item that ports it: sources and sinks, the
+    app annotations of later slices, and a fault site the port does not
     wire (it would arm silently)."""
     with pytest.raises(SiddhiAppCreationError) as info:
         SiddhiManager(device="cpu").create_siddhi_app_runtime(app)
@@ -656,6 +646,38 @@ def test_once_refused_apps_run_as_the_reference(app):
     functions, joins and tables came to the port, now give the
     reference's rows."""
     assert assert_same(app, sends(len(app)))["Out"]
+
+
+@pytest.mark.parametrize("app", [
+    DEVTABLES + DEFINE + "define table T (sym string); from S[p > 10.0] "
+    "select sym insert into T; from S join T on S.sym == T.sym select "
+    "S.sym, S.p insert into Out;",
+    DEVTABLES + DEFINE + "from S#window.length(2) as a join "
+    "S#window.length(3) as b on a.sym == b.sym select a.sym, b.p insert "
+    "into Out;",
+    DEVTABLES + DEFINE + "partition with (sym of S) begin from "
+    "S#window.length(2) as a join S#window.length(2) as b on a.p > 1.0 "
+    "select a.sym, b.p insert into Out; end;",
+    DEVTABLES + DEFINE + "@PrimaryKey('n') define table T (n int, q float); "
+    "from S[n > 0] select n, q insert into T; @info(name='j') from S join "
+    "T on S.n == T.n select S.sym, T.q insert into Out;",
+    "@app:execution('tpu') @app:fuse " + DEFINE + "@info(name='q1') from "
+    "S[n > 0] select n, q insert into Mid; @info(name='q2') from Mid[q > "
+    "0.5] select n, q insert into Out;",
+], ids=["table", "join", "join_in_partition", "device_table", "fuse"])
+def test_once_refused_device_apps_run_as_the_reference(app):
+    """The shapes the port refused under ``@app:devtables`` (a table, a
+    windowed join, a self join inside a partition) and ``@app:fuse``
+    until device tables and fusion came, and a join on a device table:
+    the reference's rows and lowerings."""
+    jgot, jlow = run(False, app, sends(len(app)))
+    tgot, tlow = run(True, app, sends(len(app)))
+    assert tgot == jgot and tgot["Out"]
+    assert tlow == jlow
+    if "PrimaryKey" in app:
+        assert tlow["j"] == "devtable"
+    if "@app:fuse" in app:
+        assert set(tlow.values()) == {"fused"}
 
 
 def test_sandbox_table_reads_back_as_the_reference():
