@@ -381,7 +381,40 @@ skew-routed pattern path and the incremental-aggregation path through
    and the host table on the card beside it; (c) a capacity overflow
    that compacts and then demotes with its WARNING, its rows the host
    table's.
-28. kernels: one line per ported kernel (launches on the main paths,
+28. multiplex: multi-tenant multiplexing (``@app:multiplex``), each
+   card run's launches counted from app creation on.  (a) ``bench.py``'s
+   ``bench_multiplexed`` (8 tenants, 1,024 keys, 4,096 events a tenant a
+   cycle, panes of 65,536, 2 warm-up cycles and 3 windows of 10),
+   multiplexed and with 8 dedicated engines on the card and multiplexed
+   at ``device="cpu"``: every tenant's rows bit for bit, events/s,
+   dispatches a cycle, ``combined_steps``, ``slow_steps`` and the
+   ``accumulate_`` launches; (b) the same app for 1,024 tenants at
+   ``slots='64'`` (16 groups, the group axis at the 1,024 keys: 1,048,576
+   accumulator rows), 1 warm-up and 4 timed cycles, multiplexed and
+   dedicated: app-creation seconds, events/s, dispatches a cycle, the
+   banks' bytes, and every tenant's accumulator rows bit for bit; (c) 64
+   tenants of ``kernel_eligible_app`` at ``slots='64'``, 4,096 events a
+   tenant a cycle, v ~ U(0, 20), lowered to ``multiplex/batch`` with one
+   ``dense_batch`` launch a cycle (the longest segment printed), and 64
+   of the capturing ``e2=Txn[v > e1.v]`` chain at 64 events a tenant a
+   cycle on the general step's rounds (one warm-up and one timed cycle:
+   a dedicated cycle is 4,096 general steps), each held to the dedicated
+   card run and the CPU run bit for bit (the capture-free chain's CPU
+   run cut to its first cycle, whose 4,096 ranks of the plain batch
+   step take the host about 16 s).  A ``multiplex_seconds`` line
+   follows.
+29. transports: the verify skill's filter and a ``lengthBatch(8192)``
+   group-by under ``@app:execution('tpu')`` over 1,000,000 events in
+   publishes of 8,192, in through an in-memory source (pass-through,
+   then JSON) and out through in-memory sinks to broker subscribers,
+   the rows held against the input-handler-and-callback run on the card
+   and at ``device="cpu"`` (a JSON source carries no event times, so
+   the rows are held without their timestamps); events/s source to sink
+   beside handler to callback.  Then an ``@OnError(action='STREAM')`` app whose device
+   query fails on some batches (new symbols past its 64 group rows): its
+   ``!S`` rows equal the CPU run's.  A ``transports_seconds`` line
+   follows.
+30. kernels: one line per ported kernel (launches on the main paths,
    largest difference from its plain version, ``ms``, ``host_us``,
    ``device_us``, plain and library times, bound); the bank kernel's at
    the entry the aggregation path uses, ``accumulate_``, with the delta
@@ -5782,6 +5815,614 @@ def devtables_phase(torch, SiddhiManager, EventBatch, StreamCallback,
     return launches
 
 
+# -- 28-29. multiplexing and transports ----------------------------------------
+
+MUX_TENANTS = 8
+MUX_KEYS = 1_024
+MUX_BATCH = 4_096
+MUX_PANE = 1 << 16
+MUX_STEPS = 10
+MUX_WARMUP = 2
+MUX_WINDOWS = 3
+MUX_APP = ("@app:name('muxbench{{i}}') @app:playback @app:execution('tpu'"
+           "{parts}) {mux}define stream Mkt (k long, v double); "
+           "@info(name='w') from Mkt#window.lengthBatch(" + str(MUX_PANE)
+           + ") select k, sum(v) as s, count() as c group by k "
+           "insert into Panes;")
+# (b): the 1k-tenant deployment of the same app, 64 seats a group, the
+# group axis sized to the 1,024 keys each tenant sends
+MUXB_TENANTS = 1_024
+MUXB_SLOTS = 64
+MUXB_WARMUP = 1
+MUXB_STEPS = 4
+# (c): the dense group, capture-free and capturing chains
+MUXC_TENANTS = 64
+MUXC_BATCH = 4_096
+MUXC_WARMUP = 2
+MUXC_STEPS = 6
+# the CPU run of the capture-free chain: its first cycle (4,096 ranks of
+# the plain batch step, one a segment position)
+MUXC_CPU_CYCLES = 1
+MUXC_CAP_BATCH = 64
+MUXC_CAP_CYCLES = 2  # one warm-up, one timed: a dedicated cycle is 4,096
+                     # general-step rounds
+MUXC_CAP_APP = ("define stream Txn (key long, v double); @info(name='bench') "
+                "from every e1=Txn[v > 1.0] -> e2=Txn[v > e1.v] within 10 min "
+                "select e1.v as a, e2.v as b insert into Alerts;")
+TR_EVENTS = 1_000_000
+TR_BATCH = 8_192
+TR_SYMBOLS = 48
+TR_ERR_BATCHES = 32
+
+
+def mux_batches(EventBatch, tenants, cycles, batch=MUX_BATCH, keys=MUX_KEYS,
+                seed=23):
+    """bench.py's ``bench_multiplexed`` traffic: each cycle the same keys
+    for every tenant (strided over ``keys``), v ~ [0, 50) integer-valued,
+    one timestamp a cycle, 10 ms apart; drawn cycle by cycle, tenant by
+    tenant, as the bench draws them."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(cycles):
+        k = (np.arange(batch, dtype=np.int64) * 524287 + i * batch) % keys
+        ts = np.full(batch, 1_000 + i * 10, dtype=np.int64)
+        out.append([EventBatch("Mkt", ["k", "v"], {
+            "k": k, "v": rng.integers(0, 50, batch).astype(np.float64)}, ts)
+            for _t in range(tenants)])
+    return out
+
+
+def dense_mux_batches(EventBatch, tenants, cycles, batch, seed=29):
+    """Each tenant's sub-batch a cycle: v ~ U(0, 20), 1 ms apart."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(cycles):
+        ts = 1_000 + i * batch + np.arange(batch, dtype=np.int64)
+        out.append([EventBatch("Txn", ["key", "v"], {
+            "key": np.full(batch, t, dtype=np.int64),
+            "v": rng.uniform(0.0, 20.0, batch)}, ts)
+            for t in range(tenants)])
+    return out
+
+
+def run_tenants(torch, SiddhiManager, StreamCallback, apps, cycles, warmup,
+                windows, device, kernels, out_stream, snapshot=False):
+    """One app runtime a tenant on one manager; each cycle sends every
+    tenant its sub-batch.  The output batches per tenant, the seconds of
+    app creation and of each timed window (synchronised), the launches
+    by kernel over the whole drive, the lowering, the groups' counters,
+    and with ``snapshot`` each tenant's query snapshot."""
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    # the counts cover the drive from app creation on: each dense group
+    # or dedicated dense engine probes the card's kernels once
+    zero_launches(kernels)
+    mgr = SiddhiManager(device=device)
+    t0 = time.perf_counter()
+    rts = [new_app(mgr, app) for app in apps]
+    create_s = time.perf_counter() - t0
+    outs = [[] for _ in rts]
+    for rt, o in zip(rts, outs):
+        rt.add_callback(out_stream, ckpt_keep(StreamCallback, o))
+        rt.start()
+    stream = cycles[0][0].stream_id
+    hs = [rt.get_input_handler(stream) for rt in rts]
+    for cycle in cycles[:warmup]:
+        for h, b in zip(hs, cycle):
+            h.send_batch(b)
+    sync()
+    window_s = []
+    steps = (len(cycles) - warmup) // max(windows, 1)
+    for w in range(windows):
+        t = time.perf_counter()
+        for cycle in cycles[warmup + w * steps:warmup + (w + 1) * steps]:
+            for h, b in zip(hs, cycle):
+                h.send_batch(b)
+        sync()
+        window_s.append(time.perf_counter() - t)
+    for rt in rts:
+        rt.drain()
+    sync()
+    launches = read_launches(kernels)
+    reg = mgr.siddhi_context.multiplex_registry
+    groups = reg.open_groups() if reg is not None else []
+    counters = {
+        "groups": len(groups),
+        "dispatches": sum(g.dispatches for g in groups),
+        "combined_steps": sum(g.combined_steps for g in groups),
+        "slow_steps": sum(getattr(g, "slow_steps", 0) for g in groups),
+        "flush_skips": sum(getattr(g, "flush_skips", 0) for g in groups),
+        "longest_segment": max((getattr(g, "last_longest", 0)
+                                for g in groups), default=0),
+        "bank_bytes": sum(g.state_bytes() for g in groups)}
+    run = {"outs": outs, "create_s": create_s, "window_s": window_s,
+           "launches": launches, "counters": counters,
+           "lowering": rts[0].lowering(step_kinds=True)}
+    if snapshot:
+        run["snaps"] = []
+        for rt in rts:
+            qr = next(iter(rt.query_runtimes.values()))
+            dr = qr.device_runtime
+            run["snaps"].append(dr.snapshot())
+        if not groups:
+            run["counters"]["bank_bytes"] = sum(
+                card_state_bytes(rt) for rt in rts)
+    for rt in rts:
+        rt.shutdown()
+    mgr.shutdown()
+    gc.collect()
+    return run
+
+
+def before(EventBatch, run, limit):
+    """``run`` with each tenant's output cut to the rows stamped before
+    ``limit`` (all of them when None)."""
+    if limit is None:
+        return run
+    outs = []
+    for batches in run["outs"]:
+        keep = []
+        for b in batches:
+            sel = np.flatnonzero(b.timestamps < limit)
+            if len(sel):
+                keep.append(EventBatch(
+                    b.stream_id, b.attribute_names,
+                    {k: np.asarray(v)[sel] for k, v in b.columns.items()},
+                    b.timestamps[sel], b.types[sel]))
+        outs.append(keep)
+    return {**run, "outs": outs}
+
+
+def held_tenants(EventBatch, a, b) -> int:
+    """Two runs' outputs, tenant by tenant, bit for bit; the rows held."""
+    rows = 0
+    for x, y in zip(a["outs"], b["outs"]):
+        rows += dq_compare(EventBatch.concat(x) if x else None,
+                           EventBatch.concat(y) if y else None, (),
+                           True)["rows"]
+    return rows
+
+
+def same_snapshots(a, b) -> int:
+    """Each tenant's device rows and pane bookkeeping, bit for bit; the
+    accumulator rows held."""
+    rows = 0
+    for x, y in zip(a["snaps"], b["snaps"]):
+        dx, dy = x["device_state"], y["device_state"]
+        if sorted(dx) != sorted(dy):
+            raise AssertionError(f"state keys {sorted(dx)} vs {sorted(dy)}")
+        for k in dx:
+            p, q = np.asarray(dx[k]), np.asarray(dy[k])
+            if p.shape != q.shape or not np.array_equal(
+                    p.view(np.uint8), q.view(np.uint8)):
+                raise AssertionError(f"tenant state '{k}' differs")
+        for k in ("pane_fill", "group_vals"):
+            if x["host"][k] != y["host"][k]:
+                raise AssertionError(f"tenant host '{k}' differs")
+        rows += len(dx["acc_cnt"])
+    return rows
+
+
+def rate(run, per_window) -> float:
+    return per_window * len(run["window_s"]) / sum(run["window_s"])
+
+
+def multiplex_phase(torch, SiddhiManager, EventBatch, StreamCallback,
+                    kernels, card) -> dict:
+    """Phase 28: multi-tenant multiplexing (``@app:multiplex``).  (a)
+    bench.py's ``bench_multiplexed``: 8 tenants, 1,024 keys, 4,096 events
+    a tenant a cycle, panes of 65,536, 2 warm-up cycles then 3 windows of
+    10, multiplexed and dedicated on the card and multiplexed on the CPU,
+    the rows bit for bit; (b) the same app for 1,024 tenants at 64 seats
+    a group, multiplexed against dedicated, every tenant's accumulator
+    rows bit for bit; (c) 64 tenants of the capture-free 16-node chain
+    (one ``batch_step`` a cycle) and 64 of the capturing two-node chain
+    (the general step's rounds), against the dedicated card runs and the
+    CPU.  Returns the launches of the card runs."""
+    launches = {k: 0 for k in kernels}
+
+    def add(run):
+        for k, v in run["launches"].items():
+            launches[k] += v
+
+    # (a)
+    cycles = mux_batches(EventBatch, MUX_TENANTS,
+                         MUX_WARMUP + MUX_STEPS * MUX_WINDOWS)
+    mux_apps = [MUX_APP.format(parts="", mux="@app:multiplex(slots='8') ")
+                .format(i=i) for i in range(MUX_TENANTS)]
+    ded_apps = [MUX_APP.format(parts="", mux="").format(i=i)
+                for i in range(MUX_TENANTS)]
+    runs = {}
+    for label, apps, device in (("mux", mux_apps, "cuda"),
+                                ("dedicated", ded_apps, "cuda"),
+                                ("cpu", mux_apps, "cpu")):
+        runs[label] = run_tenants(torch, SiddhiManager, StreamCallback, apps,
+                                  cycles, MUX_WARMUP, MUX_WINDOWS, device,
+                                  kernels, "Panes")
+    add(runs["mux"])
+    add(runs["dedicated"])
+    m, d, c = runs["mux"], runs["dedicated"], runs["cpu"]
+    held = held_tenants(EventBatch, m, d)
+    held_cpu = held_tenants(EventBatch, m, c)
+    n_cycles = MUX_WARMUP + MUX_STEPS * MUX_WINDOWS
+    mc = m["counters"]
+    if (m["lowering"] != {"w": "multiplex"} or mc["groups"] != 1
+            or d["lowering"] != {"w": "device"} or not held
+            or held != held_cpu or m["launches"]["bank_scatter"] < 1):
+        raise AssertionError(f"multiplex (a): {m['lowering']} {mc} "
+                             f"{d['lowering']} rows {held}/{held_cpu} "
+                             f"{m['launches']}")
+    per_window = MUX_TENANTS * MUX_BATCH * MUX_STEPS
+    emit({"phase": "multiplex", "case": "a", "tenants": MUX_TENANTS,
+          "keys": MUX_KEYS, "batch": MUX_BATCH, "pane": MUX_PANE,
+          "warmup": MUX_WARMUP, "windows": MUX_WINDOWS, "steps": MUX_STEPS,
+          "lowering": m["lowering"],
+          "events_per_s": rate(m, per_window),
+          "events_per_s_windows": [per_window / t for t in m["window_s"]],
+          "dedicated_events_per_s": rate(d, per_window),
+          "cpu_events_per_s": rate(c, per_window),
+          "dispatches_per_cycle": mc["dispatches"] / n_cycles,
+          "dedicated_dispatches_per_cycle": MUX_TENANTS,
+          "combined_steps": mc["combined_steps"],
+          "slow_steps": mc["slow_steps"],
+          "accumulate_launches": m["launches"]["bank_scatter"],
+          "dedicated_accumulate_launches": d["launches"]["bank_scatter"],
+          "bank_bytes": mc["bank_bytes"],
+          "rows_held_vs_dedicated": held, "rows_held_vs_cpu": held_cpu,
+          "card": card})
+    del runs, m, d, c, cycles
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b)
+    cycles = mux_batches(EventBatch, MUXB_TENANTS, MUXB_WARMUP + MUXB_STEPS,
+                         seed=41)
+    parts = f", partitions='{MUX_KEYS}'"
+    mux_apps = [MUX_APP.format(parts=parts,
+                               mux=f"@app:multiplex(slots='{MUXB_SLOTS}') ")
+                .format(i=i) for i in range(MUXB_TENANTS)]
+    ded_apps = [MUX_APP.format(parts=parts, mux="").format(i=i)
+                for i in range(MUXB_TENANTS)]
+    m = run_tenants(torch, SiddhiManager, StreamCallback, mux_apps, cycles,
+                    MUXB_WARMUP, 1, "cuda", kernels, "Panes", snapshot=True)
+    add(m)
+    d = run_tenants(torch, SiddhiManager, StreamCallback, ded_apps, cycles,
+                    MUXB_WARMUP, 1, "cuda", kernels, "Panes", snapshot=True)
+    add(d)
+    held_rows = same_snapshots(m, d)
+    held_out = held_tenants(EventBatch, m, d)
+    mc = m["counters"]
+    n_cycles = MUXB_WARMUP + MUXB_STEPS
+    if (m["lowering"] != {"w": "multiplex"}
+            or mc["groups"] != MUXB_TENANTS // MUXB_SLOTS
+            or held_rows != MUXB_TENANTS * MUX_KEYS):
+        raise AssertionError(f"multiplex (b): {m['lowering']} {mc} "
+                             f"rows {held_rows}")
+    per_window = MUXB_TENANTS * MUX_BATCH * MUXB_STEPS
+    emit({"phase": "multiplex", "case": "b", "tenants": MUXB_TENANTS,
+          "slots": MUXB_SLOTS, "groups": mc["groups"], "keys": MUX_KEYS,
+          "batch": MUX_BATCH, "warmup": MUXB_WARMUP, "timed": MUXB_STEPS,
+          "app_creation_s": m["create_s"],
+          "dedicated_app_creation_s": d["create_s"],
+          "events_per_s": rate(m, per_window),
+          "dedicated_events_per_s": rate(d, per_window),
+          "dispatches_per_cycle": mc["dispatches"] / n_cycles,
+          "dedicated_dispatches_per_cycle": MUXB_TENANTS,
+          "combined_steps": mc["combined_steps"],
+          "slow_steps": mc["slow_steps"],
+          "accumulate_launches": m["launches"]["bank_scatter"],
+          "accumulator_rows": held_rows, "bank_bytes": mc["bank_bytes"],
+          "dedicated_state_bytes": d["counters"]["bank_bytes"],
+          "rows_held_vs_dedicated": held_rows,
+          "output_rows_held": held_out,
+          "held": "every tenant's accumulator rows and pane fill: 5 "
+                  "cycles of 4,096 leave each pane of 65,536 open",
+          "card": card})
+    del m, d, cycles
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c)
+    for label, body, batch, n_cyc, warm, cpu_cyc in (
+            ("batch", kernel_eligible_app(), MUXC_BATCH,
+             MUXC_WARMUP + MUXC_STEPS, MUXC_WARMUP, MUXC_CPU_CYCLES),
+            ("general", MUXC_CAP_APP, MUXC_CAP_BATCH, MUXC_CAP_CYCLES, 1,
+             MUXC_CAP_CYCLES)):
+        cycles = dense_mux_batches(EventBatch, MUXC_TENANTS, n_cyc, batch)
+        head = "@app:name('mc{i}') @app:playback @app:execution('tpu') "
+        mux_apps = [(head + f"@app:multiplex(slots='{MUXC_TENANTS}') "
+                     + body).format(i=i) for i in range(MUXC_TENANTS)]
+        ded_apps = [(head + body).format(i=i) for i in range(MUXC_TENANTS)]
+        runs = {}
+        for run_label, apps, device, cyc, w in (
+                ("mux", mux_apps, "cuda", cycles, warm),
+                ("dedicated", ded_apps, "cuda", cycles, warm),
+                ("cpu", mux_apps, "cpu", cycles[:cpu_cyc],
+                 min(warm, cpu_cyc - 1))):
+            runs[run_label] = run_tenants(
+                torch, SiddhiManager, StreamCallback, apps, cyc, w, 1,
+                device, kernels, "Alerts")
+        m, d, c = runs["mux"], runs["dedicated"], runs["cpu"]
+        add(m)
+        add(d)
+        held = held_tenants(EventBatch, m, d)
+        # the CPU run's cycles: rows completed before the next cycle's
+        # first event
+        limit = int(cycles[cpu_cyc][0].timestamps[0]) if cpu_cyc < n_cyc \
+            else None
+        held_cpu = held_tenants(EventBatch, before(EventBatch, m, limit), c)
+        mc = m["counters"]
+        want = {"bench": f"multiplex/{label}"}
+        bad = (m["lowering"] != want or c["lowering"] != want
+               or d["lowering"] != {"bench": f"dense/{label}"}
+               or not held or not held_cpu or mc["groups"] != 1
+               or (held != held_cpu and cpu_cyc == n_cyc))
+        if label == "batch":
+            bad = bad or (m["launches"]["dense_batch"] != n_cyc
+                          or d["launches"]["dense_batch"]
+                          != n_cyc * MUXC_TENANTS)
+        if bad:
+            raise AssertionError(f"multiplex (c) {label}: {m['lowering']} "
+                                 f"{d['lowering']} {mc} rows {held}/"
+                                 f"{held_cpu} {m['launches']} "
+                                 f"{d['launches']}")
+        per_window = MUXC_TENANTS * batch * (n_cyc - warm)
+        emit({"phase": "multiplex", "case": f"c/{label}",
+              "tenants": MUXC_TENANTS, "batch": batch, "warmup": warm,
+              "timed": n_cyc - warm, "lowering": m["lowering"],
+              "events_per_s": rate(m, per_window),
+              "dedicated_events_per_s": rate(d, per_window),
+              "cpu_events_per_s": rate(c, MUXC_TENANTS * batch
+                                       * (cpu_cyc - min(warm, cpu_cyc - 1))),
+              "cpu_cycles": cpu_cyc,
+              "dispatches_per_cycle": mc["dispatches"] / n_cyc,
+              "longest_segment": mc["longest_segment"],
+              "dense_batch_launches": m["launches"]["dense_batch"],
+              "dedicated_dense_batch_launches":
+                  d["launches"]["dense_batch"],
+              "probe_launches": m["launches"]["probe"],
+              "dedicated_probe_launches": d["launches"]["probe"],
+              "bank_bytes": mc["bank_bytes"],
+              "rows_held_vs_dedicated": held, "rows_held_vs_cpu": held_cpu,
+              "card": card})
+        del runs, m, d, c, cycles
+        gc.collect()
+    return launches
+
+
+def tr_batches(EventBatch, n_events=TR_EVENTS, batch=TR_BATCH, seed=53):
+    """The verify skill's stream at scale: 48 symbols, integer-valued
+    float32 prices (their sums are exact in any order), volume ~ [0,
+    300), 1 ms apart, in batches of 8,192."""
+    rng = np.random.default_rng(seed)
+    syms = np.array([f"S{i:02d}" for i in range(TR_SYMBOLS)], dtype=object)
+    out = []
+    for lo in range(0, n_events, batch):
+        n = min(batch, n_events - lo)
+        out.append(EventBatch("S", ["symbol", "price", "volume"], {
+            "symbol": syms[rng.integers(0, TR_SYMBOLS, n)],
+            "price": rng.integers(1, 1_000, n).astype(np.float32),
+            "volume": rng.integers(0, 300, n).astype(np.int64)},
+            1_000 + lo + np.arange(n, dtype=np.int64)))
+    return out
+
+
+TR_BODY = ("define stream S (symbol string, price float, volume long); "
+           "{sink_out}define stream Out (symbol string, price float); "
+           "{sink_agg}define stream Agg (symbol string, total double, "
+           "n long); "
+           "@info(name='filter') from S[volume < 150] select symbol, price "
+           "insert into Out; "
+           "@info(name='agg') from S#window.lengthBatch(8192) "
+           "select symbol, sum(price) as total, count() as n "
+           "group by symbol insert into Agg;")
+
+
+def tr_app(tag, mapper=None):
+    src = sink_out = sink_agg = ""
+    if mapper is not None:
+        src = (f"@source(type='inMemory', topic='tr-in-{tag}', "
+               f"@map(type='{mapper}')) ")
+        sink_out = (f"@sink(type='inMemory', topic='tr-out-{tag}', "
+                    f"@map(type='{mapper}')) ")
+        sink_agg = (f"@sink(type='inMemory', topic='tr-agg-{tag}', "
+                    f"@map(type='{mapper}')) ")
+    return (f"@app:name('tr{tag}') @app:playback @app:execution('tpu') "
+            + src + TR_BODY.format(sink_out=sink_out, sink_agg=sink_agg))
+
+
+def tr_rows(values) -> list:
+    """Rows as python tuples (float32 prices by value)."""
+    return [tuple(v.item() if isinstance(v, np.generic) else v for v in r)
+            for r in values]
+
+
+def run_transport(torch, SiddhiManager, StreamCallback, batches, payloads,
+                  mapper, device, kernels):
+    """The transport app over the traffic: through the input handler and
+    stream callbacks (``mapper`` None), or published to its source and
+    received from its sinks' topics by broker subscribers.  The Out and
+    Agg rows, the seconds (synchronised), the launches and the
+    lowering."""
+    from siddhi_tpu_torch.core.event import events_from_batch
+    from siddhi_tpu_torch.transport.broker import (
+        FunctionSubscriber,
+        InMemoryBroker,
+    )
+
+    tag = f"{mapper or 'handler'}-{device}"
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    mgr = SiddhiManager(device=device)
+    rt = new_app(mgr, tr_app(tag, mapper))
+    got = {"Out": [], "Agg": []}
+    subs = []
+    if mapper is None:
+        for o in got:
+            rt.add_callback(o, ckpt_keep(StreamCallback, got[o]))
+    else:
+        for o, topic in (("Out", f"tr-out-{tag}"), ("Agg", f"tr-agg-{tag}")):
+            subs.append(FunctionSubscriber(topic, got[o].append))
+            InMemoryBroker.subscribe(subs[-1])
+    rt.start()
+    zero_launches(kernels)
+    h = rt.get_input_handler("S")
+    sync()
+    t = time.perf_counter()
+    if mapper is None:
+        for b in batches:
+            h.send_batch(b)
+    else:
+        for p in payloads:
+            InMemoryBroker.publish(f"tr-in-{tag}", p)
+    rt.drain()
+    sync()
+    secs = time.perf_counter() - t
+    launches = read_launches(kernels)
+    low = rt.lowering()
+    rt.shutdown()
+    for s in subs:
+        InMemoryBroker.unsubscribe(s)
+    mgr.shutdown()
+    rows = {}
+    for o, items in got.items():
+        if mapper is None:
+            rows[o] = tr_rows(e.data for b in items
+                              for e in events_from_batch(b))
+        elif mapper == "json":
+            rows[o] = tr_rows(tuple(json.loads(s).values()) for s in items)
+        else:
+            rows[o] = tr_rows(e.data for e in items)
+    return {"rows": rows, "secs": secs, "launches": launches,
+            "lowering": low}
+
+
+def tr_err_app(tag):
+    return (f"@app:name('trerr{tag}') @app:playback "
+            "@app:execution('tpu', partitions='64') "
+            "@OnError(action='STREAM') "
+            "define stream S (symbol string, price float, volume long); "
+            "@info(name='agg') from S#window.lengthBatch(8192) "
+            "select symbol, sum(price) as total, count() as n "
+            "group by symbol insert into Agg; "
+            "@info(name='faults') from !S select symbol, volume, _error "
+            "insert into F;")
+
+
+def transports_phase(torch, SiddhiManager, EventBatch, StreamCallback,
+                     kernels, card) -> dict:
+    """Phase 29: sources, sinks and fault streams.  The verify skill's
+    filter and a tumbling group-by under ``@app:execution('tpu')`` over
+    1,000,000 events in publishes of 8,192: in through an in-memory
+    source (pass-through, then JSON), out through in-memory sinks to
+    broker subscribers, the rows held against the input-handler run on
+    the card and at ``device="cpu"``; then an ``@OnError(action='STREAM')`` app
+    whose device query fails on some batches (new symbols past its 64
+    group rows), its ``!S`` rows held against the CPU run's.  Returns
+    the launches of the card runs."""
+    from siddhi_tpu_torch.core.event import Event, events_from_batch
+
+    launches = {k: 0 for k in kernels}
+    batches = tr_batches(EventBatch)
+    t0 = time.perf_counter()
+    events = [events_from_batch(b) for b in batches]
+    names = ("symbol", "price", "volume")
+    json_payloads = [json.dumps([dict(zip(names, (r[0], float(r[1]),
+                                                  int(r[2]))))
+                                 for r in (e.data for e in evs)])
+                     for evs in events]
+    setup_s = time.perf_counter() - t0
+    runs = {}
+    for label, mapper, device, payloads in (
+            ("handler", None, "cuda", None),
+            ("passThrough", "passThrough", "cuda", events),
+            ("json", "json", "cuda", json_payloads),
+            ("cpu", None, "cpu", None)):
+        runs[label] = run_transport(torch, SiddhiManager, StreamCallback,
+                                    batches, payloads, mapper, device,
+                                    kernels)
+        if device == "cuda":
+            for k, v in runs[label]["launches"].items():
+                launches[k] += v
+    ref = runs["handler"]
+    for label, r in runs.items():
+        # a JSON source carries no event times: the rows are held, their
+        # timestamps are not
+        if r["rows"] != ref["rows"] or r["lowering"] != {
+                "filter": "device", "agg": "device"}:
+            raise AssertionError(f"transports {label}: rows or lowering "
+                                 f"differ ({r['lowering']})")
+    if ref["launches"]["bank_scatter"] < 1:
+        raise AssertionError(f"transports launches {ref['launches']}")
+    emit({"phase": "transports", "events": TR_EVENTS, "publish": TR_BATCH,
+          "lowering": ref["lowering"],
+          "handler_events_per_s": TR_EVENTS / ref["secs"],
+          "source_sink_events_per_s": TR_EVENTS / runs["passThrough"]["secs"],
+          "json_source_sink_events_per_s": TR_EVENTS / runs["json"]["secs"],
+          "cpu_handler_events_per_s": TR_EVENTS / runs["cpu"]["secs"],
+          "out_rows": len(ref["rows"]["Out"]),
+          "agg_rows": len(ref["rows"]["Agg"]),
+          "rows_held": {k: len(v) for k, v in ref["rows"].items()},
+          "held_against": ["handler", "passThrough", "json", "cpu"],
+          "payload_setup_s": setup_s,
+          "accumulate_launches": {k: r["launches"]["bank_scatter"]
+                                  for k, r in runs.items()},
+          "card": card})
+    del events, json_payloads, runs
+    gc.collect()
+    # the fault stream on the device path
+    rng = np.random.default_rng(59)
+    err = []
+    for i in range(TR_ERR_BATCHES):
+        b = batches[i]
+        sym = np.asarray(b.columns["symbol"]).copy()
+        if i % 8 == 5:
+            # 20 symbols the group rows have no room for
+            sym[rng.integers(0, len(sym), 20)] = [f"N{i}_{j}"
+                                                  for j in range(20)]
+        err.append(EventBatch("S", list(b.attribute_names),
+                              {**b.columns, "symbol": sym}, b.timestamps))
+    outs = {}
+    for device in ("cuda", "cpu"):
+        mgr = SiddhiManager(device=device)
+        rt = new_app(mgr, tr_err_app(device))
+        kept = {"Agg": [], "F": []}
+        for o in kept:
+            rt.add_callback(o, ckpt_keep(StreamCallback, kept[o]))
+        rt.start()
+        zero_launches(kernels)
+        h = rt.get_input_handler("S")
+        for b in err:
+            h.send_batch(b)
+        rt.drain()
+        if device == "cuda":
+            for k, v in read_launches(kernels).items():
+                launches[k] += v
+        outs[device] = (kept, rt.lowering())
+        rt.shutdown()
+        mgr.shutdown()
+    (ck, cl), (pk, pl) = outs["cuda"], outs["cpu"]
+    fault_rows = [(r[0], r[1], type(r[2]).__name__, str(r[2]))
+                  for b in ck["F"] for r in zip(
+                      b.columns["symbol"], b.columns["volume"],
+                      b.columns["_error"])]
+    cpu_fault_rows = [(r[0], r[1], type(r[2]).__name__, str(r[2]))
+                      for b in pk["F"] for r in zip(
+                          b.columns["symbol"], b.columns["volume"],
+                          b.columns["_error"])]
+    agg_held = dq_compare(EventBatch.concat(ck["Agg"]),
+                          EventBatch.concat(pk["Agg"]), (), True)["rows"]
+    failing = sum(1 for i in range(TR_ERR_BATCHES) if i % 8 == 5)
+    if (fault_rows != cpu_fault_rows or cl != pl
+            or len(fault_rows) < failing * TR_BATCH // 2
+            or cl.get("agg") != "device"):
+        raise AssertionError(f"transports on-error: {len(fault_rows)} vs "
+                             f"{len(cpu_fault_rows)} fault rows, {cl}, {pl}")
+    emit({"phase": "transports", "case": "on_error_stream",
+          "batches": TR_ERR_BATCHES, "failing_batches": failing,
+          "lowering": cl, "fault_rows": len(fault_rows),
+          "fault_rows_held_vs_cpu": len(fault_rows),
+          "agg_rows_held_vs_cpu": agg_held,
+          "errors": sorted({r[2] for r in fault_rows}), "card": card})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -6370,6 +7011,22 @@ def main() -> int:
                                   StreamCallback, all_kernels, card)
     emit({"phase": "devtables_seconds",
           "seconds": time.perf_counter() - t_phase})
+
+    # 28-29. multiplexing; sources, sinks and fault streams -------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    mux_launches = multiplex_phase(torch, SiddhiManager, EventBatch,
+                                   StreamCallback, all_kernels, card)
+    emit({"phase": "multiplex_seconds",
+          "seconds": time.perf_counter() - t_phase})
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    tr_launches = transports_phase(torch, SiddhiManager, EventBatch,
+                                   StreamCallback, all_kernels, card)
+    emit({"phase": "transports_seconds",
+          "seconds": time.perf_counter() - t_phase})
     emit({"phase": "isolated_errors", "errors": 0,
           "warnings_to_listeners_or_log": ISOLATED.warnings})
 
@@ -6398,7 +7055,11 @@ def main() -> int:
                             # the card runs of the fusion and device
                             # table phases
                             "fusion": fuse_launches[name],
-                            "devtables": dt_launches[name]}
+                            "devtables": dt_launches[name],
+                            # (a)-(c) of the multiplex phase, multiplexed
+                            # and dedicated card runs; the transport runs
+                            "multiplex": mux_launches[name],
+                            "transports": tr_launches[name]}
     emit({"kernels": [
         {"name": "dense_batch", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/dense_batch.cu",
@@ -6407,7 +7068,9 @@ def main() -> int:
                       + hp_launches["dense_batch"]
                       + product_launches["dense_batch"]
                       + auto_launches["dense_batch"]
-                      + ckpt_launches["dense_batch"]),
+                      + ckpt_launches["dense_batch"]
+                      + mux_launches["dense_batch"]
+                      + tr_launches["dense_batch"]),
          "launches_by_path": by_path("dense_batch"),
          "max_abs_err": batch_err,
          # the 1 M cell's batch; the routed cold sub-batch beside it
@@ -6430,7 +7093,8 @@ def main() -> int:
                       + pb_launches["probe"] + absent_launches["probe"]
                       + rollup_launches["probe"] + hp_launches["probe"]
                       + product_launches["probe"] + auto_launches["probe"]
-                      + ckpt_launches["probe"] + fuse_launches["probe"]),
+                      + ckpt_launches["probe"] + fuse_launches["probe"]
+                      + mux_launches["probe"] + tr_launches["probe"]),
          "launches_by_path": by_path("probe"), "max_abs_err": probe_err,
          **{k: probe_line[k] for k in KERNEL_KEYS}},
         {"name": "scan_chain", "route": "cuda",
@@ -6451,7 +7115,9 @@ def main() -> int:
                      + auto_launches["bank_scatter"]
                      + ckpt_launches["bank_scatter"]
                      + fuse_launches["bank_scatter"]
-                     + dt_launches["bank_scatter"],
+                     + dt_launches["bank_scatter"]
+                     + mux_launches["bank_scatter"]
+                     + tr_launches["bank_scatter"],
          "launches_by_path": by_path("bank_scatter"),
          "launches_by_entry": bank_by_entry,
          "max_abs_err": bank_err,

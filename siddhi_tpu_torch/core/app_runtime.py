@@ -27,14 +27,20 @@ extension registry.  Persistence: ``persist(mode)`` (sync, or async
 through the checkpoint writer thread), ``snapshot``/``restore`` of raw
 bytes, ``restore_revision``/``restore_last_revision`` (walking back
 past a revision that does not restore) with the input journal's replay,
-``clear_all_revisions`` and the ``@app:persist(interval)`` daemon.  An
-app outside the slices raises
-``SiddhiAppCreationError`` naming the ``ROADMAP.md`` item that ports
-it: sources and sinks (item 15).
+``clear_all_revisions`` and the ``@app:persist(interval)`` daemon
+(sources paused around each capture).  ``@source``/``@sink`` transports
+start and stop with the runtime (``sources``, ``sinks``);
+``@OnError(action='STREAM')`` streams have their ``!name`` fault
+junction, read by ``from !S`` and written by ``insert into !S``.
+Under ``@app:multiplex`` a query may take a seat in a shared engine
+(``lowering()`` gives ``'multiplex'``), which its shutdown frees.  An
+app outside the slices raises ``SiddhiAppCreationError`` naming the
+``ROADMAP.md`` item that ports it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 import time
@@ -46,9 +52,9 @@ from siddhi_tpu_torch.core.exceptions import (
     CannotRestoreSiddhiAppStateError,
     DefinitionNotExistError,
     NoPersistenceStoreError,
+    OnErrorAction,
     SiddhiAppCreationError,
     SiddhiAppRuntimeError,
-    later_slice,
 )
 from siddhi_tpu_torch.core.partition import PartitionRuntime
 from siddhi_tpu_torch.core.stream import (
@@ -69,11 +75,18 @@ from siddhi_tpu_torch.durability.writer import (
 )
 from siddhi_tpu_torch.extension.function import build_functions
 from siddhi_tpu_torch.extension.validator import validate_extension_args
-from siddhi_tpu_torch.planner.app_planner import plan_app_context
+from siddhi_tpu_torch.planner.app_planner import (
+    attach_transports,
+    note_fused_conflicts,
+    plan_app_context,
+    transport_config,
+)
 from siddhi_tpu_torch.planner.fusion import plan_fused_chains
 from siddhi_tpu_torch.planner.host_expr import ExpressionCompiler, Scope
 from siddhi_tpu_torch.planner.query_planner import plan_query
 from siddhi_tpu_torch.query_api import (
+    Attribute,
+    AttrType,
     Query,
     SingleInputStream,
     StreamDefinition,
@@ -93,18 +106,6 @@ class SiddhiAppRuntime:
                                             siddhi_context)
         self.name = self.app_context.name
         self.siddhi_context = siddhi_context
-        # sources and sinks come with item 15; their planner reads the
-        # manager's config manager and handler managers, as the store
-        # planner here does
-        transports = [f"@{a.name.lower()}(type='{a.element('type')}') on "
-                      f"'{sid}'"
-                      for sid, d in siddhi_app.stream_definitions.items()
-                      for a in d.annotations
-                      if a.name.lower() in ("source", "sink")]
-        if transports:
-            raise SiddhiAppCreationError(
-                f"app '{self.name}': {', '.join(transports)}"
-                + later_slice(15, "sources and sinks"))
         # a copy of the manager's registry: the built-ins and the user
         # extensions set before this app was created
         self.extensions = siddhi_context.extensions.copy()
@@ -112,14 +113,20 @@ class SiddhiAppRuntime:
         # ``define function`` scripts
         self.functions = build_functions(self.extensions,
                                          siddhi_app.function_definitions)
+        self._running = False
+        # (handler manager, element id) of each source, sink and
+        # record-table handler, unregistered at shutdown
+        self._handler_registrations: List = []
+        # the @source and @sink transports of the defined streams
+        self.sources: List = []
+        self.sinks: List = []
         self.definitions = dict(siddhi_app.stream_definitions)
-        self.junctions: Dict[str, StreamJunction] = {
-            sid: self._define_junction(d)
-            for sid, d in self.definitions.items()}
+        self.junctions: Dict[str, StreamJunction] = {}
+        for d in list(self.definitions.values()):
+            self._define_junction(d)
         self.partitions: Dict[str, PartitionRuntime] = {}
         # unpartitioned queries by name (host queries, dense patterns)
         self.query_runtimes: Dict[str, object] = {}
-        self._running = False
         self._playback_stop = None
         self._playback_thread = None
         self._persist_stop = None
@@ -128,9 +135,6 @@ class SiddhiAppRuntime:
         self._durab_stats = None
         self._ckpt_writer = None
         self._on_demand_cache: Dict[str, object] = {}
-        # (handler manager, element id) of each record-table handler,
-        # unregistered at shutdown
-        self._handler_registrations: List = []
         self.tables: Dict[str, object] = {
             td.id: self._build_table(td)
             for td in siddhi_app.table_definitions.values()}
@@ -156,7 +160,11 @@ class SiddhiAppRuntime:
         qi = pi = 0  # the reference numbers queries and partitions apart
         for el in siddhi_app.execution_elements:
             if isinstance(el, Query):
-                qr = fused.pop(id(el), None) or plan_query(self, el, qi)
+                qr = fused.pop(id(el), None)
+                if qr is not None:
+                    note_fused_conflicts(self.app_context, qr.name)
+                else:
+                    qr = plan_query(self, el, qi)
                 qi += 1
                 if qr.name in self.query_runtimes:
                     raise SiddhiAppCreationError(
@@ -167,27 +175,49 @@ class SiddhiAppRuntime:
             pi += 1
             self.partitions[pr.name] = pr
 
-    def _define_junction(self, d) -> StreamJunction:
-        """A defined stream's junction: ``@async(buffer.size,
-        batch.size.max)`` makes it asynchronous (reference:
-        ``siddhi_tpu/planner/app_planner.py`` ``define_stream``).
-        ``@OnError(action='STREAM')`` routes failures to a fault stream,
-        which comes with item 15."""
+    def _define_junction(self, d, key: Optional[str] = None
+                         ) -> StreamJunction:
+        """A defined stream's junction, registered under ``key`` (its id
+        by default) with its definition and its transports (reference:
+        ``siddhi_tpu/planner/app_planner.py`` ``define_stream``):
+        ``@async(buffer.size, batch.size.max)`` makes it asynchronous;
+        ``@OnError(action='STREAM')`` defines its fault stream ``!id``
+        (the attributes and ``_error``), where failing batches go."""
+        key = key or d.id
+        if key in self.junctions:
+            return self.junctions[key]
+        kw = {}
+        async_ann = find_annotation(d.annotations, "async")
+        if async_ann is not None:
+            bs = async_ann.element("buffer.size")
+            bm = async_ann.element("batch.size.max")
+            kw.update(is_async=True, buffer_size=int(bs) if bs else 1024,
+                      batch_size_max=int(bm) if bm else None)
         onerror = find_annotation(d.annotations, "OnError")
         if (onerror is not None
                 and (onerror.element("action") or "log").lower() == "stream"):
-            raise SiddhiAppCreationError(
-                f"stream '{d.id}': @OnError(action='STREAM') routes failing "
-                "batches to a fault stream"
-                + later_slice(15, "the operations layer"))
-        async_ann = find_annotation(d.annotations, "async")
-        if async_ann is None:
-            return StreamJunction(d, self.app_context)
-        bs = async_ann.element("buffer.size")
-        bm = async_ann.element("batch.size.max")
-        return StreamJunction(d, self.app_context, is_async=True,
-                              buffer_size=int(bs) if bs else 1024,
-                              batch_size_max=int(bm) if bm else None)
+            fault_def = StreamDefinition(
+                id="!" + d.id, attributes=list(d.attributes)
+                + [Attribute("_error", AttrType.OBJECT)])
+            kw.update(on_error=OnErrorAction.STREAM,
+                      fault_junction=self._define_junction(
+                          fault_def, key="!" + d.id))
+        j = self.junctions[key] = StreamJunction(d, self.app_context, **kw)
+        self.definitions[key] = d
+        attach_transports(self, d, j)
+        return j
+
+    def fault_output_junction(self, target: str, out_def) -> StreamJunction:
+        """The junction of ``insert into !target``: the stream's fault
+        junction, defined from the query's output when the stream has
+        none (reference: ``get_or_create_junction(is_fault=True)``)."""
+        j = self.junctions.get("!" + target)
+        if j is None:
+            j = self._define_junction(
+                StreamDefinition(id=target,
+                                 attributes=list(out_def.attributes)),
+                key="!" + target)
+        return j
 
     # -- tables and named windows --------------------------------------------
 
@@ -210,22 +240,8 @@ class SiddhiAppRuntime:
                         "table stays host-resident (%s)", td.id, e)
                     ctx.devtable_fallbacks[f"table:{td.id}"] = str(e)
             return InMemoryTable(td)
-        opts = {k: v for k, v in store_ann.elements
-                if k is not None and k.lower() != "type"}
-        ref = opts.pop("ref", None)
         cm = self.siddhi_context.config_manager
-        if ref is not None:
-            ref_configs = dict(cm.extract_system_configs(ref))
-            if not ref_configs:
-                raise SiddhiAppCreationError(f"undefined ref '{ref}'")
-            ref_configs.update(opts)
-            opts = ref_configs
-        stype = store_ann.element("type") or opts.get("type")
-        if stype is None:
-            raise SiddhiAppCreationError(
-                "@store on a definition: 'type' is required (inline or "
-                "via ref)")
-        opts.pop("type", None)
+        stype, opts = transport_config(store_ann, "store", cm)
         factory = self.extensions.lookup("store", stype)
         if factory is None:
             raise SiddhiAppCreationError(
@@ -288,18 +304,19 @@ class SiddhiAppRuntime:
 
     # -- planning hooks ------------------------------------------------------
 
+    @staticmethod
+    def _input_key(s: SingleInputStream) -> str:
+        """An ``#inner`` stream outside a partition is the app's own
+        junction ``#<id>``, once a query inserts into it; a fault stream
+        is ``!<id>`` (reference)."""
+        return ("#" if s.is_inner else "!" if s.is_fault else "") \
+            + s.stream_id
+
     def resolve_stream_definition(self, s):
-        if isinstance(s, SingleInputStream) and s.is_fault:
-            raise SiddhiAppCreationError(
-                f"cannot resolve definition for {s!r}: fault streams "
-                "(@OnError(action='STREAM'))"
-                + later_slice(15, "the operations layer"))
         if not isinstance(s, SingleInputStream):
             raise SiddhiAppCreationError(
                 f"cannot resolve definition for {s!r}")
-        # an ``#inner`` stream outside a partition is the app's own
-        # junction ``#<id>``, once a query inserts into it (reference)
-        key = ("#" if s.is_inner else "") + s.stream_id
+        key = self._input_key(s)
         d = self.definitions.get(key)
         if d is None:
             raise DefinitionNotExistError(
@@ -308,7 +325,7 @@ class SiddhiAppRuntime:
 
     def junction_for_input(self, s: SingleInputStream) -> StreamJunction:
         self.resolve_stream_definition(s)
-        return self.junctions[("#" if s.is_inner else "") + s.stream_id]
+        return self.junctions[self._input_key(s)]
 
     def output_junction(self, out_def, is_inner: bool = False
                         ) -> StreamJunction:
@@ -377,7 +394,27 @@ class SiddhiAppRuntime:
         for t in self.tables.values():
             if hasattr(t, "start"):
                 t.start()  # record tables connect their stores
+        # sinks connect before sources, so output paths exist when events
+        # flow; the running gate opens first, since a source may deliver
+        # on its transport thread the instant it subscribes.  A failing
+        # transport start closes the gate again.
         self._running = True
+        try:
+            for s in self.sinks:
+                s.start()
+            for s in self.sources:
+                s.start()
+        except Exception as e:
+            log.error("app '%s': transport start failed, rolling back the "
+                      "running gate: %s", self.name, e)
+            self._running = False
+            for s in list(self.sources) + list(self.sinks):
+                try:
+                    s.shutdown()
+                except Exception:
+                    log.exception("transport shutdown after a failed "
+                                  "start")
+            raise
         ctx = self.app_context
         if ctx.playback and ctx.playback_idle_ms > 0:
             self._start_playback_heartbeat()
@@ -462,13 +499,19 @@ class SiddhiAppRuntime:
             self._persist_stop = self._persist_thread = None
         if self._ckpt_writer is not None:
             self._ckpt_writer.shutdown()
+        for s in self.sources:
+            s.shutdown()
         # the async workers stop (dispatching what they hold) before the
         # device runtimes drain, so every accepted batch reaches them
         for j in list(self.junctions.values()):
             j.stop()
         self.scheduler.stop()
+        # the device runtimes' last emits reach the sinks before these
+        # disconnect; a multiplexed query frees its seat here
         for rt in self.device_runtimes().values():
             rt.close()
+        for s in self.sinks:
+            s.shutdown()
         for ar in self.aggregations.values():
             ar.close()
         for t in self.tables.values():
@@ -571,6 +614,18 @@ class SiddhiAppRuntime:
         if jr is not None:
             jr.commit_revision(revision)
 
+    @contextlib.contextmanager
+    def _sources_paused(self):
+        """External input held around a capture: each source buffers
+        what arrives and replays it, in order, on resume."""
+        for s in self.sources:
+            s.pause()
+        try:
+            yield
+        finally:
+            for s in self.sources:
+                s.resume()
+
     def persist(self, mode: Optional[str] = None) -> str:
         """Snapshot all state and save it under a new revision
         (reference: SiddhiAppRuntimeImpl.persist:677); returns the
@@ -599,7 +654,7 @@ class SiddhiAppRuntime:
         revision = SnapshotService.new_revision(self.name)
         jr = self.app_context.input_journal
         if incremental:
-            with self.app_context.process_lock:
+            with self._sources_paused(), self.app_context.process_lock:
                 self.drain()
                 kind, data = svc.incremental_snapshot()
             store.save(self.name, revision, kind, data)
@@ -611,10 +666,11 @@ class SiddhiAppRuntime:
         def on_fallback(_element, _reason):
             st.capture_fallback_elements += 1
 
-        # the barrier: the app lock, and every emit still pending on the
-        # device lands in downstream state (selectors, windows, tables)
-        # before that state is captured
-        with self.app_context.process_lock:
+        # the barrier: the sources paused (reference:
+        # SiddhiAppRuntimeImpl.persist:677-691), the app lock, and every
+        # emit still pending on the device lands in downstream state
+        # (selectors, windows, tables) before that state is captured
+        with self._sources_paused(), self.app_context.process_lock:
             self.drain()
             capture = svc.capture(on_fallback=on_fallback)
             if jr is not None:
@@ -826,11 +882,12 @@ class SiddhiAppRuntime:
 
     def lowering(self, step_kinds: bool = False) -> Dict[str, str]:
         """Per-query engine placement: ``'host'``, ``'device'``,
-        ``'dense'``, ``'hotkey'``, ``'fused'`` or ``'devtable'``, as the
-        reference reports it; every
-        query of a per-key instance body is ``'host'``.
-        ``step_kinds=True`` adds a dense pattern's step, fixed at compile
-        time: ``'dense/batch'``, ``'dense/general'``, ``'hotkey/batch'``."""
+        ``'dense'``, ``'hotkey'``, ``'fused'``, ``'devtable'`` or
+        ``'multiplex'``, as the reference reports it; every query of a
+        per-key instance body is ``'host'``.  ``step_kinds=True`` adds a
+        dense pattern's step, fixed at compile time: ``'dense/batch'``,
+        ``'dense/general'``, ``'hotkey/batch'``, ``'multiplex/batch'``,
+        ``'multiplex/general'``."""
         out: Dict[str, str] = {}
         for n, qr in self.query_runtimes.items():
             out[n] = qr.lowered_to

@@ -7,10 +7,11 @@ device, ``cuda`` unless the caller passes ``device="cpu"`` (without a
 card, the default raises rather than run on the CPU), and tracks the
 runtimes it registered.  The config manager's refs and readers and the
 record-table handler manager are read by the store planner of the app
-runtime (``@store`` tables); the data sources and the source and sink
-handler managers are held for the transport planner (``ROADMAP.md`` §1
-item 15), until which an app with a ``@source`` or a ``@sink`` is
-refused.  The persistence store (``set_persistence_store``) and the
+runtime (``@store`` tables), the source and sink handler managers by its
+transport planner (``@source``/``@sink``).  The multiplex registry
+(``@app:multiplex``: the shared engines every app of the manager seats
+its queries in) lives on the context, so a group outlives a crashed
+app.  The persistence store (``set_persistence_store``) and the
 apps' input journals (``@app:faults(journal=)``, keyed by app name, so a
 runtime built after a crash replays its predecessor's input) live on
 the context; ``persist()`` and ``restore_last_state()`` run over every
@@ -32,8 +33,9 @@ from siddhi_tpu_torch.util.config import ConfigManager, InMemoryConfigManager
 class SiddhiContext:
     """Per-manager shared state: the extension registry each app plans
     against a copy of, attributes, the config manager, named data
-    sources, the handler managers, the persistence store and the input
-    journals (reference: ``core/context.py`` ``SiddhiContext``)."""
+    sources, the handler managers, the persistence store, the input
+    journals and the multiplex registry (reference: ``core/context.py``
+    ``SiddhiContext``)."""
 
     def __init__(self):
         from siddhi_tpu_torch.extension.registry import default_registry
@@ -50,6 +52,9 @@ class SiddhiContext:
         # context so a journal outlives a crashed runtime, and a fresh
         # runtime of the same app replays it (util/faults.py)
         self.input_journals: Dict[str, object] = {}
+        # @app:multiplex: fingerprint -> shared engine groups, across
+        # apps (multiplex/registry.py; created on first use)
+        self.multiplex_registry = None
 
 
 class SiddhiManager:

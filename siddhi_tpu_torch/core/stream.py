@@ -24,9 +24,12 @@ worker thread dispatches the oldest queued batches, coalesced up to
 ``batch.size.max`` events, as one cycle under the app lock; during a
 journal replay a send dispatches inline.  ``stop`` never waits for room
 and dispatches what is still queued (the reference drops it), oldest
-first, ahead of any send made after it.  Fault streams
-(``@OnError(action='STREAM')``) and admission control are later slices
-of the port.
+first, ahead of any send made after it.  Under
+``@OnError(action='STREAM')`` a junction has a fault junction ``!name``
+(the stream's attributes and ``_error``): a failing receiver or callback
+sends the batch there with the error and calls no listener
+(``route_fault``, which a sink's publish failure takes too).  Admission
+control is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -36,13 +39,18 @@ import logging
 import threading
 from typing import Callable, List, Optional
 
+import numpy as np
+
 from siddhi_tpu_torch.core.event import (
     Event,
     EventBatch,
     batch_from_events,
     events_from_batch,
 )
-from siddhi_tpu_torch.core.exceptions import SiddhiAppRuntimeError
+from siddhi_tpu_torch.core.exceptions import (
+    OnErrorAction,
+    SiddhiAppRuntimeError,
+)
 
 log = logging.getLogger("siddhi_tpu_torch")
 
@@ -99,12 +107,18 @@ def notify_listeners(app_context, e: Exception):
 
 class StreamJunction:
     """Fan-out point of one stream; ``is_async``: the reference's
-    ``@async`` queue and coalescing worker."""
+    ``@async`` queue and coalescing worker; ``on_error`` and
+    ``fault_junction``: the ``@OnError`` action and the ``!name``
+    junction of its STREAM form."""
 
     def __init__(self, definition, app_context=None, is_async: bool = False,
                  buffer_size: int = 1024,
-                 batch_size_max: Optional[int] = None):
+                 batch_size_max: Optional[int] = None,
+                 on_error: str = OnErrorAction.LOG,
+                 fault_junction: Optional["StreamJunction"] = None):
         self.definition = definition
+        self.on_error = on_error
+        self.fault_junction = fault_junction
         self.stream_id = definition.id
         self.app_context = app_context
         self.receivers: List = []
@@ -215,7 +229,7 @@ class StreamJunction:
             try:
                 r.receive(batch)
             except Exception as e:
-                self._handle_error(e)
+                self._handle_error(batch, e)
         if not self.callbacks:
             return
         # crash-recovery output ledger: the receivers always reprocess
@@ -230,11 +244,31 @@ class StreamJunction:
             try:
                 cb.receive_batch(batch)
             except Exception as e:
-                self._handle_error(e)
+                self._handle_error(batch, e)
 
-    def _handle_error(self, e: Exception):
-        """The reference's LOG form of ``@OnError``: log the error, then
-        hand it to the app's exception listeners."""
+    def route_fault(self, batch: EventBatch, e: Exception) -> bool:
+        """Send ``batch`` with the error in ``_error`` into this stream's
+        ``!name`` fault junction (``@OnError(action='STREAM')``); False
+        when the stream has no STREAM route.  Taken by a failing
+        receiver or callback and by a sink's publish failure."""
+        if (self.on_error != OnErrorAction.STREAM
+                or self.fault_junction is None):
+            return False
+        fd = self.fault_junction.definition
+        err = np.empty(len(batch), dtype=object)
+        err[:] = e
+        cols = dict(batch.columns)
+        cols["_error"] = err
+        self.fault_junction.send(EventBatch(
+            fd.id, fd.attribute_names, cols, batch.timestamps, batch.types))
+        return True
+
+    def _handle_error(self, batch: EventBatch, e: Exception):
+        """``@OnError``: the STREAM form routes the batch to the fault
+        junction; the LOG form logs the error, then hands it to the
+        app's exception listeners."""
+        if self.route_fault(batch, e):
+            return
         name = getattr(self.app_context, "name", None)
         log.error("error processing events on stream '%s' in app '%s': %s",
                   self.stream_id, name, e, exc_info=e)

@@ -5,8 +5,8 @@ Freemarker templates rendering @Extension metadata to markdown/mkdocs):
 here extension metadata is the registered class itself — kind, name,
 namespace, constructor signature, and docstring — rendered to markdown.
 Port of the JAX package's ``docgen.py`` over the port's registry, which
-holds the kinds the port plans (sources, sinks and mappers come with
-``ROADMAP.md`` §1 item 15a).
+holds every kind the port plans, sources, sinks and their mappers
+included.
 
 CLI: ``python -m siddhi_tpu_torch.docgen [output.md]``
 """

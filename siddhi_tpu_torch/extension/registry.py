@@ -4,12 +4,12 @@ Port of the JAX package's ``extension/registry.py``.  The built-ins
 register themselves with the ``@extension`` decorator when their modules
 are imported: the windows of ``ops/windows.py``, the stream functions
 of ``ops/stream_functions.py``, the script engines of
-``extension/function.py`` and the record store of ``table/record.py``.  ``default_registry()`` hands each manager
-its own copy, where ``SiddhiManager.set_extension`` adds user
-extensions; each app plans against a copy of its manager's.  The kinds
-are those the port's planners look up; the reference's source, sink and
-mapper kinds come with the slice that plans them (ROADMAP.md §1 item
-15).
+``extension/function.py``, the record store of ``table/record.py`` and
+the sources, sinks and mappers of ``transport/``.
+``default_registry()`` hands each manager its own copy, where
+``SiddhiManager.set_extension`` adds user extensions; each app plans
+against a copy of its manager's.  The kinds are those the port's
+planners look up (the reference's, but its unused ``table``).
 """
 
 from __future__ import annotations
@@ -23,8 +23,12 @@ KINDS = (
     "aggregator",
     "stream_processor",
     "stream_function",
-    "script",
+    "source",
+    "sink",
+    "source_mapper",
+    "sink_mapper",
     "store",
+    "script",
 )
 
 
@@ -85,5 +89,7 @@ def default_registry() -> ExtensionRegistry:
     import siddhi_tpu_torch.ops.stream_functions  # noqa: F401
     import siddhi_tpu_torch.ops.windows  # noqa: F401
     import siddhi_tpu_torch.table.record  # noqa: F401
+    import siddhi_tpu_torch.transport.sink  # noqa: F401
+    import siddhi_tpu_torch.transport.source  # noqa: F401
 
     return _DEFAULT.copy()

@@ -1346,6 +1346,52 @@ class DensePatternEngine:
                                           self.ingest_stats)))
         return state, rel64
 
+    def shift_row_ts(self, rows: Dict[str, np.ndarray],
+                     delta: int) -> Dict[str, np.ndarray]:
+        """Host state rows re-expressed against a base shifted by
+        ``delta`` (new base = old base + delta), either way.  The
+        multiplex group shares one ``base_ts`` over its tenants: a tenant
+        snapshot taken under another anchor, or a tenant whose events
+        predate the group's anchor (a shift down, ``delta < 0``),
+        rewrites the ``first_ts`` and ``deadline`` anchors as
+        :meth:`maybe_re_anchor` does: a forward shift expires the
+        instances that leave the ``within`` horizon (or clamps inert
+        anchors to stay set), a backward one only grows the values,
+        within int32.  ``rows`` are numpy arrays; nothing touches the
+        device here."""
+        out = dict(rows)
+        first = rows["first_ts"].astype(np.int64)
+        shifted = np.where(first > 0, first - delta, 0)
+        if int(shifted.max(initial=0)) >= 2**31:
+            raise SiddhiAppRuntimeError(
+                "dense NFA: timestamp shift exceeds the int32 "
+                "relative-time range")
+        if delta > 0:
+            if self.within_ms is not None:
+                dead = (first > 0) & (shifted <= 0)
+                if dead.any():
+                    active = rows["active"].copy()
+                    counts = rows["counts"].copy()
+                    active[dead] = False
+                    counts[dead] = 0
+                    shifted = np.where(dead, 0, shifted)
+                    out["active"] = active
+                    out["counts"] = counts
+            else:
+                shifted = np.where(first > 0, np.maximum(shifted, 1), 0)
+        out["first_ts"] = shifted.astype(np.int32)
+        if "deadline" in rows:
+            dlv = rows["deadline"].astype(np.int64)
+            dshift = np.where(dlv > 0, dlv - delta, 0)
+            if delta > 0:
+                dshift = np.where(dlv > 0, np.maximum(dshift, 1), 0)
+            elif int(dshift.max(initial=0)) >= 2**31:
+                raise SiddhiAppRuntimeError(
+                    "dense NFA: timestamp shift exceeds the int32 "
+                    "relative-time range")
+            out["deadline"] = dshift.astype(np.int32)
+        return out
+
     def process(self, state, stream_key: str, part_idx: np.ndarray,
                 cols: Dict[str, np.ndarray], ts: np.ndarray):
         """Process a batch: each partition's events in batch order.

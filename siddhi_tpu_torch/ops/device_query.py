@@ -1188,8 +1188,14 @@ class DeviceQueryEngine:
                 uniq, inv = np.unique(key_cols[0], return_inverse=True)
             except TypeError:  # unorderable (None in an object column)
                 return self._intern_rows(key_cols, n, now, scalar=True)
+            keys = uniq.tolist()
+            if now is None:
+                # every key known already: one lookup each, no allocation
+                known = [self._group_ids.get(k) for k in keys]
+                if None not in known:
+                    return np.asarray(known, dtype=np.int32)[inv]
             out_u = np.empty(len(uniq), dtype=np.int32)
-            for i, k in enumerate(uniq.tolist()):
+            for i, k in enumerate(keys):
                 out_u[i] = self._alloc_group(k, now)
             return out_u[inv].astype(np.int32, copy=False)
         # several or composed keys: combined per-column factor codes, one
@@ -1605,11 +1611,16 @@ class DeviceQueryEngine:
         if not self._numeric_group_keys:
             return out
         uniq, inv = np.unique(grp, return_inverse=True)
+        gv = self._group_vals
+        keys = [gv[gid] for gid in uniq.tolist()]
         per = np.zeros((len(uniq), K), dtype=np.float32)
-        for u, gid in enumerate(uniq.tolist()):
-            k = self._group_vals[gid]
-            for ki, i in enumerate(self._numeric_group_keys):
-                per[u, ki] = np.float32(k[i] if isinstance(k, tuple) else k)
+        for ki, i in enumerate(self._numeric_group_keys):
+            col = [k[i] if isinstance(k, tuple) else k for k in keys]
+            # through float64, which is how np.float32 rounds a python
+            # int; a None raises in np.float32, as it always did
+            per[:, ki] = (np.asarray(col, dtype=np.float64)
+                          if None not in col else
+                          [np.float32(v) for v in col])
         out[:] = per[inv]
         return out
 
@@ -1675,9 +1686,13 @@ class DeviceQueryEngine:
         state, n_pass = self.acc_step(state, c, t, g, gkv, valid)
         return state, (int(fetch_coalesced([n_pass])[0]) if count else None)
 
-    def _pane_sweep(self, state, cols, rel, grp, n, flush_pane):
+    def _pane_sweep(self, state, cols, rel, grp, n, flush_pane,
+                    acc_segment=None):
         """Walk one batch: accumulate the segments inside a pane and
-        close each crossed boundary with ``flush_pane(state, abs_ts)``."""
+        close each crossed boundary with ``flush_pane(state, abs_ts)``.
+        ``acc_segment`` (the multiplex group's, over its packed bank)
+        stands for ``_acc_segment``."""
+        acc = acc_segment or self._acc_segment
         if self.window_name == "timeBatch":
             # the first event anchors the boundary; flushes are stamped
             # with the boundary time, as on the timer path
@@ -1691,8 +1706,8 @@ class DeviceQueryEngine:
                 j = int(np.searchsorted(rel[i:], self._pane_end,
                                         side="left")) + i
                 if j > i:
-                    state, n_pass = self._acc_segment(
-                        state, cols, rel, grp, np.arange(i, j), True)
+                    state, n_pass = acc(state, cols, rel, grp,
+                                        np.arange(i, j), True)
                     self._pane_fill += n_pass
                     i = j
                 if i < n:  # the remaining events cross the boundary
@@ -1708,13 +1723,12 @@ class DeviceQueryEngine:
             remaining = L - self._pane_fill
             pass_pos = np.flatnonzero(fmask[i:])
             if len(pass_pos) < remaining:
-                state, _ = self._acc_segment(state, cols, rel, grp,
-                                             np.arange(i, n), False)
+                state, _ = acc(state, cols, rel, grp, np.arange(i, n),
+                               False)
                 self._pane_fill += len(pass_pos)
                 break
             j = i + int(pass_pos[remaining - 1]) + 1
-            state, _ = self._acc_segment(state, cols, rel, grp,
-                                         np.arange(i, j), False)
+            state, _ = acc(state, cols, rel, grp, np.arange(i, j), False)
             state = flush_pane(state, self.base_ts + int(rel[j - 1]))
             self._pane_fill = 0
             i = j

@@ -18,12 +18,23 @@ Port of the annotation half of the JAX package's
   context, keyed by app name, so a runtime built after a crash replays
   it.  Only the sites the port wires (``util/faults.WIRED_SITES``) may
   be armed; any other site is refused, naming ``ROADMAP.md`` item 15;
+- ``@app:multiplex(slots=)``: this app's eligible queries take seats
+  in the manager's shared device engines (``multiplex/``);
 - ``@app:fuse`` / ``@app:fuse('false')``: stream-graph fusion of
-  ``insert into`` chains of device queries (``planner/fusion.py``);
+  ``insert into`` chains of device queries (``planner/fusion.py``); a
+  query it fuses under ``@app:multiplex`` records the precedence
+  conflict (fuse wins) in ``AppContext.planner_conflicts``;
 - ``@app:devtables(capacity=)``: device-resident tables
   (``devtable/``);
 - ``@app:enforceOrder``: a flag, as in the reference (the synchronous
   dispatch is ordered by construction).
+
+The transport half of the reference's planner is here too
+(``attach_transports``): each ``@source``/``@sink`` on a stream
+definition, its options merged from the config manager's ``ref=``
+(``resolve_ref``), its mapper from a nested ``@map``, a ``@distribution``
+with its ``@destination``s, and the source and sink handlers of the
+manager's handler managers.
 
 The port runs its kernels on the card whenever it runs on a card: it
 has no XLA formulation to keep, so ``@app:kernels`` is parsed and
@@ -58,7 +69,6 @@ from siddhi_tpu_torch.util.scheduler import Scheduler
 # the reference's app annotations the port does not read yet: the
 # ROADMAP.md §1 item that ports each, and what it is
 LATER = {
-    "app:multiplex": (14, "multiplex"),
     "app:limits": (15, "the operations layer"),
     "app:plan": (15, "the operations layer"),
     "app:statistics": (15, "the operations layer"),
@@ -129,6 +139,13 @@ class AppContext:
         self.kernel_kinds = ("nfa", "bank", "scan")
         # query name -> why @app:hotkeys left it on the dense path
         self.hotkey_fallbacks: Dict[str, str] = {}
+        # @app:multiplex: seats in the manager's shared device engines
+        self.multiplex = False
+        self.multiplex_slots = 8
+        # query name -> why it kept a dedicated engine
+        self.multiplex_fallbacks: Dict[str, str] = {}
+        # query name -> the annotation precedence resolved against it
+        self.planner_conflicts: Dict[str, str] = {}
         # @app:fuse: chains of device queries lowered to one engine
         self.fuse = False
         # query name -> why its chain fell back to junction dispatch
@@ -294,11 +311,45 @@ def plan_app_context(siddhi_app, device, siddhi_context) -> AppContext:
             ctx.kernel_kinds = kinds
     if find_annotation(anns, "app:enforceOrder") is not None:
         ctx.enforce_order = True
+    _plan_multiplex(ctx, find_annotation(anns, "app:multiplex"))
     _plan_fuse(ctx, find_annotation(anns, "app:fuse"))
     _plan_devtables(ctx, find_annotation(anns, "app:devtables"))
     _plan_faults(ctx, find_annotation(anns, "app:faults"), siddhi_context)
     _plan_persist(ctx, find_annotation(anns, "app:persist"))
     return ctx
+
+
+def _plan_multiplex(ctx: AppContext, ann):
+    """``@app:multiplex`` / ``@app:multiplex(slots='N')``, with the
+    reference's texts: it needs ``@app:execution('tpu')``, and ``slots``
+    (a group's tenant capacity) is an integer in 2..64."""
+    if ann is None:
+        return
+    if ctx.execution_mode != "tpu":
+        raise SiddhiAppCreationError(
+            "@app:multiplex needs @app:execution('tpu')")
+    ctx.multiplex = True
+    slots = ann.element("slots") or ann.element()
+    if slots:
+        try:
+            ns = int(slots)
+        except ValueError:
+            ns = -1
+        if ns < 2 or ns > 64:
+            raise SiddhiAppCreationError(
+                f"@app:multiplex: slots='{slots}' must be an integer in "
+                "2..64")
+        ctx.multiplex_slots = ns
+
+
+def note_fused_conflicts(ctx: AppContext, qname: str):
+    """A query the fusion pre-pass claimed while ``@app:multiplex`` was
+    also on the app: the precedence (fuse > multiplex) resolved it, and
+    the losing pin is recorded, as the reference counts it."""
+    if ctx.multiplex:
+        ctx.planner_conflicts[qname] = (
+            "@app:multiplex pinned but the query fused (precedence: fuse "
+            "> multiplex)")
 
 
 def _plan_fuse(ctx: AppContext, ann):
@@ -396,3 +447,125 @@ def _plan_persist(ctx: AppContext, ann):
             raise SiddhiAppCreationError(
                 f"@app:persist: interval {iv!r} must be > 0")
         ctx.persist_interval_ms = interval_ms
+
+
+# -- @source / @sink ---------------------------------------------------------
+
+
+def ann_options(ann) -> Dict[str, str]:
+    """An annotation's keyed elements but ``type``."""
+    return {k: v for k, v in ann.elements
+            if k is not None and k.lower() != "type"}
+
+
+def resolve_ref(ann, config_manager) -> Dict[str, str]:
+    """Options of a ``@source``/``@sink``/``@store`` with ``ref=`` merged
+    from the config manager's refs (reference:
+    ConfigManager.extractSystemConfigs); inline options win over the
+    ref's properties."""
+    opts = ann_options(ann)
+    ref = opts.pop("ref", None)
+    if ref is not None:
+        ref_configs = dict(config_manager.extract_system_configs(ref))
+        if not ref_configs:
+            raise SiddhiAppCreationError(f"undefined ref '{ref}'")
+        ref_configs.update(opts)
+        opts = ref_configs
+    return opts
+
+
+def transport_config(ann, what: str, config_manager):
+    """``(type, init options)`` with ``ref=`` resolved once."""
+    opts = resolve_ref(ann, config_manager)
+    stype = ann.element("type") or opts.get("type")
+    if stype is None:
+        raise SiddhiAppCreationError(
+            f"@{what} on a definition: 'type' is required (inline or via "
+            "ref)")
+    opts.pop("type", None)
+    return stype, opts
+
+
+def _mapper(app, ann, kind: str):
+    """The source or sink mapper of a nested ``@map`` (passThrough when
+    there is none), and its options."""
+    map_ann = ann.nested("map")
+    map_type = (map_ann.element("type") if map_ann else None) or "passThrough"
+    factory = app.extensions.lookup(f"{kind}_mapper", map_type)
+    if factory is None:
+        raise SiddhiAppCreationError(
+            f"unknown @map(type='{map_type}') for {kind}")
+    return factory(), ann_options(map_ann) if map_ann else {}
+
+
+def attach_transports(app, definition, junction):
+    """Build the ``@source``s and ``@sink``s of a stream definition:
+    sources into ``app.sources`` (started and stopped with the runtime),
+    sinks into ``app.sinks``, each subscribed to the junction through a
+    ``SinkStreamCallback`` (with its output-ledger key under the input
+    journal) and routing its publish failures by the stream's
+    ``@OnError``."""
+    from siddhi_tpu_torch.transport.sink import (
+        DistributedSink,
+        SinkStreamCallback,
+    )
+
+    sctx = app.siddhi_context
+    cm = sctx.config_manager
+    for ann in definition.annotations:
+        nm = ann.name.lower()
+        if nm == "source":
+            stype, opts = transport_config(ann, "source", cm)
+            factory = app.extensions.lookup("source", stype)
+            if factory is None:
+                raise SiddhiAppCreationError(
+                    f"unknown @source(type='{stype}')")
+            mapper, map_opts = _mapper(app, ann, "source")
+            mapper.init(definition, map_opts)
+            src = factory()
+            src.config_reader = cm.generate_config_reader("source", stype)
+            shm = sctx.source_handler_manager
+            if shm is not None:
+                src.handler = shm.generate(app.name, definition.id)
+                app._handler_registrations.append(
+                    (shm, src.handler.element_id))
+            src.init(definition, opts, mapper, junction, app.app_context)
+            src.is_running = lambda: app._running
+            app.sources.append(src)
+        elif nm == "sink":
+            stype, opts = transport_config(ann, "sink", cm)
+            factory = app.extensions.lookup("sink", stype)
+            if factory is None:
+                raise SiddhiAppCreationError(
+                    f"unknown @sink(type='{stype}')")
+            mapper, map_opts = _mapper(app, ann, "sink")
+            mapper.init(definition, map_opts)
+            dist = ann.nested("distribution")
+            if dist is not None:
+                dests = [ann_options(d) for d in dist.annotations
+                         if d.name.lower() == "destination"]
+                if not dests:
+                    raise SiddhiAppCreationError(
+                        "@distribution needs at least one @destination")
+                sink = DistributedSink(
+                    factory, dests, dist.element("strategy") or "roundRobin",
+                    ann_options(dist))
+            else:
+                sink = factory()
+            sink.config_reader = cm.generate_config_reader("sink", stype)
+            khm = sctx.sink_handler_manager
+            if khm is not None:
+                sink.handler = khm.generate(app.name, definition.id)
+                app._handler_registrations.append(
+                    (khm, sink.handler.element_id))
+            sink.init(definition, opts, mapper, app.app_context)
+            # publish failures follow the stream's @OnError contract
+            # (reference: Sink.onError:354 routing into '!stream')
+            sink.stream_junction = junction
+            cb = SinkStreamCallback(sink)
+            if app.app_context.input_journal is not None:
+                # output-ledger identity for the replay's suppression:
+                # stream id and ordinal keep several sinks apart
+                cb.ledger_key = ("sink", definition.id, len(app.sinks))
+            junction.subscribe(cb)
+            app.sinks.append(sink)

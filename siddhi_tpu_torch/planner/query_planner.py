@@ -5,6 +5,9 @@ runs (the analog of the reference's QueryParser.parse,
 util/parser/QueryParser.java:90, with SingleInputStreamParser,
 SelectorParser and OutputParser):
 
+- under ``@app:multiplex`` a single-stream tumbling query or an
+  unpartitioned pattern first tries a seat in the manager's shared
+  engines (``multiplex/planner.py``), then falls through;
 - a single-stream query under ``@app:execution('tpu')`` on the device
   query engine (``device_query_engine``, ``plan_device_single``): the
   engine's outputs through a passthrough selector (order by, limit,
@@ -48,7 +51,8 @@ under ``@app:execution('tpu')`` its condition mask runs on the device
 table's probe (``devtable/``).  Outputs insert into a stream, a table or
 a named window, or delete, update, or update or insert a table
 (``plan_output``; a device table's delete, update and update or insert
-lower to one scatter step a batch where the gates pass).
+lower to one scatter step a batch where the gates pass), or into a
+stream's fault stream (``insert into !S``).
 """
 
 from __future__ import annotations
@@ -71,7 +75,6 @@ from siddhi_tpu_torch.core.exceptions import (
     DefinitionNotExistError,
     KernelUnavailableError,
     SiddhiAppCreationError,
-    later_slice,
 )
 from siddhi_tpu_torch.core.query import (
     AggBinding,
@@ -105,6 +108,7 @@ from siddhi_tpu_torch.devtable import (
     try_plan_devtable_join,
 )
 from siddhi_tpu_torch.extension.validator import validate_extension_args
+from siddhi_tpu_torch.multiplex.planner import MultiplexPlanner
 from siddhi_tpu_torch.ops.aggregators import make_aggregator
 from siddhi_tpu_torch.ops.device_query import DeviceQueryEngine
 from siddhi_tpu_torch.ops.nfa import (
@@ -340,6 +344,15 @@ class PatternStreamReceiver:
         self.processor.process_stream_batch(self.stream_key, batch)
 
 
+def _want(app, path: str) -> bool:
+    """Does the app want fast path ``path`` at a query's gate site?  The
+    annotation half of the reference's ``_want``: ``'multiplex'`` under
+    ``@app:multiplex`` (replan pins and the cost model's pick come with
+    ``ROADMAP.md`` §1 item 15d).  The path's own eligibility gate still
+    runs after a True."""
+    return path == "multiplex" and app.app_context.multiplex
+
+
 def plan_query(app, query: Query, index: int) -> QueryRuntime:
     """Plan one query: a single-stream query on the host runtime (the
     reference's default mode) or, under ``@app:execution('tpu')``, on
@@ -354,6 +367,13 @@ def plan_query(app, query: Query, index: int) -> QueryRuntime:
            and not getattr(app, "in_partition_instance", False))
     if isinstance(in_stream, SingleInputStream):
         if tpu:
+            # @app:multiplex: a seat in a shared tumbling engine first;
+            # an ineligible query falls through with its reason
+            if _want(app, "multiplex"):
+                qr = MultiplexPlanner(app).try_single(query, name,
+                                                      in_stream)
+                if qr is not None:
+                    return qr
             # the device query path first; the host chain, with a
             # warning, when the query is outside its subset
             try:
@@ -371,6 +391,11 @@ def plan_query(app, query: Query, index: int) -> QueryRuntime:
         return plan_single(app, query, name, in_stream)
     if isinstance(in_stream, StateInputStream):
         if tpu:
+            # @app:multiplex: a seat in a shared dense engine first
+            if _want(app, "multiplex"):
+                qr = MultiplexPlanner(app).try_state(query, name, in_stream)
+                if qr is not None:
+                    return qr
             # the dense path first; the host engine, with a warning, when
             # the pattern is outside its subset
             try:
@@ -821,14 +846,14 @@ def plan_output(app, query: Query, out_def: StreamDefinition, qname: str):
     """``insert into`` a named window, a table or a stream (``#inner``:
     the partition instance's local junction); ``delete``, ``update`` and
     ``update or insert`` of a table; or (``return``, no output) the
-    query's callbacks.  Fault outputs stay refused."""
+    query's callbacks; ``insert into !S``: the fault stream of ``S``."""
     out = query.output_stream
     out_names = [a.name for a in out_def.attributes]
     if isinstance(out, InsertIntoStream):
         if out.is_fault:
-            raise SiddhiAppCreationError(
-                f"query '{qname}': 'insert into !{out.target}' (fault "
-                "streams)" + later_slice(15, "the operations layer"))
+            return InsertIntoStreamCallback(
+                app.fault_output_junction(out.target, out_def),
+                out.event_type)
         if not out.is_inner:
             nw = app.named_windows.get(out.target)
             if nw is not None:

@@ -1,16 +1,19 @@
 """Config plane: extension system parameters and transport/store refs.
 
-Port of the JAX package's ``util/config.py`` for its in-memory manager
-(the reference's ``ConfigManager`` SPI and ``InMemoryConfigManager``):
-a ``ConfigReader`` feeds an extension its deployment-level defaults, and
-``refs`` let ``@source(ref='x')``/``@sink(ref='x')``/``@store(ref='x')``
-take connection settings from config.  The YAML-backed manager is not
-ported.
+Port of the JAX package's ``util/config.py`` (the reference's
+``ConfigManager`` SPI, ``InMemoryConfigManager`` and
+``YAMLConfigManager``, which reads its document with ``pyyaml`` when
+one is built): a ``ConfigReader`` feeds an extension its
+deployment-level defaults, and ``refs`` let
+``@source(ref='x')``/``@sink(ref='x')``/``@store(ref='x')`` take
+connection settings from config.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
+
+from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
 
 
 class ConfigReader:
@@ -84,3 +87,65 @@ class InMemoryConfigManager(ConfigManager):
     def extract_property(self, name: str) -> Optional[str]:
         return self._configs.get(name)
 
+
+class YAMLConfigManager(ConfigManager):
+    """YAML-backed manager (reference: YAMLConfigManager.java).  Accepts
+    the reference's document shape::
+
+        properties:
+          some.property: value
+        extensions:
+          - extension:
+              namespace: source
+              name: http
+              properties:
+                default.port: '8280'
+        refs:
+          - ref:
+              name: store1
+              type: memory
+              properties:
+                topic: t1
+    """
+
+    def __init__(self, yaml_content: Optional[str] = None,
+                 file_path: Optional[str] = None):
+        try:
+            import yaml
+        except ImportError as e:
+            raise SiddhiAppCreationError("pyyaml is required for YAMLConfigManager") from e
+        if file_path is not None:
+            with open(file_path) as f:
+                yaml_content = f.read()
+        try:
+            root = yaml.safe_load(yaml_content or "") or {}
+        except yaml.YAMLError as e:
+            raise SiddhiAppCreationError(f"unable to parse YAML config: {e}") from e
+        self._properties: Dict[str, str] = {
+            str(k): str(v) for k, v in (root.get("properties") or {}).items()
+        }
+        self._extensions: Dict[tuple, Dict[str, str]] = {}
+        for item in root.get("extensions") or []:
+            ext = (item or {}).get("extension") or {}
+            key = (str(ext.get("namespace", "")), str(ext.get("name", "")))
+            self._extensions[key] = {
+                str(k): str(v) for k, v in (ext.get("properties") or {}).items()
+            }
+        self._refs: Dict[str, Dict[str, str]] = {}
+        for item in root.get("refs") or []:
+            ref = (item or {}).get("ref") or {}
+            nm = str(ref.get("name", ""))
+            configs = {"type": str(ref.get("type", ""))}
+            configs.update(
+                {str(k): str(v) for k, v in (ref.get("properties") or {}).items()}
+            )
+            self._refs[nm] = configs
+
+    def generate_config_reader(self, namespace: str, name: str) -> ConfigReader:
+        return ConfigReader(self._extensions.get((namespace, name), {}))
+
+    def extract_system_configs(self, name: str) -> Dict[str, str]:
+        return dict(self._refs.get(name, {}))
+
+    def extract_property(self, name: str) -> Optional[str]:
+        return self._properties.get(name)

@@ -13,8 +13,10 @@ string through both packages:
 - 9: ``@async(buffer.size, batch.size.max)`` queues sends and a worker
   coalesces them, so a callback sees the reference's chunking (fewer
   calls than sends, none above ``batch.size.max``);
-- 10: ``@OnError(action='STREAM')`` is refused, naming item 15, until
-  item 15a ports the fault route (``@OnError(action='LOG')`` runs);
+- 10: ``@OnError(action='STREAM')`` routes a failing batch to the
+  fault stream ``!S`` with its ``_error``, as the reference does, and
+  ``@OnError(action='LOG')`` logs it (``test_torch_transport.py``
+  replays the on-error corpus);
 - 11: ``@app:enforceOrder`` and an ``@app:`` name the reference does not
   know run as in the reference;
 - 12: ``DeviceQueryRuntime.step_invocations`` counts the device steps.
@@ -242,23 +244,41 @@ def test_async_stop_keeps_the_send_order():
 
 @pytest.mark.parametrize("action", ["STREAM", "LOG"])
 def test_on_error_stream_refused_until_item_15a(action):
-    app = (f"@OnError(action='{action}') define stream S (v int); "
-           "@info(name='q') from S select v insert into O;")
-    jrt = siddhi_tpu.SiddhiManager().create_siddhi_app_runtime(app)
-    jrt.shutdown()
-    m = siddhi_tpu_torch.SiddhiManager(device="cpu")
-    if action == "STREAM":
-        with pytest.raises(SiddhiAppCreationError,
-                           match=r"@OnError\(action='STREAM'\).*item 15"):
-            m.create_siddhi_app_runtime(app)
-        return
-    rt = m.create_siddhi_app_runtime(app)
-    got = []
-    rt.add_callback("O", lambda evs: got.extend(e.data for e in evs))
-    rt.start()
-    rt.get_input_handler("S").send([7])
-    rt.shutdown()
-    assert got == [[7]]
+    """Fault 10, closed: a query failing on some events (``v == 7``)
+    sends them, with the error, to ``!S`` under
+    ``@OnError(action='STREAM')``, and logs them under LOG; the other
+    events flow on.  The same rows in both packages."""
+    def fail_on_seven(v):
+        if v == 7:
+            raise RuntimeError("seven")
+        return v
+
+    app = (f"@app:playback @OnError(action='{action}') "
+           "define stream S (v int); "
+           "@info(name='q') from S select custom:f7(v) as v insert into O; "
+           + ("@info(name='qf') from !S select v, _error insert into F;"
+              if action == "STREAM" else ""))
+    rows = {}
+    for name, make, _b in _managers():
+        m = make()
+        m.set_extension("custom:f7", fail_on_seven, kind="function")
+        rt = m.create_siddhi_app_runtime(app)
+        got, faults = [], []
+        rt.add_callback("O", lambda evs, g=got: g.extend(
+            tuple(e.data) for e in evs))
+        if action == "STREAM":
+            rt.add_callback("F", lambda evs, g=faults: g.extend(
+                (e.data[0], str(e.data[1])) for e in evs))
+        rt.start()
+        h = rt.get_input_handler("S")
+        for i, v in enumerate((5, 7, 8)):
+            h.send([v], timestamp=1000 + i)
+        rt.shutdown()
+        m.shutdown()
+        rows[name] = (got, faults)
+    assert rows["port"] == rows["jax"]
+    assert rows["port"] == ([(5,), (8,)],
+                            [(7, "seven")] if action == "STREAM" else [])
 
 
 # -- fault 11: @app:enforceOrder and unknown @app: names ----------------------
@@ -286,7 +306,7 @@ def test_app_annotations_the_reference_accepts_run(ann):
     assert rows["port"] == rows["jax"] == [(1001, (2,)), (1002, (3,))]
 
 
-@pytest.mark.parametrize("ann,item", [("@app:multiplex", 14),
+@pytest.mark.parametrize("ann,item", [("@app:trace(sample='1')", 15),
                                       ("@app:statistics('true')", 15),
                                       ("@app:limits(rate='10')", 15)])
 def test_later_app_annotations_stay_refused(ann, item):

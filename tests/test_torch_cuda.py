@@ -1679,3 +1679,131 @@ def test_devtable_scatter_and_probe_on_card_match_cpu(cuda_device):
     assert card[2] == "devtable" and not card[3] and card[4] > 0
     assert card[0] and card[0] == cpu[0]
     assert card[1] == cpu[1]
+
+
+MUX_TUMBLING = ("@app:name('mt{i}') @app:playback @app:execution('tpu', "
+                "partitions='64') @app:multiplex(slots='4') "
+                "define stream S (k long, v double); "
+                "@info(name='q') from S#window.lengthBatch(40) "
+                "select k, sum(v) as s, count() as c group by k "
+                "insert into Out;")
+MUX_DENSE = ("@app:name('md{i}') @app:playback @app:execution('tpu') "
+             "@app:multiplex(slots='4') "
+             "define stream Txn (key long, v double); "
+             "@info(name='q') from every e1=Txn[v > 1.0] -> e2=Txn[v > 2.0] "
+             "-> e3=Txn[v > 3.0] within 10 min "
+             "select e3.v as v insert into Out;")
+
+
+def _mux_rows(app, stream, device, sends, tenants=4):
+    """Each tenant's rows, the lowering with its step, and the launches
+    of ``batch_step`` and ``accumulate_`` across the run."""
+    from siddhi_tpu_torch import SiddhiManager
+
+    m = SiddhiManager(device=device)
+    dense_batch.batch_step.launches = 0
+    bank_scatter.accumulate_.launches = 0
+    try:
+        rts, outs = [], []
+        for i in range(tenants):
+            rt = m.create_siddhi_app_runtime(app.format(i=i))
+            got = []
+            rt.add_callback("Out", lambda evs, g=got: g.extend(
+                (e.timestamp, tuple(e.data)) for e in evs))
+            rt.start()
+            rts.append(rt)
+            outs.append(got)
+        for cycle in sends:
+            for rt, b in zip(rts, cycle):
+                rt.get_input_handler(stream).send_batch(b)
+        low = rts[0].lowering(step_kinds=True)
+        groups = m.siddhi_context.multiplex_registry.open_groups()
+        for rt in rts:
+            rt.shutdown()
+        return (outs, low, len(groups), dense_batch.batch_step.launches,
+                bank_scatter.accumulate_.launches)
+    finally:
+        m.shutdown()
+
+
+@pytest.mark.parametrize("kind", ["tumbling", "dense"])
+def test_multiplex_group_on_card_matches_cpu(cuda_device, kind):
+    """Four tenants in one shared group on the card: every tenant's rows
+    equal the ``device="cpu"`` run's bit for bit (integer-valued sums,
+    exact in any association); the tumbling group's state scatters
+    launch ``accumulate_`` and the capture-free chain's cycles launch
+    one ``batch_step`` each."""
+    from siddhi_tpu_torch.core.event import EventBatch
+
+    rng = np.random.default_rng(17)
+    sends = []
+    for c in range(10):
+        cycle = []
+        for i in range(4):
+            n = 50 + 3 * i
+            cols = {("k" if kind == "tumbling" else "key"):
+                    rng.integers(0, 20, n).astype(np.int64),
+                    "v": rng.integers(0, 5, n).astype(np.float64)}
+            cycle.append(EventBatch(
+                "S" if kind == "tumbling" else "Txn", list(cols), cols,
+                1000 + 100 * c + np.arange(n, dtype=np.int64)))
+        sends.append(cycle)
+    app, stream = ((MUX_TUMBLING, "S") if kind == "tumbling"
+                   else (MUX_DENSE, "Txn"))
+    card = _mux_rows(app, stream, "cuda", sends)
+    cpu = _mux_rows(app, stream, "cpu", sends)
+    assert card[0] == cpu[0] and any(card[0])
+    assert card[2] == 1
+    if kind == "tumbling":
+        assert card[1] == {"q": "multiplex"}
+        assert card[4] > 0 and card[3] == 0
+    else:
+        assert card[1] == {"q": "multiplex/batch"}
+        assert card[3] == len(sends) and card[4] == 0
+
+
+def test_source_device_sink_app_on_card_matches_cpu(cuda_device):
+    """An in-memory source, a tumbling group-by on the device query path
+    and an in-memory sink on the card: the broker receives the
+    ``device="cpu"`` run's messages, in order, and the device query's
+    state scatters launched ``accumulate_``."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.core.event import Event
+    from siddhi_tpu_torch.transport.broker import (
+        FunctionSubscriber,
+        InMemoryBroker,
+    )
+
+    app = ("@app:name('tx') @app:playback @app:execution('tpu') "
+           "@source(type='inMemory', topic='tx-in') "
+           "define stream S (k long, v double); "
+           "@sink(type='inMemory', topic='tx-out') "
+           "define stream Out (k long, s double, c long); "
+           "@info(name='q') from S#window.lengthBatch(64) "
+           "select k, sum(v) as s, count() as c group by k insert into Out;")
+    rng = np.random.default_rng(23)
+    payloads = [[Event(1000 + 10 * i + j, [int(rng.integers(0, 9)),
+                                          float(rng.integers(0, 7))])
+                 for j in range(50)] for i in range(20)]
+    out = {}
+    for device in ("cuda", "cpu"):
+        m = SiddhiManager(device=device)
+        got = []
+        sub = FunctionSubscriber("tx-out",
+                                 lambda e, g=got: g.append(tuple(e.data)))
+        InMemoryBroker.subscribe(sub)
+        bank_scatter.accumulate_.launches = 0
+        try:
+            rt = m.create_siddhi_app_runtime(app)
+            rt.start()
+            for p in payloads:
+                InMemoryBroker.publish("tx-in", p)
+            out[device] = (got, rt.lowering(),
+                           bank_scatter.accumulate_.launches)
+            rt.shutdown()
+        finally:
+            InMemoryBroker.unsubscribe(sub)
+            m.shutdown()
+    assert out["cuda"][0] == out["cpu"][0] and out["cuda"][0]
+    assert out["cuda"][1] == {"q": "device"}
+    assert out["cuda"][2] > 0

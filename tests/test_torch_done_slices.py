@@ -16,11 +16,9 @@ and deliver the same events.  What waits for a later slice is in
 - ``tests/test_int_lanes.py``: all but the ``devices=`` case (item 16);
 - ``tests/test_compiler.py``: every case, the fluent builder's two
   included (item 18);
-- ``tests/test_docgen.py``: the CLI case; the listing of every kind
-  needs sources and sinks (item 15a), so
-  ``test_docgen_lists_the_reference_extensions_of_each_port_kind``
-  holds the port's listing against the reference's for the kinds the
-  port plans.
+- ``tests/test_docgen.py``: every case, the listing of every kind
+  included; ``test_docgen_lists_the_reference_extensions_of_each_port_kind``
+  holds the port's listing against the reference's, kind by kind.
 
 ``test_torch_async.py`` replays the async files the same way.
 """
@@ -61,10 +59,6 @@ LEFT_OUT = {
         ("TestIntPartitionedSharded",
          "test_long_id_join_partitioned_and_sharded"):
             "devices= (item 16)"},
-    "test_docgen": {
-        (None, "test_generates_all_kinds"):
-            "source and sink kinds (item 15a); "
-            "test_docgen_lists_the_reference_extensions_of_each_port_kind"},
 }
 CORPORA = ("test_aggregator_library", "test_device_differential2",
            "test_int_lanes", "test_compiler", "test_docgen")
@@ -79,7 +73,7 @@ def test_the_corpora_were_read():
     assert counts == {"test_aggregator_library": 12,
                       "test_device_differential2": 16,
                       "test_int_lanes": 11, "test_compiler": 55,
-                      "test_docgen": 1}
+                      "test_docgen": 2}
 
 
 @pytest.mark.parametrize("corpus,cname,mname,k", CASES)

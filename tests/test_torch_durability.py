@@ -4,8 +4,8 @@ Three kinds of case:
 
 - ``tests/test_durability.py`` replayed through both packages by
   ``test_torch_persistence.py``'s twin runs: the async crash matrix
-  (every durability step killed, on the device query path and the
-  hot-key router) and the sync one, the mid-spill crash, checksummed
+  (every durability step killed, on the device query path, the
+  multiplexed tumbling group and the hot-key router) and the sync one, the mid-spill crash, checksummed
   manifests (a flipped byte walks back), async == sync, chain hygiene,
   the bounded store, the writer units, the persist annotation and
   daemon, and the journal segments of the file store.  The cases that
@@ -74,13 +74,12 @@ LEFT_OUT = {
      "test_service_persist_and_restore_endpoints"):
         "the service's endpoints (item 15)",
 }
-LEFT_OUT_PARAMS = {"sharded": "the sharded engine (item 16)",
-                   "multiplex": "multiplex (item 14)"}
+LEFT_OUT_PARAMS = {"sharded": "the sharded engine (item 16)"}
 CASES = cases("test_durability", LEFT_OUT, LEFT_OUT_PARAMS)
 
 
 def test_the_corpus_was_read():
-    assert len(CASES) == 31
+    assert len(CASES) == 35
 
 
 @pytest.mark.parametrize("corpus,cname,mname,k", CASES)

@@ -25,6 +25,7 @@ import siddhi_tpu.ops.aggregators as jaggs
 import siddhi_tpu.ops.windows as jwindows
 import siddhi_tpu.planner.expr as jexpr
 import siddhi_tpu.query_api as jqa
+import siddhi_tpu.transport.broker as jbroker
 import siddhi_tpu.util.config as jconfig
 import siddhi_tpu_torch.core.exceptions as texc
 import siddhi_tpu_torch.extension.function as tfunction
@@ -32,6 +33,7 @@ import siddhi_tpu_torch.ops.aggregators as taggs
 import siddhi_tpu_torch.ops.windows as twindows
 import siddhi_tpu_torch.planner.expr as texpr
 import siddhi_tpu_torch.query_api as tqa
+import siddhi_tpu_torch.transport.broker as tbroker
 import siddhi_tpu_torch.util.config as tconfig
 from siddhi_tpu import SiddhiManager as JaxManager
 from siddhi_tpu_torch import SiddhiManager
@@ -434,26 +436,34 @@ class TestManagerApis:
         assert outs["torch"][1] == {"S": [], "O": []}
 
     def test_sandbox_keeps_in_memory_transports(self):
-        """The sandbox keeps an inMemory sink, as the reference's does;
-        the port has no transports yet, so it refuses the app naming
-        their ROADMAP item instead of dropping the sink."""
+        """The sandbox keeps an inMemory sink, as the reference's does,
+        and the sink publishes what the stream carries, in both
+        packages."""
         app = ("@source(type='doesNotExist', topic='x') "
-               "@sink(type='inMemory', topic='t') "
+               "@sink(type='inMemory', topic='sandbox-t') "
                "define stream S (v long, w double); "
                "@info(name='q1') from S[v > 1] select v insert into O;")
-        m = JAX.manager()
-        rt = m.create_sandbox_siddhi_app_runtime(app)
-        assert [(a.name, a.element("type")) for a in
-                rt.get_stream_definitions()["S"].annotations] == [
-            ("sink", "inMemory")]
-        m.shutdown()
-        m = TORCH.manager()
-        with pytest.raises(texc.SiddhiAppCreationError) as info:
-            m.create_sandbox_siddhi_app_runtime(app)
-        assert "@sink(type='inMemory') on 'S'" in str(info.value)
-        assert "ROADMAP.md §1 item 15" in str(info.value)
-        assert m.get_siddhi_app_runtimes() == {}
-        m.shutdown()
+        outs = {}
+        for pkg, broker in ((JAX, jbroker), (TORCH, tbroker)):
+            m = pkg.manager()
+            rt = m.create_sandbox_siddhi_app_runtime(app)
+            anns = [(a.name, a.element("type")) for a in
+                    rt.get_stream_definitions()["S"].annotations]
+            got = []
+            sub = broker.FunctionSubscriber(
+                "sandbox-t", lambda e, g=got: g.append(tuple(e.data)))
+            broker.InMemoryBroker.subscribe(sub)
+            rt.start()
+            h = rt.get_input_handler("S")
+            for i, row in enumerate(seeded_rows(11, 6)):
+                h.send(row, timestamp=1000 + i)
+            rt.shutdown()
+            broker.InMemoryBroker.unsubscribe(sub)
+            m.shutdown()
+            outs[pkg.name] = (anns, got)
+        assert outs["torch"] == outs["jax"]
+        assert outs["torch"][0] == [("sink", "inMemory")]
+        assert len(outs["torch"][1]) == 6
 
     def test_attributes_and_runtimes(self):
         outs = {}
@@ -478,9 +488,8 @@ class TestManagerApis:
         context holds after the data-source and handler-manager setters
         (Java aliases included), are equal.  The store planner reads
         the refs: a ``@store(ref='store1')`` table gives the same rows
-        in both packages.  The transport planner (ROADMAP.md §1 item 15)
-        is still to come: an app with ``@source(ref=...)`` is refused
-        naming its item."""
+        in both packages.  The transport planner reads them too: a
+        ``@source(ref='src1')`` of an unknown type raises in both."""
         configs = {"source.http.port": "8280", "source.http.host": "h",
                    "sink.log.prefix": "p", "some.property": "v"}
         system = {"store1": {"type": "memory", "topic": "t1"},
@@ -518,14 +527,17 @@ class TestManagerApis:
             m.shutdown()
         assert outs["torch"] == outs["jax"]
         assert outs["torch"][1:3] == ("8280", None)
-        m = TORCH.manager()
-        m.set_config_manager(tconfig.InMemoryConfigManager(configs, system))
-        with pytest.raises(texc.SiddhiAppCreationError) as info:
-            m.create_siddhi_app_runtime(
-                "@source(ref='src1') define stream S (v long); "
-                "from S select v insert into O;")
-        assert "ROADMAP.md §1 item 15" in str(info.value)
-        m.shutdown()
+        for pkg, config, exc in ((JAX, jconfig, jexc), (TORCH, tconfig,
+                                                         texc)):
+            m = pkg.manager()
+            m.set_config_manager(config.InMemoryConfigManager(configs,
+                                                              system))
+            with pytest.raises(exc.SiddhiAppCreationError,
+                               match=r"unknown @source\(type='http'\)"):
+                m.create_siddhi_app_runtime(
+                    "@source(ref='src1') define stream S (v long); "
+                    "from S select v insert into O;")
+            m.shutdown()
         rows = {}
         for pkg, config in ((JAX, jconfig), (TORCH, tconfig)):
             m = pkg.manager()
@@ -546,15 +558,17 @@ class TestManagerApis:
                                                  (("int", 9),)]
 
     def test_set_extension_takes_the_kinds_the_port_plans(self):
-        """A kind the port's planners never look up (a sink, a source)
-        is refused rather than stored unread; a known kind (a function,
-        a store) registers and ``remove_extension`` takes it out again."""
+        """A kind the port's planners never look up (the reference's
+        ``table``) is refused rather than stored unread; a known kind (a
+        function, a store, a source, a sink, a mapper) registers and
+        ``remove_extension`` takes it out again."""
         m = SiddhiManager(device="cpu")
-        for kind in ("sink", "source", "table", "nope"):
+        for kind in ("table", "nope"):
             with pytest.raises(ValueError, match="unknown extension kind"):
                 m.set_extension("custom:thing", object, kind=kind)
         reg = m.siddhi_context.extensions
-        for kind in ("function", "store"):
+        for kind in ("function", "store", "source", "sink", "source_mapper",
+                     "sink_mapper"):
             m.set_extension("custom:thing", object, kind=kind)
             assert reg.lookup(kind, "thing", "custom") is object
             m.remove_extension("custom:thing", kind=kind)

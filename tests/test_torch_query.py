@@ -542,12 +542,6 @@ DEVTABLES = "@app:devtables @app:execution('tpu') "
 
 
 @pytest.mark.parametrize("app,item", [
-    ("@app:playback @source(type='http', @map(type='json')) "
-     + DEFINE[len("@app:playback "):]
-     + "from S select sym insert into Out;", 15),
-    (DEFINE + "@sink(type='inMemory', topic='t') define stream Out "
-     "(sym string); from S select sym insert into Out;", 15),
-    ("@app:multiplex " + DEFINE + "from S select sym insert into Out;", 14),
     ("@app:limits(breaker='3') " + DEFINE
      + "from S select sym insert into Out;", 15),
     ("@app:plan('auto') " + DEFINE + "from S select sym insert into Out;",
@@ -560,16 +554,67 @@ DEVTABLES = "@app:devtables @app:execution('tpu') "
      + "from S select sym insert into Out;", 15),
     ("@app:execution('tpu', devices='2') " + DEFINE
      + "from S select sym insert into Out;", 16),
-], ids=["source", "sink", "multiplex", "limits", "plan", "statistics",
-        "trace", "faults", "devices"])
+], ids=["limits", "plan", "statistics", "trace", "faults", "devices"])
 def test_refusals_name_their_roadmap_item(app, item):
     """No hidden fallback: what the port does not run raises at creation,
-    naming the ``ROADMAP.md`` item that ports it: sources and sinks, the
-    app annotations of later slices, and a fault site the port does not
-    wire (it would arm silently)."""
+    naming the ``ROADMAP.md`` item that ports it: the app annotations of
+    later slices, and a fault site the port does not wire (it would arm
+    silently)."""
     with pytest.raises(SiddhiAppCreationError) as info:
         SiddhiManager(device="cpu").create_siddhi_app_runtime(app)
     assert f"ROADMAP.md §1 item {item}" in str(info.value)
+
+
+@pytest.mark.parametrize("app,publish", [
+    ("@app:playback @source(type='inMemory', topic='q-in', "
+     "@map(type='json')) " + DEFINE[len("@app:playback "):]
+     + "from S select sym, p insert into Out;", True),
+    (DEFINE + "@sink(type='inMemory', topic='q-out') define stream Out "
+     "(sym string, p double); from S select sym, p insert into Out;",
+     False),
+    ("@app:execution('tpu') @app:multiplex " + DEFINE
+     + "@info(name='q') from S#window.lengthBatch(3) select n, sum(p) as t "
+     "group by n insert into Out;", False),
+], ids=["source", "sink", "multiplex"])
+def test_once_refused_transports_and_multiplex_run_as_the_reference(
+        app, publish):
+    """The three refusals items 14 and 15a lifted: a JSON-mapped
+    ``@source`` fed through the in-memory broker, an ``@sink`` publishing
+    to it and an ``@app:multiplex`` app give the same rows, broker
+    messages and lowering in both packages."""
+    import json
+
+    import siddhi_tpu.transport.broker as jbroker
+    import siddhi_tpu_torch.transport.broker as tbroker
+
+    outs = {}
+    for port, broker in ((False, jbroker), (True, tbroker)):
+        mgr = SiddhiManager(device="cpu") if port else JaxManager()
+        got, pub = [], []
+        sub = broker.FunctionSubscriber(
+            "q-out", lambda e: pub.append(tuple(e.data)))
+        broker.InMemoryBroker.subscribe(sub)
+        try:
+            rt = mgr.create_siddhi_app_runtime(app)
+            rt.add_callback("Out", stream_recorder(got))
+            rt.start()
+            if publish:
+                for _sid, row, ts in sends(8, n=12):
+                    broker.InMemoryBroker.publish("q-in", json.dumps(
+                        dict(zip(("sym", "p", "q", "v", "n", "b"), row))))
+            else:
+                h = rt.get_input_handler("S")
+                for _sid, row, ts in sends(8, n=12):
+                    h.send(list(row), timestamp=ts)
+            low = rt.lowering()
+            rt.shutdown()
+        finally:
+            broker.InMemoryBroker.unsubscribe(sub)
+            mgr.shutdown()
+        outs[port] = (got if not publish else [r[1:] for r in got], pub,
+                      low)
+    assert outs[True] == outs[False]
+    assert outs[True][0]
 
 
 def test_persist_annotation_plans_and_checkpoints():
