@@ -414,7 +414,36 @@ skew-routed pattern path and the incremental-aggregation path through
    query fails on some batches (new symbols past its 64 group rows): its
    ``!S`` rows equal the CPU run's.  A ``transports_seconds`` line
    follows.
-30. kernels: one line per ported kernel (launches on the main paths,
+30. operations: the operations layer on the card, one line a case.
+   (a) ``kernel_eligible_app`` at 1,000,000 partitions and 32 instance
+   lanes, 6 batches of 131,072 (half on 16,384 keys, so a cold chain
+   completes and no instance is dropped), with transient ``emit.drain``
+   and ``ingest.put`` faults at a seeded probability and one
+   ``step.dense`` fault routed to ``!Txn``: rows and final state equal
+   to the fault-free card run over the other batches; retries,
+   recoveries and ms a batch beside the clean run's.  (b)
+   ``state.poison`` tripping once on a ``lengthBatch`` group-by on the
+   device query path (``accumulate_``) and on the skew-routed path
+   (``scan_chain``): one quarantine each and rows equal to the CPU
+   run's; the guard's ms a batch, armed and never tripping, beside the
+   unarmed run.  (c) the ladder's one rung, ``fuse``, on fusion (b)'s
+   chain under ``@app:fuse @app:faults(journal=) @app:limits(ladder=)``,
+   down and back up: the junctions carry the hops while demoted, none
+   after, rows equal the undisturbed fused run; each re-plan's
+   seconds; a forced re-plan of the main path (two engine sets at 1 M
+   partitions for a moment): its seconds and peak memory, rows equal
+   the clean run, ``dense_batch`` launching before and after; then a
+   wedged ``@async`` device-query app healed by the watchdog, every row
+   delivered once.  (d) admission (``shed='drop'``, half shed) on the
+   main path with the statistics feed and transient faults, 2 batches
+   on 4,096 keys: the rows, ``events_shed`` and the feed's fault and
+   robustness counters equal the CPU run's.  (e) events/s with
+   ``@app:statistics @app:trace(sample='1/64')`` and without, 8
+   batches each; a fully sampled run's spans by stage; and
+   ``/metrics`` from the service on localhost.  Every main-path run
+   prints its dropped instances and fails on one.  An
+   ``operations_seconds`` line follows.
+31. kernels: one line per ported kernel (launches on the main paths,
    largest difference from its plain version, ``ms``, ``host_us``,
    ``device_us``, plain and library times, bound); the bank kernel's at
    the entry the aggregation path uses, ``accumulate_``, with the delta
@@ -6423,6 +6452,628 @@ def transports_phase(torch, SiddhiManager, EventBatch, StreamCallback,
     return launches
 
 
+# -- phase 30: the operations layer -------------------------------------------
+
+OPS_PARTITIONS = N_PARTITIONS
+OPS_BATCH = BATCH
+# instance lanes a node: the most the dense_batch kernel takes; with the
+# traffic below none is dropped (the phase fails on a drop)
+OPS_INSTANCES = 32
+OPS_BATCHES = 6
+# half of each batch on these keys (so a cold 16-state chain completes
+# within the phase's batches, and no node holds more than
+# OPS_INSTANCES pending instances), half spread over every partition
+OPS_HOT_KEYS = 16_384
+OPS_FAULTED = 3  # the batch whose step.dense check raises once
+OPS_TRACED = 8
+# (d)'s traffic sits on these keys, so chains complete from the first
+# batch; the card and the CPU run take the same batches (more of them
+# would fill a node's lanes on these keys)
+OPS_ADMIT_KEYS = 4_096
+OPS_ADMIT_BATCHES = 2
+OPS_DQ_BATCHES = 8
+OPS_DQ_BATCH = 65_536
+# the messages an operations case expects on the port's logger
+OPS_EXPECTED = ("device state poisoned", "NaN/Inf poison",
+                "watchdog tripped", "transient fault at",
+                "error processing events on stream")
+# launches of the phase's runs on the card add up here
+OPS_TALLY: dict = {}
+
+
+def ops_batches(EventBatch, n=None, seed=83, hot=None):
+    """The main path's traffic for the operations phase: ``n`` batches
+    (``OPS_BATCHES``) of ``OPS_BATCH``, even rows on ``OPS_HOT_KEYS``
+    keys, odd rows stride-walked over every partition, v ~ U(0, 20), one
+    timestamp a batch 10 ms apart; with ``hot``, every row on ``hot``
+    keys (a chain completes within the first batch)."""
+    n = OPS_BATCHES if n is None else n
+    batch, partitions = OPS_BATCH, OPS_PARTITIONS
+    rng = np.random.default_rng(seed)
+    out = []
+    idx = np.arange(batch, dtype=np.int64)
+    for i in range(n):
+        wide = (idx * 524287 + i * batch) % partitions
+        keys = (rng.integers(0, hot, batch) if hot else
+                np.where(idx % 2 == 0,
+                         rng.integers(0, OPS_HOT_KEYS, batch), wide))
+        v = rng.uniform(0.0, float(N_STATES + 4), batch)
+        out.append(EventBatch("Txn", ["key", "v"], {"key": keys, "v": v},
+                              np.full(batch, 1_000 + i * 10,
+                                      dtype=np.int64)))
+    return out
+
+
+def ops_app(anns: str, stream_anns: str = "") -> str:
+    """The main path (``kernel_eligible_app`` in ``partition with (key of
+    Txn)``, ``OPS_PARTITIONS`` partitions) under ``anns``, its stream
+    definition under ``stream_anns``."""
+    body = partitioned(kernel_eligible_app())
+    if stream_anns:
+        body = body.replace("define stream Txn", stream_anns
+                            + " define stream Txn", 1)
+    return ("@app:playback @app:execution('tpu', "
+            f"partitions='{OPS_PARTITIONS}', instances='{OPS_INSTANCES}') "
+            + anns + " " + body)
+
+
+class OpsErrors:
+    """The ERRORs an operations case expects (a quarantine, a watchdog
+    trip, a retried or routed fault) leave ``ISOLATED`` when the case
+    ends; any other still fails the phase."""
+
+    def __enter__(self):
+        self.before = len(ISOLATED.errors)
+        return self
+
+    def __exit__(self, *exc):
+        new = ISOLATED.errors[self.before:]
+        del ISOLATED.errors[self.before:]
+        ISOLATED.errors.extend(m for m in new
+                               if not any(p in m for p in OPS_EXPECTED))
+        ISOLATED.heard = [e for e in ISOLATED.heard
+                          if type(e).__name__ not in (
+                              "TransferFaultError", "InjectedFaultError",
+                              "SimulatedCrashError")]
+        return False
+
+
+def ops_run(torch, SiddhiManager, StreamCallback, app, device, batches,
+            kernels, outs=("Alerts",), between=None, keep_live=False):
+    """``app`` over ``batches`` on ``device``: the kept output batches by
+    stream, the seconds a batch (synchronised), the launches, and the
+    runtime; ``between(i, rt)`` runs before batch ``i`` is sent."""
+    zero_launches(kernels)
+    mgr = SiddhiManager(device=device)
+    rt = mgr.create_siddhi_app_runtime(app)
+    kept = {o: [] for o in outs}
+    for o in outs:
+        rt.add_callback(o, ckpt_keep(StreamCallback, kept[o]))
+    rt.start()
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    h = rt.get_input_handler(batches[0].stream_id)
+    per = []
+    for i, b in enumerate(batches):
+        if between is not None:
+            between(i, rt)
+        sync()
+        t = time.perf_counter()
+        h.send_batch(b)
+        rt.drain()
+        sync()
+        per.append(time.perf_counter() - t)
+    run = {"outs": kept, "batch_s": per, "launches": read_launches(kernels),
+           "rt": rt, "mgr": mgr, "lowering": rt.lowering(step_kinds=True),
+           "overflow": ops_overflow(rt)}
+    if run["overflow"]:
+        raise AssertionError(f"operations: {run['overflow']} pending "
+                             "instance(s) dropped on the main path")
+    if device == "cuda":
+        for k, n in run["launches"].items():
+            OPS_TALLY[k] = OPS_TALLY.get(k, 0) + n
+    if not keep_live:
+        ops_close(run)
+    return run
+
+
+def ops_overflow(rt):
+    """The main path's dropped instances (``overflow_total``), None for
+    another app."""
+    pr = rt.partitions.get("partition_0")
+    dense = pr.dense_query_runtimes.get("bench") if pr is not None else None
+    return None if dense is None else \
+        dense.pattern_processor.overflow_total()
+
+
+def ops_close(run):
+    """Shut the run's app down and drop it, so its device state is freed
+    before the next run (a re-plan's peak memory reads two engine sets,
+    not a finished run's too)."""
+    run.pop("rt").shutdown()
+    run.pop("mgr").shutdown()
+    gc.collect()
+
+
+def ops_same_state(torch, rt_a, rt_b) -> bool:
+    """The main path's dense state equal key by key in two runs (a key
+    interned in one run only must still hold the initial row: a batch
+    whose step faulted interned its keys and stepped nothing)."""
+    def parts(rt):
+        pr = rt.partitions["partition_0"]
+        dense = pr.dense_query_runtimes["bench"].pattern_processor
+        return dense.state, dict(dense._key_rows), dense.engine
+
+    (sa, ka, eng), (sb, kb, _) = parts(rt_a), parts(rt_b)
+    init = eng.init_state()
+    common = [key for key in ka if key in kb]
+    for k, ta in sa.items():
+        tb = sb[k]
+        if ta.dim() == 0 or ta.shape[0] != init[k].shape[0] \
+                or ta.shape[0] < eng.n_partitions:
+            if not torch.equal(ta, tb):
+                return False
+            continue
+        if not torch.equal(ta[[ka[x] for x in common]],
+                           tb[[kb[x] for x in common]]):
+            return False
+        for t, rows, other in ((ta, ka, kb), (tb, kb, ka)):
+            only = [rows[x] for x in rows if x not in other]
+            if only and not torch.equal(t[only], init[k][only]):
+                return False
+    return True
+
+
+def ops_rows(EventBatch, kept) -> list:
+    """Every kept output row as (ts, values), in order."""
+    out = []
+    for b in kept:
+        cols = [np.asarray(b.columns[a]) for a in b.attribute_names]
+        out.extend(zip(b.timestamps.tolist(),
+                       *[c.tolist() for c in cols]))
+    return out
+
+
+def ops_transient_case(torch, SiddhiManager, EventBatch, StreamCallback,
+                       kernels, card, batches, clean_all) -> dict:
+    """(a) transient faults on the main path."""
+    faults = ("@app:faults(seed='7', transfer.retry.scale='0.0001', "
+              "emit.drain='transient:p=0.25:count=100000', "
+              "ingest.put='transient:p=0.25:count=100000', "
+              f"step.dense='transient:count=1:after={OPS_FAULTED}')")
+    with OpsErrors():
+        chaos = ops_run(torch, SiddhiManager, StreamCallback,
+                        ops_app(faults, stream_anns="@OnError(action='STREAM')"),
+                        "cuda", batches, kernels, outs=("Alerts", "!Txn"),
+                        keep_live=True)
+    skip = batches[:OPS_FAULTED] + batches[OPS_FAULTED + 1:]
+    clean = ops_run(torch, SiddhiManager, StreamCallback, ops_app(""),
+                    "cuda", skip, kernels, keep_live=True)
+    same_state = ops_same_state(torch, chaos["rt"], clean["rt"])
+    rows = ops_rows(EventBatch, chaos["outs"]["Alerts"])
+    fst = chaos["rt"].app_context.fault_injector.stats
+    faulted = sum(len(b) for b in chaos["outs"]["!Txn"])
+    ops_close(chaos)
+    ops_close(clean)
+    if (rows != ops_rows(EventBatch, clean["outs"]["Alerts"]) or not rows
+            or not same_state or faulted != len(batches[OPS_FAULTED])
+            or fst.drains_failed or not fst.transfer_retries
+            or chaos["launches"]["dense_batch"] != len(batches) - 1):
+        raise AssertionError(
+            f"operations (a): rows {len(rows)} state {same_state} "
+            f"faulted {faulted} {fst.as_dict()} {chaos['launches']}")
+    keep = [i for i in range(len(batches)) if i != OPS_FAULTED]
+    chaos_ms = [chaos["batch_s"][i] * 1e3 for i in keep]
+    return {"phase": "operations", "case": "a_transient_faults",
+            "partitions": OPS_PARTITIONS, "batch": OPS_BATCH,
+            "batches": len(batches), "faulted_batch": OPS_FAULTED,
+            "rows": len(rows), "rows_equal_fault_free_card_run": True,
+            "final_state_equal": same_state,
+            "fault_stream_rows": faulted,
+            "faults_injected": fst.faults_injected,
+            "transfer_retries": fst.transfer_retries,
+            "drains_recovered": fst.drains_recovered,
+            "drains_failed": fst.drains_failed,
+            "ms_a_batch_faulted": sum(chaos_ms) / len(chaos_ms),
+            "ms_a_batch_clean": 1e3 * sum(clean["batch_s"])
+            / len(clean["batch_s"]),
+            "dense_batch_launches": chaos["launches"]["dense_batch"],
+            "dropped_instances": {"faulted": chaos["overflow"],
+                                  "clean": clean["overflow"]},
+            "card": card}
+
+
+OPS_DQ_APP = ("@app:playback @app:execution('tpu', partitions='1024') {faults}"
+              "define stream S (k long, v double); "
+              "@info(name='q') from S#window.lengthBatch(8192) "
+              "select k, sum(v) as s, count() as c group by k "
+              "insert into Out;")
+
+
+def ops_dq_batches(EventBatch, n=None):
+    """``n`` (``OPS_DQ_BATCHES``) batches of ``OPS_DQ_BATCH`` events over
+    1,024 keys for the device query path."""
+    n, batch = OPS_DQ_BATCHES if n is None else n, OPS_DQ_BATCH
+    rng = np.random.default_rng(89)
+    return [EventBatch("S", ["k", "v"],
+                       {"k": rng.integers(0, 1024, batch),
+                        "v": np.round(rng.uniform(0, 10, batch), 1)},
+                       np.full(batch, 5_000 + 10 * i, dtype=np.int64))
+            for i in range(n)]
+
+
+def ops_poison_case(torch, SiddhiManager, EventBatch, StreamCallback,
+                    kernels, card) -> list:
+    """(b) the NaN/Inf quarantine on the device query path (kernel 3)
+    and on the skew-routed path (kernel 4), each against the CPU run
+    with the same fault; the guard's ms a batch, armed and never
+    tripping, beside the unarmed run."""
+    lines = []
+    # the group-by's float32 sums within the reference's bound, the
+    # router's captured values bit for bit
+    cases = (
+        ("device_query", OPS_DQ_APP, ops_dq_batches(EventBatch), ("Out",),
+         "bank_scatter", ("s",)),
+        ("hotkey", hot_key_app(True).replace("@app:playback",
+                                             "@app:playback {faults}"),
+         hot_key_batches(EventBatch), ("Alerts",), "scan_chain", ()))
+    for label, app, batches, outs, kernel, sums in cases:
+        trip = "@app:faults(state.poison='poison:count=1:after=2') "
+        armed = "@app:faults(state.poison='poison:count=0') "
+        runs = {}
+        with OpsErrors():
+            for key, device, faults in (("card", "cuda", trip),
+                                        ("cpu", "cpu", trip),
+                                        ("armed", "cuda", armed),
+                                        ("unarmed", "cuda", "")):
+                r = ops_run(torch, SiddhiManager, StreamCallback,
+                            app.format(faults=faults), device, batches,
+                            kernels, outs=outs, keep_live=True)
+                fi = r["rt"].app_context.fault_injector
+                r["quarantines"] = (fi.stats.poison_quarantines
+                                    if fi is not None else 0)
+                ops_close(r)
+                runs[key] = r
+        held = dq_compare(
+            EventBatch.concat(runs["card"]["outs"][outs[0]]),
+            EventBatch.concat(runs["cpu"]["outs"][outs[0]]), sums,
+            not sums)
+        if (not held["rows"] or runs["card"]["quarantines"] != 1
+                or runs["cpu"]["quarantines"] != 1
+                or not runs["card"]["launches"][kernel]):
+            raise AssertionError(
+                f"operations (b) {label}: {held} rows, quarantines "
+                f"{runs['card']['quarantines']}/{runs['cpu']['quarantines']}"
+                f", launches {runs['card']['launches']}")
+        ms = {k: 1e3 * sum(runs[k]["batch_s"][1:]) / (len(batches) - 1)
+              for k in ("armed", "unarmed")}
+        lines.append({
+            "phase": "operations", "case": f"b_poison_{label}",
+            "lowering": runs["card"]["lowering"],
+            "batches": len(batches), "batch": len(batches[0]),
+            "poison_quarantines": runs["card"]["quarantines"],
+            "rows_held_vs_cpu": held["rows"],
+            "sum_max_abs_err": held["max_abs_err"],
+            "kernel": kernel,
+            "kernel_launches": runs["card"]["launches"][kernel],
+            "guard_ms_a_batch": ms["armed"] - ms["unarmed"],
+            "armed_ms_a_batch": ms["armed"],
+            "unarmed_ms_a_batch": ms["unarmed"], "card": card})
+    return lines
+
+
+OPS_WD_APP = ("@app:name('opswd{tag}') @app:execution('tpu') {faults} "
+              "@app:limits(watchdog='200 ms') "
+              "@async(buffer.size='64', batch.size.max='16') "
+              "define stream S (k long, v double); "
+              "@info(name='q') from S[v > 0.0] select k, v insert into Out;")
+
+
+# (c)'s ladder runs fusion (b)'s device-tail chain: the port's ladder
+# has one rung, fuse (its dense engines stay on their kernel)
+OPS_LADDER_BATCHES = 6
+OPS_LADDER_ANNS = ("@app:fuse @app:faults(journal='64') "
+                   "@app:limits(watchdog='60 sec', ladder='true') ")
+
+
+def ops_ladder_case(torch, SiddhiManager, EventBatch, StreamCallback,
+                    kernels, card, batches, clean_all) -> list:
+    """(c) the degradation ladder's ``fuse`` rung on fusion (b)'s fused
+    chain at B = 131,072, down one rung and back up against the
+    undisturbed fused run; a forced re-plan of the main path at
+    ``OPS_PARTITIONS`` partitions (two engine sets for a moment) against
+    the clean run; the watchdog's self-heal of a wedged device-query
+    app."""
+    fb = fuse_batches(EventBatch, [TAIL_BATCH] * OPS_LADDER_BATCHES,
+                      high=50.0, seed=47)
+    fused = {"q1": "fused", "q2": "fused", "q3": "fused"}
+    unfused = {"q1": "device", "q2": "device", "q3": "device"}
+    marks = {}
+
+    def rung(i, rt):
+        if i in (2, 4):
+            hops = hop_dispatches(rt)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pressure = 1.0 if i == 2 else 0.0
+            for _ in range(3 if i == 2 else 6):
+                rt._ladder.observe(pressure)
+            torch.cuda.synchronize()
+            marks[i] = {"replan_s": time.perf_counter() - t,
+                        "lowering": rt.lowering(), "hops_before": hops}
+
+    still = ops_run(torch, SiddhiManager, StreamCallback,
+                    TAIL_APP.format(tag="lu", fuse="@app:fuse ", mid=""),
+                    "cuda", fb, kernels, outs=("Out",), keep_live=True)
+    ops_close(still)
+    ladder = ops_run(torch, SiddhiManager, StreamCallback,
+                     TAIL_APP.format(tag="ld", fuse=OPS_LADDER_ANNS, mid=""),
+                     "cuda", fb, kernels, outs=("Out",), between=rung,
+                     keep_live=True)
+    rb = ladder["rt"].app_context.robustness
+    hops_after = hop_dispatches(ladder["rt"])
+    ops_close(ladder)
+    held = held_concat(EventBatch, ladder, still, ("total",))
+    # while demoted (batches 2-3, and the replay of 0-1) the junctions
+    # carried every hop; after the promotion the fused chain did
+    demoted_hops = marks[4]["hops_before"]
+    if (not held["rows"] or still["lowering"] != fused
+            or (rb.ladder_demotions, rb.ladder_promotions) != (1, 1)
+            or marks[2]["lowering"] != unfused
+            or marks[4]["lowering"] != fused
+            or not demoted_hops["Mid"] or not demoted_hops["Win"]
+            or hops_after["Mid"] or hops_after["Win"]):
+        raise AssertionError(f"operations (c) ladder: {held}, "
+                             f"{rb.as_dict()}, {marks}, {hops_after}")
+    lines = [{"phase": "operations", "case": "c_ladder",
+              "app": "fusion (b)'s device-tail chain",
+              "batch": TAIL_BATCH, "batches": len(fb),
+              "rows_vs_undisturbed_fused_run": held,
+              "demote": marks[2], "promote": marks[4],
+              "hop_dispatches_while_demoted": demoted_hops,
+              "hop_dispatches_after_promotion": hops_after,
+              "launches": ladder["launches"],
+              "ladder_demotions": rb.ladder_demotions,
+              "ladder_promotions": rb.ladder_promotions,
+              "watchdog": "60 sec (its own ticks never move the ladder "
+                          "in this case)",
+              "card": card}]
+
+    replan = {}
+
+    def forced(i, rt):
+        if i == 3:
+            replan["launches_before"] = read_launches(kernels)["dense_batch"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            replan["lowering"] = rt.replan({}, forced=True,
+                                           reason="operations (c)")
+            torch.cuda.synchronize()
+            replan.update(
+                replan_s=time.perf_counter() - t,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                launches_after=read_launches(kernels)["dense_batch"])
+
+    main = ops_run(torch, SiddhiManager, StreamCallback,
+                   ops_app("@app:faults(journal='64')"), "cuda", batches,
+                   kernels, between=forced, keep_live=True)
+    rows = ops_rows(EventBatch, main["outs"]["Alerts"])
+    ref = ops_rows(EventBatch, clean_all["outs"]["Alerts"])
+    ops_close(main)
+    # the replay of batches 0-2 launched the kernel again, and so did
+    # the batches after it
+    if (rows != ref or not rows or replan["lowering"] != {"bench": "dense"}
+            or replan["launches_after"] <= replan["launches_before"]
+            or main["launches"]["dense_batch"] <= replan["launches_after"]):
+        raise AssertionError(f"operations (c) replan: rows {len(rows)} vs "
+                             f"{len(ref)}, {replan}, {main['launches']}")
+    lines.append({"phase": "operations", "case": "c_replan",
+                  "partitions": OPS_PARTITIONS, "batch": OPS_BATCH,
+                  "instances": OPS_INSTANCES, "rows": len(rows),
+                  "rows_equal_clean_run": True, "replan_s":
+                  replan["replan_s"], "peak_bytes": replan["peak_bytes"],
+                  "lowering": replan["lowering"],
+                  "dense_batch_launches": main["launches"]["dense_batch"],
+                  "dropped_instances": main["overflow"], "card": card})
+
+    class Wedge:
+        def receive(self, batch):
+            from siddhi_tpu_torch.core.exceptions import SimulatedCrashError
+
+            raise SimulatedCrashError("wedged worker")
+
+    mgr = SiddhiManager(device="cuda")
+    got = []
+    with OpsErrors():
+        rt = mgr.create_siddhi_app_runtime(OPS_WD_APP.format(
+            tag="h", faults="@app:faults(journal='8192')"))
+        rt.add_callback("Out", lambda evs: got.extend(
+            (e.timestamp, tuple(e.data)) for e in evs))
+        rt.start()
+        rt.junctions["S"].subscribe(Wedge())
+        h = rt.get_input_handler("S")
+        for i in range(1, 6):
+            h.send([i, float(i)], timestamp=1000 + i)
+        time.sleep(0.05)
+        t_wedge = time.perf_counter()
+        for i in range(6, 11):
+            h.send([i, float(i)], timestamp=1000 + i)
+        rb = rt.app_context.robustness
+        deadline = time.time() + 15
+        while rb.watchdog_recoveries == 0 and time.time() < deadline:
+            time.sleep(0.01)
+        heal_s = time.perf_counter() - t_wedge
+        for i in range(11, 16):
+            h.send([i, float(i)], timestamp=1000 + i)
+        rt.drain()
+        health = rt.health()
+        low = rt.lowering()
+        rt.shutdown()
+        mgr.shutdown()
+    want = [(1000 + i, (i, float(i))) for i in range(1, 16)]
+    if (sorted(got) != want or rb.watchdog_recoveries != 1
+            or health["wedged"] or low != {"q": "device"}):
+        raise AssertionError(f"operations (c) watchdog: {sorted(got)} "
+                             f"{rb.as_dict()} {low}")
+    lines.append({"phase": "operations", "case": "c_watchdog",
+                  "lowering": low, "rows": len(got),
+                  "rows_equal_all_sends": True,
+                  "watchdog_trips": rb.watchdog_trips,
+                  "watchdog_recoveries": rb.watchdog_recoveries,
+                  "heal_s_from_wedge": heal_s, "deadline_ms": 200,
+                  "card": card})
+    return lines
+
+
+def ops_admission_case(torch, SiddhiManager, EventBatch, StreamCallback,
+                       kernels, card) -> tuple:
+    """(d) admission on the main path, shedding about half, with the
+    statistics feed and transient faults armed: the rows, ``events_shed``
+    and the feed's fault and robustness counters over
+    ``OPS_ADMIT_BATCHES`` batches against the CPU run's.  The traffic
+    sits on ``OPS_ADMIT_KEYS`` keys, so chains complete from the first
+    batch."""
+    batches = ops_batches(EventBatch, n=OPS_ADMIT_BATCHES, seed=91,
+                          hot=OPS_ADMIT_KEYS)
+    half = len(batches[0]) // 2
+    anns = ("@app:statistics('true') "
+            "@app:faults(seed='11', transfer.retry.scale='0.0001', "
+            "emit.drain='transient:p=0.5:count=100000', "
+            "ingest.put='transient:p=0.5:count=100000') "
+            f"@app:limits(rate='{half * 100}/s', burst='{half}', "
+            "shed='drop')")
+
+    def counters(rt):
+        return {k.split(".Siddhi.", 1)[1]: v
+                for k, v in rt.statistics().items()
+                if ".Faults." in k or ".Robustness." in k}
+
+    runs = {}
+    with OpsErrors():
+        for device in ("cuda", "cpu"):
+            r = ops_run(torch, SiddhiManager, StreamCallback, ops_app(anns),
+                        device, batches, kernels, keep_live=True)
+            r["counters"] = counters(r["rt"])
+            r["shed"] = r["rt"].app_context.robustness.events_shed
+            r["admitted"] = r["rt"].app_context.robustness.events_admitted
+            r["rows"] = ops_rows(EventBatch, r["outs"]["Alerts"])
+            ops_close(r)
+            runs[device] = r
+    card_run, cpu = runs["cuda"], runs["cpu"]
+    key = "Robustness.overload.events_shed"
+    if (card_run["rows"] != cpu["rows"] or not card_run["rows"]
+            or card_run["counters"] != cpu["counters"]
+            or cpu["counters"][key] != len(batches) * half
+            or not cpu["counters"]["Faults.injector.faults_injected"]
+            or card_run["shed"] != cpu["shed"]):
+        raise AssertionError(
+            f"operations (d): rows {len(card_run['rows'])} vs "
+            f"{len(cpu['rows'])}, {card_run['counters']} vs "
+            f"{cpu['counters']}")
+    line = {"phase": "operations", "case": "d_admission",
+            "rate_per_s": half * 100, "burst": half, "shed": "drop",
+            "batches": len(batches), "keys": OPS_ADMIT_KEYS,
+            "events_shed": card_run["shed"],
+            "events_admitted": card_run["admitted"],
+            "rows": len(card_run["rows"]), "rows_equal_cpu_run": True,
+            "events_shed_equal_cpu_run": True,
+            "admitted_ms_a_batch": 1e3 * sum(card_run["batch_s"])
+            / len(batches),
+            "dropped_instances": {"card": card_run["overflow"],
+                                  "cpu": cpu["overflow"]}, "card": card}
+    return line, card_run["counters"]
+
+
+def ops_stats_case(torch, SiddhiManager, EventBatch, StreamCallback,
+                   kernels, card, feed_counters) -> dict:
+    """(e) the main path with the statistics feed and the tracer on and
+    off, a fully sampled run's spans by stage, and ``/metrics`` from the
+    service on localhost."""
+    import urllib.request
+
+    from siddhi_tpu_torch.service import SiddhiService
+
+    batches = ops_batches(EventBatch, n=OPS_TRACED, seed=97)
+    rates, dropped = {}, {}
+    for label, anns in (("on", "@app:statistics('true') "
+                               "@app:trace(sample='1/64')"),
+                        ("off", "")):
+        r = ops_run(torch, SiddhiManager, StreamCallback, ops_app(anns),
+                    "cuda", batches, kernels)
+        rates[label] = len(batches) * len(batches[0]) / sum(r["batch_s"])
+        dropped[label] = r["overflow"]
+    traced = ops_run(torch, SiddhiManager, StreamCallback,
+                     ops_app("@app:trace(sample='1')"), "cuda", batches[:4],
+                     kernels, keep_live=True)
+    spans = {s: m["spans"] for s, m in
+             traced["rt"].app_context.tracer.stage_stats().items()}
+    ops_close(traced)
+    # a batch without a match has no emit span
+    if (spans.get("ingest") != 4 or spans.get("step") != 4
+            or not spans.get("emit")):
+        raise AssertionError(f"operations (e): spans {spans}")
+    svc = SiddhiService(manager=SiddhiManager(device="cuda"))
+    svc.start()
+    try:
+        code, _ = svc.deploy(OPS_DQ_APP.format(faults="@app:name('opsm') "
+                                               "@app:statistics "))
+        svc.get_runtime("opsm").get_input_handler("S").send_batch(
+            ops_dq_batches(EventBatch, n=1)[0])
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{svc.port}/metrics") as resp:
+            status, page = resp.status, resp.read().decode()
+    finally:
+        svc.stop()
+        svc.manager.shutdown()
+    if code != 200 or status != 200 or 'app="opsm"' not in page:
+        raise AssertionError(f"operations (e): /metrics {code} {status}")
+    return {"phase": "operations", "case": "e_statistics_tracing",
+            "batches": len(batches), "batch": len(batches[0]),
+            "events_per_s_statistics_and_trace_1_64": rates["on"],
+            "events_per_s_plain": rates["off"],
+            "spans_by_stage_sample_1_over_4_batches": spans,
+            "spans_at_1_64_over_8_batches": "none sampled (cycles 64, "
+                                             "128, ...)",
+            # the equal counters that moved (the rest are 0 in both)
+            "feed_counters_equal_cpu_run": {k: v for k, v in
+                                            feed_counters.items() if v},
+            "metrics_status": status,
+            "metrics_lines": len(page.splitlines()),
+            "dropped_instances": dropped, "card": card}
+
+
+def operations_phase(torch, SiddhiManager, EventBatch, StreamCallback,
+                     kernels, card) -> dict:
+    """Phase 30: the operations layer on the card, (a)-(e); returns the
+    launches of its card runs."""
+    OPS_TALLY.clear()
+    OPS_TALLY.update(dict.fromkeys(kernels, 0))
+    t_phase = time.perf_counter()
+    batches = ops_batches(EventBatch)
+    clean_all = ops_run(torch, SiddhiManager, StreamCallback, ops_app(""),
+                        "cuda", batches, kernels, keep_live=True)
+    ops_close(clean_all)
+    lines = [ops_transient_case(torch, SiddhiManager, EventBatch,
+                                StreamCallback, kernels, card, batches,
+                                clean_all)]
+    lines += ops_poison_case(torch, SiddhiManager, EventBatch,
+                             StreamCallback, kernels, card)
+    lines += ops_ladder_case(torch, SiddhiManager, EventBatch,
+                             StreamCallback, kernels, card, batches,
+                             clean_all)
+    line_d, feed = ops_admission_case(torch, SiddhiManager, EventBatch,
+                                      StreamCallback, kernels, card)
+    lines.append(line_d)
+    lines.append(ops_stats_case(torch, SiddhiManager, EventBatch,
+                                StreamCallback, kernels, card, feed))
+    for line in lines:
+        emit(line)
+    emit({"phase": "operations_seconds",
+          "seconds": time.perf_counter() - t_phase,
+          "launches": dict(OPS_TALLY), "card": card})
+    return dict(OPS_TALLY)
+
+
 def main() -> int:
     import torch
 
@@ -7027,10 +7678,16 @@ def main() -> int:
                                    StreamCallback, all_kernels, card)
     emit({"phase": "transports_seconds",
           "seconds": time.perf_counter() - t_phase})
+
+    # 30. the operations layer -------------------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    ops_launches = operations_phase(torch, SiddhiManager, EventBatch,
+                                    StreamCallback, all_kernels, card)
     emit({"phase": "isolated_errors", "errors": 0,
           "warnings_to_listeners_or_log": ISOLATED.warnings})
 
-    # 28. kernels -------------------------------------------------------------
+    # 31. kernels -------------------------------------------------------------
     by_path = lambda name: {"dense_1M": launches.get(name, 0),
                             "skew_routed": hk_launches.get(name, 0),
                             "aggregation": agg_launches[name],
@@ -7059,7 +7716,9 @@ def main() -> int:
                             # (a)-(c) of the multiplex phase, multiplexed
                             # and dedicated card runs; the transport runs
                             "multiplex": mux_launches[name],
-                            "transports": tr_launches[name]}
+                            "transports": tr_launches[name],
+                            # (a)-(e) of the operations phase
+                            "operations": ops_launches[name]}
     emit({"kernels": [
         {"name": "dense_batch", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/dense_batch.cu",
@@ -7070,7 +7729,8 @@ def main() -> int:
                       + auto_launches["dense_batch"]
                       + ckpt_launches["dense_batch"]
                       + mux_launches["dense_batch"]
-                      + tr_launches["dense_batch"]),
+                      + tr_launches["dense_batch"]
+                      + ops_launches["dense_batch"]),
          "launches_by_path": by_path("dense_batch"),
          "max_abs_err": batch_err,
          # the 1 M cell's batch; the routed cold sub-batch beside it
@@ -7094,14 +7754,16 @@ def main() -> int:
                       + rollup_launches["probe"] + hp_launches["probe"]
                       + product_launches["probe"] + auto_launches["probe"]
                       + ckpt_launches["probe"] + fuse_launches["probe"]
-                      + mux_launches["probe"] + tr_launches["probe"]),
+                      + mux_launches["probe"] + tr_launches["probe"]
+                      + ops_launches["probe"]),
          "launches_by_path": by_path("probe"), "max_abs_err": probe_err,
          **{k: probe_line[k] for k in KERNEL_KEYS}},
         {"name": "scan_chain", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/scan_chain.cu",
          "replaces": "siddhi_tpu/kernels/scan_chain.py:91",
          "launches": hk_launches["scan_chain"]
-                     + auto_launches["scan_chain"],
+                     + auto_launches["scan_chain"]
+                     + ops_launches["scan_chain"],
          "launches_by_path": by_path("scan_chain"), "max_abs_err": scan_err,
          # the routed path's shape; the widest legal one beside it
          "case": "H=8, n=2048, S=2",
@@ -7117,7 +7779,8 @@ def main() -> int:
                      + fuse_launches["bank_scatter"]
                      + dt_launches["bank_scatter"]
                      + mux_launches["bank_scatter"]
-                     + tr_launches["bank_scatter"],
+                     + tr_launches["bank_scatter"]
+                     + ops_launches["bank_scatter"],
          "launches_by_path": by_path("bank_scatter"),
          "launches_by_entry": bank_by_entry,
          "max_abs_err": bank_err,

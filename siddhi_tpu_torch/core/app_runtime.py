@@ -33,14 +33,26 @@ start and stop with the runtime (``sources``, ``sinks``);
 ``@OnError(action='STREAM')`` streams have their ``!name`` fault
 junction, read by ``from !S`` and written by ``insert into !S``.
 Under ``@app:multiplex`` a query may take a seat in a shared engine
-(``lowering()`` gives ``'multiplex'``), which its shutdown frees.  An
-app outside the slices raises ``SiddhiAppCreationError`` naming the
-``ROADMAP.md`` item that ports it.
+(``lowering()`` gives ``'multiplex'``), which its shutdown frees.
+
+The operations layer: ``statistics()`` and ``set_statistics_level``
+(the app's ``StatisticsManager``; the fault, durability and robustness
+counters register whatever the level), ``health()`` (``@app:limits``:
+admission, breakers, watchdog, ladder), the watchdog and its ladder,
+started and stopped with the runtime, ``debug()`` (a
+``SiddhiDebugger`` at every query's IN and OUT terminals) and
+``replan(pins)``: a live re-plan that rebuilds every engine from a
+fresh parse under per-query path pins and replays the input journal's
+whole history through the suppressing output ledger, on this same
+runtime object.  An app outside the slices raises
+``SiddhiAppCreationError`` naming the ``ROADMAP.md`` item that ports
+it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import logging
 import threading
 import time
@@ -55,6 +67,7 @@ from siddhi_tpu_torch.core.exceptions import (
     OnErrorAction,
     SiddhiAppCreationError,
     SiddhiAppRuntimeError,
+    later_slice,
 )
 from siddhi_tpu_torch.core.partition import PartitionRuntime
 from siddhi_tpu_torch.core.stream import (
@@ -77,6 +90,7 @@ from siddhi_tpu_torch.extension.function import build_functions
 from siddhi_tpu_torch.extension.validator import validate_extension_args
 from siddhi_tpu_torch.planner.app_planner import (
     attach_transports,
+    note_fallback,
     note_fused_conflicts,
     plan_app_context,
     transport_config,
@@ -95,15 +109,29 @@ from siddhi_tpu_torch.query_api.annotation import find_annotation
 from siddhi_tpu_torch.table import InMemoryTable, RecordTableRuntime, TableCache
 from siddhi_tpu_torch.util.persistence import IncrementalPersistenceStore
 from siddhi_tpu_torch.util.snapshot import SnapshotService
+from siddhi_tpu_torch.util.statistics import Level
 
 log = logging.getLogger("siddhi_tpu_torch")
 
 
+# the paths a replan pin may name ('+' joins them), as the reference's
+# planner reads them; 'shard' is the multi-device slice's
+_PIN_PATHS = frozenset(("host", "device", "dense", "hotkey", "fuse",
+                        "multiplex"))
+
+
 class SiddhiAppRuntime:
-    def __init__(self, siddhi_app, device, siddhi_context):
+    def __init__(self, siddhi_app, device, siddhi_context, prepare=None,
+                 name: Optional[str] = None):
+        """``prepare(app_context)`` and ``name``: a live re-plan's, the
+        hook run on the planned context before any engine is built
+        (pins, the carried robustness state, the shared app lock) and
+        the app's name (its input journal is found by it)."""
         self.siddhi_app = siddhi_app
         self.app_context = plan_app_context(siddhi_app, device,
-                                            siddhi_context)
+                                            siddhi_context, app_name=name)
+        if prepare is not None:
+            prepare(self.app_context)
         self.name = self.app_context.name
         self.siddhi_context = siddhi_context
         # a copy of the manager's registry: the built-ins and the user
@@ -156,7 +184,11 @@ class SiddhiAppRuntime:
         # @app:fuse pre-pass: chains of device queries linked by
         # exclusive `insert into` streams come back planned, keyed by the
         # query's identity; the others plan one by one below
-        fused = plan_fused_chains(self) if self.app_context.fuse else {}
+        # (a replan pin naming 'fuse' runs the pass too)
+        ctx = self.app_context
+        want_fuse = ctx.fuse or any("fuse" in str(p).split("+")
+                                    for p in ctx.plan_pins.values())
+        fused = plan_fused_chains(self) if want_fuse else {}
         qi = pi = 0  # the reference numbers queries and partitions apart
         for el in siddhi_app.execution_elements:
             if isinstance(el, Query):
@@ -174,6 +206,18 @@ class SiddhiAppRuntime:
             pr = PartitionRuntime(el, self, pi)
             pi += 1
             self.partitions[pr.name] = pr
+        # input handlers by stream: a live re-plan re-points them, so a
+        # handler the user holds keeps working
+        self._input_handlers: Dict[str, InputHandler] = {}
+        # (target, callback) as registered, re-attached by a re-plan
+        self._user_callbacks: List = []
+        self._watchdog = None
+        self._ladder = None
+        # set by the manager that registered this runtime, with the app
+        # text a re-plan parses afresh
+        self._manager = None
+        self._app_string = ""
+        self._register_trackers()
 
     def _define_junction(self, d, key: Optional[str] = None
                          ) -> StreamJunction:
@@ -232,13 +276,19 @@ class SiddhiAppRuntime:
             ctx = self.app_context
             if ctx.devtables:
                 try:
-                    return DeviceTable(td, capacity=ctx.devtable_capacity,
-                                       device=ctx.device)
+                    table = DeviceTable(td, capacity=ctx.devtable_capacity,
+                                        device=ctx.device,
+                                        faults=ctx.fault_injector,
+                                        tracer=ctx.tracer)
+                    if ctx.statistics_manager is not None:
+                        ctx.statistics_manager.register_devtable(td.id,
+                                                                 table)
+                    return table
                 except SiddhiAppCreationError as e:
                     log.warning(
                         "table '%s': @app:devtables requested but the "
                         "table stays host-resident (%s)", td.id, e)
-                    ctx.devtable_fallbacks[f"table:{td.id}"] = str(e)
+                    note_fallback(ctx, "devtable", f"table:{td.id}", str(e))
             return InMemoryTable(td)
         cm = self.siddhi_context.config_manager
         stype, opts = transport_config(store_ann, "store", cm)
@@ -416,10 +466,30 @@ class SiddhiAppRuntime:
                                   "start")
             raise
         ctx = self.app_context
+        ctx.app_running = True
+        sm = ctx.statistics_manager
+        if sm is not None and Level.at_least(ctx.root_metrics_level,
+                                             Level.BASIC):
+            sm.start_reporting()
         if ctx.playback and ctx.playback_idle_ms > 0:
             self._start_playback_heartbeat()
         if ctx.persist_interval_ms > 0:
             self._start_persist_daemon()
+        if ctx.watchdog_deadline_ms > 0 and self._watchdog is None:
+            from siddhi_tpu_torch.robustness import (
+                DegradationLadder,
+                Watchdog,
+            )
+
+            # @app:limits(watchdog=, ladder=): the stall detector and its
+            # self-heal, optionally driving the ladder; a re-plan
+            # restarts both here with the carried counters
+            rb = ctx.robustness
+            self._ladder = (DegradationLadder(self, rb) if ctx.ladder
+                            else None)
+            self._watchdog = Watchdog(self, rb, ctx.watchdog_deadline_ms,
+                                      ladder=self._ladder)
+            self._watchdog.start()
 
     def _start_playback_heartbeat(self):
         """``@app:playback(idle.time, increment)``: when no event arrives
@@ -434,6 +504,8 @@ class SiddhiAppRuntime:
             while not stop.wait(idle_s):
                 if time.monotonic() - tg.last_update_wall >= idle_s:
                     with ctx.process_lock:
+                        if stop.is_set():
+                            return
                         self.scheduler.advance(tg.advance_idle())
 
         self._playback_stop = stop
@@ -489,23 +561,47 @@ class SiddhiAppRuntime:
     drain_device_emits = drain
 
     def shutdown(self):
-        if self._playback_stop is not None:
-            self._playback_stop.set()
-            self._playback_thread.join(timeout=2)
-            self._playback_stop = self._playback_thread = None
-        if self._persist_stop is not None:
-            self._persist_stop.set()
-            self._persist_thread.join(timeout=10)
-            self._persist_stop = self._persist_thread = None
+        self._teardown(replan=False)
+        if self._manager is not None \
+                and self._manager.runtimes.get(self.name) is self:
+            # identity-guarded: a replaced runtime leaves its successor
+            self._manager.runtimes.pop(self.name, None)
+
+    def _teardown(self, replan: bool):
+        """Stop everything; ``replan=True`` (a live re-plan, under the
+        app lock) joins no thread and drops what async junctions hold,
+        since the journal replays it into the replacement."""
+        # the watchdog first: a daemon that can force a re-plan must not
+        # race a teardown
+        if self._watchdog is not None:
+            self._watchdog.stop()
+            self._watchdog = self._ladder = None
+        wait = not replan
+        for stop_attr, thread_attr, timeout in (
+                ("_playback_stop", "_playback_thread", 2),
+                ("_persist_stop", "_persist_thread", 10)):
+            stop = getattr(self, stop_attr)
+            if stop is not None:
+                stop.set()
+                if wait:
+                    getattr(self, thread_attr).join(timeout=timeout)
+                setattr(self, stop_attr, None)
+                setattr(self, thread_attr, None)
         if self._ckpt_writer is not None:
             self._ckpt_writer.shutdown()
+        sm = self.app_context.statistics_manager
+        if sm is not None:
+            sm.stop_reporting()
         for s in self.sources:
             s.shutdown()
         # the async workers stop (dispatching what they hold) before the
         # device runtimes drain, so every accepted batch reaches them
         for j in list(self.junctions.values()):
-            j.stop()
-        self.scheduler.stop()
+            if replan:
+                j.abandon()
+            else:
+                j.stop()
+        self.scheduler.stop(wait=wait)
         # the device runtimes' last emits reach the sinks before these
         # disconnect; a multiplexed query frees its seat here
         for rt in self.device_runtimes().values():
@@ -521,6 +617,341 @@ class SiddhiAppRuntime:
             mgr.unregister(element_id)
         self._handler_registrations = []
         self._running = False
+        self.app_context.app_running = False
+
+    # -- operations: statistics, health, debugger ----------------------------
+
+    def _register_trackers(self):
+        """The statistics manager's trackers at the app's level, and the
+        fault and robustness counters whatever the level: their evidence
+        stays visible with statistics off."""
+        ctx = self.app_context
+        sm = ctx.statistics_manager
+        if sm is None:
+            return
+        self._apply_statistics_level(ctx.root_metrics_level)
+        if ctx.fault_injector is not None:
+            sm.fault_tracker("injector", ctx.fault_injector.stats)
+        if ctx.robustness is not None:
+            sm.robustness_tracker("overload", ctx.robustness)
+
+    def _apply_statistics_level(self, level: str):
+        """(Un)install the throughput, latency, transfer, ingest and
+        buffer trackers to match ``level``."""
+        sm = self.app_context.statistics_manager
+        if sm is None:
+            return
+        self.app_context.root_metrics_level = level
+        basic = Level.at_least(level, Level.BASIC)
+        detail = Level.at_least(level, Level.DETAIL)
+        if not basic:
+            # a downgrade drops the trackers, so statistics() stops
+            # reporting stale metrics
+            for reg in (sm.throughput, sm.latency, sm.lowering,
+                        sm.transfers, sm.ingests):
+                reg.clear()
+        else:
+            sm.lowering.update(self.lowering())
+            for name, qr in self._all_query_runtimes().items():
+                rt = qr.device_processor
+                if rt is None:
+                    continue
+                if getattr(rt, "emit_stats", None) is not None:
+                    sm.transfer_tracker(name, rt.emit_stats)
+                if getattr(rt, "ingest_stats", None) is not None:
+                    sm.ingest_tracker(name, rt.ingest_stats)
+        if not detail:
+            sm.buffers.clear()
+        for j in self.junctions.values():
+            j.throughput_tracker = (sm.throughput_tracker(j.stream_id)
+                                    if basic else None)
+        for qname, qr in self.query_runtimes.items():
+            if hasattr(qr, "latency_tracker"):
+                qr.latency_tracker = (sm.latency_tracker(qname) if basic
+                                      else None)
+        if detail:
+            for j in self.junctions.values():
+                if j.is_async:
+                    sm.buffer_tracker(j.stream_id, j)
+
+    def set_statistics_level(self, level: str):
+        """Switch the metrics level (``'off'``, ``'basic'``,
+        ``'detail'``) at run time."""
+        self._apply_statistics_level(level)
+        sm = self.app_context.statistics_manager
+        if sm is not None and self._running:
+            if Level.at_least(level, Level.BASIC):
+                sm.start_reporting()
+            else:
+                sm.stop_reporting()
+
+    def statistics(self) -> Dict[str, object]:
+        """Metric name -> value, under the reference's names
+        (``io.siddhi.SiddhiApps.<app>.Siddhi.<kind>.<name>.<metric>``)."""
+        sm = self.app_context.statistics_manager
+        return sm.stats() if sm is not None else {}
+
+    def _pending_work(self) -> int:
+        """Accepted but undelivered work: batches queued in async
+        junctions, staged ingest windows and deferred emits (the
+        watchdog tells a stall from idleness by it)."""
+        n = sum(j.pending() for j in self.junctions.values())
+        for rt in self.device_runtimes().values():
+            for attr in ("emit_queue", "ingest_stage"):
+                q = getattr(rt, attr, None)
+                if q is not None:
+                    n += len(q)
+        return n
+
+    def _queue_fill(self) -> float:
+        """The fullest async junction's fill fraction (the ladder's
+        pressure signal)."""
+        return max((j.fill() for j in self.junctions.values()),
+                   default=0.0)
+
+    def health(self) -> Dict:
+        """Overload-protection health (``GET /siddhi-health``): healthy
+        when running, not shedding, no breaker open and not wedged.  The
+        counters are the live ``RobustnessStats`` the statistics feed
+        reads; no lock is taken, so a wedged app still answers."""
+        ctx = self.app_context
+        ac, rb = ctx.admission, ctx.robustness
+        wd, ld = self._watchdog, self._ladder
+        breakers = []
+        for s in list(self.sinks) + list(self.sources):
+            for t in [s] + list(getattr(s, "children", None) or []):
+                b = getattr(t, "_breaker", None)
+                if b is not None:
+                    breakers.append(b.describe())
+        shedding = ac.shedding_now() if ac is not None else False
+        wedged = wd.wedged if wd is not None else False
+        healthy = (self._running and not shedding and not wedged
+                   and not any(b["state"] == "open" for b in breakers))
+        return {
+            "app": self.name,
+            "healthy": healthy,
+            "running": self._running,
+            "shedding": shedding,
+            "wedged": wedged,
+            "degrade_level": ctx.degrade_level,
+            "admission": ac.snapshot() if ac is not None else None,
+            "breakers": breakers,
+            "watchdog": wd.describe() if wd is not None else None,
+            "ladder": ld.describe() if ld is not None else None,
+            "counters": rb.as_dict() if rb is not None else {},
+        }
+
+    def debug(self):
+        """Start in debug mode: a ``SiddhiDebugger`` at every query's IN
+        and OUT terminals.  Every emit is observed at its own batch: the
+        device runtimes drain after each step and stage synchronously."""
+        from siddhi_tpu_torch.debugger import SiddhiDebugger
+
+        debugger = SiddhiDebugger(self)
+        for qr in self.query_runtimes.values():
+            qr.debugger = debugger
+        for rt in self.device_runtimes().values():
+            eq = getattr(rt, "emit_queue", None)
+            if eq is not None:
+                eq.depth = 1
+                eq.controller = None
+            stage = getattr(rt, "ingest_stage", None)
+            if stage is not None:
+                stage.flush()
+                stage.depth = 1
+                stage.controller = None
+        self.start()
+        return debugger
+
+    # -- live re-plan --------------------------------------------------------
+
+    def replan(self, pins: Optional[Dict[str, str]] = None,
+               forced: bool = True, reason: str = "") -> Dict[str, str]:
+        """Re-lower the running app under per-query path pins
+        (``{'q1': 'fuse'}``, ``{'q': 'dense+hotkey'}``, ``'host'``),
+        bit-exact across the switch; returns the new lowering.
+
+        Under the app lock: pause the sources, drain, check that the
+        input journal still holds the whole history, build a complete
+        replacement from a fresh parse with ``pins`` (sharing this app's
+        lock and its robustness state), cross the ``replan.reseat``
+        crash point (a kill there abandons the replacement and leaves
+        the old engines running), tear the old engines down, adopt the
+        new ones onto this runtime object (input handlers the user
+        holds are re-pointed, callbacks re-attached), start, and replay
+        the journal's whole history with the output ledger suppressing
+        what each callback and sink already received.  Refused, and
+        counted as a planner fallback, without ``@app:faults(journal=)``
+        or once the journal no longer covers the history; a pin naming
+        ``shard`` waits for the multi-device slice."""
+        ctx = self.app_context
+        sm = ctx.statistics_manager
+        pins = dict(pins or {})
+
+        def refuse(why: str):
+            if sm is not None:
+                sm.record_planner_fallback(self.name,
+                                           f"replan refused: {why}")
+            log.warning("app '%s': replan refused (%s)", self.name, why)
+            raise SiddhiAppRuntimeError(
+                f"app '{self.name}': replan refused — {why}")
+
+        for q, p in pins.items():
+            comps = str(p).split("+")
+            if "shard" in comps:
+                refuse(f"pin {q}={p!r} shards over a device mesh"
+                       + later_slice(16, "multi-device"))
+            bad = sorted(set(comps) - _PIN_PATHS)
+            if bad:
+                refuse(f"pin {q}={p!r} names unknown path(s) {bad}")
+        if not self._running:
+            refuse("app is not running")
+        jr = ctx.input_journal
+        if jr is None:
+            refuse("no input journal — @app:faults(journal='N') is the "
+                   "replay substrate a live re-plan rebuilds state from")
+        with ctx.process_lock:
+            old_sources = list(self.sources)
+            for s in old_sources:
+                s.pause()
+            committed = False
+            try:
+                self.drain()
+                self._flush_persists()
+                if not jr.covers_from_start():
+                    refuse("journal no longer holds the full input "
+                           "history (overflowed or spilled); raise the "
+                           "journal depth to re-plan live")
+                old_lowering = self.lowering()
+                entries = jr.all_entries()
+                new_rt = self._build_replacement(pins)
+                self._adopt(new_rt, sm)
+                committed = True
+                # rebuild every engine's state from the whole journaled
+                # history through the suppressing output ledger
+                self.start()
+                jr.begin_replay_from_start()
+                try:
+                    for stream_id, batch in entries:
+                        self.get_input_handler(stream_id).send_batch(batch)
+                        jr.stats.replayed_batches += 1
+                    # the barrier inside the replay window: deferred
+                    # emits go through the ledger, not out as duplicates
+                    self.drain()
+                finally:
+                    jr.end_replay()
+                new_lowering = self.lowering()
+                rsm = self.app_context.statistics_manager
+                changed = False
+                for q, p in sorted(new_lowering.items()):
+                    o = old_lowering.get(q, "")
+                    if o != p:
+                        changed = True
+                        rsm.record_replan(q, o, p, forced, reason)
+                if not changed:
+                    rsm.record_replan("*", "", "", forced,
+                                      reason or "no lowering change")
+                log.info("app '%s': re-planned (%s); lowering now %s",
+                         self.name, reason or "forced", new_lowering)
+                return new_lowering
+            finally:
+                if not committed:
+                    for s in old_sources:
+                        s.resume()
+
+    def _build_replacement(self, pins: Dict[str, str]) -> "SiddhiAppRuntime":
+        """The replacement engine set, built before the old one is torn
+        down (two engine sets live for a moment), then the
+        ``replan.reseat`` crash point."""
+        from siddhi_tpu_torch.compiler import SiddhiCompiler
+        from siddhi_tpu_torch.robustness import apply_degradation
+
+        ctx = self.app_context
+        jr = ctx.input_journal
+        ast = (SiddhiCompiler.parse(
+                   SiddhiCompiler.update_variables(self._app_string))
+               if self._app_string else copy.deepcopy(self.siddhi_app))
+
+        def prepare(nctx):
+            nctx.plan_pins = dict(pins)
+            # one lock serializes both incarnations (async junctions
+            # build their conditions over it)
+            nctx.process_lock = ctx.process_lock
+            # the counters, bucket levels and the ladder's rung survive
+            # a self-heal, as the journal does
+            if ctx.robustness is not None and nctx.robustness is not None:
+                nctx.robustness = ctx.robustness
+                if ctx.admission is not None:
+                    ctx.admission.app_context = nctx
+                    ctx.admission.stats = ctx.robustness
+                    nctx.admission = ctx.admission
+            if ctx.degrade_level:
+                nctx.degrade_level = ctx.degrade_level
+                # what the rung turned off: the rebuilt ladder keeps it
+                # on its list, so it can re-promote
+                nctx.degraded_features = tuple(
+                    apply_degradation(nctx, ctx.degrade_level))
+
+        # the planner re-binds the journal's counters and spill sink to
+        # the new context: restored if the replacement is abandoned
+        saved = (jr.stats, jr.spill_sink)
+        ac_ctx = ctx.admission.app_context if ctx.admission else None
+        try:
+            new_rt = SiddhiAppRuntime(ast, ctx.device, self.siddhi_context,
+                                      prepare=prepare, name=self.name)
+        except BaseException:
+            jr.stats, jr.spill_sink = saved
+            if ctx.admission is not None:
+                ctx.admission.app_context = ac_ctx
+            raise
+        try:
+            if ctx.fault_injector is not None:
+                # crash point: replacement built, old engines live
+                ctx.fault_injector.check("replan.reseat")
+        except BaseException:
+            jr.stats, jr.spill_sink = saved
+            if ctx.admission is not None:
+                ctx.admission.app_context = ac_ctx
+            try:
+                new_rt._teardown(replan=False)
+            except Exception:
+                log.warning("replan: the abandoned replacement did not "
+                            "tear down cleanly", exc_info=True)
+            raise
+        return new_rt
+
+    def _adopt(self, new_rt: "SiddhiAppRuntime", old_sm):
+        """The point of no return: tear the old engines down and take
+        the replacement's internals onto this runtime object."""
+        new_ctx = new_rt.app_context
+        if old_sm is not None and new_ctx.statistics_manager is not None:
+            # the app-wide re-plan history survives the switch
+            new_ctx.statistics_manager.replans.extend(old_sm.replans)
+        self._teardown(replan=True)
+        for attr in ("siddhi_app", "app_context", "extensions", "functions",
+                     "sources", "sinks", "definitions", "junctions",
+                     "partitions", "query_runtimes", "tables",
+                     "named_windows", "trigger_runtimes", "aggregations",
+                     "_handler_registrations"):
+            setattr(self, attr, getattr(new_rt, attr))
+        self._on_demand_cache = {}
+        self._snapshot_svc = None
+        self._durab_stats = None
+        self._ckpt_writer = None
+        for src in self.sources:
+            src.is_running = lambda: self._running
+        # handlers the user holds keep working, on the new junctions
+        for sid, h in list(self._input_handlers.items()):
+            nj = self.junctions.get(sid)
+            if nj is None:
+                self._input_handlers.pop(sid)
+                continue
+            h.junction = nj
+            h.app_context = new_ctx
+            h.definition = nj.definition
+        cbs, self._user_callbacks = self._user_callbacks, []
+        for target, cb in cbs:
+            self.add_callback(target, cb)
 
     # -- on-demand (pull) queries --------------------------------------------
 
@@ -563,6 +994,10 @@ class SiddhiAppRuntime:
     def _durability_stats(self) -> DurabilityStats:
         if self._durab_stats is None:
             self._durab_stats = DurabilityStats()
+            sm = self.app_context.statistics_manager
+            if sm is not None:
+                # registered whatever the level, as the fault counters
+                sm.durability_tracker(self.name, self._durab_stats)
         return self._durab_stats
 
     def _durability_writer(self, create: bool = True
@@ -571,7 +1006,8 @@ class SiddhiAppRuntime:
             self._ckpt_writer = AsyncCheckpointWriter(
                 self.name, stats=self._durability_stats(),
                 fault_injector=self.app_context.fault_injector,
-                listeners=self.app_context.exception_listeners)
+                listeners=self.app_context.exception_listeners,
+                tracer=self.app_context.tracer)
         return self._ckpt_writer
 
     def _flush_persists(self, timeout: float = 30.0):
@@ -650,6 +1086,9 @@ class SiddhiAppRuntime:
         st = self._durability_stats()
         incremental = isinstance(store, IncrementalPersistenceStore)
         if incremental:
+            if mode == "async" and self.app_context.statistics_manager:
+                self.app_context.statistics_manager.record_persist_fallback(
+                    self.name, "incremental-store-sync-only")
             mode = "sync"
         revision = SnapshotService.new_revision(self.name)
         jr = self.app_context.input_journal
@@ -663,16 +1102,27 @@ class SiddhiAppRuntime:
                 jr.mark_revision(revision)
             return revision
 
-        def on_fallback(_element, _reason):
+        sm = self.app_context.statistics_manager
+
+        def on_fallback(element, reason):
             st.capture_fallback_elements += 1
+            if sm is not None:
+                sm.record_persist_fallback(f"{self.name}.{element}", reason)
 
         # the barrier: the sources paused (reference:
         # SiddhiAppRuntimeImpl.persist:677-691), the app lock, and every
         # emit still pending on the device lands in downstream state
         # (selectors, windows, tables) before that state is captured
+        tracer = self.app_context.tracer
         with self._sources_paused(), self.app_context.process_lock:
             self.drain()
+            t_cap = tracer.clock() if tracer is not None else 0.0
             capture = svc.capture(on_fallback=on_fallback)
+            if tracer is not None:
+                # the in-barrier capture is the stall the batch loop
+                # feels: a span like a pipeline stage's
+                tracer.record_span("persist.capture", "persist", t_cap,
+                                   tracer.clock())
             if jr is not None:
                 # the watermark and ledger counts at the capture point;
                 # the prune happens at commit, after the store write
@@ -798,6 +1248,9 @@ class SiddhiAppRuntime:
         failing its checksum) is skipped with a WARNING and the walk
         falls back to the one before; when none restores,
         ``CannotRestoreSiddhiAppStateError``."""
+        # the post-mortem: the span ring before the state is replaced
+        if self.app_context.tracer is not None:
+            self.app_context.tracer.dump("crash-restore")
         self._flush_persists()
         store = self._persistence_store()
         if isinstance(store, IncrementalPersistenceStore):
@@ -848,7 +1301,11 @@ class SiddhiAppRuntime:
         if j is None:
             raise DefinitionNotExistError(
                 f"stream '{stream_id}' is not defined in app '{self.name}'")
-        return InputHandler(j, self.app_context, lambda: self._running)
+        h = self._input_handlers.get(stream_id)
+        if h is None:
+            h = self._input_handlers[stream_id] = InputHandler(
+                j, self.app_context, lambda: self._running)
+        return h
 
     def add_callback(self, target: str,
                      callback: Union[StreamCallback, QueryCallback,
@@ -861,11 +1318,13 @@ class SiddhiAppRuntime:
             if not isinstance(callback, StreamCallback):
                 callback = FunctionStreamCallback(callback)
             self.junctions[target].add_callback(callback)
+            self._user_callbacks.append((target, callback))
             return
         if target in self.query_runtimes:
             if not isinstance(callback, QueryCallback):
                 callback = FunctionQueryCallback(callback)
             self.query_runtimes[target].add_callback(callback)
+            self._user_callbacks.append((target, callback))
             return
         raise SiddhiAppRuntimeError(
             f"no stream or query named '{target}' in app '{self.name}'")

@@ -69,6 +69,7 @@ from siddhi_tpu_torch.ops.dense_nfa import (
 )
 from siddhi_tpu_torch.ops.nfa import NFABuilder
 from siddhi_tpu_torch.query_api import AttrType, StateInputStream, Variable
+from siddhi_tpu_torch.util import faults as _faults
 
 log = logging.getLogger("siddhi_tpu_torch")
 
@@ -243,13 +244,22 @@ class DensePatternRuntime:
         self.on_purge_keys = None
         self.out_stream_id = out_stream_id
         self.emit_cb = emit
+        # the app's span tracer and fault injector (the engine reads its
+        # step.dense and ingest.put sites from engine.faults)
+        self.tracer = getattr(app_context, "tracer", None)
+        self.engine_kind = "dense"
+        self.faults = getattr(app_context, "fault_injector", None)
+        engine.faults = self.faults
         self.emit_stats = EmitStats()
-        self.emit_queue = EmitQueue(depth=emit_depth, stats=self.emit_stats)
+        self.emit_queue = EmitQueue(depth=emit_depth, stats=self.emit_stats,
+                                    faults=self.faults,
+                                    on_fault=self._on_fault)
         # the engine carries the stats so its staged puts count there
         self.ingest_stats = IngestStats()
         engine.ingest_stats = self.ingest_stats
-        self.ingest_stage = IngestStage(depth=ingest_depth,
-                                        stats=self.ingest_stats)
+        self.ingest_stage = IngestStage(
+            depth=ingest_depth, stats=self.ingest_stats,
+            on_fault=self._on_fault if self.faults is not None else None)
         self.state = engine.init_state()
         self.step_invocations = 0
         # timer steps that fired a match; the earliest armed deadline,
@@ -424,6 +434,10 @@ class DensePatternRuntime:
         cur = batch.only(ev.CURRENT)
         if len(cur) == 0:
             return
+        # a sampled cycle token (None for the unsampled): its ingest
+        # span starts here
+        tok = (self.tracer.begin_cycle(self.engine_kind, len(cur))
+               if self.tracer is not None else None)
         eng = self.engine
         cols = {a: np.asarray(cur.columns[a])
                 for a in eng.numeric_stream_attrs(stream_key)
@@ -444,17 +458,25 @@ class DensePatternRuntime:
 
         def _finish(p=pending, t=ts):
             c = 0 if p is None else p.resolve()
+            if tok is not None:
+                # the count gate resolved: the step has finished
+                tok.step_done(c)
             if c == 0:
                 self.emit_queue.skip()
                 return
             self.emit_queue.push(PendingEmit(
                 p.device_arrays(),
-                lambda host: self._emit_deferred(p, t, k, now, host)))
+                lambda host: self._emit_deferred(p, t, k, now, host),
+                trace=tok))
 
         # the match-count fetch (resolve) is the blocking device sync;
         # with ingest.depth > 1 it runs after the next batch's dispatch
         self.ingest_stage.submit(
-            None if pending is None else step_probe(eng.device), _finish)
+            None if pending is None else step_probe(eng.device), _finish,
+            trace=tok)
+
+    def _on_fault(self, e: BaseException):
+        _faults.isolate(self.tracer, self.faults, e)
 
     def drain(self):
         """Flush barrier: the ingest stage first (staged batches enqueue

@@ -14,8 +14,13 @@ order do not depend on the queue depths.
 
 The runtime is also an app scheduler task: ``next_wakeup``/``fire``
 close timeBatch panes on watermark time when no further event arrives.
-The reference's fault harness, NaN quarantine and span tracer are later
-slices of the port (``ROADMAP.md`` §1 item 15).
+Under ``@app:faults`` the emit queue retries its drains and isolates a
+failing one (``on_fault``), the engine checks ``step.device`` and
+``ingest.put``, and a ``state.poison`` fault arms the NaN/Inf
+quarantine (``util/faults.poison_guard``): a poisoned step's outputs
+are dropped and the state goes back to the last clean copy.  Each
+batch may carry a sampled cycle token of the app's tracer (ingest,
+step and emit spans).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from siddhi_tpu_torch.core.ingest_stage import (
     IngestStats,
     step_probe,
 )
+from siddhi_tpu_torch.util import faults as _faults
 
 
 class DeviceQueryRuntime:
@@ -42,10 +48,17 @@ class DeviceQueryRuntime:
     def __init__(self, engine, out_stream_id: str,
                  emit: Callable[[EventBatch], None], emit_depth: int = 1,
                  ingest_depth: int = 1,
-                 clock: Optional[Callable[[], int]] = None):
+                 clock: Optional[Callable[[], int]] = None,
+                 faults=None, tracer=None):
         self.engine = engine
         self.out_stream_id = out_stream_id
         self.emit_cb = emit
+        self.tracer = tracer
+        self.engine_kind = "device"
+        # the app's fault injector (the engine reads step.device and
+        # ingest.put from engine.faults)
+        self.faults = faults
+        engine.faults = faults
         # the engine carries the stats so its staged puts count there
         self.ingest_stats = IngestStats()
         engine.ingest_stats = self.ingest_stats
@@ -54,12 +67,19 @@ class DeviceQueryRuntime:
         # that the device path ran)
         self.step_invocations = 0
         self.emit_stats = EmitStats()
-        self.emit_queue = EmitQueue(depth=emit_depth, stats=self.emit_stats)
-        self.ingest_stage = IngestStage(depth=ingest_depth,
-                                        stats=self.ingest_stats)
+        self.emit_queue = EmitQueue(depth=emit_depth, stats=self.emit_stats,
+                                    faults=faults, on_fault=self._on_fault)
+        self.ingest_stage = IngestStage(
+            depth=ingest_depth, stats=self.ingest_stats,
+            on_fault=self._on_fault if faults is not None else None)
+        # the state.poison quarantine's restore point
+        self._last_good = None
         # the app clock, sampled when a batch is processed: a deferred
         # emit replays it to the query's time rate limiter
         self.clock = clock
+
+    def _on_fault(self, e: BaseException):
+        _faults.isolate(self.tracer, self.faults, e)
 
     # -- event path ----------------------------------------------------------
 
@@ -78,6 +98,8 @@ class DeviceQueryRuntime:
         cur = batch.only(ev.CURRENT)
         if len(cur) == 0:
             return
+        tok = (self.tracer.begin_cycle(self.engine_kind, len(cur))
+               if self.tracer is not None else None)
         eng = self.engine
         cols = {a: np.asarray(cur.columns[a])
                 for a in eng.all_attrs if a in cur.columns}
@@ -85,21 +107,33 @@ class DeviceQueryRuntime:
         self.state, pending = eng.process_batch_deferred(
             self.state, cols, ts, part_keys=keys)
         self.step_invocations += 1
+        self.state, self._last_good, quarantined = _faults.poison_guard(
+            self.faults, self.state, self._last_good, eng.init_state)
+        if quarantined:
+            # the corrupted step's outputs are dropped
+            if tok is not None:
+                tok.aborted("step")
+            if self.tracer is not None:
+                self.tracer.dump("poison-quarantine")
+            return
         now = self.clock() if self.clock is not None else None
 
         def _finish(p=pending, t=now):
             c = 0 if p is None else p.resolve()
+            if tok is not None:
+                tok.step_done(c)
             if c == 0:
                 self.emit_queue.skip()
                 return
             self.emit_queue.push(PendingEmit(
                 p.device_arrays(),
-                lambda host: self._emit_deferred(p, host, t)))
+                lambda host: self._emit_deferred(p, host, t), trace=tok))
 
         # the count fetch (resolve) is the blocking device sync; with
         # ingest.depth > 1 it runs after the next batch's dispatch
         self.ingest_stage.submit(
-            None if pending is None else step_probe(eng.device), _finish)
+            None if pending is None else step_probe(eng.device), _finish,
+            trace=tok)
 
     def drain(self):
         """Flush barrier: the ingest stage first (staged batches enqueue

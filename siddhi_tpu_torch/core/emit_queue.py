@@ -22,8 +22,12 @@ the synchronous path would emit, so callback content and order do not
 depend on the depth.  A failing materializer (a selector, limiter or
 callback downstream of the emit) is isolated as in the reference: its
 one pending batch is dropped and logged, and the rest of the drain goes
-on.  A failed fetch is a device error and raises; the reference's fault
-harness, which counts and routes such failures, is a later slice.
+on.  Under ``@app:faults`` the fetch sits behind the ``emit.drain``
+site with a bounded retry and backoff on transient faults
+(``drains_recovered``); a fetch that still fails drops that drain's
+batches (``drains_failed``) and goes to the runtime's ``on_fault``
+hook, so the runtime survives.  A sampled cycle token (``trace``)
+closes its emit span when its entry has materialized.
 """
 
 from __future__ import annotations
@@ -98,13 +102,15 @@ class EmitStats:
 
 class PendingEmit:
     """One deferred batch: device tensors plus ``materialize(host)``,
-    which receives them fetched, in the same order, and emits."""
+    which receives them fetched, in the same order, and emits;
+    ``trace``: the batch's sampled cycle token, or None."""
 
-    __slots__ = ("arrays", "materialize")
+    __slots__ = ("arrays", "materialize", "trace")
 
-    def __init__(self, arrays: Sequence, materialize: Callable):
+    def __init__(self, arrays: Sequence, materialize: Callable, trace=None):
         self.arrays = list(arrays)
         self.materialize = materialize
+        self.trace = trace
 
 
 class EmitDepthController:
@@ -161,13 +167,18 @@ class EmitQueue:
     ``depth`` is a positive integer or ``'auto'`` (an
     ``EmitDepthController`` sets it at every push)."""
 
-    def __init__(self, depth=1, stats: EmitStats = None):
+    def __init__(self, depth=1, stats: EmitStats = None, faults=None,
+                 on_fault: Optional[Callable] = None):
         self.controller: Optional[EmitDepthController] = None
         if depth == "auto":
             self.controller = EmitDepthController()
             depth = 1
         self.depth = max(1, int(depth))
         self.stats = stats or EmitStats()
+        # @app:faults: the emit.drain site and the retry knobs; on_fault
+        # is the owning runtime's isolation hook
+        self.faults = faults
+        self.on_fault = on_fault
         self._entries: List[PendingEmit] = []
 
     def __len__(self) -> int:
@@ -190,6 +201,15 @@ class EmitQueue:
         """Record a zero-match batch that transferred nothing."""
         self.stats.zero_match_skips += 1
 
+    def _fetch(self, arrays: Sequence) -> List[np.ndarray]:
+        """``fetch_coalesced`` behind the ``emit.drain`` site, transient
+        faults retried with backoff (``util/faults.retry_site``)."""
+        if self.faults is not None:
+            from siddhi_tpu_torch.util.faults import retry_site
+
+            retry_site(self.faults, "emit.drain", "emit drain")
+        return fetch_coalesced(arrays)
+
     def drain(self):
         """Flush barrier: materialize every pending entry in FIFO order
         after one coalesced fetch.  Pushes made by a materializer land in
@@ -205,7 +225,23 @@ class EmitQueue:
             # the device
             t0 = (time.monotonic()
                   if self.controller is not None and had_device else None)
-            host = fetch_coalesced(arrays)
+            # one fetch serves every entry of the round: their emit spans
+            # share its start
+            t_fetch = time.perf_counter()
+            try:
+                host = self._fetch(arrays)
+            except Exception as err:
+                if self.faults is None:
+                    raise
+                self.faults.stats.drains_failed += 1
+                log.error("emit drain failed; dropping %d pending "
+                          "batch(es): %s", len(entries), err)
+                for e in entries:
+                    if e.trace is not None:
+                        e.trace.aborted("emit")
+                if self.on_fault is not None:
+                    self.on_fault(err)
+                continue
             if t0 is not None:
                 self.controller.note_drain(time.monotonic() - t0)
             if had_device:
@@ -218,5 +254,14 @@ class EmitQueue:
                 try:
                     e.materialize(seg)
                 except Exception as err:
+                    if self.faults is not None:
+                        self.faults.stats.callback_faults_isolated += 1
                     log.error("emit materialize failed; dropping one "
                               "pending batch: %s", err, exc_info=err)
+                    if e.trace is not None:
+                        e.trace.aborted("emit")
+                    if self.on_fault is not None:
+                        self.on_fault(err)
+                    continue
+                if e.trace is not None:
+                    e.trace.emitted(t_fetch)

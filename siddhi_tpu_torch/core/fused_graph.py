@@ -15,8 +15,10 @@ so callback content and order equal the junction path's.  The planner
 makes it the tail query's ``device_runtime``, so the query's snapshot
 carries the whole chain's state (every stage's device state and host
 bookkeeping) under the tail query's name, in the reference's tree, and
-the input journal's replay rebuilds it.  The reference's NaN quarantine
-comes with ``ROADMAP.md`` §1 item 15b, as for the device query runtime.
+the input journal's replay rebuilds it.  Under ``@app:faults`` it has
+the device query runtime's fault handling: drain retries and isolation,
+the graph's ``step.device``/``step.dense`` and ``ingest.put`` sites,
+and the NaN/Inf quarantine over the whole chain's state.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from siddhi_tpu_torch.core.ingest_stage import (
     step_probe,
 )
 from siddhi_tpu_torch.ops.dense_nfa import state_from_numpy, state_to_numpy
+from siddhi_tpu_torch.util import faults as _faults
 
 
 class FusedChainRuntime:
@@ -44,8 +47,12 @@ class FusedChainRuntime:
     def __init__(self, graph, out_stream_id: str,
                  emit: Callable[[EventBatch], None], emit_depth=1,
                  clock: Optional[Callable[[], int]] = None,
-                 ingest_depth=1):
+                 ingest_depth=1, faults=None, tracer=None):
         self.graph = graph
+        self.tracer = tracer
+        self.faults = faults
+        graph.faults = faults
+        self._last_good = None
         self.out_stream_id = out_stream_id
         self.emit_cb = emit
         self.state = graph.init_state()
@@ -56,14 +63,19 @@ class FusedChainRuntime:
             len(graph.stages) + (1 if graph.dense is not None else 0) - 1)
         self.fused_hops = 0
         self.emit_stats = EmitStats()
-        self.emit_queue = EmitQueue(depth=emit_depth, stats=self.emit_stats)
+        self.emit_queue = EmitQueue(depth=emit_depth, stats=self.emit_stats,
+                                    faults=faults, on_fault=self._on_fault)
         self.ingest_stats = IngestStats()
         graph.ingest_stats = self.ingest_stats
-        self.ingest_stage = IngestStage(depth=ingest_depth,
-                                        stats=self.ingest_stats)
+        self.ingest_stage = IngestStage(
+            depth=ingest_depth, stats=self.ingest_stats,
+            on_fault=self._on_fault if faults is not None else None)
         # the app clock, sampled when a batch is processed: a deferred
         # emit replays it to the tail's time rate limiter
         self.clock = clock
+
+    def _on_fault(self, e: BaseException):
+        _faults.isolate(self.tracer, self.faults, e)
 
     # -- event path ----------------------------------------------------------
 
@@ -71,6 +83,8 @@ class FusedChainRuntime:
         cur = batch.only(ev.CURRENT)
         if len(cur) == 0:
             return
+        tok = (self.tracer.begin_cycle(self.engine_kind, len(cur))
+               if self.tracer is not None else None)
         head = self.graph.stages[0]
         cols = {a: np.asarray(cur.columns[a])
                 for a in head.all_attrs if a in cur.columns}
@@ -79,20 +93,30 @@ class FusedChainRuntime:
             self.state, cols, ts)
         self.step_invocations += 1
         self.fused_hops += self.hops_per_dispatch
+        self.state, self._last_good, quarantined = _faults.poison_guard(
+            self.faults, self.state, self._last_good, self.graph.init_state)
+        if quarantined:
+            if tok is not None:
+                tok.aborted("step")
+            if self.tracer is not None:
+                self.tracer.dump("poison-quarantine")
+            return
         now = self.clock() if self.clock is not None else None
 
         def _finish(p=pending, t=now):
             c = 0 if p is None else p.resolve()
+            if tok is not None:
+                tok.step_done(c)
             if c == 0:
                 self.emit_queue.skip()
                 return
             self.emit_queue.push(PendingEmit(
                 p.device_arrays(),
-                lambda host: self._emit_deferred(p, host, t)))
+                lambda host: self._emit_deferred(p, host, t), trace=tok))
 
         self.ingest_stage.submit(
             None if pending is None else step_probe(self.graph.device),
-            _finish)
+            _finish, trace=tok)
 
     def drain(self):
         """Flush barrier: staged batches enqueue or skip their emits,

@@ -44,6 +44,7 @@ from siddhi_tpu_torch.core import event as ev
 from siddhi_tpu_torch.core.emit_queue import PendingEmit, fetch_coalesced
 from siddhi_tpu_torch.core.event import EventBatch
 from siddhi_tpu_torch.core.ingest_stage import staged_put, step_probe
+from siddhi_tpu_torch.util import faults as _faults
 
 log = logging.getLogger("siddhi_tpu_torch")
 
@@ -141,6 +142,8 @@ class HotKeyRouterRuntime:
         self._free_slots: List[int] = list(range(scan_engine.n_slots))[::-1]
         self._state = scan_engine.init_state()
         self.lowered_to = "hotkey"
+        # the state.poison quarantine's restore point (a device clone)
+        self._last_good = None
 
     def __getattr__(self, name):
         return getattr(self._dense, name)
@@ -306,9 +309,16 @@ class HotKeyRouterRuntime:
         cols = {a: c for a, c in cur.columns.items()
                 if a in scan.base._lane_dtype}
         ts = cur.timestamps
+        # the hot sub-batch is a cycle of its own (engine kind 'hotkey');
+        # the cold remainder traced under 'dense'
+        tracer = dense.tracer
+        tok = (tracer.begin_cycle("hotkey", len(ts))
+               if tracer is not None else None)
         put, meta = scan.pack_cycle(slot_pos, cols, ts)
-        put_dev = staged_put(put, scan.device, dense.ingest_stats)
+        put_dev = staged_put(put, scan.device, dense.ingest_stats,
+                             dense.faults)
         self._state, emit_dev, n_rows = scan.dispatch(self._state, put_dev)
+        self._poison_guard()
         self.hot_stats.routed_events += int(
             sum(len(p) for p in slot_pos.values()))
         dense.step_invocations += 1
@@ -316,13 +326,39 @@ class HotKeyRouterRuntime:
 
         def _finish(nr=n_rows, emit=emit_dev, m=meta, oc=out_cols, t=ts):
             # the count gate: one scalar through the sanctioned fetch
-            if int(fetch_coalesced([nr])[0]) == 0:
+            c = int(fetch_coalesced([nr])[0])
+            if tok is not None:
+                tok.step_done(c)
+            if c == 0:
                 dense.emit_queue.skip()
                 return
             dense.emit_queue.push(PendingEmit(
-                [emit], lambda host: self._emit_hot(host, m, oc, t)))
+                [emit], lambda host: self._emit_hot(host, m, oc, t),
+                trace=tok))
 
-        dense.ingest_stage.submit(step_probe(scan.device), _finish)
+        dense.ingest_stage.submit(step_probe(scan.device), _finish,
+                                  trace=tok)
+
+    def _poison_guard(self):
+        """NaN/Inf quarantine of the scan state, active only while a
+        ``state.poison`` fault is armed: a poisoned state is set back to
+        the last good copy (or re-initialized) in place; the batch's
+        emits go on, as in the reference."""
+        fi = self._dense.faults
+        if fi is None or not fi.watches("state.poison"):
+            return
+        if fi.poisoned("state.poison"):
+            self._state = _faults.poison_state(self._state)
+        if _faults.state_has_poison(self._state):
+            fi.stats.poison_quarantines += 1
+            log.warning(
+                "hotkey router '%s': NaN/Inf poison in scan state; "
+                "restoring last good copy", self.query_name)
+            good = (self._last_good if self._last_good is not None
+                    else self._scan.init_state())
+            self._state = _faults.restore_good(self._state, good)
+        else:
+            self._last_good = _faults.good_copy(self._state)
 
     def _out_pairs(self):
         """(output name, final-node attribute) pairs — eligibility

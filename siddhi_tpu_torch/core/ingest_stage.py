@@ -4,7 +4,10 @@ Port of the JAX package's ``core/ingest_stage.py``:
 
 - ``staged_put``: the one ingest-path transfer.  It puts a pytree of
   numpy arrays (tuples, lists and dicts of them) onto a device as torch
-  tensors, and counts one put into ``stats`` when given.
+  tensors, and counts one put into ``stats`` when given.  Under
+  ``@app:faults`` the ``ingest.put`` site is checked before the copy
+  starts, with the emit drain's bounded retry, so a retried put never
+  shares a buffer with a copy in flight.
 - ``IngestStats``: per-runtime staging counters.
 - ``step_probe``: the readiness probe of a dispatched step, a
   ``torch.cuda.Event`` recorded after it on the current stream (on the
@@ -23,6 +26,7 @@ queue, so callback content and order do not depend on the depth.
 
 from __future__ import annotations
 
+import logging
 import time
 from typing import Callable, List, Optional, Tuple
 
@@ -30,6 +34,8 @@ import numpy as np
 import torch
 
 from siddhi_tpu_torch.core.emit_queue import EmitDepthController
+
+log = logging.getLogger("siddhi_tpu_torch")
 
 
 class IngestStats:
@@ -63,11 +69,17 @@ class IngestStats:
         }
 
 
-def staged_put(x, device, stats: Optional[IngestStats] = None):
+def staged_put(x, device, stats: Optional[IngestStats] = None,
+               faults=None):
     """Numpy leaves of ``x`` → tensors on ``device`` (structure kept);
-    one ``device_puts`` into ``stats`` per call."""
+    one ``device_puts`` into ``stats`` per call; ``faults``: the
+    injector whose ``ingest.put`` site guards the copy."""
     if stats is not None:
         stats.device_puts += 1
+    if faults is not None:
+        from siddhi_tpu_torch.util.faults import retry_site
+
+        retry_site(faults, "ingest.put", "ingest put")
     return _put(x, device)
 
 
@@ -112,28 +124,36 @@ def step_probe(device):
 class IngestStage:
     """Bounded FIFO of dispatched batches whose count gate is pending."""
 
-    def __init__(self, depth=1, stats: IngestStats = None):
+    def __init__(self, depth=1, stats: IngestStats = None,
+                 on_fault: Optional[Callable] = None):
         self.controller: Optional[EmitDepthController] = None
         if depth == "auto":
             self.controller = EmitDepthController()
             depth = 1
         self.depth = max(1, int(depth))
         self.stats = stats or IngestStats()
-        self._entries: List[Tuple[object, Callable]] = []
+        # the owning runtime's isolation hook: a failing finish is
+        # logged and routed there (None: it raises)
+        self.on_fault = on_fault
+        self._entries: List[Tuple[object, Callable, object]] = []
 
     def __len__(self) -> int:
         return len(self._entries)
 
-    def submit(self, probe, finish: Callable):
+    def submit(self, probe, finish: Callable, trace=None):
         """Stage one dispatched batch; finish the oldest entries past the
         window.  ``probe`` (``step_probe``, None when the batch put no
-        work on the device) tells an overlapped finish from a stall."""
+        work on the device) tells an overlapped finish from a stall.
+        ``trace``: the batch's sampled cycle token, whose ingest span
+        ends here (conversion, put and step dispatch are queued)."""
         if self.controller is not None:
             self.controller.note_push()
             self.depth = self.controller.effective_depth
             self.stats.auto_depth = self.depth
         self.stats.staged_batches += 1
-        self._entries.append((probe, finish))
+        if trace is not None:
+            trace.dispatched()
+        self._entries.append((probe, finish, trace))
         self.stats.max_staging_depth = max(self.stats.max_staging_depth,
                                            len(self._entries))
         while len(self._entries) >= self.depth:
@@ -146,7 +166,7 @@ class IngestStage:
             self._finish_oldest(barrier=True)
 
     def _finish_oldest(self, barrier: bool):
-        probe, finish = self._entries.pop(0)
+        probe, finish, trace = self._entries.pop(0)
         # a step already done when its count is fetched overlapped the
         # host's staging of the next batch; else the host stalls on it.
         # A barrier's finish says nothing of the steady state.
@@ -160,6 +180,16 @@ class IngestStage:
         t0 = (time.monotonic()
               if self.controller is not None and probe is not None
               else None)
-        finish()
+        try:
+            finish()
+        except Exception as err:
+            if self.on_fault is None:
+                raise
+            log.error("ingest finish failed; dropping one staged "
+                      "batch's emit: %s", err)
+            if trace is not None:
+                trace.aborted("step")
+            self.on_fault(err)
+            return
         if t0 is not None:
             self.controller.note_drain(time.monotonic() - t0)

@@ -65,11 +65,15 @@ class SiddhiManager:
 
     def create_siddhi_app_runtime(self, app: Union[str, SiddhiApp],
                                   register: bool = True) -> SiddhiAppRuntime:
+        app_string = app if isinstance(app, str) else ""
         if isinstance(app, str):
             app = SiddhiCompiler.parse(SiddhiCompiler.update_variables(app))
         rt = SiddhiAppRuntime(app, self.device, self.siddhi_context)
+        # a live re-plan parses the app text afresh
+        rt._app_string = app_string
         if register:
             self.runtimes[rt.name] = rt
+            rt._manager = self
         return rt
 
     def validate_siddhi_app(self, app: Union[str, SiddhiApp]):
@@ -164,8 +168,13 @@ class SiddhiManager:
         for rt in list(self.runtimes.values()):
             rt.restore_last_revision()
 
+    def health(self) -> Dict[str, dict]:
+        """Overload-protection health of every registered app
+        (``SiddhiAppRuntime.health``)."""
+        return {name: rt.health() for name, rt in list(self.runtimes.items())}
+
     def shutdown(self):
-        for rt in self.runtimes.values():
+        for rt in list(self.runtimes.values()):
             rt.shutdown()
         self.runtimes.clear()
 

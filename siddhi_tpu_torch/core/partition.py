@@ -63,6 +63,7 @@ from siddhi_tpu_torch.planner.host_expr import (
 )
 from siddhi_tpu_torch.planner.query_planner import (
     device_query_engine,
+    note_device_fallback,
     plan_dense_state,
     plan_device_single,
     plan_query,
@@ -408,6 +409,7 @@ class PartitionRuntime:
                 # per-key host instances: visible, as in the reference
                 log.warning("%s: dense TPU path unavailable (%s); using "
                             "per-key instances", self.name, e)
+                note_device_fallback(app, self.name, f"dense partition: {e}")
 
         if not self.is_dense:
             for sid, ex in self._executors.items():

@@ -11,8 +11,10 @@ is host code in both packages.  Host queries run the whole chain here;
 a dense pattern query's matches, fetched to the host by the dense
 runtime's count-gated emit path, enter at the selector: a passthrough
 one, or the aggregating form (group by, having, aggregators) with its
-per-key state on the partition axis.  The reference's input journal,
-latency tracker, debugger and join sides are later slices of the port.
+per-key state on the partition axis.  A query's ``latency_tracker``
+(``@app:statistics``) marks each batch in and out, and its
+``debugger`` (``SiddhiAppRuntime.debug``) stops at the IN and OUT
+breakpoints.
 """
 
 from __future__ import annotations
@@ -880,6 +882,9 @@ class QueryRuntime:
         # the scheduler tasks a dense query registered (its rate task,
         # its deadline timer), for a partition that unwinds them
         self.scheduler_tasks: List = []
+        # @app:statistics and SiddhiAppRuntime.debug() (None: off)
+        self.latency_tracker = None
+        self.debugger = None
 
     @property
     def device_processor(self):
@@ -904,15 +909,25 @@ class QueryRuntime:
         now = batch.aux.pop("emit_now", None)
         if now is None:
             now = self.app_context.timestamp_generator.current_time()
-        b = batch
-        for p in self.chains[chain_index]:
-            b = p.process(b, now)
-            if len(b) == 0:
-                return
-        out = self.selector.process(b, now)
-        out = self.rate_limiter.process(out, now)
-        if out is not None and len(out):
-            self.output.send(out, now)
+        if self.latency_tracker is not None:
+            self.latency_tracker.mark_in(len(batch))
+        try:
+            if self.debugger is not None and len(batch):
+                self.debugger.check_breakpoint(self.name, "IN", batch)
+            b = batch
+            for p in self.chains[chain_index]:
+                b = p.process(b, now)
+                if len(b) == 0:
+                    return
+            out = self.selector.process(b, now)
+            out = self.rate_limiter.process(out, now)
+            if out is not None and len(out):
+                if self.debugger is not None:
+                    self.debugger.check_breakpoint(self.name, "OUT", out)
+                self.output.send(out, now)
+        finally:
+            if self.latency_tracker is not None:
+                self.latency_tracker.mark_out(len(batch))
 
     # -- state plumbing (snapshot contract) ---------------------------------
 

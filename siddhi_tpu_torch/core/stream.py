@@ -28,8 +28,14 @@ first, ahead of any send made after it.  Under
 ``@OnError(action='STREAM')`` a junction has a fault junction ``!name``
 (the stream's attributes and ``_error``): a failing receiver or callback
 sends the batch there with the error and calls no listener
-(``route_fault``, which a sink's publish failure takes too).  Admission
-control is a later slice of the port.
+(``route_fault``, which a sink's publish failure takes too).
+
+The operations layer rides along: under ``@app:limits(rate=)`` the
+input handler trims each batch to its stream's token budget before it
+is journaled (a replay bypasses admission); every journaled ingest and
+every dispatch beats the app's ``ProgressBeat`` for the watchdog; the
+``callback`` fault site guards each callback; a junction's
+``throughput_tracker`` (``@app:statistics``) counts what it is sent.
 """
 
 from __future__ import annotations
@@ -131,9 +137,14 @@ class StreamJunction:
                       if is_async else None)
         self._worker: Optional[threading.Thread] = None
         self._running = False
+        # a worker killed by a BaseException (a simulated crash): what
+        # the ring holds died with it, as in the reference
+        self._worker_died = False
         # dispatch cycles through this junction: a fused chain keeps its
         # intermediate streams at 0
         self.dispatches = 0
+        # @app:statistics: the stream's throughput tracker (None: off)
+        self.throughput_tracker = None
 
     def subscribe(self, receiver):
         """``receiver.receive(batch)`` runs on every batch sent here."""
@@ -154,6 +165,28 @@ class StreamJunction:
             daemon=True)
         self._worker.start()
 
+    def pending(self) -> int:
+        """Batches queued in the ring (the watchdog's pending work)."""
+        return len(self._ring)
+
+    def fill(self) -> float:
+        """The ring's fill fraction in [0, 1] (the ladder's pressure)."""
+        return min(len(self._ring) / self.buffer_size, 1.0) \
+            if self.is_async and self.buffer_size > 0 else 0.0
+
+    def abandon(self):
+        """Stop the worker without waiting for it and drop what the ring
+        holds: a live re-plan replays every batch from the input
+        journal, so the old engines need not see them.  Safe under the
+        app lock."""
+        if self._worker is None:
+            return
+        with self._cond:
+            self._running = False
+            self._ring.clear()
+            self._cond.notify_all()
+        self._worker = None
+
     def stop(self):
         """Stop the worker after its current dispatch, then dispatch what
         is still queued; never waits for room in the ring, and must not
@@ -166,6 +199,13 @@ class StreamJunction:
         self._worker.join(timeout=5)
         self._worker = None
         with self._cond:
+            if self._worker_died:
+                if self._ring:
+                    log.warning(
+                        "junction '%s': worker died; %d queued batch(es) "
+                        "dropped", self.stream_id, len(self._ring))
+                self._ring.clear()
+                return
             self._flush_ring()
 
     # -- send paths ------------------------------------------------------------
@@ -173,6 +213,8 @@ class StreamJunction:
     def send(self, batch: EventBatch):
         if len(batch) == 0:
             return
+        if self.throughput_tracker is not None:
+            self.throughput_tracker.add(len(batch))
         if self.is_async and self._running:
             jr = getattr(self.app_context, "input_journal", None)
             if jr is None or not jr.replaying:
@@ -209,6 +251,13 @@ class StreamJunction:
         """Worker: take the oldest queued batch and those behind it up to
         ``batch_size_max`` events, dispatch them as one cycle, all under
         the app lock."""
+        try:
+            self._drain_loop()
+        except BaseException:
+            self._worker_died = True
+            raise
+
+    def _drain_loop(self):
         while True:
             with self._cond:
                 while self._running and not self._ring:
@@ -225,6 +274,10 @@ class StreamJunction:
 
     def _dispatch(self, batch: EventBatch):
         self.dispatches += 1
+        # the watchdog's liveness beat, one a dispatched batch
+        progress = getattr(self.app_context, "progress", None)
+        if progress is not None:
+            progress.beat()
         for r in self.receivers:
             try:
                 r.receive(batch)
@@ -240,8 +293,11 @@ class StreamJunction:
             batch = jr.deliver(("stream", self.stream_id), batch)
             if batch is None:
                 return
+        fi = getattr(self.app_context, "fault_injector", None)
         for cb in self.callbacks:
             try:
+                if fi is not None:
+                    fi.check("callback")
                 cb.receive_batch(batch)
             except Exception as e:
                 self._handle_error(batch, e)
@@ -318,16 +374,33 @@ class InputHandler:
                 int(batch.timestamps.max()))
         self._dispatch(batch)
 
+    def _admit(self, batch: EventBatch) -> Optional[EventBatch]:
+        """``@app:limits(rate=)``: the batch trimmed to the stream's token
+        budget before it is journaled, so a replay sees only what was
+        admitted (and bypasses admission itself); None when all of it
+        was shed."""
+        ac = getattr(self.app_context, "admission", None)
+        if ac is None:
+            return batch
+        jr = self.app_context.input_journal
+        if jr is not None and jr.replaying:
+            return batch
+        return ac.admit(self.junction.stream_id, batch)
+
     def _dispatch(self, batch: EventBatch):
-        """Journal the batch and give the ``ingest`` fault site its check,
-        then advance the scheduler to the clock and run the junction
-        cycle, all under the app lock.  A crash injected at ``ingest``
-        fires after the record: the batch is in the journal but never
-        delivered, the state replay exists to repair."""
+        """Admit, then journal the batch and give the ``ingest`` fault
+        site its check, then advance the scheduler to the clock and run
+        the junction cycle, all under the app lock.  A crash injected at
+        ``ingest`` fires after the record: the batch is in the journal
+        but never delivered, the state replay exists to repair."""
+        batch = self._admit(batch)
+        if batch is None:
+            return
         ctx = self.app_context
         with ctx.process_lock:
             if ctx.input_journal is not None:
                 ctx.input_journal.record(self.junction.stream_id, batch)
+            ctx.progress.beat()
             if ctx.fault_injector is not None:
                 ctx.fault_injector.check("ingest")
             ctx.scheduler.advance(ctx.timestamp_generator.current_time())

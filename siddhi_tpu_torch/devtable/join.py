@@ -34,6 +34,7 @@ host cross product, after a pipeline drain, so the emit order holds.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -54,8 +55,10 @@ from siddhi_tpu_torch.core.ingest_stage import (
     step_probe,
 )
 from siddhi_tpu_torch.kernels.dense_step import flush_subnormals
+from siddhi_tpu_torch.observability.trace import STAGE_TABLE_PROBE
 from siddhi_tpu_torch.ops.device_query import _pow2
 from siddhi_tpu_torch.planner.host_expr import N_KEY, TS_KEY
+from siddhi_tpu_torch.util import faults as _faults
 
 class DevTableJoinRuntime:
     """One stream-table join lowered onto the device batch cycle."""
@@ -65,8 +68,11 @@ class DevTableJoinRuntime:
     def __init__(self, name: str, stream_side, table_side, stream_is_left: bool,
                  condition, key_expr, cond_stream_lanes: Dict[str, Tuple[str, np.dtype]],
                  out_stream_id: str, emit, emit_depth=1, ingest_depth=1,
-                 clock=None, device=None, device_condition=None):
+                 clock=None, device=None, device_condition=None,
+                 faults=None, tracer=None):
         self.name = name
+        self.faults = faults
+        self.tracer = tracer
         self.stream_side = stream_side
         self.table_side = table_side
         self.table = table_side.table
@@ -88,10 +94,12 @@ class DevTableJoinRuntime:
         self.probe_invocations = 0
         self.host_fallback_batches = 0
         self.emit_stats = EmitStats()
-        self.emit_queue = EmitQueue(depth=emit_depth, stats=self.emit_stats)
+        self.emit_queue = EmitQueue(depth=emit_depth, stats=self.emit_stats,
+                                    faults=faults, on_fault=self._on_fault)
         self.ingest_stats = IngestStats()
-        self.ingest_stage = IngestStage(depth=ingest_depth,
-                                        stats=self.ingest_stats)
+        self.ingest_stage = IngestStage(
+            depth=ingest_depth, stats=self.ingest_stats,
+            on_fault=self._on_fault if faults is not None else None)
         left, right = ((stream_side, table_side) if stream_is_left
                        else (table_side, stream_side))
         self._out_names = [
@@ -139,10 +147,13 @@ class DevTableJoinRuntime:
             self.host_fallback_batches += 1
             self._host_join(cur, now)
             return
+        # one sampled-or-None cycle token a batch, its chunks' spans in it
+        tok = (self.tracer.begin_cycle(self.engine_kind, n)
+               if self.tracer is not None else None)
         keys = self._event_keys(cur)
         for lo in range(0, n, self.MAX_CHUNK):
             hi = min(n, lo + self.MAX_CHUNK)
-            self._dispatch_chunk(cur, keys, lo, hi, now)
+            self._dispatch_chunk(cur, keys, lo, hi, now, tok)
 
     def _host_only_reason(self, cur: EventBatch) -> Optional[str]:
         if self.table.demoted:
@@ -159,7 +170,7 @@ class DevTableJoinRuntime:
         env[N_KEY] = len(cur)
         return np.broadcast_to(self.key_expr.fn(env), (len(cur),))
 
-    def _dispatch_chunk(self, cur, keys, lo, hi, now):
+    def _dispatch_chunk(self, cur, keys, lo, hi, now, tok=None):
         cn = hi - lo
         B = _pow2(cn)
         klane = np.zeros(B, dtype=np.int32)
@@ -173,26 +184,37 @@ class DevTableJoinRuntime:
             lanes[ek] = col
         # snapshot-consistent: the CURRENT tensors, under the table lock
         tcols, _tvalid, key_index = self.table.device_state()
+        t0 = time.perf_counter()
         k_d, m_d, l_d = staged_put((klane, mlane, lanes), self.device,
-                                   self.ingest_stats)
+                                   self.ingest_stats, self.faults)
         l_d = {k: flush_subnormals(v) if v.dtype == torch.float32 else v
                for k, v in l_d.items()}
         mask_d, gathered_d, count_d = self.probe(k_d, m_d, l_d, tcols,
                                                  key_index)
         self.step_invocations += 1
         self.probe_invocations += 1
+        if self.tracer is not None:
+            # the probe's dispatch, host clock (no wait on the device)
+            self.tracer.record_span(STAGE_TABLE_PROBE, self.engine_kind,
+                                    t0, time.perf_counter(), n_events=cn)
 
         def finish():
             c = int(fetch_coalesced([count_d])[0])
+            if tok is not None:
+                tok.step_done(c)
             if c == 0:
                 self.emit_queue.skip()
                 return
             arrays = [mask_d] + [gathered_d[nm] for nm in self._tbl_names]
             self.emit_queue.push(PendingEmit(
                 arrays,
-                lambda host: self._materialize(host, cur, lo, now)))
+                lambda host: self._materialize(host, cur, lo, now),
+                trace=tok))
 
-        self.ingest_stage.submit(step_probe(self.device), finish)
+        self.ingest_stage.submit(step_probe(self.device), finish, trace=tok)
+
+    def _on_fault(self, e: BaseException):
+        _faults.isolate(self.tracer, self.faults, e)
 
     # -- deferred materialization (runs on fetched HOST arrays) -----------
 

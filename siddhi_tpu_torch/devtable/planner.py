@@ -4,9 +4,9 @@ Port of the JAX package's ``devtable/planner.py``.  Two planner entry
 points live here, both raising ``SiddhiAppCreationError`` with a
 human-readable reason when a query does not fit the device path —
 callers catch that, log a WARNING and keep the reason in the app
-context's ``devtable_fallbacks`` (the reference's statistics counters
-come with ``ROADMAP.md`` §1 item 15c), then fall back to the host table
-path.  Results never change; only the placement does.
+context's ``devtable_fallbacks`` (counted on the statistics feed as the
+reference's ``devtableFallbackReason``), then fall back to the host
+table path.  Results never change; only the placement does.
 
 ``try_plan_devtable_join``
     Lowers an inner stream-table join onto ``DevTableJoinRuntime``
@@ -212,6 +212,7 @@ def try_plan_devtable_join(name: str, j, left, right, condition,
         ingest_depth=app_context.tpu_ingest_depth,
         clock=app_context.timestamp_generator.current_time,
         device=table.device, device_condition=device_condition,
+        faults=app_context.fault_injector, tracer=app_context.tracer,
     )
 
 

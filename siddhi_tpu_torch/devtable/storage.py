@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import logging
 import threading
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -45,6 +46,7 @@ from siddhi_tpu_torch.core.emit_queue import fetch_coalesced
 from siddhi_tpu_torch.core.event import EventBatch
 from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
 from siddhi_tpu_torch.core.ingest_stage import IngestStats, staged_put
+from siddhi_tpu_torch.observability.trace import STAGE_TABLE_UPSERT
 from siddhi_tpu_torch.query_api import AttrType
 from siddhi_tpu_torch.query_api.annotation import find_annotation
 from siddhi_tpu_torch.table.table import TBL, InMemoryTable, _scalar
@@ -108,8 +110,13 @@ class DeviceTable:
     works unchanged (reads fetch through the sanctioned
     ``fetch_coalesced``; the pk probe never leaves the host)."""
 
-    def __init__(self, definition, capacity: int = 1024, device=None):
+    def __init__(self, definition, capacity: int = 1024, device=None,
+                 faults=None, tracer=None):
         self.definition = definition
+        # the app's fault injector (the scatter's ingest.put site) and
+        # tracer (a 'table.upsert' span a scatter)
+        self._faults = faults
+        self._tracer = tracer
         self.table_id = definition.id
         self._lock = threading.RLock()
         if capacity < 1:
@@ -269,6 +276,7 @@ class DeviceTable:
                        kill_slots: List[int]):
         """ONE scatter step for this mutation batch, out of place; pads
         to power-of-two row counts, as the reference does."""
+        t0 = time.perf_counter()
         n = len(write_slots)
         npad = _pow2(n)
         w = np.full(npad, -1, dtype=np.int32)
@@ -285,12 +293,15 @@ class DeviceTable:
             col[:n] = v
             pv[nm] = col
         w_d, k_d, v_d = staged_put((w, k, pv), self.device,
-                                   self.ingest_stats)
+                                   self.ingest_stats, self._faults)
         self._dcols, self._dvalid = scatter_step(
             self._dcols, self._dvalid, v_d, w_d, k_d)
         self._key_index = None
         self.scatter_steps += 1
         self._dirty = True
+        if self._tracer is not None:
+            self._tracer.record_span(STAGE_TABLE_UPSERT, "devtable", t0,
+                                     time.perf_counter(), n_events=n)
 
     def device_state(self):
         """``(cols, valid, key_index)``: the CURRENT device tensors, which

@@ -50,7 +50,7 @@ _DONE = ("committed", "failed", "superseded", "crashed")
 
 class DurabilityStats:
     """Checkpoint-pipeline counters (``as_dict()``; the statistics feed
-    that surfaces them is ``ROADMAP.md`` item 15)."""
+    publishes them as ``Durability.<app>.<counter>``)."""
 
     __slots__ = (
         "persists_sync",
@@ -77,8 +77,11 @@ class AsyncCheckpointWriter:
 
     def __init__(self, app_name: str, stats: Optional[DurabilityStats] = None,
                  fault_injector=None,
-                 listeners: Optional[List[Any]] = None):
+                 listeners: Optional[List[Any]] = None, tracer=None):
         self.app_name = app_name
+        # the app's tracer: each background write is a 'persist.write'
+        # span
+        self.tracer = tracer
         self.stats = stats or DurabilityStats()
         self.fault_injector = fault_injector
         self.listeners = listeners if listeners is not None else []
@@ -226,7 +229,12 @@ class AsyncCheckpointWriter:
             try:
                 if fi is not None:
                     fi.check("persist.write")
+                tracer = self.tracer
+                t_job = tracer.clock() if tracer is not None else 0.0
                 job()
+                if tracer is not None:
+                    tracer.record_span("persist.write", "persist", t_job,
+                                       tracer.clock())
                 with self._lock:
                     self._results[revision] = "committed"
                     self.stats.persist_commits += 1

@@ -60,7 +60,6 @@ from siddhi_tpu_torch.core.exceptions import (
     TransferFaultError,
 )
 from siddhi_tpu_torch.core.ingest_stage import IngestStats, staged_put
-from siddhi_tpu_torch.multiplex.common import retry_guard
 from siddhi_tpu_torch.util import faults as _faults
 
 log = logging.getLogger(__name__)
@@ -386,7 +385,7 @@ class DenseMultiplexTenantRuntime:
         # once a batch and retries transient ingest.put transfers
         if self.faults is not None:
             self.faults.check("step.dense")
-        retry_guard(self.faults, "ingest.put")
+        _faults.retry_site(self.faults, "ingest.put", "multiplex")
         now = self.clock() if self.clock is not None else None
         self.group.stage(self, stream_key, cols, ts, now)
         self.step_invocations += 1
@@ -404,7 +403,7 @@ class DenseMultiplexTenantRuntime:
                     return
                 out_cols, out_ts, now = seat.pending_out.popleft()
             try:
-                retry_guard(self.faults, "emit.drain")
+                _faults.retry_site(self.faults, "emit.drain", "multiplex")
             except TransferFaultError as e:
                 self.faults.stats.drains_failed += 1
                 self._on_fault(e)
@@ -421,8 +420,7 @@ class DenseMultiplexTenantRuntime:
             self.emit_cb(mb)
 
     def _on_fault(self, e: BaseException) -> None:
-        if self.faults is not None:
-            self.faults.notify(e)
+        _faults.isolate(None, self.faults, e)
 
     # -- barriers / scheduler ----------------------------------------------
 

@@ -11,10 +11,10 @@ surface the dedicated paths build, so selectors, output callbacks and
 snapshots cannot tell the difference downstream.
 
 Every ineligibility has its reason: a WARNING with the reference's text,
-and the reason in ``AppContext.multiplex_fallbacks`` (query -> reason)
-until the statistics feed (``ROADMAP.md`` §1 item 15c) publishes it as
-the reference's ``multiplexFallbackReason``; the planner then falls
-through to the dedicated engine.
+and the reason in ``AppContext.multiplex_fallbacks`` (query -> reason),
+counted on the statistics feed as the reference's
+``multiplexFallbackReason``; the planner then falls through to the
+dedicated engine.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from siddhi_tpu_torch.multiplex.fingerprint import (
     reads_clock,
 )
 from siddhi_tpu_torch.multiplex.registry import registry_for
+from siddhi_tpu_torch.planner.app_planner import note_fallback
 from siddhi_tpu_torch.query_api import (
     Attribute,
     Query,
@@ -55,7 +56,7 @@ class MultiplexPlanner:
     # -- shared helpers ------------------------------------------------------
 
     def _fallback(self, name: str, reason: str) -> None:
-        self.ctx.multiplex_fallbacks[name] = reason
+        note_fallback(self.ctx, "multiplex", name, reason)
         # WARNING, not info: @app:multiplex was asked for and this query
         # does not get it
         log.warning("query '%s': multiplex ineligible (%s); dedicated "
@@ -289,6 +290,11 @@ class MultiplexPlanner:
         return qr
 
     def _record_placement(self, name: str, group) -> None:
+        sm = self.ctx.statistics_manager
+        if sm is not None:
+            sm.record_multiplex_placement(
+                name, getattr(group, "fingerprint", "?"),
+                group.occupied_count())
         log.info(
             "query '%s': multiplexed into shared engine %s (%d/%d seats)",
             name, getattr(group, "fingerprint", "?")[:12],

@@ -56,7 +56,6 @@ from siddhi_tpu_torch.core.exceptions import (
     TransferFaultError,
 )
 from siddhi_tpu_torch.core.ingest_stage import IngestStats, staged_put
-from siddhi_tpu_torch.multiplex.common import retry_guard
 from siddhi_tpu_torch.ops.device_query import _pow2
 from siddhi_tpu_torch.util import faults as _faults
 
@@ -580,7 +579,7 @@ class MultiplexTenantRuntime:
         # per-tenant transient ingest faults retry or exhaust here, before
         # any group state is touched: a failing tenant never wedges the
         # shared engine
-        retry_guard(self.faults, "ingest.put")
+        _faults.retry_site(self.faults, "ingest.put", "multiplex")
         now = self.clock() if self.clock is not None else None
         self.group.stage(self, cols, ts, now)
         self.step_invocations += 1
@@ -598,7 +597,7 @@ class MultiplexTenantRuntime:
                     return
                 out_cols, out_ts, gkeys, now = seat.pending_out.popleft()
             try:
-                retry_guard(self.faults, "emit.drain")
+                _faults.retry_site(self.faults, "emit.drain", "multiplex")
             except TransferFaultError as e:
                 self.faults.stats.drains_failed += 1
                 self._on_fault(e)
@@ -627,8 +626,7 @@ class MultiplexTenantRuntime:
         self.emit_cb(mb)
 
     def _on_fault(self, e: BaseException) -> None:
-        if self.faults is not None:
-            self.faults.notify(e)
+        _faults.isolate(None, self.faults, e)
 
     # -- barriers / scheduler ----------------------------------------------
 

@@ -434,6 +434,8 @@ class DensePatternEngine:
     base_ts: Optional[int] = None
     # set by a DensePatternRuntime: its staged puts count there
     ingest_stats = None
+    # the app's fault injector: the step.dense and ingest.put sites
+    faults = None
     # re-anchor before relative ms approach int32 range (~24.8 days of
     # stream time); headroom covers one batch + the within horizon
     _REL_LIMIT = 2**31 - 2**24
@@ -1421,6 +1423,9 @@ class DensePatternEngine:
         place) and the output columns.  The general step: one
         ``staged_put``, then one ``make_general_step`` call per
         collision round on the device (see :meth:`_process_general`)."""
+        faults = self.faults
+        if faults is not None:
+            faults.check("step.dense")
         part_idx = np.asarray(part_idx)
         if len(part_idx) and (int(part_idx.min()) < 0
                               or int(part_idx.max()) >= self.n_partitions):
@@ -1438,7 +1443,7 @@ class DensePatternEngine:
         order, seg_start, seg_part = partition_segments(part_idx)
         order, seg_start, seg_part, rel, cb = staged_put(
             (order, seg_start, seg_part, rel64.astype(np.int32), prepared),
-            self.device, self.ingest_stats)
+            self.device, self.ingest_stats, faults)
         ok = self.filter_matrix(stream_key, cb, rel)
         emit, anchor, n_emit = batch_step(
             state, order, seg_start, seg_part, ok, rel, n_inst=self.I,
@@ -1465,7 +1470,7 @@ class DensePatternEngine:
             batch = (batch[0][order], rel[order],
                      {k: v[order] for k, v in prepared.items()})
         part_d, rel_d, cols_d = staged_put(batch, self.device,
-                                           self.ingest_stats)
+                                           self.ingest_stats, self.faults)
         valid = torch.ones(len(part_idx), dtype=torch.bool, device=self.device)
         step = self.make_general_step(stream_key)
         pending = DeferredDenseEmit(self)

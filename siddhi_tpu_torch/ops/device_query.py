@@ -334,6 +334,9 @@ class DeviceQueryEngine:
         self.partition_mode = bool(partition_mode)
         self.n_wgroups = int(n_wgroups) if n_wgroups else n_groups
         self.ingest_stats = None  # set by the runtime
+        # the app's fault injector (step.device, ingest.put), set by the
+        # runtime
+        self.faults = None
 
         s = query.input_stream
         if not isinstance(s, SingleInputStream):
@@ -1429,7 +1432,7 @@ class DeviceQueryEngine:
             wg[:n] = wgrp[:n]
         c, t, g, wg, valid = staged_put(
             (c, t, g, wg if extra is None else extra, valid), self.device,
-            self.ingest_stats)
+            self.ingest_stats, self.faults)
         return c, t, g, wg, valid, B
 
     def _out_columns(self, vals, sel, gids, in_cols, in_sel, host_env=None,
@@ -1579,6 +1582,8 @@ class DeviceQueryEngine:
                     "keys": self.last_group_keys})
             return state
         c, t, g, wg, valid, _B = self._pad(cols, rel, grp, n, wgrp)
+        if self.faults is not None:
+            self.faults.check("step.device")
         state, ov, out, n_match = self.step(state, c, t, g, wg, valid)
         # the group ids stay on the host, so resolve can capture the key
         # values of surviving chunks before any purge or intern could

@@ -146,8 +146,10 @@ class FusedGraphEngine:
             self.fwd_names = sorted({
                 v for kind, v, _n in tail.out_spec if kind == "passthrough"
             })
-        # set by the runtime: staged puts count there
+        # set by the runtime: staged puts count there; the app's fault
+        # injector (step.device, step.dense, ingest.put)
         self.ingest_stats = None
+        self.faults = None
         # general-step calls of the dense tail (one a stepped row)
         self.dense_steps = 0
 
@@ -329,7 +331,12 @@ class FusedGraphEngine:
         valid = np.zeros(B, dtype=bool)
         valid[:n] = True
         c, rels_t, grp, valid = staged_put(
-            (c, tuple(rels), grp, valid), self.device, self.ingest_stats)
+            (c, tuple(rels), grp, valid), self.device, self.ingest_stats,
+            self.faults)
+        if self.faults is not None:
+            self.faults.check("step.device")
+            if self.dense is not None:
+                self.faults.check("step.dense")
         res = self.step(tuple(states), c, rels_t, grp, valid, n)
         if self.tail_kind == TAIL_DEVICE:
             new_states, emitmask, out, fwd, count = res

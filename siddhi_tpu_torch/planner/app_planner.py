@@ -16,8 +16,9 @@ Port of the annotation half of the JAX package's
 - ``@app:faults(seed=, journal=, transfer.retry.*=, <site>=...)``: the
   fault injector and the input journal, which lives on the manager
   context, keyed by app name, so a runtime built after a crash replays
-  it.  Only the sites the port wires (``util/faults.WIRED_SITES``) may
-  be armed; any other site is refused, naming ``ROADMAP.md`` item 15;
+  it.  ``step.shard``, the one site the port does not wire
+  (``util/faults.UNWIRED_SITES``), is refused, naming ``ROADMAP.md``
+  item 16;
 - ``@app:multiplex(slots=)``: this app's eligible queries take seats
   in the manager's shared device engines (``multiplex/``);
 - ``@app:fuse`` / ``@app:fuse('false')``: stream-graph fusion of
@@ -36,12 +37,25 @@ definition, its options merged from the config manager's ``ref=``
 with its ``@destination``s, and the source and sink handlers of the
 manager's handler managers.
 
+- ``@app:statistics('true'|'basic'|'detail', interval=)``: the
+  statistics manager's level (every app has a manager; the fault,
+  durability and robustness counters register on it whatever the
+  level);
+- ``@app:trace(sample='1/N', cycles=, dir=)``: the span tracer and its
+  flight recorder (every app has one, at 1 in 64 by default);
+- ``@app:limits(rate=, burst=, shed=, block.max=, watchdog=, breaker=,
+  breaker.cooldown=, ladder=)``: admission control, the watchdog, the
+  transport circuit breakers and the degradation ladder
+  (``robustness/``).
+
 The port runs its kernels on the card whenever it runs on a card: it
 has no XLA formulation to keep, so ``@app:kernels`` is parsed and
-validated as the reference does and switches nothing.  The reference's
-other ``@app:`` annotations belong to a later slice of the port and are
-refused, naming the ``ROADMAP.md`` item that ports them (``LATER``); an
-``@app:`` name the reference does not know is ignored, as there.
+validated as the reference does and switches nothing, and the
+degradation ladder has no ``kernels`` rung (``robustness/ladder.py``).
+``@app:plan`` (the cost model's own choice and the plan monitor) is
+refused, naming its ``ROADMAP.md`` item (``LATER``); a replan pin names
+a path instead (``SiddhiAppRuntime.replan``).  An ``@app:`` name the
+reference does not know is ignored, as there.
 """
 
 from __future__ import annotations
@@ -59,20 +73,17 @@ from siddhi_tpu_torch.core.exceptions import (
 from siddhi_tpu_torch.durability.spill import JournalSpillSink
 from siddhi_tpu_torch.query_api.annotation import find_annotation
 from siddhi_tpu_torch.util.faults import (
-    RESERVED_OPTIONS,
-    WIRED_SITES,
+    UNWIRED_SITES,
     FaultInjector,
     InputJournal,
 )
 from siddhi_tpu_torch.util.scheduler import Scheduler
+from siddhi_tpu_torch.util.statistics import Level, StatisticsManager
 
 # the reference's app annotations the port does not read yet: the
 # ROADMAP.md §1 item that ports each, and what it is
 LATER = {
-    "app:limits": (15, "the operations layer"),
-    "app:plan": (15, "the operations layer"),
-    "app:statistics": (15, "the operations layer"),
-    "app:trace": (15, "the operations layer"),
+    "app:plan": ("15d", "the cost model's own choice and the plan monitor"),
 }
 
 
@@ -105,6 +116,20 @@ class TimestampGenerator:
         if self._event_time >= 0:
             self._event_time += self.increment_ms
         return self.current_time()
+
+
+class ProgressBeat:
+    """The watchdog's liveness counter (``robustness/watchdog.py``):
+    one increment a journaled ingest and a junction dispatch, so a
+    batch, not an event, pays for it."""
+
+    __slots__ = ("beats",)
+
+    def __init__(self):
+        self.beats = 0
+
+    def beat(self):
+        self.beats += 1
 
 
 class AppContext:
@@ -169,6 +194,37 @@ class AppContext:
         # no-op) and the input journal (None = no journaling)
         self.fault_injector = None
         self.input_journal = None
+        # @app:statistics: the manager (every app has one) and its level
+        self.root_metrics_level = Level.OFF
+        self.statistics_manager = None
+        # the span tracer and its flight recorder (@app:trace)
+        self.tracer = None
+        # @app:limits: overload protection (robustness/); without the
+        # annotation every hook is None
+        self.limits_rate = 0.0
+        self.limits_burst = 0.0
+        self.limits_shed = "drop"
+        self.limits_block_max_ms = 1000
+        self.watchdog_deadline_ms = 0
+        self.breaker_threshold = 0
+        self.breaker_cooldown_ms = 1000
+        self.ladder = False
+        self.robustness = None
+        self.admission = None
+        # the ladder's rung and the features it turned off (a rebuilt
+        # context's flags no longer show them)
+        self.degrade_level = 0
+        self.degraded_features = ()
+        # watchdog liveness: one beat a journaled ingest and a dispatch
+        self.progress = ProgressBeat()
+        # a replan's per-query path pins ('device', 'fuse',
+        # 'dense+hotkey', 'host'); the cost model's own choice is item
+        # 15d and a mesh is item 16, so both stay off
+        self.plan_pins: Dict[str, str] = {}
+        self.plan_auto = False
+        self.tpu_devices = None
+        # the app's running gate (set by start and shutdown)
+        self.app_running = False
 
 
 def _positive_int(ann, key: str, what: str) -> int:
@@ -195,9 +251,12 @@ def _time_ms(v) -> int:
         return parse_time_string(v)
 
 
-def plan_app_context(siddhi_app, device, siddhi_context) -> AppContext:
+def plan_app_context(siddhi_app, device, siddhi_context,
+                     app_name: str = None) -> AppContext:
     """Read the app annotations into an ``AppContext``; the input
-    journal is the manager context's (``siddhi_context``)."""
+    journal is the manager context's (``siddhi_context``).
+    ``app_name``: a live re-plan's, which keeps the app's (an unnamed
+    app's too)."""
     anns = siddhi_app.annotations
     for a in anns:
         name = a.name.lower()
@@ -205,7 +264,7 @@ def plan_app_context(siddhi_app, device, siddhi_context) -> AppContext:
             raise SiddhiAppCreationError(
                 f"@{a.name}" + later_slice(*LATER[name]))
     name_ann = find_annotation(anns, "app:name")
-    ctx = AppContext((name_ann.element() if name_ann else None)
+    ctx = AppContext(app_name or (name_ann.element() if name_ann else None)
                      or f"app_{uuid.uuid4().hex[:8]}", device)
     playback = find_annotation(anns, "app:playback")
     if playback is not None:
@@ -314,9 +373,194 @@ def plan_app_context(siddhi_app, device, siddhi_context) -> AppContext:
     _plan_multiplex(ctx, find_annotation(anns, "app:multiplex"))
     _plan_fuse(ctx, find_annotation(anns, "app:fuse"))
     _plan_devtables(ctx, find_annotation(anns, "app:devtables"))
+    _plan_statistics(ctx, find_annotation(anns, "app:statistics"))
+    _plan_trace(ctx, find_annotation(anns, "app:trace"))
     _plan_faults(ctx, find_annotation(anns, "app:faults"), siddhi_context)
     _plan_persist(ctx, find_annotation(anns, "app:persist"))
+    _plan_limits(ctx, find_annotation(anns, "app:limits"))
     return ctx
+
+
+def _plan_statistics(ctx: AppContext, ann):
+    """``@app:statistics('true'|'false'|'basic'|'detail',
+    interval='S')``: the manager every app has, at the annotation's
+    level (off without it), as the reference plans it."""
+    level = Level.OFF
+    interval_s = 60.0
+    if ann is not None:
+        v = (ann.element() or "true").lower()
+        level = {"true": Level.BASIC, "false": Level.OFF,
+                 "basic": Level.BASIC, "detail": Level.DETAIL,
+                 }.get(v, Level.BASIC)
+        iv = ann.element("interval")
+        if iv:
+            interval_s = float(iv)
+    ctx.root_metrics_level = level
+    ctx.statistics_manager = StatisticsManager(ctx.name, interval_s)
+
+
+def _parse_trace_sample(value: str) -> int:
+    """``@app:trace`` sample grammar: 'off' (no spans), '1' (every
+    cycle), '1/N' or a bare 'N' (every Nth cycle)."""
+    v = value.lower()
+    if v in ("off", "false", "none"):
+        return 0
+    num, sep, den = v.partition("/")
+    try:
+        n = int(den) if sep else int(num)
+        if sep and int(num) != 1:
+            raise ValueError(num)
+    except ValueError:
+        raise SiddhiAppCreationError(
+            f"@app:trace: sample='{value}' must be 'off', '1', 'N' or "
+            "'1/N' (record every Nth batch cycle)")
+    if n < 1 or n > 1_000_000:
+        raise SiddhiAppCreationError(
+            f"@app:trace: sample='{value}' out of range — the sampling "
+            "stride must be in 1..1000000")
+    return n
+
+
+def _plan_trace(ctx: AppContext, ann):
+    """``@app:trace(sample='1/64', cycles='64', dir='/path')``: the
+    cycle tracer and its flight recorder, on by default at 1 in 64 (the
+    recorder is what every fault dump reads); ``sample='off'`` records
+    no span."""
+    from siddhi_tpu_torch.observability import Tracer
+
+    sample, cycles, dump_dir = Tracer.DEFAULT_SAMPLE, Tracer.DEFAULT_CYCLES, None
+    if ann is not None:
+        sv = ann.element("sample") or ann.element() or ""
+        if sv.strip():
+            sample = _parse_trace_sample(sv.strip())
+        cv = ann.element("cycles")
+        if cv:
+            try:
+                nc = int(cv)
+            except ValueError:
+                nc = -1
+            if nc < 1 or nc > 4096:
+                raise SiddhiAppCreationError(
+                    f"@app:trace: cycles='{cv}' must be an integer in "
+                    "1..4096 (flight-recorder depth in batch cycles)")
+            cycles = nc
+        dump_dir = ann.element("dir") or None
+    ctx.tracer = Tracer(ctx.name, sample=sample, cycles=cycles,
+                        dump_dir=dump_dir)
+    ctx.statistics_manager.register_tracer(ctx.tracer)
+
+
+def _limits_time_ms(ann, key: str):
+    v = ann.element(key)
+    if v is None:
+        return None
+    try:
+        ms = int(v)
+    except ValueError:
+        ms = parse_time_string(v)
+    if ms <= 0:
+        raise SiddhiAppCreationError(f"@app:limits: {key}={v!r} must be > 0")
+    return ms
+
+
+def _plan_limits(ctx: AppContext, ann):
+    """``@app:limits(rate='N/s', burst='M', shed='drop|oldest|block',
+    block.max='1 sec', watchdog='2 sec', breaker='3',
+    breaker.cooldown='1 sec', ladder='true')``, validated with the
+    reference's texts.  Without it every hook stays None."""
+    if ann is None:
+        return
+    from siddhi_tpu_torch.robustness import (
+        AdmissionController,
+        RobustnessStats,
+    )
+    from siddhi_tpu_torch.robustness.admission import SHED_POLICIES
+
+    rate = ann.element("rate") or ann.element()
+    if rate:
+        r = rate.strip().lower()
+        for suffix in ("/sec", "/s"):
+            if r.endswith(suffix):
+                r = r[: -len(suffix)]
+                break
+        try:
+            ctx.limits_rate = float(r)
+        except ValueError:
+            ctx.limits_rate = -1.0
+        if ctx.limits_rate <= 0:
+            raise SiddhiAppCreationError(
+                f"@app:limits: rate='{rate}' must be a positive "
+                "events-per-second figure ('1000' or '1000/s')")
+    burst = ann.element("burst")
+    if burst:
+        try:
+            ctx.limits_burst = float(burst)
+        except ValueError:
+            ctx.limits_burst = -1.0
+        if ctx.limits_burst < 1:
+            raise SiddhiAppCreationError(
+                f"@app:limits: burst='{burst}' must be >= 1 "
+                "(token-bucket depth in events)")
+        if not ctx.limits_rate:
+            raise SiddhiAppCreationError("@app:limits: burst needs rate")
+    elif ctx.limits_rate:
+        ctx.limits_burst = max(ctx.limits_rate, 1.0)
+    shed = ann.element("shed")
+    if shed:
+        if shed not in SHED_POLICIES:
+            raise SiddhiAppCreationError(
+                f"@app:limits: shed='{shed}' must be one of "
+                f"{', '.join(SHED_POLICIES)}")
+        if not ctx.limits_rate:
+            raise SiddhiAppCreationError("@app:limits: shed needs rate")
+        ctx.limits_shed = shed
+    bm = _limits_time_ms(ann, "block.max")
+    if bm is not None:
+        ctx.limits_block_max_ms = bm
+    wd = _limits_time_ms(ann, "watchdog")
+    if wd is not None:
+        ctx.watchdog_deadline_ms = wd
+    br = ann.element("breaker")
+    if br:
+        try:
+            nb = int(br)
+        except ValueError:
+            nb = -1
+        if nb < 1:
+            raise SiddhiAppCreationError(
+                f"@app:limits: breaker='{br}' must be a positive "
+                "integer (consecutive failures before opening)")
+        ctx.breaker_threshold = nb
+    bc = _limits_time_ms(ann, "breaker.cooldown")
+    if bc is not None:
+        ctx.breaker_cooldown_ms = bc
+    lv = (ann.element("ladder") or "false").strip().lower()
+    if lv not in ("true", "false"):
+        raise SiddhiAppCreationError(
+            f"@app:limits: ladder='{lv}' must be 'true' or 'false'")
+    ctx.ladder = lv == "true"
+    if ctx.ladder and not ctx.watchdog_deadline_ms:
+        raise SiddhiAppCreationError(
+            "@app:limits: ladder='true' needs watchdog='<deadline>'"
+            " — the watchdog tick is what drives the ladder")
+    if not (ctx.limits_rate or ctx.watchdog_deadline_ms
+            or ctx.breaker_threshold):
+        raise SiddhiAppCreationError(
+            "@app:limits: needs at least one of rate, watchdog, breaker")
+    ctx.robustness = RobustnessStats()
+    if ctx.limits_rate:
+        ctx.admission = AdmissionController(ctx, ctx.robustness)
+
+
+def make_breaker(ctx: AppContext, name: str):
+    """``@app:limits(breaker='N')``: one circuit breaker a transport
+    endpoint, counting on the app's ``RobustnessStats``."""
+    from siddhi_tpu_torch.robustness import CircuitBreaker
+
+    return CircuitBreaker(name, threshold=ctx.breaker_threshold,
+                          cooldown_ms=ctx.breaker_cooldown_ms,
+                          stats=ctx.robustness,
+                          fault_injector=ctx.fault_injector)
 
 
 def _plan_multiplex(ctx: AppContext, ann):
@@ -342,6 +586,17 @@ def _plan_multiplex(ctx: AppContext, ann):
         ctx.multiplex_slots = ns
 
 
+def note_fallback(ctx: AppContext, family: str, name: str, reason: str):
+    """A query, table or partition kept a slower path than its
+    annotation asked for: the reason goes to ``ctx.<family>_fallbacks``
+    and is counted on the statistics feed (``<family>Fallbacks``,
+    ``<family>FallbackReason``), as the reference records it."""
+    getattr(ctx, f"{family}_fallbacks")[name] = reason
+    sm = ctx.statistics_manager
+    if sm is not None:
+        getattr(sm, f"record_{family}_fallback")(name, reason)
+
+
 def note_fused_conflicts(ctx: AppContext, qname: str):
     """A query the fusion pre-pass claimed while ``@app:multiplex`` was
     also on the app: the precedence (fuse > multiplex) resolved it, and
@@ -350,6 +605,9 @@ def note_fused_conflicts(ctx: AppContext, qname: str):
         ctx.planner_conflicts[qname] = (
             "@app:multiplex pinned but the query fused (precedence: fuse "
             "> multiplex)")
+        if ctx.statistics_manager is not None:
+            ctx.statistics_manager.record_planner_conflict(
+                qname, ctx.planner_conflicts[qname])
 
 
 def _plan_fuse(ctx: AppContext, ann):
@@ -400,15 +658,16 @@ def _plan_faults(ctx: AppContext, ann, siddhi_context):
     opts = {k: v for k, v in ann.elements
             if k is not None and k.lower() != "type"}
     unwired = sorted(k for k in opts
-                     if k.strip().lower() not in RESERVED_OPTIONS
-                     and k.strip().lower() not in WIRED_SITES)
+                     if k.strip().lower() in UNWIRED_SITES)
     if unwired:
         raise SiddhiAppCreationError(
             f"@app:faults: fault site(s) {unwired} are not wired in the port"
-            + later_slice(15, "the operations layer"))
+            + later_slice(16, "multi-device"))
     fi = FaultInjector()
     journal_depth = fi.configure_from_options(opts)
     fi.listeners = ctx.exception_listeners
+    # a simulated crash dumps the flight recorder on its way out
+    fi.tracer = ctx.tracer
     ctx.fault_injector = fi
     if not journal_depth:
         return
@@ -531,6 +790,11 @@ def attach_transports(app, definition, junction):
                     (shm, src.handler.element_id))
             src.init(definition, opts, mapper, junction, app.app_context)
             src.is_running = lambda: app._running
+            if app.app_context.breaker_threshold:
+                # a source spools nothing (its transport holds the data):
+                # the breaker spaces out doomed connect attempts
+                src._breaker = make_breaker(app.app_context,
+                                            f"source:{definition.id}")
             app.sources.append(src)
         elif nm == "sink":
             stype, opts = transport_config(ann, "sink", cm)
@@ -559,6 +823,16 @@ def attach_transports(app, definition, junction):
                 app._handler_registrations.append(
                     (khm, sink.handler.element_id))
             sink.init(definition, opts, mapper, app.app_context)
+            if app.app_context.breaker_threshold:
+                # one breaker an endpoint: a distributed sink breaks each
+                # destination, never the fan-out
+                targets = (sink.children if isinstance(sink, DistributedSink)
+                           else [sink])
+                for di, child in enumerate(targets):
+                    suffix = f"#{di}" if child is not sink else ""
+                    child.attach_breaker(make_breaker(
+                        app.app_context,
+                        f"sink:{definition.id}:{len(app.sinks)}{suffix}"))
             # publish failures follow the stream's @OnError contract
             # (reference: Sink.onError:354 routing into '!stream')
             sink.stream_junction = junction

@@ -17,8 +17,8 @@ Anything that would make an intermediate stream observable, or that the
 fused engine cannot reproduce bit for bit, drops back to the junction
 path per chain (or per truncated chain suffix), with the reference's
 reason logged at WARNING and kept in the app context's
-``fused_fallbacks`` (query -> reason); the reference's statistics
-counters come with ``ROADMAP.md`` §1 item 15c.
+``fused_fallbacks`` (query -> reason), counted on the statistics feed
+as the reference's ``fusedFallbackReason``.
 
 Hop gates (the intermediate stream): exactly one top-level device
 producer and one consumer; not a table / named window / aggregation /
@@ -42,9 +42,10 @@ whole chain would round it, so that falls back.
 Direct injection into a fused intermediate stream (its InputHandler
 still exists when the stream is declared) cannot enter the middle of the
 fused step; a tap subscriber raises into the junction's error route, so
-the misuse is loud instead of silently dropped.  The reference's
-cost-model and replan-pin triggers come with item 15d, the sharded fused
-engine with item 16.
+the misuse is loud instead of silently dropped.  A replan pin naming
+``fuse`` runs the pass too, and a member pinned to another path leaves
+its chain to per-query planning; the cost model's own trigger comes
+with item 15d, the sharded fused engine with item 16.
 """
 
 from __future__ import annotations
@@ -67,6 +68,8 @@ from siddhi_tpu_torch.core.fused_graph import (
 from siddhi_tpu_torch.core.query import PassThroughRateLimiter, QueryRuntime
 from siddhi_tpu_torch.ops.device_query import DeviceQueryEngine
 from siddhi_tpu_torch.ops.fused_graph import FusedGraphEngine
+from siddhi_tpu_torch.planner.app_planner import note_fallback
+from siddhi_tpu_torch.planner.costmodel import fused_plan_record
 from siddhi_tpu_torch.planner.query_planner import (
     _RateLimiterTask,
     has_aggregators,
@@ -170,7 +173,7 @@ def plan_fused_chains(app) -> Dict[int, QueryRuntime]:
     def fallback(qname: str, reason: str):
         log.warning("query '%s': fused chain unavailable (%s); using "
                     "junction dispatch", qname, reason)
-        ctx.fused_fallbacks[qname] = reason
+        note_fallback(ctx, "fused", qname, reason)
 
     # -- top-level queries with their plan() names ---------------------------
     entries: List[Tuple[Query, str]] = []
@@ -321,6 +324,14 @@ def _try_lower_chain(app, entries, run: List[int], hops: List[str],
     ctx = app.app_context
     chain_names = [entries[i][1] for i in run]
     chain_label = "->".join(chain_names)
+    # a replan pin is an exact path: a member pinned away from 'fuse'
+    # (e.g. {'q1': 'device'}) leaves the chain to per-query planning
+    for nm in chain_names:
+        p = ctx.plan_pins.get(nm)
+        if p is not None and "fuse" not in str(p).split("+"):
+            log.info("chain %s: member '%s' pinned to '%s' — chain left "
+                     "to per-query planning", chain_label, nm, p)
+            return {}
 
     # synthesize undeclared intermediate defs from producer schemas as
     # we go; declared defs must match the producer's output exactly
@@ -485,7 +496,8 @@ def _wire_chain(app, entries, run: List[int], hops: List[str],
         graph, f"#fused_{tail_name}", emit=lambda b: qr.process(b, 0),
         emit_depth=ctx.tpu_emit_depth,
         clock=ctx.timestamp_generator.current_time,
-        ingest_depth=ctx.tpu_ingest_depth)
+        ingest_depth=ctx.tpu_ingest_depth, faults=ctx.fault_injector,
+        tracer=ctx.tracer)
     qr.device_runtime = runtime
 
     head_q, _hn = entries[run[0]]
@@ -517,6 +529,15 @@ def _wire_chain(app, entries, run: List[int], hops: List[str],
         if hops[pos] in app.junctions:
             app.junctions[hops[pos]].subscribe(
                 _FusedIntermediateTap(hops[pos], chain_label))
+    # the members' plan records (the per-query planning never sees them)
+    sm = ctx.statistics_manager
+    if sm is not None:
+        n_total = len(graph.stages) + (1 if graph.dense is not None else 0)
+        for idx in run:
+            nm = entries[idx][1]
+            rec = fused_plan_record(nm, ctx, n_total)
+            rec.actual = "fused"
+            sm.register_plan(nm, rec)
     log.info("fused chain %s: %d stages lowered to one device step",
              chain_label, len(graph.stages)
              + (1 if graph.dense is not None else 0))

@@ -24,6 +24,7 @@ from siddhi_tpu_torch.core.exceptions import (
 )
 from siddhi_tpu_torch.core.hotkey_router import HotKeyRouterRuntime
 from siddhi_tpu_torch.ops.hotkey_scan import HotKeyScanEngine
+from siddhi_tpu_torch.planner.app_planner import note_fallback
 from siddhi_tpu_torch.planner.kernels import check_scan_kernel_available
 
 log = logging.getLogger("siddhi_tpu_torch")
@@ -91,7 +92,9 @@ def try_wrap_hotkey(ctx, definitions, st, dense_runtime, query_name: str
         log.warning(
             "query '%s': @app:hotkeys requested but query is outside "
             "the scan class, staying dense: %s", query_name, e)
-        ctx.hotkey_fallbacks[query_name] = str(e)
+        note_fallback(ctx, "hotkey", query_name, str(e))
         return None
     check_scan_kernel_available(router._scan)
+    if ctx.statistics_manager is not None:
+        ctx.statistics_manager.register_hotkey_router(query_name, router)
     return router

@@ -23,7 +23,8 @@ Port of the JAX package's ``planner/kernels.py``:
 
 The reference's ``try_enable_*`` hooks swap a kernel in under
 ``@app:kernels`` and count a fallback to XLA when it cannot; the port
-always runs its kernels on the card and counts no fallback.
+always runs its kernels on the card and counts no fallback, and its
+degradation ladder has no ``kernels`` rung (``robustness/ladder.py``).
 """
 
 from __future__ import annotations

@@ -117,6 +117,8 @@ from siddhi_tpu_torch.ops.nfa import (
     PatternScope,
     _collect_presence,
 )
+from siddhi_tpu_torch.planner.app_planner import note_fallback
+from siddhi_tpu_torch.planner.costmodel import build_plan_record
 from siddhi_tpu_torch.planner.hotkeys import try_wrap_hotkey
 from siddhi_tpu_torch.planner.host_expr import (
     AGGREGATOR_NAMES,
@@ -344,16 +346,51 @@ class PatternStreamReceiver:
         self.processor.process_stream_batch(self.stream_key, batch)
 
 
-def _want(app, path: str) -> bool:
-    """Does the app want fast path ``path`` at a query's gate site?  The
-    annotation half of the reference's ``_want``: ``'multiplex'`` under
-    ``@app:multiplex`` (replan pins and the cost model's pick come with
-    ``ROADMAP.md`` §1 item 15d).  The path's own eligibility gate still
-    runs after a True."""
-    return path == "multiplex" and app.app_context.multiplex
+def note_device_fallback(app, name: str, reason: str):
+    """A query (or partition) under ``@app:execution('tpu')`` runs on a
+    host engine: counted on the statistics feed (``deviceFallbacks``,
+    ``deviceFallbackReason``), beside the WARNING."""
+    sm = app.app_context.statistics_manager
+    if sm is not None:
+        sm.record_device_fallback(name, reason)
+
+
+def _want(app, path: str, name: str) -> bool:
+    """Does query ``name`` want fast path ``path`` (``'multiplex'`` or
+    ``'hotkey'``) at its gate site?  A replan pin names the exact
+    composed path; else the annotation (``@app:multiplex``,
+    ``@app:hotkeys``).  The cost model's own pick is ``ROADMAP.md`` §1
+    item 15d.  The path's eligibility gate still runs after a True."""
+    ctx = app.app_context
+    pin = ctx.plan_pins.get(name)
+    if pin is not None:
+        return path in str(pin).split("+")
+    if path == "multiplex":
+        return ctx.multiplex
+    if path == "hotkey":
+        return ctx.hotkeys
+    return False
 
 
 def plan_query(app, query: Query, index: int) -> QueryRuntime:
+    """Plan one query through ``_plan_query`` with its ``PlanRecord``
+    (``planner/costmodel.py``: the candidates and their costs, the pins,
+    the realized lowering), registered on the statistics manager for
+    ``/siddhi-plan``.  A replan pin of ``'host'`` keeps the query off
+    the device paths."""
+    name = query_name(query, index)
+    record = build_plan_record(app, query, name)
+    host_pinned = record.mode == "pinned" and record.chosen == "host"
+    qr = _plan_query(app, query, name, host_pinned)
+    record.actual = qr.lowered_to
+    sm = app.app_context.statistics_manager
+    if sm is not None:
+        sm.register_plan(name, record)
+    return qr
+
+
+def _plan_query(app, query: Query, name: str,
+                host_pinned: bool = False) -> QueryRuntime:
     """Plan one query: a single-stream query on the host runtime (the
     reference's default mode) or, under ``@app:execution('tpu')``, on
     the device query engine; a pattern on the host engine or, under
@@ -361,15 +398,14 @@ def plan_query(app, query: Query, index: int) -> QueryRuntime:
     by one ``DenseStreamReceiver`` per source stream.  Inside a
     partition instance (``app.in_partition_instance``) both take the
     host.  Raises for what the port does not run."""
-    name = query_name(query, index)
     in_stream = query.input_stream
-    tpu = (app.app_context.execution_mode == "tpu"
+    tpu = (app.app_context.execution_mode == "tpu" and not host_pinned
            and not getattr(app, "in_partition_instance", False))
     if isinstance(in_stream, SingleInputStream):
         if tpu:
             # @app:multiplex: a seat in a shared tumbling engine first;
             # an ineligible query falls through with its reason
-            if _want(app, "multiplex"):
+            if _want(app, "multiplex", name):
                 qr = MultiplexPlanner(app).try_single(query, name,
                                                       in_stream)
                 if qr is not None:
@@ -383,6 +419,7 @@ def plan_query(app, query: Query, index: int) -> QueryRuntime:
             except SiddhiAppCreationError as e:
                 log.warning("query '%s': device query path unavailable "
                             "(%s); using host engine", name, e)
+                note_device_fallback(app, name, f"device query: {e}")
             else:
                 log.info("query '%s': lowered to the device query path",
                          name)
@@ -392,7 +429,7 @@ def plan_query(app, query: Query, index: int) -> QueryRuntime:
     if isinstance(in_stream, StateInputStream):
         if tpu:
             # @app:multiplex: a seat in a shared dense engine first
-            if _want(app, "multiplex"):
+            if _want(app, "multiplex", name):
                 qr = MultiplexPlanner(app).try_state(query, name, in_stream)
                 if qr is not None:
                     return qr
@@ -406,6 +443,7 @@ def plan_query(app, query: Query, index: int) -> QueryRuntime:
             except SiddhiAppCreationError as e:
                 log.warning("query '%s': dense TPU path unavailable (%s); "
                             "using host pattern engine", name, e)
+                note_device_fallback(app, name, f"dense pattern: {e}")
             else:
                 log.info("query '%s': pattern lowered to the dense TPU "
                          "path", name)
@@ -484,7 +522,8 @@ def plan_device_single(app, query: Query, name: str, s: SingleInputStream,
     runtime = DeviceQueryRuntime(
         engine, f"#device_{name}", emit=lambda b: qr.process(b, 0),
         emit_depth=ctx.tpu_emit_depth, ingest_depth=ctx.tpu_ingest_depth,
-        clock=ctx.timestamp_generator.current_time)
+        clock=ctx.timestamp_generator.current_time,
+        faults=ctx.fault_injector, tracer=ctx.tracer)
     qr.device_runtime = runtime
     qr.lowered_to = "device"
     if subscribe:
@@ -727,7 +766,7 @@ def plan_join(app, query: Query, name: str, j: JoinInputStream
         except SiddhiAppCreationError as e:
             log.warning("query '%s': devtable join unavailable (%s); "
                         "host join path used", name, e)
-            ctx.devtable_fallbacks[name] = str(e)
+            note_fallback(ctx, "devtable", name, str(e))
         else:
             qr.device_runtime = dt_runtime
             qr.lowered_to = "devtable"
@@ -745,6 +784,7 @@ def plan_join(app, query: Query, name: str, j: JoinInputStream
         except SiddhiAppCreationError as e:
             log.warning("query '%s': join device probe unavailable (%s); "
                         "numpy probe used", name, e)
+            note_device_fallback(app, name, f"join probe: {e}")
         else:
             qr.lowered_to = "device_probe"
             log.info("query '%s': join condition lowered to the jitted "
@@ -909,7 +949,7 @@ def plan_output(app, query: Query, out_def: StreamDefinition, qname: str):
                 log.warning("query '%s': devtable mutation lowering "
                             "unavailable (%s); per-row host callback "
                             "used", who, e)
-                app.app_context.devtable_fallbacks[who] = str(e)
+                note_fallback(app.app_context, "devtable", who, str(e))
         return cb
     if isinstance(out, ReturnStream) or out is None:
         return QueryCallbackOutput()
@@ -997,7 +1037,7 @@ def plan_dense_state(app, query: Query, name: str, st,
     # @app:hotkeys: wrap the partitioned passthrough pattern in the skew
     # router (heavy keys ride the fused scan, cold keys stay dense); the
     # aggregating form stays dense: the router selects final-node lanes
-    if ctx.hotkeys and partitioned and not aggregating:
+    if _want(app, "hotkey", name) and partitioned and not aggregating:
         wrapped = try_wrap_hotkey(ctx, app.definitions, st, runtime, name)
         if wrapped is not None:
             runtime = wrapped

@@ -4,10 +4,9 @@ Port of the JAX package's ``transport/retry.py``.
 
 Mirrors the reference ``util/transport/BackoffRetryCounter.java`` (interval
 ladder 5s, 10s, 15s, 30s, 1min, 2min, 5min, capped), scaled by a factor so
-tests can run the ladder in milliseconds.  ``ConnectRetryMixin`` keeps
-the reference's circuit-breaker hooks; no planner attaches a breaker
-until ``@app:limits`` is ported (``ROADMAP.md`` §1 item 15b), so they
-stay inert.
+tests can run the ladder in milliseconds.  ``ConnectRetryMixin`` has
+the circuit-breaker hooks the planner attaches a breaker to under
+``@app:limits(breaker=)`` (``robustness/breaker.py``).
 """
 
 from __future__ import annotations
@@ -56,8 +55,8 @@ class ConnectRetryMixin:
         self._retry_lock = threading.Lock()
         self._retry_timer = None
         self._shutdown = False
-        # circuit breaker (the reference's robustness/breaker.py, item
-        # 15b), attached by the planner under @app:limits(breaker='N')
+        # circuit breaker (robustness/breaker.py), attached by the
+        # planner under @app:limits(breaker='N')
         self._breaker = None
 
     def start(self):

@@ -102,8 +102,8 @@ class Sink(ConnectRetryMixin):
         # concurrently — instance state would cross their topics
         self._tls = threading.local()
         self._init_retry(options)
-        # open-breaker spool (the reference's robustness/breaker.py,
-        # item 15b): batches held while the circuit is open, flushed
+        # open-breaker spool (robustness/breaker.py): batches held
+        # while the circuit is open, flushed
         # once it closes.  The output ledger counted them at junction
         # dispatch, so a crash-replay suppresses them and the flush
         # never double-emits.

@@ -16,16 +16,34 @@ port imports nothing of that package):
   uninterrupted run's.
 
 * Host-copy and poison helpers (``host_copy`` / ``poison_state`` /
-  ``state_has_poison``): device tensors reach the host through
-  ``core/emit_queue.fetch_coalesced`` (``np.asarray`` raises on a CUDA
-  tensor).
+  ``state_has_poison`` / ``good_copy`` / ``restore_good``): device
+  tensors reach the host through ``core/emit_queue.fetch_coalesced``
+  (``np.asarray`` raises on a CUDA tensor), and every device-to-host
+  read of the NaN/Inf quarantine happens here, so the device modules
+  stay free of syncs.  The last good state is a device clone, not a
+  host copy as in the reference: a quarantine copies it back into the
+  live tensors in place, dtypes and devices kept.
 
 Injection sites (strings, ``layer.point``) the port wires
-(``WIRED_SITES``); an app arming any other site is refused at creation:
+(``WIRED_SITES``); ``step.shard`` waits for the multi-device slice
+(``UNWIRED_SITES``) and an app arming it is refused at creation:
 
 ========================  ================================================
+``emit.drain``            coalesced device-to-host fetch in EmitQueue
+                          (bounded retry with backoff on ``transient``)
+``ingest.put``            ``staged_put``, the ingest-path host-to-device
+                          copy (the same retry; checked before the copy)
 ``ingest``                InputHandler.send/send_batch under the process
                           lock, after the journal records the batch
+``step.device``           a device query engine's step, a fused chain's
+``step.dense``            a dense engine's step, a fused dense tail's
+``sink.publish``          Sink.publish_with_reconnect
+``sink.connect``          sink (re)connect attempts
+``source.connect``        source (re)connect attempts
+``timer``                 scheduler advance (``stall``: a clock stall)
+``timer.fire``            one scheduled task's fire
+``callback``              stream-junction callback dispatch
+``state.poison``          device-state poisoning (``poison``)
 ``persist.write``         checkpoint store write (retryable; durability/)
 ``persist.post_blob``     crash point: element blobs durable, no manifest
 ``persist.pre_manifest``  crash point: before the manifest tmp write
@@ -33,6 +51,11 @@ Injection sites (strings, ``layer.point``) the port wires
 ``persist.post_manifest`` crash point: revision committed, journal mark not
 ``journal.spill``         journal-segment store write (retryable)
 ``journal.spill.mid``     crash point: segment durable, journal not trimmed
+``replan.reseat``         crash point: replacement engines built, old not
+                          torn down
+``admission.shed``        the ``@app:limits`` admission controller sheds
+``watchdog.trip``         the watchdog saw a stall, before its self-heal
+``breaker.open``          a transport circuit breaker opens
 ========================  ================================================
 
 Fault kinds:
@@ -50,6 +73,7 @@ from __future__ import annotations
 
 import logging
 import threading
+import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -77,18 +101,24 @@ DEFAULT_JOURNAL_DEPTH = 256
 RESERVED_OPTIONS = frozenset(("seed", "transfer.retry.attempts",
                               "transfer.retry.scale", "journal",
                               "journal.depth"))
+# the reference's sites the port does not consult yet: arming one is
+# refused, since it would arm silently (any other name arms, as there)
+UNWIRED_SITES = frozenset(("step.shard",))
 # the injection sites the port consults (see the module note)
 WIRED_SITES = frozenset((
-    "ingest", "persist.write", "persist.post_blob", "persist.pre_manifest",
-    "persist.mid_manifest", "persist.post_manifest", "journal.spill",
-    "journal.spill.mid"))
+    "emit.drain", "ingest.put", "ingest", "step.device", "step.dense",
+    "sink.publish", "sink.connect", "source.connect", "timer", "timer.fire",
+    "callback", "state.poison", "persist.write", "persist.post_blob",
+    "persist.pre_manifest", "persist.mid_manifest", "persist.post_manifest",
+    "journal.spill", "journal.spill.mid", "replan.reseat", "admission.shed",
+    "watchdog.trip", "breaker.open"))
 
 
 class FaultStats:
     """Counters for injected faults and the recovery machinery.
 
-    The statistics feed that surfaces them is ``ROADMAP.md`` item 15;
-    here they are read from ``stats.as_dict()``."""
+    ``StatisticsManager.fault_tracker`` publishes them on the statistics
+    feed (``Faults.injector.<counter>``), whatever the level."""
 
     __slots__ = (
         "faults_injected",
@@ -168,6 +198,9 @@ class FaultInjector:
         # Hardening knobs (read by EmitQueue / sharded ingest).
         self.transfer_retry_attempts = DEFAULT_TRANSFER_RETRY_ATTEMPTS
         self.transfer_retry_scale = DEFAULT_TRANSFER_RETRY_SCALE
+        # the app's tracer (observability/), wired by the planner: a
+        # simulated crash dumps its flight recorder on the way out
+        self.tracer = None
 
     # -- configuration ------------------------------------------------
 
@@ -175,11 +208,11 @@ class FaultInjector:
                   count: int = 1, after: int = 0) -> "FaultInjector":
         """Arm a fault at ``site``.  Returns self for chaining.  A site
         the port does not consult raises: it would arm silently."""
-        if site not in WIRED_SITES:
+        if site in UNWIRED_SITES:
             raise ValueError(
                 f"fault site {site!r} is not wired in the port (wired: "
-                f"{sorted(WIRED_SITES)}) — ROADMAP.md §1 item 15 (the "
-                "operations layer), a later slice of the port")
+                f"{sorted(WIRED_SITES)}) — ROADMAP.md §1 item 16 "
+                "(multi-device), a later slice of the port")
         spec = FaultSpec(site, kind, p=p, count=count, after=after)
         with self._lock:
             self._specs.setdefault(site, []).append(spec)
@@ -296,6 +329,12 @@ class FaultInjector:
             return
         if spec.kind == "crash":
             log.warning("fault-injection: simulated crash at %s", site)
+            if self.tracer is not None:
+                try:
+                    self.tracer.dump(f"fault-injector-crash:{site}")
+                except Exception:  # noqa: BLE001 — the kill must win
+                    log.exception("fault-injection: flight-recorder dump "
+                                  "failed on simulated crash")
             raise SimulatedCrashError(f"injected crash at {site}")
         if spec.kind == "transient":
             e: Exception = TransferFaultError(
@@ -335,6 +374,54 @@ class FaultInjector:
                 ln(e)
             except Exception:  # pragma: no cover - listener bug
                 log.exception("fault-injection: exception listener failed")
+
+
+def isolate(tracer, fi, e: BaseException) -> None:
+    """A batch died in isolation (a failed drain or finish): freeze
+    ``tracer``'s span ring for the post-mortem and tell ``fi``'s
+    exception listeners (either may be None)."""
+    if tracer is not None:
+        tracer.dump(f"onerror-isolation:{type(e).__name__}")
+    if fi is not None:
+        fi.notify(e)
+
+
+def retry_site(fi, site: str, what: str) -> None:
+    """Check ``site`` on ``fi`` (None: nothing armed), retrying a
+    transient transfer fault with bounded backoff
+    (``transfer.retry.attempts``, ``transfer.retry.scale``); a retry
+    that succeeds counts ``drains_recovered``, each retry
+    ``transfer_retries``.  Exhaustion, a sticky loss and any other fault
+    raise.  ``what`` names the path in the WARNING."""
+    if fi is None:
+        return
+    attempts = fi.transfer_retry_attempts
+    attempt = 0
+    backoff = None
+    while True:
+        try:
+            fi.check(site)
+            if attempt:
+                fi.stats.drains_recovered += 1
+            return
+        except TransferFaultError:
+            if attempt >= attempts:
+                raise
+            attempt += 1
+            fi.stats.transfer_retries += 1
+            if backoff is None:
+                from siddhi_tpu_torch.transport.retry import (
+                    BackoffRetryCounter,
+                )
+
+                backoff = BackoffRetryCounter(scale=fi.transfer_retry_scale)
+            wait_s = backoff.get_time_interval_ms() / 1000.0
+            backoff.increment()
+            log.warning("%s: transient fault at %s (attempt %d/%d), "
+                        "retrying in %.3fs", what, site, attempt, attempts,
+                        wait_s)
+            if wait_s > 0:
+                time.sleep(wait_s)
 
 
 # -- host copies and poison helpers ------------------------------------
@@ -394,13 +481,89 @@ def _leaves(state: Any) -> List[Any]:
 def state_has_poison(state: Any) -> bool:
     """True when any float leaf of ``state`` contains NaN/Inf.
 
-    Fetches to the host: callers gate this behind an armed injector or
-    an explicit check so the hot path stays transfer-free."""
-    for arr in _leaves(host_copy(state)):
-        if (isinstance(arr, np.ndarray) and arr.dtype.kind == "f"
-                and arr.size and not np.isfinite(arr).all()):
+    Each tensor leaf reduces to one finite flag on its device and the
+    flags cross to the host in one ``fetch_coalesced`` call; callers
+    gate this behind an armed injector, so the hot path stays
+    transfer-free."""
+    from siddhi_tpu_torch.core.emit_queue import fetch_coalesced
+
+    flags = []
+    for leaf in _leaves(state):
+        if isinstance(leaf, torch.Tensor):
+            if leaf.is_floating_point() and leaf.numel():
+                flags.append(torch.isfinite(leaf).all())
+        elif (isinstance(leaf, np.ndarray) and leaf.dtype.kind == "f"
+              and leaf.size and not np.isfinite(leaf).all()):
             return True
-    return False
+    return bool(flags) and not all(bool(f) for f in fetch_coalesced(flags))
+
+
+def good_copy(state: Any) -> Any:
+    """The quarantine's last good state: tensor leaves cloned on their
+    device, numpy leaves copied, other leaves kept."""
+
+    def walk(node: Any) -> Any:
+        if isinstance(node, torch.Tensor):
+            return node.clone()
+        if isinstance(node, np.ndarray):
+            return node.copy()
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            seq = [walk(v) for v in node]
+            return tuple(seq) if isinstance(node, tuple) else seq
+        return node
+
+    return walk(state)
+
+
+def restore_good(state: Any, good: Any) -> Any:
+    """``state`` with every leaf set back to ``good``'s (a
+    ``good_copy``): a tensor of the same shape and dtype is written in
+    place, so a holder of the live tensor sees the restore; any other
+    leaf is replaced by a copy of the good one."""
+
+    def walk(node: Any, g: Any) -> Any:
+        if isinstance(node, dict):
+            return {k: walk(node[k], g[k]) if k in g else node[k]
+                    for k in node}
+        if isinstance(node, (tuple, list)):
+            seq = [walk(a, b) for a, b in zip(node, g)]
+            return tuple(seq) if isinstance(node, tuple) else seq
+        if (isinstance(node, torch.Tensor) and isinstance(g, torch.Tensor)
+                and node.shape == g.shape and node.dtype == g.dtype):
+            return node.copy_(g)
+        if isinstance(g, (torch.Tensor, np.ndarray)):
+            return g.clone() if isinstance(g, torch.Tensor) else g.copy()
+        return g
+
+    return walk(state, good)
+
+
+def poison_guard(fi, state: Any, last_good: Any, init_state):
+    """The device runtimes' NaN/Inf quarantine, active only while a
+    ``state.poison`` fault is armed on ``fi``: poisons ``state`` when
+    the fault trips, then checks it.  Returns ``(state, last_good,
+    quarantined)``: a clean state becomes the new restore point; a
+    poisoned one is set back to ``last_good`` (``init_state()`` when
+    there is none) and counted, and the caller drops the batch's
+    outputs."""
+    if fi is None or not fi.watches("state.poison"):
+        return state, last_good, False
+    if fi.poisoned("state.poison"):
+        state = poison_state(state)
+    if not state_has_poison(state):
+        return state, good_copy(state), False
+    fi.stats.poison_quarantines += 1
+    if last_good is not None:
+        log.error("device state poisoned (NaN/Inf); quarantining batch "
+                  "and re-materializing last clean state")
+        state = restore_good(state, last_good)
+    else:
+        log.error("device state poisoned (NaN/Inf) with no clean copy; "
+                  "quarantining batch and re-initializing")
+        state = init_state()
+    return state, last_good, True
 
 
 def poison_state(state: Any) -> Any:
@@ -678,6 +841,39 @@ class InputJournal:
             if take is None:  # pragma: no cover - non-batch payloads
                 return batch
             return take(np.arange(k, n))
+
+    # -- live re-plan ---------------------------------------------------
+    #
+    # A live re-plan (core/app_runtime.py replan) rebuilds the engines
+    # empty: no revision to restore, so the journal replays the WHOLE
+    # history into them and the output ledger suppresses every event
+    # each endpoint already received.
+
+    def covers_from_start(self) -> bool:
+        """True while the in-memory journal holds every batch since the
+        app started: no overflow, nothing spilled, nothing pruned."""
+        with self._lock:
+            if self._gap or self._segments:
+                return False
+            if self._seq == 0:
+                return True
+            return (bool(self._entries) and self._entries[0][0] == 1
+                    and len(self._entries) == self._seq)
+
+    def all_entries(self) -> List[Tuple[str, Any]]:
+        """Every recorded batch, oldest first (the caller checked
+        :meth:`covers_from_start`)."""
+        with self._lock:
+            return [(sid, b) for _seq, sid, b in self._entries]
+
+    def begin_replay_from_start(self) -> None:
+        """Arm the ledger for a full-history replay: each endpoint's
+        whole delivered count is its suppression budget, and the counts
+        rebuild from zero as the replay re-delivers."""
+        with self._lock:
+            self.replaying = True
+            self._remaining = dict(self._counts)
+            self._counts = {}
 
     def reset(self) -> None:
         """Forget everything (restore from raw bytes / fresh start)."""

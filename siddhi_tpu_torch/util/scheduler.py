@@ -65,6 +65,11 @@ class Scheduler:
         elapsed at ``now``."""
         if now <= self._last_advance:
             return
+        fi = getattr(self.app_context, "fault_injector", None)
+        if fi is not None and fi.stalled("timer"):
+            # an injected clock stall drops this advance; the next one
+            # delivers every elapsed wakeup
+            return
         self._last_advance = now
         # snapshots of both lists: a fire may (un)register tasks
         for qr, w in list(self._windows):
@@ -83,6 +88,8 @@ class Scheduler:
                     break
                 prev = wake
                 try:
+                    if fi is not None:
+                        fi.check("timer.fire")
                     t.fire(now)
                 except Exception as e:
                     # one failing task must not stop the watermark
@@ -119,14 +126,20 @@ class Scheduler:
                                         daemon=True)
         self._thread.start()
 
-    def stop(self):
+    def stop(self, wait: bool = True):
+        """Stop the wall-clock thread; ``wait=False`` (a live re-plan,
+        under the app lock) does not join it: it sees the flag once it
+        has the lock and advances nothing."""
         self._stop.set()
         if self._thread is not None:
-            self._thread.join(timeout=5)
+            if wait:
+                self._thread.join(timeout=5)
             self._thread = None
 
     def _loop(self, tick_ms: int):
         while not self._stop.wait(tick_ms / 1000.0):
             now = self.app_context.timestamp_generator.current_time()
             with self.app_context.process_lock:
+                if self._stop.is_set():
+                    return
                 self.advance(now)

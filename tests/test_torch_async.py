@@ -5,9 +5,8 @@ packages; the repairs of ``ROADMAP.md`` §3 faults 9–12.
 by ``test_torch_persistence.py``'s twin runs (see
 ``test_torch_done_slices.py``): both packages pass each test's own
 assertions and deliver the same events.  ``LEFT_OUT`` names what waits:
-``devices=`` (item 16), ``@app:statistics`` and ``rt.debug()`` (item
-15c); the full-ring shutdown case has its own test (the port's stop
-delivers what the reference's drops).  The fault tests run one app
+``devices=`` (item 16); the full-ring shutdown case has its own test
+(the port's stop delivers what the reference's drops).  The fault tests run one app
 string through both packages:
 
 - 9: ``@async(buffer.size, batch.size.max)`` queues sends and a worker
@@ -34,10 +33,7 @@ import siddhi_tpu
 import siddhi_tpu_torch
 from siddhi_tpu.core.event import EventBatch as JaxBatch
 from siddhi_tpu_torch.core.event import EventBatch as PortBatch
-from siddhi_tpu_torch.core.exceptions import (
-    SiddhiAppCreationError,
-    SiddhiAppRuntimeError,
-)
+from siddhi_tpu_torch.core.exceptions import SiddhiAppRuntimeError
 from test_torch_device_query import one_torch_thread  # noqa: F401
 from test_torch_done_slices import INNER, stand_ins
 from test_torch_persistence import cases, check_twin, run
@@ -49,10 +45,6 @@ LEFT_OUT = {
         ("TestShardedBigBatchRegression",
          "test_group_keys_aligned_past_2048_rows_deferred"):
             "devices= (item 16)",
-        ("TestZeroMatchGating", "test_counters_ride_statistics_feed"):
-            "@app:statistics (item 15c)",
-        ("TestFlushTriggers", "test_debugger_forces_depth_one"):
-            "rt.debug() (item 15c)",
     },
     "test_conformance_async": {
         (None, "test_stop_with_full_queue_does_not_deadlock"):
@@ -68,7 +60,7 @@ def test_the_corpora_were_read():
     counts = {}
     for p in CASES:
         counts[p.values[0]] = counts.get(p.values[0], 0) + 1
-    assert counts == {"test_async_emit": 19, "test_conformance_async": 4}
+    assert counts == {"test_async_emit": 21, "test_conformance_async": 4}
 
 
 @pytest.mark.parametrize("corpus,cname,mname,k", CASES)
@@ -310,11 +302,26 @@ def test_app_annotations_the_reference_accepts_run(ann):
                                       ("@app:statistics('true')", 15),
                                       ("@app:limits(rate='10')", 15)])
 def test_later_app_annotations_stay_refused(ann, item):
-    with pytest.raises(SiddhiAppCreationError, match=rf"item {item}\b"):
-        siddhi_tpu_torch.SiddhiManager(device="cpu") \
-            .create_siddhi_app_runtime(
-                f"{ann} @app:execution('tpu') define stream S (v int); "
-                "from S select v insert into O;")
+    """Its name kept from when the port refused these item-``item``
+    annotations: they now plan and run, with the reference's rows (the
+    rate of 10 a second admits every one of the three events)."""
+    app = (f"@app:playback {ann} @app:execution('tpu') "
+           "define stream S (v int); from S select v insert into O;")
+    rows = []
+    for make in (siddhi_tpu.SiddhiManager,
+                 lambda: siddhi_tpu_torch.SiddhiManager(device="cpu")):
+        m = make()
+        rt = m.create_siddhi_app_runtime(app)
+        got = []
+        rt.add_callback("O", lambda evs: got.extend(e.data[0] for e in evs))
+        rt.start()
+        h = rt.get_input_handler("S")
+        for i in range(3):
+            h.send([i], timestamp=1000 + 200 * i)
+        rt.shutdown()
+        m.shutdown()
+        rows.append(got)
+    assert rows[0] == rows[1] == [0, 1, 2]
 
 
 # -- fault 12: DeviceQueryRuntime.step_invocations ----------------------------

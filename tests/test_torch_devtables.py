@@ -8,17 +8,15 @@ probes, crash and journal replay, the async persist of the pinned
 revision, compaction then demotion, the annotation's checks, the
 record-table cache) and both deliver the same events.
 
-The corpus reads the reference's statistics feed (``rt.statistics()``,
-``ROADMAP.md`` item 15c) for the device table's counters; in the port's
-run they are read from the port's ``DeviceTable`` itself
-(``devtable_metrics()``, the gauges the reference's feed publishes),
-under the feed's names.  What the port holds otherwise:
+Every case of the file runs: the corpus reads each package's
+statistics feed (``rt.statistics()``: the device table's counters, its
+fallback reasons) and arms the transient ``ingest.put`` and
+``emit.drain`` faults.  What the port holds besides:
 
-- ``test_ineligible_table_stays_host_counted`` reads the reference's
-  statistics manager: its twin holds the same WARNING, rows and
-  lowering, and the port's ``devtable_fallbacks``;
-- ``test_transient_ingest_and_emit_faults_recovered`` arms fault sites
-  the port does not wire yet (item 15b): the port refuses that app;
+- the ineligible table once more on its own: the same WARNING, rows
+  and lowering, and the port's ``devtable_fallbacks`` equal to the
+  reference's counted reasons;
+- the transient-fault app with both feeds' fault counters;
 - the port's own: the scatter's last-writer-wins winner against the
   reference's one-hot argmax, the probe's slot against the reference's
   ``[B, C]`` argmax, a scatter leaving the pinned revision's tensors
@@ -39,29 +37,16 @@ import torch
 
 import siddhi_tpu
 import siddhi_tpu_torch
-from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
 from siddhi_tpu_torch.devtable import DeviceTable
 from siddhi_tpu_torch.devtable.storage import scatter_step
 from siddhi_tpu_torch.util.persistence import InMemoryPersistenceStore
 from test_torch_device_query import one_torch_thread  # noqa: F401
 from test_torch_done_slices import INNER, stand_ins
-from test_torch_persistence import (
-    TESTS,
-    Record,
-    _Runtime,
-    cases,
-    check_twin,
-)
+from test_torch_persistence import TESTS, cases, check_twin
 
 pytestmark = pytest.mark.faults
 
-LEFT_OUT = {
-    ("TestCapacityLifecycle", "test_ineligible_table_stays_host_counted"):
-        "test_ineligible_table_as_the_reference",
-    ("TestDevTableFaults", "test_transient_ingest_and_emit_faults_recovered"):
-        "test_transient_fault_sites_wait_for_item_15b",
-}
-CASES = cases("test_devtable", LEFT_OUT)
+CASES = cases("test_devtable", {})
 INNER_DT = INNER + ("siddhi_tpu.devtable", "siddhi_tpu.durability",
                     "siddhi_tpu.util.persistence")
 
@@ -77,44 +62,15 @@ def _corpus():
 DT = _corpus()
 
 
-class _PortRuntime(_Runtime):
-    """The port's runtime, its device tables' counters under the names
-    of the reference's statistics feed."""
-
-    def statistics(self):
-        out = {}
-        for tname, t in self._rt.tables.items():
-            if isinstance(t, DeviceTable):
-                for metric, v in t.devtable_metrics().items():
-                    out[f"io.siddhi.SiddhiApps.{self._rt.name}.Siddhi."
-                        f"Tables.{tname}.{metric}"] = v
-        return out
-
-
-class _Record(Record):
-    def __init__(self):
-        super().__init__()
-        self.runtime_class = _Runtime
-
-
-def _record_for(port):
-    rec = _Record()
-    if port:
-        rec.runtime_class = _PortRuntime
-    return rec
-
-
 def test_the_corpus_was_read():
-    assert len(CASES) == 13
-    assert len(CASES) + len(LEFT_OUT) == 15
+    assert len(CASES) == 15
 
 
 @pytest.mark.parametrize("corpus,cname,mname,k", CASES)
 def test_devtable_corpus_as_the_reference(corpus, cname, mname, k, tmp_path,
                                           request):
-    records = iter((_record_for(False), _record_for(True)))
     check_twin(corpus, cname, mname, k, tmp_path, request, inner=INNER_DT,
-               stand_ins=stand_ins, record=lambda: next(records))
+               stand_ins=stand_ins)
 
 
 # -- the twins -----------------------------------------------------------------
@@ -180,16 +136,45 @@ def test_ineligible_table_as_the_reference():
 
 
 def test_transient_fault_sites_wait_for_item_15b():
+    """Its name kept from when the port refused the sites: the corpus's
+    device-table app with transient ``ingest.put`` and ``emit.drain``
+    faults runs in both packages with the same rows, the same table and
+    the same retry counters on both statistics feeds."""
     faults = ("transfer.retry.scale='0.0001', "
               "ingest.put='transient:count=2', "
               "emit.drain='transient:count=2'")
     app = ("@app:name('dt') @app:playback @app:execution('tpu') "
            f"@app:devtables(capacity='64') @app:faults({faults}) " + DT.BODY)
-    rt = siddhi_tpu.SiddhiManager().create_siddhi_app_runtime(app)
-    rt.shutdown()
-    with pytest.raises(SiddhiAppCreationError, match=r"item 15\b"):
-        siddhi_tpu_torch.SiddhiManager(device="cpu") \
-            .create_siddhi_app_runtime(app)
+    ops = DT.ops_series(50, seed=29)
+    out = []
+    for make in (siddhi_tpu.SiddhiManager,
+                 lambda: siddhi_tpu_torch.SiddhiManager(device="cpu")):
+        m = make()
+        rt = m.create_siddhi_app_runtime(app)
+        got = []
+        rt.add_callback("Out", lambda evs: got.extend(tuple(e.data)
+                                                      for e in evs))
+        rt.start()
+        ts = 1000
+        for stream, row in ops:
+            rt.get_input_handler(stream).send(list(row), timestamp=ts)
+            ts += 10
+        rt.drain_device_emits()
+        b = rt.tables["T"].rows_batch()
+        rows = sorted(tuple(b.columns[nm][i] for nm in b.attribute_names)
+                      for i in range(len(b)))
+        st = {k.rsplit(".", 1)[1]: v for k, v in rt.statistics().items()
+              if ".Faults.injector." in k}
+        low = rt.lowering()
+        rt.shutdown()
+        m.shutdown()
+        out.append((got, rows, st, low))
+    (jgot, jrows, jst, jlow), (pgot, prows, pst, plow) = out
+    assert plow == jlow and plow["j"] == "devtable"
+    assert pgot == jgot and prows == jrows
+    for key in ("faults_injected", "transfer_retries", "drains_recovered",
+                "drains_failed"):
+        assert pst[key] == jst[key], key
 
 
 # -- the scatter and the probe against the reference's formulations -----------

@@ -8,8 +8,10 @@ Three kinds of case:
   multiplexed tumbling group and the hot-key router) and the sync one, the mid-spill crash, checksummed
   manifests (a flipped byte walks back), async == sync, chain hygiene,
   the bounded store, the writer units, the persist annotation and
-  daemon, and the journal segments of the file store.  The cases that
-  read the statistics manager (item 15) are held below without it;
+  daemon, the service's persist and restore endpoints, the
+  durability counters on the statistics feed, and the journal segments
+  of the file store; two cases that read the counters are held once
+  more below, each package's ``DurabilityStats`` read directly;
 - the in-place capture hazard the port has and the reference cannot:
   its steps write the state tensors in place, so an async persist whose
   capture kept them by reference would commit the state of a later
@@ -55,40 +57,28 @@ from siddhi_tpu_torch.util.faults import (
 )
 from test_torch_device_query import one_torch_thread  # noqa: F401
 from test_torch_device_query import bound, same_rows
-from test_torch_persistence import cases, check_twin
+from test_torch_persistence import INNER_IMPORTS, cases, check_twin
 
 pytestmark = pytest.mark.faults
 
 # what waits for a later slice, with its ROADMAP.md item, or is held
 # below by the test named beside it
-LEFT_OUT = {
-    ("TestDegradationCounters",
-     "test_unfreezable_host_state_falls_back_counted"):
-        "test_unfreezable_host_state_falls_back_counted",
-    ("TestDegradationCounters", "test_incremental_store_forces_counted_sync"):
-        "test_incremental_store_forces_counted_sync",
-    ("TestDegradationCounters",
-     "test_statistics_feed_reports_durability_metrics"):
-        "the statistics feed (item 15)",
-    ("TestPersistAnnotationAndService",
-     "test_service_persist_and_restore_endpoints"):
-        "the service's endpoints (item 15)",
-}
 LEFT_OUT_PARAMS = {"sharded": "the sharded engine (item 16)"}
-CASES = cases("test_durability", LEFT_OUT, LEFT_OUT_PARAMS)
+CASES = cases("test_durability", {}, LEFT_OUT_PARAMS)
 
 
 def test_the_corpus_was_read():
-    assert len(CASES) == 35
+    assert len(CASES) == 39
 
 
 @pytest.mark.parametrize("corpus,cname,mname,k", CASES)
 def test_durability_corpus_as_the_reference(corpus, cname, mname, k,
                                             tmp_path, request):
-    check_twin(corpus, cname, mname, k, tmp_path, request)
+    check_twin(corpus, cname, mname, k, tmp_path, request,
+               inner=INNER_IMPORTS + ("siddhi_tpu.service",))
 
 
-# -- the statistics-free twins of two corpus cases ---------------------------
+# -- two corpus cases once more, the counters read directly -------------------
 
 KV_BODY = ("define stream S (k long, v double); "
            "@info(name='q') from S#window.length(4) "
@@ -403,13 +393,19 @@ def test_revision_restores_in_the_other_package(kind, writer, tmp_path):
 
 
 def test_unwired_fault_site_is_refused():
-    """A fault site the port does not consult would arm silently: the
-    annotation raises at creation and ``configure`` raises, both naming
-    item 15."""
-    with pytest.raises(SiddhiAppCreationError, match="item 15"):
+    """``step.shard``, the one site the port does not consult yet (the
+    multi-device slice), would arm silently: the annotation raises at
+    creation and ``configure`` raises, both naming item 16; every other
+    site arms."""
+    with pytest.raises(SiddhiAppCreationError, match="item 16"):
         SiddhiManager(device="cpu").create_siddhi_app_runtime(
-            "@app:faults(step.dense='crash') " + KV_BODY)
+            "@app:faults(step.shard='crash') " + KV_BODY)
     rt = SiddhiManager(device="cpu").create_siddhi_app_runtime(
-        "@app:faults(ingest='transient') " + KV_BODY)
-    with pytest.raises(ValueError, match="item 15"):
-        rt.app_context.fault_injector.configure("emit.drain", "transient")
+        "@app:faults(step.dense='crash') " + KV_BODY)
+    fi = rt.app_context.fault_injector
+    with pytest.raises(ValueError, match="item 16"):
+        fi.configure("step.shard", "transient")
+    fi.configure("emit.drain", "transient")
+    assert fi.watches("emit.drain")
+
+

@@ -8,16 +8,15 @@ step a batch, no ``EventBatch`` on an intermediate stream, crash and
 journal replay, persist and restore mid-chain, the truncated prefix, the
 ``execution('tpu')`` requirement), and both deliver the same events.
 
-What the port holds otherwise, with its ``ROADMAP.md`` item:
+Every case of the file runs, the five fallback cases (which read
+``rt.statistics()``) and the transient-fault case (``ingest.put`` and
+``emit.drain`` armed) included.  Besides:
 
-- the five fallback cases read ``rt.statistics()`` (item 15c): their
-  twins here run the same apps (``@app:statistics`` struck from the
-  port's copy) and hold the same ``lowering()`` and the same WARNING,
-  and the port's ``fused_fallbacks`` reason equal to the reference's
-  ``fusedFallbackReason``;
-- the transient-fault case arms ``ingest.put`` and ``emit.drain``, fault
-  sites the port does not wire yet (item 15b): its twin holds the
-  port's refusal of the app and the same chain without the faults;
+- the fallback apps are held once more on their own, WARNINGs and the
+  ``fusedFallbackReason`` of both statistics feeds included, and the
+  port's ``fused_fallbacks`` reason equal to it;
+- the transient-fault chain is held on its own with the fault
+  counters of both feeds;
 - the JAX transfer guard stands for "no host read between stages":
   ``test_fused_chain_fetches_only_through_the_emit_queue`` counts the
   port's ``fetch_coalesced`` calls and ``EventBatch`` builds.
@@ -36,28 +35,12 @@ import siddhi_tpu
 import siddhi_tpu_torch
 from siddhi_tpu_torch.core import emit_queue
 from siddhi_tpu_torch.core.event import EventBatch as PortBatch
-from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
 from test_torch_device_query import one_torch_thread  # noqa: F401
 from test_torch_device_query import bound, same_rows
 from test_torch_done_slices import INNER, stand_ins
 from test_torch_persistence import TESTS, cases, check_twin
 
-LEFT_OUT = {
-    ("TestFusedFallback", "test_async_intermediate_falls_back"):
-        "test_fallback_as_the_reference[async]",
-    ("TestFusedFallback", "test_table_hop_falls_back"):
-        "test_fallback_as_the_reference[table]",
-    ("TestFusedFallback", "test_multi_consumer_intermediate_falls_back"):
-        "test_fallback_as_the_reference[multi_consumer]",
-    ("TestFusedFallback", "test_host_only_interior_stage_falls_back"):
-        "test_fallback_as_the_reference[string_lane]",
-    ("TestFusedFallback",
-     "test_unfusable_tail_truncates_chain_prefix_still_fuses"):
-        "test_fallback_as_the_reference[group_by_tail]",
-    ("TestFusedFaults", "test_transient_ingest_emit_faults_bit_identical"):
-        "test_transient_fault_sites_wait_for_item_15b",
-}
-CASES = cases("test_fused_graph", LEFT_OUT)
+CASES = cases("test_fused_graph", {})
 
 
 def _corpus():
@@ -72,8 +55,7 @@ FG = _corpus()
 
 
 def test_the_corpus_was_read():
-    assert len(CASES) == 10
-    assert len(CASES) + len(LEFT_OUT) == 16
+    assert len(CASES) == 16
 
 
 @pytest.mark.parametrize("corpus,cname,mname,k", CASES)
@@ -81,7 +63,8 @@ def test_fused_graph_corpus_as_the_reference(corpus, cname, mname, k,
                                              tmp_path, request):
     jax, port = check_twin(corpus, cname, mname, k, tmp_path, request,
                            inner=INNER, stand_ins=stand_ins)
-    assert any(port.got.values()) or not jax.got
+    # the port delivered events wherever the reference did
+    assert any(port.got.values()) == any(jax.got.values())
 
 
 # -- the fallback cases ---------------------------------------------------------
@@ -147,20 +130,22 @@ def _fallback_run(make, app, streams, sends, logger):
 @pytest.mark.parametrize("app,streams,sends,q", _fallback_apps())
 def test_fallback_as_the_reference(app, streams, sends, q):
     """The corpus's fallback app in both packages: the same lowering,
-    the same WARNINGs (the reason word for word), the same rows; the
-    port keeps the reason where ``fused_fallbacks`` reads it, equal to
-    the reference's counted ``fusedFallbackReason``."""
+    the same WARNINGs (the reason word for word), the same rows, the
+    same counted ``fusedFallbacks``/``fusedFallbackReason`` on both
+    statistics feeds; the port also keeps the reason where
+    ``fused_fallbacks`` reads it."""
     jlow, jwarn, jgot, _, jst = _fallback_run(
         siddhi_tpu.SiddhiManager, app, streams, sends, "siddhi_tpu")
-    port_app = re.sub(r"@app:statistics\('basic'\)", "", app)
-    plow, pwarn, pgot, reasons, _ = _fallback_run(
-        lambda: siddhi_tpu_torch.SiddhiManager(device="cpu"), port_app,
+    plow, pwarn, pgot, reasons, pst = _fallback_run(
+        lambda: siddhi_tpu_torch.SiddhiManager(device="cpu"), app,
         streams, sends, "siddhi_tpu_torch")
     assert plow == jlow
     assert pwarn == jwarn and pwarn
     name = re.search(r"@app:name\('(\w+)'\)", app).group(1)
     pre = f"io.siddhi.SiddhiApps.{name}.Siddhi.Queries.{q}."
     assert reasons[q] == jst[pre + "fusedFallbackReason"]
+    for key in ("fusedFallbacks", "fusedFallbackReason"):
+        assert pst[pre + key] == jst[pre + key]
     tol = bound(app)
     for s in streams:
         assert same_rows(jgot[s], pgot[s], tol), s
@@ -169,19 +154,44 @@ def test_fallback_as_the_reference(app, streams, sends, q):
 # -- the transient-fault case -----------------------------------------------------
 
 def test_transient_fault_sites_wait_for_item_15b():
-    """The corpus arms ``ingest.put`` and ``emit.drain``, which the port
-    does not wire yet: it refuses the app naming item 15, where the
-    reference runs it; the same chain without the faults is held by
-    ``test_fused_graph_corpus_as_the_reference`` (three-stage cases)."""
+    """Its name kept from when the port refused the sites: the corpus's
+    transient-fault chain (``ingest.put`` and ``emit.drain`` armed) runs
+    fused in both packages, with the rows of the chain without the
+    faults and the same retry counters on both statistics feeds."""
     faults = ("@app:faults(transfer.retry.scale='0.001', "
               "ingest.put='transient:count=3', "
               "emit.drain='transient:count=2') ")
-    app = FG.THREE_STAGE.format(tag="T1", fuse="@app:fuse", faults=faults)
-    rt = siddhi_tpu.SiddhiManager().create_siddhi_app_runtime(app)
-    rt.shutdown()
-    with pytest.raises(SiddhiAppCreationError, match=r"item 15\b"):
-        siddhi_tpu_torch.SiddhiManager(device="cpu") \
-            .create_siddhi_app_runtime(app)
+    sends = FG._sends(120, 5)
+    out = []
+    for make, chaos in ((siddhi_tpu.SiddhiManager, True),
+                        (lambda: siddhi_tpu_torch.SiddhiManager(
+                            device="cpu"), True),
+                        (lambda: siddhi_tpu_torch.SiddhiManager(
+                            device="cpu"), False)):
+        m = make()
+        rt = m.create_siddhi_app_runtime(FG.THREE_STAGE.format(
+            tag="T1", fuse="@app:fuse", faults=faults if chaos else ""))
+        got = []
+        rt.add_callback("Out", lambda evs: got.extend(
+            (e.timestamp, tuple(e.data)) for e in evs))
+        rt.start()
+        h = rt.get_input_handler("SIn")
+        for row, ts in sends:
+            h.send(list(row), timestamp=ts)
+        st = {k.rsplit(".", 1)[1]: v for k, v in rt.statistics().items()
+              if ".Faults.injector." in k}
+        low = rt.lowering()
+        rt.shutdown()
+        m.shutdown()
+        out.append((got, st, low))
+    (jgot, jst, jlow), (pgot, pst, plow), (clean, _, _) = out
+    assert jlow == plow == {"q1": "fused", "q2": "fused", "q3": "fused"}
+    assert same_rows(jgot, pgot, bound(FG.THREE_STAGE)) and pgot
+    assert pgot == clean
+    for key in ("faults_injected", "transfer_retries", "drains_recovered",
+                "drains_failed"):
+        assert pst[key] == jst[key], key
+    assert pst["faults_injected"] == 5
 
 
 # -- the port's own checks -------------------------------------------------------

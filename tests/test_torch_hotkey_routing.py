@@ -458,7 +458,7 @@ class TestOutsideTheSlice:
         ("@app:execution('tpu', emit.depth='fast') ",
          "positive integer or 'auto'"),
         ("@app:execution('tpu', partitions='0') ", "positive integer"),
-        (TPU + "@app:faults(journal='8', step.dense='crash') ",
+        (TPU + "@app:faults(journal='8', step.shard='crash') ",
          "later slice"),
     ])
     def test_annotations_validated_as_reference(self, header, match):

@@ -45,6 +45,14 @@ def test_port_imports_with_jax_blocked():
               "kernels.bank_scatter", "planner.host_expr", "core.query",
               "core.on_demand", "planner.kernels"}
     assert {f"siddhi_tpu_torch.{m}" for m in slice3} <= names
+    # and the operations layer's
+    ops = {"robustness", "robustness.admission", "robustness.breaker",
+           "robustness.ladder", "robustness.watchdog", "observability",
+           "observability.histograms", "observability.prometheus",
+           "observability.recorder", "observability.trace",
+           "util.statistics", "util.faults", "service", "debugger",
+           "planner.costmodel"}
+    assert {f"siddhi_tpu_torch.{m}" for m in ops} <= names
 
 
 def test_no_jax_import_statement_in_the_port():

@@ -7,14 +7,12 @@ own assertions hold there (multiplexed == N dedicated runtimes, one
 shared step a cycle, flush skips, a tenant's crash and journal replay,
 a tenant's persist and restore).  For every query of every app a case
 builds, the port's structural fingerprint is the reference's digest.
-What waits is in ``LEFT_OUT`` with its ``ROADMAP.md`` item:
-
-- the transient-fault and poison cases of ``TestMultiplexFaults``: the
-  ``ingest.put``, ``emit.drain`` and ``state.poison`` sites (item 15b);
-- the sharded empty-pane case: ``devices=`` (item 16);
-- the statistics reads of ``TestMultiplexFallback``: ``@app:statistics``
-  (item 15c); ``test_fallback_reason_as_the_reference`` reads the
-  reason from ``AppContext.multiplex_fallbacks`` instead.
+What waits is in ``LEFT_OUT`` with its ``ROADMAP.md`` item: the
+sharded empty-pane case, ``devices=`` (item 16).  The transient-fault
+and poison cases of ``TestMultiplexFaults`` and the statistics reads of
+``TestMultiplexFallback`` run; ``test_fallback_reason_as_the_reference``
+holds the reason once more, in ``AppContext.multiplex_fallbacks`` and
+on both statistics feeds.
 
 Then the pieces, on seeded inputs: the fingerprints of the benchmark's
 apps, ``DensePatternEngine.shift_row_ts`` against the reference's, and
@@ -43,21 +41,14 @@ from test_torch_persistence import Record, _ev_row, _Runtime, cases, check_twin
 pytestmark = pytest.mark.faults
 
 LEFT_OUT = {
-    ("TestMultiplexFaults", "test_transient_faults_on_one_tenant_bit_identical"):
-        "the ingest.put and emit.drain fault sites (item 15b)",
-    ("TestMultiplexFaults", "test_poison_quarantine_isolates_tenant"):
-        "the state.poison fault site (item 15b)",
     ("TestFlushSkipRegressions", "test_sharded_timebatch_gap_skips"):
         "devices= (item 16)",
-    ("TestMultiplexFallback",
-     "test_sliding_window_falls_back_with_counted_reason"):
-        "@app:statistics (item 15c); test_fallback_reason_as_the_reference",
 }
 CASES = cases("test_multiplex", LEFT_OUT)
 
 
 def test_the_corpus_was_read():
-    assert len(CASES) == 9
+    assert len(CASES) == 12
 
 
 def digests(app: str):
@@ -141,11 +132,11 @@ def test_fingerprint_digest_is_the_reference(app):
 
 
 def test_fallback_reason_as_the_reference(caplog):
-    """``TestMultiplexFallback``'s statistics case without the statistics
-    feed: a sliding window keeps its dedicated engine with the
-    reference's WARNING, the reason the reference's statistics report
-    sits in ``AppContext.multiplex_fallbacks``, and the tumbling query
-    takes a seat, in both packages."""
+    """``TestMultiplexFallback``'s statistics case: a sliding window
+    keeps its dedicated engine with the reference's WARNING, the reason
+    the reference's statistics report sits in
+    ``AppContext.multiplex_fallbacks`` and on the port's feed, and the
+    tumbling query takes a seat, in both packages."""
     body = ("define stream S (k long, v double); "
             "@info(name='q1') from S#window.length(4) "
             "select k, sum(v) as s group by k insert into Out; "
@@ -162,9 +153,13 @@ def test_fallback_reason_as_the_reference(caplog):
     jm.shutdown()
     m = SiddhiManager(device="cpu")
     with caplog.at_level(logging.WARNING, logger="siddhi_tpu_torch"):
-        rt = m.create_siddhi_app_runtime(head + body)
+        rt = m.create_siddhi_app_runtime(head + "@app:statistics('basic') "
+                                         + body)
     assert rt.lowering() == jlow == {"q1": "device", "q2": "multiplex"}
     assert rt.app_context.multiplex_fallbacks == {"q1": reason}
+    assert rt.statistics()[
+        "io.siddhi.SiddhiApps.fb.Siddhi.Queries.q1.multiplexFallbackReason"
+    ] == reason
     assert "tumbling" in reason
     assert any(f"query 'q1': multiplex ineligible ({reason}); dedicated "
                "engine used" in r.getMessage() for r in caplog.records)

@@ -111,13 +111,13 @@ def recording_manager(make, rec):
         def __init__(self, *a, **kw):
             self._m = make()
 
-        def create_siddhi_app_runtime(self, app):
+        def create_siddhi_app_runtime(self, app, **kw):
             # an app built with the fluent builder is each package's own
             # object: its class name is what compares
             rec.apps.append(app if isinstance(app, str)
                             else type(app).__name__)
             return getattr(rec, "runtime_class", _Runtime)(
-                self._m.create_siddhi_app_runtime(app), rec)
+                self._m.create_siddhi_app_runtime(app, **kw), rec)
 
         def __getattr__(self, name):
             return getattr(self._m, name)
@@ -206,15 +206,18 @@ def cases(corpus, left_out, left_out_params=()):
 
 
 def run(corpus, cname, mname, k, port, tmp_path, request,
-        inner=INNER_IMPORTS, stand_ins=None, record=Record):
+        inner=INNER_IMPORTS, stand_ins=None, record=Record, rebind=None):
     """One run of a corpus test; returns its record.  ``inner``,
     ``stand_ins``: what stands for the JAX modules the test imports
     inside its body during the port's run (``port_modules``;
     ``stand_ins(rec, port)`` gives the objects, in both runs);
     ``record``: the record class (its manager factory may wrap the
-    runtimes further)."""
+    runtimes further); ``rebind(mod, rec, port)``: names of the loaded
+    module to rebind further, in both runs."""
     rec = record()
     mod = load(corpus, port, rec)
+    if rebind is not None:
+        rebind(mod, rec, port)
     owner = getattr(mod, cname)() if cname else mod
     fn = getattr(owner, mname)
     kwargs = dict(_param_sets(fn)[k])
@@ -259,9 +262,10 @@ def _rows(rows, wall):
 def check_twin(corpus, cname, mname, k, tmp_path, request, **kw):
     """The corpus test passes in both packages, and both delivered the
     same events (``kw``: ``run``'s ``inner``, ``stand_ins``,
-    ``record``)."""
+    ``record``, ``rebind``)."""
     jax = run(corpus, cname, mname, k, False, tmp_path, request,
-              stand_ins=kw.get("stand_ins"), record=kw.get("record", Record))
+              stand_ins=kw.get("stand_ins"), record=kw.get("record", Record),
+              rebind=kw.get("rebind"))
     port = run(corpus, cname, mname, k, True, tmp_path, request, **kw)
     assert port.apps == jax.apps
     tol = jax.tolerance()

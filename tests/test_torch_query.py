@@ -543,23 +543,39 @@ DEVTABLES = "@app:devtables @app:execution('tpu') "
 
 @pytest.mark.parametrize("app,item", [
     ("@app:limits(breaker='3') " + DEFINE
-     + "from S select sym insert into Out;", 15),
+     + "from S select sym insert into Out;", None),
     ("@app:plan('auto') " + DEFINE + "from S select sym insert into Out;",
-     15),
+     "15d"),
     ("@app:statistics('true') " + DEFINE
-     + "from S select sym insert into Out;", 15),
+     + "from S select sym insert into Out;", None),
     ("@app:trace(sample='1') " + DEFINE + "from S select sym insert into Out;",
-     15),
-    ("@app:faults(seed='1', emit.drain='transient') " + DEFINE
-     + "from S select sym insert into Out;", 15),
+     None),
+    ("@app:faults(seed='1', step.shard='transient') " + DEFINE
+     + "from S select sym insert into Out;", 16),
     ("@app:execution('tpu', devices='2') " + DEFINE
      + "from S select sym insert into Out;", 16),
 ], ids=["limits", "plan", "statistics", "trace", "faults", "devices"])
 def test_refusals_name_their_roadmap_item(app, item):
     """No hidden fallback: what the port does not run raises at creation,
-    naming the ``ROADMAP.md`` item that ports it: the app annotations of
-    later slices, and a fault site the port does not wire (it would arm
-    silently)."""
+    naming the ``ROADMAP.md`` item that ports it: ``@app:plan`` (the
+    cost model's own choice), a mesh, and the one fault site the port
+    does not wire (it would arm silently).  The annotations the
+    operations layer lifted (``item`` None) plan and run as the
+    reference's, with the same rows."""
+    if item is None:
+        rows = []
+        for make in (JaxManager, lambda: SiddhiManager(device="cpu")):
+            rt = make().create_siddhi_app_runtime(app)
+            got = []
+            rt.add_callback("Out", lambda evs: got.extend(
+                tuple(e.data) for e in evs))
+            rt.start()
+            rt.get_input_handler("S").send(["IBM", 2.5, 1.5, 7, 3, True],
+                                           timestamp=1000)
+            rt.shutdown()
+            rows.append(got)
+        assert rows[0] == rows[1] == [("IBM",)]
+        return
     with pytest.raises(SiddhiAppCreationError) as info:
         SiddhiManager(device="cpu").create_siddhi_app_runtime(app)
     assert f"ROADMAP.md §1 item {item}" in str(info.value)
