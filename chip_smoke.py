@@ -443,7 +443,41 @@ skew-routed pattern path and the incremental-aggregation path through
    ``/metrics`` from the service on localhost.  Every main-path run
    prints its dropped instances and fails on one.  An
    ``operations_seconds`` line follows.
-31. kernels: one line per ported kernel (launches on the main paths,
+31. sharded: the mesh (``@app:execution(devices=)``), one line a case,
+   each card run's launches counted from app creation on.  (a) BASELINE
+   config 5 (``samples/performance/baseline_configs.py:106-119``: the
+   32-state escalation chain, ``within 10 min``) inside ``partition with
+   (dev of D)`` at 10,000,000 partitions, ``devices='1'``: 2 warm-up and
+   10 timed batches of 131,072 events (devices uniform from a seed, v ~
+   U(0, 40) float32) from a mid-chain state seeded on the card by key
+   number (a ``torch.Generator``, every key of the run interned first;
+   one lane of each node's four, so no instance is dropped),
+   16,680,001,668 B of state; its matches and whole state bit for bit
+   against the same app without ``devices=``, run after it (its state
+   kept on the card, the rest of the app freed).  (b) the same at
+   ``devices='4'``, four shards on one card (16,680,006,672 B), held
+   against (a) by key number.  (c) (b) at 65,536 partitions, 2 batches
+   of 8,192, on the card and on the CPU, bit for bit.  (c2) the
+   capture-free 16-state chain (``kernel_eligible_app``) at 1,000,000
+   partitions, ``devices='4'``, 2 warm-up and 6 timed batches of
+   131,072: one ``dense_batch`` launch a shard with events, matches and
+   state bit for bit against the unsharded card run, which launches it
+   too.  (d) ``running``
+   (``device_queries``' ``partition_scaling_50000``), ``keyed_sliding``
+   (``keyed_time_avg_50000``), ``tumbling`` (a ``lengthBatch(8192)``
+   group-by) and ``sliding`` (``sliding_window``) at ``devices='4'``
+   over 16 batches of 8,192, against one device: every column bit for
+   bit, float32 sums included, and ``accumulate_`` launching in each
+   kind whose one-device run launches it (``running`` and
+   ``tumbling``; ``sliding`` and ``keyed_sliding`` launch no
+   hand-written kernel on one device or sharded).  Every dense run
+   fails on a dropped instance.  (e) one transient
+   ``step.shard`` fault on (c)'s app, its batch routed to ``!D``, the
+   other rows and the state equal to the fault-free run; then one
+   ``@app:plan(auto='true')`` switch by ``PlanMonitor`` on the observed
+   batch widths, rows equal to the run that keeps its plan.  Seconds a
+   case and a ``sharded_seconds`` line follow.
+32. kernels: one line per ported kernel (launches on the main paths,
    largest difference from its plain version, ``ms``, ``host_us``,
    ``device_us``, plain and library times, bound); the bank kernel's at
    the entry the aggregation path uses, ``accumulate_``, with the delta
@@ -7074,6 +7108,592 @@ def operations_phase(torch, SiddhiManager, EventBatch, StreamCallback,
     return dict(OPS_TALLY)
 
 
+# -- phase 31: multi-device (the mesh) --------------------------------------
+
+# BASELINE config 5 (samples/performance/baseline_configs.py:106-119, the
+# 10,000,000-device variant it names): the 32-state escalation chain in
+# partition with (dev of D), v ~ U(0, 40) float32, devices uniform
+SH_PARTITIONS = 10_000_000
+SH_BATCH = 1 << 17
+SH_WARMUP = 2
+SH_STEPS = 10
+SH_SEED = 101
+# rows of key numbers seeded a chunk (a multiple of every shard count)
+SH_CHUNK = 1 << 20
+# lanes of each node the mid-chain seed may fill (of the app's 4)
+SH_SEED_LANES = 1
+# (c2) the capture-free chain at devices='4' against the unsharded run
+SH_BATCH_PARTITIONS = 1_000_000
+SH_BATCH_WARMUP = 2
+SH_BATCH_STEPS = 6
+# (c) the CPU twin: (b) at 65,536 partitions, two batches of 8,192 (the
+# CPU's general step over 32 nodes takes seconds a collision round)
+SH_CPU_PARTITIONS = 65_536
+SH_CPU_BATCH = 8_192
+SH_CPU_BATCHES = 2
+# (d) sharded device queries: the first batches of each cell's traffic;
+# kind -> (device_queries label or app, symbols, float32 sum columns)
+SH_DQ_DEVICES = 4
+SH_DQ_BATCHES = 16
+SH_DQ_APPS = {
+    # running: device_queries' partition_scaling_50000
+    "running": ("partition_scaling_50000", 50_000, ()),
+    # keyed_sliding: device_queries' keyed_time_avg_50000
+    "keyed_sliding": ("keyed_time_avg_50000", 50_000, ("ap",)),
+    # tumbling: a lengthBatch group-by over the cse shape's 50 symbols
+    "tumbling": (DQ_TPU + CSE_DEFINE + "@info(name='q0') from "
+                 "cseEventStream#window.lengthBatch(8192) select symbol, "
+                 "sum(price) as total, count() as c group by symbol insert "
+                 "into outputStream;", 50, ("total",)),
+    # sliding: device_queries' sliding_window (the global ring)
+    "sliding": ("sliding_window", 50, ("total", "avgVolume")),
+}
+# the device the phase runs its card runs on (a CPU rehearsal at small
+# sizes sets "cpu" from a script that imports this file)
+SH_CARD = "cuda"
+# (e) the faulted batch of the step.shard case
+SH_FAULTED = 1
+SH_FAULT_BATCHES = 3
+SH_MON_SENDS = 120
+SH_MON_SWITCH = 60
+
+
+def batch_chain_app(partitions, devices=None):
+    """``kernel_eligible_app``'s capture-free chain over D in ``partition
+    with (dev of D)`` (``devices='N'``: sharded over N)."""
+    dev = f", devices='{devices}'" if devices else ""
+    body = (kernel_eligible_app().split("; ", 1)[1]
+            .replace("=Txn[", "=D[").replace("name='bench'", "name='q'"))
+    return (f"@app:playback @app:execution('tpu', partitions='{partitions}'"
+            f"{dev}) define stream D (dev long, v double); partition with "
+            f"(dev of D) begin {body} end;")
+
+
+def config5_app(partitions, devices=None, anns="", stream_anns=""):
+    """BASELINE config 5's chain in ``partition with (dev of D)`` at
+    ``partitions`` (``devices='N'``: sharded over N)."""
+    states = ["every e1=D[v > 0.0]"] + [
+        f"e{i}=D[v > {float(i - 1)} and v > e1.v]" for i in range(2, 33)]
+    dev = f", devices='{devices}'" if devices else ""
+    return (f"@app:playback @app:execution('tpu', partitions='{partitions}'"
+            f"{dev}) {anns} {stream_anns} define stream D (dev long, "
+            "v double); partition with (dev of D) begin @info(name='q') "
+            "from " + " -> ".join(states) + " within 10 min select e1.v as "
+            "v1, e32.v as v32 insert into Alerts; end;")
+
+
+def sh_batches(EventBatch, n, partitions, batch, seed=SH_SEED):
+    """``n`` batches of ``batch`` events: devices uniform on
+    ``[0, partitions)``, v ~ U(0, 40) float32 (in the DOUBLE column), one
+    timestamp a batch 10 ms apart."""
+    rng = np.random.default_rng(seed)
+    return [EventBatch(
+        "D", ["dev", "v"],
+        {"dev": rng.integers(0, partitions, batch),
+         "v": rng.uniform(0.0, 40.0, batch).astype(np.float32)
+         .astype(np.float64)},
+        np.full(batch, 1_000 + 10 * i, dtype=np.int64)) for i in range(n)]
+
+
+def sh_dense(rt):
+    return rt.partitions["partition_0"].dense_query_runtimes["q"] \
+        .pattern_processor
+
+
+def sh_seed(torch, dense, batches, gen_device, seed=SH_SEED):
+    """Pre-intern every key of ``batches`` (so key number k is the same
+    key in every run) and seed a mid-chain state by key number on the
+    card: per (row, node) the first SH_SEED_LANES lanes active with
+    p = 0.3 (the free lanes take what the batches advance, so no
+    instance is dropped), its anchor within the last 10 min, its
+    register e1.v ~ U(0, 20); chunk by chunk of
+    ``SH_CHUNK`` key numbers from a ``torch.Generator`` on
+    ``gen_device``, so every layout holds the same values a key: key
+    number k on row k, or on a sharded runtime's shard k % n at local
+    row k // n (the runtime's round-robin deal)."""
+    dense.intern_keys(np.concatenate([b.columns["dev"] for b in batches]))
+    eng = dense.engine
+    P, S, I = eng.n_partitions, eng.S, eng.I
+    R = max(eng.alloc.n, 1)
+    n = dense.n_shards if dense._sharded is not None else 1
+    for c, k0 in enumerate(range(0, P, SH_CHUNK)):
+        m = min(SH_CHUNK, P - k0)
+        g = torch.Generator(device=gen_device).manual_seed(seed * 1009 + c)
+        active = torch.rand((m, S, I), generator=g, device=gen_device) < 0.3
+        active[:, :, SH_SEED_LANES:] = False
+        first = torch.randint(1, WITHIN_MS + 1, (m, S, I), generator=g,
+                              device=gen_device, dtype=torch.int32)
+        vals = {"active": active,
+                "first_ts": torch.where(active, first, 0).to(torch.int32),
+                "regs": torch.rand((m, S, I, R), generator=g,
+                                   device=gen_device) * 20.0}
+        if dense._sharded is None:
+            for key, v in vals.items():
+                dense.state[key][k0:k0 + m] = v.to(dense.state[key].device)
+            continue
+        for s in range(n):
+            sh = dense.state.shards[s]
+            for key, v in vals.items():
+                sh[key][k0 // n:(k0 + m) // n] = v[s::n].to(sh[key].device)
+    eng.base_ts = int(batches[0].timestamps[0]) - WITHIN_MS
+
+
+def sh_same_state(torch, kept, dense) -> bool:
+    """``dense``'s whole state against ``kept`` (a devices='1' run's one
+    shard, the reference's [P + 1] rows), bit for bit, by key number:
+    shard s of n holds key numbers s, s + n, ... then its scratch row."""
+    P = dense.engine.n_partitions
+    if dense._sharded is None:
+        shards, n = [dense.state], 1
+    else:
+        shards, n = dense.state.shards, dense.n_shards
+    for key, ref in kept.items():
+        for s, sh in enumerate(shards):
+            a, b = sh[key], ref
+            if a.is_floating_point():
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if not (torch.equal(a[:-1], b[:P][s::n])
+                    and torch.equal(a[-1:], b[P:])):
+                return False
+    return True
+
+
+def sh_run(torch, SiddhiManager, StreamCallback, app, batches, device,
+           kernels, seed_batches=None, outs=("Alerts",), keep_live=False,
+           gen_device=None):
+    """``app`` over ``batches`` with a seeded mid-chain state (drawn on
+    ``gen_device``, the run's device by default): the kept output
+    batches, the synchronised seconds a batch, the launches (set to 0
+    before the app is created) and the runtime."""
+    zero_launches(kernels)
+    mgr = SiddhiManager(device=device)
+    rt = new_app(mgr, app)
+    kept = {o: [] for o in outs}
+    for o in outs:
+        rt.add_callback(o, ckpt_keep(StreamCallback, kept[o]))
+    rt.start()
+    dense = sh_dense(rt)
+    t = time.perf_counter()
+    sh_seed(torch, dense, seed_batches or batches, gen_device or device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    seed_s = time.perf_counter() - t
+    h = rt.get_input_handler("D")
+    per = []
+    for b in batches:
+        sync()
+        t = time.perf_counter()
+        h.send_batch(b)
+        rt.drain()
+        sync()
+        per.append(time.perf_counter() - t)
+    run = {"outs": kept, "batch_s": per, "seed_s": seed_s,
+           "launches": read_launches(kernels), "rt": rt, "mgr": mgr,
+           "dense": dense, "stats": dense.stats(),
+           "lowering": rt.lowering(step_kinds=True)}
+    if run["stats"]["dropped_instances"]:
+        raise AssertionError(
+            f"sharded: {run['stats']['dropped_instances']} instances "
+            "dropped at the lane capacity; the match set is not the "
+            "pattern's")
+    if not keep_live:
+        sh_close(run)
+    return run
+
+
+def sh_close(run):
+    run.pop("dense", None)
+    run.pop("rt").shutdown()
+    run.pop("mgr").shutdown()
+    gc.collect()
+
+
+def sh_rows(EventBatch, kept) -> int:
+    """Two runs' kept Alerts bit for bit; returns the rows."""
+    a, b = kept
+    if len(a) != len(b):
+        raise AssertionError(f"sharded: {len(a)} output batches against "
+                             f"{len(b)}")
+    return sum(dq_compare(x, y, (), True)["rows"] for x, y in zip(a, b))
+
+
+def sh_line(case, run, batch, warmup, card, **extra):
+    steady = run["batch_s"][warmup:]
+    return {"phase": "sharded", "case": case, "batch": batch,
+            "warmup_batches": warmup, "timed_batches": len(steady),
+            "events_per_s": batch * len(steady) / sum(steady),
+            "ms_a_batch": 1e3 * sum(steady) / len(steady),
+            "batch_ms": [1e3 * x for x in run["batch_s"]],
+            "seed_s": run["seed_s"], "lowering": run["lowering"],
+            "shards_per_card": run["stats"].get("shards_per_card"),
+            "partitions_in_use": run["stats"]["partitions_in_use"],
+            # instances dropped at the lane capacity (sh_run fails on one)
+            "dropped_instances": run["stats"]["dropped_instances"],
+            "launches": run["launches"], **extra, "card": card}
+
+
+def sh_config5(torch, SiddhiManager, EventBatch, StreamCallback, kernels,
+               card, tally) -> list:
+    """(a) and (b): config 5 at SH_PARTITIONS on the card at devices='1'
+    and '4', each held, matches and whole state, against the same app
+    without devices=."""
+    batches = sh_batches(EventBatch, SH_WARMUP + SH_STEPS, SH_PARTITIONS,
+                         SH_BATCH)
+    lines = []
+
+    def bytes_of(dense):
+        shards = (dense.state.shards if dense._sharded is not None
+                  else [dense.state])
+        return sum(t.numel() * t.element_size() for sh in shards
+                   for t in sh.values())
+
+    card_mem = SH_CARD == "cuda"
+    if card_mem:
+        torch.cuda.reset_peak_memory_stats()
+    one = sh_run(torch, SiddhiManager, StreamCallback,
+                 config5_app(SH_PARTITIONS, 1), batches, SH_CARD, kernels,
+                 keep_live=True)
+    state_1 = bytes_of(one["dense"])
+    kept = dict(one["dense"].state.shards[0])
+    one_outs = one["outs"]["Alerts"]
+    sh_close(one)
+    ref = sh_run(torch, SiddhiManager, StreamCallback,
+                 config5_app(SH_PARTITIONS), batches, SH_CARD, kernels,
+                 keep_live=True)
+    held_a = sh_rows(EventBatch, (one_outs, ref["outs"]["Alerts"]))
+    same_a = sh_same_state(torch, kept, ref["dense"])
+    state_ref = bytes_of(ref["dense"])
+    ref_stats = ref["stats"]
+    sh_close(ref)
+    peak_a = torch.cuda.max_memory_allocated() if card_mem else None
+    for k, v in one["launches"].items():
+        tally[k] += v
+    if not same_a or not held_a:
+        raise AssertionError(f"sharded (a): state {same_a}, rows {held_a}")
+    lines.append(sh_line(
+        "a_config5_devices_1", one, SH_BATCH, SH_WARMUP, card,
+        partitions=SH_PARTITIONS, devices=1, state_bytes=state_1,
+        unsharded_state_bytes=state_ref, rows=held_a,
+        rows_equal_unsharded=True, state_equal_unsharded=True,
+        unsharded_events_per_s=SH_BATCH * SH_STEPS
+        / sum(ref["batch_s"][SH_WARMUP:]),
+        unsharded_ms_a_batch=1e3 * sum(ref["batch_s"][SH_WARMUP:])
+        / SH_STEPS, unsharded_lowering=ref["lowering"],
+        unsharded_launches=ref["launches"],
+        unsharded_partitions_in_use=ref_stats["partitions_in_use"],
+        peak_card_bytes=peak_a))
+    del ref
+    gc.collect()
+    if card_mem:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    four = sh_run(torch, SiddhiManager, StreamCallback,
+                  config5_app(SH_PARTITIONS, 4), batches, SH_CARD, kernels,
+                  keep_live=True)
+    held_b = sh_rows(EventBatch, (four["outs"]["Alerts"], one_outs))
+    same_b = sh_same_state(torch, kept, four["dense"])
+    state_4 = bytes_of(four["dense"])
+    sh_close(four)
+    for k, v in four["launches"].items():
+        tally[k] += v
+    if not same_b or held_b != held_a:
+        raise AssertionError(f"sharded (b): state {same_b}, rows {held_b}")
+    lines.append(sh_line(
+        "b_config5_devices_4", four, SH_BATCH, SH_WARMUP, card,
+        partitions=SH_PARTITIONS, devices=4, state_bytes=state_4,
+        rows=held_b, rows_equal_devices_1=True, state_equal_devices_1=True,
+        peak_card_bytes=(torch.cuda.max_memory_allocated() if card_mem
+                         else None)))
+    del kept, one_outs
+    gc.collect()
+    if card_mem:
+        torch.cuda.empty_cache()
+    return lines
+
+
+def sh_cpu_twin(torch, SiddhiManager, EventBatch, StreamCallback, kernels,
+                card, tally) -> dict:
+    """(c): (b) at SH_CPU_PARTITIONS over SH_CPU_BATCHES, on the card and
+    on the CPU: matches and the state's global rows bit for bit."""
+    batches = sh_batches(EventBatch, SH_CPU_BATCHES, SH_CPU_PARTITIONS,
+                         SH_CPU_BATCH, seed=SH_SEED + 1)
+    app = config5_app(SH_CPU_PARTITIONS, 4)
+    runs = {}
+    for device in (SH_CARD, "cpu"):
+        # one seeded state for both: drawn on the CPU
+        run = sh_run(torch, SiddhiManager, StreamCallback, app, batches,
+                     device, kernels, keep_live=True, gen_device="cpu")
+        run["final"] = run["dense"].snapshot()["dense_state"]
+        sh_close(run)
+        runs[device] = run
+    card_run = runs[SH_CARD]
+    for k, v in card_run["launches"].items():
+        tally[k] += v
+    held = sh_rows(EventBatch, (card_run["outs"]["Alerts"],
+                                runs["cpu"]["outs"]["Alerts"]))
+    bad = [k for k, v in card_run["final"].items()
+           if not np.array_equal(v.view(np.uint8),
+                                 runs["cpu"]["final"][k].view(np.uint8))]
+    if bad or not held:
+        raise AssertionError(f"sharded (c): state {bad} differ, rows {held}")
+    return sh_line("c_cpu_twin_devices_4", card_run, SH_CPU_BATCH, 0,
+                   card, partitions=SH_CPU_PARTITIONS, devices=4,
+                   rows=held, rows_equal_cpu=True, state_equal_cpu=True,
+                   cpu_ms_a_batch=1e3 * sum(runs["cpu"]["batch_s"])
+                   / SH_CPU_BATCHES)
+
+
+def sh_batch_chain(torch, SiddhiManager, EventBatch, StreamCallback,
+                   kernels, card, tally) -> dict:
+    """(c2): the capture-free chain at SH_BATCH_PARTITIONS on the card at
+    devices='4' against the same app without devices=: both launch
+    ``dense_batch`` (the sharded run once a shard with events), matches
+    and whole state bit for bit by key number."""
+    batches = sh_batches(EventBatch, SH_BATCH_WARMUP + SH_BATCH_STEPS,
+                         SH_BATCH_PARTITIONS, SH_BATCH, seed=SH_SEED + 4)
+    ref = sh_run(torch, SiddhiManager, StreamCallback,
+                 batch_chain_app(SH_BATCH_PARTITIONS), batches, SH_CARD,
+                 kernels, keep_live=True)
+    kept = dict(ref["dense"].state)
+    ref_outs = ref["outs"]["Alerts"]
+    sh_close(ref)
+    four = sh_run(torch, SiddhiManager, StreamCallback,
+                  batch_chain_app(SH_BATCH_PARTITIONS, 4), batches, SH_CARD,
+                  kernels, keep_live=True)
+    held = sh_rows(EventBatch, (four["outs"]["Alerts"], ref_outs))
+    same = sh_same_state(torch, kept, four["dense"])
+    sh_close(four)
+    del kept, ref_outs
+    gc.collect()
+    for run in (ref, four):
+        for k, v in run["launches"].items():
+            tally[k] += v
+    batch_kind = {"q": "dense/batch"}
+    launched = [run["launches"]["dense_batch"] for run in (ref, four)]
+    if (not same or not held or ref["lowering"] != batch_kind
+            or four["lowering"] != batch_kind
+            or (SH_CARD == "cuda" and min(launched) < 1)):
+        raise AssertionError(f"sharded (c2): state {same}, rows {held}, "
+                             f"lowering {four['lowering']}, dense_batch "
+                             f"launches {launched}")
+    return sh_line(
+        "c2_capture_free_devices_4", four, SH_BATCH, SH_BATCH_WARMUP, card,
+        partitions=SH_BATCH_PARTITIONS, devices=4, rows=held,
+        rows_equal_unsharded=True, state_equal_unsharded=True,
+        unsharded_events_per_s=SH_BATCH * SH_BATCH_STEPS
+        / sum(ref["batch_s"][SH_BATCH_WARMUP:]),
+        unsharded_ms_a_batch=1e3 * sum(ref["batch_s"][SH_BATCH_WARMUP:])
+        / SH_BATCH_STEPS, unsharded_lowering=ref["lowering"],
+        unsharded_launches=ref["launches"])
+
+
+def sh_device_queries(torch, SiddhiManager, EventBatch, StreamCallback,
+                      kernels, card, tally) -> list:
+    """(d): each sharded device-query kind at devices='4' on the card
+    against the same app on one device, bit for bit."""
+    from siddhi_tpu_torch.parallel import ShardedDeviceQueryEngine
+
+    lines = []
+    for kind, (label, n_symbols, sum_cols) in SH_DQ_APPS.items():
+        t_case = time.perf_counter()
+        app = DEVICE_QUERY_APPS[label][0] if label in DEVICE_QUERY_APPS \
+            else label
+        batches = dq_batches(EventBatch, n_symbols, 43)[:SH_DQ_BATCHES]
+        sharded_app = app.replace(
+            "@app:execution('tpu', ",
+            f"@app:execution('tpu', devices='{SH_DQ_DEVICES}', ")
+        runs = {}
+        for tag, a in (("single", app), ("sharded", sharded_app)):
+            run = run_app(torch, SiddhiManager, StreamCallback, a, batches,
+                          SH_CARD, kernels, ("outputStream",), live=True)
+            rts = [qr.device_runtime for qr in
+                   run["rt"]._all_query_runtimes().values()
+                   if getattr(qr, "device_runtime", None) is not None]
+            run["engines"] = [type(r.engine).__name__ for r in rts]
+            run["kinds"] = [r.engine.kind for r in rts]
+            run["rt"].shutdown()
+            run.pop("mgr").shutdown()
+            runs[tag] = run
+        one, sh = runs["single"], runs["sharded"]
+        # every column bit for bit, the float32 sums too
+        x = sh["outs"]["outputStream"]
+        y = one["outs"]["outputStream"]
+        if len(x) != len(y):
+            raise AssertionError(f"sharded (d) {kind}: {len(x)} output "
+                                 f"batches against {len(y)}")
+        cmp = [dq_compare(p, q, sum_cols, True) for p, q in zip(x, y)]
+        held = sum(c["rows"] for c in cmp)
+        # accumulate_ in every kind whose one-device run launches it
+        banks = (one["launches"]["bank_scatter"],
+                 sh["launches"]["bank_scatter"])
+        ok = (sh["engines"] == [ShardedDeviceQueryEngine.__name__]
+              and sh["kinds"] == [kind] and sh["lowering"] == one["lowering"]
+              and (SH_CARD != "cuda" or bool(banks[0]) == bool(banks[1])))
+        if not ok or not held:
+            raise AssertionError(f"sharded (d) {kind}: engines "
+                                 f"{sh['engines']} {sh['kinds']}, lowering "
+                                 f"{sh['lowering']}, rows {held}, "
+                                 f"accumulate_ launches {banks}")
+        for k, v in sh["launches"].items():
+            tally[k] += v
+        events = sum(len(b) for b in batches)
+        lines.append({
+            "phase": "sharded", "case": f"d_device_query_{kind}",
+            "cell": label if label in DEVICE_QUERY_APPS else "lengthBatch "
+            "group-by", "symbols": n_symbols, "devices": SH_DQ_DEVICES,
+            "batches": len(batches), "batch": DQ_BATCH, "rows": held,
+            "rows_equal_single_device": True, "bit_exact": True,
+            "float32_sum_columns": list(sum_cols),
+            "max_abs_err": max(c["max_abs_err"] for c in cmp),
+            "max_rel_err": max(c["max_rel_err"] for c in cmp),
+            "case_s": time.perf_counter() - t_case,
+            "events_per_s": events / sh["secs"],
+            "single_device_events_per_s": events / one["secs"],
+            "ms_a_batch": 1e3 * sh["secs"] / len(batches),
+            "launches": sh["launches"],
+            "single_device_launches": one["launches"],
+            "lowering": sh["lowering"], "card": card})
+    return lines
+
+
+def sh_fault_and_plan(torch, SiddhiManager, EventBatch, StreamCallback,
+                      kernels, card, tally) -> list:
+    """(e): one transient step.shard fault on (c)'s app on the card, the
+    faulted batch routed to ``!D`` and the other rows equal to the clean
+    run's; then one @app:plan(auto) switch by the plan monitor on
+    observed batch widths, bit for bit against the run without it."""
+    from siddhi_tpu_torch.planner.monitor import PlanMonitor
+
+    batches = sh_batches(EventBatch, SH_FAULT_BATCHES, SH_CPU_PARTITIONS,
+                         SH_CPU_BATCH, seed=SH_SEED + 2)
+    faults = ("@app:faults(seed='7', "
+              f"step.shard='transient:count=1:after={SH_FAULTED}')")
+    with OpsErrors():
+        chaos = sh_run(torch, SiddhiManager, StreamCallback,
+                       config5_app(SH_CPU_PARTITIONS, 4, faults,
+                                   "@OnError(action='STREAM')"),
+                       batches, SH_CARD, kernels, outs=("Alerts", "!D"),
+                       keep_live=True)
+    skip = batches[:SH_FAULTED] + batches[SH_FAULTED + 1:]
+    clean = sh_run(torch, SiddhiManager, StreamCallback,
+                   config5_app(SH_CPU_PARTITIONS, 4), skip, SH_CARD, kernels,
+                   seed_batches=batches, keep_live=True)
+    fst = chaos["rt"].app_context.fault_injector.stats
+    faulted = sum(len(b) for b in chaos["outs"]["!D"])
+    rows = ops_rows(EventBatch, chaos["outs"]["Alerts"])
+    same = sh_same_dense(torch, chaos["dense"], clean["dense"])
+    sh_close(chaos)
+    sh_close(clean)
+    for run in (chaos, clean):
+        for k, v in run["launches"].items():
+            tally[k] += v
+    if (rows != ops_rows(EventBatch, clean["outs"]["Alerts"]) or not rows
+            or faulted != len(batches[SH_FAULTED]) or not same
+            or fst.faults_injected != 1):
+        raise AssertionError(f"sharded (e): rows {len(rows)} faulted "
+                             f"{faulted} state {same} {fst.as_dict()}")
+    lines = [{"phase": "sharded", "case": "e_step_shard_transient",
+              "partitions": SH_CPU_PARTITIONS, "devices": 4,
+              "batches": len(batches), "faulted_batch": SH_FAULTED,
+              "rows": len(rows), "rows_equal_fault_free_run": True,
+              "state_equal_fault_free_run": True,
+              "fault_stream_rows": faulted,
+              "faults_injected": fst.faults_injected,
+              "launches": chaos["launches"], "card": card}]
+    app = ("@app:name('shmon{tag}') @app:playback @app:execution('tpu') "
+           "@app:plan(auto='true') @app:statistics('true') "
+           "@app:faults(journal='8192') "
+           "define stream S (sym int, price float); "
+           "@info(name='q1') from S[price > 10.0] select sym insert into "
+           "Out;")
+    rng = np.random.default_rng(SH_SEED + 3)
+    sends = [EventBatch("S", ["sym", "price"],
+                        {"sym": rng.integers(0, 9, 4).astype(np.int32),
+                         "price": rng.uniform(0, 30, 4).astype(np.float32)},
+                        1000 + 4 * i + np.arange(4, dtype=np.int64))
+             for i in range(SH_MON_SENDS)]
+    out = {}
+    for tag in ("kept", "switched"):
+        mgr = SiddhiManager(device=SH_CARD)
+        rt = new_app(mgr, app.format(tag=tag))
+        kept = []
+        rt.add_callback("Out", ckpt_keep(StreamCallback, kept))
+        rt.start()
+        before = dict(rt.lowering())
+        switch_s, decided = None, {}
+        for i, b in enumerate(sends):
+            if tag == "switched" and i == SH_MON_SWITCH:
+                mon = PlanMonitor(rt)
+                decided = mon.decide()
+                t = time.perf_counter()
+                if not mon.maybe_replan():
+                    raise AssertionError("sharded (e): the monitor did not "
+                                         f"re-plan ({decided})")
+                switch_s = time.perf_counter() - t
+            rt.get_input_handler("S").send_batch(b)
+        rt.drain()
+        out[tag] = {"rows": ops_rows(EventBatch, kept), "before": before,
+                    "after": dict(rt.lowering()), "decided": decided,
+                    "switch_s": switch_s,
+                    "mode": rt.app_context.statistics_manager
+                    .plans["q1"].mode}
+        rt.shutdown()
+        mgr.shutdown()
+    k, s = out["kept"], out["switched"]
+    if (s["rows"] != k["rows"] or not k["rows"]
+            or s["after"] == s["before"] or s["mode"] != "pinned"):
+        raise AssertionError(f"sharded (e) monitor: {s} against {k}")
+    lines.append({"phase": "sharded", "case": "e_plan_monitor_switch",
+                  "sends": SH_MON_SENDS, "switch_at": SH_MON_SWITCH,
+                  "lowering_before": s["before"], "lowering_after":
+                  s["after"], "decided": s["decided"],
+                  "replan_s": s["switch_s"], "rows": len(s["rows"]),
+                  "rows_equal_unswitched_run": True,
+                  "mode_after": s["mode"], "card": card})
+    return lines
+
+
+def sh_same_dense(torch, a, b) -> bool:
+    """Two sharded dense runtimes of one layout: every shard's tensors
+    equal, bit for bit."""
+    for sa, sb in zip(a.state.shards, b.state.shards):
+        for key, ta in sa.items():
+            tb = sb[key]
+            if ta.is_floating_point():
+                ta, tb = ta.view(torch.int32), tb.view(torch.int32)
+            if not torch.equal(ta, tb):
+                return False
+    return True
+
+
+def sharded_phase(torch, SiddhiManager, EventBatch, StreamCallback, kernels,
+                  card) -> dict:
+    """Phase 31, ``sharded``: (a) BASELINE config 5 at 10,000,000
+    partitions at devices='1' and (b) '4' against the unsharded card run,
+    (c) the CPU twin, (c2) the capture-free chain on ``dense_batch`` at
+    devices='4', (d) each sharded device-query kind against one
+    device, (e) a step.shard fault and a plan-monitor switch.  Returns
+    the launches of its card runs."""
+    tally = dict.fromkeys(kernels, 0)
+    t_phase = time.perf_counter()
+    for case in (sh_config5, sh_cpu_twin, sh_batch_chain, sh_device_queries,
+                 sh_fault_and_plan):
+        t = time.perf_counter()
+        lines = case(torch, SiddhiManager, EventBatch, StreamCallback,
+                     kernels, card, tally)
+        for line in (lines if isinstance(lines, list) else [lines]):
+            emit(line)
+        emit({"phase": "sharded_case_seconds", "case": case.__name__,
+              "seconds": time.perf_counter() - t})
+    if SH_CARD == "cuda" and (tally["probe"] < 1 or tally["bank_scatter"] < 1
+            or tally["dense_batch"] < 1 or tally["dense_step"]
+            or tally["scan_chain"]):
+        raise AssertionError(f"sharded phase launches {tally}")
+    emit({"phase": "sharded_seconds", "seconds": time.perf_counter() - t_phase,
+          "launches": tally, "card": card})
+    return tally
+
+
 def main() -> int:
     import torch
 
@@ -7684,10 +8304,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     ops_launches = operations_phase(torch, SiddhiManager, EventBatch,
                                     StreamCallback, all_kernels, card)
+
+    # 31. the mesh: BASELINE config 5 at 10,000,000 partitions sharded,
+    # sharded device queries, a step.shard fault, the plan monitor -----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    shard_launches = sharded_phase(torch, SiddhiManager, EventBatch,
+                                   StreamCallback, all_kernels, card)
     emit({"phase": "isolated_errors", "errors": 0,
           "warnings_to_listeners_or_log": ISOLATED.warnings})
 
-    # 31. kernels -------------------------------------------------------------
+    # 32. kernels -------------------------------------------------------------
     by_path = lambda name: {"dense_1M": launches.get(name, 0),
                             "skew_routed": hk_launches.get(name, 0),
                             "aggregation": agg_launches[name],
@@ -7718,7 +8345,9 @@ def main() -> int:
                             "multiplex": mux_launches[name],
                             "transports": tr_launches[name],
                             # (a)-(e) of the operations phase
-                            "operations": ops_launches[name]}
+                            "operations": ops_launches[name],
+                            # (a)-(e) of the sharded phase, card runs
+                            "sharded": shard_launches[name]}
     emit({"kernels": [
         {"name": "dense_batch", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/dense_batch.cu",
@@ -7730,7 +8359,8 @@ def main() -> int:
                       + ckpt_launches["dense_batch"]
                       + mux_launches["dense_batch"]
                       + tr_launches["dense_batch"]
-                      + ops_launches["dense_batch"]),
+                      + ops_launches["dense_batch"]
+                      + shard_launches["dense_batch"]),
          "launches_by_path": by_path("dense_batch"),
          "max_abs_err": batch_err,
          # the 1 M cell's batch; the routed cold sub-batch beside it
@@ -7755,7 +8385,7 @@ def main() -> int:
                       + product_launches["probe"] + auto_launches["probe"]
                       + ckpt_launches["probe"] + fuse_launches["probe"]
                       + mux_launches["probe"] + tr_launches["probe"]
-                      + ops_launches["probe"]),
+                      + ops_launches["probe"] + shard_launches["probe"]),
          "launches_by_path": by_path("probe"), "max_abs_err": probe_err,
          **{k: probe_line[k] for k in KERNEL_KEYS}},
         {"name": "scan_chain", "route": "cuda",
@@ -7780,7 +8410,8 @@ def main() -> int:
                      + dt_launches["bank_scatter"]
                      + mux_launches["bank_scatter"]
                      + tr_launches["bank_scatter"]
-                     + ops_launches["bank_scatter"],
+                     + ops_launches["bank_scatter"]
+                     + shard_launches["bank_scatter"],
          "launches_by_path": by_path("bank_scatter"),
          "launches_by_entry": bank_by_entry,
          "max_abs_err": bank_err,

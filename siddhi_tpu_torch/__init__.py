@@ -33,7 +33,14 @@ The slices so far:
 - persistence: ``SiddhiManager.set_persistence_store`` with one of the
   stores below, ``rt.persist()`` (sync, or async through the checkpoint
   writer), ``rt.restore_last_revision()`` and, under
-  ``@app:faults(journal=...)``, restore-and-replay of the input journal.
+  ``@app:faults(journal=...)``, restore-and-replay of the input journal;
+- stream-graph fusion, device tables, multiplexing, transports and the
+  operations layer (statistics, tracing, overload control, live
+  re-plans, the service);
+- the mesh: ``@app:execution('tpu', devices='N')`` shards partitioned
+  patterns and device queries over N shards (``parallel/``), and
+  ``@app:plan(auto='true')`` lets the cost model choose each query's
+  lowering, re-planned live by the plan monitor.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -44,9 +44,10 @@ started and stopped with the runtime, ``debug()`` (a
 ``replan(pins)``: a live re-plan that rebuilds every engine from a
 fresh parse under per-query path pins and replays the input journal's
 whole history through the suppressing output ledger, on this same
-runtime object.  An app outside the slices raises
-``SiddhiAppCreationError`` naming the ``ROADMAP.md`` item that ports
-it.
+runtime object.  Under ``@app:plan(auto='true', interval=)`` the plan
+monitor (``planner/monitor.py``) starts and stops with the runtime and
+calls ``replan`` when the statistics feed shows a cheaper lowering
+past the hysteresis margin.
 """
 
 from __future__ import annotations
@@ -67,7 +68,6 @@ from siddhi_tpu_torch.core.exceptions import (
     OnErrorAction,
     SiddhiAppCreationError,
     SiddhiAppRuntimeError,
-    later_slice,
 )
 from siddhi_tpu_torch.core.partition import PartitionRuntime
 from siddhi_tpu_torch.core.stream import (
@@ -115,9 +115,9 @@ log = logging.getLogger("siddhi_tpu_torch")
 
 
 # the paths a replan pin may name ('+' joins them), as the reference's
-# planner reads them; 'shard' is the multi-device slice's
+# planner reads them
 _PIN_PATHS = frozenset(("host", "device", "dense", "hotkey", "fuse",
-                        "multiplex"))
+                        "multiplex", "shard"))
 
 
 class SiddhiAppRuntime:
@@ -184,10 +184,12 @@ class SiddhiAppRuntime:
         # @app:fuse pre-pass: chains of device queries linked by
         # exclusive `insert into` streams come back planned, keyed by the
         # query's identity; the others plan one by one below
-        # (a replan pin naming 'fuse' runs the pass too)
+        # (@app:plan(auto=) and a replan pin naming 'fuse' run the pass
+        # too)
         ctx = self.app_context
-        want_fuse = ctx.fuse or any("fuse" in str(p).split("+")
-                                    for p in ctx.plan_pins.values())
+        want_fuse = (ctx.fuse or ctx.plan_auto
+                     or any("fuse" in str(p).split("+")
+                            for p in ctx.plan_pins.values()))
         fused = plan_fused_chains(self) if want_fuse else {}
         qi = pi = 0  # the reference numbers queries and partitions apart
         for el in siddhi_app.execution_elements:
@@ -213,6 +215,8 @@ class SiddhiAppRuntime:
         self._user_callbacks: List = []
         self._watchdog = None
         self._ladder = None
+        # @app:plan(auto, interval): the plan monitor's sweep
+        self._plan_monitor = None
         # set by the manager that registered this runtime, with the app
         # text a re-plan parses afresh
         self._manager = None
@@ -475,6 +479,15 @@ class SiddhiAppRuntime:
             self._start_playback_heartbeat()
         if ctx.persist_interval_ms > 0:
             self._start_persist_daemon()
+        if (ctx.plan_auto and ctx.plan_interval_ms > 0
+                and self._plan_monitor is None):
+            from siddhi_tpu_torch.planner.monitor import PlanMonitor
+
+            # @app:plan(auto, interval): re-scores the plan with what the
+            # statistics feed observed and re-plans past the hysteresis
+            # margin
+            self._plan_monitor = PlanMonitor(self)
+            self._plan_monitor.start()
         if ctx.watchdog_deadline_ms > 0 and self._watchdog is None:
             from siddhi_tpu_torch.robustness import (
                 DegradationLadder,
@@ -576,6 +589,9 @@ class SiddhiAppRuntime:
         if self._watchdog is not None:
             self._watchdog.stop()
             self._watchdog = self._ladder = None
+        if self._plan_monitor is not None:
+            self._plan_monitor.stop()
+            self._plan_monitor = None
         wait = not replan
         for stop_attr, thread_attr, timeout in (
                 ("_playback_stop", "_playback_thread", 2),
@@ -782,8 +798,9 @@ class SiddhiAppRuntime:
         the journal's whole history with the output ledger suppressing
         what each callback and sink already received.  Refused, and
         counted as a planner fallback, without ``@app:faults(journal=)``
-        or once the journal no longer covers the history; a pin naming
-        ``shard`` waits for the multi-device slice."""
+        or once the journal no longer covers the history.  A pin naming
+        ``shard`` shards the query over the app's declared mesh
+        (``@app:execution(devices=)``)."""
         ctx = self.app_context
         sm = ctx.statistics_manager
         pins = dict(pins or {})
@@ -798,9 +815,6 @@ class SiddhiAppRuntime:
 
         for q, p in pins.items():
             comps = str(p).split("+")
-            if "shard" in comps:
-                refuse(f"pin {q}={p!r} shards over a device mesh"
-                       + later_slice(16, "multi-device"))
             bad = sorted(set(comps) - _PIN_PATHS)
             if bad:
                 refuse(f"pin {q}={p!r} names unknown path(s) {bad}")

@@ -18,10 +18,17 @@ torch ops.  A pattern over several streams is fed by one receiver per
 stream.  An engine with absent deadlines makes its runtime an app
 scheduler task: ``on_time`` runs the engine's timer step and emits the
 fired matches at their deadlines.  ``purge_idle`` reclaims the rows of
-idle keys for the partition's ``@purge``.  The reference's mesh
-sharding, fault harness and span tracer are left out; the engine
-refuses what it does not run with the reference's reason, and the
-planner then runs the query on the host pattern engine.  Matches reach
+idle keys for the partition's ``@purge``.  Under
+``@app:execution('tpu', devices='N')`` a partitioned runtime shards its
+partition axis over an N-shard mesh (``parallel/mesh.py``: one
+``ShardedPatternEngine`` over a shard-major state, each shard stepped by
+the engine's own step, interned keys dealt round-robin across the
+shards); the runtime holds it, or the engine, as its ``stepper``.  The app's fault
+injector reaches the engine's ``step.dense``, ``step.shard`` and
+``ingest.put`` sites, and a sampled cycle of its span tracer starts at
+each batch.  The engine refuses what it does not run with the
+reference's reason, and the planner then runs the query on the host
+pattern engine.  Matches reach
 the query runtime's selector through the runtime's ``EmitQueue``, each
 match batch carrying the reference's ``aux`` side channels: the
 original-batch positions of its events (``event_indices``), the clock
@@ -54,7 +61,6 @@ from siddhi_tpu_torch.core.exceptions import (
 from siddhi_tpu_torch.core.ingest_stage import (
     IngestStage,
     IngestStats,
-    staged_put,
     step_probe,
 )
 from siddhi_tpu_torch.core.stream import notify_listeners
@@ -64,10 +70,12 @@ from siddhi_tpu_torch.ops.dense_nfa import (
     DensePatternEngine,
     filter_env,
     is_open_count,
-    state_from_numpy,
-    state_to_numpy,
 )
 from siddhi_tpu_torch.ops.nfa import NFABuilder
+from siddhi_tpu_torch.parallel.mesh import (
+    ShardedPatternEngine,
+    shards_per_card,
+)
 from siddhi_tpu_torch.query_api import AttrType, StateInputStream, Variable
 from siddhi_tpu_torch.util import faults as _faults
 
@@ -229,8 +237,10 @@ class DensePatternRuntime:
                  emit: Callable[[EventBatch], None], emit_depth: int = 1,
                  ingest_depth: int = 1,
                  clock: Optional[Callable[[], int]] = None,
-                 app_context=None):
+                 app_context=None, mesh=None):
         self.engine = engine
+        # @app:execution('tpu', devices='N'): the shard devices, or None
+        self.mesh = mesh
         # its exception listeners hear of dropped instances
         self.app_context = app_context
         # the app clock, sampled when a batch is processed
@@ -247,7 +257,7 @@ class DensePatternRuntime:
         # the app's span tracer and fault injector (the engine reads its
         # step.dense and ingest.put sites from engine.faults)
         self.tracer = getattr(app_context, "tracer", None)
-        self.engine_kind = "dense"
+        self.engine_kind = "dense" if mesh is None else "shard"
         self.faults = getattr(app_context, "fault_injector", None)
         engine.faults = self.faults
         self.emit_stats = EmitStats()
@@ -260,7 +270,14 @@ class DensePatternRuntime:
         self.ingest_stage = IngestStage(
             depth=ingest_depth, stats=self.ingest_stats,
             on_fault=self._on_fault if self.faults is not None else None)
-        self.state = engine.init_state()
+        # what steps and holds the state: the engine, or under a mesh
+        # its sharded wrapper, which mirrors the engine's state surface
+        self.stepper = (engine if mesh is None
+                        else ShardedPatternEngine(engine, mesh))
+        if mesh is not None:
+            self.n_shards = self.stepper.n_shards
+            self.parts_per_shard = self.stepper.parts_per_shard
+        self.state = self.stepper.init_state()
         self.step_invocations = 0
         # timer steps that fired a match; the earliest armed deadline,
         # re-read after every event batch, restore and purge
@@ -283,6 +300,11 @@ class DensePatternRuntime:
         # reads it; the hot-key router keeps promoted rows' clocks going)
         self._row_last_used = np.zeros(engine.n_partitions, dtype=np.int64)
         self._out_dtypes = [t.np_dtype for t in output_attr_types(engine)]
+
+    @property
+    def _sharded(self) -> Optional[ShardedPatternEngine]:
+        """The sharded wrapper (the reference's name), or None."""
+        return None if self.mesh is None else self.stepper
 
     # -- partition interning -------------------------------------------------
 
@@ -340,8 +362,8 @@ class DensePatternRuntime:
                 row_ids[:take_free] = self._free_rows[-take_free:][::-1]
                 del self._free_rows[-take_free:]
             if fresh:
-                row_ids[take_free:] = np.arange(
-                    self._next_row, self._next_row + fresh, dtype=np.int32)
+                row_ids[take_free:] = self.stepper.deal_rows(np.arange(
+                    self._next_row, self._next_row + fresh, dtype=np.int64))
                 self._next_row += fresh
             urows[new_idx] = row_ids
             self._key_rows.update(
@@ -384,7 +406,8 @@ class DensePatternRuntime:
                 if self._free_rows:
                     row = self._free_rows.pop()
                 elif self._next_row < cap:
-                    row = self._next_row
+                    row = int(self.stepper.deal_rows(
+                        np.asarray(self._next_row)))
                     self._next_row += 1
                 else:
                     raise SiddhiAppRuntimeError(
@@ -444,7 +467,7 @@ class DensePatternRuntime:
                 if a in cur.columns}
         ts = np.asarray(cur.timestamps, dtype=np.int64)
         np.maximum.at(self._row_last_used, part, ts)
-        self.state, pending = eng.process_deferred(
+        self.state, pending = self.stepper.process_deferred(
             self.state, stream_key, part, cols, ts)
         self.step_invocations += 1
         if eng.has_deadlines:
@@ -472,8 +495,8 @@ class DensePatternRuntime:
         # the match-count fetch (resolve) is the blocking device sync;
         # with ingest.depth > 1 it runs after the next batch's dispatch
         self.ingest_stage.submit(
-            None if pending is None else step_probe(eng.device), _finish,
-            trace=tok)
+            None if pending is None else step_probe(self.stepper.device),
+            _finish, trace=tok)
 
     def _on_fault(self, e: BaseException):
         _faults.isolate(self.tracer, self.faults, e)
@@ -508,7 +531,8 @@ class DensePatternRuntime:
         """Pending instances dropped because every successor lane was
         occupied (0: the match set is exact).  Reduced on the device; one
         scalar crosses to the host."""
-        return int(fetch_coalesced([self.state["overflow"].sum()])[0])
+        return int(fetch_coalesced([self.stepper.overflow_sum(
+            self.state)])[0])
 
     def stats(self) -> Dict:
         """Partition and lane occupancy (``pattern_state()``), as the
@@ -519,19 +543,16 @@ class DensePatternRuntime:
         self.drain()
         eng = self.engine
         partitioned = eng.n_partitions > 1
-        active = self.state["active"]
         if self._key_rows:
-            rows = torch.as_tensor(
-                np.fromiter(self._key_rows.values(), dtype=np.int64,
-                            count=len(self._key_rows)), device=eng.device)
-            act = active[rows].sum()
-        elif not partitioned:
-            act = active[0].sum()
+            rows = np.fromiter(self._key_rows.values(), dtype=np.int64,
+                               count=len(self._key_rows))
         else:
-            act = None
-        got = fetch_coalesced([self.state["overflow"].sum()]
+            rows = None if partitioned else np.zeros(1, dtype=np.int64)
+        act = (None if rows is None
+               else self.stepper.active_sum(self.state, rows))
+        got = fetch_coalesced([self.stepper.overflow_sum(self.state)]
                               + ([] if act is None else [act]))
-        return {
+        out = {
             "engine": "dense",
             "partitions_in_use": (
                 len(self._key_rows) if partitioned else 1),
@@ -541,6 +562,9 @@ class DensePatternRuntime:
             "dropped_instances": int(got[0]),
             "step_invocations": self.step_invocations,
         }
+        if self.mesh is not None:
+            out["shards_per_card"] = shards_per_card(self.mesh)
+        return out
 
     def _check_overflow(self):
         total = self.overflow_total()
@@ -571,14 +595,12 @@ class DensePatternRuntime:
         layout's order (the persist path's capture clones them)."""
         self.drain()
         self._check_overflow()
-        if fetch:
-            dense, base_ts = state_to_numpy(self.engine, self.state)
-        else:
-            dense = {k: self.state[k] for k in self.engine.state_layout()}
-            base_ts = self.engine.base_ts
+        # a sharded state's are the reference's global shard-major rows
+        dense = (self.stepper.state_to_host(self.state) if fetch
+                 else self.stepper.live_state(self.state))
         return {
             "dense_state": dense,
-            "base_ts": base_ts,
+            "base_ts": self.engine.base_ts,
             "key_rows": dict(self._key_rows),
             "next_row": self._next_row,
             "free_rows": list(self._free_rows),
@@ -588,15 +610,8 @@ class DensePatternRuntime:
     def restore(self, state: Dict):
         """Restore a snapshot of this runtime or of the reference's."""
         self.drain()
-        rows = len(next(iter(state["dense_state"].values())))
-        want = self.engine.n_partitions + 1
-        if rows != want:
-            raise SiddhiAppRuntimeError(
-                f"cannot restore: snapshot has {rows} state rows but this "
-                f"app needs {want} (snapshot taken under a different "
-                "@app:execution partitions setting)")
-        self.state = state_from_numpy(self.engine, state["dense_state"],
-                                      state["base_ts"])
+        self.state = self.stepper.state_from_host(state["dense_state"],
+                                                  state["base_ts"])
         self._key_rows = dict(state["key_rows"])
         self._row_keys = {r: k for k, r in self._key_rows.items()}
         self._next_row = state.get("next_row", len(self._key_rows))
@@ -622,13 +637,9 @@ class DensePatternRuntime:
         # barrier: the purged keys' pending matches reach the per-key
         # selector state before on_purge_keys drops it
         self.drain()
-        # every init row is the same: one row is the template
-        rows, tmpl = staged_put(
-            (np.asarray([r for _k, r in idle], dtype=np.int64),
-             self.engine.init_state_host(n_rows=1)),
-            self.engine.device, self.ingest_stats)
-        for key, arr in self.state.items():
-            arr[rows] = tmpl[key]
+        self.stepper.reset_rows(
+            self.state, np.asarray([r for _k, r in idle], dtype=np.int64),
+            self.ingest_stats)
         for k, r in idle:
             del self._key_rows[k]
             self._row_keys.pop(r, None)
@@ -648,7 +659,7 @@ class DensePatternRuntime:
             return
         # barrier: event matches queued before this tick emit first
         self.drain()
-        self.state, fired = eng.on_time_state(self.state, now)
+        self.state, fired = self.stepper.on_time_state(self.state, now)
         self._wake_dirty = True
         if fired is None:
             return
@@ -673,7 +684,7 @@ class DensePatternRuntime:
         if not self.engine.has_deadlines:
             return None
         if self._wake_dirty:
-            self._wake_cache = self.engine.next_wakeup_state(self.state)
+            self._wake_cache = self.stepper.next_wakeup_state(self.state)
             self._wake_dirty = False
         return self._wake_cache
 

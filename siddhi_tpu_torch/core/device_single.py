@@ -193,7 +193,8 @@ class DeviceQueryRuntime:
         bookkeeping."""
         self.drain()
         return {"device_state": (self.engine.state_to_host(self.state)
-                                 if fetch else dict(self.state)),
+                                 if fetch else
+                                 self.engine.live_state(self.state)),
                 "host": self.engine.host_snapshot()}
 
     def restore(self, state: Dict):

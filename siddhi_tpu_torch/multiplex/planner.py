@@ -65,7 +65,16 @@ class MultiplexPlanner:
 
     def _common_reject(self, query: Query, name: str) -> Optional[str]:
         """Eligibility conditions shared by both engine families."""
-        if getattr(self.ctx, "tpu_devices", 0):
+        if self.ctx.tpu_devices:
+            if self.ctx.multiplex:
+                # a pinned @app:multiplex losing to the declared mesh is a
+                # plan conflict (precedence: shard > multiplex), counted
+                # apart from the shape refusals
+                sm = self.ctx.statistics_manager
+                if sm is not None:
+                    sm.record_planner_conflict(
+                        name, "@app:multiplex pinned but the app declares "
+                        "a device mesh (precedence: shard > multiplex)")
             return "mesh-sharded state does not multiplex"
         if query.output_rate is not None:
             return "output rate limits need a dedicated engine"

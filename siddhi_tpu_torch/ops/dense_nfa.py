@@ -702,15 +702,68 @@ class DensePatternEngine:
             state["active"][:, 0, 0] = True
         return state
 
-    def init_state(self) -> Dict[str, torch.Tensor]:
-        """Initial state on the engine's device (``init_state_host``)."""
+    def init_state(self, n_rows: Optional[int] = None,
+                   device=None) -> Dict[str, torch.Tensor]:
+        """Initial state on the engine's device (``init_state_host``),
+        built there; ``n_rows``/``device``: that many rows on another
+        device (a shard of ``parallel.mesh.ShardedPatternEngine``)."""
+        dev = self.device if device is None else device
         state = {
-            k: torch.zeros(shape, dtype=_TORCH_DTYPES[dt], device=self.device)
+            k: torch.zeros(shape if n_rows is None
+                           else (n_rows,) + shape[1:],
+                           dtype=_TORCH_DTYPES[dt], device=dev)
             for k, (shape, dt) in self.state_layout().items()
         }
         if not self.every_start:
             state["active"][:, 0, 0] = True
         return state
+
+    # the state surface a DensePatternRuntime drives, which
+    # parallel.mesh.ShardedPatternEngine mirrors for a sharded state
+
+    @property
+    def n_state_rows(self) -> int:
+        """Rows of the whole state: the partitions and the scratch row."""
+        return self.n_partitions + 1
+
+    @staticmethod
+    def deal_rows(ids: np.ndarray) -> np.ndarray:
+        """Allocation-counter ids -> partition rows: the same here."""
+        return ids
+
+    def state_to_host(self, state) -> Dict[str, np.ndarray]:
+        return state_to_numpy(self, state)[0]
+
+    def state_from_host(self, host_state: Dict, base_ts: Optional[int]):
+        rows = len(next(iter(host_state.values())))
+        if rows != self.n_state_rows:
+            raise SiddhiAppRuntimeError(
+                f"cannot restore: snapshot has {rows} state rows but "
+                f"this app needs {self.n_state_rows} (snapshot taken under "
+                "a different @app:execution devices/partitions setting)")
+        return state_from_numpy(self, host_state, base_ts)
+
+    def live_state(self, state) -> Dict[str, torch.Tensor]:
+        """The snapshot layout as the live device tensors."""
+        return {k: state[k] for k in self.state_layout()}
+
+    @staticmethod
+    def overflow_sum(state) -> torch.Tensor:
+        """Dropped instances of every row, a 0-d device tensor."""
+        return state["overflow"].sum()
+
+    def active_sum(self, state, rows: np.ndarray) -> torch.Tensor:
+        """Pending lanes of ``rows``, a 0-d device tensor."""
+        return state["active"][torch.as_tensor(rows,
+                                               device=self.device)].sum()
+
+    def reset_rows(self, state, rows: np.ndarray, ingest_stats=None):
+        """``rows`` back to the initial row (a purge), in place; every
+        init row is the same, so one row is the template."""
+        idx, tmpl = staged_put((rows, self.init_state_host(n_rows=1)),
+                               self.device, ingest_stats)
+        for key, arr in state.items():
+            arr[idx] = tmpl[key]
 
     # -- step ---------------------------------------------------------------
 
@@ -1252,10 +1305,19 @@ class DensePatternEngine:
         without touching the device."""
         if not self.has_deadlines or self.base_ts is None:
             return None
+        return self.wakeup_from_mins(fetch_coalesced([self.wake_min(state)]))
+
+    @staticmethod
+    def wake_min(state) -> torch.Tensor:
+        """The earliest armed deadline of ``state``'s rows as a 0-d device
+        tensor (int32 max when none)."""
         dl = state["deadline"]
-        m = torch.where(state["active"] & (dl > 0), dl,
-                        torch.iinfo(torch.int32).max).amin()
-        m = int(fetch_coalesced([m])[0])
+        return torch.where(state["active"] & (dl > 0), dl,
+                           torch.iinfo(torch.int32).max).amin()
+
+    def wakeup_from_mins(self, mins) -> Optional[int]:
+        """Absolute ms of the earliest of fetched ``wake_min`` values."""
+        m = int(min(int(x) for x in mins))
         if m >= 2**31 - 1:
             return None
         return self.base_ts + m
@@ -1269,31 +1331,53 @@ class DensePatternEngine:
         deadline-ordered flush.  The fires are compacted on the device
         (``nonzero`` on ``emit``, whose size is the count gate, then
         gathers) and fetched in one copy."""
-        if not self.has_deadlines or self.base_ts is None:
+        rel = self.timer_rel(now)
+        if rel is None:
             return state, None
+        state, mat = self.time_fires(state, rel)
+        if mat is None:
+            return state, None
+        return state, self.fires_from_host(fetch_coalesced([mat]))
+
+    def timer_rel(self, now: int) -> Optional[int]:
+        """``now`` as relative ms for the timer step, or None when no
+        deadline can be due."""
+        if not self.has_deadlines or self.base_ts is None:
+            return None
         rel = now - self.base_ts
         if rel <= 0:
-            return state, None
-        rel = min(rel, 2**31 - 1)
+            return None
+        return min(rel, 2**31 - 1)
+
+    def time_fires(self, state, rel: int, row0: int = 0):
+        """Run the timer step over ``state``'s rows at relative ``rel``
+        and compact its fires on the device: ``(state, mat)``, ``mat``
+        one int32 matrix a fire (row + ``row0``, lane, fire time, the
+        float outputs' bits, the integer outputs), or None when nothing
+        fired (``nonzero`` on ``emit``, whose size is the count gate)."""
         state, emit, outs, fire, _n = self.make_time_step()(state, rel)
         rows_d, lanes_d = emit.nonzero(as_tuple=True)
         if rows_d.numel() == 0:
             return state, None
-        # one int32 matrix, one copy: row, lane, fire time, the float
-        # outputs' bits, the integer outputs
-        O = outs["f"].shape[-1]
-        host = fetch_coalesced([torch.cat([
-            rows_d.to(torch.int32)[:, None], lanes_d.to(torch.int32)[:, None],
+        return state, torch.cat([
+            (rows_d.to(torch.int32) + row0)[:, None],
+            lanes_d.to(torch.int32)[:, None],
             fire[rows_d, lanes_d][:, None],
             outs["f"][rows_d, lanes_d].view(torch.int32),
-            outs["i"][rows_d, lanes_d]], dim=1)])[0]
+            outs["i"][rows_d, lanes_d]], dim=1)
+
+    def fires_from_host(self, mats):
+        """Fetched ``time_fires`` matrices -> ``(out, fire_ts, rows)`` in
+        (fire time, row, lane) order."""
+        host = np.concatenate(mats) if len(mats) > 1 else mats[0]
+        O = max(len(self.out_spec), 1)
         rows = host[:, 0].astype(np.int64)
         lanes = host[:, 1]
         out = self.assemble_rows(np.ascontiguousarray(host[:, 3:3 + O])
                                  .view(np.float32), host[:, 3 + O:])
         fire_np = host[:, 2].astype(np.int64) + self.base_ts
         order = np.lexsort((lanes, rows, fire_np))
-        return state, (out[order], fire_np[order], rows[order])
+        return out[order], fire_np[order], rows[order]
 
     # -- host wrapper -------------------------------------------------------
 
@@ -1308,8 +1392,16 @@ class DensePatternEngine:
         it; instances whose anchor falls outside the ``within`` horizon
         are already expired and are cleared on the host (a
         once-per-24-days round trip)."""
-        if not len(rel64) or int(rel64.max()) < self._REL_LIMIT:
+        delta = self.re_anchor_delta(rel64)
+        if delta is None:
             return state, rel64
+        return self.shift_state(state, delta, self.device), rel64 - delta
+
+    def re_anchor_delta(self, rel64: np.ndarray) -> Optional[int]:
+        """The forward shift of ``base_ts`` that keeps ``rel64`` inside
+        int32 (``base_ts`` moves by it), or None when none is due."""
+        if not len(rel64) or int(rel64.max()) < self._REL_LIMIT:
+            return None
         horizon = self.within_ms or 0
         delta = int(rel64.min()) - 1 - horizon
         if delta <= 0 or int(rel64.max()) - delta >= 2**31:
@@ -1317,7 +1409,11 @@ class DensePatternEngine:
                 "dense NFA: timestamp span of one batch plus the within "
                 "horizon exceeds the int32 relative-time range")
         self.base_ts += delta
-        rel64 = rel64 - delta
+        return delta
+
+    def shift_state(self, state, delta: int, device):
+        """``state``'s anchors re-expressed against a base moved forward
+        by ``delta``, put back on ``device``."""
         keys = ["first_ts", "active", "counts"]
         if "deadline" in state:
             keys.append("deadline")
@@ -1344,9 +1440,9 @@ class DensePatternEngine:
             host.append(np.where(d > 0, np.maximum(d - delta, 1), 0)
                         .astype(np.int32))
         state = dict(state)
-        state.update(zip(keys, staged_put(tuple(host), self.device,
+        state.update(zip(keys, staged_put(tuple(host), device,
                                           self.ingest_stats)))
-        return state, rel64
+        return state
 
     def shift_row_ts(self, rows: Dict[str, np.ndarray],
                      delta: int) -> Dict[str, np.ndarray]:
@@ -1440,21 +1536,32 @@ class DensePatternEngine:
         if self.step_kind == "general":
             return state, self._process_general(
                 state, stream_key, part_idx, prepared, rel64.astype(np.int32))
+        pending = DeferredDenseEmit(self)
+        pending.chunks.append(self.batch_chunk(
+            state, stream_key, part_idx, prepared, rel64.astype(np.int32),
+            self.device, np.arange(n)))
+        return state, pending
+
+    def batch_chunk(self, state, stream_key: str, part_idx: np.ndarray,
+                    prepared: Dict[str, np.ndarray], rel: np.ndarray,
+                    device, ridx: np.ndarray) -> dict:
+        """One ``batch_step`` over ``state``'s rows (on ``device``): the
+        batch sorted by partition on the host, staged in one put, its
+        filter matrix, one launch and the output columns.  Returns the
+        ``DeferredDenseEmit`` chunk; ``ridx`` maps its events to the
+        caller's batch rows."""
         order, seg_start, seg_part = partition_segments(part_idx)
-        order, seg_start, seg_part, rel, cb = staged_put(
-            (order, seg_start, seg_part, rel64.astype(np.int32), prepared),
-            self.device, self.ingest_stats, faults)
-        ok = self.filter_matrix(stream_key, cb, rel)
+        order, seg_start, seg_part, rel_d, cb = staged_put(
+            (order, seg_start, seg_part, rel, prepared), device,
+            self.ingest_stats, self.faults)
+        ok = self.filter_matrix(stream_key, cb, rel_d)
         emit, anchor, n_emit = batch_step(
-            state, order, seg_start, seg_part, ok, rel, n_inst=self.I,
+            state, order, seg_start, seg_part, ok, rel_d, n_inst=self.I,
             within=self.within_ms)
         out_f, out_i = self.output_columns(cb, emit[:, :self.I])
-        pending = DeferredDenseEmit(self)
-        pending.chunks.append({
-            "emit": emit, "f": out_f, "i": out_i, "anchor": anchor,
-            "sel": slice(0, n), "ridx": np.arange(n), "count": n_emit,
-        })
-        return state, pending
+        return {"emit": emit, "f": out_f, "i": out_i, "anchor": anchor,
+                "sel": slice(0, len(part_idx)), "ridx": ridx,
+                "count": n_emit}
 
     def _process_general(self, state, stream_key: str, part_idx: np.ndarray,
                          prepared: Dict[str, np.ndarray], rel: np.ndarray
@@ -1652,8 +1759,9 @@ class DeferredDenseEmit:
 
     Each chunk is one step's outputs (one chunk a batch from
     ``process_deferred``): ``emit``/``f``/``i``/``anchor`` are still on
-    the device; ``sel`` selects the chunk's event rows and ``ridx`` maps
-    them to batch rows.
+    the device (lists of them, one a shard in shard order, for a round
+    of ``parallel.mesh.ShardedPatternEngine``); ``sel`` selects the
+    chunk's event rows and ``ridx`` maps them to batch rows.
     ``materialize`` receives the fetched host arrays in
     ``device_arrays()`` order and returns what ``process`` returns.
     """
@@ -1676,10 +1784,16 @@ class DeferredDenseEmit:
         self._total = int(sum(int(c) for c in counts))
         return self._total
 
+    _KEYS = ("emit", "f", "i", "anchor")
+
     def device_arrays(self) -> List:
         arrs: List = []
         for ch in self.chunks:
-            arrs.extend((ch["emit"], ch["f"], ch["i"], ch["anchor"]))
+            if isinstance(ch["emit"], list):  # a sharded round, by shard
+                for k in self._KEYS:
+                    arrs.extend(ch[k])
+            else:
+                arrs.extend(ch[k] for k in self._KEYS)
         return arrs
 
     def materialize(self, host_arrays) -> Tuple[np.ndarray, np.ndarray]:
@@ -1687,8 +1801,18 @@ class DeferredDenseEmit:
         ev_parts: List[np.ndarray] = []
         out_parts: List[np.ndarray] = []
         key_parts: List[np.ndarray] = []  # (ev, anchor, lane) sort keys
-        for ci, ch in enumerate(self.chunks):
-            emit_h, f_h, i_h, anchor_h = host_arrays[4 * ci:4 * ci + 4]
+        pos = 0
+        for ch in self.chunks:
+            if isinstance(ch["emit"], list):
+                # the shards' outputs in shard order: one array a kind
+                k = len(ch["emit"])
+                emit_h, f_h, i_h, anchor_h = (
+                    np.concatenate(host_arrays[pos + j * k:pos + (j + 1) * k])
+                    for j in range(4))
+                pos += 4 * k
+            else:
+                emit_h, f_h, i_h, anchor_h = host_arrays[pos:pos + 4]
+                pos += 4
             sel = ch["sel"]
             emit_np = emit_h[sel]  # [b, 2I]
             if not emit_np.any():

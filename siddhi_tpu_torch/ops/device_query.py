@@ -712,6 +712,12 @@ class DeviceQueryEngine:
         keys = list(state)
         return dict(zip(keys, fetch_coalesced([state[k] for k in keys])))
 
+    @staticmethod
+    def live_state(state) -> Dict[str, torch.Tensor]:
+        """The state tensors themselves, in the snapshot layout (the
+        persist path's capture clones them)."""
+        return dict(state)
+
     def state_from_host(self, host) -> Dict[str, torch.Tensor]:
         """Numpy state (this engine's or the reference's snapshot) on the
         device; the shapes must be this engine's."""
@@ -946,10 +952,16 @@ class DeviceQueryEngine:
         self._acc_scatter(state, argvals, grp, fmask)
         return state, ov, out
 
-    def _sliding_step(self, state, env, fmask, ts, grp, B):
+    def _sliding_step(self, state, env, fmask, ts, grp, B, r0=None,
+                      nb=None):
         """Global sliding window: compact the passing rows behind the
         ring buffer, gather each row's window ``[B, W]`` (the W entries
-        ending at the row), reduce, and keep the last W entries."""
+        ending at the row), reduce, and keep the last W entries.
+        ``r0``/``nb`` (the sharded wrapper, which splits the batch axis
+        over its shards) restrict the gather, the reduction and the
+        outputs to rows ``[r0, r0 + nb)``; the ring advances over the
+        whole batch either way.  Returns ``(state, ov [nb], {name:
+        [nb]})``."""
         W = self.W
         A = max(len(self.aggs), 1)
         dev = ts.device
@@ -969,13 +981,17 @@ class DeviceQueryEngine:
         cat_grp = torch.cat([state["win_grp"], compact(grp, _I32)], 0)
         cat_valid = torch.cat([state["win_valid"], compact(
             torch.ones(B, dtype=torch.bool, device=dev), torch.bool)], 0)
-        gidx = (pos[:, None] + 1
+        if nb is None:
+            r0, nb = 0, B
+        blk = slice(r0, r0 + nb)
+        gidx = (pos[blk, None] + 1
                 + torch.arange(W, device=dev, dtype=_I32)[None, :])
-        gidx = gidx.clamp(0, W + B - 1).long()  # [B, W]
-        w_vals = cat_vals[gidx]  # [B, W, A]
-        member = cat_valid[gidx] & (cat_grp[gidx] == grp[:, None])
+        gidx = gidx.clamp(0, W + B - 1).long()  # [nb, W]
+        w_vals = cat_vals[gidx]  # [nb, W, A]
+        member = cat_valid[gidx] & (cat_grp[gidx] == grp[blk, None])
         if self.window_name == "time":
-            member = member & (cat_ts[gidx] > ts[:, None] - self.window_param)
+            member = member & (cat_ts[gidx]
+                               > ts[blk, None] - self.window_param)
         mf = member.to(_F32)[:, :, None]
         kinds = self._kinds()
         wsum = (w_vals * mf).sum(1)
@@ -987,10 +1003,13 @@ class DeviceQueryEngine:
         wmax = (torch.where(m3, w_vals, -_INF).amax(1)
                 if "max" in kinds else None)
         fmin, fmax = self._forever_rows(state, argvals, grp, fmask, B)
-        env_out = dict(env)
+        env_out = {k: v[blk] if isinstance(v, torch.Tensor) and v.dim()
+                   else v for k, v in env.items()}
+        env_out[N_KEY] = nb
         self._finalize_aggs(env_out, wsum, wcnt, wsumsq, wmin, wmax,
-                            fmin, fmax)
-        ov, out = self._emit(env_out, fmask, B)
+                            None if fmin is None else fmin[blk],
+                            None if fmax is None else fmax[blk])
+        ov, out = self._emit(env_out, fmask[blk], nb)
         # the new ring: the W entries ending at the batch's last passing
         # row, concat[n_pass : n_pass + W]
         keep = n_pass.clamp(0, B) + torch.arange(W, device=dev)
@@ -1145,6 +1164,13 @@ class DeviceQueryEngine:
     def _re_anchor(self, state, rel64: np.ndarray):
         """Shift ``base_ts`` forward so relative timestamps stay inside
         int32; live window entries and the open pane shift with it."""
+        delta = self._re_anchor_delta(rel64)
+        return self._shift_window(state, delta), rel64 - delta
+
+    def _re_anchor_delta(self, rel64: np.ndarray) -> int:
+        """The forward shift of ``base_ts`` (and the open pane) the
+        re-anchor makes; the window state shifts with
+        :meth:`_shift_window`."""
         horizon = (int(self.window_param)
                    if self.window_name in ("time", "timeBatch") else 0)
         delta = int(rel64.min()) - 1 - horizon
@@ -1155,16 +1181,19 @@ class DeviceQueryEngine:
                 "device query: timestamp span of one batch plus the window "
                 "horizon exceeds the int32 relative-time range")
         self.base_ts += delta
-        rel64 = rel64 - delta
+        if self._pane_end is not None:
+            self._pane_end -= delta
+        return delta
+
+    @staticmethod
+    def _shift_window(state, delta: int):
         if "win_ts" in state:
             state = dict(state)
             # entries older than the horizon go negative and stay
             # excluded; a delta past int32 expires every entry, so the
             # shift clamps
             state["win_ts"] = state["win_ts"] - min(delta, 2**31 - 1)
-        if self._pane_end is not None:
-            self._pane_end -= delta
-        return state, rel64
+        return state
 
     def _host_env(self, cols: Dict[str, np.ndarray], ts: np.ndarray,
                   n: int) -> Dict:
@@ -1349,24 +1378,22 @@ class DeviceQueryEngine:
         (the reference drops their per-key instances): the rows are reset
         in place and the ids return to the free lists.  Returns
         ``(state, n_purged_keys)``."""
-        if not self.partition_mode or idle_ms is None:
+        dead = self.purge_idle_ids(now, idle_ms)
+        if dead is None:
             return state, 0
-        dead_w = np.flatnonzero(
-            self._wgrp_in_use & (now - self._wgrp_last >= idle_ms)).tolist()
-        if not dead_w:
-            return state, 0
-        dead_pk = {self._wgrp_vals[w] for w in dead_w}
-        if self.group_exprs:
-            # composed groups die with their partition key
-            dead_g = [gid for k, gid in self._group_ids.items()
-                      if k[0] in dead_pk]
-        else:
-            dead_g = list(dead_w)  # grp is wgrp
+        dead_g, dead_w = dead
+        self.reset_rows(state, dead_g, dead_w, self.device)
+        return state, len(dead_w)
+
+    def reset_rows(self, state, g_rows, w_rows, device):
+        """Group rows ``g_rows`` and window-group rows ``w_rows`` of
+        ``state`` (on ``device``) back to their initial values, in
+        place."""
         gi, wi = staged_put(
-            (np.asarray(dead_g, dtype=np.int64),
-             np.asarray(dead_w, dtype=np.int64)), self.device,
+            (np.asarray(g_rows, dtype=np.int64),
+             np.asarray(w_rows, dtype=np.int64)), device,
             self.ingest_stats)
-        if dead_g:
+        if len(g_rows):
             for key, init in (("acc_sum", 0.0), ("acc_cnt", 0.0),
                               ("acc_sumsq", 0.0), ("acc_min", _INF),
                               ("acc_minf", _INF), ("acc_max", -_INF),
@@ -1376,6 +1403,24 @@ class DeviceQueryEngine:
         if self.kind == "keyed_sliding":
             state["win_valid"][wi] = False
             state["win_count"][wi] = 0
+
+    def purge_idle_ids(self, now: int, idle_ms: Optional[int]):
+        """The host half of :meth:`purge_idle_keys`: frees the ids of the
+        idle keys (and their composed groups) and returns ``(group ids,
+        window-group ids)`` whose rows the caller resets, or None."""
+        if not self.partition_mode or idle_ms is None:
+            return None
+        dead_w = np.flatnonzero(
+            self._wgrp_in_use & (now - self._wgrp_last >= idle_ms)).tolist()
+        if not dead_w:
+            return None
+        dead_pk = {self._wgrp_vals[w] for w in dead_w}
+        if self.group_exprs:
+            # composed groups die with their partition key
+            dead_g = [gid for k, gid in self._group_ids.items()
+                      if k[0] in dead_pk]
+        else:
+            dead_g = list(dead_w)  # grp is wgrp
         for w in dead_w:
             del self._wgrp_ids[self._wgrp_vals[w]]
             self._wgrp_vals[w] = None
@@ -1392,7 +1437,7 @@ class DeviceQueryEngine:
                 self._group_vals[gid] = None
                 self._group_free.append(gid)
                 self._group_last.pop(gid, None)
-        return state, len(dead_w)
+        return dead_g, dead_w
 
     def host_lane_cols(self, cols, n: int) -> Dict[str, np.ndarray]:
         """Raw input columns -> the device lanes as numpy columns (lane
@@ -1886,7 +1931,13 @@ class DeferredDeviceEmit:
     def device_arrays(self) -> List:
         arrs: List = []
         for ch in self.chunks:
-            if ch["kind"] == "device":
+            if ch["kind"] != "device":
+                continue
+            if isinstance(ch["ov"], list):  # a sharded chunk, by shard
+                for ov, out in zip(ch["ov"], ch["out"]):
+                    arrs.append(ov)
+                    arrs.extend(out[nm] for nm in ch["names"])
+            else:
                 arrs.append(ch["ov"])
                 arrs.extend(ch["out"][nm] for nm in ch["names"])
         return arrs
@@ -1903,12 +1954,25 @@ class DeferredDeviceEmit:
                 parts.append((ch["cols"], ch["ts"], ch["keys"]))
                 continue
             n = ch["n"]
-            ov_np = np.asarray(host_arrays[pos])[:n]
-            pos += 1
-            out_np = {}
-            for nm in ch["names"]:
-                out_np[nm] = np.asarray(host_arrays[pos])[:n]
+            names = ch["names"]
+            if isinstance(ch["ov"], list):
+                # the shards' rows in shard order; ``pos`` maps input row
+                # -> routed slot (the batch-axis split keeps row order)
+                k, w = len(ch["ov"]), 1 + len(names)
+                per = host_arrays[pos:pos + k * w]
+                pos += k * w
+                sel = ch.get("pos")
+                sel = slice(0, n) if sel is None else sel
+                ov_np = np.concatenate(per[0::w])[sel]
+                out_np = {nm: np.concatenate(per[1 + j::w])[sel]
+                          for j, nm in enumerate(names)}
+            else:
+                ov_np = np.asarray(host_arrays[pos])[:n]
                 pos += 1
+                out_np = {}
+                for nm in names:
+                    out_np[nm] = np.asarray(host_arrays[pos])[:n]
+                    pos += 1
             idx = np.flatnonzero(ov_np)
             cols, ts = ch["cols"], ch["ts"]
             if eng.kind == "filter":

@@ -284,14 +284,34 @@ class FusedGraphEngine:
         n = len(ts)
         if n == 0:
             return states, None
-        states, chunk = self._batch(states, cols, ts)
-        return states, FusedDeferredEmit(self, [chunk], ts)
+        states, chunks = self._batch(states, cols, ts)
+        return states, FusedDeferredEmit(self, chunks, ts)
+
+    def _pad_batch(self, n: int) -> int:
+        """The padded batch width (the sharded subclass rounds it up to
+        split evenly over its mesh)."""
+        return (_pow2(n) if n <= MAX_DEVICE_BATCH
+                else -(-n // MAX_DEVICE_BATCH) * MAX_DEVICE_BATCH)
 
     def _batch(self, states: Tuple, cols: Dict[str, np.ndarray],
-               ts: np.ndarray) -> Tuple[Tuple, dict]:
+               ts: np.ndarray) -> Tuple[Tuple, List[dict]]:
         n = len(ts)
-        B = (_pow2(n) if n <= MAX_DEVICE_BATCH
-             else -(-n // MAX_DEVICE_BATCH) * MAX_DEVICE_BATCH)
+        states, host = self._host_batch(states, cols, ts,
+                                        self._pad_batch(n))
+        c, rels_t, grp, valid = staged_put(
+            host, self.device, self.ingest_stats, self.faults)
+        if self.faults is not None:
+            self.faults.check("step.device")
+            if self.dense is not None:
+                self.faults.check("step.dense")
+        res = self.step(tuple(states), c, rels_t, grp, valid, n)
+        return res[0], [self._chunk(res, n, ts)]
+
+    def _host_batch(self, states: Tuple, cols: Dict[str, np.ndarray],
+                    ts: np.ndarray, B: int):
+        """Each stage's epoch (re-anchored) and the head lanes, padded to
+        ``B`` rows: ``(states, (cols, rels, grp, valid))`` as numpy."""
+        n = len(ts)
         states = list(states)
         # each stage keeps its own epoch (base_ts), re-anchored on the
         # host at the int32 horizon as its own runtime would
@@ -330,16 +350,12 @@ class FusedGraphEngine:
         grp = np.zeros(B, dtype=np.int32)
         valid = np.zeros(B, dtype=bool)
         valid[:n] = True
-        c, rels_t, grp, valid = staged_put(
-            (c, tuple(rels), grp, valid), self.device, self.ingest_stats,
-            self.faults)
-        if self.faults is not None:
-            self.faults.check("step.device")
-            if self.dense is not None:
-                self.faults.check("step.dense")
-        res = self.step(tuple(states), c, rels_t, grp, valid, n)
+        return states, (c, tuple(rels), grp, valid)
+
+    def _chunk(self, res, n: int, ts: np.ndarray) -> dict:
+        """A step's outputs as one emit chunk of ``n`` rows."""
         if self.tail_kind == TAIL_DEVICE:
-            new_states, emitmask, out, fwd, count = res
+            _states, emitmask, out, fwd, count = res
             chunk = {
                 "kind": TAIL_DEVICE, "emitmask": emitmask,
                 "out": dict(out), "names": list(out),
@@ -347,12 +363,12 @@ class FusedGraphEngine:
                 "count": count, "n": n, "ts": ts,
             }
         else:
-            new_states, emitmask, out_f, out_i, anchor, count = res
+            _states, emitmask, out_f, out_i, anchor, count = res
             chunk = {
                 "kind": TAIL_DENSE, "emitmask": emitmask, "f": out_f,
                 "i": out_i, "anchor": anchor, "count": count, "n": n,
             }
-        return tuple(new_states), chunk
+        return chunk
 
 
 class FusedDeferredEmit:

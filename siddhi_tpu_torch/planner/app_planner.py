@@ -7,8 +7,14 @@ Port of the annotation half of the JAX package's
   time drives the clock; ``increment`` is added to it, and with
   ``idle.time`` the app runtime's heartbeat advances it by
   ``increment`` when no event arrives for that long);
-- ``@app:execution('tpu', partitions=, instances=, emit.depth=,
-  ingest.depth=, agg.device.min.batch=)``;
+- ``@app:execution('tpu', partitions=, instances=, devices=,
+  emit.depth=, ingest.depth=, agg.device.min.batch=)``: ``devices='N'``
+  shards the partition axis over an N-shard mesh (``parallel/``), and
+  ``partitions`` must divide by it;
+- ``@app:plan(auto=, hysteresis=, interval=)``: the cost model's own
+  choice of each query's lowering (``planner/costmodel.py``), the plan
+  monitor's re-plan margin and its sweep interval
+  (``planner/monitor.py``);
 - ``@app:hotkeys(k=, promote=, demote=)``;
 - ``@app:kernels`` / ``@app:kernels('nfa,scan,bank')``;
 - ``@app:persist(interval=, mode=)`` (the default ``persist()`` mode and
@@ -16,9 +22,7 @@ Port of the annotation half of the JAX package's
 - ``@app:faults(seed=, journal=, transfer.retry.*=, <site>=...)``: the
   fault injector and the input journal, which lives on the manager
   context, keyed by app name, so a runtime built after a crash replays
-  it.  ``step.shard``, the one site the port does not wire
-  (``util/faults.UNWIRED_SITES``), is refused, naming ``ROADMAP.md``
-  item 16;
+  it;
 - ``@app:multiplex(slots=)``: this app's eligible queries take seats
   in the manager's shared device engines (``multiplex/``);
 - ``@app:fuse`` / ``@app:fuse('false')``: stream-graph fusion of
@@ -52,10 +56,7 @@ The port runs its kernels on the card whenever it runs on a card: it
 has no XLA formulation to keep, so ``@app:kernels`` is parsed and
 validated as the reference does and switches nothing, and the
 degradation ladder has no ``kernels`` rung (``robustness/ladder.py``).
-``@app:plan`` (the cost model's own choice and the plan monitor) is
-refused, naming its ``ROADMAP.md`` item (``LATER``); a replan pin names
-a path instead (``SiddhiAppRuntime.replan``).  An ``@app:`` name the
-reference does not know is ignored, as there.
+An ``@app:`` name the reference does not know is ignored, as there.
 """
 
 from __future__ import annotations
@@ -66,26 +67,12 @@ import uuid
 from typing import Dict, List
 
 from siddhi_tpu_torch.compiler.parser import parse_time_string
-from siddhi_tpu_torch.core.exceptions import (
-    SiddhiAppCreationError,
-    later_slice,
-)
+from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
 from siddhi_tpu_torch.durability.spill import JournalSpillSink
 from siddhi_tpu_torch.query_api.annotation import find_annotation
-from siddhi_tpu_torch.util.faults import (
-    UNWIRED_SITES,
-    FaultInjector,
-    InputJournal,
-)
+from siddhi_tpu_torch.util.faults import FaultInjector, InputJournal
 from siddhi_tpu_torch.util.scheduler import Scheduler
 from siddhi_tpu_torch.util.statistics import Level, StatisticsManager
-
-# the reference's app annotations the port does not read yet: the
-# ROADMAP.md §1 item that ports each, and what it is
-LATER = {
-    "app:plan": ("15d", "the cost model's own choice and the plan monitor"),
-}
-
 
 class TimestampGenerator:
     """Event/wall time source: under ``@app:playback`` the current time
@@ -218,10 +205,16 @@ class AppContext:
         # watchdog liveness: one beat a journaled ingest and a dispatch
         self.progress = ProgressBeat()
         # a replan's per-query path pins ('device', 'fuse',
-        # 'dense+hotkey', 'host'); the cost model's own choice is item
-        # 15d and a mesh is item 16, so both stay off
+        # 'dense+hotkey', 'device+shard', 'host')
         self.plan_pins: Dict[str, str] = {}
+        # @app:plan: the cost model picks each unpinned query's lowering;
+        # the plan monitor's re-plan margin and sweep interval (0: no
+        # sweep, decide() on demand only)
         self.plan_auto = False
+        self.plan_hysteresis = 0.3
+        self.plan_interval_ms = 0
+        # @app:execution(devices='N'): the mesh's shard count (None: one
+        # device)
         self.tpu_devices = None
         # the app's running gate (set by start and shutdown)
         self.app_running = False
@@ -258,11 +251,6 @@ def plan_app_context(siddhi_app, device, siddhi_context,
     ``app_name``: a live re-plan's, which keeps the app's (an unnamed
     app's too)."""
     anns = siddhi_app.annotations
-    for a in anns:
-        name = a.name.lower()
-        if name in LATER:
-            raise SiddhiAppCreationError(
-                f"@{a.name}" + later_slice(*LATER[name]))
     name_ann = find_annotation(anns, "app:name")
     ctx = AppContext(app_name or (name_ann.element() if name_ann else None)
                      or f"app_{uuid.uuid4().hex[:8]}", device)
@@ -287,10 +275,21 @@ def plan_app_context(siddhi_app, device, siddhi_context,
         if exec_ann.element("instances"):
             ctx.tpu_instances = _positive_int(
                 exec_ann, "instances", "a positive integer")
-        if exec_ann.element("devices"):
-            raise SiddhiAppCreationError(
-                "@app:execution: devices= shards the partition axis over a "
-                "mesh" + later_slice(16, "multi-device"))
+        devs = exec_ann.element("devices")
+        if devs:
+            try:
+                nd = int(devs)
+            except ValueError:
+                nd = -1
+            if nd < 1:
+                raise SiddhiAppCreationError(
+                    f"@app:execution: devices='{devs}' must be a "
+                    "positive integer")
+            ctx.tpu_devices = nd
+            if ctx.tpu_partitions % nd:
+                raise SiddhiAppCreationError(
+                    f"@app:execution: partitions={ctx.tpu_partitions} "
+                    f"must be divisible by devices={nd}")
         for key, attr in (("emit.depth", "tpu_emit_depth"),
                           ("ingest.depth", "tpu_ingest_depth")):
             raw = exec_ann.element(key)
@@ -373,12 +372,53 @@ def plan_app_context(siddhi_app, device, siddhi_context,
     _plan_multiplex(ctx, find_annotation(anns, "app:multiplex"))
     _plan_fuse(ctx, find_annotation(anns, "app:fuse"))
     _plan_devtables(ctx, find_annotation(anns, "app:devtables"))
+    _plan_plan(ctx, find_annotation(anns, "app:plan"))
     _plan_statistics(ctx, find_annotation(anns, "app:statistics"))
     _plan_trace(ctx, find_annotation(anns, "app:trace"))
     _plan_faults(ctx, find_annotation(anns, "app:faults"), siddhi_context)
     _plan_persist(ctx, find_annotation(anns, "app:persist"))
     _plan_limits(ctx, find_annotation(anns, "app:limits"))
     return ctx
+
+
+def _plan_plan(ctx: AppContext, ann):
+    """``@app:plan(auto='true', hysteresis='0.3', interval='5 sec')``:
+    with ``auto`` the cost model (``planner/costmodel.py``) scores every
+    eligible lowering of each query without a pin and picks the
+    cheapest (the fast-path annotations stay pins that override it);
+    ``hysteresis`` is the plan monitor's re-plan margin and
+    ``interval`` paces its sweep (0 = ``decide()`` on demand only)."""
+    if ann is None:
+        return
+    if ctx.execution_mode != "tpu":
+        raise SiddhiAppCreationError(
+            "@app:plan needs @app:execution('tpu')")
+    v = (ann.element("auto") or ann.element() or "true").strip().lower()
+    if v not in ("true", "false"):
+        raise SiddhiAppCreationError(
+            f"@app:plan: auto='{v}' must be 'true' or 'false'")
+    ctx.plan_auto = v == "true"
+    hy = ann.element("hysteresis")
+    if hy:
+        try:
+            h = float(hy)
+        except ValueError:
+            h = -1.0
+        if not (0.0 <= h <= 10.0):
+            raise SiddhiAppCreationError(
+                f"@app:plan: hysteresis='{hy}' must be a fraction "
+                "in 0..10 (margin before a live re-plan)")
+        ctx.plan_hysteresis = h
+    iv = ann.element("interval")
+    if iv:
+        try:
+            ims = int(iv)
+        except ValueError:
+            ims = parse_time_string(iv)
+        if ims <= 0:
+            raise SiddhiAppCreationError(
+                f"@app:plan: interval {iv!r} must be > 0")
+        ctx.plan_interval_ms = ims
 
 
 def _plan_statistics(ctx: AppContext, ann):
@@ -657,12 +697,6 @@ def _plan_faults(ctx: AppContext, ann, siddhi_context):
         return
     opts = {k: v for k, v in ann.elements
             if k is not None and k.lower() != "type"}
-    unwired = sorted(k for k in opts
-                     if k.strip().lower() in UNWIRED_SITES)
-    if unwired:
-        raise SiddhiAppCreationError(
-            f"@app:faults: fault site(s) {unwired} are not wired in the port"
-            + later_slice(16, "multi-device"))
     fi = FaultInjector()
     journal_depth = fi.configure_from_options(opts)
     fi.listeners = ctx.exception_listeners

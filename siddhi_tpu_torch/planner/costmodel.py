@@ -26,12 +26,12 @@ runs; mesh-sharded state does not multiplex; the hotkey router only
 wraps single-device dense state.  A pinned path losing to another pin is
 counted on the statistics feed (plannerConflicts / plannerConflictReason).
 
-Port of the JAX package's ``planner/costmodel.py``.  The port refuses
-``@app:plan`` (the model's own choice and the plan monitor are
-``ROADMAP.md`` §1 item 15d), so its records are in legacy mode (the
-annotations steer the planner) or pinned mode (a live re-plan's pins);
-the sharded candidates are listed as infeasible, naming item 16, the
-multi-device slice.
+Port of the JAX package's ``planner/costmodel.py``: records in legacy
+mode (the annotations steer the planner), pinned mode (a live re-plan's
+pins) or, under ``@app:plan(auto='true')``, auto mode (the cheapest
+feasible candidate steers it, and ``planner/monitor.py`` re-scores it
+with what the statistics feed observed).  The sharded candidates are
+enumerated where ``@app:execution(devices=)`` declares a mesh.
 """
 
 from __future__ import annotations
@@ -313,10 +313,6 @@ def _paths_for(traits: QueryTraits, ctx) -> List[str]:
     return paths
 
 
-_SHARD_PATHS = {"single": ("device+shard", "multiplex+shard"),
-                "state": ("dense+shard", "dense+hotkey+shard")}
-
-
 def build_plan_record(app_planner, query: Query, name: str) -> PlanRecord:
     """Enumerate + score the candidate lowerings for one query.
 
@@ -349,9 +345,9 @@ def build_plan_record(app_planner, query: Query, name: str) -> PlanRecord:
         try:
             _check_composable(path, traits, ctx)
         except SiddhiAppCreationError as e:
-            # a cost-gate rejection is counted like any fallback; with
-            # the model's own choice refused (item 15d) no one asked for
-            # the path, so the port logs it at DEBUG, not WARNING
+            # a cost-gate rejection is counted like any fallback; the
+            # port logs it at DEBUG, so its fallback WARNINGs stay the
+            # device paths' (ROADMAP.md §3 pin 15)
             log.debug(
                 "query '%s': cost model rejected candidate '%s': %s",
                 name, path, e)
@@ -360,15 +356,6 @@ def build_plan_record(app_planner, query: Query, name: str) -> PlanRecord:
             rec.candidates.append(PlanCandidate(path, cost, False, str(e)))
             continue
         rec.candidates.append(PlanCandidate(path, cost))
-
-    if not ctx.tpu_devices:
-        # the sharded compositions, listed for /siddhi-plan; no mesh in
-        # the port yet (a record entry, not a counted fallback)
-        for path in _SHARD_PATHS.get(traits.kind, ()):
-            rec.candidates.append(PlanCandidate(
-                path, score_path(path, traits, ctx, BATCH_HINT), False,
-                "device-mesh sharding — ROADMAP.md §1 item 16 "
-                "(multi-device), a later slice of the port"))
 
     feasible = [c for c in rec.candidates if c.feasible]
     best = min(feasible, key=lambda c: c.cost) if feasible \

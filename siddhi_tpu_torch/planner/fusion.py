@@ -43,9 +43,12 @@ Direct injection into a fused intermediate stream (its InputHandler
 still exists when the stream is declared) cannot enter the middle of the
 fused step; a tap subscriber raises into the junction's error route, so
 the misuse is loud instead of silently dropped.  A replan pin naming
-``fuse`` runs the pass too, and a member pinned to another path leaves
-its chain to per-query planning; the cost model's own trigger comes
-with item 15d, the sharded fused engine with item 16.
+``fuse`` runs the pass too, as ``@app:plan(auto='true')`` does, and a
+member pinned to another path leaves its chain to per-query planning.
+Under ``@app:execution(devices=)`` an all-filter chain whose tail the
+plan shards (auto mode, or a pin naming ``shard``) runs on
+``parallel/fused_shard.ShardedFusedGraphEngine``; any other chain keeps
+the single-device engine, its reason counted as a sharded fallback.
 """
 
 from __future__ import annotations
@@ -393,11 +396,40 @@ def _try_lower_chain(app, entries, run: List[int], hops: List[str],
             fallback(name, f"chain {chain_label}: {e}")
             return None
 
-    try:
-        graph = FusedGraphEngine(stages, dense_tail, dense_key)
-    except SiddhiAppCreationError as e:
-        fallback(chain_names[-1], f"chain {chain_label}: {e}")
-        return None
+    graph = None
+    tail_name = chain_names[-1]
+    nd = ctx.tpu_devices
+    pin = str(ctx.plan_pins.get(tail_name, "") or "")
+    want_shard = bool(nd) and dense_tail is None and (
+        ctx.plan_auto or "shard" in pin.split("+"))
+    if want_shard and "shard" not in pin.split("+") and pin:
+        # an explicit replan pin without 'shard' stays single-device
+        want_shard = False
+    if want_shard:
+        from siddhi_tpu_torch.parallel.fused_shard import (
+            ShardedFusedGraphEngine,
+        )
+        from siddhi_tpu_torch.planner.query_planner import _get_mesh
+
+        try:
+            graph = ShardedFusedGraphEngine(stages, _get_mesh(app, nd))
+            log.info("fused chain %s: batch axis sharded over %d devices",
+                     chain_label, nd)
+        except SiddhiAppCreationError as e:
+            # not silent: the mesh stays idle for this chain, so the
+            # reason is logged and counted before the single-device
+            # fused engine takes it
+            log.warning("query '%s': fuse+shard unavailable (%s); "
+                        "single-device fused engine used", tail_name, e)
+            sm = ctx.statistics_manager
+            if sm is not None:
+                sm.record_sharded_fallback(tail_name, str(e))
+    if graph is None:
+        try:
+            graph = FusedGraphEngine(stages, dense_tail, dense_key)
+        except SiddhiAppCreationError as e:
+            fallback(tail_name, f"chain {chain_label}: {e}")
+            return None
     return _wire_chain(app, entries, run, hops, graph, chain_label)
 
 
@@ -507,7 +539,10 @@ def _wire_chain(app, entries, run: List[int], hops: List[str],
     if rate_limiter.needs_scheduler_task:
         app.scheduler.register_task(
             _RateLimiterTask(qr, rate_limiter, device_runtime=runtime))
-    qr.lowered_to = "fused"
+    lowered = ("fuse+shard"
+               if getattr(graph, "engine_kind", "") == "fused_shard"
+               else "fused")
+    qr.lowered_to = lowered
 
     planned: Dict[int, QueryRuntime] = {id(tail_q): qr}
 
@@ -524,7 +559,7 @@ def _wire_chain(app, entries, run: List[int], hops: List[str],
                 q.selector, graph.stages[pos].output_names, hops[pos]),
             PassThroughRateLimiter(),
             _InertOutput(), ctx)
-        iqr.lowered_to = "fused"
+        iqr.lowered_to = lowered
         planned[id(q)] = iqr
         if hops[pos] in app.junctions:
             app.junctions[hops[pos]].subscribe(
@@ -535,8 +570,9 @@ def _wire_chain(app, entries, run: List[int], hops: List[str],
         n_total = len(graph.stages) + (1 if graph.dense is not None else 0)
         for idx in run:
             nm = entries[idx][1]
-            rec = fused_plan_record(nm, ctx, n_total)
-            rec.actual = "fused"
+            rec = fused_plan_record(nm, ctx, n_total,
+                                    sharded=(lowered == "fuse+shard"))
+            rec.actual = lowered
             sm.register_plan(nm, rec)
     log.info("fused chain %s: %d stages lowered to one device step",
              chain_label, len(graph.stages)

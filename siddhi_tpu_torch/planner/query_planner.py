@@ -119,6 +119,7 @@ from siddhi_tpu_torch.ops.nfa import (
 )
 from siddhi_tpu_torch.planner.app_planner import note_fallback
 from siddhi_tpu_torch.planner.costmodel import build_plan_record
+from siddhi_tpu_torch.parallel import ShardedDeviceQueryEngine
 from siddhi_tpu_torch.planner.hotkeys import try_wrap_hotkey
 from siddhi_tpu_torch.planner.host_expr import (
     AGGREGATOR_NAMES,
@@ -356,20 +357,45 @@ def note_device_fallback(app, name: str, reason: str):
 
 
 def _want(app, path: str, name: str) -> bool:
-    """Does query ``name`` want fast path ``path`` (``'multiplex'`` or
-    ``'hotkey'``) at its gate site?  A replan pin names the exact
-    composed path; else the annotation (``@app:multiplex``,
-    ``@app:hotkeys``).  The cost model's own pick is ``ROADMAP.md`` §1
-    item 15d.  The path's eligibility gate still runs after a True."""
+    """Does query ``name`` want fast path ``path`` (``'multiplex'``,
+    ``'hotkey'`` or ``'shard'``) at its gate site?  A replan pin names
+    the exact composed path; else the annotation (``@app:multiplex``,
+    ``@app:hotkeys``, a declared mesh); else, under ``@app:plan(auto=
+    'true')``, the cost model's pick.  The path's eligibility gate still
+    runs after a True."""
     ctx = app.app_context
     pin = ctx.plan_pins.get(name)
     if pin is not None:
         return path in str(pin).split("+")
-    if path == "multiplex":
-        return ctx.multiplex
-    if path == "hotkey":
-        return ctx.hotkeys
+    if path == "multiplex" and ctx.multiplex:
+        return True
+    if path == "hotkey" and ctx.hotkeys:
+        return True
+    if path == "shard" and ctx.tpu_devices:
+        # a declared mesh is the shard pin
+        return True
+    if ctx.plan_auto:
+        rec = getattr(app, "_active_record", None)
+        if rec is None:
+            # a partition's queries plan without a record; the hot-key
+            # router gates itself (promotion needs observed skew), so
+            # auto mode opts partitioned dense state in
+            return path == "hotkey"
+        return path in rec.components()
     return False
+
+
+def _get_mesh(app, nd: int):
+    """The app's one device mesh, built on first use (shared by the
+    dense partition axis, the device-query group axis and fused
+    chains)."""
+    mesh = getattr(app, "_tpu_mesh", None)
+    if mesh is None:
+        from siddhi_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(nd, device=app.app_context.device)
+        app._tpu_mesh = mesh
+    return mesh
 
 
 def plan_query(app, query: Query, index: int) -> QueryRuntime:
@@ -381,7 +407,12 @@ def plan_query(app, query: Query, index: int) -> QueryRuntime:
     name = query_name(query, index)
     record = build_plan_record(app, query, name)
     host_pinned = record.mode == "pinned" and record.chosen == "host"
-    qr = _plan_query(app, query, name, host_pinned)
+    # the record steers _want in auto mode
+    app._active_record = record
+    try:
+        qr = _plan_query(app, query, name, host_pinned)
+    finally:
+        app._active_record = None
     record.actual = qr.lowered_to
     sm = app.app_context.statistics_manager
     if sm is not None:
@@ -519,6 +550,24 @@ def plan_device_single(app, query: Query, name: str, s: SingleInputStream,
     output = plan_output(app, query, out_def, name)
     rate_limiter = plan_rate_limiter(query)
     qr = QueryRuntime(name, [[]], selector, rate_limiter, output, ctx)
+    # @app:execution('tpu', devices='N'): the query's window state (its
+    # group axis, key axis or, for the global sliding ring, its batch
+    # axis) sharded over the mesh, as the dense partition axis is
+    nd = ctx.tpu_devices
+    if nd and _want(app, "shard", name):
+        try:
+            engine = ShardedDeviceQueryEngine(engine, _get_mesh(app, nd))
+            log.info("query '%s': device %s state sharded over %d devices",
+                     name, engine.engine.kind, nd)
+        except SiddhiAppCreationError as e:
+            # not silent: the mesh stays idle for this query, so the
+            # reason is logged once and counted on the statistics feed
+            # (Queries.<name>.shardedFallbacks)
+            log.warning("query '%s': mesh sharding unavailable, running "
+                        "single-device: %s", name, e)
+            sm = ctx.statistics_manager
+            if sm is not None:
+                sm.record_sharded_fallback(name, str(e))
     runtime = DeviceQueryRuntime(
         engine, f"#device_{name}", emit=lambda b: qr.process(b, 0),
         emit_depth=ctx.tpu_emit_depth, ingest_depth=ctx.tpu_ingest_depth,
@@ -1023,10 +1072,18 @@ def plan_dense_state(app, query: Query, name: str, st,
     output = plan_output(app, query, out_def, name)
     rate_limiter = plan_rate_limiter(query)
     qr = QueryRuntime(name, [[]], selector, rate_limiter, output, ctx)
+    # @app:execution('tpu', devices='N'): the partition axis sharded over
+    # an N-shard mesh (BASELINE config 5's scale-out form); pointless
+    # for one partition
+    mesh = None
+    nd = ctx.tpu_devices
+    if nd and partitioned and _want(app, "shard", name):
+        mesh = _get_mesh(app, nd)
     runtime = DensePatternRuntime(
         engine, f"#matches_{name}", emit=lambda b: qr.process(b, 0),
         emit_depth=ctx.tpu_emit_depth, ingest_depth=ctx.tpu_ingest_depth,
-        clock=ctx.timestamp_generator.current_time, app_context=ctx)
+        clock=ctx.timestamp_generator.current_time, app_context=ctx,
+        mesh=mesh)
     qr.lowered_to = "dense"
     if selector.partition_axis:
         # match rows carry their partition keys; @purge drops the purged
@@ -1036,12 +1093,23 @@ def plan_dense_state(app, query: Query, name: str, st,
         runtime.on_purge_keys = selector.drop_partition_keys
     # @app:hotkeys: wrap the partitioned passthrough pattern in the skew
     # router (heavy keys ride the fused scan, cold keys stay dense); the
-    # aggregating form stays dense: the router selects final-node lanes
-    if _want(app, "hotkey", name) and partitioned and not aggregating:
+    # aggregating and mesh-sharded forms stay dense: the router selects
+    # final-node lanes, and its state handoff assumes one device's rows
+    if (_want(app, "hotkey", name) and partitioned and mesh is None
+            and not aggregating):
         wrapped = try_wrap_hotkey(ctx, app.definitions, st, runtime, name)
         if wrapped is not None:
             runtime = wrapped
             qr.lowered_to = wrapped.lowered_to
+    elif (ctx.hotkeys and partitioned and mesh is not None
+            and not aggregating):
+        # a pinned @app:hotkeys lost to the mesh (precedence: shard >
+        # hotkeys): the conflict is counted
+        sm = ctx.statistics_manager
+        if sm is not None:
+            sm.record_planner_conflict(
+                name, "@app:hotkeys pinned but the partition axis is "
+                "mesh-sharded (precedence: shard > hotkeys)")
     qr.pattern_processor = runtime
     # registered LAST, in the reference's order: the rate task, then
     # the deadline task (absent deadlines fire from the app scheduler;

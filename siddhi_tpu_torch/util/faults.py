@@ -25,8 +25,7 @@ port imports nothing of that package):
   live tensors in place, dtypes and devices kept.
 
 Injection sites (strings, ``layer.point``) the port wires
-(``WIRED_SITES``); ``step.shard`` waits for the multi-device slice
-(``UNWIRED_SITES``) and an app arming it is refused at creation:
+(``WIRED_SITES``, every site of the reference):
 
 ========================  ================================================
 ``emit.drain``            coalesced device-to-host fetch in EmitQueue
@@ -37,6 +36,9 @@ Injection sites (strings, ``layer.point``) the port wires
                           lock, after the journal records the batch
 ``step.device``           a device query engine's step, a fused chain's
 ``step.dense``            a dense engine's step, a fused dense tail's
+``step.shard``            a sharded step (``parallel/``: a sharded dense
+                          batch, device-query chunk, pane accumulate or
+                          flush)
 ``sink.publish``          Sink.publish_with_reconnect
 ``sink.connect``          sink (re)connect attempts
 ``source.connect``        source (re)connect attempts
@@ -101,12 +103,10 @@ DEFAULT_JOURNAL_DEPTH = 256
 RESERVED_OPTIONS = frozenset(("seed", "transfer.retry.attempts",
                               "transfer.retry.scale", "journal",
                               "journal.depth"))
-# the reference's sites the port does not consult yet: arming one is
-# refused, since it would arm silently (any other name arms, as there)
-UNWIRED_SITES = frozenset(("step.shard",))
 # the injection sites the port consults (see the module note)
 WIRED_SITES = frozenset((
     "emit.drain", "ingest.put", "ingest", "step.device", "step.dense",
+    "step.shard",
     "sink.publish", "sink.connect", "source.connect", "timer", "timer.fire",
     "callback", "state.poison", "persist.write", "persist.post_blob",
     "persist.pre_manifest", "persist.mid_manifest", "persist.post_manifest",
@@ -206,13 +206,7 @@ class FaultInjector:
 
     def configure(self, site: str, kind: str, p: float = 1.0,
                   count: int = 1, after: int = 0) -> "FaultInjector":
-        """Arm a fault at ``site``.  Returns self for chaining.  A site
-        the port does not consult raises: it would arm silently."""
-        if site in UNWIRED_SITES:
-            raise ValueError(
-                f"fault site {site!r} is not wired in the port (wired: "
-                f"{sorted(WIRED_SITES)}) — ROADMAP.md §1 item 16 "
-                "(multi-device), a later slice of the port")
+        """Arm a fault at ``site``.  Returns self for chaining."""
         spec = FaultSpec(site, kind, p=p, count=count, after=after)
         with self._lock:
             self._specs.setdefault(site, []).append(spec)
@@ -550,6 +544,13 @@ def poison_guard(fi, state: Any, last_good: Any, init_state):
     outputs."""
     if fi is None or not fi.watches("state.poison"):
         return state, last_good, False
+    shards = getattr(state, "shards", None)
+    if shards is not None:
+        # a sharded state (parallel/mesh.py ShardedState): the guard runs
+        # over its list of per-shard dicts
+        state.shards, last_good, quarantined = poison_guard(
+            fi, list(shards), last_good, lambda: init_state().shards)
+        return state, last_good, quarantined
     if fi.poisoned("state.poison"):
         state = poison_state(state)
     if not state_has_poison(state):

@@ -4,9 +4,9 @@ packages; the repairs of ``ROADMAP.md`` §3 faults 9–12.
 ``tests/test_async_emit.py`` and ``tests/test_conformance_async.py`` run
 by ``test_torch_persistence.py``'s twin runs (see
 ``test_torch_done_slices.py``): both packages pass each test's own
-assertions and deliver the same events.  ``LEFT_OUT`` names what waits:
-``devices=`` (item 16); the full-ring shutdown case has its own test
-(the port's stop delivers what the reference's drops).  The fault tests run one app
+assertions and deliver the same events, the ``devices=`` cases
+included.  ``LEFT_OUT`` names the full-ring shutdown case, which has its
+own test (the port's stop delivers what the reference's drops).  The fault tests run one app
 string through both packages:
 
 - 9: ``@async(buffer.size, batch.size.max)`` queues sends and a worker
@@ -39,13 +39,6 @@ from test_torch_done_slices import INNER, stand_ins
 from test_torch_persistence import cases, check_twin, run
 
 LEFT_OUT = {
-    "test_async_emit": {
-        ("TestDenseAndShardedDifferential", "test_sharded_dense_deferred"):
-            "devices= (item 16)",
-        ("TestShardedBigBatchRegression",
-         "test_group_keys_aligned_past_2048_rows_deferred"):
-            "devices= (item 16)",
-    },
     "test_conformance_async": {
         (None, "test_stop_with_full_queue_does_not_deadlock"):
             "test_stop_with_a_full_ring_as_the_reference",
@@ -60,7 +53,7 @@ def test_the_corpora_were_read():
     counts = {}
     for p in CASES:
         counts[p.values[0]] = counts.get(p.values[0], 0) + 1
-    assert counts == {"test_async_emit": 21, "test_conformance_async": 4}
+    assert counts == {"test_async_emit": 23, "test_conformance_async": 4}
 
 
 @pytest.mark.parametrize("corpus,cname,mname,k", CASES)

@@ -22,15 +22,13 @@ from test_torch_persistence import INNER_IMPORTS, cases, check_twin
 
 pytestmark = pytest.mark.faults
 
-# what waits for a later slice, with its ROADMAP.md item
-LEFT_OUT_PARAMS = {"sharded": "the sharded engine (item 16)"}
-CASES = cases("test_crash_recovery", {}, LEFT_OUT_PARAMS)
+CASES = cases("test_crash_recovery", {})
 # the sink case imports the broker inside its body
 INNER = INNER_IMPORTS + ("siddhi_tpu.transport.broker",)
 
 
 def test_the_corpus_was_read():
-    assert len(CASES) == 9
+    assert len(CASES) == 11
 
 
 @pytest.mark.parametrize("corpus,cname,mname,k", CASES)

@@ -1807,3 +1807,96 @@ def test_source_device_sink_app_on_card_matches_cpu(cuda_device):
     assert out["cuda"][0] == out["cpu"][0] and out["cuda"][0]
     assert out["cuda"][1] == {"q": "device"}
     assert out["cuda"][2] > 0
+
+
+# -- the kernels under a mesh (devices=) -------------------------------------
+
+MESH_CHAIN = (
+    "@app:playback @app:execution('tpu', partitions='64'{dev}) "
+    "define stream Txn (key long, v double); partition with (key of Txn) "
+    "begin @info(name='q') from every e1=Txn[v > 1.0] -> e2=Txn[v > 2.0] "
+    "-> e3=Txn[v > 3.0] -> e4=Txn[v > 4.0] within 10 min select e4.v as v "
+    "insert into Alerts; end;")
+MESH_TUMBLING = (
+    "@app:playback @app:execution('tpu', partitions='64'{dev}) "
+    "define stream S (sym int, price float); @info(name='q0') from "
+    "S#window.lengthBatch(700) select sym, sum(price) as total, count() "
+    "as c group by sym insert into Out;")
+
+
+def _mesh_rows(app, stream, out, batches, device):
+    """``app`` over ``batches`` (``[(cols, ts)]``) on ``device``: the
+    callback rows, the lowering with step kinds, and the ``dense_batch``
+    and ``accumulate_`` launches from app creation on."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.core.event import EventBatch
+
+    dense_batch.batch_step.launches = 0
+    bank_scatter.accumulate_.launches = 0
+    m = SiddhiManager(device=device)
+    try:
+        rt = m.create_siddhi_app_runtime(app)
+        got = []
+        rt.add_callback(out, lambda evs: got.extend(
+            (e.timestamp, tuple(e.data)) for e in evs))
+        rt.start()
+        h = rt.get_input_handler(stream)
+        for cols, ts in batches:
+            h.send_batch(EventBatch(stream, list(cols), cols, ts))
+        lowering = rt.lowering(step_kinds=True)
+        rt.shutdown()
+    finally:
+        m.shutdown()
+    return got, lowering, (dense_batch.batch_step.launches,
+                           bank_scatter.accumulate_.launches)
+
+
+def test_sharded_batch_step_on_card_matches_cpu(cuda_device):
+    """A capture-free chain under ``devices='4'`` on the card launches
+    ``dense_batch`` once a shard with events and delivers the unsharded
+    card run's rows and the CPU's."""
+    rng = np.random.default_rng(5)
+    batches = [({"key": rng.integers(0, 64, 256).astype(np.int64),
+                 "v": rng.uniform(0.0, 8.0, 256)},
+                np.full(256, 1_000 + 10 * i, dtype=np.int64))
+               for i in range(6)]
+    one = _mesh_rows(MESH_CHAIN.format(dev=""), "Txn", "Alerts", batches,
+                     "cuda")
+    four = _mesh_rows(MESH_CHAIN.format(dev=", devices='4'"), "Txn",
+                      "Alerts", batches, "cuda")
+    cpu = _mesh_rows(MESH_CHAIN.format(dev=", devices='4'"), "Txn",
+                     "Alerts", batches, "cpu")
+    assert four[0] == one[0] == cpu[0] and four[0]
+    assert four[1] == one[1] == {"q": "dense/batch"}
+    assert one[2][0] == len(batches)
+    assert four[2][0] == 4 * len(batches)  # every shard has events
+
+
+def test_sharded_tumbling_sums_on_card_keep_one_device_bits(cuda_device):
+    """A lengthBatch group-by under ``devices='4'`` on the card: each
+    shard's ``accumulate_`` takes the segment at the single-device
+    positions, so every float32 sum has the one-device run's bits; keys
+    and counts equal the CPU's."""
+    rng = np.random.default_rng(9)
+    batches = [({"sym": rng.integers(0, 24, 512).astype(np.int32),
+                 "price": (rng.uniform(0.0, 1.0, 512)
+                           * 10.0 ** rng.integers(-3, 4, 512))
+                 .astype(np.float32)},
+                1_000 + 512 * i + np.arange(512, dtype=np.int64))
+               for i in range(6)]
+    one = _mesh_rows(MESH_TUMBLING.format(dev=""), "S", "Out", batches,
+                     "cuda")
+    four = _mesh_rows(MESH_TUMBLING.format(dev=", devices='4'"), "S",
+                      "Out", batches, "cuda")
+    cpu = _mesh_rows(MESH_TUMBLING.format(dev=", devices='4'"), "S", "Out",
+                     batches, "cpu")
+
+    def bits(rows):
+        return [(t, d[0], np.float64(d[1]).tobytes(), d[2])
+                for t, d in rows]
+
+    assert bits(four[0]) == bits(one[0]) and four[0]
+    assert [(t, d[0], d[2]) for t, d in four[0]] == \
+        [(t, d[0], d[2]) for t, d in cpu[0]]
+    assert four[1] == one[1] == {"q0": "device"}
+    assert one[2][1] > 0 and four[2][1] == 4 * one[2][1]

@@ -7,13 +7,13 @@ port's (``SiddhiManager`` is ``SiddhiManager(device="cpu")``), and the
 modules a test imports inside its body (``siddhi_tpu`` itself, its
 ``query_api``, the fluent builder, the doc generator) standing for the
 port's while it runs.  Both runs must pass the test's own assertions
-and deliver the same events.  What waits for a later slice is in
-``LEFT_OUT`` with its ``ROADMAP.md`` item:
+and deliver the same events:
 
 - ``tests/test_aggregator_library.py``: every case;
 - ``tests/test_device_differential2.py``: every case (the device query
   runtime's ``step_invocations``, fault 12);
-- ``tests/test_int_lanes.py``: all but the ``devices=`` case (item 16);
+- ``tests/test_int_lanes.py``: every case, the ``devices=`` case
+  included (item 16, on the port's eight-shard CPU mesh);
 - ``tests/test_compiler.py``: every case, the fluent builder's two
   included (item 18);
 - ``tests/test_docgen.py``: every case, the listing of every kind
@@ -54,12 +54,7 @@ def stand_ins(rec, port):
     return {"siddhi_tpu": root}
 
 
-LEFT_OUT = {
-    "test_int_lanes": {
-        ("TestIntPartitionedSharded",
-         "test_long_id_join_partitioned_and_sharded"):
-            "devices= (item 16)"},
-}
+LEFT_OUT = {}
 CORPORA = ("test_aggregator_library", "test_device_differential2",
            "test_int_lanes", "test_compiler", "test_docgen")
 CASES = [c for corpus in CORPORA
@@ -72,7 +67,7 @@ def test_the_corpora_were_read():
         counts[p.values[0]] = counts.get(p.values[0], 0) + 1
     assert counts == {"test_aggregator_library": 12,
                       "test_device_differential2": 16,
-                      "test_int_lanes": 11, "test_compiler": 55,
+                      "test_int_lanes": 12, "test_compiler": 55,
                       "test_docgen": 2}
 
 

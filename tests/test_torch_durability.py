@@ -48,7 +48,6 @@ from siddhi_tpu_torch import (
     InMemoryPersistenceStore,
     SiddhiManager,
 )
-from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
 from siddhi_tpu_torch.durability import freeze
 from siddhi_tpu_torch.util.faults import (
     host_copy,
@@ -63,12 +62,11 @@ pytestmark = pytest.mark.faults
 
 # what waits for a later slice, with its ROADMAP.md item, or is held
 # below by the test named beside it
-LEFT_OUT_PARAMS = {"sharded": "the sharded engine (item 16)"}
-CASES = cases("test_durability", {}, LEFT_OUT_PARAMS)
+CASES = cases("test_durability", {})
 
 
 def test_the_corpus_was_read():
-    assert len(CASES) == 39
+    assert len(CASES) == 43
 
 
 @pytest.mark.parametrize("corpus,cname,mname,k", CASES)
@@ -327,6 +325,21 @@ CROSS_APPS = {
         "define stream S (k long, v double); "
         "@info(name='q') from S#window.length(4) select k, sum(v) as s "
         "group by k insert into Out;"),
+    # sharded apps persist the reference's global shard-major rows
+    "sharded_dense": (
+        "@app:name('cross') @app:playback "
+        "@app:execution('tpu', partitions='16', instances='4', "
+        "devices='8') "
+        "define stream S (k long, v double); "
+        "partition with (k of S) begin @info(name='q') from every "
+        "a=S[v > 20.0] -> b=S[v > a.v] within 10 sec select a.v as av, "
+        "b.v as bv insert into Out; end;"),
+    "sharded_device_query": (
+        "@app:name('cross') @app:playback "
+        "@app:execution('tpu', partitions='16', devices='8') "
+        "define stream S (k long, v double); "
+        "@info(name='q') from S#window.lengthBatch(4) select k, sum(v) "
+        "as s group by k insert into Out;"),
 }
 
 
@@ -340,7 +353,9 @@ def test_revision_restores_in_the_other_package(kind, writer, tmp_path):
     run (float32 device sums within the device-query bound)."""
     app = CROSS_APPS[kind]
     sends = kv_series(40, seed=21)
-    lowering = {"dense": {"q": "dense"}, "device_query": {"q": "device"}}
+    lowering = {"dense": {"q": "dense"}, "device_query": {"q": "device"},
+                "sharded_dense": {"q": "dense"},
+                "sharded_device_query": {"q": "device"}}
     port_writes = writer == "port"
 
     ref_m = _manager(port_writes)
@@ -393,19 +408,30 @@ def test_revision_restores_in_the_other_package(kind, writer, tmp_path):
 
 
 def test_unwired_fault_site_is_refused():
-    """``step.shard``, the one site the port does not consult yet (the
-    multi-device slice), would arm silently: the annotation raises at
-    creation and ``configure`` raises, both naming item 16; every other
-    site arms."""
-    with pytest.raises(SiddhiAppCreationError, match="item 16"):
-        SiddhiManager(device="cpu").create_siddhi_app_runtime(
-            "@app:faults(step.shard='crash') " + KV_BODY)
-    rt = SiddhiManager(device="cpu").create_siddhi_app_runtime(
-        "@app:faults(step.dense='crash') " + KV_BODY)
-    fi = rt.app_context.fault_injector
-    with pytest.raises(ValueError, match="item 16"):
+    """Once refused: ``step.shard``, which the port consults since the
+    multi-device slice, arms as in the reference.  A transient fault at
+    the sharded step drops that batch's rows in both packages alike, and
+    the injector counts it once; ``configure`` arms it too."""
+    app = ("@app:playback @app:faults(step.shard='transient:count=1') "
+           "@app:execution('tpu', partitions='16', devices='8') " + KV_BODY)
+    runs = []
+    for port in (False, True):
+        rt = _manager(port).create_siddhi_app_runtime(app)
+        got = []
+        _collect(rt, got)
+        rt.start()
+        h = rt.get_input_handler("S")
+        for row, ts in kv_series(12, seed=3):
+            try:
+                h.send(list(row), timestamp=ts)
+            except Exception:  # the faulted batch, where it raises
+                pass
+        fi = rt.app_context.fault_injector
+        rt.shutdown()
+        assert fi.watches("step.shard")
+        assert fi.stats.faults_injected == 1
         fi.configure("step.shard", "transient")
-    fi.configure("emit.drain", "transient")
-    assert fi.watches("emit.drain")
+        runs.append(got)
+    assert runs[1] == runs[0] and 0 < len(runs[0]) < 12
 
 

@@ -458,8 +458,10 @@ class TestOutsideTheSlice:
         ("@app:execution('tpu', emit.depth='fast') ",
          "positive integer or 'auto'"),
         ("@app:execution('tpu', partitions='0') ", "positive integer"),
-        (TPU + "@app:faults(journal='8', step.shard='crash') ",
-         "later slice"),
+        # once the refused step.shard site (item 16); the mesh's own
+        # check now, with the reference's words
+        ("@app:execution('tpu', partitions='63', devices='8') ",
+         "must be divisible by devices=8"),
     ])
     def test_annotations_validated_as_reference(self, header, match):
         with pytest.raises(SiddhiAppCreationError, match=match):

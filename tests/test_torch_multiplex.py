@@ -5,10 +5,9 @@
 shared engines deliver the same events in each package, and each test's
 own assertions hold there (multiplexed == N dedicated runtimes, one
 shared step a cycle, flush skips, a tenant's crash and journal replay,
-a tenant's persist and restore).  For every query of every app a case
-builds, the port's structural fingerprint is the reference's digest.
-What waits is in ``LEFT_OUT`` with its ``ROADMAP.md`` item: the
-sharded empty-pane case, ``devices=`` (item 16).  The transient-fault
+a tenant's persist and restore, the sharded empty-pane skip under
+``devices=``).  For every query of every app a case builds, the port's
+structural fingerprint is the reference's digest.  The transient-fault
 and poison cases of ``TestMultiplexFaults`` and the statistics reads of
 ``TestMultiplexFallback`` run; ``test_fallback_reason_as_the_reference``
 holds the reason once more, in ``AppContext.multiplex_fallbacks`` and
@@ -40,15 +39,12 @@ from test_torch_persistence import Record, _ev_row, _Runtime, cases, check_twin
 
 pytestmark = pytest.mark.faults
 
-LEFT_OUT = {
-    ("TestFlushSkipRegressions", "test_sharded_timebatch_gap_skips"):
-        "devices= (item 16)",
-}
+LEFT_OUT = {}
 CASES = cases("test_multiplex", LEFT_OUT)
 
 
 def test_the_corpus_was_read():
-    assert len(CASES) == 12
+    assert len(CASES) == 13
 
 
 def digests(app: str):

@@ -22,8 +22,9 @@ assertions and deliver the same events.  The files:
 - ``tests/test_statistics_playback.py``, ``test_observability.py``,
   ``test_debugger.py``.
 
-What waits is in ``LEFT_OUT`` with its ``ROADMAP.md`` item.  The
-port's own points (the poison restore, the retried put, the ladder's
+The sharded cases (``devices=``, a ``shard`` pin) and the plan
+monitor's switch run too.  ``LEFT_OUT`` names the case the port's
+ladder does not take.  The port's own points (the poison restore, the retried put, the ladder's
 single ``fuse`` rung, the refusals) are in ``test_torch_ops_port.py``,
 which imports no JAX, so its card cases run on the card.
 """
@@ -48,14 +49,11 @@ pytestmark = pytest.mark.faults
 
 INNER_OPS = INNER + ("siddhi_tpu.util.persistence", "siddhi_tpu.robustness",
                      "siddhi_tpu.transport.broker", "siddhi_tpu.util.faults",
-                     "siddhi_tpu.observability", "siddhi_tpu.debugger")
+                     "siddhi_tpu.observability", "siddhi_tpu.debugger",
+                     "siddhi_tpu.ops.device_query",
+                     "siddhi_tpu.parallel.device_shard")
 
 LEFT_OUT = {
-    "test_faults": {
-        ("TestTransientDrainRecovery",
-         "test_sharded_ingest_put_transient_recovered"):
-            "devices= (item 16)",
-    },
     "test_overload": {
         ("TestDegradationLadder",
          "test_apply_degradation_demotes_in_documented_order"):
@@ -63,10 +61,6 @@ LEFT_OUT = {
             "15; test_torch_ops_port.py holds its order)",
     },
     "test_replan": {
-        ("TestMidStreamSwitches", "test_single_to_sharded_bit_identical"):
-            "devices= and shard pins (item 16)",
-        ("TestMonitorAndRest", "test_monitor_switch_is_bit_exact_and_pinned"):
-            "@app:plan(auto=) and PlanMonitor (item 15d)",
     },
 }
 CORPORA = ("test_faults", "test_overload", "test_replan",
@@ -135,8 +129,8 @@ def test_the_corpora_were_read():
     counts = {}
     for p in CASES:
         counts[p.values[0]] = counts.get(p.values[0], 0) + 1
-    assert counts == {"test_faults": 29, "test_overload": 32,
-                      "test_replan": 7, "test_statistics_playback": 4,
+    assert counts == {"test_faults": 30, "test_overload": 32,
+                      "test_replan": 9, "test_statistics_playback": 4,
                       "test_observability": 24, "test_debugger": 5}
 
 

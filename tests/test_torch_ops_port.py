@@ -228,30 +228,47 @@ def test_ladder_keeps_the_kernels_and_takes_the_fuse_rung(device):
 
 
 def test_plan_annotation_and_shard_pins_are_refused():
-    """``@app:plan`` (the cost model's own choice, the plan monitor)
-    names item 15d; a replan pin naming ``shard`` names item 16 and is
-    counted as a planner fallback, the app left on its plan."""
+    """Once refused: ``@app:plan`` (the cost model's own choice, item
+    15d) plans, and a replan pin naming ``shard`` (item 16) re-lowers
+    the query onto the declared mesh, bit-exact across the switch; a pin
+    naming an unknown path is still refused and counted as a planner
+    fallback, the app left on its plan."""
+    from siddhi_tpu_torch.parallel import ShardedDeviceQueryEngine
+
     m = siddhi_tpu_torch.SiddhiManager(device="cpu")
+    app = ("@app:name('pins') @app:playback "
+           "@app:execution('tpu', partitions='8', devices='2') "
+           "@app:faults(journal='64') define stream S (v int); "
+           "@info(name='q') from S#window.lengthBatch(2) "
+           "select sum(v) as s insert into O;")
     try:
-        with pytest.raises(SiddhiAppCreationError, match="item 15d"):
-            m.create_siddhi_app_runtime(
-                "@app:execution('tpu') @app:plan(auto='true') "
-                "define stream S (v int); from S select v insert into O;")
         rt = m.create_siddhi_app_runtime(
-            "@app:name('pins') @app:playback @app:execution('tpu') "
-            "@app:faults(journal='64') define stream S (v int); "
-            "@info(name='q') from S[v > 1] select v insert into O;")
+            "@app:execution('tpu') @app:plan(auto='true') "
+            "define stream S (v int); from S select v insert into O;")
+        assert rt.app_context.plan_auto
+        rt.shutdown()
+        rt = m.create_siddhi_app_runtime(app)
+        got = []
+        rt.add_callback("O", lambda evs: got.extend(
+            tuple(e.data) for e in evs))
         rt.start()
-        rt.get_input_handler("S").send([3], timestamp=1000)
-        with pytest.raises(SiddhiAppRuntimeError, match="item 16"):
-            rt.replan({"q": "device+shard"})
+        rt.replan({"q": "device"})
+        h = rt.get_input_handler("S")
+        for i in range(5):
+            h.send([i], timestamp=1000 + i)
+        engine = rt.query_runtimes["q"].device_runtime.engine
+        assert not isinstance(engine, ShardedDeviceQueryEngine)
+        assert rt.replan({"q": "device+shard"}) == {"q": "device"}
+        engine = rt.query_runtimes["q"].device_runtime.engine
+        assert isinstance(engine, ShardedDeviceQueryEngine)
+        for i in range(5, 8):
+            rt.get_input_handler("S").send([i], timestamp=1000 + i)
         with pytest.raises(SiddhiAppRuntimeError, match="unknown path"):
             rt.replan({"q": "warp"})
-        assert rt.lowering() == {"q": "device"}
         st = rt.statistics()
         key = "io.siddhi.SiddhiApps.pins.Siddhi.Queries.pins."
-        assert st[key + "plannerFallbacks"] == 2
-        assert rt.replan({"q": "host"}) == {"q": "host"}
+        assert st[key + "plannerFallbacks"] == 1
         rt.shutdown()
+        assert got == [(1,), (5,), (9,), (13,)]
     finally:
         m.shutdown()

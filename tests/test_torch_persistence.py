@@ -221,29 +221,34 @@ def run(corpus, cname, mname, k, port, tmp_path, request,
     owner = getattr(mod, cname)() if cname else mod
     fn = getattr(owner, mname)
     kwargs = dict(_param_sets(fn)[k])
-    finalizers = []
-    for name in inspect.signature(fn).parameters:
-        if name in kwargs:
-            continue
-        if name == "tmp_path":
-            d = tmp_path / ("port" if port else "jax")
-            d.mkdir()
-            kwargs[name] = d
-        elif name in ("caplog", "monkeypatch"):
-            kwargs[name] = request.getfixturevalue(name)
-        else:
-            # a fixture of the corpus module (its ``manager``)
-            gen = getattr(mod, name).__wrapped__()
-            kwargs[name] = next(gen)
-            finalizers.append(gen)
     if port:
         ctx = port_modules(inner, stand_ins(rec, True) if stand_ins else None)
     elif stand_ins:
         ctx = port_modules((), stand_ins(rec, False))
     else:
         ctx = contextlib.nullcontext()
+    finalizers = []
     try:
         with ctx:
+            for name in inspect.signature(fn).parameters:
+                if name in kwargs:
+                    continue
+                if name == "tmp_path":
+                    d = tmp_path / ("port" if port else "jax")
+                    d.mkdir()
+                    kwargs[name] = d
+                elif name in ("caplog", "monkeypatch"):
+                    kwargs[name] = request.getfixturevalue(name)
+                else:
+                    # a fixture of the corpus module (its ``manager``),
+                    # built as the run's modules stand: a generator's
+                    # first value, or a plain fixture's return
+                    gen = getattr(mod, name).__wrapped__()
+                    if inspect.isgenerator(gen):
+                        kwargs[name] = next(gen)
+                        finalizers.append(gen)
+                    else:
+                        kwargs[name] = gen
             fn(**kwargs)
     finally:
         for gen in finalizers:

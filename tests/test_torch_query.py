@@ -541,44 +541,48 @@ def test_tpu_single_stream_as_the_reference():
 DEVTABLES = "@app:devtables @app:execution('tpu') "
 
 
-@pytest.mark.parametrize("app,item", [
-    ("@app:limits(breaker='3') " + DEFINE
-     + "from S select sym insert into Out;", None),
-    ("@app:plan('auto') " + DEFINE + "from S select sym insert into Out;",
-     "15d"),
-    ("@app:statistics('true') " + DEFINE
-     + "from S select sym insert into Out;", None),
-    ("@app:trace(sample='1') " + DEFINE + "from S select sym insert into Out;",
-     None),
-    ("@app:faults(seed='1', step.shard='transient') " + DEFINE
-     + "from S select sym insert into Out;", 16),
-    ("@app:execution('tpu', devices='2') " + DEFINE
-     + "from S select sym insert into Out;", 16),
+@pytest.mark.parametrize("app", [
+    "@app:limits(breaker='3') " + DEFINE
+    + "from S select sym insert into Out;",
+    "@app:execution('tpu') @app:plan(auto='true') " + DEFINE
+    + "from S select sym insert into Out;",
+    "@app:statistics('true') " + DEFINE
+    + "from S select sym insert into Out;",
+    "@app:trace(sample='1') " + DEFINE + "from S select sym insert into Out;",
+    "@app:faults(seed='1', step.shard='transient') " + DEFINE
+    + "from S select sym insert into Out;",
+    "@app:execution('tpu', devices='2') " + DEFINE
+    + "from S select sym insert into Out;",
 ], ids=["limits", "plan", "statistics", "trace", "faults", "devices"])
-def test_refusals_name_their_roadmap_item(app, item):
-    """No hidden fallback: what the port does not run raises at creation,
-    naming the ``ROADMAP.md`` item that ports it: ``@app:plan`` (the
-    cost model's own choice), a mesh, and the one fault site the port
-    does not wire (it would arm silently).  The annotations the
-    operations layer lifted (``item`` None) plan and run as the
-    reference's, with the same rows."""
-    if item is None:
-        rows = []
-        for make in (JaxManager, lambda: SiddhiManager(device="cpu")):
-            rt = make().create_siddhi_app_runtime(app)
-            got = []
-            rt.add_callback("Out", lambda evs: got.extend(
-                tuple(e.data) for e in evs))
-            rt.start()
-            rt.get_input_handler("S").send(["IBM", 2.5, 1.5, 7, 3, True],
-                                           timestamp=1000)
-            rt.shutdown()
-            rows.append(got)
-        assert rows[0] == rows[1] == [("IBM",)]
-        return
-    with pytest.raises(SiddhiAppCreationError) as info:
-        SiddhiManager(device="cpu").create_siddhi_app_runtime(app)
-    assert f"ROADMAP.md §1 item {item}" in str(info.value)
+def test_refusals_name_their_roadmap_item(app):
+    """No hidden fallback.  The annotations the port once refused, naming
+    the ``ROADMAP.md`` item that ports each, plan and run as the
+    reference's, with the same rows: the operations layer's
+    (``@app:limits``, ``@app:statistics``, ``@app:trace``), the cost
+    model's own choice (``@app:plan``, item 15d), the ``step.shard``
+    fault site and a mesh (item 16; a stateless query keeps one device,
+    as in the reference)."""
+    rows = []
+    for make in (JaxManager, lambda: SiddhiManager(device="cpu")):
+        rt = make().create_siddhi_app_runtime(app)
+        got = []
+        rt.add_callback("Out", lambda evs: got.extend(
+            tuple(e.data) for e in evs))
+        rt.start()
+        rt.get_input_handler("S").send(["IBM", 2.5, 1.5, 7, 3, True],
+                                       timestamp=1000)
+        rt.shutdown()
+        rows.append(got)
+    assert rows[0] == rows[1] == [("IBM",)]
+
+
+def test_later_slice_names_the_roadmap_item():
+    """The wording a refusal of an unported item carries (no refusal
+    uses it while every item of the port's order is done)."""
+    from siddhi_tpu_torch.core.exceptions import later_slice
+
+    assert later_slice(17, "analysis") == (
+        " — ROADMAP.md §1 item 17 (analysis), a later slice of the port")
 
 
 @pytest.mark.parametrize("app,publish", [

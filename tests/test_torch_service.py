@@ -116,9 +116,9 @@ def test_plan_route_legacy_then_pinned_as_the_reference():
     """``/siddhi-plan`` gives the same record in both services: legacy
     mode with the host and device candidates and the realized lowering;
     after ``/siddhi-replan?q1=fuse&q2=fuse`` pinned mode, the fused
-    lowering and the switch in the history.  The port lists the sharded
-    candidates as infeasible, naming item 16; a pin naming ``shard`` is
-    refused (409) there."""
+    lowering and the switch in the history.  With no mesh declared
+    neither lists a sharded candidate, and a pin naming ``shard``
+    re-plans alike in both."""
     out = []
     for svc in _services():
         svc.start()
@@ -137,7 +137,7 @@ def test_plan_route_legacy_then_pinned_as_the_reference():
         finally:
             svc.stop()
         out.append((p0, r, p1, shard))
-    (j0, jr, j1, _), (p0, pr, p1, pshard) = out
+    (j0, jr, j1, jshard), (p0, pr, p1, pshard) = out
     for jp, pp in ((j0, p0), (j1, p1)):
         assert pp["lowering"] == jp["lowering"]
         assert set(pp["plans"]) == set(jp["plans"]) == {"q1", "q2"}
@@ -152,13 +152,13 @@ def test_plan_route_legacy_then_pinned_as_the_reference():
     assert p0["plans"]["q1"]["mode"] == "legacy"
     assert {"host", "device"} <= {c["path"]
                                   for c in p0["plans"]["q1"]["candidates"]}
-    shard = [c for c in p0["plans"]["q1"]["candidates"]
-             if "shard" in c["path"]]
-    assert shard and all(not c["feasible"] and "item 16" in c["reason"]
-                         for c in shard)
+    for p in (j0, p0):
+        assert not [c for c in p["plans"]["q1"]["candidates"]
+                    if "shard" in c["path"]]
     assert pr == jr == {"status": "OK", "queries": {"q1": "fused",
                                                     "q2": "fused"}}
     assert p1["plans"]["q1"]["actual"] == "fused"
     assert [(e["query"], e["from"], e["to"]) for e in p1["replans"]] == \
         [(e["query"], e["from"], e["to"]) for e in j1["replans"]]
-    assert pshard[0] == 409 and b"item 16" in pshard[2]
+    assert pshard[0] == jshard[0] == 200
+    assert json.loads(pshard[2]) == json.loads(jshard[2])
