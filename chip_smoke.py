@@ -357,8 +357,8 @@ skew-routed pattern path and the incremental-aggregation path through
    ``sum(price)``, a capturing two-node pattern tail over ``Win``) at
    B = 8,192, eight symbols, price ~ U(0, 40) so the window sums reach
    the tail's ``total > 1540.0`` (32 instance lanes a node, so none
-   is dropped), a warm-up batch of 1,024 rows and 2
-   timed batches (the tail's one general step a row takes about 19 s a
+   is dropped), a warm-up batch of 1,024 rows and 1
+   timed batch (the tail's one general step a row takes 19-30 s a
    batch), fused on the card, unfused on the card and fused at
    ``device="cpu"`` over the same batches: rows, which must not be
    none, equal
@@ -477,7 +477,29 @@ skew-routed pattern path and the incremental-aggregation path through
    ``@app:plan(auto='true')`` switch by ``PlanMonitor`` on the observed
    batch widths, rows equal to the run that keeps its plan.  Seconds a
    case and a ``sharded_seconds`` line follow.
-32. kernels: one line per ported kernel (launches on the main paths,
+32. analysis: (a) the port's static pass (``python -m
+   siddhi_tpu_torch.analysis --format json`` on this checkout, started
+   after the build in a process of its own, beside the card phases):
+   its rule count, findings (which must be 0), suppressed count and
+   seconds; (b)
+   its dynamic twin, ``analysis/sync_guard.SyncGuard``
+   (``torch.cuda.set_sync_debug_mode("warn")``, each sync attributed to
+   its innermost frame of the port), over four main-path apps at full
+   width, each for 1 warm-up batch and 3 guarded batches, then the same
+   batches unguarded: ``product``'s capturing chain and the capture-free
+   chain (``product_batch``) at 1,000,000 partitions and B=131072, both
+   from the product phase's seeded start, ``device_queries``'
+   ``partition_scaling_50000`` (B=8192) and ``bench_hot_key``'s routed
+   app (4096 keys, B=8192).  First a control: the batch step's plain
+   twin, off the main path, under the guard, whose syncs (its rank
+   count's ``int()`` and its ``nonzero``) the guard must see and
+   attribute to its scope.  One line an app: syncs a batch by scope
+   and by bucket (drain, staging, allowlist, on_card), the unsanctioned
+   count, which must be 0, the launches of each kernel from the app's
+   creation, which must include the app's kernels, and the rows held bit
+   for bit between the guarded and the unguarded run.  Nothing is timed
+   under the guard.
+33. kernels: one line per ported kernel (launches on the main paths,
    largest difference from its plain version, ``ms``, ``host_us``,
    ``device_us``, plain and library times, bound); the bank kernel's at
    the entry the aggregation path uses, ``accumulate_``, with the delta
@@ -498,6 +520,8 @@ nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import atexit
+import contextlib
 import ctypes
 import gc
 import json
@@ -505,7 +529,9 @@ import logging
 import re
 import subprocess
 import sys
+import threading
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -5405,12 +5431,13 @@ FUSE_APP = ("@app:name('fusebench{tag}') @app:playback "
             "select e1.sym as s1, e1.total as t1, e2.total as t2 "
             "insert into Out;")
 FUSE_BATCH = 8_192
-# cut from 2 warm-up and 4 timed batches of 8,192: the fused dense tail
-# takes one general step a row, about 2.2 ms a row on the H100, so a
-# batch of 8,192 takes about 19 s on the card (8 s on its host's CPU);
-# the warm-up batch is shorter
+# cut from 2 warm-up and 4 timed batches of 8,192, then from 2 timed to
+# 1 to keep the script inside its time limit: the fused dense tail takes
+# one general step a row, about 2.2-3.7 ms a row on the H100, so a batch
+# of 8,192 takes 19-30 s on the card (8 s on its host's CPU); the
+# warm-up batch is shorter
 FUSE_WARMUP_ROWS = 1_024
-FUSE_STEPS = 2
+FUSE_STEPS = 1
 # bench.py's U(0, 30) prices keep every length(64) sum of the rows
 # above 4.0 near 1,088, 7.5 sigma below the tail's 1540.0, so its run
 # matches nothing; at U(0, 40) about 6% of the sums pass
@@ -7694,6 +7721,206 @@ def sharded_phase(torch, SiddhiManager, EventBatch, StreamCallback, kernels,
     return tally
 
 
+# the analysis phase: the static pass, then the sync guard over four
+# main-path apps at full width, 1 warm-up batch and AN_BATCHES guarded
+AN_BATCHES = 3
+
+
+def start_static_pass() -> dict:
+    """``analysis`` (a), started beside the card phases: ``python -m
+    siddhi_tpu_torch.analysis --format json`` on this checkout, in a
+    process of its own (a host core the card phases leave idle), read by
+    a thread that stamps its end; killed at exit if still running."""
+    out = {"t0": time.perf_counter()}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "siddhi_tpu_torch.analysis", "--format",
+         "json"], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=str(Path(__file__).resolve().parent))
+    atexit.register(proc.kill)
+
+    def wait():
+        out["stdout"], out["stderr"] = proc.communicate()
+        out["seconds"] = time.perf_counter() - out["t0"]
+        out["rc"] = proc.returncode
+
+    out["thread"] = threading.Thread(target=wait, name="static-pass",
+                                     daemon=True)
+    out["thread"].start()
+    return out
+
+
+def an_apps(EventBatch):
+    """The four apps of ``analysis`` (b): label -> (app, input stream,
+    output stream, batches, the runtime's seeded start or None, the
+    kernels its run must launch)."""
+    from siddhi_tpu_torch.ops.dense_nfa import compile_pattern
+
+    n = 1 + AN_BATCHES
+    dense = product_batches(EventBatch)[:n]
+    apps = {}
+    for label, capturing, seed, need in (
+            ("product", True, 29, ("probe",)),
+            ("product_batch", False, 31, ("probe", "dense_batch"))):
+        eng = compile_pattern(flat_app() if capturing else
+                              kernel_eligible_app(), "bench",
+                              n_partitions=N_PARTITIONS,
+                              n_instances=N_INSTANCES, device="cpu")
+        start = mid_chain_state(eng, seed=seed)
+        del eng
+        apps[label] = (product_app("", capturing), "Txn", "Alerts", dense,
+                       start, need)
+    apps["partition_scaling_50000"] = (
+        DEVICE_QUERY_APPS["partition_scaling_50000"][0], "cseEventStream",
+        "outputStream", dq_batches(EventBatch, 50_000, 67)[:n], None,
+        ("bank_scatter",))
+    apps["hot_key_routed"] = (hot_key_app(True), "S", "Alerts",
+                              hot_key_batches(EventBatch)[:n], None,
+                              ("dense_batch", "scan_chain"))
+    return apps
+
+
+def an_run(torch, SiddhiManager, StreamCallback, spec, kernels, guard):
+    """One app of ``analysis`` (b) on the card: created (launch counts
+    from here), its seeded start restored, the warm-up batch sent and
+    drained, then the guarded batches sent and drained inside ``guard``
+    (a ``SyncGuard``, or None for the unguarded twin).  Returns the
+    callback batches, the launches by kernel and the rows."""
+    app, stream, out, batches, start, _need = spec
+    zero_launches(kernels)
+    mgr = SiddhiManager(device="cuda")
+    rt = new_app(mgr, app)
+    kept = []
+
+    class Keep(StreamCallback):
+        def receive_batch(self, batch):
+            kept.append(batch)
+
+    rt.add_callback(out, Keep())
+    rt.start()
+    if start is not None:
+        host, base_ts = start
+        runtime = rt.partitions["partition_0"].dense_query_runtimes[
+            "bench"].pattern_processor
+        runtime.restore({"dense_state": host, "base_ts": base_ts,
+                         "key_rows": dict(zip(range(N_PARTITIONS),
+                                              range(N_PARTITIONS))),
+                         "next_row": N_PARTITIONS, "free_rows": []})
+    h = rt.get_input_handler(stream)
+    h.send_batch(batches[0])
+    rt.drain()
+    torch.cuda.synchronize()
+    with guard or contextlib.nullcontext():
+        for b in batches[1:]:
+            h.send_batch(b)
+        rt.drain()
+    torch.cuda.synchronize()
+    launches = read_launches(kernels)
+    rt.shutdown()
+    mgr.shutdown()
+    return {"outs": {out: kept}, "launches": launches,
+            "rows": sum(len(b) for b in kept)}
+
+
+def analysis_phase(torch, SiddhiManager, EventBatch, StreamCallback, kernels,
+                   card, static) -> dict:
+    """Phase 32, ``analysis``: (a) ``python -m siddhi_tpu_torch.analysis
+    --format json`` on this checkout (``static``, from
+    ``start_static_pass``), which must report no finding; (b)
+    the static host-sync rule's dynamic twin, ``SyncGuard``, over four
+    main-path apps at full width (``an_apps``): each app's syncs a batch
+    by attributed scope, none of them unsanctioned, its kernels launched,
+    and its callback batches under the guard bit for bit those of the
+    same batches unguarded.  Nothing is timed under the guard.  Returns
+    the launches of the guarded runs."""
+    from siddhi_tpu_torch.analysis.sync_guard import (
+        OUTSIDE, SyncGuard, unused_on_card_syncs)
+
+    t_phase = time.perf_counter()
+    static["thread"].join(600)
+    if static["thread"].is_alive() or not static["stdout"]:
+        raise AssertionError("analysis (a): the static pass did not finish: "
+                             f"{static.get('stderr', '')[-2000:]}")
+    report = json.loads(static["stdout"])
+    if static["rc"] != 0 or report["finding_count"]:
+        raise AssertionError(
+            "analysis (a): the static pass reports findings: "
+            + "; ".join(f"{f['file']}:{f['line']} [{f['rule']}] {f['scope']}"
+                        for f in report["findings"][:10]))
+    emit({"phase": "analysis", "case": "static", "rules": report["rule_count"],
+          "modules": report["modules"], "findings": report["finding_count"],
+          "suppressed": report["allowlisted"],
+          "seconds": static["seconds"],
+          "waited_s": time.perf_counter() - t_phase, "card": card})
+    # the control: the batch step's plain twin, off the main path, syncs
+    # outside every sanctioned scope (its rank count and its nonzero), so
+    # the guard must see those syncs on the card and name its scope
+    from siddhi_tpu_torch.kernels import dense_batch
+
+    case = batch_step_case(torch, 3, 2, 64, 8, None, 5, "cuda")
+    control = SyncGuard()
+    with control:
+        dense_batch.batch_step_plain(case["state"], *case["args"],
+                                     case["kw"]["n_inst"],
+                                     case["kw"]["within"])
+    torch.cuda.synchronize()
+    want = "siddhi_tpu_torch/kernels/dense_batch.py:batch_step_plain"
+    seen = control.unsanctioned()
+    emit({"phase": "analysis", "case": "control", "unsanctioned": seen,
+          "lines": {k: dict(v) for k, v in control.lines.items()},
+          "card": card})
+    if seen.get(want, 0) < 2 or any(
+            not k.startswith(want.split(":")[0]) for k in seen):
+        raise AssertionError(f"analysis (b): the guard's control saw {seen}, "
+                             f"not the syncs of {want}")
+    tally = dict.fromkeys(kernels, 0)
+    guards = []
+    for label, spec in an_apps(EventBatch).items():
+        t = time.perf_counter()
+        guard = SyncGuard()
+        got = an_run(torch, SiddhiManager, StreamCallback, spec, kernels,
+                     guard)
+        gc.collect()
+        plain = an_run(torch, SiddhiManager, StreamCallback, spec, kernels,
+                       None)
+        held = held_vs(got, plain)
+        guards.append(guard)
+        for k, n in got["launches"].items():
+            tally[k] += n
+        bad = guard.unsanctioned()
+        missing = [k for k in spec[5] if got["launches"][k] < 1]
+        line = {"phase": "analysis", "case": label,
+                "batch": len(spec[3][1]), "guarded_batches": AN_BATCHES,
+                "syncs_per_batch": {k: n / AN_BATCHES for k, n in
+                                    sorted(guard.counts.items())},
+                "syncs_per_batch_by_bucket": {
+                    k: n / AN_BATCHES for k, n in guard.by_bucket().items()},
+                "threads": {k: sorted(v) for k, v in guard.threads.items()},
+                "unsanctioned": sum(bad.values()),
+                "unsanctioned_scopes": bad,
+                "launches": got["launches"], "rows": got["rows"],
+                "rows_held_guarded_vs_unguarded": held,
+                "bit_equal": True, "seconds": time.perf_counter() - t,
+                "card": card}
+        emit(line)
+        if bad or missing or guard.counts.get(OUTSIDE):
+            raise AssertionError(
+                f"analysis (b) {label}: unsanctioned syncs {bad}, outside "
+                f"{guard.counts.get(OUTSIDE, 0)}, kernels not launched "
+                f"{missing}")
+        del got, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+    stale = unused_on_card_syncs(guards)
+    emit({"phase": "analysis_seconds", "seconds": time.perf_counter() - t_phase,
+          "launches": tally, "on_card_syncs_never_hit": stale, "card": card})
+    if stale:
+        # as a stale allowlist entry fails the static pass: the list of
+        # sanctioned card syncs only shrinks
+        raise AssertionError(f"analysis (b): ON_CARD_SYNCS entries no app "
+                             f"hit: {stale}")
+    return tally
+
+
 def main() -> int:
     import torch
 
@@ -7730,6 +7957,7 @@ def main() -> int:
     # 1. build ---------------------------------------------------------------
     t0 = time.perf_counter()
     built = build.build_all()
+    static = start_static_pass()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "built": built, "card": card,
           "ptxas": {n: [ln.split(":", 1)[1].strip()
@@ -8311,10 +8539,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     shard_launches = sharded_phase(torch, SiddhiManager, EventBatch,
                                    StreamCallback, all_kernels, card)
+
+    # 32. static analysis, and the sync guard over four main-path apps ----
+    gc.collect()
+    torch.cuda.empty_cache()
+    an_launches = analysis_phase(torch, SiddhiManager, EventBatch,
+                                 StreamCallback, all_kernels, card, static)
     emit({"phase": "isolated_errors", "errors": 0,
           "warnings_to_listeners_or_log": ISOLATED.warnings})
 
-    # 32. kernels -------------------------------------------------------------
+    # 33. kernels -------------------------------------------------------------
     by_path = lambda name: {"dense_1M": launches.get(name, 0),
                             "skew_routed": hk_launches.get(name, 0),
                             "aggregation": agg_launches[name],
@@ -8347,7 +8581,9 @@ def main() -> int:
                             # (a)-(e) of the operations phase
                             "operations": ops_launches[name],
                             # (a)-(e) of the sharded phase, card runs
-                            "sharded": shard_launches[name]}
+                            "sharded": shard_launches[name],
+                            # the guarded runs of the analysis phase
+                            "analysis": an_launches[name]}
     emit({"kernels": [
         {"name": "dense_batch", "route": "cuda",
          "source": "siddhi_tpu_torch/kernels/csrc/dense_batch.cu",
@@ -8360,7 +8596,8 @@ def main() -> int:
                       + mux_launches["dense_batch"]
                       + tr_launches["dense_batch"]
                       + ops_launches["dense_batch"]
-                      + shard_launches["dense_batch"]),
+                      + shard_launches["dense_batch"]
+                      + an_launches["dense_batch"]),
          "launches_by_path": by_path("dense_batch"),
          "max_abs_err": batch_err,
          # the 1 M cell's batch; the routed cold sub-batch beside it
@@ -8385,7 +8622,8 @@ def main() -> int:
                       + product_launches["probe"] + auto_launches["probe"]
                       + ckpt_launches["probe"] + fuse_launches["probe"]
                       + mux_launches["probe"] + tr_launches["probe"]
-                      + ops_launches["probe"] + shard_launches["probe"]),
+                      + ops_launches["probe"] + shard_launches["probe"]
+                      + an_launches["probe"]),
          "launches_by_path": by_path("probe"), "max_abs_err": probe_err,
          **{k: probe_line[k] for k in KERNEL_KEYS}},
         {"name": "scan_chain", "route": "cuda",
@@ -8393,7 +8631,8 @@ def main() -> int:
          "replaces": "siddhi_tpu/kernels/scan_chain.py:91",
          "launches": hk_launches["scan_chain"]
                      + auto_launches["scan_chain"]
-                     + ops_launches["scan_chain"],
+                     + ops_launches["scan_chain"]
+                     + an_launches["scan_chain"],
          "launches_by_path": by_path("scan_chain"), "max_abs_err": scan_err,
          # the routed path's shape; the widest legal one beside it
          "case": "H=8, n=2048, S=2",
@@ -8411,7 +8650,8 @@ def main() -> int:
                      + mux_launches["bank_scatter"]
                      + tr_launches["bank_scatter"]
                      + ops_launches["bank_scatter"]
-                     + shard_launches["bank_scatter"],
+                     + shard_launches["bank_scatter"]
+                     + an_launches["bank_scatter"],
          "launches_by_path": by_path("bank_scatter"),
          "launches_by_entry": bank_by_entry,
          "max_abs_err": bank_err,

@@ -36,6 +36,7 @@ import torch
 
 from siddhi_tpu_torch.core.emit_queue import fetch_coalesced
 from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
+from siddhi_tpu_torch.core.ingest_stage import staged_put
 from siddhi_tpu_torch.planner.expr import N_KEY, ExpressionCompiler, Scope
 from siddhi_tpu_torch.query_api import (
     AttrType,
@@ -231,7 +232,7 @@ class ScanPatternEngine:
             env = dict(cols)  # no TS_KEY: _trace_check rejected ts use
             env[N_KEY] = n
             F = self._filter_matrix(env, n)  # [n, S+1]
-            neg = torch.tensor(NEG, dtype=torch.float32, device=self.device)
+            neg = torch.full((), NEG, dtype=torch.float32, device=self.device)
             zero = torch.zeros((), dtype=torch.float32, device=self.device)
             M = torch.full((n, S, S), NEG, dtype=torch.float32,
                            device=self.device)
@@ -286,11 +287,9 @@ class ScanPatternEngine:
         host = {a: np.ascontiguousarray(
                     np.asarray(cols[a])[:n].astype(dt, copy=False))
                 for a, dt in self._lane_dtype.items() if a in cols}
-        dev_cols = {a: torch.from_numpy(v).to(self.device)
-                    for a, v in host.items()}
+        dev_cols, rel_d = staged_put((host, rel), self.device)
         scan = self.make_scan()
-        state, match, start = scan(state, dev_cols,
-                                   torch.from_numpy(rel).to(self.device))
+        state, match, start = scan(state, dev_cols, rel_d)
         match_h, start_h = fetch_coalesced([match, start])
         idx = np.flatnonzero(match_h)
         starts = start_h[idx].astype(np.int64) + self.base_ts

@@ -1900,3 +1900,54 @@ def test_sharded_tumbling_sums_on_card_keep_one_device_bits(cuda_device):
         [(t, d[0], d[2]) for t, d in cpu[0]]
     assert four[1] == one[1] == {"q0": "device"}
     assert one[2][1] > 0 and four[2][1] == 4 * one[2][1]
+
+
+# -- the sync guard (the port's jax.transfer_guard("disallow")) ---------------
+
+GUARD_APP = (
+    "define stream Txn (card long, amount double); "
+    "@info(name='q') "
+    "from every a=Txn[amount > 100.0] -> b=Txn[amount > a.amount] "
+    "within 10 min "
+    "select a.amount as base, b.amount as bv insert into Alerts;")
+GUARD_SENDS = [([1, 150.0], 1000), ([1, 90.0], 1500), ([1, 200.0], 2000),
+               ([1, 300.0], 3000)]
+
+
+def test_dense_every_rearm_under_the_sync_guard(cuda_device):
+    """``tests/test_dense_integration.py``'s
+    ``test_dense_every_rearm_matches_host`` on the card, its sends under
+    ``SyncGuard`` where the reference's run under
+    ``jax.transfer_guard("disallow")``: every sync lies in a sanctioned
+    scope (the staging put, the count-gated drain, the host-sync
+    allowlist) and the matches are the host engine's."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.analysis.sync_guard import SyncGuard
+
+    def run(app, guard):
+        m = SiddhiManager() if guard is not None else \
+            SiddhiManager(device="cpu")
+        rt = m.create_siddhi_app_runtime(app)
+        got = []
+        rt.add_callback("Alerts", lambda evs: got.extend(e.data for e in evs))
+        rt.start()
+        h = rt.get_input_handler("Txn")
+        if guard is None:
+            for row, ts in GUARD_SENDS:
+                h.send(row, timestamp=ts)
+        else:
+            with guard:
+                for row, ts in GUARD_SENDS:
+                    h.send(row, timestamp=ts)
+        rt.shutdown()
+        m.shutdown()
+        return got
+
+    guard = SyncGuard()
+    dense = run("@app:execution('tpu') " + GUARD_APP, guard)
+    host = run(GUARD_APP, None)
+    assert guard.unsanctioned() == {}
+    assert guard.counts.get("<outside>", 0) == 0
+    assert sum(guard.counts.values()) > 0  # the guard saw the drain
+    assert torch.cuda.get_sync_debug_mode() == 0  # restored
+    assert dense == host == [[150.0, 200.0], [200.0, 300.0]]
