@@ -26,7 +26,10 @@ the engine's own step, interned keys dealt round-robin across the
 shards); the runtime holds it, or the engine, as its ``stepper``.  The app's fault
 injector reaches the engine's ``step.dense``, ``step.shard`` and
 ``ingest.put`` sites, and a sampled cycle of its span tracer starts at
-each batch.  The engine refuses what it does not run with the
+each batch (before the partition receiver's key interning, which it
+times; the engine times the put and each collision round, and marks the
+stream for the step's device span, whose anchor the runtime takes at
+its barriers).  The engine refuses what it does not run with the
 reference's reason, and the planner then runs the query on the host
 pattern engine.  Matches reach
 the query runtime's selector through the runtime's ``EmitQueue``, each
@@ -278,6 +281,7 @@ class DensePatternRuntime:
             self.n_shards = self.stepper.n_shards
             self.parts_per_shard = self.stepper.parts_per_shard
         self.state = self.stepper.init_state()
+        self._take_anchor()
         self.step_invocations = 0
         # timer steps that fired a match; the earliest armed deadline,
         # re-read after every event batch, restore and purge
@@ -446,21 +450,30 @@ class DensePatternRuntime:
 
     def process_partitioned(self, stream_id: str, batch: EventBatch, keys):
         """A partitioned stream's batch with each row's raw key: the keys
-        are interned to this runtime's rows."""
-        self.process_stream_batch(stream_id, batch, self.intern_keys(keys),
-                                  keys)
+        are interned to this runtime's rows.  The batch's cycle begins
+        before the interning, which a sampled cycle times (``intern``)."""
+        tok = (self.tracer.begin_cycle(self.engine_kind, len(batch))
+               if self.tracer is not None and len(batch) else None)
+        part = self.intern_keys(keys)
+        if tok is not None:
+            tok.interned()
+        self.process_stream_batch(stream_id, batch, part, keys, begun=True,
+                                  tok=tok)
 
     def process_stream_batch(self, stream_key: str, batch: EventBatch,
-                             part: np.ndarray, keys=None):
+                             part: np.ndarray, keys=None, begun=False,
+                             tok=None):
         """Advance the NFA with a junction batch whose rows the partition
-        receiver interned to ``part``; ``keys`` are the raw key values."""
+        receiver interned to ``part``; ``keys`` are the raw key values.
+        ``begun``: the caller began the batch's cycle (``tok``, None when
+        unsampled)."""
         cur = batch.only(ev.CURRENT)
         if len(cur) == 0:
             return
-        # a sampled cycle token (None for the unsampled): its ingest
-        # span starts here
-        tok = (self.tracer.begin_cycle(self.engine_kind, len(cur))
-               if self.tracer is not None else None)
+        if not begun and self.tracer is not None:
+            # a sampled cycle token (None for the unsampled): its ingest
+            # span starts here
+            tok = self.tracer.begin_cycle(self.engine_kind, len(cur))
         eng = self.engine
         cols = {a: np.asarray(cur.columns[a])
                 for a in eng.numeric_stream_attrs(stream_key)
@@ -468,7 +481,7 @@ class DensePatternRuntime:
         ts = np.asarray(cur.timestamps, dtype=np.int64)
         np.maximum.at(self._row_last_used, part, ts)
         self.state, pending = self.stepper.process_deferred(
-            self.state, stream_key, part, cols, ts)
+            self.state, stream_key, part, cols, ts, trace=tok)
         self.step_invocations += 1
         if eng.has_deadlines:
             self._wake_dirty = True
@@ -503,9 +516,17 @@ class DensePatternRuntime:
 
     def drain(self):
         """Flush barrier: the ingest stage first (staged batches enqueue
-        or skip their emits), then the emit queue."""
+        or skip their emits), then the emit queue; then, every fetch
+        returned, the tracer's device anchor."""
         self.ingest_stage.flush()
         self.emit_queue.drain()
+        self._take_anchor()
+
+    def _take_anchor(self):
+        """The tracer's device anchor on the engine's card, at app start
+        and at each barrier (no-op off the card and with tracing off)."""
+        if self.tracer is not None and self.mesh is None:
+            self.tracer.take_anchor(self.engine.device)
 
     def _emit_deferred(self, pending, ts, keys, now, host_arrays):
         ev_idx, out = pending.materialize(host_arrays)

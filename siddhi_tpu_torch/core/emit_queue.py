@@ -27,7 +27,10 @@ site with a bounded retry and backoff on transient faults
 (``drains_recovered``); a fetch that still fails drops that drain's
 batches (``drains_failed``) and goes to the runtime's ``on_fault``
 hook, so the runtime survives.  A sampled cycle token (``trace``)
-closes its emit span when its entry has materialized.
+closes its emit span when its entry has materialized, and times its
+materialize (``emit.deliver``); the first sampled entry of a drain round
+carries the round's fetch (``emit.fetch``: the wait for the step and
+the copy).
 """
 
 from __future__ import annotations
@@ -39,6 +42,11 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from siddhi_tpu_torch.observability.trace import (
+    STAGE_EMIT_DELIVER,
+    STAGE_EMIT_FETCH,
+)
 
 log = logging.getLogger("siddhi_tpu_torch")
 
@@ -218,8 +226,12 @@ class EmitQueue:
         while self._entries:
             entries, self._entries = self._entries, []
             arrays: List = []
+            # the round's first sampled cycle: it carries the fetch span
+            tok = None
             for e in entries:
                 arrays.extend(e.arrays)
+                if tok is None:
+                    tok = e.trace
             had_device = any(isinstance(a, torch.Tensor) for a in arrays)
             # the controller samples the fetch only when it crossed from
             # the device
@@ -227,7 +239,7 @@ class EmitQueue:
                   if self.controller is not None and had_device else None)
             # one fetch serves every entry of the round: their emit spans
             # share its start
-            t_fetch = time.perf_counter()
+            t_fetch = tok.tracer.clock() if tok is not None else 0.0
             try:
                 host = self._fetch(arrays)
             except Exception as err:
@@ -246,11 +258,15 @@ class EmitQueue:
                 self.controller.note_drain(time.monotonic() - t0)
             if had_device:
                 self.stats.emit_transfers += 1
+            if tok is not None:
+                tok.detail(STAGE_EMIT_FETCH, t_fetch, len(entries))
             off = 0
             for e in entries:
                 n = len(e.arrays)
                 seg = host[off:off + n]
                 off += n
+                t_deliver = (e.trace.tracer.clock() if e.trace is not None
+                             else 0.0)
                 try:
                     e.materialize(seg)
                 except Exception as err:
@@ -264,4 +280,6 @@ class EmitQueue:
                         self.on_fault(err)
                     continue
                 if e.trace is not None:
+                    e.trace.detail(STAGE_EMIT_DELIVER, t_deliver,
+                                   e.trace.n_emit)
                     e.trace.emitted(t_fetch)

@@ -13,6 +13,14 @@ JSON payload: kept in memory as ``last_dump`` (served by
 ``GET /siddhi-trace/<app>``) and written best-effort to the dump
 directory so a post-mortem survives the process.  ``chrome_trace()``
 renders the same spans as Chrome ``chrome://tracing`` complete events.
+
+A second ring, ``detail``, holds the dense path's detail spans
+(interning, the put, each collision round, the step's device time, the
+emit's fetch and delivery) in the same tuple layout, so the batch ring
+keeps its whole ``ingest -> step -> emit`` cycles.  The dump carries it
+under ``detail``, and the Chrome export draws it on tracks of its own
+beside the batch stages, with the device anchors (host clock readings
+that ``step.device`` spans are converted through) in ``otherData``.
 """
 
 from __future__ import annotations
@@ -47,6 +55,13 @@ class FlightRecorder:
     #: room for persist spans interleaving with batch cycles
     SPANS_PER_CYCLE = 4
 
+    #: detail ring capacity per kept cycle: interning, the put, the
+    #: step's device span, the emit's fetch and delivery (5), and up to
+    #: 11 collision rounds.  A batch of B = 131,072 on 100,000 keys
+    #: takes 8-9 rounds (the most transactions one key has in it), 13-14
+    #: detail spans; a batch of distinct keys takes one round, 6.
+    DETAIL_SPANS_PER_CYCLE = 16
+
     #: file-write cap per recorder — a chaos run triggering hundreds of
     #: isolation dumps must not litter the dump dir unboundedly (the
     #: in-memory ``last_dump`` keeps updating past the cap)
@@ -58,6 +73,10 @@ class FlightRecorder:
         self.cycles = max(1, int(cycles))
         self.ring: collections.deque = collections.deque(
             maxlen=self.cycles * self.SPANS_PER_CYCLE)
+        self.detail: collections.deque = collections.deque(
+            maxlen=self.cycles * self.DETAIL_SPANS_PER_CYCLE)
+        # device name -> the host reading of its newest anchor
+        self.anchors: Dict[str, float] = {}
         self.dump_dir = dump_dir if dump_dir is not None else default_dump_dir()
         self.last_dump: Optional[dict] = None
         self.dumps = 0
@@ -70,6 +89,12 @@ class FlightRecorder:
 
     def spans(self) -> List[Span]:
         return list(self.ring)
+
+    def record_detail(self, span: Span) -> None:
+        self.detail.append(span)
+
+    def detail_spans(self) -> List[Span]:
+        return list(self.detail)
 
     def cycle_groups(self) -> "collections.OrderedDict":
         """cycle id -> [span, ...] in ring (append) order, cycles in
@@ -98,6 +123,8 @@ class FlightRecorder:
             "reason": reason,
             "unix_time": time.time(),
             "spans": [self._span_dict(s) for s in self.spans()],
+            "detail": [self._span_dict(s) for s in self.detail_spans()],
+            "anchors": dict(self.anchors),
         }
 
     def dump(self, reason: str) -> dict:
@@ -132,11 +159,12 @@ class FlightRecorder:
         """Complete ("X") events, one per span; ts/dur in microseconds.
 
         Stages map to tids so chrome renders the pipeline as stacked
-        tracks; the cycle id and engine kind ride in ``args`` for the
-        flow inspector."""
+        tracks, the batch stages first, then the detail stages; the
+        cycle id and engine kind ride in ``args`` for the flow
+        inspector."""
         tids: Dict[str, int] = {}
         events = []
-        for span in self.spans():
+        for span in self.spans() + self.detail_spans():
             stage = span[STAGE]
             tid = tids.setdefault(stage, len(tids) + 1)
             events.append({
@@ -153,6 +181,7 @@ class FlightRecorder:
         return {
             "traceEvents": events,
             "displayTimeUnit": "ms",
-            "otherData": {"app": self.app_name},
+            "otherData": {"app": self.app_name,
+                          "deviceAnchors": dict(self.anchors)},
             "metadata": {"thread_names": {v: k for k, v in tids.items()}},
         }

@@ -14,11 +14,32 @@ the checkpoint path (``record_span``), which draw ids from the same
 counter so a capture and its async write stay ordered against the
 batch cycles around them.
 
+Inside a cycle of the dense path the token also records detail spans
+(``record_detail``), which go to the recorder's detail ring and keep
+the batch ring's ``ingest -> step -> emit`` triples whole:
+
+    ``intern``        the partition receiver's key interning; the cycle
+                      begins before it, its ingest span after it
+    ``ingest.put``    the engine's ``staged_put`` of the batch (host)
+    ``step.round``    the host dispatch of one collision round
+    ``step.device``   the stream from just before the put to just after
+                      the last round, read at the count gate
+    ``emit.fetch``    a drain round's coalesced fetch (the wait for the
+                      step and the copy), under its first sampled entry,
+                      with the round's batch count as its ``n_events``
+    ``emit.deliver``  one entry's materialize, selector and callbacks
+
 Everything here is host-side bookkeeping outside the device steps: a
 span is a six-tuple appended to the flight recorder's deque
 (GIL-atomic) plus a histogram bucket increment — no device tensor is
 touched, fetched or waited on, so tracing adds no synchronisation to
 the path: the step span ends where the runtime's count gate resolves.
+``step.device`` reads two timing events once that gate has resolved,
+when both have completed, and puts them on the host clock through a
+device anchor (``take_anchor``, ``to_host``): a host reading paired
+with an event recorded where the stream is idle, at a barrier.  On the
+CPU, where ops run as they are dispatched, it is the host interval
+between the same two points.
 
 Sampling (``@app:trace(sample='1/64')``) gates token creation: an
 unsampled cycle pays one ``itertools.count`` tick and a modulo, and
@@ -30,7 +51,9 @@ from __future__ import annotations
 
 import itertools
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
+
+import torch
 
 from .histograms import LatencyHistogram
 from .recorder import FlightRecorder
@@ -51,10 +74,32 @@ STAGE_TABLE_UPSERT = "table.upsert"
 #: latency distribution like any other stage
 STAGE_WATCHDOG_HEAL = "watchdog.heal"
 
+#: detail stages of the dense path (the recorder's detail ring)
+STAGE_INTERN = "intern"
+STAGE_INGEST_PUT = "ingest.put"
+STAGE_STEP_ROUND = "step.round"
+STAGE_STEP_DEVICE = "step.device"
+STAGE_EMIT_FETCH = "emit.fetch"
+STAGE_EMIT_DELIVER = "emit.deliver"
+
 _STAGES = (STAGE_INGEST, STAGE_STEP, STAGE_EMIT,
            STAGE_PERSIST_CAPTURE, STAGE_PERSIST_WRITE,
            STAGE_TABLE_PROBE, STAGE_TABLE_UPSERT,
-           STAGE_WATCHDOG_HEAL)
+           STAGE_WATCHDOG_HEAL,
+           STAGE_INTERN, STAGE_INGEST_PUT, STAGE_STEP_ROUND,
+           STAGE_STEP_DEVICE, STAGE_EMIT_FETCH, STAGE_EMIT_DELIVER)
+
+#: a device anchor: (host clock reading, timing event recorded with it)
+Anchor = Tuple[float, object]
+
+
+def to_host(anchor: Anchor, event) -> float:
+    """Host-clock seconds at which the stream reached ``event``: the
+    anchor's host reading plus the device time from the anchor's event
+    to ``event`` (``elapsed_time``, in ms).  A pure function of its
+    arguments."""
+    host, anchor_event = anchor
+    return host + anchor_event.elapsed_time(event) / 1e3
 
 
 class CycleToken:
@@ -65,7 +110,7 @@ class CycleToken:
     span and stamps the start of the next."""
 
     __slots__ = ("tracer", "cycle", "engine", "n_events", "n_emit",
-                 "t0", "t_dispatch")
+                 "t0", "t_dispatch", "dev0", "dev1")
 
     def __init__(self, tracer: "Tracer", cycle: int, engine: str,
                  n_events: int, t0: float):
@@ -76,6 +121,32 @@ class CycleToken:
         self.n_emit = 0
         self.t0 = t0
         self.t_dispatch = t0
+        # the step's device marks (Tracer.device_mark), or None
+        self.dev0 = None
+        self.dev1 = None
+
+    def detail(self, stage: str, t_start: float, n_events: int = 0) -> None:
+        """A detail span of this cycle from ``t_start`` to now."""
+        self.tracer.record_detail(self.cycle, stage, self.engine, t_start,
+                                  self.tracer.clock(), n_events)
+
+    def interned(self) -> None:
+        """The partition receiver's interning done: the ``intern`` span
+        from the cycle's start, and the cycle restarts here, so its
+        ingest span starts at the engine runtime."""
+        now = self.tracer.clock()
+        self.tracer.record_detail(self.cycle, STAGE_INTERN, self.engine,
+                                  self.t0, now, self.n_events)
+        self.t0 = self.t_dispatch = now
+
+    def device_begin(self, device) -> None:
+        """Before the batch's put: the step's device span starts where
+        the stream reaches this point."""
+        self.dev0 = self.tracer.device_mark(device)
+
+    def device_end(self, device) -> None:
+        """After the batch's last round: where the device span ends."""
+        self.dev1 = self.tracer.device_mark(device)
 
     def dispatched(self) -> None:
         """Receive-time work done: conversion + H2D put + device step
@@ -92,6 +163,12 @@ class CycleToken:
         self.n_emit = n_emit
         self.tracer.record(self.cycle, STAGE_STEP, self.engine,
                            self.t_dispatch, now, self.n_events)
+        if self.dev0 is not None and self.dev1 is not None:
+            # both events precede the resolved count on the stream
+            t_start, t_end = self.tracer.device_span(self.dev0, self.dev1)
+            self.tracer.record_detail(self.cycle, STAGE_STEP_DEVICE,
+                                      self.engine, t_start, t_end,
+                                      self.n_events)
 
     def emitted(self, t_fetch_start: float) -> None:
         """This cycle's batch materialized on the host (post coalesced
@@ -129,11 +206,10 @@ class Tracer:
         # pre-created so hot-path record() never mutates the dict
         self.stage_hist: Dict[str, LatencyHistogram] = {
             stage: LatencyHistogram() for stage in _STAGES}
+        # card index -> its device anchor (take_anchor)
+        self.anchors: Dict[int, Anchor] = {}
 
     # -- cycle ids -----------------------------------------------------------
-
-    def next_id(self) -> int:
-        return next(self._ids)
 
     def begin_cycle(self, engine: str, n_events: int) -> Optional[CycleToken]:
         """Start one batch cycle; None when this cycle is unsampled
@@ -155,6 +231,16 @@ class Tracer:
         if hist is not None:
             hist.record_s(t_end - t_start)
 
+    def record_detail(self, cycle: int, stage: str, engine: str,
+                      t_start: float, t_end: float, n_events: int) -> None:
+        """A detail span: the recorder's detail ring and the stage's
+        histogram."""
+        self.recorder.record_detail((cycle, stage, engine, t_start, t_end,
+                                     n_events))
+        hist = self.stage_hist.get(stage)
+        if hist is not None:
+            hist.record_s(t_end - t_start)
+
     def record_span(self, stage: str, engine: str, t_start: float,
                     t_end: float, n_events: int = 0,
                     cycle: Optional[int] = None) -> int:
@@ -163,6 +249,49 @@ class Tracer:
         cid = cycle if cycle is not None else next(self._ids)
         self.record(cid, stage, engine, t_start, t_end, n_events)
         return cid
+
+    # -- device time on the host clock ---------------------------------------
+
+    def take_anchor(self, device: torch.device) -> None:
+        """Pair the host clock with a timing event on ``device``'s
+        current stream.  Called at barriers, where the stream is idle
+        (every fetch of the drain has returned), so the event completes
+        as it is recorded; never on the per-batch path.  A no-op with
+        tracing off or off the card."""
+        if not self.sample or device.type != "cuda":
+            return
+        stream = torch.cuda.current_stream(device)
+        event = torch.cuda.Event(enable_timing=True)
+        before = self.clock()
+        event.record(stream)
+        host = (before + self.clock()) / 2
+        self.anchors[stream.device_index] = (host, event)
+        self.recorder.anchors[str(stream.device)] = host
+
+    def device_mark(self, device: torch.device):
+        """A point of the stream: on the card ``(anchor, event)``, an
+        event recorded now (None before the card's first anchor); on
+        the CPU the host clock, since ops ran as they were dispatched."""
+        if device.type != "cuda":
+            return self.clock()
+        stream = torch.cuda.current_stream(device)
+        anchor = self.anchors.get(stream.device_index)
+        if anchor is None:
+            return None
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(stream)
+        return anchor, event
+
+    @staticmethod
+    def device_span(mark0, mark1) -> Tuple[float, float]:
+        """Host-clock ``(start, end)`` between two ``device_mark``s, once
+        both events have completed: the start through the first mark's
+        anchor, the end the device time between the events later."""
+        if not isinstance(mark0, tuple):
+            return mark0, mark1
+        anchor, e0 = mark0
+        t_start = to_host(anchor, e0)
+        return t_start, t_start + e0.elapsed_time(mark1[1]) / 1e3
 
     # -- read-out ------------------------------------------------------------
 

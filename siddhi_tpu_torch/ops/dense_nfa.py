@@ -78,6 +78,10 @@ from siddhi_tpu_torch.kernels.dense_step import (
     flush_subnormals,
 )
 from siddhi_tpu_torch.kernels.plane_pack import unpack_state
+from siddhi_tpu_torch.observability.trace import (
+    STAGE_INGEST_PUT,
+    STAGE_STEP_ROUND,
+)
 from siddhi_tpu_torch.ops.nfa import NFABuilder, Node, PatternScope
 from siddhi_tpu_torch.planner.expr import CompiledExpression, ExpressionCompiler
 from siddhi_tpu_torch.planner.kernels import route_dense_step
@@ -1508,7 +1512,8 @@ class DensePatternEngine:
         return state, ev, out
 
     def process_deferred(self, state, stream_key: str, part_idx: np.ndarray,
-                         cols: Dict[str, np.ndarray], ts: np.ndarray):
+                         cols: Dict[str, np.ndarray], ts: np.ndarray,
+                         trace=None):
         """Async-emit variant of :meth:`process`: the batch's match
         outputs stay on the device inside the returned
         :class:`DeferredDenseEmit` (None only for empty input); even the
@@ -1518,7 +1523,11 @@ class DensePatternEngine:
         the filter matrix, one ``batch_step`` (the state rows change in
         place) and the output columns.  The general step: one
         ``staged_put``, then one ``make_general_step`` call per
-        collision round on the device (see :meth:`_process_general`)."""
+        collision round on the device (see :meth:`_process_general`).
+        ``trace``: the batch's sampled cycle token, which times the put
+        (``ingest.put``) and each round's dispatch (``step.round``) and
+        marks the stream before the put and after the last round
+        (``step.device``)."""
         faults = self.faults
         if faults is not None:
             faults.check("step.dense")
@@ -1534,26 +1543,40 @@ class DensePatternEngine:
             return state, None
         prepared = self.prepare_cols(stream_key, cols)
         if self.step_kind == "general":
-            return state, self._process_general(
-                state, stream_key, part_idx, prepared, rel64.astype(np.int32))
-        pending = DeferredDenseEmit(self)
-        pending.chunks.append(self.batch_chunk(
-            state, stream_key, part_idx, prepared, rel64.astype(np.int32),
-            self.device, np.arange(n)))
+            pending = self._process_general(
+                state, stream_key, part_idx, prepared, rel64.astype(np.int32),
+                trace)
+        else:
+            pending = DeferredDenseEmit(self)
+            pending.chunks.append(self.batch_chunk(
+                state, stream_key, part_idx, prepared, rel64.astype(np.int32),
+                self.device, np.arange(n), trace))
+        if trace is not None:
+            trace.device_end(self.device)
         return state, pending
+
+    def _put(self, x, device, trace):
+        """``staged_put`` of a batch's inputs; a sampled cycle's
+        ``trace`` marks the stream before it and times it."""
+        if trace is None:
+            return staged_put(x, device, self.ingest_stats, self.faults)
+        trace.device_begin(device)
+        t0 = trace.tracer.clock()
+        out = staged_put(x, device, self.ingest_stats, self.faults)
+        trace.detail(STAGE_INGEST_PUT, t0, trace.n_events)
+        return out
 
     def batch_chunk(self, state, stream_key: str, part_idx: np.ndarray,
                     prepared: Dict[str, np.ndarray], rel: np.ndarray,
-                    device, ridx: np.ndarray) -> dict:
+                    device, ridx: np.ndarray, trace=None) -> dict:
         """One ``batch_step`` over ``state``'s rows (on ``device``): the
         batch sorted by partition on the host, staged in one put, its
         filter matrix, one launch and the output columns.  Returns the
         ``DeferredDenseEmit`` chunk; ``ridx`` maps its events to the
-        caller's batch rows."""
+        caller's batch rows; ``trace`` as in ``process_deferred``."""
         order, seg_start, seg_part = partition_segments(part_idx)
-        order, seg_start, seg_part, rel_d, cb = staged_put(
-            (order, seg_start, seg_part, rel, prepared), device,
-            self.ingest_stats, self.faults)
+        order, seg_start, seg_part, rel_d, cb = self._put(
+            (order, seg_start, seg_part, rel, prepared), device, trace)
         ok = self.filter_matrix(stream_key, cb, rel_d)
         emit, anchor, n_emit = batch_step(
             state, order, seg_start, seg_part, ok, rel_d, n_inst=self.I,
@@ -1564,27 +1587,30 @@ class DensePatternEngine:
                 "count": n_emit}
 
     def _process_general(self, state, stream_key: str, part_idx: np.ndarray,
-                         prepared: Dict[str, np.ndarray], rel: np.ndarray
-                         ) -> "DeferredDenseEmit":
+                         prepared: Dict[str, np.ndarray], rel: np.ndarray,
+                         trace=None) -> "DeferredDenseEmit":
         """The general step over a batch's collision rounds (the
         reference's loop, ``siddhi_tpu/ops/dense_nfa.py:1591-1616``): the
         whole batch goes to the device in one put, laid out round after
         round, and each round is a slice of it.  One chunk a round; no
-        value crosses to the host here."""
+        value crosses to the host here.  ``trace`` as in
+        ``process_deferred``."""
         order, bounds = _round_order(part_idx)
         batch = (part_idx.astype(np.int32), rel, prepared)
         if len(bounds) > 2:  # more than one round: lay the rounds out
             batch = (batch[0][order], rel[order],
                      {k: v[order] for k, v in prepared.items()})
-        part_d, rel_d, cols_d = staged_put(batch, self.device,
-                                           self.ingest_stats, self.faults)
+        part_d, rel_d, cols_d = self._put(batch, self.device, trace)
         valid = torch.ones(len(part_idx), dtype=torch.bool, device=self.device)
         step = self.make_general_step(stream_key)
         pending = DeferredDenseEmit(self)
         for lo, hi in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+            t_round = trace.tracer.clock() if trace is not None else 0.0
             state, emit, outs, anchor, n_emit = step(
                 state, part_d[lo:hi], {k: v[lo:hi] for k, v in cols_d.items()},
                 rel_d[lo:hi], valid[lo:hi])
+            if trace is not None:
+                trace.detail(STAGE_STEP_ROUND, t_round, hi - lo)
             pending.chunks.append({
                 "emit": emit, "f": outs["f"], "i": outs["i"],
                 "anchor": anchor, "sel": slice(0, hi - lo),

@@ -389,11 +389,13 @@ class ShardedPatternEngine:
 
     def process_deferred(self, state: ShardedState, stream_key: str,
                          part: np.ndarray, cols: Dict[str, np.ndarray],
-                         ts: np.ndarray):
+                         ts: np.ndarray, trace=None):
         """``DensePatternEngine.process_deferred`` over the shards: every
         output stays on the devices in a ``DeferredDenseEmit`` (None only
         for empty input), its count a device scalar until ``resolve()``.
-        Returns ``(state, pending_or_None)``."""
+        Returns ``(state, pending_or_None)``.  ``trace`` is taken for the
+        engine's signature: a sharded batch records no detail spans (its
+        shards' puts and rounds run on several cards)."""
         from siddhi_tpu_torch.ops.dense_nfa import (
             DeferredDenseEmit,
             _round_order,
