@@ -2155,9 +2155,11 @@ def run_cell(torch, eng, state, batches):
         sync()
         secs.append(time.perf_counter() - t)
         results.append((ev, out))
-        emits = [h[ch["sel"]] for ch, h in zip(pending.chunks, host[::4])]
-        banks.append([sum(int(e[:, b * eng.I:(b + 1) * eng.I].sum())
-                          for e in emits) for b in (0, 1)])
+        # the compacted matches' lanes (column 1): bank 1 from lane I on
+        lanes = (np.concatenate([h[:, 1] for h in host[::2]]) if host
+                 else np.empty(0))
+        banks.append([int((lanes < eng.I).sum()),
+                      int((lanes >= eng.I).sum())])
     return state, results, secs, banks
 
 

@@ -503,7 +503,7 @@ class DensePatternRuntime:
             self.emit_queue.push(PendingEmit(
                 p.device_arrays(),
                 lambda host: self._emit_deferred(p, t, k, now, host),
-                trace=tok))
+                trace=tok, compacted=len(p.chunks)))
 
         # the match-count fetch (resolve) is the blocking device sync;
         # with ingest.depth > 1 it runs after the next batch's dispatch

@@ -87,7 +87,8 @@ class EmitStats:
     """Transfer counters of one device runtime (host ints)."""
 
     __slots__ = ("emit_transfers", "deferred_batches", "zero_match_skips",
-                 "max_pending_depth", "auto_depth")
+                 "max_pending_depth", "auto_depth", "compacted_chunks",
+                 "emit_bytes")
 
     def __init__(self):
         self.emit_transfers = 0
@@ -96,6 +97,10 @@ class EmitStats:
         self.max_pending_depth = 0
         # the depth the 'auto' controller runs at (0: a fixed depth)
         self.auto_depth = 0
+        # dense chunks whose matches were compacted on the device, and
+        # the device bytes the drains copied to the host
+        self.compacted_chunks = 0
+        self.emit_bytes = 0
 
     def as_dict(self) -> dict:
         """The counters under the reference's statistics names."""
@@ -105,20 +110,25 @@ class EmitStats:
             "zeroMatchSkips": self.zero_match_skips,
             "maxPendingDepth": self.max_pending_depth,
             "autoEffectiveDepth": self.auto_depth,
+            "compactedChunks": self.compacted_chunks,
+            "emitBytes": self.emit_bytes,
         }
 
 
 class PendingEmit:
     """One deferred batch: device tensors plus ``materialize(host)``,
     which receives them fetched, in the same order, and emits;
-    ``trace``: the batch's sampled cycle token, or None."""
+    ``trace``: the batch's sampled cycle token, or None; ``compacted``:
+    the dense chunks whose matches ``arrays`` hold compacted."""
 
-    __slots__ = ("arrays", "materialize", "trace")
+    __slots__ = ("arrays", "materialize", "trace", "compacted")
 
-    def __init__(self, arrays: Sequence, materialize: Callable, trace=None):
+    def __init__(self, arrays: Sequence, materialize: Callable, trace=None,
+                 compacted: int = 0):
         self.arrays = list(arrays)
         self.materialize = materialize
         self.trace = trace
+        self.compacted = compacted
 
 
 class EmitDepthController:
@@ -258,6 +268,9 @@ class EmitQueue:
                 self.controller.note_drain(time.monotonic() - t0)
             if had_device:
                 self.stats.emit_transfers += 1
+                self.stats.emit_bytes += sum(
+                    a.nbytes for a in arrays if isinstance(a, torch.Tensor))
+            self.stats.compacted_chunks += sum(e.compacted for e in entries)
             if tok is not None:
                 tok.detail(STAGE_EMIT_FETCH, t_fetch, len(entries))
             off = 0

@@ -238,7 +238,8 @@ class DenseMultiplexGroup:
         self.emit_queue.push(PendingEmit(
             pending.device_arrays(),
             lambda host, p=pending, o=offsets, s=seats, t=cat_ts, n=nows:
-                self._demux(p, host, o, s, t, n)))
+                self._demux(p, host, o, s, t, n),
+            compacted=len(pending.chunks)))
 
     def _demux(self, pending, host_arrays, offsets, seats, cat_ts, nows):
         """Split the match rows (sorted by event index) back per tenant:

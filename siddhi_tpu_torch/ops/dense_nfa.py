@@ -40,7 +40,9 @@ engine runs one of two steps, picked at compile time by
   a round), and each round runs ``make_general_step``: the JAX
   package's XLA step in torch ops, register file included.
 
-Matches come back through ``DeferredDenseEmit`` and
+Matches come back through ``DeferredDenseEmit``: after the count gate
+each step's matched rows are compacted on the device
+(``compact_matches``) and only they cross, through
 ``core/emit_queue.fetch_coalesced``.
 
 Timestamps ride int32 relative lanes re-anchored before they approach
@@ -1583,8 +1585,7 @@ class DensePatternEngine:
             within=self.within_ms)
         out_f, out_i = self.output_columns(cb, emit[:, :self.I])
         return {"emit": emit, "f": out_f, "i": out_i, "anchor": anchor,
-                "sel": slice(0, len(part_idx)), "ridx": ridx,
-                "count": n_emit}
+                "ridx": ridx, "count": n_emit}
 
     def _process_general(self, state, stream_key: str, part_idx: np.ndarray,
                          prepared: Dict[str, np.ndarray], rel: np.ndarray,
@@ -1613,8 +1614,7 @@ class DensePatternEngine:
                 trace.detail(STAGE_STEP_ROUND, t_round, hi - lo)
             pending.chunks.append({
                 "emit": emit, "f": outs["f"], "i": outs["i"],
-                "anchor": anchor, "sel": slice(0, hi - lo),
-                "ridx": order[lo:hi], "count": n_emit,
+                "anchor": anchor, "ridx": order[lo:hi], "count": n_emit,
             })
         return pending
 
@@ -1784,12 +1784,16 @@ class DeferredDenseEmit:
     """Device-resident match outputs of one dense batch, pending drain.
 
     Each chunk is one step's outputs (one chunk a batch from
-    ``process_deferred``): ``emit``/``f``/``i``/``anchor`` are still on
-    the device (lists of them, one a shard in shard order, for a round
-    of ``parallel.mesh.ShardedPatternEngine``); ``sel`` selects the
-    chunk's event rows and ``ridx`` maps them to batch rows.
-    ``materialize`` receives the fetched host arrays in
-    ``device_arrays()`` order and returns what ``process`` returns.
+    ``process_deferred``): the dense banks ``emit [b, 2I]``, ``f [b, 2I,
+    O]``, ``i [b, 2I, 2*n_int]`` and ``anchor [b, 2I]`` still on the
+    device (lists of them, one a shard in shard order, for a round of
+    ``parallel.mesh.ShardedPatternEngine``), ``count`` the device match
+    count (a list a shard for such a round) and ``ridx``, which maps the
+    chunk's event rows (the shards' rows end to end) to batch rows.
+    ``resolve`` brings the counts to the host; ``device_arrays`` then
+    compacts the matched rows on each chunk's device, and
+    ``materialize`` receives them fetched, in ``device_arrays()`` order,
+    and returns what ``process`` returns.
     """
 
     __slots__ = ("engine", "chunks", "_total")
@@ -1800,26 +1804,40 @@ class DeferredDenseEmit:
         self._total: Optional[int] = None
 
     def resolve(self) -> int:
-        """Fetch the per-chunk match counts (scalars only) and prune
-        chunks that matched nothing, so their output banks are never
-        transferred.  Idempotent; returns the total match count."""
+        """Fetch the match counts (scalars only: one a chunk, one a shard
+        of a sharded round) into each chunk's ``counts``, and prune the
+        chunks that matched nothing.  Idempotent; returns the total match
+        count."""
         if self._total is not None:
             return self._total
-        counts = fetch_coalesced([ch["count"] for ch in self.chunks])
-        self.chunks = [ch for ch, c in zip(self.chunks, counts) if int(c)]
-        self._total = int(sum(int(c) for c in counts))
+        per = [c if isinstance(c, list) else [c]
+               for c in (ch["count"] for ch in self.chunks)]
+        host = iter(fetch_coalesced([c for cs in per for c in cs]))
+        kept = []
+        for ch, cs in zip(self.chunks, per):
+            ch["counts"] = [int(next(host)) for _ in cs]
+            if any(ch["counts"]):
+                kept.append(ch)
+        self.chunks = kept
+        self._total = sum(sum(ch["counts"]) for ch in kept)
         return self._total
 
     _KEYS = ("emit", "f", "i", "anchor")
 
-    def device_arrays(self) -> List:
-        arrs: List = []
+    def device_arrays(self) -> List[torch.Tensor]:
+        """After :meth:`resolve`: each chunk's matches compacted on its
+        device, two tensors a chunk (a shard with matches, for a sharded
+        round): see :func:`compact_matches`.  The counts size the
+        compaction, so nothing waits for the device here."""
+        arrs: List[torch.Tensor] = []
         for ch in self.chunks:
-            if isinstance(ch["emit"], list):  # a sharded round, by shard
-                for k in self._KEYS:
-                    arrs.extend(ch[k])
-            else:
-                arrs.extend(ch[k] for k in self._KEYS)
+            banks = [ch[k] if isinstance(ch[k], list) else [ch[k]]
+                     for k in self._KEYS]
+            row0 = 0
+            for (emit, f, i, anchor), m in zip(zip(*banks), ch["counts"]):
+                if m:
+                    arrs.extend(compact_matches(emit, f, i, anchor, m, row0))
+                row0 += emit.shape[0]
         return arrs
 
     def materialize(self, host_arrays) -> Tuple[np.ndarray, np.ndarray]:
@@ -1829,31 +1847,36 @@ class DeferredDenseEmit:
         key_parts: List[np.ndarray] = []  # (ev, anchor, lane) sort keys
         pos = 0
         for ch in self.chunks:
-            if isinstance(ch["emit"], list):
-                # the shards' outputs in shard order: one array a kind
-                k = len(ch["emit"])
-                emit_h, f_h, i_h, anchor_h = (
-                    np.concatenate(host_arrays[pos + j * k:pos + (j + 1) * k])
-                    for j in range(4))
-                pos += 4 * k
-            else:
-                emit_h, f_h, i_h, anchor_h = host_arrays[pos:pos + 4]
-                pos += 4
-            sel = ch["sel"]
-            emit_np = emit_h[sel]  # [b, 2I]
-            if not emit_np.any():
-                continue
-            out_f = f_h[sel]
-            out_i = i_h[sel]
-            anchor_np = anchor_h[sel]
-            rows, lanes = np.nonzero(emit_np)
-            ridx = ch["ridx"]
-            ev_parts.append(ridx[rows])
-            out_parts.append(eng.assemble_out(out_f, out_i, rows, lanes))
-            key_parts.append(np.stack(
-                [ridx[rows], anchor_np[rows, lanes], lanes], axis=1))
+            # two arrays a shard with matches, the shards end to end
+            k = 2 * sum(1 for m in ch["counts"] if m)
+            ints = np.concatenate(host_arrays[pos:pos + k:2])
+            flts = np.concatenate(host_arrays[pos + 1:pos + k:2])
+            pos += k
+            ev = ch["ridx"][ints[:, 0]]
+            ev_parts.append(ev)
+            out_parts.append(eng.assemble_rows(flts, ints[:, 3:]))
+            key_parts.append(np.stack([ev, ints[:, 2], ints[:, 1]], axis=1))
         return flatten_match_parts(
             ev_parts, out_parts, key_parts, max(len(eng.out_spec), 1))
+
+
+def compact_matches(emit: torch.Tensor, f: torch.Tensor, i: torch.Tensor,
+                    anchor: torch.Tensor, m: int, row0: int = 0
+                    ) -> List[torch.Tensor]:
+    """The ``m`` set ``(row, lane)`` pairs of ``emit [b, L]``, in
+    row-major order (``np.nonzero``'s), gathered on ``emit``'s device
+    from the dense banks ``f [b, L, O]``, ``i [b, L, 2*n_int]`` and
+    ``anchor [b, L]``: ``[ints [m, 3 + 2*n_int] int32 (row + row0, lane,
+    anchor, the integer outputs), f [m, O] float32]``.  ``m`` is the
+    count gate's, so ``nonzero_static`` needs no sync; a step's count is
+    the popcount of its ``emit``."""
+    rl = torch.nonzero_static(emit, size=m)
+    r, lane = rl[:, 0], rl[:, 1]
+    head = rl.to(torch.int32)
+    if row0:
+        head[:, 0] += row0
+    return [torch.cat([head, anchor[r, lane][:, None], i[r, lane]], dim=1),
+            f[r, lane]]
 
 
 def flatten_match_parts(ev_parts, out_parts, key_parts, n_out: int

@@ -194,10 +194,10 @@ class ShardedPatternEngine:
     to its device in one ``staged_put``.  Each shard with events then
     runs the engine's own step on its rows: one ``batch_step`` launch
     (the ``dense_batch`` kernel) for a capture-free chain, else the
-    general step a collision round.  The shards' match counts are summed
-    on the first shard's device, the reference's ``psum``, and stay
-    there until the count gate; the shards' outputs go to the
-    ``DeferredDenseEmit`` in shard order.
+    general step a collision round.  The shards' match counts and
+    outputs stay on their devices until the count gate, in shard order
+    in the ``DeferredDenseEmit``; each shard compacts its own matches
+    there.
 
     It keeps the engine's state surface (``process_deferred`` with its
     stream key, the snapshots, purge and timers), so a
@@ -473,11 +473,9 @@ class ShardedPatternEngine:
 
     def _merge(self, chunks) -> dict:
         """The shards' chunks of one step as one ``DeferredDenseEmit``
-        chunk: their outputs as lists in shard order, their counts summed
-        on the first shard's device (the ``psum``)."""
-        ridx = np.concatenate([c["ridx"] for c in chunks])
+        chunk: their outputs and counts as lists in shard order (each
+        shard compacts its own matches, sized by its own count)."""
         out = {k: [c[k] for c in chunks]
-               for k in ("emit", "f", "i", "anchor")}
-        out.update(sel=slice(0, len(ridx)), ridx=ridx,
-                   count=self._psum([c["count"] for c in chunks]))
+               for k in ("emit", "f", "i", "anchor", "count")}
+        out["ridx"] = np.concatenate([c["ridx"] for c in chunks])
         return out

@@ -1951,3 +1951,24 @@ def test_dense_every_rearm_under_the_sync_guard(cuda_device):
     assert sum(guard.counts.values()) > 0  # the guard saw the drain
     assert torch.cuda.get_sync_debug_mode() == 0  # restored
     assert dense == host == [[150.0, 200.0], [200.0, 300.0]]
+
+
+@pytest.mark.parametrize("name", ["general_via", "batch_chunk", "sharded",
+                                  "multiplex", "full_lanes", "one_row"])
+def test_compacted_emit_on_card_equals_the_dense_selection(cuda_device,
+                                                           name):
+    """``test_torch_emit_compaction.py``'s cases on the card: the
+    compaction launches with no host sync (the sync debug mode raises on
+    one), and the fetched rows equal the selection over the dense banks."""
+    from test_torch_emit_compaction import CASES, check
+
+    eng, pending = CASES[name](np.random.default_rng(7), "cuda")
+    for p in pending if isinstance(pending, list) else [pending]:
+        assert p.resolve() > 0
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            p.device_arrays()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert check(eng, p) > 0

@@ -1,0 +1,322 @@
+"""The dense emit's compaction on the device, held against a NumPy
+selection over the dense banks.
+
+``DeferredDenseEmit.device_arrays()`` compacts each chunk's matches on
+its device after the count gate, so only the matched rows cross.  Every
+holder of a ``DeferredDenseEmit`` is a case: a general round with bank-1
+(via-path) lanes, a ``batch_chunk`` chunk of the capture-free step, a
+sharded round (a list a shard), a multiplexed dense group, a chunk whose
+matches fill every lane of bank 0, and a round of one row.  For each,
+``materialize(fetch_coalesced(device_arrays()))`` must give what the
+selection written here gives from the dense banks: ``np.nonzero`` over
+the emit masks, the outputs gathered at the set lanes (integer outputs
+re-joined from their hi/lo int32 pair) and the rows ordered by (event,
+anchor, lane).  The counter test holds ``compactedChunks`` and
+``emitBytes`` of the runtime's statistics feed to the compacted bytes.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from siddhi_tpu_torch.core.emit_queue import fetch_coalesced
+from siddhi_tpu_torch.core.event import EventBatch
+from siddhi_tpu_torch.ops.dense_nfa import compile_pattern
+from siddhi_tpu_torch.parallel import ShardedPatternEngine, make_mesh
+
+# long keys at the edges of int64: the hi/lo join must give them back
+EDGE_KEYS = np.array([-2**63, 2**63 - 1, -1, 0, 2**32, -2**31 - 7,
+                      2**62 + 12345, 987654321], dtype=np.int64)
+
+KLEENE = ("define stream Login (user long, ok int); "
+          "@info(name='bf') "
+          "from every f=Login[ok == 0]<3:100> -> s=Login[ok == 1] "
+          "within 1 min "
+          "select f[0].user as u, s.ok as sk insert into Alerts;")
+CHAIN = ("define stream Txn (key long, v double); "
+         "@info(name='q') from every e1=Txn[v > 1.0] -> e2=Txn[v > 2.0] "
+         "-> e3=Txn[v > 3.0] within 10 min "
+         "select {sel} insert into Out;")
+PAIR = ("define stream Txn (key long, v double); "
+        "@info(name='q') from every e1=Txn[v > 0.0] -> e2=Txn[v > 100.0] "
+        "within 10 min "
+        "select e1.v as a, e2.key as k, e2.v as b insert into Out;")
+
+
+def _join(hi: np.ndarray, lo: np.ndarray) -> list:
+    """The int64 of each (hi, lo) pair, as Python ints:
+    ``prepare_cols`` stores ``hi = v >> 32`` and ``lo = (v & 0xFFFFFFFF)
+    - 2**31``."""
+    return [(int(h) << 32) + (int(l) + 2**31) for h, l in zip(hi, lo)]
+
+
+def selection(eng, pending):
+    """The matches of ``pending``'s chunks selected on the host from
+    their dense banks (a sharded round's shards end to end)."""
+    evs, anchors, lanes_all, cols = [], [], [], []
+    for ch in pending.chunks:
+        emit, f, i, anchor = (
+            np.concatenate([t.cpu().numpy() for t in ch[k]])
+            if isinstance(ch[k], list) else ch[k].cpu().numpy()
+            for k in ("emit", "f", "i", "anchor"))
+        rows, lanes = np.nonzero(emit)
+        evs.append(ch["ridx"][rows].astype(np.int64))
+        anchors.append(anchor[rows, lanes].astype(np.int64))
+        lanes_all.append(lanes.astype(np.int64))
+        out, ii = [], 0
+        for oi, is_int in enumerate(eng.out_int):
+            if is_int:
+                out.append(_join(i[rows, lanes, 2 * ii],
+                                 i[rows, lanes, 2 * ii + 1]))
+                ii += 1
+            else:
+                out.append(f[rows, lanes, oi])
+        cols.append(out)
+    ev = np.concatenate(evs)
+    order = np.lexsort((np.concatenate(lanes_all), np.concatenate(anchors),
+                        ev))
+    out = [sum((c[oi] if isinstance(c[oi], list) else list(c[oi])
+                for c in cols), []) for oi in range(len(eng.out_int))]
+    return ev[order], [[col[j] for j in order] for col in out]
+
+
+def check(eng, pending):
+    """The compacted path against :func:`selection`: the same events,
+    dtypes, order and output values (floats by their bits, longs
+    exactly).  Returns the match count."""
+    assert pending is not None and pending.resolve() > 0
+    ev, out = pending.materialize(fetch_coalesced(pending.device_arrays()))
+    want_ev, want_cols = selection(eng, pending)
+    assert ev.dtype == np.int64 and np.array_equal(ev, want_ev)
+    assert len(out) == len(ev) == pending.resolve()
+    if any(eng.out_int):
+        assert out.dtype == object
+        for oi, is_int in enumerate(eng.out_int):
+            col = out[:, oi]
+            if is_int:
+                assert all(isinstance(x, (int, np.integer)) for x in col)
+                assert [int(x) for x in col] == want_cols[oi]
+            else:
+                got = np.asarray(col, dtype=np.float64)
+                want = np.asarray(want_cols[oi], dtype=np.float32)
+                assert np.array_equal(got.view(np.int64),
+                                      want.astype(np.float64).view(np.int64))
+    else:
+        assert out.dtype == np.float32
+        want = np.stack([np.asarray(c, dtype=np.float32)
+                         for c in want_cols], axis=1)
+        assert np.array_equal(out.view(np.int32), want.view(np.int32))
+    return len(ev)
+
+
+def _kleene_batch(rng):
+    """Users fail three to five times and then succeed, interleaved, so
+    the rounds collide and the open count's clone emits through bank 1;
+    each user's ``user`` column is a long at an int64 edge."""
+    part, ok = [], []
+    for _ in range(6):
+        for u in range(8):
+            part.append(u)
+            ok.append(int(rng.random() < 0.3))
+    part, ok = np.asarray(part), np.asarray(ok)
+    ts = 1000 + 10 * np.arange(len(part), dtype=np.int64)
+    return ("Login", part, {"user": EDGE_KEYS[part], "ok": ok}, ts)
+
+
+def case_general_via(rng, device="cpu"):
+    eng = compile_pattern(KLEENE, "bf", n_partitions=8, device=device)
+    assert eng.step_kind == "general"
+    _s, pending = eng.process_deferred(eng.init_state(), *_kleene_batch(rng))
+    assert pending.resolve() > 0
+    assert sum(int(ch["emit"][:, eng.I:].sum()) for ch in pending.chunks)
+    assert len(pending.chunks) > 1
+    return eng, pending
+
+
+def _chain_batch(rng, n, n_parts, keys=EDGE_KEYS):
+    part = rng.integers(0, n_parts, n)
+    cols = {"key": keys[part % len(keys)], "v": rng.uniform(0.0, 5.0, n)}
+    ts = 1000 + np.arange(n, dtype=np.int64)
+    return ("Txn", part, cols, ts)
+
+
+def case_batch_chunk(rng, device="cpu"):
+    eng = compile_pattern(CHAIN.format(sel="e3.key as k, e3.v as v"), "q",
+                          n_partitions=16, n_instances=8, device=device)
+    assert eng.step_kind == "batch"
+    _s, pending = eng.process_deferred(eng.init_state(),
+                                       *_chain_batch(rng, 200, 16))
+    assert len(pending.chunks) == 1
+    return eng, pending
+
+
+def case_sharded(rng, device="cpu"):
+    eng = compile_pattern(
+        CHAIN.format(sel="e1.key as k, e1.v as a, e3.v as v"), "q",
+        n_partitions=32, n_instances=4, device=device)
+    stepper = ShardedPatternEngine(eng, make_mesh(4, device=device))
+    _s, pending = stepper.process_deferred(stepper.init_state(),
+                                           *_chain_batch(rng, 160, 32))
+    assert pending.resolve() > 0
+    assert all(isinstance(ch["emit"], list) and len(ch["emit"]) > 1
+               for ch in pending.chunks)
+    # a shard without a match compacts nothing
+    assert any(0 in ch["counts"] for ch in pending.chunks)
+    return eng, pending
+
+
+def case_full_lanes(rng, device="cpu"):
+    """I arming events a partition, then one that completes all I: the
+    last round's every row sets every lane of bank 0."""
+    I, P = 4, 6
+    eng = compile_pattern(PAIR, "q", n_partitions=P, n_instances=I,
+                          device=device)
+    part = np.tile(np.arange(P), I + 1)
+    v = np.concatenate([rng.uniform(1.0, 99.0, I * P),
+                        np.full(P, 200.0)])
+    ts = 1000 + np.arange(len(part), dtype=np.int64)
+    _s, pending = eng.process_deferred(
+        eng.init_state(), "Txn", part,
+        {"key": EDGE_KEYS[part % len(EDGE_KEYS)], "v": v}, ts)
+    assert pending.resolve() == I * P and len(pending.chunks) == 1
+    assert bool(pending.chunks[0]["emit"][:, :I].all())
+    return eng, pending
+
+
+def case_one_row(rng, device="cpu"):
+    eng = compile_pattern(PAIR, "q", n_partitions=4, n_instances=4,
+                          device=device)
+    state, first = eng.process_deferred(
+        eng.init_state(), "Txn", np.array([2, 2, 1]),
+        {"key": EDGE_KEYS[:3], "v": np.array([5.0, 7.0, 9.0])},
+        np.array([1000, 1001, 1002], dtype=np.int64))
+    assert first.resolve() == 0
+    _s, pending = eng.process_deferred(
+        state, "Txn", np.array([2]), {"key": EDGE_KEYS[:1],
+                                      "v": np.array([150.0])},
+        np.array([1003], dtype=np.int64))
+    assert pending.resolve() == 2
+    assert [ch["emit"].shape[0] for ch in pending.chunks] == [1]
+    return eng, pending
+
+
+MUX = ("@app:name('cx{i}') @app:playback @app:execution('tpu') "
+       "@app:multiplex(slots='4') "
+       "define stream Txn (key long, v double); "
+       "@info(name='q') from every e1=Txn[v > 1.0] -> e2=Txn[v > 2.0] "
+       "-> e3=Txn[v > 3.0] within 10 min "
+       "select e1.key as k, e3.v as v insert into Out;")
+
+
+def case_multiplex(rng, device="cpu", tenants=3):
+    """Tenants of one multiplexed dense group (the general step: ``e1``
+    is captured): the group's pendings, recorded as it makes them."""
+    from siddhi_tpu_torch import SiddhiManager
+
+    m = SiddhiManager(device=device)
+    try:
+        rts = []
+        for i in range(tenants):
+            rt = m.create_siddhi_app_runtime(MUX.format(i=i))
+            rt.start()
+            rts.append(rt)
+        (group,) = m.siddhi_context.multiplex_registry.open_groups()
+        eng = group.engine
+        assert eng.step_kind == "general"
+        made = []
+        orig = eng.process_deferred
+
+        def record(*a, **kw):
+            state, pending = orig(*a, **kw)
+            made.append(pending)
+            return state, pending
+        eng.process_deferred = record
+        for c in range(4):
+            for i, rt in enumerate(rts):
+                n = 20 + 3 * i
+                rt.get_input_handler("Txn").send_batch(EventBatch(
+                    "Txn", ["key", "v"],
+                    {"key": EDGE_KEYS[rng.integers(0, 8, n)],
+                     "v": rng.uniform(0.0, 5.0, n)},
+                    1000 + 100 * c + np.arange(n, dtype=np.int64)))
+        for rt in rts:
+            rt.shutdown()
+    finally:
+        m.shutdown()
+    made = [p for p in made if p is not None and p.resolve()]
+    assert made
+    return eng, made
+
+
+CASES = {"general_via": case_general_via, "batch_chunk": case_batch_chunk,
+         "sharded": case_sharded, "multiplex": case_multiplex,
+         "full_lanes": case_full_lanes, "one_row": case_one_row}
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_compacted_emit_equals_the_dense_selection(name):
+    torch.manual_seed(0)
+    eng, pending = CASES[name](np.random.default_rng(7))
+    for p in pending if isinstance(pending, list) else [pending]:
+        assert check(eng, p) > 0
+
+
+COUNTED = ("@app:playback @app:statistics('true') "
+           "@app:execution('tpu', partitions='8', instances='4') "
+           "define stream Txn (key long, v double); "
+           "partition with (key of Txn) begin "
+           "@info(name='q') from every e1=Txn[v > 0.0] -> e2=Txn[v > 100.0] "
+           "within 10 min "
+           "select e1.key as k, e1.v as a, e2.v as b insert into Out; "
+           "end;")
+
+
+def test_emit_counters_count_the_compacted_bytes():
+    """``compactedChunks`` counts the chunks with matches and
+    ``emitBytes`` the compacted tensors' bytes (an int32 ``[m, 3 +
+    2*n_int]`` and a float32 ``[m, O]`` a chunk); a batch with no match
+    adds to neither.  Both are in the statistics feed."""
+    from siddhi_tpu_torch import SiddhiManager
+
+    m = SiddhiManager(device="cpu")
+    try:
+        rt = m.create_siddhi_app_runtime(COUNTED)
+        got = []
+        rt.add_callback("Out", lambda evs: got.extend(evs))
+        rt.start()
+        h = rt.get_input_handler("Txn")
+        proc = rt.partitions["partition_0"].dense_query_runtimes[
+            "q"].pattern_processor
+        stats = proc.emit_stats
+
+        def send(keys, vs, t0):
+            h.send_batch(EventBatch(
+                "Txn", ["key", "v"], {"key": np.asarray(keys, np.int64),
+                                      "v": np.asarray(vs, np.float64)},
+                t0 + np.arange(len(keys), dtype=np.int64)))
+
+        # arming only: no match
+        send([5, 6, 5], [1.0, 2.0, 3.0], 1000)
+        assert (stats.compacted_chunks, stats.emit_bytes) == (0, 0)
+        # key 5 collides, so its second event lands in round 2: round 1
+        # completes key 5's two instances and key 6's one, round 2 the
+        # instance key 5's first event armed
+        send([5, 6, 5], [150.0, 150.0, 160.0], 2000)
+        eng = proc.engine
+        n_int = sum(eng.out_int)
+        O = max(len(eng.out_spec), 1)
+        assert len(got) == 4
+        assert stats.compacted_chunks == 2
+        assert stats.emit_bytes == 4 * len(got) * (3 + 2 * n_int + O)
+        before = (stats.compacted_chunks, stats.emit_bytes)
+        send([7], [1.0], 3000)
+        assert (stats.compacted_chunks, stats.emit_bytes) == before
+        feed = {k.rsplit(".", 1)[1]: v for k, v in rt.statistics().items()
+                if ".Queries.q." in k}
+        assert feed["compactedChunks"] == stats.compacted_chunks
+        assert feed["emitBytes"] == stats.emit_bytes
+        rt.shutdown()
+    finally:
+        m.shutdown()
