@@ -8,7 +8,8 @@ Port of the JAX package's ``core/ingest_stage.py``:
   ``@app:faults`` the ``ingest.put`` site is checked before the copy
   starts, with the emit drain's bounded retry, so a retried put never
   shares a buffer with a copy in flight.
-- ``IngestStats``: per-runtime staging counters.
+- ``IngestStats``: per-runtime staging counters, the dense batch
+  step's among them.
 - ``step_probe``: the readiness probe of a dispatched step, a
   ``torch.cuda.Event`` recorded after it on the current stream (on the
   CPU, where every op has finished when it returns, always ready).
@@ -43,7 +44,8 @@ class IngestStats:
 
     __slots__ = ("staged_batches", "device_puts", "ingest_stalls",
                  "overlapped_batches", "flush_syncs", "max_staging_depth",
-                 "auto_depth")
+                 "auto_depth", "batch_step_launches", "batch_step_events",
+                 "batch_step_segments", "batch_step_longest_segment")
 
     def __init__(self):
         self.staged_batches = 0
@@ -55,6 +57,22 @@ class IngestStats:
         self.max_staging_depth = 0
         # the window the 'auto' controller runs at (0: a fixed depth)
         self.auto_depth = 0
+        # the dense batch step (ops/dense_nfa.py batch_chunk): its steps
+        # (one kernel launch each on a card), their events, the distinct
+        # partitions they stepped and the longest segment seen
+        self.batch_step_launches = 0
+        self.batch_step_events = 0
+        self.batch_step_segments = 0
+        self.batch_step_longest_segment = 0
+
+    def count_batch_step(self, seg_start: np.ndarray) -> None:
+        """One batch step over the segments ``seg_start [K+1]``, K >= 1
+        (the host array of ``partition_segments``)."""
+        self.batch_step_launches += 1
+        self.batch_step_events += int(seg_start[-1])
+        self.batch_step_segments += len(seg_start) - 1
+        self.batch_step_longest_segment = max(
+            self.batch_step_longest_segment, int(np.diff(seg_start).max()))
 
     def as_dict(self) -> dict:
         """The counters under the reference's statistics names."""
@@ -66,6 +84,10 @@ class IngestStats:
             "flushSyncs": self.flush_syncs,
             "maxStagingDepth": self.max_staging_depth,
             "autoIngestDepth": self.auto_depth,
+            "batchStepLaunches": self.batch_step_launches,
+            "batchStepEvents": self.batch_step_events,
+            "batchStepSegments": self.batch_step_segments,
+            "batchStepLongestSegment": self.batch_step_longest_segment,
         }
 
 

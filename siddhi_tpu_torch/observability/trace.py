@@ -21,9 +21,15 @@ the batch ring's ``ingest -> step -> emit`` triples whole:
     ``intern``        the partition receiver's key interning; the cycle
                       begins before it, its ingest span after it
     ``ingest.put``    the engine's ``staged_put`` of the batch (host)
+    ``ingest.segments`` the batch step's host sort of the batch by
+                      partition (``partition_segments``)
     ``step.round``    the host dispatch of one collision round
+    ``step.launch``   the batch step's host dispatch: its filter
+                      matrix, its one kernel launch and its output
+                      columns
     ``step.device``   the stream from just before the put to just after
-                      the last round, read at the count gate
+                      the last round (or the batch step), read at the
+                      count gate
     ``emit.fetch``    a drain round's coalesced fetch (the wait for the
                       step and the copy), under its first sampled entry,
                       with the round's batch count as its ``n_events``
@@ -77,7 +83,9 @@ STAGE_WATCHDOG_HEAL = "watchdog.heal"
 #: detail stages of the dense path (the recorder's detail ring)
 STAGE_INTERN = "intern"
 STAGE_INGEST_PUT = "ingest.put"
+STAGE_INGEST_SEGMENTS = "ingest.segments"
 STAGE_STEP_ROUND = "step.round"
+STAGE_STEP_LAUNCH = "step.launch"
 STAGE_STEP_DEVICE = "step.device"
 STAGE_EMIT_FETCH = "emit.fetch"
 STAGE_EMIT_DELIVER = "emit.deliver"
@@ -86,8 +94,9 @@ _STAGES = (STAGE_INGEST, STAGE_STEP, STAGE_EMIT,
            STAGE_PERSIST_CAPTURE, STAGE_PERSIST_WRITE,
            STAGE_TABLE_PROBE, STAGE_TABLE_UPSERT,
            STAGE_WATCHDOG_HEAL,
-           STAGE_INTERN, STAGE_INGEST_PUT, STAGE_STEP_ROUND,
-           STAGE_STEP_DEVICE, STAGE_EMIT_FETCH, STAGE_EMIT_DELIVER)
+           STAGE_INTERN, STAGE_INGEST_PUT, STAGE_INGEST_SEGMENTS,
+           STAGE_STEP_ROUND, STAGE_STEP_LAUNCH, STAGE_STEP_DEVICE,
+           STAGE_EMIT_FETCH, STAGE_EMIT_DELIVER)
 
 #: a device anchor: (host clock reading, timing event recorded with it)
 Anchor = Tuple[float, object]

@@ -82,6 +82,8 @@ from siddhi_tpu_torch.kernels.dense_step import (
 from siddhi_tpu_torch.kernels.plane_pack import unpack_state
 from siddhi_tpu_torch.observability.trace import (
     STAGE_INGEST_PUT,
+    STAGE_INGEST_SEGMENTS,
+    STAGE_STEP_LAUNCH,
     STAGE_STEP_ROUND,
 )
 from siddhi_tpu_torch.ops.nfa import NFABuilder, Node, PatternScope
@@ -1575,15 +1577,28 @@ class DensePatternEngine:
         batch sorted by partition on the host, staged in one put, its
         filter matrix, one launch and the output columns.  Returns the
         ``DeferredDenseEmit`` chunk; ``ridx`` maps its events to the
-        caller's batch rows; ``trace`` as in ``process_deferred``."""
+        caller's batch rows; ``trace`` as in ``process_deferred``, and
+        besides it times the sort (``ingest.segments``) and the dispatch
+        of the filter matrix, the launch and the output columns
+        (``step.launch``).  The engine's ``ingest_stats`` count the step
+        from the host's segment arrays."""
+        t0 = trace.tracer.clock() if trace is not None else 0.0
         order, seg_start, seg_part = partition_segments(part_idx)
+        if trace is not None:
+            trace.detail(STAGE_INGEST_SEGMENTS, t0, len(part_idx))
+        stats = self.ingest_stats
+        if stats is not None:
+            stats.count_batch_step(seg_start)
         order, seg_start, seg_part, rel_d, cb = self._put(
             (order, seg_start, seg_part, rel, prepared), device, trace)
+        t0 = trace.tracer.clock() if trace is not None else 0.0
         ok = self.filter_matrix(stream_key, cb, rel_d)
         emit, anchor, n_emit = batch_step(
             state, order, seg_start, seg_part, ok, rel_d, n_inst=self.I,
             within=self.within_ms)
         out_f, out_i = self.output_columns(cb, emit[:, :self.I])
+        if trace is not None:
+            trace.detail(STAGE_STEP_LAUNCH, t0, len(part_idx))
         return {"emit": emit, "f": out_f, "i": out_i, "anchor": anchor,
                 "ridx": ridx, "count": n_emit}
 
