@@ -2145,21 +2145,23 @@ def run_cell(torch, eng, state, batches):
         sync()
         t = time.perf_counter()
         state, pending = eng.process_deferred(state, stream, part, cols, ts)
-        host = []
+        emits = []
         if pending is not None and pending.resolve():
             host = fetch_coalesced(pending.device_arrays())
             ev, out = pending.materialize(host)
+            out = out.matrix()
+            emits = [ch["emit"] for ch in pending.chunks]
         else:
             ev, out = flatten_match_parts([], [], [],
                                           max(len(eng.out_spec), 1))
         sync()
         secs.append(time.perf_counter() - t)
         results.append((ev, out))
-        # the compacted matches' lanes (column 1): bank 1 from lane I on
-        lanes = (np.concatenate([h[:, 1] for h in host[::2]]) if host
-                 else np.empty(0))
-        banks.append([int((lanes < eng.I).sum()),
-                      int((lanes >= eng.I).sum())])
+        # the emits by bank (bank 1 from lane I on), read after the timing
+        n = [int(x) for x in fetch_coalesced(
+            [e[:, :eng.I].sum() for e in emits]
+            + [e[:, eng.I:].sum() for e in emits])]
+        banks.append([sum(n[:len(emits)]), sum(n[len(emits):])])
     return state, results, secs, banks
 
 

@@ -503,7 +503,8 @@ class DensePatternRuntime:
             self.emit_queue.push(PendingEmit(
                 p.device_arrays(),
                 lambda host: self._emit_deferred(p, t, k, now, host),
-                trace=tok, compacted=len(p.chunks)))
+                trace=tok, compacted=len(p.chunks), card_ordered=p.parts(),
+                host_merged=p.host_merged_rows()))
 
         # the match-count fetch (resolve) is the blocking device sync;
         # with ingest.depth > 1 it runs after the next batch's dispatch
@@ -533,7 +534,7 @@ class DensePatternRuntime:
         if len(ev_idx) == 0:
             return
         names = self.engine.output_names
-        out_cols = {name: out[:, oi].astype(self._out_dtypes[oi])
+        out_cols = {name: out.column(oi).astype(self._out_dtypes[oi])
                     for oi, name in enumerate(names)}
         mb = EventBatch(
             self.out_stream_id, names, out_cols, ts[ev_idx],

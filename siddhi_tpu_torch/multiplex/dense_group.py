@@ -239,7 +239,8 @@ class DenseMultiplexGroup:
             pending.device_arrays(),
             lambda host, p=pending, o=offsets, s=seats, t=cat_ts, n=nows:
                 self._demux(p, host, o, s, t, n),
-            compacted=len(pending.chunks)))
+            compacted=len(pending.chunks), card_ordered=pending.parts(),
+            host_merged=pending.host_merged_rows()))
 
     def _demux(self, pending, host_arrays, offsets, seats, cat_ts, nows):
         """Split the match rows (sorted by event index) back per tenant:
@@ -255,7 +256,7 @@ class DenseMultiplexGroup:
             if lo == hi:
                 continue
             out_cols = {
-                name: out[lo:hi, oi].astype(self._out_dtypes[oi])
+                name: out.column(oi)[lo:hi].astype(self._out_dtypes[oi])
                 for oi, name in enumerate(names)
             }
             seat.pending_out.append(

@@ -42,8 +42,9 @@ engine runs one of two steps, picked at compile time by
 
 Matches come back through ``DeferredDenseEmit``: after the count gate
 each step's matched rows are compacted on the device
-(``compact_matches``) and only they cross, through
-``core/emit_queue.fetch_coalesced``.
+(``compact_matches``), already ordered and typed, and only they cross,
+through ``core/emit_queue.fetch_coalesced``; they reach the host as
+``MatchColumns``.
 
 Timestamps ride int32 relative lanes re-anchored before they approach
 the int32 range; LONG attributes ride hi/lo int32 pairs; DOUBLE is kept
@@ -1513,7 +1514,7 @@ class DensePatternEngine:
                 [], [], [], max(len(self.out_spec), 1))
         ev, out = pending.materialize(fetch_coalesced(
             pending.device_arrays()))
-        return state, ev, out
+        return state, ev, out.matrix()
 
     def process_deferred(self, state, stream_key: str, part_idx: np.ndarray,
                          cols: Dict[str, np.ndarray], ts: np.ndarray,
@@ -1692,20 +1693,11 @@ class DensePatternEngine:
 
     def assemble_rows(self, f: np.ndarray, i: np.ndarray) -> np.ndarray:
         """Match output rows from one output row each of the float bank
-        (``f [m, O]``) and the integer bank (``i [m, 2*n_int]``): float
-        lanes stay float32; integer lanes re-join their hi/lo pair into
-        exact int64 (an object matrix, as in the JAX engine)."""
-        if not any(self.out_int):
-            return f
-        res = np.empty((len(f), len(self.out_spec)), dtype=object)
-        ii = 0
-        for oi, is_int in enumerate(self.out_int):
-            if is_int:
-                res[:, oi] = _i64_join(i[:, 2 * ii], i[:, 2 * ii + 1])
-                ii += 1
-            else:
-                res[:, oi] = f[:, oi].astype(np.float64)
-        return res
+        (``f [m, O]``) and the integer bank (``i [m, 2*n_int]``): integer
+        lanes re-join their hi/lo pair into exact int64, and the rows
+        come back as :meth:`MatchColumns.matrix` gives them."""
+        return MatchColumns(self.out_int, _i64_join(i[:, 0::2], i[:, 1::2]),
+                            f).matrix()
 
     @property
     def output_names(self) -> List[str]:
@@ -1795,6 +1787,55 @@ def state_to_numpy(engine: DensePatternEngine, state: Dict[str, torch.Tensor]
             engine.base_ts)
 
 
+class MatchColumns:
+    """The output rows of a dense emit as typed columns: ``ints [m,
+    n_int]`` int64, the integer outputs in output order, and ``f [m, O]``
+    float32, a slot for every output, read by the float ones.  A delivery
+    reads each output's ``column``; ``matrix`` gives the one matrix of
+    ``process``.  A pair ``[row, output]`` indexes one value, as in that
+    matrix."""
+
+    __slots__ = ("out_int", "ints", "f")
+
+    def __init__(self, out_int: List[bool], ints: np.ndarray, f: np.ndarray):
+        self.out_int = out_int
+        self.ints = ints
+        self.f = f
+
+    def __len__(self) -> int:
+        return len(self.f)
+
+    def column(self, oi: int) -> np.ndarray:
+        """Output ``oi``'s values: an int64 view for an integer output,
+        a float32 view for the others."""
+        if self.out_int[oi]:
+            return self.ints[:, sum(self.out_int[:oi])]
+        return self.f[:, oi]
+
+    def matrix(self) -> np.ndarray:
+        """The rows as one matrix, as the JAX engine returns them: the
+        float32 bank when no output is an integer, else an object matrix
+        of exact ints and float64 values."""
+        if not any(self.out_int):
+            return self.f
+        res = np.empty((len(self.f), len(self.out_int)), dtype=object)
+        for oi, is_int in enumerate(self.out_int):
+            col = self.column(oi)
+            res[:, oi] = col if is_int else col.astype(np.float64)
+        return res
+
+    def copy(self) -> "MatchColumns":
+        return MatchColumns(self.out_int, self.ints.copy(), self.f.copy())
+
+    def __getitem__(self, at):
+        row, oi = at
+        return self.column(oi)[row]
+
+    def __setitem__(self, at, value):
+        row, oi = at
+        self.column(oi)[row] = value
+
+
 class DeferredDenseEmit:
     """Device-resident match outputs of one dense batch, pending drain.
 
@@ -1804,11 +1845,12 @@ class DeferredDenseEmit:
     device (lists of them, one a shard in shard order, for a round of
     ``parallel.mesh.ShardedPatternEngine``), ``count`` the device match
     count (a list a shard for such a round) and ``ridx``, which maps the
-    chunk's event rows (the shards' rows end to end) to batch rows.
-    ``resolve`` brings the counts to the host; ``device_arrays`` then
-    compacts the matched rows on each chunk's device, and
-    ``materialize`` receives them fetched, in ``device_arrays()`` order,
-    and returns what ``process`` returns.
+    chunk's event rows (the shards' rows end to end) to batch rows, in
+    ascending order within each shard.  ``resolve`` brings the counts to
+    the host; ``device_arrays`` then compacts the matched rows on each
+    chunk's device, one part a chunk (a shard with matches, for a
+    sharded round), and ``materialize`` receives them fetched, in
+    ``device_arrays()`` order, and returns ``(ev, MatchColumns)``.
     """
 
     __slots__ = ("engine", "chunks", "_total")
@@ -1837,13 +1879,23 @@ class DeferredDenseEmit:
         self._total = sum(sum(ch["counts"]) for ch in kept)
         return self._total
 
+    def parts(self) -> int:
+        """After :meth:`resolve`: the compacted parts, each ordered on
+        its card (a chunk, or a shard of a sharded round, with matches)."""
+        return sum(1 for ch in self.chunks for m in ch["counts"] if m)
+
+    def host_merged_rows(self) -> int:
+        """After :meth:`resolve`: the rows :meth:`materialize` merges on
+        the host (all of them when there are several parts, else 0)."""
+        return self._total if self.parts() > 1 else 0
+
     _KEYS = ("emit", "f", "i", "anchor")
 
     def device_arrays(self) -> List[torch.Tensor]:
-        """After :meth:`resolve`: each chunk's matches compacted on its
-        device, two tensors a chunk (a shard with matches, for a sharded
-        round): see :func:`compact_matches`.  The counts size the
-        compaction, so nothing waits for the device here."""
+        """After :meth:`resolve`: each part's matches compacted on its
+        device, ordered and typed, two tensors a part: see
+        :func:`compact_matches`.  The counts size the compaction, so
+        nothing waits for the device here."""
         arrs: List[torch.Tensor] = []
         for ch in self.chunks:
             banks = [ch[k] if isinstance(ch[k], list) else [ch[k]]
@@ -1855,43 +1907,74 @@ class DeferredDenseEmit:
                 row0 += emit.shape[0]
         return arrs
 
-    def materialize(self, host_arrays) -> Tuple[np.ndarray, np.ndarray]:
-        eng = self.engine
-        ev_parts: List[np.ndarray] = []
-        out_parts: List[np.ndarray] = []
-        key_parts: List[np.ndarray] = []  # (ev, anchor, lane) sort keys
-        pos = 0
+    def materialize(self, host_arrays
+                    ) -> Tuple[np.ndarray, MatchColumns]:
+        """The fetched parts as ``(ev [m] int64, MatchColumns)`` in the
+        match-ordering contract, (event index, arming anchor, lane).
+        Each part arrives in (row, anchor, lane) order and its ``ridx``
+        rises, so one part is final.  Several parts (a batch's collision
+        rounds, a sharded round's shards) hold disjoint events, each
+        event's matches together and in order: one stable argsort on the
+        event index merges them."""
+        heads, flts = host_arrays[0::2], host_arrays[1::2]
+        evs = []
+        rows = iter(head[:, 0] for head in heads)
         for ch in self.chunks:
-            # two arrays a shard with matches, the shards end to end
-            k = 2 * sum(1 for m in ch["counts"] if m)
-            ints = np.concatenate(host_arrays[pos:pos + k:2])
-            flts = np.concatenate(host_arrays[pos + 1:pos + k:2])
-            pos += k
-            ev = ch["ridx"][ints[:, 0]]
-            ev_parts.append(ev)
-            out_parts.append(eng.assemble_rows(flts, ints[:, 3:]))
-            key_parts.append(np.stack([ev, ints[:, 2], ints[:, 1]], axis=1))
-        return flatten_match_parts(
-            ev_parts, out_parts, key_parts, max(len(eng.out_spec), 1))
+            for m in ch["counts"]:
+                if m:
+                    evs.append(ch["ridx"][next(rows)])
+        if len(heads) == 1:
+            ev, head, f = evs[0], heads[0], flts[0]
+        else:
+            ev = np.concatenate(evs)
+            order = np.argsort(ev, kind="stable")
+            ev = ev[order]
+            head = np.concatenate(heads)[order]
+            f = np.concatenate(flts)[order]
+        return (ev.astype(np.int64, copy=False),
+                MatchColumns(self.engine.out_int, head[:, 1:], f))
+
+
+def match_order(row: torch.Tensor, anchor: torch.Tensor, lane: torch.Tensor,
+                n_rows: int, n_lanes: int) -> torch.Tensor:
+    """The permutation that orders matches by (row, arming anchor, lane),
+    on their device: one sort of the int64 key ``row << (32 + lane_bits)
+    | (anchor + 2**31) << lane_bits | lane``, its widths those of a bank
+    of ``n_rows`` rows and ``n_lanes`` lanes (the offset keeps every
+    int32 anchor in order); past 63 bits, stable sorts by lane, then
+    anchor, then row.  ``row`` and ``lane`` are int64, ``anchor``
+    int32."""
+    row_bits = max(n_rows - 1, 0).bit_length()
+    lane_bits = max(n_lanes - 1, 0).bit_length()
+    if row_bits + 32 + lane_bits <= 63:
+        key = ((row << (32 + lane_bits))
+               | ((anchor.to(torch.int64) + 2**31) << lane_bits) | lane)
+        return torch.argsort(key)
+    perm = torch.argsort(lane, stable=True)
+    for k in (anchor, row):
+        perm = perm[torch.argsort(k[perm], stable=True)]
+    return perm
 
 
 def compact_matches(emit: torch.Tensor, f: torch.Tensor, i: torch.Tensor,
                     anchor: torch.Tensor, m: int, row0: int = 0
                     ) -> List[torch.Tensor]:
-    """The ``m`` set ``(row, lane)`` pairs of ``emit [b, L]``, in
-    row-major order (``np.nonzero``'s), gathered on ``emit``'s device
-    from the dense banks ``f [b, L, O]``, ``i [b, L, 2*n_int]`` and
-    ``anchor [b, L]``: ``[ints [m, 3 + 2*n_int] int32 (row + row0, lane,
-    anchor, the integer outputs), f [m, O] float32]``.  ``m`` is the
-    count gate's, so ``nonzero_static`` needs no sync; a step's count is
-    the popcount of its ``emit``."""
+    """The ``m`` set ``(row, lane)`` pairs of ``emit [b, L]``, ordered by
+    (row, arming anchor, lane) (:func:`match_order`) and gathered on
+    ``emit``'s device from the dense banks ``f [b, L, O]``, ``i [b, L,
+    2*n_int]`` and ``anchor [b, L]`` in their output types: ``[head [m,
+    1 + n_int] int64 (row + row0, then each integer output re-joined from
+    its hi/lo pair as ``_i64_join`` does), f [m, O] float32]``: the row
+    rides the integer tensor, so a part is one copy a dtype.  ``m`` is
+    the count gate's, so ``nonzero_static`` needs no sync; a step's
+    count is the popcount of its ``emit``."""
     rl = torch.nonzero_static(emit, size=m)
     r, lane = rl[:, 0], rl[:, 1]
-    head = rl.to(torch.int32)
-    if row0:
-        head[:, 0] += row0
-    return [torch.cat([head, anchor[r, lane][:, None], i[r, lane]], dim=1),
-            f[r, lane]]
+    perm = match_order(r, anchor[r, lane], lane, *emit.shape)
+    r, lane = r[perm], lane[perm]
+    pairs = i[r, lane].to(torch.int64)
+    ints = pairs[:, 0::2] * 2**32 + (pairs[:, 1::2] + 2**31)
+    return [torch.cat([(r + row0)[:, None], ints], dim=1), f[r, lane]]
 
 
 def flatten_match_parts(ev_parts, out_parts, key_parts, n_out: int

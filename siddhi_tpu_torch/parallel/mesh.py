@@ -385,7 +385,7 @@ class ShardedPatternEngine:
             return state, ev, out, total
         ev, out = pending.materialize(fetch_coalesced(
             pending.device_arrays()))
-        return state, ev, out, total
+        return state, ev, out.matrix(), total
 
     def process_deferred(self, state: ShardedState, stream_key: str,
                          part: np.ndarray, cols: Dict[str, np.ndarray],

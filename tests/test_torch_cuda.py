@@ -1972,3 +1972,31 @@ def test_compacted_emit_on_card_equals_the_dense_selection(cuda_device,
         finally:
             torch.cuda.set_sync_debug_mode(0)
         assert check(eng, p) > 0
+
+
+@pytest.mark.parametrize("kind", ["several_per_event", "equal_anchors",
+                                  "int32_extremes"])
+def test_card_order_on_card_equals_the_host_lexsort(cuda_device, kind):
+    """``test_torch_emit_compaction.py``'s order cases on the card, at a
+    bank of 131,072 rows and 64 lanes: the packed key's sort and the
+    gathers launch with no host sync, and the rows, their order and
+    their values are the host's ``np.lexsort`` order."""
+    from test_torch_emit_compaction import _anchor_set, _banks, host_compaction
+
+    from siddhi_tpu_torch.ops.dense_nfa import compact_matches
+
+    rng = np.random.default_rng(17)
+    emit, f, i, anchor = _banks(rng, 131_072, 64, _anchor_set(kind), p=0.02)
+    m, row0 = int(emit.sum()), 3
+    dev = [torch.from_numpy(x).to(cuda_device) for x in (emit, f, i, anchor)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        head, flt = compact_matches(*dev, m, row0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    head, flt = head.cpu().numpy(), flt.cpu().numpy()
+    want_rows, want_ints, want_f = host_compaction(emit, f, i, anchor, row0)
+    assert np.array_equal(head[:, 0], want_rows)
+    assert np.array_equal(head[:, 1:], want_ints)
+    assert np.array_equal(flt.view(np.int32), want_f.view(np.int32))

@@ -11,8 +11,14 @@ matches fill every lane of bank 0, and a round of one row.  For each,
 selection written here gives from the dense banks: ``np.nonzero`` over
 the emit masks, the outputs gathered at the set lanes (integer outputs
 re-joined from their hi/lo int32 pair) and the rows ordered by (event,
-anchor, lane).  The counter test holds ``compactedChunks`` and
-``emitBytes`` of the runtime's statistics feed to the compacted bytes.
+anchor, lane) with ``np.lexsort``.  The compaction orders and types the
+rows on the device: the order tests hold ``compact_matches`` and
+``match_order`` (the packed key and its fallback past 63 bits) to that
+lexsort, the types tests hold the device's int64 join to ``_i64_join``
+and a ``StreamCallback``'s columns to the object matrix's.  The counter
+tests hold ``compactedChunks``, ``cardOrderedChunks``,
+``hostMergedRows`` and ``emitBytes`` of the runtime's statistics feed to
+the compacted parts, rows and bytes.
 """
 
 from __future__ import annotations
@@ -23,7 +29,12 @@ import torch
 
 from siddhi_tpu_torch.core.emit_queue import fetch_coalesced
 from siddhi_tpu_torch.core.event import EventBatch
-from siddhi_tpu_torch.ops.dense_nfa import compile_pattern
+from siddhi_tpu_torch.ops.dense_nfa import (
+    _i64_join,
+    compact_matches,
+    compile_pattern,
+    match_order,
+)
 from siddhi_tpu_torch.parallel import ShardedPatternEngine, make_mesh
 
 # long keys at the edges of int64: the hi/lo join must give them back
@@ -85,12 +96,23 @@ def selection(eng, pending):
 def check(eng, pending):
     """The compacted path against :func:`selection`: the same events,
     dtypes, order and output values (floats by their bits, longs
-    exactly).  Returns the match count."""
+    exactly), in the typed columns and in the one matrix ``process``
+    returns.  Returns the match count."""
     assert pending is not None and pending.resolve() > 0
-    ev, out = pending.materialize(fetch_coalesced(pending.device_arrays()))
+    ev, cols = pending.materialize(fetch_coalesced(pending.device_arrays()))
     want_ev, want_cols = selection(eng, pending)
     assert ev.dtype == np.int64 and np.array_equal(ev, want_ev)
-    assert len(out) == len(ev) == pending.resolve()
+    assert len(cols) == len(ev) == pending.resolve()
+    for oi, is_int in enumerate(eng.out_int):
+        col = cols.column(oi)
+        if is_int:
+            assert col.dtype == np.int64
+            assert [int(x) for x in col] == want_cols[oi]
+        else:
+            assert col.dtype == np.float32
+            want = np.asarray(want_cols[oi], dtype=np.float32)
+            assert np.array_equal(col.view(np.int32), want.view(np.int32))
+    out = cols.matrix()
     if any(eng.out_int):
         assert out.dtype == object
         for oi, is_int in enumerate(eng.out_int):
@@ -274,10 +296,12 @@ COUNTED = ("@app:playback @app:statistics('true') "
 
 
 def test_emit_counters_count_the_compacted_bytes():
-    """``compactedChunks`` counts the chunks with matches and
-    ``emitBytes`` the compacted tensors' bytes (an int32 ``[m, 3 +
-    2*n_int]`` and a float32 ``[m, O]`` a chunk); a batch with no match
-    adds to neither.  Both are in the statistics feed."""
+    """``compactedChunks`` counts the chunks with matches,
+    ``cardOrderedChunks`` the parts ordered on the device (here one a
+    chunk), ``hostMergedRows`` the rows of a batch of several rounds and
+    ``emitBytes`` the compacted tensors' bytes (an int64 ``[m, 1 +
+    n_int]`` and a float32 ``[m, O]`` a chunk); a batch with no match
+    adds to none.  All are in the statistics feed."""
     from siddhi_tpu_torch import SiddhiManager
 
     m = SiddhiManager(device="cpu")
@@ -297,9 +321,13 @@ def test_emit_counters_count_the_compacted_bytes():
                                       "v": np.asarray(vs, np.float64)},
                 t0 + np.arange(len(keys), dtype=np.int64)))
 
+        def counters():
+            return (stats.compacted_chunks, stats.card_ordered_chunks,
+                    stats.host_merged_rows, stats.emit_bytes)
+
         # arming only: no match
         send([5, 6, 5], [1.0, 2.0, 3.0], 1000)
-        assert (stats.compacted_chunks, stats.emit_bytes) == (0, 0)
+        assert counters() == (0, 0, 0, 0)
         # key 5 collides, so its second event lands in round 2: round 1
         # completes key 5's two instances and key 6's one, round 2 the
         # instance key 5's first event armed
@@ -309,14 +337,268 @@ def test_emit_counters_count_the_compacted_bytes():
         O = max(len(eng.out_spec), 1)
         assert len(got) == 4
         assert stats.compacted_chunks == 2
-        assert stats.emit_bytes == 4 * len(got) * (3 + 2 * n_int + O)
-        before = (stats.compacted_chunks, stats.emit_bytes)
+        assert stats.card_ordered_chunks == 2
+        assert stats.host_merged_rows == len(got)
+        assert stats.emit_bytes == len(got) * (8 * (1 + n_int) + 4 * O)
+        before = counters()
         send([7], [1.0], 3000)
-        assert (stats.compacted_chunks, stats.emit_bytes) == before
+        assert counters() == before
         feed = {k.rsplit(".", 1)[1]: v for k, v in rt.statistics().items()
                 if ".Queries.q." in k}
         assert feed["compactedChunks"] == stats.compacted_chunks
+        assert feed["cardOrderedChunks"] == stats.card_ordered_chunks
+        assert feed["hostMergedRows"] == stats.host_merged_rows
         assert feed["emitBytes"] == stats.emit_bytes
+        rt.shutdown()
+    finally:
+        m.shutdown()
+
+
+# -- the order on the device ---------------------------------------------
+
+I32_MIN, I32_MAX = -2**31, 2**31 - 1
+
+
+def _banks(rng, b, L, anchors, n_int=1, O=3, p=0.5):
+    """Dense banks ``(emit, f, i, anchor)`` of ``b`` rows and ``L``
+    lanes: about ``p`` of the lanes set, anchors drawn from
+    ``anchors``."""
+    emit = rng.random((b, L)) < p
+    emit[0, :] = True  # one row with every lane set
+    f = rng.standard_normal((b, L, O)).astype(np.float32)
+    i = rng.integers(I32_MIN, I32_MAX, (b, L, 2 * n_int), endpoint=True,
+                     dtype=np.int64).astype(np.int32)
+    anchor = rng.choice(np.asarray(anchors, dtype=np.int64),
+                        (b, L)).astype(np.int32)
+    return emit, f, i, anchor
+
+
+def host_compaction(emit, f, i, anchor, row0):
+    """The host's order and values: ``np.nonzero``, then ``np.lexsort``
+    over (row, anchor, lane), the integer outputs joined by
+    ``_i64_join``."""
+    rows, lanes = np.nonzero(emit)
+    order = np.lexsort((lanes, anchor[rows, lanes], rows))
+    rows, lanes = rows[order], lanes[order]
+    sel = i[rows, lanes]
+    return (rows + row0, _i64_join(sel[:, 0::2], sel[:, 1::2]),
+            f[rows, lanes])
+
+
+def _anchor_set(kind):
+    return {"several_per_event": list(range(1, 200)),
+            "equal_anchors": [7, 7, 7, 9],
+            "int32_extremes": [I32_MIN, I32_MIN + 1, -1, 0, 1,
+                               I32_MAX - 1, I32_MAX]}[kind]
+
+
+@pytest.mark.parametrize("kind", ["several_per_event", "equal_anchors",
+                                  "int32_extremes", "past_63_bits",
+                                  "general_rounds", "sharded"])
+def test_card_order_equals_the_host_lexsort(kind):
+    """The compaction's order on the device is the host's ``np.lexsort``
+    over (event, anchor, lane): the same rows, in the same order, with
+    the same values; for a shape whose key would pass 63 bits the
+    stable sorts give it too; through an engine, a general batch of
+    several collision rounds and a sharded round."""
+    if kind in ("general_rounds", "sharded"):
+        torch.manual_seed(0)
+    rng = np.random.default_rng(7)
+    if kind == "general_rounds":
+        eng, pending = case_general_via(rng)
+        assert len(pending.chunks) >= 2 and pending.parts() >= 2
+        assert check(eng, pending) > 0
+        return
+    if kind == "sharded":
+        eng, pending = case_sharded(rng)
+        assert pending.parts() >= 2
+        assert check(eng, pending) > 0
+        return
+    if kind == "past_63_bits":
+        emit, _f, _i, anchor = _banks(rng, 40, 16, _anchor_set(
+            "int32_extremes") + [5, 5, 5])
+        rows, lanes = np.nonzero(emit)
+        want = np.lexsort((lanes, anchor[rows, lanes], rows))
+        r, ln = torch.from_numpy(rows), torch.from_numpy(lanes)
+        a = torch.from_numpy(anchor[rows, lanes])
+        # a bank of 2**40 rows and 16 lanes: 40 + 32 + 4 bits
+        wide = match_order(r, a, ln, 2**40, 16)
+        narrow = match_order(r, a, ln, 40, 16)
+        assert np.array_equal(wide.numpy(), want)
+        assert np.array_equal(narrow.numpy(), want)
+        return
+    emit, f, i, anchor = _banks(rng, 37, 12, _anchor_set(kind))
+    if kind == "several_per_event":
+        assert (emit.sum(axis=1) > 1).sum() > 10
+    m, row0 = int(emit.sum()), 100
+    head, flt = (t.numpy() for t in compact_matches(
+        torch.from_numpy(emit), torch.from_numpy(f), torch.from_numpy(i),
+        torch.from_numpy(anchor), m, row0))
+    want_rows, want_ints, want_f = host_compaction(emit, f, i, anchor, row0)
+    assert head.dtype == np.int64 and flt.dtype == np.float32
+    assert np.array_equal(head[:, 0], want_rows)
+    assert np.array_equal(head[:, 1:], want_ints)
+    assert np.array_equal(flt.view(np.int32), want_f.view(np.int32))
+
+
+# -- the types on the device ---------------------------------------------
+
+JOIN_EDGES = np.array([0, -1, 2**31, -2**63, 2**63 - 1], dtype=np.int64)
+
+
+def test_card_join_equals_i64_join():
+    """The int64 the compaction joins from each hi/lo pair on the device
+    is ``_i64_join``'s, and the value ``prepare_cols`` split, at 0, -1,
+    2**31, -2**63 and 2**63 - 1."""
+    n = len(JOIN_EDGES)
+    hi = (JOIN_EDGES >> 32).astype(np.int32)
+    lo = ((JOIN_EDGES & 0xFFFFFFFF) - 2**31).astype(np.int32)
+    # one lane a value, two integer outputs (the second reversed)
+    i = np.stack([hi, lo, hi[::-1], lo[::-1]], axis=1)[:, None, :]
+    emit = np.ones((n, 1), dtype=bool)
+    f = np.zeros((n, 1, 2), dtype=np.float32)
+    anchor = np.ones((n, 1), dtype=np.int32)
+    head, _f = (t.numpy() for t in compact_matches(
+        torch.from_numpy(emit), torch.from_numpy(f), torch.from_numpy(i),
+        torch.from_numpy(anchor), n))
+    assert np.array_equal(head[:, 1], _i64_join(hi, lo))
+    assert np.array_equal(head[:, 1], JOIN_EDGES)
+    assert np.array_equal(head[:, 2], JOIN_EDGES[::-1])
+
+
+def _bench_config(name):
+    import json
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    from cepbench.generator import Traffic, merge
+
+    config = json.loads((root / "cepbench" / "configs"
+                         / f"{name}.json").read_text())
+    config = merge(config, {"sizes": {"partitions": 256, "lanes": 32}})
+    spec = merge(json.loads((root / "cepbench" / "traffic"
+                             / "txn_hot100k.json").read_text()),
+                 {"batch": 512, "columns": {"key": {"high": 64}}})
+    return config, Traffic(spec, 2**31 + 29)
+
+
+@pytest.mark.parametrize("name,route", [("fraud16_1m", "general"),
+                                        ("chain16_1m", "batch")])
+def test_stream_callback_gets_the_object_matrix_columns(monkeypatch, name,
+                                                        route):
+    """The benchmark's two queries at 256 partitions: each batch a
+    ``StreamCallback`` receives holds the columns the object matrix
+    gave before the rows came typed: each output of the dense
+    selection boxed as the JAX engine boxes it (exact ints, float64
+    values) and cast to its attribute's type, so a long arrives as
+    int64 and a double as float64, value for value."""
+    from siddhi_tpu_torch import SiddhiManager
+    from siddhi_tpu_torch.core.dense_pattern import output_attr_types
+    from siddhi_tpu_torch.core.stream import StreamCallback
+    from siddhi_tpu_torch.ops.dense_nfa import DeferredDenseEmit
+
+    config, traffic = _bench_config(name)
+    wants = []
+    orig = DeferredDenseEmit.materialize
+
+    def spy(self, host):
+        got = orig(self, host)
+        _ev, cols = selection(self.engine, self)
+        mat = np.empty((len(cols[0]), len(cols)), dtype=object)
+        for oi, is_int in enumerate(self.engine.out_int):
+            mat[:, oi] = (cols[oi] if is_int else
+                          np.asarray(cols[oi], np.float32).astype(np.float64))
+        wants.append(mat)
+        return got
+    monkeypatch.setattr(DeferredDenseEmit, "materialize", spy)
+
+    class Keep(StreamCallback):
+        def __init__(self):
+            self.got = []
+
+        def receive_batch(self, batch):
+            self.got.append(batch)
+
+    mgr = SiddhiManager(device="cpu")
+    try:
+        rt = mgr.create_siddhi_app_runtime(
+            config["app"].format(**config["sizes"]))
+        keep = Keep()
+        rt.add_callback(config["output"], keep)
+        rt.start()
+        h = rt.get_input_handler(config["input"])
+        for b in range(8):
+            cols, ts = traffic.batch(b)
+            h.send_batch(EventBatch(traffic.stream, traffic.names, cols, ts))
+        rt.drain()
+        (runtime,) = rt.pattern_runtimes().values()
+        assert runtime.engine.step_kind == route
+        names = runtime.engine.output_names
+        types = dict(zip(names, output_attr_types(runtime.engine)))
+        rt.shutdown()
+    finally:
+        mgr.shutdown()
+    assert len(keep.got) == len(wants) > 0
+    assert sum(len(m) for m in wants) > 0
+    for batch, mat in zip(keep.got, wants):
+        for oi, nm in enumerate(names):
+            got = np.asarray(batch.columns[nm])
+            want = mat[:, oi].astype(types[nm].np_dtype)
+            assert got.dtype == want.dtype
+            assert got.dtype == (np.int64 if nm == "key" else np.float64)
+            assert np.array_equal(got.view(np.uint8), want.view(np.uint8))
+
+
+# -- the counters --------------------------------------------------------
+
+ORDERED = ("@app:playback @app:statistics('true') "
+           "@app:execution('tpu', partitions='8', instances='4') "
+           "define stream Txn (key long, v double); "
+           "partition with (key of Txn) begin "
+           "@info(name='q') from every e1=Txn[v > 1.0] -> e2=Txn[v > 2.0] "
+           "within 10 min select e2.key as k, e2.v as v insert into Out; "
+           "end;")
+
+
+def test_batch_route_orders_one_chunk_a_batch_on_the_card():
+    """The batch route: one ``cardOrderedChunks`` for each batch with
+    matches, none for a batch without, and no ``hostMergedRows``, even
+    when a key sees several events in a batch."""
+    from siddhi_tpu_torch import SiddhiManager
+
+    m = SiddhiManager(device="cpu")
+    try:
+        rt = m.create_siddhi_app_runtime(ORDERED)
+        got = []
+        rt.add_callback("Out", lambda evs: got.extend(evs))
+        rt.start()
+        h = rt.get_input_handler("Txn")
+        proc = rt.partitions["partition_0"].dense_query_runtimes[
+            "q"].pattern_processor
+        assert proc.engine.step_kind == "batch"
+        stats = proc.emit_stats
+        with_rows = 0
+        for c, (keys, vs) in enumerate([
+                ([1, 2, 1], [1.5, 1.5, 1.6]),        # arming only
+                ([1, 2, 1, 3], [2.5, 2.5, 1.5, 0.5]),  # 1 and 2 complete
+                ([3, 3], [0.1, 0.2]),                # nothing
+                ([1, 1, 2], [2.2, 2.3, 1.1])]):      # key 1 twice
+            before = len(got)
+            h.send_batch(EventBatch(
+                "Txn", ["key", "v"], {"key": np.asarray(keys, np.int64),
+                                      "v": np.asarray(vs, np.float64)},
+                1000 * (c + 1) + np.arange(len(keys), dtype=np.int64)))
+            with_rows += len(got) > before
+            assert stats.card_ordered_chunks == with_rows
+            assert stats.host_merged_rows == 0
+        assert with_rows == 2 and len(got) > 2
+        feed = {k.rsplit(".", 1)[1]: v for k, v in rt.statistics().items()
+                if ".Queries.q." in k}
+        assert feed["cardOrderedChunks"] == with_rows
+        assert feed["hostMergedRows"] == 0
         rt.shutdown()
     finally:
         m.shutdown()
