@@ -1239,11 +1239,12 @@ def batch_breakdown(torch, eng, state, batches, n=4, phase="breakdown"):
         state, pending = eng.process_deferred(state, stream, part, cols, ts)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        pending.resolve()
+        matched = pending.resolve()
         t2 = time.perf_counter()
         host = fetch_coalesced(pending.device_arrays())
         t3 = time.perf_counter()
-        pending.materialize(host)
+        if matched:  # a batch without matches has nothing to materialize
+            pending.materialize(host)
         t4 = time.perf_counter()
         for k, a, b in (("step_ms", t0, t1), ("count_ms", t1, t2),
                         ("fetch_ms", t2, t3), ("materialize_ms", t3, t4)):
@@ -1274,7 +1275,7 @@ def step_device_ops(torch, eng, state, batch) -> dict:
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
-    rounds = len(pending.chunks)
+    rounds = len(pending.parts)
     kernels = len(dev) - len(copies)
     device_us = sum(e.time_range.elapsed_us() for e in dev)
     return {"rounds": rounds, "kernels_per_step": kernels / rounds,
@@ -2136,7 +2137,7 @@ def run_cell(torch, eng, state, batches):
     and timed by the host clock; then each batch's emits by bank (0: at
     the last node, 1: via-path clones)."""
     from siddhi_tpu_torch.core.emit_queue import fetch_coalesced
-    from siddhi_tpu_torch.ops.dense_nfa import flatten_match_parts
+    from siddhi_tpu_torch.ops.dense_nfa import DeferredDenseEmit
 
     sync = (torch.cuda.synchronize if eng.device.type == "cuda"
             else (lambda: None))
@@ -2145,15 +2146,9 @@ def run_cell(torch, eng, state, batches):
         sync()
         t = time.perf_counter()
         state, pending = eng.process_deferred(state, stream, part, cols, ts)
-        emits = []
-        if pending is not None and pending.resolve():
-            host = fetch_coalesced(pending.device_arrays())
-            ev, out = pending.materialize(host)
-            out = out.matrix()
-            emits = [ch["emit"] for ch in pending.chunks]
-        else:
-            ev, out = flatten_match_parts([], [], [],
-                                          max(len(eng.out_spec), 1))
+        pending = pending or DeferredDenseEmit(eng)
+        ev, out = pending.rows()
+        emits = [p.emit for p in pending.parts]
         sync()
         secs.append(time.perf_counter() - t)
         results.append((ev, out))
@@ -2419,10 +2414,10 @@ def absent_breakdown(torch, rt, proc, pair, timer) -> dict:
         spent["intern_ms"] += 1e3 * (time.perf_counter() - t)
         return out
 
-    def timed_step(*args):
+    def timed_step(*args, **kwargs):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = step(*args)
+        out = step(*args, **kwargs)
         torch.cuda.synchronize()
         spent["step_ms"] += 1e3 * (time.perf_counter() - t)
         return out

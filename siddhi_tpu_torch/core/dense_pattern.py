@@ -53,7 +53,6 @@ from siddhi_tpu_torch.core import event as ev
 from siddhi_tpu_torch.core.emit_queue import (
     EmitQueue,
     EmitStats,
-    PendingEmit,
     fetch_coalesced,
 )
 from siddhi_tpu_torch.core.event import EventBatch
@@ -79,7 +78,7 @@ from siddhi_tpu_torch.parallel.mesh import (
     ShardedPatternEngine,
     shards_per_card,
 )
-from siddhi_tpu_torch.query_api import AttrType, StateInputStream, Variable
+from siddhi_tpu_torch.query_api import StateInputStream, Variable
 from siddhi_tpu_torch.util import faults as _faults
 
 log = logging.getLogger("siddhi_tpu_torch")
@@ -149,7 +148,7 @@ def build_dense_engine(query, st: StateInputStream, resolve_def,
                 f"dense path: capture '{ref}.{attr}' has type {t.value}; "
                 "only numeric attributes have device lanes — host engine "
                 "used")
-    for (name, src), t in zip(eng.out_spec, output_attr_types(eng)):
+    for (name, src), t in zip(eng.out_spec, eng.out_types):
         if not t.is_numeric:
             attr = src[1] if isinstance(src, tuple) else src.attr
             raise SiddhiAppCreationError(
@@ -161,23 +160,6 @@ def build_dense_engine(query, st: StateInputStream, resolve_def,
     return eng
 
 
-def output_attr_types(eng) -> List[AttrType]:
-    """Declared attribute type of each engine output lane (the engine
-    computes in float32; callbacks keep the source types)."""
-    out: List[AttrType] = []
-    for _name, src in eng.out_spec:
-        t = None
-        if isinstance(src, tuple):  # ('cand', attr): from the last node
-            for node in eng.nodes:
-                for spec in node.specs:
-                    if src[1] in spec.stream_def.attribute_names:
-                        t = spec.stream_def.attribute_type(src[1])
-        else:  # a register slot keeps its captured attribute's type
-            d = eng.ref_defs.get(src.ref)
-            if d is not None and src.attr in d.attribute_names:
-                t = d.attribute_type(src.attr)
-        out.append(t or AttrType.DOUBLE)
-    return out
 
 
 def _trace_check(eng):
@@ -303,7 +285,6 @@ class DensePatternRuntime:
         # host-side per-row activity clock (the reference's idle purge
         # reads it; the hot-key router keeps promoted rows' clocks going)
         self._row_last_used = np.zeros(engine.n_partitions, dtype=np.int64)
-        self._out_dtypes = [t.np_dtype for t in output_attr_types(engine)]
 
     @property
     def _sharded(self) -> Optional[ShardedPatternEngine]:
@@ -500,11 +481,10 @@ class DensePatternRuntime:
             if c == 0:
                 self.emit_queue.skip()
                 return
-            self.emit_queue.push(PendingEmit(
-                p.device_arrays(),
-                lambda host: self._emit_deferred(p, t, k, now, host),
-                trace=tok, compacted=len(p.chunks), card_ordered=p.parts(),
-                host_merged=p.host_merged_rows()))
+            self.emit_queue.push(p.pending_emit(
+                lambda ev_idx, out: self._emit_deferred(ev_idx, out, t, k,
+                                                        now),
+                trace=tok))
 
         # the match-count fetch (resolve) is the blocking device sync;
         # with ingest.depth > 1 it runs after the next batch's dispatch
@@ -529,15 +509,12 @@ class DensePatternRuntime:
         if self.tracer is not None and self.mesh is None:
             self.tracer.take_anchor(self.engine.device)
 
-    def _emit_deferred(self, pending, ts, keys, now, host_arrays):
-        ev_idx, out = pending.materialize(host_arrays)
+    def _emit_deferred(self, ev_idx, out, ts, keys, now):
         if len(ev_idx) == 0:
             return
-        names = self.engine.output_names
-        out_cols = {name: out.column(oi).astype(self._out_dtypes[oi])
-                    for oi, name in enumerate(names)}
         mb = EventBatch(
-            self.out_stream_id, names, out_cols, ts[ev_idx],
+            self.out_stream_id, self.engine.output_names, out.columns(),
+            ts[ev_idx],
             np.full(len(ev_idx), ev.CURRENT, dtype=np.int8))
         if keys is not None:
             mb.aux["partition_keys"] = np.asarray(keys)[ev_idx].tolist()
@@ -690,7 +667,7 @@ class DensePatternRuntime:
         names = eng.output_names
         mb = EventBatch(
             self.out_stream_id, names,
-            {name: out[:, oi].astype(self._out_dtypes[oi])
+            {name: out[:, oi].astype(eng.out_dtypes[oi])
              for oi, name in enumerate(names)},
             fire_ts, np.full(len(fire_ts), ev.CURRENT, dtype=np.int8))
         if self.key_channel:

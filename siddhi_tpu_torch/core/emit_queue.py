@@ -88,7 +88,7 @@ class EmitStats:
 
     __slots__ = ("emit_transfers", "deferred_batches", "zero_match_skips",
                  "max_pending_depth", "auto_depth", "compacted_chunks",
-                 "card_ordered_chunks", "host_merged_rows", "emit_bytes")
+                 "host_merged_rows", "emit_bytes")
 
     def __init__(self):
         self.emit_transfers = 0
@@ -97,12 +97,10 @@ class EmitStats:
         self.max_pending_depth = 0
         # the depth the 'auto' controller runs at (0: a fixed depth)
         self.auto_depth = 0
-        # dense chunks whose matches were compacted on the device, the
-        # parts of them ordered there (a chunk, or a shard of a sharded
-        # round, with matches), the rows the host merged across parts,
-        # and the device bytes the drains copied to the host
+        # dense emit parts (a step's banks, with matches) compacted and
+        # ordered on their device, the rows the host merged across
+        # parts, and the device bytes the drains copied to the host
         self.compacted_chunks = 0
-        self.card_ordered_chunks = 0
         self.host_merged_rows = 0
         self.emit_bytes = 0
 
@@ -115,7 +113,6 @@ class EmitStats:
             "maxPendingDepth": self.max_pending_depth,
             "autoEffectiveDepth": self.auto_depth,
             "compactedChunks": self.compacted_chunks,
-            "cardOrderedChunks": self.card_ordered_chunks,
             "hostMergedRows": self.host_merged_rows,
             "emitBytes": self.emit_bytes,
         }
@@ -125,21 +122,18 @@ class PendingEmit:
     """One deferred batch: device tensors plus ``materialize(host)``,
     which receives them fetched, in the same order, and emits;
     ``trace``: the batch's sampled cycle token, or None; ``compacted``:
-    the dense chunks whose matches ``arrays`` hold compacted;
-    ``card_ordered``: the parts of them ordered on the device;
+    the dense emit parts whose matches ``arrays`` hold compacted;
     ``host_merged``: the rows ``materialize`` merges across parts."""
 
     __slots__ = ("arrays", "materialize", "trace", "compacted",
-                 "card_ordered", "host_merged")
+                 "host_merged")
 
     def __init__(self, arrays: Sequence, materialize: Callable, trace=None,
-                 compacted: int = 0, card_ordered: int = 0,
-                 host_merged: int = 0):
+                 compacted: int = 0, host_merged: int = 0):
         self.arrays = list(arrays)
         self.materialize = materialize
         self.trace = trace
         self.compacted = compacted
-        self.card_ordered = card_ordered
         self.host_merged = host_merged
 
 
@@ -284,7 +278,6 @@ class EmitQueue:
                     a.nbytes for a in arrays if isinstance(a, torch.Tensor))
             for e in entries:
                 self.stats.compacted_chunks += e.compacted
-                self.stats.card_ordered_chunks += e.card_ordered
                 self.stats.host_merged_rows += e.host_merged
             if tok is not None:
                 tok.detail(STAGE_EMIT_FETCH, t_fetch, len(entries))

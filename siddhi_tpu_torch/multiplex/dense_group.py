@@ -51,7 +51,6 @@ from siddhi_tpu_torch.core import event as ev
 from siddhi_tpu_torch.core.emit_queue import (
     EmitQueue,
     EmitStats,
-    PendingEmit,
     fetch_coalesced,
 )
 from siddhi_tpu_torch.core.event import EventBatch
@@ -81,10 +80,9 @@ class DenseMultiplexGroup:
 
     fingerprint = ""
 
-    def __init__(self, engine, out_dtypes: List[np.dtype], slots: int):
+    def __init__(self, engine, slots: int):
         self.engine = engine
         self.slots = int(slots)
-        self._out_dtypes = out_dtypes
         self.lock = threading.RLock()
         self.seats: List[Optional[_DenseSeat]] = [None] * self.slots
         self._free = list(range(self.slots - 1, -1, -1))
@@ -235,32 +233,24 @@ class DenseMultiplexGroup:
             return
         seats = [seat for seat, _c, _t, _n in items]
         nows = [now for _s, _c, _t, now in items]
-        self.emit_queue.push(PendingEmit(
-            pending.device_arrays(),
-            lambda host, p=pending, o=offsets, s=seats, t=cat_ts, n=nows:
-                self._demux(p, host, o, s, t, n),
-            compacted=len(pending.chunks), card_ordered=pending.parts(),
-            host_merged=pending.host_merged_rows()))
+        self.emit_queue.push(pending.pending_emit(
+            lambda ev_idx, out, o=offsets, s=seats, t=cat_ts, n=nows:
+                self._demux(ev_idx, out, o, s, t, n)))
 
-    def _demux(self, pending, host_arrays, offsets, seats, cat_ts, nows):
+    def _demux(self, ev_idx, out, offsets, seats, cat_ts, nows):
         """Split the match rows (sorted by event index) back per tenant:
         the combined batch is tenant-major, so one ``searchsorted`` a
         seat."""
-        ev_idx, out = pending.materialize(host_arrays)
         if len(ev_idx) == 0:
             return
-        names = self.engine.output_names
         bounds = np.searchsorted(ev_idx, offsets)
         for si, seat in enumerate(seats):
             lo, hi = bounds[si], bounds[si + 1]
             if lo == hi:
                 continue
-            out_cols = {
-                name: out.column(oi)[lo:hi].astype(self._out_dtypes[oi])
-                for oi, name in enumerate(names)
-            }
             seat.pending_out.append(
-                (out_cols, cat_ts[ev_idx[lo:hi]], nows[si]))
+                (out.columns(slice(lo, hi)), cat_ts[ev_idx[lo:hi]],
+                 nows[si]))
 
     # -- per-tenant fault isolation ----------------------------------------
 

@@ -207,10 +207,7 @@ class MultiplexPlanner:
         :class:`~siddhi_tpu_torch.multiplex.dense_group.DenseMultiplexGroup`
         (one partition row a tenant); ``None`` falls back to the
         dedicated dense or host path."""
-        from siddhi_tpu_torch.core.dense_pattern import (
-            build_dense_engine,
-            output_attr_types,
-        )
+        from siddhi_tpu_torch.core.dense_pattern import build_dense_engine
         from siddhi_tpu_torch.multiplex.dense_group import (
             DenseMultiplexGroup,
         )
@@ -252,9 +249,7 @@ class MultiplexPlanner:
             if getattr(engine, "has_deadlines", False):
                 raise SiddhiAppCreationError(
                     "absent-pattern deadlines need per-query timers")
-            return DenseMultiplexGroup(
-                engine, [t.np_dtype for t in output_attr_types(engine)],
-                slots)
+            return DenseMultiplexGroup(engine, slots)
 
         registry = registry_for(self.app.siddhi_context)
         try:
@@ -269,17 +264,14 @@ class MultiplexPlanner:
 
     def _wire_state(self, query: Query, name: str, group, slot: int,
                     registry) -> QueryRuntime:
-        from siddhi_tpu_torch.core.dense_pattern import (
-            DenseStreamReceiver,
-            output_attr_types,
-        )
+        from siddhi_tpu_torch.core.dense_pattern import DenseStreamReceiver
         from siddhi_tpu_torch.multiplex.dense_group import (
             DenseMultiplexTenantRuntime,
         )
 
         engine = group.engine
         qr = self._output(query, name, engine.output_names,
-                          output_attr_types(engine))
+                          engine.out_types)
         runtime = DenseMultiplexTenantRuntime(
             group, slot, f"#matches_{name}",
             emit=lambda b: qr.process(b, 0),

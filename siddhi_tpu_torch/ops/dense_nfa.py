@@ -58,12 +58,12 @@ without a card they raise rather than run on the CPU.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from siddhi_tpu_torch.core.emit_queue import fetch_coalesced
+from siddhi_tpu_torch.core.emit_queue import PendingEmit, fetch_coalesced
 from siddhi_tpu_torch.core.exceptions import (
     DeviceUncompilableError,
     KernelUnavailableError,
@@ -644,6 +644,9 @@ class DensePatternEngine:
         Output names use the query's `as` aliases when provided."""
         self.out_spec: List[Tuple[str, object]] = []
         self.out_int: List[bool] = []  # integer (hi/lo pair) output lane?
+        # each output's declared type and its numpy dtype (the engine
+        # computes in float32; callbacks keep the source types)
+        self.out_types: List[AttrType] = []
         last_node = self.nodes[-1]
         last_refs = {s.ref for s in last_node.specs}
         for vi, var in enumerate(select_vars):
@@ -662,7 +665,9 @@ class DensePatternEngine:
             if var.attribute not in d.attribute_names:
                 raise SiddhiAppCreationError(
                     f"select ref '{ref}.{var.attribute}': no such attribute")
-            integer = d.attribute_type(var.attribute) in _INT_TYPES
+            attr_type = d.attribute_type(var.attribute)
+            integer = attr_type in _INT_TYPES
+            self.out_types.append(attr_type)
             if ref in last_refs and last_node.kind == "stream" and last_node.max_count == 1:
                 # final event: values come from the candidate columns
                 self.out_spec.append((name, ("cand", var.attribute)))
@@ -675,6 +680,7 @@ class DensePatternEngine:
             slot = self.alloc.slot(ref, var.attribute, idx == -1, integer=integer)
             self.out_spec.append((name, slot))
             self.out_int.append(integer)
+        self.out_dtypes = [t.np_dtype for t in self.out_types]
 
     # -- state --------------------------------------------------------------
 
@@ -1509,12 +1515,7 @@ class DensePatternEngine:
         ``match_out[m, n_out]`` its output values."""
         state, pending = self.process_deferred(state, stream_key, part_idx,
                                                cols, ts)
-        if pending is None or pending.resolve() == 0:
-            return state, *flatten_match_parts(
-                [], [], [], max(len(self.out_spec), 1))
-        ev, out = pending.materialize(fetch_coalesced(
-            pending.device_arrays()))
-        return state, ev, out.matrix()
+        return state, *(pending or DeferredDenseEmit(self)).rows()
 
     def process_deferred(self, state, stream_key: str, part_idx: np.ndarray,
                          cols: Dict[str, np.ndarray], ts: np.ndarray,
@@ -1553,9 +1554,9 @@ class DensePatternEngine:
                 trace)
         else:
             pending = DeferredDenseEmit(self)
-            pending.chunks.append(self.batch_chunk(
-                state, stream_key, part_idx, prepared, rel64.astype(np.int32),
-                self.device, np.arange(n), trace))
+            self.batch_chunk(pending, state, stream_key, part_idx, prepared,
+                             rel64.astype(np.int32), self.device, np.arange(n),
+                             trace)
         if trace is not None:
             trace.device_end(self.device)
         return state, pending
@@ -1571,14 +1572,15 @@ class DensePatternEngine:
         trace.detail(STAGE_INGEST_PUT, t0, trace.n_events)
         return out
 
-    def batch_chunk(self, state, stream_key: str, part_idx: np.ndarray,
+    def batch_chunk(self, pending: "DeferredDenseEmit", state,
+                    stream_key: str, part_idx: np.ndarray,
                     prepared: Dict[str, np.ndarray], rel: np.ndarray,
-                    device, ridx: np.ndarray, trace=None) -> dict:
+                    device, ridx: np.ndarray, trace=None):
         """One ``batch_step`` over ``state``'s rows (on ``device``): the
         batch sorted by partition on the host, staged in one put, its
-        filter matrix, one launch and the output columns.  Returns the
-        ``DeferredDenseEmit`` chunk; ``ridx`` maps its events to the
-        caller's batch rows; ``trace`` as in ``process_deferred``, and
+        filter matrix, one launch and the output columns, added to
+        ``pending`` as one part; ``ridx`` maps its events to the caller's
+        batch rows; ``trace`` as in ``process_deferred``, and
         besides it times the sort (``ingest.segments``) and the dispatch
         of the filter matrix, the launch and the output columns
         (``step.launch``).  The engine's ``ingest_stats`` count the step
@@ -1600,8 +1602,7 @@ class DensePatternEngine:
         out_f, out_i = self.output_columns(cb, emit[:, :self.I])
         if trace is not None:
             trace.detail(STAGE_STEP_LAUNCH, t0, len(part_idx))
-        return {"emit": emit, "f": out_f, "i": out_i, "anchor": anchor,
-                "ridx": ridx, "count": n_emit}
+        pending.add(emit, out_f, out_i, anchor, n_emit, ridx)
 
     def _process_general(self, state, stream_key: str, part_idx: np.ndarray,
                          prepared: Dict[str, np.ndarray], rel: np.ndarray,
@@ -1609,7 +1610,7 @@ class DensePatternEngine:
         """The general step over a batch's collision rounds (the
         reference's loop, ``siddhi_tpu/ops/dense_nfa.py:1591-1616``): the
         whole batch goes to the device in one put, laid out round after
-        round, and each round is a slice of it.  One chunk a round; no
+        round, and each round is a slice of it.  One part a round; no
         value crosses to the host here.  ``trace`` as in
         ``process_deferred``."""
         order, bounds = _round_order(part_idx)
@@ -1628,10 +1629,8 @@ class DensePatternEngine:
                 rel_d[lo:hi], valid[lo:hi])
             if trace is not None:
                 trace.detail(STAGE_STEP_ROUND, t_round, hi - lo)
-            pending.chunks.append({
-                "emit": emit, "f": outs["f"], "i": outs["i"],
-                "anchor": anchor, "ridx": order[lo:hi], "count": n_emit,
-            })
+            pending.add(emit, outs["f"], outs["i"], anchor, n_emit,
+                        order[lo:hi])
         return pending
 
     def filter_matrix(self, stream_key: str, cols: Dict[str, torch.Tensor],
@@ -1685,18 +1684,12 @@ class DensePatternEngine:
                     emit0, val.to(torch.float32)[:, None], 0.0)
         return out_f, out_i
 
-    def assemble_out(self, out_f: np.ndarray, out_i: np.ndarray,
-                     rows: np.ndarray, lanes: np.ndarray) -> np.ndarray:
-        """Match output rows from the output banks at ``(rows, lanes)``
-        (see :meth:`assemble_rows`)."""
-        return self.assemble_rows(out_f[rows, lanes], out_i[rows, lanes])
-
     def assemble_rows(self, f: np.ndarray, i: np.ndarray) -> np.ndarray:
         """Match output rows from one output row each of the float bank
         (``f [m, O]``) and the integer bank (``i [m, 2*n_int]``): integer
         lanes re-join their hi/lo pair into exact int64, and the rows
         come back as :meth:`MatchColumns.matrix` gives them."""
-        return MatchColumns(self.out_int, _i64_join(i[:, 0::2], i[:, 1::2]),
+        return MatchColumns(self, _i64_join(i[:, 0::2], i[:, 1::2]),
                             f).matrix()
 
     @property
@@ -1791,14 +1784,16 @@ class MatchColumns:
     """The output rows of a dense emit as typed columns: ``ints [m,
     n_int]`` int64, the integer outputs in output order, and ``f [m, O]``
     float32, a slot for every output, read by the float ones.  A delivery
-    reads each output's ``column``; ``matrix`` gives the one matrix of
+    takes ``columns``, each output in its declared dtype; ``column``
+    gives one output as computed and ``matrix`` the one matrix of
     ``process``.  A pair ``[row, output]`` indexes one value, as in that
     matrix."""
 
-    __slots__ = ("out_int", "ints", "f")
+    __slots__ = ("engine", "ints", "f")
 
-    def __init__(self, out_int: List[bool], ints: np.ndarray, f: np.ndarray):
-        self.out_int = out_int
+    def __init__(self, engine: "DensePatternEngine", ints: np.ndarray,
+                 f: np.ndarray):
+        self.engine = engine
         self.ints = ints
         self.f = f
 
@@ -1808,24 +1803,33 @@ class MatchColumns:
     def column(self, oi: int) -> np.ndarray:
         """Output ``oi``'s values: an int64 view for an integer output,
         a float32 view for the others."""
-        if self.out_int[oi]:
-            return self.ints[:, sum(self.out_int[:oi])]
+        out_int = self.engine.out_int
+        if out_int[oi]:
+            return self.ints[:, sum(out_int[:oi])]
         return self.f[:, oi]
+
+    def columns(self, rows=slice(None)) -> Dict[str, np.ndarray]:
+        """``rows`` of every output under its name, cast to the output's
+        declared dtype: the columns of an ``EventBatch``."""
+        eng = self.engine
+        return {name: self.column(oi)[rows].astype(eng.out_dtypes[oi])
+                for oi, name in enumerate(eng.output_names)}
 
     def matrix(self) -> np.ndarray:
         """The rows as one matrix, as the JAX engine returns them: the
         float32 bank when no output is an integer, else an object matrix
         of exact ints and float64 values."""
-        if not any(self.out_int):
+        out_int = self.engine.out_int
+        if not any(out_int):
             return self.f
-        res = np.empty((len(self.f), len(self.out_int)), dtype=object)
-        for oi, is_int in enumerate(self.out_int):
+        res = np.empty((len(self.f), len(out_int)), dtype=object)
+        for oi, is_int in enumerate(out_int):
             col = self.column(oi)
             res[:, oi] = col if is_int else col.astype(np.float64)
         return res
 
     def copy(self) -> "MatchColumns":
-        return MatchColumns(self.out_int, self.ints.copy(), self.f.copy())
+        return MatchColumns(self.engine, self.ints.copy(), self.f.copy())
 
     def __getitem__(self, at):
         row, oi = at
@@ -1836,60 +1840,59 @@ class MatchColumns:
         self.column(oi)[row] = value
 
 
-class DeferredDenseEmit:
-    """Device-resident match outputs of one dense batch, pending drain.
+class EmitPart(NamedTuple):
+    """One step's dense banks in a :class:`DeferredDenseEmit`: ``emit
+    [b, L]``, ``f [b, L, O]``, ``i [b, L, 2*n_int]`` and ``anchor [b,
+    L]`` on the step's device, ``count`` its match count (a device
+    scalar, a host int after ``resolve``) and ``ridx``, which maps its
+    rows to batch rows in ascending order."""
 
-    Each chunk is one step's outputs (one chunk a batch from
-    ``process_deferred``): the dense banks ``emit [b, 2I]``, ``f [b, 2I,
-    O]``, ``i [b, 2I, 2*n_int]`` and ``anchor [b, 2I]`` still on the
-    device (lists of them, one a shard in shard order, for a round of
-    ``parallel.mesh.ShardedPatternEngine``), ``count`` the device match
-    count (a list a shard for such a round) and ``ridx``, which maps the
-    chunk's event rows (the shards' rows end to end) to batch rows, in
-    ascending order within each shard.  ``resolve`` brings the counts to
-    the host; ``device_arrays`` then compacts the matched rows on each
-    chunk's device, one part a chunk (a shard with matches, for a
-    sharded round), and ``materialize`` receives them fetched, in
+    emit: torch.Tensor
+    f: torch.Tensor
+    i: torch.Tensor
+    anchor: torch.Tensor
+    count: object
+    ridx: np.ndarray
+
+
+class DeferredDenseEmit:
+    """Device-resident match outputs of one dense batch, pending drain:
+    the one owner of the dense emit format and of the match-ordering
+    contract, (event index, arming anchor, lane).
+
+    A producer adds each step's banks with :meth:`add`, one
+    :class:`EmitPart` a step: the batch step's one a batch, the general
+    step's one a collision round, a sharded engine's one a shard's step.
+    ``resolve`` brings the counts to the host and drops the parts that
+    matched nothing; ``device_arrays`` then compacts each part's matches
+    on its device, and ``materialize`` receives them fetched, in
     ``device_arrays()`` order, and returns ``(ev, MatchColumns)``.
+    ``pending_emit`` wraps the three for an emit queue; ``rows`` runs
+    them at once, as ``process`` does.
     """
 
-    __slots__ = ("engine", "chunks", "_total")
+    __slots__ = ("engine", "parts", "_total")
 
-    def __init__(self, engine):
+    def __init__(self, engine: "DensePatternEngine"):
         self.engine = engine
-        self.chunks: List[dict] = []
+        self.parts: List[EmitPart] = []
         self._total: Optional[int] = None
 
+    def add(self, emit: torch.Tensor, f: torch.Tensor, i: torch.Tensor,
+            anchor: torch.Tensor, count: torch.Tensor, ridx: np.ndarray):
+        """One step's banks, still on its device, as a part of its own."""
+        self.parts.append(EmitPart(emit, f, i, anchor, count, ridx))
+
     def resolve(self) -> int:
-        """Fetch the match counts (scalars only: one a chunk, one a shard
-        of a sharded round) into each chunk's ``counts``, and prune the
-        chunks that matched nothing.  Idempotent; returns the total match
-        count."""
-        if self._total is not None:
-            return self._total
-        per = [c if isinstance(c, list) else [c]
-               for c in (ch["count"] for ch in self.chunks)]
-        host = iter(fetch_coalesced([c for cs in per for c in cs]))
-        kept = []
-        for ch, cs in zip(self.chunks, per):
-            ch["counts"] = [int(next(host)) for _ in cs]
-            if any(ch["counts"]):
-                kept.append(ch)
-        self.chunks = kept
-        self._total = sum(sum(ch["counts"]) for ch in kept)
+        """Fetch the match counts (scalars only, one a part) and prune
+        the parts that matched nothing.  Idempotent; returns the total
+        match count."""
+        if self._total is None:
+            counts = fetch_coalesced([p.count for p in self.parts])
+            self.parts = [p._replace(count=int(c))
+                          for p, c in zip(self.parts, counts) if int(c)]
+            self._total = sum(p.count for p in self.parts)
         return self._total
-
-    def parts(self) -> int:
-        """After :meth:`resolve`: the compacted parts, each ordered on
-        its card (a chunk, or a shard of a sharded round, with matches)."""
-        return sum(1 for ch in self.chunks for m in ch["counts"] if m)
-
-    def host_merged_rows(self) -> int:
-        """After :meth:`resolve`: the rows :meth:`materialize` merges on
-        the host (all of them when there are several parts, else 0)."""
-        return self._total if self.parts() > 1 else 0
-
-    _KEYS = ("emit", "f", "i", "anchor")
 
     def device_arrays(self) -> List[torch.Tensor]:
         """After :meth:`resolve`: each part's matches compacted on its
@@ -1897,32 +1900,20 @@ class DeferredDenseEmit:
         :func:`compact_matches`.  The counts size the compaction, so
         nothing waits for the device here."""
         arrs: List[torch.Tensor] = []
-        for ch in self.chunks:
-            banks = [ch[k] if isinstance(ch[k], list) else [ch[k]]
-                     for k in self._KEYS]
-            row0 = 0
-            for (emit, f, i, anchor), m in zip(zip(*banks), ch["counts"]):
-                if m:
-                    arrs.extend(compact_matches(emit, f, i, anchor, m, row0))
-                row0 += emit.shape[0]
+        for p in self.parts:
+            arrs.extend(compact_matches(p.emit, p.f, p.i, p.anchor, p.count))
         return arrs
 
     def materialize(self, host_arrays
                     ) -> Tuple[np.ndarray, MatchColumns]:
         """The fetched parts as ``(ev [m] int64, MatchColumns)`` in the
-        match-ordering contract, (event index, arming anchor, lane).
-        Each part arrives in (row, anchor, lane) order and its ``ridx``
-        rises, so one part is final.  Several parts (a batch's collision
-        rounds, a sharded round's shards) hold disjoint events, each
-        event's matches together and in order: one stable argsort on the
-        event index merges them."""
+        match-ordering contract.  Each part arrives in (row, anchor,
+        lane) order and its ``ridx`` rises, so one part is final.
+        Several parts (a batch's collision rounds, a sharded batch's
+        shards) hold disjoint events, each event's matches together and
+        in order: one stable argsort on the event index merges them."""
         heads, flts = host_arrays[0::2], host_arrays[1::2]
-        evs = []
-        rows = iter(head[:, 0] for head in heads)
-        for ch in self.chunks:
-            for m in ch["counts"]:
-                if m:
-                    evs.append(ch["ridx"][next(rows)])
+        evs = [p.ridx[head[:, 0]] for p, head in zip(self.parts, heads)]
         if len(heads) == 1:
             ev, head, f = evs[0], heads[0], flts[0]
         else:
@@ -1932,7 +1923,30 @@ class DeferredDenseEmit:
             head = np.concatenate(heads)[order]
             f = np.concatenate(flts)[order]
         return (ev.astype(np.int64, copy=False),
-                MatchColumns(self.engine.out_int, head[:, 1:], f))
+                MatchColumns(self.engine, head[:, 1:], f))
+
+    def pending_emit(self, deliver: Callable, trace=None) -> PendingEmit:
+        """After :meth:`resolve`, with matches: the emit queue's entry,
+        whose materializer hands ``deliver`` the ``(ev, MatchColumns)``
+        of :meth:`materialize`.  It counts the parts compacted and, when
+        there are several, the rows merged on the host."""
+        n = len(self.parts)
+        return PendingEmit(
+            self.device_arrays(),
+            lambda host: deliver(*self.materialize(host)), trace=trace,
+            compacted=n, host_merged=self._total if n > 1 else 0)
+
+    def rows(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Resolve, fetch and materialize at once: ``(ev [m] int64,
+        out [m, n_out])`` as ``process`` returns them, ``out`` as
+        :meth:`MatchColumns.matrix` gives it; an empty float32 matrix
+        when nothing matched."""
+        if self.resolve() == 0:
+            return (np.empty(0, dtype=np.int64),
+                    np.empty((0, max(len(self.engine.out_spec), 1)),
+                             dtype=np.float32))
+        ev, out = self.materialize(fetch_coalesced(self.device_arrays()))
+        return ev, out.matrix()
 
 
 def match_order(row: torch.Tensor, anchor: torch.Tensor, lane: torch.Tensor,
@@ -1975,20 +1989,6 @@ def compact_matches(emit: torch.Tensor, f: torch.Tensor, i: torch.Tensor,
     pairs = i[r, lane].to(torch.int64)
     ints = pairs[:, 0::2] * 2**32 + (pairs[:, 1::2] + 2**31)
     return [torch.cat([(r + row0)[:, None], ints], dim=1), f[r, lane]]
-
-
-def flatten_match_parts(ev_parts, out_parts, key_parts, n_out: int
-                        ) -> Tuple[np.ndarray, np.ndarray]:
-    """Concatenate per-chunk match fragments and order them by
-    (event index, arming anchor, lane): the match-ordering contract."""
-    if not ev_parts:
-        return (np.empty(0, dtype=np.int64),
-                np.empty((0, n_out), dtype=np.float32))
-    ev = np.concatenate(ev_parts)
-    out = np.concatenate(out_parts)
-    keys = np.concatenate(key_parts)
-    order = np.lexsort((keys[:, 2], keys[:, 1], keys[:, 0]))
-    return ev[order].astype(np.int64), out[order]
 
 
 def partition_segments(part_idx: np.ndarray

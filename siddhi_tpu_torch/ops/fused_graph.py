@@ -53,7 +53,9 @@ one count a batch gates it, and the count stays a device scalar until
 ``resolve`` fetches it in one ``fetch_coalesced``; matched rows stay on
 the device until the queue drains, and ``FusedDeferredEmit.materialize``
 gives what the junction path's tail query would have emitted for the
-batch.
+batch.  A dense tail's batch is one part of a ``DeferredDenseEmit``,
+whose matches are compacted and ordered on the device as every dense
+emit's are.
 """
 
 from __future__ import annotations
@@ -63,11 +65,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from siddhi_tpu_torch.core.dense_pattern import output_attr_types
 from siddhi_tpu_torch.core.emit_queue import fetch_coalesced
 from siddhi_tpu_torch.core.exceptions import SiddhiAppCreationError
 from siddhi_tpu_torch.core.ingest_stage import staged_put
-from siddhi_tpu_torch.ops.dense_nfa import _INT_TYPES, flatten_match_parts
+from siddhi_tpu_torch.ops.dense_nfa import _INT_TYPES, DeferredDenseEmit
 from siddhi_tpu_torch.ops.device_query import (
     MAX_DEVICE_BATCH,
     _pow2,
@@ -133,13 +134,10 @@ class FusedGraphEngine:
                     (a, kind, v, sdef.attribute_type(a) in _INT_TYPES))
             self.tail_kind = TAIL_DENSE
             self.output_names = list(dense_tail.output_names)
-            self.out_dtypes = [
-                t.np_dtype for t in output_attr_types(dense_tail)]
         else:
             tail = stages[-1]
             self.tail_kind = TAIL_DEVICE
             self.output_names = list(tail.output_names)
-            self.out_dtypes = [t.np_dtype for t in tail.out_types]
             # tail passthroughs gather the tail's input lanes on the host;
             # those lanes are float32/int32/bool here, so only types
             # whose lane is exact may ride them (the planner checks)
@@ -294,7 +292,7 @@ class FusedGraphEngine:
                 else -(-n // MAX_DEVICE_BATCH) * MAX_DEVICE_BATCH)
 
     def _batch(self, states: Tuple, cols: Dict[str, np.ndarray],
-               ts: np.ndarray) -> Tuple[Tuple, List[dict]]:
+               ts: np.ndarray) -> Tuple[Tuple, List]:
         n = len(ts)
         states, host = self._host_batch(states, cols, ts,
                                         self._pad_batch(n))
@@ -352,23 +350,20 @@ class FusedGraphEngine:
         valid[:n] = True
         return states, (c, tuple(rels), grp, valid)
 
-    def _chunk(self, res, n: int, ts: np.ndarray) -> dict:
-        """A step's outputs as one emit chunk of ``n`` rows."""
-        if self.tail_kind == TAIL_DEVICE:
-            _states, emitmask, out, fwd, count = res
-            chunk = {
-                "kind": TAIL_DEVICE, "emitmask": emitmask,
-                "out": dict(out), "names": list(out),
-                "fwd": dict(fwd), "fwd_names": list(fwd),
-                "count": count, "n": n, "ts": ts,
-            }
-        else:
+    def _chunk(self, res, n: int, ts: np.ndarray):
+        """A step's outputs over ``n`` rows: a device tail's emit chunk,
+        or a dense tail's ``DeferredDenseEmit`` of one part."""
+        if self.tail_kind == TAIL_DENSE:
             _states, emitmask, out_f, out_i, anchor, count = res
-            chunk = {
-                "kind": TAIL_DENSE, "emitmask": emitmask, "f": out_f,
-                "i": out_i, "anchor": anchor, "count": count, "n": n,
-            }
-        return chunk
+            pending = DeferredDenseEmit(self.dense)
+            pending.add(emitmask, out_f, out_i, anchor, count, np.arange(n))
+            return pending
+        _states, emitmask, out, fwd, count = res
+        return {
+            "emitmask": emitmask, "out": dict(out), "names": list(out),
+            "fwd": dict(fwd), "fwd_names": list(fwd),
+            "count": count, "n": n, "ts": ts,
+        }
 
 
 class FusedDeferredEmit:
@@ -376,18 +371,24 @@ class FusedDeferredEmit:
     drain: ``resolve`` fetches only the count scalars, then
     ``device_arrays`` and ``materialize`` give what the junction path's
     tail query would have emitted for the batch (one ``EventBatch``
-    worth of columns, in the declared output dtypes)."""
+    worth of columns, in the declared output dtypes).  A dense tail's
+    batch is its one ``DeferredDenseEmit`` (``dense``), a device tail's
+    its emit chunks."""
 
-    __slots__ = ("graph", "chunks", "ts64", "_total")
+    __slots__ = ("graph", "chunks", "dense", "ts64", "_total")
 
-    def __init__(self, graph: FusedGraphEngine, chunks: List[dict],
+    def __init__(self, graph: FusedGraphEngine, chunks: List,
                  ts64: np.ndarray):
         self.graph = graph
-        self.chunks = chunks
+        dense = graph.tail_kind == TAIL_DENSE
+        self.dense: Optional[DeferredDenseEmit] = chunks[0] if dense else None
+        self.chunks: List[dict] = [] if dense else chunks
         self.ts64 = ts64
         self._total: Optional[int] = None
 
     def resolve(self) -> int:
+        if self.dense is not None:
+            return self.dense.resolve()
         if self._total is not None:
             return self._total
         counts = (fetch_coalesced([ch["count"] for ch in self.chunks])
@@ -397,21 +398,21 @@ class FusedDeferredEmit:
         return self._total
 
     def device_arrays(self) -> List:
+        if self.dense is not None:
+            return self.dense.device_arrays()
         arrs: List = []
         for ch in self.chunks:
             arrs.append(ch["emitmask"])
-            if ch["kind"] == TAIL_DEVICE:
-                arrs.extend(ch["out"][nm] for nm in ch["names"])
-                arrs.extend(ch["fwd"][k] for k in ch["fwd_names"])
-            else:
-                arrs.extend((ch["f"], ch["i"], ch["anchor"]))
+            arrs.extend(ch["out"][nm] for nm in ch["names"])
+            arrs.extend(ch["fwd"][k] for k in ch["fwd_names"])
         return arrs
 
     def materialize(self, host_arrays
                     ) -> Tuple[Dict[str, np.ndarray], np.ndarray]:
-        if self.graph.tail_kind == TAIL_DEVICE:
-            return self._materialize_device(host_arrays)
-        return self._materialize_dense(host_arrays)
+        if self.dense is not None:
+            ev, out = self.dense.materialize(host_arrays)
+            return out.columns(), self.ts64[ev]
+        return self._materialize_device(host_arrays)
 
     def _materialize_device(self, host):
         tail = self.graph.stages[-1]
@@ -441,26 +442,3 @@ class FusedDeferredEmit:
         out_cols = {nm: np.concatenate([p[nm] for p in col_parts])
                     for nm in tail.output_names}
         return out_cols, np.concatenate(ts_parts)
-
-    def _materialize_dense(self, host):
-        g = self.graph
-        eng = g.dense
-        pos = 0
-        ev_parts: List[np.ndarray] = []
-        out_parts: List[np.ndarray] = []
-        key_parts: List[np.ndarray] = []
-        for ch in self.chunks:
-            em, f_h, i_h, anchor = host[pos:pos + 4]
-            pos += 4
-            if not em.any():
-                continue
-            rows, lanes = np.nonzero(em)
-            ev_parts.append(rows)
-            out_parts.append(eng.assemble_out(f_h, i_h, rows, lanes))
-            key_parts.append(np.stack(
-                [rows, anchor[rows, lanes], lanes], axis=1))
-        ev, out = flatten_match_parts(
-            ev_parts, out_parts, key_parts, max(len(eng.out_spec), 1))
-        out_cols = {nm: out[:, oi].astype(g.out_dtypes[oi])
-                    for oi, nm in enumerate(g.output_names)}
-        return out_cols, self.ts64[ev]

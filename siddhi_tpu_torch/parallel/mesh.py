@@ -194,9 +194,9 @@ class ShardedPatternEngine:
     to its device in one ``staged_put``.  Each shard with events then
     runs the engine's own step on its rows: one ``batch_step`` launch
     (the ``dense_batch`` kernel) for a capture-free chain, else the
-    general step a collision round.  The shards' match counts and
-    outputs stay on their devices until the count gate, in shard order
-    in the ``DeferredDenseEmit``; each shard compacts its own matches
+    general step a collision round.  Each shard's step is a part of its
+    own in the ``DeferredDenseEmit``: its match count and outputs stay
+    on its device until the count gate, and it compacts its own matches
     there.
 
     It keeps the engine's state surface (``process_deferred`` with its
@@ -370,22 +370,14 @@ class ShardedPatternEngine:
 
     def process(self, state, part: np.ndarray, cols: Dict[str, np.ndarray],
                 ts: np.ndarray):
-        """Mirror of ``DensePatternEngine.process`` for this wrapper's
-        stream: splits collision rounds, normalizes timestamps, and
-        flattens per-instance matches back to input order.  Returns
-        ``(state, match_ev_idx[m], out[m, n_out], total_matches)``."""
-        from siddhi_tpu_torch.ops.dense_nfa import flatten_match_parts
+        """``DensePatternEngine.process`` for this wrapper's stream.
+        Returns ``(state, match_ev_idx[m], out[m, n_out], total_matches)``."""
+        from siddhi_tpu_torch.ops.dense_nfa import DeferredDenseEmit
 
         state, pending = self.process_deferred(state, self.stream_key, part,
                                                cols, ts)
-        total = pending.resolve() if pending is not None else 0
-        if total == 0:
-            ev, out = flatten_match_parts(
-                [], [], [], max(len(self.engine.out_spec), 1))
-            return state, ev, out, total
-        ev, out = pending.materialize(fetch_coalesced(
-            pending.device_arrays()))
-        return state, ev, out.matrix(), total
+        ev, out = (pending or DeferredDenseEmit(self.engine)).rows()
+        return state, ev, out, len(ev)
 
     def process_deferred(self, state: ShardedState, stream_key: str,
                          part: np.ndarray, cols: Dict[str, np.ndarray],
@@ -424,13 +416,13 @@ class ShardedPatternEngine:
             # one dense_batch launch a shard with events, on its rows
             by_shard = np.argsort(owner, kind="stable")
             ends = np.cumsum(np.bincount(owner, minlength=n_shards))
-            parts = [(s, by_shard[lo:hi]) for s, (lo, hi) in
-                     enumerate(zip(np.r_[0, ends[:-1]], ends)) if hi > lo]
-            chunks = [eng.batch_chunk(
-                state.shards[s], stream_key, local[rows],
-                {k: v[rows] for k, v in prepared.items()}, rel[rows],
-                self.mesh[s], rows) for s, rows in parts]
-            pending.chunks.append(self._merge(chunks))
+            for s, (lo, hi) in enumerate(zip(np.r_[0, ends[:-1]], ends)):
+                if hi > lo:
+                    rows = by_shard[lo:hi]
+                    eng.batch_chunk(
+                        pending, state.shards[s], stream_key, local[rows],
+                        {k: v[rows] for k, v in prepared.items()}, rel[rows],
+                        self.mesh[s], rows)
             return state, pending
         order, bounds = _round_order(part)
         n_rounds = len(bounds) - 1
@@ -454,7 +446,6 @@ class ShardedPatternEngine:
                 self.mesh[s], eng.ingest_stats, faults)
             per_shard.append((s, rows, rb, dev_in))
         for r in range(n_rounds):
-            chunks = []
             for s, rows, rb, (part_d, rel_d, cols_d) in per_shard:
                 lo, hi = int(rb[r]), int(rb[r + 1])
                 if hi == lo:
@@ -465,17 +456,6 @@ class ShardedPatternEngine:
                     state.shards[s], part_d[lo:hi],
                     {k: v[lo:hi] for k, v in cols_d.items()},
                     rel_d[lo:hi], valid)
-                chunks.append({"emit": emit, "f": outs["f"],
-                               "i": outs["i"], "anchor": anchor,
-                               "ridx": rows[lo:hi], "count": n_emit})
-            pending.chunks.append(self._merge(chunks))
+                pending.add(emit, outs["f"], outs["i"], anchor, n_emit,
+                            rows[lo:hi])
         return state, pending
-
-    def _merge(self, chunks) -> dict:
-        """The shards' chunks of one step as one ``DeferredDenseEmit``
-        chunk: their outputs and counts as lists in shard order (each
-        shard compacts its own matches, sized by its own count)."""
-        out = {k: [c[k] for c in chunks]
-               for k in ("emit", "f", "i", "anchor", "count")}
-        out["ridx"] = np.concatenate([c["ridx"] for c in chunks])
-        return out

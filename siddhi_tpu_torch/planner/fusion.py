@@ -56,10 +56,7 @@ from __future__ import annotations
 import logging
 from typing import Dict, List, Optional, Set, Tuple
 
-from siddhi_tpu_torch.core.dense_pattern import (
-    build_dense_engine,
-    output_attr_types,
-)
+from siddhi_tpu_torch.core.dense_pattern import build_dense_engine
 from siddhi_tpu_torch.core.exceptions import (
     SiddhiAppCreationError,
     SiddhiAppRuntimeError,
@@ -509,10 +506,8 @@ def _wire_chain(app, entries, run: List[int], hops: List[str],
     names, persistence layout and ``lowering()`` stay uniform."""
     ctx = app.app_context
     tail_q, tail_name = entries[run[-1]]
-    if graph.dense is not None:
-        out_types = output_attr_types(graph.dense)
-    else:
-        out_types = graph.stages[-1].out_types
+    tail = graph.dense if graph.dense is not None else graph.stages[-1]
+    out_types = tail.out_types
     out_target = (getattr(tail_q.output_stream, "target", None)
                   or f"__ret_{tail_name}")
     out_attrs = [Attribute(nm, t)

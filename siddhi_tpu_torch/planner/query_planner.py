@@ -69,7 +69,6 @@ from siddhi_tpu_torch.core.dense_pattern import (
     DensePatternRuntime,
     DenseStreamReceiver,
     build_dense_engine,
-    output_attr_types,
 )
 from siddhi_tpu_torch.core.exceptions import (
     DefinitionNotExistError,
@@ -1068,7 +1067,7 @@ def plan_dense_state(app, query: Query, name: str, st,
         selector = passthrough_selector(sel, engine.output_names, out_target)
         out_def = StreamDefinition(id=out_target, attributes=[
             Attribute(nm, t) for nm, t in
-            zip(engine.output_names, output_attr_types(engine))])
+            zip(engine.output_names, engine.out_types)])
     output = plan_output(app, query, out_def, name)
     rate_limiter = plan_rate_limiter(query)
     qr = QueryRuntime(name, [[]], selector, rate_limiter, output, ctx)

@@ -1954,7 +1954,8 @@ def test_dense_every_rearm_under_the_sync_guard(cuda_device):
 
 
 @pytest.mark.parametrize("name", ["general_via", "batch_chunk", "sharded",
-                                  "multiplex", "full_lanes", "one_row"])
+                                  "multiplex", "fused", "full_lanes",
+                                  "one_row"])
 def test_compacted_emit_on_card_equals_the_dense_selection(cuda_device,
                                                            name):
     """``test_torch_emit_compaction.py``'s cases on the card: the

@@ -1,12 +1,13 @@
 """The dense emit's compaction on the device, held against a NumPy
 selection over the dense banks.
 
-``DeferredDenseEmit.device_arrays()`` compacts each chunk's matches on
+``DeferredDenseEmit.device_arrays()`` compacts each part's matches on
 its device after the count gate, so only the matched rows cross.  Every
-holder of a ``DeferredDenseEmit`` is a case: a general round with bank-1
-(via-path) lanes, a ``batch_chunk`` chunk of the capture-free step, a
-sharded round (a list a shard), a multiplexed dense group, a chunk whose
-matches fill every lane of bank 0, and a round of one row.  For each,
+producer of a ``DeferredDenseEmit`` is a case: a general round with
+bank-1 (via-path) lanes, a ``batch_chunk`` part of the capture-free
+step, a sharded batch (a part a shard's step), a multiplexed dense
+group, a fused chain's dense tail, a part whose matches fill every lane
+of bank 0, and a round of one row.  For each,
 ``materialize(fetch_coalesced(device_arrays()))`` must give what the
 selection written here gives from the dense banks: ``np.nonzero`` over
 the emit masks, the outputs gathered at the set lanes (integer outputs
@@ -16,9 +17,8 @@ rows on the device: the order tests hold ``compact_matches`` and
 ``match_order`` (the packed key and its fallback past 63 bits) to that
 lexsort, the types tests hold the device's int64 join to ``_i64_join``
 and a ``StreamCallback``'s columns to the object matrix's.  The counter
-tests hold ``compactedChunks``, ``cardOrderedChunks``,
-``hostMergedRows`` and ``emitBytes`` of the runtime's statistics feed to
-the compacted parts, rows and bytes.
+tests hold ``compactedChunks``, ``hostMergedRows`` and ``emitBytes`` of
+the runtime's statistics feed to the compacted parts, rows and bytes.
 """
 
 from __future__ import annotations
@@ -64,16 +64,14 @@ def _join(hi: np.ndarray, lo: np.ndarray) -> list:
 
 
 def selection(eng, pending):
-    """The matches of ``pending``'s chunks selected on the host from
-    their dense banks (a sharded round's shards end to end)."""
+    """The matches of ``pending``'s parts selected on the host from
+    their dense banks."""
     evs, anchors, lanes_all, cols = [], [], [], []
-    for ch in pending.chunks:
-        emit, f, i, anchor = (
-            np.concatenate([t.cpu().numpy() for t in ch[k]])
-            if isinstance(ch[k], list) else ch[k].cpu().numpy()
-            for k in ("emit", "f", "i", "anchor"))
+    for p in pending.parts:
+        emit, f, i, anchor = (t.cpu().numpy()
+                              for t in (p.emit, p.f, p.i, p.anchor))
         rows, lanes = np.nonzero(emit)
-        evs.append(ch["ridx"][rows].astype(np.int64))
+        evs.append(p.ridx[rows].astype(np.int64))
         anchors.append(anchor[rows, lanes].astype(np.int64))
         lanes_all.append(lanes.astype(np.int64))
         out, ii = [], 0
@@ -152,8 +150,8 @@ def case_general_via(rng, device="cpu"):
     assert eng.step_kind == "general"
     _s, pending = eng.process_deferred(eng.init_state(), *_kleene_batch(rng))
     assert pending.resolve() > 0
-    assert sum(int(ch["emit"][:, eng.I:].sum()) for ch in pending.chunks)
-    assert len(pending.chunks) > 1
+    assert sum(int(p.emit[:, eng.I:].sum()) for p in pending.parts)
+    assert len(pending.parts) > 1
     return eng, pending
 
 
@@ -170,7 +168,7 @@ def case_batch_chunk(rng, device="cpu"):
     assert eng.step_kind == "batch"
     _s, pending = eng.process_deferred(eng.init_state(),
                                        *_chain_batch(rng, 200, 16))
-    assert len(pending.chunks) == 1
+    assert len(pending.parts) == 1
     return eng, pending
 
 
@@ -179,13 +177,19 @@ def case_sharded(rng, device="cpu"):
         CHAIN.format(sel="e1.key as k, e1.v as a, e3.v as v"), "q",
         n_partitions=32, n_instances=4, device=device)
     stepper = ShardedPatternEngine(eng, make_mesh(4, device=device))
-    _s, pending = stepper.process_deferred(stepper.init_state(),
-                                           *_chain_batch(rng, 160, 32))
+    stream, part, cols, ts = _chain_batch(rng, 160, 32)
+    _s, pending = stepper.process_deferred(stepper.init_state(), stream,
+                                           part, cols, ts)
+    # one part a shard's step (the general step's: one a collision round
+    # of each shard with events in it), each of one shard's events
+    shard = part // stepper.parts_per_shard
+    assert all(len(np.unique(shard[p.ridx])) == 1 for p in pending.parts)
+    assert len(pending.parts) == sum(
+        int(np.bincount(part[shard == s]).max()) for s in np.unique(shard))
+    stepped = len(pending.parts)
     assert pending.resolve() > 0
-    assert all(isinstance(ch["emit"], list) and len(ch["emit"]) > 1
-               for ch in pending.chunks)
-    # a shard without a match compacts nothing
-    assert any(0 in ch["counts"] for ch in pending.chunks)
+    # a shard's step without a match compacts nothing
+    assert 1 < len(pending.parts) < stepped
     return eng, pending
 
 
@@ -202,8 +206,8 @@ def case_full_lanes(rng, device="cpu"):
     _s, pending = eng.process_deferred(
         eng.init_state(), "Txn", part,
         {"key": EDGE_KEYS[part % len(EDGE_KEYS)], "v": v}, ts)
-    assert pending.resolve() == I * P and len(pending.chunks) == 1
-    assert bool(pending.chunks[0]["emit"][:, :I].all())
+    assert pending.resolve() == I * P and len(pending.parts) == 1
+    assert bool(pending.parts[0].emit[:, :I].all())
     return eng, pending
 
 
@@ -220,7 +224,7 @@ def case_one_row(rng, device="cpu"):
                                       "v": np.array([150.0])},
         np.array([1003], dtype=np.int64))
     assert pending.resolve() == 2
-    assert [ch["emit"].shape[0] for ch in pending.chunks] == [1]
+    assert [p.emit.shape[0] for p in pending.parts] == [1]
     return eng, pending
 
 
@@ -272,9 +276,72 @@ def case_multiplex(rng, device="cpu", tenants=3):
     return eng, made
 
 
+FUSED = ("@app:name('fz') @app:playback @app:execution('tpu') @app:fuse "
+         "define stream SIn (sym int, price float, vol int); "
+         "define stream Mid (sym int, price float, vol int); "
+         "define stream Win (sym int, total double); "
+         "@info(name='q1') from SIn[price > 5.0] "
+         "select sym, price, vol insert into Mid; "
+         "@info(name='q2') from Mid#window.length(4) "
+         "select sym, sum(price) as total insert into Win; "
+         "@info(name='q3') from every e1=Win[total > 30.0] "
+         "-> e2=Win[total > e1.total] "
+         "select e1.sym as s1, e1.total as t1, e2.total as t2 "
+         "insert into Out;")
+
+
+def case_fused(rng, device="cpu"):
+    """A fused chain's dense tail (filter, ``length(4)`` sum, pattern):
+    each batch's ``FusedDeferredEmit``, recorded as the chain makes it,
+    must give the selection's rows as the tail's typed columns, stamped
+    with their events' times; its ``DeferredDenseEmit`` is the case."""
+    from siddhi_tpu_torch import SiddhiManager
+
+    m = SiddhiManager(device=device)
+    try:
+        rt = m.create_siddhi_app_runtime(FUSED)
+        rt.start()
+        graph = rt.query_runtimes["q3"].device_runtime.graph
+        eng = graph.dense
+        made = []
+        orig = graph.process_batch_deferred
+
+        def record(*a, **kw):
+            states, pending = orig(*a, **kw)
+            made.append(pending)
+            return states, pending
+        graph.process_batch_deferred = record
+        for i in range(4):
+            n = 300 + 37 * i
+            rt.get_input_handler("SIn").send_batch(EventBatch(
+                "SIn", ["sym", "price", "vol"], {
+                    "sym": rng.integers(0, 5, n).astype(np.int32),
+                    "price": rng.uniform(0, 30, n).astype(np.float32),
+                    "vol": rng.integers(1, 100, n).astype(np.int32)},
+                1000 + 10 * i + np.arange(n, dtype=np.int64)))
+        rt.shutdown()
+    finally:
+        m.shutdown()
+    made = [p for p in made if p is not None and p.resolve()]
+    assert made and all(len(p.dense.parts) == 1 for p in made)
+    for p in made:
+        cols, ts = p.materialize(fetch_coalesced(p.device_arrays()))
+        want_ev, want_cols = selection(eng, p.dense)
+        assert np.array_equal(ts, p.ts64[want_ev])
+        for oi, nm in enumerate(eng.output_names):
+            want = np.asarray(want_cols[oi], dtype=(
+                np.int64 if eng.out_int[oi] else np.float32))
+            want = want.astype(eng.out_dtypes[oi])
+            assert cols[nm].dtype == want.dtype
+            assert np.array_equal(cols[nm].view(np.uint8),
+                                  want.view(np.uint8))
+    return eng, [p.dense for p in made]
+
+
 CASES = {"general_via": case_general_via, "batch_chunk": case_batch_chunk,
          "sharded": case_sharded, "multiplex": case_multiplex,
-         "full_lanes": case_full_lanes, "one_row": case_one_row}
+         "fused": case_fused, "full_lanes": case_full_lanes,
+         "one_row": case_one_row}
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -296,11 +363,10 @@ COUNTED = ("@app:playback @app:statistics('true') "
 
 
 def test_emit_counters_count_the_compacted_bytes():
-    """``compactedChunks`` counts the chunks with matches,
-    ``cardOrderedChunks`` the parts ordered on the device (here one a
-    chunk), ``hostMergedRows`` the rows of a batch of several rounds and
-    ``emitBytes`` the compacted tensors' bytes (an int64 ``[m, 1 +
-    n_int]`` and a float32 ``[m, O]`` a chunk); a batch with no match
+    """``compactedChunks`` counts the parts with matches (here one a
+    collision round), ``hostMergedRows`` the rows of a batch of several
+    rounds and ``emitBytes`` the compacted tensors' bytes (an int64 ``[m,
+    1 + n_int]`` and a float32 ``[m, O]`` a part); a batch with no match
     adds to none.  All are in the statistics feed."""
     from siddhi_tpu_torch import SiddhiManager
 
@@ -322,12 +388,12 @@ def test_emit_counters_count_the_compacted_bytes():
                 t0 + np.arange(len(keys), dtype=np.int64)))
 
         def counters():
-            return (stats.compacted_chunks, stats.card_ordered_chunks,
-                    stats.host_merged_rows, stats.emit_bytes)
+            return (stats.compacted_chunks, stats.host_merged_rows,
+                    stats.emit_bytes)
 
         # arming only: no match
         send([5, 6, 5], [1.0, 2.0, 3.0], 1000)
-        assert counters() == (0, 0, 0, 0)
+        assert counters() == (0, 0, 0)
         # key 5 collides, so its second event lands in round 2: round 1
         # completes key 5's two instances and key 6's one, round 2 the
         # instance key 5's first event armed
@@ -337,7 +403,6 @@ def test_emit_counters_count_the_compacted_bytes():
         O = max(len(eng.out_spec), 1)
         assert len(got) == 4
         assert stats.compacted_chunks == 2
-        assert stats.card_ordered_chunks == 2
         assert stats.host_merged_rows == len(got)
         assert stats.emit_bytes == len(got) * (8 * (1 + n_int) + 4 * O)
         before = counters()
@@ -346,7 +411,7 @@ def test_emit_counters_count_the_compacted_bytes():
         feed = {k.rsplit(".", 1)[1]: v for k, v in rt.statistics().items()
                 if ".Queries.q." in k}
         assert feed["compactedChunks"] == stats.compacted_chunks
-        assert feed["cardOrderedChunks"] == stats.card_ordered_chunks
+        assert "cardOrderedChunks" not in feed
         assert feed["hostMergedRows"] == stats.host_merged_rows
         assert feed["emitBytes"] == stats.emit_bytes
         rt.shutdown()
@@ -406,12 +471,12 @@ def test_card_order_equals_the_host_lexsort(kind):
     rng = np.random.default_rng(7)
     if kind == "general_rounds":
         eng, pending = case_general_via(rng)
-        assert len(pending.chunks) >= 2 and pending.parts() >= 2
+        assert len(pending.parts) >= 2
         assert check(eng, pending) > 0
         return
     if kind == "sharded":
         eng, pending = case_sharded(rng)
-        assert pending.parts() >= 2
+        assert len(pending.parts) >= 2
         assert check(eng, pending) > 0
         return
     if kind == "past_63_bits":
@@ -496,7 +561,6 @@ def test_stream_callback_gets_the_object_matrix_columns(monkeypatch, name,
     values) and cast to its attribute's type, so a long arrives as
     int64 and a double as float64, value for value."""
     from siddhi_tpu_torch import SiddhiManager
-    from siddhi_tpu_torch.core.dense_pattern import output_attr_types
     from siddhi_tpu_torch.core.stream import StreamCallback
     from siddhi_tpu_torch.ops.dense_nfa import DeferredDenseEmit
 
@@ -537,7 +601,7 @@ def test_stream_callback_gets_the_object_matrix_columns(monkeypatch, name,
         (runtime,) = rt.pattern_runtimes().values()
         assert runtime.engine.step_kind == route
         names = runtime.engine.output_names
-        types = dict(zip(names, output_attr_types(runtime.engine)))
+        types = dict(zip(names, runtime.engine.out_types))
         rt.shutdown()
     finally:
         mgr.shutdown()
@@ -564,7 +628,7 @@ ORDERED = ("@app:playback @app:statistics('true') "
 
 
 def test_batch_route_orders_one_chunk_a_batch_on_the_card():
-    """The batch route: one ``cardOrderedChunks`` for each batch with
+    """The batch route: one ``compactedChunks`` for each batch with
     matches, none for a batch without, and no ``hostMergedRows``, even
     when a key sees several events in a batch."""
     from siddhi_tpu_torch import SiddhiManager
@@ -592,12 +656,12 @@ def test_batch_route_orders_one_chunk_a_batch_on_the_card():
                                       "v": np.asarray(vs, np.float64)},
                 1000 * (c + 1) + np.arange(len(keys), dtype=np.int64)))
             with_rows += len(got) > before
-            assert stats.card_ordered_chunks == with_rows
+            assert stats.compacted_chunks == with_rows
             assert stats.host_merged_rows == 0
         assert with_rows == 2 and len(got) > 2
         feed = {k.rsplit(".", 1)[1]: v for k, v in rt.statistics().items()
                 if ".Queries.q." in k}
-        assert feed["cardOrderedChunks"] == with_rows
+        assert feed["compactedChunks"] == with_rows
         assert feed["hostMergedRows"] == 0
         rt.shutdown()
     finally:

@@ -322,8 +322,8 @@ def test_one_put_and_no_host_read_inside_the_rounds(monkeypatch):
     state, pending = te.process_deferred(te.init_state(), "S", part, cols,
                                          1000 + np.arange(7))
     monkeypatch.undo()
-    assert len(puts) == 1 and len(pending.chunks) == 4
-    assert [len(ch["ridx"]) for ch in pending.chunks] == [3, 2, 1, 1]
+    assert len(puts) == 1 and len(pending.parts) == 4
+    assert [len(p.ridx) for p in pending.parts] == [3, 2, 1, 1]
     assert pending.resolve() == 4  # 11->13->14->17 on row 0, 12->16 on 1
 
 

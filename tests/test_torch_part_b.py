@@ -371,7 +371,7 @@ def test_dense_brute_force_kleene():
     assert n == 1
     _s, pending = te.process_deferred(te.init_state(), *batch)
     pending.resolve()
-    assert sum(int(ch["emit"][:, te.I:].sum()) for ch in pending.chunks) == 1
+    assert sum(int(p.emit[:, te.I:].sum()) for p in pending.parts) == 1
 
 
 def test_dense_logical_and_two_streams():
